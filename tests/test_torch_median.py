@@ -1,0 +1,193 @@
+"""The port's medians against zen_tpu's, BITWISE.
+
+A median of an odd tap count is pure selection (jnp.median, the Pallas
+networks and the port's kthvalue twins and CUDA kernels all pick
+sorted[(K-1)/2]), so every comparison here is assert_array_equal: no
+tolerance. Inputs are continuous random values from numpy, with no
+signed zeros, handed to both packages.
+
+The Pallas kernels run as tests/test_pallas.py runs them on the CPU:
+in TPU interpret mode. The CUDA kernels against these same twins are
+in tests/test_torch_cuda.py (card only).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from zen_tpu.ops import median_pallas as mp  # noqa: E402
+from zen_tpu.ops.median import sliding_median as jax_sliding_median  # noqa: E402
+from zen_tpu_torch import ZenError  # noqa: E402
+from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
+from zen_tpu_torch.ops.median import sliding_median  # noqa: E402
+
+T1024 = (-5, -1, 0)
+T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))
+
+
+@pytest.fixture(autouse=True)
+def maybe_interpret(monkeypatch):
+    if jax.default_backend() != "tpu":
+        from jax.experimental.pallas import tpu as pltpu
+
+        ctx = pltpu.force_tpu_interpret_mode()
+        ctx.__enter__()
+        yield
+        ctx.__exit__(None, None, None)
+    else:
+        yield
+
+
+def _mags(rng, *shape):
+    return (rng.random(shape, dtype=np.float32) + np.float32(1e-3))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# ---------------- plain twins vs zen_tpu.ops.median ----------------
+
+
+@pytest.mark.parametrize("fill", [0.0, float("inf")])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start",
+    [
+        ((1, 5, 2049), (1, 32, 2049), T1024, 5),  # hop 1024, B = 32
+        ((4, 21, 513), (4, 32, 513), T256, 21),  # hop 256 fleet, B = 32
+        ((1, 6, 2049), (1, 0, 2049), T1024, 5),  # hop 1024, B = 1 (one input)
+    ],
+)
+def test_time_plain_matches_jax(a_shape, b_shape, offsets, start, fill):
+    rng = np.random.default_rng(1)
+    a, b = _mags(rng, *a_shape), _mags(rng, *b_shape)
+    want = np.asarray(
+        jax_sliding_median(
+            jnp.concatenate([a, b], axis=-2), offsets, -2, "zero", fill=fill
+        )[..., start:, :]
+    )
+    got = mc.tap_median_time(_t(a), _t(b), offsets, start, fill).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "rows,f,k,mode",
+    [
+        (32, 2049, 47, "reflect"),  # hop 1024, fast_rfft
+        (64, 513, 13, "reflect"),  # hop 256 fleet rows (cut from 2048)
+        (8, 4096, 47, "wrap"),  # hop 1024, full C2C spectrum
+        (8, 513, 13, "edge"),
+    ],
+)
+def test_freq_plain_matches_jax(rows, f, k, mode):
+    rng = np.random.default_rng(2)
+    x = _mags(rng, rows, f)
+    m = (k - 1) // 2
+    boundary = {"edge": "clamp"}.get(mode, mode)
+    want = np.asarray(jax_sliding_median(jnp.asarray(x), range(-m, m + 1), -1, boundary))
+    got = mc.sliding_median_boundary(_t(x), k, mode).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("boundary", ["zero", "wrap", "clamp", "reflect"])
+@pytest.mark.parametrize("dim", [-1, -2])
+def test_sliding_median_matches_jax_every_boundary(boundary, dim):
+    """Negative values, duplicate offsets, reaches past the edge."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 17, 19)).astype(np.float32)
+    for offsets in ((-3, -2, -1, 0, 0, 0, 0), (-9, -1, 0, 4, 9), (0,)):
+        if boundary == "reflect" and max(map(abs, offsets)) > 16:
+            continue
+        want = np.asarray(
+            jax_sliding_median(jnp.asarray(x), offsets, dim, boundary, fill=np.inf)
+        )
+        got = sliding_median(_t(x), offsets, dim, boundary, fill=float("inf"))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------- port vs the Pallas kernels (interpret mode) ----------------
+
+
+@pytest.mark.parametrize(
+    "c,h,b,f,offsets",
+    [(3, 5, 8, 130, tuple(range(-4, 1))), (1, 7, 7, 64, (-7, -3, 0)),
+     (2, 5, 32, 200, T1024)],
+)
+def test_time_pair_matches_pallas(c, h, b, f, offsets):
+    rng = np.random.default_rng(4)
+    hist, fresh = _mags(rng, c, h, f), _mags(rng, c, b, f)
+    want = np.asarray(mp.tap_median_time_pair_pallas(hist, fresh, offsets))
+    got = mc.tap_median_time(_t(hist), _t(fresh), offsets, h).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "offsets,start,fill",
+    [((-3, -2, -1, 0, 0, 0, 0), 0, 0.0), (T1024, 5, 0.0),
+     (tuple(range(-3, 4)), 2, float("inf"))],
+)
+def test_time_single_matches_pallas(offsets, start, fill):
+    rng = np.random.default_rng(5)
+    x = _mags(rng, 2, 16, 130)
+    want = np.asarray(mp.tap_median_time_pallas(x, offsets, fill=fill, start=start))
+    got = mc.tap_median_time(_t(x), _t(x[:, :0]), offsets, start, fill).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge"])
+@pytest.mark.parametrize("shape,k", [((16, 200), 5), ((4, 32, 513), 13)])
+def test_freq_boundary_matches_pallas(shape, k, mode):
+    """(4, 32, 513) folds to 128 rows and takes the fused kernel #7;
+    (16, 200) takes jnp.pad + the padded kernel #5."""
+    rng = np.random.default_rng(6)
+    x = _mags(rng, *shape)
+    want = np.asarray(mp.sliding_median_boundary_pallas(x, k, mode))
+    got = mc.sliding_median_boundary(_t(x), k, mode).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_freq_valid_matches_padded_pallas():
+    """'valid' is the padded kernel #5's contract on a pre-padded row."""
+    rng = np.random.default_rng(7)
+    k = 47
+    xp = _mags(rng, 8, 130 + k - 1)
+    want = np.asarray(mp.sliding_median_last_axis_pallas(xp, k))
+    got = mc.sliding_median_boundary(_t(xp), k, "valid").numpy()
+    assert got.shape == (8, 130)
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------- wrapper contract (no card needed) ----------------
+
+
+def test_cpu_tensors_take_the_plain_twin_and_count_nothing():
+    rng = np.random.default_rng(8)
+    x = _t(_mags(rng, 2, 9, 33))
+    n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
+    mc.tap_median_time(x, x[:, :0], T1024, 5)
+    mc.sliding_median_boundary(x, 5, "reflect")
+    assert mc.tap_median_time.launches == n_time
+    assert mc.sliding_median_boundary.launches == n_freq
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda x: mc.tap_median_time(x, x, (-1, 0), 2),  # even K
+        lambda x: mc.tap_median_time(x, x, tuple(range(-65, 0)), 70),  # K > 64
+        lambda x: mc.tap_median_time(x, x, T1024, 50),  # start past the rows
+        lambda x: mc.tap_median_time(x, x[:1], T1024, 5),  # mismatched streams
+        lambda x: mc.sliding_median_boundary(x, 4, "reflect"),  # even K
+        lambda x: mc.sliding_median_boundary(x, 257, "wrap"),  # K > 255
+        lambda x: mc.sliding_median_boundary(x, 5, "mirror"),  # unknown mode
+        lambda x: mc.sliding_median_boundary(x, 71, "reflect"),  # reach >= F
+        lambda x: mc.sliding_median_boundary(x, 35, "valid"),  # wider than row
+    ],
+)
+def test_wrappers_reject_what_the_kernels_do_not_take(call):
+    x = torch.ones((2, 9, 33))
+    with pytest.raises(ZenError):
+        call(x)

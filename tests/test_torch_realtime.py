@@ -1,0 +1,249 @@
+"""The port's streaming drivers against zen_tpu's, on the CPU.
+
+Both packages get the same numpy audio; zen_tpu runs its jnp reference
+path (median_impl='xla', fft_impl='xla'). Stems agree to
+atol = 5e-5 x max(1, max|ref|) per stem — the repo's realtime parity
+class (tests/test_engine_parity.py:271-275); the only source of
+difference is FFT rounding between torch.fft and the XLA CPU FFT.
+Comparisons within the port (multi vs single stream, resets) are
+bitwise or at the same class where batch shapes differ.
+"""
+import dataclasses
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import zen_tpu as J  # noqa: E402
+import zen_tpu_torch as T  # noqa: E402
+from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ATOL = 5e-5
+STEMS = ("harmonic", "percussive", "residual")
+
+
+def _close(got, want, what=""):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    for i in range(got.shape[-2]):
+        scale = max(1.0, float(np.abs(want[..., i, :]).max()))
+        np.testing.assert_allclose(
+            got[..., i, :] / scale, want[..., i, :] / scale, rtol=0, atol=ATOL,
+            err_msg=f"{what} stem row {i}",
+        )
+
+
+def _pair(fs, hop, **kw):
+    """(zen_tpu HPRRealtime, port HPRRealtime) on one config."""
+    jc = J.HPRConfig(fs=fs, hop=hop, causal=True, median_impl="xla",
+                     fft_impl="xla", **kw)
+    jrt = J.HPRRealtime(fs, hop)
+    jrt.cfg = jc
+    jrt.reset_buffers()
+    trt = T.HPRRealtime(fs, hop)
+    trt.cfg = T.config_from_fields(**dataclasses.asdict(jc))
+    trt.reset_buffers()
+    return jrt, trt
+
+
+@pytest.mark.parametrize("soft", [False, True])
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("block_hops", [1, 5, 13])
+def test_process_stream_matches_zen_tpu(block_hops, fast, soft):
+    """Block sizes 1 (B < history, per hop), 5 and 13 (ragged: 40 hops
+    end in a 1-hop block; at fs 1000/hop 8 the history is 15 frames, so
+    both B < H and the exact-size tail run)."""
+    rng = np.random.default_rng(block_hops)
+    audio = rng.standard_normal(8 * 40 - 3).astype(np.float32)
+    jrt, trt = _pair(1000.0, 8, fast_rfft=fast, soft_mask=soft)
+    want = np.asarray(jrt.process_stream(audio, block_hops=block_hops))
+    got = trt.process_stream(audio, block_hops=block_hops)
+    _close(got, want, f"B={block_hops} fast={fast} soft={soft}")
+
+
+def test_process_stream_b_over_history_matches_zen_tpu():
+    """fs 8000 / hop 64: B = 20 >= H = 15 takes the JAX pair route."""
+    rng = np.random.default_rng(7)
+    audio = rng.standard_normal(64 * 50).astype(np.float32)
+    jrt, trt = _pair(8000.0, 64)
+    _close(trt.process_stream(audio, 20), np.asarray(jrt.process_stream(audio, 20)))
+
+
+def test_per_hop_api_matches_zen_tpu():
+    rng = np.random.default_rng(8)
+    hops = rng.standard_normal((12, 8)).astype(np.float32)
+    jrt, trt = _pair(1000.0, 8, outputs=J.OUTPUT_PERCUSSIVE | J.OUTPUT_RESIDUAL)
+    for h in hops:
+        want = np.asarray(jrt.process_next_hop(h))
+        got = trt.process_next_hop(h).numpy()
+        _close(got, want)
+        for name in ("copy_harmonic", "copy_percussive", "copy_residual"):
+            np.testing.assert_allclose(
+                getattr(trt, name)(), np.asarray(getattr(jrt, name)()),
+                rtol=0, atol=ATOL * max(1.0, float(np.abs(want).max())),
+            )
+    assert not np.any(trt.copy_harmonic())  # disabled stem: zero row
+    assert trt.latency_samples == jrt.latency_samples == 8
+
+
+def test_warmup_and_toggles():
+    rng = np.random.default_rng(9)
+    audio = rng.standard_normal(8 * 30).astype(np.float32)
+    a = T.HPRRealtime(1000.0, 8)
+    a.warmup((1, 4))
+    b = T.HPRRealtime(1000.0, 8)
+    np.testing.assert_array_equal(a.process_stream(audio, 6), b.process_stream(audio, 6))
+    a.use_soft_mask()
+    c = T.HPRRealtime(1000.0, 8, soft_mask=True)
+    np.testing.assert_array_equal(a.process_stream(audio, 6), c.process_stream(audio, 6))
+    with pytest.raises(NotImplementedError):
+        a.use_sse_filter()
+
+
+def test_state_carried_from_zen_tpu_continues_identically():
+    """Run zen_tpu for 4 blocks, carry its stream state into the port
+    (the checkpoint handoff), then continue both on the same audio."""
+    rng = np.random.default_rng(10)
+    first = rng.standard_normal((4, 6, 8)).astype(np.float32)
+    rest = rng.standard_normal((3, 6, 8)).astype(np.float32)
+    jrt, _ = _pair(1000.0, 8)
+    for blk in first:
+        jrt.process_block(blk)
+    trt = T.HPRRealtime(1000.0, 8)
+    trt.cfg = T.config_from_fields(**dataclasses.asdict(jrt.cfg))
+    trt.state = T.state_from_numpy(*(np.asarray(x) for x in jrt.state))
+    for blk in rest:
+        want = np.asarray(jrt.process_block(blk))
+        got = trt.process_block(blk).numpy()
+        _close(got, want, "after the state handoff")
+    ring, hist, tail = T.state_to_numpy(trt.state)
+    assert ring.shape == (1, 16) and tail.shape == (1, 3, 8)
+    np.testing.assert_allclose(hist[0], np.asarray(jrt.state.feat_hist),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _fleet_blocks(seed, c=4, b=6, hop=8, n=3):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n, c, b, hop)).astype(np.float32)
+
+
+@pytest.mark.parametrize("outputs", [J.OUTPUT_ALL, J.OUTPUT_PERCUSSIVE])
+def test_multistream_matches_zen_tpu_and_single_streams(outputs):
+    """4 streams vs zen_tpu's MultiStreamHPR and vs 4 single streams of
+    the port. The percussive-only fleet emits one compact row per
+    stream (VERDICT weak #5): its value must equal the full output's
+    percussive stem, stream by stream."""
+    blocks = _fleet_blocks(11)
+    jms = J.MultiStreamHPR(4, 1000.0, hop=8, outputs=outputs,
+                           median_impl="xla", fft_impl="xla")
+    tms = T.MultiStreamHPR(4, 1000.0, hop=8, outputs=outputs)
+    assert tms.stem_rows == jms.stem_rows
+    singles = [T.HPRRealtime(1000.0, 8, outputs=outputs) for _ in range(4)]
+    for blk in blocks:
+        got = tms.process_block(blk).numpy()
+        _close(got, np.asarray(jms.process_block(blk)), "vs zen_tpu fleet")
+        for s, rt in enumerate(singles):
+            full = rt.process_block(blk[s]).numpy()  # [3, B*hop]
+            for name, row in tms.stem_rows.items():
+                if row is not None:
+                    np.testing.assert_array_equal(
+                        got[s, row], full[STEMS.index(name)], err_msg=name)
+    if outputs == J.OUTPUT_PERCUSSIVE:
+        assert got.shape[1] == 1 and tms.stem_rows["percussive"] == 0
+
+
+def test_multistream_reset_streams_bit_exact():
+    """A reset slot reproduces a fresh stream bit-exactly; untouched
+    slots continue as if no reset happened (hps.h:296-321)."""
+    b1, b2 = _fleet_blocks(12, n=2)
+    ctrl = T.MultiStreamHPR(4, 1000.0, hop=8)
+    ctrl.process_block(b1)
+    ctrl2 = ctrl.process_block(b2).numpy()
+    ms = T.MultiStreamHPR(4, 1000.0, hop=8)
+    ms.process_block(b1)
+    ms.reset_streams([1, 3])
+    out2 = ms.process_block(b2).numpy()
+    fresh2 = T.MultiStreamHPR(4, 1000.0, hop=8).process_block(b2).numpy()
+    np.testing.assert_array_equal(out2[[0, 2]], ctrl2[[0, 2]])
+    np.testing.assert_array_equal(out2[[1, 3]], fresh2[[1, 3]])
+    assert not np.array_equal(out2[1], ctrl2[1])
+
+
+def test_multistream_warmup_leaves_state_untouched():
+    ms = T.MultiStreamHPR(2, 8000.0, hop=64)
+    before = [t.clone() for t in ms.state]
+    ms.warmup((4, 20))
+    for a, b in zip(before, ms.state):
+        assert torch.equal(a, b)
+    with pytest.raises(T.ZenError):
+        ms.process_block(np.zeros((3, 4, 64), np.float32))
+
+
+def test_block_step_launch_count_on_cpu_is_zero():
+    """CPU tensors run the plain twins: the kernel counters stay put."""
+    n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
+    T.MultiStreamHPR(2, 1000.0, hop=8).process_block(np.ones((2, 3, 8), np.float32))
+    assert (mc.tap_median_time.launches, mc.sliding_median_boundary.launches) == (
+        n_time, n_freq)
+
+
+@pytest.mark.parametrize("b", [3, 20])
+def test_step_masks_and_advance_state_are_block_steps_halves(b):
+    """step_masks reads the state without changing it; advance_state then
+    moves ring and history exactly as block_step does, for B < H and
+    B >= H (H = 15 at fs 8000 / hop 64). Bitwise."""
+    from zen_tpu_torch.drivers import realtime as rt
+
+    cfg = T.HPRConfig(fs=8000.0, hop=64, causal=True)
+    rng = np.random.default_rng(13)
+    warm, blocks = (torch.from_numpy(rng.standard_normal((2, b, 64)).astype(np.float32))
+                    for _ in range(2))
+    ref = rt.init_state(cfg, 2)
+    rt.block_step(cfg, ref, warm)
+    state = rt.StreamState(*(t.clone() for t in ref))
+    rt.block_step(cfg, ref, blocks)
+    step = rt.step_masks(cfg, state, blocks)
+    assert len(step.masks) == 3 and step.feat.shape[:2] == (2, b)
+    assert not torch.equal(state.feat_hist, ref.feat_hist)  # state untouched
+    rt.advance_state(cfg, state, step)
+    assert torch.equal(state.ring, ref.ring)
+    assert torch.equal(state.feat_hist, ref.feat_hist)
+
+
+def _smoke(cwd):
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=120,
+    )
+
+
+def _has_ok_line(stdout):
+    for line in stdout.splitlines():
+        try:
+            if json.loads(line).get("ok") is True:
+                return True
+        except (ValueError, AttributeError):
+            continue
+    return False
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py runs for real")
+    proc = _smoke(ROOT)
+    assert proc.returncode != 0
+    assert not _has_ok_line(proc.stdout)
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _smoke(tmp_path)
+    assert proc.returncode != 0
+    assert not _has_ok_line(proc.stdout)

@@ -1,0 +1,32 @@
+"""zen_tpu_torch: the PyTorch/CUDA port of zen-tpu for NVIDIA Hopper.
+
+A second package beside the JAX reference ``zen_tpu``, with the same
+module names. This slice carries the causal streaming HPR (the
+realtime main path): windows, config, the spectral engine on
+``torch.fft``, and the two hand-written CUDA median kernels of
+``csrc/`` (plain PyTorch twins on CPU tensors). It imports torch and
+never jax.
+"""
+
+from .convert import (  # noqa: F401
+    config_from_fields,
+    state_from_numpy,
+    state_to_numpy,
+)
+from .drivers.realtime import (  # noqa: F401
+    HPRRealtime,
+    MultiStreamHPR,
+    StreamState,
+    block_step,
+    init_state,
+)
+from .engine.config import (  # noqa: F401
+    OUTPUT_ALL,
+    OUTPUT_HARMONIC,
+    OUTPUT_PERCUSSIVE,
+    OUTPUT_RESIDUAL,
+    HPRConfig,
+)
+from .errors import ZenError  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,54 @@
+"""Carry configuration and stream state across from the JAX package.
+
+This system has no weights: what a checkpoint holds, and what moves
+between the two packages, is the stream state (input ring, feature
+history, OLA tails) and the configuration. Both cross as plain Python
+values and numpy arrays, so nothing here imports jax:
+
+    cfg = config_from_fields(**dataclasses.asdict(jax_cfg))
+    state = state_from_numpy(*map(np.asarray, jax_state), device="cuda")
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .drivers.realtime import StreamState
+from .engine.config import HPRConfig
+
+_MEDIAN_IMPL = {"xla": "torch", "pallas": "cuda"}
+_FFT_IMPL = {"xla": "torch"}
+
+
+def config_from_fields(**fields) -> HPRConfig:
+    """HPRConfig from the JAX package's config fields, with its backend
+    names mapped: median_impl 'xla' -> 'torch' (the plain reference,
+    which takes CPU tensors only), 'pallas' -> 'cuda'; fft_impl 'xla' ->
+    'torch'. Variants this package does not carry yet
+    raise NotImplementedError from HPRConfig."""
+    fields = dict(fields)
+    if "median_impl" in fields:
+        fields["median_impl"] = _MEDIAN_IMPL.get(
+            fields["median_impl"], fields["median_impl"]
+        )
+    if "fft_impl" in fields:
+        fields["fft_impl"] = _FFT_IMPL.get(fields["fft_impl"], fields["fft_impl"])
+    return HPRConfig(**fields)
+
+
+def state_from_numpy(ring, feat_hist, ola_tail, device="cpu") -> StreamState:
+    """StreamState on ``device`` from numpy arrays, with or without the
+    leading stream axis (the JAX single-stream state has none)."""
+    ring, feat_hist, ola_tail = (
+        np.array(x, np.float32) for x in (ring, feat_hist, ola_tail)
+    )
+    if ring.ndim == 1:
+        ring, feat_hist, ola_tail = ring[None], feat_hist[None], ola_tail[None]
+    return StreamState(
+        *(torch.from_numpy(x).to(device) for x in (ring, feat_hist, ola_tail))
+    )
+
+
+def state_to_numpy(state: StreamState) -> tuple:
+    """(ring, feat_hist, ola_tail) as host numpy arrays, stream axis first."""
+    return tuple(t.detach().cpu().numpy() for t in state)

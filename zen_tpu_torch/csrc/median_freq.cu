@@ -1,0 +1,116 @@
+// K2: frequency-direction sliding median with the boundary built in.
+//
+// Replaces, in zen_tpu/ops/median_pallas.py:
+//   _freq_kernel_fused (boundary-fused median on unpadded [R, F] rows,
+//                       reached through sliding_median_boundary_pallas
+//                       when the folded rows tile: the hop-256 fleet), and
+//   _freq_kernel       (valid-mode median of a row pre-padded by jnp.pad,
+//                       reached through sliding_median_last_axis_pallas:
+//                       the hop-1024 step, whose 2049 bins at K = 47 the
+//                       fused kernel does not tile).
+//
+//   out[r, j] = median over o in [-m, m] of x[r, bnd(j + o)],  m = (K-1)/2
+//   bnd follows jnp.pad: reflect (|p|, then 2(F-1) - p; excludes the
+//   edge sample), wrap (p mod F) or edge (clamp). `valid` reads an
+//   already padded row: out[r, j] = median of x[r, j .. j + K - 1], with
+//   F_out = F_in - K + 1.
+//
+// What bounds it on this card: compares. Ranking by counting costs up to
+// 2 K^2 compares per output (4418 at K = 47, 338 at K = 13) against 8
+// bytes of device-memory traffic once the row segment is staged, so the
+// kernel sits far on the compute side of the H100's ~20 operations per
+// byte.
+//
+// What the simple design does about it: each block stages one row
+// segment of TILE + K - 1 samples in shared memory, boundary applied on
+// the load, so device memory is read once and the padded copy, the
+// transposes and the un-pad slice of the JAX routes never exist. Each
+// thread then ranks its own window out of shared memory: consecutive
+// threads read consecutive words (no bank conflicts) and the candidate
+// loop stops at the first tap whose rank brackets (K-1)/2, which is
+// sorted[(K-1)/2], the element jnp.median picks for odd K. A selection
+// network or an incremental window is later work. Rows and the ragged
+// last tile are masked here, so any row count is valid (the Pallas fused
+// kernel needed R % 128 == 0).
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kTile = 256;
+constexpr int kMaxK = 255;
+
+enum Mode { kReflect = 0, kWrap = 1, kEdge = 2, kValid = 3 };
+
+__device__ __forceinline__ int boundary_index(int p, int f, int mode) {
+  if (mode == kReflect) {
+    p = p < 0 ? -p : p;
+    const int q = 2 * (f - 1) - p;
+    return p < q ? p : q;
+  }
+  if (mode == kWrap) {
+    p %= f;
+    return p < 0 ? p + f : p;
+  }
+  if (mode == kEdge) return p < 0 ? 0 : (p > f - 1 ? f - 1 : p);
+  return p;  // valid: always inside the padded row
+}
+
+__global__ void sliding_median_kernel(const float* __restrict__ x,
+                                      float* __restrict__ out, int f_in,
+                                      int f_out, int k, int mode) {
+  __shared__ float seg[kTile + kMaxK - 1];
+  const long long r = blockIdx.x;
+  const int j0 = blockIdx.y * kTile;
+  const int m = (k - 1) / 2;
+  const float* row = x + static_cast<size_t>(r) * f_in;
+  // first input position of this tile's window, before the boundary rule
+  const int base = mode == kValid ? j0 : j0 - m;
+  const int live = min(kTile, f_out - j0);
+  const int need = live + k - 1;
+  for (int s = threadIdx.x; s < need; s += kTile) {
+    seg[s] = row[boundary_index(base + s, f_in, mode)];
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= live) return;
+  const float* w = seg + threadIdx.x;
+  float med = w[0];
+  for (int q = 0; q < k; ++q) {
+    const float v = w[q];
+    int lt = 0;
+    int eq = 0;
+    for (int u = 0; u < k; ++u) {
+      const float t = w[u];
+      lt += t < v;
+      eq += t == v;
+    }
+    if (lt <= m && m < lt + eq) {
+      med = v;
+      break;
+    }
+  }
+  out[static_cast<size_t>(r) * f_out + j0 + threadIdx.x] = med;
+}
+
+}  // namespace
+
+extern "C" int zen_sliding_median_boundary(const float* x, float* out,
+                                           int rows, int f_in, int f_out,
+                                           int k, int mode, void* stream) {
+  if (k < 1 || k > kMaxK || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
+      mode < kReflect || mode > kValid) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode == kValid ? f_out != f_in - k + 1 : f_out != f_in) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode == kReflect && (k - 1) / 2 > f_in - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(rows),
+                  static_cast<unsigned>((f_out + kTile - 1) / kTile));
+  sliding_median_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, f_in, f_out, k, mode);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,348 @@
+"""Streaming causal HPR on PyTorch (counterpart of
+``zen_tpu/drivers/realtime.py``).
+
+The per-hop state machine of the reference (libzen/hps.cu:282-427) is
+carried explicitly, with a leading stream dim C:
+
+    ring       [C, nwin]        input ring        (hps.h:182, hps.cu:452)
+    feat_hist  [C, H, bins]     trailing feature frames, H =
+                                config.time_history
+    ola_tail   [C, 3, hop]      second halves of the previous frame's
+                                scaled iFFTs (the OLA carry)
+
+``block_step`` processes B hops of C streams per call and updates the
+state tensors IN PLACE, where the JAX step donates its state buffers:
+the state is allocated once (``init_state``) and never reallocated.
+B = 1 gives exact per-hop streaming.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..engine.config import OUTPUT_ALL, HPRConfig
+from ..engine.spectral import (
+    analyze,
+    compute_masks,
+    feature_transform,
+    finalize_features,
+    freq_filtered,
+    num_bins,
+    prefill_value,
+    synthesize,
+    time_filtered_tail_pair,
+)
+from ..errors import ZenError
+
+_STEMS = ("harmonic", "percussive", "residual")
+
+
+class StreamState(NamedTuple):
+    ring: torch.Tensor  # [C, nwin]
+    feat_hist: torch.Tensor  # [C, H, bins]
+    ola_tail: torch.Tensor  # [C, 3, hop]
+
+
+def init_state(cfg: HPRConfig, n_streams: int = 1, device="cpu") -> StreamState:
+    """Zeroed state == the reference's reset_buffers (hps.h:296-321);
+    the feature history holds the feature of a zero frame."""
+    return StreamState(
+        ring=torch.zeros((n_streams, cfg.nwin), device=device),
+        feat_hist=torch.full(
+            (n_streams, cfg.time_history, num_bins(cfg)),
+            prefill_value(cfg),
+            device=device,
+        ),
+        ola_tail=torch.zeros((n_streams, 3, cfg.hop), device=device),
+    )
+
+
+def enabled_stems(cfg: HPRConfig) -> tuple:
+    """Indices into _STEMS of the stems the block step emits — the
+    cfg's output flags. (An enabled residual under soft masks has no
+    mask definition and yields a zero row, the reference's
+    unwritten-buffer behavior, hps.cu:562-567.)"""
+    return tuple(
+        i for i, name in enumerate(_STEMS) if getattr(cfg, f"output_{name}")
+    )
+
+
+class StepSpectra(NamedTuple):
+    samples: torch.Tensor  # [C, nwin + B*hop] ring ++ block
+    spectra: torch.Tensor  # [C, B, bins] complex
+    feat: torch.Tensor  # [C, B, bins] filter input
+    masks: tuple  # (harmonic, percussive, residual) [C, B, bins]; the
+    # residual is None under soft masks
+
+
+def step_masks(
+    cfg: HPRConfig, state: StreamState, blocks: torch.Tensor
+) -> StepSpectra:
+    """The analysis half of ``block_step``: framing over ring ++ block,
+    window + FFT, both median filters and the masks of B hops of C
+    streams. Reads ``state`` and leaves it as it is."""
+    if not cfg.causal:
+        raise ZenError("streaming drivers are causal-only")
+    c, b, hop = blocks.shape
+    # frames i = samples[(i+1)*hop : (i+3)*hop] over ring ++ block
+    samples = torch.cat([state.ring, blocks.reshape(c, b * hop)], dim=1)
+    hops = samples.view(c, b + 2, hop)
+    frames = torch.cat([hops[:, 1 : b + 1], hops[:, 2:]], dim=-1)
+
+    s = analyze(frames, cfg)  # [C, B, bins]
+    feat = feature_transform(s.abs(), cfg)
+    h_rows = time_filtered_tail_pair(state.feat_hist, feat, cfg)
+    p_rows = freq_filtered(feat, cfg)
+    h_rows, p_rows = finalize_features(h_rows, p_rows, cfg)
+    pm, hm, rm = compute_masks(h_rows, p_rows, cfg)
+    return StepSpectra(samples, s, feat, (hm, pm, rm))
+
+
+def advance_state(cfg: HPRConfig, state: StreamState, step: StepSpectra) -> None:
+    """Move the input ring and the feature history past the step's
+    block, in place. The next history is the fresh rows' tail when
+    B >= H and concat(hist, fresh)[-H:] when B < H."""
+    b, h_len = step.feat.shape[1], cfg.time_history
+    if b >= h_len:
+        state.feat_hist.copy_(step.feat[:, b - h_len :])
+    else:
+        state.feat_hist.copy_(torch.cat([state.feat_hist[:, b:], step.feat], dim=1))
+    state.ring.copy_(step.samples[:, -cfg.nwin :])
+
+
+def block_step(
+    cfg: HPRConfig, state: StreamState, blocks: torch.Tensor
+) -> torch.Tensor:
+    """Process B hops of C streams: blocks [C, B, hop] -> outs
+    [C, E, B*hop], one row per ENABLED stem (harmonic/percussive/
+    residual order filtered to enabled); ``state`` is updated in place.
+
+    Equivalent to B successive process_next_hop calls of the reference
+    causal engine (hps.cu:429-486) per stream, i.e. to
+    zen_tpu.drivers.realtime._block_step_body. One code path serves
+    every B: the JAX step branches on B >= H (realtime.py:141-147) only
+    because its TPU kernels for the two forms tile differently, while
+    K1 reads [hist ++ fresh] through two pointers for any B
+    (``step_masks``); ``advance_state`` carries both history updates.
+    """
+    c, b, hop = blocks.shape
+    step = step_masks(cfg, state, blocks)
+
+    # only enabled stems are synthesized and emitted (compact rows); the
+    # enabled stems with a mask go through one batched inverse FFT
+    masks = step.masks
+    en = enabled_stems(cfg)
+    live = [i for i in en if masks[i] is not None]
+    if live:
+        live_masks = torch.stack([masks[i] for i in live], dim=1)
+        y = synthesize(step.spectra.unsqueeze(1), live_masks, cfg)  # [C, L, B, nwin]
+        prev_tails = torch.cat(
+            [state.ola_tail[:, live, None], y[:, :, :-1, hop:]], dim=2
+        )
+        chunk = (y[..., :hop] + prev_tails).reshape(c, len(live), b * hop)
+        state.ola_tail[:, live] = y[:, :, -1, hop:]
+    if live and len(live) == len(en):
+        outs = chunk
+    else:  # enabled residual under soft masks: a zero row
+        outs = torch.zeros((c, len(en), b * hop), device=blocks.device)
+        if live:
+            outs[:, [en.index(i) for i in live]] = chunk
+
+    advance_state(cfg, state, step)
+    return outs
+
+
+def _as_blocks(x, hop: int, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).to(device).reshape(-1, hop)
+
+
+class HPRRealtime:
+    """Streaming causal HPR, API-compatible with the reference
+    HPRRealtime pimpl class (libzen/libzen/hps.h:74-118).
+
+    process_next_hop(hop_samples) processes one hop; copy_harmonic /
+    copy_percussive / copy_residual return that hop's stems. For
+    throughput use process_block(block[B, hop]) — one step for B hops —
+    or process_stream(). Step outputs stay on ``device``; the copy_*
+    reads and process_stream return host numpy arrays. Further keywords
+    (soft_mask, fast_rfft, median_impl, ...) go to HPRConfig.
+    """
+
+    def __init__(
+        self,
+        fs: float,
+        hop: int = 256,
+        beta: float = 2.0,
+        outputs: int = 0,
+        device="cpu",
+        **cfg_kw,
+    ):
+        self.device = torch.device(device)
+        self.cfg = HPRConfig(
+            fs=fs,
+            hop=hop,
+            beta=beta,
+            causal=True,
+            outputs=outputs or OUTPUT_ALL,
+            **cfg_kw,
+        )
+        self.reset_buffers()
+
+    # -- toggles (hps.cu:322-332) --
+    def use_sse_filter(self):
+        self._reconfig(use_sse=True)
+
+    def use_soft_mask(self):
+        self._reconfig(soft_mask=True)
+
+    def _reconfig(self, **kw):
+        self.cfg = dataclasses.replace(self.cfg, **kw)
+        self.reset_buffers()
+
+    def reset_buffers(self):
+        self.state = init_state(self.cfg, 1, self.device)
+        self._last = torch.zeros((3, self.cfg.hop), device=self.device)
+
+    @property
+    def latency_samples(self) -> int:
+        """Inherent stream latency: the OLA emits each stem hop one hop
+        after its input hop arrives (the reference's causal path has the
+        same structural latency; 'causal' means zero lookahead)."""
+        return self.cfg.hop
+
+    def warmup(self, block_sizes=(1,)):
+        """Run the step once per block size (building the CUDA kernels
+        and cuFFT plans on first use) and reset — analog of warmup()
+        (hps.cu:392-409), which hides first-dispatch latency."""
+        for b in block_sizes:
+            self.process_block(torch.zeros((b, self.cfg.hop)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset_buffers()
+
+    def _expand(self, outs: torch.Tensor) -> torch.Tensor:
+        """Compact step rows [E, n] -> the reference's 3-row (h, p, r)
+        form, zeros for disabled stems."""
+        en = enabled_stems(self.cfg)
+        if len(en) == 3:
+            return outs
+        full = torch.zeros((3, outs.shape[-1]), device=outs.device)
+        full[list(en)] = outs
+        return full
+
+    def process_block(self, block) -> torch.Tensor:
+        """block: [B, hop] or [B*hop] -> outs [3, B*hop] (h, p, r) on
+        ``device``."""
+        blocks = _as_blocks(block, self.cfg.hop, self.device)[None]
+        self._last = self._expand(block_step(self.cfg, self.state, blocks)[0])
+        return self._last
+
+    def process_next_hop(self, hop_samples) -> torch.Tensor:
+        return self.process_block(hop_samples)
+
+    def process_stream(self, audio, block_hops: int = 64) -> np.ndarray:
+        """Stream a whole [L] signal through the causal engine in blocks
+        of ``block_hops`` hops, zero-padding the last hop. Returns
+        [3, ceil(L/hop)*hop] on the host.
+
+        A ragged final block is processed at its exact size — padding
+        it with zero hops would advance the stream state past hops that
+        were never part of the signal, corrupting any later call."""
+        audio = torch.as_tensor(np.asarray(audio, np.float32))
+        hop = self.cfg.hop
+        n_hops = -(-audio.numel() // hop)
+        padded = torch.zeros(n_hops * hop)
+        padded[: audio.numel()] = audio
+        blocks = padded.to(self.device).reshape(n_hops, hop)
+        outs = [
+            self.process_block(blocks[start : start + block_hops])
+            for start in range(0, n_hops, block_hops)
+        ]
+        return torch.cat(outs, dim=1).cpu().numpy()
+
+    # -- per-hop output reads (hps.cu:342-363): always the NEWEST hop --
+    def copy_harmonic(self) -> np.ndarray:
+        return self._last[0, -self.cfg.hop :].cpu().numpy()
+
+    def copy_percussive(self) -> np.ndarray:
+        return self._last[1, -self.cfg.hop :].cpu().numpy()
+
+    def copy_residual(self) -> np.ndarray:
+        return self._last[2, -self.cfg.hop :].cpu().numpy()
+
+
+class MultiStreamHPR:
+    """C independent causal HPR streams in one step — the BASELINE
+    'batched multi-channel fakert' configuration (64 streams x
+    44.1 kHz). The stream dim is an explicit batch dim on one device;
+    sharding over several devices waits for the parallel slice."""
+
+    def __init__(
+        self,
+        n_streams: int,
+        fs: float,
+        hop: int = 256,
+        beta: float = 2.0,
+        outputs: int = 0,
+        device="cpu",
+        **cfg_kw,
+    ):
+        self.device = torch.device(device)
+        self.cfg = HPRConfig(
+            fs=fs,
+            hop=hop,
+            beta=beta,
+            causal=True,
+            outputs=outputs or OUTPUT_ALL,
+            **cfg_kw,
+        )
+        self.n_streams = n_streams
+        self.state = init_state(self.cfg, n_streams, self.device)
+
+    def warmup(self, block_sizes=(16,)):
+        """Run the step for the given block sizes on a scratch copy of
+        the state (building kernels and cuFFT plans on first use); the
+        streams' own state is not advanced."""
+        scratch = StreamState(*(t.clone() for t in self.state))
+        for b in block_sizes:
+            block_step(
+                self.cfg,
+                scratch,
+                torch.zeros((self.n_streams, b, self.cfg.hop), device=self.device),
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def stem_rows(self) -> dict:
+        """Stem name -> row in process_block's output (None when the
+        stem is disabled): the step emits COMPACT rows, one per enabled
+        stem."""
+        en = enabled_stems(self.cfg)
+        return {
+            name: (en.index(i) if i in en else None)
+            for i, name in enumerate(_STEMS)
+        }
+
+    def process_block(self, blocks) -> torch.Tensor:
+        """blocks: [C, B, hop] -> outs [C, E, B*hop] on ``device``, one
+        row per ENABLED stem (row order per ``stem_rows``)."""
+        blocks = torch.as_tensor(blocks, dtype=torch.float32).to(self.device)
+        if blocks.ndim != 3 or blocks.shape[0] != self.n_streams:
+            raise ZenError(
+                f"blocks must be [{self.n_streams}, B, hop], got {tuple(blocks.shape)}"
+            )
+        return block_step(self.cfg, self.state, blocks)
+
+    def reset_streams(self, indices):
+        """Reset the given stream slots to pristine state in place,
+        leaving all other slots untouched — the serving move when a slot
+        is recycled for a new client mid-flight. A reset slot reproduces
+        a fresh stream bit-exactly."""
+        idx = torch.as_tensor(indices, dtype=torch.int64, device=self.device)
+        self.state.ring[idx] = 0.0
+        self.state.feat_hist[idx] = prefill_value(self.cfg)
+        self.state.ola_tail[idx] = 0.0
