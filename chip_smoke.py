@@ -3,22 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from zen_tpu_torch/csrc with nvcc, holds
-each one bitwise against its plain PyTorch twin at the main path's
-shapes, then drives the causal streaming HPR through its user entry
-points at full width:
+Builds the port's CUDA kernels from zen_tpu_torch/csrc with nvcc and
+holds each one bitwise against its plain PyTorch twin at every shape its
+paths give it (phase 3; the kernels alone at a 4-minute track's offline
+shapes, where the twin does not fit). Then it drives both paths through
+their user entry points at full width:
 
   phase 4  HPRRealtime at 44.1 kHz, hop 1024: 64 blocks of 32 hops,
            then 64 single hops;
   phase 5  MultiStreamHPR, 64 streams at 44.1 kHz, hop 256, 32-hop
            blocks, plus a percussive-only fleet for the compact rows;
+  phase 7  HPRIOffline(44100, 4096, 256, 2.5, 2.5) (BASELINE.json
+           configs[0]) on the reference's 161,571-sample clip;
+  phase 8  the same on a 4-minute track through process() and
+           process_blocked();
 
-and holds every output against the same port run on the CPU (plain
-twins, CPU FFT). A hard-mask bin whose ratio sits within float noise of
-beta can flip between cuFFT and the CPU FFT; flips are counted by
-running the step's analysis half on the same blocks on both devices, must
-stay below 1e-5 of all mask bins, and the 5e-5 x scale stem tolerance
-applies to every output hop no flipped frame feeds.
+and holds the outputs against the same port run on the CPU (plain
+twins, CPU FFT), offline pass by pass, and the blocked offline driver
+against the batched one. A hard-mask bin whose ratio sits within float
+noise of beta can flip between cuFFT and the CPU FFT; flips are counted
+by running the path's own masks half on the same input on both sides,
+must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
+tolerance applies to every output sample no flipped frame feeds. Kernel
+launches are counted per path (phase 6 and phases 7-8).
 
 Every time printed is a measurement of this run on the card named in
 phase 1. Any failure raises and exits non-zero; there is no CPU path.
@@ -26,6 +33,7 @@ The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -41,6 +49,12 @@ FLIP_SHARE = 1e-5  # largest share of hard-mask bins allowed to differ
 TIMED_RUNS = 30
 NOISE_FLOOR = 0.01  # white noise under the synthetic mix (see synthetic_mix)
 DEVICE = "cuda"  # every tensor of the run under test lives here
+OFFLINE_FS = 44100.0
+CLIP_SAMPLES = 161_571  # the reference's 3.66 s clip (BASELINE.md:11)
+CLIP_REF_MS = 487.0  # its time on an RTX 2070 SUPER (BASELINE.md:11)
+TRACK_SAMPLES = 240 * 44_100  # a 4-minute track
+TRACK_FRAMES_H = -(-TRACK_SAMPLES // 4096) + 1  # pass-1 frames (lag 1)
+TRACK_FRAMES_P = -(-TRACK_SAMPLES // 256) + 11  # pass-2 frames (lag 11)
 
 
 def require(cond: bool, what: str) -> None:
@@ -152,42 +166,53 @@ def phase_build() -> None:
     )
 
 
+def _mags(rng, *shape) -> torch.Tensor:
+    """Positive continuous values on the card, like magnitudes."""
+    x = rng.random(shape, dtype=np.float32) + np.float32(1e-3)
+    return torch.from_numpy(x).to(DEVICE)
+
+
 def kernel_cases():
-    """(kernel, label, kernel call, plain call) at every main-path shape,
-    main-path hop-1024 shape first, plus the other boundary modes at a
-    ragged row count. Inputs are positive continuous values, like
-    magnitudes."""
+    """(kernel, TPU kernel #, label, kernel call, plain call) at every
+    main-path shape (hop-1024 streaming first), the offline passes'
+    shapes, tap counts past the first kernels' caps, and the other
+    boundary modes at a ragged row count."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(0)
-
-    def mag(*shape):
-        return torch.from_numpy(
-            (rng.random(shape, dtype=np.float32) + np.float32(1e-3))
-        ).to(DEVICE)
-
+    mag = functools.partial(_mags, rng)
     t1024 = (-5, -1, 0)
     t256 = tuple(range(-21, -16)) + tuple(range(-5, 1))
+    t_k93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32
     cases = []
-    for label, a, b, offs, start in (
-        ("pair C=1 H=5 B=32 F=2049 K=3", mag(1, 5, 2049), mag(1, 32, 2049), t1024, 5),
-        ("pair C=64 H=21 B=32 F=513 K=11", mag(64, 21, 513), mag(64, 32, 513), t256, 21),
-        ("single C=1 T=6 start=5 F=2049 K=3", mag(1, 6, 2049), mag(1, 0, 2049), t1024, 5),
+    for tpu, label, a, b, offs, start in (
+        ("#1", "pair C=1 H=5 B=32 F=2049 K=3", mag(1, 5, 2049), mag(1, 32, 2049), t1024, 5),
+        ("#1", "pair C=64 H=21 B=32 F=513 K=11", mag(64, 21, 513), mag(64, 32, 513), t256, 21),
+        ("#2", "single C=1 T=6 start=5 F=2049 K=3", mag(1, 6, 2049), mag(1, 0, 2049), t1024, 5),
+        ("#3", "offline pass 2 T=643 F=513 K=11 centered", mag(1, 643, 513),
+         mag(1, 0, 513), tuple(range(-5, 6)), 0),
+        ("#2", "offline pass 1 T=41 F=8193 K=1", mag(1, 41, 8193), mag(1, 0, 8193), (0,), 0),
+        ("#1", "pair C=1 H=183 B=32 F=65 K=93", mag(1, 183, 65), mag(1, 32, 65), t_k93, 183),
+        ("#3", "single T=900 F=17 K=401 centered", mag(1, 900, 17), mag(1, 0, 17),
+         tuple(range(-200, 201)), 0),
     ):
         cases.append((
-            "tap_median_time", label,
+            "tap_median_time", tpu, label,
             lambda a=a, b=b, o=offs, s=start: mc.tap_median_time(a, b, o, s),
             lambda a=a, b=b, o=offs, s=start: mc.tap_median_time_plain(a, b, o, s),
         ))
-    for label, x, k, mode in (
-        ("R=32 F=2049 K=47 reflect", mag(32, 2049), 47, "reflect"),
-        ("R=2048 F=513 K=13 reflect", mag(2048, 513), 13, "reflect"),
-        ("R=37 F=4096 K=47 wrap", mag(37, 4096), 47, "wrap"),
-        ("R=37 F=513 K=13 edge", mag(37, 513), 13, "edge"),
-        ("R=37 F=2095 K=47 valid", mag(37, 2049 + 46), 47, "valid"),
+    for tpu, label, x, k, mode in (
+        ("#5", "R=32 F=2049 K=47 reflect", mag(32, 2049), 47, "reflect"),
+        ("#7", "R=2048 F=513 K=13 reflect", mag(2048, 513), 13, "reflect"),
+        ("#7", "R=37 F=4096 K=47 wrap", mag(37, 4096), 47, "wrap"),
+        ("#7", "R=37 F=513 K=13 edge", mag(37, 513), 13, "edge"),
+        ("#5", "R=37 F=2095 K=47 valid", mag(37, 2049 + 46), 47, "valid"),
+        ("#6", "offline pass 1 R=41 F=8193 K=187 reflect", mag(41, 8193), 187, "reflect"),
+        ("#8", "offline pass 2 R=643 F=513 K=13 reflect", mag(643, 513), 13, "reflect"),
+        ("#5", "R=32 F=2049 K=257 reflect (fs 8000 hop 1024)", mag(32, 2049), 257, "reflect"),
     ):
         cases.append((
-            "sliding_median_boundary", label,
+            "sliding_median_boundary", tpu, label,
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary(x, k, m),
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary_plain(x, k, m),
         ))
@@ -195,9 +220,13 @@ def kernel_cases():
 
 
 def phase_kernels() -> dict:
-    """Kernel vs plain twin, bitwise, with both device times."""
+    """Kernel vs plain twin, bitwise, with both device times; then the
+    kernels alone at a 4-minute track's offline shapes, where the twin's
+    [R, F, K] unfold would not fit the card (15.8 GB for pass 1)."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
     stats = {}
-    for name, label, run_kernel, run_plain in kernel_cases():
+    for name, tpu, label, run_kernel, run_plain in kernel_cases():
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         require(got.shape == want.shape, f"{name} {label}: shape {got.shape}")
@@ -205,12 +234,26 @@ def phase_kernels() -> dict:
         require(torch.equal(got, want), f"{name} {label}: max |diff| {err}")
         k_us, p_us = median_us(run_kernel), median_us(run_plain)
         print(
-            f"phase 3 {name} {label}: bitwise equal, kernel {k_us:.2f} us, "
+            f"phase 3 {name} ({tpu}) {label}: bitwise equal, kernel {k_us:.2f} us, "
             f"plain {p_us:.2f} us (median of {TIMED_RUNS})"
         )
         st = stats.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         st["max_abs_err"] = max(st["max_abs_err"], err)
-        st["shapes"].append((label, k_us, p_us))
+        st["shapes"].append({"tpu_kernel": tpu, "shape": label,
+                             "ms": k_us / 1e3, "plain_ms": p_us / 1e3})
+    rng = np.random.default_rng(1)
+    feats2 = _mags(rng, 1, TRACK_FRAMES_P, 513)
+    feats1 = _mags(rng, TRACK_FRAMES_H, 8193)
+    for name, tpu, label, fn in (
+        ("tap_median_time", "#3", f"track pass 2 T={TRACK_FRAMES_P} F=513 K=11",
+         lambda: mc.tap_median_time(feats2, feats2[:, :0], tuple(range(-5, 6)), 0)),
+        ("sliding_median_boundary", "#6", f"track pass 1 R={TRACK_FRAMES_H} F=8193 K=187",
+         lambda: mc.sliding_median_boundary(feats1, 187, "reflect")),
+    ):
+        us = median_us(fn, runs=5, warmup=1)
+        print(f"phase 3 {name} ({tpu}) {label}: kernel {us:.2f} us (median of 5; no twin)")
+        stats[name]["shapes"].append({"tpu_kernel": tpu, "shape": label,
+                                      "ms": us / 1e3, "plain_ms": None})
     return stats
 
 
@@ -370,6 +413,155 @@ def reference_fleet(audio, sizes, hop=256, fs=44100.0) -> np.ndarray:
     return torch.cat(outs, dim=2).numpy()
 
 
+# ---------------- offline two-pass HPR-I ----------------
+
+
+def offline_keep(masks_a, masks_b, hop: int, length: int) -> tuple:
+    """Flip rule for one offline pass: hard-mask bins that differ between
+    two runs' (harmonic, percussive) masks [frames, bins], their share,
+    and which of the pass's ``length`` output samples no flipped frame
+    feeds (advance=1: frame t feeds output chunks t - 1 and t)."""
+    n = min(len(masks_a[0]), len(masks_b[0]))
+    differ = (masks_a[0][:n] != masks_b[0][:n]) | (masks_a[1][:n] != masks_b[1][:n])
+    flips = int(differ.sum())
+    flipped = differ.any(dim=-1)
+    excluded = flipped[:-1] | flipped[1:]  # chunk k = frames k and k + 1
+    keep = ~excluded.repeat_interleave(hop)[:length]
+    return flips, flips / differ.numel(), keep.numpy()
+
+
+def hold_stems(got: dict, want: dict, keep: np.ndarray, what: str) -> float:
+    """Stem tolerance on every kept sample; returns the worst error over
+    scale."""
+    worst = 0.0
+    for stem in ("harmonic", "percussive", "residual"):
+        ref = want[stem].cpu().numpy()
+        out = got[stem].cpu().numpy()
+        require(bool(np.isfinite(out).all()), f"{what} {stem}: non-finite samples")
+        scale = max(1.0, float(np.abs(ref).max()))
+        err = float(np.abs(out - ref)[keep].max(initial=0.0))
+        require(err <= STEM_ATOL * scale,
+                f"{what} {stem}: max |diff| {err} > {STEM_ATOL} x {scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def hold_pass(what: str, got: dict, want: dict, masks_got, masks_want, hop: int) -> dict:
+    """Hold one pass's stems against a reference run under the flip rule."""
+    length = got["harmonic"].shape[-1]
+    flips, share, keep = offline_keep(
+        [m.cpu() for m in masks_got[:2]], [m.cpu() for m in masks_want[:2]], hop, length
+    )
+    require(share <= FLIP_SHARE, f"{what}: hard-mask flips {flips} ({share:.3g} of bins)")
+    rel = hold_stems(got, want, keep, what)
+    return {"flips": flips, "share": share, "excluded": int((~keep).sum()),
+            "samples": length, "rel_err": rel}
+
+
+def hold_pass_on_cpu(cfg, audio: torch.Tensor) -> tuple:
+    """One offline pass on the card vs the port on the CPU, fed the same
+    samples; the flip recount runs pass_masks, the masks half of the
+    very hpr_separate the stems come from."""
+    from zen_tpu_torch import hpr_separate
+    from zen_tpu_torch.drivers.offline import pass_masks
+
+    host = audio.cpu()
+    got, want = hpr_separate(audio, cfg), hpr_separate(host, cfg)
+    st = hold_pass(f"hop {cfg.hop} pass", got, want,
+                   pass_masks(audio, cfg).masks, pass_masks(host, cfg).masks, cfg.hop)
+    return got, st
+
+
+def offline_separator():
+    """BASELINE.json configs[0]: zen offline --hps 4096 2.5 256 2.5."""
+    from zen_tpu_torch import HPRIOffline
+
+    return HPRIOffline(OFFLINE_FS, 4096, 256, 2.5, 2.5, device=DEVICE)
+
+
+def phase_offline_clip(smi: str) -> dict:
+    """The reference's 3.66 s clip through HPRIOffline.process on the
+    card, held pass by pass against the port on the CPU: pass 1 on the
+    same audio, pass 2 on the card's intermediate (so pass-1 flips do
+    not cascade), and process() bitwise against the composition of its
+    two passes on the card."""
+    sep = offline_separator()
+    x = torch.from_numpy(synthetic_mix(CLIP_SAMPLES, OFFLINE_FS, seed=7)).to(DEVICE)
+    sep.process(x)  # cuFFT plans
+    reset_launches()
+    h, p, r = sep.process(x)
+    launches = read_launches()
+    wall = wall_us_per_call(lambda: sep.process(x), 10) / 1e6
+    pass1, st1 = hold_pass_on_cpu(sep.cfg_h, x)
+    pass2, st2 = hold_pass_on_cpu(sep.cfg_p, pass1["percussive"] + pass1["residual"])
+    require(
+        torch.equal(h, pass1["harmonic"]) and torch.equal(p, pass2["percussive"])
+        and torch.equal(r, pass2["residual"]),
+        "process() differs from its two hpr_separate passes on the card",
+    )
+    for i, st in ((1, st1), (2, st2)):
+        print(
+            f"phase 7 offline clip pass {i}: mask flips {st['flips']} "
+            f"({st['share']:.3g} of bins), excluded samples {st['excluded']}/"
+            f"{st['samples']}, max |diff|/scale {st['rel_err']:.3g} (limit {STEM_ATOL})"
+        )
+    print(
+        f"phase 7 offline clip {CLIP_SAMPLES} samples (3.66 s): process() "
+        f"{wall * 1e3:.2f} ms wall (mean of 10) = {CLIP_SAMPLES / OFFLINE_FS / wall:.1f} s "
+        f"of audio per s; the reference took {CLIP_REF_MS:.0f} ms on an RTX 2070 SUPER "
+        f"(BASELINE.md, an outside point); launches {launches} [{smi}]"
+    )
+    require(all(v > 0 for v in launches.values()), f"offline clip launches {launches}")
+    return launches
+
+
+def phase_offline_track(smi: str) -> dict:
+    """A 4-minute track through process() and process_blocked() on the
+    card, held against each other: bitwise, or else pass by pass under
+    the flip rule (the blocked pass batches its transforms per block)."""
+    from zen_tpu_torch import hpr_separate, hpr_separate_blocked
+    from zen_tpu_torch.drivers.offline import blocked_pass_masks, pass_masks
+
+    sep = offline_separator()
+    x = torch.from_numpy(synthetic_mix(TRACK_SAMPLES, OFFLINE_FS, seed=8)).to(DEVICE)
+    reset_launches()
+    whole = sep.process(x)
+    blocked = sep.process_blocked(x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(all(v > 0 for v in launches.values()), f"offline track launches {launches}")
+    for outs in (whole, blocked):
+        require(all(bool(torch.isfinite(o).all()) for o in outs), "non-finite track stems")
+    if all(torch.equal(a, b) for a, b in zip(whole, blocked)):
+        held = "bitwise equal"
+    else:
+        held, audio = [], x
+        for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192)):
+            unb = hpr_separate(audio, cfg)
+            blk = hpr_separate_blocked(audio, cfg, bf)
+            st = hold_pass(f"track hop {cfg.hop} blocked", blk, unb,
+                           blocked_pass_masks(audio, cfg, bf),
+                           pass_masks(audio, cfg).masks, cfg.hop)
+            held.append(f"hop {cfg.hop}: flips {st['flips']} ({st['share']:.3g}), "
+                        f"max |diff|/scale {st['rel_err']:.3g}")
+            audio = unb["percussive"] + unb["residual"]  # pass 2 on one intermediate
+        held = "held pass by pass: " + "; ".join(held)
+    t_whole = wall_us_per_call(lambda: sep.process(x), 3) / 1e6
+    t_blocked = wall_us_per_call(lambda: sep.process_blocked(x), 3) / 1e6
+    seconds = TRACK_SAMPLES / OFFLINE_FS
+    torch.cuda.reset_peak_memory_stats()
+    prof = device_profile(lambda: sep.process(x))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(
+        f"phase 8 offline track {TRACK_SAMPLES} samples ({seconds:.0f} s): "
+        f"process_blocked vs process {held}; process {t_whole:.3f} s wall (mean of 3) = {seconds / t_whole:.1f} s of "
+        f"audio per s, peak {peak:.2f} GiB; process_blocked {t_blocked:.3f} s = "
+        f"{seconds / t_blocked:.1f} s of audio per s; launches {launches}; "
+        f"one process(): {prof} [{smi}]"
+    )
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -420,28 +612,35 @@ def main() -> None:
     )
 
     require(all(v > 0 for v in launches.values()), f"kernel launches {launches}")
-    print(f"phase 6 main-path kernel launches: {launches}")
+    print(f"phase 6 streaming kernel launches: {launches}")
 
-    sources = {
-        "tap_median_time": (
-            "zen_tpu_torch/csrc/median_time.cu",
-            "zen_tpu/ops/median_pallas.py:895",
-            ["zen_tpu/ops/median_pallas.py:787"],
-        ),
-        "sliding_median_boundary": (
-            "zen_tpu_torch/csrc/median_freq.cu",
-            "zen_tpu/ops/median_pallas.py:603",
-            ["zen_tpu/ops/median_pallas.py:395"],
-        ),
+    by_path = {
+        "streaming": launches,
+        "offline_clip": phase_offline_clip(smi),
+        "offline_track": phase_offline_track(smi),
+    }
+
+    mp = "zen_tpu/ops/median_pallas.py"
+    sources = {  # TPU kernels by the numbers of PERF.md's table
+        "tap_median_time": ("zen_tpu_torch/csrc/median_time.cu",
+                            {"#1": f"{mp}:895", "#2": f"{mp}:787", "#3": f"{mp}:1020"}),
+        "sliding_median_boundary": ("zen_tpu_torch/csrc/median_freq.cu",
+                                    {"#7": f"{mp}:603", "#5": f"{mp}:395",
+                                     "#6": f"{mp}:331", "#8": f"{mp}:482"}),
     }
     rows = []
-    for name, (src, replaces, also) in sources.items():
-        label, k_us, p_us = kstats[name]["shapes"][0]
+    for name, (src, tpu) in sources.items():
+        first = kstats[name]["shapes"][0]
+        main_line, *also = tpu.values()
         rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "also_replaces": also, "launches": launches[name],
+            "name": name, "route": "cuda", "source": src, "replaces": main_line,
+            "also_replaces": also,
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": kstats[name]["max_abs_err"], "tolerance": "bitwise",
-            "shape": label, "ms": k_us / 1e3, "plain_ms": p_us / 1e3,
+            "shape": first["shape"], "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "shapes": [{**sh, "replaces": tpu[sh["tpu_kernel"]]}
+                       for sh in kstats[name]["shapes"]],
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

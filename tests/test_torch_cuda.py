@@ -14,7 +14,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from zen_tpu_torch import HPRConfig, HPRRealtime, MultiStreamHPR, ZenError  # noqa: E402
+from zen_tpu_torch import (  # noqa: E402
+    HPRConfig,
+    HPRIOffline,
+    HPRRealtime,
+    MultiStreamHPR,
+    ZenError,
+)
 from zen_tpu_torch.engine import spectral as sp  # noqa: E402
 from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
 
@@ -43,7 +49,16 @@ def _mags(rng, *shape, device):
      ((1, 6, 2049), (1, 0, 2049), T1024, 5, 0.0),
      ((3, 16, 130), (3, 0, 130), tuple(range(-3, 4)), 2, float("inf")),
      ((2, 9, 77), (2, 4, 77), (-3, -2, -1, 0, 0, 0, 0), 0, 0.0),
-     ((1, 30, 257), (1, 3, 257), tuple(range(-24, 1)), 0, 0.0)],
+     ((1, 30, 257), (1, 3, 257), tuple(range(-24, 1)), 0, 0.0),
+     # offline pass 2 (hop 256, centered K = 11) and pass 1 (hop 4096, K = 1)
+     ((1, 643, 513), (1, 0, 513), tuple(range(-5, 6)), 0, 0.0),
+     ((1, 41, 8193), (1, 0, 8193), (0,), 0, 0.0),
+     # past the register kernel: K = 93 (44.1 kHz hop 32, causal pair form),
+     # K = 67 with duplicates, K = 401 (48 kHz hop 8, centered)
+     ((2, 183, 65), (2, 40, 65), tuple(range(-183, -137)) + tuple(range(-46, 1)),
+      183, 0.0),
+     ((1, 90, 33), (1, 0, 33), (0,) * 33 + tuple(range(-33, 1)), 0, float("inf")),
+     ((1, 900, 17), (1, 0, 17), tuple(range(-200, 201)), 0, 0.0)],
 )
 def test_time_kernel_matches_twin(cuda_device, a_shape, b_shape, offsets, start, fill):
     rng = np.random.default_rng(9)
@@ -60,7 +75,13 @@ def test_time_kernel_matches_twin(cuda_device, a_shape, b_shape, offsets, start,
     "rows,f,k,mode",
     [(32, 2049, 47, "reflect"), (2048, 513, 13, "reflect"),
      (37, 4096, 47, "wrap"), (37, 513, 13, "edge"), (37, 2095, 47, "valid"),
-     (5, 17, 17, "reflect"), (3, 40, 93, "wrap"), (1, 300, 255, "edge")],
+     (5, 17, 17, "reflect"), (3, 40, 93, "wrap"), (1, 300, 255, "edge"),
+     # offline pass 1 (hop 4096, K = 187) and pass 2 (hop 256, K = 13)
+     (41, 8193, 187, "reflect"), (643, 513, 13, "reflect"),
+     # past the old 255 cap: fs 8000 hop 1024, and a 50 KB row segment
+     # (above the 48 KB a block takes without an opt-in)
+     (32, 2049, 257, "reflect"), (1, 600, 12289, "wrap"),
+     (2, 2304, 257, "valid")],
 )
 def test_freq_kernel_matches_twin(cuda_device, rows, f, k, mode):
     rng = np.random.default_rng(10)
@@ -76,9 +97,9 @@ def test_unsupported_cuda_input_raises_without_fallback(cuda_device):
     x = torch.ones((2, 9, 33), device=cuda_device)
     n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
     with pytest.raises(ZenError):
-        mc.tap_median_time(x, x, tuple(range(-65, 0)), 70)  # K = 65
+        mc.tap_median_time(x, x, (0,) * (mc.MAX_TIME_TAPS + 2), 0)
     with pytest.raises(ZenError):
-        mc.sliding_median_boundary(x, 257, "wrap")  # K = 257
+        mc.sliding_median_boundary(x, mc.MAX_FREQ_TAPS + 2, "wrap")
     with pytest.raises(ZenError):
         mc.sliding_median_boundary(x.double(), 5, "wrap")  # float64
     with pytest.raises(ZenError):
@@ -124,3 +145,49 @@ def test_torch_median_impl_rejects_cuda_tensors(cuda_device):
     with pytest.raises(ZenError, match="CPU tensors only"):
         HPRRealtime(8000.0, 64, median_impl="torch", device=cuda_device).process_block(
             torch.zeros((2, 64)))
+
+
+def _hold_offline(sep, x):
+    """Each pass of ``sep`` on the card vs the port on the CPU under
+    chip_smoke's flip rule (pass 2 fed the card's intermediate), and
+    process() bitwise against the composition of its two passes."""
+    import chip_smoke as cs
+
+    h, p, r = sep.process(x)
+    pass1, st1 = cs.hold_pass_on_cpu(sep.cfg_h, x)
+    pass2, st2 = cs.hold_pass_on_cpu(sep.cfg_p, pass1["percussive"] + pass1["residual"])
+    assert torch.equal(h, pass1["harmonic"])
+    assert torch.equal(p, pass2["percussive"]) and torch.equal(r, pass2["residual"])
+    assert all(o.device == x.device and o.dtype == torch.float32 for o in (h, p, r))
+    return st1, st2
+
+
+def test_offline_on_card_matches_cpu(cuda_device):
+    """HPRIOffline at BASELINE.json configs[0] (44.1 kHz, 4096 / 256,
+    beta 2.5) on a clip of the reference's length, with K2 at K = 187
+    (pass 1) and K1 centered K = 11 (pass 2) on the card."""
+    import chip_smoke as cs
+
+    sep = HPRIOffline(44100.0, 4096, 256, 2.5, 2.5, device=cuda_device)
+    x = torch.from_numpy(cs.synthetic_mix(cs.CLIP_SAMPLES, 44100.0, seed=3)).to(cuda_device)
+    n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
+    _hold_offline(sep, x)
+    assert mc.tap_median_time.launches > n_time
+    assert mc.sliding_median_boundary.launches > n_freq
+
+
+def test_configs_past_the_old_caps_run_on_card(cuda_device):
+    """fs 8000 / hop 1024 (frequency K = 257) streams and separates on
+    the card; the offline pass 2 at hop 64 uses K1's register kernel."""
+    rng = np.random.default_rng(12)
+    audio = rng.standard_normal(1024 * 12).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        outs[str(dev)] = HPRRealtime(8000.0, hop=1024, device=dev).process_stream(audio, 4)
+    for i in range(3):
+        want = outs["cpu"][i]
+        scale = max(1.0, float(np.abs(want).max()))
+        got = outs[str(cuda_device)][i]
+        np.testing.assert_allclose(got / scale, want / scale, atol=5e-5)
+    sep = HPRIOffline(8000.0, 1024, 64, device=cuda_device)
+    _hold_offline(sep, torch.from_numpy(audio).to(cuda_device))

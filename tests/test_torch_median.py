@@ -149,6 +149,36 @@ def test_freq_boundary_matches_pallas(shape, k, mode):
     np.testing.assert_array_equal(got, want)
 
 
+# The offline routes (#3, #6, #8 of the kernel table): the TPU picks
+# them from the shape; the port's wrappers take one route for all.
+
+
+def test_time_pipelined_matches_pallas():
+    """600 rows with centered taps -5..5 take _time_kernel_pipelined
+    (n_t > 1), the shape of tests/test_pallas.py:320."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((600, 200)).astype(np.float32)
+    offsets = tuple(range(-5, 6))
+    want = np.asarray(mp.tap_median_time_pallas(x, offsets))
+    got = mc.tap_median_time(_t(x), _t(x[:0]), offsets, 0).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "shape,k,layout",
+    [((24, 300), 131, "lane"),  # K > 128: tb = 8 rows, n_t = 3 (#6)
+     ((130, 513), 13, "sublane")],  # >= 128 rows that do not tile (#8)
+)
+def test_freq_offline_routes_match_pallas(shape, k, layout):
+    rng = np.random.default_rng(12)
+    x = _mags(rng, *shape)
+    assert not mp.fused_freq_supported(shape, k, jnp.float32)
+    assert mp._auto_layout(k, (shape[0], shape[1] + k - 1)) == layout
+    want = np.asarray(mp.sliding_median_boundary_pallas(x, k, "reflect"))
+    got = mc.sliding_median_boundary(_t(x), k, "reflect").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_freq_valid_matches_padded_pallas():
     """'valid' is the padded kernel #5's contract on a pre-padded row."""
     rng = np.random.default_rng(7)
@@ -177,11 +207,11 @@ def test_cpu_tensors_take_the_plain_twin_and_count_nothing():
     "call",
     [
         lambda x: mc.tap_median_time(x, x, (-1, 0), 2),  # even K
-        lambda x: mc.tap_median_time(x, x, tuple(range(-65, 0)), 70),  # K > 64
+        lambda x: mc.tap_median_time(x, x, (0,) * (mc.MAX_TIME_TAPS + 2), 0),  # K
         lambda x: mc.tap_median_time(x, x, T1024, 50),  # start past the rows
         lambda x: mc.tap_median_time(x, x[:1], T1024, 5),  # mismatched streams
         lambda x: mc.sliding_median_boundary(x, 4, "reflect"),  # even K
-        lambda x: mc.sliding_median_boundary(x, 257, "wrap"),  # K > 255
+        lambda x: mc.sliding_median_boundary(x, mc.MAX_FREQ_TAPS + 2, "wrap"),  # K
         lambda x: mc.sliding_median_boundary(x, 5, "mirror"),  # unknown mode
         lambda x: mc.sliding_median_boundary(x, 71, "reflect"),  # reach >= F
         lambda x: mc.sliding_median_boundary(x, 35, "valid"),  # wider than row
@@ -191,3 +221,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call):
     x = torch.ones((2, 9, 33))
     with pytest.raises(ZenError):
         call(x)
+
+
+def test_every_config_fits_both_kernels():
+    """Every (fs, hop, causal) of the test_torch_config.py sweep gives
+    tap counts both kernels take on the card: up to 401 time taps (48 kHz
+    hop 8) and 257 frequency taps (fs 8000 hop 1024), past the 64 and 255
+    the first kernels stopped at."""
+    from zen_tpu_torch import HPRConfig
+
+    k_time, k_freq = [], []
+    for fs in (1000.0, 8000.0, 22050.0, 44100.0, 48000.0):
+        for hop in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+            for causal in (False, True):
+                try:
+                    cfg = HPRConfig(fs=fs, hop=hop, causal=causal)
+                except ZenError:
+                    continue
+                k_time.append(len(cfg.time_offsets))
+                k_freq.append(cfg.freq_filter_len)
+    assert max(k_time) == 401 and max(k_freq) == 257
+    assert max(k_time) <= mc.MAX_TIME_TAPS and max(k_freq) <= mc.MAX_FREQ_TAPS

@@ -1,17 +1,22 @@
 """zen_tpu_torch: the PyTorch/CUDA port of zen-tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``zen_tpu``, with the same
-module names. This slice carries the causal streaming HPR (the
-realtime main path): windows, config, the spectral engine on
-``torch.fft``, and the two hand-written CUDA median kernels of
-``csrc/`` (plain PyTorch twins on CPU tensors). It imports torch and
-never jax.
+module names. It carries the causal streaming HPR (the realtime main
+path) and the two-pass offline HPR-I with its blocked overlap-save
+form: windows, config, framing, the spectral engine on ``torch.fft``,
+and the two hand-written CUDA median kernels of ``csrc/`` (plain
+PyTorch twins on CPU tensors). It imports torch and never jax.
 """
 
 from .convert import (  # noqa: F401
     config_from_fields,
     state_from_numpy,
     state_to_numpy,
+)
+from .drivers.offline import (  # noqa: F401
+    HPRIOffline,
+    hpr_separate,
+    hpr_separate_blocked,
 )
 from .drivers.realtime import (  # noqa: F401
     HPRRealtime,

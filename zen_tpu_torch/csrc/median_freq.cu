@@ -1,13 +1,22 @@
 // K2: frequency-direction sliding median with the boundary built in.
 //
 // Replaces, in zen_tpu/ops/median_pallas.py:
-//   _freq_kernel_fused (boundary-fused median on unpadded [R, F] rows,
-//                       reached through sliding_median_boundary_pallas
-//                       when the folded rows tile: the hop-256 fleet), and
-//   _freq_kernel       (valid-mode median of a row pre-padded by jnp.pad,
-//                       reached through sliding_median_last_axis_pallas:
-//                       the hop-1024 step, whose 2049 bins at K = 47 the
-//                       fused kernel does not tile).
+//   _freq_kernel_fused     (boundary-fused median on unpadded [R, F] rows,
+//                           reached through sliding_median_boundary_pallas
+//                           when the folded rows tile: the hop-256 fleet),
+//   _freq_kernel           (valid-mode median of a row pre-padded by
+//                           jnp.pad, reached through
+//                           sliding_median_last_axis_pallas: the hop-1024
+//                           step, whose 2049 bins at K = 47 the fused
+//                           kernel does not tile),
+//   _freq_kernel_pipelined (the same, double-buffered over many row
+//                           tiles: offline pass 1, K = 187 over 8193
+//                           bins on one row per frame), and
+//   _freq_impl_sublane     (the transposed route through the time kernels
+//                           for K <= 31 on >= 128 rows that do not tile:
+//                           offline pass 2, K = 13 over 513 bins).
+// The TPU's lane/sublane layout choice and its row pipelining are VMEM
+// and vreg concerns; on this card every route is the same grid.
 //
 //   out[r, j] = median over o in [-m, m] of x[r, bnd(j + o)],  m = (K-1)/2
 //   bnd follows jnp.pad: reflect (|p|, then 2(F-1) - p; excludes the
@@ -16,13 +25,14 @@
 //   F_out = F_in - K + 1.
 //
 // What bounds it on this card: compares. Ranking by counting costs up to
-// 2 K^2 compares per output (4418 at K = 47, 338 at K = 13) against 8
-// bytes of device-memory traffic once the row segment is staged, so the
-// kernel sits far on the compute side of the H100's ~20 operations per
-// byte.
+// 2 K^2 compares per output (338 at K = 13, 4418 at K = 47, 69,938 at
+// K = 187) against 8 bytes of device-memory traffic once the row segment
+// is staged, so the kernel sits far on the compute side of the H100's
+// ~20 operations per byte.
 //
 // What the simple design does about it: each block stages one row
-// segment of TILE + K - 1 samples in shared memory, boundary applied on
+// segment of TILE + K - 1 samples in dynamic shared memory (opted in
+// above 48 KB, so K reaches ~58,000 on Hopper), boundary applied on
 // the load, so device memory is read once and the padded copy, the
 // transposes and the un-pad slice of the JAX routes never exist. Each
 // thread then ranks its own window out of shared memory: consecutive
@@ -39,7 +49,6 @@
 namespace {
 
 constexpr int kTile = 256;
-constexpr int kMaxK = 255;
 
 enum Mode { kReflect = 0, kWrap = 1, kEdge = 2, kValid = 3 };
 
@@ -60,7 +69,7 @@ __device__ __forceinline__ int boundary_index(int p, int f, int mode) {
 __global__ void sliding_median_kernel(const float* __restrict__ x,
                                       float* __restrict__ out, int f_in,
                                       int f_out, int k, int mode) {
-  __shared__ float seg[kTile + kMaxK - 1];
+  extern __shared__ float seg[];  // kTile + k - 1 floats
   const long long r = blockIdx.x;
   const int j0 = blockIdx.y * kTile;
   const int m = (k - 1) / 2;
@@ -98,7 +107,7 @@ __global__ void sliding_median_kernel(const float* __restrict__ x,
 extern "C" int zen_sliding_median_boundary(const float* x, float* out,
                                            int rows, int f_in, int f_out,
                                            int k, int mode, void* stream) {
-  if (k < 1 || k > kMaxK || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
+  if (k < 1 || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
       mode < kReflect || mode > kValid) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -108,9 +117,30 @@ extern "C" int zen_sliding_median_boundary(const float* x, float* out,
   if (mode == kReflect && (k - 1) / 2 > f_in - 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // the row segment must fit the shared memory a block may opt into
+  // (227 KB on Hopper); above the 48 KB default, opt in
+  const size_t smem = (static_cast<size_t>(kTile) + k - 1) * sizeof(float);
+  int device = 0;
+  int optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(sliding_median_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((f_out + kTile - 1) / kTile));
-  sliding_median_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  sliding_median_kernel<<<grid, kTile, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
       x, out, f_in, f_out, k, mode);
   return static_cast<int>(cudaGetLastError());
 }

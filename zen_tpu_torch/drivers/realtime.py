@@ -25,6 +25,7 @@ import torch
 
 from ..engine.config import OUTPUT_ALL, HPRConfig
 from ..engine.spectral import (
+    STEMS,
     analyze,
     compute_masks,
     feature_transform,
@@ -36,8 +37,6 @@ from ..engine.spectral import (
     time_filtered_tail_pair,
 )
 from ..errors import ZenError
-
-_STEMS = ("harmonic", "percussive", "residual")
 
 
 class StreamState(NamedTuple):
@@ -61,12 +60,12 @@ def init_state(cfg: HPRConfig, n_streams: int = 1, device="cpu") -> StreamState:
 
 
 def enabled_stems(cfg: HPRConfig) -> tuple:
-    """Indices into _STEMS of the stems the block step emits — the
+    """Indices into STEMS of the stems the block step emits — the
     cfg's output flags. (An enabled residual under soft masks has no
     mask definition and yields a zero row, the reference's
     unwritten-buffer behavior, hps.cu:562-567.)"""
     return tuple(
-        i for i, name in enumerate(_STEMS) if getattr(cfg, f"output_{name}")
+        i for i, name in enumerate(STEMS) if getattr(cfg, f"output_{name}")
     )
 
 
@@ -324,7 +323,7 @@ class MultiStreamHPR:
         en = enabled_stems(self.cfg)
         return {
             name: (en.index(i) if i in en else None)
-            for i, name in enumerate(_STEMS)
+            for i, name in enumerate(STEMS)
         }
 
     def process_block(self, blocks) -> torch.Tensor:

@@ -2,7 +2,8 @@
 ``zen_tpu/engine/spectral.py``).
 
 Every function takes tensors with arbitrary leading batch dims
-([..., T, F]); the streaming driver passes [streams, frames, bins].
+([..., T, F]); the streaming driver passes [streams, frames, bins], the
+offline driver [..., frames, bins] over a whole clip.
 The two median directions go through the kernel wrappers of
 ``ops/median_cuda.py``: the CUDA kernels on CUDA tensors, their plain
 twins on CPU tensors. ``median_impl`` only pins which of the two the
@@ -14,6 +15,7 @@ as the JAX engine does.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,6 +24,8 @@ from ..errors import ZenError
 from ..ops import fft as zfft
 from ..ops import median_cuda, windows
 from .config import EPS, HPRConfig
+
+STEMS = ("harmonic", "percussive", "residual")
 
 
 def num_bins(cfg: HPRConfig) -> int:
@@ -78,6 +82,13 @@ def _time_median(
     )
 
 
+def time_filtered(feats: torch.Tensor, cfg: HPRConfig) -> torch.Tensor:
+    """Time-direction median over all T rows of feats [..., T, bins]
+    (the offline passes); out-of-range frames read the zero-prefill
+    feature."""
+    return time_filtered_tail(feats, cfg, 0)
+
+
 def time_filtered_tail(
     feats: torch.Tensor, cfg: HPRConfig, start: int
 ) -> torch.Tensor:
@@ -110,6 +121,15 @@ def finalize_features(h: torch.Tensor, p: torch.Tensor, cfg: HPRConfig):
     them as they are (the SSE slice adds its re-reciprocation,
     hps.cu:598-604)."""
     return h, p
+
+
+def filter_features(mag: torch.Tensor, cfg: HPRConfig):
+    """Time- and frequency-direction filtered features (H, P) of |S|
+    [..., T, bins] for every frame at once: the reference's harmonic and
+    percussive matrices at the lag row (hps.cu:488-496)."""
+    feats = feature_transform(mag, cfg)
+    h, p = time_filtered(feats, cfg), freq_filtered(feats, cfg)
+    return finalize_features(h, p, cfg)
 
 
 def _f32(v: float) -> torch.Tensor:
@@ -164,3 +184,30 @@ def synthesize(s: torch.Tensor, mask: torch.Tensor, cfg: HPRConfig) -> torch.Ten
     else:
         y = zfft.ifft_real(masked)
     return y[..., : cfg.nwin] * _f32(cfg.synth_scale)
+
+
+class FrameMasks(NamedTuple):
+    spectra: torch.Tensor  # [..., T, bins] complex
+    masks: tuple  # (harmonic, percussive, residual) [..., T, bins]; the
+    # residual is None under soft masks
+
+
+def frame_masks(frames: torch.Tensor, cfg: HPRConfig) -> FrameMasks:
+    """The masks half of zen_tpu's ``separate_frames``: window + FFT,
+    |S|, both medians and the masks of frames [..., T, nwin]. Split from
+    the synthesis half so that a flip recount runs the very masks the
+    stems come from."""
+    s = analyze(frames, cfg)
+    pm, hm, rm = compute_masks(*filter_features(s.abs(), cfg), cfg)
+    return FrameMasks(s, (hm, pm, rm))
+
+
+def synthesize_masked(fm: FrameMasks, cfg: HPRConfig) -> dict:
+    """The synthesis half of zen_tpu's ``separate_frames``: per-frame
+    scaled iFFTs [..., T, nwin] of each enabled stem with a mask, None
+    otherwise."""
+    out = {}
+    for name, mask in zip(STEMS, fm.masks):
+        enabled = getattr(cfg, f"output_{name}") and mask is not None
+        out[name] = synthesize(fm.spectra, mask, cfg) if enabled else None
+    return out

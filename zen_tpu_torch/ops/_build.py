@@ -39,6 +39,11 @@ _SIGNATURES = {
          ctypes.c_float, _P],
         _I,
     ),
+    # the same, with `offsets` a device buffer (K above 64)
+    "zen_tap_median_time_wide": (
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, ctypes.c_float, _P],
+        _I,
+    ),
     # x, out, rows, f_in, f_out, k, mode, stream
     "zen_sliding_median_boundary": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
     "zen_cuda_error_string": ([_I], ctypes.c_char_p),

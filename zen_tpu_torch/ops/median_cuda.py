@@ -5,10 +5,11 @@ median of the streaming step (see the source notes in ``csrc/``):
 
 * ``tap_median_time`` (K1, ``csrc/median_time.cu``): time-direction tap
   median over the virtual row concat of two inputs, replacing the Pallas
-  ``_time_kernel_pair`` and ``_time_kernel``;
+  ``_time_kernel_pair``, ``_time_kernel`` and ``_time_kernel_pipelined``;
 * ``sliding_median_boundary`` (K2, ``csrc/median_freq.cu``): frequency
   sliding median with the boundary rule applied in the kernel, replacing
-  ``_freq_kernel_fused`` and ``_freq_kernel``.
+  ``_freq_kernel_fused``, ``_freq_kernel``, ``_freq_kernel_pipelined``
+  and the sublane route ``_freq_impl_sublane``.
 
 Each wrapper takes a CPU tensor to its ``_plain`` twin (built from
 ``ops/median.sliding_median``) and a CUDA tensor to its kernel, after
@@ -21,6 +22,7 @@ synchronize and allocate nothing: the wrapper allocates the output.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -29,15 +31,23 @@ from ..errors import ZenError
 from . import _build
 from .median import sliding_median
 
-MAX_TIME_TAPS = 64
-MAX_FREQ_TAPS = 255
+# K1 keeps up to REGISTER_TAPS taps in registers; past that its wide
+# kernel stages the offsets in the 48 KB of shared memory a block takes
+# without an opt-in, which bounds K.
+REGISTER_TAPS = 64
+MAX_TIME_TAPS = 48 * 1024 // 4 - 1
+# K2 stages a row segment of 256 + K - 1 floats in shared memory, which
+# must fit the 227 KB (232,448 bytes) a block can opt into on Hopper.
+MAX_FREQ_TAPS = 232_448 // 4 - 256 + 1
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
 _PLAIN_BOUNDARY = {"reflect": "reflect", "wrap": "wrap", "edge": "clamp"}
 
 
-def _check_k(k: int, limit: int) -> None:
+def _check_k(k: int, limit: int, bound: str) -> None:
     if k < 1 or k > limit or k % 2 == 0:
-        raise ZenError(f"median kernel takes odd K in [1, {limit}], got {k}")
+        raise ZenError(
+            f"median kernel takes odd K in [1, {limit}] ({bound}), got {k}"
+        )
 
 
 def _check_cuda_operands(*xs: torch.Tensor) -> None:
@@ -78,12 +88,12 @@ def tap_median_time(
     then rows of ``b`` [..., Tb, F]; rows outside V read ``fill``.
 
     (a=hist, b=fresh, start=H) is the streaming step's pair form; an
-    empty ``b`` gives the one-input form. Offsets: odd count <= 64,
-    duplicates allowed.
+    empty ``b`` gives the one-input form. Offsets: odd count up to
+    MAX_TIME_TAPS, duplicates allowed.
     """
     offsets = tuple(int(o) for o in offsets)
     k = len(offsets)
-    _check_k(k, MAX_TIME_TAPS)
+    _check_k(k, MAX_TIME_TAPS, "offsets past 64 are staged in 48 KB of shared memory")
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-1]:
         raise ZenError(f"tap_median_time: shapes {a.shape} and {b.shape}")
     ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
@@ -97,9 +107,15 @@ def tap_median_time(
     out = torch.empty(lead + (t_out, f), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
+    lib = _build.library()
+    if k <= REGISTER_TAPS:
+        entry, taps = lib.zen_tap_median_time, (ctypes.c_int * k)(*offsets)
+    else:
+        entry = lib.zen_tap_median_time_wide
+        taps = _device_offsets(offsets, a.device).data_ptr()
     err = _launch(
         a,
-        _build.library().zen_tap_median_time,
+        entry,
         a.data_ptr(),
         b.data_ptr() if tb else a.data_ptr(),
         out.data_ptr(),
@@ -109,7 +125,7 @@ def tap_median_time(
         f,
         start,
         t_out,
-        (ctypes.c_int * k)(*offsets),
+        taps,
         k,
         float(fill),
     )
@@ -119,6 +135,13 @@ def tap_median_time(
 
 
 tap_median_time.launches = 0
+
+
+@functools.lru_cache(maxsize=32)
+def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
+    """The wide K1 kernel's offsets as int32 on ``device``: uploaded once
+    per (offsets, device) and kept, not copied on every call."""
+    return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
 # ---------------- K2: frequency sliding median ----------------
@@ -135,7 +158,8 @@ def sliding_median_boundary_plain(
 
 
 def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
-    """Sliding median of odd width ``k`` (<= 255) along the last dim.
+    """Sliding median of odd width ``k`` (up to MAX_FREQ_TAPS) along the
+    last dim.
 
     mode 'reflect' | 'wrap' | 'edge' (jnp.pad semantics, on the unpadded
     row; reflect needs (k-1)/2 < F) keeps the width F; 'valid' reads an
@@ -143,7 +167,7 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     """
     if mode not in FREQ_MODES:
         raise ZenError(f"unknown boundary mode: {mode}")
-    _check_k(k, MAX_FREQ_TAPS)
+    _check_k(k, MAX_FREQ_TAPS, "its 256 + K - 1 row segment fills 227 KB of shared memory")
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
     if f_out < 1 or (mode == "reflect" and (k - 1) // 2 > f_in - 1):
