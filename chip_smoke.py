@@ -17,6 +17,12 @@ their user entry points at full width:
            configs[0]) on the reference's 161,571-sample clip;
   phase 8  the same on a 4-minute track through process() and
            process_blocked();
+  phase 9  the port's CLI, `zen-torch stream --streams 512` at 44.1 kHz,
+           hop 256, 16-hop blocks (the stock wide-fleet command), called
+           in-process on ~3 s per stream at f32 and with --stream-state
+           bf16, and on a shorter input with --cpu (replicate border)
+           and --nocopybord (valid border); then one real pipe through
+           `python -m zen_tpu_torch stream`;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -24,8 +30,10 @@ against the batched one. A hard-mask bin whose ratio sits within float
 noise of beta can flip between cuFFT and the CPU FFT; flips are counted
 by running the path's own masks half on the same input on both sides,
 must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
-tolerance applies to every output sample no flipped frame feeds. Kernel
-launches are counted per path (phase 6 and phases 7-8).
+tolerance applies to every output sample no flipped frame feeds (phase
+9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
+run's percussive stem against the f32 run's by SI-SNR). Kernel launches
+are counted per path (phase 6 and phases 7-9).
 
 Every time printed is a measurement of this run on the card named in
 phase 1. Any failure raises and exits non-zero; there is no CPU path.
@@ -34,6 +42,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import functools
+import io
 import json
 import subprocess
 import sys
@@ -55,6 +64,12 @@ CLIP_REF_MS = 487.0  # its time on an RTX 2070 SUPER (BASELINE.md:11)
 TRACK_SAMPLES = 240 * 44_100  # a 4-minute track
 TRACK_FRAMES_H = -(-TRACK_SAMPLES // 4096) + 1  # pass-1 frames (lag 1)
 TRACK_FRAMES_P = -(-TRACK_SAMPLES // 256) + 11  # pass-2 frames (lag 11)
+FLEET_STREAMS = 512  # zen stream --streams 512, the #4 route's fleet
+FLEET_HOP, FLEET_BLOCK = 256, 16  # zen stream's defaults
+FLEET_HELD = range(0, FLEET_STREAMS, 32)  # the streams held against the CPU
+# bf16 stream state vs the f32 stream, percussive stem: LADDER_FLOORS_DB
+# ["bf16_state"] of benches/quality.py:71, carried here as a number
+BF16_FLOOR_DB = 25.0
 
 
 def require(cond: bool, what: str) -> None:
@@ -181,8 +196,14 @@ def kernel_cases():
 
     rng = np.random.default_rng(0)
     mag = functools.partial(_mags, rng)
+
+    def bf16(*shape):
+        return mag(*shape).to(torch.bfloat16)
+
     t1024 = (-5, -1, 0)
     t256 = tuple(range(-21, -16)) + tuple(range(-5, 1))
+    t256_rep = tuple(range(-5, 0)) + (0,) * 6  # --cpu: replicate repeats offset 0
+    t256_valid = tuple(range(-11, 0))  # --nocopybord: the previous 11 frames
     t_k93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32
     cases = []
     for tpu, label, a, b, offs, start in (
@@ -195,6 +216,22 @@ def kernel_cases():
         ("#1", "pair C=1 H=183 B=32 F=65 K=93", mag(1, 183, 65), mag(1, 32, 65), t_k93, 183),
         ("#3", "single T=900 F=17 K=401 centered", mag(1, 900, 17), mag(1, 0, 17),
          tuple(range(-200, 201)), 0),
+        # the 512-stream fleet (zen stream's B=16 < H=21): #4's shapes
+        ("#4", "pair C=512 H=21 B=16 F=513 K=11 f32", mag(512, 21, 513),
+         mag(512, 16, 513), t256, 21),
+        ("#4", "pair C=512 H=21 B=16 F=513 K=11 bf16", bf16(512, 21, 513),
+         bf16(512, 16, 513), t256, 21),
+        ("#4", "pair C=512 H=21 B=1 F=513 K=11 bf16", bf16(512, 21, 513),
+         bf16(512, 1, 513), t256, 21),
+        ("#4", "padded single C=256 T=64 F=513 K=11 centered start=0 f32",
+         mag(256, 64, 513), mag(256, 0, 513), tuple(range(-5, 6)), 0),
+        ("#1", "pair C=64 H=21 B=32 F=513 K=11 bf16", bf16(64, 21, 513),
+         bf16(64, 32, 513), t256, 21),
+        # the same fleet under each other border, full C2C spectrum (B=16 >= H)
+        ("#1", "pair C=512 H=5 B=16 F=1024 K=11 replicate", mag(512, 5, 1024),
+         mag(512, 16, 1024), t256_rep, 5),
+        ("#1", "pair C=512 H=11 B=16 F=1024 K=11 valid", mag(512, 11, 1024),
+         mag(512, 16, 1024), t256_valid, 11),
     ):
         cases.append((
             "tap_median_time", tpu, label,
@@ -210,6 +247,11 @@ def kernel_cases():
         ("#6", "offline pass 1 R=41 F=8193 K=187 reflect", mag(41, 8193), 187, "reflect"),
         ("#8", "offline pass 2 R=643 F=513 K=13 reflect", mag(643, 513), 13, "reflect"),
         ("#5", "R=32 F=2049 K=257 reflect (fs 8000 hop 1024)", mag(32, 2049), 257, "reflect"),
+        # the 512-stream fleet's 8192 rows per step, each border
+        ("#7", "R=8192 F=513 K=13 reflect f32", mag(8192, 513), 13, "reflect"),
+        ("#7", "R=8192 F=513 K=13 reflect bf16", bf16(8192, 513), 13, "reflect"),
+        ("#7", "R=8192 F=1024 K=13 edge (replicate)", mag(8192, 1024), 13, "edge"),
+        ("#5", "R=8192 F=1036 K=13 valid", mag(8192, 1024 + 12), 13, "valid"),
     ):
         cases.append((
             "sliding_median_boundary", tpu, label,
@@ -257,30 +299,34 @@ def phase_kernels() -> dict:
     return stats
 
 
-def stream_masks(cfg, audio: np.ndarray, sizes, device) -> torch.Tensor:
+def stream_masks(cfg, audio: np.ndarray, sizes, device, keep=None) -> torch.Tensor:
     """Hard masks [2, C, N, bins] (harmonic, percussive) of the streams
     audio [C, N*hop], block by block through block_step's own analysis
-    half and state update (no synthesis), on ``device``."""
+    half and state update (no synthesis), on ``device``; of the streams
+    ``keep`` only, when given (all streams still run)."""
     from zen_tpu_torch.drivers import realtime as rt
 
     c = audio.shape[0]
     hops = torch.from_numpy(audio).reshape(c, -1, cfg.hop)
     state = rt.init_state(cfg, c, device)
+    sel = slice(None) if keep is None else torch.as_tensor(list(keep), device=device)
     out, t = [], 0
     for b in sizes:
         step = rt.step_masks(cfg, state, hops[:, t : t + b].to(device))
-        out.append(torch.stack(step.masks[:2]).cpu())
+        out.append(torch.stack(step.masks[:2])[:, sel].cpu())
         rt.advance_state(cfg, state, step)
         t += b
     return torch.cat(out, dim=2)
 
 
-def compare_stream(cfg, audio, sizes, got, want, stems) -> dict:
+def compare_stream(cfg, audio, sizes, got, want, stems, keep=None) -> dict:
     """Flip count from the masks on both devices, then the stem
     tolerance on every hop no flipped frame feeds (frame t feeds output
-    hops t and t+1). got/want: [C, E, N*hop] host arrays."""
-    m_gpu = stream_masks(cfg, audio, sizes, DEVICE)
-    m_cpu = stream_masks(cfg, audio, sizes, "cpu")
+    hops t and t+1). got/want: [C, E, L] host arrays, L <= N*hop, of the
+    streams ``keep`` of audio [S, N*hop] (all when None); the card's
+    masks come from a run of all S streams, the CPU's from those C."""
+    m_gpu = stream_masks(cfg, audio, sizes, DEVICE, keep)
+    m_cpu = stream_masks(cfg, audio if keep is None else audio[list(keep)], sizes, "cpu")
     differ = (m_gpu != m_cpu).any(dim=0)  # [C, N, bins]
     flips = int(differ.sum())
     share = flips / differ.numel()
@@ -289,13 +335,13 @@ def compare_stream(cfg, audio, sizes, got, want, stems) -> dict:
     excluded = flipped.copy()
     excluded[:, 1:] |= flipped[:, :-1]
     c, n = excluded.shape
-    keep = np.repeat(~excluded, cfg.hop, axis=1)  # [C, N*hop]
+    held = np.repeat(~excluded, cfg.hop, axis=1)[:, : got.shape[-1]]  # [C, L]
     worst = 0.0
     for e, stem in enumerate(stems):
         for ch in range(c):
             ref = want[ch, e]
             scale = max(1.0, float(np.abs(ref).max()))
-            err = float(np.abs(got[ch, e] - ref)[keep[ch]].max(initial=0.0))
+            err = float(np.abs(got[ch, e] - ref)[held[ch]].max(initial=0.0))
             require(
                 err <= STEM_ATOL * scale,
                 f"{stem} stream {ch}: max |diff| {err} > {STEM_ATOL} x {scale}",
@@ -400,11 +446,11 @@ def run_fleet(fs=44100.0, hop=256, c=64, b=32, n_blocks=16):
     return ms.cfg, got, audio, [b] * n_blocks, timing
 
 
-def reference_fleet(audio, sizes, hop=256, fs=44100.0) -> np.ndarray:
+def reference_fleet(audio, sizes, hop=256, fs=44100.0, **cfg_kw) -> np.ndarray:
     from zen_tpu_torch import MultiStreamHPR
 
     c = audio.shape[0]
-    ms = MultiStreamHPR(c, fs, hop=hop, device="cpu")
+    ms = MultiStreamHPR(c, fs, hop=hop, device="cpu", **cfg_kw)
     x = torch.from_numpy(audio).reshape(c, -1, hop)
     outs, t = [], 0
     for b in sizes:
@@ -562,12 +608,164 @@ def phase_offline_track(smi: str) -> dict:
     return launches
 
 
+# ---------------- zen stream --streams 512: the port's CLI ----------------
+
+
+def zen_stream(argv, data: bytes) -> tuple:
+    """The port's CLI run in-process, so that the launch counters see it,
+    with stdin and stdout swapped for byte buffers: (stdout bytes,
+    stderr lines)."""
+    from zen_tpu_torch.cli import main
+
+    saved = sys.stdin, sys.stdout, sys.stderr
+    sys.stdin = io.TextIOWrapper(io.BytesIO(data))
+    sys.stdout = io.TextIOWrapper(io.BytesIO())
+    sys.stderr = io.StringIO()
+    try:
+        rc = main(argv)
+        sys.stdout.flush()
+        out, err = sys.stdout.buffer.getvalue(), sys.stderr.getvalue()
+    finally:
+        sys.stdin, sys.stdout, sys.stderr = saved
+    require(rc == 0, f"zen-torch {' '.join(argv)}: exit {rc}: {err[-2000:]}")
+    return out, err.splitlines()
+
+
+def fleet_argv(*extra) -> list:
+    return ["stream", "--streams", str(FLEET_STREAMS), "--fs", "44100", "--hop",
+            str(FLEET_HOP), "--block-hops", str(FLEET_BLOCK), "--device", DEVICE, *extra]
+
+
+def interleave(audio: np.ndarray) -> bytes:
+    """[C, n] streams -> the pipe's N-channel f32le bytes."""
+    return np.ascontiguousarray(audio.T).tobytes()
+
+
+def deinterleave(out: bytes, c: int) -> np.ndarray:
+    return np.frombuffer(out, np.float32).reshape(-1, c).T
+
+
+def si_snr(ref: np.ndarray, est: np.ndarray) -> float:
+    """Scale-invariant SNR of ``est`` against ``ref`` in dB (the repo's
+    definition, zen_tpu/io/synth.py:141)."""
+    ref, est = ref.astype(np.float64), est.astype(np.float64)
+    s_t = np.dot(est, ref) / max(np.dot(ref, ref), 1e-30) * ref
+    e = est - s_t
+    return float(10 * np.log10(max(np.dot(s_t, s_t), 1e-30) / max(np.dot(e, e), 1e-30)))
+
+
+def hold_fleet_run(audio: np.ndarray, out: bytes, cfg_kw: dict) -> dict:
+    """Every 32nd stream of one `zen stream` run on the card against the
+    port's CPU MultiStreamHPR on those streams, at unit gain, under the
+    flip rule (the card's masks from all 512 streams)."""
+    from zen_tpu_torch import OUTPUT_PERCUSSIVE, HPRConfig
+
+    c, n = audio.shape
+    block = FLEET_BLOCK * FLEET_HOP
+    n_blocks = -(-n // block)
+    padded = np.zeros((c, n_blocks * block), np.float32)  # the CLI's zero tail
+    padded[:, :n] = audio
+    sizes = [FLEET_BLOCK] * n_blocks
+    kw = dict(outputs=OUTPUT_PERCUSSIVE, **cfg_kw)
+    cfg = HPRConfig(fs=44100.0, hop=FLEET_HOP, causal=True, **kw)
+    held = list(FLEET_HELD)
+    got = deinterleave(out, c)[held][:, None]
+    require(bool(np.isfinite(got).all()), "non-finite zen stream samples")
+    unit = np.float32(1.0 / cfg.synth_scale)
+    want = reference_fleet(padded[held], sizes, **kw)[:, :, :n] * unit
+    return compare_stream(cfg, padded, sizes, got, want, ("percussive",), held)
+
+
+def phase_zen_stream(smi: str) -> dict:
+    """`zen-torch stream --streams 512` in-process at f32, bf16, --cpu and
+    --nocopybord, each held against the CPU on every 32nd stream; the
+    bf16 stem against the f32 one by SI-SNR; one real pipe byte-equal to
+    the in-process run; one 512 x 16 step's device profile."""
+    from zen_tpu_torch import OUTPUT_PERCUSSIVE, MultiStreamHPR
+
+    c, block = FLEET_STREAMS, FLEET_BLOCK * FLEET_HOP
+    audio = fleet_audio(c, 32 * block + 1234, 44100.0)  # ~3.0 s, ragged tail
+    short = np.ascontiguousarray(audio[:, : 8 * block + 777])
+    data = interleave(audio)
+    runs, total = {}, {"tap_median_time": 0, "sliding_median_boundary": 0}
+    for name, flags, kw, x in (
+        ("f32", (), {}, audio),
+        ("--stream-state bf16", ("--stream-state", "bf16"), {"stream_state": "bf16"}, audio),
+        ("--cpu", ("--cpu",), {"border": "replicate"}, short),
+        ("--nocopybord", ("--nocopybord",), {"border": "valid"}, short),
+    ):
+        raw = data if x is audio else interleave(x)
+        reset_launches()
+        out, err = zen_stream(fleet_argv(*flags), raw)
+        counts = read_launches()
+        require(all(v > 0 for v in counts.values()), f"zen stream {name} launches {counts}")
+        require(len(out) == len(raw), f"zen stream {name}: {len(out)} bytes out of {len(raw)}")
+        line = json.loads(err[-1])
+        require(line["metric"] == "stream_serving" and err[0].startswith("zen stream ready"),
+                f"zen stream {name} stderr: {err}")
+        for k in total:
+            total[k] += counts[k]
+        runs[name] = (x, out, kw, line, counts)
+    for name, (x, out, kw, line, counts) in runs.items():
+        r = hold_fleet_run(x, out, kw)
+        print(
+            f"phase 9 zen stream --streams {c} {name}: {x.shape[1]} samples per stream; "
+            f"{len(FLEET_HELD)} streams vs CPU: mask flips {r['flips']} ({r['share']:.3g} of "
+            f"bins), excluded hops {r['excluded']}/{r['hops']}, max |diff| at unit gain "
+            f"{r['rel_err']:.3g} (limit {STEM_ATOL}); samples_per_s {line['samples_per_s']}, "
+            f"us_per_hop {line['us_per_hop']}, warmup_s {line['warmup_s']}, first_block_s "
+            f"{line['first_block_s']}, hops {line['hops_per_stream']}; launches {counts} [{smi}]"
+        )
+    # The run's percussive stem (all streams as one signal) against the
+    # f32 run's. The ladder's floor is per mixture of the quality corpus;
+    # on two of this fleet's pure tones zen_tpu's own bf16 state falls
+    # below it (on the CPU, over all 512 streams: stream 2 at 123.75 Hz
+    # 20.03 dB, stream 32 at 330 Hz 23.79 dB, the port within 0.12 dB of
+    # zen_tpu on every stream), so it is held on the pooled stem and the
+    # per-stream spread is printed.
+    f32 = deinterleave(runs["f32"][1], c)
+    b16 = deinterleave(runs["--stream-state bf16"][1], c)
+    pooled = si_snr(f32.ravel(), b16.ravel())
+    per = np.array([si_snr(f32[i], b16[i]) for i in range(c)])
+    require(bool(np.isfinite(b16).all()) and pooled > BF16_FLOOR_DB,
+            f"bf16 vs f32 percussive SI-SNR {pooled:.2f} dB <= {BF16_FLOOR_DB}")
+    worst = ", ".join(f"{i}: {per[i]:.2f}" for i in np.argsort(per)[:4])
+    print(f"phase 9 bf16 vs f32 percussive stem, {c} streams: SI-SNR {pooled:.2f} dB "
+          f"(floor {BF16_FLOOR_DB}); per stream median {np.median(per):.2f} dB, "
+          f"{int((per < BF16_FLOOR_DB).sum())} below the floor, worst (stream: dB) {worst}")
+
+    four = data[: 4 * block * c * 4]  # four blocks of every stream
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "zen_tpu_torch", *fleet_argv()], input=four,
+                          capture_output=True, cwd=ROOT, timeout=300)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"zen stream pipe: exit {proc.returncode}: "
+            f"{proc.stderr.decode()[-2000:]}")
+    require(proc.stdout == runs["f32"][1][: len(four)],
+            "the pipe's stdout differs from the in-process run on the same input")
+    line = json.loads(proc.stderr.decode().splitlines()[-1])
+    print(f"phase 9 real pipe python -m zen_tpu_torch stream --streams {c}, 4 blocks: "
+          f"stdout byte-equal to the in-process run; process {wall:.2f} s, "
+          f"stream_serving samples_per_s {line['samples_per_s']}, warmup_s {line['warmup_s']}")
+
+    step = torch.from_numpy(audio[:, :block].reshape(c, FLEET_BLOCK, FLEET_HOP)).to(DEVICE)
+    for kw in ({}, {"stream_state": "bf16"}):
+        ms = MultiStreamHPR(c, 44100.0, FLEET_HOP, outputs=OUTPUT_PERCUSSIVE, device=DEVICE, **kw)
+        ms.warmup((FLEET_BLOCK,))
+        step_us = wall_us_per_call(lambda: ms.process_block(step), TIMED_RUNS)
+        print(f"phase 9 MultiStreamHPR {c} x B={FLEET_BLOCK} step {kw or 'f32'}: {step_us:.1f} us wall "
+              f"(mean of {TIMED_RUNS}) = {c * block / step_us:.2f} Msamples/s; one step: "
+              f"{device_profile(lambda: ms.process_block(step))} [{smi}]")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit(
             "chip_smoke: torch.cuda.is_available() is False; the port's "
             "smoke run needs an NVIDIA GPU and has no CPU path"
         )
+    t_run = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import zen_tpu_torch  # noqa: F401  (fails here when run outside the repo)
 
@@ -618,12 +816,14 @@ def main() -> None:
         "streaming": launches,
         "offline_clip": phase_offline_clip(smi),
         "offline_track": phase_offline_track(smi),
+        "zen_stream_512": phase_zen_stream(smi),
     }
 
     mp = "zen_tpu/ops/median_pallas.py"
     sources = {  # TPU kernels by the numbers of PERF.md's table
         "tap_median_time": ("zen_tpu_torch/csrc/median_time.cu",
-                            {"#1": f"{mp}:895", "#2": f"{mp}:787", "#3": f"{mp}:1020"}),
+                            {"#1": f"{mp}:895", "#2": f"{mp}:787", "#3": f"{mp}:1020",
+                             "#4": f"{mp}:826"}),
         "sliding_median_boundary": ("zen_tpu_torch/csrc/median_freq.cu",
                                     {"#7": f"{mp}:603", "#5": f"{mp}:395",
                                      "#6": f"{mp}:331", "#8": f"{mp}:482"}),
@@ -642,6 +842,7 @@ def main() -> None:
             "shapes": [{**sh, "replaces": tpu[sh["tpu_kernel"]]}
                        for sh in kstats[name]["shapes"]],
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -25,8 +25,9 @@ FIELDS = (
     "time_filter_len", "freq_filter_len", "time_offsets", "time_history",
     "freq_offsets", "freq_boundary", "fast_rfft", "cola_factor",
     "synth_scale", "soft_power", "output_harmonic", "output_percussive",
-    "output_residual",
+    "output_residual", "lag_row_written", "border",
 )
+BORDERS = ("wrap", "valid", "replicate")
 
 
 def _pair(**kw):
@@ -44,18 +45,22 @@ def _pair(**kw):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("fs", [1000.0, 8000.0, 22050.0, 44100.0, 48000.0])
 def test_derived_fields_equal_zen_tpu(fs, causal):
+    """Every border x hop x fast_rfft at this (fs, causal), including the
+    borders' fast_rfft demotion and lag_row_written."""
     checked = 0
-    for hop in HOPS:
-        for fast in (True, False):
-            jc, tc = _pair(fs=fs, hop=hop, causal=causal, fast_rfft=fast)
-            if jc is None:
-                continue
-            for name in FIELDS:
-                assert getattr(tc, name) == getattr(jc, name), (fs, hop, name)
-            np.testing.assert_array_equal(tc.window, jc.window)
-            assert tc.window.dtype == jc.window.dtype == np.float32
-            checked += 1
-    assert checked >= 10
+    for border in BORDERS:
+        for hop in HOPS:
+            for fast in (True, False):
+                jc, tc = _pair(fs=fs, hop=hop, causal=causal, fast_rfft=fast,
+                               border=border)
+                if jc is None:
+                    continue
+                for name in FIELDS:
+                    assert getattr(tc, name) == getattr(jc, name), (fs, hop, border, name)
+                np.testing.assert_array_equal(tc.window, jc.window)
+                assert tc.window.dtype == jc.window.dtype == np.float32
+                checked += 1
+    assert checked >= 30
 
 
 def test_main_path_geometry():
@@ -67,6 +72,21 @@ def test_main_path_geometry():
     c = HPRConfig(fs=44100.0, hop=256, causal=True)
     assert c.time_offsets == tuple(range(-21, -16)) + tuple(range(-5, 1))
     assert (c.time_history, c.freq_filter_len) == (21, 13)
+
+
+def test_borders_and_bf16_state_construct():
+    """The stock wide-fleet command's geometry (44.1 kHz, hop 256) under
+    each border: replicate repeats offset 0 six times, valid reads the
+    previous 11 frames; both run the full C2C spectrum."""
+    c = HPRConfig(fs=44100.0, hop=256, causal=True, border="replicate")
+    assert c.time_offsets == tuple(range(-5, 0)) + (0,) * 6
+    assert (c.time_history, c.freq_boundary, c.fast_rfft) == (5, "clamp", False)
+    c = HPRConfig(fs=44100.0, hop=256, causal=True, border="valid")
+    assert c.time_offsets == tuple(range(-11, 0)) and c.time_history == 11
+    assert (c.freq_offsets, c.freq_boundary) == (tuple(range(13)), "zero")
+    assert HPRConfig(fs=44100.0, hop=256, stream_state="bf16").stream_state == "bf16"
+    # offline valid at l_harm = 2: the reference never writes the lag row
+    assert not HPRConfig(fs=8000.0, hop=256, border="valid").lag_row_written
 
 
 def test_fast_rfft_never_demoted_under_wrap():
@@ -95,10 +115,7 @@ def test_synth_scale_is_nfft_times_cola():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"border": "valid"},
-        {"border": "replicate"},
         {"use_sse": True},
-        {"stream_state": "bf16"},
         {"fft_impl": "dft"},
         {"fft_impl": "dft_bf16"},
         {"fft_impl": "dft_f32"},
@@ -133,7 +150,7 @@ def test_port_imports_no_jax():
     """The card's machine has no JAX: the port must not pull it in."""
     code = (
         "import sys, zen_tpu_torch, zen_tpu_torch.ops.median_cuda, "
-        "zen_tpu_torch.convert; "
+        "zen_tpu_torch.convert, zen_tpu_torch.cli; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'zen_tpu' not in sys.modules, 'zen_tpu imported'"
     )

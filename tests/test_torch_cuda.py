@@ -93,6 +93,89 @@ def test_freq_kernel_matches_twin(cuda_device, rows, f, k, mode):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
+def _bf16(rng, *shape, device):
+    return _mags(rng, *shape, device=device).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill",
+    [  # #4: the 512-stream hop-256 step at B = 16 and B = 1 (wrap, K = 11)
+     ((512, 21, 513), (512, 16, 513), T256, 21, 0.0),
+     ((512, 21, 513), (512, 1, 513), T256, 21, 0.0),
+     # #4's padded branch: one input, taps before row 0 read the fill
+     ((256, 64, 513), (256, 0, 513), tuple(range(-5, 6)), 0, 0.0),
+     # #1 bf16, the 512-stream fleet's replicate (duplicated taps) and
+     # valid borders, past 4096 streams
+     ((64, 21, 513), (64, 32, 513), T256, 21, 0.0),
+     ((512, 5, 1024), (512, 16, 1024), tuple(range(-5, 0)) + (0,) * 6, 5, float("inf")),
+     ((512, 11, 1024), (512, 16, 1024), tuple(range(-11, 0)), 11, 0.0),
+     ((4100, 11, 65), (4100, 2, 65), tuple(range(-11, 0)), 11, 0.0),
+     # the wide kernel on bf16
+     ((2, 183, 65), (2, 40, 65), tuple(range(-183, -137)) + tuple(range(-46, 1)),
+      183, 0.0)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_time_kernel_wide_fleets_match_twin(cuda_device, dtype, a_shape, b_shape,
+                                            offsets, start, fill):
+    rng = np.random.default_rng(13)
+    a = _mags(rng, *a_shape, device=cuda_device).to(dtype)
+    b = _mags(rng, *b_shape, device=cuda_device).to(dtype)
+    before = mc.tap_median_time.launches
+    got = mc.tap_median_time(a, b, offsets, start, fill)
+    torch.cuda.synchronize()
+    assert mc.tap_median_time.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+@pytest.mark.parametrize(
+    "rows,f,k,mode",
+    [(8192, 513, 13, "reflect"), (8192, 1024, 13, "edge"), (8192, 1036, 13, "valid"),
+     (37, 4096, 47, "wrap"), (1, 600, 12289, "wrap")],
+)
+def test_freq_kernel_bf16_matches_twin(cuda_device, rows, f, k, mode):
+    rng = np.random.default_rng(14)
+    x = _bf16(rng, rows, f, device=cuda_device)
+    before = mc.sliding_median_boundary.launches
+    got = mc.sliding_median_boundary(x, k, mode)
+    torch.cuda.synchronize()
+    assert mc.sliding_median_boundary.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+def test_wrappers_refuse_float16_and_mixed_dtypes(cuda_device):
+    x = torch.ones((2, 9, 33), device=cuda_device)
+    n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
+    with pytest.raises(ZenError, match="float32 or bfloat16"):
+        mc.tap_median_time(x.half(), x.half(), T1024, 5)
+    with pytest.raises(ZenError, match="float32 or bfloat16"):
+        mc.sliding_median_boundary(x.half(), 5, "wrap")
+    with pytest.raises(ZenError, match="differ in dtype"):
+        mc.tap_median_time(x, x.bfloat16(), T1024, 5)
+    assert mc.tap_median_time.launches == n_time
+    assert mc.sliding_median_boundary.launches == n_freq
+
+
+@pytest.mark.parametrize("kw", [{"stream_state": "bf16"}, {"border": "valid"},
+                                {"border": "replicate"}])
+def test_fleet_variants_on_card_match_cpu(cuda_device, kw):
+    """256 streams at B = 4 < H (fs 8000, hop 64), card vs CPU port
+    under chip_smoke's flip rule."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(15)
+    audio = rng.standard_normal((256, 64 * 24)).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        ms = MultiStreamHPR(256, 8000.0, 64, device=dev, **kw)
+        x = torch.from_numpy(audio).reshape(256, 6, 4, 64)
+        outs[str(dev)] = torch.cat([ms.process_block(x[:, j]) for j in range(6)],
+                                   dim=2).cpu().numpy()
+    assert ms.state.feat_hist.dtype == (torch.bfloat16 if kw.get("stream_state") else torch.float32)
+    cs.compare_stream(ms.cfg, audio, [4] * 6, outs[str(cuda_device)], outs["cpu"],
+                      ("harmonic", "percussive", "residual"))
+
+
 def test_unsupported_cuda_input_raises_without_fallback(cuda_device):
     x = torch.ones((2, 9, 33), device=cuda_device)
     n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches

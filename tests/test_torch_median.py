@@ -49,6 +49,17 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+def _bf16(x):
+    """The same bf16 values for both packages: a jnp bf16 array and the
+    torch bf16 tensor of its exact float32 read-back."""
+    xb = jnp.asarray(x, jnp.bfloat16)
+    return xb, _t(np.asarray(xb, np.float32)).to(torch.bfloat16)
+
+
+def _np32(y):
+    return y.float().numpy() if isinstance(y, torch.Tensor) else np.asarray(y, np.float32)
+
+
 # ---------------- plain twins vs zen_tpu.ops.median ----------------
 
 
@@ -108,6 +119,26 @@ def test_sliding_median_matches_jax_every_boundary(boundary, dim):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize(
+    "offsets,boundary,dim",
+    [(tuple(range(-5, 0)) + (0,) * 6, "zero", -2),  # replicate, causal hop 256
+     (tuple(range(-11, 0)), "zero", -2),  # valid, causal hop 256
+     (tuple(range(-6, 7)), "clamp", -1),  # replicate frequency window
+     (tuple(range(0, 13)), "zero", -1),  # valid forward window
+     (T256, "zero", -2)],
+)
+def test_plain_bf16_matches_jax(offsets, boundary, dim):
+    """On bf16 values the plain reference picks the element
+    zen_tpu.ops.median.sliding_median picks, duplicate offsets included
+    (the replicate border repeats offset 0)."""
+    rng = np.random.default_rng(14)
+    xb, xt = _bf16(_mags(rng, 3, 24, 40))
+    want = jax_sliding_median(xb, offsets, dim, boundary, fill=0.0)
+    got = sliding_median(xt, offsets, dim, boundary, fill=0.0)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np32(got), _np32(want))
+
+
 # ---------------- port vs the Pallas kernels (interpret mode) ----------------
 
 
@@ -147,6 +178,58 @@ def test_freq_boundary_matches_pallas(shape, k, mode):
     want = np.asarray(mp.sliding_median_boundary_pallas(x, k, mode))
     got = mc.sliding_median_boundary(_t(x), k, mode).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "c,t,f,k,start",
+    [(256, 24, 130, 9, 8),  # every tap in bounds: the unpadded branch
+     (320, 12, 64, 5, 0)],  # taps before row 0: the padded fill branch
+)
+def test_time_piped_matches_pallas(c, t, f, k, start, dtype):
+    """#4 _time_kernel_piped, the wide-fleet route (C >= 256, one tile),
+    at tests/test_pallas.py's shape family: the port's K1 (its twin
+    here) equals it bitwise at f32 and bf16, and the JAX call is shown
+    to have taken _time_impl_piped."""
+    from unittest import mock
+
+    rng = np.random.default_rng(15)
+    offsets = tuple(range(-(k - 1), 1))
+    x = rng.standard_normal((c, t, f)).astype(np.float32)
+    if dtype == "bfloat16":
+        xj, xt = _bf16(x)
+    else:
+        xj, xt = jnp.asarray(x), _t(x)
+    with mock.patch.object(mp, "_time_impl_piped", wraps=mp._time_impl_piped) as piped:
+        want = mp.tap_median_time_pallas(xj, offsets, 0.0, start)
+    assert piped.call_count == 1
+    got = mc.tap_median_time(xt, xt[:, :0], offsets, start)
+    assert got.dtype == xt.dtype and want.dtype == xj.dtype
+    np.testing.assert_array_equal(_np32(got), _np32(want))
+
+
+def test_time_pair_bf16_matches_pallas():
+    """#1 on bf16 (stream_state='bf16' at B >= H): the hop-256 fleet's
+    taps over 8 streams."""
+    rng = np.random.default_rng(16)
+    hj, ht = _bf16(_mags(rng, 8, 21, 513))
+    fj, ft = _bf16(_mags(rng, 8, 32, 513))
+    want = mp.tap_median_time_pair_pallas(hj, fj, T256)
+    got = mc.tap_median_time(ht, ft, T256, 21)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np32(got), _np32(want))
+
+
+@pytest.mark.parametrize("mode", ["reflect", "edge"])
+def test_freq_fused_bf16_matches_pallas(mode):
+    """#7 on bf16: 128 folded rows of 513 bins at K = 13."""
+    rng = np.random.default_rng(17)
+    xj, xt = _bf16(_mags(rng, 4, 32, 513))
+    assert mp.fused_freq_supported(xj.shape, 13, xj.dtype)
+    want = mp.sliding_median_boundary_pallas(xj, 13, mode)
+    got = mc.sliding_median_boundary(xt, 13, mode)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np32(got), _np32(want))
 
 
 # The offline routes (#3, #6, #8 of the kernel table): the TPU picks
@@ -215,6 +298,9 @@ def test_cpu_tensors_take_the_plain_twin_and_count_nothing():
         lambda x: mc.sliding_median_boundary(x, 5, "mirror"),  # unknown mode
         lambda x: mc.sliding_median_boundary(x, 71, "reflect"),  # reach >= F
         lambda x: mc.sliding_median_boundary(x, 35, "valid"),  # wider than row
+        lambda x: mc.sliding_median_boundary(x.half(), 5, "wrap"),  # float16
+        lambda x: mc.tap_median_time(x, x.bfloat16(), T1024, 5),  # mixed dtypes
+        lambda x: mc.tap_median_time(x.double(), x.double(), T1024, 5),  # float64
     ],
 )
 def test_wrappers_reject_what_the_kernels_do_not_take(call):

@@ -121,6 +121,23 @@ def test_process_matches_zen_tpu(fs, hop_h, hop_p, length):
         _close(g, w, f"{k} fs={fs} L={length}")
 
 
+@pytest.mark.parametrize("border", ["valid", "replicate"])
+def test_process_borders_match_zen_tpu(border):
+    """HPRIOffline(..., border=) against zen_tpu's on the full C2C
+    spectrum. At fs 8000 / hop 256 l_harm is 2, so under 'valid' pass 1
+    never writes its lag row and masks against zeros
+    (lag_row_written). stream_state is ignored offline, as in zen_tpu."""
+    jsep, tsep = _separators(8000.0, 256, 64, border=border)
+    assert tsep.cfg_h.lag_row_written == (border != "valid") == jsep.cfg_h.lag_row_written
+    audio = _audio(3000, 7)
+    got = tsep.process(audio)
+    for g, w, k in zip(got, jsep.process(audio), STEMS):
+        _close(g, w, f"{k} {border}")
+    bf16 = T.HPRIOffline(8000.0, 256, 64, border=border, stream_state="bf16")
+    for g, g16 in zip(got, bf16.process(audio)):
+        np.testing.assert_array_equal(g16.numpy(), g.numpy())
+
+
 def test_process_leading_channel_dim():
     jsep, tsep = _separators(1000.0, 32, 8)
     audio = _audio(300, 5, 2)
@@ -175,7 +192,8 @@ def test_rejects_what_is_not_ported_or_invalid():
 
 
 @pytest.mark.parametrize(
-    "kw", [{}, {"causal": True}, {"soft_mask": True}, {"fast_rfft": False}]
+    "kw", [{}, {"causal": True}, {"soft_mask": True}, {"fast_rfft": False},
+           {"border": "valid"}, {"border": "replicate"}]
 )
 def test_blocked_pass_equals_unblocked(kw):
     """Overlap-save over 16-frame blocks == the batched pass, bitwise on

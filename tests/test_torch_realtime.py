@@ -129,6 +129,65 @@ def test_state_carried_from_zen_tpu_continues_identically():
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("border", ["valid", "replicate"])
+def test_borders_match_zen_tpu(border):
+    """HPRRealtime under the two other borders (full C2C spectrum), in
+    ragged blocks of 5 hops at fs 1000 / hop 8 (H = 9 valid, 4
+    replicate: B < H and B >= H both run)."""
+    rng = np.random.default_rng(20)
+    audio = rng.standard_normal(8 * 37 - 2).astype(np.float32)
+    jrt, trt = _pair(1000.0, 8, border=border)
+    assert not trt.cfg.fast_rfft and trt.cfg.time_offsets == jrt.cfg.time_offsets
+    _close(trt.process_stream(audio, 5), np.asarray(jrt.process_stream(audio, 5)), border)
+
+
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+def test_wide_fleet_b_under_history_matches_zen_tpu(state):
+    """256 streams at B = 4 < H = 33 (fs 4000, hop 16): the shape class
+    of zen_tpu's #4 route (C >= 256), f32 and bf16 stream state."""
+    rng = np.random.default_rng(21)
+    kw = dict(outputs=J.OUTPUT_PERCUSSIVE, stream_state=state)
+    jms = J.MultiStreamHPR(256, 4000.0, hop=16, median_impl="xla", fft_impl="xla", **kw)
+    tms = T.MultiStreamHPR(256, 4000.0, hop=16, **kw)
+    want_dtype = torch.bfloat16 if state == "bf16" else torch.float32
+    assert tms.state.feat_hist.dtype == want_dtype
+    for _ in range(3):
+        blk = rng.standard_normal((256, 4, 16)).astype(np.float32)
+        got = tms.process_block(blk)
+        assert got.dtype == torch.float32
+        _close(got.numpy(), np.asarray(jms.process_block(blk)), state)
+    assert tms.state.feat_hist.dtype == want_dtype
+    # |S| rounds differently in the two FFTs: a feature can land one
+    # bf16 step (2**-7 relative at most) or float noise away
+    np.testing.assert_allclose(
+        tms.state.feat_hist.float().numpy(), np.asarray(jms.state.feat_hist, np.float32),
+        rtol=2**-7 if state == "bf16" else 1e-5, atol=1e-6)
+    tms.reset_streams([0, 255])
+    assert tms.state.feat_hist.dtype == want_dtype and not tms.state.feat_hist[0].any()
+
+
+def test_bf16_state_carried_from_zen_tpu_continues_identically():
+    """A JAX bf16 stream's state, read back as float32 numpy (exact) and
+    carried into the port as bf16 through the config, continues as
+    zen_tpu's does."""
+    rng = np.random.default_rng(22)
+    first = rng.standard_normal((3, 20, 64)).astype(np.float32)
+    rest = rng.standard_normal((3, 20, 64)).astype(np.float32)
+    jrt, _ = _pair(8000.0, 64, stream_state="bf16")
+    for blk in first:
+        jrt.process_block(blk)
+    cfg = T.config_from_fields(**dataclasses.asdict(jrt.cfg))
+    trt = T.HPRRealtime(8000.0, 64, stream_state="bf16")
+    trt.cfg = cfg
+    trt.state = T.state_from_numpy(*(np.asarray(x, np.float32) for x in jrt.state), cfg=cfg)
+    assert trt.state.feat_hist.dtype == torch.bfloat16
+    for blk in rest:
+        _close(trt.process_block(blk).numpy(), np.asarray(jrt.process_block(blk)), "bf16")
+    np.testing.assert_allclose(  # within one bf16 step, as above
+        trt.state.feat_hist[0].float().numpy(), np.asarray(jrt.state.feat_hist, np.float32),
+        rtol=2**-7, atol=1e-6)
+
+
 def _fleet_blocks(seed, c=4, b=6, hop=8, n=3):
     rng = np.random.default_rng(seed)
     return rng.standard_normal((n, c, b, hop)).astype(np.float32)

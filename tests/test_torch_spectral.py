@@ -148,3 +148,25 @@ def test_feature_transform_is_magnitude():
     assert tsp.feature_transform(m, tc) is m
     h, p = torch.rand(2, 3), torch.rand(2, 3)
     assert tsp.finalize_features(h, p, tc) == (h, p)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("border", ["valid", "replicate"])
+def test_border_filters_match_jax(border, causal):
+    """Both directional medians under the other borders, bitwise on the
+    same features: 'valid' zero-pads the forward frequency window and
+    zeroes the top bins, 'replicate' clamps; at fs 8000 / hop 256 the
+    offline 'valid' time filter is all zeros (lag_row_written)."""
+    for hop in (64, 256):
+        jc, tc = _cfgs(border=border, causal=causal, hop=hop)
+        rng = np.random.default_rng(hop)
+        feats = rng.random((2, 12, tsp.num_bins(tc)), dtype=np.float32) + np.float32(1e-3)
+        x = torch.from_numpy(feats)
+        got_p = tsp.freq_filtered(x, tc).numpy()
+        np.testing.assert_array_equal(got_p, _np(jsp.freq_filtered(jnp.asarray(feats), jc)))
+        got_h = tsp.time_filtered_tail(x, tc, 3)
+        assert got_h.dtype == torch.float32
+        want_h = _np(jsp.time_filtered_tail(jnp.asarray(feats), jc, 3))
+        np.testing.assert_array_equal(got_h.numpy(), want_h)
+        if not tc.lag_row_written:
+            assert not got_h.any()

@@ -6,18 +6,18 @@ history, OLA tails) and the configuration. Both cross as plain Python
 values and numpy arrays, so nothing here imports jax:
 
     cfg = config_from_fields(**dataclasses.asdict(jax_cfg))
-    state = state_from_numpy(*map(np.asarray, jax_state), device="cuda")
+    state = state_from_numpy(*map(np.asarray, jax_state), cfg=cfg, device="cuda")
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .drivers.realtime import StreamState
+from .drivers.realtime import StreamState, hist_dtype
 from .engine.config import HPRConfig
 
-_MEDIAN_IMPL = {"xla": "torch", "pallas": "cuda"}
-_FFT_IMPL = {"xla": "torch"}
+MEDIAN_IMPL_FROM_JAX = {"xla": "torch", "pallas": "cuda"}
+FFT_IMPL_FROM_JAX = {"xla": "torch"}
 
 
 def config_from_fields(**fields) -> HPRConfig:
@@ -28,24 +28,33 @@ def config_from_fields(**fields) -> HPRConfig:
     raise NotImplementedError from HPRConfig."""
     fields = dict(fields)
     if "median_impl" in fields:
-        fields["median_impl"] = _MEDIAN_IMPL.get(
+        fields["median_impl"] = MEDIAN_IMPL_FROM_JAX.get(
             fields["median_impl"], fields["median_impl"]
         )
     if "fft_impl" in fields:
-        fields["fft_impl"] = _FFT_IMPL.get(fields["fft_impl"], fields["fft_impl"])
+        fields["fft_impl"] = FFT_IMPL_FROM_JAX.get(fields["fft_impl"], fields["fft_impl"])
     return HPRConfig(**fields)
 
 
-def state_from_numpy(ring, feat_hist, ola_tail, device="cpu") -> StreamState:
+def state_from_numpy(
+    ring, feat_hist, ola_tail, device="cpu", cfg: HPRConfig | None = None
+) -> StreamState:
     """StreamState on ``device`` from numpy arrays, with or without the
-    leading stream axis (the JAX single-stream state has none)."""
+    leading stream axis (the JAX single-stream state has none).
+
+    The feature history takes ``cfg``'s stream state dtype (bfloat16
+    under 'bf16'; float32 without a cfg); ring and tails are float32. A
+    JAX bf16 history read back as float32 numpy converts exactly."""
+    dtype = hist_dtype(cfg) if cfg is not None else torch.float32
     ring, feat_hist, ola_tail = (
         np.array(x, np.float32) for x in (ring, feat_hist, ola_tail)
     )
     if ring.ndim == 1:
         ring, feat_hist, ola_tail = ring[None], feat_hist[None], ola_tail[None]
     return StreamState(
-        *(torch.from_numpy(x).to(device) for x in (ring, feat_hist, ola_tail))
+        torch.from_numpy(ring).to(device),
+        torch.from_numpy(feat_hist).to(device=device, dtype=dtype),
+        torch.from_numpy(ola_tail).to(device),
     )
 
 

@@ -24,6 +24,11 @@
 //   already padded row: out[r, j] = median of x[r, j .. j + K - 1], with
 //   F_out = F_in - K + 1.
 //
+// Element types: float and __nv_bfloat16 (the bf16 stream state). The row
+// segment is staged in the input's own type; each bf16 tap converts to
+// float exactly, so the float compares rank the same elements, and the
+// selected value converts back to the same bf16 bits.
+//
 // What bounds it on this card: compares. Ranking by counting costs up to
 // 2 K^2 compares per output (338 at K = 13, 4418 at K = 47, 69,938 at
 // K = 187) against 8 bytes of device-memory traffic once the row segment
@@ -42,6 +47,7 @@
 // network or an incremental window is later work. Rows and the ragged
 // last tile are masked here, so any row count is valid (the Pallas fused
 // kernel needed R % 128 == 0).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -66,14 +72,23 @@ __device__ __forceinline__ int boundary_index(int p, int f, int mode) {
   return p;  // valid: always inside the padded row
 }
 
-__global__ void sliding_median_kernel(const float* __restrict__ x,
-                                      float* __restrict__ out, int f_in,
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__global__ void sliding_median_kernel(const T* __restrict__ x,
+                                      T* __restrict__ out, int f_in,
                                       int f_out, int k, int mode) {
-  extern __shared__ float seg[];  // kTile + k - 1 floats
+  // kTile + k - 1 elements of T (one buffer name for every T: an
+  // `extern __shared__ T seg[]` per instantiation would clash)
+  extern __shared__ __align__(16) unsigned char seg_bytes[];
+  T* seg = reinterpret_cast<T*>(seg_bytes);
   const long long r = blockIdx.x;
   const int j0 = blockIdx.y * kTile;
   const int m = (k - 1) / 2;
-  const float* row = x + static_cast<size_t>(r) * f_in;
+  const T* row = x + static_cast<size_t>(r) * f_in;
   // first input position of this tile's window, before the boundary rule
   const int base = mode == kValid ? j0 : j0 - m;
   const int live = min(kTile, f_out - j0);
@@ -83,30 +98,28 @@ __global__ void sliding_median_kernel(const float* __restrict__ x,
   }
   __syncthreads();
   if (static_cast<int>(threadIdx.x) >= live) return;
-  const float* w = seg + threadIdx.x;
-  float med = w[0];
+  const T* w = seg + threadIdx.x;
+  int pick = 0;
   for (int q = 0; q < k; ++q) {
-    const float v = w[q];
+    const float v = to_float(w[q]);
     int lt = 0;
     int eq = 0;
     for (int u = 0; u < k; ++u) {
-      const float t = w[u];
+      const float t = to_float(w[u]);
       lt += t < v;
       eq += t == v;
     }
     if (lt <= m && m < lt + eq) {
-      med = v;
+      pick = q;
       break;
     }
   }
-  out[static_cast<size_t>(r) * f_out + j0 + threadIdx.x] = med;
+  out[static_cast<size_t>(r) * f_out + j0 + threadIdx.x] = w[pick];
 }
 
-}  // namespace
-
-extern "C" int zen_sliding_median_boundary(const float* x, float* out,
-                                           int rows, int f_in, int f_out,
-                                           int k, int mode, void* stream) {
+template <typename T>
+int launch(const T* x, T* out, int rows, int f_in, int f_out, int k, int mode,
+           void* stream) {
   if (k < 1 || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
       mode < kReflect || mode > kValid) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -119,7 +132,7 @@ extern "C" int zen_sliding_median_boundary(const float* x, float* out,
   }
   // the row segment must fit the shared memory a block may opt into
   // (227 KB on Hopper); above the 48 KB default, opt in
-  const size_t smem = (static_cast<size_t>(kTile) + k - 1) * sizeof(float);
+  const size_t smem = (static_cast<size_t>(kTile) + k - 1) * sizeof(T);
   int device = 0;
   int optin = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -132,15 +145,30 @@ extern "C" int zen_sliding_median_boundary(const float* x, float* out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(sliding_median_kernel,
+    err = cudaFuncSetAttribute(sliding_median_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((f_out + kTile - 1) / kTile));
-  sliding_median_kernel<<<grid, kTile, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  sliding_median_kernel<T><<<grid, kTile, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
       x, out, f_in, f_out, k, mode);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int zen_sliding_median_boundary(const float* x, float* out,
+                                           int rows, int f_in, int f_out,
+                                           int k, int mode, void* stream) {
+  return launch(x, out, rows, f_in, f_out, k, mode, stream);
+}
+
+extern "C" int zen_sliding_median_boundary_bf16(const __nv_bfloat16* x,
+                                                __nv_bfloat16* out, int rows,
+                                                int f_in, int f_out, int k,
+                                                int mode, void* stream) {
+  return launch(x, out, rows, f_in, f_out, k, mode, stream);
 }

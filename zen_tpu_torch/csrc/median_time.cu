@@ -6,29 +6,37 @@
 //   _time_kernel           (the one-input form with constant fill, reached
 //                           through tap_median_time_pallas when its rows
 //                           fit one chunk: the B < history streaming step,
-//                           time_filtered_tail, short offline passes), and
+//                           time_filtered_tail, short offline passes),
 //   _time_kernel_pipelined (the same form double-buffered over many row
 //                           chunks: the offline passes' full-T medians,
-//                           e.g. the centered K = 11 of hop 256).
-// All three collapse into one kernel: b may have zero rows, and the
-// TPU's row chunking is the grid here.
+//                           e.g. the centered K = 11 of hop 256), and
+//   _time_kernel_piped     (the same form with one whole-extent block per
+//                           stream for fleets of >= 256 streams: the
+//                           512-stream hop-256 step at B < H, f32 or bf16,
+//                           and its padded constant-fill branch).
+// All four collapse into one kernel: b may have zero rows, and the
+// TPU's row chunking and per-stream blocks are the grid here.
 //
 //   out[c, i, f] = median over o in offsets of V[c, start + i + o, f]
 //   V = rows of a [C, Ta, F] followed by rows of b [C, Tb, F]
 //   rows outside [0, Ta + Tb) read `fill`
 //
+// Element types: float and __nv_bfloat16 (the bf16 stream state). A bf16
+// tap converts to float exactly, so the float compares rank the same
+// elements, and the selected value converts back to the same bf16 bits.
+//
 // What bounds it on this card: bytes. The main-path shapes take K = 3
 // (hop 1024) and K = 11 (hop 256) taps; ranking by counting costs at
 // most 2 K^2 compares per output, 242 at K = 11, against 4 (K + 1) bytes
-// of loads and store, about 5 compares per byte -- below the ~20 FP32
-// operations per byte where an H100 stops being bandwidth-bound.
-// Neighbouring output rows share all but one tap row, so most tap loads
-// are L1/L2 hits and device-memory traffic approaches one read of V and
-// one write of out.
+// of loads and store (half that in bf16), about 5 compares per byte --
+// below the ~20 FP32 operations per byte where an H100 stops being
+// bandwidth-bound. Neighbouring output rows share all but one tap row,
+// so most tap loads are L1/L2 hits and device-memory traffic approaches
+// one read of V and one write of out.
 //
 // What the simple design does about it: one thread per output element,
-// with f fastest, so each warp's loads and stores are 128-byte coalesced
-// rows; the two input pointers remove the concat copy the JAX step pays
+// with f fastest, so each warp's loads and stores are coalesced rows;
+// the two input pointers remove the concat copy the JAX step pays
 // without the pair kernel; the taps live in registers (the loops over
 // KMAX are unrolled), and the selection is exact rank-by-counting, which
 // picks sorted[(K-1)/2], the element jnp.median picks for odd K.
@@ -38,6 +46,7 @@
 // a device buffer the wrapper uploads once per offsets tuple, and
 // re-reads each tap through the read-only cache in the rank loop. It is
 // right, not fast: up to K^2 loads per output, mostly L1 hits.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -53,10 +62,34 @@ struct Taps {
   int o[kMaxTaps];
 };
 
-template <int KMAX>
-__global__ void tap_median_time_kernel(const float* __restrict__ a,
-                                       const float* __restrict__ b,
-                                       float* __restrict__ out, int ta, int tb,
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+// exact: x is always a converted bf16 tap or the bf16-rounded fill
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// one element through the read-only data cache, as float
+__device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+template <typename T, int KMAX>
+__global__ void tap_median_time_kernel(const T* __restrict__ a,
+                                       const T* __restrict__ b,
+                                       T* __restrict__ out, int ta, int tb,
                                        int f, int start, int t_out,
                                        long long n, Taps taps, float fill) {
   const long long idx =
@@ -76,9 +109,9 @@ __global__ void tap_median_time_kernel(const float* __restrict__ a,
       const int r = start + i + taps.o[q];
       float x = fill;
       if (r >= 0 && r < ta) {
-        x = a[(static_cast<size_t>(c) * ta + r) * f + col];
+        x = to_float(a[(static_cast<size_t>(c) * ta + r) * f + col]);
       } else if (r >= ta && r < ta + tb) {
-        x = b[(static_cast<size_t>(c) * tb + (r - ta)) * f + col];
+        x = to_float(b[(static_cast<size_t>(c) * tb + (r - ta)) * f + col]);
       }
       v[q] = x;
     }
@@ -101,27 +134,29 @@ __global__ void tap_median_time_kernel(const float* __restrict__ a,
       if (lt <= half && half < lt + eq) med = v[j];
     }
   }
-  out[idx] = med;
+  out[idx] = from_float<T>(med);
 }
 
 // one tap of V for the wide kernel, through the read-only data cache
-__device__ __forceinline__ float tap_at(const float* __restrict__ a,
-                                        const float* __restrict__ b,
+template <typename T>
+__device__ __forceinline__ float tap_at(const T* __restrict__ a,
+                                        const T* __restrict__ b,
                                         long long c, int ta, int tb, int f,
                                         int col, int r, float fill) {
   if (r >= 0 && r < ta) {
-    return __ldg(a + (static_cast<size_t>(c) * ta + r) * f + col);
+    return load_ro(a + (static_cast<size_t>(c) * ta + r) * f + col);
   }
   if (r >= ta && r < ta + tb) {
-    return __ldg(b + (static_cast<size_t>(c) * tb + (r - ta)) * f + col);
+    return load_ro(b + (static_cast<size_t>(c) * tb + (r - ta)) * f + col);
   }
   return fill;
 }
 
+template <typename T>
 __global__ void tap_median_time_wide_kernel(
-    const float* __restrict__ a, const float* __restrict__ b,
-    float* __restrict__ out, int ta, int tb, int f, int start, int t_out,
-    long long n, const int* __restrict__ offsets, int k, float fill) {
+    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+    int ta, int tb, int f, int start, int t_out, long long n,
+    const int* __restrict__ offsets, int k, float fill) {
   extern __shared__ int offs[];
   for (int q = threadIdx.x; q < k; q += blockDim.x) offs[q] = offsets[q];
   __syncthreads();
@@ -148,15 +183,13 @@ __global__ void tap_median_time_wide_kernel(
       break;
     }
   }
-  out[idx] = med;
+  out[idx] = from_float<T>(med);
 }
 
-}  // namespace
-
-extern "C" int zen_tap_median_time(const float* a, const float* b, float* out,
-                                   int c, int ta, int tb, int f, int start,
-                                   int t_out, const int* offsets, int k,
-                                   float fill, void* stream) {
+template <typename T>
+int launch_register(const T* a, const T* b, T* out, int c, int ta, int tb,
+                    int f, int start, int t_out, const int* offsets, int k,
+                    float fill, void* stream) {
   if (k < 1 || k > kMaxTaps || k % 2 == 0 || c <= 0 || f <= 0 || t_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -168,13 +201,13 @@ extern "C" int zen_tap_median_time(const float* a, const float* b, float* out,
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 4) {
-    tap_median_time_kernel<4><<<blocks, threads, 0, s>>>(
+    tap_median_time_kernel<T, 4><<<blocks, threads, 0, s>>>(
         a, b, out, ta, tb, f, start, t_out, n, taps, fill);
   } else if (k <= 16) {
-    tap_median_time_kernel<16><<<blocks, threads, 0, s>>>(
+    tap_median_time_kernel<T, 16><<<blocks, threads, 0, s>>>(
         a, b, out, ta, tb, f, start, t_out, n, taps, fill);
   } else {
-    tap_median_time_kernel<kMaxTaps><<<blocks, threads, 0, s>>>(
+    tap_median_time_kernel<T, kMaxTaps><<<blocks, threads, 0, s>>>(
         a, b, out, ta, tb, f, start, t_out, n, taps, fill);
   }
   return static_cast<int>(cudaGetLastError());
@@ -183,11 +216,10 @@ extern "C" int zen_tap_median_time(const float* a, const float* b, float* out,
 // K > kMaxTaps: `offsets` is a device buffer of k ints, staged in the
 // block's shared memory, which bounds k by the 48 KB a block takes
 // without an opt-in (kMaxWideTaps).
-extern "C" int zen_tap_median_time_wide(const float* a, const float* b,
-                                        float* out, int c, int ta, int tb,
-                                        int f, int start, int t_out,
-                                        const int* offsets, int k, float fill,
-                                        void* stream) {
+template <typename T>
+int launch_wide(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
+                int start, int t_out, const int* offsets, int k, float fill,
+                void* stream) {
   if (k < 1 || k > kMaxWideTaps || k % 2 == 0 || c <= 0 || f <= 0 ||
       t_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -195,10 +227,49 @@ extern "C" int zen_tap_median_time_wide(const float* a, const float* b,
   const long long n = static_cast<long long>(c) * t_out * f;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  tap_median_time_wide_kernel<<<blocks, threads, k * sizeof(int),
-                                static_cast<cudaStream_t>(stream)>>>(
+  tap_median_time_wide_kernel<T><<<blocks, threads, k * sizeof(int),
+                                   static_cast<cudaStream_t>(stream)>>>(
       a, b, out, ta, tb, f, start, t_out, n, offsets, k, fill);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// `offsets` is a host array of k ints (k <= 64)
+extern "C" int zen_tap_median_time(const float* a, const float* b, float* out,
+                                   int c, int ta, int tb, int f, int start,
+                                   int t_out, const int* offsets, int k,
+                                   float fill, void* stream) {
+  return launch_register(a, b, out, c, ta, tb, f, start, t_out, offsets, k,
+                         fill, stream);
+}
+
+extern "C" int zen_tap_median_time_bf16(const __nv_bfloat16* a,
+                                        const __nv_bfloat16* b,
+                                        __nv_bfloat16* out, int c, int ta,
+                                        int tb, int f, int start, int t_out,
+                                        const int* offsets, int k, float fill,
+                                        void* stream) {
+  return launch_register(a, b, out, c, ta, tb, f, start, t_out, offsets, k,
+                         fill, stream);
+}
+
+// `offsets` is a device buffer of k ints (64 < k <= kMaxWideTaps)
+extern "C" int zen_tap_median_time_wide(const float* a, const float* b,
+                                        float* out, int c, int ta, int tb,
+                                        int f, int start, int t_out,
+                                        const int* offsets, int k, float fill,
+                                        void* stream) {
+  return launch_wide(a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill,
+                     stream);
+}
+
+extern "C" int zen_tap_median_time_wide_bf16(
+    const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* out, int c,
+    int ta, int tb, int f, int start, int t_out, const int* offsets, int k,
+    float fill, void* stream) {
+  return launch_wide(a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill,
+                     stream);
 }
 
 extern "C" const char* zen_cuda_error_string(int err) {

@@ -6,7 +6,8 @@ carried explicitly, with a leading stream dim C:
 
     ring       [C, nwin]        input ring        (hps.h:182, hps.cu:452)
     feat_hist  [C, H, bins]     trailing feature frames, H =
-                                config.time_history
+                                config.time_history; float32, or
+                                bfloat16 under stream_state='bf16'
     ola_tail   [C, 3, hop]      second halves of the previous frame's
                                 scaled iFFTs (the OLA carry)
 
@@ -45,6 +46,11 @@ class StreamState(NamedTuple):
     ola_tail: torch.Tensor  # [C, 3, hop]
 
 
+def hist_dtype(cfg: HPRConfig) -> torch.dtype:
+    """dtype of the carried feature history (``cfg.stream_state``)."""
+    return torch.bfloat16 if cfg.stream_state == "bf16" else torch.float32
+
+
 def init_state(cfg: HPRConfig, n_streams: int = 1, device="cpu") -> StreamState:
     """Zeroed state == the reference's reset_buffers (hps.h:296-321);
     the feature history holds the feature of a zero frame."""
@@ -53,6 +59,7 @@ def init_state(cfg: HPRConfig, n_streams: int = 1, device="cpu") -> StreamState:
         feat_hist=torch.full(
             (n_streams, cfg.time_history, num_bins(cfg)),
             prefill_value(cfg),
+            dtype=hist_dtype(cfg),
             device=device,
         ),
         ola_tail=torch.zeros((n_streams, 3, cfg.hop), device=device),
@@ -72,7 +79,7 @@ def enabled_stems(cfg: HPRConfig) -> tuple:
 class StepSpectra(NamedTuple):
     samples: torch.Tensor  # [C, nwin + B*hop] ring ++ block
     spectra: torch.Tensor  # [C, B, bins] complex
-    feat: torch.Tensor  # [C, B, bins] filter input
+    feat: torch.Tensor  # [C, B, bins] filter input, in the history's dtype
     masks: tuple  # (harmonic, percussive, residual) [C, B, bins]; the
     # residual is None under soft masks
 
@@ -92,9 +99,14 @@ def step_masks(
     frames = torch.cat([hops[:, 1 : b + 1], hops[:, 2:]], dim=-1)
 
     s = analyze(frames, cfg)  # [C, B, bins]
-    feat = feature_transform(s.abs(), cfg)
+    # stream_state='bf16' carries the history in half precision; the
+    # fresh features are quantized to match, so every tap of both
+    # medians sees one precision. The medians run on that dtype and
+    # return float32 (time) or are cast to it (frequency): masks and
+    # synthesis are float32 either way.
+    feat = feature_transform(s.abs(), cfg).to(state.feat_hist.dtype)
     h_rows = time_filtered_tail_pair(state.feat_hist, feat, cfg)
-    p_rows = freq_filtered(feat, cfg)
+    p_rows = freq_filtered(feat, cfg).float()
     h_rows, p_rows = finalize_features(h_rows, p_rows, cfg)
     pm, hm, rm = compute_masks(h_rows, p_rows, cfg)
     return StepSpectra(samples, s, feat, (hm, pm, rm))
@@ -167,7 +179,8 @@ class HPRRealtime:
     throughput use process_block(block[B, hop]) — one step for B hops —
     or process_stream(). Step outputs stay on ``device``; the copy_*
     reads and process_stream return host numpy arrays. Further keywords
-    (soft_mask, fast_rfft, median_impl, ...) go to HPRConfig.
+    (border, stream_state, soft_mask, fast_rfft, median_impl, ...) go to
+    HPRConfig.
     """
 
     def __init__(
@@ -276,8 +289,10 @@ class HPRRealtime:
 class MultiStreamHPR:
     """C independent causal HPR streams in one step — the BASELINE
     'batched multi-channel fakert' configuration (64 streams x
-    44.1 kHz). The stream dim is an explicit batch dim on one device;
-    sharding over several devices waits for the parallel slice."""
+    44.1 kHz), up to the wide fleets of ``zen stream --streams 512``.
+    The stream dim is an explicit batch dim on one device; sharding over
+    several devices waits for the parallel slice. Further keywords
+    (border, stream_state, ...) go to HPRConfig."""
 
     def __init__(
         self,

@@ -5,12 +5,17 @@ Counterpart of ``zen_tpu/engine/config.py`` (which imports jax through
 bit for bit: ``_roundf`` rounds half away from zero in numpy float32,
 as C ``roundf`` does in the reference (libzen/hps.h:216-285).
 
-Scope of this slice: ``border='wrap'`` with the median filters, hard or
-soft masks, ``fast_rfft`` on or off. The SSE box filter, the 'valid'
-and 'replicate' borders and the bf16 stream state raise
-``NotImplementedError`` until their slices land (ROADMAP queue 1,
-item 7), so their tap geometry and fast_rfft demotions are not carried
-here.
+The reference's backend/border variants collapse to one ``border``
+knob, as in zen_tpu:
+  'wrap'      == reference GPU with copy_bord (default of both drivers)
+  'valid'     == reference GPU --nocopybord
+  'replicate' == reference CPU (IPP) backend
+Each reduces to a static list of time tap offsets (``time_offsets``)
+plus a frequency window and boundary rule. ``stream_state`` 'f32' or
+'bf16' is the dtype of the streaming drivers' feature history. The SSE
+box filter raises ``NotImplementedError`` until its slice lands
+(ROADMAP queue 1, item 7), and with it zen_tpu's SSE + 'valid' -> 'wrap'
+coercion.
 """
 from __future__ import annotations
 
@@ -30,8 +35,9 @@ OUTPUT_ALL = OUTPUT_HARMONIC | OUTPUT_PERCUSSIVE | OUTPUT_RESIDUAL
 
 EPS = float(np.finfo(np.float32).eps)  # std::numeric_limits<float>::epsilon
 
-WRAP = "wrap"
-_LATER_BORDERS = ("valid", "replicate")
+WRAP = "wrap"  # GPU copy_bord=True (default in reference drivers)
+VALID = "valid"  # GPU nocopybord
+REPLICATE = "replicate"  # CPU/IPP backend
 
 
 def _roundf(x: float) -> int:
@@ -55,7 +61,7 @@ class HPRConfig:
     hop: int
     beta: float = 2.0
     causal: bool = False  # False = TimeAnticausal (offline), True = realtime
-    border: str = WRAP
+    border: str = WRAP  # 'wrap' | 'valid' | 'replicate'
     outputs: int = OUTPUT_ALL
     use_sse: bool = False
     soft_mask: bool = False  # Wiener soft mask (hps.h:116-129)
@@ -66,17 +72,15 @@ class HPRConfig:
     # 'cuda' CUDA tensors only; the other device raises
     fft_impl: str = "auto"  # 'auto' | 'torch': stored as 'torch', the
     # one transform ported (torch.fft)
-    stream_state: str = "f32"
+    stream_state: str = "f32"  # 'f32' | 'bf16': dtype of the streaming
+    # drivers' carried feature history; 'bf16' quantizes the features
+    # both medians see (selection, so the kernels pick exactly what f32
+    # would on those values) while masks and synthesis stay float32
 
     def __post_init__(self):
         if self.hop <= 0 or (self.hop & (self.hop - 1)) != 0:
             raise ZenError("hop must be a positive power of two")
-        if self.border in _LATER_BORDERS:
-            raise NotImplementedError(
-                f"border={self.border!r} is not ported yet "
-                "(ROADMAP queue 1, item 7: causal variants)"
-            )
-        if self.border != WRAP:
+        if self.border not in (WRAP, VALID, REPLICATE):
             raise ZenError(f"unknown border mode: {self.border}")
         if self.use_sse:
             raise NotImplementedError(
@@ -99,13 +103,13 @@ class HPRConfig:
         if self.fft_impl not in ("auto", "torch"):
             raise ZenError(f"unknown fft_impl: {self.fft_impl}")
         object.__setattr__(self, "fft_impl", "torch")
-        if self.stream_state == "bf16":
-            raise NotImplementedError(
-                "stream_state='bf16' is not ported yet "
-                "(ROADMAP queue 1, item 7: causal variants)"
-            )
-        if self.stream_state != "f32":
+        if self.stream_state not in ("f32", "bf16"):
             raise ZenError(f"unknown stream_state: {self.stream_state}")
+        if self.fast_rfft and self.border in (VALID, REPLICATE):
+            # nocopybord zeroes high bins asymmetrically; replicate
+            # clamps at DC, which the half spectrum's reflect boundary
+            # cannot emulate near bin 0: both need the full C2C path
+            object.__setattr__(self, "fast_rfft", False)
         # zen_tpu's low-fs fast_rfft demotion (config.py:114-119, fm >=
         # bins) cannot fire: freq_filter_len = 2 fm + 1 <= nfft, checked
         # above, already gives fm < nfft // 2 + 1, so the half-spectrum
@@ -164,36 +168,63 @@ class HPRConfig:
         (hps.h:68-80), so y = ifft * nfft * COLA."""
         return float(self.nfft) * self.cola_factor
 
-    # ---- decoded engine tap patterns (wrap border) ----
+    # ---- decoded engine tap patterns ----
     @functools.cached_property
     def time_offsets(self) -> tuple:
         """Frame-index offsets (relative to the output frame) whose
         median gives the time-direction filtered value at the lag row
         (decode: zen_tpu/ops/median.py header)."""
-        fm = self.time_filter_len // 2
+        fl = self.time_filter_len
+        fm = fl // 2
         if not self.causal:
+            # the lag row is interior for every border: pure centered
             return tuple(range(-fm, fm + 1))
-        # centered window at the newest row; the future half wraps
-        # around to the *oldest* frames of the sliding window
-        sw = self.stft_width
-        wrapped = tuple(range(-(sw - 1), -(sw - 1) + fm))
-        return wrapped + tuple(range(-fm, 1))
+        if self.border == WRAP:
+            # centered window at the newest row; the future half wraps
+            # around to the *oldest* frames of the sliding window
+            sw = self.stft_width
+            wrapped = tuple(range(-(sw - 1), -(sw - 1) + fm))
+            return wrapped + tuple(range(-fm, 1))
+        if self.border == VALID:
+            # anchor at the mask tip: strictly the previous fl frames
+            return tuple(range(-fl, 0))
+        # REPLICATE: centered at the last row, future half clamps to it
+        return tuple(range(-fm, 0)) + (0,) * (fm + 1)
 
     @property
     def time_history(self) -> int:
         """Frames of magnitude history a causal stream must carry."""
         return max(0, -min(self.time_offsets))
 
+    @property
+    def lag_row_written(self) -> bool:
+        """Whether the reference's time-direction filter ever writes the
+        lag row. NPP valid-ROI anticausal writes only rows
+        [fm, stft_width-fm-2] (mfilt.h:123-145); when the lag row falls
+        outside, the reference masks against an all-zero harmonic
+        matrix. Causal valid, wrap and replicate always write it."""
+        if self.border != VALID or self.causal:
+            return True
+        fm = self.time_filter_len // 2
+        return fm <= self.l_harm <= self.stft_width - fm - 2
+
     @functools.cached_property
     def freq_offsets(self) -> tuple:
         """Bin offsets for the frequency-direction filter (per frame)."""
-        fm = self.freq_filter_len // 2
+        fl = self.freq_filter_len
+        fm = fl // 2
+        if self.border == VALID:
+            return tuple(range(0, fl))  # forward window (mfilt.h:146-160)
         return tuple(range(-fm, fm + 1))
 
     @property
     def freq_boundary(self) -> str:
         """Boundary rule along the full frequency axis."""
-        return "wrap"
+        if self.border == WRAP:
+            return "wrap"
+        if self.border == REPLICATE:
+            return "clamp"
+        return "zero"  # valid: plus output zeroing of the high bins
 
     @property
     def output_harmonic(self) -> bool:

@@ -23,7 +23,7 @@ import torch
 from ..errors import ZenError
 from ..ops import fft as zfft
 from ..ops import median_cuda, windows
-from .config import EPS, HPRConfig
+from .config import EPS, VALID, HPRConfig
 
 STEMS = ("harmonic", "percussive", "residual")
 
@@ -93,27 +93,44 @@ def time_filtered_tail(
     feats: torch.Tensor, cfg: HPRConfig, start: int
 ) -> torch.Tensor:
     """Time-direction median of feats [..., T, bins] for output rows
-    start..T-1; taps before row 0 read the zero-prefill feature (K1's
-    one-input form)."""
-    return _time_median(feats, feats[..., :0, :], cfg, start)
+    start..T-1 as float32; taps before row 0 read the zero-prefill
+    feature (K1's one-input form). Zeros where the reference never
+    writes the lag row (offline 'valid', ``cfg.lag_row_written``)."""
+    if not cfg.lag_row_written:
+        return feats.new_zeros(feats[..., start:, :].shape, dtype=torch.float32)
+    return _time_median(feats, feats[..., :0, :], cfg, start).float()
 
 
 def time_filtered_tail_pair(
     hist: torch.Tensor, fresh: torch.Tensor, cfg: HPRConfig
 ) -> torch.Tensor:
     """time_filtered_tail over the virtual concat [hist ++ fresh] for
-    the fresh rows (start = hist rows): the streaming step's form. On
-    the kernel route the concat is never materialized."""
-    return _time_median(hist, fresh, cfg, hist.shape[-2])
+    the fresh rows (start = hist rows): the streaming step's form, as
+    float32. On the kernel route the concat is never materialized. A
+    bf16 history yields bf16-exact values (the median is selection)."""
+    return _time_median(hist, fresh, cfg, hist.shape[-2]).float()
+
+
+_FREQ_MODE = {"wrap": "wrap", "clamp": "edge"}
 
 
 def freq_filtered(feats: torch.Tensor, cfg: HPRConfig) -> torch.Tensor:
-    """Frequency-direction median along the last dim (per frame): the
-    half spectrum's reflect boundary evaluates the full spectrum's wrap
-    window (zen_tpu/engine/spectral.py:284)."""
-    boundary = "reflect" if cfg.fast_rfft else cfg.freq_boundary
+    """Frequency-direction median along the last dim (per frame), in the
+    features' dtype. The half spectrum's reflect boundary evaluates the
+    full spectrum's wrap window (zen_tpu/engine/spectral.py:284);
+    replicate clamps ('edge'); 'valid' runs the forward window over k-1
+    zeros padded on the right and zeroes every bin above nb-k-1, which
+    NPP's valid ROI never writes (mfilt.h:152)."""
     _check_median_route(cfg, feats)
-    return median_cuda.sliding_median_boundary(feats, cfg.freq_filter_len, boundary)
+    k = cfg.freq_filter_len
+    if cfg.border == VALID:
+        nb = feats.shape[-1]
+        xp = torch.nn.functional.pad(feats, (0, k - 1))
+        p = median_cuda.sliding_median_boundary(xp, k, "valid")
+        p[..., nb - k :] = 0.0
+        return p
+    mode = "reflect" if cfg.fast_rfft else _FREQ_MODE[cfg.freq_boundary]
+    return median_cuda.sliding_median_boundary(feats, k, mode)
 
 
 def finalize_features(h: torch.Tensor, p: torch.Tensor, cfg: HPRConfig):

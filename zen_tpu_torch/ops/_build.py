@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``zen_tpu_torch/csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``.
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/zen_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source or flag
 rebuilds and an unchanged tree reuses the library. ``nvcc``'s register
@@ -27,25 +28,25 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zen_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill, stream
+_TIME = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
+          ctypes.c_float, _P], _I)
+# the same, with `offsets` a device buffer (K above 64)
+_TIME_WIDE = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, ctypes.c_float, _P], _I)
+# x, out, rows, f_in, f_out, k, mode, stream
+_FREQ = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
 _SIGNATURES = {
-    # a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill, stream
-    "zen_tap_median_time": (
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
-         ctypes.c_float, _P],
-        _I,
-    ),
-    # the same, with `offsets` a device buffer (K above 64)
-    "zen_tap_median_time_wide": (
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, ctypes.c_float, _P],
-        _I,
-    ),
-    # x, out, rows, f_in, f_out, k, mode, stream
-    "zen_sliding_median_boundary": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "zen_tap_median_time": _TIME,
+    "zen_tap_median_time_bf16": _TIME,
+    "zen_tap_median_time_wide": _TIME_WIDE,
+    "zen_tap_median_time_wide_bf16": _TIME_WIDE,
+    "zen_sliding_median_boundary": _FREQ,
+    "zen_sliding_median_boundary_bf16": _FREQ,
     "zen_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -76,23 +77,48 @@ def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raise on failure."""
     out = library_path()
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, out)
+        _build(out)
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def _run(procs: list, log: list) -> None:
+    """Wait for every nvcc in ``procs``, keep its output, raise on failure."""
+    failed = []
+    for proc in procs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(proc.args) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{stderr[-4000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _build(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    nvcc, log = _nvcc(), []
+    try:
+        _run([subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+              for src, obj in zip(sources, objs)], log)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run([subprocess.Popen([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                *map(str, objs)],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)],
+             log)
+        os.replace(tmp, out)
+    finally:
+        out.with_suffix(".log").write_text("\n".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def check(err: int, what: str) -> None:

@@ -5,16 +5,19 @@ median of the streaming step (see the source notes in ``csrc/``):
 
 * ``tap_median_time`` (K1, ``csrc/median_time.cu``): time-direction tap
   median over the virtual row concat of two inputs, replacing the Pallas
-  ``_time_kernel_pair``, ``_time_kernel`` and ``_time_kernel_pipelined``;
+  ``_time_kernel_pair``, ``_time_kernel``, ``_time_kernel_pipelined`` and
+  ``_time_kernel_piped``;
 * ``sliding_median_boundary`` (K2, ``csrc/median_freq.cu``): frequency
   sliding median with the boundary rule applied in the kernel, replacing
   ``_freq_kernel_fused``, ``_freq_kernel``, ``_freq_kernel_pipelined``
   and the sublane route ``_freq_impl_sublane``.
 
-Each wrapper takes a CPU tensor to its ``_plain`` twin (built from
+Both take float32 or bfloat16 (the bf16 stream state) and return the
+input's dtype. Each wrapper checks dtype, shape and K bounds, then takes
+a CPU tensor to its ``_plain`` twin (built from
 ``ops/median.sliding_median``) and a CUDA tensor to its kernel, after
-checking dtype, contiguity, shape and K bounds; it raises on anything
-the kernel does not take, and never falls back. ``launches`` on each
+checking contiguity; it raises on anything the kernel does not take,
+and never falls back. ``launches`` on each
 wrapper counts its kernel launches, so a run can show that it went
 through the kernel. Kernels launch on the current stream, never
 synchronize and allocate nothing: the wrapper allocates the output.
@@ -50,14 +53,27 @@ def _check_k(k: int, limit: int, bound: str) -> None:
         )
 
 
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtype(*xs: torch.Tensor) -> None:
+    if xs[0].dtype not in DTYPES:
+        raise ZenError(f"median kernels take float32 or bfloat16, got {xs[0].dtype}")
+    if any(x.dtype != xs[0].dtype for x in xs):
+        raise ZenError(f"median operands differ in dtype: {[x.dtype for x in xs]}")
+
+
 def _check_cuda_operands(*xs: torch.Tensor) -> None:
     for x in xs:
-        if x.dtype != torch.float32:
-            raise ZenError(f"CUDA median kernels take float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ZenError("CUDA median kernels take contiguous tensors")
         if x.device != xs[0].device:
             raise ZenError("median operands lie on different devices")
+
+
+def _entry(lib, name: str, dtype: torch.dtype):
+    """The C entry for ``dtype``: ``name`` for float32, ``name_bf16``."""
+    return getattr(lib, name if dtype == torch.float32 else f"{name}_bf16")
 
 
 def _launch(x: torch.Tensor, entry, *args) -> int:
@@ -75,7 +91,8 @@ def tap_median_time_plain(
     a: torch.Tensor, b: torch.Tensor, offsets, start: int, fill: float = 0.0
 ) -> torch.Tensor:
     """Plain twin of ``tap_median_time``: materialize the concat and take
-    the 'zero'-boundary sliding median of its rows from ``start`` on."""
+    the 'zero'-boundary sliding median of its rows from ``start`` on
+    (``fill`` rounds to the inputs' dtype, as in the kernel)."""
     v = torch.cat([a, b], dim=-2)
     return sliding_median(v, offsets, -2, "zero", fill)[..., start:, :]
 
@@ -88,12 +105,14 @@ def tap_median_time(
     then rows of ``b`` [..., Tb, F]; rows outside V read ``fill``.
 
     (a=hist, b=fresh, start=H) is the streaming step's pair form; an
-    empty ``b`` gives the one-input form. Offsets: odd count up to
-    MAX_TIME_TAPS, duplicates allowed.
+    empty ``b`` gives the one-input form. ``a`` and ``b`` share one dtype,
+    float32 or bfloat16, which the output takes; ``fill`` is rounded to
+    it. Offsets: odd count up to MAX_TIME_TAPS, duplicates allowed.
     """
     offsets = tuple(int(o) for o in offsets)
     k = len(offsets)
     _check_k(k, MAX_TIME_TAPS, "offsets past 64 are staged in 48 KB of shared memory")
+    _check_dtype(a, b)
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-1]:
         raise ZenError(f"tap_median_time: shapes {a.shape} and {b.shape}")
     ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
@@ -109,9 +128,10 @@ def tap_median_time(
         return out
     lib = _build.library()
     if k <= REGISTER_TAPS:
-        entry, taps = lib.zen_tap_median_time, (ctypes.c_int * k)(*offsets)
+        entry = _entry(lib, "zen_tap_median_time", a.dtype)
+        taps = (ctypes.c_int * k)(*offsets)
     else:
-        entry = lib.zen_tap_median_time_wide
+        entry = _entry(lib, "zen_tap_median_time_wide", a.dtype)
         taps = _device_offsets(offsets, a.device).data_ptr()
     err = _launch(
         a,
@@ -127,7 +147,7 @@ def tap_median_time(
         t_out,
         taps,
         k,
-        float(fill),
+        _in_dtype(fill, a.dtype),
     )
     _build.check(err, "tap_median_time")
     tap_median_time.launches += 1
@@ -135,6 +155,14 @@ def tap_median_time(
 
 
 tap_median_time.launches = 0
+
+
+@functools.lru_cache(maxsize=8)
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as the plain twin's torch.where rounds
+    its fill, handed to the kernel as a float (cached: one fill per
+    config, so a launch does not build a tensor)."""
+    return float(torch.tensor(v, dtype=dtype))
 
 
 @functools.lru_cache(maxsize=32)
@@ -163,11 +191,13 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
 
     mode 'reflect' | 'wrap' | 'edge' (jnp.pad semantics, on the unpadded
     row; reflect needs (k-1)/2 < F) keeps the width F; 'valid' reads an
-    already padded row and returns F - k + 1 outputs.
+    already padded row and returns F - k + 1 outputs. float32 or
+    bfloat16, returned in the input's dtype.
     """
     if mode not in FREQ_MODES:
         raise ZenError(f"unknown boundary mode: {mode}")
     _check_k(k, MAX_FREQ_TAPS, "its 256 + K - 1 row segment fills 227 KB of shared memory")
+    _check_dtype(x)
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
     if f_out < 1 or (mode == "reflect" and (k - 1) // 2 > f_in - 1):
@@ -180,7 +210,7 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
         return out
     err = _launch(
         x,
-        _build.library().zen_sliding_median_boundary,
+        _entry(_build.library(), "zen_sliding_median_boundary", x.dtype),
         x.data_ptr(),
         out.data_ptr(),
         math.prod(x.shape[:-1]),
