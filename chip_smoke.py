@@ -4,13 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from zen_tpu_torch/csrc with nvcc and
-holds each one bitwise against its plain PyTorch twin at every shape its
-paths give it (phase 3; the kernels alone at a 4-minute track's offline
-shapes, where the twin does not fit). Then it drives both paths through
-their user entry points at full width:
+holds each route of each kernel bitwise against its plain PyTorch twin
+at every shape its paths give it, beside one torch.kthvalue call over
+the same windows (the library yardstick, which the port never calls)
+and the least time the card could take (phase 3; at a 4-minute track's
+offline shapes the kernels run without their twin). Phase 3 also sweeps
+K2's two routes over K at two row shapes: the crossover FREQ_RANK_MIN_TAPS
+(ops/median_cuda.py) comes from it; times K2's rank route at each tile
+at the paths' K, beside freq_rank_tile's choice; and splits each
+rank block's time into staging, sort and walk, from two more builds of
+the library that end the rank kernels early (phase 2 builds all three at
+once). Then it drives the paths through their user entry points at full
+width:
 
   phase 4  HPRRealtime at 44.1 kHz, hop 1024: 64 blocks of 32 hops,
            then 64 single hops;
+  phase 10 HPRRealtime at 44.1 kHz, hop 32, the low-latency stream whose
+           time median is K = 93 over 183 history rows (K1's rank
+           route): 64 blocks of 32 hops, then 64 single hops;
   phase 5  MultiStreamHPR, 64 streams at 44.1 kHz, hop 256, 32-hop
            blocks, plus a percussive-only fleet for the compact rows;
   phase 7  HPRIOffline(44100, 4096, 256, 2.5, 2.5) (BASELINE.json
@@ -33,7 +44,7 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path (phase 6 and phases 7-9).
+are counted per path and per kernel route (phase 6 and phases 7-10).
 
 Every time printed is a measurement of this run on the card named in
 phase 1. Any failure raises and exits non-zero; there is no CPU path.
@@ -44,6 +55,7 @@ from __future__ import annotations
 import functools
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -65,6 +77,26 @@ TRACK_SAMPLES = 240 * 44_100  # a 4-minute track
 TRACK_FRAMES_H = -(-TRACK_SAMPLES // 4096) + 1  # pass-1 frames (lag 1)
 TRACK_FRAMES_P = -(-TRACK_SAMPLES // 256) + 11  # pass-2 frames (lag 11)
 FLEET_STREAMS = 512  # zen stream --streams 512, the #4 route's fleet
+# the least time the card could take: an H100 SXM's device-memory rate
+# and its float32 rate outside the tensor cores (NVIDIA's data sheet);
+# the medians compare in float32, bf16 taps included
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SWEEP_K = (3, 5, 7, 9, 11, 13, 31, 47, 65, 95, 127, 187, 257)  # K2's crossover sweep
+SWEEP_SHAPES = ((32, 2049), (2048, 513))
+# K2's rank tiles timed at the paths' K and row shapes (the 512-stream
+# step, the 64-stream step, hop 1024, the offline clip and track, fs 8000)
+TILE_CASES = ((13, (8192, 513)), (13, (2048, 513)), (47, (32, 2049)), (187, (41, 8193)),
+              (187, (TRACK_FRAMES_H, 8193)), (257, (32, 2049)))
+ROUTES = {"tap_median_time": ("register", "rank", "wide"),
+          "sliding_median_boundary": ("count", "rank")}
+MP = "zen_tpu/ops/median_pallas.py"
+TPU_KERNELS = {  # PERF.md's table numbers -> file:line of the TPU kernel
+    "#1": f"{MP}:895", "#2": f"{MP}:787", "#3": f"{MP}:1020", "#4": f"{MP}:826",
+    "#5": f"{MP}:395", "#6": f"{MP}:331", "#7": f"{MP}:603", "#8": f"{MP}:482",
+}
+SOURCES = {"tap_median_time": "zen_tpu_torch/csrc/median_time.cu",
+           "sliding_median_boundary": "zen_tpu_torch/csrc/median_freq.cu"}
 FLEET_HOP, FLEET_BLOCK = 256, 16  # zen stream's defaults
 FLEET_HELD = range(0, FLEET_STREAMS, 32)  # the streams held against the CPU
 # bf16 stream state vs the f32 stream, percussive stem: LADDER_FLOORS_DB
@@ -171,13 +203,18 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """The kernel library, and beside it the two split builds of phase 3
+    (ZEN_RANK_CUT 1 and 2), all compiling at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from zen_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.library()
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(_build.library, (0, 1, 2)))
     print(
-        f"phase 2 build: {time.perf_counter() - t0:.2f} s "
-        f"({_build.library_path().relative_to(ROOT)})"
+        f"phase 2 build: {time.perf_counter() - t0:.2f} s, the library and its two "
+        f"split builds ({_build.library_path().relative_to(ROOT)})"
     )
 
 
@@ -187,15 +224,99 @@ def _mags(rng, *shape) -> torch.Tensor:
     return torch.from_numpy(x).to(DEVICE)
 
 
+def _ties(rng, *shape) -> torch.Tensor:
+    """Tie-heavy magnitudes on the card: 8 levels."""
+    x = np.floor(rng.random(shape, dtype=np.float32) * 8) / 8 + np.float32(0.125)
+    return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
+
+
+def bound(in_elems: int, out_elems: int, itemsize: int, k: int) -> tuple:
+    """(µs, 'bytes' | 'operations'): the least time for the work, the
+    larger of each input element read once and each output written once
+    at HBM_BYTES_PER_S, and ceil(log2 K) compares per output at
+    F32_OPS_PER_S: what a sliding median needs, its window kept sorted
+    from one output to the next (a search for the sample that enters)."""
+    t_bytes = (in_elems + out_elems) * itemsize / HBM_BYTES_PER_S * 1e6
+    t_ops = out_elems * math.ceil(math.log2(k)) / F32_OPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_bound(a, b, offsets, start) -> tuple:
+    """bound() of tap_median_time: the rows of V its taps reach."""
+    ta, tb = a.shape[-2], b.shape[-2]
+    t_out = ta + tb - start
+    reach = min(ta + tb, start + t_out + max(offsets)) - max(0, start + min(offsets))
+    lead_f = a.numel() // max(ta, 1) if ta else b.numel() // tb
+    outs = lead_f * t_out
+    return bound(lead_f * max(reach, 0), outs, a.element_size(), len(offsets))
+
+
+def freq_bound(x, k, mode) -> tuple:
+    f_out = x.shape[-1] - k + 1 if mode == "valid" else x.shape[-1]
+    outs = x.numel() // x.shape[-1] * f_out
+    return bound(x.numel(), outs, x.element_size(), k)
+
+
+def time_library(a, b, offsets, start, fill=0.0):
+    """One torch.kthvalue over tap_median_time's windows, as a callable;
+    the windows are built here, outside the timed call: an unfold view of
+    V padded with fill rows where the offsets are one contiguous run, the
+    gathered taps [..., t_out, F, K] otherwise. (kind, callable)."""
+    k, lo, hi = len(offsets), min(offsets), max(offsets)
+    ta, tb = a.shape[-2], b.shape[-2]
+    t_out = ta + tb - start
+    v = torch.cat([a, b], dim=-2)
+    if tuple(offsets) == tuple(range(lo, hi + 1)):
+        pad_lo = max(0, -(start + lo))
+        pad_hi = max(0, start + t_out + hi - (ta + tb))
+
+        def rows(n):
+            return torch.full(a.shape[:-2] + (n, a.shape[-1]), fill, dtype=a.dtype,
+                              device=a.device)
+
+        vp = torch.cat([rows(pad_lo), v, rows(pad_hi)], dim=-2)
+        first = start + lo + pad_lo
+        windows, kind = vp[..., first : first + t_out + k - 1, :].unfold(-2, k, 1), "unfold view"
+    else:
+        idx = (start + torch.arange(t_out, device=a.device)[:, None]
+               + torch.tensor(offsets, device=a.device)[None, :])
+        valid = (idx >= 0) & (idx < ta + tb)
+        taps = v[..., idx.clamp(0, ta + tb - 1), :]  # [..., t_out, K, F]
+        taps = torch.where(valid[..., None], taps, torch.tensor(fill, dtype=a.dtype,
+                                                                device=a.device))
+        windows, kind = taps.transpose(-1, -2).contiguous(), "gathered"
+    return kind, lambda: torch.kthvalue(windows, k // 2 + 1, dim=-1)
+
+
+def freq_library(x, k, mode):
+    """One torch.kthvalue over sliding_median_boundary's windows: an
+    unfold view of the row padded by its boundary rule (built here)."""
+    if mode != "valid":
+        m, f = (k - 1) // 2, x.shape[-1]
+        p = torch.arange(-m, f + m, device=x.device)
+        if mode == "reflect":
+            idx = torch.minimum(p.abs(), 2 * (f - 1) - p.abs())
+        elif mode == "wrap":
+            idx = torch.remainder(p, f)
+        else:
+            idx = p.clamp(0, f - 1)
+        x = x[..., idx]
+    windows = x.unfold(-1, k, 1)
+    return "unfold view", lambda: torch.kthvalue(windows, k // 2 + 1, dim=-1)
+
+
 def kernel_cases():
-    """(kernel, TPU kernel #, label, kernel call, plain call) at every
-    main-path shape (hop-1024 streaming first), the offline passes'
-    shapes, tap counts past the first kernels' caps, and the other
-    boundary modes at a ragged row count."""
+    """(kernel, route, TPU kernel #, label, kernel call, plain call,
+    library yardstick's factory, bound, the first wide kernel's call or
+    None) at every main-path shape (hop-1024 streaming first), the
+    offline passes' and the hop-32 stream's shapes, tap counts past the
+    first kernels' caps, tie-heavy and bf16 inputs at large K, and the
+    other boundary modes at a ragged row count."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(0)
     mag = functools.partial(_mags, rng)
+    ties = functools.partial(_ties, rng)
 
     def bf16(*shape):
         return mag(*shape).to(torch.bfloat16)
@@ -205,6 +326,8 @@ def kernel_cases():
     t256_rep = tuple(range(-5, 0)) + (0,) * 6  # --cpu: replicate repeats offset 0
     t256_valid = tuple(range(-11, 0))  # --nocopybord: the previous 11 frames
     t_k93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32
+    t_k401 = tuple(range(-200, 201))  # 48 kHz hop 8, centered
+    t_far = (-16353,) + tuple(range(-65, 1))  # past the rank route's staging
     cases = []
     for tpu, label, a, b, offs, start in (
         ("#1", "pair C=1 H=5 B=32 F=2049 K=3", mag(1, 5, 2049), mag(1, 32, 2049), t1024, 5),
@@ -213,9 +336,17 @@ def kernel_cases():
         ("#3", "offline pass 2 T=643 F=513 K=11 centered", mag(1, 643, 513),
          mag(1, 0, 513), tuple(range(-5, 6)), 0),
         ("#2", "offline pass 1 T=41 F=8193 K=1", mag(1, 41, 8193), mag(1, 0, 8193), (0,), 0),
-        ("#1", "pair C=1 H=183 B=32 F=65 K=93", mag(1, 183, 65), mag(1, 32, 65), t_k93, 183),
-        ("#3", "single T=900 F=17 K=401 centered", mag(1, 900, 17), mag(1, 0, 17),
-         tuple(range(-200, 201)), 0),
+        ("#1", "pair C=1 H=183 B=32 F=65 K=93 (hop 32)", mag(1, 183, 65), mag(1, 32, 65),
+         t_k93, 183),
+        ("#1", "pair C=1 H=183 B=1 F=65 K=93 (hop 32)", mag(1, 183, 65), mag(1, 1, 65),
+         t_k93, 183),
+        ("#1", "pair C=1 H=183 B=32 F=65 K=93 ties", ties(1, 183, 65), ties(1, 32, 65),
+         t_k93, 183),
+        ("#1", "pair C=1 H=183 B=32 F=65 K=93 bf16", bf16(1, 183, 65), bf16(1, 32, 65),
+         t_k93, 183),
+        ("#3", "single T=900 F=17 K=401 centered", mag(1, 900, 17), mag(1, 0, 17), t_k401, 0),
+        ("#3", "single T=900 F=17 K=401 centered ties bf16",
+         ties(1, 900, 17).to(torch.bfloat16), mag(1, 0, 17).to(torch.bfloat16), t_k401, 0),
         # the 512-stream fleet (zen stream's B=16 < H=21): #4's shapes
         ("#4", "pair C=512 H=21 B=16 F=513 K=11 f32", mag(512, 21, 513),
          mag(512, 16, 513), t256, 21),
@@ -232,11 +363,18 @@ def kernel_cases():
          mag(512, 16, 1024), t256_rep, 5),
         ("#1", "pair C=512 H=11 B=16 F=1024 K=11 valid", mag(512, 11, 1024),
          mag(512, 16, 1024), t256_valid, 11),
+        ("#1", "single T=300 F=9 K=67 span 16354 (wide fallback)", mag(1, 300, 9),
+         mag(1, 0, 9), t_far, 0),
     ):
         cases.append((
-            "tap_median_time", tpu, label,
+            "tap_median_time", mc.time_route(offs), tpu, label,
             lambda a=a, b=b, o=offs, s=start: mc.tap_median_time(a, b, o, s),
             lambda a=a, b=b, o=offs, s=start: mc.tap_median_time_plain(a, b, o, s),
+            lambda a=a, b=b, o=offs, s=start: time_library(a, b, o, s),
+            time_bound(a, b, offs, start),
+            # the rank route's inputs through the first wide kernel too
+            (lambda a=a, b=b, o=offs, s=start: mc._time_launch(a, b, o, s, 0.0, "wide"))
+            if mc.time_route(offs) == "rank" else None,
         ))
     for tpu, label, x, k, mode in (
         ("#5", "R=32 F=2049 K=47 reflect", mag(32, 2049), 47, "reflect"),
@@ -245,8 +383,19 @@ def kernel_cases():
         ("#7", "R=37 F=513 K=13 edge", mag(37, 513), 13, "edge"),
         ("#5", "R=37 F=2095 K=47 valid", mag(37, 2049 + 46), 47, "valid"),
         ("#6", "offline pass 1 R=41 F=8193 K=187 reflect", mag(41, 8193), 187, "reflect"),
+        ("#6", "offline pass 1 R=41 F=8193 K=187 reflect ties", ties(41, 8193), 187, "reflect"),
+        ("#6", "R=41 F=8193 K=187 reflect bf16", bf16(41, 8193), 187, "reflect"),
         ("#8", "offline pass 2 R=643 F=513 K=13 reflect", mag(643, 513), 13, "reflect"),
         ("#5", "R=32 F=2049 K=257 reflect (fs 8000 hop 1024)", mag(32, 2049), 257, "reflect"),
+        ("#5", "R=32 F=2049 K=257 reflect ties", ties(32, 2049), 257, "reflect"),
+        ("#5", "R=37 F=2304 K=257 valid ties bf16", ties(37, 2304).to(torch.bfloat16), 257,
+         "valid"),
+        # below FREQ_RANK_MIN_TAPS: the counting kernel (hop 32's K = 1)
+        ("#5", "R=32 F=65 K=1 reflect (hop 32)", mag(32, 65), 1, "reflect"),
+        ("#5", "R=1 F=65 K=1 reflect (hop 32, B=1)", mag(1, 65), 1, "reflect"),
+        ("#7", "R=2048 F=513 K=9 reflect", mag(2048, 513), 9, "reflect"),
+        ("#7", "R=13 F=4096 K=401 wrap ties", ties(13, 4096), 401, "wrap"),
+        ("#7", "R=13 F=4096 K=401 edge bf16", bf16(13, 4096), 401, "edge"),
         # the 512-stream fleet's 8192 rows per step, each border
         ("#7", "R=8192 F=513 K=13 reflect f32", mag(8192, 513), 13, "reflect"),
         ("#7", "R=8192 F=513 K=13 reflect bf16", bf16(8192, 513), 13, "reflect"),
@@ -254,49 +403,168 @@ def kernel_cases():
         ("#5", "R=8192 F=1036 K=13 valid", mag(8192, 1024 + 12), 13, "valid"),
     ):
         cases.append((
-            "sliding_median_boundary", tpu, label,
+            "sliding_median_boundary", mc.freq_route(k), tpu, label,
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary(x, k, m),
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary_plain(x, k, m),
+            lambda x=x, k=k, m=mode: freq_library(x, k, m),
+            freq_bound(x, k, mode),
+            None,
         ))
     return cases
 
 
 def phase_kernels() -> dict:
-    """Kernel vs plain twin, bitwise, with both device times; then the
-    kernels alone at a 4-minute track's offline shapes, where the twin's
-    [R, F, K] unfold would not fit the card (15.8 GB for pass 1)."""
+    """Each route against its plain twin, bitwise, with its device time,
+    the twin's, the library call's and the bound; K1's rank route also
+    against the first wide kernel on the same inputs (the step this PR
+    took); then the kernels alone at a 4-minute track's offline shapes,
+    where the twin would not fit the card (15.8 GB for pass 1)."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     stats = {}
-    for name, tpu, label, run_kernel, run_plain in kernel_cases():
+    for (name, route, tpu, label, run_kernel, run_plain, library, (b_us, b_by),
+         run_wide) in kernel_cases():
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         require(got.shape == want.shape, f"{name} {label}: shape {got.shape}")
-        err = float((got - want).abs().max())
+        err = float((got.float() - want.float()).abs().max())
         require(torch.equal(got, want), f"{name} {label}: max |diff| {err}")
         k_us, p_us = median_us(run_kernel), median_us(run_plain)
+        kind, lib_call = library()
+        l_us = median_us(lib_call)
+        before = ""
+        if run_wide is not None:
+            require(torch.equal(run_wide(), want), f"{name} {label}: first wide kernel differs")
+            before = f", first wide kernel {median_us(run_wide, runs=5, warmup=1):.2f} us"
         print(
-            f"phase 3 {name} ({tpu}) {label}: bitwise equal, kernel {k_us:.2f} us, "
-            f"plain {p_us:.2f} us (median of {TIMED_RUNS})"
+            f"phase 3 {name}/{route} ({tpu}) {label}: bitwise equal, kernel {k_us:.2f} us, "
+            f"plain {p_us:.2f} us, kthvalue {l_us:.2f} us ({kind}), bound {b_us:.2f} us "
+            f"({b_by}){before} (medians of {TIMED_RUNS})"
         )
-        st = stats.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+        st = stats.setdefault((name, route), {"max_abs_err": 0.0, "shapes": []})
         st["max_abs_err"] = max(st["max_abs_err"], err)
-        st["shapes"].append({"tpu_kernel": tpu, "shape": label,
-                             "ms": k_us / 1e3, "plain_ms": p_us / 1e3})
+        st["shapes"].append({"tpu_kernel": tpu, "shape": label, "ms": k_us / 1e3,
+                             "plain_ms": p_us / 1e3, "library_ms": l_us / 1e3,
+                             "library": kind, "bound_ms": b_us / 1e3, "bound_by": b_by})
     rng = np.random.default_rng(1)
     feats2 = _mags(rng, 1, TRACK_FRAMES_P, 513)
     feats1 = _mags(rng, TRACK_FRAMES_H, 8193)
-    for name, tpu, label, fn in (
+    centered = tuple(range(-5, 6))
+    for name, tpu, label, fn, library, (b_us, b_by), route in (
         ("tap_median_time", "#3", f"track pass 2 T={TRACK_FRAMES_P} F=513 K=11",
-         lambda: mc.tap_median_time(feats2, feats2[:, :0], tuple(range(-5, 6)), 0)),
+         lambda: mc.tap_median_time(feats2, feats2[:, :0], centered, 0),
+         lambda: time_library(feats2, feats2[:, :0], centered, 0),
+         time_bound(feats2, feats2[:, :0], centered, 0), mc.time_route(centered)),
         ("sliding_median_boundary", "#6", f"track pass 1 R={TRACK_FRAMES_H} F=8193 K=187",
-         lambda: mc.sliding_median_boundary(feats1, 187, "reflect")),
+         lambda: mc.sliding_median_boundary(feats1, 187, "reflect"),
+         lambda: freq_library(feats1, 187, "reflect"),
+         freq_bound(feats1, 187, "reflect"), mc.freq_route(187)),
     ):
         us = median_us(fn, runs=5, warmup=1)
-        print(f"phase 3 {name} ({tpu}) {label}: kernel {us:.2f} us (median of 5; no twin)")
-        stats[name]["shapes"].append({"tpu_kernel": tpu, "shape": label,
-                                      "ms": us / 1e3, "plain_ms": None})
+        kind, build = library()
+        l_us = median_us(build, runs=3, warmup=1)
+        del build
+        torch.cuda.empty_cache()
+        print(f"phase 3 {name}/{route} ({tpu}) {label}: kernel {us:.2f} us (median of 5; "
+              f"no twin), kthvalue {l_us:.2f} us ({kind}, median of 3), bound {b_us:.2f} us "
+              f"({b_by})")
+        stats[(name, route)]["shapes"].append({
+            "tpu_kernel": tpu, "shape": label, "ms": us / 1e3, "plain_ms": None,
+            "library_ms": l_us / 1e3, "library": kind, "bound_ms": b_us / 1e3,
+            "bound_by": b_by})
     return stats
+
+
+def phase_sweep() -> None:
+    """K2's two routes over SWEEP_K at SWEEP_SHAPES (reflect), each held
+    bitwise against the twin, timed beside kthvalue; prints the measured
+    crossover (the smallest K from which the rank route is faster at
+    every larger K of the sweep, on both shapes) beside the constant."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    rng = np.random.default_rng(2)
+    faster = {}
+    for shape in SWEEP_SHAPES:
+        x = _mags(rng, *shape)
+        for k in SWEEP_K:
+            want = mc.sliding_median_boundary_plain(x, k, "reflect")
+            us = {}
+            for route in ("count", "rank"):
+                run = lambda r=route: mc._freq_launch(x, k, "reflect", r)  # noqa: E731
+                require(torch.equal(run(), want), f"sweep {shape} K={k} {route} differs")
+                us[route] = median_us(run, runs=10)
+            kind, lib = freq_library(x, k, "reflect")
+            l_us = median_us(lib, runs=10)
+            b_us, b_by = freq_bound(x, k, "reflect")
+            faster.setdefault(k, []).append(us["rank"] < us["count"])
+            print(f"phase 3 sweep R={shape[0]} F={shape[1]} K={k} reflect: bitwise equal; "
+                  f"count {us['count']:.2f} us, rank {us['rank']:.2f} us (tile "
+                  f"{mc.freq_rank_tile(k)}), kthvalue {l_us:.2f} us ({kind}), bound "
+                  f"{b_us:.2f} us ({b_by}) (medians of 10)")
+    wins = [k for i, k in enumerate(SWEEP_K) if all(all(faster[j]) for j in SWEEP_K[i:])]
+    print(f"phase 3 sweep: rank faster on both shapes from K={wins[0] if wins else None} on; "
+          f"FREQ_RANK_MIN_TAPS = {mc.FREQ_RANK_MIN_TAPS}")
+
+
+def phase_tiles() -> None:
+    """K2's rank route at each of FREQ_RANK_TILES over TILE_CASES
+    (reflect): every tile's output equal to the wrapper's (and that to
+    the twin where it fits the card), their times, and the fastest tile
+    beside freq_rank_tile's."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    rng = np.random.default_rng(3)
+    for k, shape in TILE_CASES:
+        x = _mags(rng, *shape)
+        want = mc._freq_launch(x, k, "reflect", "rank")
+        if shape[0] != TRACK_FRAMES_H:
+            require(torch.equal(want, mc.sliding_median_boundary_plain(x, k, "reflect")),
+                    f"tiles R={shape[0]} K={k} differ from the twin")
+        us = {}
+        for tile in mc.FREQ_RANK_TILES:
+            run = lambda t=tile: mc._freq_launch(x, k, "reflect", "rank", tile=t)  # noqa: E731
+            require(torch.equal(run(), want), f"tiles R={shape[0]} K={k} tile {tile} differs")
+            us[tile] = median_us(run, runs=10)
+        best = min(us, key=us.get)
+        print(f"phase 3 tiles R={shape[0]} F={shape[1]} K={k} reflect: bitwise equal; "
+              + ", ".join(f"tile {t} {v:.2f} us" for t, v in us.items())
+              + f" (medians of 10); fastest {best}, freq_rank_tile {mc.freq_rank_tile(k)}")
+        del x, want
+        torch.cuda.empty_cache()
+
+
+def phase_split() -> None:
+    """Where a rank block's time goes: each rank kernel whole and from the
+    two split builds (ZEN_RANK_CUT, csrc/rank_select.cuh), which end after
+    staging and after the sort, at the paths' shapes. The differences
+    read as staging (with the launch), sort and walk."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    rng = np.random.default_rng(4)
+    t93 = tuple(range(-183, -137)) + tuple(range(-46, 1))
+    cases = []
+    for label, a, b, offs, start in (
+        ("K=93 [1, 183+32, 65]", _mags(rng, 1, 183, 65), _mags(rng, 1, 32, 65), t93, 183),
+        ("K=93 [1, 183+1, 65]", _mags(rng, 1, 183, 65), _mags(rng, 1, 1, 65), t93, 183),
+        ("K=401 [1, 900, 17]", _mags(rng, 1, 900, 17), _mags(rng, 1, 0, 17),
+         tuple(range(-200, 201)), 0),
+    ):
+        cases.append((f"tap_median_time/rank {label}",
+                      lambda cut, a=a, b=b, o=offs, s=start:
+                      mc._time_launch(a, b, o, s, 0.0, "rank", cut=cut)))
+    for label, x, k in (
+        (f"K=187 [{TRACK_FRAMES_H}, 8193]", _mags(rng, TRACK_FRAMES_H, 8193), 187),
+        ("K=187 [41, 8193]", _mags(rng, 41, 8193), 187),
+        ("K=47 [32, 2049]", _mags(rng, 32, 2049), 47),
+        ("K=13 [8192, 513]", _mags(rng, 8192, 513), 13),
+    ):
+        cases.append((f"sliding_median_boundary/rank {label} reflect",
+                      lambda cut, x=x, k=k: mc._freq_launch(x, k, "reflect", "rank", cut=cut)))
+    for label, run in cases:
+        full, stage, sort = (median_us(functools.partial(run, cut)) for cut in (0, 1, 2))
+        print(f"phase 3 split {label}: whole {full:.2f} us; ending after staging {stage:.2f} "
+              f"us, after the sort {sort:.2f} us: staging and launch {stage:.2f}, sort "
+              f"{sort - stage:.2f}, walk {full - sort:.2f} us (medians of {TIMED_RUNS})")
 
 
 def stream_masks(cfg, audio: np.ndarray, sizes, device, keep=None) -> torch.Tensor:
@@ -354,22 +622,28 @@ def compare_stream(cfg, audio, sizes, got, want, stems, keep=None) -> dict:
 def reset_launches() -> None:
     from zen_tpu_torch.ops import median_cuda as mc
 
-    mc.tap_median_time.launches = 0
-    mc.sliding_median_boundary.launches = 0
+    for name in ROUTES:
+        wrapper = getattr(mc, name)
+        wrapper.launches = 0
+        wrapper.routes.update(dict.fromkeys(wrapper.routes, 0))
 
 
 def read_launches() -> dict:
+    """Launches since the last reset by kernel route, 'kernel/route'."""
     from zen_tpu_torch.ops import median_cuda as mc
 
-    return {
-        "tap_median_time": mc.tap_median_time.launches,
-        "sliding_median_boundary": mc.sliding_median_boundary.launches,
-    }
+    return {f"{name}/{route}": getattr(mc, name).routes[route]
+            for name, routes in ROUTES.items() for route in routes}
 
 
-def run_hop1024(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64):
-    """Main path, single stream: returns (outputs [1, 3, N*hop], audio,
-    block sizes, timings)."""
+def per_kernel(counts: dict) -> dict:
+    """read_launches() summed over each kernel's routes."""
+    return {name: sum(counts[f"{name}/{r}"] for r in routes) for name, routes in ROUTES.items()}
+
+
+def run_stream(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64):
+    """Main path, single stream: returns (config, outputs [1, 3, N*hop],
+    audio, block sizes, timings)."""
     from zen_tpu_torch import HPRRealtime
 
     n = (n_blocks * b + n_single) * hop
@@ -391,7 +665,7 @@ def run_hop1024(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64):
     return rt.cfg, got, audio[None], sizes, timing
 
 
-def reference_hop1024(audio, sizes, hop=1024, fs=44100.0) -> np.ndarray:
+def reference_stream(audio, sizes, hop=1024, fs=44100.0) -> np.ndarray:
     from zen_tpu_torch import HPRRealtime
 
     rt = HPRRealtime(fs, hop=hop, device="cpu")
@@ -537,6 +811,7 @@ def phase_offline_clip(smi: str) -> dict:
     reset_launches()
     h, p, r = sep.process(x)
     launches = read_launches()
+    totals = per_kernel(launches)
     wall = wall_us_per_call(lambda: sep.process(x), 10) / 1e6
     pass1, st1 = hold_pass_on_cpu(sep.cfg_h, x)
     pass2, st2 = hold_pass_on_cpu(sep.cfg_p, pass1["percussive"] + pass1["residual"])
@@ -557,7 +832,7 @@ def phase_offline_clip(smi: str) -> dict:
         f"of audio per s; the reference took {CLIP_REF_MS:.0f} ms on an RTX 2070 SUPER "
         f"(BASELINE.md, an outside point); launches {launches} [{smi}]"
     )
-    require(all(v > 0 for v in launches.values()), f"offline clip launches {launches}")
+    require(all(v > 0 for v in totals.values()), f"offline clip launches {launches}")
     return launches
 
 
@@ -575,7 +850,8 @@ def phase_offline_track(smi: str) -> dict:
     blocked = sep.process_blocked(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    require(all(v > 0 for v in launches.values()), f"offline track launches {launches}")
+    require(all(v > 0 for v in per_kernel(launches).values()),
+            f"offline track launches {launches}")
     for outs in (whole, blocked):
         require(all(bool(torch.isfinite(o).all()) for o in outs), "non-finite track stems")
     if all(torch.equal(a, b) for a, b in zip(whole, blocked)):
@@ -687,7 +963,7 @@ def phase_zen_stream(smi: str) -> dict:
     audio = fleet_audio(c, 32 * block + 1234, 44100.0)  # ~3.0 s, ragged tail
     short = np.ascontiguousarray(audio[:, : 8 * block + 777])
     data = interleave(audio)
-    runs, total = {}, {"tap_median_time": 0, "sliding_median_boundary": 0}
+    runs, total = {}, dict.fromkeys(read_launches(), 0)
     for name, flags, kw, x in (
         ("f32", (), {}, audio),
         ("--stream-state bf16", ("--stream-state", "bf16"), {"stream_state": "bf16"}, audio),
@@ -698,7 +974,8 @@ def phase_zen_stream(smi: str) -> dict:
         reset_launches()
         out, err = zen_stream(fleet_argv(*flags), raw)
         counts = read_launches()
-        require(all(v > 0 for v in counts.values()), f"zen stream {name} launches {counts}")
+        require(all(v > 0 for v in per_kernel(counts).values()),
+                f"zen stream {name} launches {counts}")
         require(len(out) == len(raw), f"zen stream {name}: {len(out)} bytes out of {len(raw)}")
         line = json.loads(err[-1])
         require(line["metric"] == "stream_serving" and err[0].startswith("zen stream ready"),
@@ -759,6 +1036,56 @@ def phase_zen_stream(smi: str) -> dict:
     return total
 
 
+def phase_hop32(smi: str) -> dict:
+    """HPRRealtime(44100, hop=32), the low-latency stream (0.73 ms per
+    hop): K1's rank route carries its time median (K = 93 over 183
+    history rows). 64 blocks of B=32, then 64 single hops, held against
+    the CPU port under phase 4's flip rule and stem tolerance."""
+    reset_launches()
+    cfg, got, audio, sizes, t = run_stream(hop=32)
+    launches = read_launches()
+    require(launches["tap_median_time/rank"] > 0 and all(per_kernel(launches).values()),
+            f"hop-32 stream launches {launches}")
+    require(bool(np.isfinite(got).all()), "non-finite hop-32 stem samples")
+    r = compare_stream(cfg, audio, sizes, got, reference_stream(audio, sizes, hop=32),
+                       ("harmonic", "percussive", "residual"))
+    print(
+        f"phase 10 HPRRealtime fs 44100 hop 32 (time K={len(cfg.time_offsets)} over "
+        f"H={cfg.time_history}, frequency K={cfg.freq_filter_len}), 64 x B=32 + 64 x B=1: "
+        f"mask flips {r['flips']} ({r['share']:.3g} of bins), excluded hops "
+        f"{r['excluded']}/{r['hops']}, max |diff|/scale {r['rel_err']:.3g} (limit "
+        f"{STEM_ATOL}); {t['step_us']:.1f} us/step at B=32 ({32 * cfg.hop / cfg.fs * 1e3:.2f} "
+        f"ms of audio); {t['hop_us']:.1f} us/hop at B=1 ({cfg.hop / cfg.fs * 1e3:.3f} ms); "
+        f"one B=32 step: {t['prof_b']}; one B=1 step: {t['prof_1']}; launches {launches} "
+        f"[{smi}]"
+    )
+    return launches
+
+
+def kernel_rows(kstats: dict, by_path: dict) -> tuple:
+    """The `kernels` line: one row per kernel route a path launched
+    (launches summed over the paths, each path's counts read around its
+    own run), and the routes no path launched (K1's first wide kernel,
+    kept for tap spans past the rank route's staging), checked in phase 3
+    only."""
+    rows, off_path = [], []
+    for (name, route), st in kstats.items():
+        key = f"{name}/{route}"
+        first = st["shapes"][0]
+        tpus = list(dict.fromkeys(TPU_KERNELS[sh["tpu_kernel"]] for sh in st["shapes"]))
+        row = {
+            "name": key, "route": "cuda", "source": SOURCES[name], "replaces": tpus[0],
+            "also_replaces": tpus[1:],
+            "launches": sum(counts[key] for counts in by_path.values()),
+            "launches_by_path": {path: counts[key] for path, counts in by_path.items()},
+            "max_abs_err": st["max_abs_err"], "tolerance": "bitwise", "shape": first["shape"],
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shapes": [{**sh, "replaces": TPU_KERNELS[sh["tpu_kernel"]]} for sh in st["shapes"]],
+        }
+        (rows if row["launches"] else off_path).append(row)
+    return rows, off_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -768,6 +1095,7 @@ def main() -> None:
     t_run = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import zen_tpu_torch  # noqa: F401  (fails here when run outside the repo)
+    from zen_tpu_torch.ops import median_cuda as mc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -775,15 +1103,18 @@ def main() -> None:
     smi = phase_card()
     phase_build()
     kstats = phase_kernels()
+    phase_sweep()
+    phase_tiles()
+    phase_split()
 
     # the main path: launch counters cover exactly these runs
     reset_launches()
-    cfg1, got1, audio1, sizes1, t1 = run_hop1024()
+    cfg1, got1, audio1, sizes1, t1 = run_stream()
     cfgm, gotm, audiom, sizesm, tm = run_fleet()
     launches = read_launches()
 
     stems = ("harmonic", "percussive", "residual")
-    want1 = reference_hop1024(audio1, sizes1)
+    want1 = reference_stream(audio1, sizes1)
     r1 = compare_stream(cfg1, audio1, sizes1, got1, want1, stems)
     for arr in (got1, gotm):
         require(bool(np.isfinite(arr).all()), "non-finite stem samples")
@@ -809,7 +1140,7 @@ def main() -> None:
         f"one step: {tm['prof_b']} [{smi}]"
     )
 
-    require(all(v > 0 for v in launches.values()), f"kernel launches {launches}")
+    require(all(v > 0 for v in per_kernel(launches).values()), f"kernel launches {launches}")
     print(f"phase 6 streaming kernel launches: {launches}")
 
     by_path = {
@@ -817,33 +1148,17 @@ def main() -> None:
         "offline_clip": phase_offline_clip(smi),
         "offline_track": phase_offline_track(smi),
         "zen_stream_512": phase_zen_stream(smi),
+        "streaming_hop32": phase_hop32(smi),
     }
-
-    mp = "zen_tpu/ops/median_pallas.py"
-    sources = {  # TPU kernels by the numbers of PERF.md's table
-        "tap_median_time": ("zen_tpu_torch/csrc/median_time.cu",
-                            {"#1": f"{mp}:895", "#2": f"{mp}:787", "#3": f"{mp}:1020",
-                             "#4": f"{mp}:826"}),
-        "sliding_median_boundary": ("zen_tpu_torch/csrc/median_freq.cu",
-                                    {"#7": f"{mp}:603", "#5": f"{mp}:395",
-                                     "#6": f"{mp}:331", "#8": f"{mp}:482"}),
-    }
-    rows = []
-    for name, (src, tpu) in sources.items():
-        first = kstats[name]["shapes"][0]
-        main_line, *also = tpu.values()
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": main_line,
-            "also_replaces": also,
-            "launches": sum(counts[name] for counts in by_path.values()),
-            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-            "max_abs_err": kstats[name]["max_abs_err"], "tolerance": "bitwise",
-            "shape": first["shape"], "ms": first["ms"], "plain_ms": first["plain_ms"],
-            "shapes": [{**sh, "replaces": tpu[sh["tpu_kernel"]]}
-                       for sh in kstats[name]["shapes"]],
-        })
+    rows, off_path = kernel_rows(kstats, by_path)
+    # every route the paths' tap counts select ran on a path (frequency K:
+    # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32)
+    wanted = {"tap_median_time/register", "tap_median_time/rank",
+              *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1))}
+    launched = {row["name"] for row in rows}
+    require(wanted <= launched, f"routes no path launched: {sorted(wanted - launched)}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "off_path_kernels": off_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

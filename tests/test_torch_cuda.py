@@ -143,6 +143,93 @@ def test_freq_kernel_bf16_matches_twin(cuda_device, rows, f, k, mode):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
+def _ties(rng, *shape, device):
+    """Tie-heavy magnitudes: 8 levels."""
+    x = np.floor(rng.random(shape, dtype=np.float32) * 8) / 8 + np.float32(0.125)
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+K93 = tuple(range(-183, -137)) + tuple(range(-46, 1))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill",
+    [((2, 183, 65), (2, 40, 65), K93, 183, 0.0),  # 44.1 kHz hop 32, wrap
+     ((1, 64, 33), (1, 5, 33), tuple(range(-65, 0)), 64, 0.0),  # K = 65
+     ((3, 127, 9), (3, 33, 9), tuple(range(-127, 0)), 127, float("inf")),  # valid
+     ((1, 300, 17), (1, 0, 17), tuple(range(-93, 94)), 0, 0.0),  # K = 187
+     ((2, 70, 9), (2, 7, 9), tuple(range(-128, 0)) + (0,) * 129, 7, 0.0),  # K = 257
+     ((1, 900, 17), (1, 0, 17), tuple(range(-200, 201)), 0, 0.0),  # K = 401
+     ((1, 10, 5), (1, 0, 5), tuple(range(-200, 201)), 0, float("inf"))],  # mostly fill
+)
+def test_time_rank_route_matches_twin(cuda_device, dtype, ties, a_shape, b_shape, offsets,
+                                      start, fill):
+    """K1's rank route (65 to 401 taps, ragged runs of 32 rows, wrap,
+    valid, replicate and centered tap sets), tie-heavy and bf16."""
+    rng = np.random.default_rng(len(offsets))
+    make = _ties if ties else _mags
+    a = make(rng, *a_shape, device=cuda_device).to(dtype)
+    b = make(rng, *b_shape, device=cuda_device).to(dtype)
+    assert mc.time_route(offsets) == "rank"
+    before = mc.tap_median_time.routes["rank"]
+    got = mc.tap_median_time(a, b, offsets, start, fill)
+    torch.cuda.synchronize()
+    assert mc.tap_median_time.routes["rank"] == before + 1
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+def test_time_wide_fallback_matches_twin(cuda_device):
+    """Offsets spanning past the rank route's staging stay on the first
+    wide kernel."""
+    rng = np.random.default_rng(16)
+    offsets = (-16353,) + tuple(range(-65, 1))
+    a = _mags(rng, 1, 300, 9, device=cuda_device)
+    assert mc.time_route(offsets) == "wide"
+    before = mc.tap_median_time.routes["wide"]
+    got = mc.tap_median_time(a, a[:, :0], offsets, 0)
+    torch.cuda.synchronize()
+    assert mc.tap_median_time.routes["wide"] == before + 1
+    assert torch.equal(got, mc.tap_median_time_plain(a, a[:, :0], offsets, 0))
+
+
+def _around_k_star():
+    k = mc.FREQ_RANK_MIN_TAPS
+    return [k - 2, k] if k > 1 else [k, k + 2]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k", [65, 93, 127, 187, 257, 401, "k_star_below", "k_star"])
+def test_freq_rank_route_matches_twin(cuda_device, k, mode, dtype, ties):
+    """K2 from 65 to 401 taps (the rank route) and right at K* on both
+    sides (one route each), 37 rows of 1000 outputs (ragged tiles)."""
+    if isinstance(k, str):
+        k = _around_k_star()[k == "k_star"]
+    rng = np.random.default_rng(k)
+    f_in = 1000 + (k - 1 if mode == "valid" else 0)
+    x = (_ties if ties else _mags)(rng, 37, f_in, device=cuda_device).to(dtype)
+    route = mc.freq_route(k)
+    before = mc.sliding_median_boundary.routes[route]
+    got = mc.sliding_median_boundary(x, k, mode)
+    torch.cuda.synchronize()
+    assert mc.sliding_median_boundary.routes[route] == before + 1
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("tile", mc.FREQ_RANK_TILES)
+@pytest.mark.parametrize("k", [13, 47, 187, 257])
+def test_freq_rank_every_tile_matches_twin(cuda_device, k, tile):
+    """K2's rank route at each tile, whichever the wrapper picks for K
+    (ragged last tiles, tie-heavy rows)."""
+    rng = np.random.default_rng(k + tile)
+    x = _ties(rng, 5, 1000, device=cuda_device)
+    got = mc._freq_launch(x, k, "reflect", "rank", tile=tile)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, "reflect"))
+
+
 def test_wrappers_refuse_float16_and_mixed_dtypes(cuda_device):
     x = torch.ones((2, 9, 33), device=cuda_device)
     n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches

@@ -55,7 +55,7 @@ def _cfgs(**kw):
 
 def _separators(fs, hop_h, hop_p, **kw):
     return (J.HPRIOffline(fs, hop_h, hop_p, **XLA, **kw),
-            T.HPRIOffline(fs, hop_h, hop_p, **kw))
+            T.HPRIOffline(fs, hop_h, hop_p, **kw, device="cpu"))
 
 
 def _audio(n, seed, *lead):
@@ -133,7 +133,7 @@ def test_process_borders_match_zen_tpu(border):
     got = tsep.process(audio)
     for g, w, k in zip(got, jsep.process(audio), STEMS):
         _close(g, w, f"{k} {border}")
-    bf16 = T.HPRIOffline(8000.0, 256, 64, border=border, stream_state="bf16")
+    bf16 = T.HPRIOffline(8000.0, 256, 64, border=border, stream_state="bf16", device="cpu")
     for g, g16 in zip(got, bf16.process(audio)):
         np.testing.assert_array_equal(g16.numpy(), g.numpy())
 
@@ -164,8 +164,8 @@ def test_strict_ref_silent_residual():
     harmonic and percussive bitwise equal to the default mode, batched
     and blocked (tests/test_engine_parity.py:186)."""
     audio = _audio(200, 11)
-    sep = T.HPRIOffline(1000.0, 16, 8)
-    strict = T.HPRIOffline(1000.0, 16, 8, strict_ref=True)
+    sep = T.HPRIOffline(1000.0, 16, 8, device="cpu")
+    strict = T.HPRIOffline(1000.0, 16, 8, strict_ref=True, device="cpu")
     h, p, r = sep.process(audio)
     hs, ps, rs = strict.process(audio)
     np.testing.assert_array_equal(hs.numpy(), h.numpy())
@@ -179,8 +179,8 @@ def test_strict_ref_silent_residual():
 
 def test_rejects_what_is_not_ported_or_invalid():
     with pytest.raises(T.ZenError, match="divisible"):
-        T.HPRIOffline(1000.0, 16, 12)
-    sep = T.HPRIOffline(1000.0, 16, 8)
+        T.HPRIOffline(1000.0, 16, 12, device="cpu")
+    sep = T.HPRIOffline(1000.0, 16, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
         sep.use_sse_filter()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
@@ -215,7 +215,7 @@ def test_blocked_pass_equals_unblocked(kw):
 
 def test_process_blocked_equals_process():
     audio = _audio(4000, 61)
-    sep = T.HPRIOffline(1000.0, 32, 8)
+    sep = T.HPRIOffline(1000.0, 32, 8, device="cpu")
     want = sep.process(audio)
     got = sep.process_blocked(audio, block_frames_h=16, block_frames_p=64)
     for g, w in zip(got, want):
@@ -250,7 +250,7 @@ def test_pass_matches_oracle(soft):
 def test_two_pass_matches_oracle():
     """HPR-I cascade vs the oracle's two passes (hps.cu:128-221)."""
     audio = _oracle_audio(130, 9)
-    h, p, r = T.HPRIOffline(1000.0, 16, 8, fast_rfft=False).process(audio)
+    h, p, r = T.HPRIOffline(1000.0, 16, 8, fast_rfft=False, device="cpu").process(audio)
     jc_h, _ = _cfgs(hop=16, fast_rfft=False)
     pass1 = oracle_offline_pass(audio, jc_h)
     inter = pass1["percussive"] + pass1["residual"]
@@ -262,7 +262,7 @@ def test_two_pass_matches_oracle():
 
 
 def test_process_keeps_the_device_of_its_input():
-    sep = T.HPRIOffline(1000.0, 16, 8)
+    sep = T.HPRIOffline(1000.0, 16, 8, device="cpu")
     audio = torch.from_numpy(_audio(100, 7)).double()
     outs = sep.process(audio)
     assert all(o.dtype == torch.float32 and o.device.type == "cpu" for o in outs)

@@ -1,0 +1,297 @@
+"""The large-K median routes ("rank once, select many") on the CPU.
+
+The CUDA kernels run only on the card (tests/test_torch_cuda.py), so
+their block algorithm is emulated here in torch, step for step, from the
+same host-side choices the wrappers hand the kernels (K2's tile, K1's
+multiplicity table): the row segment or column tile staged with its
+boundary or fill, sorted by (value, position) as the kernels' 64-bit
+keys order them, and the rank walk that counts window positions (K1: with
+their multiplicities) until the count passes (K-1)/2. The emulation is
+held BITWISE against the plain twins and zen_tpu's median, which pick
+sorted[(K-1)/2]; inputs include tie-heavy ones quantized to 8 levels and
+bf16. The tests of the host side (tile, table, routes, staging limits,
+the library hash) need no card either.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from zen_tpu.ops.median import sliding_median as jax_sliding_median  # noqa: E402
+from zen_tpu_torch.ops import _build  # noqa: E402
+from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
+
+POS_BITS = 24  # staged positions below 2**24 in an emulated key
+
+
+def _order_bits(v: torch.Tensor) -> torch.Tensor:
+    """rank_select.cuh's order_bits as int64: unsigned order == float order."""
+    u = v.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2**31, 0xFFFFFFFF - u, u | 2**31)
+
+
+def _sorted_positions(values: torch.Tensor) -> tuple:
+    """Staged values [..., S] sorted by (value, position), as the kernels'
+    bitonic sort of their keys leaves them: (values, positions)."""
+    pos = torch.arange(values.shape[-1]).expand(values.shape)
+    keys, _ = torch.sort((_order_bits(values) << POS_BITS) | pos, dim=-1)
+    p = keys & ((1 << POS_BITS) - 1)
+    return torch.gather(values, -1, p), p
+
+
+def _walk(sorted_values, counts, m):
+    """The rank walk: the value at the first rank where the running count
+    of the output's window taps, counts [..., outputs, S], passes m."""
+    rank = (counts.cumsum(-1) > m).to(torch.int8).argmax(-1)
+    return torch.gather(sorted_values, -1, rank[..., None])[..., 0]
+
+
+def _boundary_index(p, f, mode):
+    """median_freq.cu's boundary_index (jnp.pad semantics)."""
+    if mode == "reflect":
+        p = p.abs()
+        return torch.minimum(p, 2 * (f - 1) - p)
+    if mode == "wrap":
+        return torch.remainder(p, f)
+    if mode == "edge":
+        return p.clamp(0, f - 1)
+    return p
+
+
+def emulate_freq_rank(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
+    """K2's rank kernel: a block per (row, tile), each staging the
+    tile + K - 1 samples its outputs reach, the last tile ragged."""
+    tile = mc.freq_rank_tile(k)
+    f_in = x.shape[-1]
+    f_out = f_in - k + 1 if mode == "valid" else f_in
+    m = (k - 1) // 2
+    rows = x.reshape(-1, f_in).float()
+    out = torch.empty(rows.shape[0], f_out)
+    for j0 in range(0, f_out, tile):
+        live = min(tile, f_out - j0)
+        base = j0 if mode == "valid" else j0 - m
+        seg = rows[:, _boundary_index(torch.arange(live + k - 1) + base, f_in, mode)]
+        values, pos = _sorted_positions(seg)  # [R, S]
+        j = torch.arange(live)[:, None]
+        in_window = ((pos[:, None, :] - j) >= 0) & ((pos[:, None, :] - j) < k)
+        out[:, j0 : j0 + live] = _walk(values[:, None, :].expand(-1, live, -1),
+                                       in_window.to(torch.int32), m)
+    return out.reshape(x.shape[:-1] + (f_out,)).to(x.dtype)
+
+
+def emulate_time_rank(a, b, offsets, start, fill=0.0) -> torch.Tensor:
+    """K1's rank kernel: a block per (stream, run of min(32, t_out)
+    output rows, column) staging the rows the run's taps reach
+    (``time_rank_rows``) of V = a ++ b (fill outside, in the inputs'
+    dtype), keyed by (value, relative row), the multiplicity table read
+    at row - lane + 31."""
+    offsets = tuple(offsets)
+    lo, span, table = mc.time_rank_table(offsets)
+    table = torch.tensor(table)
+    v = torch.cat([a, b], dim=-2).float()
+    c, t_v, f = v.shape[0], v.shape[1], v.shape[2]
+    t_out = t_v - start
+    run = min(t_out, mc.TIME_RANK_RUN)
+    rel = torch.tensor(mc.time_rank_rows(offsets, run))
+    fill = torch.tensor(fill, dtype=a.dtype).float()
+    m = (len(offsets) - 1) // 2
+    out = torch.empty(c, t_out, f)
+    for i0 in range(0, t_out, run):
+        rows = rel + start + i0 + lo
+        inside = (rows >= 0) & (rows < t_v)
+        staged = torch.where(inside[None, :, None], v[:, rows.clamp(0, t_v - 1)], fill)
+        values, idx = _sorted_positions(staged.transpose(1, 2))  # [C, F, S]
+        pos = rel[idx]  # a key's position is its relative row
+        lane = torch.arange(run)[:, None]
+        counts = table[pos[:, :, None, :] - lane + mc.TIME_RANK_RUN - 1]  # [C, F, run, S]
+        med = _walk(values[:, :, None, :].expand(-1, -1, run, -1), counts, m)
+        live = min(run, t_out - i0)
+        out[:, i0 : i0 + live] = med[:, :, :live].transpose(1, 2)
+    return out.to(a.dtype)
+
+
+def _levels(rng, shape, ties: bool) -> np.ndarray:
+    """Positive magnitudes; tie-heavy ones take 8 levels only."""
+    x = rng.random(shape, dtype=np.float32) + np.float32(1e-3)
+    return np.floor(x * 8).astype(np.float32) / 8 + np.float32(0.125) if ties else x
+
+
+def _tensor(x: np.ndarray, dtype) -> torch.Tensor:
+    return torch.from_numpy(x).to(dtype)
+
+
+# ---------------- K2: the segment, sorted once per block ----------------
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k", [13, 47, 187, 257, 401])
+def test_freq_rank_emulation_matches_twin(k, mode, ties):
+    """Every boundary mode, ragged last tiles (517 outputs per row)."""
+    rng = np.random.default_rng(k)
+    f_in = 517 + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(rng, (3, f_in), ties), torch.float32)
+    got = emulate_freq_rank(x, k, mode)
+    assert got.shape == (3, 517)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge"])
+@pytest.mark.parametrize("k", [65, 187])
+def test_freq_rank_emulation_matches_jax(k, mode):
+    """The emulation against zen_tpu's median on the same rows."""
+    rng = np.random.default_rng(3 * k)
+    x = _levels(rng, (2, 600), ties=True)
+    m = (k - 1) // 2
+    boundary = {"edge": "clamp"}.get(mode, mode)
+    want = np.asarray(jax_sliding_median(jnp.asarray(x), range(-m, m + 1), -1, boundary))
+    got = emulate_freq_rank(_tensor(x, torch.float32), k, mode).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [13, 187])
+@pytest.mark.parametrize("mode", ["reflect", "valid"])
+def test_freq_rank_emulation_bf16(k, mode):
+    rng = np.random.default_rng(5)
+    f_in = 300 + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(rng, (2, f_in), ties=False), torch.bfloat16)
+    got = emulate_freq_rank(x, k, mode)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+# ---------------- K1: a column tile, sorted once per warp ----------------
+
+K93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32, wrap
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill",
+    [  # wrap: two runs, the causal pair form, t_out 40 (a ragged run)
+     ((2, 183, 9), (2, 40, 9), K93, 183, 0.0),
+     # centered K = 401 (48 kHz hop 8): fill beyond both ends
+     ((1, 100, 5), (1, 0, 5), tuple(range(-200, 201)), 0, 0.0),
+     # valid: the previous K frames
+     ((2, 67, 7), (2, 5, 7), tuple(range(-67, 0)), 67, float("inf")),
+     # replicate: offset 0 repeated past the run (multiplicity 60)
+     ((1, 70, 6), (1, 3, 6), tuple(range(-69, 0)) + (0,) * 60, 3, 0.0),
+     # duplicates inside the span, one input, fill inf
+     ((1, 90, 4), (1, 0, 4), (0,) * 33 + tuple(range(-33, 1)), 0, float("inf")),
+     # the hop-32 step at B = 1 and B = 5: runs shorter than 32 rows
+     ((2, 183, 9), (2, 1, 9), K93, 183, 0.0),
+     ((1, 183, 6), (1, 5, 6), K93, 183, 0.0)],
+)
+def test_time_rank_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, ties):
+    rng = np.random.default_rng(len(offsets))
+    a = _tensor(_levels(rng, a_shape, ties), torch.float32)
+    b = _tensor(_levels(rng, b_shape, ties), torch.float32)
+    assert mc.time_route(offsets) == "rank"
+    got = emulate_time_rank(a, b, offsets, start, fill)
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+def test_time_rank_emulation_matches_jax():
+    rng = np.random.default_rng(21)
+    a, b = _levels(rng, (2, 183, 5), True), _levels(rng, (2, 33, 5), True)
+    want = np.asarray(jax_sliding_median(
+        jnp.concatenate([a, b], axis=-2), K93, -2, "zero")[..., 183:, :])
+    got = emulate_time_rank(_tensor(a, torch.float32), _tensor(b, torch.float32), K93, 183)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_time_rank_emulation_bf16():
+    rng = np.random.default_rng(22)
+    a = _tensor(_levels(rng, (1, 183, 6), False), torch.bfloat16)
+    b = _tensor(_levels(rng, (1, 32, 6), False), torch.bfloat16)
+    got = emulate_time_rank(a, b, K93, 183, 0.3)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, K93, 183, 0.3))
+
+
+# ---------------- the host side ----------------
+
+
+def test_time_rank_table_counts_each_offset_between_zero_pads():
+    lo, span, table = mc.time_rank_table((-3, 0, 0, -1, 0))
+    pad = mc.TIME_RANK_RUN - 1
+    assert (lo, span, len(table)) == (-3, 4, 4 + 2 * pad)
+    assert table[pad : pad + 4] == (1, 0, 1, 3)
+    assert sum(table) == 5 and not any(table[:pad]) and not any(table[pad + 4 :])
+
+
+def test_time_rank_rows_are_the_taps_of_the_run():
+    assert mc.time_rank_rows(K93, 1) == tuple(o + 183 for o in K93)
+    rows = mc.time_rank_rows(K93, 32)
+    assert len(rows) == 155 and rows == tuple(sorted(rows))
+    assert rows == tuple(sorted({o + 183 + i for o in K93 for i in range(32)}))
+    assert mc.time_rank_rows(tuple(range(-200, 201)), 32) == tuple(range(432))
+    assert mc.time_rank_rows((-3, 0, 0, 0, 0), 2) == (0, 1, 3, 4)
+
+
+def test_time_routes_and_staging_limit():
+    """Register up to 64 taps, the rank route past that while its keys
+    and table fit 227 KB (max(o) - min(o) up to 16,352: 16,384 staged
+    rows), the first wide kernel beyond."""
+    assert mc.time_route(tuple(range(-63, 1))) == "register"
+    assert mc.time_route(tuple(range(-64, 1))) == "rank"
+    assert mc.time_route(tuple(range(-12286, 1))) == "rank"
+    fits = (-16352,) + tuple(range(-65, 1))
+    assert mc.time_rank_table(fits) is not None and mc.time_route(fits) == "rank"
+    far = (-16353,) + tuple(range(-65, 1))
+    assert mc.time_rank_table(far) is None and mc.time_route(far) == "wide"
+    lo, span, table = mc.time_rank_table(fits)
+    smem = mc.KEY_BYTES * 16384 + 4 * len(table)
+    assert mc.TIME_RANK_RUN - 1 + span == 16384 and smem <= mc.SMEM_OPTIN
+
+
+def test_freq_route_crossover_and_staging_limit():
+    """K2 counts below FREQ_RANK_MIN_TAPS and ranks from it on, up to
+    the widest K whose keys fit at the smallest tile; the counting
+    kernel keeps every K beyond, up to MAX_FREQ_TAPS."""
+    k_star = mc.FREQ_RANK_MIN_TAPS
+    assert k_star % 2 == 1
+    if k_star > 1:
+        assert mc.freq_route(k_star - 2) == "count"
+    assert mc.freq_route(k_star) == "rank"
+    widest = mc.SMEM_OPTIN // mc.KEY_BYTES  # keys of one block
+    last = max(k for k in range(16001, 16400, 2) if mc.freq_rank_tile(k))
+    assert mc._pow2_at_least(mc.freq_rank_tile(last) + last - 1) <= widest
+    assert mc.freq_route(last) == "rank" and mc.freq_route(last + 2) == "count"
+    assert mc.freq_route(mc.MAX_FREQ_TAPS) == "count"
+
+
+@pytest.mark.parametrize("k", [3, 13, 47, 187, 257, 401, 4001])
+def test_freq_rank_tile_minimizes_walk_plus_sort(k):
+    tile = mc.freq_rank_tile(k)
+    assert tile in mc.FREQ_RANK_TILES
+
+    def cost(t):
+        n = mc._pow2_at_least(t + k - 1)
+        lg = n.bit_length() - 1
+        return (t + k - 1) / 2 + (n // 2) * lg * (lg + 1) / t
+
+    assert cost(tile) == min(cost(t) for t in mc.FREQ_RANK_TILES)
+
+
+def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh names another library, so a stale build is
+    never reused."""
+    for src in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "rank_select.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+
+
+def test_split_builds_are_libraries_of_their_own():
+    """ZEN_RANK_CUT 1 and 2 (chip_smoke's split of a rank block's time)
+    name libraries beside the full one, never in its place."""
+    paths = {_build.library_path(cut) for cut in (0, 1, 2)}
+    assert len(paths) == 3 and _build.library_path() == _build.library_path(0)
+    with pytest.raises(ValueError, match="ZEN_RANK_CUT"):
+        _build.library(3)

@@ -47,7 +47,7 @@ def _pair(fs, hop, **kw):
     jrt = J.HPRRealtime(fs, hop)
     jrt.cfg = jc
     jrt.reset_buffers()
-    trt = T.HPRRealtime(fs, hop)
+    trt = T.HPRRealtime(fs, hop, device="cpu")
     trt.cfg = T.config_from_fields(**dataclasses.asdict(jc))
     trt.reset_buffers()
     return jrt, trt
@@ -96,12 +96,12 @@ def test_per_hop_api_matches_zen_tpu():
 def test_warmup_and_toggles():
     rng = np.random.default_rng(9)
     audio = rng.standard_normal(8 * 30).astype(np.float32)
-    a = T.HPRRealtime(1000.0, 8)
+    a = T.HPRRealtime(1000.0, 8, device="cpu")
     a.warmup((1, 4))
-    b = T.HPRRealtime(1000.0, 8)
+    b = T.HPRRealtime(1000.0, 8, device="cpu")
     np.testing.assert_array_equal(a.process_stream(audio, 6), b.process_stream(audio, 6))
     a.use_soft_mask()
-    c = T.HPRRealtime(1000.0, 8, soft_mask=True)
+    c = T.HPRRealtime(1000.0, 8, soft_mask=True, device="cpu")
     np.testing.assert_array_equal(a.process_stream(audio, 6), c.process_stream(audio, 6))
     with pytest.raises(NotImplementedError):
         a.use_sse_filter()
@@ -116,9 +116,9 @@ def test_state_carried_from_zen_tpu_continues_identically():
     jrt, _ = _pair(1000.0, 8)
     for blk in first:
         jrt.process_block(blk)
-    trt = T.HPRRealtime(1000.0, 8)
+    trt = T.HPRRealtime(1000.0, 8, device="cpu")
     trt.cfg = T.config_from_fields(**dataclasses.asdict(jrt.cfg))
-    trt.state = T.state_from_numpy(*(np.asarray(x) for x in jrt.state))
+    trt.state = T.state_from_numpy(*(np.asarray(x) for x in jrt.state), device="cpu")
     for blk in rest:
         want = np.asarray(jrt.process_block(blk))
         got = trt.process_block(blk).numpy()
@@ -148,7 +148,7 @@ def test_wide_fleet_b_under_history_matches_zen_tpu(state):
     rng = np.random.default_rng(21)
     kw = dict(outputs=J.OUTPUT_PERCUSSIVE, stream_state=state)
     jms = J.MultiStreamHPR(256, 4000.0, hop=16, median_impl="xla", fft_impl="xla", **kw)
-    tms = T.MultiStreamHPR(256, 4000.0, hop=16, **kw)
+    tms = T.MultiStreamHPR(256, 4000.0, hop=16, **kw, device="cpu")
     want_dtype = torch.bfloat16 if state == "bf16" else torch.float32
     assert tms.state.feat_hist.dtype == want_dtype
     for _ in range(3):
@@ -177,9 +177,10 @@ def test_bf16_state_carried_from_zen_tpu_continues_identically():
     for blk in first:
         jrt.process_block(blk)
     cfg = T.config_from_fields(**dataclasses.asdict(jrt.cfg))
-    trt = T.HPRRealtime(8000.0, 64, stream_state="bf16")
+    trt = T.HPRRealtime(8000.0, 64, stream_state="bf16", device="cpu")
     trt.cfg = cfg
-    trt.state = T.state_from_numpy(*(np.asarray(x, np.float32) for x in jrt.state), cfg=cfg)
+    trt.state = T.state_from_numpy(*(np.asarray(x, np.float32) for x in jrt.state), cfg=cfg,
+                                   device="cpu")
     assert trt.state.feat_hist.dtype == torch.bfloat16
     for blk in rest:
         _close(trt.process_block(blk).numpy(), np.asarray(jrt.process_block(blk)), "bf16")
@@ -202,9 +203,9 @@ def test_multistream_matches_zen_tpu_and_single_streams(outputs):
     blocks = _fleet_blocks(11)
     jms = J.MultiStreamHPR(4, 1000.0, hop=8, outputs=outputs,
                            median_impl="xla", fft_impl="xla")
-    tms = T.MultiStreamHPR(4, 1000.0, hop=8, outputs=outputs)
+    tms = T.MultiStreamHPR(4, 1000.0, hop=8, outputs=outputs, device="cpu")
     assert tms.stem_rows == jms.stem_rows
-    singles = [T.HPRRealtime(1000.0, 8, outputs=outputs) for _ in range(4)]
+    singles = [T.HPRRealtime(1000.0, 8, outputs=outputs, device="cpu") for _ in range(4)]
     for blk in blocks:
         got = tms.process_block(blk).numpy()
         _close(got, np.asarray(jms.process_block(blk)), "vs zen_tpu fleet")
@@ -222,21 +223,21 @@ def test_multistream_reset_streams_bit_exact():
     """A reset slot reproduces a fresh stream bit-exactly; untouched
     slots continue as if no reset happened (hps.h:296-321)."""
     b1, b2 = _fleet_blocks(12, n=2)
-    ctrl = T.MultiStreamHPR(4, 1000.0, hop=8)
+    ctrl = T.MultiStreamHPR(4, 1000.0, hop=8, device="cpu")
     ctrl.process_block(b1)
     ctrl2 = ctrl.process_block(b2).numpy()
-    ms = T.MultiStreamHPR(4, 1000.0, hop=8)
+    ms = T.MultiStreamHPR(4, 1000.0, hop=8, device="cpu")
     ms.process_block(b1)
     ms.reset_streams([1, 3])
     out2 = ms.process_block(b2).numpy()
-    fresh2 = T.MultiStreamHPR(4, 1000.0, hop=8).process_block(b2).numpy()
+    fresh2 = T.MultiStreamHPR(4, 1000.0, hop=8, device="cpu").process_block(b2).numpy()
     np.testing.assert_array_equal(out2[[0, 2]], ctrl2[[0, 2]])
     np.testing.assert_array_equal(out2[[1, 3]], fresh2[[1, 3]])
     assert not np.array_equal(out2[1], ctrl2[1])
 
 
 def test_multistream_warmup_leaves_state_untouched():
-    ms = T.MultiStreamHPR(2, 8000.0, hop=64)
+    ms = T.MultiStreamHPR(2, 8000.0, hop=64, device="cpu")
     before = [t.clone() for t in ms.state]
     ms.warmup((4, 20))
     for a, b in zip(before, ms.state):
@@ -248,7 +249,7 @@ def test_multistream_warmup_leaves_state_untouched():
 def test_block_step_launch_count_on_cpu_is_zero():
     """CPU tensors run the plain twins: the kernel counters stay put."""
     n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
-    T.MultiStreamHPR(2, 1000.0, hop=8).process_block(np.ones((2, 3, 8), np.float32))
+    T.MultiStreamHPR(2, 1000.0, hop=8, device="cpu").process_block(np.ones((2, 3, 8), np.float32))
     assert (mc.tap_median_time.launches, mc.sliding_median_boundary.launches) == (
         n_time, n_freq)
 
@@ -264,7 +265,7 @@ def test_step_masks_and_advance_state_are_block_steps_halves(b):
     rng = np.random.default_rng(13)
     warm, blocks = (torch.from_numpy(rng.standard_normal((2, b, 64)).astype(np.float32))
                     for _ in range(2))
-    ref = rt.init_state(cfg, 2)
+    ref = rt.init_state(cfg, 2, device="cpu")
     rt.block_step(cfg, ref, warm)
     state = rt.StreamState(*(t.clone() for t in ref))
     rt.block_step(cfg, ref, blocks)
@@ -274,6 +275,25 @@ def test_step_masks_and_advance_state_are_block_steps_halves(b):
     rt.advance_state(cfg, state, step)
     assert torch.equal(state.ring, ref.ring)
     assert torch.equal(state.feat_hist, ref.feat_hist)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [lambda: T.HPRRealtime(8000.0, 64),
+     lambda: T.MultiStreamHPR(2, 8000.0, 64),
+     lambda: T.HPRIOffline(8000.0, 256, 64),
+     lambda: T.init_state(T.HPRConfig(fs=8000.0, hop=64, causal=True), 2),
+     lambda: T.state_from_numpy(np.zeros(8), np.zeros((3, 5)), np.zeros(8))],
+    ids=["HPRRealtime", "MultiStreamHPR", "HPRIOffline", "init_state", "state_from_numpy"],
+)
+def test_entry_points_default_to_the_card(make):
+    """The drivers (and the state carried in from zen_tpu) live on the
+    card unless device="cpu" is passed: without CUDA the default raises,
+    naming device="cpu", and falls back to nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs for real")
+    with pytest.raises(T.ZenError, match='device="cpu"'):
+        make()
 
 
 def _smoke(cwd):

@@ -67,7 +67,7 @@ def test_single_stream_pipe_matches_library(flag, border):
     assert proc.returncode == 0, proc.stderr.decode()[-2000:]
     got = np.frombuffer(proc.stdout, np.float32)
     assert len(got) == n
-    rt = T.HPRRealtime(FS, HOP, 2.0, outputs=T.OUTPUT_PERCUSSIVE, border=border)
+    rt = T.HPRRealtime(FS, HOP, 2.0, outputs=T.OUTPUT_PERCUSSIVE, border=border, device="cpu")
     want = rt.process_stream(audio, block_hops=BLOCK)[1][:n] / rt.cfg.synth_scale
     np.testing.assert_allclose(got, want, atol=1e-6)
     line = _serving_line(proc.stderr)
@@ -95,7 +95,7 @@ def test_multistream_pipe_matches_zen_tpu_cli(state):
     want = np.frombuffer(jax_proc.stdout, np.float32).reshape(n, s).T
     assert _serving_line(proc.stderr).keys() == _serving_line(jax_proc.stderr).keys()
     ms = T.MultiStreamHPR(s, FS, HOP, outputs=T.OUTPUT_PERCUSSIVE, border="replicate",
-                          stream_state=state)
+                          stream_state=state, device="cpu")
     padded = np.zeros((s, 40 * HOP), np.float32)
     padded[:, :n] = streams
     lib = torch.cat([ms.process_block(padded[:, j * 128:(j + 1) * 128].reshape(s, BLOCK, HOP))

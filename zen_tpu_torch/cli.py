@@ -104,10 +104,11 @@ def cmd_stream(args) -> int:
     PCM.
     """
     import numpy as np
-    import torch
 
+    from .device import resolve_device
     from .drivers.realtime import HPRRealtime, MultiStreamHPR
     from .engine.config import OUTPUT_ALL, OUTPUT_HARMONIC, OUTPUT_PERCUSSIVE
+    from .errors import ZenError
 
     if args.mesh:
         _, err = _parse_mesh_axes(args.mesh, ("dp",))
@@ -117,12 +118,10 @@ def cmd_stream(args) -> int:
         return _refuse(
             "--mesh is not ported yet (ROADMAP queue 1, item 13: parallel layer)"
         )
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        return _refuse(
-            f"--device {args.device}: torch.cuda.is_available() is False "
-            "(no CPU fallback; pass --device cpu to run on the CPU)"
-        )
+    try:
+        device = resolve_device(args.device)
+    except ZenError as e:  # no CUDA device: exit 2, no fallback
+        return _refuse(f"--device {args.device}: {e}")
     stem_flags = {
         "harmonic": (OUTPUT_HARMONIC, 0),
         "percussive": (OUTPUT_PERCUSSIVE, 1),

@@ -6,13 +6,14 @@ history, OLA tails) and the configuration. Both cross as plain Python
 values and numpy arrays, so nothing here imports jax:
 
     cfg = config_from_fields(**dataclasses.asdict(jax_cfg))
-    state = state_from_numpy(*map(np.asarray, jax_state), cfg=cfg, device="cuda")
+    state = state_from_numpy(*map(np.asarray, jax_state), cfg=cfg)
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .drivers.realtime import StreamState, hist_dtype
 from .engine.config import HPRConfig
 
@@ -37,14 +38,16 @@ def config_from_fields(**fields) -> HPRConfig:
 
 
 def state_from_numpy(
-    ring, feat_hist, ola_tail, device="cpu", cfg: HPRConfig | None = None
+    ring, feat_hist, ola_tail, device="cuda", cfg: HPRConfig | None = None
 ) -> StreamState:
     """StreamState on ``device`` from numpy arrays, with or without the
-    leading stream axis (the JAX single-stream state has none).
+    leading stream axis (the JAX single-stream state has none). The card
+    by default, as the drivers; the CPU only when ``device="cpu"``.
 
     The feature history takes ``cfg``'s stream state dtype (bfloat16
     under 'bf16'; float32 without a cfg); ring and tails are float32. A
     JAX bf16 history read back as float32 numpy converts exactly."""
+    device = resolve_device(device)
     dtype = hist_dtype(cfg) if cfg is not None else torch.float32
     ring, feat_hist, ola_tail = (
         np.array(x, np.float32) for x in (ring, feat_hist, ola_tail)

@@ -43,14 +43,31 @@
 // thread then ranks its own window out of shared memory: consecutive
 // threads read consecutive words (no bank conflicts) and the candidate
 // loop stops at the first tap whose rank brackets (K-1)/2, which is
-// sorted[(K-1)/2], the element jnp.median picks for odd K. A selection
-// network or an incremental window is later work. Rows and the ragged
-// last tile are masked here, so any row count is valid (the Pallas fused
-// kernel needed R % 128 == 0).
+// sorted[(K-1)/2], the element jnp.median picks for odd K. Rows and the
+// ragged last tile are masked here, so any row count is valid (the
+// Pallas fused kernel needed R % 128 == 0).
+//
+// From K = 11 on: rank once, select many (rank_select.cuh). Counting
+// costs ~K^2 per output, 34,969 at K = 187; the rank route stages the
+// same segment as 64-bit keys, sorts it once per block by (value,
+// position) with a bitonic sort over the next power of two, and has each
+// output walk the ranks, counting positions p of its window (p - j < K,
+// unsigned), until the count passes (K-1)/2: ~S/2 shared reads for
+// S = tile + K - 1, eight ranks a step, where all lanes of a warp read
+// the same rank (a broadcast). The wrapper (ops/median_cuda.py) takes
+// this route from K = FREQ_RANK_MIN_TAPS on (the crossover measured on
+// an H100: below it counting is faster on narrow rows), picks the tile
+// (32 to 256 outputs, one thread each) that minimizes the walk plus the
+// sort per output (on an H100 the fastest tile at the paths' K, timed in
+// chip_smoke.py phase 3), and keeps counting for K whose keys do not fit the
+// 227 KB a block can opt into (S > 16,384, K > ~16,000 at the smallest
+// tile fitting); both routes pick the same element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "rank_select.cuh"
 
 namespace {
 
@@ -72,10 +89,8 @@ __device__ __forceinline__ int boundary_index(int p, int f, int mode) {
   return p;  // valid: always inside the padded row
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using zen_rank::from_float;
+using zen_rank::to_float;
 
 template <typename T>
 __global__ void sliding_median_kernel(const T* __restrict__ x,
@@ -117,9 +132,51 @@ __global__ void sliding_median_kernel(const T* __restrict__ x,
   out[static_cast<size_t>(r) * f_out + j0 + threadIdx.x] = w[pick];
 }
 
+// One block per (row, tile of `tile` outputs), one thread per output.
 template <typename T>
-int launch(const T* x, T* out, int rows, int f_in, int f_out, int k, int mode,
-           void* stream) {
+__global__ void rank_select_median_kernel(const T* __restrict__ x,
+                                          T* __restrict__ out, int f_in,
+                                          int f_out, int k, int mode) {
+  extern __shared__ __align__(16) unsigned long long keys[];
+  const int tile = blockDim.x;
+  const long long r = blockIdx.x;
+  const int j0 = blockIdx.y * tile;
+  const int m = (k - 1) / 2;
+  const T* row = x + static_cast<size_t>(r) * f_in;
+  const int base = mode == kValid ? j0 : j0 - m;
+  const int live = min(tile, f_out - j0);
+  const int need = live + k - 1;
+  const int n = zen_rank::key_count(need);
+  for (int s = threadIdx.x; s < n; s += tile) {
+    keys[s] = s < need ? zen_rank::make_key(
+                             to_float(row[boundary_index(base + s, f_in, mode)]), s)
+                       : zen_rank::kPadKey;
+  }
+  __syncthreads();
+  const int j = threadIdx.x;
+  T* dst = out + static_cast<size_t>(r) * f_out + j0 + j;
+  if (ZEN_RANK_CUT == 1) {
+    if (j < live) *dst = from_float<T>(zen_rank::value_of(keys[j]));
+    return;
+  }
+  zen_rank::bitonic_sort(keys, n, threadIdx.x, tile);
+  if (j >= live) return;
+  if (ZEN_RANK_CUT == 2) {
+    *dst = from_float<T>(zen_rank::value_of(keys[j]));
+    return;
+  }
+  // the first rank at which m + 1 positions of window [j, j + k) are seen
+  // (a padding key's position is past every window)
+  const unsigned long long key =
+      zen_rank::walk(keys, m, [&](unsigned long long kv) {
+        return static_cast<int>(
+            static_cast<unsigned>(zen_rank::position_of(kv) - j) <
+            static_cast<unsigned>(k));
+      });
+  *dst = from_float<T>(zen_rank::value_of(key));
+}
+
+int check_args(int rows, int f_in, int f_out, int k, int mode) {
   if (k < 1 || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
       mode < kReflect || mode > kValid) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -130,30 +187,45 @@ int launch(const T* x, T* out, int rows, int f_in, int f_out, int k, int mode,
   if (mode == kReflect && (k - 1) / 2 > f_in - 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return 0;
+}
+
+template <typename T>
+int launch(const T* x, T* out, int rows, int f_in, int f_out, int k, int mode,
+           void* stream) {
+  int err = check_args(rows, f_in, f_out, k, mode);
+  if (err != 0) return err;
   // the row segment must fit the shared memory a block may opt into
-  // (227 KB on Hopper); above the 48 KB default, opt in
   const size_t smem = (static_cast<size_t>(kTile) + k - 1) * sizeof(T);
-  int device = 0;
-  int optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(sliding_median_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = zen_rank::opt_in(reinterpret_cast<const void*>(sliding_median_kernel<T>),
+                         smem);
+  if (err != 0) return err;
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((f_out + kTile - 1) / kTile));
   sliding_median_kernel<T><<<grid, kTile, smem,
                              static_cast<cudaStream_t>(stream)>>>(
+      x, out, f_in, f_out, k, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `tile` in {32, 64, 128, 256}: the wrapper's choice for this k
+template <typename T>
+int launch_rank(const T* x, T* out, int rows, int f_in, int f_out, int k,
+                int mode, int tile, void* stream) {
+  int err = check_args(rows, f_in, f_out, k, mode);
+  if (err != 0) return err;
+  if (tile != 32 && tile != 64 && tile != 128 && tile != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(zen_rank::key_count(tile + k - 1)) *
+                      sizeof(unsigned long long);
+  err = zen_rank::opt_in(
+      reinterpret_cast<const void*>(rank_select_median_kernel<T>), smem);
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned>(rows),
+                  static_cast<unsigned>((f_out + tile - 1) / tile));
+  rank_select_median_kernel<T><<<grid, tile, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       x, out, f_in, f_out, k, mode);
   return static_cast<int>(cudaGetLastError());
 }
@@ -171,4 +243,17 @@ extern "C" int zen_sliding_median_boundary_bf16(const __nv_bfloat16* x,
                                                 int f_in, int f_out, int k,
                                                 int mode, void* stream) {
   return launch(x, out, rows, f_in, f_out, k, mode, stream);
+}
+
+extern "C" int zen_sliding_median_rank(const float* x, float* out, int rows,
+                                       int f_in, int f_out, int k, int mode,
+                                       int tile, void* stream) {
+  return launch_rank(x, out, rows, f_in, f_out, k, mode, tile, stream);
+}
+
+extern "C" int zen_sliding_median_rank_bf16(const __nv_bfloat16* x,
+                                            __nv_bfloat16* out, int rows,
+                                            int f_in, int f_out, int k,
+                                            int mode, int tile, void* stream) {
+  return launch_rank(x, out, rows, f_in, f_out, k, mode, tile, stream);
 }

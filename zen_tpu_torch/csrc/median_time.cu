@@ -42,14 +42,39 @@
 // picks sorted[(K-1)/2], the element jnp.median picks for odd K.
 //
 // Past 64 taps (K = 67 to 401 at hop 8 to 32) a register array no
-// longer fits: the wide kernel stages the offsets in shared memory from
-// a device buffer the wrapper uploads once per offsets tuple, and
-// re-reads each tap through the read-only cache in the rank loop. It is
-// right, not fast: up to K^2 loads per output, mostly L1 hits.
+// longer fits, and counting would cost up to K^2 tap reads per output
+// (8,649 at K = 93, 160,801 at K = 401) on the few thousand outputs of a
+// hop-32 step, a handful of blocks on 132 SMs. The rank route (rank
+// once, select many, rank_select.cuh) gives each block one column and a
+// run of 32 output rows: its 128 threads stage the rows the run's taps
+// reach, [start + i0 + min(o), start + i0 + 31 + max(o)] of V (fill
+// outside), as (value, row) keys in shared memory and bitonic-sort them
+// once; then each lane of the first warp, one output row, walks the
+// ranks adding the multiplicity of each row in its tap set until the sum
+// passes (K-1)/2. The multiplicities
+// come from a table over [min(o), max(o)] (duplicated taps, e.g. the
+// replicate border's repeated offset 0, count more than once), built by
+// the wrapper and uploaded once per offsets tuple, padded with 31 zeros
+// on each side so that a lane reads table[row - lane + 31] without a
+// branch: all lanes read one rank (a broadcast) and consecutive table
+// words (no bank conflicts). The shapes of the hop-32 step have few
+// outputs, so the kernel is built for latency: the four warps keep the
+// staging loads of a unit in flight together and share its sort, and the
+// walk reads eight ranks a step. One unit per block spreads the work
+// over the SMs: 65 blocks at K = 93 [1, 183 + 32, 65], 493 at K = 401
+// [1, 900, 17], where the first wide kernel ran 9 and 60.
+//
+// The keys (a power of two >= 32 + max(o) - min(o)) and the table must
+// fit the 227 KB a block can opt into: max(o) - min(o) up to 16,352.
+// Offsets that span more, whatever their count, stay on the first wide
+// kernel, which stages the offsets (K up to 12,287) and re-reads each
+// tap through the read-only cache in its rank loop: right, not fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "rank_select.cuh"
 
 namespace {
 
@@ -62,22 +87,8 @@ struct Taps {
   int o[kMaxTaps];
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-// exact: x is always a converted bf16 tap or the bf16-rounded fill
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using zen_rank::from_float;
+using zen_rank::to_float;
 
 // one element through the read-only data cache, as float
 __device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
@@ -186,6 +197,70 @@ __global__ void tap_median_time_wide_kernel(
   out[idx] = from_float<T>(med);
 }
 
+constexpr int kRun = 32;           // most output rows of a rank-kernel block
+constexpr int kRankThreads = 128;  // threads that stage and sort them
+
+// One block per unit: column `col` of stream `c`, output rows i0 + lane
+// for lane < run. `plan` holds the multiplicity table (span + 62 ints),
+// then the `staged` rows the run's taps reach, relative to its first
+// output row's min(o) tap. All kRankThreads threads stage and sort; one
+// lane of the first warp per output row walks.
+template <typename T>
+__global__ void tap_median_time_rank_kernel(
+    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+    int ta, int tb, int f, int start, int t_out, int run,
+    const int* __restrict__ plan, int min_o, int span, int staged, int k,
+    float fill) {
+  extern __shared__ __align__(16) unsigned long long stage[];
+  const int n = zen_rank::key_count(staged);
+  const int len = span + 2 * (kRun - 1);
+  const int* rows = plan + len;
+  int* table = reinterpret_cast<int*>(stage + n);
+  const int tid = threadIdx.x;
+  const int n_runs = (t_out + run - 1) / run;
+  const long long unit = blockIdx.x;
+  const int col = static_cast<int>(unit % f);
+  const long long rest = unit / f;
+  const int i0 = static_cast<int>(rest % n_runs) * run;
+  const long long c = rest / n_runs;
+  for (int q = tid; q < len; q += kRankThreads) table[q] = plan[q];
+  const int row0 = start + i0 + min_o;  // the V row of relative row 0
+#pragma unroll 4
+  for (int s = tid; s < n; s += kRankThreads) {
+    unsigned long long key = zen_rank::kPadKey;
+    if (s < staged) {
+      const int d = rows[s];
+      key = zen_rank::make_key(tap_at(a, b, c, ta, tb, f, col, row0 + d, fill), d);
+    }
+    stage[s] = key;
+  }
+  __syncthreads();
+  const int lane = tid;
+  const int i = i0 + lane;
+  const bool live = lane < run && i < t_out;
+  T* dst = out + (static_cast<size_t>(c) * t_out + i) * f + col;
+  if (ZEN_RANK_CUT == 1) {
+    if (live) *dst = from_float<T>(zen_rank::value_of(stage[lane]));
+    return;
+  }
+  zen_rank::bitonic_sort(stage, n, tid, kRankThreads);
+  if (!live) return;
+  if (ZEN_RANK_CUT == 2) {
+    *dst = from_float<T>(zen_rank::value_of(stage[lane]));
+    return;
+  }
+  // relative row d is tap d - lane of this lane's output row, counted
+  // table[d - lane + 31] times; every tap is staged, so the walk ends
+  // before the padding (whose reads count 0)
+  const unsigned int mult_at = kRun - 1 - lane;
+  const unsigned long long key = zen_rank::walk(
+      stage, (k - 1) / 2, [&](unsigned long long kv) {
+        const unsigned int q = zen_rank::position_of(kv) + mult_at;
+        return q < static_cast<unsigned int>(len) ? table[q] : 0;
+      });
+  *dst = from_float<T>(zen_rank::value_of(key));
+}
+
 template <typename T>
 int launch_register(const T* a, const T* b, T* out, int c, int ta, int tb,
                     int f, int start, int t_out, const int* offsets, int k,
@@ -233,6 +308,31 @@ int launch_wide(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `plan` is a device buffer: span + 62 ints (31 zeros, the count of each
+// offset min_o .. min_o + span - 1, 31 zeros), then `staged` rows
+template <typename T>
+int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
+                int start, int t_out, const int* plan, int min_o, int span,
+                int staged, int run, int k, float fill, void* stream) {
+  if (k < 1 || k % 2 == 0 || c <= 0 || f <= 0 || t_out <= 0 || span < 1 ||
+      run < 1 || run > kRun || staged < 1 || staged > kRun - 1 + span) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      zen_rank::key_count(staged) * sizeof(unsigned long long) +
+      (static_cast<size_t>(span) + 2 * (kRun - 1)) * sizeof(int);
+  const int err = zen_rank::opt_in(
+      reinterpret_cast<const void*>(tap_median_time_rank_kernel<T>), smem);
+  if (err != 0) return err;
+  const int n_runs = (t_out + run - 1) / run;
+  const long long units = static_cast<long long>(c) * n_runs * f;
+  tap_median_time_rank_kernel<T><<<static_cast<unsigned>(units), kRankThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      a, b, out, ta, tb, f, start, t_out, run, plan, min_o, span, staged, k,
+      fill);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // `offsets` is a host array of k ints (k <= 64)
@@ -270,6 +370,24 @@ extern "C" int zen_tap_median_time_wide_bf16(
     float fill, void* stream) {
   return launch_wide(a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill,
                      stream);
+}
+
+extern "C" int zen_tap_median_time_rank(const float* a, const float* b,
+                                        float* out, int c, int ta, int tb,
+                                        int f, int start, int t_out,
+                                        const int* plan, int min_o, int span,
+                                        int staged, int run, int k, float fill,
+                                        void* stream) {
+  return launch_rank(a, b, out, c, ta, tb, f, start, t_out, plan, min_o, span,
+                     staged, run, k, fill, stream);
+}
+
+extern "C" int zen_tap_median_time_rank_bf16(
+    const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* out, int c,
+    int ta, int tb, int f, int start, int t_out, const int* plan, int min_o,
+    int span, int staged, int run, int k, float fill, void* stream) {
+  return launch_rank(a, b, out, c, ta, tb, f, start, t_out, plan, min_o, span,
+                     staged, run, k, fill, stream);
 }
 
 extern "C" const char* zen_cuda_error_string(int err) {

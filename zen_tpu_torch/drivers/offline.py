@@ -39,6 +39,7 @@ from ..engine.spectral import (
     synthesize_masked,
     time_filtered_tail,
 )
+from ..device import resolve_device
 from ..errors import ZenError
 from ..ops.framing import frame_signal, overlap_add_stream
 
@@ -191,7 +192,8 @@ class HPRIOffline:
     """2-pass offline HPR-I separation (hps.cu:128-221, GPU semantics).
 
     process(audio[..., L]) -> (harmonic, percussive, residual), each
-    [..., L] float32 on ``device``: harmonic from pass 1 (hop_h),
+    [..., L] float32 on ``device`` (the card unless ``device="cpu"`` is
+    passed): harmonic from pass 1 (hop_h),
     percussive and residual from pass 2 (hop_p) over pass 1's
     percussive + residual. Numpy input is moved to ``device``; a tensor
     must already lie there. Further keywords (soft_mask, fast_rfft,
@@ -206,14 +208,12 @@ class HPRIOffline:
         beta_h: float = 2.0,
         beta_p: float = 2.0,
         strict_ref: bool = False,
-        device="cpu",
+        device="cuda",
         **cfg_kw,
     ):
         if hop_h % hop_p != 0:
             raise ZenError("hop_h and hop_p should be evenly divisible")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
         self.strict_ref = bool(strict_ref)
         common = dict(fs=fs, causal=False, **cfg_kw)
         self.cfg_h = HPRConfig(hop=hop_h, beta=beta_h, outputs=OUTPUT_ALL, **common)

@@ -37,6 +37,7 @@ from ..engine.spectral import (
     synthesize,
     time_filtered_tail_pair,
 )
+from ..device import resolve_device
 from ..errors import ZenError
 
 
@@ -51,9 +52,11 @@ def hist_dtype(cfg: HPRConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.stream_state == "bf16" else torch.float32
 
 
-def init_state(cfg: HPRConfig, n_streams: int = 1, device="cpu") -> StreamState:
+def init_state(cfg: HPRConfig, n_streams: int = 1, device="cuda") -> StreamState:
     """Zeroed state == the reference's reset_buffers (hps.h:296-321);
-    the feature history holds the feature of a zero frame."""
+    the feature history holds the feature of a zero frame. On the card
+    unless ``device="cpu"`` is passed (``resolve_device``)."""
+    device = resolve_device(device)
     return StreamState(
         ring=torch.zeros((n_streams, cfg.nwin), device=device),
         feat_hist=torch.full(
@@ -177,8 +180,9 @@ class HPRRealtime:
     process_next_hop(hop_samples) processes one hop; copy_harmonic /
     copy_percussive / copy_residual return that hop's stems. For
     throughput use process_block(block[B, hop]) — one step for B hops —
-    or process_stream(). Step outputs stay on ``device``; the copy_*
-    reads and process_stream return host numpy arrays. Further keywords
+    or process_stream(). Step outputs stay on ``device`` (the card unless
+    ``device="cpu"`` is passed); the copy_* reads and process_stream
+    return host numpy arrays. Further keywords
     (border, stream_state, soft_mask, fast_rfft, median_impl, ...) go to
     HPRConfig.
     """
@@ -189,10 +193,10 @@ class HPRRealtime:
         hop: int = 256,
         beta: float = 2.0,
         outputs: int = 0,
-        device="cpu",
+        device="cuda",
         **cfg_kw,
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cfg = HPRConfig(
             fs=fs,
             hop=hop,
@@ -290,8 +294,9 @@ class MultiStreamHPR:
     """C independent causal HPR streams in one step — the BASELINE
     'batched multi-channel fakert' configuration (64 streams x
     44.1 kHz), up to the wide fleets of ``zen stream --streams 512``.
-    The stream dim is an explicit batch dim on one device; sharding over
-    several devices waits for the parallel slice. Further keywords
+    The stream dim is an explicit batch dim on one device, the card
+    unless ``device="cpu"`` is passed; sharding over several devices
+    waits for the parallel slice. Further keywords
     (border, stream_state, ...) go to HPRConfig."""
 
     def __init__(
@@ -301,10 +306,10 @@ class MultiStreamHPR:
         hop: int = 256,
         beta: float = 2.0,
         outputs: int = 0,
-        device="cpu",
+        device="cuda",
         **cfg_kw,
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cfg = HPRConfig(
             fs=fs,
             hop=hop,

@@ -4,10 +4,14 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/zen_tpu_torch/`` at the repository root,
-named by a hash of the sources and flags, so an edited source or flag
-rebuilds and an unchanged tree reuses the library. ``nvcc``'s register
+named by a hash of the sources, the headers they share (``*.cuh``) and
+the flags, so an edited source, header or flag rebuilds and an unchanged
+tree reuses the library. ``nvcc``'s register
 and shared-memory report (``-Xptxas -v``) is kept beside it as
-``<name>.log``.
+``<name>.log``. ``library(cut)`` builds the same sources with
+``-DZEN_RANK_CUT=cut`` (1 or 2: the rank kernels end after staging or
+after the sort, ``csrc/rank_select.cuh``), a library of its own that
+only chip_smoke.py's split of a rank block's time loads.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
 wrappers in ``median_cuda.py`` raise on a nonzero code through
@@ -38,15 +42,25 @@ _TIME = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
           ctypes.c_float, _P], _I)
 # the same, with `offsets` a device buffer (K above 64)
 _TIME_WIDE = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, ctypes.c_float, _P], _I)
+# a, b, out, c, ta, tb, f, start, t_out, plan (device), min_o, span, staged, run, k,
+# fill, stream
+_TIME_RANK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+               ctypes.c_float, _P], _I)
 # x, out, rows, f_in, f_out, k, mode, stream
 _FREQ = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
+# the same, with the tile before the stream
+_FREQ_RANK = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
 _SIGNATURES = {
     "zen_tap_median_time": _TIME,
     "zen_tap_median_time_bf16": _TIME,
     "zen_tap_median_time_wide": _TIME_WIDE,
     "zen_tap_median_time_wide_bf16": _TIME_WIDE,
+    "zen_tap_median_time_rank": _TIME_RANK,
+    "zen_tap_median_time_rank_bf16": _TIME_RANK,
     "zen_sliding_median_boundary": _FREQ,
     "zen_sliding_median_boundary_bf16": _FREQ,
+    "zen_sliding_median_rank": _FREQ_RANK,
+    "zen_sliding_median_rank_bf16": _FREQ_RANK,
     "zen_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -62,22 +76,29 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(cut: int) -> tuple:
+    return NVCC_FLAGS + ((f"-DZEN_RANK_CUT={cut}",) if cut else ())
+
+
+def library_path(cut: int = 0) -> Path:
+    """Where the library for the current sources, headers and flags lives."""
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
+    h = hashlib.sha256(" ".join(_flags(cut)).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libzen_median_{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raise on failure."""
-    out = library_path()
+@functools.lru_cache(maxsize=3)
+def library(cut: int = 0) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raise on failure.
+    ``cut`` 1 or 2 is the split build (module note), never a wrapper's."""
+    if cut not in (0, 1, 2):
+        raise ValueError(f"ZEN_RANK_CUT is 0, 1 or 2, got {cut}")
+    out = library_path(cut)
     if not out.exists():
-        _build(out)
+        _build(out, _flags(cut))
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -98,7 +119,7 @@ def _run(procs: list, log: list) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, flags: tuple) -> None:
     """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
@@ -106,7 +127,7 @@ def _build(out: Path) -> None:
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     nvcc, log = _nvcc(), []
     try:
-        _run([subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        _run([subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
               for src, obj in zip(sources, objs)], log)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

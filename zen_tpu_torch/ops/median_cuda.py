@@ -19,8 +19,17 @@ a CPU tensor to its ``_plain`` twin (built from
 checking contiguity; it raises on anything the kernel does not take,
 and never falls back. ``launches`` on each
 wrapper counts its kernel launches, so a run can show that it went
-through the kernel. Kernels launch on the current stream, never
-synchronize and allocate nothing: the wrapper allocates the output.
+through the kernel, and ``routes`` splits that count by route. Kernels
+launch on the current stream, never synchronize and allocate nothing:
+the wrapper allocates the output.
+
+Each kernel has a route for large K, "rank once, select many"
+(``csrc/rank_select.cuh``): K1 from 65 taps (``time_route``), K2 from
+FREQ_RANK_MIN_TAPS (``freq_route``). The host side of those routes is
+here, in Python the CPU tests reach: K2's tile (``freq_rank_tile``),
+K1's multiplicity table (``time_rank_table``) and the shared-memory
+checks that send a K whose staging does not fit back to the counting
+kernels.
 """
 from __future__ import annotations
 
@@ -34,16 +43,32 @@ from ..errors import ZenError
 from . import _build
 from .median import sliding_median
 
+# Shared memory a block can opt into on Hopper (227 KB).
+SMEM_OPTIN = 232_448
 # K1 keeps up to REGISTER_TAPS taps in registers; past that its wide
 # kernel stages the offsets in the 48 KB of shared memory a block takes
 # without an opt-in, which bounds K.
 REGISTER_TAPS = 64
 MAX_TIME_TAPS = 48 * 1024 // 4 - 1
-# K2 stages a row segment of 256 + K - 1 floats in shared memory, which
-# must fit the 227 KB (232,448 bytes) a block can opt into on Hopper.
-MAX_FREQ_TAPS = 232_448 // 4 - 256 + 1
+# K1's rank route: most output rows per block, one per lane of its first warp.
+TIME_RANK_RUN = 32
+# K2's counting kernel stages a row segment of 256 + K - 1 floats in
+# shared memory, which must fit SMEM_OPTIN.
+MAX_FREQ_TAPS = SMEM_OPTIN // 4 - 256 + 1
+# K2 ranks by counting below this many taps and sorts its segment once
+# per block from here on: the crossover of chip_smoke.py's phase-3 sweep
+# on an H100 (from K = 11 the rank route was faster at [32, 2049] and
+# [2048, 513], and at [8192, 513] and [1, 65]; at K = 9 counting was
+# faster on the narrow rows).
+FREQ_RANK_MIN_TAPS = 11
+FREQ_RANK_TILES = (32, 64, 128, 256)
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
 _PLAIN_BOUNDARY = {"reflect": "reflect", "wrap": "wrap", "edge": "clamp"}
+KEY_BYTES = 8  # a (value, position) key of the rank routes
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
 def _check_k(k: int, limit: int, bound: str) -> None:
@@ -97,6 +122,45 @@ def tap_median_time_plain(
     return sliding_median(v, offsets, -2, "zero", fill)[..., start:, :]
 
 
+@functools.lru_cache(maxsize=32)
+def time_rank_table(offsets: tuple):
+    """(min offset, span, table) of K1's rank route for ``offsets``, or
+    None when its staging does not fit SMEM_OPTIN: the keys of up to
+    TIME_RANK_RUN - 1 + span rows a block stages (span = max - min + 1),
+    to the next power of two, and the table, span + 62 ints: the count
+    of each offset min .. max between TIME_RANK_RUN - 1 zeros on either
+    side (a lane reads table[row - lane + 31] without a bounds check)."""
+    lo = min(offsets)
+    span = max(offsets) - lo + 1
+    pad = TIME_RANK_RUN - 1
+    smem = KEY_BYTES * _pow2_at_least(pad + span) + 4 * (span + 2 * pad)
+    if smem > SMEM_OPTIN:
+        return None
+    table = [0] * (span + 2 * pad)
+    for o in offsets:
+        table[pad + o - lo] += 1
+    return lo, span, tuple(table)
+
+
+@functools.lru_cache(maxsize=64)
+def time_rank_rows(offsets: tuple, run: int) -> tuple:
+    """The rows K1's rank route stages for ``run`` consecutive output
+    rows (run <= TIME_RANK_RUN): those their taps reach, relative to the
+    first row's min(offsets) tap. A run of 32 rows under the two tap runs
+    of a causal wrap (K = 93) stages 155 rows, not the 215 between its
+    extremes; one row stages exactly its distinct taps."""
+    lo = min(offsets)
+    return tuple(sorted({o - lo + i for o in set(offsets) for i in range(run)}))
+
+
+def time_route(offsets: tuple) -> str:
+    """K1's kernel for ``offsets``: 'register' up to REGISTER_TAPS taps,
+    then 'rank' where its staging fits, else the first 'wide' kernel."""
+    if len(offsets) <= REGISTER_TAPS:
+        return "register"
+    return "rank" if time_rank_table(offsets) is not None else "wide"
+
+
 def tap_median_time(
     a: torch.Tensor, b: torch.Tensor, offsets, start: int, fill: float = 0.0
 ) -> torch.Tensor:
@@ -121,18 +185,42 @@ def tap_median_time(
     if not a.is_cuda:
         return tap_median_time_plain(a, b, offsets, start, fill)
     _check_cuda_operands(a, b)
+    route = time_route(offsets)
+    out = _time_launch(a, b, offsets, start, fill, route)
+    if out.numel():
+        tap_median_time.launches += 1
+        tap_median_time.routes[route] += 1
+    return out
+
+
+tap_median_time.launches = 0
+tap_median_time.routes = dict.fromkeys(("register", "rank", "wide"), 0)
+
+
+def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0):
+    """K1's ``route`` kernel on checked CUDA operands; counts nothing
+    (chip_smoke also calls it to time one route against another, and the
+    rank route of a ``cut`` build, ``_build.library``)."""
+    ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
     lead = a.shape[:-2]
     t_out = ta + tb - start
     out = torch.empty(lead + (t_out, f), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    lib = _build.library()
-    if k <= REGISTER_TAPS:
+    lib = _build.library(cut)
+    k = len(offsets)
+    if route == "register":
         entry = _entry(lib, "zen_tap_median_time", a.dtype)
-        taps = (ctypes.c_int * k)(*offsets)
+        taps = ((ctypes.c_int * k)(*offsets),)
+    elif route == "rank":
+        entry = _entry(lib, "zen_tap_median_time_rank", a.dtype)
+        lo, span, _ = time_rank_table(offsets)
+        run = min(t_out, TIME_RANK_RUN)
+        plan = _device_plan(offsets, run, a.device)
+        taps = (plan.data_ptr(), lo, span, len(time_rank_rows(offsets, run)), run)
     else:
         entry = _entry(lib, "zen_tap_median_time_wide", a.dtype)
-        taps = _device_offsets(offsets, a.device).data_ptr()
+        taps = (_device_offsets(offsets, a.device).data_ptr(),)
     err = _launch(
         a,
         entry,
@@ -145,16 +233,12 @@ def tap_median_time(
         f,
         start,
         t_out,
-        taps,
+        *taps,
         k,
         _in_dtype(fill, a.dtype),
     )
-    _build.check(err, "tap_median_time")
-    tap_median_time.launches += 1
+    _build.check(err, f"tap_median_time ({route})")
     return out
-
-
-tap_median_time.launches = 0
 
 
 @functools.lru_cache(maxsize=8)
@@ -172,6 +256,15 @@ def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=32)
+def _device_plan(offsets: tuple, run: int, device: torch.device) -> torch.Tensor:
+    """K1's rank-route table (``time_rank_table``) and staged rows
+    (``time_rank_rows``) as one int32 buffer on ``device``, uploaded once
+    per (offsets, run, device)."""
+    plan = time_rank_table(offsets)[2] + time_rank_rows(offsets, run)
+    return torch.tensor(plan, dtype=torch.int32, device=device)
+
+
 # ---------------- K2: frequency sliding median ----------------
 
 
@@ -183,6 +276,35 @@ def sliding_median_boundary_plain(
         return sliding_median(x, range(k), -1, "zero")[..., : x.shape[-1] - k + 1]
     m = (k - 1) // 2
     return sliding_median(x, range(-m, m + 1), -1, _PLAIN_BOUNDARY[mode])
+
+
+@functools.lru_cache(maxsize=64)
+def freq_rank_tile(k: int):
+    """K2's rank-route tile for width ``k``: of FREQ_RANK_TILES, the one
+    whose cost per output is least, the walk (~S/2 ranks, S = tile + k -
+    1 staged samples) plus the bitonic sort over the next power of two
+    n (n/2 compare-swaps in each of log2(n)(log2(n)+1)/2 stages, shared
+    by the tile's outputs, each weighed as two walk steps), among the
+    tiles whose n keys fit SMEM_OPTIN; None when none fits. chip_smoke's
+    phase 3 times every tile at the paths' K (13, 47, 187, 257): on an
+    H100 the model's tile was the fastest there, or tied with it."""
+    best = None
+    for tile in FREQ_RANK_TILES:
+        seg = tile + k - 1
+        n = _pow2_at_least(seg)
+        if KEY_BYTES * n > SMEM_OPTIN:
+            continue
+        lg = n.bit_length() - 1
+        cost = seg / 2 + 2 * (n // 2) * (lg * (lg + 1) // 2) / tile
+        if best is None or cost < best[0]:
+            best = (cost, tile)
+    return None if best is None else best[1]
+
+
+def freq_route(k: int) -> str:
+    """K2's kernel for width ``k``: 'rank' from FREQ_RANK_MIN_TAPS on
+    where its keys fit, else 'count'."""
+    return "rank" if k >= FREQ_RANK_MIN_TAPS and freq_rank_tile(k) else "count"
 
 
 def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
@@ -205,12 +327,35 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     if not x.is_cuda:
         return sliding_median_boundary_plain(x, k, mode)
     _check_cuda_operands(x)
+    route = freq_route(k)
+    out = _freq_launch(x, k, mode, route)
+    if out.numel():
+        sliding_median_boundary.launches += 1
+        sliding_median_boundary.routes[route] += 1
+    return out
+
+
+sliding_median_boundary.launches = 0
+sliding_median_boundary.routes = dict.fromkeys(("count", "rank"), 0)
+
+
+def _freq_launch(
+    x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0
+) -> torch.Tensor:
+    """K2's ``route`` kernel on a checked CUDA operand; counts nothing
+    (chip_smoke's sweeps also call it, for both routes and each rank
+    ``tile``, and the rank route of a ``cut`` build, ``_build.library``)."""
+    f_in = x.shape[-1]
+    f_out = f_in - k + 1 if mode == "valid" else f_in
     out = torch.empty(x.shape[:-1] + (f_out,), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    name, extra = "zen_sliding_median_boundary", ()
+    if route == "rank":
+        name, extra = "zen_sliding_median_rank", (tile or freq_rank_tile(k),)
     err = _launch(
         x,
-        _entry(_build.library(), "zen_sliding_median_boundary", x.dtype),
+        _entry(_build.library(cut), name, x.dtype),
         x.data_ptr(),
         out.data_ptr(),
         math.prod(x.shape[:-1]),
@@ -218,10 +363,7 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
         f_out,
         k,
         FREQ_MODES[mode],
+        *extra,
     )
-    _build.check(err, "sliding_median_boundary")
-    sliding_median_boundary.launches += 1
+    _build.check(err, f"sliding_median_boundary ({route})")
     return out
-
-
-sliding_median_boundary.launches = 0
