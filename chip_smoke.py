@@ -34,6 +34,13 @@ width:
            bf16, and on a shorter input with --cpu (replicate border)
            and --nocopybord (valid border); then one real pipe through
            `python -m zen_tpu_torch stream`;
+  phase 11 the serving-state bound instruments: benches/hbm_pattern at
+           512 streams (each median stage of the hop-256 step beside its
+           copy-only mirror, #9 rows_copy and #10 segment_copy, which
+           phase 3 holds bitwise against their twins), and
+  phase 12 benches/serving_bound's legs (full block_step, transform,
+           median, rest) at 64, 256 and 512 streams in f32 and at 512 in
+           bf16, each in device time and in steady-window wall time;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -90,13 +97,17 @@ TILE_CASES = ((13, (8192, 513)), (13, (2048, 513)), (47, (32, 2049)), (187, (41,
               (187, (TRACK_FRAMES_H, 8193)), (257, (32, 2049)))
 ROUTES = {"tap_median_time": ("register", "rank", "wide"),
           "sliding_median_boundary": ("count", "rank")}
+PROBES = ("rows_copy", "segment_copy")  # ops/probe_cuda.py, one route each: "copy"
 MP = "zen_tpu/ops/median_pallas.py"
 TPU_KERNELS = {  # PERF.md's table numbers -> file:line of the TPU kernel
     "#1": f"{MP}:895", "#2": f"{MP}:787", "#3": f"{MP}:1020", "#4": f"{MP}:826",
     "#5": f"{MP}:395", "#6": f"{MP}:331", "#7": f"{MP}:603", "#8": f"{MP}:482",
+    "#9": "benches/hbm_pattern.py:181", "#10": "benches/hbm_pattern.py:240",
 }
 SOURCES = {"tap_median_time": "zen_tpu_torch/csrc/median_time.cu",
-           "sliding_median_boundary": "zen_tpu_torch/csrc/median_freq.cu"}
+           "sliding_median_boundary": "zen_tpu_torch/csrc/median_freq.cu",
+           "rows_copy": "zen_tpu_torch/csrc/probe_copy.cu",
+           "segment_copy": "zen_tpu_torch/csrc/probe_copy.cu"}
 FLEET_HOP, FLEET_BLOCK = 256, 16  # zen stream's defaults
 FLEET_HELD = range(0, FLEET_STREAMS, 32)  # the streams held against the CPU
 # bf16 stream state vs the f32 stream, percussive stem: LADDER_FLOORS_DB
@@ -311,8 +322,11 @@ def kernel_cases():
     None) at every main-path shape (hop-1024 streaming first), the
     offline passes' and the hop-32 stream's shapes, tap counts past the
     first kernels' caps, tie-heavy and bf16 inputs at large K, and the
-    other boundary modes at a ragged row count."""
+    other boundary modes at a ragged row count; then the two copy-only
+    mirrors, #9 and #10 (library yardstick: the same copy as one PyTorch
+    call)."""
     from zen_tpu_torch.ops import median_cuda as mc
+    from zen_tpu_torch.ops import probe_cuda as pc
 
     rng = np.random.default_rng(0)
     mag = functools.partial(_mags, rng)
@@ -410,6 +424,36 @@ def kernel_cases():
             freq_bound(x, k, mode),
             None,
         ))
+    # the copy-only mirrors at hbm_pattern's 512-stream shapes (phase 11)
+    for tpu, label, x, start, t_out in (
+        ("#9", "C=512 T=53 start=21 t_out=32 F=513 f32", mag(512, 53, 513), 21, 32),
+        ("#9", "C=512 T=53 start=21 t_out=32 F=513 bf16", bf16(512, 53, 513), 21, 32),
+        ("#9", "C=3 T=9 start=5 t_out=4 F=65 (ragged)", mag(3, 9, 65), 5, 4),
+    ):
+        n = x.shape[0] * t_out * x.shape[-1]
+        cases.append((
+            "rows_copy", "copy", tpu, label,
+            lambda x=x, s=start, t=t_out: pc.rows_copy(x, s, t),
+            lambda x=x, s=start, t=t_out: pc.rows_copy_plain(x, s, t),
+            lambda x=x, s=start, t=t_out: (f"x[:, {s}:{s + t}].contiguous()",
+                                           lambda: x[:, s : s + t].contiguous()),
+            bound(n, n, x.element_size(), 1),
+            None,
+        ))
+    for tpu, label, x, k, mode in (
+        ("#10", "R=16384 F=513 K=13 reflect f32", mag(16384, 513), 13, "reflect"),
+        ("#10", "R=16384 F=513 K=13 reflect bf16", bf16(16384, 513), 13, "reflect"),
+        ("#10", "R=37 F=65 K=13 wrap (ragged)", mag(37, 65), 13, "wrap"),
+        ("#10", "R=37 F=65 K=13 edge (ragged)", mag(37, 65), 13, "edge"),
+    ):
+        cases.append((
+            "segment_copy", "copy", tpu, label,
+            lambda x=x, k=k, m=mode: pc.segment_copy(x, k, m),
+            lambda x=x, k=k, m=mode: pc.segment_copy_plain(x, k, m),
+            lambda x=x: ("x.clone()", x.clone),
+            bound(x.numel(), x.numel(), x.element_size(), 1),
+            None,
+        ))
     return cases
 
 
@@ -436,9 +480,10 @@ def phase_kernels() -> dict:
         if run_wide is not None:
             require(torch.equal(run_wide(), want), f"{name} {label}: first wide kernel differs")
             before = f", first wide kernel {median_us(run_wide, runs=5, warmup=1):.2f} us"
+        lib = "library" if name in PROBES else "kthvalue"
         print(
             f"phase 3 {name}/{route} ({tpu}) {label}: bitwise equal, kernel {k_us:.2f} us, "
-            f"plain {p_us:.2f} us, kthvalue {l_us:.2f} us ({kind}), bound {b_us:.2f} us "
+            f"plain {p_us:.2f} us, {lib} {l_us:.2f} us ({kind}), bound {b_us:.2f} us "
             f"({b_by}){before} (medians of {TIMED_RUNS})"
         )
         st = stats.setdefault((name, route), {"max_abs_err": 0.0, "shapes": []})
@@ -621,19 +666,29 @@ def compare_stream(cfg, audio, sizes, got, want, stems, keep=None) -> dict:
 
 def reset_launches() -> None:
     from zen_tpu_torch.ops import median_cuda as mc
+    from zen_tpu_torch.ops import probe_cuda as pc
 
     for name in ROUTES:
         wrapper = getattr(mc, name)
         wrapper.launches = 0
         wrapper.routes.update(dict.fromkeys(wrapper.routes, 0))
+    for name in PROBES:
+        getattr(pc, name).launches = 0
 
 
 def read_launches() -> dict:
-    """Launches since the last reset by kernel route, 'kernel/route'."""
+    """Median launches since the last reset by kernel route, 'kernel/route'."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     return {f"{name}/{route}": getattr(mc, name).routes[route]
             for name, routes in ROUTES.items() for route in routes}
+
+
+def read_probe_launches() -> dict:
+    """The copy mirrors' launches since the last reset, 'kernel/copy'."""
+    from zen_tpu_torch.ops import probe_cuda as pc
+
+    return {f"{name}/copy": getattr(pc, name).launches for name in PROBES}
 
 
 def per_kernel(counts: dict) -> dict:
@@ -1062,10 +1117,60 @@ def phase_hop32(smi: str) -> dict:
     return launches
 
 
+def phase_hbm_pattern(smi: str) -> dict:
+    """benches/hbm_pattern at 512 streams, in-process: every stage beside
+    its copy mirror, the derived compute shares, and the launches of the
+    run (the mirrors' only path). The instrument raises on a ceiling_big
+    reading above 105% of the card's device-memory rate."""
+    from zen_tpu_torch.benches import hbm_pattern, write_artifact
+
+    reset_launches()
+    result = hbm_pattern.measure(hbm_pattern.parse(["--device", DEVICE]),
+                                 log=lambda line: print(f"phase 11 hbm_pattern {line}"))
+    torch.cuda.synchronize()
+    counts = {**read_launches(), **read_probe_launches()}
+    stages = result["stages"]
+    require(all(math.isfinite(st["us_per_step"]) and st["us_per_step"] > 0
+                for st in stages.values()), f"hbm_pattern stage times {stages}")
+    require(all(counts[f"{name}/copy"] > 0 for name in PROBES)
+            and counts["tap_median_time/register"] > 0
+            and counts["sliding_median_boundary/rank"] > 0, f"hbm_pattern launches {counts}")
+    path = write_artifact(result, None, "hbm_pattern.json")
+    print(f"phase 11 hbm_pattern {result['config']['streams']} streams: {len(stages)} stages; "
+          f"launches {counts}; artifact {path.relative_to(ROOT)} [{smi}]")
+    return counts
+
+
+def phase_serving_bound(smi: str) -> dict:
+    """benches/serving_bound in-process at 64, 256 and 512 streams (f32)
+    and 512 (bf16 stream state): each leg's device and wall time."""
+    from zen_tpu_torch.benches import serving_bound, write_artifact
+
+    reset_launches()
+    for streams, state in (("64,256,512", "f32"), ("512", "bf16")):
+        args = serving_bound.parse(["--device", DEVICE, "--streams", streams,
+                                    "--stream-state", state])
+        result = serving_bound.measure(
+            args, log=lambda line: print(f"phase 12 serving_bound {line}"))
+        for table in ("legs_us_per_step", "legs_wall_us_per_step"):
+            for s_count, legs in result[table].items():
+                require(all(math.isfinite(v) for v in legs.values())
+                        and all(legs[k] > 0 for k in ("full", "transform", "median")),
+                        f"serving_bound {state} S={s_count} {table}: {legs}")
+        path = write_artifact(result, None, f"serving_bound_{state}.json")
+        print(f"phase 12 serving_bound {state} streams {streams}: artifact "
+              f"{path.relative_to(ROOT)} [{smi}]")
+    counts = read_launches()
+    require(counts["tap_median_time/register"] > 0 and counts["sliding_median_boundary/rank"] > 0,
+            f"serving_bound launches {counts}")
+    return counts
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
-    own run), and the routes no path launched (K1's first wide kernel,
+    own run; the copy mirrors run on phase 11's path), and the routes no
+    path launched (K1's first wide kernel,
     kept for tap spans past the rank route's staging), checked in phase 3
     only."""
     rows, off_path = [], []
@@ -1076,8 +1181,8 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
         row = {
             "name": key, "route": "cuda", "source": SOURCES[name], "replaces": tpus[0],
             "also_replaces": tpus[1:],
-            "launches": sum(counts[key] for counts in by_path.values()),
-            "launches_by_path": {path: counts[key] for path, counts in by_path.items()},
+            "launches": sum(counts.get(key, 0) for counts in by_path.values()),
+            "launches_by_path": {path: counts.get(key, 0) for path, counts in by_path.items()},
             "max_abs_err": st["max_abs_err"], "tolerance": "bitwise", "shape": first["shape"],
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shapes": [{**sh, "replaces": TPU_KERNELS[sh["tpu_kernel"]]} for sh in st["shapes"]],
@@ -1149,12 +1254,16 @@ def main() -> None:
         "offline_track": phase_offline_track(smi),
         "zen_stream_512": phase_zen_stream(smi),
         "streaming_hop32": phase_hop32(smi),
+        "hbm_pattern": phase_hbm_pattern(smi),
+        "serving_bound": phase_serving_bound(smi),
     }
     rows, off_path = kernel_rows(kstats, by_path)
     # every route the paths' tap counts select ran on a path (frequency K:
-    # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32)
+    # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32),
+    # and both copy mirrors
     wanted = {"tap_median_time/register", "tap_median_time/rank",
-              *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1))}
+              *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),
+              *(f"{name}/copy" for name in PROBES)}
     launched = {row["name"] for row in rows}
     require(wanted <= launched, f"routes no path launched: {sorted(wanted - launched)}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")

@@ -361,3 +361,125 @@ def test_configs_past_the_old_caps_run_on_card(cuda_device):
         np.testing.assert_allclose(got / scale, want / scale, atol=5e-5)
     sep = HPRIOffline(8000.0, 1024, 64, device=cuda_device)
     _hold_offline(sep, torch.from_numpy(audio).to(cuda_device))
+
+
+# ---------------- the copy-only mirrors (#9, #10) and the timer ----------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape,start,t_out",
+    [((512, 53, 513), 21, 32),  # hbm_pattern's 512-stream slab
+     ((3, 9, 65), 5, 4), ((1, 7, 1), 0, 7), ((5, 40, 257), 39, 1), ((2, 6, 33), 6, 0)],
+)
+def test_rows_copy_matches_twin(cuda_device, dtype, shape, start, t_out):
+    from zen_tpu_torch.ops import probe_cuda as pc
+
+    x = _mags(np.random.default_rng(13), *shape, device=cuda_device).to(dtype)
+    before = pc.rows_copy.launches
+    got = pc.rows_copy(x, start, t_out)
+    torch.cuda.synchronize()
+    assert pc.rows_copy.launches == before + (1 if t_out else 0)
+    assert got.dtype == dtype and torch.equal(got, pc.rows_copy_plain(x, start, t_out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge"])
+@pytest.mark.parametrize(
+    "shape,k",
+    [((16384, 513), 13),  # hbm_pattern's folded fresh rows
+     ((37, 65), 13), ((5, 17), 1), ((3, 2049), 47), ((2, 3, 300), 187), ((1, 40), 257)],
+)
+def test_segment_copy_matches_twin(cuda_device, dtype, mode, shape, k):
+    from zen_tpu_torch.ops import probe_cuda as pc
+
+    if mode == "reflect" and (k - 1) // 2 > shape[-1] - 1:
+        k = 2 * (shape[-1] - 1) - 1  # the widest reflect fitting the row
+    x = _mags(np.random.default_rng(14), *shape, device=cuda_device).to(dtype)
+    before = pc.segment_copy.launches
+    got = pc.segment_copy(x, k, mode)
+    torch.cuda.synchronize()
+    assert pc.segment_copy.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, pc.segment_copy_plain(x, k, mode))
+
+
+def test_copy_mirrors_refuse_what_the_kernels_do_not_take(cuda_device):
+    from zen_tpu_torch.ops import probe_cuda as pc
+
+    x = torch.ones((4, 9, 65), device=cuda_device)
+    with pytest.raises(ZenError, match="contiguous"):
+        pc.rows_copy(x.transpose(0, 1), 0, 2)
+    with pytest.raises(ZenError, match="contiguous"):
+        pc.segment_copy(x[..., ::2], 13, "wrap")
+    with pytest.raises(ZenError):
+        pc.segment_copy(x, 13, "valid")
+
+
+def test_device_ms_times_the_card_not_the_host(cuda_device):
+    """A call that sleeps 20 ms on the host beside a small kernel: the
+    spin covers the host's time, or device_ms raises; it never returns
+    the host's wall time."""
+    import time
+
+    from zen_tpu_torch.runtime import profiling
+
+    x = torch.ones(1 << 20, device=cuda_device)
+
+    def slow_host(t):
+        time.sleep(0.02)
+        return t * 1.0
+
+    try:
+        ms = profiling.device_ms(slow_host, x, iters=3, repeats=2, warmup=1)
+    except ZenError:
+        return
+    assert 0 < ms < 5.0
+
+
+def test_device_ms_refuses_a_synchronizing_call(cuda_device):
+    """A call that waits for the card (here a read back to the host)
+    leaves the card idle inside every window: device_ms raises."""
+    from zen_tpu_torch.runtime import profiling
+
+    x = torch.ones(1 << 16, device=cuda_device)
+    with pytest.raises(ZenError, match="spin"):
+        profiling.device_ms(lambda t: t * float(t[0].item()), x, iters=4, repeats=1)
+
+
+def test_device_ms_matches_a_kernel_alone(cuda_device):
+    """A chain of one kernel: device_ms within 20% of CUDA events around
+    a long run of the same launches after a synchronize."""
+    from zen_tpu_torch.runtime import profiling
+
+    x = torch.ones(1 << 24, device=cuda_device)
+    ms = profiling.device_ms(lambda t: t * 1.0000001, x, iters=20, repeats=3)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    y = x
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(50):
+        y = y * 1.0000001
+    stop.record()
+    stop.synchronize()
+    ref = start.elapsed_time(stop) / 50
+    assert abs(ms - ref) <= 0.2 * ref
+
+
+def test_block_step_does_not_synchronize(cuda_device):
+    """The streaming step enqueues without waiting on the card: the
+    percussive-only fleet (one stem row of the OLA carry) and the
+    harmonic + residual rows (an index of two rows apart)."""
+    from zen_tpu_torch.drivers import realtime as rt
+    from zen_tpu_torch.engine.config import OUTPUT_HARMONIC, OUTPUT_PERCUSSIVE, OUTPUT_RESIDUAL
+
+    for outputs in (OUTPUT_PERCUSSIVE, OUTPUT_HARMONIC | OUTPUT_RESIDUAL):
+        cfg = HPRConfig(fs=8000.0, hop=64, causal=True, outputs=outputs)
+        state = rt.init_state(cfg, 4, cuda_device)
+        blocks = torch.randn(4, 5, 64, device=cuda_device)
+        rt.block_step(cfg, state, blocks)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rt.block_step(cfg, state, blocks)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)

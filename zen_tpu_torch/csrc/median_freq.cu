@@ -68,27 +68,15 @@
 #include <cstddef>
 
 #include "rank_select.cuh"
+#include "row_segment.cuh"
 
 namespace {
 
 constexpr int kTile = 256;
 
-enum Mode { kReflect = 0, kWrap = 1, kEdge = 2, kValid = 3 };
-
-__device__ __forceinline__ int boundary_index(int p, int f, int mode) {
-  if (mode == kReflect) {
-    p = p < 0 ? -p : p;
-    const int q = 2 * (f - 1) - p;
-    return p < q ? p : q;
-  }
-  if (mode == kWrap) {
-    p %= f;
-    return p < 0 ? p + f : p;
-  }
-  if (mode == kEdge) return p < 0 ? 0 : (p > f - 1 ? f - 1 : p);
-  return p;  // valid: always inside the padded row
-}
-
+using zen_segment::boundary_index;
+using zen_segment::kReflect;
+using zen_segment::kValid;
 using zen_rank::from_float;
 using zen_rank::to_float;
 
@@ -145,13 +133,9 @@ __global__ void rank_select_median_kernel(const T* __restrict__ x,
   const T* row = x + static_cast<size_t>(r) * f_in;
   const int base = mode == kValid ? j0 : j0 - m;
   const int live = min(tile, f_out - j0);
-  const int need = live + k - 1;
-  const int n = zen_rank::key_count(need);
-  for (int s = threadIdx.x; s < n; s += tile) {
-    keys[s] = s < need ? zen_rank::make_key(
-                             to_float(row[boundary_index(base + s, f_in, mode)]), s)
-                       : zen_rank::kPadKey;
-  }
+  // the row segment as keys (row_segment.cuh, shared with segment_copy)
+  const int n = zen_segment::stage_keys(keys, row, base, live + k - 1, f_in,
+                                        mode, threadIdx.x, tile);
   __syncthreads();
   const int j = threadIdx.x;
   T* dst = out + static_cast<size_t>(r) * f_out + j0 + j;

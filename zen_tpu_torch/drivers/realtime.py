@@ -19,6 +19,7 @@ B = 1 gives exact per-hop streaming.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -67,6 +68,18 @@ def init_state(cfg: HPRConfig, n_streams: int = 1, device="cuda") -> StreamState
         ),
         ola_tail=torch.zeros((n_streams, 3, cfg.hop), device=device),
     )
+
+
+@functools.lru_cache(maxsize=16)
+def _rows(rows: tuple, device: torch.device):
+    """An index of the stem rows ``rows`` that keeps the host from
+    waiting on the card: a slice where they are one run, else an index
+    tensor on ``device``, made once. A Python list as an index of a CUDA
+    tensor is copied from pageable host memory on every use, and that
+    copy synchronizes the host with the card."""
+    if rows == tuple(range(rows[0], rows[-1] + 1)):
+        return slice(rows[0], rows[-1] + 1)
+    return torch.tensor(rows, device=device)
 
 
 def enabled_stems(cfg: HPRConfig) -> tuple:
@@ -153,17 +166,18 @@ def block_step(
     if live:
         live_masks = torch.stack([masks[i] for i in live], dim=1)
         y = synthesize(step.spectra.unsqueeze(1), live_masks, cfg)  # [C, L, B, nwin]
+        tails = _rows(tuple(live), blocks.device)
         prev_tails = torch.cat(
-            [state.ola_tail[:, live, None], y[:, :, :-1, hop:]], dim=2
+            [state.ola_tail[:, tails, None], y[:, :, :-1, hop:]], dim=2
         )
         chunk = (y[..., :hop] + prev_tails).reshape(c, len(live), b * hop)
-        state.ola_tail[:, live] = y[:, :, -1, hop:]
+        state.ola_tail[:, tails] = y[:, :, -1, hop:]
     if live and len(live) == len(en):
         outs = chunk
     else:  # enabled residual under soft masks: a zero row
         outs = torch.zeros((c, len(en), b * hop), device=blocks.device)
         if live:
-            outs[:, [en.index(i) for i in live]] = chunk
+            outs[:, _rows(tuple(en.index(i) for i in live), blocks.device)] = chunk
 
     advance_state(cfg, state, step)
     return outs
@@ -246,7 +260,7 @@ class HPRRealtime:
         if len(en) == 3:
             return outs
         full = torch.zeros((3, outs.shape[-1]), device=outs.device)
-        full[list(en)] = outs
+        full[_rows(en, outs.device)] = outs
         return full
 
     def process_block(self, block) -> torch.Tensor:

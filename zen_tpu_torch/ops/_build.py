@@ -14,7 +14,8 @@ after the sort, ``csrc/rank_select.cuh``), a library of its own that
 only chip_smoke.py's split of a rank block's time loads.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
-wrappers in ``median_cuda.py`` raise on a nonzero code through
+wrappers in ``median_cuda.py`` and ``probe_cuda.py`` raise on a nonzero
+code through
 ``check``. Nothing here is imported or built on a machine without CUDA
 unless a CUDA tensor reaches a wrapper.
 """
@@ -50,7 +51,15 @@ _TIME_RANK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
 _FREQ = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
 # the same, with the tile before the stream
 _FREQ_RANK = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
+# x, out, c, t, f, start, t_out, stream
+_ROWS_COPY = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
+# x, out, rows, f, k, mode, tile, stream
+_SEGMENT_COPY = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
 _SIGNATURES = {
+    "zen_rows_copy": _ROWS_COPY,
+    "zen_rows_copy_bf16": _ROWS_COPY,
+    "zen_segment_copy": _SEGMENT_COPY,
+    "zen_segment_copy_bf16": _SEGMENT_COPY,
     "zen_tap_median_time": _TIME,
     "zen_tap_median_time_bf16": _TIME,
     "zen_tap_median_time_wide": _TIME_WIDE,
