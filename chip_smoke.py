@@ -8,14 +8,16 @@ holds each route of each kernel bitwise against its plain PyTorch twin
 at every shape its paths give it, beside one torch.kthvalue call over
 the same windows (the library yardstick, which the port never calls)
 and the least time the card could take (phase 3; at a 4-minute track's
-offline shapes the kernels run without their twin). Phase 3 also sweeps
-K2's two routes over K at two row shapes: the crossover FREQ_RANK_MIN_TAPS
-(ops/median_cuda.py) comes from it; times K2's rank route at each tile
-at the paths' K, beside freq_rank_tile's choice; and splits each
-rank block's time into staging, sort and walk, from two more builds of
-the library that end the rank kernels early (phase 2 builds all three at
-once). Then it drives the paths through their user entry points at full
-width:
+offline shapes the kernels run without their twin). Phase 3 also holds
+the comparator-network routes (K1 register, K2 network) bitwise at every
+odd K they take, tie-heavy and bf16; sweeps K2's three routes over K at
+two row shapes: the crossover FREQ_RANK_MIN_TAPS (ops/median_cuda.py)
+comes from it; times K1's network kernel at each run length and K2's
+rank route at each tile at the paths' K, beside the wrappers' choices;
+and splits each rank block's time into staging, sort and walk, from two
+more builds of the library that end the rank kernels early (phase 2
+builds all three at once). Then it drives the paths through their user
+entry points at full width:
 
   phase 4  HPRRealtime at 44.1 kHz, hop 1024: 64 blocks of 32 hops,
            then 64 single hops;
@@ -89,14 +91,17 @@ FLEET_STREAMS = 512  # zen stream --streams 512, the #4 route's fleet
 # the medians compare in float32, bf16 taps included
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-SWEEP_K = (3, 5, 7, 9, 11, 13, 31, 47, 65, 95, 127, 187, 257)  # K2's crossover sweep
+# K2's crossover sweep: every K the network route takes and the first past it, then wider
+SWEEP_K = tuple(range(3, 35, 2)) + (47, 65, 95, 127, 187, 257)
 SWEEP_SHAPES = ((32, 2049), (2048, 513))
 # K2's rank tiles timed at the paths' K and row shapes (the 512-stream
 # step, the 64-stream step, hop 1024, the offline clip and track, fs 8000)
 TILE_CASES = ((13, (8192, 513)), (13, (2048, 513)), (47, (32, 2049)), (187, (41, 8193)),
               (187, (TRACK_FRAMES_H, 8193)), (257, (32, 2049)))
 ROUTES = {"tap_median_time": ("register", "rank", "wide"),
-          "sliding_median_boundary": ("count", "rank")}
+          "sliding_median_boundary": ("network", "rank", "count")}
+T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))  # hop 256's causal wrap taps, K = 11
+RUN_LENGTHS = (1, 2, 4, 8, 16)  # K1's network kernel: output rows per thread
 PROBES = ("rows_copy", "segment_copy")  # ops/probe_cuda.py, one route each: "copy"
 MP = "zen_tpu/ops/median_pallas.py"
 TPU_KERNELS = {  # PERF.md's table numbers -> file:line of the TPU kernel
@@ -225,7 +230,8 @@ def phase_build() -> None:
         list(pool.map(_build.library, (0, 1, 2)))
     print(
         f"phase 2 build: {time.perf_counter() - t0:.2f} s, the library and its two "
-        f"split builds ({_build.library_path().relative_to(ROOT)})"
+        f"split builds ({_build.library_path().relative_to(ROOT)}), the generated median "
+        f"networks in {(_build.generated_include_dir() / _build.GENERATED_HEADER).relative_to(ROOT)}"
     )
 
 
@@ -336,7 +342,6 @@ def kernel_cases():
         return mag(*shape).to(torch.bfloat16)
 
     t1024 = (-5, -1, 0)
-    t256 = tuple(range(-21, -16)) + tuple(range(-5, 1))
     t256_rep = tuple(range(-5, 0)) + (0,) * 6  # --cpu: replicate repeats offset 0
     t256_valid = tuple(range(-11, 0))  # --nocopybord: the previous 11 frames
     t_k93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32
@@ -345,7 +350,7 @@ def kernel_cases():
     cases = []
     for tpu, label, a, b, offs, start in (
         ("#1", "pair C=1 H=5 B=32 F=2049 K=3", mag(1, 5, 2049), mag(1, 32, 2049), t1024, 5),
-        ("#1", "pair C=64 H=21 B=32 F=513 K=11", mag(64, 21, 513), mag(64, 32, 513), t256, 21),
+        ("#1", "pair C=64 H=21 B=32 F=513 K=11", mag(64, 21, 513), mag(64, 32, 513), T256, 21),
         ("#2", "single C=1 T=6 start=5 F=2049 K=3", mag(1, 6, 2049), mag(1, 0, 2049), t1024, 5),
         ("#3", "offline pass 2 T=643 F=513 K=11 centered", mag(1, 643, 513),
          mag(1, 0, 513), tuple(range(-5, 6)), 0),
@@ -363,15 +368,15 @@ def kernel_cases():
          ties(1, 900, 17).to(torch.bfloat16), mag(1, 0, 17).to(torch.bfloat16), t_k401, 0),
         # the 512-stream fleet (zen stream's B=16 < H=21): #4's shapes
         ("#4", "pair C=512 H=21 B=16 F=513 K=11 f32", mag(512, 21, 513),
-         mag(512, 16, 513), t256, 21),
+         mag(512, 16, 513), T256, 21),
         ("#4", "pair C=512 H=21 B=16 F=513 K=11 bf16", bf16(512, 21, 513),
-         bf16(512, 16, 513), t256, 21),
+         bf16(512, 16, 513), T256, 21),
         ("#4", "pair C=512 H=21 B=1 F=513 K=11 bf16", bf16(512, 21, 513),
-         bf16(512, 1, 513), t256, 21),
+         bf16(512, 1, 513), T256, 21),
         ("#4", "padded single C=256 T=64 F=513 K=11 centered start=0 f32",
          mag(256, 64, 513), mag(256, 0, 513), tuple(range(-5, 6)), 0),
         ("#1", "pair C=64 H=21 B=32 F=513 K=11 bf16", bf16(64, 21, 513),
-         bf16(64, 32, 513), t256, 21),
+         bf16(64, 32, 513), T256, 21),
         # the same fleet under each other border, full C2C spectrum (B=16 >= H)
         ("#1", "pair C=512 H=5 B=16 F=1024 K=11 replicate", mag(512, 5, 1024),
          mag(512, 16, 1024), t256_rep, 5),
@@ -379,6 +384,9 @@ def kernel_cases():
          mag(512, 16, 1024), t256_valid, 11),
         ("#1", "single T=300 F=9 K=67 span 16354 (wide fallback)", mag(1, 300, 9),
          mag(1, 0, 9), t_far, 0),
+        # past the network's K: the register route's counting kernel
+        ("#1", "pair C=64 H=32 B=32 F=513 K=33 (counting kernel)", mag(64, 32, 513),
+         mag(64, 32, 513), tuple(range(-32, 1)), 32),
     ):
         cases.append((
             "tap_median_time", mc.time_route(offs), tpu, label,
@@ -404,7 +412,7 @@ def kernel_cases():
         ("#5", "R=32 F=2049 K=257 reflect ties", ties(32, 2049), 257, "reflect"),
         ("#5", "R=37 F=2304 K=257 valid ties bf16", ties(37, 2304).to(torch.bfloat16), 257,
          "valid"),
-        # below FREQ_RANK_MIN_TAPS: the counting kernel (hop 32's K = 1)
+        # hop 32's K = 1
         ("#5", "R=32 F=65 K=1 reflect (hop 32)", mag(32, 65), 1, "reflect"),
         ("#5", "R=1 F=65 K=1 reflect (hop 32, B=1)", mag(1, 65), 1, "reflect"),
         ("#7", "R=2048 F=513 K=9 reflect", mag(2048, 513), 9, "reflect"),
@@ -424,6 +432,17 @@ def kernel_cases():
             freq_bound(x, k, mode),
             None,
         ))
+    # the first K2 kernel, kept for K whose keys do not fit a block: called by
+    # route here (the wrapper takes it from K ~ 16,000 on; no path does)
+    x9 = mag(2048, 513)
+    cases.append((
+        "sliding_median_boundary", "count", "#7", "R=2048 F=513 K=9 reflect (called by route)",
+        lambda: mc._freq_launch(x9, 9, "reflect", "count"),
+        lambda: mc.sliding_median_boundary_plain(x9, 9, "reflect"),
+        lambda: freq_library(x9, 9, "reflect"),
+        freq_bound(x9, 9, "reflect"),
+        None,
+    ))
     # the copy-only mirrors at hbm_pattern's 512-stream shapes (phase 11)
     for tpu, label, x, start, t_out in (
         ("#9", "C=512 T=53 start=21 t_out=32 F=513 f32", mag(512, 53, 513), 21, 32),
@@ -520,35 +539,106 @@ def phase_kernels() -> dict:
     return stats
 
 
+def phase_network() -> None:
+    """The comparator-network routes at every odd K they take, each held
+    bitwise against its twin: K1 register on a centered one-input case
+    with fill = inf (tie-heavy f32) and a causal pair with a duplicated
+    offset 0 (bf16); K2 network on tie-heavy reflect rows (f32) and wrap
+    rows (bf16). Times the f32 cases."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    rng = np.random.default_rng(5)
+    a32, a16 = _ties(rng, 64, 37, 513), _mags(rng, 64, 21, 513).to(torch.bfloat16)
+    b16 = _mags(rng, 64, 16, 513).to(torch.bfloat16)
+    x32, x16 = _ties(rng, 2048, 513), _mags(rng, 512, 513).to(torch.bfloat16)
+    inf = float("inf")
+    for k in range(1, mc.NETWORK_MAX_TAPS + 1, 2):
+        m = (k - 1) // 2
+        centered = tuple(range(-m, m + 1))
+        causal = tuple(range(-(k - 3), 1)) + (0, 0) if k > 1 else (0,)
+        require(mc.time_route(centered) == "register" and mc.freq_route(k) != "count",
+                f"K={k} leaves the network routes")
+        run1 = lambda: mc._time_launch(a32, a32[:, :0], centered, 0, inf, "register")  # noqa: E731
+        run2 = lambda: mc._freq_launch(x32, k, "reflect", "network")  # noqa: E731
+        require(torch.equal(run1(), mc.tap_median_time_plain(a32, a32[:, :0], centered, 0, inf)),
+                f"K1 network K={k} centered fill=inf ties differs")
+        require(torch.equal(mc._time_launch(a16, b16, causal, 21, 0.0, "register"),
+                            mc.tap_median_time_plain(a16, b16, causal, 21)),
+                f"K1 network K={k} causal duplicated-0 bf16 differs")
+        require(torch.equal(run2(), mc.sliding_median_boundary_plain(x32, k, "reflect")),
+                f"K2 network K={k} reflect ties differs")
+        require(torch.equal(mc._freq_launch(x16, k, "wrap", "network"),
+                            mc.sliding_median_boundary_plain(x16, k, "wrap")),
+                f"K2 network K={k} wrap bf16 differs")
+        print(f"phase 3 network K={k}: bitwise equal (K1 f32 ties fill=inf and bf16 duplicated "
+              f"taps, K2 f32 ties reflect and bf16 wrap); K1 [64, 37, 513] "
+              f"{median_us(run1, runs=10):.2f} us, K2 [2048, 513] {median_us(run2, runs=10):.2f} us "
+              "(medians of 10)")
+
+
+def phase_runs() -> None:
+    """K1's network kernel at each of RUN_LENGTHS (output rows per
+    thread) at the paths' shapes: every run length's output equal to the
+    wrapper's, their times, and the fastest beside time_network_run's."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    rng = np.random.default_rng(6)
+    centered = tuple(range(-5, 6))
+    for label, a, b, offs, start in (
+        ("K=11 C=512 H=21 B=16 F=513", _mags(rng, 512, 21, 513), _mags(rng, 512, 16, 513),
+         T256, 21),
+        ("K=11 C=64 H=21 B=32 F=513", _mags(rng, 64, 21, 513), _mags(rng, 64, 32, 513), T256, 21),
+        (f"K=11 track pass 2 T={TRACK_FRAMES_P} F=513 centered",
+         _mags(rng, 1, TRACK_FRAMES_P, 513), _mags(rng, 1, 0, 513), centered, 0),
+        ("K=11 clip pass 2 T=643 F=513 centered", _mags(rng, 1, 643, 513), _mags(rng, 1, 0, 513),
+         centered, 0),
+        ("K=3 C=1 H=5 B=32 F=2049", _mags(rng, 1, 5, 2049), _mags(rng, 1, 32, 2049),
+         (-5, -1, 0), 5),
+    ):
+        want = mc._time_launch(a, b, offs, start, 0.0, "register")
+        us = {}
+        for run in RUN_LENGTHS:
+            fn = lambda r=run: mc._time_launch(a, b, offs, start, 0.0, "register", run=r)  # noqa: E731
+            require(torch.equal(fn(), want), f"runs {label} run {run} differs")
+            us[run] = median_us(fn, runs=10)
+        chosen = mc.time_network_run(a.shape[1] + b.shape[1] - start, a.shape[0], a.shape[2])
+        print(f"phase 3 runs K1 network {label}: bitwise equal; "
+              + ", ".join(f"run {r} {v:.2f} us ({len(mc.time_network_plan(offs, r)[0])} staged)"
+                          for r, v in us.items())
+              + f" (medians of 10); fastest {min(us, key=us.get)}, time_network_run {chosen}")
+
+
 def phase_sweep() -> None:
-    """K2's two routes over SWEEP_K at SWEEP_SHAPES (reflect), each held
+    """K2's routes over SWEEP_K at SWEEP_SHAPES (reflect): every route
+    that takes a K (network up to NETWORK_MAX_TAPS, rank, count) held
     bitwise against the twin, timed beside kthvalue; prints the measured
-    crossover (the smallest K from which the rank route is faster at
+    crossover (the smallest K from which the rank route is the fastest at
     every larger K of the sweep, on both shapes) beside the constant."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(2)
-    faster = {}
+    rank_wins = {}
     for shape in SWEEP_SHAPES:
         x = _mags(rng, *shape)
         for k in SWEEP_K:
             want = mc.sliding_median_boundary_plain(x, k, "reflect")
+            routes = (("network",) if k <= mc.NETWORK_MAX_TAPS else ()) + ("rank", "count")
             us = {}
-            for route in ("count", "rank"):
+            for route in routes:
                 run = lambda r=route: mc._freq_launch(x, k, "reflect", r)  # noqa: E731
                 require(torch.equal(run(), want), f"sweep {shape} K={k} {route} differs")
                 us[route] = median_us(run, runs=10)
             kind, lib = freq_library(x, k, "reflect")
             l_us = median_us(lib, runs=10)
             b_us, b_by = freq_bound(x, k, "reflect")
-            faster.setdefault(k, []).append(us["rank"] < us["count"])
+            rank_wins.setdefault(k, []).append(min(us, key=us.get) == "rank")
             print(f"phase 3 sweep R={shape[0]} F={shape[1]} K={k} reflect: bitwise equal; "
-                  f"count {us['count']:.2f} us, rank {us['rank']:.2f} us (tile "
-                  f"{mc.freq_rank_tile(k)}), kthvalue {l_us:.2f} us ({kind}), bound "
+                  + ", ".join(f"{r} {v:.2f} us" for r, v in us.items())
+                  + f" (rank tile {mc.freq_rank_tile(k)}), kthvalue {l_us:.2f} us ({kind}), bound "
                   f"{b_us:.2f} us ({b_by}) (medians of 10)")
-    wins = [k for i, k in enumerate(SWEEP_K) if all(all(faster[j]) for j in SWEEP_K[i:])]
-    print(f"phase 3 sweep: rank faster on both shapes from K={wins[0] if wins else None} on; "
-          f"FREQ_RANK_MIN_TAPS = {mc.FREQ_RANK_MIN_TAPS}")
+    wins = [k for i, k in enumerate(SWEEP_K) if all(all(rank_wins[j]) for j in SWEEP_K[i:])]
+    print(f"phase 3 sweep: rank the fastest route on both shapes from K="
+          f"{wins[0] if wins else None} on; FREQ_RANK_MIN_TAPS = {mc.FREQ_RANK_MIN_TAPS}")
 
 
 def phase_tiles() -> None:
@@ -1123,6 +1213,7 @@ def phase_hbm_pattern(smi: str) -> dict:
     run (the mirrors' only path). The instrument raises on a ceiling_big
     reading above 105% of the card's device-memory rate."""
     from zen_tpu_torch.benches import hbm_pattern, write_artifact
+    from zen_tpu_torch.ops import median_cuda as mc
 
     reset_launches()
     result = hbm_pattern.measure(hbm_pattern.parse(["--device", DEVICE]),
@@ -1134,7 +1225,8 @@ def phase_hbm_pattern(smi: str) -> dict:
                 for st in stages.values()), f"hbm_pattern stage times {stages}")
     require(all(counts[f"{name}/copy"] > 0 for name in PROBES)
             and counts["tap_median_time/register"] > 0
-            and counts["sliding_median_boundary/rank"] > 0, f"hbm_pattern launches {counts}")
+            and counts[f"sliding_median_boundary/{mc.freq_route(13)}"] > 0,
+            f"hbm_pattern launches {counts}")
     path = write_artifact(result, None, "hbm_pattern.json")
     print(f"phase 11 hbm_pattern {result['config']['streams']} streams: {len(stages)} stages; "
           f"launches {counts}; artifact {path.relative_to(ROOT)} [{smi}]")
@@ -1145,6 +1237,7 @@ def phase_serving_bound(smi: str) -> dict:
     """benches/serving_bound in-process at 64, 256 and 512 streams (f32)
     and 512 (bf16 stream state): each leg's device and wall time."""
     from zen_tpu_torch.benches import serving_bound, write_artifact
+    from zen_tpu_torch.ops import median_cuda as mc
 
     reset_launches()
     for streams, state in (("64,256,512", "f32"), ("512", "bf16")):
@@ -1161,7 +1254,8 @@ def phase_serving_bound(smi: str) -> dict:
         print(f"phase 12 serving_bound {state} streams {streams}: artifact "
               f"{path.relative_to(ROOT)} [{smi}]")
     counts = read_launches()
-    require(counts["tap_median_time/register"] > 0 and counts["sliding_median_boundary/rank"] > 0,
+    require(counts["tap_median_time/register"] > 0
+            and counts[f"sliding_median_boundary/{mc.freq_route(13)}"] > 0,
             f"serving_bound launches {counts}")
     return counts
 
@@ -1170,9 +1264,9 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
     own run; the copy mirrors run on phase 11's path), and the routes no
-    path launched (K1's first wide kernel,
-    kept for tap spans past the rank route's staging), checked in phase 3
-    only."""
+    path launched (K1's first wide kernel, kept for tap spans past the
+    rank route's staging, and K2's counting kernel, kept for K whose keys
+    do not fit a block), checked in phase 3 only."""
     rows, off_path = [], []
     for (name, route), st in kstats.items():
         key = f"{name}/{route}"
@@ -1208,6 +1302,8 @@ def main() -> None:
     smi = phase_card()
     phase_build()
     kstats = phase_kernels()
+    phase_network()
+    phase_runs()
     phase_sweep()
     phase_tiles()
     phase_split()

@@ -150,6 +150,7 @@ def test_port_imports_no_jax():
     """The card's machine has no JAX: the port must not pull it in."""
     code = (
         "import sys, zen_tpu_torch, zen_tpu_torch.ops.median_cuda, "
+        "zen_tpu_torch.ops.select_network, "
         "zen_tpu_torch.ops.probe_cuda, zen_tpu_torch.convert, zen_tpu_torch.cli, "
         "zen_tpu_torch.runtime.profiling, zen_tpu_torch.benches.hbm_pattern, "
         "zen_tpu_torch.benches.serving_bound; "

@@ -205,18 +205,91 @@ def _around_k_star():
 @pytest.mark.parametrize("k", [65, 93, 127, 187, 257, 401, "k_star_below", "k_star"])
 def test_freq_rank_route_matches_twin(cuda_device, k, mode, dtype, ties):
     """K2 from 65 to 401 taps (the rank route) and right at K* on both
-    sides (one route each), 37 rows of 1000 outputs (ragged tiles)."""
+    sides (the network below it, the rank route from it), 37 rows of
+    1000 outputs (ragged tiles)."""
     if isinstance(k, str):
         k = _around_k_star()[k == "k_star"]
     rng = np.random.default_rng(k)
     f_in = 1000 + (k - 1 if mode == "valid" else 0)
     x = (_ties if ties else _mags)(rng, 37, f_in, device=cuda_device).to(dtype)
     route = mc.freq_route(k)
+    assert route == ("rank" if k >= mc.FREQ_RANK_MIN_TAPS else "network")
     before = mc.sliding_median_boundary.routes[route]
     got = mc.sliding_median_boundary(x, k, mode)
     torch.cuda.synchronize()
     assert mc.sliding_median_boundary.routes[route] == before + 1
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+NETWORK_KS = list(range(1, mc.NETWORK_MAX_TAPS + 1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", NETWORK_KS)
+def test_time_network_every_k_matches_twin(cuda_device, k, dtype):
+    """K1's network kernel at every K it takes, tie-heavy: a causal pair
+    with a duplicated offset 0 (ragged last run: 13 rows), and a centered
+    one-input case whose taps read fill = inf on both ends."""
+    rng = np.random.default_rng(k)
+    a = _ties(rng, 3, 21, 130, device=cuda_device).to(dtype)
+    b = _ties(rng, 3, 13, 130, device=cuda_device).to(dtype)
+    causal = tuple(range(-(k - 3), 1)) + (0, 0) if k > 1 else (0,)
+    centered = tuple(range(-(k // 2), k // 2 + 1))
+    before = mc.tap_median_time.routes["register"]
+    for offsets, start, fill in ((causal, 21, 0.0), (centered, 0, float("inf"))):
+        assert mc.time_route(offsets) == "register" and len(offsets) == k
+        got = mc.tap_median_time(a, b, offsets, start, fill)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+    assert mc.tap_median_time.routes["register"] == before + 2
+
+
+@pytest.mark.parametrize("run", [1, 2, 3, 8, 16])
+def test_time_network_every_run_length_matches_twin(cuda_device, run):
+    rng = np.random.default_rng(run)
+    a = _mags(rng, 5, 21, 513, device=cuda_device)
+    b = _mags(rng, 5, 19, 513, device=cuda_device)
+    got = mc._time_launch(a, b, T256, 21, 0.0, "register", run=run)
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, T256, 21))
+
+
+def test_time_counting_kernel_past_the_network_matches_twin(cuda_device):
+    """33 to 63 taps stay on the register route's counting kernel."""
+    rng = np.random.default_rng(33)
+    a = _ties(rng, 2, 40, 65, device=cuda_device)
+    for k in (mc.NETWORK_MAX_TAPS + 2, 63):
+        offsets = tuple(range(-(k - 1), 1))
+        assert mc.time_route(offsets) == "register"
+        got = mc.tap_median_time(a, a[:, :0], offsets, 0, float("inf"))
+        assert torch.equal(got, mc.tap_median_time_plain(a, a[:, :0], offsets, 0, float("inf")))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k", NETWORK_KS)
+def test_freq_network_every_k_matches_twin(cuda_device, k, mode, dtype):
+    """K2's network route at every K it takes, tie-heavy, on rows of 513
+    outputs (one block a row) and 2049 (three blocks of 683)."""
+    rng = np.random.default_rng(100 + k)
+    before = mc.sliding_median_boundary.routes["network"]
+    for rows, f_out in ((37, 513), (3, 2049)):
+        f_in = f_out + (k - 1 if mode == "valid" else 0)
+        x = _ties(rng, rows, f_in, device=cuda_device).to(dtype)
+        got = mc._freq_launch(x, k, mode, "network")
+        assert got.dtype == dtype
+        assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+    if mc.freq_route(k) == "network":
+        mc.sliding_median_boundary(x, k, mode)
+        assert mc.sliding_median_boundary.routes["network"] == before + 1
+
+
+@pytest.mark.parametrize("k", [3, 9, 13, 31])
+def test_freq_count_kernel_by_route_matches_twin(cuda_device, k):
+    """The first kernel, kept for K whose keys do not fit a block."""
+    x = _ties(np.random.default_rng(k), 5, 600, device=cuda_device)
+    got = mc._freq_launch(x, k, "wrap", "count")
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, "wrap"))
 
 
 @pytest.mark.parametrize("tile", mc.FREQ_RANK_TILES)
@@ -370,7 +443,9 @@ def test_configs_past_the_old_caps_run_on_card(cuda_device):
 @pytest.mark.parametrize(
     "shape,start,t_out",
     [((512, 53, 513), 21, 32),  # hbm_pattern's 512-stream slab
-     ((3, 9, 65), 5, 4), ((1, 7, 1), 0, 7), ((5, 40, 257), 39, 1), ((2, 6, 33), 6, 0)],
+     ((3, 9, 65), 5, 4), ((1, 7, 1), 0, 7), ((5, 40, 257), 39, 1), ((2, 6, 33), 6, 0),
+     # ragged last runs of 8 rows, ragged column tiles of 128, many streams
+     ((4100, 13, 65), 2, 11), ((2, 40, 129), 1, 39), ((3, 30, 128), 0, 17)],
 )
 def test_rows_copy_matches_twin(cuda_device, dtype, shape, start, t_out):
     from zen_tpu_torch.ops import probe_cuda as pc
@@ -388,7 +463,9 @@ def test_rows_copy_matches_twin(cuda_device, dtype, shape, start, t_out):
 @pytest.mark.parametrize(
     "shape,k",
     [((16384, 513), 13),  # hbm_pattern's folded fresh rows
-     ((37, 65), 13), ((5, 17), 1), ((3, 2049), 47), ((2, 3, 300), 187), ((1, 40), 257)],
+     ((37, 65), 13), ((5, 17), 1), ((3, 2049), 47), ((2, 3, 300), 187), ((1, 40), 257),
+     # the network route's staging: rows of one, two and three blocks
+     ((7, 1024), 31), ((7, 1025), 13), ((3, 2049), 5)],
 )
 def test_segment_copy_matches_twin(cuda_device, dtype, mode, shape, k):
     from zen_tpu_torch.ops import probe_cuda as pc
@@ -483,3 +560,22 @@ def test_block_step_does_not_synchronize(cuda_device):
             rt.block_step(cfg, state, blocks)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+def test_reset_streams_does_not_synchronize(cuda_device):
+    """Recycling stream slots enqueues fills and never waits on the card
+    (no index tensor is copied up from the host); the reset slots hold a
+    fresh stream's state, the others keep theirs."""
+    ms = MultiStreamHPR(6, 8000.0, 64, device=cuda_device)
+    ms.process_block(torch.randn(6, 5, 64))
+    kept = [t.clone() for t in ms.state]
+    fresh = MultiStreamHPR(6, 8000.0, 64, device=cuda_device).state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms.reset_streams([4, 1, 2, -1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for got, was, new in zip(ms.state, kept, fresh):
+        assert torch.equal(got[[1, 2, 4, 5]], new[[1, 2, 4, 5]])
+        assert torch.equal(got[[0, 3]], was[[0, 3]])

@@ -229,8 +229,14 @@ def test_segment_copy_rejects_dtype():
 
 
 def test_segment_copy_uses_k2_rank_tile():
-    """The mirror stages what K2's rank route stages: its tile for K."""
+    """The mirror stages what K2 stages at that K: its rank tile where K2
+    takes the rank route, none (the network route's own-type staging)
+    where it takes the network."""
     from zen_tpu_torch.ops import median_cuda as mc
 
-    for k in (1, 13, 47, 187, 257):
-        assert pc._check_segment(torch.zeros((1, 600)), k, "wrap") == mc.freq_rank_tile(k)
+    for k in (1, 13, 31, 33, 47, 187, 257):
+        tile = pc._check_segment(torch.zeros((1, 600)), k, "wrap")
+        if mc.freq_route(k) == "rank":
+            assert tile == mc.freq_rank_tile(k)
+        else:
+            assert mc.freq_route(k) == "network" and tile is None

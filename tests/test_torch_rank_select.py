@@ -248,13 +248,14 @@ def test_time_routes_and_staging_limit():
 
 
 def test_freq_route_crossover_and_staging_limit():
-    """K2 counts below FREQ_RANK_MIN_TAPS and ranks from it on, up to
-    the widest K whose keys fit at the smallest tile; the counting
-    kernel keeps every K beyond, up to MAX_FREQ_TAPS."""
+    """K2 runs its network up to NETWORK_MAX_TAPS below
+    FREQ_RANK_MIN_TAPS and ranks from the crossover on, up to the widest
+    K whose keys fit at the smallest tile; the counting kernel keeps only
+    the K beyond, up to MAX_FREQ_TAPS."""
     k_star = mc.FREQ_RANK_MIN_TAPS
-    assert k_star % 2 == 1
-    if k_star > 1:
-        assert mc.freq_route(k_star - 2) == "count"
+    assert k_star % 2 == 1 and 1 < k_star <= mc.NETWORK_MAX_TAPS + 2
+    for k in range(1, k_star, 2):
+        assert mc.freq_route(k) == "network"
     assert mc.freq_route(k_star) == "rank"
     widest = mc.SMEM_OPTIN // mc.KEY_BYTES  # keys of one block
     last = max(k for k in range(16001, 16400, 2) if mc.freq_rank_tile(k))

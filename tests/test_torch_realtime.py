@@ -236,6 +236,37 @@ def test_multistream_reset_streams_bit_exact():
     assert not np.array_equal(out2[1], ctrl2[1])
 
 
+@pytest.mark.parametrize(
+    "indices,runs",
+    [([1, 3], [(1, 2), (3, 4)]), ([2, 0, 1], [(0, 3)]), ([-1, 0, 3, 3], [(0, 1), (3, 4)]),
+     ([], []), (range(4), [(0, 4)])],
+)
+def test_reset_streams_fills_runs_of_slots(indices, runs):
+    """reset_streams takes its slots as runs of consecutive ones (filled
+    through slices, with no index tensor), duplicates and negative slots
+    folded; each run leaves the other slots untouched."""
+    from zen_tpu_torch.drivers.realtime import _slot_runs
+
+    assert _slot_runs(indices, 4) == runs
+    b1, _ = _fleet_blocks(12, n=2)
+    ms = T.MultiStreamHPR(4, 1000.0, hop=8, device="cpu")
+    ms.process_block(b1)
+    kept = [t.clone() for t in ms.state]
+    fresh = T.MultiStreamHPR(4, 1000.0, hop=8, device="cpu").state
+    ms.reset_streams(indices)
+    hit = sorted({i % 4 for i in indices})
+    rest = [i for i in range(4) if i not in hit]
+    for got, was, new in zip(ms.state, kept, fresh):
+        assert torch.equal(got[hit], new[hit]) and torch.equal(got[rest], was[rest])
+
+
+@pytest.mark.parametrize("bad", [[4], [-5], [0, 7]])
+def test_reset_streams_refuses_slots_outside_the_fleet(bad):
+    ms = T.MultiStreamHPR(4, 1000.0, hop=8, device="cpu")
+    with pytest.raises(T.ZenError, match="outside"):
+        ms.reset_streams(bad)
+
+
 def test_multistream_warmup_leaves_state_untouched():
     ms = T.MultiStreamHPR(2, 8000.0, hop=64, device="cpu")
     before = [t.clone() for t in ms.state]

@@ -1,0 +1,350 @@
+"""The median-selection network of the small-K routes, on the CPU.
+
+``zen_tpu_torch/ops/select_network.py`` schedules a comparator network
+per odd K and emits it as CUDA; the kernels that run it exist only on
+the card (tests/test_torch_cuda.py). Here the schedule itself is held:
+the 0-1 principle at every K the routes take, bitwise equality of the
+network's plain version with the plain twins of both kernels at the path
+configs and with zen_tpu's own network (``_median_network``), the
+comparator count against zen_tpu's pruned bitonic schedule, the emitted
+header's shape and its place in the library's hash; and the host side of
+K1's network kernel (the rows a run stages and each tap's slot in them)
+and of K2's (a row's split into blocks), emulated in torch step for step.
+"""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from zen_tpu.ops.median_pallas import _median_network, _pruned_schedule  # noqa: E402
+from zen_tpu_torch.ops import _build  # noqa: E402
+from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
+from zen_tpu_torch.ops import select_network as sn  # noqa: E402
+
+NETWORK_KS = list(range(1, sn.MAX_TAPS + 1, 2))
+T1024 = (-5, -1, 0)
+T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))
+CENTERED11 = tuple(range(-5, 6))
+
+
+def _levels(rng, shape, ties: bool = False) -> np.ndarray:
+    x = rng.random(shape, dtype=np.float32) + np.float32(1e-3)
+    return np.floor(x * 8).astype(np.float32) / 8 + np.float32(0.125) if ties else x
+
+
+def _tensor(x: np.ndarray, dtype) -> torch.Tensor:
+    """float32 numpy -> torch in ``dtype``; bf16 through jnp, read back
+    as float32 (exact), as the other suites make their bf16 inputs."""
+    if dtype == torch.bfloat16:
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    return torch.from_numpy(x).to(dtype)
+
+
+# ---------------- the schedule ----------------
+
+
+@pytest.mark.parametrize("k", NETWORK_KS)
+def test_schedule_passes_the_zero_one_principle(k):
+    """A network that selects the median of every 0-1 input selects it
+    of every input: all 2^K binary inputs up to K = 15, 4096 seeded ones
+    above, and 1024 float inputs with ties and inf beside them."""
+    sched = sn.median_schedule(k)
+    assert all(0 <= i < j < k for i, j in sched)
+    rng = np.random.default_rng(k)
+    if k <= 15:
+        bits = ((np.arange(2**k)[:, None] >> np.arange(k)) & 1).T
+    else:
+        bits = rng.random((k, 4096)) < 0.5
+    floats = _levels(rng, (k, 1024), ties=True)
+    floats[rng.random((k, 1024)) < 0.1] = np.inf
+    for x in (bits.astype(np.float32), floats):
+        got = sn.select_median_plain(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, np.sort(x, axis=0)[(k - 1) // 2])
+
+
+@pytest.mark.parametrize("k", [2, 0, -3])
+def test_schedule_refuses_even_and_empty(k):
+    with pytest.raises(ValueError, match="odd"):
+        sn.median_schedule(k)
+
+
+@pytest.mark.parametrize("k", [3, 11, 13, 47])
+def test_select_plain_matches_zen_tpu_network(k):
+    """Bitwise the element zen_tpu's pruned bitonic network picks, on
+    tie-heavy taps."""
+    x = _levels(np.random.default_rng(k), (k, 7, 33), ties=True)
+    want = np.asarray(_median_network([jnp.asarray(t) for t in x], (k - 1) // 2))
+    got = sn.select_median_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [3, 11, 13, 47])
+def test_comparator_count_at_most_zen_tpu(k):
+    n = 1 << (k - 1).bit_length()
+    jax_cmps = sum(op == "cmp" for op, *_ in _pruned_schedule(n, k, (k - 1) // 2))
+    assert len(sn.median_schedule(k)) <= jax_cmps
+    # half comparators: never more min/max than two per comparator
+    assert len(sn.median_schedule(k)) < sn.minmax_count(k) <= 2 * len(sn.median_schedule(k))
+
+
+def test_counts_at_the_path_widths():
+    """What the kernels' notes state: K = 3, 11, 13 (hop 1024, hop 256)."""
+    assert [len(sn.median_schedule(k)) for k in (3, 11, 13)] == [3, 32, 39]
+    assert [sn.minmax_count(k) for k in (3, 11, 13)] == [4, 54, 66]
+
+
+# ---------------- the plain version against both kernels' twins ----------------
+
+
+def _time_taps(a, b, offsets, start, fill):
+    """The tap stack [K, C, t_out, F] of tap_median_time's windows."""
+    v = torch.cat([a, b], dim=-2)
+    t = v.shape[-2]
+    fill = torch.tensor(fill, dtype=v.dtype)
+    taps = []
+    for o in offsets:
+        rows = torch.arange(start, t) + o
+        inside = (rows >= 0) & (rows < t)
+        taps.append(torch.where(inside[:, None], v[..., rows.clamp(0, t - 1), :], fill))
+    return torch.stack(taps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill",
+    [((1, 5, 65), (1, 8, 65), T1024, 5, 0.0),  # hop 1024, K = 3
+     ((3, 21, 33), (3, 16, 33), T256, 21, 0.0),  # hop 256, K = 11 causal
+     ((2, 40, 33), (2, 0, 33), CENTERED11, 0, 0.0),  # offline pass 2, centered
+     ((2, 5, 33), (2, 6, 33), tuple(range(-5, 0)) + (0,) * 6, 5, float("inf"))],  # replicate
+)
+def test_select_plain_matches_time_twin(a_shape, b_shape, offsets, start, fill, dtype):
+    rng = np.random.default_rng(len(offsets))
+    a = _tensor(_levels(rng, a_shape, ties=True), dtype)
+    b = _tensor(_levels(rng, b_shape, ties=True), dtype)
+    got = sn.select_median_plain(_time_taps(a, b, offsets, start, fill))
+    assert got.dtype == dtype
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+def _boundary_index(p, f, mode):
+    if mode == "reflect":
+        p = p.abs()
+        return torch.minimum(p, 2 * (f - 1) - p)
+    if mode == "wrap":
+        return torch.remainder(p, f)
+    if mode == "edge":
+        return p.clamp(0, f - 1)
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+def test_select_plain_matches_freq_twin(mode, dtype):
+    """K = 13 over 513 bins (the hop-256 fleet), every border."""
+    k, f_out = 13, 513
+    f_in = f_out + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(np.random.default_rng(13), (5, f_in), ties=True), dtype)
+    base = 0 if mode == "valid" else -(k - 1) // 2
+    taps = torch.stack([x[:, _boundary_index(torch.arange(f_out) + base + q, f_in, mode)]
+                        for q in range(k)])
+    got = sn.select_median_plain(taps)
+    assert got.dtype == dtype
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+# ---------------- the emitted header ----------------
+
+
+def test_header_holds_one_straight_line_function_per_k():
+    text = sn.emit_header()
+    assert f"#define ZEN_SELECT_MAX_TAPS {sn.MAX_TAPS}" in text
+    bodies = re.findall(r"float median<(\d+)>\(const float \(&v\)\[\d+\]\) \{\n(.*?)\n\}", text,
+                        flags=re.S)
+    assert [int(k) for k, _ in bodies] == NETWORK_KS
+    for k, body in bodies:
+        lines = body.splitlines()
+        assert lines[-1].startswith("  return ")
+        assert len(lines) - 1 == sn.minmax_count(int(k))
+        for line in lines[:-1]:
+            assert re.fullmatch(r"  const float [lh]\d+ = f(min|max)f\([\w\[\]]+, [\w\[\]]+\);", line)
+    assert "for" not in re.sub(r"//.*|ZEN_SELECT_FOR_EACH_K", "", text).split()
+    cases = re.search(r"#define ZEN_SELECT_FOR_EACH_K\(X\) (.*)", text).group(1)
+    assert cases.split() == [f"X({k})" for k in NETWORK_KS]
+
+
+@pytest.mark.parametrize("k", [3, 11, 13, 31])
+def test_header_function_computes_the_median(k):
+    """The emitted C text of median<k>, read as Python, is the network."""
+    body = re.search(rf"median<{k}>\(const float \(&v\)\[{k}\]\) \{{\n(.*?)\n\}}", sn.emit_header(),
+                     flags=re.S).group(1)
+    x = _levels(np.random.default_rng(k), (k, 500), ties=True)
+    env = {"v": list(torch.from_numpy(x)), "fminf": torch.minimum, "fmaxf": torch.maximum}
+    for line in body.splitlines()[:-1]:
+        name, expr = re.fullmatch(r"  const float (\w+) = (.*);", line).groups()
+        env[name] = eval(expr, {}, env)  # noqa: S307 (the repo's own generated text)
+    got = eval(body.splitlines()[-1].removeprefix("  return ").rstrip(";"), {}, env)  # noqa: S307
+    np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=0)[(k - 1) // 2])
+
+
+def test_library_hash_covers_the_generated_header(monkeypatch):
+    """An edited schedule names another library and another include
+    directory, so a stale build is never reused."""
+    before, text = _build.library_path(), sn.emit_header()
+    ops = sn.median_ops
+
+    def edited(k):
+        return ops(k) + ((("both", 0, 1),) if k == 3 else ())
+
+    monkeypatch.setattr(sn, "median_ops", edited)
+    assert sn.emit_header() != text and _build.library_path() != before
+
+
+def test_generated_header_lands_in_the_build_directory(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    inc = _build.generated_include_dir()
+    assert inc.parent == tmp_path and inc.name.startswith("gen_")
+    assert (inc / _build.GENERATED_HEADER).read_text() == sn.emit_header()
+    assert _build.generated_include_dir() == inc  # written once
+
+
+# ---------------- K1's network kernel, from the wrapper's plan ----------------
+
+
+def emulate_time_network(a, b, offsets, start, fill=0.0, run=None):
+    """K1's network kernel: a thread per (stream, run of output rows,
+    column) stages the rows ``time_network_plan`` lists (V = a ++ b, fill
+    outside, in the inputs' dtype), then for each of its rows reads its K
+    taps at the plan's slots and runs the network."""
+    offsets = tuple(offsets)
+    k = len(offsets)
+    v = torch.cat([a, b], dim=-2)
+    c, t_v, f = v.shape
+    t_out = t_v - start
+    run = run or mc.time_network_run(t_out, c, f)
+    rows, slots = mc.time_network_plan(offsets, run)
+    assert len(rows) <= mc.TIME_NETWORK_MAX_STAGED and max(slots) < len(rows)
+    rel, fill = torch.tensor(rows), torch.tensor(fill, dtype=a.dtype)
+    out = torch.empty((c, t_out, f), dtype=a.dtype)
+    for i0 in range(0, t_out, run):
+        r = rel + start + i0
+        inside = (r >= 0) & (r < t_v)
+        staged = torch.where(inside[None, :, None], v[:, r.clamp(0, t_v - 1)], fill)
+        for i in range(min(run, t_out - i0)):
+            taps = staged[:, list(slots[i * k : (i + 1) * k])].float()  # [C, K, F]
+            out[:, i0 + i] = sn.select_median_plain(taps.transpose(0, 1)).to(a.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill",
+    [((1, 5, 65), (1, 32, 65), T1024, 5, 0.0),
+     ((3, 21, 33), (3, 16, 33), T256, 21, 0.0),  # the 512-stream block: two runs of 8
+     ((3, 21, 33), (3, 1, 33), T256, 21, 0.0),  # B = 1: a run of one row
+     ((2, 21, 17), (2, 13, 17), T256, 21, 0.0),  # a ragged last run
+     ((1, 43, 17), (1, 0, 17), CENTERED11, 0, 0.0),  # fill on both ends
+     ((2, 5, 9), (2, 16, 9), tuple(range(-5, 0)) + (0,) * 6, 5, float("inf")),
+     ((2, 11, 9), (2, 16, 9), tuple(range(-11, 0)), 11, 0.0),  # valid
+     ((1, 40, 9), (1, 0, 9), tuple(range(-15, 16)), 0, float("inf")),  # K = 31
+     ((1, 9, 9), (1, 0, 9), (0,), 0, 0.0)],  # K = 1
+)
+def test_time_network_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, dtype):
+    rng = np.random.default_rng(len(offsets) + a_shape[1])
+    a = _tensor(_levels(rng, a_shape, ties=True), dtype)
+    b = _tensor(_levels(rng, b_shape, ties=True), dtype)
+    assert mc.time_route(offsets) == "register" and len(offsets) <= mc.NETWORK_MAX_TAPS
+    want = mc.tap_median_time_plain(a, b, offsets, start, fill)
+    # the wrapper's run for this small grid (1) and a fleet's (8, or all the rows)
+    assert torch.equal(emulate_time_network(a, b, offsets, start, fill), want)
+    fleet = min(mc.TIME_NETWORK_RUN, want.shape[1])
+    assert torch.equal(emulate_time_network(a, b, offsets, start, fill, run=fleet), want)
+
+
+@pytest.mark.parametrize("run", [1, 2, 4, 8, 16])
+def test_time_network_emulation_at_every_run_length(run):
+    rng = np.random.default_rng(run)
+    a = _tensor(_levels(rng, (2, 21, 9)), torch.float32)
+    b = _tensor(_levels(rng, (2, 19, 9)), torch.float32)
+    got = emulate_time_network(a, b, T256, 21, run=run)
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, T256, 21))
+
+
+def test_time_network_plan_stages_the_union_once():
+    rows, slots = mc.time_network_plan(T256, 8)
+    assert rows == tuple(range(-21, -9)) + tuple(range(-5, 8)) and len(rows) == 25
+    assert len(slots) == 8 * 11
+    assert [rows[s] for s in slots[:11]] == list(T256)
+    assert [rows[s] for s in slots[7 * 11 :]] == [o + 7 for o in T256]
+    # a duplicated offset is one staged row read twice
+    rows, slots = mc.time_network_plan((-1, 0, 0), 2)
+    assert rows == (-1, 0, 1) and slots == (0, 1, 1, 1, 2, 2)
+    assert mc.time_network_plan((0,), 1) == ((0,), (0,))
+
+
+def test_time_network_run_fills_the_card():
+    """Runs of TIME_NETWORK_RUN rows on a fleet, all the rows when fewer,
+    halved while the grid has too few blocks to fill the card; whatever
+    the offsets, a run's staging fits its byte index and shared memory."""
+    assert mc.time_network_run(32, 512, 513) == mc.TIME_NETWORK_RUN
+    assert mc.time_network_run(16, 512, 513) == mc.TIME_NETWORK_RUN
+    assert mc.time_network_run(3, 512, 513) == 3 and mc.time_network_run(1, 512, 513) == 1
+    # 64 streams x 5 column tiles x 4 runs fill the card; one hop-1024 stream
+    # (17 tiles x 32 rows) does so only a row a thread; the track's pass 2 at 8
+    assert mc.time_network_run(32, 64, 513) == 8
+    assert mc.time_network_run(32, 1, 2049) == 1
+    assert mc.time_network_run(643, 1, 513) == 4
+    assert mc.time_network_run(41355, 1, 513) == 8
+    scattered = tuple(range(-3000, 100, 100))  # 31 taps, no two rows' taps meet
+    staged = len(mc.time_network_plan(scattered, mc.TIME_NETWORK_RUN)[0])
+    assert staged == mc.TIME_NETWORK_RUN * mc.NETWORK_MAX_TAPS <= mc.TIME_NETWORK_MAX_STAGED
+    assert staged * mc.TIME_NETWORK_THREADS * 4 <= mc.SMEM_OPTIN
+
+
+def test_host_constants_match_the_sources():
+    """The wrappers' limits are the kernels' own (csrc), read from the
+    sources: a drift would send a launch the kernel refuses."""
+    def const(header, name):
+        text = (_build.CSRC / header).read_text()
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("time_runs.cuh", "kThreads") == mc.TIME_NETWORK_THREADS
+    assert const("median_time.cu", "kNetMaxRun") == mc.TIME_NETWORK_MAX_RUN
+    assert const("median_time.cu", "kNetMaxStaged") == mc.TIME_NETWORK_MAX_STAGED == 256
+    assert const("row_segment.cuh", "kNetworkChunk") == mc.FREQ_NETWORK_CHUNK
+    assert mc.NETWORK_MAX_TAPS == sn.MAX_TAPS < mc.REGISTER_TAPS
+
+
+# ---------------- K2's network route: a row's split into blocks ----------------
+
+
+@pytest.mark.parametrize("f_out,chunk,blocks", [(513, 513, 1), (1024, 1024, 1), (1025, 513, 2),
+                                                (2049, 683, 3), (65, 65, 1), (1, 1, 1),
+                                                (8193, 911, 9)])
+def test_freq_network_chunk_splits_rows_evenly(f_out, chunk, blocks):
+    assert mc.freq_network_chunk(f_out) == chunk <= mc.FREQ_NETWORK_CHUNK
+    assert -(-f_out // chunk) == blocks
+
+
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k,f_out", [(13, 513), (31, 1100), (1, 65), (5, 2049)])
+def test_freq_network_emulation_matches_twin(k, f_out, mode):
+    """K2's network kernel: a block per (row, chunk) stages chunk + K - 1
+    samples with the border on the load; each output runs the network on
+    K consecutive staged samples."""
+    f_in = f_out + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(np.random.default_rng(k), (3, f_in), ties=True), torch.float32)
+    chunk = mc.freq_network_chunk(f_out)
+    out = torch.empty((3, f_out))
+    for j0 in range(0, f_out, chunk):
+        live = min(chunk, f_out - j0)
+        base = j0 if mode == "valid" else j0 - (k - 1) // 2
+        seg = x[:, _boundary_index(torch.arange(live + k - 1) + base, f_in, mode)]
+        assert seg.shape[1] <= mc.FREQ_NETWORK_CHUNK + mc.NETWORK_MAX_TAPS - 1
+        taps = torch.stack([seg[:, q : q + live] for q in range(k)])
+        out[:, j0 : j0 + live] = sn.select_median_plain(taps)
+    assert mc.freq_route(k) == "network"
+    assert torch.equal(out, mc.sliding_median_boundary_plain(x, k, mode))

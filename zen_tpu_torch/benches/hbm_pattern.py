@@ -17,7 +17,8 @@ two contiguous ceilings. Stages, under the JAX artifact's keys:
   time_dma      #9 rows_copy(x, H, B): K1's thread mapping, one load
   freqT_real    K2 on the folded fresh rows [S * B, bins]; the port does
                 not transpose, so this is K2 as the step runs it
-  freqT_dma     #10 segment_copy at the same shape: K2's staging, no sort
+  freqT_dma     #10 segment_copy at the same shape: the staging of the
+                route K2 takes at that K, no selection
   transpose_rt  .t().contiguous() round trip of [S * B, bins + K - 1]
   roll          the state rotation torch.cat([x[:, B:], x[:, :B]], 1)
   freq_prod     the port's freq_filtered on the fresh rows [S, B, bins]
@@ -104,17 +105,27 @@ def measure(args: argparse.Namespace, log=print) -> dict:
     run("ceiling_big", lambda x: x * C_MUL, big, 2 * big.numel() * 4,
         f"x * c over {args.big_mb} MB flat")
     del big
+    t_route, t_run = mc.time_route(offs), None
+    if t_route == "register" and len(offs) <= mc.NETWORK_MAX_TAPS:
+        t_run = mc.time_network_run(B, S, bins)
+        t_note = f"network, runs of {t_run} rows, {len(mc.time_network_plan(offs, t_run)[0])} staged"
+    else:
+        t_note = "counting" if t_route == "register" else t_route
     run("time_real", lambda x: keep(mc.tap_median_time(x, x[:, :0], offs, H), x), slab,
-        slab_bytes + out_bytes, f"K1 {mc.time_route(offs)} (K={len(offs)}) tail from row {H}")
+        slab_bytes + out_bytes, f"K1 {t_route} (K={len(offs)}; {t_note}) tail from row {H}")
     run("time_dma", lambda x: keep(pc.rows_copy(x, H, B), x), slab, 2 * out_bytes,
-        f"#9 rows_copy rows {H}..{H + B} (K1's thread mapping)")
-    tile = mc.freq_rank_tile(kf)
+        f"#9 rows_copy rows {H}..{H + B} (K1 network's thread mapping, runs of "
+        f"{mc.time_network_run(B, S, bins)} rows)")
+    f_route = mc.freq_route(kf)
+    # the outputs a block takes: the network route's share of a row, or the rank route's tile
+    tile = mc.freq_network_chunk(bins) if f_route == "network" else mc.freq_rank_tile(kf)
     run("freqT_real", lambda y: keep(mc.sliding_median_boundary(y, kf, "reflect"), y), rows,
         2 * rows.numel() * 4,
-        f"K2 {mc.freq_route(kf)} (K={kf}, tile {tile}) on [{R},{bins}] reflect; the port "
+        f"K2 {f_route} (K={kf}, {tile} outputs a block) on [{R},{bins}] reflect; the port "
         "applies the border on the load and does not transpose")
     run("freqT_dma", lambda y: keep(pc.segment_copy(y, kf, "reflect"), y), rows,
-        2 * rows.numel() * 4, f"#10 segment_copy (K2's staging, tile {tile}, no sort)")
+        2 * rows.numel() * 4,
+        f"#10 segment_copy (K2 {f_route}'s staging, {tile} outputs a block, no selection)")
     del rows
     fp = bins + kf - 1
     wide = mags(R, fp)
@@ -148,8 +159,9 @@ def measure(args: argparse.Namespace, log=print) -> dict:
         "config": {
             "streams": S, "hop": hop, "block_hops": B, "fs": args.fs, "bins": bins,
             "history_rows": H, "time_taps": len(offs), "freq_taps": kf,
-            "time_route": mc.time_route(offs), "freq_route": mc.freq_route(kf),
-            "freq_rank_tile": tile,
+            "time_route": t_route, "time_network_run": t_run,
+            "freq_route": f_route, "freq_block_outputs": tile,
+            "freq_rank_tile": mc.freq_rank_tile(kf) if f_route == "rank" else None,
         },
         "stages": stages,
         "derived": derived,

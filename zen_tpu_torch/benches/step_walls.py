@@ -10,12 +10,16 @@ streaming phases drive: ``HPRRealtime`` at 44.1 kHz hop 1024 and hop 32
 (B=32 and B=1), ``MultiStreamHPR`` with 64 streams at hop 256 (B=32) and
 the 512-stream percussive fleet at hop 256 (B=16) in f32 and bf16 stream
 state: the mean host wall of ``--runs`` synchronized steps after 5 warm
-ones (3 × ``--runs`` at B=1). Prints one line, the label and each wall
-in µs.
+ones (3 × ``--runs`` at B=1). Last, the pipe: ``zen-torch stream
+--streams 512`` run in-process on 16 blocks per stream, as its own
+``stream_serving`` line counts it, in Msamples/s. Prints one line, the
+label, each wall in µs and the pipe's rate.
 """
 from __future__ import annotations
 
 import argparse
+import io
+import json
 import sys
 import time
 from pathlib import Path
@@ -60,8 +64,33 @@ def main(argv=None) -> dict:
         ms = MultiStreamHPR(512, 44100.0, 256, outputs=OUTPUT_PERCUSSIVE, stream_state=state)
         b512 = torch.randn(512, 16, 256, generator=gen, device="cuda")
         out[f"512 x hop256 B=16 {state}"] = wall(lambda: ms.process_block(b512), args.runs)
+    out["pipe 512 Msamples/s"] = pipe_msps(512, 16, 256, 16)
     print(args.label, " | ".join(f"{k} {v:.1f}" for k, v in out.items()), flush=True)
     return out
+
+
+def pipe_msps(streams: int, blocks: int, hop: int, block_hops: int) -> float:
+    """``samples_per_s`` of the stream command's own last stderr line, in
+    millions, for ``blocks`` blocks of seeded noise per stream through
+    the CLI's main() with stdin and stdout swapped for byte buffers."""
+    import numpy as np
+    from zen_tpu_torch.cli import main as cli_main
+
+    audio = np.random.default_rng(0).standard_normal(
+        (blocks * block_hops * hop, streams)).astype(np.float32)
+    saved = sys.stdin, sys.stdout, sys.stderr
+    sys.stdin = io.TextIOWrapper(io.BytesIO(audio.tobytes()))
+    sys.stdout = io.TextIOWrapper(io.BytesIO())
+    sys.stderr = io.StringIO()
+    try:
+        rc = cli_main(["stream", "--streams", str(streams), "--fs", "44100", "--hop", str(hop),
+                       "--block-hops", str(block_hops)])
+        err = sys.stderr.getvalue()
+    finally:
+        sys.stdin, sys.stdout, sys.stderr = saved
+    if rc != 0:
+        raise SystemExit(f"zen-torch stream exited {rc}: {err[-1000:]}")
+    return json.loads(err.splitlines()[-1])["samples_per_s"] / 1e6
 
 
 if __name__ == "__main__":

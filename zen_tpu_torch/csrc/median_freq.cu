@@ -29,39 +29,48 @@
 // float exactly, so the float compares rank the same elements, and the
 // selected value converts back to the same bf16 bits.
 //
-// What bounds it on this card: compares. Ranking by counting costs up to
-// 2 K^2 compares per output (338 at K = 13, 4418 at K = 47, 69,938 at
-// K = 187) against 8 bytes of device-memory traffic once the row segment
-// is staged, so the kernel sits far on the compute side of the H100's
-// ~20 operations per byte.
+// What bounds it on this card: at small K the min/max operations of the
+// selection (66 an output at K = 13, which run at half the FP32 rate), at
+// large K the block's sort; never the bytes. Three routes, chosen by the
+// wrapper (ops/median_cuda.py, freq_route) from K alone; all pick
+// sorted[(K-1)/2], the element jnp.median picks for odd K.
 //
-// What the simple design does about it: each block stages one row
-// segment of TILE + K - 1 samples in dynamic shared memory (opted in
-// above 48 KB, so K reaches ~58,000 on Hopper), boundary applied on
-// the load, so device memory is read once and the padded copy, the
-// transposes and the un-pad slice of the JAX routes never exist. Each
-// thread then ranks its own window out of shared memory: consecutive
-// threads read consecutive words (no bank conflicts) and the candidate
-// loop stops at the first tap whose rank brackets (K-1)/2, which is
-// sorted[(K-1)/2], the element jnp.median picks for odd K. Rows and the
-// ragged last tile are masked here, so any row count is valid (the
+// `network`, K up to ZEN_SELECT_MAX_TAPS (the hop-256 fleet's K = 13).
+// A first version took these K through the rank route below: one-warp
+// blocks, 8-byte keys, a 64-key sort and a walk for what a few dozen
+// min/max select; its staging alone was 64% of the kernel and six times
+// a plain copy of the rows. Here a block of 128 threads takes one row,
+// or an even share of a long one (row_segment.cuh, network_chunk: 513
+// bins are one block, no sliver tiles), stages its segment in the
+// input's own type (4 or 2 bytes a sample, consecutive threads on
+// consecutive samples, the boundary rule paid on the halo only), syncs
+// once, and each thread then strides over the outputs: K consecutive
+// words from shared memory (consecutive threads on consecutive words:
+// no bank conflicts) into registers, and the comparator network
+// zen_select::median<K> (generated by ops/select_network.py) on them.
+// Device memory is read once and written once; the padded copy, the
+// transposes and the un-pad slice of the JAX routes never exist. Rows
+// and the ragged end are masked here, so any row count is valid (the
 // Pallas fused kernel needed R % 128 == 0).
 //
-// From K = 11 on: rank once, select many (rank_select.cuh). Counting
-// costs ~K^2 per output, 34,969 at K = 187; the rank route stages the
-// same segment as 64-bit keys, sorts it once per block by (value,
-// position) with a bitonic sort over the next power of two, and has each
-// output walk the ranks, counting positions p of its window (p - j < K,
-// unsigned), until the count passes (K-1)/2: ~S/2 shared reads for
-// S = tile + K - 1, eight ranks a step, where all lanes of a warp read
-// the same rank (a broadcast). The wrapper (ops/median_cuda.py) takes
-// this route from K = FREQ_RANK_MIN_TAPS on (the crossover measured on
-// an H100: below it counting is faster on narrow rows), picks the tile
+// `rank`, from FREQ_RANK_MIN_TAPS on: rank once, select many
+// (rank_select.cuh). A network grows as ~K log^2 K min/max per output;
+// the rank route stages the segment as 64-bit keys, sorts it once per
+// block by (value, position) with a bitonic sort over the next power of
+// two, and has each output walk the ranks, counting positions p of its
+// window (p - j < K, unsigned), until the count passes (K-1)/2: ~S/2
+// shared reads for S = tile + K - 1, eight ranks a step, where all lanes
+// of a warp read the same rank (a broadcast). The wrapper picks the tile
 // (32 to 256 outputs, one thread each) that minimizes the walk plus the
 // sort per output (on an H100 the fastest tile at the paths' K, timed in
-// chip_smoke.py phase 3), and keeps counting for K whose keys do not fit the
-// 227 KB a block can opt into (S > 16,384, K > ~16,000 at the smallest
-// tile fitting); both routes pick the same element.
+// chip_smoke.py phase 3).
+//
+// `count`, the first kernel, for K whose keys do not fit the 227 KB a
+// block can opt into (S > 16,384, K > ~16,000 at the smallest tile
+// fitting): a block stages TILE + K - 1 samples in dynamic shared memory
+// (K reaches ~58,000) and each thread ranks its window by counting, up
+// to 2 K^2 compares per output, stopping at the first tap whose rank
+// brackets (K-1)/2. Right, not fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -69,6 +78,7 @@
 
 #include "rank_select.cuh"
 #include "row_segment.cuh"
+#include "zen_select.cuh"
 
 namespace {
 
@@ -118,6 +128,32 @@ __global__ void sliding_median_kernel(const T* __restrict__ x,
     }
   }
   out[static_cast<size_t>(r) * f_out + j0 + threadIdx.x] = w[pick];
+}
+
+// One block per (row, chunk of `chunk` outputs), kNetworkThreads threads
+// striding over the chunk's outputs.
+template <typename T, int K>
+__global__ void __launch_bounds__(zen_segment::kNetworkThreads)
+network_median_kernel(const T* __restrict__ x, T* __restrict__ out, int f_in,
+                      int f_out, int chunk, int mode) {
+  // raw bytes: a __shared__ array of a class type may not be constructed
+  __shared__ __align__(16) unsigned char
+      seg_bytes[(zen_segment::kNetworkChunk + ZEN_SELECT_MAX_TAPS - 1) * sizeof(T)];
+  T* seg = reinterpret_cast<T*>(seg_bytes);
+  const size_t r = blockIdx.x;
+  const int j0 = blockIdx.y * chunk;
+  const int live = min(chunk, f_out - j0);
+  const int base = mode == kValid ? j0 : j0 - (K - 1) / 2;
+  zen_segment::stage_values(seg, x + r * f_in, base, live + K - 1, f_in, mode,
+                            threadIdx.x);
+  __syncthreads();
+  T* dst = out + r * f_out + j0;
+  for (int j = threadIdx.x; j < live; j += zen_segment::kNetworkThreads) {
+    float v[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) v[q] = to_float(seg[j + q]);
+    dst[j] = from_float<T>(zen_select::median<K>(v));
+  }
 }
 
 // One block per (row, tile of `tile` outputs), one thread per output.
@@ -192,6 +228,31 @@ int launch(const T* x, T* out, int rows, int f_in, int f_out, int k, int mode,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_network(const T* x, T* out, int rows, int f_in, int f_out, int k,
+                   int mode, void* stream) {
+  const int err = check_args(rows, f_in, f_out, k, mode);
+  if (err != 0) return err;
+  const int chunk = zen_segment::network_chunk(f_out);
+  const dim3 grid(static_cast<unsigned>(rows),
+                  static_cast<unsigned>((f_out + chunk - 1) / chunk));
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+#define ZEN_NETWORK_CASE(K)                                          \
+  case K:                                                            \
+    network_median_kernel<T, K>                                      \
+        <<<grid, zen_segment::kNetworkThreads, 0, s>>>(x, out, f_in, \
+                                                       f_out, chunk, mode); \
+    break;
+    ZEN_SELECT_FOR_EACH_K(ZEN_NETWORK_CASE)
+#undef ZEN_NETWORK_CASE
+    default:  // K above ZEN_SELECT_MAX_TAPS
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // `tile` in {32, 64, 128, 256}: the wrapper's choice for this k
 template <typename T>
 int launch_rank(const T* x, T* out, int rows, int f_in, int f_out, int k,
@@ -227,6 +288,19 @@ extern "C" int zen_sliding_median_boundary_bf16(const __nv_bfloat16* x,
                                                 int f_in, int f_out, int k,
                                                 int mode, void* stream) {
   return launch(x, out, rows, f_in, f_out, k, mode, stream);
+}
+
+extern "C" int zen_sliding_median_network(const float* x, float* out,
+                                          int rows, int f_in, int f_out,
+                                          int k, int mode, void* stream) {
+  return launch_network(x, out, rows, f_in, f_out, k, mode, stream);
+}
+
+extern "C" int zen_sliding_median_network_bf16(const __nv_bfloat16* x,
+                                               __nv_bfloat16* out, int rows,
+                                               int f_in, int f_out, int k,
+                                               int mode, void* stream) {
+  return launch_network(x, out, rows, f_in, f_out, k, mode, stream);
 }
 
 extern "C" int zen_sliding_median_rank(const float* x, float* out, int rows,

@@ -25,21 +25,44 @@
 // tap converts to float exactly, so the float compares rank the same
 // elements, and the selected value converts back to the same bf16 bits.
 //
-// What bounds it on this card: bytes. The main-path shapes take K = 3
-// (hop 1024) and K = 11 (hop 256) taps; ranking by counting costs at
-// most 2 K^2 compares per output, 242 at K = 11, against 4 (K + 1) bytes
-// of loads and store (half that in bf16), about 5 compares per byte --
-// below the ~20 FP32 operations per byte where an H100 stops being
-// bandwidth-bound. Neighbouring output rows share all but one tap row,
-// so most tap loads are L1/L2 hits and device-memory traffic approaches
-// one read of V and one write of out.
+// What bounds it on this card: the selection, not the bytes. Beside a
+// copy with the same launch geometry (rows_copy, csrc/probe_copy.cu), a
+// first version that ranked the K taps by counting (2 K^2 compares an
+// output, 242 at K = 11, and K separate loads) spent nine tenths of its
+// time selecting: 411 us against 40 us for the copy at the 512-stream
+// B = 32 step on an H100, 13 to 25 times its bytes bound at every path
+// shape.
 //
-// What the simple design does about it: one thread per output element,
-// with f fastest, so each warp's loads and stores are coalesced rows;
-// the two input pointers remove the concat copy the JAX step pays
-// without the pair kernel; the taps live in registers (the loops over
-// KMAX are unrolled), and the selection is exact rank-by-counting, which
-// picks sorted[(K-1)/2], the element jnp.median picks for odd K.
+// What the design does about it, up to ZEN_SELECT_MAX_TAPS taps (the
+// `register` route's network kernel; the main-path shapes take K = 3 at
+// hop 1024 and K = 11 at hop 256):
+// * The median is a comparator network on a register array
+//   (zen_select::median<K>, generated by ops/select_network.py: a pruned
+//   odd-even merge sort, 54 min/max at K = 11 where counting made 242
+//   compares and as many adds), straight-line code with no divergence,
+//   one kernel instantiation per K.
+// * A thread takes one column and a run of consecutive output rows
+//   (csrc/time_runs.cuh: 128 columns a block, 32-bit index arithmetic;
+//   the first version paid two 64-bit div/mods per output). Neighbouring
+//   output rows share most tap rows, so the thread loads the union of
+//   the rows its run's taps reach once (25 rows for a run of 8 at hop
+//   256, 3.1 loads an output in place of 11), bounds and fill decided on
+//   that load. Which rows, and which of them each output's K taps are,
+//   depends on the offsets alone: the wrapper computes both per offsets
+//   tuple and run (ops/median_cuda.py, time_network_plan) and the
+//   launcher passes them in the kernel's parameters.
+// * Registers cannot be indexed by a run-time tap table, so the staged
+//   rows live in shared memory, one column per thread (row s of thread t
+//   at word s * 128 + t: no bank conflicts, and no barrier, since a
+//   thread reads back only what it stored). The loop over the run's rows
+//   is a run-time loop around one unrolled network, so any offsets,
+//   duplicates included (the replicate border's repeated 0), and any
+//   `fill` are just values on wires.
+// * The two input pointers remove the concat copy the JAX step pays
+//   without the pair kernel.
+// From ZEN_SELECT_MAX_TAPS + 2 to 64 taps the first kernel stays: one
+// thread per output, the taps in registers, exact rank-by-counting, which
+// picks sorted[(K-1)/2], the element the network and jnp.median pick.
 //
 // Past 64 taps (K = 67 to 401 at hop 8 to 32) a register array no
 // longer fits, and counting would cost up to K^2 tap reads per output
@@ -75,6 +98,8 @@
 #include <cstddef>
 
 #include "rank_select.cuh"
+#include "time_runs.cuh"
+#include "zen_select.cuh"
 
 namespace {
 
@@ -146,6 +171,57 @@ __global__ void tap_median_time_kernel(const T* __restrict__ a,
     }
   }
   out[idx] = from_float<T>(med);
+}
+
+constexpr int kNetMaxRun = 16;     // most output rows of a network thread
+constexpr int kNetMaxStaged = 256;  // most rows a run may stage (a slot is a byte)
+
+// What a run stages and where each output's taps lie in it, from the
+// offsets alone (the wrapper's time_network_plan).
+struct NetPlan {
+  int staged;              // rows the run's taps reach
+  int row[kNetMaxStaged];  // each relative to the run's first output row
+  // slot[i * K + q]: which staged row tap q of the run's output row i is
+  unsigned char slot[kNetMaxRun * ZEN_SELECT_MAX_TAPS];
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(zen_runs::kThreads)
+tap_median_time_network_kernel(const T* __restrict__ a,
+                               const T* __restrict__ b, T* __restrict__ out,
+                               int ta, int tb, int f, int start, int t_out,
+                               int run, unsigned n_runs, float fill,
+                               const __grid_constant__ NetPlan plan) {
+  // plan.staged rows of kThreads elements of T; this thread's column
+  extern __shared__ __align__(16) unsigned char net_bytes[];
+  T* mine = reinterpret_cast<T*>(net_bytes) + threadIdx.x;
+  const zen_runs::Unit u = zen_runs::unit_of(run, n_runs);
+  if (u.col >= f) return;
+  const T* pa = a + static_cast<size_t>(u.c) * ta * f + u.col;
+  const T* pb = b + static_cast<size_t>(u.c) * tb * f + u.col;
+  const int row0 = start + u.i0;
+  const T fill_t = from_float<T>(fill);
+#pragma unroll 8
+  for (int s = 0; s < plan.staged; ++s) {
+    const int r = row0 + plan.row[s];
+    T x = fill_t;
+    if (r >= 0 && r < ta) {
+      x = pa[static_cast<long long>(r) * f];
+    } else if (r >= ta && r < ta + tb) {
+      x = pb[static_cast<long long>(r - ta) * f];
+    }
+    mine[s * zen_runs::kThreads] = x;
+  }
+  const int rows = min(run, t_out - u.i0);
+  T* dst = out + (static_cast<size_t>(u.c) * t_out + u.i0) * f + u.col;
+  for (int i = 0; i < rows; ++i) {
+    float v[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      v[q] = to_float(mine[plan.slot[i * K + q] * zen_runs::kThreads]);
+    }
+    dst[static_cast<long long>(i) * f] = from_float<T>(zen_select::median<K>(v));
+  }
 }
 
 // one tap of V for the wide kernel, through the read-only data cache
@@ -274,16 +350,56 @@ int launch_register(const T* a, const T* b, T* out, int c, int ta, int tb,
   const long long n = static_cast<long long>(c) * t_out * f;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+  tap_median_time_kernel<T, kMaxTaps><<<blocks, threads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      a, b, out, ta, tb, f, start, t_out, n, taps, fill);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K <= ZEN_SELECT_MAX_TAPS: `rows` (staged ints) and `slots` (run * k
+// ints below staged) are host arrays, the wrapper's time_network_plan
+template <typename T>
+int launch_network(const T* a, const T* b, T* out, int c, int ta, int tb,
+                   int f, int start, int t_out, const int* rows, int staged,
+                   const int* slots, int run, int k, float fill,
+                   void* stream) {
+  if (k < 1 || k > ZEN_SELECT_MAX_TAPS || k % 2 == 0 || c <= 0 || f <= 0 ||
+      t_out <= 0 || run < 1 || run > kNetMaxRun || staged < 1 ||
+      staged > kNetMaxStaged) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  NetPlan plan;
+  plan.staged = staged;
+  for (int s = 0; s < staged; ++s) plan.row[s] = rows[s];
+  for (int q = 0; q < run * k; ++q) {
+    if (slots[q] < 0 || slots[q] >= staged) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    plan.slot[q] = static_cast<unsigned char>(slots[q]);
+  }
+  dim3 grid;
+  unsigned n_runs = 0;
+  if (!zen_runs::grid_of(c, t_out, f, run, &grid, &n_runs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(staged) * zen_runs::kThreads * sizeof(T);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 4) {
-    tap_median_time_kernel<T, 4><<<blocks, threads, 0, s>>>(
-        a, b, out, ta, tb, f, start, t_out, n, taps, fill);
-  } else if (k <= 16) {
-    tap_median_time_kernel<T, 16><<<blocks, threads, 0, s>>>(
-        a, b, out, ta, tb, f, start, t_out, n, taps, fill);
-  } else {
-    tap_median_time_kernel<T, kMaxTaps><<<blocks, threads, 0, s>>>(
-        a, b, out, ta, tb, f, start, t_out, n, taps, fill);
+  switch (k) {
+#define ZEN_NETWORK_CASE(K)                                                  \
+  case K: {                                                                  \
+    const int err = zen_rank::opt_in(                                        \
+        reinterpret_cast<const void*>(tap_median_time_network_kernel<T, K>), \
+        smem);                                                               \
+    if (err != 0) return err;                                                \
+    tap_median_time_network_kernel<T, K><<<grid, zen_runs::kThreads, smem,   \
+                                           s>>>(                             \
+        a, b, out, ta, tb, f, start, t_out, run, n_runs, fill, plan);        \
+    break;                                                                   \
+  }
+    ZEN_SELECT_FOR_EACH_K(ZEN_NETWORK_CASE)
+#undef ZEN_NETWORK_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -334,6 +450,22 @@ int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
 }
 
 }  // namespace
+
+extern "C" int zen_tap_median_time_network(
+    const float* a, const float* b, float* out, int c, int ta, int tb, int f,
+    int start, int t_out, const int* rows, int staged, const int* slots,
+    int run, int k, float fill, void* stream) {
+  return launch_network(a, b, out, c, ta, tb, f, start, t_out, rows, staged,
+                        slots, run, k, fill, stream);
+}
+
+extern "C" int zen_tap_median_time_network_bf16(
+    const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* out, int c,
+    int ta, int tb, int f, int start, int t_out, const int* rows, int staged,
+    const int* slots, int run, int k, float fill, void* stream) {
+  return launch_network(a, b, out, c, ta, tb, f, start, t_out, rows, staged,
+                        slots, run, k, fill, stream);
+}
 
 // `offsets` is a host array of k ints (k <= 64)
 extern "C" int zen_tap_median_time(const float* a, const float* b, float* out,

@@ -1,17 +1,23 @@
-// K2's row-segment staging, shared by K2's rank route
-// (csrc/median_freq.cu) and its copy-only mirror segment_copy
-// (csrc/probe_copy.cu), so that the mirror's access pattern is K2's by
-// construction.
+// K2's row-segment staging, shared by K2 (csrc/median_freq.cu) and its
+// copy-only mirror segment_copy (csrc/probe_copy.cu), so that the
+// mirror's access pattern is K2's by construction.
 //
 // A block of `count` threads stages the `need` samples its outputs'
 // windows reach, row positions base .. base + need - 1 with the boundary
-// rule applied on the load, as 64-bit (value order bits, position) keys
-// in shared memory, padded with kPadKey up to key_count(need) keys.
+// rule applied on the load, in shared memory:
+// * stage_values (the network route, K up to ZEN_SELECT_MAX_TAPS): in the
+//   input's own type, 4 or 2 bytes a sample; consecutive threads load
+//   consecutive samples, and only the halo pays for the boundary rule;
+// * stage_keys (the rank route): as 64-bit (value order bits, position)
+//   keys, padded with kPadKey up to key_count(need) keys.
+// network_chunk is the network route's split of a row into blocks, which
+// K2's launcher and the mirror's both call.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "rank_select.cuh"
+#include "zen_select.cuh"
 
 namespace zen_segment {
 
@@ -32,6 +38,48 @@ __device__ __forceinline__ int boundary_index(int p, int f, int mode) {
   }
   if (mode == kEdge) return p < 0 ? 0 : (p > f - 1 ? f - 1 : p);
   return p;  // valid: always inside the padded row
+}
+
+// Outputs per block of the network route: a row of f_out outputs splits
+// into the fewest chunks of at most kNetworkChunk, evenly, so that no
+// block is left a sliver (513 bins: one block a row; 2049: three of 683).
+constexpr int kNetworkChunk = 1024;
+constexpr int kNetworkThreads = 128;
+
+__host__ __device__ __forceinline__ int network_chunk(int f_out) {
+  const int chunks = (f_out + kNetworkChunk - 1) / kNetworkChunk;
+  return (f_out + chunks - 1) / chunks;
+}
+
+// A thread's share of the largest segment a network block stages
+constexpr int kNetworkLoads =
+    (kNetworkChunk + ZEN_SELECT_MAX_TAPS - 1 + kNetworkThreads - 1) /
+    kNetworkThreads;
+
+// Stages seg[0, need), need <= kNetworkChunk + ZEN_SELECT_MAX_TAPS - 1, by
+// the kNetworkThreads threads tid of a block; the caller syncs after. A
+// thread starts all its loads before its first store, so that they are
+// in flight together.
+template <typename T>
+__device__ __forceinline__ void stage_values(T* seg, const T* __restrict__ row,
+                                             int base, int need, int f_in,
+                                             int mode, int tid) {
+  T held[kNetworkLoads];
+#pragma unroll
+  for (int u = 0; u < kNetworkLoads; ++u) {
+    const int s = tid + u * kNetworkThreads;
+    if (s < need) {
+      const int p = base + s;
+      held[u] = row[static_cast<unsigned>(p) < static_cast<unsigned>(f_in)
+                        ? p
+                        : boundary_index(p, f_in, mode)];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kNetworkLoads; ++u) {
+    const int s = tid + u * kNetworkThreads;
+    if (s < need) seg[s] = held[u];
+  }
 }
 
 // Stages keys[0, key_count(need)) by threads tid, tid + count, ...; the

@@ -374,8 +374,29 @@ class MultiStreamHPR:
         """Reset the given stream slots to pristine state in place,
         leaving all other slots untouched — the serving move when a slot
         is recycled for a new client mid-flight. A reset slot reproduces
-        a fresh stream bit-exactly."""
-        idx = torch.as_tensor(indices, dtype=torch.int64, device=self.device)
-        self.state.ring[idx] = 0.0
-        self.state.feat_hist[idx] = prefill_value(self.cfg)
-        self.state.ola_tail[idx] = 0.0
+        a fresh stream bit-exactly. The slots are filled run by run
+        through slices, so nothing is copied from the host and the call
+        does not wait on the card (an index tensor built from a Python
+        list would be a pageable host-to-device copy, which does)."""
+        for lo, hi in _slot_runs(indices, self.n_streams):
+            self.state.ring[lo:hi] = 0.0
+            self.state.feat_hist[lo:hi] = prefill_value(self.cfg)
+            self.state.ola_tail[lo:hi] = 0.0
+
+
+def _slot_runs(indices, n_streams: int) -> list:
+    """The distinct stream slots of ``indices`` (negative ones count from
+    the end) as ascending half-open runs [lo, hi) of consecutive slots."""
+    slots = set()
+    for i in indices:
+        i = int(i)
+        if not -n_streams <= i < n_streams:
+            raise ZenError(f"stream slot {i} outside [0, {n_streams})")
+        slots.add(i % n_streams)
+    runs = []
+    for i in sorted(slots):
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    return [tuple(r) for r in runs]

@@ -4,9 +4,13 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/zen_tpu_torch/`` at the repository root,
-named by a hash of the sources, the headers they share (``*.cuh``) and
-the flags, so an edited source, header or flag rebuilds and an unchanged
-tree reuses the library. ``nvcc``'s register
+named by a hash of the sources, the headers they share (``*.cuh``), the
+generated header and the flags, so an edited source, header, schedule or
+flag rebuilds and an unchanged tree reuses the library. The generated
+header is ``zen_select.cuh``, the median networks of the small-K routes
+(``select_network.emit_header``): its text is written to
+``build/zen_tpu_torch/gen_<hash of the text>/`` before a build, and that
+directory goes on ``nvcc``'s include path. ``nvcc``'s register
 and shared-memory report (``-Xptxas -v``) is kept beside it as
 ``<name>.log``. ``library(cut)`` builds the same sources with
 ``-DZEN_RANK_CUT=cut`` (1 or 2: the rank kernels end after staging or
@@ -27,10 +31,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+
+from . import select_network
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zen_tpu_torch"
+GENERATED_HEADER = "zen_select.cuh"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,15 +59,27 @@ _TIME_RANK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
 _FREQ = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
 # the same, with the tile before the stream
 _FREQ_RANK = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
-# x, out, c, t, f, start, t_out, stream
-_ROWS_COPY = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
+# a, b, out, c, ta, tb, f, start, t_out, rows (host), staged, slots (host), run, k,
+# fill, stream
+_TIME_NETWORK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
+                  ctypes.POINTER(_I), _I, _I, ctypes.c_float, _P], _I)
+# x, out, c, t, f, start, t_out, run, stream
+_ROWS_COPY = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
 # x, out, rows, f, k, mode, tile, stream
 _SEGMENT_COPY = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
+# the same, without the tile
+_SEGMENT_COPY_VALUES = ([_P, _P, _I, _I, _I, _I, _P], _I)
 _SIGNATURES = {
     "zen_rows_copy": _ROWS_COPY,
     "zen_rows_copy_bf16": _ROWS_COPY,
     "zen_segment_copy": _SEGMENT_COPY,
     "zen_segment_copy_bf16": _SEGMENT_COPY,
+    "zen_segment_copy_values": _SEGMENT_COPY_VALUES,
+    "zen_segment_copy_values_bf16": _SEGMENT_COPY_VALUES,
+    "zen_tap_median_time_network": _TIME_NETWORK,
+    "zen_tap_median_time_network_bf16": _TIME_NETWORK,
+    "zen_sliding_median_network": _FREQ,
+    "zen_sliding_median_network_bf16": _FREQ,
     "zen_tap_median_time": _TIME,
     "zen_tap_median_time_bf16": _TIME,
     "zen_tap_median_time_wide": _TIME_WIDE,
@@ -90,13 +110,32 @@ def _flags(cut: int) -> tuple:
 
 
 def library_path(cut: int = 0) -> Path:
-    """Where the library for the current sources, headers and flags lives."""
+    """Where the library for the current sources, headers (the generated
+    one included) and flags lives."""
     sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     h = hashlib.sha256(" ".join(_flags(cut)).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
+    h.update(GENERATED_HEADER.encode())
+    h.update(select_network.emit_header().encode())
     return BUILD_DIR / f"libzen_median_{h.hexdigest()[:16]}.so"
+
+
+def generated_include_dir() -> Path:
+    """Write ``zen_select.cuh`` (if its text is not there yet) and return
+    the directory that holds it, named by the text's hash: builds that
+    run at once write the same bytes, and an edited schedule gets a
+    directory of its own."""
+    text = select_network.emit_header()
+    out = BUILD_DIR / f"gen_{hashlib.sha256(text.encode()).hexdigest()[:16]}"
+    header = out / GENERATED_HEADER
+    if not header.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        tmp = header.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, header)
+    return out
 
 
 @functools.lru_cache(maxsize=3)
@@ -135,8 +174,9 @@ def _build(out: Path, flags: tuple) -> None:
     sources = sorted(CSRC.glob("*.cu"))
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     nvcc, log = _nvcc(), []
+    include = f"-I{generated_include_dir()}"
     try:
-        _run([subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
+        _run([subprocess.Popen([nvcc, *flags, include, "-c", "-o", str(obj), str(src)],
                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
               for src, obj in zip(sources, objs)], log)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

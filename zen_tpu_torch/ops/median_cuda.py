@@ -23,13 +23,18 @@ through the kernel, and ``routes`` splits that count by route. Kernels
 launch on the current stream, never synchronize and allocate nothing:
 the wrapper allocates the output.
 
-Each kernel has a route for large K, "rank once, select many"
-(``csrc/rank_select.cuh``): K1 from 65 taps (``time_route``), K2 from
-FREQ_RANK_MIN_TAPS (``freq_route``). The host side of those routes is
-here, in Python the CPU tests reach: K2's tile (``freq_rank_tile``),
-K1's multiplicity table (``time_rank_table``) and the shared-memory
-checks that send a K whose staging does not fit back to the counting
-kernels.
+Up to NETWORK_MAX_TAPS taps both kernels select with a comparator
+network on registers (``ops/select_network.py``, emitted as
+``zen_select.cuh`` at build time): K1's ``register`` route and K2's
+``network`` route. Each kernel has a route for large K, "rank once,
+select many" (``csrc/rank_select.cuh``): K1 from 65 taps
+(``time_route``), K2 from FREQ_RANK_MIN_TAPS (``freq_route``). The
+wrappers choose from K (K1: and the offsets' span) alone. The host side
+of the routes is here, in Python the CPU tests reach: the rows a run of
+K1's network kernel stages and where each tap lies in them
+(``time_network_plan``), K2's tile (``freq_rank_tile``), K1's
+multiplicity table (``time_rank_table``) and the shared-memory checks
+that send a K whose staging does not fit back to the counting kernels.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 from ..errors import ZenError
 from . import _build
 from .median import sliding_median
+from .select_network import MAX_TAPS as NETWORK_MAX_TAPS
 
 # Shared memory a block can opt into on Hopper (227 KB).
 SMEM_OPTIN = 232_448
@@ -50,18 +56,33 @@ SMEM_OPTIN = 232_448
 # without an opt-in, which bounds K.
 REGISTER_TAPS = 64
 MAX_TIME_TAPS = 48 * 1024 // 4 - 1
+# K1's network kernel (K <= NETWORK_MAX_TAPS): a thread takes one column
+# and a run of TIME_NETWORK_RUN consecutive output rows, fewer while the
+# launch would have under TIME_NETWORK_MIN_BLOCKS blocks (four for each
+# of an H100's 132 SMs: a single stream's step is a few dozen blocks at
+# runs of 8, and its time is then the run's length, not the card's rate).
+# A block takes TIME_NETWORK_THREADS columns; the rows a run's taps reach
+# (at most run * K) are indexed by a byte and staged in shared memory.
+# The kernel takes runs up to TIME_NETWORK_MAX_RUN where they fit.
+TIME_NETWORK_RUN = 8
+TIME_NETWORK_MAX_RUN = 16
+TIME_NETWORK_MAX_STAGED = 256
+TIME_NETWORK_THREADS = 128
+TIME_NETWORK_MIN_BLOCKS = 4 * 132
+assert TIME_NETWORK_RUN * NETWORK_MAX_TAPS <= TIME_NETWORK_MAX_STAGED
+assert TIME_NETWORK_MAX_STAGED * TIME_NETWORK_THREADS * 4 <= SMEM_OPTIN
 # K1's rank route: most output rows per block, one per lane of its first warp.
 TIME_RANK_RUN = 32
 # K2's counting kernel stages a row segment of 256 + K - 1 floats in
 # shared memory, which must fit SMEM_OPTIN.
 MAX_FREQ_TAPS = SMEM_OPTIN // 4 - 256 + 1
-# K2 ranks by counting below this many taps and sorts its segment once
-# per block from here on: the crossover of chip_smoke.py's phase-3 sweep
-# on an H100 (from K = 11 the rank route was faster at [32, 2049] and
-# [2048, 513], and at [8192, 513] and [1, 65]; at K = 9 counting was
-# faster on the narrow rows).
-FREQ_RANK_MIN_TAPS = 11
+# K2 selects with its network below this many taps and sorts its segment
+# once per block from here on: the crossover of chip_smoke.py's phase-3
+# sweep on an H100 (the network was faster at every K it takes, on both
+# row shapes of the sweep, so the rank route starts right above it).
+FREQ_RANK_MIN_TAPS = NETWORK_MAX_TAPS + 2
 FREQ_RANK_TILES = (32, 64, 128, 256)
+FREQ_NETWORK_CHUNK = 1024  # most outputs of a block of K2's network route
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
 _PLAIN_BOUNDARY = {"reflect": "reflect", "wrap": "wrap", "edge": "clamp"}
 KEY_BYTES = 8  # a (value, position) key of the rank routes
@@ -153,9 +174,44 @@ def time_rank_rows(offsets: tuple, run: int) -> tuple:
     return tuple(sorted({o - lo + i for o in set(offsets) for i in range(run)}))
 
 
+@functools.lru_cache(maxsize=64)
+def time_network_plan(offsets: tuple, run: int) -> tuple:
+    """(rows, slots) of K1's network kernel for ``run`` consecutive
+    output rows: the rows their taps reach, ascending, relative to the
+    run's first output row (a run of 8 under the hop-256 taps -21..-17,
+    -5..0 reaches 25 rows, 3.1 loads an output in place of 11), and for
+    tap q of the run's row i, at slots[i * K + q], its index in rows."""
+    rows = tuple(sorted({o + i for o in set(offsets) for i in range(run)}))
+    index = {r: s for s, r in enumerate(rows)}
+    return rows, tuple(index[o + i] for i in range(run) for o in offsets)
+
+
+def time_network_run(t_out: int, streams: int, f: int) -> int:
+    """Output rows a thread of K1's network kernel takes on ``streams``
+    streams of ``t_out`` output rows by ``f`` columns: TIME_NETWORK_RUN
+    (or all ``t_out``), halved while the grid has fewer than
+    TIME_NETWORK_MIN_BLOCKS blocks."""
+    tiles = streams * -(-f // TIME_NETWORK_THREADS)
+    run = max(1, min(TIME_NETWORK_RUN, t_out))
+    while run > 1 and tiles * -(-t_out // run) < TIME_NETWORK_MIN_BLOCKS:
+        run //= 2
+    return run
+
+
+@functools.lru_cache(maxsize=64)
+def _network_args(offsets: tuple, run: int) -> tuple:
+    """time_network_plan as the C entry's arguments (rows, staged, slots,
+    run): host int arrays, built once per (offsets, run)."""
+    rows, slots = time_network_plan(offsets, run)
+    return ((ctypes.c_int * len(rows))(*rows), len(rows),
+            (ctypes.c_int * len(slots))(*slots), run)
+
+
 def time_route(offsets: tuple) -> str:
-    """K1's kernel for ``offsets``: 'register' up to REGISTER_TAPS taps,
-    then 'rank' where its staging fits, else the first 'wide' kernel."""
+    """K1's kernel for ``offsets``: 'register' up to REGISTER_TAPS taps
+    (the network kernel up to NETWORK_MAX_TAPS, the counting kernel
+    above), then 'rank' where its staging fits, else the first 'wide'
+    kernel."""
     if len(offsets) <= REGISTER_TAPS:
         return "register"
     return "rank" if time_rank_table(offsets) is not None else "wide"
@@ -197,10 +253,12 @@ tap_median_time.launches = 0
 tap_median_time.routes = dict.fromkeys(("register", "rank", "wide"), 0)
 
 
-def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0):
+def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0,
+                 run: int | None = None):
     """K1's ``route`` kernel on checked CUDA operands; counts nothing
-    (chip_smoke also calls it to time one route against another, and the
-    rank route of a ``cut`` build, ``_build.library``)."""
+    (chip_smoke also calls it to time one route against another, the
+    network kernel at each ``run``, and the rank route of a ``cut``
+    build, ``_build.library``)."""
     ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
     lead = a.shape[:-2]
     t_out = ta + tb - start
@@ -209,7 +267,10 @@ def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut:
         return out
     lib = _build.library(cut)
     k = len(offsets)
-    if route == "register":
+    if route == "register" and k <= NETWORK_MAX_TAPS:
+        entry = _entry(lib, "zen_tap_median_time_network", a.dtype)
+        taps = _network_args(offsets, run or time_network_run(t_out, math.prod(lead), f))
+    elif route == "register":
         entry = _entry(lib, "zen_tap_median_time", a.dtype)
         taps = ((ctypes.c_int * k)(*offsets),)
     elif route == "rank":
@@ -301,10 +362,21 @@ def freq_rank_tile(k: int):
     return None if best is None else best[1]
 
 
+def freq_network_chunk(f_out: int) -> int:
+    """Outputs a block of K2's network route takes of a row of ``f_out``
+    (``network_chunk`` of csrc/row_segment.cuh): the row split evenly
+    into the fewest chunks of at most FREQ_NETWORK_CHUNK."""
+    chunks = -(-f_out // FREQ_NETWORK_CHUNK)
+    return -(-f_out // chunks)
+
+
 def freq_route(k: int) -> str:
     """K2's kernel for width ``k``: 'rank' from FREQ_RANK_MIN_TAPS on
-    where its keys fit, else 'count'."""
-    return "rank" if k >= FREQ_RANK_MIN_TAPS and freq_rank_tile(k) else "count"
+    where its keys fit, 'network' below it up to NETWORK_MAX_TAPS, else
+    'count'."""
+    if k >= FREQ_RANK_MIN_TAPS and freq_rank_tile(k):
+        return "rank"
+    return "network" if k <= NETWORK_MAX_TAPS else "count"
 
 
 def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
@@ -336,15 +408,16 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
 
 
 sliding_median_boundary.launches = 0
-sliding_median_boundary.routes = dict.fromkeys(("count", "rank"), 0)
+sliding_median_boundary.routes = dict.fromkeys(("network", "rank", "count"), 0)
 
 
 def _freq_launch(
     x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0
 ) -> torch.Tensor:
     """K2's ``route`` kernel on a checked CUDA operand; counts nothing
-    (chip_smoke's sweeps also call it, for both routes and each rank
-    ``tile``, and the rank route of a ``cut`` build, ``_build.library``)."""
+    (chip_smoke's sweeps also call it, for every route that takes ``k``
+    and each rank ``tile``, and the rank route of a ``cut`` build,
+    ``_build.library``)."""
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
     out = torch.empty(x.shape[:-1] + (f_out,), dtype=x.dtype, device=x.device)
@@ -353,6 +426,8 @@ def _freq_launch(
     name, extra = "zen_sliding_median_boundary", ()
     if route == "rank":
         name, extra = "zen_sliding_median_rank", (tile or freq_rank_tile(k),)
+    elif route == "network":
+        name = "zen_sliding_median_network"
     err = _launch(
         x,
         _entry(_build.library(cut), name, x.dtype),

@@ -7,11 +7,13 @@ hunt times each median kernel beside a copy with the same access pattern
 ``csrc/probe_copy.cu``:
 
 * ``rows_copy`` (#9): rows ``start .. start + t_out`` of each [T, F]
-  block of x [C, T, F], with K1 register's launch geometry and index
-  arithmetic;
-* ``segment_copy`` (#10): x [..., F] itself, read through K2 rank's
-  row-segment staging for width ``k`` and a ``reflect``, ``wrap`` or
-  ``edge`` border (``csrc/row_segment.cuh``, shared with K2).
+  block of x [C, T, F], with the launch geometry and index arithmetic of
+  K1's network kernel (``csrc/time_runs.cuh``, shared with K1);
+* ``segment_copy`` (#10): x [..., F] itself, read through the row-segment
+  staging of the route K2 takes at width ``k`` (``freq_route``: the
+  network route's own-type values or the rank route's keys) and a
+  ``reflect``, ``wrap`` or ``edge`` border (``csrc/row_segment.cuh``,
+  shared with K2).
 
 The conventions are ``median_cuda.py``'s: float32 or bfloat16, the
 input's dtype out; a CPU tensor takes the ``_plain`` twin, a CUDA tensor
@@ -35,6 +37,8 @@ from .median_cuda import (
     _entry,
     _launch,
     freq_rank_tile,
+    freq_route,
+    time_network_run,
 )
 
 SEGMENT_MODES = ("reflect", "wrap", "edge")
@@ -71,7 +75,8 @@ def rows_copy(x: torch.Tensor, start: int, t_out: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     err = _launch(x, _entry(_build.library(), "zen_rows_copy", x.dtype),
-                  x.data_ptr(), out.data_ptr(), c, t, f, start, t_out)
+                  x.data_ptr(), out.data_ptr(), c, t, f, start, t_out,
+                  time_network_run(t_out, c, f))
     _build.check(err, "rows_copy")
     rows_copy.launches += 1
     return out
@@ -83,9 +88,10 @@ rows_copy.launches = 0
 # ---------------- #10: segment_copy ----------------
 
 
-def _check_segment(x: torch.Tensor, k: int, mode: str) -> int:
+def _check_segment(x: torch.Tensor, k: int, mode: str):
     """sliding_median_boundary's checks for a border that keeps the
-    width; returns K2 rank's tile for ``k``."""
+    width; returns K2 rank's tile for ``k``, or None where K2 takes its
+    network route."""
     if mode not in SEGMENT_MODES:
         raise ZenError(f"segment_copy takes a border of {SEGMENT_MODES}, got {mode!r}")
     _check_k(k, MAX_FREQ_TAPS, "its 256 + K - 1 row segment fills 227 KB of shared memory")
@@ -93,10 +99,10 @@ def _check_segment(x: torch.Tensor, k: int, mode: str) -> int:
     f = x.shape[-1] if x.dim() else 0
     if f < 1 or (mode == "reflect" and (k - 1) // 2 > f - 1):
         raise ZenError(f"median width {k} does not fit {f} samples ({mode})")
-    tile = freq_rank_tile(k)
-    if tile is None:
+    route = freq_route(k)
+    if route == "count":
         raise ZenError(f"segment_copy: the keys of width {k} do not fit a block's shared memory")
-    return tile
+    return freq_rank_tile(k) if route == "rank" else None
 
 
 def segment_copy_plain(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
@@ -106,9 +112,10 @@ def segment_copy_plain(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
 
 
 def segment_copy(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
-    """out = x [..., F], read as K2's rank route reads a row: each block
-    stages a segment of tile + k - 1 samples (border ``mode`` applied on
-    the load) as 64-bit keys in shared memory, then writes its outputs'
+    """out = x [..., F], read as K2 reads a row at width ``k``: each
+    block stages its segment (border ``mode`` applied on the load) in
+    shared memory, as the network route's own-type values or the rank
+    route's 64-bit keys of tile + k - 1 samples, then writes its outputs'
     own samples back out."""
     k = int(k)
     tile = _check_segment(x, k, mode)
@@ -118,10 +125,10 @@ def segment_copy(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    f = x.shape[-1]
-    err = _launch(x, _entry(_build.library(), "zen_segment_copy", x.dtype),
-                  x.data_ptr(), out.data_ptr(), math.prod(x.shape[:-1]), f, k,
-                  FREQ_MODES[mode], tile)
+    name, extra = ("zen_segment_copy_values", ()) if tile is None else ("zen_segment_copy", (tile,))
+    err = _launch(x, _entry(_build.library(), name, x.dtype),
+                  x.data_ptr(), out.data_ptr(), math.prod(x.shape[:-1]), x.shape[-1], k,
+                  FREQ_MODES[mode], *extra)
     _build.check(err, "segment_copy")
     segment_copy.launches += 1
     return out
