@@ -10,6 +10,7 @@ item.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,7 @@ import zen_tpu_torch as T  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 FS, HOP, BLOCK = 4000.0, 16, 8
 ARGS = ["stream", "--fs", "4000", "--hop", "16", "--block-hops", "8"]
+GLOG_LINE = re.compile(r"[IWEF]\d{4} \d\d:\d\d:\d\d\.\d+\s+\d+ \S+:\d+\] ")
 # runs the port's CLI in-process and fails if it pulled in JAX
 NO_JAX = (
     "import sys; from zen_tpu_torch.cli import main; rc = main(sys.argv[1:]); "
@@ -51,7 +53,12 @@ def _streams(s: int, n: int, seed: int) -> np.ndarray:
 
 
 def _serving_line(stderr: bytes) -> dict:
-    lines = stderr.decode().strip().splitlines()
+    # XLA's C++ runtime may log to the same stderr (glog lines such as
+    # "E1016 21:56:35.355607 23728 cpu_aot_loader.cc:210] ..." when a cached
+    # executable was compiled on a host with other CPU features); those
+    # lines are not the command's, every other line is held as before.
+    lines = [ln for ln in stderr.decode().strip().splitlines()
+             if not GLOG_LINE.match(ln)]
     assert lines[0].startswith("zen stream ready: fs=4000 hop=16"), lines
     assert lines[-2].startswith("zen stream done: "), lines
     return json.loads(lines[-1])
