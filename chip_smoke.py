@@ -43,6 +43,25 @@ entry points at full width:
   phase 12 benches/serving_bound's legs (full block_step, transform,
            median, rest) at 64, 256 and 512 streams in f32 and at 512 in
            bf16, each in device time and in steady-window wall time;
+  phase 13 the SSE variant (box means of 1/|S|^2, no median kernel):
+           HPRRealtime hop 1024 (64 x B=32, 64 x B=1), MultiStreamHPR
+           64 x hop 256 in f32 and bf16 state, HPRIOffline on the clip
+           (process and process_blocked) and `zen-torch stream --streams
+           512 --sse`, each held against the CPU port at SSE_ATOL x scale
+           on every sample (continuous masks: nothing flips);
+  phase 14 the box mean alone at those paths' shapes, bitwise to the CPU
+           with its +inf prefill;
+  phase 15 the DFT transform (fft_impl dft_f32, dft, dft_bf16): 64 x hop
+           256, 512 x B=16 (MultiStreamHPR) and hop 1024 (HPRRealtime)
+           streams held against the CPU port's same entry point and mode
+           under the flip rule on the masks the two runs computed, and
+           against torch.fft at each mode's class; whether a rerun, a
+           recount or a row's batch changes bits; the clip with 'dft';
+           the transform alone beside torch.fft and the 512-stream
+           step's device time per mode;
+  phase 16 benches/quality on the card: the SSE row's floors at fs 22050
+           and the precision ladder at 44.1 kHz (full_bf16: bf16 DFT
+           operands and bf16 stream state);
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -53,7 +72,8 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route (phase 6 and phases 7-10).
+are counted per path and per kernel route (phase 6 and phases 7-16; the
+SSE paths must launch none).
 
 Every time printed is a measurement of this run on the card named in
 phase 1. Any failure raises and exits non-zero; there is no CPU path.
@@ -61,6 +81,7 @@ The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
@@ -115,9 +136,25 @@ SOURCES = {"tap_median_time": "zen_tpu_torch/csrc/median_time.cu",
            "segment_copy": "zen_tpu_torch/csrc/probe_copy.cu"}
 FLEET_HOP, FLEET_BLOCK = 256, 16  # zen stream's defaults
 FLEET_HELD = range(0, FLEET_STREAMS, 32)  # the streams held against the CPU
-# bf16 stream state vs the f32 stream, percussive stem: LADDER_FLOORS_DB
-# ["bf16_state"] of benches/quality.py:71, carried here as a number
-BF16_FLOOR_DB = 25.0
+# the SSE paths' stems against the CPU port: the oracle class
+# (tests/test_engine_parity.py:46-49). The masks are continuous, so no
+# bin flips; what differs is cuFFT's rounding against the CPU FFT's,
+# which 1/|S|^2 amplifies at near-zero bins. The measured value is printed.
+SSE_ATOL = 5e-4
+# each DFT mode's stems against torch.fft's (tests/test_engine_parity.py:237-249)
+DFT_CLASS = {"dft_f32": 2e-5, "dft": 3e-3, "dft_bf16": 5e-2}
+# each DFT mode's stems on the card against the CPU port's of the same
+# mode, under the flip rule: the realtime parity class, except for
+# dft_bf16, whose inverse rounds its float32 inputs to bf16. An input
+# within float32 noise of a rounding boundary (the two sides' sums differ
+# in order) rounds to neighbouring bf16 values on the card and on the
+# CPU: two bf16 steps, 2^-7 of scale, bound it
+DFT_CPU_ATOL = {"dft_f32": STEM_ATOL, "dft": STEM_ATOL, "dft_bf16": 2.0**-7}
+# the card's rates per DFT mode's arithmetic (NVIDIA's data sheet, the
+# H100 SXM, dense): float32 outside the tensor cores, bf16 tensor cores;
+# 'dft' does three bf16 products per term
+DFT_RATE = {"dft_f32": F32_OPS_PER_S, "dft": 989e12 / 3, "dft_bf16": 989e12}
+QUALITY_FS = 22050.0  # the SSE floors' calibration (tests/test_quality.py:36, :93)
 
 
 def require(cond: bool, what: str) -> None:
@@ -730,15 +767,23 @@ def compare_stream(cfg, audio, sizes, got, want, stems, keep=None) -> dict:
     masks come from a run of all S streams, the CPU's from those C."""
     m_gpu = stream_masks(cfg, audio, sizes, DEVICE, keep)
     m_cpu = stream_masks(cfg, audio if keep is None else audio[list(keep)], sizes, "cpu")
-    differ = (m_gpu != m_cpu).any(dim=0)  # [C, N, bins]
+    return hold_masks(m_gpu, m_cpu, cfg.hop, got, want, stems)
+
+
+def hold_masks(m_a, m_b, hop, got, want, stems, atol=STEM_ATOL, flip_share=FLIP_SHARE) -> dict:
+    """compare_stream's rule on two runs' masks [2, C, N, bins]: the flip
+    share (raises above ``flip_share`` unless it is None), then ``atol``
+    x scale on every output hop no flipped frame feeds."""
+    differ = (m_a != m_b).any(dim=0)  # [C, N, bins]
     flips = int(differ.sum())
     share = flips / differ.numel()
-    require(share <= FLIP_SHARE, f"hard-mask flips {flips} ({share:.3g} of bins)")
+    if flip_share is not None:
+        require(share <= flip_share, f"hard-mask flips {flips} ({share:.3g} of bins)")
     flipped = differ.any(dim=-1).numpy()  # [C, N]
     excluded = flipped.copy()
     excluded[:, 1:] |= flipped[:, :-1]
     c, n = excluded.shape
-    held = np.repeat(~excluded, cfg.hop, axis=1)[:, : got.shape[-1]]  # [C, L]
+    held = np.repeat(~excluded, hop, axis=1)[:, : got.shape[-1]]  # [C, L]
     worst = 0.0
     for e, stem in enumerate(stems):
         for ch in range(c):
@@ -746,8 +791,8 @@ def compare_stream(cfg, audio, sizes, got, want, stems, keep=None) -> dict:
             scale = max(1.0, float(np.abs(ref).max()))
             err = float(np.abs(got[ch, e] - ref)[held[ch]].max(initial=0.0))
             require(
-                err <= STEM_ATOL * scale,
-                f"{stem} stream {ch}: max |diff| {err} > {STEM_ATOL} x {scale}",
+                err <= atol * scale,
+                f"{stem} stream {ch}: max |diff| {err} > {atol} x {scale}",
             )
             worst = max(worst, err / scale)
     return {"flips": flips, "share": share, "excluded": int(excluded.sum()),
@@ -786,15 +831,15 @@ def per_kernel(counts: dict) -> dict:
     return {name: sum(counts[f"{name}/{r}"] for r in routes) for name, routes in ROUTES.items()}
 
 
-def run_stream(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64):
+def run_stream(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64, **cfg_kw):
     """Main path, single stream: returns (config, outputs [1, 3, N*hop],
-    audio, block sizes, timings)."""
+    audio, block sizes, timings). ``cfg_kw`` go to HPRConfig."""
     from zen_tpu_torch import HPRRealtime
 
     n = (n_blocks * b + n_single) * hop
     audio = synthetic_mix(n, fs, seed=1)
     hops = torch.from_numpy(audio).to(DEVICE).reshape(-1, hop)
-    rt = HPRRealtime(fs, hop=hop, device=DEVICE)
+    rt = HPRRealtime(fs, hop=hop, device=DEVICE, **cfg_kw)
     rt.warmup((b, 1))
     outs = [rt.process_block(hops[j * b : (j + 1) * b]) for j in range(n_blocks)]
     outs += [rt.process_next_hop(hops[n_blocks * b + t]) for t in range(n_single)]
@@ -810,10 +855,10 @@ def run_stream(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64):
     return rt.cfg, got, audio[None], sizes, timing
 
 
-def reference_stream(audio, sizes, hop=1024, fs=44100.0) -> np.ndarray:
+def reference_stream(audio, sizes, hop=1024, fs=44100.0, **cfg_kw) -> np.ndarray:
     from zen_tpu_torch import HPRRealtime
 
-    rt = HPRRealtime(fs, hop=hop, device="cpu")
+    rt = HPRRealtime(fs, hop=hop, device="cpu", **cfg_kw)
     hops = torch.from_numpy(audio[0]).reshape(-1, hop)
     outs, t = [], 0
     for b in sizes:
@@ -828,18 +873,18 @@ def fleet_audio(c: int, n: int, fs: float) -> np.ndarray:
     )
 
 
-def run_fleet(fs=44100.0, hop=256, c=64, b=32, n_blocks=16):
+def run_fleet(fs=44100.0, hop=256, c=64, b=32, n_blocks=16, **cfg_kw):
     from zen_tpu_torch import OUTPUT_PERCUSSIVE, MultiStreamHPR
 
     audio = fleet_audio(c, n_blocks * b * hop, fs)
     blocks = torch.from_numpy(audio).to(DEVICE).reshape(c, n_blocks, b, hop)
-    ms = MultiStreamHPR(c, fs, hop=hop, device=DEVICE)
+    ms = MultiStreamHPR(c, fs, hop=hop, device=DEVICE, **cfg_kw)
     ms.warmup((b,))
     got = torch.cat(
         [ms.process_block(blocks[:, j]) for j in range(n_blocks)], dim=2
     ).cpu().numpy()
     # percussive-only fleet: compact rows, one per enabled stem
-    perc = MultiStreamHPR(c, fs, hop=hop, outputs=OUTPUT_PERCUSSIVE, device=DEVICE)
+    perc = MultiStreamHPR(c, fs, hop=hop, outputs=OUTPUT_PERCUSSIVE, device=DEVICE, **cfg_kw)
     rows = perc.stem_rows
     require(
         rows == {"harmonic": None, "percussive": 0, "residual": None},
@@ -925,15 +970,14 @@ def hold_pass(what: str, got: dict, want: dict, masks_got, masks_want, hop: int)
 
 def hold_pass_on_cpu(cfg, audio: torch.Tensor) -> tuple:
     """One offline pass on the card vs the port on the CPU, fed the same
-    samples; the flip recount runs pass_masks, the masks half of the
-    very hpr_separate the stems come from."""
-    from zen_tpu_torch import hpr_separate
-    from zen_tpu_torch.drivers.offline import pass_masks
+    samples, hpr_separate's two halves on each side: the stems and the
+    very masks they came from, which the flip rule reads."""
+    from zen_tpu_torch.drivers.offline import pass_masks, pass_stems
 
     host = audio.cpu()
-    got, want = hpr_separate(audio, cfg), hpr_separate(host, cfg)
-    st = hold_pass(f"hop {cfg.hop} pass", got, want,
-                   pass_masks(audio, cfg).masks, pass_masks(host, cfg).masks, cfg.hop)
+    fm_gpu, fm_cpu = pass_masks(audio, cfg), pass_masks(host, cfg)
+    got, want = pass_stems(fm_gpu, cfg, audio), pass_stems(fm_cpu, cfg, host)
+    st = hold_pass(f"hop {cfg.hop} pass", got, want, fm_gpu.masks, fm_cpu.masks, cfg.hop)
     return got, st
 
 
@@ -1103,7 +1147,9 @@ def phase_zen_stream(smi: str) -> dict:
     bf16 stem against the f32 one by SI-SNR; one real pipe byte-equal to
     the in-process run; one 512 x 16 step's device profile."""
     from zen_tpu_torch import OUTPUT_PERCUSSIVE, MultiStreamHPR
+    from zen_tpu_torch.benches.quality import LADDER_FLOORS_DB
 
+    floor = LADDER_FLOORS_DB["bf16_state"]
     c, block = FLEET_STREAMS, FLEET_BLOCK * FLEET_HOP
     audio = fleet_audio(c, 32 * block + 1234, 44100.0)  # ~3.0 s, ragged tail
     short = np.ascontiguousarray(audio[:, : 8 * block + 777])
@@ -1149,12 +1195,12 @@ def phase_zen_stream(smi: str) -> dict:
     b16 = deinterleave(runs["--stream-state bf16"][1], c)
     pooled = si_snr(f32.ravel(), b16.ravel())
     per = np.array([si_snr(f32[i], b16[i]) for i in range(c)])
-    require(bool(np.isfinite(b16).all()) and pooled > BF16_FLOOR_DB,
-            f"bf16 vs f32 percussive SI-SNR {pooled:.2f} dB <= {BF16_FLOOR_DB}")
+    require(bool(np.isfinite(b16).all()) and pooled > floor,
+            f"bf16 vs f32 percussive SI-SNR {pooled:.2f} dB <= {floor}")
     worst = ", ".join(f"{i}: {per[i]:.2f}" for i in np.argsort(per)[:4])
     print(f"phase 9 bf16 vs f32 percussive stem, {c} streams: SI-SNR {pooled:.2f} dB "
-          f"(floor {BF16_FLOOR_DB}); per stream median {np.median(per):.2f} dB, "
-          f"{int((per < BF16_FLOOR_DB).sum())} below the floor, worst (stream: dB) {worst}")
+          f"(floor {floor}); per stream median {np.median(per):.2f} dB, "
+          f"{int((per < floor).sum())} below the floor, worst (stream: dB) {worst}")
 
     four = data[: 4 * block * c * 4]  # four blocks of every stream
     t0 = time.perf_counter()
@@ -1260,6 +1306,426 @@ def phase_serving_bound(smi: str) -> dict:
     return counts
 
 
+# ---------------- SSE, the box mean, the DFT transform, quality ----------------
+
+
+def rel_err(got: np.ndarray, want: np.ndarray, atol: float, what: str) -> float:
+    """Largest max |diff| / max(1, max |want|) over the rows of [..., L]
+    arrays, every sample held; raises above ``atol`` (unless it is None)
+    or on a non-finite sample of ``got``."""
+    got, want = np.asarray(got), np.asarray(want)
+    require(got.shape == want.shape, f"{what}: shape {got.shape} vs {want.shape}")
+    require(bool(np.isfinite(got).all()), f"{what}: non-finite samples")
+    worst = 0.0
+    for g, w in zip(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])):
+        worst = max(worst, float(np.abs(g - w).max(initial=0.0)) / max(1.0, float(np.abs(w).max())))
+    require(atol is None or worst <= atol, f"{what}: max |diff|/scale {worst:.3g} > {atol}")
+    return worst
+
+
+def step_device_us(ms, step) -> float:
+    """The card's µs per process_block(step) (runtime.profiling.device_ms,
+    which raises when the call synchronizes the host)."""
+    from zen_tpu_torch.runtime.profiling import device_ms
+
+    return device_ms(lambda _: ms.process_block(step), step, iters=10, repeats=3) * 1e3
+
+
+def phase_sse(smi: str) -> dict:
+    """The SSE variant through its entry points at full width, each held
+    against the port's CPU run at SSE_ATOL x scale on every sample:
+    HPRRealtime hop 1024 (64 x B=32, 64 x B=1), MultiStreamHPR 64 x hop
+    256 (16 x B=32, float32 and bf16 state), HPRIOffline on the clip
+    (process and process_blocked) and `zen-torch stream --streams 512
+    --sse` on ~1 s per stream. The box means replace both medians: the
+    phase launches no median kernel."""
+    from zen_tpu_torch import OUTPUT_PERCUSSIVE, HPRConfig, HPRIOffline, MultiStreamHPR
+
+    reset_launches()
+    cfg1, got1, audio1, sizes1, t1 = run_stream(use_sse=True)
+    e1 = rel_err(got1, reference_stream(audio1, sizes1, use_sse=True), SSE_ATOL,
+                 "SSE hop-1024 stream")
+    print(f"phase 13 SSE HPRRealtime fs 44100 hop 1024, 64 x B=32 + 64 x B=1: max |diff|/scale "
+          f"{e1:.3g} vs CPU (limit {SSE_ATOL}), finite from the first hop; {t1['step_us']:.1f} "
+          f"us/step wall at B=32, {t1['hop_us']:.1f} us/hop at B=1; one B=32 step: "
+          f"{t1['prof_b']}; one B=1 step: {t1['prof_1']} [{smi}]")
+    for kw in ({}, {"stream_state": "bf16"}):
+        cfgm, gotm, audiom, sizesm, tm = run_fleet(use_sse=True, **kw)
+        em = rel_err(gotm, reference_fleet(audiom, sizesm, use_sse=True, **kw), SSE_ATOL,
+                     f"SSE fleet {kw}")
+        c = audiom.shape[0]
+        ms = MultiStreamHPR(c, 44100.0, 256, use_sse=True, device=DEVICE, **kw)
+        step = torch.from_numpy(audiom[:, : 32 * 256].reshape(c, 32, 256)).to(DEVICE)
+        print(f"phase 13 SSE MultiStreamHPR {c} x fs 44100 hop 256 {kw or 'f32'}, 16 x B=32: "
+              f"max |diff|/scale {em:.3g} vs CPU (limit {SSE_ATOL}); {tm['step_us']:.1f} us/step "
+              f"wall = {tm['msps']:.2f} Msamples/s, {step_device_us(ms, step):.1f} us/step device; "
+              f"one step: {tm['prof_b']} [{smi}]")
+
+    sep = HPRIOffline(OFFLINE_FS, 4096, 256, 2.5, 2.5, use_sse=True, device=DEVICE)
+    x = torch.from_numpy(synthetic_mix(CLIP_SAMPLES, OFFLINE_FS, seed=7)).to(DEVICE)
+    whole, blocked = sep.process(x), sep.process_blocked(x)
+    cpu = HPRIOffline(OFFLINE_FS, 4096, 256, 2.5, 2.5, use_sse=True, device="cpu")
+    host = [o.cpu().numpy() for o in whole]
+    ec = rel_err(host, [o.numpy() for o in cpu.process(x.cpu())], SSE_ATOL, "SSE clip")
+    eb = rel_err([o.cpu().numpy() for o in blocked], host, SSE_ATOL, "SSE clip blocked")
+    same = all(torch.equal(a, b) for a, b in zip(whole, blocked))
+    wall = wall_us_per_call(lambda: sep.process(x), 10) / 1e3
+    wall_b = wall_us_per_call(lambda: sep.process_blocked(x), 10) / 1e3
+    print(f"phase 13 SSE HPRIOffline(44100, 4096, 256, 2.5, 2.5) clip {CLIP_SAMPLES} samples: "
+          f"process vs CPU max |diff|/scale {ec:.3g} (limit {SSE_ATOL}); process_blocked vs "
+          f"process {'bitwise equal' if same else f'{eb:.3g}'}; process {wall:.2f} ms wall, "
+          f"process_blocked {wall_b:.2f} ms (means of 10); one process(): "
+          f"{device_profile(lambda: sep.process(x))} [{smi}]")
+
+    c, block = FLEET_STREAMS, FLEET_BLOCK * FLEET_HOP
+    audio = fleet_audio(c, 10 * block + 321, 44100.0)  # ~0.94 s, ragged tail
+    out, err = zen_stream(fleet_argv("--sse"), interleave(audio))
+    line = json.loads(err[-1])
+    n = audio.shape[1]
+    n_blocks = -(-n // block)
+    padded = np.zeros((c, n_blocks * block), np.float32)
+    padded[:, :n] = audio
+    held = list(FLEET_HELD)
+    kw = dict(outputs=OUTPUT_PERCUSSIVE, use_sse=True)
+    unit = np.float32(1.0 / HPRConfig(fs=44100.0, hop=FLEET_HOP, causal=True, **kw).synth_scale)
+    want = reference_fleet(padded[held], [FLEET_BLOCK] * n_blocks, **kw)[:, 0, :n] * unit
+    ez = rel_err(deinterleave(out, c)[held], want, SSE_ATOL, "SSE zen stream")
+    launches = read_launches()
+    require(not any(launches.values()), f"the SSE paths launched median kernels: {launches}")
+    print(f"phase 13 SSE zen stream --streams {c} --sse: {n} samples per stream; "
+          f"{len(held)} streams vs CPU at unit gain: max |diff|/scale {ez:.3g} (limit "
+          f"{SSE_ATOL}); samples_per_s {line['samples_per_s']}, us_per_hop {line['us_per_hop']}; "
+          f"median launches over every SSE run {launches} [{smi}]")
+    return launches
+
+
+def phase_box(smi: str) -> None:
+    """The box mean alone at the SSE paths' shapes: the card bitwise
+    equal to the CPU, infs included, with its device time beside the
+    bound (each input element read and each output written once at
+    HBM_BYTES_PER_S; two adds and a division per output, a running
+    window, at F32_OPS_PER_S)."""
+    from zen_tpu_torch.ops.box import sliding_mean
+
+    rng = np.random.default_rng(9)
+    inf = float("inf")
+
+    def feat(*shape, inf_rows=0):
+        x = 1.0 / np.square(rng.random(shape, dtype=np.float32) + np.float32(1e-3))
+        x[..., :inf_rows, :] = np.inf  # the prefill of a fresh stream
+        return torch.from_numpy(x.astype(np.float32))
+
+    for label, x, offs, dim, boundary, fill in (
+        ("[32, 2049] K=47 reflect (hop 1024 frequency)", feat(32, 2049),
+         tuple(range(-23, 24)), -1, "reflect", 0.0),
+        ("[2048, 513] K=13 reflect (64 x B=32 hop 256 frequency)", feat(2048, 513),
+         tuple(range(-6, 7)), -1, "reflect", 0.0),
+        ("[64, 21+32, 513] hop 256 time taps over [hist ++ fresh], +inf prefill",
+         feat(64, 53, 513, inf_rows=21), T256, -2, "zero", inf),
+        ("[1, 5+32, 2049] hop 1024 time taps K=3, +inf prefill", feat(1, 37, 2049, inf_rows=5),
+         (-5, -1, 0), -2, "zero", inf),
+    ):
+        xd = x.to(DEVICE)
+        run = lambda xd=xd, o=offs, d=dim, b=boundary, f=fill: sliding_mean(xd, o, d, b, f)  # noqa: E731
+        got, want = run().cpu(), sliding_mean(x, offs, dim, boundary, fill)
+        require(torch.equal(torch.isinf(got), torch.isinf(want)) and torch.equal(got, want),
+                f"box mean {label}: card differs from CPU")
+        us = median_us(run)
+        t_bytes = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e6
+        t_ops = 3 * x.numel() / F32_OPS_PER_S * 1e6
+        b_us, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        print(f"phase 14 box mean {label}: card bitwise equal to CPU ({int(torch.isinf(got).sum())} "
+              f"inf outputs); {us:.2f} us device (median of {TIMED_RUNS}), bound {b_us:.2f} us "
+              f"({b_by}) [{smi}]")
+
+
+def transform_rows(mode: str, rows: int, nwin: int) -> dict:
+    """One DFT mode's forward and inverse at [rows, nwin] beside
+    torch.fft's: device µs, bound µs, relative error against a float64
+    DFT of the same inputs."""
+    from zen_tpu_torch.ops import fft as zfft
+
+    nfft, bins = 2 * nwin, nwin + 1
+    rng = np.random.default_rng(rows + nwin)
+    x64 = rng.standard_normal((rows, nwin))
+    s64 = np.fft.rfft(x64, n=nfft)
+    p64 = np.concatenate([s64.real, s64.imag], axis=-1)
+    y64 = np.fft.irfft(s64, n=nfft)[:, :nwin]
+    x = torch.from_numpy(x64.astype(np.float32)).to(DEVICE)
+    p = torch.from_numpy(p64.astype(np.float32)).to(DEVICE)
+    s = torch.complex(p[:, :bins], p[:, bins:])
+
+    def err(got, ref):
+        return float(np.abs(got.cpu().double().numpy() - ref).max() / np.abs(ref).max())
+
+    fwd = lambda: zfft.dft_matmul(x, nwin, nfft, False, mode)  # noqa: E731
+    inv = lambda: zfft.dft_matmul(p, nwin, nfft, True, mode)  # noqa: E731
+    out = {"fwd_us": median_us(fwd), "inv_us": median_us(inv),
+           "fwd_err": err(fwd(), p64), "inv_err": err(inv(), y64)}
+    flops = 2.0 * rows * nwin * 2 * bins
+    item = {"dft_f32": 4, "dft": 4, "dft_bf16": 2}[mode]  # the matrix: float32, hi + lo, bf16
+    for leg, n_in, n_out in (("fwd", nwin, 2 * bins), ("inv", 2 * bins, nwin)):
+        t_bytes = (rows * (n_in + n_out) * 4 + n_in * n_out * item) / HBM_BYTES_PER_S * 1e6
+        t_ops = flops / DFT_RATE[mode] * 1e6
+        out[f"{leg}_bound"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rf = lambda: torch.fft.rfft(x, n=nfft)  # noqa: E731
+    ir = lambda: torch.fft.irfft(s, n=nfft)[:, :nwin]  # noqa: E731
+    out.update(rfft_us=median_us(rf), irfft_us=median_us(ir),
+               rfft_err=err(torch.cat([rf().real, rf().imag], -1), p64), irfft_err=err(ir(), y64))
+    return out
+
+
+@contextlib.contextmanager
+def entry_masks(keep=None):
+    """The hard masks (harmonic, percussive) that the streaming entry
+    points compute inside the block, one [2, C, B, bins] host tensor per
+    step, of the streams ``keep`` only when given: drivers.realtime's
+    step_masks, which block_step calls, wrapped to keep its result's
+    masks. The flip rule then reads the masks of the very run it holds,
+    not those of a second run."""
+    from zen_tpu_torch.drivers import realtime as rt
+
+    inner, seen = rt.step_masks, []
+
+    def recorded(cfg, state, blocks):
+        step = inner(cfg, state, blocks)
+        m = torch.stack(step.masks[:2])
+        seen.append((m if keep is None else m[:, keep]).cpu())
+        return step
+
+    rt.step_masks = recorded
+    try:
+        yield seen
+    finally:
+        rt.step_masks = inner
+
+
+def fleet_entry(audio: np.ndarray, sizes, device, keep=None, **cfg_kw) -> tuple:
+    """MultiStreamHPR.process_block over the streams audio [C, N*hop] at
+    44.1 kHz, hop 256, block by block on ``device``: (outputs [C', E,
+    N*hop] as a host array, the masks of that run [2, C', N, bins], the
+    fleet), C' the streams ``keep`` (all when None)."""
+    from zen_tpu_torch import MultiStreamHPR
+
+    c = audio.shape[0]
+    ms = MultiStreamHPR(c, 44100.0, FLEET_HOP, device=device, **cfg_kw)
+    x = torch.from_numpy(audio).reshape(c, -1, FLEET_HOP)
+    sel = slice(None) if keep is None else list(keep)
+    outs, t = [], 0
+    with entry_masks(sel) as seen:
+        for b in sizes:
+            outs.append(ms.process_block(x[:, t : t + b].to(device))[sel].cpu())
+            t += b
+    return torch.cat(outs, dim=2).numpy(), torch.cat(seen, dim=2), ms
+
+
+def realtime_entry(audio: np.ndarray, sizes, device, hop=1024, **cfg_kw) -> tuple:
+    """HPRRealtime over the stream audio [1, N*hop] at 44.1 kHz on
+    ``device``: process_block for a block of B > 1 hops, process_next_hop
+    for one. (outputs [1, 3, N*hop] as a host array, the masks of that run
+    [2, 1, N, bins], the stream)."""
+    from zen_tpu_torch import HPRRealtime
+
+    rt = HPRRealtime(44100.0, hop, device=device, **cfg_kw)
+    x = torch.from_numpy(audio[0]).reshape(-1, hop)
+    outs, t = [], 0
+    with entry_masks() as seen:
+        for b in sizes:
+            blk = x[t : t + b].to(device)
+            outs.append((rt.process_block(blk) if b > 1 else rt.process_next_hop(blk[0])).cpu())
+            t += b
+    return torch.cat(outs, dim=1).numpy()[None], torch.cat(seen, dim=2), rt
+
+
+def gemm_invariance(mode: str, device) -> dict:
+    """Whether one DFT mode's product of a row depends on more than the
+    row, at the 64-stream step's shapes (forward [2048, 512], inverse
+    [6144, 1026]): the rows whose bits differ from the whole batch's
+    when the same rows run again from a fresh buffer (rerun), from a
+    buffer 4 bytes off its allocation (offset), the first m rows alone
+    (rows_m), and on the CPU on one thread (threads_1)."""
+    from zen_tpu_torch.ops import fft as zfft
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for leg, rows, k, inverse in (("fwd", 2048, 512, False), ("inv", 6144, 1026, True)):
+        x = torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32)).to(device)
+        run = functools.partial(zfft.dft_matmul, nwin=512, nfft=1024, inverse=inverse, mode=mode)
+        ref = run(x)
+
+        def differ(got):
+            return int((got != ref[: got.shape[0]]).any(dim=1).sum())
+
+        shifted = torch.empty(rows * k + 1, device=device)[1:].view(rows, k)
+        shifted.copy_(x)
+        cases = {"rerun": differ(run(x.clone())), "offset": differ(run(shifted))}
+        for m in (1, 32, 512):
+            cases[f"rows_{m}"] = differ(run(x[:m].clone()))
+        if torch.device(device).type == "cpu":
+            n = torch.get_num_threads()
+            torch.set_num_threads(1)
+            cases["threads_1"] = differ(run(x))
+            torch.set_num_threads(n)
+        out[leg] = cases
+    return out
+
+
+def phase_dft(smi: str) -> dict:
+    """The DFT transform at full width, each mode, through the entry
+    points: MultiStreamHPR at 64 streams, hop 256 (8 x B=32) and 512 x
+    B=16 (8 blocks, every 32nd stream held), HPRRealtime at hop 1024 (16
+    x B=32 + 16 x B=1), each held against the port's CPU run of the same
+    entry point and mode under the flip rule, on the masks of the two
+    runs held (entry_masks), and against torch.fft on the card at the
+    mode's class; whether a second run, or a recount of the masks as
+    phases 4, 5, 9 and 10 make it, gives the same bits, and whether a
+    row's product depends on its batch (gemm_invariance); the clip
+    through HPRIOffline with 'dft' pass by pass against the CPU. Then the
+    transform alone beside torch.fft and the 512-stream step's device
+    time per mode. Returns the median launches of the paths."""
+    from zen_tpu_torch import OUTPUT_PERCUSSIVE, HPRConfig, HPRIOffline, MultiStreamHPR
+
+    stems = ("harmonic", "percussive", "residual")
+    totals = {}
+    c, b, hop = FLEET_STREAMS, FLEET_BLOCK, FLEET_HOP
+    fleet, sizes = fleet_audio(64, 8 * 32 * hop, 44100.0), [32] * 8
+    kept = list(range(0, 64, 4))  # the 64-stream fleet's streams held against the CPU
+    audio512, held = fleet_audio(c, 8 * b * hop, 44100.0), list(FLEET_HELD)
+    audio1, sizes1 = synthetic_mix(528 * 1024, 44100.0, seed=1)[None], [32] * 16 + [1] * 16
+
+    # torch.fft's runs on the card are the yardstick of every mode
+    fft_hard = fleet_entry(fleet, sizes, DEVICE)
+    fft_soft = fleet_entry(fleet, sizes, DEVICE, soft_mask=True)[0]
+    for mode in DFT_CLASS:
+        reset_launches()
+        got, m_gpu, ms = fleet_entry(fleet, sizes, DEVICE, fft_impl=mode)
+        want, m_cpu, _ = fleet_entry(fleet[kept], sizes, "cpu", fft_impl=mode)
+        rm = hold_masks(m_gpu[:, kept], m_cpu, hop, got[kept], want, stems, DFT_CPU_ATOL[mode])
+        again, m_again, _ = fleet_entry(fleet, sizes, DEVICE, fft_impl=mode)
+        rerun = "bitwise equal" if np.array_equal(again, got) and torch.equal(m_again, m_gpu) \
+            else f"differs by {rel_err(again, got, None, 'rerun'):.3g}"
+        cfgm = HPRConfig(fs=44100.0, hop=hop, causal=True, fft_impl=mode)
+        recount = (int((stream_masks(cfgm, fleet, sizes, DEVICE) != m_gpu).sum()),
+                   int((stream_masks(cfgm, fleet[kept], sizes, "cpu") != m_cpu).sum()))
+        inv = {"card": gemm_invariance(mode, DEVICE), "CPU": gemm_invariance(mode, "cpu")}
+        # against torch.fft at the mode's class: hard masks under the flip
+        # rule (bf16 operands flip bins near the noise floor), soft masks
+        # on every sample
+        ef = hold_masks(m_gpu, fft_hard[1], hop, got, fft_hard[0], stems,
+                        atol=DFT_CLASS[mode], flip_share=None)
+        e_all = rel_err(got, fft_hard[0], None, f"{mode} fleet vs torch.fft")
+        soft = fleet_entry(fleet, sizes, DEVICE, fft_impl=mode, soft_mask=True)[0]
+        e_soft = rel_err(soft, fft_soft, DFT_CLASS[mode], f"{mode} soft-mask fleet vs torch.fft")
+        step = torch.from_numpy(fleet[:, : 32 * hop].reshape(64, 32, hop)).to(DEVICE)
+        print(f"phase 15 {mode} MultiStreamHPR 64 x hop 256, 8 x B=32: {len(kept)} streams vs "
+              f"CPU {mode}: flips {rm['flips']} ({rm['share']:.3g}), max |diff|/scale "
+              f"{rm['rel_err']:.3g} (limit {DFT_CPU_ATOL[mode]:.3g}); vs torch.fft on the card "
+              f"(class {DFT_CLASS[mode]}): hard masks {ef['flips']} bins flipped "
+              f"({ef['share']:.3g}), excluded hops {ef['excluded']}/{ef['hops']}, max "
+              f"|diff|/scale {ef['rel_err']:.3g} on the rest, {e_all:.3g} over every hop; soft "
+              f"masks {e_soft:.3g} over every hop; "
+              f"{wall_us_per_call(lambda: ms.process_block(step), TIMED_RUNS):.1f} us/step wall "
+              f"[{smi}]")
+        print(f"phase 15 {mode} reproducibility: a second run on the card {rerun}; a recount of "
+              f"the masks (stream_masks) differs from the run's own in {recount[0]} bins on the "
+              f"card, {recount[1]} on the CPU; rows whose product differs from the batch's: "
+              + "; ".join(f"{dev} {leg} {cases}" for dev, legs in inv.items()
+                          for leg, cases in legs.items()) + f" [{smi}]")
+
+        got, m_gpu, _ = fleet_entry(audio512, [b] * 8, DEVICE, held,
+                                    outputs=OUTPUT_PERCUSSIVE, fft_impl=mode)
+        want, m_cpu, _ = fleet_entry(audio512[held], [b] * 8, "cpu",
+                                     outputs=OUTPUT_PERCUSSIVE, fft_impl=mode)
+        r512 = hold_masks(m_gpu, m_cpu, hop, got, want, ("percussive",), DFT_CPU_ATOL[mode])
+        print(f"phase 15 {mode} MultiStreamHPR {c} x B={b}, 8 blocks: {len(held)} streams vs "
+              f"CPU {mode}: flips {r512['flips']} ({r512['share']:.3g}), max |diff|/scale "
+              f"{r512['rel_err']:.3g} (limit {DFT_CPU_ATOL[mode]:.3g}) [{smi}]")
+
+        got1, m1, rt1 = realtime_entry(audio1, sizes1, DEVICE, fft_impl=mode)
+        want1, mc1, _ = realtime_entry(audio1, sizes1, "cpu", fft_impl=mode)
+        r1 = hold_masks(m1, mc1, 1024, got1, want1, stems, DFT_CPU_ATOL[mode])
+        blk = torch.from_numpy(audio1[0, : 32 * 1024].reshape(32, 1024)).to(DEVICE)
+        print(f"phase 15 {mode} HPRRealtime hop 1024, 16 x B=32 + 16 x B=1: vs CPU {mode}: "
+              f"flips {r1['flips']} ({r1['share']:.3g}), max |diff|/scale {r1['rel_err']:.3g} "
+              f"(limit {DFT_CPU_ATOL[mode]:.3g}); "
+              f"{wall_us_per_call(lambda: rt1.process_block(blk), TIMED_RUNS):.1f} us/step wall at "
+              f"B=32, {wall_us_per_call(lambda: rt1.process_next_hop(blk[0]), 200):.1f} us/hop at "
+              f"B=1; one B=32 step: {device_profile(lambda: rt1.process_block(blk))} [{smi}]")
+        counts = read_launches()
+        require(all(v > 0 for v in per_kernel(counts).values()), f"{mode} paths launches {counts}")
+        print(f"phase 15 {mode} streaming paths' median launches: {counts}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    reset_launches()
+    sep = HPRIOffline(OFFLINE_FS, 4096, 256, 2.5, 2.5, fft_impl="dft", device=DEVICE)
+    x = torch.from_numpy(synthetic_mix(CLIP_SAMPLES, OFFLINE_FS, seed=7)).to(DEVICE)
+    h, p, r = sep.process(x)
+    counts = read_launches()
+    require(all(v > 0 for v in per_kernel(counts).values()), f"dft clip launches {counts}")
+    pass1, st1 = hold_pass_on_cpu(sep.cfg_h, x)
+    pass2, st2 = hold_pass_on_cpu(sep.cfg_p, pass1["percussive"] + pass1["residual"])
+    require(torch.equal(h, pass1["harmonic"]) and torch.equal(p, pass2["percussive"]),
+            "dft process() differs from its two passes on the card")
+    wall = wall_us_per_call(lambda: sep.process(x), 10) / 1e3
+    print(f"phase 15 dft HPRIOffline clip: pass 1 flips {st1['flips']} ({st1['share']:.3g}), max "
+          f"|diff|/scale {st1['rel_err']:.3g}; pass 2 flips {st2['flips']} ({st2['share']:.3g}), "
+          f"{st2['rel_err']:.3g} (limit {STEM_ATOL}); process {wall:.2f} ms wall (mean of 10); "
+          f"launches {counts} [{smi}]")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+    for rows, nwin, what in ((8192, 512, "512 x B=16 hop 256"), (32, 2048, "B=32 hop 1024")):
+        for mode in DFT_CLASS:
+            t = transform_rows(mode, rows, nwin)
+            print(f"phase 15 transform [{rows}, {nwin}] -> {nwin + 1} bins ({what}) {mode}: "
+                  f"forward {t['fwd_us']:.2f} us (bound {t['fwd_bound'][0]:.2f}, "
+                  f"{t['fwd_bound'][1]}; rel err {t['fwd_err']:.3g}) vs rfft {t['rfft_us']:.2f} us "
+                  f"({t['rfft_err']:.3g}); inverse {t['inv_us']:.2f} us (bound "
+                  f"{t['inv_bound'][0]:.2f}, {t['inv_bound'][1]}; {t['inv_err']:.3g}) vs irfft "
+                  f"{t['irfft_us']:.2f} us ({t['irfft_err']:.3g}) (medians of {TIMED_RUNS}) [{smi}]")
+    step = torch.from_numpy(fleet_audio(FLEET_STREAMS, FLEET_BLOCK * FLEET_HOP, 44100.0)
+                            .reshape(FLEET_STREAMS, FLEET_BLOCK, FLEET_HOP)).to(DEVICE)
+    times = {}
+    for impl in ("torch",) + tuple(DFT_CLASS):
+        ms = MultiStreamHPR(FLEET_STREAMS, 44100.0, FLEET_HOP, outputs=OUTPUT_PERCUSSIVE,
+                            fft_impl=impl, device=DEVICE)
+        ms.warmup((FLEET_BLOCK,))
+        times[impl] = step_device_us(ms, step)
+    print(f"phase 15 MultiStreamHPR {FLEET_STREAMS} x B={FLEET_BLOCK} step device time: "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in times.items()) + f" [{smi}]")
+    return totals
+
+
+def phase_quality(smi: str) -> dict:
+    """benches/quality on the card: the SSE offline row on the 2 s hard
+    mixture at fs 22050, 1024/256 (SSE_FLOORS_DB), and the precision
+    ladder at 44.1 kHz, hop 256 (LADDER_FLOORS_DB: the first GPU reading
+    of full_bf16). Returns the ladder's median launches."""
+    from zen_tpu_torch.benches import quality
+
+    harm, perc, cym, mix = quality.make_hard_mixture(QUALITY_FS, 2.0)
+    sig = {"harm": harm, "perc": perc, "cym": cym, "mix": mix}
+    row = quality.offline_row(QUALITY_FS, "hard", sig, 1024, 256, "sse", 2.0,
+                              {"use_sse": True}, DEVICE)
+    require(all(row[k] > v for k, v in quality.SSE_FLOORS_DB.items()),
+            f"SSE quality floors {quality.SSE_FLOORS_DB}: {row}")
+    print(f"phase 16 quality SSE hard mixture fs 22050 1024/256: harm {row['harm_db']} dB, perc "
+          f"{row['perc_db']} dB (floors {quality.SSE_FLOORS_DB}), cymbal to residual "
+          f"{row['cym_resid_db']} dB, to percussive {row['cym_perc_db']} dB [{smi}]")
+    reset_launches()
+    rows = quality.run_ladder(OFFLINE_FS, 2.0, [], DEVICE,
+                              log=lambda line: print(f"phase 16 {line}"))
+    counts = read_launches()
+    fails = [(r["mode"], r["mixture"], k, r[k]) for r in rows
+             for k in ("vs_f32_harm_db", "vs_f32_perc_db")
+             if not r[k] >= quality.LADDER_FLOORS_DB[r["mode"]]]
+    require(not fails, f"ladder floors {quality.LADDER_FLOORS_DB}: {fails}")
+    print(f"phase 16 ladder fs 44100 hop 256: every rung at or above its floor "
+          f"{quality.LADDER_FLOORS_DB}; launches {counts} [{smi}]")
+    return counts
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
@@ -1344,15 +1810,18 @@ def main() -> None:
     require(all(v > 0 for v in per_kernel(launches).values()), f"kernel launches {launches}")
     print(f"phase 6 streaming kernel launches: {launches}")
 
-    by_path = {
-        "streaming": launches,
-        "offline_clip": phase_offline_clip(smi),
-        "offline_track": phase_offline_track(smi),
-        "zen_stream_512": phase_zen_stream(smi),
-        "streaming_hop32": phase_hop32(smi),
-        "hbm_pattern": phase_hbm_pattern(smi),
-        "serving_bound": phase_serving_bound(smi),
-    }
+    by_path = {"streaming": launches}
+    for name, phase in (("offline_clip", phase_offline_clip), ("offline_track", phase_offline_track),
+                        ("zen_stream_512", phase_zen_stream), ("streaming_hop32", phase_hop32),
+                        ("hbm_pattern", phase_hbm_pattern), ("serving_bound", phase_serving_bound),
+                        ("sse", phase_sse), ("box", phase_box), ("dft", phase_dft),
+                        ("quality_ladder", phase_quality)):
+        t0 = time.perf_counter()
+        counts = phase(smi)
+        if counts is not None:
+            by_path[name] = counts
+        print(f"chip_smoke: {name} took {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t_run:.1f} s in all)")
     rows, off_path = kernel_rows(kstats, by_path)
     # every route the paths' tap counts select ran on a path (frequency K:
     # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32),

@@ -121,9 +121,24 @@ def test_synth_scale_is_nfft_times_cola():
         {"fft_impl": "dft_f32"},
     ],
 )
-def test_later_slices_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HPRConfig(fs=8000.0, hop=64, **kw)
+def test_sse_and_dft_configs_equal_zen_tpu(kw):
+    """The SSE variant and the DFT transforms build, every derived field
+    equal to zen_tpu's at every border, causal or not, fast_rfft on or
+    off: SSE turns 'valid' into 'wrap' before the fast_rfft demotion, so
+    SSE + 'valid' keeps the half spectrum; the 'dft*' names are stored
+    as given."""
+    for border in BORDERS:
+        for causal in (False, True):
+            for fast in (True, False):
+                jc, tc = _pair(fs=8000.0, hop=64, border=border, causal=causal,
+                               fast_rfft=fast, **kw)
+                for name in FIELDS + ("use_sse",):
+                    assert getattr(tc, name) == getattr(jc, name), (border, causal, fast, name)
+                assert tc.fft_impl == kw.get("fft_impl", "torch")
+    sse_valid = HPRConfig(fs=8000.0, hop=64, border="valid", use_sse=kw.get("use_sse", False))
+    assert (sse_valid.border, sse_valid.fast_rfft) == (
+        ("wrap", True) if "use_sse" in kw else ("valid", False))
+    assert config_from_fields(fs=8000.0, hop=64, **kw).fft_impl == kw.get("fft_impl", "torch")
 
 
 @pytest.mark.parametrize(
@@ -153,7 +168,8 @@ def test_port_imports_no_jax():
         "zen_tpu_torch.ops.select_network, "
         "zen_tpu_torch.ops.probe_cuda, zen_tpu_torch.convert, zen_tpu_torch.cli, "
         "zen_tpu_torch.runtime.profiling, zen_tpu_torch.benches.hbm_pattern, "
-        "zen_tpu_torch.benches.serving_bound; "
+        "zen_tpu_torch.benches.serving_bound, zen_tpu_torch.benches.quality, "
+        "zen_tpu_torch.ops.box, zen_tpu_torch.io.synth; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'zen_tpu' not in sys.modules, 'zen_tpu imported'"
     )

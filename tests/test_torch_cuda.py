@@ -579,3 +579,99 @@ def test_reset_streams_does_not_synchronize(cuda_device):
     for got, was, new in zip(ms.state, kept, fresh):
         assert torch.equal(got[[1, 2, 4, 5]], new[[1, 2, 4, 5]])
         assert torch.equal(got[[0, 3]], was[[0, 3]])
+
+
+@pytest.mark.parametrize("kw", [{"use_sse": True}, {"use_sse": True, "stream_state": "bf16"},
+                                {"fft_impl": "dft_bf16"}, {"fft_impl": "dft"},
+                                {"fft_impl": "dft_f32"}])
+def test_sse_and_dft_block_step_do_not_synchronize(cuda_device, kw):
+    """The SSE step (box means built from slices, a divisor made on the
+    card) and the DFT steps (matrices uploaded once, then cached) enqueue
+    without waiting on the card, B < H and B >= H."""
+    from zen_tpu_torch.drivers import realtime as rt
+
+    cfg = HPRConfig(fs=8000.0, hop=64, causal=True, **kw)
+    for b in (5, 20):
+        state = rt.init_state(cfg, 4, cuda_device)
+        blocks = torch.randn(4, b, 64, device=cuda_device)
+        rt.block_step(cfg, state, blocks)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rt.block_step(cfg, state, blocks)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("mode", ["dft_f32", "dft", "dft_bf16"])
+def test_dft_modes_ignore_the_global_tf32_flags(cuda_device, mode):
+    """Each mode fixes its own arithmetic: the same bits whatever the
+    global TF32 switches say, and the switches are left as they were."""
+    from zen_tpu_torch.ops import fft as zfft
+
+    x = torch.randn(300, 512, device=cuda_device)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    outs = []
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            torch.backends.cudnn.allow_tf32 = flag
+            outs.append(zfft.dft_matmul(x, 512, 1024, False, mode))
+            assert torch.backends.cuda.matmul.allow_tf32 == flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert torch.equal(outs[0], outs[1])
+    ref = torch.fft.rfft(x.double(), n=1024)
+    got = outs[0].double()
+    err = float((torch.cat([ref.real, ref.imag], -1) - got).abs().max() / ref.abs().max())
+    assert err < {"dft_f32": 1e-6, "dft": 2e-5, "dft_bf16": 1e-2}[mode], err
+
+
+@pytest.mark.parametrize("mode", ["dft_f32", "dft", "dft_bf16"])
+def test_dft_matmuls_on_card_match_cpu(cuda_device, mode):
+    """The card's products of the mode's operands against the CPU's:
+    bf16 products are exact on both, so only the sums' order differs
+    (1e-5 x |x| @ |W|, tests/test_torch_dft.py's bound)."""
+    from zen_tpu_torch.ops import fft as zfft
+
+    x = torch.randn(64, 512)
+    got = zfft.dft_matmul(x.to(cuda_device), 512, 1024, False, mode).cpu()
+    want = zfft.dft_matmul(x, 512, 1024, False, mode)
+    w = torch.from_numpy(zfft._dft_mats(512, 1024)[0])
+    assert ((got - want).abs() <= 1e-5 * (x.abs() @ w.abs())).all()
+
+
+def test_sse_box_mean_on_card_bitwise_to_cpu(cuda_device):
+    """The box mean's additions and its division run in the same order
+    on the card: bitwise to the CPU, +inf prefill rows included."""
+    from zen_tpu_torch.ops.box import sliding_mean
+
+    rng = np.random.default_rng(21)
+    x = 1.0 / np.square(rng.random((8, 53, 513), dtype=np.float32) + np.float32(1e-3))
+    x[:, :21] = np.inf
+    x = torch.from_numpy(x.astype(np.float32))
+    for offs, dim, boundary in ((T256, -2, "zero"), (tuple(range(-6, 7)), -1, "reflect"),
+                                (tuple(range(-23, 24)), -1, "wrap"), (T1024, -2, "zero")):
+        want = sliding_mean(x, offs, dim, boundary, float("inf"))
+        got = sliding_mean(x.to(cuda_device), offs, dim, boundary, float("inf")).cpu()
+        assert torch.equal(got, want), (offs[:3], boundary)
+
+
+def test_sse_streams_on_card_match_cpu_without_median_launches(cuda_device):
+    """SSE at fs 8000 / hop 64, 32 streams, B = 4 < H and B = 20 >= H:
+    card vs CPU port within the oracle class (chip_smoke.SSE_ATOL), no
+    median kernel launched."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(23)
+    audio = rng.standard_normal((32, 64 * 40)).astype(np.float32)
+    n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
+    for b in (4, 20):
+        outs = {}
+        for dev in ("cpu", cuda_device):
+            ms = MultiStreamHPR(32, 8000.0, 64, use_sse=True, device=dev)
+            x = torch.from_numpy(audio).reshape(32, -1, b, 64)
+            outs[str(dev)] = torch.cat([ms.process_block(x[:, j]) for j in range(x.shape[1])],
+                                       dim=2).cpu().numpy()
+        cs.rel_err(outs[str(cuda_device)], outs["cpu"], cs.SSE_ATOL, f"SSE B={b}")
+    assert (mc.tap_median_time.launches, mc.sliding_median_boundary.launches) == (n_time, n_freq)

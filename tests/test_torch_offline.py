@@ -181,14 +181,19 @@ def test_rejects_what_is_not_ported_or_invalid():
     with pytest.raises(T.ZenError, match="divisible"):
         T.HPRIOffline(1000.0, 16, 12, device="cpu")
     sep = T.HPRIOffline(1000.0, 16, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        sep.use_sse_filter()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
         sep.process_blocked(np.zeros(64, np.float32), ckpt_dir="ckpt")
     with pytest.raises(T.ZenError, match="expects \\[L\\]"):
         sep.process_blocked(np.zeros((2, 64), np.float32))
     with pytest.raises(T.ZenError, match="lies on"):
         sep.process(torch.zeros(64, device="meta"))
+    # the SSE toggle is ported: it gives the configs use_sse=True gives
+    sse = T.HPRIOffline(1000.0, 16, 8, use_sse=True, device="cpu")
+    sep.use_sse_filter()
+    assert (sep.cfg_h, sep.cfg_p) == (sse.cfg_h, sse.cfg_p) and sep.cfg_p.use_sse
+    audio = _audio(200, 12)
+    for a, b in zip(sep.process(audio), sse.process(audio)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 @pytest.mark.parametrize(

@@ -103,8 +103,10 @@ def test_warmup_and_toggles():
     a.use_soft_mask()
     c = T.HPRRealtime(1000.0, 8, soft_mask=True, device="cpu")
     np.testing.assert_array_equal(a.process_stream(audio, 6), c.process_stream(audio, 6))
-    with pytest.raises(NotImplementedError):
-        a.use_sse_filter()
+    a.use_sse_filter()
+    d = T.HPRRealtime(1000.0, 8, soft_mask=True, use_sse=True, device="cpu")
+    assert a.cfg == d.cfg and a.cfg.use_sse
+    np.testing.assert_array_equal(a.process_stream(audio, 6), d.process_stream(audio, 6))
 
 
 def test_state_carried_from_zen_tpu_continues_identically():

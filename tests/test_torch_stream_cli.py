@@ -5,8 +5,8 @@ Held against the port's own library (the same arithmetic: 1e-6 at unit
 gain, as tests/test_cli_io.py:213 holds zen_tpu's command) and against
 ``python -m zen_tpu.cli stream`` on the same bytes (the realtime parity
 class, 5e-5 x max(1, max|ref|) per stream; only the FFTs round
-differently). Refusals exit 2 with one stderr line naming their ROADMAP
-item.
+differently), under the median path, SSE and the float32 DFT. Refusals
+exit 2 with one stderr line naming their ROADMAP item.
 """
 import json
 import os
@@ -114,10 +114,42 @@ def test_multistream_pipe_matches_zen_tpu_cli(state):
 
 
 @pytest.mark.parametrize(
-    "extra,item",
-    [(["--mesh", "dp=2"], "item 13"), (["--sse"], "item 7"),
-     (["--fft-impl", "dft"], "item 3")],
+    "flags,cfg_kw",
+    [(["--sse"], {"use_sse": True}),
+     (["--sse", "--cpu"], {"use_sse": True, "border": "replicate"}),
+     (["--fft-impl", "dft_f32"], {"fft_impl": "dft_f32"})],
 )
+def test_sse_and_dft_pipes_match_zen_tpu_cli(flags, cfg_kw):
+    """--sse and --fft-impl dft_f32, 3 streams: the port's pipe against
+    zen_tpu's command on the same bytes, stream by stream, at the
+    realtime parity class, and against the port's MultiStreamHPR. The
+    DFT case keeps the 'wrap' border: --cpu (replicate) runs the full
+    spectrum, where both packages take the FFT whatever --fft-impl
+    says."""
+    s, n = 3, HOP * 24 + 9
+    streams = _streams(s, n, 13)
+    data = np.ascontiguousarray(streams.T).tobytes()
+    args = [*ARGS, "--streams", str(s), *flags]
+    proc = _port([*args, "--device", "cpu"], data)
+    assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+    env = dict(os.environ, ZEN_TPU_PLATFORM="cpu")
+    jax_proc = _run([sys.executable, "-m", "zen_tpu.cli", *args], data, env)
+    assert jax_proc.returncode == 0, jax_proc.stderr.decode()[-2000:]
+    got = np.frombuffer(proc.stdout, np.float32).reshape(n, s).T
+    want = np.frombuffer(jax_proc.stdout, np.float32).reshape(n, s).T
+    assert np.isfinite(got).all()
+    ms = T.MultiStreamHPR(s, FS, HOP, outputs=T.OUTPUT_PERCUSSIVE, device="cpu", **cfg_kw)
+    padded = np.zeros((s, 32 * HOP), np.float32)
+    padded[:, :n] = streams
+    lib = torch.cat([ms.process_block(padded[:, j * 128:(j + 1) * 128].reshape(s, BLOCK, HOP))
+                     for j in range(4)], dim=2)[:, 0, :n].numpy() / ms.cfg.synth_scale
+    for i in range(s):
+        scale = max(1.0, float(np.abs(want[i]).max()))
+        np.testing.assert_allclose(got[i] / scale, want[i] / scale, atol=5e-5, err_msg=str(i))
+        np.testing.assert_allclose(got[i], lib[i], atol=1e-6, err_msg=str(i))
+
+
+@pytest.mark.parametrize("extra,item", [(["--mesh", "dp=2"], "item 9")])
 def test_refusals_name_their_roadmap_item(extra, item):
     proc = _port([*ARGS, "--device", "cpu", *extra], b"")
     assert proc.returncode == 2

@@ -4,10 +4,13 @@
   copy with its access pattern (``ops/probe_cuda.py``);
 * ``serving_bound``: the streaming block step split into its legs, in
   device time and in wall time;
-* ``step_walls``: the streaming steps' host walls, of this checkout's
-  package or another's, for a comparison of two trees in one call.
+* ``step_walls``: the streaming steps' host walls and device times, of
+  this checkout's package or another's, for a comparison of two trees
+  in one call;
+* ``quality``: SI-SNR of the stems on synthetic mixtures, and the
+  precision ladder's rungs against the float32 stream.
 
-The first two run as ``python -m zen_tpu_torch.benches.<name>``
+All but ``step_walls`` run as ``python -m zen_tpu_torch.benches.<name>``
 (``--device cpu`` on a machine without a card) and from
 ``chip_smoke.py`` in-process; ``step_walls`` runs as a file, on the card.
 """

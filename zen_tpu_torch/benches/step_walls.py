@@ -1,6 +1,7 @@
 """Host wall per streaming step, for comparing two trees in one call.
 
     python zen_tpu_torch/benches/step_walls.py [--tree DIR] [--label NAME]
+        [--fft-impl dft|dft_bf16|dft_f32]
 
 Imports ``zen_tpu_torch`` from ``--tree`` (default: the checkout this
 file lies in), so that one call on the card can time another checkout's
@@ -10,10 +11,12 @@ streaming phases drive: ``HPRRealtime`` at 44.1 kHz hop 1024 and hop 32
 (B=32 and B=1), ``MultiStreamHPR`` with 64 streams at hop 256 (B=32) and
 the 512-stream percussive fleet at hop 256 (B=16) in f32 and bf16 stream
 state: the mean host wall of ``--runs`` synchronized steps after 5 warm
-ones (3 × ``--runs`` at B=1). Last, the pipe: ``zen-torch stream
---streams 512`` run in-process on 16 blocks per stream, as its own
-``stream_serving`` line counts it, in Msamples/s. Prints one line, the
-label, each wall in µs and the pipe's rate.
+ones (3 × ``--runs`` at B=1), and for each step of B > 1 hops its device
+µs (``runtime.profiling.device_ms``, the median of 3 windows of 10).
+Last, the pipe: ``zen-torch stream --streams 512`` run in-process on 16
+blocks per stream, as its own ``stream_serving`` line counts it, in
+Msamples/s. ``--fft-impl`` sets every step's and the pipe's transform.
+Prints one line, the label, each time in µs and the pipe's rate.
 """
 from __future__ import annotations
 
@@ -30,12 +33,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--runs", type=int, default=100)
+    ap.add_argument("--fft-impl", default="auto")
     args = ap.parse_args(argv)
     tree = str(Path(args.tree).resolve())
     sys.path.insert(0, tree)
     import torch
     import zen_tpu_torch
     from zen_tpu_torch import OUTPUT_PERCUSSIVE, HPRRealtime, MultiStreamHPR
+    from zen_tpu_torch.runtime.profiling import device_ms
 
     if not zen_tpu_torch.__file__.startswith(tree):
         raise SystemExit(f"zen_tpu_torch came from {zen_tpu_torch.__file__}, not {tree}")
@@ -50,26 +55,31 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / runs * 1e6
 
+    def timed(name, step, x):
+        out[name] = wall(lambda: step(x), args.runs)
+        out[f"{name} device"] = device_ms(lambda _: step(x), x, iters=10, repeats=3) * 1e3
+
+    kw = {"fft_impl": args.fft_impl}
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for hop in (1024, 32):
-        rt = HPRRealtime(44100.0, hop=hop)
+        rt = HPRRealtime(44100.0, hop=hop, **kw)
         blk = torch.randn(32, hop, generator=gen, device="cuda")
-        out[f"hop{hop} B=32"] = wall(lambda: rt.process_block(blk), args.runs)
+        timed(f"hop{hop} B=32", rt.process_block, blk)
         out[f"hop{hop} B=1"] = wall(lambda: rt.process_next_hop(blk[0]), 3 * args.runs)
-    ms = MultiStreamHPR(64, 44100.0, 256)
-    b64 = torch.randn(64, 32, 256, generator=gen, device="cuda")
-    out["64 x hop256 B=32"] = wall(lambda: ms.process_block(b64), args.runs)
+    ms = MultiStreamHPR(64, 44100.0, 256, **kw)
+    timed("64 x hop256 B=32", ms.process_block,
+          torch.randn(64, 32, 256, generator=gen, device="cuda"))
     for state in ("f32", "bf16"):
-        ms = MultiStreamHPR(512, 44100.0, 256, outputs=OUTPUT_PERCUSSIVE, stream_state=state)
-        b512 = torch.randn(512, 16, 256, generator=gen, device="cuda")
-        out[f"512 x hop256 B=16 {state}"] = wall(lambda: ms.process_block(b512), args.runs)
-    out["pipe 512 Msamples/s"] = pipe_msps(512, 16, 256, 16)
+        ms = MultiStreamHPR(512, 44100.0, 256, outputs=OUTPUT_PERCUSSIVE, stream_state=state, **kw)
+        timed(f"512 x hop256 B=16 {state}", ms.process_block,
+              torch.randn(512, 16, 256, generator=gen, device="cuda"))
+    out["pipe 512 Msamples/s"] = pipe_msps(512, 16, 256, 16, args.fft_impl)
     print(args.label, " | ".join(f"{k} {v:.1f}" for k, v in out.items()), flush=True)
     return out
 
 
-def pipe_msps(streams: int, blocks: int, hop: int, block_hops: int) -> float:
+def pipe_msps(streams: int, blocks: int, hop: int, block_hops: int, fft_impl: str) -> float:
     """``samples_per_s`` of the stream command's own last stderr line, in
     millions, for ``blocks`` blocks of seeded noise per stream through
     the CLI's main() with stdin and stdout swapped for byte buffers."""
@@ -84,7 +94,7 @@ def pipe_msps(streams: int, blocks: int, hop: int, block_hops: int) -> float:
     sys.stderr = io.StringIO()
     try:
         rc = cli_main(["stream", "--streams", str(streams), "--fs", "44100", "--hop", str(hop),
-                       "--block-hops", str(block_hops)])
+                       "--block-hops", str(block_hops), "--fft-impl", fft_impl])
         err = sys.stderr.getvalue()
     finally:
         sys.stdin, sys.stdout, sys.stderr = saved

@@ -6,8 +6,8 @@ defaults, byte layout, stderr lines and ``stream_serving`` JSON line:
 
   zen-torch stream [--fs 44100] [--hop 256] [--stem percussive]
       [--block-hops 16] [--streams N] [--raw-scale] [--cpu]
-      [--nocopybord] [--soft-mask] [--stream-state f32|bf16]
-      [--device cuda|cpu]
+      [--nocopybord] [--sse] [--soft-mask] [--stream-state f32|bf16]
+      [--fft-impl auto|torch|dft|dft_bf16|dft_f32] [--device cuda|cpu]
 
 also run as ``python -m zen_tpu_torch stream ...``. Differences from the
 JAX command:
@@ -17,13 +17,15 @@ JAX command:
   exits 2 with a message, never falling back to the CPU.
 - ``--cpu`` selects the 'replicate' border (the reference's CPU/IPP
   filters) and, unlike JAX's, does not choose the device.
-- ``--median-impl`` also takes zen_tpu's names 'xla' and 'pallas',
-  mapped as ``convert.config_from_fields`` maps them.
-- ``--mesh``, ``--sse`` and ``--fft-impl dft*`` exit 2 with one stderr
-  line naming their ROADMAP queue 1 items (13, 7, 3).
+- ``--median-impl`` and ``--fft-impl`` also take zen_tpu's names 'xla'
+  and 'pallas', mapped as ``convert.config_from_fields`` maps them;
+  ``--fft-impl auto`` is torch.fft, as zen_tpu's 'auto' is XLA's FFT
+  off the TPU.
+- ``--mesh`` exits 2 with one stderr line naming its ROADMAP queue 1
+  item (9, the parallel layer).
 
 offline, fakert, corpus, synth and the apps need audio I/O without
-``zen_tpu.io`` (ROADMAP queue 1, item 11).
+``zen_tpu.io`` (ROADMAP queue 1, items 5 and 6).
 """
 from __future__ import annotations
 
@@ -116,7 +118,7 @@ def cmd_stream(args) -> int:
             print(f"stream {err}", file=sys.stderr)
             return 1
         return _refuse(
-            "--mesh is not ported yet (ROADMAP queue 1, item 13: parallel layer)"
+            "--mesh is not ported yet (ROADMAP queue 1, item 9: parallel layer)"
         )
     try:
         device = resolve_device(args.device)
@@ -141,19 +143,16 @@ def cmd_stream(args) -> int:
     )
     multi = n_streams > 1
     t_proc = time.perf_counter()  # before warmup: captures the kernel build
-    try:
-        if multi:
-            ms = MultiStreamHPR(n_streams, args.fs, args.hop, args.beta, **common)
-            cfg = ms.cfg
-            latency = args.hop  # the same one-hop OLA latency per stream
-            ms.warmup(block_sizes=(args.block_hops,))
-        else:
-            rt = HPRRealtime(args.fs, args.hop, args.beta, **common)
-            cfg = rt.cfg
-            latency = rt.latency_samples
-            rt.warmup(block_sizes=(args.block_hops,))
-    except NotImplementedError as e:  # SSE, fft_impl='dft*'
-        return _refuse(str(e))
+    if multi:
+        ms = MultiStreamHPR(n_streams, args.fs, args.hop, args.beta, **common)
+        cfg = ms.cfg
+        latency = args.hop  # the same one-hop OLA latency per stream
+        ms.warmup(block_sizes=(args.block_hops,))
+    else:
+        rt = HPRRealtime(args.fs, args.hop, args.beta, **common)
+        cfg = rt.cfg
+        latency = rt.latency_samples
+        rt.warmup(block_sizes=(args.block_hops,))
     # unit gain: the engine carries the reference's nfft*COLA synthesis
     # scale; --raw-scale keeps it
     out_scale = 1.0 if args.raw_scale else 1.0 / cfg.synth_scale
@@ -290,7 +289,7 @@ def build_parser() -> argparse.ArgumentParser:
         "layout) through one pipe and one step per block",
     )
     stp.add_argument(
-        "--mesh", default="", help="not ported yet (ROADMAP queue 1, item 13)"
+        "--mesh", default="", help="not ported yet (ROADMAP queue 1, item 9)"
     )
     stp.add_argument(
         "--raw-scale",
@@ -300,7 +299,9 @@ def build_parser() -> argparse.ArgumentParser:
     stp.add_argument(
         "--cpu", action="store_true", help="the 'replicate' border (reference CPU/IPP)"
     )
-    stp.add_argument("--sse", action="store_true", help="not ported yet (item 7)")
+    stp.add_argument(
+        "--sse", action="store_true", help="the SSE box filter instead of the medians"
+    )
     stp.add_argument("--soft-mask", action="store_true")
     stp.add_argument(
         "--nocopybord", action="store_true", help="the 'valid' border (reference GPU)"
@@ -309,8 +310,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--fft-impl",
         choices=("auto", "torch", "xla", "dft", "dft_bf16", "dft_f32"),
         default="auto",
-        help="transform: torch.fft ('auto', 'torch', 'xla'); the DFT "
-        "matmuls are not ported yet (item 3)",
+        help="transform: torch.fft ('auto', 'torch', 'xla') or the DFT "
+        "matmuls at float32, bf16x3 or bf16 products ('dft_f32', 'dft', "
+        "'dft_bf16'; half spectrum only: --cpu and --nocopybord take torch.fft)",
     )
     stp.add_argument(
         "--median-impl",

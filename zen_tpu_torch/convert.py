@@ -25,8 +25,7 @@ def config_from_fields(**fields) -> HPRConfig:
     """HPRConfig from the JAX package's config fields, with its backend
     names mapped: median_impl 'xla' -> 'torch' (the plain reference,
     which takes CPU tensors only), 'pallas' -> 'cuda'; fft_impl 'xla' ->
-    'torch'. Variants this package does not carry yet
-    raise NotImplementedError from HPRConfig."""
+    'torch'; the 'dft*' transform names pass through as they are."""
     fields = dict(fields)
     if "median_impl" in fields:
         fields["median_impl"] = MEDIAN_IMPL_FROM_JAX.get(
@@ -46,7 +45,8 @@ def state_from_numpy(
 
     The feature history takes ``cfg``'s stream state dtype (bfloat16
     under 'bf16'; float32 without a cfg); ring and tails are float32. A
-    JAX bf16 history read back as float32 numpy converts exactly."""
+    JAX bf16 history read back as float32 numpy converts exactly, and so
+    does an SSE history's +inf prefill."""
     device = resolve_device(device)
     dtype = hist_dtype(cfg) if cfg is not None else torch.float32
     ring, feat_hist, ola_tail = (

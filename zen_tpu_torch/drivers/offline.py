@@ -14,9 +14,12 @@ reproduces the reference binary's percussive-only pass 2, whose residual
 stem is silence (hps.cu:45-48, 200-204).
 
 zen_tpu buckets clip lengths to powers of two (``_bucket_len``) and
-resolves its DFT seam per clip (``_resolve_auto_fft``) for XLA's compile
-cache and the TPU's matmul transform; the port runs eagerly with one
-transform, so it runs every clip at its true length.
+resolves its 'auto' transform per clip (``_resolve_auto_fft``) for XLA's
+compile cache and the TPU's matmul transform; the port runs eagerly,
+every clip at its true length, and its 'auto' is torch.fft ('dft*' is
+taken as given). The padded frames zen_tpu adds are all-zero audio,
+whose feature is the prefill value (0, or +inf under SSE) that
+out-of-range taps read, so the two agree.
 """
 from __future__ import annotations
 
@@ -71,17 +74,22 @@ def pass_masks(audio: torch.Tensor, cfg: HPRConfig) -> FrameMasks:
     return frame_masks(frame_signal(audio, cfg.hop, _n_frames(audio.shape[-1], cfg)), cfg)
 
 
+def pass_stems(fm: FrameMasks, cfg: HPRConfig, audio: torch.Tensor) -> dict:
+    """The synthesis half of one offline pass over audio [..., L]: dict
+    of [..., L] stems from the pass's masks (zeros for a disabled stem)."""
+    length = audio.shape[-1]
+    return {
+        name: torch.zeros_like(audio) if y is None
+        else overlap_add_stream(y, cfg.hop, advance=1)[..., :length]
+        for name, y in synthesize_masked(fm, cfg).items()
+    }
+
+
 def hpr_separate(audio, cfg: HPRConfig) -> dict:
     """One offline HPR pass on [..., L] audio -> dict of [..., L] stems
     (zeros for a disabled stem), on the audio's device."""
     audio = _as_audio(audio)
-    length = audio.shape[-1]
-    ys = synthesize_masked(pass_masks(audio, cfg), cfg)
-    return {
-        name: torch.zeros_like(audio) if y is None
-        else overlap_add_stream(y, cfg.hop, advance=1)[..., :length]
-        for name, y in ys.items()
-    }
+    return pass_stems(pass_masks(audio, cfg), cfg, audio)
 
 
 # ---------------- blocked overlap-save ----------------
@@ -196,8 +204,8 @@ class HPRIOffline:
     passed): harmonic from pass 1 (hop_h),
     percussive and residual from pass 2 (hop_p) over pass 1's
     percussive + residual. Numpy input is moved to ``device``; a tensor
-    must already lie there. Further keywords (soft_mask, fast_rfft,
-    median_impl, ...) go to both passes' HPRConfig.
+    must already lie there. Further keywords (use_sse, soft_mask,
+    fast_rfft, fft_impl, median_impl, ...) go to both passes' HPRConfig.
     """
 
     def __init__(
@@ -260,7 +268,7 @@ class HPRIOffline:
         if ckpt_dir is not None:
             raise NotImplementedError(
                 "mid-track checkpoints (ckpt_dir) are not ported yet "
-                "(ROADMAP queue 1, item 9: host runtime)"
+                "(ROADMAP queue 1, item 5: host runtime)"
             )
         audio = self._on_device(audio)
         if audio.ndim != 1:

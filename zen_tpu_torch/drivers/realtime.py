@@ -55,7 +55,8 @@ def hist_dtype(cfg: HPRConfig) -> torch.dtype:
 
 def init_state(cfg: HPRConfig, n_streams: int = 1, device="cuda") -> StreamState:
     """Zeroed state == the reference's reset_buffers (hps.h:296-321);
-    the feature history holds the feature of a zero frame. On the card
+    the feature history holds the feature of a zero frame (+inf under
+    SSE, ``prefill_value``). On the card
     unless ``device="cpu"`` is passed (``resolve_device``)."""
     device = resolve_device(device)
     return StreamState(
@@ -84,8 +85,8 @@ def _rows(rows: tuple, device: torch.device):
 
 def enabled_stems(cfg: HPRConfig) -> tuple:
     """Indices into STEMS of the stems the block step emits — the
-    cfg's output flags. (An enabled residual under soft masks has no
-    mask definition and yields a zero row, the reference's
+    cfg's output flags. (An enabled residual under soft or SSE masks
+    has no mask definition and yields a zero row, the reference's
     unwritten-buffer behavior, hps.cu:562-567.)"""
     return tuple(
         i for i, name in enumerate(STEMS) if getattr(cfg, f"output_{name}")
@@ -97,7 +98,7 @@ class StepSpectra(NamedTuple):
     spectra: torch.Tensor  # [C, B, bins] complex
     feat: torch.Tensor  # [C, B, bins] filter input, in the history's dtype
     masks: tuple  # (harmonic, percussive, residual) [C, B, bins]; the
-    # residual is None under soft masks
+    # residual is None under soft and SSE masks
 
 
 def step_masks(
@@ -117,12 +118,13 @@ def step_masks(
     s = analyze(frames, cfg)  # [C, B, bins]
     # stream_state='bf16' carries the history in half precision; the
     # fresh features are quantized to match, so every tap of both
-    # medians sees one precision. The medians run on that dtype and
-    # return float32 (time) or are cast to it (frequency): masks and
+    # filters sees one precision. The medians run on that dtype and
+    # return float32 (time) or are cast to it (frequency); the SSE means
+    # sum float32 taps (zen_tpu/drivers/realtime.py:153). Masks and
     # synthesis are float32 either way.
     feat = feature_transform(s.abs(), cfg).to(state.feat_hist.dtype)
     h_rows = time_filtered_tail_pair(state.feat_hist, feat, cfg)
-    p_rows = freq_filtered(feat, cfg).float()
+    p_rows = freq_filtered(feat.float() if cfg.use_sse else feat, cfg).float()
     h_rows, p_rows = finalize_features(h_rows, p_rows, cfg)
     pm, hm, rm = compute_masks(h_rows, p_rows, cfg)
     return StepSpectra(samples, s, feat, (hm, pm, rm))
@@ -159,7 +161,7 @@ def block_step(
     step = step_masks(cfg, state, blocks)
 
     # only enabled stems are synthesized and emitted (compact rows); the
-    # enabled stems with a mask go through one batched inverse FFT
+    # enabled stems with a mask go through one batched inverse
     masks = step.masks
     en = enabled_stems(cfg)
     live = [i for i in en if masks[i] is not None]
@@ -174,7 +176,7 @@ def block_step(
         state.ola_tail[:, tails] = y[:, :, -1, hop:]
     if live and len(live) == len(en):
         outs = chunk
-    else:  # enabled residual under soft masks: a zero row
+    else:  # enabled residual under soft or SSE masks: a zero row
         outs = torch.zeros((c, len(en), b * hop), device=blocks.device)
         if live:
             outs[:, _rows(tuple(en.index(i) for i in live), blocks.device)] = chunk

@@ -12,10 +12,9 @@ knob, as in zen_tpu:
   'replicate' == reference CPU (IPP) backend
 Each reduces to a static list of time tap offsets (``time_offsets``)
 plus a frequency window and boundary rule. ``stream_state`` 'f32' or
-'bf16' is the dtype of the streaming drivers' feature history. The SSE
-box filter raises ``NotImplementedError`` until its slice lands
-(ROADMAP queue 1, item 7), and with it zen_tpu's SSE + 'valid' -> 'wrap'
-coercion.
+'bf16' is the dtype of the streaming drivers' feature history.
+``use_sse`` selects the SSE box filter, and as in zen_tpu turns the
+'valid' border into 'wrap' (the reference's box filter always pads).
 """
 from __future__ import annotations
 
@@ -63,15 +62,18 @@ class HPRConfig:
     causal: bool = False  # False = TimeAnticausal (offline), True = realtime
     border: str = WRAP  # 'wrap' | 'valid' | 'replicate'
     outputs: int = OUTPUT_ALL
-    use_sse: bool = False
+    use_sse: bool = False  # SSE box-filter variant (hps.cu:582-652)
     soft_mask: bool = False  # Wiener soft mask (hps.h:116-129)
     fast_rfft: bool = True  # Hermitian half-spectrum fast path
     median_impl: str = "auto"  # 'auto' | 'torch' | 'cuda': 'auto' runs
     # the CUDA kernels on CUDA tensors and their plain twins on CPU
     # tensors; 'torch' (the plain reference) takes CPU tensors only and
     # 'cuda' CUDA tensors only; the other device raises
-    fft_impl: str = "auto"  # 'auto' | 'torch': stored as 'torch', the
-    # one transform ported (torch.fft)
+    fft_impl: str = "auto"  # 'auto' | 'torch' | 'dft' | 'dft_bf16' |
+    # 'dft_f32': 'auto' is stored as 'torch' (torch.fft, cuFFT on the
+    # card), as zen_tpu's 'auto' is XLA's FFT off the TPU; the 'dft*'
+    # names are the DFT-matmul transform at its precision (ops/fft.py),
+    # taken where fast_rfft holds
     stream_state: str = "f32"  # 'f32' | 'bf16': dtype of the streaming
     # drivers' carried feature history; 'bf16' quantizes the features
     # both medians see (selection, so the kernels pick exactly what f32
@@ -82,11 +84,6 @@ class HPRConfig:
             raise ZenError("hop must be a positive power of two")
         if self.border not in (WRAP, VALID, REPLICATE):
             raise ZenError(f"unknown border mode: {self.border}")
-        if self.use_sse:
-            raise NotImplementedError(
-                "the SSE box filter is not ported yet "
-                "(ROADMAP queue 1, item 7: causal variants)"
-            )
         if self.l_harm < 1:
             raise ZenError("hop too large for fs: l_harm < 1")
         if self.time_filter_len > self.stft_width:
@@ -95,16 +92,16 @@ class HPRConfig:
             raise ZenError("median filter bigger than matrix dimension")
         if self.median_impl not in ("auto", "torch", "cuda"):
             raise ZenError(f"unknown median_impl: {self.median_impl}")
-        if self.fft_impl in ("dft", "dft_bf16", "dft_f32"):
-            raise NotImplementedError(
-                f"fft_impl={self.fft_impl!r}: the DFT-matmul transform is "
-                "not ported yet (ROADMAP queue 1, item 3: transform)"
-            )
-        if self.fft_impl not in ("auto", "torch"):
+        if self.fft_impl not in ("auto", "torch", "dft", "dft_bf16", "dft_f32"):
             raise ZenError(f"unknown fft_impl: {self.fft_impl}")
-        object.__setattr__(self, "fft_impl", "torch")
+        if self.fft_impl == "auto":
+            object.__setattr__(self, "fft_impl", "torch")
         if self.stream_state not in ("f32", "bf16"):
             raise ZenError(f"unknown stream_state: {self.stream_state}")
+        if self.use_sse and self.border == VALID:
+            # the reference's BoxFilterGPU always pads (box.h:154-180);
+            # before the fast_rfft demotion, so SSE keeps the half spectrum
+            object.__setattr__(self, "border", WRAP)
         if self.fast_rfft and self.border in (VALID, REPLICATE):
             # nocopybord zeroes high bins asymmetrically; replicate
             # clamps at DC, which the half spectrum's reflect boundary
