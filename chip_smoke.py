@@ -62,6 +62,16 @@ entry points at full width:
   phase 16 benches/quality on the card: the SSE row's floors at fs 22050
            and the precision ladder at 44.1 kHz (full_bf16: bf16 DFT
            operands and bf16 stream state);
+  phase 17 files and the CLI: the native codec library built from
+           native/*.cpp; the clip written as WAV and the 4-minute track as
+           FLAC through the port's writers; `zen-torch offline` in-process
+           on both (configs[0]; the track --blocked --stem-format flac),
+           stems held sample for sample against process() and
+           process_blocked() on the card; the checkpointed process_blocked
+           on the track killed twice and resumed, bitwise; `zen-torch
+           fakert --block-hops 32` at hop 256 and 1024 against the CPU
+           port; LiveStream at hop 256 over the native rings; one real
+           `python -m zen_tpu_torch offline`;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -135,6 +145,7 @@ SOURCES = {"tap_median_time": "zen_tpu_torch/csrc/median_time.cu",
            "rows_copy": "zen_tpu_torch/csrc/probe_copy.cu",
            "segment_copy": "zen_tpu_torch/csrc/probe_copy.cu"}
 FLEET_HOP, FLEET_BLOCK = 256, 16  # zen stream's defaults
+CLI_STEMS = ("harm", "perc", "residual")  # zen offline's stem file names
 FLEET_HELD = range(0, FLEET_STREAMS, 32)  # the streams held against the CPU
 # the SSE paths' stems against the CPU port: the oracle class
 # (tests/test_engine_parity.py:46-49). The masks are continuous, so no
@@ -1726,6 +1737,257 @@ def phase_quality(smi: str) -> dict:
     return counts
 
 
+# ---------------- files and the CLI: offline, fakert, checkpoints, LiveStream ----------------
+
+
+def zen_cli(argv) -> list:
+    """A file command of the port's CLI run in-process, so that the
+    launch counters see it: its stdout lines; raises on a nonzero exit."""
+    from zen_tpu_torch.cli import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main([str(a) for a in argv])
+    require(rc == 0, f"zen-torch {' '.join(map(str, argv))}: exit {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue().splitlines()
+
+
+def same_samples(got: Path, want: Path) -> bool:
+    from zen_tpu_torch.io.audio import read_audio_mono
+
+    (fs_g, g), (fs_w, w) = read_audio_mono(str(got)), read_audio_mono(str(want))
+    return fs_g == fs_w and np.array_equal(g, w)
+
+
+def write_stems(prefix: Path, fmt: str, stems, fs: int) -> None:
+    """The CLI's own writing of [L] stems: peak-normalized, 16-bit."""
+    from zen_tpu_torch.io.audio import peak_normalize, write_audio_pcm16
+
+    for name, x in zip(CLI_STEMS, stems):
+        write_audio_pcm16(f"{prefix}_{name}.{fmt}", fs, peak_normalize(x.cpu().numpy()))
+
+
+def timed(fn):
+    """(result, wall seconds) of one call that ends on the host."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def routes_launched(counts: dict, want: tuple, what: str) -> dict:
+    """The routes of one run that launched, with a check that ``want`` did."""
+    launched = {k: v for k, v in counts.items() if v}
+    require(all(counts[k] > 0 for k in want), f"{what}: launches {launched}, want {want}")
+    return launched
+
+
+def cli_offline(wav: Path, prefix: Path, *extra) -> tuple:
+    """zen-torch offline at BASELINE.json configs[0] in-process: (its
+    offline_2pass_ms line, the routes it launched, its wall seconds)."""
+    reset_launches()
+    lines, wall = timed(lambda: zen_cli(["offline", "-i", wav, "--hps", "4096", "2.5", "256",
+                                         "2.5", "-o", prefix, "--device", DEVICE, *extra]))
+    line = json.loads(lines[-1])
+    require(lines[0].startswith("Running zen-offline") and line["metric"] == "offline_2pass_ms"
+            and any("HPR-I-Offline took" in ln for ln in lines), f"zen offline stdout: {lines}")
+    return line, read_launches(), wall
+
+
+def phase_files_cli(smi: str) -> dict:
+    """The file surface on the card: the clip written as WAV and the
+    4-minute track as FLAC through the port's writers; `zen-torch offline`
+    in-process on both (the clip at configs[0], the track --blocked
+    --stem-format flac), each stem decoded and held sample for sample
+    against the port's writer over the same card's process() /
+    process_blocked() stems; the checkpointed process_blocked on the track
+    interrupted after its second segment of pass 1 and once in pass 2,
+    then resumed, bitwise to the uninterrupted run; `zen-torch fakert` at
+    hop 256 and 1024 (its file bitwise to the card's process_stream, that
+    held against the CPU port under phase 4's flip rule); LiveStream at
+    hop 256, bitwise to process_stream; one real `python -m zen_tpu_torch
+    offline`, its stems byte-equal to the in-process run's. Returns the
+    launches of the entry points' runs (not of their references)."""
+    import tempfile
+
+    from zen_tpu_torch import OUTPUT_PERCUSSIVE, HPRRealtime
+    from zen_tpu_torch.drivers.offline import clear_track_checkpoint
+    from zen_tpu_torch.io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
+    from zen_tpu_torch.runtime import native
+    from zen_tpu_torch.runtime.stream import LiveStream
+
+    _, build_s = timed(native.library)
+    print(f"phase 17 native codec library: built and loaded in {build_s:.2f} s "
+          f"({native.library_path().name}, {len(native.SOURCES)} sources, one g++ each)")
+    total = dict.fromkeys(read_launches(), 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        wav, flac = tmp / "clip.wav", tmp / "track.flac"
+        clip = peak_normalize(synthetic_mix(CLIP_SAMPLES, OFFLINE_FS, seed=7))
+        track = peak_normalize(synthetic_mix(TRACK_SAMPLES, OFFLINE_FS, seed=8))
+        _, w_wav = timed(lambda: write_audio_pcm16(str(wav), int(OFFLINE_FS), clip))
+        _, w_flac = timed(lambda: write_audio_pcm16(str(flac), int(OFFLINE_FS), track))
+        (fs, x_clip), r_wav = timed(lambda: read_audio_mono(str(wav)))
+        (_, x_track), r_flac = timed(lambda: read_audio_mono(str(flac)))
+        require(fs == OFFLINE_FS and len(x_clip) == CLIP_SAMPLES and len(x_track) == TRACK_SAMPLES,
+                "decoded clip or track")
+        print(f"phase 17 files: clip WAV write {w_wav * 1e3:.2f} ms, read {r_wav * 1e3:.2f} ms; "
+              f"4-minute track FLAC ({flac.stat().st_size / 2**20:.1f} MiB) write "
+              f"{w_flac * 1e3:.1f} ms, read {r_flac * 1e3:.1f} ms")
+
+        # zen-torch offline on the clip, against process() on this card
+        sep = offline_separator()
+        line, counts, wall = cli_offline(wav, tmp / "cli")
+        add(counts)
+        launched = routes_launched(counts, ("tap_median_time/register", "sliding_median_boundary/rank",
+                                            "sliding_median_boundary/network"), "offline clip")
+        x = torch.from_numpy(x_clip).to(DEVICE)
+        write_stems(tmp / "ref", "wav", sep.process(x), fs)
+        for name in CLI_STEMS:
+            require(same_samples(tmp / f"cli_{name}.wav", tmp / f"ref_{name}.wav"),
+                    f"zen offline clip {name} stem differs from process() on the card")
+        lib_ms = wall_us_per_call(lambda: sep.process(x), 10) / 1e3
+        print(f"phase 17 zen-torch offline clip ({CLIP_SAMPLES} samples, WAV): stems sample for "
+              f"sample equal to process() on the card; offline_2pass_ms {line['value']:.2f}, "
+              f"process() alone {lib_ms:.2f} ms (mean of 10), whole command {wall * 1e3:.1f} ms "
+              f"(file I/O and set-up {wall * 1e3 - line['value']:.1f} ms); launches {launched} [{smi}]")
+
+        # zen-torch offline --blocked --stem-format flac on the track
+        line, counts, wall = cli_offline(flac, tmp / "trk", "--blocked", "--stem-format", "flac")
+        add(counts)
+        launched = routes_launched(counts, ("tap_median_time/register", "sliding_median_boundary/rank",
+                                            "sliding_median_boundary/network"), "offline track")
+        xt = torch.from_numpy(x_track).to(DEVICE)
+        want = sep.process_blocked(xt)
+        write_stems(tmp / "trkref", "flac", want, fs)
+        for name in CLI_STEMS:
+            require(same_samples(tmp / f"trk_{name}.flac", tmp / f"trkref_{name}.flac"),
+                    f"zen offline --blocked track {name} stem differs from process_blocked()")
+        print(f"phase 17 zen-torch offline --blocked --stem-format flac, 4-minute track: stems "
+              f"sample for sample equal to process_blocked() on the card; offline_2pass_ms "
+              f"{line['value']:.1f}, whole command {wall * 1e3:.1f} ms; launches {launched} [{smi}]")
+
+        # the checkpointed process_blocked, killed twice, then resumed
+        class Kill(Exception):
+            pass
+
+        calls = []
+
+        def kill_at(*nth):
+            def hook(next_block, n_blocks):
+                calls.append((next_block, n_blocks))
+                if len(calls) in nth:
+                    raise Kill
+            return hook
+
+        ck = dict(ckpt_dir=str(tmp / "ckpt"), tag="trk", ckpt_every_blocks=2)
+        reset_launches()
+        t0 = time.perf_counter()
+        for nth in ((2,), (3,)):  # pass 1's second segment; then pass 2's first
+            try:
+                sep.process_blocked(xt, on_segment=kill_at(*nth), **ck)
+                require(False, "the kill hook did not fire")
+            except Kill:
+                calls.clear()
+        resumed = sep.process_blocked(xt, on_segment=kill_at(), **ck)
+        torch.cuda.synchronize()
+        ck_wall = time.perf_counter() - t0
+        counts = read_launches()
+        add(counts)
+        require(all(torch.equal(a, b) for a, b in zip(resumed, want)),
+                "resumed checkpointed process_blocked differs from the uninterrupted run")
+        require(len(calls) == 3, f"the resume ran segments {calls}, want pass 2's last three")
+        _, plain_s = timed(lambda: (sep.process_blocked(xt), torch.cuda.synchronize()))
+        _, ckpt_s = timed(lambda: sep.process_blocked(xt, ckpt_dir=str(tmp / "ckpt2"),
+                                                      ckpt_every_blocks=2))
+        for t in ("trk.p1", "trk.p2"):
+            clear_track_checkpoint(str(tmp / "ckpt"), t)
+            clear_track_checkpoint(str(tmp / "ckpt2"), t)
+        print(f"phase 17 checkpointed process_blocked, 4-minute track, 2 blocks a segment: killed "
+              f"after pass 1's second segment and after pass 2's first, resumed: bitwise equal to "
+              f"process_blocked(); three runs {ck_wall:.2f} s; one uninterrupted checkpointed run "
+              f"{ckpt_s:.2f} s against {plain_s:.3f} s without; launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{smi}]")
+
+        # zen-torch fakert --block-hops 32 at hop 256 and 1024
+        for hop, want_routes in ((256, ("tap_median_time/register", "sliding_median_boundary/network")),
+                                 (1024, ("tap_median_time/register", "sliding_median_boundary/rank"))):
+            out = tmp / f"fakert_{hop}.wav"
+            reset_launches()
+            lines = zen_cli(["fakert", "-i", wav, "--hps", hop, "2.0", "-o", out,
+                             "--block-hops", "32", "--device", DEVICE])
+            counts = read_launches()
+            add(counts)
+            launched = routes_launched(counts, want_routes, f"fakert hop {hop}")
+            line = json.loads(lines[-1])
+            require(line["metric"] == "fakert_us_per_hop" and lines[0].startswith("Running zen-fakert")
+                    and any(ln.startswith("PRealtime") for ln in lines), f"fakert stdout {lines}")
+            rt = HPRRealtime(fs, hop, 2.0, outputs=OUTPUT_PERCUSSIVE, device=DEVICE)
+            perc = rt.process_stream(x_clip, block_hops=32)[1]
+            write_audio_pcm16(str(tmp / "fakert_ref.wav"), fs, peak_normalize(perc[:CLIP_SAMPLES]))
+            require(same_samples(out, tmp / "fakert_ref.wav"),
+                    f"fakert hop {hop}: its file differs from process_stream on the card")
+            n_hops = -(-CLIP_SAMPLES // hop)
+            padded = np.zeros((1, n_hops * hop), np.float32)
+            padded[0, :CLIP_SAMPLES] = x_clip
+            sizes = [32] * (n_hops // 32) + ([n_hops % 32] if n_hops % 32 else [])
+            cpu = HPRRealtime(fs, hop, 2.0, outputs=OUTPUT_PERCUSSIVE, device="cpu")
+            ref = cpu.process_stream(x_clip, block_hops=32)[1]
+            r = compare_stream(rt.cfg, padded, sizes, perc[None, None], ref[None, None],
+                               ("percussive",))
+            print(f"phase 17 zen-torch fakert --hps {hop} 2.0 --block-hops 32, clip: file equal to "
+                  f"process_stream on the card; vs CPU: mask flips {r['flips']} ({r['share']:.3g}),"
+                  f" excluded hops {r['excluded']}/{r['hops']}, max |diff|/scale "
+                  f"{r['rel_err']:.3g} (limit {STEM_ATOL}); {line['value']:.2f} us per hop against "
+                  f"the hop's {line['budget_us']:.1f} us budget (rtf {line['rtf']:.4f}; the CUDA "
+                  f"reference's 173.99 us/hop at hop 256 on an RTX 2070 SUPER is an outside "
+                  f"point); launches {launched} [{smi}]")
+
+        # LiveStream at hop 256 over the native rings
+        block_hops = 16
+        n = CLIP_SAMPLES // (block_hops * 256) * block_hops * 256
+        live = LiveStream(fs, 256, block_hops=block_hops, ring_capacity=1 << 18, device=DEVICE)
+        live.warmup()
+        reset_launches()
+        require(live.push(x_clip[:n]) == n, "LiveStream input ring overrun")
+        (_, live_s) = timed(lambda: [None for _ in iter(live.poll, False)])
+        counts = read_launches()
+        add(counts)
+        want_live = HPRRealtime(fs, 256, device=DEVICE).process_stream(x_clip[:n], block_hops=block_hops)
+        for i, name in enumerate(("harmonic", "percussive", "residual")):
+            require(np.array_equal(live.pull(name, n), want_live[i]),
+                    f"LiveStream {name} differs from process_stream on the card")
+        require(live.dropped_out_samples == 0, "LiveStream dropped output")
+        print(f"phase 17 LiveStream hop 256, {live.blocks_processed} blocks of {block_hops} hops: "
+              f"three output rings bitwise equal to process_stream on the card; "
+              f"{live_s / live.blocks_processed * 1e6:.1f} us per block (poll, one readback; "
+              f"the block lasts {block_hops * 256 / fs * 1e6:.0f} us of audio); launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{smi}]")
+
+        # one real process
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "zen_tpu_torch", "offline", "-i", str(wav), "--hps", "4096",
+             "2.5", "256", "2.5", "-o", str(tmp / "proc"), "--device", DEVICE],
+            capture_output=True, text=True, cwd=ROOT, timeout=300)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"python -m zen_tpu_torch offline: exit {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        for name in CLI_STEMS:
+            require((tmp / f"proc_{name}.wav").read_bytes() == (tmp / f"cli_{name}.wav").read_bytes(),
+                    f"the real process's {name} stem differs from the in-process run's")
+        line = json.loads(proc.stdout.splitlines()[-1])
+        print(f"phase 17 real process python -m zen_tpu_torch offline, clip: stems byte-equal to "
+              f"the in-process run; process {wall:.2f} s, offline_2pass_ms {line['value']:.2f} "
+              f"(its first call builds no kernel: the libraries are on disk)")
+    return total
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
@@ -1815,7 +2077,7 @@ def main() -> None:
                         ("zen_stream_512", phase_zen_stream), ("streaming_hop32", phase_hop32),
                         ("hbm_pattern", phase_hbm_pattern), ("serving_bound", phase_serving_bound),
                         ("sse", phase_sse), ("box", phase_box), ("dft", phase_dft),
-                        ("quality_ladder", phase_quality)):
+                        ("quality_ladder", phase_quality), ("files_cli", phase_files_cli)):
         t0 = time.perf_counter()
         counts = phase(smi)
         if counts is not None:

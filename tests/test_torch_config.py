@@ -169,7 +169,9 @@ def test_port_imports_no_jax():
         "zen_tpu_torch.ops.probe_cuda, zen_tpu_torch.convert, zen_tpu_torch.cli, "
         "zen_tpu_torch.runtime.profiling, zen_tpu_torch.benches.hbm_pattern, "
         "zen_tpu_torch.benches.serving_bound, zen_tpu_torch.benches.quality, "
-        "zen_tpu_torch.ops.box, zen_tpu_torch.io.synth; "
+        "zen_tpu_torch.ops.box, zen_tpu_torch.io.synth, zen_tpu_torch.io.audio, "
+        "zen_tpu_torch.runtime.native, zen_tpu_torch.runtime.checkpoint, "
+        "zen_tpu_torch.runtime.stream, zen_tpu_torch.drivers.offline; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'zen_tpu' not in sys.modules, 'zen_tpu imported'"
     )

@@ -675,3 +675,41 @@ def test_sse_streams_on_card_match_cpu_without_median_launches(cuda_device):
                                        dim=2).cpu().numpy()
         cs.rel_err(outs[str(cuda_device)], outs["cpu"], cs.SSE_ATOL, f"SSE B={b}")
     assert (mc.tap_median_time.launches, mc.sliding_median_boundary.launches) == (n_time, n_freq)
+
+
+def test_checkpointed_process_blocked_resumes_bitwise_on_card(cuda_device, tmp_path):
+    """A kill after a durable segment and a resume give the uninterrupted
+    process_blocked's stems, bit for bit, as tensors on the card."""
+    rng = np.random.default_rng(21)
+    audio = torch.from_numpy(rng.standard_normal(44100).astype(np.float32)).to(cuda_device)
+    sep = HPRIOffline(44100.0, 4096, 256, 2.5, 2.5, device=cuda_device)
+    kw = dict(block_frames_h=4, block_frames_p=64, ckpt_every_blocks=2,
+              ckpt_dir=str(tmp_path), tag="t")
+    want = sep.process_blocked(audio, block_frames_h=4, block_frames_p=64)
+
+    class Kill(Exception):
+        pass
+
+    def kill(next_block, n_blocks):
+        raise Kill
+
+    with pytest.raises(Kill):
+        sep.process_blocked(audio, on_segment=kill, **kw)
+    got = sep.process_blocked(audio, **kw)
+    for g, w in zip(got, want):
+        assert g.device == w.device and torch.equal(g, w)
+
+
+def test_live_stream_on_card_matches_process_stream(cuda_device):
+    from zen_tpu_torch.runtime.stream import LiveStream
+
+    rng = np.random.default_rng(22)
+    audio = rng.standard_normal(8 * 16 * 256).astype(np.float32)
+    live = LiveStream(44100.0, 256, block_hops=16, ring_capacity=1 << 16, device=cuda_device)
+    live.warmup()
+    assert live.push(audio) == len(audio)
+    while live.poll():
+        pass
+    want = HPRRealtime(44100.0, 256, device=cuda_device).process_stream(audio, block_hops=16)
+    for i, stem in enumerate(("harmonic", "percussive", "residual")):
+        np.testing.assert_array_equal(live.pull(stem, len(audio)), want[i])

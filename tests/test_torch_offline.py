@@ -177,14 +177,13 @@ def test_strict_ref_silent_residual():
     np.testing.assert_array_equal(pb.numpy(), ps.numpy())
 
 
-def test_rejects_what_is_not_ported_or_invalid():
+def test_rejects_what_is_not_ported_or_invalid(tmp_path):
     with pytest.raises(T.ZenError, match="divisible"):
         T.HPRIOffline(1000.0, 16, 12, device="cpu")
     sep = T.HPRIOffline(1000.0, 16, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        sep.process_blocked(np.zeros(64, np.float32), ckpt_dir="ckpt")
-    with pytest.raises(T.ZenError, match="expects \\[L\\]"):
-        sep.process_blocked(np.zeros((2, 64), np.float32))
+    for ckpt_dir in (None, str(tmp_path)):  # checkpoints are ported: same checks
+        with pytest.raises(T.ZenError, match="expects \\[L\\]"):
+            sep.process_blocked(np.zeros((2, 64), np.float32), ckpt_dir=ckpt_dir)
     with pytest.raises(T.ZenError, match="lies on"):
         sep.process(torch.zeros(64, device="meta"))
     # the SSE toggle is ported: it gives the configs use_sse=True gives

@@ -5,7 +5,9 @@ module names. It carries the causal streaming HPR (the realtime main
 path) and the two-pass offline HPR-I with its blocked overlap-save
 form: windows, config, framing, the spectral engine on ``torch.fft``,
 and the two hand-written CUDA median kernels of ``csrc/`` (plain
-PyTorch twins on CPU tensors). It imports torch and never jax.
+PyTorch twins on CPU tensors); around them the ``zen-torch`` CLI, audio
+file I/O over the repository's native codecs, checkpoints and the live
+ring-buffer service. It imports torch and never jax.
 """
 
 from .convert import (  # noqa: F401

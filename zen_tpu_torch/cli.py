@@ -1,16 +1,28 @@
 """zen-torch CLI: the ``zen`` surface on the PyTorch/CUDA port.
 
-Counterpart of ``zen_tpu/cli.py``. One subcommand is ported, ``stream``
-(``cmd_stream``, zen_tpu/cli.py:410-607), flag for flag with the same
-defaults, byte layout, stderr lines and ``stream_serving`` JSON line:
+Counterpart of ``zen_tpu/cli.py``. Ported flag for flag, with the same
+defaults, echo blocks and JSON metric lines:
 
+  zen-torch offline -i in.wav [--hps [hop-h beta-h hop-p beta-p]]
+      [-o prefix] [--stem-format wav|flac|wv] [--only-percussive]
+      [--blocked] [--strict-ref] [--cpu] [--sse] [--soft-mask]
+      [--nocopybord] [impl flags] [--device cuda|cpu]
+  zen-torch fakert -i in.wav [--hps [hop beta]] [-o out.wav]
+      [--block-hops 32] [--cpu] [--sse] [--soft-mask] [--nocopybord]
+      [impl flags] [--device cuda|cpu]
   zen-torch stream [--fs 44100] [--hop 256] [--stem percussive]
       [--block-hops 16] [--streams N] [--raw-scale] [--cpu]
-      [--nocopybord] [--sse] [--soft-mask] [--stream-state f32|bf16]
-      [--fft-impl auto|torch|dft|dft_bf16|dft_f32] [--device cuda|cpu]
+      [--nocopybord] [--sse] [--soft-mask] [impl flags] [--device cuda|cpu]
+  zen-torch synth -o mix.wav [--fs] [--seconds] [--bpm] [--hits-per-beat]
+      [--sawtooth] [--vibrato-cents] [--seed] [--stems]
+  zen-torch version | -v | --version
 
-also run as ``python -m zen_tpu_torch stream ...``. Differences from the
-JAX command:
+  impl flags: [--fft-impl auto|torch|dft|dft_bf16|dft_f32]
+      [--median-impl auto|torch|cuda] [--stream-state f32|bf16]
+
+also run as ``python -m zen_tpu_torch ...``. Audio goes through the
+port's own I/O (``io/audio.py`` over the native codecs). Differences from
+the JAX command:
 
 - ``--device`` (default ``cuda``) names the torch device; it replaces
   JAX's ``ZEN_TPU_PLATFORM``. ``--device cuda`` without a CUDA device
@@ -21,11 +33,14 @@ JAX command:
   and 'pallas', mapped as ``convert.config_from_fields`` maps them;
   ``--fft-impl auto`` is torch.fft, as zen_tpu's 'auto' is XLA's FFT
   off the TPU.
-- ``--mesh`` exits 2 with one stderr line naming its ROADMAP queue 1
-  item (9, the parallel layer).
+- ``--mesh`` (offline and stream) exits 2 with one stderr line naming its
+  ROADMAP queue 1 item (9, the parallel layer).
+- The lines that name the compute name the device, where zen_tpu's say
+  "TPU-native"; the substrings parsers read ("Running zen-offline",
+  "HPR-I-Offline took", "Running zen-fakert", "PRealtime") stay.
 
-offline, fakert, corpus, synth and the apps need audio I/O without
-``zen_tpu.io`` (ROADMAP queue 1, items 5 and 6).
+corpus and the apps (pitch-track, beat-track) are not ported yet
+(ROADMAP queue 1, items 7 and 8).
 """
 from __future__ import annotations
 
@@ -88,9 +103,199 @@ def _parse_mesh_axes(spec: str, allowed: tuple):
     return axes, None
 
 
-def _refuse(msg: str) -> int:
-    print(f"{PROG} stream: {msg}", file=sys.stderr)
+def _refuse(command: str, msg: str) -> int:
+    print(f"{PROG} {command}: {msg}", file=sys.stderr)
     return 2
+
+
+def _device_label(device) -> str:
+    import torch
+
+    if device.type == "cuda":
+        return f"{torch.cuda.get_device_name(device)} ({device})"
+    return str(device)
+
+
+def _echo(lines):
+    print("\n".join(lines))
+
+
+def _echo_audio(fs: int, audio) -> None:
+    _echo(["Audio file info:", f"\tsample rate: {fs}", f"\tlen samples: {len(audio)}",
+           f"\tseconds: {len(audio) / fs}"])
+
+
+def _mask_filter_lines(args) -> list:
+    return ["\t\tmask: soft/Wiener" if args.soft_mask else "\t\tmask: hard/binary",
+            "\t\tfilter: sse" if args.sse else "\t\tfilter: median"]
+
+
+def cmd_offline(args) -> int:
+    """Two-pass HPR-I on a whole file; stems written peak-normalized."""
+    import torch
+
+    from .device import resolve_device
+    from .drivers.offline import LONG_TRACK_SAMPLES, HPRIOffline
+    from .errors import ZenError
+    from .io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
+
+    if args.mesh:
+        _, err = _parse_mesh_axes(args.mesh, ("tp",))
+        if err:
+            print(f"zen offline: {err}", file=sys.stderr)
+            return 2
+        return _refuse("offline", "--mesh is not ported yet "
+                       "(ROADMAP queue 1, item 9: parallel layer)")
+    try:
+        device = resolve_device(args.device)
+    except ZenError as e:  # no CUDA device: exit 2, no fallback
+        return _refuse("offline", f"--device {args.device}: {e}")
+    _echo([
+        "Running zen-offline with the following params:",
+        f"\tinfile: {args.input}",
+        f"\toutfile_prefix: {args.out_prefix or ''}",
+        f"\tonly_percussive: {int(args.only_percussive)}",
+        "\tdo hps: yes" if args.hps is not None else "\tdo hps: no",
+    ])
+    hop_h, beta_h, hop_p, beta_p = 4096, 2.0, 256, 2.0
+    if args.hps is not None:
+        vals = args.hps + [None] * (4 - len(args.hps))
+        hop_h = int(vals[0]) if vals[0] is not None else hop_h
+        beta_h = float(vals[1]) if vals[1] is not None else beta_h
+        hop_p = int(vals[2]) if vals[2] is not None else hop_p
+        beta_p = float(vals[3]) if vals[3] is not None else beta_p
+        _echo([f"\t\tharmonic hop: {hop_h}", f"\t\tharmonic beta: {beta_h}",
+               f"\t\tpercussive hop: {hop_p}", f"\t\tpercussive beta: {beta_p}",
+               *_mask_filter_lines(args)])
+    label = _device_label(device)
+    _echo([f"\tcompute: zen_tpu_torch on {label} (border={_border(args)})"])
+
+    fs, audio = read_audio_mono(args.input)
+    _echo_audio(fs, audio)
+    if args.hps is not None:
+        sep = HPRIOffline(fs, hop_h, hop_p, beta_h, beta_p, strict_ref=args.strict_ref,
+                          border=_border(args), use_sse=args.sse, soft_mask=args.soft_mask,
+                          device=device, **_impl_kw(args))
+        # overlap-save past LONG_TRACK_SAMPLES: the batched pass holds the
+        # whole spectrogram, ~160 bytes per sample
+        long_track = len(audio) > LONG_TRACK_SAMPLES
+        t1 = time.perf_counter()
+        if args.blocked or long_track:
+            if long_track and not args.blocked:
+                print("long track: using constant-memory blocked mode")
+            h, p, r = sep.process_blocked(audio)
+        else:
+            h, p, r = sep.process(audio)
+        if device.type == "cuda":  # stop the clock when the card is done
+            torch.cuda.synchronize(device)
+        dur_ms = 1000 * (time.perf_counter() - t1)
+        print(f"{label}: 2-pass HPR-I-Offline took {dur_ms:.0f} ms")
+        print(json.dumps({"metric": "offline_2pass_ms", "value": dur_ms, "unit": "ms",
+                          "audio_seconds": len(audio) / fs}))
+        stems = {"harm": h.cpu().numpy(), "perc": p.cpu().numpy(), "residual": r.cpu().numpy()}
+    else:
+        stems = {"harm": audio, "perc": audio, "residual": audio}
+
+    if args.out_prefix:
+        names = ["perc"] if args.only_percussive else ["harm", "perc", "residual"]
+        for name in names:
+            write_audio_pcm16(f"{args.out_prefix}_{name}.{args.stem_format}", fs,
+                              peak_normalize(stems[name]))
+    return 0
+
+
+def cmd_fakert(args) -> int:
+    """The causal engine over a whole file in blocks of --block-hops hops,
+    timed per hop against the hop's duration; the percussive stem is
+    written peak-normalized."""
+    from .device import resolve_device
+    from .drivers.realtime import HPRRealtime
+    from .engine.config import OUTPUT_PERCUSSIVE
+    from .errors import ZenError
+    from .io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
+
+    try:
+        device = resolve_device(args.device)
+    except ZenError as e:  # no CUDA device: exit 2, no fallback
+        return _refuse("fakert", f"--device {args.device}: {e}")
+    hop, beta = 256, 2.0
+    if args.hps is not None:
+        vals = args.hps + [None] * (2 - len(args.hps))
+        hop = int(vals[0]) if vals[0] is not None else hop
+        beta = float(vals[1]) if vals[1] is not None else beta
+    label = _device_label(device)
+    _echo([
+        "Running zen-fakert with the following params:",
+        f"\tinfile: {args.input}",
+        f"\toutfile: {args.output or ''}",
+        "\tdo hps: yes" if args.hps is not None else "\tdo hps: no",
+        f"\t\thop: {hop}",
+        f"\t\tbeta: {beta}",
+        *_mask_filter_lines(args),
+        f"\tcompute: zen_tpu_torch on {label} (border={_border(args)})",
+    ])
+    fs, audio = read_audio_mono(args.input)
+    _echo_audio(fs, audio)
+    n_hops = -(-len(audio) // hop)
+    delta_t_ms = 1000.0 * hop / fs
+    print(f"Slicing buffer size {len(audio)} into {n_hops} chunks of size {hop}")
+
+    if args.hps is None:
+        out = audio
+    else:
+        rt = HPRRealtime(fs, hop, beta, outputs=OUTPUT_PERCUSSIVE, border=_border(args),
+                         use_sse=args.sse, soft_mask=args.soft_mask, device=device,
+                         **_impl_kw(args))
+        block_hops = max(1, int(args.block_hops))
+        tail = n_hops % block_hops
+        # every block size the stream runs, the ragged tail's too: no
+        # kernel build or cuFFT plan may land inside the timed loop
+        rt.warmup(block_sizes=(block_hops, tail) if tail else (block_hops,))
+        t1 = time.perf_counter()
+        outs = rt.process_stream(audio, block_hops=block_hops)  # host numpy: synchronized
+        t2 = time.perf_counter()
+        out = outs[1][: len(audio)]
+        avg_us = 1e6 * (t2 - t1) / n_hops
+        print(f"PRealtime {label}:  Δn = {hop}, Δt(ms) = {delta_t_ms:.4f},"
+              f" average processing duration(us) = {avg_us:.2f}")
+        print(json.dumps({"metric": "fakert_us_per_hop", "value": avg_us, "unit": "us",
+                          "hop": hop, "block_hops": block_hops,
+                          "budget_us": delta_t_ms * 1000,
+                          "rtf": avg_us / (delta_t_ms * 1000)}))
+    if args.output:
+        write_audio_pcm16(args.output, fs, peak_normalize(out))
+    return 0
+
+
+def cmd_synth(args) -> int:
+    """Write a deterministic synthetic test mixture (and its ground truth)."""
+    import numpy as np
+
+    from .io.audio import write_wav_pcm16
+    from .io.synth import synth_mixture
+
+    harm, perc, mix = synth_mixture(fs=args.fs, seconds=args.seconds, bpm=args.bpm,
+                                    hits_per_beat=args.hits_per_beat, sawtooth=args.sawtooth,
+                                    vibrato_cents=args.vibrato_cents, seed=args.seed)
+    fs = int(args.fs)
+    # one shared scale, so the stems stay sample-aligned with the mixture
+    scale = 1.0 / max(np.abs(mix).max(), 1e-9)
+    write_wav_pcm16(args.output, fs, mix * scale)
+    print(f"wrote {args.output} ({args.seconds}s @ {fs} Hz)")
+    if args.stems:
+        base = args.output[:-4] if args.output.endswith(".wav") else args.output
+        for name, sig in (("harm", harm), ("perc", perc)):
+            path = f"{base}_{name}.wav"
+            write_wav_pcm16(path, fs, sig * scale)
+            print(f"wrote {path}")
+    return 0
+
+
+def cmd_version(args) -> int:
+    from . import __version__
+
+    print(f"version {__version__}")
+    return 0
 
 
 def cmd_stream(args) -> int:
@@ -118,12 +323,12 @@ def cmd_stream(args) -> int:
             print(f"stream {err}", file=sys.stderr)
             return 1
         return _refuse(
-            "--mesh is not ported yet (ROADMAP queue 1, item 9: parallel layer)"
+            "stream", "--mesh is not ported yet (ROADMAP queue 1, item 9: parallel layer)"
         )
     try:
         device = resolve_device(args.device)
     except ZenError as e:  # no CUDA device: exit 2, no fallback
-        return _refuse(f"--device {args.device}: {e}")
+        return _refuse("stream", f"--device {args.device}: {e}")
     stem_flags = {
         "harmonic": (OUTPUT_HARMONIC, 0),
         "percussive": (OUTPUT_PERCUSSIVE, 1),
@@ -263,12 +468,107 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def _add_variant_flags(p):
+    p.add_argument("--cpu", action="store_true",
+                   help="the 'replicate' border (reference CPU/IPP)")
+    p.add_argument("--sse", action="store_true",
+                   help="the SSE box filter instead of the medians")
+    p.add_argument("--soft-mask", action="store_true")
+    p.add_argument("--nocopybord", action="store_true",
+                   help="the 'valid' border (reference GPU)")
+
+
+def _add_impl_flags(p):
+    """The transform, median and state-dtype seams, and the device."""
+    p.add_argument(
+        "--fft-impl",
+        choices=("auto", "torch", "xla", "dft", "dft_bf16", "dft_f32"),
+        default="auto",
+        help="transform: torch.fft ('auto', 'torch', 'xla') or the DFT "
+        "matmuls at float32, bf16x3 or bf16 products ('dft_f32', 'dft', "
+        "'dft_bf16'; half spectrum only: --cpu and --nocopybord take torch.fft)",
+    )
+    p.add_argument(
+        "--median-impl",
+        choices=("auto", "torch", "cuda", "xla", "pallas"),
+        default="auto",
+        help="median route: 'auto' = the CUDA kernels on --device cuda, "
+        "their plain twins on the CPU ('xla' = 'torch', 'pallas' = 'cuda')",
+    )
+    p.add_argument(
+        "--stream-state",
+        choices=("f32", "bf16"),
+        default="f32",
+        help="dtype of the streaming feature history: 'bf16' halves its "
+        "traffic for bf16-quantized median features; offline paths ignore it",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device to run on (default cuda; no fallback)",
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
+    from . import __version__
+
     ap = argparse.ArgumentParser(
         prog=PROG,
         description="zen-tpu on PyTorch/CUDA: harmonic/percussive source separation",
     )
     sub = ap.add_subparsers(dest="command", required=True)
+
+    off = sub.add_parser("offline", help="offline (process entire songs at a time)")
+    off.add_argument("-i", "--input", required=True, help="input audio file")
+    _add_variant_flags(off)
+    off.add_argument(
+        "--hps",
+        nargs="*",
+        default=None,
+        metavar=("hop-h", "beta-h"),
+        help="2-pass HPR-iterative, defaults: harmonic=4096,2.0 percussive=256,2.0",
+    )
+    off.add_argument("-o", "--out-prefix", default="")
+    off.add_argument("--only-percussive", action="store_true")
+    off.add_argument(
+        "--blocked",
+        action="store_true",
+        help="constant-memory overlap-save mode (auto for tracks > 10 min)",
+    )
+    off.add_argument(
+        "--strict-ref",
+        action="store_true",
+        help="bit-compatible reference quirks: pass-2 residual stem is "
+        "silence, exactly like the upstream GPU binary (hps.cu:200-204)",
+    )
+    off.add_argument(
+        "--stem-format", choices=("wav", "flac", "wv"), default="wav",
+        help="stem container: PCM16 wav (reference behavior), lossless "
+        "16-bit FLAC (~half the size) or lossless 16-bit WavPack",
+    )
+    off.add_argument("--mesh", default="", help="not ported yet (ROADMAP queue 1, item 9)")
+    _add_impl_flags(off)
+    off.set_defaults(func=cmd_offline)
+
+    frt = sub.add_parser("fakert", help="fakert (use slim rt algorithms with wav files)")
+    frt.add_argument("-i", "--input", required=True, help="input audio file")
+    _add_variant_flags(frt)
+    frt.add_argument(
+        "--hps",
+        nargs="*",
+        default=None,
+        metavar=("hop", "beta"),
+        help="1-pass P-realtime, defaults: 256,2.0",
+    )
+    frt.add_argument("-o", "--output", default="")
+    frt.add_argument(
+        "--block-hops",
+        default=32,
+        type=int,
+        help="hops per step (the streaming granularity)",
+    )
+    _add_impl_flags(frt)
+    frt.set_defaults(func=cmd_fakert)
 
     stp = sub.add_parser(
         "stream",
@@ -296,44 +596,33 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="emit the engine's unnormalized scale instead of unit gain",
     )
-    stp.add_argument(
-        "--cpu", action="store_true", help="the 'replicate' border (reference CPU/IPP)"
-    )
-    stp.add_argument(
-        "--sse", action="store_true", help="the SSE box filter instead of the medians"
-    )
-    stp.add_argument("--soft-mask", action="store_true")
-    stp.add_argument(
-        "--nocopybord", action="store_true", help="the 'valid' border (reference GPU)"
-    )
-    stp.add_argument(
-        "--fft-impl",
-        choices=("auto", "torch", "xla", "dft", "dft_bf16", "dft_f32"),
-        default="auto",
-        help="transform: torch.fft ('auto', 'torch', 'xla') or the DFT "
-        "matmuls at float32, bf16x3 or bf16 products ('dft_f32', 'dft', "
-        "'dft_bf16'; half spectrum only: --cpu and --nocopybord take torch.fft)",
-    )
-    stp.add_argument(
-        "--median-impl",
-        choices=("auto", "torch", "cuda", "xla", "pallas"),
-        default="auto",
-        help="median route: 'auto' = the CUDA kernels on --device cuda, "
-        "their plain twins on the CPU ('xla' = 'torch', 'pallas' = 'cuda')",
-    )
-    stp.add_argument(
-        "--stream-state",
-        choices=("f32", "bf16"),
-        default="f32",
-        help="dtype of the streaming feature history: 'bf16' halves its "
-        "traffic for bf16-quantized median features",
-    )
-    stp.add_argument(
-        "--device",
-        default="cuda",
-        help="torch device the streams run on (default cuda; no fallback)",
-    )
+    _add_variant_flags(stp)
+    _add_impl_flags(stp)
     stp.set_defaults(func=cmd_stream)
+
+    syn = sub.add_parser(
+        "synth",
+        help="generate a synthetic harmonic+percussive test mixture "
+        "(the reference sample wavs ship as git-lfs pointers)",
+    )
+    syn.add_argument("-o", "--output", required=True, help="mixture wav path")
+    syn.add_argument("--fs", type=float, default=44100.0)
+    syn.add_argument("--seconds", type=float, default=4.0)
+    syn.add_argument("--bpm", type=float, default=120.0)
+    syn.add_argument("--hits-per-beat", type=int, default=1)
+    syn.add_argument("--sawtooth", action="store_true")
+    syn.add_argument("--vibrato-cents", type=float, default=0.0)
+    syn.add_argument("--seed", type=int, default=42)
+    syn.add_argument(
+        "--stems",
+        action="store_true",
+        help="also write <out>_harm.wav / <out>_perc.wav ground truth",
+    )
+    syn.set_defaults(func=cmd_synth)
+
+    sub.add_parser("version").set_defaults(func=cmd_version)
+    # the reference CLI's flag forms (`zen -v | --version`)
+    ap.add_argument("-v", "--version", action="version", version=f"version {__version__}")
     return ap
 
 

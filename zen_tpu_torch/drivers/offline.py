@@ -24,7 +24,10 @@ out-of-range taps read, so the two agree.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
+import os
+import zipfile
 
 import numpy as np
 import torch
@@ -45,6 +48,7 @@ from ..engine.spectral import (
 from ..device import resolve_device
 from ..errors import ZenError
 from ..ops.framing import frame_signal, overlap_add_stream
+from ..runtime.checkpoint import load_stream_state, save_stream_state_durable
 
 # Above this many samples the CLI and corpus drivers route a track to the
 # blocked pass (zen_tpu/drivers/offline.py:137): the batched pass holds
@@ -117,18 +121,27 @@ class _Blocking:
         return cls(bf, n_blocks, cfg.time_history, max(max(cfg.time_offsets), 0))
 
 
+def _padded(audio: torch.Tensor, cfg: HPRConfig, blk: _Blocking) -> torch.Tensor:
+    """The audio inside guard pads of zeros that cover the global edges
+    and the last partial block."""
+    guard_lo = (blk.back + 1) * cfg.hop
+    guard_hi = max((blk.n_blocks * blk.bf + blk.fwd + 1) * cfg.hop - audio.shape[-1], 0)
+    return torch.nn.functional.pad(audio, (guard_lo, guard_hi))
+
+
+def _block_samples(padded: torch.Tensor, cfg: HPRConfig, blk: _Blocking, j: int):
+    """Block j's samples [(back + bf + fwd + 1) * hop]: the raw audio of
+    frames [s - back, s + bf + fwd), with frame t = samples at global
+    [(t - 1) * hop, (t + 1) * hop)."""
+    start = j * blk.bf * cfg.hop
+    return padded[start : start + (blk.back + blk.bf + blk.fwd + 1) * cfg.hop]
+
+
 def _blocks(audio: torch.Tensor, cfg: HPRConfig, blk: _Blocking):
-    """Each block's samples [(back + bf + fwd + 1) * hop]: the raw audio
-    of frames [s - back, s + bf + fwd), with frame t = samples at global
-    [(t - 1) * hop, (t + 1) * hop); guard pads of zeros cover the global
-    edges and the last partial block."""
-    hop, length = cfg.hop, audio.shape[-1]
-    guard_lo = (blk.back + 1) * hop
-    guard_hi = max((blk.n_blocks * blk.bf + blk.fwd + 1) * hop - length, 0)
-    padded = torch.nn.functional.pad(audio, (guard_lo, guard_hi))
-    span = (blk.back + blk.bf + blk.fwd + 1) * hop
+    """Every block's samples (``_block_samples``), in order."""
+    padded = _padded(audio, cfg, blk)
     for j in range(blk.n_blocks):
-        yield padded[j * blk.bf * hop : j * blk.bf * hop + span]
+        yield _block_samples(padded, cfg, blk, j)
 
 
 def _block_masks(cfg: HPRConfig, blk: _Blocking, samples: torch.Tensor) -> FrameMasks:
@@ -157,6 +170,39 @@ def blocked_pass_masks(audio: torch.Tensor, cfg: HPRConfig, block_frames: int = 
     )
 
 
+def _block_step(cfg: HPRConfig, blk: _Blocking, samples: torch.Tensor, tails: torch.Tensor):
+    """One block of the overlap-save pass: (stems [3, bf * hop], the OLA
+    tails [3, hop] it carries into the next block)."""
+    hop = cfg.hop
+    ys = synthesize_masked(_block_masks(cfg, blk, samples), cfg)
+    rows, new_tails = [], []
+    for tail, y in zip(tails, ys.values()):
+        if y is None:
+            rows.append(samples.new_zeros(blk.bf * hop))
+            new_tails.append(tail)
+            continue
+        # chunk j = y[j][:hop] + y[j-1][hop:], the carried tail as frame
+        # -1's second half
+        prev = torch.nn.functional.pad(tail, (hop, 0))[None]
+        rows.append(overlap_add_stream(torch.cat([prev, y]), hop, advance=1))
+        new_tails.append(y[-1, hop:])
+    return torch.stack(rows), torch.stack(new_tails)
+
+
+def _blocked_audio(audio, what: str) -> torch.Tensor:
+    audio = _as_audio(audio)
+    if audio.ndim != 1:
+        raise ZenError(f"{what} expects [L] audio")
+    return audio
+
+
+def _stems(full, hop: int, length: int) -> dict:
+    """The blocked chunk of frame t lands at t * hop; the unblocked
+    advance=1 assembly starts one hop later (frame 0's chunk is the
+    warm-up it never emits)."""
+    return {name: full[i, hop : hop + length] for i, name in enumerate(STEMS)}
+
+
 def hpr_separate_blocked(audio, cfg: HPRConfig, block_frames: int = 2048) -> dict:
     """``hpr_separate`` on [L] audio as sequential overlap-save over
     blocks of ``block_frames`` frames (the reference's bounded sliding
@@ -164,33 +210,126 @@ def hpr_separate_blocked(audio, cfg: HPRConfig, block_frames: int = 2048) -> dic
     OLA tail per stem into the next, so the spectrogram working set is
     one block while the waveforms stay whole. Same stems as
     ``hpr_separate`` up to the transform's batch rounding."""
-    audio = _as_audio(audio)
-    if audio.ndim != 1:
-        raise ZenError("hpr_separate_blocked expects [L] audio")
-    hop, length = cfg.hop, audio.shape[-1]
-    blk = _Blocking.of(length, cfg, block_frames)
-    tails = audio.new_zeros((len(STEMS), hop))
+    audio = _blocked_audio(audio, "hpr_separate_blocked")
+    blk = _Blocking.of(audio.shape[-1], cfg, block_frames)
+    tails = audio.new_zeros((len(STEMS), cfg.hop))
     outs = []
     for samples in _blocks(audio, cfg, blk):
-        ys = synthesize_masked(_block_masks(cfg, blk, samples), cfg)
-        rows, new_tails = [], []
-        for tail, y in zip(tails, ys.values()):
-            if y is None:
-                rows.append(audio.new_zeros(blk.bf * hop))
-                new_tails.append(tail)
-                continue
-            # chunk j = y[j][:hop] + y[j-1][hop:], the carried tail as
-            # frame -1's second half
-            prev = torch.nn.functional.pad(tail, (hop, 0))[None]
-            rows.append(overlap_add_stream(torch.cat([prev, y]), hop, advance=1))
-            new_tails.append(y[-1, hop:])
-        outs.append(torch.stack(rows))
-        tails = torch.stack(new_tails)
-    full = torch.cat(outs, dim=1)
-    # the blocked chunk of frame t lands at t * hop; the unblocked
-    # advance=1 assembly starts one hop later (frame 0's chunk is the
-    # warm-up it never emits)
-    return {name: full[i, hop : hop + length] for i, name in enumerate(STEMS)}
+        out, tails = _block_step(cfg, blk, samples, tails)
+        outs.append(out)
+    return _stems(torch.cat(outs, dim=1), cfg.hop, audio.shape[-1])
+
+
+# ---------------- mid-track checkpoints ----------------
+
+
+def _cfg_digest(cfg: HPRConfig) -> str:
+    """Fingerprint of a config, so that a resumed run never continues a
+    track started under other parameters (zen_tpu's: its config's repr
+    differs, so its checkpoints restart here)."""
+    return hashlib.sha1(repr(cfg).encode()).hexdigest()[:16]
+
+
+def _fsync_file(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _resume_point(ckpt_path: str, stems_path: str, meta_want: dict, tails, n_blocks: int,
+                  stems_bytes: int):
+    """(next block, OLA tails) of a checkpoint that matches ``meta_want``
+    and whose stems file is whole; (0, zero tails) for a missing, stale or
+    corrupt one. next_block is read before the tails are taken, so a
+    corrupt one never seeds block 0 with a mid-track carry."""
+    if not (os.path.exists(ckpt_path) and os.path.exists(stems_path)):
+        return 0, tails
+    if os.path.getsize(stems_path) != stems_bytes:
+        return 0, tails
+    try:
+        state, meta = load_stream_state(ckpt_path, like=tails)
+        if any(meta.get(k) != v for k, v in meta_want.items()):
+            return 0, tails
+        start = int(meta["next_block"])
+    except (OSError, ValueError, KeyError, TypeError, EOFError, zipfile.BadZipFile):
+        return 0, tails
+    if not 0 <= start <= n_blocks:
+        return 0, tails
+    return start, state
+
+
+def hpr_separate_blocked_checkpointed(
+    audio,
+    cfg: HPRConfig,
+    block_frames: int = 2048,
+    ckpt_dir: str | None = None,
+    tag: str = "track",
+    ckpt_every_blocks: int = 8,
+    on_segment=None,
+) -> dict:
+    """``hpr_separate_blocked`` that a crash costs at most one segment.
+    The block loop runs in segments of ``ckpt_every_blocks`` blocks; after
+    each, the segment's stems land in ``<ckpt_dir>/<tag>.stems.f32`` (a
+    float32 memmap [3, n_blocks * bf * hop], fsynced) and only then the
+    OLA tails and the next block go to ``<tag>.ckpt.npz``
+    (``save_stream_state_durable``, meta ``cfg``, ``bf``, ``nb``,
+    ``length``, ``next_block``). A later call with the same arguments
+    resumes after the last durable segment, with stems bitwise equal to
+    an uninterrupted run; a checkpoint of another config or geometry, or
+    a corrupt one, restarts from zero. ``on_segment(next_block,
+    n_blocks)`` is called after each durable segment. Returns the same
+    dict of [L] stems on the audio's device; ``ckpt_dir=None`` is
+    ``hpr_separate_blocked``. ``clear_track_checkpoint`` removes the
+    files once the caller has consumed the stems."""
+    if ckpt_dir is None:
+        return hpr_separate_blocked(audio, cfg, block_frames)
+    audio = _blocked_audio(audio, "hpr_separate_blocked_checkpointed")
+    hop, length = cfg.hop, audio.shape[-1]
+    blk = _Blocking.of(length, cfg, block_frames)
+    total = blk.n_blocks * blk.bf * hop
+    os.makedirs(ckpt_dir, exist_ok=True)
+    stems_path = os.path.join(ckpt_dir, f"{tag}.stems.f32")
+    ckpt_path = os.path.join(ckpt_dir, f"{tag}.ckpt.npz")
+    meta_want = {"cfg": _cfg_digest(cfg), "bf": blk.bf, "nb": blk.n_blocks, "length": length}
+    b, tails = _resume_point(ckpt_path, stems_path, meta_want,
+                             audio.new_zeros((len(STEMS), hop)), blk.n_blocks,
+                             len(STEMS) * total * 4)
+    if b == 0 and os.path.exists(ckpt_path):
+        # a restart drops the old checkpoint first: once the stems file is
+        # recreated, it no longer holds the segments that checkpoint claims
+        os.remove(ckpt_path)
+        _fsync_file(ckpt_dir)
+    mm = np.memmap(stems_path, np.float32, mode="r+" if b > 0 else "w+",
+                   shape=(len(STEMS), total))
+    padded = _padded(audio, cfg, blk)
+    while b < blk.n_blocks:
+        ng = min(ckpt_every_blocks, blk.n_blocks - b)
+        outs = []
+        for j in range(b, b + ng):
+            out, tails = _block_step(cfg, blk, _block_samples(padded, cfg, blk, j), tails)
+            outs.append(out)
+        mm[:, b * blk.bf * hop : (b + ng) * blk.bf * hop] = torch.cat(outs, dim=1).cpu().numpy()
+        mm.flush()
+        _fsync_file(stems_path)  # the stems are durable before a checkpoint claims them
+        b += ng
+        save_stream_state_durable(ckpt_path, tails, {**meta_want, "next_block": b})
+        if on_segment is not None:
+            on_segment(b, blk.n_blocks)
+    full = torch.from_numpy(np.array(mm[:, : hop + length])).to(audio.device)
+    del mm
+    return _stems(full, hop, length)
+
+
+def clear_track_checkpoint(ckpt_dir: str, tag: str) -> None:
+    """Remove a track's mid-track checkpoint files (once its stems are
+    durably written)."""
+    for suffix in (".stems.f32", ".ckpt.npz", ".ckpt.npz.tmp"):
+        try:
+            os.remove(os.path.join(ckpt_dir, tag + suffix))
+        except FileNotFoundError:
+            pass
 
 
 # ---------------- the two-pass driver ----------------
@@ -261,19 +400,30 @@ class HPRIOffline:
         block_frames_h: int = 512,
         block_frames_p: int = 8192,
         ckpt_dir: str | None = None,
+        tag: str = "track",
+        ckpt_every_blocks: int = 8,
+        on_segment=None,
     ):
         """``process`` on [L] audio with both passes as overlap-save
         blocks (``hpr_separate_blocked``), for tracks whose batched
-        spectrogram would not fit the card."""
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "mid-track checkpoints (ckpt_dir) are not ported yet "
-                "(ROADMAP queue 1, item 5: host runtime)"
-            )
+        spectrogram would not fit the card.
+
+        With ``ckpt_dir``, both passes are checkpointed mid-track
+        (``hpr_separate_blocked_checkpointed``, tags ``<tag>.p1`` and
+        ``<tag>.p2``): a kill at any point resumes from the last durable
+        segment of the pass it hit, with the same stems bit for bit, and
+        the same return type. ``clear_track_checkpoint(ckpt_dir,
+        f"{tag}.p1")`` and ``.p2`` remove the files once the stems are
+        consumed."""
         audio = self._on_device(audio)
         if audio.ndim != 1:
             raise ZenError("process_blocked expects [L] audio")
-        pass1 = hpr_separate_blocked(audio, self.cfg_h, block_frames_h)
+        ck = dict(ckpt_dir=ckpt_dir, ckpt_every_blocks=ckpt_every_blocks, on_segment=on_segment)
+        pass1 = hpr_separate_blocked_checkpointed(audio, self.cfg_h, block_frames_h,
+                                                  tag=f"{tag}.p1", **ck)
         inter = pass1["percussive"] + pass1["residual"]
-        pass2 = hpr_separate_blocked(inter, self.cfg_p, block_frames_p)
-        return pass1["harmonic"], pass2["percussive"], pass2["residual"]
+        harmonic = pass1["harmonic"]
+        del pass1  # free pass 1's other stems before pass 2 allocates its own
+        pass2 = hpr_separate_blocked_checkpointed(inter, self.cfg_p, block_frames_p,
+                                                  tag=f"{tag}.p2", **ck)
+        return harmonic, pass2["percussive"], pass2["residual"]

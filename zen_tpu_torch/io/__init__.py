@@ -1,1 +1,2 @@
-"""Host-side signal helpers of the port (no audio codecs yet)."""
+"""Host-side I/O of the port: audio files over the native codecs
+(``audio``) and synthetic test mixtures (``synth``)."""

@@ -1,1 +1,4 @@
-"""Host runtime of the port: tracing and timing (``profiling``)."""
+"""Host runtime of the port: the native codec and ring library
+(``native``), checkpoints and the progress journal (``checkpoint``), the
+live ring-buffer service (``stream``), and tracing and timing
+(``profiling``)."""
