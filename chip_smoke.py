@@ -72,6 +72,17 @@ entry points at full width:
            fakert --block-hops 32` at hop 256 and 1024 against the CPU
            port; LiveStream at hop 256 over the native rings; one real
            `python -m zen_tpu_torch offline`;
+  phase 18 the corpus: ten WAV tracks (1501 s, one past
+           LONG_TRACK_SAMPLES) through `zen-torch corpus`, every stem
+           byte-equal to process() / process_blocked() on the card, a
+           resume that processes nothing, an empty .ckpt; `--pp` and
+           separate_corpus(dp=4) against it; the loader (prefetch 2 against
+           0) and the pipelined cascade against sequential process(), in
+           turns;
+  phase 19 the demos: `zen-torch pitch-track` and `beat-track` on
+           docs/DEMOS.md's mix and 60 s of a steady chord, on the card and
+           with --device cpu, with DEMOS.md's verdicts; the demos' stems,
+           ODF and autocorrelation against the CPU port;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -82,8 +93,9 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route (phase 6 and phases 7-16; the
-SSE paths must launch none).
+are counted per path and per kernel route (phase 6 and phases 7-19; the
+SSE paths must launch none; phases 18-19 require each run's count to
+equal the count from its shapes).
 
 Every time printed is a measurement of this run on the card named in
 phase 1. Any failure raises and exits non-zero; there is no CPU path.
@@ -96,6 +108,7 @@ import functools
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -403,6 +416,11 @@ def kernel_cases():
         ("#3", "offline pass 2 T=643 F=513 K=11 centered", mag(1, 643, 513),
          mag(1, 0, 513), tuple(range(-5, 6)), 0),
         ("#2", "offline pass 1 T=41 F=8193 K=1", mag(1, 41, 8193), mag(1, 0, 8193), (0,), 0),
+        # the demo apps' streams: pitch-track (hop 4096) and beat-track (hop 256)
+        ("#1", "pair C=1 H=0 B=8 F=8193 K=1 (pitch-track)", mag(1, 0, 8193), mag(1, 8, 8193),
+         (0,), 0),
+        ("#1", "pair C=1 H=21 B=64 F=513 K=11 (beat-track)", mag(1, 21, 513), mag(1, 64, 513),
+         T256, 21),
         ("#1", "pair C=1 H=183 B=32 F=65 K=93 (hop 32)", mag(1, 183, 65), mag(1, 32, 65),
          t_k93, 183),
         ("#1", "pair C=1 H=183 B=1 F=65 K=93 (hop 32)", mag(1, 183, 65), mag(1, 1, 65),
@@ -456,6 +474,8 @@ def kernel_cases():
         ("#6", "offline pass 1 R=41 F=8193 K=187 reflect ties", ties(41, 8193), 187, "reflect"),
         ("#6", "R=41 F=8193 K=187 reflect bf16", bf16(41, 8193), 187, "reflect"),
         ("#8", "offline pass 2 R=643 F=513 K=13 reflect", mag(643, 513), 13, "reflect"),
+        ("#5", "R=8 F=8193 K=187 reflect (pitch-track)", mag(8, 8193), 187, "reflect"),
+        ("#7", "R=64 F=513 K=13 reflect (beat-track)", mag(64, 513), 13, "reflect"),
         ("#5", "R=32 F=2049 K=257 reflect (fs 8000 hop 1024)", mag(32, 2049), 257, "reflect"),
         ("#5", "R=32 F=2049 K=257 reflect ties", ties(32, 2049), 257, "reflect"),
         ("#5", "R=37 F=2304 K=257 valid ties bf16", ties(37, 2304).to(torch.bfloat16), 257,
@@ -1988,6 +2008,471 @@ def phase_files_cli(smi: str) -> dict:
     return total
 
 
+# ---------------- the corpus: zen-torch corpus, the loader, the pipelined cascade ----------------
+
+CORPUS_SECONDS = (30, 45, 60, 75, 90, 120, 180, 240)  # the 44.1 kHz tracks of phase 18
+
+
+def corpus_separator(fs):
+    """zen-torch corpus's default cascade, 4096/2.0/256/2.0, on the card."""
+    from zen_tpu_torch import HPRIOffline
+
+    return HPRIOffline(fs, 4096, 256, 2.0, 2.0, device=DEVICE)
+
+
+def corpus_plan(items, dp: int = 1) -> tuple:
+    """How separate_corpus groups tracks [(path, fs, n)] in order: (the
+    batches of up to ``dp`` short tracks of one rate, the long tracks)."""
+    from zen_tpu_torch.drivers.offline import LONG_TRACK_SAMPLES
+
+    batches, long_tracks, cur = [], [], []
+    for path, fs, n in items:
+        if n > LONG_TRACK_SAMPLES:
+            long_tracks.append((path, fs, n))
+            continue
+        if cur and (fs != cur[0][1] or len(cur) == dp):
+            batches.append(cur)
+            cur = []
+        cur.append((path, fs, n))
+    return batches + ([cur] if cur else []), long_tracks
+
+
+def corpus_launches(items, dp: int = 1) -> dict:
+    """The median launches of separate_corpus over ``items``, counted from
+    the configs and shapes: one process() per batch (each pass one K1 and
+    one K2), and for a long track each pass's blocks (one K1 and one K2 a
+    block)."""
+    from zen_tpu_torch.drivers.offline import _Blocking
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    counts = dict.fromkeys(read_launches(), 0)
+    batches, long_tracks = corpus_plan(items, dp)
+    calls = [(b[0][1], None) for b in batches] + [(fs, n) for _, fs, n in long_tracks]
+    for fs, n in calls:
+        sep = corpus_separator(fs)
+        for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192)):
+            k = 1 if n is None else _Blocking.of(n, cfg, bf).n_blocks
+            counts[f"tap_median_time/{mc.time_route(cfg.time_offsets)}"] += k
+            counts[f"sliding_median_boundary/{mc.freq_route(cfg.freq_filter_len)}"] += k
+    return counts
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def synced(fn):
+    """fn() once the card has finished it."""
+    out = fn()
+    torch.cuda.synchronize()
+    return out
+
+
+def launch_ledger():
+    """(total, counted): ``counted(fn, want, what)`` runs one entry point
+    between a reset and a read of the launch counters, requires the count
+    to equal ``want`` (counted from the shapes) and adds it to ``total``;
+    it returns (fn's result, its wall seconds)."""
+    total = dict.fromkeys(read_launches(), 0)
+
+    def counted(fn, want, what):
+        torch.cuda.synchronize()
+        reset_launches()
+        out, wall = timed(lambda: synced(fn))
+        counts = read_launches()
+        require(counts == want, f"{what}: launches {nonzero(counts)}, counted from the "
+                f"shapes {nonzero(want)}")
+        for k in total:
+            total[k] += counts[k]
+        return out, wall
+
+    return total, counted
+
+
+def same_bytes(a: Path, b: Path) -> bool:
+    return a.read_bytes() == b.read_bytes()
+
+
+def hold_batch(sep, xs) -> dict:
+    """Each row of a batched offline pass against the lone track's under
+    the flip rule, pass by pass: pass 1 on the same audio, pass 2 on the
+    lone track's intermediate on both sides (pass-1 flips do not cascade).
+    The worst row over both passes."""
+    from zen_tpu_torch.drivers.offline import pass_masks, pass_stems
+
+    worst = {"flips": 0, "share": 0.0, "excluded": 0, "rel_err": 0.0}
+    inputs = xs
+    for cfg in (sep.cfg_h, sep.cfg_p):
+        batch = torch.zeros((len(inputs), max(len(x) for x in inputs)), device=DEVICE)
+        for row, x in zip(batch, inputs):
+            row[: len(x)] = x
+        fm_b = pass_masks(batch, cfg)
+        st_b = pass_stems(fm_b, cfg, batch)
+        nxt = []
+        for j, x in enumerate(inputs):
+            fm_1 = pass_masks(x, cfg)
+            st_1 = pass_stems(fm_1, cfg, x)
+            got = {k: v[j, : len(x)] for k, v in st_b.items()}
+            st = hold_pass(f"batch row {j} hop {cfg.hop}", got, st_1,
+                           [m[j] for m in fm_b.masks[:2]], fm_1.masks, cfg.hop)
+            worst = {k: max(worst[k], st[k]) for k in worst}
+            nxt.append(st_1["percussive"] + st_1["residual"])
+        del fm_b, st_b
+        inputs = nxt
+    return worst
+
+
+def phase_corpus(smi: str) -> dict:
+    """The corpus surface on the card, at the sizes an offline user runs:
+    eight tracks of 30-240 s at 44.1 kHz, one of 60 s at 48 kHz and one
+    just past LONG_TRACK_SAMPLES at 48 kHz, written as WAV. `zen-torch
+    corpus` (dp=1, 4096/2.0/256/2.0) in-process: every stem byte-equal to
+    the port's writer over process() (process_blocked() for the long
+    track) on the card; a second run processes nothing; the .ckpt
+    directory is empty. `--pp` on the short tracks: stems byte-equal to
+    the plain run's. separate_corpus(dp=4): its stems byte-equal to the
+    writer over the batched process() it runs, each row of which holds
+    against the lone track under the flip rule. The loader (prefetch 2
+    against 0) and the pipelined cascade against the sequential one, in
+    turns. Each run's launches equal the count from the shapes."""
+    import shutil
+    import tempfile
+
+    from zen_tpu_torch.drivers.corpus import separate_corpus
+    from zen_tpu_torch.drivers.offline import LONG_TRACK_SAMPLES
+    from zen_tpu_torch.drivers.pipeline import PipelinedHPRIOffline
+    from zen_tpu_torch.io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
+
+    total, counted = launch_ledger()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        src = tmp / "in"
+        src.mkdir()
+        specs = [(f"a{i}_{s}s", 44100, int(s * 44100)) for i, s in enumerate(CORPUS_SECONDS)]
+        specs += [("b_48k_60s", 48000, 60 * 48000),
+                  ("c_48k_long", 48000, LONG_TRACK_SAMPLES + 48000)]
+        tracks = {}
+        t0 = time.perf_counter()
+        for seed, (name, fs, n) in enumerate(specs):
+            path = src / f"{name}.wav"
+            write_audio_pcm16(str(path), fs, peak_normalize(synthetic_mix(n, fs, seed=20 + seed)))
+            tracks[str(path)] = read_audio_mono(str(path))
+        paths = sorted(tracks)
+        items = [(p, tracks[p][0], len(tracks[p][1])) for p in paths]
+        short = [p for p, _, n in items if n <= LONG_TRACK_SAMPLES]
+        short_items = [it for it in items if it[0] in short]
+        seconds = sum(n / fs for _, fs, n in items)
+        print(f"phase 18 corpus input: {len(paths)} WAV tracks, {seconds:.0f} s of audio "
+              f"({sum(Path(p).stat().st_size for p in paths) / 2**20:.0f} MiB; {len(CORPUS_SECONDS)} at "
+              f"44.1 kHz of {CORPUS_SECONDS} s, one of 60 s and one of {specs[-1][2]} samples at "
+              f"48 kHz, "
+              f"LONG_TRACK_SAMPLES {LONG_TRACK_SAMPLES}); made in {time.perf_counter() - t0:.1f} s")
+
+        # zen-torch corpus, then each stem against the writer over process() on this card
+        out = tmp / "out"
+        argv = ["corpus", "-i", src / "*.wav", "-o", out, "--device", DEVICE]
+        lines, wall = counted(lambda: zen_cli(argv), corpus_launches(items), "zen-torch corpus")
+        require(lines[0] == f"corpus: {len(paths)} tracks, mesh {{'dp': 1, 'sp': 1}}, out={out}"
+                and json.loads(lines[-1]) == {"metric": "corpus_tracks", "done": 0,
+                                              "processed": len(paths)},
+                f"zen-torch corpus stdout {lines}")
+        require(sorted(os.listdir(out / ".ckpt")) == [], "checkpoint files left in .ckpt")
+        card_s = 0.0
+        for path, fs, n in items:
+            sep = corpus_separator(fs)
+            x = torch.from_numpy(tracks[path][1]).to(DEVICE)
+            run = sep.process_blocked if n > LONG_TRACK_SAMPLES else sep.process
+            stems, s = timed(lambda: synced(lambda: run(x)))
+            card_s += s
+            for name, stem in zip(CLI_STEMS, stems):
+                write_audio_pcm16(str(tmp / "ref.wav"), fs, peak_normalize(stem.cpu().numpy()))
+                require(same_bytes(out / f"{Path(path).stem}_{name}.wav", tmp / "ref.wav"),
+                        f"corpus {Path(path).name} {name}: differs from the writer over "
+                        f"{'process_blocked' if n > LONG_TRACK_SAMPLES else 'process'}()")
+        launched = nonzero(corpus_launches(items))
+        print(f"phase 18 zen-torch corpus, {len(paths)} tracks ({seconds:.0f} s): every stem "
+              f"byte-equal to the writer over process() / process_blocked() on the card; .ckpt "
+              f"empty; whole command {wall:.2f} s = {seconds / wall:.1f} s of audio per s; "
+              f"process() and process_blocked() alone on the same tracks {card_s:.3f} s, the "
+              f"card's share {card_s / wall:.1%} (the rest: decode, peak normalization, encode, "
+              f"journal); launches {launched}, as counted from the shapes [{smi}]")
+        lines, _ = counted(lambda: zen_cli(argv), dict.fromkeys(total, 0), "corpus resume")
+        require(json.loads(lines[-1]) == {"metric": "corpus_tracks", "done": len(paths),
+                                          "processed": 0}, f"resume: {lines[-1]}")
+        require(sorted(os.listdir(out / ".ckpt")) == [], "checkpoint files left after resume")
+        print(f"phase 18 resume: {lines[-1]}; no launch; .ckpt empty")
+
+        # --pp on the short tracks: the pipelined cascade, stems equal to the plain run's
+        out_pp = tmp / "pp"
+        lines, wall_pp = counted(
+            lambda: zen_cli(["corpus", "-i", *short, "-o", out_pp, "--pp", "--device", DEVICE]),
+            corpus_launches(short_items), "zen-torch corpus --pp")
+        for p in short:
+            for name in CLI_STEMS:
+                stem = f"{Path(p).stem}_{name}.wav"
+                require(same_bytes(out_pp / stem, out / stem), f"--pp {stem} differs")
+        shutil.rmtree(out_pp)
+        print(f"phase 18 zen-torch corpus --pp, {len(short)} short tracks: stems byte-equal to "
+              f"the plain run's; whole command {wall_pp:.2f} s [{smi}]")
+
+        # separate_corpus(dp=4): batches of four tracks of one rate
+        out4 = tmp / "dp4"
+        res, wall4 = counted(lambda: separate_corpus(short, str(out4), dp=4, device=DEVICE),
+                             corpus_launches(short_items, dp=4), "separate_corpus(dp=4)")
+        require(res == {"done": 0, "processed": len(short)}, f"dp=4: {res}")
+        worst = {"flips": 0, "share": 0.0, "excluded": 0, "rel_err": 0.0}
+        batches, _ = corpus_plan(short_items, dp=4)
+        for batch in batches:
+            fs = batch[0][1]
+            sep = corpus_separator(fs)
+            xs = [torch.from_numpy(tracks[p][1]).to(DEVICE) for p, _, _ in batch]
+            xb = torch.zeros((len(xs), max(len(x) for x in xs)), device=DEVICE)
+            for row, x in zip(xb, xs):
+                row[: len(x)] = x
+            stems = sep.process(xb, lengths=[n for _, _, n in batch])
+            for j, (p, _, n) in enumerate(batch):
+                for name, stem in zip(CLI_STEMS, stems):
+                    write_audio_pcm16(str(tmp / "ref.wav"), fs,
+                                      peak_normalize(stem[j, :n].cpu().numpy()))
+                    require(same_bytes(out4 / f"{Path(p).stem}_{name}.wav", tmp / "ref.wav"),
+                            f"dp=4 {Path(p).name} {name}: differs from the batched process()")
+            del stems, xb
+            st = hold_batch(sep, xs)
+            worst = {k: max(worst[k], st[k]) for k in worst}
+        shutil.rmtree(out4)
+        print(f"phase 18 separate_corpus(dp=4), {len(short)} tracks in {len(batches)} batches: "
+              f"stems byte-equal to the writer over the batched process(); each row against "
+              f"the lone track, pass by pass: worst mask flips {worst['flips']} "
+              f"({worst['share']:.3g} of bins), excluded samples {worst['excluded']}, max "
+              f"|diff|/scale {worst['rel_err']:.3g} (limit {STEM_ATOL}); {wall4:.2f} s against "
+              f"dp=1's prefetch runs below [{smi}]")
+
+        # the loader and the pipelined cascade, each against its sequential twin, in turns
+        walls = {0: [], 2: []}
+        for k, pf in enumerate((0, 2, 2, 0)):
+            o = tmp / f"pf{k}"
+            _, w = counted(lambda: separate_corpus(short, str(o), prefetch=pf, device=DEVICE),
+                           corpus_launches(short_items), f"separate_corpus(prefetch={pf})")
+            walls[pf].append(w)
+            shutil.rmtree(o)
+        short44 = [it for it in short_items if it[1] == 44100]
+        sep = corpus_separator(44100)
+        pipe = PipelinedHPRIOffline(sep.cfg_h, sep.cfg_p, device=DEVICE)
+        audios = [tracks[p][1] for p, _, _ in short44]
+        runs = {"sequential": lambda: [[s.cpu().numpy() for s in sep.process(a)] for a in audios],
+                "pipelined": lambda: [[s.cpu().numpy() for s in out]
+                                      for out in pipe.process_stream(audios)]}
+        pwalls, got = {"sequential": [], "pipelined": []}, {}
+        for name in ("sequential", "pipelined", "pipelined", "sequential"):
+            got[name], w = counted(runs[name], corpus_launches(short44), name)
+            pwalls[name].append(w)
+        require(all(np.array_equal(a, b) for ta, tb in zip(got["sequential"], got["pipelined"])
+                    for a, b in zip(ta, tb)),
+                "the pipelined cascade's stems differ from the sequential process()")
+        prof = {name: device_profile(run) for name, run in runs.items()}
+        audio_s = sum(n / fs for _, fs, n in short_items)
+        print(f"phase 18 loader, {len(short)} tracks ({audio_s:.0f} s), files in and out, "
+              f"in turns: prefetch=2 {walls[2][0]:.2f} / {walls[2][1]:.2f} s against prefetch=0 "
+              f"{walls[0][0]:.2f} / {walls[0][1]:.2f} s [{smi}]")
+        print(f"phase 18 pipelined cascade (two CUDA streams) on the {len(short44)} 44.1 kHz "
+              f"tracks, host arrays in and out, in turns: pipelined {pwalls['pipelined'][0]:.3f}"
+              f" / {pwalls['pipelined'][1]:.3f} s against sequential process() "
+              f"{pwalls['sequential'][0]:.3f} / {pwalls['sequential'][1]:.3f} s; stems bitwise "
+              f"equal; one run each under torch.profiler: sequential {prof['sequential']}; "
+              f"pipelined {prof['pipelined']} [{smi}]")
+    return total
+
+
+# ---------------- the demo apps: pitch-track and beat-track ----------------
+
+APPS = {"pitch-track": (4096, 8), "beat-track": (256, 64)}  # hop, block hops
+DEMO_MIXES = {  # docs/DEMOS.md's command, and 60 s of a steady sine chord under the same drums
+    "demo 3 s": ["--sawtooth", "--vibrato-cents", "17", "--bpm", "120", "--hits-per-beat", "4",
+                 "--seconds", "3"],
+    "steady 60 s": ["--bpm", "120", "--hits-per-beat", "4", "--seconds", "60"],
+}
+PITCH_HZ_ATOL = 0.01  # one unit of the printed precision: close values may round apart
+# the FFT's relative rounding: twice log2(512) float32 epsilons (a radix-2 FFT's
+# error bound, twiddles included)
+ODF_FFT_DELTA = 2 * 9 * float(np.finfo(np.float32).eps)
+ACF_RTOL = 1e-5  # x max|acf| per chunk: cuFFT against the CPU FFT
+
+
+def odf_tolerance(frames: np.ndarray) -> np.ndarray:
+    """Per frame, how far two FFTs' onset detection functions may differ:
+    sqrt(2 ODF_FFT_DELTA) x the sum over bins of m_t + m_(t-1) (float64
+    magnitudes of the windowed, half-swapped frames). A bin's complex
+    spectral difference sqrt(m^2 + m_p^2 - 2 m m_p cos(dev)) is a
+    difference of nearly equal terms where a partial is steady, so a
+    rounding delta of the spectra moves it by up to (m + m_p) sqrt(2
+    delta); the magnitude gate (m > m_p) flips only where that bound
+    covers the bin. Valid where every bin carries energy: the phase of a
+    bin holding only round-off is noise, and a frame two hops later reads
+    it at full weight (hold such inputs over a noise floor)."""
+    from zen_tpu_torch.apps.btrack import HOP_SIZE, _odf_window
+
+    xw = frames.astype(np.float64) * _odf_window()
+    m = np.abs(np.fft.fft(np.concatenate([xw[:, HOP_SIZE:], xw[:, :HOP_SIZE]], 1))).sum(1)
+    return math.sqrt(2 * ODF_FFT_DELTA) * (m + np.concatenate([[0.0], m[:-1]]))
+
+
+def app_separator(cmd: str, fs: float, device):
+    """The demo's own stream: hop 4096 harmonic, or hop 256 percussive, beta 2.5."""
+    from zen_tpu_torch import OUTPUT_HARMONIC, OUTPUT_PERCUSSIVE, HPRRealtime
+
+    outputs = OUTPUT_HARMONIC if cmd == "pitch-track" else OUTPUT_PERCUSSIVE
+    return HPRRealtime(fs, APPS[cmd][0], 2.5, outputs=outputs, device=device)
+
+
+def app_launches(cmd: str, fs: float, n_samples: int) -> dict:
+    """One K1 and one K2 launch per step of the demo's stream, counted from
+    its hop and block (a ragged last block is one step too)."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    hop, block = APPS[cmd]
+    cfg = app_separator(cmd, fs, "cpu").cfg
+    steps = -(-(n_samples // hop) // block)
+    counts = dict.fromkeys(read_launches(), 0)
+    counts[f"tap_median_time/{mc.time_route(cfg.time_offsets)}"] += steps
+    counts[f"sliding_median_boundary/{mc.freq_route(cfg.freq_filter_len)}"] += steps
+    return counts
+
+
+def pitch_rows(lines) -> np.ndarray:
+    """[chunks, 3]: t, +HPR pitch, -HPR pitch of pitch-track's lines."""
+    rows = [ln for ln in lines if ln.startswith("t:")]
+    return np.array([[float(f.split(":")[1]) for f in ln.split(",\t")] for ln in rows])
+
+
+def beat_times(lines, name: str) -> np.ndarray:
+    line = next(ln for ln in lines if ln.startswith(f"{name} beat timestamps:"))
+    return np.array([float(x) for x in line.split(":", 1)[1].split()])
+
+
+def phase_apps(smi: str) -> dict:
+    """The reference's two demos on the card: `zen-torch pitch-track` and
+    `beat-track` in-process on docs/DEMOS.md's mixture and on 60 s of a
+    steady pitch, each against its own run with --device cpu (the printed
+    lines; pitches within PITCH_HZ_ATOL, beats within one ODF frame), with
+    DEMOS.md's verdicts on the 60 s mix: +HPR pitch steadier than -HPR,
+    both beat lists on the 0.5 s grid. Then the demos' separation stems,
+    the ODF and the autocorrelation against the CPU port at their
+    classes, each timed apart."""
+    import tempfile
+
+    from zen_tpu_torch.apps.btrack import frames_from_hops, odf_batch
+    from zen_tpu_torch.apps.mpm import _autocorr_batch
+    from zen_tpu_torch.io.audio import read_audio_mono
+
+    total, counted = launch_ledger()
+    pitches, beats, audio = {}, {}, {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for mix, flags in DEMO_MIXES.items():
+            wav = Path(tmp) / f"{mix.split()[0]}.wav"
+            zen_cli(["synth", "-o", wav, *flags])
+            fs, audio[mix] = read_audio_mono(str(wav))
+            for cmd in APPS:
+                want = app_launches(cmd, fs, len(audio[mix]))
+                gpu, wall = counted(lambda: zen_cli([cmd, "-i", wav, "--device", DEVICE]), want,
+                                    f"{cmd} {mix}")
+                cpu, wall_cpu = timed(lambda: zen_cli([cmd, "-i", wav, "--device", "cpu"]))
+                rows = ("t:",) if cmd == "pitch-track" else ("+HPR beat", "-HPR beat")
+                require([ln for ln in gpu if not ln.startswith(rows)]
+                        == [ln for ln in cpu if not ln.startswith(rows)],
+                        f"{cmd} {mix}: echo lines differ")
+                if cmd == "pitch-track":
+                    g, c = pitch_rows(gpu), pitch_rows(cpu)
+                    require(g.shape == c.shape and np.array_equal(g[:, 0], c[:, 0]),
+                            f"{cmd} {mix}: chunks differ")
+                    # in units of the printed 0.01 Hz: 110.13 - 110.12 is 0.010000000000005
+                    err = float(np.abs(np.rint(g[:, 1:] * 100) - np.rint(c[:, 1:] * 100)).max()
+                                ) / 100
+                    require(err <= PITCH_HZ_ATOL, f"{cmd} {mix}: card vs CPU pitch {err} Hz")
+                    held = f"{len(g)} chunks, max |pitch diff| {err:.3g} Hz"
+                    pitches[mix] = g
+                else:
+                    held = []
+                    for name in ("+HPR", "-HPR"):
+                        g, c = beat_times(gpu, name), beat_times(cpu, name)
+                        require(len(g) == len(c) and np.abs(g - c).max(initial=0.0)
+                                <= 256 / fs + 1e-4, f"{cmd} {mix} {name}: card {g} vs CPU {c}")
+                        held.append(f"{name} {len(g)} beats, max |diff| "
+                                    f"{np.abs(g - c).max(initial=0.0):.4f} s")
+                        beats[mix, name] = g
+                    held = "; ".join(held) + f" (limit one ODF frame, {256 / fs:.4f} s)"
+                print(f"phase 19 zen-torch {cmd}, {mix}: card against --device cpu: {held}; "
+                      f"command {wall:.2f} s on the card, {wall_cpu:.2f} s on the CPU; launches "
+                      f"{nonzero(want)}, as counted from the shapes [{smi}]")
+
+    demo, steady = DEMO_MIXES
+    print("phase 19 pitch-track, demo 3 s (t: +HPR / -HPR Hz): " + "; ".join(
+        f"{t:.2f}: {a:.2f} / {b:.2f}" for t, a, b in pitches[demo]))
+    for name in ("+HPR", "-HPR"):
+        print(f"phase 19 beat-track, demo 3 s, {name} beat timestamps: "
+              + " ".join(f"{b:.4f}" for b in beats[demo, name]))
+    # docs/DEMOS.md's verdicts; the first chunk is the harmonic stream's warm-up hop
+    rows = pitches[steady][1:]
+    spread = {name: float(np.abs(rows[:, i] - np.median(rows[:, i])).max())
+              for i, name in ((1, "+HPR"), (2, "-HPR"))}
+    require(spread["+HPR"] < spread["-HPR"] and (rows[:, 1] > 0).all(),
+            f"pitch verdict: +HPR not steadier than -HPR: {spread}")
+    grid = {}
+    for name in ("+HPR", "-HPR"):
+        ibi = np.diff(beats[steady, name])
+        grid[name] = (float(np.median(ibi)), float(np.mean(np.abs(ibi - 0.5) < 0.05)))
+        require(abs(grid[name][0] - 0.5) < 0.015,
+                f"beat verdict: {name} median inter-beat interval {grid[name][0]} s")
+    print(f"phase 19 verdicts, steady 60 s: pitch +HPR max |p - median| {spread['+HPR']:.4f} Hz "
+          f"against -HPR {spread['-HPR']:.4f} Hz (steadier, as docs/DEMOS.md); beats on the "
+          f"0.5 s grid, median inter-beat interval " + ", ".join(
+              f"{n} {m:.4f} s ({share:.0%} of intervals within 0.05 s)"
+              for n, (m, share) in grid.items()) + f" [{smi}]")
+
+    # the demos' streams, the ODF and the autocorrelation against the CPU port; times apart
+    x60 = audio[steady]
+    rng = np.random.default_rng(19)
+    x = x60[: 20 * int(fs)]
+    x = (x + NOISE_FLOOR * rng.standard_normal(len(x))).astype(np.float32)
+    for cmd, (hop, block) in APPS.items():
+        n_hops = len(x) // hop
+        xs = x[: n_hops * hop]
+        sizes = [block] * (n_hops // block) + ([n_hops % block] if n_hops % block else [])
+        idx, stem = (0, "harmonic") if cmd == "pitch-track" else (1, "percussive")
+        rt = app_separator(cmd, fs, DEVICE)
+        got = rt.process_stream(xs, block_hops=block)[idx]
+        want = app_separator(cmd, fs, "cpu").process_stream(xs, block_hops=block)[idx]
+        r = compare_stream(rt.cfg, xs[None], sizes, got[None, None], want[None, None], (stem,))
+        _, sep_s = timed(lambda: app_separator(cmd, fs, DEVICE).process_stream(
+            x60, block_hops=block))
+        print(f"phase 19 {cmd} stream (hop {hop}, {block}-hop blocks, {stem}) on 20 s of the "
+              f"steady mix over a {NOISE_FLOOR} noise floor, card vs CPU: mask flips "
+              f"{r['flips']} ({r['share']:.3g}), excluded hops {r['excluded']}/{r['hops']}, max "
+              f"|diff|/scale {r['rel_err']:.3g} (limit {STEM_ATOL}); the separation step on "
+              f"60 s: {sep_s:.3f} s wall [{smi}]")
+    frames = frames_from_hops(x)  # the floored mix: every bin carries energy
+    frames_g = torch.from_numpy(frames).to(DEVICE)
+    odf_c = odf_batch(torch.from_numpy(frames)).numpy()
+    odf_d = np.abs(odf_batch(frames_g).cpu().numpy() - odf_c)
+    odf_ratio = float((odf_d / odf_tolerance(frames)).max())
+    require(odf_ratio <= 1.0, f"ODF card vs CPU: {odf_ratio} x the tolerance")
+    chunks = x60[: len(x60) // 4096 * 4096].reshape(-1, 4096)
+    chunks_g = torch.from_numpy(chunks).to(DEVICE)
+    acf_c = _autocorr_batch(torch.from_numpy(chunks), 4096).numpy()
+    acf_err = float((np.abs(_autocorr_batch(chunks_g, 4096).cpu().numpy() - acf_c).max(axis=1)
+                     / np.abs(acf_c).max(axis=1)).max())
+    require(acf_err <= ACF_RTOL, f"ACF card vs CPU: {acf_err} of max|acf|")
+    odf_us = median_us(lambda: odf_batch(frames_g))
+    acf_us = median_us(lambda: _autocorr_batch(chunks_g, 4096))
+    print(f"phase 19 ODF, {len(frames)} frames of 512 (the 20 s floored mix): card vs CPU "
+          f"{odf_ratio:.3g} x odf_tolerance at worst ({odf_d.max() / np.abs(odf_c).max():.3g} of "
+          f"max|odf|), {odf_us:.1f} us on the card; autocorrelation, "
+          f"{len(chunks)} chunks of 4096 at n 8192: {acf_err:.3g} of max|acf| per chunk (limit "
+          f"{ACF_RTOL}), {acf_us:.1f} us (device medians of {TIMED_RUNS}) [{smi}]")
+    return total
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
@@ -2077,7 +2562,8 @@ def main() -> None:
                         ("zen_stream_512", phase_zen_stream), ("streaming_hop32", phase_hop32),
                         ("hbm_pattern", phase_hbm_pattern), ("serving_bound", phase_serving_bound),
                         ("sse", phase_sse), ("box", phase_box), ("dft", phase_dft),
-                        ("quality_ladder", phase_quality), ("files_cli", phase_files_cli)):
+                        ("quality_ladder", phase_quality), ("files_cli", phase_files_cli),
+                        ("corpus", phase_corpus), ("apps", phase_apps)):
         t0 = time.perf_counter()
         counts = phase(smi)
         if counts is not None:

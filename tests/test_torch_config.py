@@ -171,7 +171,9 @@ def test_port_imports_no_jax():
         "zen_tpu_torch.benches.serving_bound, zen_tpu_torch.benches.quality, "
         "zen_tpu_torch.ops.box, zen_tpu_torch.io.synth, zen_tpu_torch.io.audio, "
         "zen_tpu_torch.runtime.native, zen_tpu_torch.runtime.checkpoint, "
-        "zen_tpu_torch.runtime.stream, zen_tpu_torch.drivers.offline; "
+        "zen_tpu_torch.runtime.stream, zen_tpu_torch.drivers.offline, "
+        "zen_tpu_torch.runtime.loader, zen_tpu_torch.drivers.pipeline, "
+        "zen_tpu_torch.drivers.corpus, zen_tpu_torch.apps.mpm, zen_tpu_torch.apps.btrack; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'zen_tpu' not in sys.modules, 'zen_tpu imported'"
     )

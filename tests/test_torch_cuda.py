@@ -713,3 +713,87 @@ def test_live_stream_on_card_matches_process_stream(cuda_device):
     want = HPRRealtime(44100.0, 256, device=cuda_device).process_stream(audio, block_hops=16)
     for i, stem in enumerate(("harmonic", "percussive", "residual")):
         np.testing.assert_array_equal(live.pull(stem, len(audio)), want[i])
+
+
+def test_pipelined_cascade_on_two_streams_equals_sequential(cuda_device):
+    """Pass 1 on stream A in the worker, pass 2 on stream B: the stems
+    equal process() on the caller's stream bitwise, are ready on the
+    caller's stream, and the launch counters (incremented from both
+    threads) count every pass's kernels."""
+    from zen_tpu_torch.drivers.pipeline import PipelinedHPRIOffline
+
+    rng = np.random.default_rng(31)
+    sep = HPRIOffline(44100.0, 4096, 256, 2.0, 2.0, device=cuda_device)
+    tracks = [rng.standard_normal(44100 * s // 2).astype(np.float32) for s in (3, 5, 2, 4)]
+    want = [sep.process(t) for t in tracks]
+    pipe = PipelinedHPRIOffline(sep.cfg_h, sep.cfg_p, device=cuda_device)
+    n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
+    got = list(pipe.process_stream(tracks))
+    assert mc.tap_median_time.launches - n_time == 2 * len(tracks)
+    assert mc.sliding_median_boundary.launches - n_freq == 2 * len(tracks)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.device == b.device and torch.equal(a, b)
+
+
+def test_corpus_on_card_equals_process_per_track(cuda_device, tmp_path):
+    """separate_corpus on the card, dp=1 and dp=2: each track's stems (as
+    its writer receives them) equal peak_normalize(process()) of the lone
+    track at dp=1, bitwise, and of the batched process() at dp=2."""
+    from zen_tpu_torch.drivers.corpus import separate_corpus
+    from zen_tpu_torch.io.audio import peak_normalize
+
+    rng = np.random.default_rng(32)
+    store = {str(tmp_path / f"t{i}.wav"): (44100, rng.standard_normal(n).astype(np.float32))
+             for i, n in enumerate((44100, 60000, 52000))}
+    paths = sorted(store)
+    sep = HPRIOffline(44100.0, 4096, 256, 2.0, 2.0, device=cuda_device)
+    for dp in (1, 2):
+        got = {}
+        res = separate_corpus(paths, str(tmp_path / f"dp{dp}"), dp=dp,
+                              reader=lambda p: store[p],
+                              writer=lambda p, fs, a: got.update({p: np.array(a)}),
+                              device=cuda_device)
+        assert res == {"done": 0, "processed": 3}
+        batches = [[p] for p in paths] if dp == 1 else [paths[:2], paths[2:]]
+        for batch in batches:
+            lengths = [len(store[p][1]) for p in batch]
+            if dp == 1:
+                stems = [[s.cpu().numpy()] for s in sep.process(store[batch[0]][1])]
+            else:
+                xb = np.zeros((len(batch), max(lengths)), np.float32)
+                for row, p in zip(xb, batch):
+                    row[: len(store[p][1])] = store[p][1]
+                stems = [[row[:n] for row, n in zip(s.cpu().numpy(), lengths)]
+                         for s in sep.process(xb, lengths=lengths)]
+            for j, p in enumerate(batch):
+                base = p[:-4]
+                for name, s in zip(("harm", "perc", "residual"), stems):
+                    out = str(tmp_path / f"dp{dp}" / f"{base.rsplit('/', 1)[1]}_{name}.wav")
+                    np.testing.assert_array_equal(got[out], peak_normalize(s[j]))
+
+
+def test_app_transforms_on_card_match_cpu(cuda_device):
+    """odf_batch and the autocorrelation on the card against the CPU port
+    at the classes of tests/test_torch_apps.py: 1e-5 x max|odf| and 1e-5 x
+    max|acf| per chunk (cuFFT against the CPU FFT)."""
+    from zen_tpu_torch.apps.btrack import frames_from_hops, odf_batch
+    from zen_tpu_torch.apps.mpm import _autocorr_batch
+
+    rng = np.random.default_rng(33)
+    audio = np.zeros(44100 * 4, np.float32)
+    for i in range(0, len(audio) - 600, 22050):
+        audio[i : i + 600] = rng.standard_normal(600) * np.exp(-np.arange(600) / 120)
+    frames = frames_from_hops(audio)
+    want = odf_batch(torch.from_numpy(frames)).numpy()
+    got = odf_batch(torch.from_numpy(frames).to(cuda_device))
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+    chunks = (audio[: 40 * 4096].reshape(40, 4096)
+              + 0.5 * np.sin(np.arange(4096) * 0.05)).astype(np.float32)
+    for strict in (False, True):
+        want = _autocorr_batch(torch.from_numpy(chunks), 4096, strict).numpy()
+        got = _autocorr_batch(torch.from_numpy(chunks).to(cuda_device), 4096, strict)
+        err = np.abs(got.cpu().numpy() - want).max(axis=1) / np.abs(want).max(axis=1)
+        assert err.max() <= 1e-5, (strict, err.max())

@@ -6,8 +6,10 @@ path) and the two-pass offline HPR-I with its blocked overlap-save
 form: windows, config, framing, the spectral engine on ``torch.fft``,
 and the two hand-written CUDA median kernels of ``csrc/`` (plain
 PyTorch twins on CPU tensors); around them the ``zen-torch`` CLI, audio
-file I/O over the repository's native codecs, checkpoints and the live
-ring-buffer service. It imports torch and never jax.
+file I/O over the repository's native codecs, checkpoints, the live
+ring-buffer service, the resumable corpus driver with its pipelined
+cascade, and the reference's two demo apps (``apps``). It imports torch
+and never jax.
 """
 
 from .convert import (  # noqa: F401

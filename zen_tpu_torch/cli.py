@@ -13,6 +13,11 @@ defaults, echo blocks and JSON metric lines:
   zen-torch stream [--fs 44100] [--hop 256] [--stem percussive]
       [--block-hops 16] [--streams N] [--raw-scale] [--cpu]
       [--nocopybord] [--sse] [--soft-mask] [impl flags] [--device cuda|cpu]
+  zen-torch corpus -i tracks... -o out_dir [--hps [hop-h beta-h hop-p beta-p]]
+      [--pp] [--prefetch 2] [--stem-format wav|flac|wv] [impl flags]
+      [--device cuda|cpu]
+  zen-torch pitch-track -i in.wav [--device cuda|cpu]
+  zen-torch beat-track -i in.wav [--device cuda|cpu]
   zen-torch synth -o mix.wav [--fs] [--seconds] [--bpm] [--hits-per-beat]
       [--sawtooth] [--vibrato-cents] [--seed] [--stems]
   zen-torch version | -v | --version
@@ -33,14 +38,13 @@ the JAX command:
   and 'pallas', mapped as ``convert.config_from_fields`` maps them;
   ``--fft-impl auto`` is torch.fft, as zen_tpu's 'auto' is XLA's FFT
   off the TPU.
-- ``--mesh`` (offline and stream) exits 2 with one stderr line naming its
-  ROADMAP queue 1 item (9, the parallel layer).
+- ``--mesh`` (offline, stream and corpus) and corpus's ``--nprocs`` above 1
+  exit 2 with one stderr line naming their ROADMAP queue 1 item (9, the
+  parallel layer); corpus runs on one card, its mesh line reads zen_tpu's
+  on a one-device host (``{'dp': 1, 'sp': 1}``).
 - The lines that name the compute name the device, where zen_tpu's say
   "TPU-native"; the substrings parsers read ("Running zen-offline",
   "HPR-I-Offline took", "Running zen-fakert", "PRealtime") stay.
-
-corpus and the apps (pitch-track, beat-track) are not ported yet
-(ROADMAP queue 1, items 7 and 8).
 """
 from __future__ import annotations
 
@@ -130,6 +134,14 @@ def _mask_filter_lines(args) -> list:
             "\t\tfilter: sse" if args.sse else "\t\tfilter: median"]
 
 
+def _cascade(hps) -> tuple:
+    """(hop_h, beta_h, hop_p, beta_p) from --hps's values, each missing one
+    at its default: 4096, 2.0, 256, 2.0."""
+    vals = (hps or []) + [None] * (4 - len(hps or []))
+    return tuple(d if v is None else cast(v) for v, d, cast in
+                 zip(vals, (4096, 2.0, 256, 2.0), (int, float, int, float)))
+
+
 def cmd_offline(args) -> int:
     """Two-pass HPR-I on a whole file; stems written peak-normalized."""
     import torch
@@ -157,13 +169,8 @@ def cmd_offline(args) -> int:
         f"\tonly_percussive: {int(args.only_percussive)}",
         "\tdo hps: yes" if args.hps is not None else "\tdo hps: no",
     ])
-    hop_h, beta_h, hop_p, beta_p = 4096, 2.0, 256, 2.0
+    hop_h, beta_h, hop_p, beta_p = _cascade(args.hps)
     if args.hps is not None:
-        vals = args.hps + [None] * (4 - len(args.hps))
-        hop_h = int(vals[0]) if vals[0] is not None else hop_h
-        beta_h = float(vals[1]) if vals[1] is not None else beta_h
-        hop_p = int(vals[2]) if vals[2] is not None else hop_p
-        beta_p = float(vals[3]) if vals[3] is not None else beta_p
         _echo([f"\t\tharmonic hop: {hop_h}", f"\t\tharmonic beta: {beta_h}",
                f"\t\tpercussive hop: {hop_p}", f"\t\tpercussive beta: {beta_p}",
                *_mask_filter_lines(args)])
@@ -264,6 +271,115 @@ def cmd_fakert(args) -> int:
                           "rtf": avg_us / (delta_t_ms * 1000)}))
     if args.output:
         write_audio_pcm16(args.output, fs, peak_normalize(out))
+    return 0
+
+
+def cmd_corpus(args) -> int:
+    """Resumable multi-track separation on one card, with crash-safe
+    per-track journaling (drivers/corpus.py)."""
+    import glob as globmod
+
+    from .device import resolve_device
+    from .drivers.corpus import separate_corpus
+    from .errors import ZenError
+
+    paths = sorted(p for pat in args.inputs for p in globmod.glob(pat))
+    if not paths:
+        print("no input tracks matched", file=sys.stderr)
+        return 1
+    if args.nprocs <= 1 and (args.coordinator or args.proc_id):
+        # without --nprocs, N processes would each separate the whole
+        # corpus into the same out_dir
+        print("corpus: --coordinator/--proc-id need --nprocs >= 2", file=sys.stderr)
+        return 1
+    if args.nprocs > 1:
+        return _refuse("corpus", "--nprocs above 1 is not ported yet "
+                       "(ROADMAP queue 1, item 9: parallel layer)")
+    if args.mesh:
+        _, err = _parse_mesh_axes(args.mesh, ("dp", "sp"))
+        if err:
+            print(f"corpus {err}", file=sys.stderr)
+            return 1
+        return _refuse("corpus", "--mesh is not ported yet (ROADMAP queue 1, item 9: parallel layer)")
+    try:
+        device = resolve_device(args.device)
+    except ZenError as e:  # no CUDA device: exit 2, no fallback
+        return _refuse("corpus", f"--device {args.device}: {e}")
+    print(f"corpus: {len(paths)} tracks, mesh {{'dp': 1, 'sp': 1}}, out={args.out_dir}")
+    hop_h, beta_h, hop_p, beta_p = _cascade(args.hps)
+    res = separate_corpus(paths, args.out_dir, hop_h=hop_h, hop_p=hop_p, beta_h=beta_h,
+                          beta_p=beta_p, pp=args.pp, prefetch=max(0, args.prefetch),
+                          stem_format=args.stem_format, device=device, **_impl_kw(args))
+    print(json.dumps({"metric": "corpus_tracks", **res}))
+    return 0
+
+
+def _demo_audio(args, chunk: int) -> tuple:
+    """(fs, audio) of the demo's input, after its echo block."""
+    from .io.audio import read_audio_mono
+
+    fs, audio = read_audio_mono(args.input)
+    print(f"Slicing wav file into chunks of {chunk} samples...")
+    _echo_audio(fs, audio)
+    return fs, audio
+
+
+def cmd_pitch_track(args) -> int:
+    """Pitch tracking demo: MPM on harmonic-separated 4096-hops vs raw
+    (reference: demos/pitch-tracking/main.cu:33-125)."""
+    from .apps.mpm import MPM
+    from .device import resolve_device
+    from .drivers.realtime import HPRRealtime
+    from .engine.config import OUTPUT_HARMONIC
+    from .errors import ZenError
+
+    try:
+        device = resolve_device(args.device)
+    except ZenError as e:  # no CUDA device: exit 2, no fallback
+        return _refuse("pitch-track", f"--device {args.device}: {e}")
+    chunk = 4096
+    fs, audio = _demo_audio(args, chunk)
+    n_chunks = len(audio) // chunk
+    rt = HPRRealtime(fs, chunk, 2.5, outputs=OUTPUT_HARMONIC, device=device)
+    harm = rt.process_stream(audio[: n_chunks * chunk], block_hops=8)[0]
+    mpm = MPM(chunk, fs, device=device)
+    p_h = mpm.pitch_batch(harm[: n_chunks * chunk].reshape(n_chunks, chunk))
+    p_r = mpm.pitch_batch(audio[: n_chunks * chunk].reshape(n_chunks, chunk))
+    t = 0.0
+    for ph, pr in zip(p_h, p_r):
+        print(f"t: {t:.2f},\tpitch (+HPR): {ph:.2f},\tpitch (-HPR): {pr:.2f}")
+        t += chunk / fs
+    return 0
+
+
+def cmd_beat_track(args) -> int:
+    """Beat tracking demo: BTrack on percussive-separated 256-hops vs raw
+    (reference: demos/beat-tracking/main.cu:33-146)."""
+    import numpy as np
+    import torch
+
+    from .apps.btrack import frames_from_hops, odf_batch, track_beats_from_odf
+    from .device import resolve_device
+    from .drivers.realtime import HPRRealtime
+    from .engine.config import OUTPUT_PERCUSSIVE
+    from .errors import ZenError
+
+    try:
+        device = resolve_device(args.device)
+    except ZenError as e:  # no CUDA device: exit 2, no fallback
+        return _refuse("beat-track", f"--device {args.device}: {e}")
+    chunk = 256
+    fs, audio = _demo_audio(args, chunk)
+    cut = audio[: len(audio) // chunk * chunk]
+    rt = HPRRealtime(fs, chunk, 2.5, outputs=OUTPUT_PERCUSSIVE, device=device)
+    perc = rt.process_stream(cut, block_hops=64)[1][: len(cut)]
+    beats = {}
+    for name, sig in (("+HPR", perc), ("-HPR", cut)):
+        frames = torch.from_numpy(frames_from_hops(sig)).to(device)
+        flags, _ = track_beats_from_odf(odf_batch(frames).cpu().numpy(), fs)
+        beats[name] = [f"{n * chunk / fs:.4f}" for n in np.nonzero(flags)[0]]
+    print("+HPR beat timestamps: " + " ".join(beats["+HPR"]))
+    print("-HPR beat timestamps: " + " ".join(beats["-HPR"]))
     return 0
 
 
@@ -599,6 +715,40 @@ def build_parser() -> argparse.ArgumentParser:
     _add_variant_flags(stp)
     _add_impl_flags(stp)
     stp.set_defaults(func=cmd_stream)
+
+    cor = sub.add_parser(
+        "corpus", help="resumable multi-track corpus separation on one card")
+    cor.add_argument("-i", "--inputs", nargs="+", required=True, help="track paths or globs")
+    cor.add_argument("-o", "--out-dir", required=True)
+    cor.add_argument("--hps", nargs="*", default=None, metavar=("hop-h", "beta-h"),
+                     help="2-pass params, defaults 4096 2.0 256 2.0")
+    cor.add_argument("--mesh", default="", help="not ported yet (ROADMAP queue 1, item 9)")
+    cor.add_argument("--pp", action="store_true",
+                     help="pipelined cascade: track i+1's pass 1 overlaps track i's pass 2 "
+                     "on two CUDA streams (short tracks)")
+    cor.add_argument("--prefetch", type=int, default=2, metavar="N",
+                     help="decode N tracks ahead and encode stems on a background thread, "
+                     "overlapping host IO with the card (0 = synchronous IO; default 2)")
+    cor.add_argument("--coordinator", default="", metavar="HOST:PORT",
+                     help="multi-host run: not ported yet (ROADMAP queue 1, item 9)")
+    cor.add_argument("--nprocs", type=int, default=1,
+                     help="multi-host run: total process count (above 1: not ported yet)")
+    cor.add_argument("--proc-id", type=int, default=0,
+                     help="multi-host run: this process's rank (0..nprocs-1)")
+    cor.add_argument("--stem-format", choices=("wav", "flac", "wv"), default="wav",
+                     help="stem container: PCM16 wav or lossless 16-bit FLAC / WavPack")
+    _add_impl_flags(cor)
+    cor.set_defaults(func=cmd_corpus)
+
+    for name, func, helptext in (
+        ("pitch-track", cmd_pitch_track, "MPM pitch tracking demo (+/- HPR)"),
+        ("beat-track", cmd_beat_track, "BTrack beat tracking demo (+/- HPR)"),
+    ):
+        p = sub.add_parser(name, help=helptext)
+        p.add_argument("-i", "--input", required=True)
+        p.add_argument("--device", default="cuda",
+                       help="torch device to run on (default cuda; no fallback)")
+        p.set_defaults(func=func)
 
     syn = sub.add_parser(
         "synth",

@@ -1,0 +1,229 @@
+"""Resumable offline corpus driver on one card (counterpart of
+``zen_tpu/drivers/corpus.py``).
+
+Separates a list of tracks into three stems each under ``out_dir``,
+with crash-safe resume through a ``ProgressJournal``
+(runtime/checkpoint.py): the reference's missing failure-recovery story
+(SURVEY.md §5.3). zen_tpu's mesh becomes:
+
+* ``dp``: how many tracks of one sample rate are batched on the leading
+  dimension of one ``HPRIOffline.process`` call, zero-padded to the
+  batch's longest (drivers/offline.py's docstring says why the padding
+  agrees; pass 1's spill past each track is zeroed before pass 2, as
+  zen_tpu's ``sharded_hpri_offline`` does). zen_tpu pads the batch to
+  ``dp`` rows and its length to a power-of-two bucket for XLA's compile
+  cache; the port runs each batch at its own shape.
+* ``sp`` is always 1: tracks past ``LONG_TRACK_SAMPLES`` take the
+  checkpointed ``process_blocked`` on the card, zen_tpu's one-device
+  branch. The sharded blocked pass waits for the parallel layer.
+
+zen_tpu's multi-host branches (``jax.process_index``, a journal that only
+process 0 writes, ``multihost_utils`` gathers) have no counterpart on one
+card and are left out, as is its refusal of ``pp`` on several hosts.
+Stem names, journal keys (``_jkey``) and journal lines are zen_tpu's, so
+a journal either package wrote resumes in the other.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+
+import numpy as np
+
+from ..device import resolve_device
+from ..runtime.checkpoint import ProgressJournal
+from ..runtime.loader import OrderedAsyncWriter, PrefetchReader
+from .offline import HPRIOffline, clear_track_checkpoint
+from .pipeline import PipelinedHPRIOffline
+
+STEM_FORMATS = ("wav", "flac", "wv")
+
+
+def stem_bases(track_paths) -> dict:
+    """Track path -> the base of its stem file names: the basename, with
+    a short sha1 of the path where tracks in different directories share
+    one (their stems would otherwise overwrite each other)."""
+    seen: dict = {}
+    for p in track_paths:
+        seen.setdefault(os.path.splitext(os.path.basename(p))[0], []).append(p)
+    bases = {}
+    for base, paths in seen.items():
+        for p in paths:
+            bases[p] = base if len(paths) == 1 else f"{base}-{hashlib.sha1(p.encode()).hexdigest()[:8]}"
+    return bases
+
+
+def journal_key(path: str, stem_format: str) -> str:
+    """A track's journal key: the path, suffixed with the stem format
+    unless it is wav (zen_tpu's keys), so that a run resumed with another
+    format re-separates the tracks that only have the old format's stems."""
+    return path if stem_format == "wav" else f"{path}::{stem_format}"
+
+
+def separate_corpus(
+    track_paths,
+    out_dir: str,
+    dp: int = 1,
+    hop_h: int = 4096,
+    hop_p: int = 256,
+    beta_h: float = 2.0,
+    beta_p: float = 2.0,
+    journal_path: str | None = None,
+    reader=None,
+    writer=None,
+    pp: bool = False,
+    pp_run: int = 8,
+    prefetch: int = 2,
+    fft_impl: str = "auto",
+    median_impl: str = "auto",
+    stream_state: str = "f32",
+    stem_format: str = "wav",
+    device="cuda",
+):
+    """Separate every track into 3 stems under out_dir, resumably; returns
+    ``{"done": tracks the journal already held, "processed": tracks
+    separated now}``.
+
+    reader(path) -> (fs, audio[np.float32]); writer(path, fs, audio).
+    ``stem_format`` ('wav'|'flac'|'wv') picks the default writer's
+    container; a custom ``writer`` sees the extension in its path.
+    Tracks of one sample rate are separated ``dp`` at a time (a batch
+    ends when it is full or the rate changes).
+
+    ``prefetch`` (default 2) overlaps host I/O with the card: a
+    background thread decodes up to ``prefetch`` tracks ahead, and stem
+    encode and journal run on one ordered writer thread
+    (runtime/loader.py), each track's stems durable before its journal
+    line. ``prefetch=0`` is fully synchronous I/O; a custom ``reader`` or
+    ``writer`` must be thread-safe unless ``prefetch=0``.
+
+    ``pp=True`` routes the short tracks through the pipelined cascade
+    (drivers/pipeline.py, two CUDA streams): pass 1 of track i+1 runs
+    while pass 2 of track i does, in runs of up to ``pp_run`` tracks of
+    one sample rate. Long tracks take the blocked route either way.
+    """
+    from ..io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
+    from .offline import LONG_TRACK_SAMPLES
+
+    if stem_format not in STEM_FORMATS:
+        raise ValueError(f"stem_format must be wav|flac|wv, got {stem_format!r}")
+    device = resolve_device(device)
+    reader = reader or read_audio_mono
+    writer = writer or write_audio_pcm16
+    os.makedirs(out_dir, exist_ok=True)
+    journal = ProgressJournal(journal_path or os.path.join(out_dir, "progress.jsonl"))
+    # the op-seam knobs flow into every config this driver builds
+    impl_kw = dict(fft_impl=fft_impl, median_impl=median_impl, stream_state=stream_state)
+    bases = stem_bases(track_paths)
+    ckpt_dir = os.path.join(out_dir, ".ckpt")
+
+    pending = [p for p in track_paths if not journal.is_done(journal_key(p, stem_format))]
+    done = len(track_paths) - len(pending)
+    results = {"done": done, "processed": 0}
+
+    # a crash can land between a track's journal fsync and its (async)
+    # .ckpt cleanup; the resume skips the journal-done track and nothing
+    # else would ever delete its checkpoint files
+    for p in track_paths:
+        if journal.is_done(journal_key(p, stem_format)):
+            for tag in (f"{bases[p]}.p1", f"{bases[p]}.p2"):
+                clear_track_checkpoint(ckpt_dir, tag)
+
+    separators: dict = {}
+
+    def separator(fs) -> HPRIOffline:
+        if fs not in separators:
+            separators[fs] = HPRIOffline(fs, hop_h, hop_p, beta_h, beta_p, device=device, **impl_kw)
+        return separators[fs]
+
+    writer_pool = OrderedAsyncWriter() if prefetch > 0 else None
+
+    def write_track(fs, path, h, p, r, n_samples, after=None):
+        """The one per-track output contract: three peak-normalized stems
+        (the reference CLI normalizes before its clipping PCM16 encode,
+        offline.h:182-191), then the journal line, in that order, on the
+        writer thread when there is one."""
+
+        def job():
+            for stem, data in (("harm", h), ("perc", p), ("residual", r)):
+                writer(os.path.join(out_dir, f"{bases[path]}_{stem}.{stem_format}"), fs,
+                       peak_normalize(np.asarray(data)))
+            journal.mark_done(journal_key(path, stem_format), {"samples": int(n_samples)})
+            results["processed"] += 1
+            if after is not None:
+                after()
+
+        if writer_pool is not None:
+            writer_pool.submit(job)
+        else:
+            job()
+
+    def flush(fs, batch_paths, batch_audio):
+        lengths = [len(a) for a in batch_audio]
+        batch = np.zeros((len(batch_audio), max(lengths)), np.float32)
+        for row, a in zip(batch, batch_audio):
+            row[: len(a)] = a
+        h, p, r = (x.cpu().numpy() for x in separator(fs).process(batch, lengths=lengths))
+        for j, (path, n) in enumerate(zip(batch_paths, lengths)):
+            write_track(fs, path, h[j, :n], p[j, :n], r[j, :n], n)
+
+    def flush_long(fs, path, audio):
+        # the batched spectrogram holds ~160 bytes per sample; the blocked
+        # pass holds one block, checkpointed mid-track so that a crash
+        # hours into a track resumes from its last durable segment
+        tag = bases[path]
+        stems = separator(fs).process_blocked(audio, ckpt_dir=ckpt_dir, tag=tag)
+        h, p, r = (x.cpu().numpy() for x in stems)
+
+        def drop_ckpt():  # after the journal line: the stems are durable
+            for p_tag in (f"{tag}.p1", f"{tag}.p2"):
+                clear_track_checkpoint(ckpt_dir, p_tag)
+
+        write_track(fs, path, h, p, r, len(audio), after=drop_ckpt)
+
+    pipes: dict = {}
+
+    def flush_pp(fs, batch_paths, batch_audio):
+        # pass 1 of track i+1 overlaps pass 2 of track i; the run's end
+        # drains the pipeline
+        if fs not in pipes:
+            sep = separator(fs)
+            pipes[fs] = PipelinedHPRIOffline(sep.cfg_h, sep.cfg_p, device=device)
+        for path, audio, stems in zip(batch_paths, batch_audio,
+                                      pipes[fs].process_stream(batch_audio)):
+            h, p, r = (x.cpu().numpy() for x in stems)
+            write_track(fs, path, h, p, r, len(audio))
+
+    do_flush = flush_pp if pp else flush
+    cap = pp_run if pp else max(1, int(dp))
+    items = (PrefetchReader(pending, reader, depth=prefetch) if prefetch > 0
+             else ((p, reader(p)) for p in pending))
+    batch_paths, batch_audio, batch_fs = [], [], None
+    try:
+        for path, (fs, audio) in items:
+            if len(audio) > LONG_TRACK_SAMPLES:
+                flush_long(fs, path, audio)
+                continue
+            if batch_paths and (fs != batch_fs or len(batch_paths) == cap):
+                do_flush(batch_fs, batch_paths, batch_audio)
+                batch_paths, batch_audio = [], []
+            batch_fs = fs
+            batch_paths.append(path)
+            batch_audio.append(audio)
+        if batch_paths:
+            do_flush(batch_fs, batch_paths, batch_audio)
+    except BaseException:
+        # let queued writes finish (their tracks did compute) but do not
+        # mask the original error with a writer-side one
+        if writer_pool is not None:
+            try:
+                writer_pool.close()
+            except BaseException:  # noqa: BLE001 — the original error is re-raised
+                pass
+        raise
+    finally:
+        if isinstance(items, PrefetchReader):
+            items.close()
+    if writer_pool is not None:
+        writer_pool.close()
+    return results

@@ -65,6 +65,16 @@ def _as_audio(audio) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(audio, dtype=np.float32))
 
 
+def on_device(audio, device: torch.device) -> torch.Tensor:
+    """Audio for a driver on ``device``: anything but a tensor is moved
+    there as float32; a tensor must already lie there."""
+    if not isinstance(audio, torch.Tensor):
+        return _as_audio(audio).to(device)
+    if audio.device != device:
+        raise ZenError(f"audio lies on {audio.device}, this separator runs on {device}")
+    return audio.to(torch.float32)
+
+
 def _n_frames(length: int, cfg: HPRConfig) -> int:
     """hpss_chunk_padder (hps.cu:109-126): whole hops plus ``lag``
     warm-up frames, whose output the advance=1 assembly shifts away."""
@@ -377,20 +387,22 @@ class HPRIOffline:
         self.cfg_h = dataclasses.replace(self.cfg_h, **kw)
         self.cfg_p = dataclasses.replace(self.cfg_p, **kw)
 
-    def _on_device(self, audio) -> torch.Tensor:
-        if not isinstance(audio, torch.Tensor):
-            return _as_audio(audio).to(self.device)
-        if audio.device != self.device:
-            raise ZenError(
-                f"audio lies on {audio.device}, this separator runs on {self.device}"
-            )
-        return audio.to(torch.float32)
-
-    def process(self, audio):
-        audio = self._on_device(audio)
+    def process(self, audio, lengths=None):
+        """``lengths`` (for [C, L] audio whose rows are tracks zero-padded
+        to one length, each row's true length) zeroes pass 1's OLA spill
+        past each track before pass 2, as the reference truncates between
+        passes (hps.cu:171-178) and zen_tpu's ``sharded_hpri_offline``
+        masks: a track's stems then do not depend on the longer tracks
+        that share its batch."""
+        audio = on_device(audio, self.device)
         pass1 = hpr_separate(audio, self.cfg_h)
         # xp1 + xr1 feeds pass 2 (hps.cu:152-158), cut to the clip
         inter = pass1["percussive"] + pass1["residual"]
+        if lengths is not None:
+            if inter.ndim != 2 or len(lengths) != inter.shape[0]:
+                raise ZenError(f"lengths {list(lengths)} for audio of shape {tuple(inter.shape)}")
+            for row, n in zip(inter, lengths):
+                row[n:] = 0.0
         pass2 = hpr_separate(inter, self.cfg_p)
         return pass1["harmonic"], pass2["percussive"], pass2["residual"]
 
@@ -415,7 +427,7 @@ class HPRIOffline:
         the same return type. ``clear_track_checkpoint(ckpt_dir,
         f"{tag}.p1")`` and ``.p2`` remove the files once the stems are
         consumed."""
-        audio = self._on_device(audio)
+        audio = on_device(audio, self.device)
         if audio.ndim != 1:
             raise ZenError("process_blocked expects [L] audio")
         ck = dict(ckpt_dir=ckpt_dir, ckpt_every_blocks=ckpt_every_blocks, on_segment=on_segment)

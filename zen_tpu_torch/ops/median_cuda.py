@@ -41,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -120,6 +121,18 @@ def _check_cuda_operands(*xs: torch.Tensor) -> None:
 def _entry(lib, name: str, dtype: torch.dtype):
     """The C entry for ``dtype``: ``name`` for float32, ``name_bf16``."""
     return getattr(lib, name if dtype == torch.float32 else f"{name}_bf16")
+
+
+# the pipelined cascade (drivers/pipeline.py) launches from two threads
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper, route: str) -> None:
+    """One launch on ``wrapper``'s counters, under a lock: ``+= 1`` on
+    an attribute is a read-modify-write that two threads can interleave."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.routes[route] += 1
 
 
 def _launch(x: torch.Tensor, entry, *args) -> int:
@@ -244,8 +257,7 @@ def tap_median_time(
     route = time_route(offsets)
     out = _time_launch(a, b, offsets, start, fill, route)
     if out.numel():
-        tap_median_time.launches += 1
-        tap_median_time.routes[route] += 1
+        _count(tap_median_time, route)
     return out
 
 
@@ -402,8 +414,7 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     route = freq_route(k)
     out = _freq_launch(x, k, mode, route)
     if out.numel():
-        sliding_median_boundary.launches += 1
-        sliding_median_boundary.routes[route] += 1
+        _count(sliding_median_boundary, route)
     return out
 
 
