@@ -76,13 +76,20 @@ entry points at full width:
            LONG_TRACK_SAMPLES) through `zen-torch corpus`, every stem
            byte-equal to process() / process_blocked() on the card, a
            resume that processes nothing, an empty .ckpt; `--pp` and
-           separate_corpus(dp=4) against it; the loader (prefetch 2 against
-           0) and the pipelined cascade against sequential process(), in
-           turns;
+           separate_corpus on a dp=4 mesh against it; the loader (prefetch
+           2 against 0) and the pipelined cascade against sequential
+           process(), in turns;
   phase 19 the demos: `zen-torch pitch-track` and `beat-track` on
            docs/DEMOS.md's mix and 60 s of a steady chord, on the card and
            with --device cpu, with DEMOS.md's verdicts; the demos' stems,
            ODF and autocorrelation against the CPU port;
+  phase 20 the single-host parallel layer on virtual shards of the card
+           (make_mesh with the card repeated): sharded_hpri_offline at
+           configs[0] on a two-channel clip batch over dp x sp meshes,
+           sharded_hpri_blocked on the 4-minute track (sp 4 and 2, and
+           killed once and resumed), tp_hpri_offline on the clip (tp 4 and
+           2), MultiStreamHPR 64 x B=32 and 512 x B=16 at dp=4, each
+           against its unsharded run, and the CLI's --mesh surfaces;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -93,8 +100,8 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route (phase 6 and phases 7-19; the
-SSE paths must launch none; phases 18-19 require each run's count to
+are counted per path and per kernel route (phase 6 and phases 7-20; the
+SSE paths must launch none; phases 18-20 require each run's count to
 equal the count from its shapes).
 
 Every time printed is a measurement of this run on the card named in
@@ -453,6 +460,20 @@ def kernel_cases():
         # past the network's K: the register route's counting kernel
         ("#1", "pair C=64 H=32 B=32 F=513 K=33 (counting kernel)", mag(64, 32, 513),
          mag(64, 32, 513), tuple(range(-32, 1)), 32),
+        # phase 20's shards: an sp=4 shard of the two-channel clip (pass 1: 11
+        # frames; pass 2: 161 frames between 5-row halos), a tp=4 shard's bins,
+        # a dp=4 shard of the 64- and 512-stream fleets
+        ("#2", "sp=4 shard pass 1 C=2 T=11 F=8193 K=1", mag(2, 11, 8193), mag(2, 0, 8193),
+         (0,), 0),
+        ("#3", "sp=4 shard pass 2 C=2 T=171 start=5 F=513 K=11", mag(2, 171, 513),
+         mag(2, 0, 513), tuple(range(-5, 6)), 5),
+        ("#2", "tp=4 shard pass 1 T=41 F=4096 K=1", mag(1, 41, 4096), mag(1, 0, 4096), (0,), 0),
+        ("#3", "tp=4 shard pass 2 T=643 F=256 K=11", mag(1, 643, 256), mag(1, 0, 256),
+         tuple(range(-5, 6)), 0),
+        ("#1", "dp=4 shard pair C=16 H=21 B=32 F=513 K=11", mag(16, 21, 513),
+         mag(16, 32, 513), T256, 21),
+        ("#4", "dp=4 shard pair C=128 H=21 B=16 F=513 K=11", mag(128, 21, 513),
+         mag(128, 16, 513), T256, 21),
     ):
         cases.append((
             "tap_median_time", mc.time_route(offs), tpu, label,
@@ -491,6 +512,15 @@ def kernel_cases():
         ("#7", "R=8192 F=513 K=13 reflect bf16", bf16(8192, 513), 13, "reflect"),
         ("#7", "R=8192 F=1024 K=13 edge (replicate)", mag(8192, 1024), 13, "edge"),
         ("#5", "R=8192 F=1036 K=13 valid", mag(8192, 1024 + 12), 13, "valid"),
+        # phase 20's shards: sp=4 of the two-channel clip; TP's median over
+        # each shard's bins between fm-bin halos, K2's valid route (tp=4, 2)
+        ("#6", "sp=4 shard pass 1 R=22 F=8193 K=187 reflect", mag(22, 8193), 187, "reflect"),
+        ("#8", "sp=4 shard pass 2 R=322 F=513 K=13 reflect", mag(322, 513), 13, "reflect"),
+        ("#5", "tp=4 shard pass 1 R=41 F=4282 K=187 valid", mag(41, 4096 + 186), 187, "valid"),
+        ("#5", "tp=4 shard pass 2 R=643 F=268 K=13 valid", mag(643, 256 + 12), 13, "valid"),
+        ("#5", "tp=2 shard pass 1 R=41 F=8378 K=187 valid", mag(41, 8192 + 186), 187, "valid"),
+        ("#5", "tp=2 shard pass 2 R=643 F=524 K=13 valid", mag(643, 512 + 12), 13, "valid"),
+        ("#7", "dp=4 shard R=512 F=513 K=13 reflect", mag(512, 513), 13, "reflect"),
     ):
         cases.append((
             "sliding_median_boundary", mc.freq_route(k), tpu, label,
@@ -971,9 +1001,10 @@ def offline_keep(masks_a, masks_b, hop: int, length: int) -> tuple:
     return flips, flips / differ.numel(), keep.numpy()
 
 
-def hold_stems(got: dict, want: dict, keep: np.ndarray, what: str) -> float:
-    """Stem tolerance on every kept sample; returns the worst error over
-    scale."""
+def hold_stems(got: dict, want: dict, keep: np.ndarray, what: str,
+               atol: float = STEM_ATOL) -> float:
+    """Stem tolerance (``atol`` x scale) on every kept sample; returns the
+    worst error over scale."""
     worst = 0.0
     for stem in ("harmonic", "percussive", "residual"):
         ref = want[stem].cpu().numpy()
@@ -981,20 +1012,20 @@ def hold_stems(got: dict, want: dict, keep: np.ndarray, what: str) -> float:
         require(bool(np.isfinite(out).all()), f"{what} {stem}: non-finite samples")
         scale = max(1.0, float(np.abs(ref).max()))
         err = float(np.abs(out - ref)[keep].max(initial=0.0))
-        require(err <= STEM_ATOL * scale,
-                f"{what} {stem}: max |diff| {err} > {STEM_ATOL} x {scale}")
+        require(err <= atol * scale, f"{what} {stem}: max |diff| {err} > {atol} x {scale}")
         worst = max(worst, err / scale)
     return worst
 
 
-def hold_pass(what: str, got: dict, want: dict, masks_got, masks_want, hop: int) -> dict:
+def hold_pass(what: str, got: dict, want: dict, masks_got, masks_want, hop: int,
+              atol: float = STEM_ATOL) -> dict:
     """Hold one pass's stems against a reference run under the flip rule."""
     length = got["harmonic"].shape[-1]
     flips, share, keep = offline_keep(
         [m.cpu() for m in masks_got[:2]], [m.cpu() for m in masks_want[:2]], hop, length
     )
     require(share <= FLIP_SHARE, f"{what}: hard-mask flips {flips} ({share:.3g} of bins)")
-    rel = hold_stems(got, want, keep, what)
+    rel = hold_stems(got, want, keep, what, atol)
     return {"flips": flips, "share": share, "excluded": int((~keep).sum()),
             "samples": length, "rel_err": rel}
 
@@ -2037,13 +2068,23 @@ def corpus_plan(items, dp: int = 1) -> tuple:
     return batches + ([cur] if cur else []), long_tracks
 
 
-def corpus_launches(items, dp: int = 1) -> dict:
-    """The median launches of separate_corpus over ``items``, counted from
-    the configs and shapes: one process() per batch (each pass one K1 and
-    one K2), and for a long track each pass's blocks (one K1 and one K2 a
-    block)."""
-    from zen_tpu_torch.drivers.offline import _Blocking
+def add_pass(counts: dict, cfg, n: int) -> dict:
+    """``counts`` plus ``n`` launches of each of a pass's two medians (K1
+    at the pass's time taps, K2 at its frequency width), by route."""
     from zen_tpu_torch.ops import median_cuda as mc
+
+    counts[f"tap_median_time/{mc.time_route(cfg.time_offsets)}"] += n
+    counts[f"sliding_median_boundary/{mc.freq_route(cfg.freq_filter_len)}"] += n
+    return counts
+
+
+def corpus_launches(items, dp: int = 1) -> dict:
+    """The median launches of separate_corpus over ``items`` on a dp x 1
+    mesh, counted from the configs and shapes: each batch is one
+    sharded_hpri_offline call, each of its dp shards one K1 and one K2 a
+    pass (rows past the batch's tracks are zeros, launched all the same);
+    a long track each pass's blocks (one K1 and one K2 a block)."""
+    from zen_tpu_torch.drivers.offline import _Blocking
 
     counts = dict.fromkeys(read_launches(), 0)
     batches, long_tracks = corpus_plan(items, dp)
@@ -2051,9 +2092,7 @@ def corpus_launches(items, dp: int = 1) -> dict:
     for fs, n in calls:
         sep = corpus_separator(fs)
         for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192)):
-            k = 1 if n is None else _Blocking.of(n, cfg, bf).n_blocks
-            counts[f"tap_median_time/{mc.time_route(cfg.time_offsets)}"] += k
-            counts[f"sliding_median_boundary/{mc.freq_route(cfg.freq_filter_len)}"] += k
+            add_pass(counts, cfg, dp if n is None else _Blocking.of(n, cfg, bf).n_blocks)
     return counts
 
 
@@ -2093,35 +2132,6 @@ def same_bytes(a: Path, b: Path) -> bool:
     return a.read_bytes() == b.read_bytes()
 
 
-def hold_batch(sep, xs) -> dict:
-    """Each row of a batched offline pass against the lone track's under
-    the flip rule, pass by pass: pass 1 on the same audio, pass 2 on the
-    lone track's intermediate on both sides (pass-1 flips do not cascade).
-    The worst row over both passes."""
-    from zen_tpu_torch.drivers.offline import pass_masks, pass_stems
-
-    worst = {"flips": 0, "share": 0.0, "excluded": 0, "rel_err": 0.0}
-    inputs = xs
-    for cfg in (sep.cfg_h, sep.cfg_p):
-        batch = torch.zeros((len(inputs), max(len(x) for x in inputs)), device=DEVICE)
-        for row, x in zip(batch, inputs):
-            row[: len(x)] = x
-        fm_b = pass_masks(batch, cfg)
-        st_b = pass_stems(fm_b, cfg, batch)
-        nxt = []
-        for j, x in enumerate(inputs):
-            fm_1 = pass_masks(x, cfg)
-            st_1 = pass_stems(fm_1, cfg, x)
-            got = {k: v[j, : len(x)] for k, v in st_b.items()}
-            st = hold_pass(f"batch row {j} hop {cfg.hop}", got, st_1,
-                           [m[j] for m in fm_b.masks[:2]], fm_1.masks, cfg.hop)
-            worst = {k: max(worst[k], st[k]) for k in worst}
-            nxt.append(st_1["percussive"] + st_1["residual"])
-        del fm_b, st_b
-        inputs = nxt
-    return worst
-
-
 def phase_corpus(smi: str) -> dict:
     """The corpus surface on the card, at the sizes an offline user runs:
     eight tracks of 30-240 s at 44.1 kHz, one of 60 s at 48 kHz and one
@@ -2130,11 +2140,12 @@ def phase_corpus(smi: str) -> dict:
     the port's writer over process() (process_blocked() for the long
     track) on the card; a second run processes nothing; the .ckpt
     directory is empty. `--pp` on the short tracks: stems byte-equal to
-    the plain run's. separate_corpus(dp=4): its stems byte-equal to the
-    writer over the batched process() it runs, each row of which holds
-    against the lone track under the flip rule. The loader (prefetch 2
-    against 0) and the pipelined cascade against the sequential one, in
-    turns. Each run's launches equal the count from the shapes."""
+    the plain run's. separate_corpus on a dp=4 mesh of this card: its
+    stems byte-equal to the writer over process() of each track's
+    zero-padded row of the batch (the arithmetic its shard runs), and
+    compared with the dp=1 run's. The loader (prefetch 2 against 0) and the
+    pipelined cascade against the sequential one, in turns. Each run's
+    launches equal the count from the shapes."""
     import shutil
     import tempfile
 
@@ -2216,43 +2227,39 @@ def phase_corpus(smi: str) -> dict:
         print(f"phase 18 zen-torch corpus --pp, {len(short)} short tracks: stems byte-equal to "
               f"the plain run's; whole command {wall_pp:.2f} s [{smi}]")
 
-        # separate_corpus(dp=4): batches of four tracks of one rate
+        # a dp=4 mesh of this card: batches of four tracks of one rate, a track a shard
         out4 = tmp / "dp4"
-        res, wall4 = counted(lambda: separate_corpus(short, str(out4), dp=4, device=DEVICE),
+        res, wall4 = counted(lambda: separate_corpus(short, str(out4), card_mesh({"dp": 4})),
                              corpus_launches(short_items, dp=4), "separate_corpus(dp=4)")
         require(res == {"done": 0, "processed": len(short)}, f"dp=4: {res}")
-        worst = {"flips": 0, "share": 0.0, "excluded": 0, "rel_err": 0.0}
         batches, _ = corpus_plan(short_items, dp=4)
+        as_dp1 = 0
         for batch in batches:
             fs = batch[0][1]
             sep = corpus_separator(fs)
-            xs = [torch.from_numpy(tracks[p][1]).to(DEVICE) for p, _, _ in batch]
-            xb = torch.zeros((len(xs), max(len(x) for x in xs)), device=DEVICE)
-            for row, x in zip(xb, xs):
-                row[: len(x)] = x
-            stems = sep.process(xb, lengths=[n for _, _, n in batch])
-            for j, (p, _, n) in enumerate(batch):
-                for name, stem in zip(CLI_STEMS, stems):
+            width = max(n for _, _, n in batch)
+            for p, _, n in batch:
+                row = torch.zeros((1, width), device=DEVICE)
+                row[0, :n] = torch.from_numpy(tracks[p][1]).to(DEVICE)
+                for name, stem in zip(CLI_STEMS, sep.process(row, lengths=[n])):
                     write_audio_pcm16(str(tmp / "ref.wav"), fs,
-                                      peak_normalize(stem[j, :n].cpu().numpy()))
-                    require(same_bytes(out4 / f"{Path(p).stem}_{name}.wav", tmp / "ref.wav"),
-                            f"dp=4 {Path(p).name} {name}: differs from the batched process()")
-            del stems, xb
-            st = hold_batch(sep, xs)
-            worst = {k: max(worst[k], st[k]) for k in worst}
+                                      peak_normalize(stem[0, :n].cpu().numpy()))
+                    stem_file = f"{Path(p).stem}_{name}.wav"
+                    require(same_bytes(out4 / stem_file, tmp / "ref.wav"),
+                            f"dp=4 {Path(p).name} {name}: differs from process() of its row")
+                    as_dp1 += same_bytes(out4 / stem_file, out / stem_file)
         shutil.rmtree(out4)
-        print(f"phase 18 separate_corpus(dp=4), {len(short)} tracks in {len(batches)} batches: "
-              f"stems byte-equal to the writer over the batched process(); each row against "
-              f"the lone track, pass by pass: worst mask flips {worst['flips']} "
-              f"({worst['share']:.3g} of bins), excluded samples {worst['excluded']}, max "
-              f"|diff|/scale {worst['rel_err']:.3g} (limit {STEM_ATOL}); {wall4:.2f} s against "
-              f"dp=1's prefetch runs below [{smi}]")
+        print(f"phase 18 separate_corpus on a dp=4 mesh of this card, {len(short)} tracks in "
+              f"{len(batches)} batches: stems byte-equal to the writer over process() of each "
+              f"track's padded row; {as_dp1} of {3 * len(short)} stem files byte-equal to the "
+              f"dp=1 run's; {wall4:.2f} s against dp=1's prefetch runs below [{smi}]")
 
         # the loader and the pipelined cascade, each against its sequential twin, in turns
         walls = {0: [], 2: []}
         for k, pf in enumerate((0, 2, 2, 0)):
             o = tmp / f"pf{k}"
-            _, w = counted(lambda: separate_corpus(short, str(o), prefetch=pf, device=DEVICE),
+            _, w = counted(lambda: separate_corpus(short, str(o), card_mesh({"dp": 1}),
+                                                   prefetch=pf),
                            corpus_launches(short_items), f"separate_corpus(prefetch={pf})")
             walls[pf].append(w)
             shutil.rmtree(o)
@@ -2473,6 +2480,306 @@ def phase_apps(smi: str) -> dict:
     return total
 
 
+# ---------------- the parallel layer: sharded drivers on virtual shards ----------------
+
+TP_ATOL = 2e-4  # zen_tpu's TP class, tests/test_parallel.py:44-47
+PARALLEL_CLIP_SEEDS = (7, 9)  # the two channels of phase 20's batch (7: phase 7's clip)
+
+
+def card_mesh(axes: dict):
+    """make_mesh over ``axes`` with every shard on this card: virtual
+    shards, which run one after another."""
+    from zen_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axes, devices=[DEVICE] * math.prod(axes.values()))
+
+
+def sharded_pass(audio, cfg, mesh) -> tuple:
+    """sharded_separate's two halves on ``audio`` [C, L]: (its stems
+    {name: [C, L]}, its (harmonic, percussive) masks [C, frames, bins]),
+    for the flip rule."""
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    local, devs, n_sp, length = tsh._sp_local(audio, cfg, mesh, "dp", "sp")
+    spectra, masks = tsh._sp_masks(local, devs, n_sp, cfg)
+    out = tsh._sp_gather(tsh._sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1,
+                         devs[0])
+    stems = {name: out[i, :, :length] for i, name in enumerate(tsh.STEMS)}
+    return stems, tuple(tsh._sp_gather([m[i] for m in masks], n_sp, -2, 0, devs[0])
+                        for i in (0, 1))
+
+
+def tp_pass(audio, cfg, mesh) -> tuple:
+    """tp_separate's two halves on ``audio`` [L]: (its stems {name: [L]},
+    its (harmonic, percussive) masks [frames, nfft])."""
+    from zen_tpu_torch.drivers.offline import _n_frames
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    devs = [mesh.device(tp=t) for t in range(mesh.size("tp"))]
+    n_frames = _n_frames(audio.shape[-1], cfg)
+    with tsh._tf32_off():
+        spectra, masks, inverse = tsh._tp_masks(audio, cfg, devs, n_frames)
+        out = tsh._tp_stems(spectra, masks, inverse, cfg, devs, n_frames)
+    stems = {name: out[i, : audio.shape[-1]] for i, name in enumerate(tsh.STEMS)}
+    return stems, tuple(torch.cat([m[i] for m in masks], dim=-1) for i in (0, 1))
+
+
+def hold_passes(what, cfgs, audio, run, atol=STEM_ATOL) -> dict:
+    """Each pass of a sharded cascade against the unsharded pass on the
+    card under the flip rule, row by row at ``atol`` x scale: pass 1 on
+    ``audio``, pass 2 on the unsharded pass 1's intermediate on both sides
+    (pass-1 flips do not cascade). ``run(audio, cfg)`` -> (stems, masks)
+    of the sharded pass. The worst row of both passes."""
+    from zen_tpu_torch.drivers.offline import pass_masks, pass_stems
+
+    worst = {"flips": 0, "share": 0.0, "excluded": 0, "rel_err": 0.0}
+    for cfg in cfgs:
+        got, masks = run(audio, cfg)
+        fm = pass_masks(audio, cfg)
+        want = pass_stems(fm, cfg, audio)
+        rows = [slice(None)] if audio.ndim == 1 else range(audio.shape[0])
+        for j in rows:
+            st = hold_pass(f"{what} hop {cfg.hop}", {k: v[j] for k, v in got.items()},
+                           {k: v[j] for k, v in want.items()}, [m[j] for m in masks],
+                           [m[j] for m in fm.masks[:2]], cfg.hop, atol)
+            worst = {k: max(worst[k], st[k]) for k in worst}
+        audio = want["percussive"] + want["residual"]
+    return worst
+
+
+def held_text(bitwise: bool, st: dict | None, atol: float = STEM_ATOL, how: str = "") -> str:
+    if bitwise:
+        return "bitwise equal"
+    return (f"not bitwise; {how}under the flip rule: mask flips {st['flips']} "
+            f"({st['share']:.3g} of bins), excluded {st['excluded']} "
+            f"{'hops' if 'hops' in st else 'samples'}, max "
+            f"|diff|/scale {st['rel_err']:.3g} (limit {atol})")
+
+
+def phase_parallel(smi: str) -> dict:
+    """The single-host parallel layer at full width on virtual shards of
+    this card (make_mesh with the card repeated): (a) sharded_hpri_offline
+    at BASELINE.json configs[0] on a two-channel batch of the clip, meshes
+    dp1 x sp4, dp2 x sp2, dp2 x sp1, against process(); (b)
+    sharded_hpri_blocked on the 4-minute track at sp 4 and 2, bitwise
+    against process_blocked(), and its checkpointed form killed once and
+    resumed; (c) tp_hpri_offline on the clip at tp 4 and 2 against
+    process() with the exact C2C transform at zen_tpu's TP class; (d)
+    MultiStreamHPR 64 x hop 256 (B=32) and 512 x B=16 at dp=4 against the
+    unsharded fleet; (e) the CLI's --mesh surfaces. Each sharded run's
+    launches equal shards x per-pass launches from the shapes; each row
+    prints its host wall beside the unsharded run's. No gain is claimed:
+    virtual shards run one after another."""
+    import tempfile
+
+    from zen_tpu_torch import HPRIOffline, MultiStreamHPR
+    from zen_tpu_torch.errors import ZenError
+    from zen_tpu_torch.io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    total, counted = launch_ledger()
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    def zero():
+        return dict.fromkeys(total, 0)
+
+    def wall_s(fn, runs=3):
+        fn()
+        return wall_us_per_call(fn, runs) / 1e6
+
+    # (a) the dp x sp batched cascade
+    sep = offline_separator()
+    batch = torch.stack([torch.from_numpy(synthetic_mix(CLIP_SAMPLES, OFFLINE_FS, seed=s))
+                         for s in PARALLEL_CLIP_SEEDS]).to(DEVICE)
+    want = sep.process(batch)
+    t_plain = wall_s(lambda: sep.process(batch))
+    for axes in ({"dp": 1, "sp": 4}, {"dp": 2, "sp": 2}, {"dp": 2, "sp": 1}):
+        mesh = card_mesh(axes)
+        run = lambda: tsh.sharded_hpri_offline(batch, sep.cfg_h, sep.cfg_p, mesh)  # noqa: E731
+        run()  # cuFFT plans of the shards' shapes
+        n = math.prod(axes.values())
+        got, _ = counted(run, add_pass(add_pass(zero(), sep.cfg_h, n), sep.cfg_p, n),
+                         f"sharded_hpri_offline {axes}")
+        for o in got:
+            require(o.shape == batch.shape and bool(torch.isfinite(o).all()),
+                    f"sharded_hpri_offline {axes}: stems {tuple(o.shape)}")
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        st = None if bitwise else hold_passes(f"sharded {axes}", (sep.cfg_h, sep.cfg_p), batch,
+                                              lambda a, c: sharded_pass(a, c, mesh))
+        print(f"phase 20 (a) sharded_hpri_offline {axes}, 2 x {CLIP_SAMPLES} samples, against "
+              f"process() per channel: {held_text(bitwise, st, how='pass by pass ')}; "
+              f"{wall_s(run) * 1e3:.2f} ms "
+              f"wall against process() {t_plain * 1e3:.2f} ms (means of 3); launches "
+              f"{nonzero(add_pass(add_pass(zero(), sep.cfg_h, n), sep.cfg_p, n))} [{smi}]")
+
+    # (b) the sp blocked scan, and its checkpointed form killed once
+    x = torch.from_numpy(synthetic_mix(TRACK_SAMPLES, OFFLINE_FS, seed=8)).to(DEVICE)
+    want = sep.process_blocked(x)
+    t_plain = wall_s(lambda: sep.process_blocked(x), 1)
+    for n_sp in (4, 2):
+        mesh = card_mesh({"sp": n_sp})
+        counts = zero()
+        for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192)):
+            _, nbl = tsh._sharded_blocking(TRACK_SAMPLES, cfg, bf, n_sp)
+            # each shard's blocks, and the block before each span but the first
+            add_pass(counts, cfg, n_sp * nbl + n_sp - 1)
+        run = lambda: tsh.sharded_hpri_blocked(x, sep.cfg_h, sep.cfg_p, mesh)  # noqa: E731
+        got, _ = counted(run, counts, f"sharded_hpri_blocked sp={n_sp}")
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"sharded_hpri_blocked sp={n_sp} differs from process_blocked()")
+        resumed = ""
+        if n_sp == 4:
+            class Killed(Exception):
+                pass
+
+            def kill(b, nbl):
+                raise Killed
+
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+                ck = dict(ckpt_dir=tmp, tag="track", ckpt_every_blocks=1)
+                try:
+                    tsh.sharded_hpri_blocked(x, sep.cfg_h, sep.cfg_p, mesh, on_segment=kill, **ck)
+                    require(False, "the kill did not fire")
+                except Killed:
+                    pass
+                got, t_ck = timed(lambda: synced(
+                    lambda: tsh.sharded_hpri_blocked(x, sep.cfg_h, sep.cfg_p, mesh, **ck)))
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    "the resumed checkpointed sharded scan differs from process_blocked()")
+            resumed = (f"; checkpointed (a segment a block) killed after its first segment "
+                       f"and resumed: bitwise equal, the resume {t_ck:.3f} s")
+        print(f"phase 20 (b) sharded_hpri_blocked sp={n_sp}, 4-minute track, against "
+              f"process_blocked(): bitwise equal{resumed}; {wall_s(run, 1):.3f} s wall against "
+              f"{t_plain:.3f} s; launches {nonzero(counts)} [{smi}]")
+    del x, want, got
+
+    # (c) frequency TP on the clip against process() with the exact C2C transform
+    c2c = HPRIOffline(OFFLINE_FS, 4096, 256, 2.5, 2.5, fast_rfft=False, device=DEVICE)
+    clip = batch[0]
+    t_plain = wall_s(lambda: c2c.process(clip))
+    for n_tp in (4, 2):
+        mesh = card_mesh({"tp": n_tp})
+        run = lambda: tsh.tp_hpri_offline(clip, c2c.cfg_h, c2c.cfg_p, mesh)  # noqa: E731
+        counts = add_pass(add_pass(zero(), c2c.cfg_h, n_tp), c2c.cfg_p, n_tp)
+        got, _ = counted(run, counts, f"tp_hpri_offline tp={n_tp}")
+        for o in got:
+            require(o.shape == clip.shape and bool(torch.isfinite(o).all()),
+                    f"tp_hpri_offline tp={n_tp}: stems {tuple(o.shape)}")
+        st = hold_passes(f"tp={n_tp}", (c2c.cfg_h, c2c.cfg_p), clip,
+                         lambda a, c: tp_pass(a, c, mesh), TP_ATOL)
+        print(f"phase 20 (c) tp_hpri_offline tp={n_tp}, clip, against process() (fast_rfft "
+              f"off): {held_text(False, st, TP_ATOL, 'pass by pass ')}; "
+              f"{wall_s(run) * 1e3:.2f} ms wall against "
+              f"{t_plain * 1e3:.2f} ms; launches {nonzero(counts)} [{smi}]")
+    del batch
+
+    # (d) fleets sharded over dp
+    for c, b, n_blocks in ((64, 32, 16), (FLEET_STREAMS, FLEET_BLOCK, 8)):
+        audio = fleet_audio(c, n_blocks * b * FLEET_HOP, 44100.0)
+        blocks = torch.from_numpy(audio).to(DEVICE).reshape(c, n_blocks, b, FLEET_HOP)
+        one = MultiStreamHPR(c, 44100.0, hop=FLEET_HOP, device=DEVICE)
+        ms = MultiStreamHPR(c, 44100.0, hop=FLEET_HOP, mesh=card_mesh({"dp": 4}))
+        one.warmup((b,))
+        ms.warmup((b,))
+        want = torch.cat([one.process_block(blocks[:, j]) for j in range(n_blocks)], dim=2)
+        counts = add_pass(zero(), ms.cfg, 4 * n_blocks)
+        got, _ = counted(lambda: torch.cat([ms.process_block(blocks[:, j])
+                                            for j in range(n_blocks)], dim=2),
+                         counts, f"MultiStreamHPR {c} dp=4")
+        bitwise = torch.equal(got, want)
+        st = None
+        if not bitwise:
+            sizes, per = [b] * n_blocks, c // 4
+            m_s = torch.cat([stream_masks(ms.cfg, audio[i * per : (i + 1) * per], sizes, DEVICE)
+                             for i in range(4)], dim=1)
+            st = hold_masks(m_s, stream_masks(ms.cfg, audio, sizes, DEVICE), FLEET_HOP,
+                            got.cpu().numpy(), want.cpu().numpy(),
+                            ("harmonic", "percussive", "residual"))
+        step = blocks[:, 0]
+        print(f"phase 20 (d) MultiStreamHPR {c} x hop {FLEET_HOP} B={b} at dp=4, {n_blocks} "
+              f"blocks, against the unsharded fleet: {held_text(bitwise, st)}; "
+              f"{wall_us_per_call(lambda: ms.process_block(step), TIMED_RUNS):.1f} us/step wall "
+              f"against {wall_us_per_call(lambda: one.process_block(step), TIMED_RUNS):.1f}; "
+              f"launches {nonzero(counts)} [{smi}]")
+
+    # (e) the CLI's --mesh surfaces on this card
+    hps = ["--hps", "4096", "2.5", "256", "2.5"]
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        wav = tmp / "clip.wav"
+        write_audio_pcm16(str(wav), int(OFFLINE_FS),
+                          peak_normalize(synthetic_mix(CLIP_SAMPLES, OFFLINE_FS, seed=7)))
+        fs, audio = read_audio_mono(str(wav))
+        mesh1 = card_mesh({"tp": 1})
+        counts = add_pass(add_pass(zero(), c2c.cfg_h, 1), c2c.cfg_p, 1)
+        lines, wall = counted(lambda: zen_cli(["offline", "-i", wav, *hps, "-o", tmp / "tp1",
+                                               "--mesh", "tp=1", "--device", DEVICE]),
+                              counts, "zen-torch offline --mesh tp=1")
+        require("\tmesh: tp=1 (frequency-sharded)" in lines, f"offline --mesh stdout {lines}")
+        write_stems(tmp / "ref", "wav",
+                    tsh.tp_hpri_offline(audio, sep.cfg_h, sep.cfg_p, mesh1), fs)
+        _, wall_plain = timed(lambda: zen_cli(["offline", "-i", wav, *hps, "-o", tmp / "plain",
+                                               "--device", DEVICE]))
+        levels = {}
+        for name in CLI_STEMS:
+            require(same_bytes(tmp / f"tp1_{name}.wav", tmp / f"ref_{name}.wav"),
+                    f"offline --mesh tp=1 {name}: differs from tp_hpri_offline's")
+            a, b = (np.round(read_audio_mono(str(tmp / f"{k}_{name}.wav"))[1].astype(np.float64)
+                             * 32768) for k in ("tp1", "plain"))
+            levels[name] = int(np.abs(a - b).max())
+        print(f"phase 20 (e) zen-torch offline --mesh tp=1, clip WAV: stems byte-equal to the "
+              f"writer over tp_hpri_offline (tp=1 is the partial-DFT transform with every bin, "
+              f"not the unsharded command's cuFFT: largest PCM16 level difference to it "
+              f"{levels}); command {wall:.2f} s against {wall_plain:.2f} s; launches "
+              f"{nonzero(counts)} [{smi}]")
+
+        x = fleet_audio(64, 8 * FLEET_BLOCK * FLEET_HOP, 44100.0)
+        argv = ["stream", "--streams", "64", "--fs", "44100", "--hop", str(FLEET_HOP),
+                "--block-hops", str(FLEET_BLOCK), "--device", DEVICE]
+        plain, wall_plain = timed(lambda: zen_stream(argv, interleave(x))[0])
+        counts = add_pass(zero(), one.cfg, 8 + 1)  # eight blocks and the warmup's one
+        (out, err), wall = counted(lambda: zen_stream([*argv, "--mesh", "dp=1"], interleave(x)),
+                                   counts, "zen-torch stream --mesh dp=1")
+        require(out == plain and json.loads(err[-1])["mesh"] == "dp=1",
+                f"stream --mesh dp=1: output differs from the unsharded command's, {err[-1:]}")
+        try:
+            wide, _ = zen_stream([*argv, "--mesh", "dp=2"], interleave(x))
+            require(cards >= 2 and wide == plain,
+                    f"stream --mesh dp=2 on {cards} cards differs from the unsharded command's")
+            dp2 = f"ran on {cards} cards, output byte-equal"
+        except ZenError as e:
+            require(cards < 2 and str(e) == "mesh axes {'dp': 2} need 2 devices, got 1",
+                    f"stream --mesh dp=2 on {cards} cards: {e}")
+            dp2 = f"refused with make_mesh's ZenError: {e}"
+        print(f"phase 20 (e) zen-torch stream --streams 64 --mesh dp=1: stdout byte-equal to the "
+              f"unsharded command's, mesh \"dp=1\"; {wall:.2f} s against {wall_plain:.2f} s; "
+              f"launches {nonzero(counts)}; --mesh dp=2 on {cards} card(s): {dp2} [{smi}]")
+
+        src = tmp / "tracks"
+        src.mkdir()
+        for seed, secs in ((30, 20), (31, 25)):
+            write_audio_pcm16(str(src / f"t{seed}.wav"), 44100,
+                              peak_normalize(synthetic_mix(secs * 44100, 44100.0, seed=seed)))
+        items = [(str(p), 44100, len(read_audio_mono(str(p))[1])) for p in sorted(src.iterdir())]
+        cargv = ["corpus", "-i", src / "*.wav", "--device", DEVICE]
+        _, wall_plain = timed(lambda: zen_cli([*cargv, "-o", tmp / "c_plain"]))
+        lines, wall = counted(lambda: zen_cli([*cargv, "-o", tmp / "c_mesh",
+                                               "--mesh", "dp=1,sp=1"]),
+                              corpus_launches(items), "zen-torch corpus --mesh dp=1,sp=1")
+        require(lines[0] == f"corpus: 2 tracks, mesh {{'dp': 1, 'sp': 1}}, out={tmp / 'c_mesh'}",
+                f"corpus --mesh stdout {lines}")
+        for p, _, _ in items:
+            for name in CLI_STEMS:
+                f = f"{Path(p).stem}_{name}.wav"
+                require(same_bytes(tmp / "c_mesh" / f, tmp / "c_plain" / f),
+                        f"corpus --mesh dp=1,sp=1 {f}: differs from the unsharded command's")
+        print(f"phase 20 (e) zen-torch corpus --mesh dp=1,sp=1, 2 tracks (45 s): every stem "
+              f"byte-equal to the command without --mesh; {wall:.2f} s against "
+              f"{wall_plain:.2f} s; launches {nonzero(corpus_launches(items))} [{smi}]")
+    return total
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
@@ -2563,7 +2870,8 @@ def main() -> None:
                         ("hbm_pattern", phase_hbm_pattern), ("serving_bound", phase_serving_bound),
                         ("sse", phase_sse), ("box", phase_box), ("dft", phase_dft),
                         ("quality_ladder", phase_quality), ("files_cli", phase_files_cli),
-                        ("corpus", phase_corpus), ("apps", phase_apps)):
+                        ("corpus", phase_corpus), ("apps", phase_apps),
+                        ("parallel", phase_parallel)):
         t0 = time.perf_counter()
         counts = phase(smi)
         if counts is not None:

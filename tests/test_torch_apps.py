@@ -365,7 +365,7 @@ def test_corpus_cli_matches_zen_tpu(tmp_path):
     (["--nprocs", "2"], 2, "--nprocs above 1 is not ported yet"),
     (["--coordinator", "h:1"], 1, "--coordinator/--proc-id need --nprocs >= 2"),
     (["--proc-id", "1"], 1, "--coordinator/--proc-id need --nprocs >= 2"),
-    (["--mesh", "dp=2"], 2, "--mesh is not ported yet"),
+    (["--mesh", "dp=0"], 1, "mesh axis size must be >= 1"),
     (["--mesh", "tp=2"], 1, "mesh supports axes dp,sp only"),
 ])
 def test_corpus_cli_refusals(tmp_path, argv, rc, msg):

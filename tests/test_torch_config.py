@@ -173,7 +173,8 @@ def test_port_imports_no_jax():
         "zen_tpu_torch.runtime.native, zen_tpu_torch.runtime.checkpoint, "
         "zen_tpu_torch.runtime.stream, zen_tpu_torch.drivers.offline, "
         "zen_tpu_torch.runtime.loader, zen_tpu_torch.drivers.pipeline, "
-        "zen_tpu_torch.drivers.corpus, zen_tpu_torch.apps.mpm, zen_tpu_torch.apps.btrack; "
+        "zen_tpu_torch.drivers.corpus, zen_tpu_torch.apps.mpm, zen_tpu_torch.apps.btrack, "
+        "zen_tpu_torch.parallel.mesh, zen_tpu_torch.parallel.sharded; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'zen_tpu' not in sys.modules, 'zen_tpu imported'"
     )

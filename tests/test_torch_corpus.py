@@ -2,8 +2,9 @@
 corpus.py, pipeline.py) against zen_tpu's, on the CPU.
 
 Small configs (fs 1000, hops 16/8, as tests/test_runtime.py). zen_tpu
-runs on ``make_mesh({"dp": 1 or 2, "sp": 1})``, the port with the same
-``dp``. Tolerances, each with its reason:
+runs on ``make_mesh({"dp": 1 or 2, "sp": 1})``, the port on the CPU mesh
+of the same shape (``make_mesh(..., device="cpu")``). Tolerances, each
+with its reason:
 * stems against zen_tpu: atol = 5e-5 x max(1, max|ref|) per stem
   (tests/test_torch_offline.py's class: only the FFTs round differently).
   The writers capture the raw stems: ``peak_normalize`` is patched to the
@@ -31,6 +32,7 @@ from zen_tpu_torch.drivers import corpus as tcorpus  # noqa: E402
 from zen_tpu_torch.drivers import offline as toff  # noqa: E402
 from zen_tpu_torch.drivers import pipeline as tpipe  # noqa: E402
 from zen_tpu_torch.io.audio import peak_normalize, read_audio_mono, write_audio_pcm16  # noqa: E402
+from zen_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 
 ATOL = 5e-5
 FS = 1000
@@ -57,10 +59,14 @@ def _capture():
     return out, writer
 
 
-def _port(paths, out_dir, store, **kw):
+def _cpu_mesh(dp=1, sp=1):
+    return tmesh.make_mesh({"dp": dp, "sp": sp}, device="cpu")
+
+
+def _port(paths, out_dir, store, dp=1, **kw):
     out, writer = _capture()
-    res = tcorpus.separate_corpus(paths, str(out_dir), reader=lambda p: store[p], writer=writer,
-                                  device="cpu", **{**HOPS, **kw})
+    res = tcorpus.separate_corpus(paths, str(out_dir), _cpu_mesh(dp), reader=lambda p: store[p],
+                                  writer=writer, **{**HOPS, **kw})
     return res, out
 
 
@@ -136,14 +142,14 @@ def test_process_of_one_row_equals_one_track():
 def test_corpus_writes_files_resumes_and_default_device(tmp_path):
     """Real files through the default reader and writer: stems equal to
     the port's writer over process(); a rerun processes nothing; the
-    default device is the card (refused here with a ZenError)."""
+    default mesh is over the cards (refused here with a ZenError)."""
     paths = []
     for i in range(3):
         p = tmp_path / f"track{i}.wav"
         write_audio_pcm16(str(p), FS, peak_normalize(_audio(400 + 16 * i, i)))
         paths.append(str(p))
     out = tmp_path / "stems"
-    res = tcorpus.separate_corpus(paths, str(out), dp=2, device="cpu", **HOPS)
+    res = tcorpus.separate_corpus(paths, str(out), _cpu_mesh(dp=2), **HOPS)
     assert res == {"done": 0, "processed": 3}
     sep = T.HPRIOffline(FS, 16, 8, device="cpu")
     for i, p in enumerate(paths):
@@ -152,7 +158,7 @@ def test_corpus_writes_files_resumes_and_default_device(tmp_path):
             write_audio_pcm16(str(tmp_path / "ref.wav"), fs, peak_normalize(stem.numpy()))
             got = (out / f"track{i}_{name}.wav").read_bytes()
             assert got == (tmp_path / "ref.wav").read_bytes(), (p, name)
-    assert tcorpus.separate_corpus(paths, str(out), device="cpu", **HOPS) == {
+    assert tcorpus.separate_corpus(paths, str(out), _cpu_mesh(), **HOPS) == {
         "done": 3, "processed": 0}
     if not torch.cuda.is_available():
         with pytest.raises(T.ZenError, match="device"):
@@ -166,20 +172,22 @@ def test_corpus_mixed_sample_rates(tmp_path):
     store = {str(tmp_path / f"t{i}.wav"): (fs, rng.standard_normal(640).astype(np.float32))
              for i, fs in enumerate((1000, 2000, 1000, 2000))}
     calls = []
-    orig = T.HPRIOffline.process
+    orig = tcorpus.sharded_hpri_offline
 
-    def spy(self, audio, lengths=None):
-        calls.append((self.cfg_h.fs, audio.shape[0]))
-        return orig(self, audio, lengths)
+    def spy(audio, cfg_h, cfg_p, mesh, lengths=None):
+        calls.append((cfg_h.fs, list(lengths)))
+        return orig(audio, cfg_h, cfg_p, mesh, lengths=lengths)
 
-    T.HPRIOffline.process = spy
+    tcorpus.sharded_hpri_offline = spy
     try:
         res, got = _port(list(store), tmp_path / "out", store, dp=2)
     finally:
-        T.HPRIOffline.process = orig
+        tcorpus.sharded_hpri_offline = orig
     _, want = _jax(list(store), tmp_path / "jout", store, dp=2)
     assert res["processed"] == 4
-    assert calls == [(1000.0, 1), (2000.0, 1), (1000.0, 1), (2000.0, 1)]
+    # each batch of one track, padded to the dp rows with an empty one
+    assert calls == [(1000.0, [640, 0]), (2000.0, [640, 0]), (1000.0, [640, 0]),
+                     (2000.0, [640, 0])]
     for p, (fs, _) in store.items():
         base = os.path.basename(p)[:-4]
         for stem in STEMS:
@@ -245,8 +253,8 @@ def test_corpus_sweeps_leaked_checkpoints_of_done_tracks(tmp_path):
              for i in range(2)}
     out = tmp_path / "out"
     run = lambda: tcorpus.separate_corpus(  # noqa: E731
-        sorted(store), str(out), reader=lambda p: store[p], writer=lambda p, fs, a: None,
-        device="cpu", **HOPS)
+        sorted(store), str(out), _cpu_mesh(), reader=lambda p: store[p],
+        writer=lambda p, fs, a: None, **HOPS)
     run()
     ckpt_dir = out / ".ckpt"
     ckpt_dir.mkdir(exist_ok=True)
@@ -427,3 +435,42 @@ def test_launch_counters_count_every_launch_from_many_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert wrapper.launches == wrapper.routes["register"] == n_threads * n
+
+
+def test_corpus_long_track_on_an_sp_mesh_takes_the_sharded_scan(tmp_path, monkeypatch):
+    """On a mesh with sp > 1 a track past LONG_TRACK_SAMPLES x sp takes the
+    checkpointed sharded_hpri_blocked (<out>/.ckpt, tag = its stem base),
+    bitwise to process_blocked(); a track between LONG_TRACK_SAMPLES and
+    that stays batched; .ckpt is empty after; zen_tpu's corpus on the
+    same mesh shape within the class."""
+    import zen_tpu.drivers.offline as joff
+
+    monkeypatch.setattr(toff, "LONG_TRACK_SAMPLES", 1000)
+    monkeypatch.setattr(joff, "LONG_TRACK_SAMPLES", 1000)
+    monkeypatch.setattr(jaudio, "peak_normalize", lambda x: x)
+    monkeypatch.setattr(taudio, "peak_normalize", lambda x: x)
+    store = {str(tmp_path / "long.wav"): (FS, _audio(4000, 6, 0.4)),
+             str(tmp_path / "mid.wav"): (FS, _audio(1500, 7, 0.4))}
+    calls = []
+    orig = tcorpus.sharded_hpri_blocked
+
+    def spy(audio, cfg_h, cfg_p, mesh, **kw):
+        calls.append((len(audio), kw))
+        return orig(audio, cfg_h, cfg_p, mesh, **kw)
+
+    monkeypatch.setattr(tcorpus, "sharded_hpri_blocked", spy)
+    out, writer = _capture()
+    res = tcorpus.separate_corpus(sorted(store), str(tmp_path / "out"), _cpu_mesh(sp=2),
+                                  reader=lambda p: store[p], writer=writer, **HOPS)
+    assert res["processed"] == 2
+    assert calls == [(4000, {"ckpt_dir": str(tmp_path / "out" / ".ckpt"), "tag": "long"})]
+    assert os.listdir(tmp_path / "out" / ".ckpt") == []
+    want = T.HPRIOffline(FS, 16, 8, device="cpu").process_blocked(store[str(tmp_path / "long.wav")][1])
+    for stem, w in zip(STEMS, want):
+        np.testing.assert_array_equal(out[str(tmp_path / "out" / f"long_{stem}.wav")][1],
+                                      w.numpy(), err_msg=stem)
+    jout, jwriter = _capture()
+    jcorpus.separate_corpus(sorted(store), str(tmp_path / "jout"), make_mesh({"dp": 1, "sp": 2}),
+                            reader=lambda p: store[p], writer=jwriter, **HOPS)
+    for p, (_, x) in out.items():
+        _close(x, jout[p.replace(str(tmp_path / "out"), str(tmp_path / "jout"))][1], p)

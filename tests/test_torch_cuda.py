@@ -737,11 +737,13 @@ def test_pipelined_cascade_on_two_streams_equals_sequential(cuda_device):
 
 
 def test_corpus_on_card_equals_process_per_track(cuda_device, tmp_path):
-    """separate_corpus on the card, dp=1 and dp=2: each track's stems (as
-    its writer receives them) equal peak_normalize(process()) of the lone
-    track at dp=1, bitwise, and of the batched process() at dp=2."""
+    """separate_corpus on dp=1 and dp=2 meshes of the card: each track's
+    stems (as its writer receives them) equal peak_normalize(process()) of
+    the lone track at dp=1, bitwise, and of the batched process() at dp=2
+    (a track a shard)."""
     from zen_tpu_torch.drivers.corpus import separate_corpus
     from zen_tpu_torch.io.audio import peak_normalize
+    from zen_tpu_torch.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(32)
     store = {str(tmp_path / f"t{i}.wav"): (44100, rng.standard_normal(n).astype(np.float32))
@@ -750,10 +752,10 @@ def test_corpus_on_card_equals_process_per_track(cuda_device, tmp_path):
     sep = HPRIOffline(44100.0, 4096, 256, 2.0, 2.0, device=cuda_device)
     for dp in (1, 2):
         got = {}
-        res = separate_corpus(paths, str(tmp_path / f"dp{dp}"), dp=dp,
+        res = separate_corpus(paths, str(tmp_path / f"dp{dp}"),
+                              make_mesh({"dp": dp, "sp": 1}, devices=[cuda_device] * dp),
                               reader=lambda p: store[p],
-                              writer=lambda p, fs, a: got.update({p: np.array(a)}),
-                              device=cuda_device)
+                              writer=lambda p, fs, a: got.update({p: np.array(a)}))
         assert res == {"done": 0, "processed": 3}
         batches = [[p] for p in paths] if dp == 1 else [paths[:2], paths[2:]]
         for batch in batches:
@@ -797,3 +799,113 @@ def test_app_transforms_on_card_match_cpu(cuda_device):
         got = _autocorr_batch(torch.from_numpy(chunks).to(cuda_device), 4096, strict)
         err = np.abs(got.cpu().numpy() - want).max(axis=1) / np.abs(want).max(axis=1)
         assert err.max() <= 1e-5, (strict, err.max())
+
+
+# ---------------- the parallel layer on virtual shards of the card ----------------
+
+
+def _card_mesh(axes, device):
+    from zen_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axes, devices=[device] * int(np.prod(list(axes.values()))))
+
+
+def test_sharded_blocked_sp4_bitwise_on_card(cuda_device):
+    """sharded_hpri_blocked at sp=4 on one card: bitwise to
+    process_blocked() at the same block sizes, and one K1 and one K2 a
+    block of every shard plus the block before each span but the first."""
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    sep = HPRIOffline(44100.0, 4096, 256, 2.0, 2.0, device=cuda_device)
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.standard_normal(44100 * 12).astype(np.float32) * 0.3).to(cuda_device)
+    want = sep.process_blocked(x, 8, 128)
+    mesh = _card_mesh({"sp": 4}, cuda_device)
+    n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches
+    got = tsh.sharded_hpri_blocked(x, sep.cfg_h, sep.cfg_p, mesh, 8, 128)
+    torch.cuda.synchronize()
+    blocks = sum(4 * tsh._sharded_blocking(len(x), cfg, bf, 4)[1] + 3
+                 for cfg, bf in ((sep.cfg_h, 8), (sep.cfg_p, 128)))
+    assert mc.tap_median_time.launches - n_time == blocks
+    assert mc.sliding_median_boundary.launches - n_freq == blocks
+    for g, w in zip(got, want):
+        assert g.device == w.device and torch.equal(g, w)
+
+
+def test_tp_on_card_matches_cpu(cuda_device):
+    """tp_hpri_offline at tp=4 on one card against the same on the CPU,
+    pass by pass under chip_smoke's flip rule at the TP class (2e-4 x
+    scale); K2's valid route runs in every shard."""
+    import chip_smoke as cs
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    sep = HPRIOffline(8000.0, 256, 64, 2.0, 2.0, fast_rfft=False, device=cuda_device)
+    x = torch.from_numpy(cs.synthetic_mix(8000 * 3, 8000.0, seed=41)).to(cuda_device)
+    meshes = {"card": _card_mesh({"tp": 4}, cuda_device), "cpu": _card_mesh({"tp": 4}, "cpu")}
+    n_freq = mc.sliding_median_boundary.launches
+    got = tsh.tp_hpri_offline(x, sep.cfg_h, sep.cfg_p, meshes["card"])
+    torch.cuda.synchronize()
+    assert mc.sliding_median_boundary.launches - n_freq == 8
+    assert all(g.device.type == "cuda" and bool(torch.isfinite(g).all()) for g in got)
+    audio = {"card": x, "cpu": x.cpu()}
+    for cfg in (sep.cfg_h, sep.cfg_p):
+        (g, m_g), (w, m_w) = (cs.tp_pass(audio[k], cfg, meshes[k]) for k in ("card", "cpu"))
+        cs.hold_pass(f"tp hop {cfg.hop}", g, w, m_g, m_w, cfg.hop, cs.TP_ATOL)
+        audio = {"card": g["percussive"] + g["residual"]}
+        audio["cpu"] = audio["card"].cpu()
+
+
+def test_sharded_paths_do_not_synchronize(cuda_device):
+    """Every shard's work is enqueued without the host waiting on the
+    card: a dp x sp pass, a TP pass, the blocked scan and a sharded
+    fleet's step, each once to warm up and then under
+    set_sync_debug_mode('error')."""
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    cfg = HPRConfig(fs=8000.0, hop=64, causal=False)
+    x = torch.randn(2, 8000, device=cuda_device)
+    ms = MultiStreamHPR(8, 8000.0, 64, mesh=_card_mesh({"dp": 4}, cuda_device))
+    blocks = torch.randn(8, 5, 64, device=cuda_device)
+    runs = [
+        lambda: tsh.sharded_hpri_offline(x, cfg, cfg, _card_mesh({"dp": 2, "sp": 2}, cuda_device),
+                                         lengths=[8000, 6000]),
+        lambda: tsh.tp_separate(x[0], cfg, _card_mesh({"tp": 2}, cuda_device)),
+        lambda: tsh.sharded_separate_blocked(x[0], cfg, _card_mesh({"sp": 2}, cuda_device), 16),
+        lambda: ms.process_block(blocks),
+    ]
+    for run in runs:
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def test_multistream_mesh_on_card_equals_unsharded(cuda_device):
+    """64 streams at dp=4 on one card against the unsharded fleet, gathered
+    on the card in stream order, under chip_smoke's flip rule (cuFFT's
+    bits can depend on the batch, 16 streams a shard against 64); each
+    shard launches its own K1 and K2 a block."""
+    import chip_smoke as cs
+
+    audio = cs.fleet_audio(64, 3 * 8 * 256, 44100.0)
+    blocks = torch.from_numpy(audio).reshape(64, 3, 8, 256)
+    one = MultiStreamHPR(64, 44100.0, 256, device=cuda_device)
+    ms = MultiStreamHPR(64, 44100.0, 256, mesh=_card_mesh({"dp": 4}, cuda_device))
+    got, want = [], []
+    for j in range(3):
+        want.append(one.process_block(blocks[:, j]))
+        n_time = mc.tap_median_time.launches
+        got.append(ms.process_block(blocks[:, j]))
+        torch.cuda.synchronize()
+        assert mc.tap_median_time.launches - n_time == 4
+        assert got[-1].device == want[-1].device
+    got, want = torch.cat(got, dim=2), torch.cat(want, dim=2)
+    if not torch.equal(got, want):
+        m_s = torch.cat([cs.stream_masks(ms.cfg, audio[16 * i : 16 * (i + 1)], [8] * 3,
+                                         cuda_device) for i in range(4)], dim=1)
+        cs.hold_masks(m_s, cs.stream_masks(ms.cfg, audio, [8] * 3, cuda_device), 256,
+                      got.cpu().numpy(), want.cpu().numpy(),
+                      ("harmonic", "percussive", "residual"))

@@ -20,12 +20,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from zen_tpu.runtime import loader as jloader  # noqa: E402
+from zen_tpu_torch.drivers import corpus as tcorpus  # noqa: E402
 from zen_tpu_torch.drivers.corpus import separate_corpus  # noqa: E402
+from zen_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from zen_tpu_torch.runtime import loader as tloader  # noqa: E402
 from zen_tpu_torch.runtime.checkpoint import ProgressJournal  # noqa: E402
 
 LOADERS = pytest.mark.parametrize("mod", [jloader, tloader], ids=["zen_tpu", "port"])
-HOPS = dict(hop_h=16, hop_p=8, device="cpu")
+HOPS = dict(hop_h=16, hop_p=8)
+
+
+def _mesh(dp=1):
+    return make_mesh({"dp": dp, "sp": 1}, device="cpu")
 
 
 def _store(n_tracks, fs=1000, length=400, seed=0):
@@ -143,8 +149,8 @@ def test_corpus_prefetch_parity(tmp_path):
         def writer(p, fs, a):
             out[os.path.basename(p)] = np.asarray(a).copy()
 
-        res = separate_corpus(list(store), str(tmp_path / tag), dp=2, reader=lambda p: store[p],
-                              writer=writer, prefetch=prefetch, **HOPS)
+        res = separate_corpus(list(store), str(tmp_path / tag), _mesh(dp=2),
+                              reader=lambda p: store[p], writer=writer, prefetch=prefetch, **HOPS)
         assert res["processed"] == 5
         return out
 
@@ -157,15 +163,14 @@ def test_corpus_prefetch_parity(tmp_path):
 def test_corpus_io_overlap_measured(tmp_path, monkeypatch):
     """With injected decode, separation and encode delays, the measured
     intervals show the prefetching run's I/O overlapping the separation
-    (a decode and an encode each run while a process() call does), and
-    the synchronous run's never. Intervals, not a wall-clock margin: the
-    suite shares the host's cores with other workers."""
+    (a decode and an encode each run while a batch's sharded_hpri_offline
+    call does), and the synchronous run's never. Intervals, not a
+    wall-clock margin: the suite shares the host's cores with other
+    workers."""
     import threading
 
-    from zen_tpu_torch import HPRIOffline
-
     store = _store(6, seed=3)
-    real = HPRIOffline.process
+    real = tcorpus.sharded_hpri_offline
     spans = {"read": [], "process": [], "write": []}
     lock = threading.Lock()
 
@@ -177,8 +182,8 @@ def test_corpus_io_overlap_measured(tmp_path, monkeypatch):
             spans[kind].append((t0, time.perf_counter()))
         return out
 
-    monkeypatch.setattr(HPRIOffline, "process", lambda self, audio, lengths=None: timed(
-        "process", lambda: real(self, audio, lengths), 0.03))
+    monkeypatch.setattr(tcorpus, "sharded_hpri_offline", lambda *a, **kw: timed(
+        "process", lambda: real(*a, **kw), 0.03))
 
     def overlaps(kind):
         return sum(a0 < b1 and b0 < a1 for a0, a1 in spans[kind] for b0, b1 in spans["process"])
@@ -186,7 +191,8 @@ def test_corpus_io_overlap_measured(tmp_path, monkeypatch):
     for prefetch in (0, 2):
         for v in spans.values():
             v.clear()
-        res = separate_corpus(list(store), str(tmp_path / f"pf{prefetch}"), prefetch=prefetch,
+        res = separate_corpus(list(store), str(tmp_path / f"pf{prefetch}"), _mesh(),
+                              prefetch=prefetch,
                               reader=lambda p: timed("read", lambda: store[p], 0.06),
                               writer=lambda p, fs, a: timed("write", lambda: None, 0.02), **HOPS)
         assert res["processed"] == 6
@@ -211,13 +217,14 @@ def test_corpus_writer_failure_is_crash_consistent(tmp_path):
             raise OSError("disk full")
 
     with pytest.raises(OSError, match="disk full"):
-        separate_corpus(paths, out, reader=lambda p: store[p], writer=writer, prefetch=2, **HOPS)
+        separate_corpus(paths, out, _mesh(), reader=lambda p: store[p], writer=writer,
+                        prefetch=2, **HOPS)
     j = ProgressJournal(os.path.join(out, "progress.jsonl"))
     assert all(j.is_done(p) for p in paths[:3])
     assert not any(j.is_done(p) for p in paths[3:])
 
     ok = []
-    res = separate_corpus(paths, out, reader=lambda p: store[p],
+    res = separate_corpus(paths, out, _mesh(), reader=lambda p: store[p],
                           writer=lambda p, fs, a: ok.append(os.path.basename(p)), prefetch=2,
                           **HOPS)
     assert res["done"] == 3 and res["processed"] == 3
@@ -245,7 +252,7 @@ def test_corpus_prefetch_stress_jitter_parity(tmp_path):
                 time.sleep(float(delay_rng.uniform(0, 0.004)))
             out[os.path.basename(p)] = np.asarray(a).copy()
 
-        res = separate_corpus(sorted(store), str(tmp_path / tag), dp=2, reader=reader,
+        res = separate_corpus(sorted(store), str(tmp_path / tag), _mesh(dp=2), reader=reader,
                               writer=writer, prefetch=prefetch, **HOPS)
         assert res["processed"] == n
         j = ProgressJournal(str(tmp_path / tag / "progress.jsonl"))

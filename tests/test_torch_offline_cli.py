@@ -218,15 +218,19 @@ def test_version_matches_zen_tpu():
 
 
 @pytest.mark.parametrize("args,text", [
-    (["offline", "-i", "x.wav", "--mesh", "tp=2", "--device", "cpu"],
-     "zen-torch offline: --mesh is not ported yet (ROADMAP queue 1, item 9"),
-    (["offline", "-i", "x.wav", "--mesh", "tp", "--device", "cpu"],
+    (["offline", "-i", "x.wav", *HPS, "--mesh", "tp=3", "--device", "cpu"],
+     "zen offline: tp=3 must divide both pass nffts (got nfft=256 at hop=64)"),
+    (["offline", "-i", "x.wav", *HPS, "--mesh", "tp", "--device", "cpu"],
      "zen offline: bad mesh axis 'tp' (want name=N)"),
 ])
-def test_offline_mesh_exits_2(args, text):
-    rc, out, err = _in_process(*args)
+def test_offline_mesh_exits_2(mix, args, text):
+    """zen_tpu's order: the echo block and the file are read first, then
+    the mesh is checked (tests/test_torch_parallel_cli.py holds every
+    refusal against zen_tpu's)."""
+    d, _, _ = mix
+    rc, out, err = _in_process(*[d / "mix.wav" if a == "x.wav" else a for a in args])
     lines = err.strip().splitlines()
-    assert rc == 2 and not out
+    assert rc == 2 and out.startswith("Running zen-offline")
     assert len(lines) == 1 and lines[0].startswith(text), lines
 
 

@@ -5,8 +5,8 @@ Held against the port's own library (the same arithmetic: 1e-6 at unit
 gain, as tests/test_cli_io.py:213 holds zen_tpu's command) and against
 ``python -m zen_tpu.cli stream`` on the same bytes (the realtime parity
 class, 5e-5 x max(1, max|ref|) per stream; only the FFTs round
-differently), under the median path, SSE and the float32 DFT. Refusals
-exit 2 with one stderr line naming their ROADMAP item.
+differently), under the median path, SSE and the float32 DFT. ``--mesh``
+is held in tests/test_torch_parallel_cli.py.
 """
 import json
 import os
@@ -147,15 +147,6 @@ def test_sse_and_dft_pipes_match_zen_tpu_cli(flags, cfg_kw):
         scale = max(1.0, float(np.abs(want[i]).max()))
         np.testing.assert_allclose(got[i] / scale, want[i] / scale, atol=5e-5, err_msg=str(i))
         np.testing.assert_allclose(got[i], lib[i], atol=1e-6, err_msg=str(i))
-
-
-@pytest.mark.parametrize("extra,item", [(["--mesh", "dp=2"], "item 9")])
-def test_refusals_name_their_roadmap_item(extra, item):
-    proc = _port([*ARGS, "--device", "cpu", *extra], b"")
-    assert proc.returncode == 2
-    lines = proc.stderr.decode().strip().splitlines()
-    assert len(lines) == 1 and lines[0].startswith("zen-torch stream: "), lines
-    assert f"ROADMAP queue 1, {item}" in lines[0] and not proc.stdout
 
 
 def test_missing_cuda_device_exits_without_fallback():

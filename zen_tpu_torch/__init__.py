@@ -8,8 +8,9 @@ and the two hand-written CUDA median kernels of ``csrc/`` (plain
 PyTorch twins on CPU tensors); around them the ``zen-torch`` CLI, audio
 file I/O over the repository's native codecs, checkpoints, the live
 ring-buffer service, the resumable corpus driver with its pipelined
-cascade, and the reference's two demo apps (``apps``). It imports torch
-and never jax.
+cascade, the reference's two demo apps (``apps``), and the single-host
+parallel layer (``parallel``: a mesh of devices, dp x sp and frequency-tp
+sharded drivers). It imports torch and never jax.
 """
 
 from .convert import (  # noqa: F401
@@ -37,5 +38,13 @@ from .engine.config import (  # noqa: F401
     HPRConfig,
 )
 from .errors import ZenError  # noqa: F401
+from .parallel.mesh import default_mesh, make_mesh  # noqa: F401
+from .parallel.sharded import (  # noqa: F401
+    sharded_hpri_blocked,
+    sharded_hpri_offline,
+    sharded_separate,
+    sharded_separate_blocked,
+    tp_hpri_offline,
+)
 
 __version__ = "0.1.0"

@@ -6,16 +6,16 @@ defaults, echo blocks and JSON metric lines:
   zen-torch offline -i in.wav [--hps [hop-h beta-h hop-p beta-p]]
       [-o prefix] [--stem-format wav|flac|wv] [--only-percussive]
       [--blocked] [--strict-ref] [--cpu] [--sse] [--soft-mask]
-      [--nocopybord] [impl flags] [--device cuda|cpu]
+      [--nocopybord] [--mesh tp=N] [impl flags] [--device cuda|cpu]
   zen-torch fakert -i in.wav [--hps [hop beta]] [-o out.wav]
       [--block-hops 32] [--cpu] [--sse] [--soft-mask] [--nocopybord]
       [impl flags] [--device cuda|cpu]
   zen-torch stream [--fs 44100] [--hop 256] [--stem percussive]
-      [--block-hops 16] [--streams N] [--raw-scale] [--cpu]
+      [--block-hops 16] [--streams N] [--mesh dp=N] [--raw-scale] [--cpu]
       [--nocopybord] [--sse] [--soft-mask] [impl flags] [--device cuda|cpu]
   zen-torch corpus -i tracks... -o out_dir [--hps [hop-h beta-h hop-p beta-p]]
-      [--pp] [--prefetch 2] [--stem-format wav|flac|wv] [impl flags]
-      [--device cuda|cpu]
+      [--mesh dp=N,sp=M] [--pp] [--prefetch 2] [--stem-format wav|flac|wv]
+      [impl flags] [--device cuda|cpu]
   zen-torch pitch-track -i in.wav [--device cuda|cpu]
   zen-torch beat-track -i in.wav [--device cuda|cpu]
   zen-torch synth -o mix.wav [--fs] [--seconds] [--bpm] [--hits-per-beat]
@@ -38,10 +38,13 @@ the JAX command:
   and 'pallas', mapped as ``convert.config_from_fields`` maps them;
   ``--fft-impl auto`` is torch.fft, as zen_tpu's 'auto' is XLA's FFT
   off the TPU.
-- ``--mesh`` (offline, stream and corpus) and corpus's ``--nprocs`` above 1
-  exit 2 with one stderr line naming their ROADMAP queue 1 item (9, the
-  parallel layer); corpus runs on one card, its mesh line reads zen_tpu's
-  on a one-device host (``{'dp': 1, 'sp': 1}``).
+- ``--mesh`` (offline ``tp=N``, stream ``dp=N``, corpus ``dp=..,sp=..``)
+  shards over ``make_mesh``'s first N visible devices of ``--device``'s
+  type (``parallel/mesh.py``; ``--device cpu`` repeats the CPU for every
+  shard); too few cards fail with its ZenError, as zen_tpu's CLI fails on
+  too few chips. corpus without ``--mesh`` takes ``default_mesh``.
+  corpus's ``--nprocs`` above 1 exits 2 with one stderr line naming ROADMAP
+  queue 1 item 9b (multi-host).
 - The lines that name the compute name the device, where zen_tpu's say
   "TPU-native"; the substrings parsers read ("Running zen-offline",
   "HPR-I-Offline took", "Running zen-fakert", "PRealtime") stay.
@@ -151,13 +154,6 @@ def cmd_offline(args) -> int:
     from .errors import ZenError
     from .io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
 
-    if args.mesh:
-        _, err = _parse_mesh_axes(args.mesh, ("tp",))
-        if err:
-            print(f"zen offline: {err}", file=sys.stderr)
-            return 2
-        return _refuse("offline", "--mesh is not ported yet "
-                       "(ROADMAP queue 1, item 9: parallel layer)")
     try:
         device = resolve_device(args.device)
     except ZenError as e:  # no CUDA device: exit 2, no fallback
@@ -183,11 +179,36 @@ def cmd_offline(args) -> int:
         sep = HPRIOffline(fs, hop_h, hop_p, beta_h, beta_p, strict_ref=args.strict_ref,
                           border=_border(args), use_sse=args.sse, soft_mask=args.soft_mask,
                           device=device, **_impl_kw(args))
+        mesh = None
+        if args.mesh:
+            # frequency tensor parallelism: every shard transforms, filters
+            # and synthesizes its own bins (parallel/sharded.py:tp_separate)
+            from .parallel.mesh import make_mesh
+            from .parallel.sharded import tp_hpri_offline
+
+            axes, err = _parse_mesh_axes(args.mesh, ("tp",))
+            if err:
+                print(f"zen offline: {err}", file=sys.stderr)
+                return 2
+            if sep.cfg_h.border != "wrap":
+                print("zen offline: --mesh tp requires the wrap border (drop --nocopybord): "
+                      "the sharded frequency-median halo ring is circular", file=sys.stderr)
+                return 2
+            n_tp = axes["tp"]
+            for cfg in (sep.cfg_h, sep.cfg_p):
+                if cfg.nfft % n_tp:
+                    print(f"zen offline: tp={n_tp} must divide both pass nffts "
+                          f"(got nfft={cfg.nfft} at hop={cfg.hop})", file=sys.stderr)
+                    return 2
+            mesh = make_mesh(axes, device=device)
+            _echo([f"\tmesh: tp={n_tp} (frequency-sharded)"])
         # overlap-save past LONG_TRACK_SAMPLES: the batched pass holds the
         # whole spectrogram, ~160 bytes per sample
         long_track = len(audio) > LONG_TRACK_SAMPLES
         t1 = time.perf_counter()
-        if args.blocked or long_track:
+        if mesh is not None:
+            h, p, r = tp_hpri_offline(audio, sep.cfg_h, sep.cfg_p, mesh)
+        elif args.blocked or long_track:
             if long_track and not args.blocked:
                 print("long track: using constant-memory blocked mode")
             h, p, r = sep.process_blocked(audio)
@@ -275,13 +296,15 @@ def cmd_fakert(args) -> int:
 
 
 def cmd_corpus(args) -> int:
-    """Resumable multi-track separation on one card, with crash-safe
-    per-track journaling (drivers/corpus.py)."""
+    """Resumable multi-track separation: tracks batched over the mesh's
+    dp axis, time blocks over sp, with crash-safe per-track journaling
+    (drivers/corpus.py)."""
     import glob as globmod
 
     from .device import resolve_device
     from .drivers.corpus import separate_corpus
     from .errors import ZenError
+    from .parallel.mesh import default_mesh, make_mesh
 
     paths = sorted(p for pat in args.inputs for p in globmod.glob(pat))
     if not paths:
@@ -294,22 +317,28 @@ def cmd_corpus(args) -> int:
         return 1
     if args.nprocs > 1:
         return _refuse("corpus", "--nprocs above 1 is not ported yet "
-                       "(ROADMAP queue 1, item 9: parallel layer)")
+                       "(ROADMAP queue 1, item 9b: multi-host)")
+    axes = None
     if args.mesh:
-        _, err = _parse_mesh_axes(args.mesh, ("dp", "sp"))
+        axes, err = _parse_mesh_axes(args.mesh, ("dp", "sp"))
         if err:
             print(f"corpus {err}", file=sys.stderr)
             return 1
-        return _refuse("corpus", "--mesh is not ported yet (ROADMAP queue 1, item 9: parallel layer)")
+        axes.setdefault("dp", 1)
+        axes.setdefault("sp", 1)
     try:
         device = resolve_device(args.device)
     except ZenError as e:  # no CUDA device: exit 2, no fallback
         return _refuse("corpus", f"--device {args.device}: {e}")
-    print(f"corpus: {len(paths)} tracks, mesh {{'dp': 1, 'sp': 1}}, out={args.out_dir}")
+    if axes is not None:
+        mesh = make_mesh(axes, device=device)
+    else:
+        mesh = default_mesh(n_channels_hint=len(paths), device=device)
+    print(f"corpus: {len(paths)} tracks, mesh {mesh.shape}, out={args.out_dir}")
     hop_h, beta_h, hop_p, beta_p = _cascade(args.hps)
-    res = separate_corpus(paths, args.out_dir, hop_h=hop_h, hop_p=hop_p, beta_h=beta_h,
+    res = separate_corpus(paths, args.out_dir, mesh, hop_h=hop_h, hop_p=hop_p, beta_h=beta_h,
                           beta_p=beta_p, pp=args.pp, prefetch=max(0, args.prefetch),
-                          stem_format=args.stem_format, device=device, **_impl_kw(args))
+                          stem_format=args.stem_format, **_impl_kw(args))
     print(json.dumps({"metric": "corpus_tracks", **res}))
     return 0
 
@@ -433,18 +462,27 @@ def cmd_stream(args) -> int:
     from .engine.config import OUTPUT_ALL, OUTPUT_HARMONIC, OUTPUT_PERCUSSIVE
     from .errors import ZenError
 
+    n_streams = max(1, args.streams)
+    mesh_axes = None
     if args.mesh:
-        _, err = _parse_mesh_axes(args.mesh, ("dp",))
+        mesh_axes, err = _parse_mesh_axes(args.mesh, ("dp",))
         if err:
             print(f"stream {err}", file=sys.stderr)
             return 1
-        return _refuse(
-            "stream", "--mesh is not ported yet (ROADMAP queue 1, item 9: parallel layer)"
-        )
+        if n_streams % mesh_axes["dp"]:
+            print(f"--streams {n_streams} not divisible by dp={mesh_axes['dp']}",
+                  file=sys.stderr)
+            return 1
     try:
         device = resolve_device(args.device)
     except ZenError as e:  # no CUDA device: exit 2, no fallback
         return _refuse("stream", f"--device {args.device}: {e}")
+    mesh = None
+    if mesh_axes is not None:
+        # the stream axis sharded over dp: pure data parallelism
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh(mesh_axes, device=device)
     stem_flags = {
         "harmonic": (OUTPUT_HARMONIC, 0),
         "percussive": (OUTPUT_PERCUSSIVE, 1),
@@ -453,7 +491,6 @@ def cmd_stream(args) -> int:
         "residual": (OUTPUT_ALL, 2),
     }
     outputs, idx = stem_flags[args.stem]
-    n_streams = max(1, args.streams)
     common = dict(
         outputs=outputs,
         border=_border(args),
@@ -462,10 +499,10 @@ def cmd_stream(args) -> int:
         device=device,
         **_impl_kw(args),
     )
-    multi = n_streams > 1
+    multi = n_streams > 1 or mesh is not None  # a mesh implies MultiStreamHPR
     t_proc = time.perf_counter()  # before warmup: captures the kernel build
     if multi:
-        ms = MultiStreamHPR(n_streams, args.fs, args.hop, args.beta, **common)
+        ms = MultiStreamHPR(n_streams, args.fs, args.hop, args.beta, mesh=mesh, **common)
         cfg = ms.cfg
         latency = args.hop  # the same one-hop OLA latency per stream
         ms.warmup(block_sizes=(args.block_hops,))
@@ -559,7 +596,7 @@ def cmd_stream(args) -> int:
             {
                 "metric": "stream_serving",
                 "streams": n_streams,
-                "mesh": "single-chip",
+                "mesh": f"dp={mesh_axes['dp']}" if mesh_axes else "single-chip",
                 "hops_per_stream": hops_out,
                 "wall_s": round(wall, 6),
                 # end-to-end pipe rate (stdin/stdout included): samples
@@ -662,7 +699,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="stem container: PCM16 wav (reference behavior), lossless "
         "16-bit FLAC (~half the size) or lossless 16-bit WavPack",
     )
-    off.add_argument("--mesh", default="", help="not ported yet (ROADMAP queue 1, item 9)")
+    off.add_argument(
+        "--mesh",
+        default="",
+        help="frequency tensor parallelism, e.g. tp=4 (wrap border only; N "
+        "must divide both pass nffts)",
+    )
     _add_impl_flags(off)
     off.set_defaults(func=cmd_offline)
 
@@ -705,7 +747,9 @@ def build_parser() -> argparse.ArgumentParser:
         "layout) through one pipe and one step per block",
     )
     stp.add_argument(
-        "--mesh", default="", help="not ported yet (ROADMAP queue 1, item 9)"
+        "--mesh",
+        default="",
+        help="shard the streams over devices, e.g. dp=4 (--streams must divide)",
     )
     stp.add_argument(
         "--raw-scale",
@@ -717,12 +761,13 @@ def build_parser() -> argparse.ArgumentParser:
     stp.set_defaults(func=cmd_stream)
 
     cor = sub.add_parser(
-        "corpus", help="resumable multi-track corpus separation on one card")
+        "corpus", help="resumable multi-track corpus separation over a device mesh")
     cor.add_argument("-i", "--inputs", nargs="+", required=True, help="track paths or globs")
     cor.add_argument("-o", "--out-dir", required=True)
     cor.add_argument("--hps", nargs="*", default=None, metavar=("hop-h", "beta-h"),
                      help="2-pass params, defaults 4096 2.0 256 2.0")
-    cor.add_argument("--mesh", default="", help="not ported yet (ROADMAP queue 1, item 9)")
+    cor.add_argument("--mesh", default="",
+                     help="mesh axes, e.g. dp=4,sp=2 (default: all visible devices)")
     cor.add_argument("--pp", action="store_true",
                      help="pipelined cascade: track i+1's pass 1 overlaps track i's pass 2 "
                      "on two CUDA streams (short tracks)")
@@ -730,7 +775,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="decode N tracks ahead and encode stems on a background thread, "
                      "overlapping host IO with the card (0 = synchronous IO; default 2)")
     cor.add_argument("--coordinator", default="", metavar="HOST:PORT",
-                     help="multi-host run: not ported yet (ROADMAP queue 1, item 9)")
+                     help="multi-host run: not ported yet (ROADMAP queue 1, item 9b)")
     cor.add_argument("--nprocs", type=int, default=1,
                      help="multi-host run: total process count (above 1: not ported yet)")
     cor.add_argument("--proc-id", type=int, default=0,

@@ -1,27 +1,26 @@
-"""Resumable offline corpus driver on one card (counterpart of
+"""Resumable offline corpus driver over a device mesh (counterpart of
 ``zen_tpu/drivers/corpus.py``).
 
 Separates a list of tracks into three stems each under ``out_dir``,
 with crash-safe resume through a ``ProgressJournal``
 (runtime/checkpoint.py): the reference's missing failure-recovery story
-(SURVEY.md §5.3). zen_tpu's mesh becomes:
+(SURVEY.md §5.3). The mesh (``parallel/mesh.py``) shards the work:
 
-* ``dp``: how many tracks of one sample rate are batched on the leading
-  dimension of one ``HPRIOffline.process`` call, zero-padded to the
-  batch's longest (drivers/offline.py's docstring says why the padding
-  agrees; pass 1's spill past each track is zeroed before pass 2, as
-  zen_tpu's ``sharded_hpri_offline`` does). zen_tpu pads the batch to
-  ``dp`` rows and its length to a power-of-two bucket for XLA's compile
-  cache; the port runs each batch at its own shape.
-* ``sp`` is always 1: tracks past ``LONG_TRACK_SAMPLES`` take the
-  checkpointed ``process_blocked`` on the card, zen_tpu's one-device
-  branch. The sharded blocked pass waits for the parallel layer.
+* ``dp``: up to n_dp tracks of one sample rate go through one
+  ``sharded_hpri_offline`` call, one track a dp shard, zero-padded to the
+  batch's longest and to n_dp rows (drivers/offline.py's docstring says
+  why the padding agrees; pass 1's spill past each track is zeroed before
+  pass 2). zen_tpu also pads the length to a power-of-two bucket for
+  XLA's compile cache; the port runs each batch at its own length.
+* ``sp``: each track's time blocks. A track past ``LONG_TRACK_SAMPLES``
+  x sp takes the checkpointed ``sharded_hpri_blocked`` when sp > 1 and
+  the checkpointed ``process_blocked`` otherwise, zen_tpu's two branches.
 
 zen_tpu's multi-host branches (``jax.process_index``, a journal that only
-process 0 writes, ``multihost_utils`` gathers) have no counterpart on one
-card and are left out, as is its refusal of ``pp`` on several hosts.
-Stem names, journal keys (``_jkey``) and journal lines are zen_tpu's, so
-a journal either package wrote resumes in the other.
+process 0 writes, ``multihost_utils`` gathers) are ROADMAP queue 1 item
+9b, as is its refusal of ``pp`` on several hosts. Stem names, journal
+keys (``_jkey``) and journal lines are zen_tpu's, so a journal either
+package wrote resumes in the other.
 """
 from __future__ import annotations
 
@@ -30,7 +29,8 @@ import os
 
 import numpy as np
 
-from ..device import resolve_device
+from ..parallel.mesh import default_mesh
+from ..parallel.sharded import sharded_hpri_blocked, sharded_hpri_offline
 from ..runtime.checkpoint import ProgressJournal
 from ..runtime.loader import OrderedAsyncWriter, PrefetchReader
 from .offline import HPRIOffline, clear_track_checkpoint
@@ -63,7 +63,7 @@ def journal_key(path: str, stem_format: str) -> str:
 def separate_corpus(
     track_paths,
     out_dir: str,
-    dp: int = 1,
+    mesh=None,
     hop_h: int = 4096,
     hop_p: int = 256,
     beta_h: float = 2.0,
@@ -78,7 +78,6 @@ def separate_corpus(
     median_impl: str = "auto",
     stream_state: str = "f32",
     stem_format: str = "wav",
-    device="cuda",
 ):
     """Separate every track into 3 stems under out_dir, resumably; returns
     ``{"done": tracks the journal already held, "processed": tracks
@@ -87,8 +86,9 @@ def separate_corpus(
     reader(path) -> (fs, audio[np.float32]); writer(path, fs, audio).
     ``stem_format`` ('wav'|'flac'|'wv') picks the default writer's
     container; a custom ``writer`` sees the extension in its path.
-    Tracks of one sample rate are separated ``dp`` at a time (a batch
-    ends when it is full or the rate changes).
+    Tracks of one sample rate are separated n_dp at a time over the
+    mesh's dp axis (a batch ends when it is full or the rate changes);
+    ``mesh=None`` is ``default_mesh`` over the visible cards.
 
     ``prefetch`` (default 2) overlaps host I/O with the card: a
     background thread decodes up to ``prefetch`` tracks ahead, and stem
@@ -107,7 +107,10 @@ def separate_corpus(
 
     if stem_format not in STEM_FORMATS:
         raise ValueError(f"stem_format must be wav|flac|wv, got {stem_format!r}")
-    device = resolve_device(device)
+    if mesh is None:
+        mesh = default_mesh(n_channels_hint=len(track_paths))
+    device = mesh.first
+    n_dp, n_sp = mesh.size("dp"), mesh.size("sp")
     reader = reader or read_audio_mono
     writer = writer or write_audio_pcm16
     os.makedirs(out_dir, exist_ok=True)
@@ -159,20 +162,28 @@ def separate_corpus(
             job()
 
     def flush(fs, batch_paths, batch_audio):
-        lengths = [len(a) for a in batch_audio]
-        batch = np.zeros((len(batch_audio), max(lengths)), np.float32)
+        lengths = [len(a) for a in batch_audio] + [0] * (n_dp - len(batch_audio))
+        batch = np.zeros((n_dp, max(lengths)), np.float32)
         for row, a in zip(batch, batch_audio):
             row[: len(a)] = a
-        h, p, r = (x.cpu().numpy() for x in separator(fs).process(batch, lengths=lengths))
+        sep = separator(fs)
+        stems = sharded_hpri_offline(batch, sep.cfg_h, sep.cfg_p, mesh, lengths=lengths)
+        h, p, r = (x.cpu().numpy() for x in stems)
         for j, (path, n) in enumerate(zip(batch_paths, lengths)):
             write_track(fs, path, h[j, :n], p[j, :n], r[j, :n], n)
 
     def flush_long(fs, path, audio):
         # the batched spectrogram holds ~160 bytes per sample; the blocked
         # pass holds one block, checkpointed mid-track so that a crash
-        # hours into a track resumes from its last durable segment
+        # hours into a track resumes from its last durable segment; with
+        # sp > 1 every sp shard scans its own run of blocks
         tag = bases[path]
-        stems = separator(fs).process_blocked(audio, ckpt_dir=ckpt_dir, tag=tag)
+        sep = separator(fs)
+        if n_sp > 1:
+            stems = sharded_hpri_blocked(audio, sep.cfg_h, sep.cfg_p, mesh, ckpt_dir=ckpt_dir,
+                                         tag=tag)
+        else:
+            stems = sep.process_blocked(audio, ckpt_dir=ckpt_dir, tag=tag)
         h, p, r = (x.cpu().numpy() for x in stems)
 
         def drop_ckpt():  # after the journal line: the stems are durable
@@ -195,13 +206,15 @@ def separate_corpus(
             write_track(fs, path, h, p, r, len(audio))
 
     do_flush = flush_pp if pp else flush
-    cap = pp_run if pp else max(1, int(dp))
+    cap = pp_run if pp else n_dp
+    # sp shards the time axis, so a wider sp keeps longer tracks batched
+    long_samples = LONG_TRACK_SAMPLES * n_sp
     items = (PrefetchReader(pending, reader, depth=prefetch) if prefetch > 0
              else ((p, reader(p)) for p in pending))
     batch_paths, batch_audio, batch_fs = [], [], None
     try:
         for path, (fs, audio) in items:
-            if len(audio) > LONG_TRACK_SAMPLES:
+            if len(audio) > long_samples:
                 flush_long(fs, path, audio)
                 continue
             if batch_paths and (fs != batch_fs or len(batch_paths) == cap):

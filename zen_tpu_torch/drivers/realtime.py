@@ -310,10 +310,14 @@ class MultiStreamHPR:
     """C independent causal HPR streams in one step — the BASELINE
     'batched multi-channel fakert' configuration (64 streams x
     44.1 kHz), up to the wide fleets of ``zen stream --streams 512``.
-    The stream dim is an explicit batch dim on one device, the card
-    unless ``device="cpu"`` is passed; sharding over several devices
-    waits for the parallel slice. Further keywords
-    (border, stream_state, ...) go to HPRConfig."""
+    The stream dim is an explicit batch dim on ``device`` (the card
+    unless ``device="cpu"`` is passed). With a ``mesh``
+    (``parallel/mesh.py``) the streams are split over its ``dp_axis``
+    instead: each shard holds the state of its C/dp streams on its own
+    device and runs ``block_step`` on its slice of every block, with no
+    communication; ``device`` is then the mesh's first device, where
+    ``process_block`` gathers the rows. Further keywords (border,
+    stream_state, ...) go to HPRConfig."""
 
     def __init__(
         self,
@@ -323,9 +327,10 @@ class MultiStreamHPR:
         beta: float = 2.0,
         outputs: int = 0,
         device="cuda",
+        mesh=None,
+        dp_axis: str = "dp",
         **cfg_kw,
     ):
-        self.device = resolve_device(device)
         self.cfg = HPRConfig(
             fs=fs,
             hop=hop,
@@ -335,21 +340,40 @@ class MultiStreamHPR:
             **cfg_kw,
         )
         self.n_streams = n_streams
-        self.state = init_state(self.cfg, n_streams, self.device)
+        if mesh is None:
+            devices = [resolve_device(device)]
+        else:
+            devices = [mesh.device(**{dp_axis: i}) for i in range(mesh.size(dp_axis))]
+        if n_streams % len(devices):
+            raise ZenError(f"streams ({n_streams}) not divisible by dp ({len(devices)})")
+        self.device = devices[0]
+        per = n_streams // len(devices)
+        # (first stream, device, state) of each shard
+        self.shards = [(i * per, dev, init_state(self.cfg, per, dev))
+                       for i, dev in enumerate(devices)]
+
+    @property
+    def state(self) -> StreamState:
+        """The fleet's state, where it has one shard."""
+        if len(self.shards) != 1:
+            raise ZenError("a fleet sharded over dp holds one state per shard (.shards)")
+        return self.shards[0][2]
 
     def warmup(self, block_sizes=(16,)):
         """Run the step for the given block sizes on a scratch copy of
-        the state (building kernels and cuFFT plans on first use); the
-        streams' own state is not advanced."""
-        scratch = StreamState(*(t.clone() for t in self.state))
-        for b in block_sizes:
-            block_step(
-                self.cfg,
-                scratch,
-                torch.zeros((self.n_streams, b, self.cfg.hop), device=self.device),
-            )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        each shard's state (building kernels and cuFFT plans on first
+        use); the streams' own state is not advanced."""
+        for _, dev, state in self.shards:
+            scratch = StreamState(*(t.clone() for t in state))
+            for b in block_sizes:
+                block_step(
+                    self.cfg,
+                    scratch,
+                    torch.zeros((state.ring.shape[0], b, self.cfg.hop), device=dev),
+                )
+        for _, dev, _ in self.shards:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     @property
     def stem_rows(self) -> dict:
@@ -364,13 +388,20 @@ class MultiStreamHPR:
 
     def process_block(self, blocks) -> torch.Tensor:
         """blocks: [C, B, hop] -> outs [C, E, B*hop] on ``device``, one
-        row per ENABLED stem (row order per ``stem_rows``)."""
-        blocks = torch.as_tensor(blocks, dtype=torch.float32).to(self.device)
+        row per ENABLED stem (row order per ``stem_rows``), in stream
+        order."""
+        blocks = torch.as_tensor(blocks, dtype=torch.float32)
         if blocks.ndim != 3 or blocks.shape[0] != self.n_streams:
             raise ZenError(
                 f"blocks must be [{self.n_streams}, B, hop], got {tuple(blocks.shape)}"
             )
-        return block_step(self.cfg, self.state, blocks)
+        if len(self.shards) == 1:
+            return block_step(self.cfg, self.shards[0][2], blocks.to(self.device))
+        # every shard's step is enqueued before any result is gathered
+        outs = [block_step(self.cfg, state, blocks[lo : lo + state.ring.shape[0]]
+                           .to(dev, non_blocking=True))
+                for lo, dev, state in self.shards]
+        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     def reset_streams(self, indices):
         """Reset the given stream slots to pristine state in place,
@@ -381,9 +412,12 @@ class MultiStreamHPR:
         does not wait on the card (an index tensor built from a Python
         list would be a pageable host-to-device copy, which does)."""
         for lo, hi in _slot_runs(indices, self.n_streams):
-            self.state.ring[lo:hi] = 0.0
-            self.state.feat_hist[lo:hi] = prefill_value(self.cfg)
-            self.state.ola_tail[lo:hi] = 0.0
+            for first, _, state in self.shards:
+                a, b = max(lo, first) - first, min(hi, first + state.ring.shape[0]) - first
+                if a < b:
+                    state.ring[a:b] = 0.0
+                    state.feat_hist[a:b] = prefill_value(self.cfg)
+                    state.ola_tail[a:b] = 0.0
 
 
 def _slot_runs(indices, n_streams: int) -> list:

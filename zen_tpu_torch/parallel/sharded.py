@@ -1,0 +1,536 @@
+"""Sharded HPR drivers: channel-DP x time-block SP, and frequency TP
+(counterpart of ``zen_tpu/parallel/sharded.py``).
+
+zen_tpu runs each driver as one ``jax.shard_map`` program with explicit
+collectives. The port runs one Python loop over the shards of a
+``Mesh`` (``parallel/mesh.py``): each shard's tensors live on its
+device, and every stage is issued for every shard before the next
+stage reads a neighbour's result, so nothing waits on the host and
+shards on different cards run at once (on one card, one after
+another). The collectives become:
+
+* ``ppermute``: the neighbour's tensor moved to this shard's device
+  (``x.to(device, non_blocking=True)``: a peer copy between cards,
+  nothing on one device); shards at the ends of the ring get zeros, as
+  ``ppermute`` gives, or the prefill feature where zen_tpu patches it;
+* ``psum``: the shards' tensors summed in shard order on the first
+  shard's device.
+
+* DP: channels split over 'dp', no communication.
+* SP: the time axis split in frame blocks, three halo exchanges a pass:
+  one hop of samples from the left (the STFT frame crossing the seam),
+  ``back`` / ``fwd`` rows of features for the time median's taps, and one
+  synthesized row from the right for the overlap-add seam. The blocked
+  scan (``sharded_separate_blocked``) needs none: each shard scans its
+  own run of overlap-save blocks from an overlapping sample window, one
+  block longer than zen_tpu's (``_prime``).
+* TP: see ``tp_separate``.
+
+Every median of a shard goes through the port's kernel wrappers (K1 and
+K2 on CUDA tensors, their plain twins on CPU tensors), at the shard's
+own shapes. The multi-host branches of zen_tpu's drivers are ROADMAP
+queue 1 item 9b.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import os
+
+import numpy as np
+import torch
+
+from ..drivers.offline import (
+    _as_audio,
+    _block_step,
+    _blocked_audio,
+    _Blocking,
+    _cfg_digest,
+    _fsync_file,
+    _n_frames,
+    _resume_point,
+    _stems,
+)
+from ..engine.config import WRAP, HPRConfig
+from ..engine.spectral import (
+    STEMS,
+    _check_median_route,
+    _windowed,
+    analyze,
+    compute_masks,
+    feature_transform,
+    finalize_features,
+    freq_filtered,
+    prefill_value,
+    synthesize,
+    time_filtered,
+    time_filtered_tail,
+)
+from ..errors import ZenError
+from ..ops import box, median_cuda
+from ..ops.fft import _tf32_off
+from ..ops.framing import frame_signal, overlap_add_stream
+from ..runtime.checkpoint import save_stream_state_durable
+from .mesh import Mesh
+
+
+def _moved(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return x.to(device, non_blocking=True)
+
+
+def _from_left(xs: list, devs: list, n_sp: int, fill: float = 0.0) -> list:
+    """Shard k receives shard k-1's x within its row of n_sp shards; the
+    first shard of a row gets ``fill``."""
+    return [torch.full_like(x, fill) if k % n_sp == 0 else _moved(xs[k - 1], devs[k])
+            for k, x in enumerate(xs)]
+
+
+def _from_right(xs: list, devs: list, n_sp: int, fill: float = 0.0) -> list:
+    """Shard k receives shard k+1's x within its row; the last shard of a
+    row gets ``fill``."""
+    return [torch.full_like(x, fill) if k % n_sp == n_sp - 1 else _moved(xs[k + 1], devs[k])
+            for k, x in enumerate(xs)]
+
+
+def _masks_by_stem(h, p, cfg: HPRConfig) -> tuple:
+    pm, hm, rm = compute_masks(h, p, cfg)
+    return hm, pm, rm
+
+
+def _enabled(cfg: HPRConfig, name: str, mask) -> bool:
+    return getattr(cfg, f"output_{name}") and mask is not None
+
+
+# ---------------- dp x sp: the batched pass ----------------
+
+
+def _sp_masks(local: list, devs: list, n_sp: int, cfg: HPRConfig) -> tuple:
+    """The masks half of one pass over every shard (zen_tpu's
+    ``_sp_shard_fn`` up to its masks): local[k] [rows, tl*hop] on
+    devs[k], shards k = i*n_sp + j (dp row i, sp block j) -> (spectra
+    [rows, tl, bins] per shard, (harmonic, percussive, residual) masks
+    per shard). Split from the synthesis half so that a flip count can
+    read the very masks the stems come from."""
+    hop = cfg.hop
+    tl = local[0].shape[-1] // hop
+    back = cfg.time_history
+    fwd = max(max(cfg.time_offsets), 0)
+    if back > tl or fwd > tl:
+        raise ZenError("time shards smaller than the median halo; use fewer sp shards")
+
+    # (1) framing halo: the left neighbour's last hop of samples
+    lead = _from_left([x[..., -hop:] for x in local], devs, n_sp)
+    spectra, feats = [], []
+    for x, t in zip(local, lead):
+        blocks = torch.cat([t, x], dim=-1).view(x.shape[:-1] + (tl + 1, hop))
+        s = analyze(torch.cat([blocks[..., :-1, :], blocks[..., 1:, :]], dim=-1), cfg)
+        spectra.append(s)
+        feats.append(feature_transform(s.abs(), cfg))
+
+    # (2) feature halos for the time median's taps; the global edges read
+    # the prefill feature (+inf under SSE), as the unsharded pass does
+    fill = prefill_value(cfg)
+    left = _from_left([f[..., f.shape[-2] - back :, :] for f in feats], devs, n_sp, fill)
+    right = _from_right([f[..., :fwd, :] for f in feats], devs, n_sp, fill)
+    masks = []
+    for f, lh, rh in zip(feats, left, right):
+        ext = torch.cat([lh, f, rh], dim=-2) if back or fwd else f
+        # the kept rows only: the back halo is tap context, and the kept
+        # rows' forward taps stay inside ext
+        h = time_filtered_tail(ext, cfg, back)[..., :tl, :]
+        masks.append(_masks_by_stem(*finalize_features(h, freq_filtered(f, cfg), cfg), cfg))
+    return spectra, masks
+
+
+def _sp_stems(spectra: list, masks: list, local: list, devs: list, n_sp: int,
+              cfg: HPRConfig) -> list:
+    """The synthesis half: stems [3, rows, tl*hop] per shard, with (3)
+    the overlap-add seam, the right neighbour's first synthesized row."""
+    outs = [[] for _ in local]
+    for i, name in enumerate(STEMS):
+        if not _enabled(cfg, name, masks[0][i]):
+            for o, x in zip(outs, local):
+                o.append(torch.zeros_like(x))
+            continue
+        ys = [synthesize(s, m[i], cfg) for s, m in zip(spectra, masks)]
+        nxt = _from_right([y[..., :1, :] for y in ys], devs, n_sp)
+        for o, y, n in zip(outs, ys, nxt):
+            o.append(overlap_add_stream(torch.cat([y, n], dim=-2), cfg.hop, advance=1))
+    return [torch.stack(o) for o in outs]
+
+
+def _sp_local(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str, sp_axis: str) -> tuple:
+    """(each shard's samples on its device, the devices, n_sp, the audio's
+    length) of a dp x sp pass over [C, L] (or [L]) audio. The
+    frame count is rounded up to a multiple of the sp width (the extra
+    frames are zero audio, whose feature is the prefill the unsharded
+    taps read)."""
+    audio = _as_audio(audio)
+    if audio.ndim == 1:
+        audio = audio[None]
+    n_ch, length = audio.shape
+    n_dp, n_sp = mesh.size(dp_axis), mesh.size(sp_axis)
+    if n_ch % n_dp:
+        raise ZenError(f"channels ({n_ch}) not divisible by dp ({n_dp})")
+    devs = [mesh.device(**{dp_axis: i, sp_axis: j}) for i in range(n_dp) for j in range(n_sp)]
+    hop = cfg.hop
+    n_frames = -(-_n_frames(length, cfg) // n_sp) * n_sp
+    padded = torch.nn.functional.pad(audio, (0, n_frames * hop - length))
+    rows, span = n_ch // n_dp, n_frames // n_sp * hop
+    local = [_moved(padded[k // n_sp * rows : (k // n_sp + 1) * rows,
+                           k % n_sp * span : (k % n_sp + 1) * span], dev)
+             for k, dev in enumerate(devs)]
+    return local, devs, n_sp, length
+
+
+def _sp_gather(parts: list, n_sp: int, time_dim: int, row_dim: int,
+               device: torch.device) -> torch.Tensor:
+    """The shards' pieces as one tensor on ``device``: each dp row's sp
+    blocks joined along ``time_dim``, the rows along ``row_dim``."""
+    rows = [torch.cat([_moved(p, device) for p in parts[i : i + n_sp]], dim=time_dim)
+            for i in range(0, len(parts), n_sp)]
+    return torch.cat(rows, dim=row_dim)
+
+
+def sharded_separate(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
+                     sp_axis: str = "sp") -> dict:
+    """Offline HPR pass on [C, L] (or [L]) audio, channels over
+    ``dp_axis`` and time blocks over ``sp_axis``: dict of [C, L] stems on
+    the mesh's first device, equal to ``hpr_separate`` per channel up to
+    the transforms' batch rounding."""
+    local, devs, n_sp, length = _sp_local(audio, cfg, mesh, dp_axis, sp_axis)
+    spectra, masks = _sp_masks(local, devs, n_sp, cfg)
+    out = _sp_gather(_sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1, devs[0])
+    return {name: out[i, :, :length] for i, name in enumerate(STEMS)}
+
+
+def sharded_hpri_offline(audio, cfg_h: HPRConfig, cfg_p: HPRConfig, mesh: Mesh,
+                         lengths=None, **axes) -> tuple:
+    """Sharded two-pass HPR-I: (harmonic, percussive, residual) [C, L].
+
+    ``lengths`` ([C] ints): each channel's true length where channels are
+    tracks zero-padded to one batch length. Pass 1's spill past a track
+    is zeroed before pass 2, as the reference truncates between passes
+    (hps.cu:171-178) and ``HPRIOffline.process(lengths=)`` does, so a
+    track's stems do not depend on the tracks that share its batch."""
+    pass1 = sharded_separate(audio, cfg_h, mesh, **axes)
+    inter = pass1["percussive"] + pass1["residual"]
+    if lengths is not None:
+        if len(lengths) != inter.shape[0]:
+            raise ZenError(f"lengths {list(lengths)} for audio of shape {tuple(inter.shape)}")
+        for row, n in zip(inter, lengths):
+            row[int(n):] = 0.0
+    pass2 = sharded_separate(inter, cfg_p, mesh, **axes)
+    return pass1["harmonic"], pass2["percussive"], pass2["residual"]
+
+
+# ---------------- sp: the blocked overlap-save scan ----------------
+
+
+def _sharded_blocking(length: int, cfg: HPRConfig, block_frames: int, n_sp: int) -> tuple:
+    """(the scan's geometry over all n_sp * nbl blocks, nbl): zen_tpu's
+    block size, and a power-of-two count of blocks a shard."""
+    n_frames = _n_frames(length, cfg)
+    bf = min(block_frames, 1 << (max(1, n_frames) - 1).bit_length())
+    nbl = 1 << (max(1, -(-n_frames // (bf * n_sp))) - 1).bit_length()
+    return _Blocking(bf, nbl * n_sp, cfg.time_history, max(max(cfg.time_offsets), 0)), nbl
+
+
+def _windows(audio: torch.Tensor, cfg: HPRConfig, blk: _Blocking, nbl: int, devs: list) -> list:
+    """Each shard's samples [((nbl + 1) * bf + back + fwd + 1) * hop] on
+    its device: the block before its span, then its nbl blocks, each with
+    its halo context, cut from a stream padded by one block more than the
+    unsharded scan's; consecutive windows overlap by one block and
+    back + fwd + 1 hops."""
+    hop = cfg.hop
+    guard_lo = (blk.bf + blk.back + 1) * hop
+    guard_hi = (blk.n_blocks * blk.bf + blk.fwd) * hop - audio.shape[-1]
+    padded = torch.nn.functional.pad(audio, (guard_lo, max(guard_hi, 0)))
+    w = ((nbl + 1) * blk.bf + blk.back + blk.fwd + 1) * hop
+    step = nbl * blk.bf * hop
+    return [_moved(padded[d * step : d * step + w], dev) for d, dev in enumerate(devs)]
+
+
+def _block_window(window: torch.Tensor, cfg: HPRConfig, blk: _Blocking, b: int) -> torch.Tensor:
+    """Local block b's samples in a shard's window (``_block_samples`` of
+    the unsharded scan); b = -1 is the block before the shard's span."""
+    lo = (b + 1) * blk.bf * cfg.hop
+    return window[lo : lo + (blk.back + blk.bf + blk.fwd + 1) * cfg.hop]
+
+
+def _prime(window: torch.Tensor, d: int, cfg: HPRConfig, blk: _Blocking) -> torch.Tensor:
+    """Shard d's OLA tails [3, hop] entering its first block: zeros for
+    the first shard, as the unsharded scan starts; else the tails the
+    block before its span leaves. That block runs whole, not as zen_tpu's
+    one priming frame: cuFFT's bits can depend on a transform's batch, and
+    a whole block has the unsharded scan's shapes (a block's tails do not
+    depend on the tails it is given)."""
+    zeros = window.new_zeros((len(STEMS), cfg.hop))
+    if d == 0:
+        return zeros
+    return _block_step(cfg, blk, _block_window(window, cfg, blk, -1), zeros)[1]
+
+
+def _scan(windows: list, tails: list, cfg: HPRConfig, blk: _Blocking, b0: int, b1: int):
+    """Local blocks b0..b1-1 of every shard, block b of every shard before
+    block b+1 of any: (stems [3, (b1-b0)*bf*hop] per shard, the tails
+    after). The one block body is the unsharded scan's ``_block_step``."""
+    outs = [[] for _ in windows]
+    tails = list(tails)
+    for b in range(b0, b1):
+        for d, w in enumerate(windows):
+            out, tails[d] = _block_step(cfg, blk, _block_window(w, cfg, blk, b), tails[d])
+            outs[d].append(out)
+    return [torch.cat(o, dim=1) for o in outs], tails
+
+
+def _sp_devices(mesh: Mesh, sp_axis: str) -> list:
+    return [mesh.device(**{sp_axis: d}) for d in range(mesh.size(sp_axis))]
+
+
+def sharded_separate_blocked(audio, cfg: HPRConfig, mesh: Mesh, block_frames: int = 2048,
+                             sp_axis: str = "sp") -> dict:
+    """``hpr_separate_blocked`` on [L] audio with its blocks split over
+    ``sp_axis``: each shard primes its OLA tails from the block before its
+    span, then scans its own contiguous run of blocks, with no exchange
+    at all.
+    Bitwise equal to ``hpr_separate_blocked`` at the same block size on
+    the same device type. The mesh's other axes are not used (their
+    replicas would compute the same). Stems on the mesh's first
+    device."""
+    audio = _blocked_audio(audio, "sharded_separate_blocked")
+    devs = _sp_devices(mesh, sp_axis)
+    blk, nbl = _sharded_blocking(audio.shape[-1], cfg, block_frames, len(devs))
+    windows = _windows(audio, cfg, blk, nbl, devs)
+    tails = [_prime(w, d, cfg, blk) for d, w in enumerate(windows)]
+    outs, _ = _scan(windows, tails, cfg, blk, 0, nbl)
+    full = torch.cat([_moved(o, devs[0]) for o in outs], dim=1)
+    return _stems(full, cfg.hop, audio.shape[-1])
+
+
+def sharded_separate_blocked_checkpointed(
+    audio,
+    cfg: HPRConfig,
+    mesh: Mesh,
+    block_frames: int = 2048,
+    sp_axis: str = "sp",
+    ckpt_dir: str | None = None,
+    tag: str = "track",
+    ckpt_every_blocks: int = 8,
+    on_segment=None,
+) -> dict:
+    """``sharded_separate_blocked`` that a crash costs at most one
+    segment: every shard scans ``ckpt_every_blocks`` of its blocks a
+    segment; then the segment's stems land in ``<ckpt_dir>/<tag>.stems.f32``
+    (float32 memmap [3, n_sp * nbl * bf * hop], flushed and fsynced) and
+    only then every shard's OLA tails [n_sp, 3, hop] and the next local
+    block go to ``<tag>.ckpt.npz`` (meta ``cfg``, ``bf``, ``nbl``,
+    ``n_sp``, ``length``, ``next_block``). A later call with the same
+    arguments resumes after the last durable segment, bitwise; a
+    checkpoint of another config or geometry, or a corrupt one, restarts
+    from freshly primed tails. ``on_segment(next_block, nbl)`` is called
+    after each durable segment. ``ckpt_dir=None`` is
+    ``sharded_separate_blocked``."""
+    if ckpt_dir is None:
+        return sharded_separate_blocked(audio, cfg, mesh, block_frames, sp_axis)
+    audio = _blocked_audio(audio, "sharded_separate_blocked_checkpointed")
+    hop, length = cfg.hop, audio.shape[-1]
+    devs = _sp_devices(mesh, sp_axis)
+    n_sp = len(devs)
+    blk, nbl = _sharded_blocking(length, cfg, block_frames, n_sp)
+    windows = _windows(audio, cfg, blk, nbl, devs)
+    total = blk.n_blocks * blk.bf * hop
+    os.makedirs(ckpt_dir, exist_ok=True)
+    stems_path = os.path.join(ckpt_dir, f"{tag}.stems.f32")
+    ckpt_path = os.path.join(ckpt_dir, f"{tag}.ckpt.npz")
+    meta_want = {"cfg": _cfg_digest(cfg), "bf": blk.bf, "nbl": nbl, "n_sp": n_sp,
+                 "length": length}
+    b, state = _resume_point(ckpt_path, stems_path, meta_want,
+                             torch.zeros((n_sp, len(STEMS), hop)), nbl,
+                             len(STEMS) * total * 4)
+    if b == 0:
+        if os.path.exists(ckpt_path):
+            # the stems file is about to be recreated: drop the checkpoint
+            # that claims its segments first
+            os.remove(ckpt_path)
+            _fsync_file(ckpt_dir)
+        tails = [_prime(w, d, cfg, blk) for d, w in enumerate(windows)]
+    else:
+        tails = [_moved(t, dev) for t, dev in zip(state, devs)]
+    mm = np.memmap(stems_path, np.float32, mode="r+" if b > 0 else "w+",
+                   shape=(len(STEMS), total))
+    shard_span = nbl * blk.bf * hop
+    while b < nbl:
+        ng = min(ckpt_every_blocks, nbl - b)
+        outs, tails = _scan(windows, tails, cfg, blk, b, b + ng)
+        for d, out in enumerate(outs):
+            lo = d * shard_span + b * blk.bf * hop
+            mm[:, lo : lo + ng * blk.bf * hop] = out.cpu().numpy()
+        mm.flush()
+        _fsync_file(stems_path)  # the stems are durable before a checkpoint claims them
+        b += ng
+        save_stream_state_durable(ckpt_path, torch.stack([t.cpu() for t in tails]),
+                                  {**meta_want, "next_block": b})
+        if on_segment is not None:
+            on_segment(b, nbl)
+    full = torch.from_numpy(np.array(mm[:, : hop + length])).to(devs[0])
+    del mm
+    return _stems(full, hop, length)
+
+
+def sharded_hpri_blocked(
+    audio,
+    cfg_h: HPRConfig,
+    cfg_p: HPRConfig,
+    mesh: Mesh,
+    block_frames_h: int = 512,
+    block_frames_p: int = 8192,
+    sp_axis: str = "sp",
+    ckpt_dir: str | None = None,
+    tag: str = "track",
+    ckpt_every_blocks: int = 8,
+    on_segment=None,
+) -> tuple:
+    """Two-pass HPR-I on [L] audio with both passes as the sharded blocked
+    scan: ``HPRIOffline.process_blocked`` over an sp mesh, bitwise equal
+    to it at the same block sizes. With ``ckpt_dir`` both passes are
+    checkpointed mid-track (tags ``<tag>.p1`` and ``<tag>.p2``): a kill
+    resumes from the last durable segment of the pass it hit."""
+    ck = dict(ckpt_dir=ckpt_dir, ckpt_every_blocks=ckpt_every_blocks, on_segment=on_segment)
+    pass1 = sharded_separate_blocked_checkpointed(audio, cfg_h, mesh, block_frames_h, sp_axis,
+                                                  tag=f"{tag}.p1", **ck)
+    inter = pass1["percussive"] + pass1["residual"]
+    harmonic = pass1["harmonic"]
+    del pass1
+    pass2 = sharded_separate_blocked_checkpointed(inter, cfg_p, mesh, block_frames_p, sp_axis,
+                                                  tag=f"{tag}.p2", **ck)
+    return harmonic, pass2["percussive"], pass2["residual"]
+
+
+# ---------------- frequency tensor parallelism ----------------
+
+
+def _ring(xs: list, devs: list, shift: int) -> list:
+    """Shard k receives shard (k - shift) mod n's x: shift 1 from the
+    left, -1 from the right, around the ring (the wrap border)."""
+    n = len(xs)
+    return [_moved(xs[(k - shift) % n], devs[k]) for k in range(n)]
+
+
+def _partial_dft(cfg: HPRConfig, start: int, fb: int, device: torch.device) -> tuple:
+    """cos and sin [nwin, fb] of the angles 2 pi k n / nfft for the
+    shard's bins k = start .. start+fb-1, reduced as int32 (k n) mod nfft
+    before the float cast: a raw float32 k n reaches 2^27 at nfft 16384."""
+    n = torch.arange(cfg.nwin, dtype=torch.int32, device=device)[:, None]
+    k = torch.arange(start, start + fb, dtype=torch.int32, device=device)[None, :]
+    ang = (2.0 * math.pi / cfg.nfft) * torch.remainder(k * n, cfg.nfft).to(torch.float32)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_frames: int) -> tuple:
+    """The masks half of one frequency-sharded pass (zen_tpu's
+    ``_tp_shard_fn`` up to its masks): (spectra [..., T, fb], (harmonic,
+    percussive, residual) masks, the inverse DFT matrices), one entry per
+    shard."""
+    hop, nfft, n_tp = cfg.hop, cfg.nfft, len(devs)
+    fb = nfft // n_tp
+    fm = cfg.freq_filter_len // 2
+    if fm > fb:
+        raise ZenError("tp shards smaller than the frequency halo")
+
+    # the partial forward DFT of each shard's fb bins: two float32 matmuls
+    # (the zero-padded rows nwin..nfft contribute nothing, hps.cu:461-462),
+    # and its inverse: the transposed matrices times the synthesis scale
+    scale = float(np.float32(cfg.synth_scale / nfft))
+    spectra, feats, hs, inverse = [], [], [], []
+    for t, dev in enumerate(devs):
+        xw = _windowed(frame_signal(_moved(audio, dev), hop, n_frames), cfg)
+        cos, sin = _partial_dft(cfg, t * fb, fb, dev)
+        s = torch.complex(xw @ cos, -(xw @ sin))
+        inverse.append((cos.T * scale, sin.T * scale))
+        del cos, sin
+        spectra.append(s)
+        feats.append(feature_transform(s.abs(), cfg))
+        hs.append(time_filtered(feats[-1], cfg))  # per bin: local
+
+    # the frequency median over fm-bin halos from both ring neighbours:
+    # zen_tpu's zero-border median over [lh, own, rh] cropped to the own
+    # bins, which is K2's 'valid' route on the extended bins
+    if fm:
+        left = _ring([f[..., fb - fm :] for f in feats], devs, 1)
+        right = _ring([f[..., :fm] for f in feats], devs, -1)
+        exts = [torch.cat([lh, f, rh], dim=-1) for f, lh, rh in zip(feats, left, right)]
+    else:  # feats[..., -0:] would be the whole block
+        exts = feats
+    masks = []
+    for h, ext in zip(hs, exts):
+        if cfg.use_sse:
+            p = box.sliding_mean(ext, cfg.freq_offsets, -1, "zero")[..., fm : fm + fb]
+        else:
+            _check_median_route(cfg, ext)
+            p = median_cuda.sliding_median_boundary(ext, 2 * fm + 1, "valid")
+        masks.append(_masks_by_stem(*finalize_features(h, p, cfg), cfg))
+    return spectra, masks, inverse
+
+
+def _tp_stems(spectra: list, masks: list, inverse: list, cfg: HPRConfig, devs: list,
+              n_frames: int) -> torch.Tensor:
+    """The synthesis half: stems [3, ..., (n_frames-1)*hop] on the first
+    shard's device. Each shard's partial inverse DFT covers its own bins;
+    by linearity the stem's frame is their sum (zen_tpu's psum)."""
+    hop = cfg.hop
+    lead = spectra[0].shape[:-2]
+    outs = []
+    for i, name in enumerate(STEMS):
+        if not _enabled(cfg, name, masks[0][i]):
+            outs.append(torch.zeros(lead + ((n_frames - 1) * hop,), device=devs[0]))
+            continue
+        ys = []
+        for s, m, (inv_c, inv_s) in zip(spectra, masks, inverse):
+            masked = s * m[i]
+            ys.append(masked.real @ inv_c - masked.imag @ inv_s)
+        y = ys[0]
+        for other in ys[1:]:
+            y = y + _moved(other, devs[0])
+        outs.append(overlap_add_stream(y, hop, advance=1))
+    return torch.stack(outs)
+
+
+def tp_separate(audio, cfg: HPRConfig, mesh: Mesh, tp_axis: str = "tp") -> dict:
+    """Frequency-sharded offline pass on [L] audio: each of the n_tp
+    shards transforms, filters, masks and synthesizes nfft/n_tp bins,
+    through partial-DFT matmuls at float32 (TF32 off, zen_tpu's
+    Precision.HIGHEST). Needs the exact C2C spectrum (``fast_rfft`` is
+    forced off) and the wrap border (the frequency halo ring is
+    circular); n_tp must divide nfft. Stems on the mesh's first device,
+    equal to ``hpr_separate`` with ``fast_rfft`` off up to the
+    transforms' rounding."""
+    if cfg.border != WRAP:
+        raise ZenError("tp_separate supports the wrap border only")
+    devs = [mesh.device(**{tp_axis: t}) for t in range(mesh.size(tp_axis))]
+    if cfg.nfft % len(devs):
+        raise ZenError(
+            f"tp width {len(devs)} must divide nfft {cfg.nfft} (a remainder "
+            "would silently drop the top bins from every shard)"
+        )
+    if cfg.fast_rfft:
+        cfg = dataclasses.replace(cfg, fast_rfft=False)
+    audio = _as_audio(audio)
+    length = audio.shape[-1]
+    on_card = any(d.type == "cuda" for d in devs)
+    n_frames = _n_frames(length, cfg)
+    with _tf32_off() if on_card else contextlib.nullcontext():
+        out = _tp_stems(*_tp_masks(audio, cfg, devs, n_frames), cfg, devs, n_frames)
+    return {name: out[i, ..., :length] for i, name in enumerate(STEMS)}
+
+
+def tp_hpri_offline(audio, cfg_h: HPRConfig, cfg_p: HPRConfig, mesh: Mesh,
+                    tp_axis: str = "tp") -> tuple:
+    """Frequency-sharded two-pass HPR-I (``zen-torch offline --mesh
+    tp=N``): both passes ``tp_separate``, the intermediate pass 1's
+    percussive + residual. n_tp must divide both passes' nfft."""
+    pass1 = tp_separate(audio, cfg_h, mesh, tp_axis)
+    inter = pass1["percussive"] + pass1["residual"]
+    pass2 = tp_separate(inter, cfg_p, mesh, tp_axis)
+    return pass1["harmonic"], pass2["percussive"], pass2["residual"]
