@@ -90,6 +90,22 @@ entry points at full width:
            killed once and resumed), tp_hpri_offline on the clip (tp 4 and
            2), MultiStreamHPR 64 x B=32 and 512 x B=16 at dp=4, each
            against its unsharded run, and the CLI's --mesh surfaces;
+  phase 21 benches/headline at full width (bench.py's rows: the hop-1024
+           B=32 metric in device and wall us per 10 ms, hop 256, soft
+           mask, SSE, 64 streams, the clip, the single-hop round trip),
+           its JSON line, and the 4-minute track's peak device memory;
+  phase 22 entry()'s flagship step against entry(device="cpu") under
+           the flip rule, and dryrun_multichip(4) on virtual shards;
+  phase 23 tools/fuzz_parity, four random cases of every mode;
+  phase 24 benches/kernels --quick (every route by name, the twin, the
+           library call, the transforms, the block step; complexity fits);
+  phase 25 benches/soak, 256 steps of 64 streams, finite, its drift;
+  phase 26 benches/scaling on virtual meshes of 1, 2 and 4 and the
+           one-card streams curve at 1, 8, 64 and 512 streams;
+  phase 27 benches/io_codec on 5 s (host only, no launch);
+  phase 28 tools/feed_wav_realtime on 2.5 s at wall-clock rate;
+  phase 29 tools/ab_reference against the port's own strict-ref stems
+           (passes) and with a corrupted stem (fails);
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -100,9 +116,10 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route (phase 6 and phases 7-20; the
-SSE paths must launch none; phases 18-20 require each run's count to
-equal the count from its shapes).
+are counted per path and per kernel route (phase 6 and phases 7-29; the
+SSE paths must launch none; phases 18-22 and 24-29 require each run's
+count to equal the count from its shapes and, for the instruments, the
+calls they report; phase 23's random configs are read, not counted).
 
 Every time printed is a measurement of this run on the card named in
 phase 1. Any failure raises and exits non-zero; there is no CPU path.
@@ -2110,8 +2127,10 @@ def synced(fn):
 def launch_ledger():
     """(total, counted): ``counted(fn, want, what)`` runs one entry point
     between a reset and a read of the launch counters, requires the count
-    to equal ``want`` (counted from the shapes) and adds it to ``total``;
-    it returns (fn's result, its wall seconds)."""
+    to equal ``want`` (counted from the shapes; ``want(result)`` for an
+    instrument, whose timing windows vary in length and which reports the
+    calls it made) and adds it to ``total``; it returns (fn's result, its
+    wall seconds)."""
     total = dict.fromkeys(read_launches(), 0)
 
     def counted(fn, want, what):
@@ -2119,6 +2138,8 @@ def launch_ledger():
         reset_launches()
         out, wall = timed(lambda: synced(fn))
         counts = read_launches()
+        if callable(want):
+            want = want(out)
         require(counts == want, f"{what}: launches {nonzero(counts)}, counted from the "
                 f"shapes {nonzero(want)}")
         for k in total:
@@ -2498,15 +2519,9 @@ def sharded_pass(audio, cfg, mesh) -> tuple:
     """sharded_separate's two halves on ``audio`` [C, L]: (its stems
     {name: [C, L]}, its (harmonic, percussive) masks [C, frames, bins]),
     for the flip rule."""
-    from zen_tpu_torch.parallel import sharded as tsh
+    from zen_tpu_torch.parallel.sharded import sharded_pass_masks
 
-    local, devs, n_sp, length = tsh._sp_local(audio, cfg, mesh, "dp", "sp")
-    spectra, masks = tsh._sp_masks(local, devs, n_sp, cfg)
-    out = tsh._sp_gather(tsh._sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1,
-                         devs[0])
-    stems = {name: out[i, :, :length] for i, name in enumerate(tsh.STEMS)}
-    return stems, tuple(tsh._sp_gather([m[i] for m in masks], n_sp, -2, 0, devs[0])
-                        for i in (0, 1))
+    return sharded_pass_masks(audio, cfg, mesh)
 
 
 def tp_pass(audio, cfg, mesh) -> tuple:
@@ -2780,6 +2795,314 @@ def phase_parallel(smi: str) -> dict:
     return total
 
 
+# ---------------- the instruments and the entry points ----------------
+
+
+def no_launches() -> dict:
+    return dict.fromkeys(read_launches(), 0)
+
+
+def phase_headline(smi: str) -> dict:
+    """benches/headline at full width in-process: bench.py's rows (device
+    and wall), its JSON line, and the 4-minute track's peak memory; the
+    launches from each row's calls (SSE launches no median)."""
+    from zen_tpu_torch.benches import headline, write_artifact
+    from zen_tpu_torch.drivers.offline import _Blocking
+
+    sizes = headline.SIZES[False]
+
+    def want_of(result):
+        calls, want = result["calls"], no_launches()
+        rows = headline.stream_rows(sizes)
+        for name, (cfg, _, _) in rows.items():
+            if not cfg.use_sse:
+                add_pass(want, cfg, calls[name])
+        add_pass(want, rows["hop1024"][0], calls["round_trip"])
+        sep = headline.offline_separator(sizes, DEVICE)
+        for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192)):
+            add_pass(want, cfg, calls["offline_clip"] + calls["track_process"])
+            add_pass(want, cfg, calls["track_process_blocked"]
+                     * _Blocking.of(sizes["track"], cfg, bf).n_blocks)
+        return want
+
+    total, counted = launch_ledger()
+    result, _ = counted(
+        lambda: headline.measure(headline.parse(["--device", DEVICE]),
+                                 log=lambda line: print(f"phase 21 headline {line} [{smi}]")),
+        want_of, "headline")
+    line = headline.headline_line(result)
+    row = result["rows"]["hop1024"]
+    require(all(v is not None and math.isfinite(v) and v > 0
+                for r in result["rows"].values() for k, v in r.items()
+                if k.endswith(("_us_per_hop", "_ms", "wall_us"))),
+            f"headline rows {result['rows']}")
+    require(line["value"] == round(row["device_us_per_10ms"], 2) and "smoke" not in line,
+            f"headline line {line}")
+    mem = result["memory"]
+    require(mem["process_peak_bytes"] > 0 and mem["process_blocked_peak_bytes"] > 0,
+            f"headline memory {mem}")
+    path = write_artifact(result, None, "headline.json")
+    print(f"phase 21 headline line {json.dumps(line)}; artifact {path.relative_to(ROOT)}; "
+          f"launches {nonzero(total)} [{smi}]")
+    return total
+
+
+def dryrun_launches(n: int, flip_ruled: int) -> dict:
+    """dryrun_multichip(n)'s launches from its shapes: both passes on n
+    shards for every factorization (twice more, both meshes, for each one
+    held under the flip rule), TP on its width's shards, the dp fleet's
+    two blocks on n shards, and the sp blocked scan twice (each shard's
+    blocks and the block before each span but the first)."""
+    from zen_tpu_torch import entry
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    cfg_h, cfg_p, cfg_tp, cfg_stream = entry.dryrun_configs()
+    counts = no_launches()
+    passes = len(entry._factorizations(n)) + 2 * flip_ruled
+    for cfg in (cfg_h, cfg_p):
+        add_pass(counts, cfg, n * passes)
+    add_pass(counts, cfg_tp, entry.dryrun_tp_width(n))
+    add_pass(counts, cfg_stream, 2 * n)
+    length = cfg_p.hop * (cfg_p.stft_width + 2) * n * 2
+    _, nbl = tsh._sharded_blocking(length, cfg_h, 8, n)
+    add_pass(counts, cfg_h, 2 * (n * nbl + n - 1))
+    return counts
+
+
+def phase_entry(smi: str) -> dict:
+    """entry()'s flagship step on the card against entry(device="cpu") on
+    the same blocks, under the flip rule; then dryrun_multichip(4) on four
+    virtual shards of the card."""
+    from zen_tpu_torch.entry import dryrun_multichip, entry, entry_config
+
+    cfg = entry_config()
+    n_blocks = 16
+    audio = synthetic_mix(n_blocks * 32 * cfg.hop, cfg.fs, seed=22)
+    blocks = torch.from_numpy(audio).reshape(n_blocks, 32, cfg.hop)
+
+    def steps(device):
+        fn, (state, block) = entry(device)
+        require(tuple(block.shape) == (32, cfg.hop) and block.device.type == device,
+                f"entry example block {tuple(block.shape)} on {block.device}")
+        x = blocks.to(device)
+        return torch.cat([fn(state, x[j])[1] for j in range(n_blocks)], dim=1)
+
+    total, counted = launch_ledger()
+    got, _ = counted(lambda: steps(DEVICE), add_pass(no_launches(), cfg, n_blocks), "entry()")
+    want = steps("cpu")
+    r = compare_stream(cfg, audio[None], [32] * n_blocks, got.cpu().numpy()[None],
+                       want.numpy()[None], ("harmonic", "percussive", "residual"))
+    print(f"phase 22 entry() fn: block_step hop {cfg.hop} B=32, {n_blocks} blocks, against "
+          f"entry(device='cpu'): mask flips {r['flips']} ({r['share']:.3g} of bins), excluded "
+          f"hops {r['excluded']}/{r['hops']}, max |diff|/scale {r['rel_err']:.3g} (limit "
+          f"{STEM_ATOL}); launches {nonzero(add_pass(no_launches(), cfg, n_blocks))} [{smi}]")
+    with contextlib.redirect_stdout(io.StringIO()):  # it prints the line it returns
+        line, wall = counted(lambda: dryrun_multichip(4, device=DEVICE),
+                             lambda line: dryrun_launches(4, line.count("flip rule")),
+                             "dryrun_multichip(4)")
+    print(f"phase 22 {line}; {wall:.2f} s; launches "
+          f"{nonzero(dryrun_launches(4, line.count('flip rule')))} [{smi}]")
+    return total
+
+
+def phase_fuzz(smi: str) -> dict:
+    """tools/fuzz_parity on the card, four random cases a mode (seed 0):
+    every valid case agrees at its mode's class, every refusal is a
+    ZenError. The cases' shapes are random, so the launches are read (K1
+    and K2 must each have launched), not counted from them."""
+    from zen_tpu_torch.tools import fuzz_parity
+
+    torch.cuda.synchronize()
+    reset_launches()
+    for mode, sweep in fuzz_parity.MODES.items():
+        t0 = time.perf_counter()
+        ran, skipped = sweep(0, 4, torch.device(DEVICE),
+                             log=lambda line: print(f"phase 23 fuzz {line}"))
+        print(f"phase 23 fuzz PARITY SWEEP PASS: {ran} ran, {skipped} validated-rejected "
+              f"(seed=0, mode={mode}, device={DEVICE}); {time.perf_counter() - t0:.1f} s "
+              f"[{smi}]")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    require(all(v > 0 for v in per_kernel(counts).values()), f"fuzz launches {counts}")
+    print(f"phase 23 fuzz launches {nonzero(counts)}")
+    return counts
+
+
+def phase_kernels_sweep(smi: str) -> dict:
+    """benches/kernels --quick on the card: each route by name, the plain
+    twin, the library call and the transforms across sizes, with the
+    complexity fits; launches counted from the rows that go through the
+    wrappers (the block steps, the _MEM medians)."""
+    from zen_tpu_torch.benches import kernels, write_artifact
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    def want_of(result):
+        want = no_launches()
+        for name, n in result["calls"].items():
+            kind, shape = name.split("/")
+            if kind.startswith("hpr_block_step"):
+                add_pass(want, kernels.stream_config(44100.0, int(shape[3:].split("x")[0])), n)
+            else:
+                k = int(shape[1:].split("_")[0])
+                key = (f"sliding_median_boundary/{mc.freq_route(k)}" if "freq" in kind else
+                       f"tap_median_time/{mc.time_route(tuple(range(-(k // 2), k // 2 + 1)))}")
+                want[key] += n
+        return want
+
+    total, counted = launch_ledger()
+    result, wall = counted(
+        lambda: kernels.run(kernels.parse(["--quick", "--device", DEVICE]),
+                            log=lambda line: print(f"phase 24 kernels {line}")),
+        want_of, "kernels --quick")
+    require(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in result["rows"]),
+            "kernels rows")
+    (ROOT / "build").mkdir(exist_ok=True)
+    kernels.write_csv(ROOT / "build" / "kernels_quick.csv", result)
+    path = write_artifact(result, None, "kernels.json")
+    print(f"phase 24 kernels --quick: {len(result['rows'])} rows in {wall:.1f} s; artifacts "
+          f"build/kernels_quick.csv, {path.relative_to(ROOT)}; launches {nonzero(total)} "
+          f"[{smi}]")
+    return total
+
+
+def phase_soak(smi: str) -> dict:
+    """benches/soak, short: 64 streams at hop 256, 4 dispatches of 64
+    steps, the stats reduced on the card and read once a dispatch."""
+    from zen_tpu_torch.benches import soak
+
+    args = soak.parse(["--steps", "64", "--dispatches", "4", "--device", DEVICE])
+    cfg = soak.Soak(args).ms.cfg
+    total, counted = launch_ledger()
+    (line, rc), _ = counted(lambda: soak.run(args),
+                            lambda out: add_pass(no_launches(), cfg, out[0]["steps"]), "soak")
+    require(rc == 0 and line["finite"] is True and line["steps"] == 4 * 64, f"soak {line}")
+    print(f"phase 25 soak {json.dumps(line)}; launches {nonzero(total)} [{smi}]")
+    return total
+
+
+def phase_scaling(smi: str) -> dict:
+    """benches/scaling on meshes of 1, 2 and 4 (virtual past 1 on one
+    card: they measure one host loop's dispatch, not scaling), and the
+    one-card streams curve at 1, 8, 64 and 512 streams."""
+    from zen_tpu_torch import HPRConfig, OUTPUT_ALL
+    from zen_tpu_torch.benches import scaling
+
+    args = scaling.parse(["--devices", "1,2,4", "--mesh-legs", "--chip-streams", "1,8,64,512",
+                          "--device", DEVICE])
+    fleet = HPRConfig(fs=args.fs, hop=args.hop, causal=True, outputs=OUTPUT_ALL)
+    track = HPRConfig(fs=args.fs, hop=args.hop, causal=False, outputs=OUTPUT_ALL)
+    curve = scaling.stream_config(args.fs, args.hop)
+
+    def want_of(out):
+        want = no_launches()
+        for key, n in out[0]["calls"].items():
+            leg, size = key.split("/")
+            cfg, shards = {"dp": (fleet, int(size)), "sp": (track, int(size)),
+                           "chip": (curve, 1)}[leg]
+            add_pass(want, cfg, n * shards)
+        return want
+
+    total, counted = launch_ledger()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        (result, line), _ = counted(lambda: scaling.run(args), want_of, "scaling")
+    for text in out.getvalue().splitlines():
+        print(f"phase 26 scaling {text}")
+    require(line["virtual"] is True and all(
+        result[f"{leg}_rows"][n]["virtual"] == (n > torch.cuda.device_count())
+        for leg in ("dp", "sp") for n in (1, 2, 4)), f"scaling rows {result}")
+    print(f"phase 26 scaling {json.dumps(line)}; launches {nonzero(total)} [{smi}]")
+    return total
+
+
+def phase_io_codec(smi: str) -> None:
+    """benches/io_codec on 5 s of audio: the native codecs' rungs, host
+    only (no launch)."""
+    from zen_tpu_torch.benches import io_codec
+
+    _, counted = launch_ledger()
+    result, wall = counted(
+        lambda: io_codec.run(io_codec.parse(["--seconds", "5"]),
+                             log=lambda line: print(f"phase 27 io_codec {line}")),
+        no_launches(), "io_codec")
+    print(f"phase 27 io_codec: {len(result['rows'])} rungs in {wall:.2f} s; host "
+          f"{result['host']} [{smi}]")
+
+
+def phase_live_tools(smi: str) -> dict:
+    """tools/feed_wav_realtime on 2.5 s of audio at wall-clock rate, its
+    percussive file byte-equal to HPRRealtime's on the card over the same
+    padded blocks; tools/ab_reference on the port's own strict-ref stems
+    (passes) and with one stem corrupted (fails)."""
+    import tempfile
+
+    from zen_tpu_torch import HPRIOffline, HPRRealtime
+    from zen_tpu_torch.io.audio import peak_normalize, read_audio_mono, write_wav_pcm16
+    from zen_tpu_torch.tools import ab_reference, feed_wav_realtime
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    total, counted = launch_ledger()
+    fs, hop, block_hops = 44100, 256, 16
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        audio = synthetic_mix(int(2.5 * fs), float(fs), seed=28)
+        wav = tmp / "mix.wav"
+        write_wav_pcm16(str(wav), fs, peak_normalize(audio))
+        cfg = HPRRealtime(float(fs), hop, device="cpu").cfg
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            st, _ = counted(
+                lambda: feed_wav_realtime.main([str(wav), str(tmp / "perc.wav"), str(hop),
+                                                "--device", DEVICE]),
+                # the warmup's block and every block the ring filled
+                lambda st: add_pass(no_launches(), cfg, st["blocks"] + 1), "feed_wav_realtime")
+        print(f"phase 28 feed_wav_realtime {out.getvalue().splitlines()[0]}")
+        n = len(audio)
+        # (the harmonic and residual rings are never read, so they overflow)
+        require(st["recovered"] == n and st["overruns"] == 0, f"feed_wav_realtime {st}")
+        x = read_audio_mono(str(wav))[1]
+        padded = np.zeros(-(-n // (block_hops * hop)) * block_hops * hop, np.float32)
+        padded[:n] = x
+        ref = HPRRealtime(float(fs), hop, device=DEVICE).process_stream(padded, block_hops)
+        write_wav_pcm16(str(tmp / "ref.wav"), fs, peak_normalize(ref[1, :n]))
+        require(same_bytes(tmp / "perc.wav", tmp / "ref.wav"),
+                "feed_wav_realtime's stem differs from HPRRealtime's over the same blocks")
+        print(f"phase 28 feed_wav_realtime hop {hop}, {st['blocks']} blocks of {block_hops} "
+              f"hops: {st['audio_s']:.2f} s of audio in {st['wall_s']:.2f} s wall (latest "
+              f"push {st['max_late_s'] * 1e3:.2f} ms behind the clock); the percussive file "
+              f"byte-equal to HPRRealtime's on the card; launches "
+              f"{nonzero(add_pass(no_launches(), cfg, st['blocks'] + 1))} [{smi}]")
+
+        mix = tmp / "ab_mix.wav"
+        write_wav_pcm16(str(mix), fs, peak_normalize(synthetic_mix(3 * fs, float(fs), seed=29)))
+        ref_prefix = tmp / "ref"
+        sep = HPRIOffline(float(fs), 4096, 256, strict_ref=True, device="cpu")
+        one = add_pass(add_pass(no_launches(), sep.cfg_h, 1), sep.cfg_p, 1)
+        counted(lambda: zen_cli(["offline", "-i", mix, "-o", ref_prefix, "--hps", "4096", "2.0",
+                                 "256", "2.0", "--strict-ref", "--device", DEVICE]),
+                one, "zen-torch offline --strict-ref")
+        verdicts = []
+        for what in ("self", "corrupt"):
+            if what == "corrupt":
+                rng = np.random.default_rng(30)
+                write_wav_pcm16(f"{ref_prefix}_perc.wav", fs,
+                                0.5 * rng.standard_normal(3 * fs).astype(np.float32))
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc, _ = counted(lambda: ab_reference.main(
+                    [str(mix), str(ref_prefix), "--device", DEVICE]), one, f"ab_reference {what}")
+            rep = json.loads(out.getvalue().splitlines()[-1])
+            require((rc, rep["pass"]) == ((0, True) if what == "self" else (1, False)),
+                    f"ab_reference on {what} stems: exit {rc}, {rep}")
+            verdicts.append(f"{what}: exit {rc}, worst {rep['worst_snr_db']} dB, "
+                            + ", ".join(f"{k} {v['snr_db'] if v['status'] == 'compared' else v['status']}"
+                                        for k, v in rep["stems"].items()))
+        print(f"phase 29 ab_reference, 3 s at 44.1 kHz against the port's own strict-ref "
+              f"stems ({verdicts[0]}) and with the percussive stem corrupted ({verdicts[1]}); "
+              f"launches {nonzero({k: 3 * v for k, v in one.items()})} (three cascades) [{smi}]")
+    return total
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
@@ -2871,7 +3194,11 @@ def main() -> None:
                         ("sse", phase_sse), ("box", phase_box), ("dft", phase_dft),
                         ("quality_ladder", phase_quality), ("files_cli", phase_files_cli),
                         ("corpus", phase_corpus), ("apps", phase_apps),
-                        ("parallel", phase_parallel)):
+                        ("parallel", phase_parallel), ("headline", phase_headline),
+                        ("entry", phase_entry), ("fuzz", phase_fuzz),
+                        ("kernels_sweep", phase_kernels_sweep), ("soak", phase_soak),
+                        ("scaling", phase_scaling), ("io_codec", phase_io_codec),
+                        ("live_tools", phase_live_tools)):
         t0 = time.perf_counter()
         counts = phase(smi)
         if counts is not None:

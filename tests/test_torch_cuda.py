@@ -909,3 +909,56 @@ def test_multistream_mesh_on_card_equals_unsharded(cuda_device):
         cs.hold_masks(m_s, cs.stream_masks(ms.cfg, audio, [8] * 3, cuda_device), 256,
                       got.cpu().numpy(), want.cpu().numpy(),
                       ("harmonic", "percussive", "residual"))
+
+
+def test_soak_dispatch_does_not_synchronize(cuda_device):
+    """The soak's per-dispatch stats are reduced on the card: a dispatch of
+    block steps enqueues without the host waiting, and its one readback
+    comes after."""
+    from zen_tpu_torch.benches import soak
+
+    run = soak.Soak(soak.parse(["--fs", "8000", "--hop", "64", "--streams", "4",
+                                "--block-hops", "4", "--steps", "3", "--dispatches", "1"]))
+    run.dispatch()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mx, bad = run.dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(bad) == 0 and float(mx) == float(run.prev.abs().max()) > 0
+
+
+def test_headline_chains_do_not_synchronize(cuda_device):
+    """What the headline times with device_ms stays on the card: a chained
+    streaming step (median and SSE) and the chained offline cascade."""
+    from zen_tpu_torch.benches import headline
+
+    sizes = headline.SIZES[True]
+    runs = []
+    for kw in ({}, {"use_sse": True}):
+        fn, x = headline.stream_chain(headline.stream_config(8000.0, 128, **kw), 2, 4,
+                                      cuda_device, seed=0)
+        runs.append((fn, x))
+    sep = headline.offline_separator(sizes, cuda_device)
+    clip = torch.randn(16000, device=cuda_device)
+    runs.append((lambda a: clip + 1e-12 * sum(sep.process(a)), clip))
+    for fn, x in runs:
+        y = fn(x)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def test_dryrun_multichip_on_card(cuda_device):
+    """The sharded dry run on four virtual shards of the card: every
+    factorization held bitwise or, where cuFFT's batch changes bits, under
+    the flip rule; the line says which."""
+    from zen_tpu_torch.entry import dryrun_multichip
+
+    line = dryrun_multichip(4, device=cuda_device)
+    assert line.startswith("dryrun_multichip ok on 4 shards of cuda")
+    assert "(virtual: one device repeated)" in line

@@ -205,6 +205,18 @@ def sharded_separate(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
     return {name: out[i, :, :length] for i, name in enumerate(STEMS)}
 
 
+def sharded_pass_masks(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
+                       sp_axis: str = "sp") -> tuple:
+    """``sharded_separate``'s stems and the (harmonic, percussive) masks
+    [C, frames, bins] they came from, both on the mesh's first device:
+    what a flip count between two runs of a pass reads."""
+    local, devs, n_sp, length = _sp_local(audio, cfg, mesh, dp_axis, sp_axis)
+    spectra, masks = _sp_masks(local, devs, n_sp, cfg)
+    out = _sp_gather(_sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1, devs[0])
+    stems = {name: out[i, :, :length] for i, name in enumerate(STEMS)}
+    return stems, tuple(_sp_gather([m[i] for m in masks], n_sp, -2, 0, devs[0]) for i in (0, 1))
+
+
 def sharded_hpri_offline(audio, cfg_h: HPRConfig, cfg_p: HPRConfig, mesh: Mesh,
                          lengths=None, **axes) -> tuple:
     """Sharded two-pass HPR-I: (harmonic, percussive, residual) [C, L].

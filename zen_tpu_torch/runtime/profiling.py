@@ -15,7 +15,11 @@ call's input, as the JAX timers chain theirs):
   window holds host gaps, so the spin doubles and the window runs again,
   a bounded number of times, and then it raises. It replaces the JAX
   package's ``scan_slope_ms``, a readback slope that the card does not
-  need. CPU tensors raise: there is no timing fallback.
+  need. CPU tensors raise: there is no timing fallback. A window's
+  launches must fit the card's queue of pending launches (about 1024 on
+  an H100): past it the host blocks until the spin ends, and the window
+  is refused. 16 SSE steps at hop 1024 (~64 kernels each) fill it, so
+  callers size ``iters`` by the launches of a call.
 
 The gap between the two is the host's share of a steady window.
 """
