@@ -99,6 +99,8 @@ entry points at full width:
   phase 23 tools/fuzz_parity, four random cases of every mode;
   phase 24 benches/kernels --quick (every route by name, the twin, the
            library call, the transforms, the block step; complexity fits);
+           its launches by route name, which no wrapper counts, stand
+           apart in the `kernels` line as by_route_launches;
   phase 25 benches/soak, 256 steps of 64 streams, finite, its drift;
   phase 26 benches/scaling on virtual meshes of 1, 2 and 4 and the
            one-card streams curve at 1, 8, 64 and 512 streams;
@@ -142,8 +144,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-STEM_ATOL = 5e-5  # realtime parity class, tests/test_engine_parity.py:271-275
-FLIP_SHARE = 1e-5  # largest share of hard-mask bins allowed to differ
+sys.path.insert(0, str(ROOT))
+# the port's flip rule and its limits: 5e-5 x scale (the realtime parity
+# class) and at most 1e-5 of the hard-mask bins flipped
+from zen_tpu_torch.tools.parity import FLIP_SHARE, STEM_ATOL, flip_rule  # noqa: E402
+BY_ROUTE: dict = {}  # {wrapper/route: launches by route name}, phase 24's
 TIMED_RUNS = 30
 NOISE_FLOOR = 0.01  # white noise under the synthetic mix (see synthetic_mix)
 DEVICE = "cuda"  # every tensor of the run under test lives here
@@ -1004,47 +1009,12 @@ def reference_fleet(audio, sizes, hop=256, fs=44100.0, **cfg_kw) -> np.ndarray:
 # ---------------- offline two-pass HPR-I ----------------
 
 
-def offline_keep(masks_a, masks_b, hop: int, length: int) -> tuple:
-    """Flip rule for one offline pass: hard-mask bins that differ between
-    two runs' (harmonic, percussive) masks [frames, bins], their share,
-    and which of the pass's ``length`` output samples no flipped frame
-    feeds (advance=1: frame t feeds output chunks t - 1 and t)."""
-    n = min(len(masks_a[0]), len(masks_b[0]))
-    differ = (masks_a[0][:n] != masks_b[0][:n]) | (masks_a[1][:n] != masks_b[1][:n])
-    flips = int(differ.sum())
-    flipped = differ.any(dim=-1)
-    excluded = flipped[:-1] | flipped[1:]  # chunk k = frames k and k + 1
-    keep = ~excluded.repeat_interleave(hop)[:length]
-    return flips, flips / differ.numel(), keep.numpy()
-
-
-def hold_stems(got: dict, want: dict, keep: np.ndarray, what: str,
-               atol: float = STEM_ATOL) -> float:
-    """Stem tolerance (``atol`` x scale) on every kept sample; returns the
-    worst error over scale."""
-    worst = 0.0
-    for stem in ("harmonic", "percussive", "residual"):
-        ref = want[stem].cpu().numpy()
-        out = got[stem].cpu().numpy()
-        require(bool(np.isfinite(out).all()), f"{what} {stem}: non-finite samples")
-        scale = max(1.0, float(np.abs(ref).max()))
-        err = float(np.abs(out - ref)[keep].max(initial=0.0))
-        require(err <= atol * scale, f"{what} {stem}: max |diff| {err} > {atol} x {scale}")
-        worst = max(worst, err / scale)
-    return worst
-
-
 def hold_pass(what: str, got: dict, want: dict, masks_got, masks_want, hop: int,
               atol: float = STEM_ATOL) -> dict:
-    """Hold one pass's stems against a reference run under the flip rule."""
-    length = got["harmonic"].shape[-1]
-    flips, share, keep = offline_keep(
-        [m.cpu() for m in masks_got[:2]], [m.cpu() for m in masks_want[:2]], hop, length
-    )
-    require(share <= FLIP_SHARE, f"{what}: hard-mask flips {flips} ({share:.3g} of bins)")
-    rel = hold_stems(got, want, keep, what, atol)
-    return {"flips": flips, "share": share, "excluded": int((~keep).sum()),
-            "samples": length, "rel_err": rel}
+    """Hold one pass's stems against a reference run under the port's
+    flip rule (zen_tpu_torch.tools.parity.flip_rule)."""
+    st = flip_rule(got, want, masks_got, masks_want, hop, atol, what)
+    return {**st, "samples": got["harmonic"].shape[-1]}
 
 
 def hold_pass_on_cpu(cfg, audio: torch.Tensor) -> tuple:
@@ -2932,7 +2902,9 @@ def phase_kernels_sweep(smi: str) -> dict:
     """benches/kernels --quick on the card: each route by name, the plain
     twin, the library call and the transforms across sizes, with the
     complexity fits; launches counted from the rows that go through the
-    wrappers (the block steps, the _MEM medians)."""
+    wrappers (the block steps, the _MEM medians); the launches each
+    route's rows make by route name, which no wrapper counts, are summed
+    into BY_ROUTE from the calls the sweep reports."""
     from zen_tpu_torch.benches import kernels, write_artifact
     from zen_tpu_torch.ops import median_cuda as mc
 
@@ -2956,12 +2928,18 @@ def phase_kernels_sweep(smi: str) -> dict:
         want_of, "kernels --quick")
     require(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in result["rows"]),
             "kernels rows")
+    for name, n in result["route_calls"].items():
+        kind = name.split("/")[0]
+        wrapper = ("sliding_median_boundary" if kind.startswith("median_freq")
+                   else "tap_median_time")
+        key = f"{wrapper}/{kind.split('_')[2]}"
+        BY_ROUTE[key] = BY_ROUTE.get(key, 0) + n
     (ROOT / "build").mkdir(exist_ok=True)
     kernels.write_csv(ROOT / "build" / "kernels_quick.csv", result)
     path = write_artifact(result, None, "kernels.json")
     print(f"phase 24 kernels --quick: {len(result['rows'])} rows in {wall:.1f} s; artifacts "
-          f"build/kernels_quick.csv, {path.relative_to(ROOT)}; launches {nonzero(total)} "
-          f"[{smi}]")
+          f"build/kernels_quick.csv, {path.relative_to(ROOT)}; launches {nonzero(total)}, "
+          f"and by route name (no wrapper counts them) {BY_ROUTE} [{smi}]")
     return total
 
 
@@ -3109,7 +3087,8 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     own run; the copy mirrors run on phase 11's path), and the routes no
     path launched (K1's first wide kernel, kept for tap spans past the
     rank route's staging, and K2's counting kernel, kept for K whose keys
-    do not fit a block), checked in phase 3 only."""
+    do not fit a block), checked in phase 3 only. ``by_route_launches``
+    are phase 24's launches by route name, outside ``launches``."""
     rows, off_path = [], []
     for (name, route), st in kstats.items():
         key = f"{name}/{route}"
@@ -3120,6 +3099,7 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
             "also_replaces": tpus[1:],
             "launches": sum(counts.get(key, 0) for counts in by_path.values()),
             "launches_by_path": {path: counts.get(key, 0) for path, counts in by_path.items()},
+            "by_route_launches": BY_ROUTE.get(key, 0),
             "max_abs_err": st["max_abs_err"], "tolerance": "bitwise", "shape": first["shape"],
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shapes": [{**sh, "replaces": TPU_KERNELS[sh["tpu_kernel"]]} for sh in st["shapes"]],
@@ -3135,8 +3115,6 @@ def main() -> None:
             "smoke run needs an NVIDIA GPU and has no CPU path"
         )
     t_run = time.perf_counter()
-    sys.path.insert(0, str(ROOT))
-    import zen_tpu_torch  # noqa: F401  (fails here when run outside the repo)
     from zen_tpu_torch.ops import median_cuda as mc
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -135,6 +135,41 @@ def test_fuzz_parity_every_mode_on_cpu(mode, capsys):
     assert line["ran"] + line["rejected"] == 2 and line["device"]["platform"] == "cpu"
 
 
+def _doubled(fn):
+    def wrong(*a, **kw):
+        out = fn(*a, **kw)
+        return {k: 2 * v for k, v in out.items()}
+    return wrong
+
+
+class _DoubledFleet(fuzz_parity.MultiStreamHPR):
+    def process_block(self, blocks):
+        return 2 * super().process_block(blocks)
+
+
+# mode: (the function whose result is planted wrong, the message's tag, a
+# seed whose first two cases run at least one valid configuration)
+PLANTED = {
+    "oracle": ("hpr_separate", "stem=", 0),
+    "blocked": ("hpr_separate_blocked", "stem=", 0),
+    "sharded": ("sharded_separate_blocked", "BLOCKED-SHARDED", 1),
+    "twopass": ("oracle_offline_pass", "harm", 0),
+    "tp": ("tp_separate", "stem=", 0),
+    "serving": ("MultiStreamHPR", "stream=", 0),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(PLANTED))
+def test_fuzz_parity_fails_on_a_planted_mismatch(mode, monkeypatch):
+    """A wrong result of a valid configuration fails the sweep: it is never
+    taken for a refusal, whatever the mode's refusal handlers catch."""
+    name, tag, seed = PLANTED[mode]
+    wrong = _DoubledFleet if mode == "serving" else _doubled(getattr(fuzz_parity, name))
+    monkeypatch.setattr(fuzz_parity, name, wrong)
+    with pytest.raises(AssertionError, match=tag):
+        fuzz_parity.MODES[mode](seed, 2, torch.device("cpu"), log=lambda line: None)
+
+
 def test_kernels_quick_writes_csv(tmp_path, capsys):
     csv = tmp_path / "k.csv"
     result = kernels.main(["--quick", "--device", "cpu", "--csv", str(csv), "--out",

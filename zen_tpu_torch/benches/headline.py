@@ -60,6 +60,7 @@ HOP256_REF_US = 173.99  # its hop-256 fakert, us per hop (BASELINE.md)
 CLIP_REF_MS = 487.0  # its 3.66 s clip (BASELINE.md:11)
 CLIP_SAMPLES = 161_571
 TRACK_SAMPLES = 240 * 44_100  # a 4-minute track
+SEED = 0  # bench.py's default_rng(0)
 
 # (full size, --smoke): bench.py's configs and its smoke mode's
 SIZES = {
@@ -88,7 +89,6 @@ def parse(argv=None) -> argparse.Namespace:
                     help="tiny configs on the CPU (--device cpu): validates the path, "
                     "its numbers are host wall")
     ap.add_argument("--out", default=None, help="artifact path (default under build/)")
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.smoke != (torch.device(args.device).type == "cpu"):
         ap.error("--smoke runs on the CPU (--device cpu), and the CPU only under --smoke: "
@@ -189,7 +189,7 @@ def measure(args: argparse.Namespace, log=log) -> dict:
     rows = stream_rows(sizes)
     r = result["rows"]
     for name, (cfg, streams, b) in rows.items():
-        fn, example = stream_chain(cfg, streams, b, dev, args.seed)
+        fn, example = stream_chain(cfg, streams, b, dev, SEED)
         r[name] = stream_row(cfg, streams, b, *timer.time(name, fn, example))
 
     h = r["hop1024"]
@@ -218,7 +218,7 @@ def measure(args: argparse.Namespace, log=log) -> dict:
 
     # the offline cascade on the reference clip, chained on all stems
     sep = offline_separator(sizes, dev)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(SEED)
     clip = torch.from_numpy(rng.standard_normal(sizes["clip"]).astype(np.float32)).to(dev)
 
     def cascade(a):
@@ -244,17 +244,17 @@ def measure(args: argparse.Namespace, log=log) -> dict:
     r["round_trip"] = {"hop": cfg.hop, "wall_us": best * 1e6}
     log(f"hop-{cfg.hop} single-hop round trip (readback included): {best * 1e6:.0f} us wall")
 
-    result["memory"] = peak_memory(sep, sizes, dev, args.seed, timer, log)
+    result["memory"] = peak_memory(sep, sizes, dev, timer, log)
     result["calls"] = timer.counter.calls
     return result
 
 
-def peak_memory(sep: HPRIOffline, sizes: dict, dev, seed: int, timer: Timer, log=log) -> dict:
+def peak_memory(sep: HPRIOffline, sizes: dict, dev, timer: Timer, log=log) -> dict:
     """Peak device memory of ``process`` and ``process_blocked`` on one
     track: ``<call>_peak_bytes`` is the call's own, above what the process
     held before it (so a caller's other tensors do not count), plus the
     input track's bytes; None on the CPU (not measured)."""
-    rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(SEED + 1)
     track = torch.from_numpy(rng.standard_normal(sizes["track"]).astype(np.float32)).to(dev)
     out = {"track_samples": sizes["track"]}
     for name in ("process", "process_blocked"):

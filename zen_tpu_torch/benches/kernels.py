@@ -94,7 +94,8 @@ class Sweep:
         self.on_card = dev.type == "cuda"
         self.iters, self.repeats = (10, 3) if quick else (20, 5)
         self.rows = []
-        self.counter = CallCounter()
+        self.counter = CallCounter()  # calls through the counted wrappers
+        self.routes = CallCounter()  # launches by route name, which no wrapper counts
         self.log = log
         self.rng = np.random.default_rng(0)
 
@@ -212,9 +213,10 @@ def sweep_medians(s: Sweep, quick: bool, elems: int) -> dict:
             shape = f"K{k}_{t}x{f}"
             if s.on_card:
                 for route in _freq_routes(k):
-                    ms = s.nomem(f"median_freq_{route}_NOMEM/{shape}",
-                                 lambda _, x=x, k=k, r=route: mc._freq_launch(x, k, "reflect", r),
-                                 x)
+                    name = f"median_freq_{route}_NOMEM/{shape}"
+                    ms = s.nomem(name, s.routes.wrap(
+                        name, lambda _, x=x, k=k, r=route: mc._freq_launch(x, k, "reflect", r)),
+                        x)
                     pts.setdefault(route, []).append((f, ms / t))
             s.nomem(f"median_freq_plain_NOMEM/{shape}",
                     lambda _, x=x, k=k: mc.sliding_median_boundary_plain(x, k, "reflect"), x,
@@ -238,9 +240,10 @@ def sweep_medians(s: Sweep, quick: bool, elems: int) -> dict:
             shape = f"K{k}_{t}x{TIME_F}"
             if s.on_card:
                 for route in _time_routes(offsets):
-                    ms = s.nomem(f"median_time_{route}_NOMEM/{shape}",
-                                 lambda _, x=x, o=offsets, r=route: mc._time_launch(
-                                     x, x[:0], o, 0, 0.0, r), x)
+                    name = f"median_time_{route}_NOMEM/{shape}"
+                    ms = s.nomem(name, s.routes.wrap(
+                        name, lambda _, x=x, o=offsets, r=route: mc._time_launch(
+                            x, x[:0], o, 0, 0.0, r)), x)
                     pts.setdefault(route, []).append((t, ms))
             s.nomem(f"median_time_plain_NOMEM/{shape}",
                     lambda _, x=x, o=offsets: mc.tap_median_time_plain(x, x[:0], o, 0), x,
@@ -276,7 +279,7 @@ def run(args: argparse.Namespace, log=print) -> dict:
     for name, b in fits.items():
         log(f"complexity fit {name}: t ~ n^{b:.2f}")
     return {"device": describe_device(dev), "quick": args.quick, "rows": s.rows,
-            "complexity": fits, "calls": s.counter.calls}
+            "complexity": fits, "calls": s.counter.calls, "route_calls": s.routes.calls}
 
 
 def write_csv(path, result: dict) -> None:

@@ -33,7 +33,7 @@ def flip_rule(got: dict, want: dict, masks_got, masks_want, hop: int,
     n = min(masks_got[0].shape[-2], masks_want[0].shape[-2])
     differ = torch.zeros_like(masks_got[0][..., :n, :], dtype=torch.bool, device="cpu")
     for a, b in zip(masks_got[:2], masks_want[:2]):
-        differ |= (a[..., :n, :] != b[..., :n, :]).cpu()
+        differ |= a[..., :n, :].cpu() != b[..., :n, :].cpu()
     flips = int(differ.sum())
     share = flips / differ.numel()
     if share > FLIP_SHARE:
