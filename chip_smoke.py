@@ -108,6 +108,12 @@ entry points at full width:
   phase 28 tools/feed_wav_realtime on 2.5 s at wall-clock rate;
   phase 29 tools/ab_reference against the port's own strict-ref stems
            (passes) and with a corrupted stem (fails);
+  phase 30 the multi-process corpus on this card (tools/multihost_smoke.py):
+           2 and 3 processes sharing the card over the global mesh dp = N
+           x sp = 2 (five tracks, the last routed long), every stem
+           byte-equal to one process on the same mesh, a SIGKILL before the
+           last track and a resume, `python -m zen_tpu_torch corpus --nprocs
+           2`, and the pipelined cascade given the card twice;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -118,8 +124,8 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route (phase 6 and phases 7-29; the
-SSE paths must launch none; phases 18-22 and 24-29 require each run's
+are counted per path and per kernel route (phase 6 and phases 7-30; the
+SSE paths must launch none; phases 18-22 and 24-30 require each run's
 count to equal the count from its shapes and, for the instruments, the
 calls they report; phase 23's random configs are read, not counted).
 
@@ -2038,14 +2044,16 @@ def corpus_separator(fs):
     return HPRIOffline(fs, 4096, 256, 2.0, 2.0, device=DEVICE)
 
 
-def corpus_plan(items, dp: int = 1) -> tuple:
+def corpus_plan(items, dp: int = 1, long_samples: int | None = None) -> tuple:
     """How separate_corpus groups tracks [(path, fs, n)] in order: (the
-    batches of up to ``dp`` short tracks of one rate, the long tracks)."""
+    batches of up to ``dp`` short tracks of one rate, the long tracks: past
+    ``long_samples``, LONG_TRACK_SAMPLES by default)."""
     from zen_tpu_torch.drivers.offline import LONG_TRACK_SAMPLES
 
+    long_samples = LONG_TRACK_SAMPLES if long_samples is None else long_samples
     batches, long_tracks, cur = [], [], []
     for path, fs, n in items:
-        if n > LONG_TRACK_SAMPLES:
+        if n > long_samples:
             long_tracks.append((path, fs, n))
             continue
         if cur and (fs != cur[0][1] or len(cur) == dp):
@@ -3081,6 +3089,131 @@ def phase_live_tools(smi: str) -> dict:
     return total
 
 
+# ---------------- the multi-process corpus ----------------
+
+
+def mesh_corpus_launches(items, dp: int, sp: int, procs: int, long_cut: int | None) -> dict:
+    """The median launches, summed over ``procs`` processes, of
+    separate_corpus over ``items`` on the global mesh dp x sp, the long
+    threshold ``long_cut`` x sp (None: the default): each batch is one
+    sharded_hpri_offline, whose dp x sp shards (each process its own) run
+    one K1 and one K2 a pass; a long track at sp > 1 is each process's
+    sharded blocked scan (every block of its ring, and the block before
+    each span but the first), at sp = 1 process 0's process_blocked."""
+    from zen_tpu_torch.drivers.offline import _Blocking
+    from zen_tpu_torch.parallel import sharded as tsh
+
+    counts = dict.fromkeys(read_launches(), 0)
+    batches, long_tracks = corpus_plan(items, dp, None if long_cut is None else long_cut * sp)
+    for batch in batches:
+        sep = corpus_separator(batch[0][1])
+        for cfg in (sep.cfg_h, sep.cfg_p):
+            add_pass(counts, cfg, dp * sp)
+    for _, fs, n in long_tracks:
+        sep = corpus_separator(fs)
+        for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192)):
+            if sp > 1:
+                _, nbl = tsh._sharded_blocking(n, cfg, bf, sp)
+                add_pass(counts, cfg, procs * (sp * nbl + sp - 1))
+            else:
+                add_pass(counts, cfg, _Blocking.of(n, cfg, bf).n_blocks)
+    return counts
+
+
+def phase_multihost(smi: str) -> dict:
+    """The multi-process corpus on this one card (tools/multihost_smoke.py
+    --device cuda, in-process as its orchestrator; the workers are
+    processes sharing the card by time slicing, so their walls say nothing
+    about scaling): the corpus command's defaults (44.1 kHz,
+    4096/2.0/256/2.0), four tracks of 30-90 s and one of 150 s routed long
+    by the workers' lowered LONG_TRACK_SAMPLES (60 s x sp), over the
+    global mesh dp = N x sp = 2, N = 2 and 3. Every leg's stems byte-equal
+    to the golden single-process run's (this process on the same mesh of
+    the card repeated); at N = 2 the fleet SIGKILLed before the last track
+    and resumed, and `python -m zen_tpu_torch corpus --nprocs 2` against
+    the golden dp = 2 x 1 run. Launches summed over each leg's processes
+    equal the count from the shapes (the killed run's and the CLI's
+    processes report none). Then `zen-torch corpus --pp` and
+    separate_corpus(pp=True) on a dp = 2 mesh of the card (the pipeline
+    given the card twice) on the short tracks: byte-equal stems."""
+    import shutil
+    import tempfile
+
+    from zen_tpu_torch.drivers.corpus import separate_corpus
+    from zen_tpu_torch.io.audio import read_audio_mono
+    from zen_tpu_torch.tools import multihost_smoke as mh
+
+    total, counted = launch_ledger()
+    cut = mh.corpus_of(DEVICE).long_cut
+    for n, legs in ((2, "run,resume,cli"), (3, "run")):
+        args = mh.parse(["--device", DEVICE, "--nprocs", str(n), "--legs", legs,
+                         "--timeout", "300"])
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            args.work, args.corpus_dir = work, os.path.join(work, "corpus")
+            torch.cuda.synchronize()
+            report = mh.run_legs(args)
+            paths = sorted(str(p) for p in Path(args.corpus_dir).glob("*.wav"))
+            items = []
+            for p in paths:
+                fs, audio = read_audio_mono(p)
+                items.append((p, fs, len(audio)))
+            done = report["legs"].get("resume", {}).get("done_before", 0)
+            want = {"golden": mesh_corpus_launches(items, n, 2, 1, cut),
+                    "run": mesh_corpus_launches(items, n, 2, n, cut),
+                    "resume": mesh_corpus_launches(items[done:], n, 2, n, cut),
+                    "cli_golden": mesh_corpus_launches(items, n, 1, 1, None)}
+            for name, leg in report["legs"].items():
+                if name == "cli":
+                    continue  # the command's processes: launches nobody reads
+                require(leg["launches"] == want[name],
+                        f"multihost N={n} {name}: launches {nonzero(leg['launches'])}, counted "
+                        f"from the shapes {nonzero(want[name])}")
+                for k in total:
+                    total[k] += leg["launches"][k]
+                walls = ", ".join(f"{w['wall_s']:.2f}" for w in leg["workers"])
+                gathers = ", ".join(f"{w['gather_s']:.3f}" for w in leg["workers"])
+                print(f"phase 30 multihost N={n} {name}: {leg['wall_s']:.2f} s "
+                      f"({'this process' if 'golden' in name else f'{n} processes'}; separate_corpus "
+                      f"walls [{walls}] s, their gathers [{gathers}] s); "
+                      f"launches {nonzero(leg['launches'])}, as counted from the shapes [{smi}]")
+            run = report["legs"]["run"]
+            require(all(w["owners"] == [[i] for i in range(n)] for w in run["workers"]),
+                    f"an sp ring spans processes: {[w['owners'] for w in run['workers']]}")
+            extra = ""
+            if "resume" in report["legs"]:
+                extra = (f"; killed after {done} journaled tracks (before the last), resumed: "
+                         f"{report['legs']['resume']['workers'][0]['results']}, byte-equal; "
+                         f"`python -m zen_tpu_torch corpus --nprocs {n}`: "
+                         f"{report['legs']['cli']['wall_s']:.2f} s, byte-equal to the dp={n} x 1 "
+                         "golden run")
+            print(f"phase 30 multihost N={n}: {report['tracks']} tracks, every stem byte-equal to "
+                  f"the golden run's; no sp ring across processes{extra} [{smi}]")
+            if n == 2:
+                short = paths[:4]
+                short_items = items[:4]
+                out_pp, out_pp2 = Path(work) / "pp", Path(work) / "pp2"
+                hops = mh.corpus_of(DEVICE)  # the corpus command's defaults on the card
+                _, wall_pp = counted(
+                    lambda: zen_cli(["corpus", "-i", *short, "-o", out_pp, "--pp", "--hps",
+                                     hops.hop_h, 2.0, hops.hop_p, 2.0, "--device", DEVICE]),
+                    corpus_launches(short_items), "corpus --pp")
+                res, wall_pp2 = counted(
+                    lambda: separate_corpus(short, str(out_pp2), card_mesh({"dp": 2}), pp=True,
+                                            hop_h=hops.hop_h, hop_p=hops.hop_p),
+                    corpus_launches(short_items), "separate_corpus(pp, devices=[card, card])")
+                require(res == {"done": 0, "processed": 4}, f"pp on dp=2: {res}")
+                require(mh.stems(out_pp) == mh.stems(out_pp2),
+                        "the pipeline given the card twice differs from phase 18's --pp route")
+                shutil.rmtree(out_pp)
+                shutil.rmtree(out_pp2)
+                print(f"phase 30 corpus --pp on {len(short)} tracks: zen-torch corpus --pp "
+                      f"(devices [card]) {wall_pp:.2f} s, separate_corpus(pp=True) on a dp=2 mesh "
+                      f"(devices [card, card]) {wall_pp2:.2f} s: stems byte-equal [{smi}]")
+    require(all(v > 0 for v in per_kernel(total).values()), f"multihost launches {total}")
+    return total
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
@@ -3176,7 +3309,7 @@ def main() -> None:
                         ("entry", phase_entry), ("fuzz", phase_fuzz),
                         ("kernels_sweep", phase_kernels_sweep), ("soak", phase_soak),
                         ("scaling", phase_scaling), ("io_codec", phase_io_codec),
-                        ("live_tools", phase_live_tools)):
+                        ("live_tools", phase_live_tools), ("multihost", phase_multihost)):
         t0 = time.perf_counter()
         counts = phase(smi)
         if counts is not None:

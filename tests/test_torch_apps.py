@@ -362,7 +362,7 @@ def test_corpus_cli_matches_zen_tpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,rc,msg", [
-    (["--nprocs", "2"], 2, "--nprocs above 1 is not ported yet"),
+    (["--nprocs", "2"], 1, "--nprocs needs --coordinator HOST:PORT"),
     (["--coordinator", "h:1"], 1, "--coordinator/--proc-id need --nprocs >= 2"),
     (["--proc-id", "1"], 1, "--coordinator/--proc-id need --nprocs >= 2"),
     (["--mesh", "dp=0"], 1, "mesh axis size must be >= 1"),

@@ -236,15 +236,15 @@ def test_mesh_refusals_match_zen_tpu(mix, tmp_path, jax_refusals, case):
     assert (want_rc, want_err.strip().splitlines()[-1]) == (rc, line)
 
 
-def test_corpus_nprocs_names_the_multi_host_item(mix, tmp_path):
-    """--nprocs above 1 (the multi-host half) exits 2 with one stderr line
-    naming ROADMAP queue 1 item 9b."""
+def test_corpus_nprocs_needs_a_coordinator(mix, tmp_path):
+    """--nprocs 2 without --coordinator exits 1 with zen_tpu's one stderr
+    line, before any process group is joined (tests/test_torch_multihost.py
+    holds every such check against zen_tpu's CLI)."""
     rc, out, err = _in_process("corpus", "-i", mix / "mix.wav", "-o", tmp_path, "--nprocs", "2",
-                               "--coordinator", "localhost:1234", "--device", "cpu")
-    assert rc == 2 and out == ""
-    assert err.strip().splitlines() == [
-        "zen-torch corpus: --nprocs above 1 is not ported yet (ROADMAP queue 1, item 9b: "
-        "multi-host)"]
+                               "--device", "cpu")
+    assert rc == 1 and out == ""
+    assert err.strip().splitlines() == ["corpus: --nprocs needs --coordinator HOST:PORT"]
+    assert not torch.distributed.is_initialized()
 
 
 def test_mesh_wider_than_the_cards_raises_without_fallback(mix, tmp_path):

@@ -15,7 +15,8 @@ defaults, echo blocks and JSON metric lines:
       [--nocopybord] [--sse] [--soft-mask] [impl flags] [--device cuda|cpu]
   zen-torch corpus -i tracks... -o out_dir [--hps [hop-h beta-h hop-p beta-p]]
       [--mesh dp=N,sp=M] [--pp] [--prefetch 2] [--stem-format wav|flac|wv]
-      [impl flags] [--device cuda|cpu]
+      [--nprocs N --coordinator HOST:PORT --proc-id I] [impl flags]
+      [--device cuda|cpu]
   zen-torch pitch-track -i in.wav [--device cuda|cpu]
   zen-torch beat-track -i in.wav [--device cuda|cpu]
   zen-torch synth -o mix.wav [--fs] [--seconds] [--bpm] [--hits-per-beat]
@@ -43,8 +44,10 @@ the JAX command:
   type (``parallel/mesh.py``; ``--device cpu`` repeats the CPU for every
   shard); too few cards fail with its ZenError, as zen_tpu's CLI fails on
   too few chips. corpus without ``--mesh`` takes ``default_mesh``.
-  corpus's ``--nprocs`` above 1 exits 2 with one stderr line naming ROADMAP
-  queue 1 item 9b (multi-host).
+  corpus's ``--nprocs N --coordinator HOST:PORT --proc-id I`` runs one of N
+  processes of a multi-process corpus (``torch.distributed`` over gloo;
+  the mesh is global, dp takes the process split, and only process 0
+  writes), with zen_tpu's checks, stderr lines and exit codes.
 - The lines that name the compute name the device, where zen_tpu's say
   "TPU-native"; the substrings parsers read ("Running zen-offline",
   "HPR-I-Offline took", "Running zen-fakert", "PRealtime") stay.
@@ -316,8 +319,28 @@ def cmd_corpus(args) -> int:
         print("corpus: --coordinator/--proc-id need --nprocs >= 2", file=sys.stderr)
         return 1
     if args.nprocs > 1:
-        return _refuse("corpus", "--nprocs above 1 is not ported yet "
-                       "(ROADMAP queue 1, item 9b: multi-host)")
+        # join the process group before any device query, so that the
+        # mesh is global; every process runs this command with its own
+        # --proc-id, and the corpus driver does the rest (the same
+        # batches on each, only process 0 writes)
+        if not args.coordinator:
+            print("corpus: --nprocs needs --coordinator HOST:PORT", file=sys.stderr)
+            return 1
+        if not 0 <= args.proc_id < args.nprocs:
+            print(f"corpus: --proc-id {args.proc_id} outside 0..{args.nprocs - 1}",
+                  file=sys.stderr)
+            return 1
+        from .parallel import multihost
+        from .parallel.mesh import distributed_init
+
+        try:
+            distributed_init(args.coordinator, args.nprocs, args.proc_id)
+        except (RuntimeError, ValueError):
+            pass  # reported by the count below, as zen_tpu reports it
+        if multihost.process_count() != args.nprocs:
+            print(f"corpus: distributed bootstrap failed (process_count="
+                  f"{multihost.process_count()}, expected {args.nprocs})", file=sys.stderr)
+            return 1
     axes = None
     if args.mesh:
         axes, err = _parse_mesh_axes(args.mesh, ("dp", "sp"))
@@ -769,15 +792,17 @@ def build_parser() -> argparse.ArgumentParser:
     cor.add_argument("--mesh", default="",
                      help="mesh axes, e.g. dp=4,sp=2 (default: all visible devices)")
     cor.add_argument("--pp", action="store_true",
-                     help="pipelined cascade: track i+1's pass 1 overlaps track i's pass 2 "
-                     "on two CUDA streams (short tracks)")
+                     help="pipelined cascade: track i+1's pass 1 overlaps track i's pass 2, "
+                     "on the mesh's first two devices (two CUDA streams of one card; short "
+                     "tracks; one process)")
     cor.add_argument("--prefetch", type=int, default=2, metavar="N",
                      help="decode N tracks ahead and encode stems on a background thread, "
                      "overlapping host IO with the card (0 = synchronous IO; default 2)")
     cor.add_argument("--coordinator", default="", metavar="HOST:PORT",
-                     help="multi-host run: not ported yet (ROADMAP queue 1, item 9b)")
+                     help="multi-host run: coordinator address (same on every process); run "
+                     "this command once per process with its --proc-id")
     cor.add_argument("--nprocs", type=int, default=1,
-                     help="multi-host run: total process count (above 1: not ported yet)")
+                     help="multi-host run: total process count")
     cor.add_argument("--proc-id", type=int, default=0,
                      help="multi-host run: this process's rank (0..nprocs-1)")
     cor.add_argument("--stem-format", choices=("wav", "flac", "wv"), default="wav",

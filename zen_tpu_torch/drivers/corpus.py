@@ -16,11 +16,16 @@ with crash-safe resume through a ``ProgressJournal``
   x sp takes the checkpointed ``sharded_hpri_blocked`` when sp > 1 and
   the checkpointed ``process_blocked`` otherwise, zen_tpu's two branches.
 
-zen_tpu's multi-host branches (``jax.process_index``, a journal that only
-process 0 writes, ``multihost_utils`` gathers) are ROADMAP queue 1 item
-9b, as is its refusal of ``pp`` on several hosts. Stem names, journal
-keys (``_jkey``) and journal lines are zen_tpu's, so a journal either
-package wrote resumes in the other.
+Over several processes (a mesh from ``make_mesh`` under a process group,
+``zen-torch corpus --nprocs``) every process reads the same tracks and
+builds the same batches, so that all enter the same exchanges in the
+same order; each computes its own dp rows and gets every row's stems,
+but only process 0 writes stems and journal lines (the others read the
+journal once, at the start, and count what they would have written).
+A long track at sp = 1 is computed by process 0 alone. ``pp`` refuses
+several processes, as zen_tpu's does. Stem names, journal keys
+(``_jkey``) and journal lines are zen_tpu's, so a journal either package
+wrote resumes in the other.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import os
 
 import numpy as np
 
+from ..errors import ZenError
 from ..parallel.mesh import default_mesh
 from ..parallel.sharded import sharded_hpri_blocked, sharded_hpri_offline
 from ..runtime.checkpoint import ProgressJournal
@@ -58,6 +64,24 @@ def journal_key(path: str, stem_format: str) -> str:
     unless it is wav (zen_tpu's keys), so that a run resumed with another
     format re-separates the tracks that only have the old format's stems."""
     return path if stem_format == "wav" else f"{path}::{stem_format}"
+
+
+def _no_write(path, fs, audio):
+    """The writer of every process but 0."""
+
+
+class _ReadOnlyJournal:
+    """The journal as every process but 0 holds it: read at the start,
+    never written."""
+
+    def __init__(self, inner: ProgressJournal):
+        self._inner = inner
+
+    def is_done(self, key: str) -> bool:
+        return self._inner.is_done(key)
+
+    def mark_done(self, key: str, info: dict | None = None) -> None:
+        pass
 
 
 def separate_corpus(
@@ -98,9 +122,11 @@ def separate_corpus(
     ``writer`` must be thread-safe unless ``prefetch=0``.
 
     ``pp=True`` routes the short tracks through the pipelined cascade
-    (drivers/pipeline.py, two CUDA streams): pass 1 of track i+1 runs
-    while pass 2 of track i does, in runs of up to ``pp_run`` tracks of
-    one sample rate. Long tracks take the blocked route either way.
+    (drivers/pipeline.py) over the mesh's devices, pass 1 on the first
+    and pass 2 on the second (two CUDA streams where that is the same
+    card): pass 1 of track i+1 runs while pass 2 of track i does, in runs
+    of up to ``pp_run`` tracks of one sample rate. Long tracks take the
+    blocked route either way. ``pp`` refuses a mesh that spans processes.
     """
     from ..io.audio import peak_normalize, read_audio_mono, write_audio_pcm16
     from .offline import LONG_TRACK_SAMPLES
@@ -109,12 +135,18 @@ def separate_corpus(
         raise ValueError(f"stem_format must be wav|flac|wv, got {stem_format!r}")
     if mesh is None:
         mesh = default_mesh(n_channels_hint=len(track_paths))
+    if pp and mesh.spans_processes:
+        raise ZenError("corpus pp mode is single-host; pods should use dp/sp meshes")
+    # process 0 writes; the others compute their rows and discard
+    writes = mesh.process_index == 0
     device = mesh.first
     n_dp, n_sp = mesh.size("dp"), mesh.size("sp")
     reader = reader or read_audio_mono
-    writer = writer or write_audio_pcm16
+    writer = (writer or write_audio_pcm16) if writes else _no_write
     os.makedirs(out_dir, exist_ok=True)
     journal = ProgressJournal(journal_path or os.path.join(out_dir, "progress.jsonl"))
+    if not writes:
+        journal = _ReadOnlyJournal(journal)
     # the op-seam knobs flow into every config this driver builds
     impl_kw = dict(fft_impl=fft_impl, median_impl=median_impl, stream_state=stream_state)
     bases = stem_bases(track_paths)
@@ -128,7 +160,7 @@ def separate_corpus(
     # .ckpt cleanup; the resume skips the journal-done track and nothing
     # else would ever delete its checkpoint files
     for p in track_paths:
-        if journal.is_done(journal_key(p, stem_format)):
+        if writes and journal.is_done(journal_key(p, stem_format)):
             for tag in (f"{bases[p]}.p1", f"{bases[p]}.p2"):
                 clear_track_checkpoint(ckpt_dir, tag)
 
@@ -149,8 +181,9 @@ def separate_corpus(
 
         def job():
             for stem, data in (("harm", h), ("perc", p), ("residual", r)):
-                writer(os.path.join(out_dir, f"{bases[path]}_{stem}.{stem_format}"), fs,
-                       peak_normalize(np.asarray(data)))
+                if writes:
+                    data = peak_normalize(np.asarray(data))
+                writer(os.path.join(out_dir, f"{bases[path]}_{stem}.{stem_format}"), fs, data)
             journal.mark_done(journal_key(path, stem_format), {"samples": int(n_samples)})
             results["processed"] += 1
             if after is not None:
@@ -182,13 +215,19 @@ def separate_corpus(
         if n_sp > 1:
             stems = sharded_hpri_blocked(audio, sep.cfg_h, sep.cfg_p, mesh, ckpt_dir=ckpt_dir,
                                          tag=tag)
-        else:
+        elif writes:
             stems = sep.process_blocked(audio, ckpt_dir=ckpt_dir, tag=tag)
+        else:
+            # one device's scan: process 0 computes it, the others count
+            # the track (on the writer thread, as the writes count theirs)
+            write_track(fs, path, None, None, None, len(audio))
+            return
         h, p, r = (x.cpu().numpy() for x in stems)
 
         def drop_ckpt():  # after the journal line: the stems are durable
-            for p_tag in (f"{tag}.p1", f"{tag}.p2"):
-                clear_track_checkpoint(ckpt_dir, p_tag)
+            if writes:
+                for p_tag in (f"{tag}.p1", f"{tag}.p2"):
+                    clear_track_checkpoint(ckpt_dir, p_tag)
 
         write_track(fs, path, h, p, r, len(audio), after=drop_ckpt)
 
@@ -199,7 +238,7 @@ def separate_corpus(
         # drains the pipeline
         if fs not in pipes:
             sep = separator(fs)
-            pipes[fs] = PipelinedHPRIOffline(sep.cfg_h, sep.cfg_p, device=device)
+            pipes[fs] = PipelinedHPRIOffline(sep.cfg_h, sep.cfg_p, devices=list(mesh.devices.flat))
         for path, audio, stems in zip(batch_paths, batch_audio,
                                       pipes[fs].process_stream(batch_audio)):
             h, p, r = (x.cpu().numpy() for x in stems)

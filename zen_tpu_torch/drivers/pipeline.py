@@ -4,18 +4,22 @@
 The cascade's two passes (the hop_h pass feeding the hop_p pass,
 hps.cu:128-221) have independent state, so a stream of tracks pipelines:
 pass 1 of track i+1 runs while pass 2 of track i runs. zen_tpu puts the
-passes on two devices; on one card they run on two CUDA streams: pass 1
-in a worker thread under stream A, pass 2 in the consumer under stream
-B. The median kernels and torch's ops launch on the current stream,
-which is per thread, so each thread enters its own.
+passes on two devices (``devices[0]`` and ``devices[1 % n]``), as the
+port does when given ``devices``: pass 1 in a worker thread under stream
+A of the first, pass 2 in the consumer under stream B of the second; the
+same card given twice (or ``device=``) is two streams of that card. The
+median kernels and torch's ops launch on the current stream, which is
+per thread, so each thread enters its own.
 
 Hand-offs between the streams, with no host synchronization:
 
-* both streams first wait for what the caller's stream has enqueued;
+* both streams first wait for what the caller's streams have enqueued;
 * the worker records an event after pass 1 of a track, and stream B
-  waits on it before pass 2 reads the intermediate;
-* the caller's stream waits on an event recorded after pass 2 before it
-  is handed the stems;
+  waits on it before pass 2 reads the intermediate; across two cards the
+  intermediate then crosses with ``.to(dev_b, non_blocking=True)``, which
+  torch orders after stream B's wait (a barrier both ways);
+* the caller's streams wait on the events recorded after pass 2 (and,
+  across two cards, pass 1) before they are handed the stems;
 * every tensor that crosses to another stream is ``record_stream``-ed
   there, so that the caching allocator does not hand its memory to new
   work of the stream that made it while the other stream still reads it.
@@ -51,34 +55,42 @@ def _event(stream):
 
 
 class PipelinedHPRIOffline:
-    """2-pass HPR-I with the passes on two CUDA streams of ``device``
-    (the card unless ``device="cpu"``), or two threads on the CPU."""
+    """2-pass HPR-I with pass 1 on ``devices[0]`` and pass 2 on
+    ``devices[1 % n]`` (zen_tpu's placement), or both on ``device`` (the
+    card unless ``device="cpu"``) when ``devices`` is not given. On one
+    card the passes run on two CUDA streams of it; on two cards on a
+    stream of each, the intermediate crossing with a peer copy; on the
+    CPU in two threads."""
 
-    def __init__(self, cfg_h: HPRConfig, cfg_p: HPRConfig, device="cuda"):
+    def __init__(self, cfg_h: HPRConfig, cfg_p: HPRConfig, device="cuda", devices=None):
         self.cfg_h = cfg_h
         self.cfg_p = cfg_p
-        self.device = resolve_device(device)
+        devs = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.dev_a, self.dev_b = devs[0], devs[1 % len(devs)]
         # one pair for the pipeline's life: the caching allocator pools
         # memory per stream, and fresh streams on every call would start
         # from empty pools (a cudaMalloc, which synchronizes the card, for
         # every tensor of the call)
-        cuda = self.device.type == "cuda"
-        self._streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device)) if cuda \
+        cuda = self.dev_a.type == "cuda"
+        self._streams = (torch.cuda.Stream(self.dev_a), torch.cuda.Stream(self.dev_b)) if cuda \
             else (None, None)
 
     def process_stream(self, tracks, prefetch: int = 2):
-        """tracks: iterable of [L] audio (numpy, or tensors on ``device``).
-        Yields (h, p, r) [L] tensors on ``device`` per track, in order,
-        ready on the caller's current stream. Pass 1 of track i+1 runs in
-        a worker thread while this thread runs pass 2 of track i;
-        ``prefetch`` bounds the tracks in flight (backpressure on the
-        worker)."""
-        cuda = self.device.type == "cuda"
-        caller = torch.cuda.current_stream(self.device) if cuda else None
+        """tracks: iterable of [L] audio (numpy, or tensors on
+        ``devices[0]``). Yields (h, p, r) [L] tensors per track, in order,
+        ready on the caller's current streams: h on ``devices[0]``, p and r
+        on ``devices[1 % n]``. Pass 1 of track i+1 runs in a worker thread
+        while this thread runs pass 2 of track i; ``prefetch`` bounds the
+        tracks in flight (backpressure on the worker)."""
+        dev_a, dev_b = self.dev_a, self.dev_b
+        cuda = dev_a.type == "cuda"
+        peer = dev_a != dev_b
+        caller_a = torch.cuda.current_stream(dev_a) if cuda else None
+        caller_b = torch.cuda.current_stream(dev_b) if cuda else None
         stream_a, stream_b = self._streams
         if cuda:  # the caller's inputs and cached constants come first
-            stream_a.wait_stream(caller)
-            stream_b.wait_stream(caller)
+            stream_a.wait_stream(caller_a)
+            stream_b.wait_stream(caller_b)
         q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
         DONE, ERR = object(), object()
         stop = threading.Event()
@@ -101,7 +113,7 @@ class PipelinedHPRIOffline:
                     for audio in tracks:
                         if stop.is_set():
                             return
-                        x = on_device(audio, self.device)
+                        x = on_device(audio, dev_a)
                         if cuda and isinstance(audio, torch.Tensor):
                             audio.record_stream(stream_a)
                         p1 = hpr_separate(x, self.cfg_h)
@@ -125,14 +137,22 @@ class PipelinedHPRIOffline:
                 with _stream(stream_b):
                     if cuda:
                         stream_b.wait_event(pass1_done)
-                        inter.record_stream(stream_b)
+                        if peer:
+                            # the peer copy runs on this thread's current
+                            # stream of dev_a, after a barrier on stream_b
+                            inter.record_stream(torch.cuda.current_stream(dev_a))
+                            inter = inter.to(dev_b, non_blocking=True)
+                        else:
+                            inter.record_stream(stream_b)
                     p2 = hpr_separate(inter, self.cfg_p)
                     del inter
                     pass2_done = _event(stream_b)
                 out = (h, p2["percussive"], p2["residual"])
-                if cuda:  # pass 2 waited on pass 1: one event covers all three
-                    caller.wait_event(pass2_done)
-                    for x in out:
+                if cuda:  # pass 2 waited on pass 1: on one card one event covers all three
+                    caller_b.wait_event(pass2_done)
+                    if peer:
+                        caller_a.wait_event(pass1_done)
+                    for x, caller in zip(out, (caller_a, caller_b, caller_b)):
                         x.record_stream(caller)
                 yield out
         finally:

@@ -342,6 +342,9 @@ class MultiStreamHPR:
         self.n_streams = n_streams
         if mesh is None:
             devices = [resolve_device(device)]
+        elif mesh.spans_processes:
+            # zen_tpu offers several processes on the corpus alone
+            raise ZenError("MultiStreamHPR: the mesh spans processes; a fleet runs in one process")
         else:
             devices = [mesh.device(**{dp_axis: i}) for i in range(mesh.size(dp_axis))]
         if n_streams % len(devices):

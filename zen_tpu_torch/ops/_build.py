@@ -26,6 +26,7 @@ unless a CUDA tensor reaches a wrapper.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -146,7 +147,15 @@ def library(cut: int = 0) -> ctypes.CDLL:
         raise ValueError(f"ZEN_RANK_CUT is 0, 1 or 2, got {cut}")
     out = library_path(cut)
     if not out.exists():
-        _build(out, _flags(cut))
+        # processes started together (a multi-process corpus) build once:
+        # the first takes the lock and builds, the others wait and load.
+        # The lock is the library's own, so that its split builds
+        # (chip_smoke.py's phase 2) still compile at the same time.
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(out.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not out.exists():
+                _build(out, _flags(cut))
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -28,8 +28,15 @@ another). The collectives become:
 
 Every median of a shard goes through the port's kernel wrappers (K1 and
 K2 on CUDA tensors, their plain twins on CPU tensors), at the shard's
-own shapes. The multi-host branches of zen_tpu's drivers are ROADMAP
-queue 1 item 9b.
+own shapes.
+
+Over several processes (a mesh from ``make_mesh`` under a process group)
+each process issues only the shards it owns: its dp rows, whose sp rings
+never cross processes, so every halo stays inside a process. The dp x sp
+drivers join the rows' stems on every process at the end
+(``multihost.allgather``); the blocked scan runs each process's own ring,
+and its checkpointed form writes from process 0 alone. tp refuses a
+mesh that spans processes.
 """
 from __future__ import annotations
 
@@ -72,6 +79,7 @@ from ..ops import box, median_cuda
 from ..ops.fft import _tf32_off
 from ..ops.framing import frame_signal, overlap_add_stream
 from ..runtime.checkpoint import save_stream_state_durable
+from . import multihost
 from .mesh import Mesh
 
 
@@ -160,28 +168,39 @@ def _sp_stems(spectra: list, masks: list, local: list, devs: list, n_sp: int,
     return [torch.stack(o) for o in outs]
 
 
-def _sp_local(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str, sp_axis: str) -> tuple:
-    """(each shard's samples on its device, the devices, n_sp, the audio's
-    length) of a dp x sp pass over [C, L] (or [L]) audio. The
-    frame count is rounded up to a multiple of the sp width (the extra
-    frames are zero audio, whose feature is the prefill the unsharded
-    taps read)."""
+def _own_block(audio, mesh: Mesh, dp_axis: str, sp_axis: str) -> tuple:
+    """(this process's rows of [C, L] (or [L]) audio, the devices of the
+    shards it issues, n_sp, the audio's [C, L] shape, its first channel):
+    its dp rows' channels and those rows' shards, k = i*n_sp + j over its
+    rows i in order (all of them in one process; a dp row's sp ring never
+    crosses processes, ``make_mesh``)."""
     audio = _as_audio(audio)
     if audio.ndim == 1:
         audio = audio[None]
-    n_ch, length = audio.shape
+    n_ch = audio.shape[0]
     n_dp, n_sp = mesh.size(dp_axis), mesh.size(sp_axis)
     if n_ch % n_dp:
         raise ZenError(f"channels ({n_ch}) not divisible by dp ({n_dp})")
-    devs = [mesh.device(**{dp_axis: i, sp_axis: j}) for i in range(n_dp) for j in range(n_sp)]
+    rows = [i for i in range(n_dp) if mesh.is_local(**{dp_axis: i})]
+    devs = [mesh.device(**{dp_axis: i, sp_axis: j}) for i in rows for j in range(n_sp)]
+    per = n_ch // n_dp
+    lo = rows[0] * per
+    return audio[lo : (rows[-1] + 1) * per], devs, n_sp, tuple(audio.shape), lo
+
+
+def _sp_local(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_sp: int) -> list:
+    """Each shard's samples on its device for a dp x sp pass over [C, L]
+    audio, C split over len(devs) / n_sp dp rows. The frame count is
+    rounded up to a multiple of the sp width (the extra frames are zero
+    audio, whose feature is the prefill the unsharded taps read)."""
+    n_ch, length = audio.shape
     hop = cfg.hop
     n_frames = -(-_n_frames(length, cfg) // n_sp) * n_sp
     padded = torch.nn.functional.pad(audio, (0, n_frames * hop - length))
-    rows, span = n_ch // n_dp, n_frames // n_sp * hop
-    local = [_moved(padded[k // n_sp * rows : (k // n_sp + 1) * rows,
-                           k % n_sp * span : (k % n_sp + 1) * span], dev)
-             for k, dev in enumerate(devs)]
-    return local, devs, n_sp, length
+    rows, span = n_ch // (len(devs) // n_sp), n_frames // n_sp * hop
+    return [_moved(padded[k // n_sp * rows : (k // n_sp + 1) * rows,
+                          k % n_sp * span : (k % n_sp + 1) * span], dev)
+            for k, dev in enumerate(devs)]
 
 
 def _sp_gather(parts: list, n_sp: int, time_dim: int, row_dim: int,
@@ -193,48 +212,68 @@ def _sp_gather(parts: list, n_sp: int, time_dim: int, row_dim: int,
     return torch.cat(rows, dim=row_dim)
 
 
+def _own_pass(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_sp: int) -> tuple:
+    """One dp x sp pass over this process's rows [C_own, L]: (stems [3,
+    C_own, L] on its first shard's device, each shard's masks)."""
+    local = _sp_local(audio, cfg, devs, n_sp)
+    spectra, masks = _sp_masks(local, devs, n_sp, cfg)
+    out = _sp_gather(_sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1, devs[0])
+    return out[..., : audio.shape[-1]], masks
+
+
+def _across(mesh: Mesh, parts) -> list:
+    """Each of this process's row blocks joined with every other process's
+    along dim 0 (zen_tpu's ``process_allgather(tiled=True)``): the whole
+    [C, ...] on every process, on the device it was on."""
+    if not mesh.spans_processes:
+        return list(parts)
+    return [multihost.allgather(x) for x in parts]
+
+
 def sharded_separate(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
                      sp_axis: str = "sp") -> dict:
     """Offline HPR pass on [C, L] (or [L]) audio, channels over
     ``dp_axis`` and time blocks over ``sp_axis``: dict of [C, L] stems on
-    the mesh's first device, equal to ``hpr_separate`` per channel up to
-    the transforms' batch rounding."""
-    local, devs, n_sp, length = _sp_local(audio, cfg, mesh, dp_axis, sp_axis)
-    spectra, masks = _sp_masks(local, devs, n_sp, cfg)
-    out = _sp_gather(_sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1, devs[0])
-    return {name: out[i, :, :length] for i, name in enumerate(STEMS)}
+    this process's first device, equal to ``hpr_separate`` per channel up
+    to the transforms' batch rounding. Over several processes each issues
+    its own dp rows' shards, and every process gets every row."""
+    own, devs, n_sp, _, _ = _own_block(audio, mesh, dp_axis, sp_axis)
+    out, _ = _own_pass(own, cfg, devs, n_sp)
+    return dict(zip(STEMS, _across(mesh, out)))
 
 
 def sharded_pass_masks(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
                        sp_axis: str = "sp") -> tuple:
     """``sharded_separate``'s stems and the (harmonic, percussive) masks
-    [C, frames, bins] they came from, both on the mesh's first device:
-    what a flip count between two runs of a pass reads."""
-    local, devs, n_sp, length = _sp_local(audio, cfg, mesh, dp_axis, sp_axis)
-    spectra, masks = _sp_masks(local, devs, n_sp, cfg)
-    out = _sp_gather(_sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1, devs[0])
-    stems = {name: out[i, :, :length] for i, name in enumerate(STEMS)}
-    return stems, tuple(_sp_gather([m[i] for m in masks], n_sp, -2, 0, devs[0]) for i in (0, 1))
+    [C, frames, bins] they came from, both on this process's first
+    device: what a flip count between two runs of a pass reads."""
+    own, devs, n_sp, _, _ = _own_block(audio, mesh, dp_axis, sp_axis)
+    out, masks = _own_pass(own, cfg, devs, n_sp)
+    own_masks = [_sp_gather([m[i] for m in masks], n_sp, -2, 0, devs[0]) for i in (0, 1)]
+    return dict(zip(STEMS, _across(mesh, out))), tuple(_across(mesh, own_masks))
 
 
 def sharded_hpri_offline(audio, cfg_h: HPRConfig, cfg_p: HPRConfig, mesh: Mesh,
-                         lengths=None, **axes) -> tuple:
+                         lengths=None, dp_axis: str = "dp", sp_axis: str = "sp") -> tuple:
     """Sharded two-pass HPR-I: (harmonic, percussive, residual) [C, L].
 
     ``lengths`` ([C] ints): each channel's true length where channels are
     tracks zero-padded to one batch length. Pass 1's spill past a track
     is zeroed before pass 2, as the reference truncates between passes
     (hps.cu:171-178) and ``HPRIOffline.process(lengths=)`` does, so a
-    track's stems do not depend on the tracks that share its batch."""
-    pass1 = sharded_separate(audio, cfg_h, mesh, **axes)
-    inter = pass1["percussive"] + pass1["residual"]
+    track's stems do not depend on the tracks that share its batch. Pass
+    2 reads the process's own pass-1 rows, so only the stems cross
+    processes, at the end."""
+    own, devs, n_sp, shape, lo = _own_block(audio, mesh, dp_axis, sp_axis)
+    if lengths is not None and len(lengths) != shape[0]:
+        raise ZenError(f"lengths {list(lengths)} for audio of shape {shape}")
+    pass1, _ = _own_pass(own, cfg_h, devs, n_sp)
+    inter = pass1[1] + pass1[2]
     if lengths is not None:
-        if len(lengths) != inter.shape[0]:
-            raise ZenError(f"lengths {list(lengths)} for audio of shape {tuple(inter.shape)}")
-        for row, n in zip(inter, lengths):
+        for row, n in zip(inter, lengths[lo : lo + inter.shape[0]]):
             row[int(n):] = 0.0
-    pass2 = sharded_separate(inter, cfg_p, mesh, **axes)
-    return pass1["harmonic"], pass2["percussive"], pass2["residual"]
+    pass2, _ = _own_pass(inter, cfg_p, devs, n_sp)
+    return tuple(_across(mesh, (pass1[0], pass2[1], pass2[2])))
 
 
 # ---------------- sp: the blocked overlap-save scan ----------------
@@ -298,7 +337,10 @@ def _scan(windows: list, tails: list, cfg: HPRConfig, blk: _Blocking, b0: int, b
 
 
 def _sp_devices(mesh: Mesh, sp_axis: str) -> list:
-    return [mesh.device(**{sp_axis: d}) for d in range(mesh.size(sp_axis))]
+    """The sp ring of this process's first dp row (zen_tpu's ``P(sp)``
+    leaves dp replicated: every row's ring computes the same)."""
+    at = mesh.local_coords()
+    return [mesh.device(**{**at, sp_axis: d}) for d in range(mesh.size(sp_axis))]
 
 
 def sharded_separate_blocked(audio, cfg: HPRConfig, mesh: Mesh, block_frames: int = 2048,
@@ -309,8 +351,9 @@ def sharded_separate_blocked(audio, cfg: HPRConfig, mesh: Mesh, block_frames: in
     at all.
     Bitwise equal to ``hpr_separate_blocked`` at the same block size on
     the same device type. The mesh's other axes are not used (their
-    replicas would compute the same). Stems on the mesh's first
-    device."""
+    replicas would compute the same): over several processes each scans
+    the ring of its own dp row, with no exchange. Stems on this process's
+    first device."""
     audio = _blocked_audio(audio, "sharded_separate_blocked")
     devs = _sp_devices(mesh, sp_axis)
     blk, nbl = _sharded_blocking(audio.shape[-1], cfg, block_frames, len(devs))
@@ -343,7 +386,16 @@ def sharded_separate_blocked_checkpointed(
     checkpoint of another config or geometry, or a corrupt one, restarts
     from freshly primed tails. ``on_segment(next_block, nbl)`` is called
     after each durable segment. ``ckpt_dir=None`` is
-    ``sharded_separate_blocked``."""
+    ``sharded_separate_blocked``.
+
+    Over several processes (``ckpt_dir`` on a filesystem they share) each
+    scans its own ring; process 0 alone writes the stems file and the
+    checkpoint, and the others keep the stems in memory, reading the
+    resumed segments from the file. Before any segment the processes
+    agree on the block to resume from, and all refuse together if they
+    disagree or one cannot read the file: a process that ran a segment
+    the others skip would leave them waiting, and stems it failed to
+    read are never taken for zeros."""
     if ckpt_dir is None:
         return sharded_separate_blocked(audio, cfg, mesh, block_frames, sp_axis)
     audio = _blocked_audio(audio, "sharded_separate_blocked_checkpointed")
@@ -361,8 +413,28 @@ def sharded_separate_blocked_checkpointed(
     b, state = _resume_point(ckpt_path, stems_path, meta_want,
                              torch.zeros((n_sp, len(STEMS), hop)), nbl,
                              len(STEMS) * total * 4)
+    writes = mesh.process_index == 0
+    acc = None
+    if mesh.spans_processes:
+        unread = None
+        if not writes and b > 0:
+            # read before the agreement: process 0 may drop the file once
+            # every process has agreed
+            try:
+                acc = np.fromfile(stems_path, np.float32).reshape(len(STEMS), total)
+            except (OSError, ValueError) as e:
+                unread = e
+        try:
+            b = multihost.agree(-1 if unread else b, f"mid-track checkpoint of {tag!r}, the "
+                                "next block (ckpt_dir must be a shared filesystem)")
+        except ZenError:
+            if unread is None:
+                raise
+        if unread is not None:
+            raise ZenError(f"process {mesh.process_index} cannot read the resumed stems buffer "
+                           f"{stems_path!r}: ckpt_dir must be a shared filesystem") from unread
     if b == 0:
-        if os.path.exists(ckpt_path):
+        if writes and os.path.exists(ckpt_path):
             # the stems file is about to be recreated: drop the checkpoint
             # that claims its segments first
             os.remove(ckpt_path)
@@ -370,24 +442,28 @@ def sharded_separate_blocked_checkpointed(
         tails = [_prime(w, d, cfg, blk) for d, w in enumerate(windows)]
     else:
         tails = [_moved(t, dev) for t, dev in zip(state, devs)]
-    mm = np.memmap(stems_path, np.float32, mode="r+" if b > 0 else "w+",
-                   shape=(len(STEMS), total))
+    if writes:
+        acc = np.memmap(stems_path, np.float32, mode="r+" if b > 0 else "w+",
+                        shape=(len(STEMS), total))
+    elif acc is None:
+        acc = np.zeros((len(STEMS), total), np.float32)
     shard_span = nbl * blk.bf * hop
     while b < nbl:
         ng = min(ckpt_every_blocks, nbl - b)
         outs, tails = _scan(windows, tails, cfg, blk, b, b + ng)
         for d, out in enumerate(outs):
             lo = d * shard_span + b * blk.bf * hop
-            mm[:, lo : lo + ng * blk.bf * hop] = out.cpu().numpy()
-        mm.flush()
-        _fsync_file(stems_path)  # the stems are durable before a checkpoint claims them
+            acc[:, lo : lo + ng * blk.bf * hop] = out.cpu().numpy()
         b += ng
-        save_stream_state_durable(ckpt_path, torch.stack([t.cpu() for t in tails]),
-                                  {**meta_want, "next_block": b})
+        if writes:
+            acc.flush()
+            _fsync_file(stems_path)  # the stems are durable before a checkpoint claims them
+            save_stream_state_durable(ckpt_path, torch.stack([t.cpu() for t in tails]),
+                                      {**meta_want, "next_block": b})
         if on_segment is not None:
             on_segment(b, nbl)
-    full = torch.from_numpy(np.array(mm[:, : hop + length])).to(devs[0])
-    del mm
+    full = torch.from_numpy(np.array(acc[:, : hop + length])).to(devs[0])
+    del acc
     return _stems(full, hop, length)
 
 
@@ -518,6 +594,10 @@ def tp_separate(audio, cfg: HPRConfig, mesh: Mesh, tp_axis: str = "tp") -> dict:
     circular); n_tp must divide nfft. Stems on the mesh's first device,
     equal to ``hpr_separate`` with ``fast_rfft`` off up to the
     transforms' rounding."""
+    if mesh.spans_processes:
+        # zen_tpu offers several processes on the corpus alone; the port
+        # exchanges frequency halos and sums only inside a process
+        raise ZenError("tp_separate: the mesh spans processes; tp runs in one process")
     if cfg.border != WRAP:
         raise ZenError("tp_separate supports the wrap border only")
     devs = [mesh.device(**{tp_axis: t}) for t in range(mesh.size(tp_axis))]
