@@ -9,8 +9,9 @@ at every shape its paths give it, beside one torch.kthvalue call over
 the same windows (the library yardstick, which the port never calls)
 and the least time the card could take (phase 3; at a 4-minute track's
 offline shapes the kernels run without their twin). Phase 3 also holds
-the comparator-network routes (K1 register, K2 network) bitwise at every
-odd K they take, tie-heavy and bf16; sweeps K2's three routes over K at
+the comparator-network routes (K1 register up to 63 taps, K2 network up
+to 31) bitwise at every odd K they take, tie-heavy and bf16; sweeps K2's
+three routes over K at
 two row shapes: the crossover FREQ_RANK_MIN_TAPS (ops/median_cuda.py)
 comes from it; times K1's network kernel at each run length and K2's
 rank route at each tile at the paths' K, beside the wrappers' choices;
@@ -24,6 +25,9 @@ entry points at full width:
   phase 10 HPRRealtime at 44.1 kHz, hop 32, the low-latency stream whose
            time median is K = 93 over 183 history rows (K1's rank
            route): 64 blocks of 32 hops, then 64 single hops;
+  phase 10b hop 64 at 44.1 kHz, K = 47 over 91 history rows (K1's
+           network): HPRRealtime, 64 blocks of 32 hops then 64 single
+           hops, and MultiStreamHPR, 64 streams, 16 blocks of 32 hops;
   phase 5  MultiStreamHPR, 64 streams at 44.1 kHz, hop 256, 32-hop
            blocks, plus a percussive-only fleet for the compact rows;
   phase 7  HPRIOffline(44100, 4096, 256, 2.5, 2.5) (BASELINE.json
@@ -177,7 +181,7 @@ SWEEP_SHAPES = ((32, 2049), (2048, 513))
 # step, the 64-stream step, hop 1024, the offline clip and track, fs 8000)
 TILE_CASES = ((13, (8192, 513)), (13, (2048, 513)), (47, (32, 2049)), (187, (41, 8193)),
               (187, (TRACK_FRAMES_H, 8193)), (257, (32, 2049)))
-ROUTES = {"tap_median_time": ("register", "rank", "wide"),
+ROUTES = {"tap_median_time": ("register", "rank"),
           "sliding_median_boundary": ("network", "rank", "count")}
 T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))  # hop 256's causal wrap taps, K = 11
 RUN_LENGTHS = (1, 2, 4, 8, 16)  # K1's network kernel: output rows per thread
@@ -355,13 +359,21 @@ def bound(in_elems: int, out_elems: int, itemsize: int, k: int) -> tuple:
 
 
 def time_bound(a, b, offsets, start) -> tuple:
-    """bound() of tap_median_time: the rows of V its taps reach."""
+    """bound() of tap_median_time: the distinct rows of V that some output
+    row's taps reach, the union over o of [start + o, start + o + t_out)
+    within V (a gap between two tap runs, as under a causal wrap, is
+    read by no tap and not counted)."""
     ta, tb = a.shape[-2], b.shape[-2]
-    t_out = ta + tb - start
-    reach = min(ta + tb, start + t_out + max(offsets)) - max(0, start + min(offsets))
+    t_v = ta + tb
+    t_out = t_v - start
+    reach = end = 0
+    for o in sorted(set(offsets)):
+        lo, hi = max(0, start + o), min(t_v, start + o + t_out)
+        reach += max(0, hi - max(lo, end))
+        end = max(end, hi)
     lead_f = a.numel() // max(ta, 1) if ta else b.numel() // tb
     outs = lead_f * t_out
-    return bound(lead_f * max(reach, 0), outs, a.element_size(), len(offsets))
+    return bound(lead_f * reach, outs, a.element_size(), len(offsets))
 
 
 def freq_bound(x, k, mode) -> tuple:
@@ -420,13 +432,14 @@ def freq_library(x, k, mode):
 
 def kernel_cases():
     """(kernel, route, TPU kernel #, label, kernel call, plain call,
-    library yardstick's factory, bound, the first wide kernel's call or
-    None) at every main-path shape (hop-1024 streaming first), the
-    offline passes' and the hop-32 stream's shapes, tap counts past the
-    first kernels' caps, tie-heavy and bf16 inputs at large K, and the
-    other boundary modes at a ragged row count; then the two copy-only
-    mirrors, #9 and #10 (library yardstick: the same copy as one PyTorch
-    call)."""
+    library yardstick's factory, bound) at every main-path shape (hop-1024
+    streaming first), the offline passes', the hop-32 and hop-64 streams'
+    and 48 kHz hop 64's shapes, K1's network up to its cap of 63 taps,
+    tap spans far past the rows a call has, tie-heavy and bf16 inputs at
+    large K, and the other boundary modes at a ragged row count; then the
+    two copy-only mirrors, #9 and #10 (library yardstick: the same copy
+    as one PyTorch call)."""
+    from zen_tpu_torch import HPRConfig
     from zen_tpu_torch.ops import median_cuda as mc
     from zen_tpu_torch.ops import probe_cuda as pc
 
@@ -442,7 +455,11 @@ def kernel_cases():
     t256_valid = tuple(range(-11, 0))  # --nocopybord: the previous 11 frames
     t_k93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32
     t_k401 = tuple(range(-200, 201))  # 48 kHz hop 8, centered
-    t_far = (-16353,) + tuple(range(-65, 1))  # past the rank route's staging
+    t_far = (-16353,) + tuple(range(-65, 1))  # past the first rank plan's 16,352 rows
+    t_farther = (-70000,) + tuple(range(-65, 1))  # a table past 227 KB at its own span
+    t_k47 = HPRConfig(44100.0, 64, causal=True).time_offsets  # hop 64, causal wrap
+    t_k51 = HPRConfig(48000.0, 64, causal=True).time_offsets
+    t_k63 = tuple(range(-31, 32))
     cases = []
     for tpu, label, a, b, offs, start in (
         ("#1", "pair C=1 H=5 B=32 F=2049 K=3", mag(1, 5, 2049), mag(1, 32, 2049), t1024, 5),
@@ -483,11 +500,30 @@ def kernel_cases():
          mag(512, 16, 1024), t256_rep, 5),
         ("#1", "pair C=512 H=11 B=16 F=1024 K=11 valid", mag(512, 11, 1024),
          mag(512, 16, 1024), t256_valid, 11),
-        ("#1", "single T=300 F=9 K=67 span 16354 (wide fallback)", mag(1, 300, 9),
+        # spans past the rows a call has: the far taps read only fill and
+        # move next to V; on 65,536 rows the table stays in device memory
+        ("#1", "single T=300 F=9 K=67 span 16354 (far taps)", mag(1, 300, 9),
          mag(1, 0, 9), t_far, 0),
-        # past the network's K: the register route's counting kernel
-        ("#1", "pair C=64 H=32 B=32 F=513 K=33 (counting kernel)", mag(64, 32, 513),
+        ("#1", "single T=300 F=9 K=67 span 70001 (far taps)", mag(1, 300, 9),
+         mag(1, 0, 9), t_farther, 0),
+        ("#3", "single T=65536 F=9 K=67 span 70001 (table in device memory)",
+         mag(1, 65536, 9), mag(1, 0, 9), t_farther, 0),
+        # K1's network past 31 taps: K = 33, hop 64 (K = 47) and 48 kHz hop 64
+        # (K = 51) under the causal wrap, K = 63 centered
+        ("#1", "pair C=64 H=32 B=32 F=513 K=33", mag(64, 32, 513),
          mag(64, 32, 513), tuple(range(-32, 1)), 32),
+        ("#1", "pair C=1 H=91 B=32 F=129 K=47 (hop 64)", mag(1, 91, 129), mag(1, 32, 129),
+         t_k47, 91),
+        ("#1", "pair C=1 H=91 B=1 F=129 K=47 (hop 64)", mag(1, 91, 129), mag(1, 1, 129),
+         t_k47, 91),
+        ("#1", "pair C=64 H=91 B=32 F=129 K=47 (hop 64 fleet)", mag(64, 91, 129),
+         mag(64, 32, 129), t_k47, 91),
+        ("#1", "pair C=64 H=91 B=32 F=129 K=47 (hop 64 fleet) bf16", bf16(64, 91, 129),
+         bf16(64, 32, 129), t_k47, 91),
+        ("#1", "pair C=1 H=99 B=32 F=129 K=51 (48 kHz hop 64)", mag(1, 99, 129),
+         mag(1, 32, 129), t_k51, 99),
+        ("#1", "pair C=64 H=62 B=32 F=129 K=63 centered", mag(64, 62, 129), mag(64, 32, 129),
+         t_k63, 62),
         # phase 20's shards: an sp=4 shard of the two-channel clip (pass 1: 11
         # frames; pass 2: 161 frames between 5-row halos), a tp=4 shard's bins,
         # a dp=4 shard of the 64- and 512-stream fleets
@@ -509,9 +545,6 @@ def kernel_cases():
             lambda a=a, b=b, o=offs, s=start: mc.tap_median_time_plain(a, b, o, s),
             lambda a=a, b=b, o=offs, s=start: time_library(a, b, o, s),
             time_bound(a, b, offs, start),
-            # the rank route's inputs through the first wide kernel too
-            (lambda a=a, b=b, o=offs, s=start: mc._time_launch(a, b, o, s, 0.0, "wide"))
-            if mc.time_route(offs) == "rank" else None,
         ))
     for tpu, label, x, k, mode in (
         ("#5", "R=32 F=2049 K=47 reflect", mag(32, 2049), 47, "reflect"),
@@ -556,7 +589,6 @@ def kernel_cases():
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary_plain(x, k, m),
             lambda x=x, k=k, m=mode: freq_library(x, k, m),
             freq_bound(x, k, mode),
-            None,
         ))
     # the first K2 kernel, kept for K whose keys do not fit a block: called by
     # route here (the wrapper takes it from K ~ 16,000 on; no path does)
@@ -567,7 +599,6 @@ def kernel_cases():
         lambda: mc.sliding_median_boundary_plain(x9, 9, "reflect"),
         lambda: freq_library(x9, 9, "reflect"),
         freq_bound(x9, 9, "reflect"),
-        None,
     ))
     # the copy-only mirrors at hbm_pattern's 512-stream shapes (phase 11)
     for tpu, label, x, start, t_out in (
@@ -583,7 +614,6 @@ def kernel_cases():
             lambda x=x, s=start, t=t_out: (f"x[:, {s}:{s + t}].contiguous()",
                                            lambda: x[:, s : s + t].contiguous()),
             bound(n, n, x.element_size(), 1),
-            None,
         ))
     for tpu, label, x, k, mode in (
         ("#10", "R=16384 F=513 K=13 reflect f32", mag(16384, 513), 13, "reflect"),
@@ -597,22 +627,20 @@ def kernel_cases():
             lambda x=x, k=k, m=mode: pc.segment_copy_plain(x, k, m),
             lambda x=x: ("x.clone()", x.clone),
             bound(x.numel(), x.numel(), x.element_size(), 1),
-            None,
         ))
     return cases
 
 
 def phase_kernels() -> dict:
     """Each route against its plain twin, bitwise, with its device time,
-    the twin's, the library call's and the bound; K1's rank route also
-    against the first wide kernel on the same inputs (the step this PR
-    took); then the kernels alone at a 4-minute track's offline shapes,
-    where the twin would not fit the card (15.8 GB for pass 1)."""
+    the twin's, the library call's and the bound; then the kernels alone
+    at a 4-minute track's offline shapes, where the twin would not fit the
+    card (15.8 GB for pass 1)."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     stats = {}
-    for (name, route, tpu, label, run_kernel, run_plain, library, (b_us, b_by),
-         run_wide) in kernel_cases():
+    for (name, route, tpu, label, run_kernel, run_plain, library,
+         (b_us, b_by)) in kernel_cases():
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         require(got.shape == want.shape, f"{name} {label}: shape {got.shape}")
@@ -621,15 +649,11 @@ def phase_kernels() -> dict:
         k_us, p_us = median_us(run_kernel), median_us(run_plain)
         kind, lib_call = library()
         l_us = median_us(lib_call)
-        before = ""
-        if run_wide is not None:
-            require(torch.equal(run_wide(), want), f"{name} {label}: first wide kernel differs")
-            before = f", first wide kernel {median_us(run_wide, runs=5, warmup=1):.2f} us"
         lib = "library" if name in PROBES else "kthvalue"
         print(
             f"phase 3 {name}/{route} ({tpu}) {label}: bitwise equal, kernel {k_us:.2f} us, "
             f"plain {p_us:.2f} us, {lib} {l_us:.2f} us ({kind}), bound {b_us:.2f} us "
-            f"({b_by}){before} (medians of {TIMED_RUNS})"
+            f"({b_by}) (medians of {TIMED_RUNS})"
         )
         st = stats.setdefault((name, route), {"max_abs_err": 0.0, "shapes": []})
         st["max_abs_err"] = max(st["max_abs_err"], err)
@@ -667,10 +691,10 @@ def phase_kernels() -> dict:
 
 def phase_network() -> None:
     """The comparator-network routes at every odd K they take, each held
-    bitwise against its twin: K1 register on a centered one-input case
-    with fill = inf (tie-heavy f32) and a causal pair with a duplicated
-    offset 0 (bf16); K2 network on tie-heavy reflect rows (f32) and wrap
-    rows (bf16). Times the f32 cases."""
+    bitwise against its twin: K1 register (K 1..63) on a centered
+    one-input case with fill = inf (tie-heavy f32) and a causal pair with
+    a duplicated offset 0 (bf16); K2 network (K 1..31) on tie-heavy
+    reflect rows (f32) and wrap rows (bf16). Times the f32 cases."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(5)
@@ -678,28 +702,30 @@ def phase_network() -> None:
     b16 = _mags(rng, 64, 16, 513).to(torch.bfloat16)
     x32, x16 = _ties(rng, 2048, 513), _mags(rng, 512, 513).to(torch.bfloat16)
     inf = float("inf")
-    for k in range(1, mc.NETWORK_MAX_TAPS + 1, 2):
+    for k in range(1, mc.REGISTER_TAPS + 1, 2):
         m = (k - 1) // 2
         centered = tuple(range(-m, m + 1))
         causal = tuple(range(-(k - 3), 1)) + (0, 0) if k > 1 else (0,)
-        require(mc.time_route(centered) == "register" and mc.freq_route(k) != "count",
-                f"K={k} leaves the network routes")
+        require(mc.time_route(centered) == "register", f"K={k} leaves K1's network")
         run1 = lambda: mc._time_launch(a32, a32[:, :0], centered, 0, inf, "register")  # noqa: E731
-        run2 = lambda: mc._freq_launch(x32, k, "reflect", "network")  # noqa: E731
         require(torch.equal(run1(), mc.tap_median_time_plain(a32, a32[:, :0], centered, 0, inf)),
                 f"K1 network K={k} centered fill=inf ties differs")
         require(torch.equal(mc._time_launch(a16, b16, causal, 21, 0.0, "register"),
                             mc.tap_median_time_plain(a16, b16, causal, 21)),
                 f"K1 network K={k} causal duplicated-0 bf16 differs")
-        require(torch.equal(run2(), mc.sliding_median_boundary_plain(x32, k, "reflect")),
-                f"K2 network K={k} reflect ties differs")
-        require(torch.equal(mc._freq_launch(x16, k, "wrap", "network"),
-                            mc.sliding_median_boundary_plain(x16, k, "wrap")),
-                f"K2 network K={k} wrap bf16 differs")
+        k2 = "K2 n/a (its network stops at 31)"
+        if k <= mc.FREQ_NETWORK_MAX_TAPS:
+            require(mc.freq_route(k) == "network", f"K={k} leaves K2's network")
+            run2 = lambda: mc._freq_launch(x32, k, "reflect", "network")  # noqa: E731
+            require(torch.equal(run2(), mc.sliding_median_boundary_plain(x32, k, "reflect")),
+                    f"K2 network K={k} reflect ties differs")
+            require(torch.equal(mc._freq_launch(x16, k, "wrap", "network"),
+                                mc.sliding_median_boundary_plain(x16, k, "wrap")),
+                    f"K2 network K={k} wrap bf16 differs")
+            k2 = f"K2 [2048, 513] {median_us(run2, runs=10):.2f} us"
         print(f"phase 3 network K={k}: bitwise equal (K1 f32 ties fill=inf and bf16 duplicated "
-              f"taps, K2 f32 ties reflect and bf16 wrap); K1 [64, 37, 513] "
-              f"{median_us(run1, runs=10):.2f} us, K2 [2048, 513] {median_us(run2, runs=10):.2f} us "
-              "(medians of 10)")
+              f"taps{', K2 f32 ties reflect and bf16 wrap' if k <= mc.FREQ_NETWORK_MAX_TAPS else ''}"
+              f"); K1 [64, 37, 513] {median_us(run1, runs=10):.2f} us, {k2} (medians of 10)")
 
 
 def phase_runs() -> None:
@@ -720,6 +746,8 @@ def phase_runs() -> None:
          centered, 0),
         ("K=3 C=1 H=5 B=32 F=2049", _mags(rng, 1, 5, 2049), _mags(rng, 1, 32, 2049),
          (-5, -1, 0), 5),
+        ("K=47 C=64 H=91 B=32 F=129 (hop 64)", _mags(rng, 64, 91, 129),
+         _mags(rng, 64, 32, 129), tuple(range(-91, -68)) + tuple(range(-23, 1)), 91),
     ):
         want = mc._time_launch(a, b, offs, start, 0.0, "register")
         us = {}
@@ -727,7 +755,8 @@ def phase_runs() -> None:
             fn = lambda r=run: mc._time_launch(a, b, offs, start, 0.0, "register", run=r)  # noqa: E731
             require(torch.equal(fn(), want), f"runs {label} run {run} differs")
             us[run] = median_us(fn, runs=10)
-        chosen = mc.time_network_run(a.shape[1] + b.shape[1] - start, a.shape[0], a.shape[2])
+        chosen = mc.time_network_run(a.shape[1] + b.shape[1] - start, a.shape[0], a.shape[2],
+                                     offs)
         print(f"phase 3 runs K1 network {label}: bitwise equal; "
               + ", ".join(f"run {r} {v:.2f} us ({len(mc.time_network_plan(offs, r)[0])} staged)"
                           for r, v in us.items())
@@ -736,7 +765,7 @@ def phase_runs() -> None:
 
 def phase_sweep() -> None:
     """K2's routes over SWEEP_K at SWEEP_SHAPES (reflect): every route
-    that takes a K (network up to NETWORK_MAX_TAPS, rank, count) held
+    that takes a K (network up to FREQ_NETWORK_MAX_TAPS, rank, count) held
     bitwise against the twin, timed beside kthvalue; prints the measured
     crossover (the smallest K from which the rank route is the fastest at
     every larger K of the sweep, on both shapes) beside the constant."""
@@ -748,7 +777,7 @@ def phase_sweep() -> None:
         x = _mags(rng, *shape)
         for k in SWEEP_K:
             want = mc.sliding_median_boundary_plain(x, k, "reflect")
-            routes = (("network",) if k <= mc.NETWORK_MAX_TAPS else ()) + ("rank", "count")
+            routes = (("network",) if k <= mc.FREQ_NETWORK_MAX_TAPS else ()) + ("rank", "count")
             us = {}
             for route in routes:
                 run = lambda r=route: mc._freq_launch(x, k, "reflect", r)  # noqa: E731
@@ -1304,6 +1333,49 @@ def phase_hop32(smi: str) -> dict:
         f"ms of audio); {t['hop_us']:.1f} us/hop at B=1 ({cfg.hop / cfg.fs * 1e3:.3f} ms); "
         f"one B=32 step: {t['prof_b']}; one B=1 step: {t['prof_1']}; launches {launches} "
         f"[{smi}]"
+    )
+    return launches
+
+
+def phase_hop64(smi: str) -> dict:
+    """Hop 64 at 44.1 kHz (1.451 ms a hop): K1's network carries its time
+    median (K = 47 over 91 history rows, the causal wrap). HPRRealtime, 64
+    blocks of B=32 then 64 single hops, and MultiStreamHPR, 64 streams,
+    16 blocks of B=32, each held against the CPU port under phase 4's flip
+    rule and stem tolerance."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    reset_launches()
+    cfg, got, audio, sizes, t = run_stream(hop=64)
+    cfgm, gotm, audiom, sizesm, tm = run_fleet(hop=64)
+    launches = read_launches()
+    k = len(cfg.time_offsets)
+    require(k == len(cfgm.time_offsets) == 47 and mc.time_route(cfg.time_offsets) == "register",
+            f"hop-64 time median K={k} route {mc.time_route(cfg.time_offsets)}")
+    require(launches["tap_median_time/register"] > 0 and launches["tap_median_time/rank"] == 0
+            and all(per_kernel(launches).values()), f"hop-64 launches {launches}")
+    for arr in (got, gotm):
+        require(bool(np.isfinite(arr).all()), "non-finite hop-64 stem samples")
+    stems = ("harmonic", "percussive", "residual")
+    r = compare_stream(cfg, audio, sizes, got, reference_stream(audio, sizes, hop=64), stems)
+    rm = compare_stream(cfgm, audiom, sizesm, gotm, reference_fleet(audiom, sizesm, hop=64),
+                        stems)
+    hop_us = cfg.hop / cfg.fs * 1e6
+    print(
+        f"phase 10b HPRRealtime fs 44100 hop 64 (time K={k} over H={cfg.time_history}, "
+        f"frequency K={cfg.freq_filter_len}), 64 x B=32 + 64 x B=1: mask flips {r['flips']} "
+        f"({r['share']:.3g} of bins), excluded hops {r['excluded']}/{r['hops']}, max "
+        f"|diff|/scale {r['rel_err']:.3g} (limit {STEM_ATOL}); {t['step_us']:.1f} us/step at "
+        f"B=32 = {t['step_us'] / 32:.1f} us/hop against {hop_us:.0f} us of audio a hop; "
+        f"{t['hop_us']:.1f} us/hop at B=1; one B=32 step: {t['prof_b']}; one B=1 step: "
+        f"{t['prof_1']} [{smi}]"
+    )
+    print(
+        f"phase 10b MultiStreamHPR 64 x fs 44100 hop 64, 16 x B=32: mask flips {rm['flips']} "
+        f"({rm['share']:.3g} of bins), excluded hops {rm['excluded']}/{rm['hops']}, max "
+        f"|diff|/scale {rm['rel_err']:.3g}; {tm['step_us']:.1f} us/step = "
+        f"{tm['step_us'] / 32:.1f} us/hop for 64 streams against {hop_us:.0f} us = "
+        f"{tm['msps']:.2f} Msamples/s; one step: {tm['prof_b']}; launches {launches} [{smi}]"
     )
     return launches
 
@@ -3218,10 +3290,9 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
     own run; the copy mirrors run on phase 11's path), and the routes no
-    path launched (K1's first wide kernel, kept for tap spans past the
-    rank route's staging, and K2's counting kernel, kept for K whose keys
-    do not fit a block), checked in phase 3 only. ``by_route_launches``
-    are phase 24's launches by route name, outside ``launches``."""
+    path launched (K2's counting kernel, kept for K whose keys do not fit
+    a block), checked in phase 3 only. ``by_route_launches`` are phase
+    24's launches by route name, outside ``launches``."""
     rows, off_path = [], []
     for (name, route), st in kstats.items():
         key = f"{name}/{route}"
@@ -3301,6 +3372,7 @@ def main() -> None:
     by_path = {"streaming": launches}
     for name, phase in (("offline_clip", phase_offline_clip), ("offline_track", phase_offline_track),
                         ("zen_stream_512", phase_zen_stream), ("streaming_hop32", phase_hop32),
+                        ("streaming_hop64", phase_hop64),
                         ("hbm_pattern", phase_hbm_pattern), ("serving_bound", phase_serving_bound),
                         ("sse", phase_sse), ("box", phase_box), ("dft", phase_dft),
                         ("quality_ladder", phase_quality), ("files_cli", phase_files_cli),

@@ -110,7 +110,7 @@ def _bf16(rng, *shape, device):
      ((512, 5, 1024), (512, 16, 1024), tuple(range(-5, 0)) + (0,) * 6, 5, float("inf")),
      ((512, 11, 1024), (512, 16, 1024), tuple(range(-11, 0)), 11, 0.0),
      ((4100, 11, 65), (4100, 2, 65), tuple(range(-11, 0)), 11, 0.0),
-     # the wide kernel on bf16
+     # the rank route on bf16
      ((2, 183, 65), (2, 40, 65), tuple(range(-183, -137)) + tuple(range(-46, 1)),
       183, 0.0)],
 )
@@ -180,18 +180,29 @@ def test_time_rank_route_matches_twin(cuda_device, dtype, ties, a_shape, b_shape
     assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
 
 
-def test_time_wide_fallback_matches_twin(cuda_device):
-    """Offsets spanning past the rank route's staging stay on the first
-    wide kernel."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "t,offsets,start,shared_table",
+    [(300, (-16353,) + tuple(range(-65, 1)), 0, True),  # a span of 16,354 rows
+     (65536, (-70000,) + tuple(range(-65, 1)), 0, False),  # past the table's fit
+     (40, (-70000,) + tuple(range(-32, 33)) + (70000,), 20, True)],  # both ends
+)
+def test_time_rank_route_any_span_matches_twin(cuda_device, t, offsets, start, shared_table, dtype):
+    """Offsets of any span take the rank route: the far taps, which read
+    only fill, move next to V (``time_rank_offsets``), and where the
+    table still does not fit beside the keys the walk reads it from
+    device memory."""
     rng = np.random.default_rng(16)
-    offsets = (-16353,) + tuple(range(-65, 1))
-    a = _mags(rng, 1, 300, 9, device=cuda_device)
-    assert mc.time_route(offsets) == "wide"
-    before = mc.tap_median_time.routes["wide"]
-    got = mc.tap_median_time(a, a[:, :0], offsets, 0)
+    a = _mags(rng, 1, t, 9, device=cuda_device).to(dtype)
+    assert mc.time_route(offsets) == "rank"
+    near = mc.time_rank_offsets(offsets, start, t)
+    keys = mc.time_rank_keys(near, mc.time_rank_run(near))
+    assert (keys + 4 * len(mc.time_rank_table(near)[2]) <= mc.SMEM_OPTIN) == shared_table
+    before = mc.tap_median_time.routes["rank"]
+    got = mc.tap_median_time(a, a[:, :0], offsets, start, float("inf"))
     torch.cuda.synchronize()
-    assert mc.tap_median_time.routes["wide"] == before + 1
-    assert torch.equal(got, mc.tap_median_time_plain(a, a[:, :0], offsets, 0))
+    assert mc.tap_median_time.routes["rank"] == before + 1
+    assert torch.equal(got, mc.tap_median_time_plain(a, a[:, :0], offsets, start, float("inf")))
 
 
 def _around_k_star():
@@ -221,13 +232,15 @@ def test_freq_rank_route_matches_twin(cuda_device, k, mode, dtype, ties):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
-NETWORK_KS = list(range(1, mc.NETWORK_MAX_TAPS + 1, 2))
+NETWORK_KS = list(range(1, mc.FREQ_NETWORK_MAX_TAPS + 1, 2))  # both networks
+WIDE_NETWORK_KS = list(range(mc.FREQ_NETWORK_MAX_TAPS + 2, mc.REGISTER_TAPS + 1, 2))  # K1's
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", NETWORK_KS)
 def test_time_network_every_k_matches_twin(cuda_device, k, dtype):
-    """K1's network kernel at every K it takes, tie-heavy: a causal pair
+    """K1's network kernel at every K K2's network takes too, tie-heavy
+    (test_time_network_33_to_63_matches_twin has 33..63): a causal pair
     with a duplicated offset 0 (ragged last run: 13 rows), and a centered
     one-input case whose taps read fill = inf on both ends."""
     rng = np.random.default_rng(k)
@@ -254,15 +267,30 @@ def test_time_network_every_run_length_matches_twin(cuda_device, run):
     assert torch.equal(got, mc.tap_median_time_plain(a, b, T256, 21))
 
 
-def test_time_counting_kernel_past_the_network_matches_twin(cuda_device):
-    """33 to 63 taps stay on the register route's counting kernel."""
-    rng = np.random.default_rng(33)
-    a = _ties(rng, 2, 40, 65, device=cuda_device)
-    for k in (mc.NETWORK_MAX_TAPS + 2, 63):
-        offsets = tuple(range(-(k - 1), 1))
-        assert mc.time_route(offsets) == "register"
-        got = mc.tap_median_time(a, a[:, :0], offsets, 0, float("inf"))
-        assert torch.equal(got, mc.tap_median_time_plain(a, a[:, :0], offsets, 0, float("inf")))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", WIDE_NETWORK_KS)
+def test_time_network_33_to_63_matches_twin(cuda_device, k, dtype):
+    """33 to 63 taps run K1's network too (the counting kernel that took
+    them is gone), tie-heavy: the pair form under a causal wrap (two tap
+    runs, fill 0), and the one-input form centered with fill +inf and
+    causal with fill -inf."""
+    rng = np.random.default_rng(k)
+    a = _ties(rng, 3, 70, 129, device=cuda_device).to(dtype)
+    b = _ties(rng, 3, 13, 129, device=cuda_device).to(dtype)
+    m = k // 2
+    wrap = tuple(range(-69, -69 + m)) + tuple(range(-m, 1))
+    centered = tuple(range(-m, m + 1))
+    causal = tuple(range(-(k - 1), 1))
+    before = mc.tap_median_time.routes["register"]
+    for x, y, offsets, start, fill in ((a, b, wrap, 70, 0.0),
+                                       (a, a[:, :0], centered, 0, float("inf")),
+                                       (a, a[:, :0], causal, 0, float("-inf"))):
+        assert mc.time_route(offsets) == "register" and len(offsets) == k
+        got = mc.tap_median_time(x, y, offsets, start, fill)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert torch.equal(got, mc.tap_median_time_plain(x, y, offsets, start, fill))
+    assert mc.tap_median_time.routes["register"] == before + 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -82,18 +82,19 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
 
 
 def emulate_time_rank(a, b, offsets, start, fill=0.0) -> torch.Tensor:
-    """K1's rank kernel: a block per (stream, run of min(32, t_out)
-    output rows, column) staging the rows the run's taps reach
-    (``time_rank_rows``) of V = a ++ b (fill outside, in the inputs'
-    dtype), keyed by (value, relative row), the multiplicity table read
-    at row - lane + 31."""
-    offsets = tuple(offsets)
-    lo, span, table = mc.time_rank_table(offsets)
-    table = torch.tensor(table)
+    """K1's rank kernel: the wrapper's plan for the call (taps that read
+    only fill moved next to V, ``time_rank_offsets``), a block per
+    (stream, run of min(``time_rank_run``, t_out) output rows, column)
+    staging the rows the run's taps reach (``time_rank_rows``) of V = a ++
+    b (fill outside, in the inputs' dtype), keyed by (value, relative
+    row), the multiplicity table read at row - lane + 31."""
     v = torch.cat([a, b], dim=-2).float()
     c, t_v, f = v.shape[0], v.shape[1], v.shape[2]
+    offsets = mc.time_rank_offsets(tuple(offsets), start, t_v)
+    lo, span, table = mc.time_rank_table(offsets)
+    table = torch.tensor(table)
     t_out = t_v - start
-    run = min(t_out, mc.TIME_RANK_RUN)
+    run = min(t_out, mc.time_rank_run(offsets))
     rel = torch.tensor(mc.time_rank_rows(offsets, run))
     fill = torch.tensor(fill, dtype=a.dtype).float()
     m = (len(offsets) - 1) // 2
@@ -182,7 +183,13 @@ K93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32, wrap
      ((1, 90, 4), (1, 0, 4), (0,) * 33 + tuple(range(-33, 1)), 0, float("inf")),
      # the hop-32 step at B = 1 and B = 5: runs shorter than 32 rows
      ((2, 183, 9), (2, 1, 9), K93, 183, 0.0),
-     ((1, 183, 6), (1, 5, 6), K93, 183, 0.0)],
+     ((1, 183, 6), (1, 5, 6), K93, 183, 0.0),
+     # spans past 16,352 rows, both ends: the far taps read only fill
+     ((1, 300, 3), (1, 0, 3), (-16353,) + tuple(range(-65, 1)), 0, 0.0),
+     ((1, 40, 3), (1, 9, 3), (-70000,) + tuple(range(-32, 33)) + (70000,), 20, float("inf")),
+     # 601 taps 40 rows apart: a run of 32 stages 19,232 rows, whose keys
+     # pass 227 KB, so the blocks take runs of 16
+     ((1, 40, 2), (1, 0, 2), tuple(range(-24000, 1, 40)), 0, 0.0)],
 )
 def test_time_rank_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, ties):
     rng = np.random.default_rng(len(offsets))
@@ -231,29 +238,61 @@ def test_time_rank_rows_are_the_taps_of_the_run():
     assert mc.time_rank_rows((-3, 0, 0, 0, 0), 2) == (0, 1, 3, 4)
 
 
+def _launch_rank_bytes(offsets, run):
+    """(bytes, table in shared memory) of launch_rank (csrc/median_time.cu),
+    from the source's own arithmetic: key_count(staged) keys of 8 bytes,
+    and the span + 2 (kRun - 1) table ints beside them where both fit
+    227 KB. The wrapper reckons the keys (``time_rank_keys``)."""
+    staged = len(mc.time_rank_rows(offsets, run))
+    keys = 8 * max(32, 1 << (staged - 1).bit_length())
+    assert mc.time_rank_keys(offsets, run) == keys
+    table = 4 * (mc.time_rank_table(offsets)[1] + 2 * 31)
+    return (keys + table, True) if keys + table <= 232_448 else (keys, False)
+
+
 def test_time_routes_and_staging_limit():
-    """Register up to 64 taps, the rank route past that while its keys
-    and table fit 227 KB (max(o) - min(o) up to 16,352: 16,384 staged
-    rows), the first wide kernel beyond."""
-    assert mc.time_route(tuple(range(-63, 1))) == "register"
+    """The network up to 63 taps, the rank route from 65 at any span:
+    its reckoning of a block's shared memory is launch_rank's, the table
+    leaves shared memory where it no longer fits beside the keys, and the
+    run shrinks, down to one row, where the keys do not fit."""
+    assert mc.time_route(tuple(range(-62, 1))) == "register"
     assert mc.time_route(tuple(range(-64, 1))) == "rank"
     assert mc.time_route(tuple(range(-12286, 1))) == "rank"
-    fits = (-16352,) + tuple(range(-65, 1))
-    assert mc.time_rank_table(fits) is not None and mc.time_route(fits) == "rank"
+    for far in ((-16352,) + tuple(range(-65, 1)), (-16353,) + tuple(range(-65, 1)),
+                (-70000,) + tuple(range(-65, 1)), (-(1 << 30),) + tuple(range(-65, 1))):
+        assert mc.time_route(far) == "rank"
+    # the keys of a run of 32 and a table of 16,416 ints: 67,712 bytes
     far = (-16353,) + tuple(range(-65, 1))
-    assert mc.time_rank_table(far) is None and mc.time_route(far) == "wide"
-    lo, span, table = mc.time_rank_table(fits)
-    smem = mc.KEY_BYTES * 16384 + 4 * len(table)
-    assert mc.TIME_RANK_RUN - 1 + span == 16384 and smem <= mc.SMEM_OPTIN
+    assert mc.time_rank_run(far) == 32
+    assert _launch_rank_bytes(far, 32) == (67_712, True)
+    # past a span of about 57,000 rows the table stays in device memory
+    far = (-70000,) + tuple(range(-65, 1))
+    assert _launch_rank_bytes(far, 32) == (2048, False)
+    # a call clamps the taps that read only fill next to V: on 300 rows the
+    # far tap lands at row -300, and the table is 363 ints
+    near = mc.time_rank_offsets(far, 0, 300)
+    assert near == (-300,) + tuple(range(-65, 1))
+    assert _launch_rank_bytes(near, 32) == (3500, True)
+    # runs shrink while the keys do not fit: 601 taps 40 apart stage 19,232
+    # rows at 32 (32,768 keys), 9,616 at 16 (16,384 keys and the table)
+    spread = tuple(range(-24000, 1, 40))
+    assert len(mc.time_rank_rows(spread, 32)) == 19_232
+    assert mc.time_rank_keys(spread, 32) > mc.SMEM_OPTIN
+    assert mc.time_rank_run(spread) == 16
+    assert _launch_rank_bytes(spread, 16)[0] <= mc.SMEM_OPTIN
+    # K1's widest tap set, scattered: one row a block, its distinct taps
+    widest = tuple(range(-3 * (mc.MAX_TIME_TAPS - 1), 1, 3))
+    assert len(widest) == mc.MAX_TIME_TAPS and mc.time_rank_run(widest) == 1
+    assert _launch_rank_bytes(widest, 1) == (131_072, False)
 
 
 def test_freq_route_crossover_and_staging_limit():
-    """K2 runs its network up to NETWORK_MAX_TAPS below
+    """K2 runs its network up to FREQ_NETWORK_MAX_TAPS below
     FREQ_RANK_MIN_TAPS and ranks from the crossover on, up to the widest
     K whose keys fit at the smallest tile; the counting kernel keeps only
     the K beyond, up to MAX_FREQ_TAPS."""
     k_star = mc.FREQ_RANK_MIN_TAPS
-    assert k_star % 2 == 1 and 1 < k_star <= mc.NETWORK_MAX_TAPS + 2
+    assert k_star % 2 == 1 and 1 < k_star <= mc.FREQ_NETWORK_MAX_TAPS + 2
     for k in range(1, k_star, 2):
         assert mc.freq_route(k) == "network"
     assert mc.freq_route(k_star) == "rank"

@@ -143,6 +143,28 @@ def test_borders_match_zen_tpu(border):
     _close(trt.process_stream(audio, 5), np.asarray(jrt.process_stream(audio, 5)), border)
 
 
+@pytest.mark.parametrize("border", ["wrap", "valid", "replicate"])
+def test_hop64_stream_and_fleet_match_zen_tpu(border):
+    """44.1 kHz at hop 64: K1 takes 47 taps (H = 91 wrap, 47 valid, 23
+    replicate), its network on the card. HPRRealtime in blocks of 8 hops
+    (B < H) and a ragged 3-hop tail, and a 4-stream MultiStreamHPR over 3
+    blocks of 8, against zen_tpu."""
+    rng = np.random.default_rng(64)
+    audio = rng.standard_normal(64 * 27).astype(np.float32)
+    jrt, trt = _pair(44100.0, 64, border=border)
+    assert len(trt.cfg.time_offsets) == 47 and trt.cfg.time_offsets == jrt.cfg.time_offsets
+    assert mc.time_route(trt.cfg.time_offsets) == "register"
+    _close(trt.process_stream(audio, 8), np.asarray(jrt.process_stream(audio, 8)), border)
+    blocks = rng.standard_normal((3, 4, 8, 64)).astype(np.float32)
+    jms = J.MultiStreamHPR(4, 44100.0, hop=64, border=border, median_impl="xla",
+                           fft_impl="xla")
+    tms = T.MultiStreamHPR(4, 44100.0, hop=64, border=border, device="cpu")
+    assert tms.cfg.time_offsets == trt.cfg.time_offsets
+    for blk in blocks:
+        _close(tms.process_block(blk).numpy(), np.asarray(jms.process_block(blk)),
+               f"fleet {border}")
+
+
 @pytest.mark.parametrize("state", ["f32", "bf16"])
 def test_wide_fleet_b_under_history_matches_zen_tpu(state):
     """256 streams at B = 4 < H = 33 (fs 4000, hop 16): the shape class

@@ -3,13 +3,16 @@
 ``zen_tpu_torch/ops/select_network.py`` schedules a comparator network
 per odd K and emits it as CUDA; the kernels that run it exist only on
 the card (tests/test_torch_cuda.py). Here the schedule itself is held:
-the 0-1 principle at every K the routes take, bitwise equality of the
-network's plain version with the plain twins of both kernels at the path
-configs and with zen_tpu's own network (``_median_network``), the
-comparator count against zen_tpu's pruned bitonic schedule, the emitted
-header's shape and its place in the library's hash; and the host side of
-K1's network kernel (the rows a run stages and each tap's slot in them)
-and of K2's (a row's split into blocks), emulated in torch step for step.
+the 0-1 principle at every K the routes take (K1 up to 63 taps, K2 up to
+31), the lower median torch.median picks on tie-heavy and infinite taps,
+bitwise equality of the network's plain version with the plain twins of
+both kernels at the path configs and with zen_tpu's own network
+(``_median_network``), the comparator count against zen_tpu's pruned
+bitonic schedule, the emitted header's shape (one K list per kernel) and
+its place in the library's hash; and the host side of K1's network
+kernel (the rows a run stages, each tap's slot in them, the run that
+keeps them within the byte index) and of K2's (a row's split into
+blocks), emulated in torch step for step.
 """
 import re
 
@@ -25,10 +28,16 @@ from zen_tpu_torch.ops import _build  # noqa: E402
 from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
 from zen_tpu_torch.ops import select_network as sn  # noqa: E402
 
-NETWORK_KS = list(range(1, sn.MAX_TAPS + 1, 2))
+NETWORK_KS = list(range(1, sn.MAX_TAPS + 1, 2))  # K1's, 1..63
+FREQ_KS = list(range(1, sn.FREQ_MAX_TAPS + 1, 2))  # K2's, 1..31
 T1024 = (-5, -1, 0)
 T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))
 CENTERED11 = tuple(range(-5, 6))
+# 44.1 kHz hop 64, causal: 47 taps under each border (H = 91, 47, 23)
+T64 = tuple(range(-91, -68)) + tuple(range(-23, 1))
+T64_VALID = tuple(range(-47, 0))
+T64_REPLICATE = tuple(range(-23, 0)) + (0,) * 24
+CENTERED63 = tuple(range(-31, 32))
 
 
 def _levels(rng, shape, ties: bool = False) -> np.ndarray:
@@ -66,6 +75,20 @@ def test_schedule_passes_the_zero_one_principle(k):
         np.testing.assert_array_equal(got, np.sort(x, axis=0)[(k - 1) // 2])
 
 
+@pytest.mark.parametrize("k", NETWORK_KS)
+def test_network_picks_torch_s_lower_median(k):
+    """At every K of K1's network: the element torch.median picks (the
+    lower median, sorted[(K - 1) / 2] for odd K), on tie-heavy taps with
+    +inf and -inf among them (fill and empty rows)."""
+    rng = np.random.default_rng(1000 + k)
+    x = _levels(rng, (k, 2048), ties=True)
+    x[rng.random((k, 2048)) < 0.08] = np.inf
+    x[rng.random((k, 2048)) < 0.04] = -np.inf
+    taps = torch.from_numpy(x)
+    got = sn.select_median_plain(taps)
+    assert torch.equal(got, torch.median(taps, dim=0).values)
+
+
 @pytest.mark.parametrize("k", [2, 0, -3])
 def test_schedule_refuses_even_and_empty(k):
     with pytest.raises(ValueError, match="odd"):
@@ -82,7 +105,7 @@ def test_select_plain_matches_zen_tpu_network(k):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("k", [3, 11, 13, 47])
+@pytest.mark.parametrize("k", [3, 11, 13, 33, 47, 63])
 def test_comparator_count_at_most_zen_tpu(k):
     n = 1 << (k - 1).bit_length()
     jax_cmps = sum(op == "cmp" for op, *_ in _pruned_schedule(n, k, (k - 1) // 2))
@@ -92,9 +115,11 @@ def test_comparator_count_at_most_zen_tpu(k):
 
 
 def test_counts_at_the_path_widths():
-    """What the kernels' notes state: K = 3, 11, 13 (hop 1024, hop 256)."""
-    assert [len(sn.median_schedule(k)) for k in (3, 11, 13)] == [3, 32, 39]
-    assert [sn.minmax_count(k) for k in (3, 11, 13)] == [4, 54, 66]
+    """What the kernels' notes state: K = 3, 11, 13 (hop 1024, hop 256),
+    33, 47 (hop 64) and 63, K1's cap."""
+    ks = (3, 11, 13, 33, 47, 63)
+    assert [len(sn.median_schedule(k)) for k in ks] == [3, 32, 39, 198, 308, 439]
+    assert [sn.minmax_count(k) for k in ks] == [4, 54, 66, 364, 570, 816]
 
 
 # ---------------- the plain version against both kernels' twins ----------------
@@ -160,8 +185,13 @@ def test_select_plain_matches_freq_twin(mode, dtype):
 
 
 def test_header_holds_one_straight_line_function_per_k():
+    """median<K> for every K up to K1's cap, and each kernel's cap and
+    K list apart: K1's 1..63, K2's 1..31."""
     text = sn.emit_header()
-    assert f"#define ZEN_SELECT_MAX_TAPS {sn.MAX_TAPS}" in text
+    assert sn.MAX_TAPS == sn.TIME_MAX_TAPS == 63 and sn.FREQ_MAX_TAPS == 31
+    assert f"#define ZEN_SELECT_TIME_MAX_TAPS {sn.TIME_MAX_TAPS}\n" in text
+    assert f"#define ZEN_SELECT_FREQ_MAX_TAPS {sn.FREQ_MAX_TAPS}\n" in text
+    assert "ZEN_SELECT_MAX_TAPS" not in text
     bodies = re.findall(r"float median<(\d+)>\(const float \(&v\)\[\d+\]\) \{\n(.*?)\n\}", text,
                         flags=re.S)
     assert [int(k) for k, _ in bodies] == NETWORK_KS
@@ -171,12 +201,14 @@ def test_header_holds_one_straight_line_function_per_k():
         assert len(lines) - 1 == sn.minmax_count(int(k))
         for line in lines[:-1]:
             assert re.fullmatch(r"  const float [lh]\d+ = f(min|max)f\([\w\[\]]+, [\w\[\]]+\);", line)
-    assert "for" not in re.sub(r"//.*|ZEN_SELECT_FOR_EACH_K", "", text).split()
-    cases = re.search(r"#define ZEN_SELECT_FOR_EACH_K\(X\) (.*)", text).group(1)
+    assert "for" not in re.sub(r"//.*|ZEN_SELECT_FOR_EACH_\w+", "", text).split()
+    cases = re.search(r"#define ZEN_SELECT_FOR_EACH_TIME_K\(X\) (.*)", text).group(1)
     assert cases.split() == [f"X({k})" for k in NETWORK_KS]
+    cases = re.search(r"#define ZEN_SELECT_FOR_EACH_FREQ_K\(X\) (.*)", text).group(1)
+    assert cases.split() == [f"X({k})" for k in FREQ_KS]
 
 
-@pytest.mark.parametrize("k", [3, 11, 13, 31])
+@pytest.mark.parametrize("k", [3, 11, 13, 31, 33, 47, 51, 63])
 def test_header_function_computes_the_median(k):
     """The emitted C text of median<k>, read as Python, is the network."""
     body = re.search(rf"median<{k}>\(const float \(&v\)\[{k}\]\) \{{\n(.*?)\n\}}", sn.emit_header(),
@@ -224,7 +256,7 @@ def emulate_time_network(a, b, offsets, start, fill=0.0, run=None):
     v = torch.cat([a, b], dim=-2)
     c, t_v, f = v.shape
     t_out = t_v - start
-    run = run or mc.time_network_run(t_out, c, f)
+    run = run or mc.time_network_run(t_out, c, f, offsets)
     rows, slots = mc.time_network_plan(offsets, run)
     assert len(rows) <= mc.TIME_NETWORK_MAX_STAGED and max(slots) < len(rows)
     rel, fill = torch.tensor(rows), torch.tensor(fill, dtype=a.dtype)
@@ -250,13 +282,18 @@ def emulate_time_network(a, b, offsets, start, fill=0.0, run=None):
      ((2, 5, 9), (2, 16, 9), tuple(range(-5, 0)) + (0,) * 6, 5, float("inf")),
      ((2, 11, 9), (2, 16, 9), tuple(range(-11, 0)), 11, 0.0),  # valid
      ((1, 40, 9), (1, 0, 9), tuple(range(-15, 16)), 0, float("inf")),  # K = 31
-     ((1, 9, 9), (1, 0, 9), (0,), 0, 0.0)],  # K = 1
+     ((1, 9, 9), (1, 0, 9), (0,), 0, 0.0),  # K = 1
+     # 44.1 kHz hop 64 (K = 47) under wrap, valid and replicate; K = 63
+     ((2, 91, 9), (2, 13, 9), T64, 91, 0.0),
+     ((2, 47, 9), (2, 13, 9), T64_VALID, 47, 0.0),
+     ((2, 23, 9), (2, 13, 9), T64_REPLICATE, 23, float("inf")),
+     ((1, 62, 9), (1, 19, 9), CENTERED63, 62, float("inf"))],
 )
 def test_time_network_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, dtype):
     rng = np.random.default_rng(len(offsets) + a_shape[1])
     a = _tensor(_levels(rng, a_shape, ties=True), dtype)
     b = _tensor(_levels(rng, b_shape, ties=True), dtype)
-    assert mc.time_route(offsets) == "register" and len(offsets) <= mc.NETWORK_MAX_TAPS
+    assert mc.time_route(offsets) == "register" and len(offsets) <= mc.REGISTER_TAPS
     want = mc.tap_median_time_plain(a, b, offsets, start, fill)
     # the wrapper's run for this small grid (1) and a fleet's (8, or all the rows)
     assert torch.equal(emulate_time_network(a, b, offsets, start, fill), want)
@@ -287,21 +324,38 @@ def test_time_network_plan_stages_the_union_once():
 
 def test_time_network_run_fills_the_card():
     """Runs of TIME_NETWORK_RUN rows on a fleet, all the rows when fewer,
-    halved while the grid has too few blocks to fill the card; whatever
-    the offsets, a run's staging fits its byte index and shared memory."""
-    assert mc.time_network_run(32, 512, 513) == mc.TIME_NETWORK_RUN
-    assert mc.time_network_run(16, 512, 513) == mc.TIME_NETWORK_RUN
-    assert mc.time_network_run(3, 512, 513) == 3 and mc.time_network_run(1, 512, 513) == 1
+    halved while the grid has too few blocks to fill the card
+    (``time_fill_run``, also #9's run); whatever the offsets, the
+    network's run stages rows that fit its byte index and shared memory."""
+    fill = mc.time_fill_run
+    assert fill(32, 512, 513) == mc.TIME_NETWORK_RUN
+    assert fill(16, 512, 513) == mc.TIME_NETWORK_RUN
+    assert fill(3, 512, 513) == 3 and fill(1, 512, 513) == 1
     # 64 streams x 5 column tiles x 4 runs fill the card; one hop-1024 stream
     # (17 tiles x 32 rows) does so only a row a thread; the track's pass 2 at 8
-    assert mc.time_network_run(32, 64, 513) == 8
-    assert mc.time_network_run(32, 1, 2049) == 1
-    assert mc.time_network_run(643, 1, 513) == 4
-    assert mc.time_network_run(41355, 1, 513) == 8
-    scattered = tuple(range(-3000, 100, 100))  # 31 taps, no two rows' taps meet
-    staged = len(mc.time_network_plan(scattered, mc.TIME_NETWORK_RUN)[0])
-    assert staged == mc.TIME_NETWORK_RUN * mc.NETWORK_MAX_TAPS <= mc.TIME_NETWORK_MAX_STAGED
+    assert fill(32, 64, 513) == 8
+    assert fill(32, 1, 2049) == 1
+    assert fill(643, 1, 513) == 4
+    assert fill(41355, 1, 513) == 8
+    # taps whose runs stage few rows keep the filling run
+    for args in ((32, 512, 513), (32, 64, 513), (32, 1, 2049), (643, 1, 513)):
+        assert mc.time_network_run(*args, T256) == fill(*args)
+    # hop 64's taps keep the run: 61 rows staged for 8 of them (wrap)
+    assert mc.time_network_run(32, 512, 129, T64) == 8
+    assert len(mc.time_network_plan(T64, 8)[0]) == 61
+    assert len(mc.time_network_plan(T64_VALID, 8)[0]) == 54
+    assert len(mc.time_network_plan(T64_REPLICATE, 8)[0]) == 31
+    # 63 taps no two rows' taps meet: a run of 8 would stage 504 rows, so
+    # the run halves until the plan's staged count fits the byte index
+    scattered = tuple(range(-6200, 100, 100))
+    assert len(scattered) == mc.REGISTER_TAPS
+    assert len(mc.time_network_plan(scattered, 8)[0]) == 8 * 63
+    run = mc.time_network_run(41355, 1, 513, scattered)
+    staged = len(mc.time_network_plan(scattered, run)[0])
+    assert run == 4 and staged == 4 * 63 <= mc.TIME_NETWORK_MAX_STAGED
     assert staged * mc.TIME_NETWORK_THREADS * 4 <= mc.SMEM_OPTIN
+    # a run of one row stages at most K rows, which always fit
+    assert mc.REGISTER_TAPS <= mc.TIME_NETWORK_MAX_STAGED
 
 
 def test_host_constants_match_the_sources():
@@ -315,7 +369,7 @@ def test_host_constants_match_the_sources():
     assert const("median_time.cu", "kNetMaxRun") == mc.TIME_NETWORK_MAX_RUN
     assert const("median_time.cu", "kNetMaxStaged") == mc.TIME_NETWORK_MAX_STAGED == 256
     assert const("row_segment.cuh", "kNetworkChunk") == mc.FREQ_NETWORK_CHUNK
-    assert mc.NETWORK_MAX_TAPS == sn.MAX_TAPS < mc.REGISTER_TAPS
+    assert mc.FREQ_NETWORK_MAX_TAPS == sn.FREQ_MAX_TAPS < mc.REGISTER_TAPS == sn.TIME_MAX_TAPS
 
 
 # ---------------- K2's network route: a row's split into blocks ----------------
@@ -343,7 +397,7 @@ def test_freq_network_emulation_matches_twin(k, f_out, mode):
         live = min(chunk, f_out - j0)
         base = j0 if mode == "valid" else j0 - (k - 1) // 2
         seg = x[:, _boundary_index(torch.arange(live + k - 1) + base, f_in, mode)]
-        assert seg.shape[1] <= mc.FREQ_NETWORK_CHUNK + mc.NETWORK_MAX_TAPS - 1
+        assert seg.shape[1] <= mc.FREQ_NETWORK_CHUNK + mc.FREQ_NETWORK_MAX_TAPS - 1
         taps = torch.stack([seg[:, q : q + live] for q in range(k)])
         out[:, j0 : j0 + live] = sn.select_median_plain(taps)
     assert mc.freq_route(k) == "network"

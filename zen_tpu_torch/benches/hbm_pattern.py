@@ -106,16 +106,17 @@ def measure(args: argparse.Namespace, log=print) -> dict:
         f"x * c over {args.big_mb} MB flat")
     del big
     t_route, t_run = mc.time_route(offs), None
-    if t_route == "register" and len(offs) <= mc.NETWORK_MAX_TAPS:
-        t_run = mc.time_network_run(B, S, bins)
+    if t_route == "register":
+        t_run = mc.time_network_run(B, S, bins, offs)
         t_note = f"network, runs of {t_run} rows, {len(mc.time_network_plan(offs, t_run)[0])} staged"
     else:
-        t_note = "counting" if t_route == "register" else t_route
+        t_note = t_route
     run("time_real", lambda x: keep(mc.tap_median_time(x, x[:, :0], offs, H), x), slab,
         slab_bytes + out_bytes, f"K1 {t_route} (K={len(offs)}; {t_note}) tail from row {H}")
     run("time_dma", lambda x: keep(pc.rows_copy(x, H, B), x), slab, 2 * out_bytes,
-        f"#9 rows_copy rows {H}..{H + B} (K1 network's thread mapping, runs of "
-        f"{mc.time_network_run(B, S, bins)} rows)")
+        f"#9 rows_copy rows {H}..{H + B} (K1's thread mapping, runs of "
+        f"{mc.time_fill_run(B, S, bins)} rows: the run that fills the card, before "
+        "the network's staging limit)")
     f_route = mc.freq_route(kf)
     # the outputs a block takes: the network route's share of a row, or the rank route's tile
     tile = mc.freq_network_chunk(bins) if f_route == "network" else mc.freq_rank_tile(kf)

@@ -20,8 +20,10 @@ least-squares exponent of time against size):
                         (network, rank), the plain twin, and
                         torch.kthvalue over a padded unfold (the library)
   median_time_<route>   K1's one-input form over [t, 513] rows, zero
-                        border, at the paths' K (3, 11, 93): register,
-                        rank, the plain twin, kthvalue over gathered taps
+                        border, at the paths' K (3, 11, 47, 93): each
+                        route that takes K by name (register up to 63
+                        taps, rank at any K), the plain twin, kthvalue
+                        over gathered taps
   hpr_block_step        block_step at hop 256, 1024, 4096, 32-hop blocks
 
 The JAX sweep's TPU-only network variants (``cse`` / ``taps``) and its
@@ -56,7 +58,7 @@ from ..ops import median_cuda as mc
 from ..runtime.profiling import device_ms, steady_state_ms
 
 HPR_KS = (13, 47, 187)  # the engine's frequency K (hop 256, 1024, 4096 at 44.1 kHz)
-TIME_KS = (3, 11, 93)  # its time K (hop 1024, 256, 32)
+TIME_KS = (3, 11, 47, 93)  # its time K (hop 1024, 256, 64, 32)
 TIME_F = 513
 DFT_IMPLS = ("torch",) + zfft.DFT_MODES
 # the sweep's scale by device type: elements an FFT call covers (rows =
@@ -184,13 +186,12 @@ def _time_library(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _freq_routes(k: int) -> list:
-    routes = ["network"] if k <= mc.NETWORK_MAX_TAPS else []
+    routes = ["network"] if k <= mc.FREQ_NETWORK_MAX_TAPS else []
     return routes + (["rank"] if mc.freq_rank_tile(k) else [])
 
 
 def _time_routes(offsets: tuple) -> list:
-    routes = ["register"] if len(offsets) <= mc.REGISTER_TAPS else []
-    return routes + (["rank"] if mc.time_rank_table(offsets) is not None else [])
+    return (["register"] if len(offsets) <= mc.REGISTER_TAPS else []) + ["rank"]
 
 
 def _mem_point(ps: list) -> int:

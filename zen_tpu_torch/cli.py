@@ -363,6 +363,10 @@ def cmd_corpus(args) -> int:
                           beta_p=beta_p, pp=args.pp, prefetch=max(0, args.prefetch),
                           stem_format=args.stem_format, **_impl_kw(args))
     print(json.dumps({"metric": "corpus_tracks", **res}))
+    if args.nprocs > 1:
+        from .parallel import multihost
+
+        multihost.leave()
     return 0
 
 

@@ -35,7 +35,7 @@
 // wrapper (ops/median_cuda.py, freq_route) from K alone; all pick
 // sorted[(K-1)/2], the element jnp.median picks for odd K.
 //
-// `network`, K up to ZEN_SELECT_MAX_TAPS (the hop-256 fleet's K = 13).
+// `network`, K up to ZEN_SELECT_FREQ_MAX_TAPS (the hop-256 fleet's K = 13).
 // A first version took these K through the rank route below: one-warp
 // blocks, 8-byte keys, a 64-key sort and a walk for what a few dozen
 // min/max select; its staging alone was 64% of the kernel and six times
@@ -138,7 +138,7 @@ network_median_kernel(const T* __restrict__ x, T* __restrict__ out, int f_in,
                       int f_out, int chunk, int mode) {
   // raw bytes: a __shared__ array of a class type may not be constructed
   __shared__ __align__(16) unsigned char
-      seg_bytes[(zen_segment::kNetworkChunk + ZEN_SELECT_MAX_TAPS - 1) * sizeof(T)];
+      seg_bytes[(zen_segment::kNetworkChunk + ZEN_SELECT_FREQ_MAX_TAPS - 1) * sizeof(T)];
   T* seg = reinterpret_cast<T*>(seg_bytes);
   const size_t r = blockIdx.x;
   const int j0 = blockIdx.y * chunk;
@@ -245,9 +245,9 @@ int launch_network(const T* x, T* out, int rows, int f_in, int f_out, int k,
         <<<grid, zen_segment::kNetworkThreads, 0, s>>>(x, out, f_in, \
                                                        f_out, chunk, mode); \
     break;
-    ZEN_SELECT_FOR_EACH_K(ZEN_NETWORK_CASE)
+    ZEN_SELECT_FOR_EACH_FREQ_K(ZEN_NETWORK_CASE)
 #undef ZEN_NETWORK_CASE
-    default:  // K above ZEN_SELECT_MAX_TAPS
+    default:  // K above ZEN_SELECT_FREQ_MAX_TAPS
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

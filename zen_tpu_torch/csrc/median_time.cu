@@ -14,8 +14,12 @@
 //                           stream for fleets of >= 256 streams: the
 //                           512-stream hop-256 step at B < H, f32 or bf16,
 //                           and its padded constant-fill branch).
-// All four collapse into one kernel: b may have zero rows, and the
-// TPU's row chunking and per-stream blocks are the grid here.
+// All four collapse into this file: b may have zero rows, and the TPU's
+// row chunking and per-stream blocks are the grid here. Two kernels take
+// every tap count, chosen by the wrapper (ops/median_cuda.py, time_route)
+// from K alone: the `register` route's comparator network up to
+// ZEN_SELECT_TIME_MAX_TAPS (63) taps, the `rank` route above, at any span
+// of the offsets. Both pick sorted[(K-1)/2], the element jnp.median picks.
 //
 //   out[c, i, f] = median over o in offsets of V[c, start + i + o, f]
 //   V = rows of a [C, Ta, F] followed by rows of b [C, Tb, F]
@@ -25,32 +29,35 @@
 // tap converts to float exactly, so the float compares rank the same
 // elements, and the selected value converts back to the same bf16 bits.
 //
-// What bounds it on this card: the selection, not the bytes. Beside a
-// copy with the same launch geometry (rows_copy, csrc/probe_copy.cu), a
-// first version that ranked the K taps by counting (2 K^2 compares an
-// output, 242 at K = 11, and K separate loads) spent nine tenths of its
-// time selecting: 411 us against 40 us for the copy at the 512-stream
-// B = 32 step on an H100, 13 to 25 times its bytes bound at every path
-// shape.
-//
-// What the design does about it, up to ZEN_SELECT_MAX_TAPS taps (the
-// `register` route's network kernel; the main-path shapes take K = 3 at
-// hop 1024 and K = 11 at hop 256):
-// * The median is a comparator network on a register array
-//   (zen_select::median<K>, generated by ops/select_network.py: a pruned
-//   odd-even merge sort, 54 min/max at K = 11 where counting made 242
-//   compares and as many adds), straight-line code with no divergence,
-//   one kernel instantiation per K.
+// `register`, K up to 63 (K = 3 at hop 1024, 11 at hop 256, 23 at hop
+// 128, 47 at 44.1 kHz hop 64, 51 at 48 kHz hop 64). What bounds it on
+// this card: the selection, not the bytes. Each output runs a pruned
+// odd-even merge network (zen_select::median<K>, generated by
+// ops/select_network.py): 54 min/max at K = 11, 364 at K = 33, 570 at
+// K = 47, 816 at K = 63, issued at half the FP32 rate; and it reads its K
+// taps from shared memory. A first version ranked the K taps by counting
+// (2 K^2 compares an output and K separate loads a tap): nine tenths of
+// its time at K = 11 went to selecting, 13 to 25 times its bytes bound.
+// What the design does about it:
+// * The network is straight-line code on a register array with no
+//   divergence, one kernel instantiation per K.
 // * A thread takes one column and a run of consecutive output rows
-//   (csrc/time_runs.cuh: 128 columns a block, 32-bit index arithmetic;
-//   the first version paid two 64-bit div/mods per output). Neighbouring
-//   output rows share most tap rows, so the thread loads the union of
-//   the rows its run's taps reach once (25 rows for a run of 8 at hop
-//   256, 3.1 loads an output in place of 11), bounds and fill decided on
-//   that load. Which rows, and which of them each output's K taps are,
-//   depends on the offsets alone: the wrapper computes both per offsets
-//   tuple and run (ops/median_cuda.py, time_network_plan) and the
-//   launcher passes them in the kernel's parameters.
+//   (csrc/time_runs.cuh: 128 columns a block, 32-bit index arithmetic).
+//   Neighbouring output rows share most tap rows, so the thread loads the
+//   union of the rows its run's taps reach once (25 rows for a run of 8 at
+//   hop 256, 3.1 loads an output in place of 11; 61 for a run of 8 under
+//   hop 64's 47 taps), bounds and fill decided on that load. Which rows,
+//   and which of them each output's K taps are, depends on the offsets
+//   alone: the wrapper computes both per offsets tuple and run
+//   (time_network_plan), choosing the run so that the rows fit the byte
+//   index of the slot table (kNetMaxStaged), and the launcher passes them
+//   in the kernel's parameters.
+// * A thread issues its staging loads in batches, predicated, and stores
+//   them after (4 a batch up to 16 taps, 16 above): one stream's step is
+//   a few dozen blocks, and there the rows' cache round trips, not the
+//   selection, are the kernel's time (on an H100, K = 47 at B = 1 took
+//   15 us with one load in flight, 8 with sixteen; four keep the K = 11
+//   fleets at 32 registers a thread).
 // * Registers cannot be indexed by a run-time tap table, so the staged
 //   rows live in shared memory, one column per thread (row s of thread t
 //   at word s * 128 + t: no bank conflicts, and no barrier, since a
@@ -60,38 +67,41 @@
 //   `fill` are just values on wires.
 // * The two input pointers remove the concat copy the JAX step pays
 //   without the pair kernel.
-// From ZEN_SELECT_MAX_TAPS + 2 to 64 taps the first kernel stays: one
-// thread per output, the taps in registers, exact rank-by-counting, which
-// picks sorted[(K-1)/2], the element the network and jnp.median pick.
 //
-// Past 64 taps (K = 67 to 401 at hop 8 to 32) a register array no
-// longer fits, and counting would cost up to K^2 tap reads per output
-// (8,649 at K = 93, 160,801 at K = 401) on the few thousand outputs of a
-// hop-32 step, a handful of blocks on 132 SMs. The rank route (rank
-// once, select many, rank_select.cuh) gives each block one column and a
-// run of 32 output rows: its 128 threads stage the rows the run's taps
-// reach, [start + i0 + min(o), start + i0 + 31 + max(o)] of V (fill
-// outside), as (value, row) keys in shared memory and bitonic-sort them
-// once; then each lane of the first warp, one output row, walks the
-// ranks adding the multiplicity of each row in its tap set until the sum
-// passes (K-1)/2. The multiplicities
-// come from a table over [min(o), max(o)] (duplicated taps, e.g. the
-// replicate border's repeated offset 0, count more than once), built by
-// the wrapper and uploaded once per offsets tuple, padded with 31 zeros
-// on each side so that a lane reads table[row - lane + 31] without a
-// branch: all lanes read one rank (a broadcast) and consecutive table
-// words (no bank conflicts). The shapes of the hop-32 step have few
-// outputs, so the kernel is built for latency: the four warps keep the
-// staging loads of a unit in flight together and share its sort, and the
-// walk reads eight ranks a step. One unit per block spreads the work
-// over the SMs: 65 blocks at K = 93 [1, 183 + 32, 65], 493 at K = 401
-// [1, 900, 17], where the first wide kernel ran 9 and 60.
-//
-// The keys (a power of two >= 32 + max(o) - min(o)) and the table must
-// fit the 227 KB a block can opt into: max(o) - min(o) up to 16,352.
-// Offsets that span more, whatever their count, stay on the first wide
-// kernel, which stages the offsets (K up to 12,287) and re-reads each
-// tap through the read-only cache in its rank loop: right, not fast.
+// `rank`, K from 65 (K = 93 at 44.1 kHz hop 32, 401 at 48 kHz hop 8, and
+// tap sets of any span up to 12,287 taps). A register array no longer
+// fits, and counting would cost up to K^2 tap reads an output (8,649 at
+// K = 93). What bounds it on this card: the block's sort of its staged
+// keys, not the bytes. The design, rank once and select many
+// (rank_select.cuh): each block takes one column and a run of up to 32
+// output rows; its 128 threads stage the rows the run's taps reach
+// (time_rank_rows: 155 for a run of 32 under hop 32's two tap runs, not
+// the 215 between their extremes) as (value, row) keys in shared memory
+// and bitonic-sort them once; then each lane of the first warp, one output
+// row, walks the ranks adding the multiplicity of each row in its tap set
+// until the sum passes (K-1)/2. The multiplicities come from a table over
+// [min(o), max(o)] (duplicated taps count more than once), built by the
+// wrapper and uploaded once per offsets tuple, padded with 31 zeros on
+// each side so that a lane reads table[row - lane + 31] without a branch:
+// all lanes read one rank (a broadcast) and consecutive table words. The
+// shapes of the hop-32 step have few outputs, so the kernel is built for
+// latency: the four warps keep the staging loads of a unit in flight
+// together and share its sort, and the walk reads eight ranks a step. One
+// unit per block spreads the work over the SMs: 65 blocks at K = 93
+// [1, 183 + 32, 65], 493 at K = 401 [1, 900, 17].
+// Every span fits: the keys a block stages depend on the rows its taps
+// reach, not on the span between them, and the wrapper halves the run
+// (time_rank_run) while they pass 227 KB; one output row stages its
+// distinct taps, at most 16,384 keys (128 KB). A tap that reads fill for
+// every output row of a call moves next to V (time_rank_offsets), so the
+// table spans at most 2 t_v + 1 rows however far the offsets reach. The
+// table goes into shared memory beside the keys where both fit (spans up
+// to about 57,000 rows); past that the walk reads it from the plan in
+// device memory through the read-only cache, where the few words a
+// block's rows touch stay cached. Both variants stay: on an H100 the walk
+// over the shared table took 10.14 us at hop 32's K = 93 (B = 32), 8.13
+// at B = 1 and 9.92 at a span of 16,354 rows, against 10.59, 8.59 and
+// 10.82 reading device memory (benches/rank_table.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -103,15 +113,6 @@
 
 namespace {
 
-constexpr int kMaxTaps = 64;
-// largest odd k whose k int offsets fit 48 KB of shared memory
-constexpr int kMaxWideTaps = 48 * 1024 / sizeof(int) - 1;
-
-struct Taps {
-  int k;
-  int o[kMaxTaps];
-};
-
 using zen_rank::from_float;
 using zen_rank::to_float;
 
@@ -120,57 +121,6 @@ __device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
   return __bfloat162float(__ushort_as_bfloat16(
       __ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-template <typename T, int KMAX>
-__global__ void tap_median_time_kernel(const T* __restrict__ a,
-                                       const T* __restrict__ b,
-                                       T* __restrict__ out, int ta, int tb,
-                                       int f, int start, int t_out,
-                                       long long n, Taps taps, float fill) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int col = static_cast<int>(idx % f);
-  const long long rest = idx / f;
-  const int i = static_cast<int>(rest % t_out);
-  const long long c = rest / t_out;
-  const int k = taps.k;
-  const int half = (k - 1) / 2;
-
-  float v[KMAX];
-#pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
-    if (q < k) {
-      const int r = start + i + taps.o[q];
-      float x = fill;
-      if (r >= 0 && r < ta) {
-        x = to_float(a[(static_cast<size_t>(c) * ta + r) * f + col]);
-      } else if (r >= ta && r < ta + tb) {
-        x = to_float(b[(static_cast<size_t>(c) * tb + (r - ta)) * f + col]);
-      }
-      v[q] = x;
-    }
-  }
-  // sorted[half] is the tap v with #(< v) <= half < #(< v) + #(== v);
-  // duplicates all satisfy it with the same value
-  float med = v[0];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      int lt = 0;
-      int eq = 0;
-#pragma unroll
-      for (int q = 0; q < KMAX; ++q) {
-        if (q < k) {
-          lt += v[q] < v[j];
-          eq += v[q] == v[j];
-        }
-      }
-      if (lt <= half && half < lt + eq) med = v[j];
-    }
-  }
-  out[idx] = from_float<T>(med);
 }
 
 constexpr int kNetMaxRun = 16;     // most output rows of a network thread
@@ -182,7 +132,7 @@ struct NetPlan {
   int staged;              // rows the run's taps reach
   int row[kNetMaxStaged];  // each relative to the run's first output row
   // slot[i * K + q]: which staged row tap q of the run's output row i is
-  unsigned char slot[kNetMaxRun * ZEN_SELECT_MAX_TAPS];
+  unsigned char slot[kNetMaxRun * ZEN_SELECT_TIME_MAX_TAPS];
 };
 
 template <typename T, int K>
@@ -201,16 +151,28 @@ tap_median_time_network_kernel(const T* __restrict__ a,
   const T* pb = b + static_cast<size_t>(u.c) * tb * f + u.col;
   const int row0 = start + u.i0;
   const T fill_t = from_float<T>(fill);
-#pragma unroll 8
-  for (int s = 0; s < plan.staged; ++s) {
-    const int r = row0 + plan.row[s];
-    T x = fill_t;
-    if (r >= 0 && r < ta) {
-      x = pa[static_cast<long long>(r) * f];
-    } else if (r >= ta && r < ta + tb) {
-      x = pb[static_cast<long long>(r - ta) * f];
+  // a batch of predicated loads in flight, then their stores: a load
+  // under a branch waits for the store before it, one cache round trip a
+  // staged row for a thread of a small grid (one hop-64 stream: 47 rows).
+  // Four up to 16 taps keep a thread at 32 registers (the fleets'
+  // occupancy); sixteen above, where a small grid waits on round trips.
+  constexpr int kBatch = K <= 16 ? 4 : 16;
+  for (int s0 = 0; s0 < plan.staged; s0 += kBatch) {
+    T x[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const bool live = s0 + q < plan.staged;
+      const int r = row0 + plan.row[live ? s0 + q : 0];
+      const bool in_a = live && r >= 0 && r < ta;
+      const bool in_b = live && r >= ta && r < ta + tb;
+      const T* src = in_a ? pa + static_cast<long long>(r) * f
+                          : pb + static_cast<long long>(r - ta) * f;
+      x[q] = (in_a || in_b) ? *src : fill_t;
     }
-    mine[s * zen_runs::kThreads] = x;
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      if (s0 + q < plan.staged) mine[(s0 + q) * zen_runs::kThreads] = x[q];
+    }
   }
   const int rows = min(run, t_out - u.i0);
   T* dst = out + (static_cast<size_t>(u.c) * t_out + u.i0) * f + u.col;
@@ -224,7 +186,7 @@ tap_median_time_network_kernel(const T* __restrict__ a,
   }
 }
 
-// one tap of V for the wide kernel, through the read-only data cache
+// one tap of V for the rank kernel's staging, through the read-only data cache
 template <typename T>
 __device__ __forceinline__ float tap_at(const T* __restrict__ a,
                                         const T* __restrict__ b,
@@ -239,40 +201,6 @@ __device__ __forceinline__ float tap_at(const T* __restrict__ a,
   return fill;
 }
 
-template <typename T>
-__global__ void tap_median_time_wide_kernel(
-    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
-    int ta, int tb, int f, int start, int t_out, long long n,
-    const int* __restrict__ offsets, int k, float fill) {
-  extern __shared__ int offs[];
-  for (int q = threadIdx.x; q < k; q += blockDim.x) offs[q] = offsets[q];
-  __syncthreads();
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int col = static_cast<int>(idx % f);
-  const long long rest = idx / f;
-  const int row = start + static_cast<int>(rest % t_out);
-  const long long c = rest / t_out;
-  const int half = (k - 1) / 2;
-  float med = tap_at(a, b, c, ta, tb, f, col, row + offs[0], fill);
-  for (int j = 0; j < k; ++j) {
-    const float v = tap_at(a, b, c, ta, tb, f, col, row + offs[j], fill);
-    int lt = 0;
-    int eq = 0;
-    for (int q = 0; q < k; ++q) {
-      const float t = tap_at(a, b, c, ta, tb, f, col, row + offs[q], fill);
-      lt += t < v;
-      eq += t == v;
-    }
-    if (lt <= half && half < lt + eq) {
-      med = v;
-      break;
-    }
-  }
-  out[idx] = from_float<T>(med);
-}
-
 constexpr int kRun = 32;           // most output rows of a rank-kernel block
 constexpr int kRankThreads = 128;  // threads that stage and sort them
 
@@ -280,8 +208,11 @@ constexpr int kRankThreads = 128;  // threads that stage and sort them
 // for lane < run. `plan` holds the multiplicity table (span + 62 ints),
 // then the `staged` rows the run's taps reach, relative to its first
 // output row's min(o) tap. All kRankThreads threads stage and sort; one
-// lane of the first warp per output row walks.
-template <typename T>
+// lane of the first warp per output row walks. kSharedTable: the table is
+// copied into shared memory behind the keys; otherwise the walk reads it
+// from `plan` through the read-only cache (spans whose table does not fit
+// beside the keys).
+template <typename T, bool kSharedTable>
 __global__ void tap_median_time_rank_kernel(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
     int ta, int tb, int f, int start, int t_out, int run,
@@ -299,7 +230,9 @@ __global__ void tap_median_time_rank_kernel(
   const long long rest = unit / f;
   const int i0 = static_cast<int>(rest % n_runs) * run;
   const long long c = rest / n_runs;
-  for (int q = tid; q < len; q += kRankThreads) table[q] = plan[q];
+  if (kSharedTable) {
+    for (int q = tid; q < len; q += kRankThreads) table[q] = plan[q];
+  }
   const int row0 = start + i0 + min_o;  // the V row of relative row 0
 #pragma unroll 4
   for (int s = tid; s < n; s += kRankThreads) {
@@ -332,38 +265,20 @@ __global__ void tap_median_time_rank_kernel(
   const unsigned long long key = zen_rank::walk(
       stage, (k - 1) / 2, [&](unsigned long long kv) {
         const unsigned int q = zen_rank::position_of(kv) + mult_at;
-        return q < static_cast<unsigned int>(len) ? table[q] : 0;
+        if (q >= static_cast<unsigned int>(len)) return 0;
+        return kSharedTable ? table[q] : __ldg(plan + q);
       });
   *dst = from_float<T>(zen_rank::value_of(key));
 }
 
-template <typename T>
-int launch_register(const T* a, const T* b, T* out, int c, int ta, int tb,
-                    int f, int start, int t_out, const int* offsets, int k,
-                    float fill, void* stream) {
-  if (k < 1 || k > kMaxTaps || k % 2 == 0 || c <= 0 || f <= 0 || t_out <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Taps taps;
-  taps.k = k;
-  for (int q = 0; q < kMaxTaps; ++q) taps.o[q] = q < k ? offsets[q] : 0;
-  const long long n = static_cast<long long>(c) * t_out * f;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  tap_median_time_kernel<T, kMaxTaps><<<blocks, threads, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, ta, tb, f, start, t_out, n, taps, fill);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K <= ZEN_SELECT_MAX_TAPS: `rows` (staged ints) and `slots` (run * k
+// K <= ZEN_SELECT_TIME_MAX_TAPS: `rows` (staged ints) and `slots` (run * k
 // ints below staged) are host arrays, the wrapper's time_network_plan
 template <typename T>
 int launch_network(const T* a, const T* b, T* out, int c, int ta, int tb,
                    int f, int start, int t_out, const int* rows, int staged,
                    const int* slots, int run, int k, float fill,
                    void* stream) {
-  if (k < 1 || k > ZEN_SELECT_MAX_TAPS || k % 2 == 0 || c <= 0 || f <= 0 ||
+  if (k < 1 || k > ZEN_SELECT_TIME_MAX_TAPS || k % 2 == 0 || c <= 0 || f <= 0 ||
       t_out <= 0 || run < 1 || run > kNetMaxRun || staged < 1 ||
       staged > kNetMaxStaged) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -396,7 +311,7 @@ int launch_network(const T* a, const T* b, T* out, int c, int ta, int tb,
         a, b, out, ta, tb, f, start, t_out, run, n_runs, fill, plan);        \
     break;                                                                   \
   }
-    ZEN_SELECT_FOR_EACH_K(ZEN_NETWORK_CASE)
+    ZEN_SELECT_FOR_EACH_TIME_K(ZEN_NETWORK_CASE)
 #undef ZEN_NETWORK_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -404,28 +319,11 @@ int launch_network(const T* a, const T* b, T* out, int c, int ta, int tb,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K > kMaxTaps: `offsets` is a device buffer of k ints, staged in the
-// block's shared memory, which bounds k by the 48 KB a block takes
-// without an opt-in (kMaxWideTaps).
-template <typename T>
-int launch_wide(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
-                int start, int t_out, const int* offsets, int k, float fill,
-                void* stream) {
-  if (k < 1 || k > kMaxWideTaps || k % 2 == 0 || c <= 0 || f <= 0 ||
-      t_out <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long n = static_cast<long long>(c) * t_out * f;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  tap_median_time_wide_kernel<T><<<blocks, threads, k * sizeof(int),
-                                   static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, ta, tb, f, start, t_out, n, offsets, k, fill);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // `plan` is a device buffer: span + 62 ints (31 zeros, the count of each
-// offset min_o .. min_o + span - 1, 31 zeros), then `staged` rows
+// offset min_o .. min_o + span - 1, 31 zeros), then `staged` rows. The
+// block takes the keys (the wrapper's time_rank_keys reckons the same
+// bytes and picks the run they fit), and the table too where both fit
+// what a block may opt into.
 template <typename T>
 int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
                 int start, int t_out, const int* plan, int min_o, int span,
@@ -434,16 +332,23 @@ int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
       run < 1 || run > kRun || staged < 1 || staged > kRun - 1 + span) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem =
-      zen_rank::key_count(staged) * sizeof(unsigned long long) +
-      (static_cast<size_t>(span) + 2 * (kRun - 1)) * sizeof(int);
-  const int err = zen_rank::opt_in(
-      reinterpret_cast<const void*>(tap_median_time_rank_kernel<T>), smem);
+  int optin = 0;
+  int err = zen_rank::optin_bytes(&optin);
+  if (err != 0) return err;
+  const size_t keys =
+      static_cast<size_t>(zen_rank::key_count(staged)) * sizeof(unsigned long long);
+  const size_t table = (static_cast<size_t>(span) + 2 * (kRun - 1)) * sizeof(int);
+  const bool shared_table = keys + table <= static_cast<size_t>(optin);
+  const size_t smem = keys + (shared_table ? table : 0);
+  const auto kernel = shared_table ? tap_median_time_rank_kernel<T, true>
+                                   : tap_median_time_rank_kernel<T, false>;
+  err = zen_rank::opt_in(reinterpret_cast<const void*>(kernel), smem, optin);
   if (err != 0) return err;
   const int n_runs = (t_out + run - 1) / run;
   const long long units = static_cast<long long>(c) * n_runs * f;
-  tap_median_time_rank_kernel<T><<<static_cast<unsigned>(units), kRankThreads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  if (units > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(units), kRankThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       a, b, out, ta, tb, f, start, t_out, run, plan, min_o, span, staged, k,
       fill);
   return static_cast<int>(cudaGetLastError());
@@ -465,43 +370,6 @@ extern "C" int zen_tap_median_time_network_bf16(
     const int* slots, int run, int k, float fill, void* stream) {
   return launch_network(a, b, out, c, ta, tb, f, start, t_out, rows, staged,
                         slots, run, k, fill, stream);
-}
-
-// `offsets` is a host array of k ints (k <= 64)
-extern "C" int zen_tap_median_time(const float* a, const float* b, float* out,
-                                   int c, int ta, int tb, int f, int start,
-                                   int t_out, const int* offsets, int k,
-                                   float fill, void* stream) {
-  return launch_register(a, b, out, c, ta, tb, f, start, t_out, offsets, k,
-                         fill, stream);
-}
-
-extern "C" int zen_tap_median_time_bf16(const __nv_bfloat16* a,
-                                        const __nv_bfloat16* b,
-                                        __nv_bfloat16* out, int c, int ta,
-                                        int tb, int f, int start, int t_out,
-                                        const int* offsets, int k, float fill,
-                                        void* stream) {
-  return launch_register(a, b, out, c, ta, tb, f, start, t_out, offsets, k,
-                         fill, stream);
-}
-
-// `offsets` is a device buffer of k ints (64 < k <= kMaxWideTaps)
-extern "C" int zen_tap_median_time_wide(const float* a, const float* b,
-                                        float* out, int c, int ta, int tb,
-                                        int f, int start, int t_out,
-                                        const int* offsets, int k, float fill,
-                                        void* stream) {
-  return launch_wide(a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill,
-                     stream);
-}
-
-extern "C" int zen_tap_median_time_wide_bf16(
-    const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* out, int c,
-    int ta, int tb, int f, int start, int t_out, const int* offsets, int k,
-    float fill, void* stream) {
-  return launch_wide(a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill,
-                     stream);
 }
 
 extern "C" int zen_tap_median_time_rank(const float* a, const float* b,

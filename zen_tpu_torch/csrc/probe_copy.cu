@@ -76,7 +76,7 @@ segment_copy_values_kernel(const T* __restrict__ x, T* __restrict__ out,
                            int f, int k, int chunk, int mode) {
   // raw bytes: a __shared__ array of a class type may not be constructed
   __shared__ __align__(16) unsigned char
-      seg_bytes[(zen_segment::kNetworkChunk + ZEN_SELECT_MAX_TAPS - 1) * sizeof(T)];
+      seg_bytes[(zen_segment::kNetworkChunk + ZEN_SELECT_FREQ_MAX_TAPS - 1) * sizeof(T)];
   T* seg = reinterpret_cast<T*>(seg_bytes);
   const size_t r = blockIdx.x;
   const int j0 = blockIdx.y * chunk;
@@ -145,7 +145,7 @@ int launch_segment_values(const T* x, T* out, int rows, int f, int k, int mode,
                           void* stream) {
   const int err = check_segment(rows, f, k, mode);
   if (err != 0) return err;
-  if (k > ZEN_SELECT_MAX_TAPS) return static_cast<int>(cudaErrorInvalidValue);
+  if (k > ZEN_SELECT_FREQ_MAX_TAPS) return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = zen_segment::network_chunk(f);
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((f + chunk - 1) / chunk));

@@ -35,26 +35,38 @@
 
 namespace zen_rank {
 
-// `smem` bytes of dynamic shared memory for `kernel`: refused past what a
-// block may opt into (227 KB on Hopper), opted into above the 48 KB default
-inline int opt_in(const void* kernel, size_t smem) {
+// the shared memory a block of the current device may opt into (227 KB
+// on Hopper), into *bytes
+inline int optin_bytes(int* bytes) {
   int device = 0;
-  int optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(err);
+}
+
+// `smem` bytes of dynamic shared memory for `kernel`: refused past
+// `optin` (optin_bytes), opted into above the 48 KB default
+inline int opt_in(const void* kernel, size_t smem, int optin) {
   if (smem > static_cast<size_t>(optin)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   }
   return static_cast<int>(err);
+}
+
+// the same, querying the current device's limit
+inline int opt_in(const void* kernel, size_t smem) {
+  int optin = 0;
+  const int got = optin_bytes(&optin);
+  return got != 0 ? got : opt_in(kernel, smem, optin);
 }
 
 // The element types of both kernels: a bf16 converts to float exactly,

@@ -5,7 +5,7 @@
 // A block of `count` threads stages the `need` samples its outputs'
 // windows reach, row positions base .. base + need - 1 with the boundary
 // rule applied on the load, in shared memory:
-// * stage_values (the network route, K up to ZEN_SELECT_MAX_TAPS): in the
+// * stage_values (the network route, K up to ZEN_SELECT_FREQ_MAX_TAPS): in the
 //   input's own type, 4 or 2 bytes a sample; consecutive threads load
 //   consecutive samples, and only the halo pays for the boundary rule;
 // * stage_keys (the rank route): as 64-bit (value order bits, position)
@@ -53,10 +53,10 @@ __host__ __device__ __forceinline__ int network_chunk(int f_out) {
 
 // A thread's share of the largest segment a network block stages
 constexpr int kNetworkLoads =
-    (kNetworkChunk + ZEN_SELECT_MAX_TAPS - 1 + kNetworkThreads - 1) /
+    (kNetworkChunk + ZEN_SELECT_FREQ_MAX_TAPS - 1 + kNetworkThreads - 1) /
     kNetworkThreads;
 
-// Stages seg[0, need), need <= kNetworkChunk + ZEN_SELECT_MAX_TAPS - 1, by
+// Stages seg[0, need), need <= kNetworkChunk + ZEN_SELECT_FREQ_MAX_TAPS - 1, by
 // the kNetworkThreads threads tid of a block; the caller syncs after. A
 // thread starts all its loads before its first store, so that they are
 // in flight together.

@@ -47,11 +47,6 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# a, b, out, c, ta, tb, f, start, t_out, offsets, k, fill, stream
-_TIME = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
-          ctypes.c_float, _P], _I)
-# the same, with `offsets` a device buffer (K above 64)
-_TIME_WIDE = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, ctypes.c_float, _P], _I)
 # a, b, out, c, ta, tb, f, start, t_out, plan (device), min_o, span, staged, run, k,
 # fill, stream
 _TIME_RANK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
@@ -81,10 +76,6 @@ _SIGNATURES = {
     "zen_tap_median_time_network_bf16": _TIME_NETWORK,
     "zen_sliding_median_network": _FREQ,
     "zen_sliding_median_network_bf16": _FREQ,
-    "zen_tap_median_time": _TIME,
-    "zen_tap_median_time_bf16": _TIME,
-    "zen_tap_median_time_wide": _TIME_WIDE,
-    "zen_tap_median_time_wide_bf16": _TIME_WIDE,
     "zen_tap_median_time_rank": _TIME_RANK,
     "zen_tap_median_time_rank_bf16": _TIME_RANK,
     "zen_sliding_median_boundary": _FREQ,

@@ -23,18 +23,22 @@ through the kernel, and ``routes`` splits that count by route. Kernels
 launch on the current stream, never synchronize and allocate nothing:
 the wrapper allocates the output.
 
-Up to NETWORK_MAX_TAPS taps both kernels select with a comparator
-network on registers (``ops/select_network.py``, emitted as
-``zen_select.cuh`` at build time): K1's ``register`` route and K2's
-``network`` route. Each kernel has a route for large K, "rank once,
-select many" (``csrc/rank_select.cuh``): K1 from 65 taps
-(``time_route``), K2 from FREQ_RANK_MIN_TAPS (``freq_route``). The
-wrappers choose from K (K1: and the offsets' span) alone. The host side
-of the routes is here, in Python the CPU tests reach: the rows a run of
-K1's network kernel stages and where each tap lies in them
-(``time_network_plan``), K2's tile (``freq_rank_tile``), K1's
-multiplicity table (``time_rank_table``) and the shared-memory checks
-that send a K whose staging does not fit back to the counting kernels.
+Small K is a comparator network on registers (``ops/select_network.py``,
+emitted as ``zen_select.cuh`` at build time): K1's ``register`` route up
+to REGISTER_TAPS (63) taps and K2's ``network`` route up to
+FREQ_NETWORK_MAX_TAPS (31). Large K is "rank once, select many"
+(``csrc/rank_select.cuh``): K1's ``rank`` route for every tap set past
+REGISTER_TAPS, at any span (``time_route``), and K2's from
+FREQ_RANK_MIN_TAPS while its keys fit a block (``freq_route``; its first
+``count`` kernel keeps the K beyond). The wrappers choose from K alone.
+The host side of the routes is here, in Python the CPU tests reach: the
+rows a run of K1's network kernel stages and where each tap lies in them
+(``time_network_plan``, ``time_network_run``; ``time_fill_run``, the
+run of the thread mapping alone), K1's rank plan (the
+multiplicity table ``time_rank_table``, the staged rows
+``time_rank_rows``, the run ``time_rank_run`` and its keys' bytes
+``time_rank_keys``), K2's tile (``freq_rank_tile``) and the shared-memory
+check that sends a K whose keys do not fit to K2's counting kernel.
 """
 from __future__ import annotations
 
@@ -48,31 +52,34 @@ import torch
 from ..errors import ZenError
 from . import _build
 from .median import sliding_median
-from .select_network import MAX_TAPS as NETWORK_MAX_TAPS
+from .select_network import FREQ_MAX_TAPS as FREQ_NETWORK_MAX_TAPS
+from .select_network import TIME_MAX_TAPS as REGISTER_TAPS
 
 # Shared memory a block can opt into on Hopper (227 KB).
 SMEM_OPTIN = 232_448
-# K1 keeps up to REGISTER_TAPS taps in registers; past that its wide
-# kernel stages the offsets in the 48 KB of shared memory a block takes
-# without an opt-in, which bounds K.
-REGISTER_TAPS = 64
-MAX_TIME_TAPS = 48 * 1024 // 4 - 1
-# K1's network kernel (K <= NETWORK_MAX_TAPS): a thread takes one column
-# and a run of TIME_NETWORK_RUN consecutive output rows, fewer while the
+# K1 takes up to MAX_TIME_TAPS taps: its network up to REGISTER_TAPS, its
+# rank route above at any span. One output row of the rank route stages
+# its distinct taps, so up to 16,384 of them would fit a block's keys;
+# the cap stays at the 12,287 the port has always taken.
+MAX_TIME_TAPS = 12_287
+# K1's network kernel (K <= REGISTER_TAPS): a thread takes one column and
+# a run of TIME_NETWORK_RUN consecutive output rows, fewer while the
 # launch would have under TIME_NETWORK_MIN_BLOCKS blocks (four for each
 # of an H100's 132 SMs: a single stream's step is a few dozen blocks at
-# runs of 8, and its time is then the run's length, not the card's rate).
-# A block takes TIME_NETWORK_THREADS columns; the rows a run's taps reach
-# (at most run * K) are indexed by a byte and staged in shared memory.
-# The kernel takes runs up to TIME_NETWORK_MAX_RUN where they fit.
+# runs of 8, and its time is then the run's length, not the card's rate)
+# or while the rows the run's taps reach pass TIME_NETWORK_MAX_STAGED
+# (they are indexed by a byte and staged in shared memory). A block takes
+# TIME_NETWORK_THREADS columns. The kernel takes runs up to
+# TIME_NETWORK_MAX_RUN where they fit.
 TIME_NETWORK_RUN = 8
 TIME_NETWORK_MAX_RUN = 16
 TIME_NETWORK_MAX_STAGED = 256
 TIME_NETWORK_THREADS = 128
 TIME_NETWORK_MIN_BLOCKS = 4 * 132
-assert TIME_NETWORK_RUN * NETWORK_MAX_TAPS <= TIME_NETWORK_MAX_STAGED
+assert REGISTER_TAPS <= TIME_NETWORK_MAX_STAGED  # a run of one row always fits
 assert TIME_NETWORK_MAX_STAGED * TIME_NETWORK_THREADS * 4 <= SMEM_OPTIN
-# K1's rank route: most output rows per block, one per lane of its first warp.
+# K1's rank route: most output rows per block, one per lane of its first
+# warp; its table pads each side with TIME_RANK_RUN - 1 zeros.
 TIME_RANK_RUN = 32
 # K2's counting kernel stages a row segment of 256 + K - 1 floats in
 # shared memory, which must fit SMEM_OPTIN.
@@ -81,7 +88,7 @@ MAX_FREQ_TAPS = SMEM_OPTIN // 4 - 256 + 1
 # once per block from here on: the crossover of chip_smoke.py's phase-3
 # sweep on an H100 (the network was faster at every K it takes, on both
 # row shapes of the sweep, so the rank route starts right above it).
-FREQ_RANK_MIN_TAPS = NETWORK_MAX_TAPS + 2
+FREQ_RANK_MIN_TAPS = FREQ_NETWORK_MAX_TAPS + 2
 FREQ_RANK_TILES = (32, 64, 128, 256)
 FREQ_NETWORK_CHUNK = 1024  # most outputs of a block of K2's network route
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
@@ -91,6 +98,12 @@ KEY_BYTES = 8  # a (value, position) key of the rank routes
 
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
+
+
+def _key_count(staged: int) -> int:
+    """rank_select.cuh's key_count: the keys a rank block sorts for
+    ``staged`` samples, a power of two of at least one warp's 32."""
+    return max(32, _pow2_at_least(staged))
 
 
 def _check_k(k: int, limit: int, bound: str) -> None:
@@ -156,20 +169,27 @@ def tap_median_time_plain(
     return sliding_median(v, offsets, -2, "zero", fill)[..., start:, :]
 
 
+@functools.lru_cache(maxsize=64)
+def time_rank_offsets(offsets: tuple, start: int, t_v: int) -> tuple:
+    """``offsets`` as K1's rank route plans them for output rows start ..
+    t_v - 1 of V's t_v rows: a tap before row 0 for every output row moves
+    to -t_v, one past the last row for every output row to t_v - start.
+    Both read ``fill`` wherever they land, so the medians are the same,
+    and the span the plan covers stays within 2 t_v + 1 rows whatever the
+    offsets' own span."""
+    lo, hi = -t_v, t_v - start
+    return tuple(min(max(o, lo), hi) for o in offsets)
+
+
 @functools.lru_cache(maxsize=32)
-def time_rank_table(offsets: tuple):
-    """(min offset, span, table) of K1's rank route for ``offsets``, or
-    None when its staging does not fit SMEM_OPTIN: the keys of up to
-    TIME_RANK_RUN - 1 + span rows a block stages (span = max - min + 1),
-    to the next power of two, and the table, span + 62 ints: the count
-    of each offset min .. max between TIME_RANK_RUN - 1 zeros on either
-    side (a lane reads table[row - lane + 31] without a bounds check)."""
+def time_rank_table(offsets: tuple) -> tuple:
+    """(min offset, span, table) of K1's rank route for ``offsets``: span =
+    max - min + 1, and the table, span + 62 ints: the count of each offset
+    min .. max between TIME_RANK_RUN - 1 zeros on either side (a lane
+    reads table[row - lane + 31] without a bounds check)."""
     lo = min(offsets)
     span = max(offsets) - lo + 1
     pad = TIME_RANK_RUN - 1
-    smem = KEY_BYTES * _pow2_at_least(pad + span) + 4 * (span + 2 * pad)
-    if smem > SMEM_OPTIN:
-        return None
     table = [0] * (span + 2 * pad)
     for o in offsets:
         table[pad + o - lo] += 1
@@ -188,6 +208,27 @@ def time_rank_rows(offsets: tuple, run: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=64)
+def time_rank_keys(offsets: tuple, run: int) -> int:
+    """Bytes of the keys a block of K1's rank route sorts over ``run``
+    output rows, as launch_rank (csrc/median_time.cu) reckons them: the
+    rows it stages (``time_rank_rows``), to ``_key_count``. launch_rank
+    puts the table beside them where both fit the device's opt-in limit."""
+    return KEY_BYTES * _key_count(len(time_rank_rows(offsets, run)))
+
+
+@functools.lru_cache(maxsize=32)
+def time_rank_run(offsets: tuple) -> int:
+    """Output rows a block of K1's rank route takes: TIME_RANK_RUN, halved
+    while the keys of the rows the run stages do not fit SMEM_OPTIN. One
+    row stages its distinct taps, at most MAX_TIME_TAPS keys, so a run
+    always fits (16,384 keys of 8 bytes at most)."""
+    run = TIME_RANK_RUN
+    while run > 1 and time_rank_keys(offsets, run) > SMEM_OPTIN:
+        run //= 2
+    return run
+
+
+@functools.lru_cache(maxsize=64)
 def time_network_plan(offsets: tuple, run: int) -> tuple:
     """(rows, slots) of K1's network kernel for ``run`` consecutive
     output rows: the rows their taps reach, ascending, relative to the
@@ -199,14 +240,29 @@ def time_network_plan(offsets: tuple, run: int) -> tuple:
     return rows, tuple(index[o + i] for i in range(run) for o in offsets)
 
 
-def time_network_run(t_out: int, streams: int, f: int) -> int:
-    """Output rows a thread of K1's network kernel takes on ``streams``
-    streams of ``t_out`` output rows by ``f`` columns: TIME_NETWORK_RUN
-    (or all ``t_out``), halved while the grid has fewer than
-    TIME_NETWORK_MIN_BLOCKS blocks."""
+def time_fill_run(t_out: int, streams: int, f: int) -> int:
+    """Output rows a thread takes in K1's thread mapping
+    (csrc/time_runs.cuh) on ``streams`` streams of ``t_out`` output rows
+    by ``f`` columns: TIME_NETWORK_RUN (or all ``t_out``), halved while
+    the grid has fewer than TIME_NETWORK_MIN_BLOCKS blocks. The copy
+    mirror #9 (probe_cuda.rows_copy) runs at this; K1's network kernel at
+    ``time_network_run``."""
     tiles = streams * -(-f // TIME_NETWORK_THREADS)
     run = max(1, min(TIME_NETWORK_RUN, t_out))
     while run > 1 and tiles * -(-t_out // run) < TIME_NETWORK_MIN_BLOCKS:
+        run //= 2
+    return run
+
+
+def time_network_run(t_out: int, streams: int, f: int, offsets: tuple) -> int:
+    """Output rows a thread of K1's network kernel takes under
+    ``offsets``: ``time_fill_run``, halved while the rows the run stages
+    (``time_network_plan``) pass TIME_NETWORK_MAX_STAGED (a run of 8
+    stages 61 rows under 44.1 kHz hop 64's 47 causal-wrap taps, 71 under
+    63 centered ones; taps scattered farther apart than the run stage
+    run x K)."""
+    run = time_fill_run(t_out, streams, f)
+    while len(time_network_plan(offsets, run)[0]) > TIME_NETWORK_MAX_STAGED:
         run //= 2
     return run
 
@@ -221,13 +277,9 @@ def _network_args(offsets: tuple, run: int) -> tuple:
 
 
 def time_route(offsets: tuple) -> str:
-    """K1's kernel for ``offsets``: 'register' up to REGISTER_TAPS taps
-    (the network kernel up to NETWORK_MAX_TAPS, the counting kernel
-    above), then 'rank' where its staging fits, else the first 'wide'
-    kernel."""
-    if len(offsets) <= REGISTER_TAPS:
-        return "register"
-    return "rank" if time_rank_table(offsets) is not None else "wide"
+    """K1's kernel for ``offsets``: the 'register' network up to
+    REGISTER_TAPS taps, the 'rank' route above."""
+    return "register" if len(offsets) <= REGISTER_TAPS else "rank"
 
 
 def tap_median_time(
@@ -244,7 +296,7 @@ def tap_median_time(
     """
     offsets = tuple(int(o) for o in offsets)
     k = len(offsets)
-    _check_k(k, MAX_TIME_TAPS, "offsets past 64 are staged in 48 KB of shared memory")
+    _check_k(k, MAX_TIME_TAPS, "K1's tap cap")
     _check_dtype(a, b)
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-1]:
         raise ZenError(f"tap_median_time: shapes {a.shape} and {b.shape}")
@@ -262,15 +314,15 @@ def tap_median_time(
 
 
 tap_median_time.launches = 0
-tap_median_time.routes = dict.fromkeys(("register", "rank", "wide"), 0)
+tap_median_time.routes = dict.fromkeys(("register", "rank"), 0)
 
 
 def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0,
                  run: int | None = None):
     """K1's ``route`` kernel on checked CUDA operands; counts nothing
-    (chip_smoke also calls it to time one route against another, the
-    network kernel at each ``run``, and the rank route of a ``cut``
-    build, ``_build.library``)."""
+    (chip_smoke also calls it to time the network kernel at each ``run``
+    and the rank route of a ``cut`` build, ``_build.library``). ``run``
+    defaults to the wrapper's (``time_network_run``, ``time_rank_run``)."""
     ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
     lead = a.shape[:-2]
     t_out = ta + tb - start
@@ -279,21 +331,19 @@ def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut:
         return out
     lib = _build.library(cut)
     k = len(offsets)
-    if route == "register" and k <= NETWORK_MAX_TAPS:
+    if route == "register":
         entry = _entry(lib, "zen_tap_median_time_network", a.dtype)
-        taps = _network_args(offsets, run or time_network_run(t_out, math.prod(lead), f))
-    elif route == "register":
-        entry = _entry(lib, "zen_tap_median_time", a.dtype)
-        taps = ((ctypes.c_int * k)(*offsets),)
+        taps = _network_args(
+            offsets, run or time_network_run(t_out, math.prod(lead), f, offsets))
     elif route == "rank":
         entry = _entry(lib, "zen_tap_median_time_rank", a.dtype)
+        offsets = time_rank_offsets(offsets, start, ta + tb)
         lo, span, _ = time_rank_table(offsets)
-        run = min(t_out, TIME_RANK_RUN)
+        run = min(t_out, run or time_rank_run(offsets))
         plan = _device_plan(offsets, run, a.device)
         taps = (plan.data_ptr(), lo, span, len(time_rank_rows(offsets, run)), run)
     else:
-        entry = _entry(lib, "zen_tap_median_time_wide", a.dtype)
-        taps = (_device_offsets(offsets, a.device).data_ptr(),)
+        raise ZenError(f"tap_median_time has no route {route!r}")
     err = _launch(
         a,
         entry,
@@ -320,13 +370,6 @@ def _in_dtype(v: float, dtype: torch.dtype) -> float:
     its fill, handed to the kernel as a float (cached: one fill per
     config, so a launch does not build a tensor)."""
     return float(torch.tensor(v, dtype=dtype))
-
-
-@functools.lru_cache(maxsize=32)
-def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
-    """The wide K1 kernel's offsets as int32 on ``device``: uploaded once
-    per (offsets, device) and kept, not copied on every call."""
-    return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -384,11 +427,11 @@ def freq_network_chunk(f_out: int) -> int:
 
 def freq_route(k: int) -> str:
     """K2's kernel for width ``k``: 'rank' from FREQ_RANK_MIN_TAPS on
-    where its keys fit, 'network' below it up to NETWORK_MAX_TAPS, else
-    'count'."""
+    where its keys fit, 'network' below it up to FREQ_NETWORK_MAX_TAPS,
+    else 'count'."""
     if k >= FREQ_RANK_MIN_TAPS and freq_rank_tile(k):
         return "rank"
-    return "network" if k <= NETWORK_MAX_TAPS else "count"
+    return "network" if k <= FREQ_NETWORK_MAX_TAPS else "count"
 
 
 def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:

@@ -38,7 +38,7 @@ from .median_cuda import (
     _launch,
     freq_rank_tile,
     freq_route,
-    time_network_run,
+    time_fill_run,
 )
 
 SEGMENT_MODES = ("reflect", "wrap", "edge")
@@ -76,7 +76,7 @@ def rows_copy(x: torch.Tensor, start: int, t_out: int) -> torch.Tensor:
         return out
     err = _launch(x, _entry(_build.library(), "zen_rows_copy", x.dtype),
                   x.data_ptr(), out.data_ptr(), c, t, f, start, t_out,
-                  time_network_run(t_out, c, f))
+                  time_fill_run(t_out, c, f))
     _build.check(err, "rows_copy")
     rows_copy.launches += 1
     return out

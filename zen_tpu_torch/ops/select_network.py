@@ -17,8 +17,10 @@ median wire depends on.
 The small-K routes of both median kernels run the schedule on a register
 array (``csrc/median_time.cu``, ``csrc/median_freq.cu``): ``emit_header``
 writes ``zen_select::median<K>`` for every K the routes take, straight-
-line ``fminf``/``fmaxf``, and ``ops/_build.py`` puts that header on the
-include path and into the library's hash. ``select_median_plain`` runs
+line ``fminf``/``fmaxf``, with one list of K per kernel (K1 takes the
+network up to TIME_MAX_TAPS, K2 up to FREQ_MAX_TAPS), and
+``ops/_build.py`` puts that header on the include path and into the
+library's hash. ``select_median_plain`` runs
 the same schedule in PyTorch, for the tests alone.
 
 Exactness: min and max return one of their operands, so the network
@@ -33,9 +35,12 @@ import functools
 
 import torch
 
-# Both kernels take the network route for every odd K up to here; K1's
-# counting kernel and K2's rank route keep the K above.
-MAX_TAPS = 31
+# K1 takes its network for every odd K up to TIME_MAX_TAPS and its rank
+# route above; K2 takes its network up to FREQ_MAX_TAPS, below its rank
+# route's crossover (ops/median_cuda.py, FREQ_RANK_MIN_TAPS).
+TIME_MAX_TAPS = 63
+FREQ_MAX_TAPS = 31
+MAX_TAPS = max(TIME_MAX_TAPS, FREQ_MAX_TAPS)  # the widest network emitted
 
 
 def _odd_even_merge_sort(n: int) -> list:
@@ -123,14 +128,16 @@ def _emit_median(k: int) -> str:
     return "\n".join(lines)
 
 
-def emit_header(ks=None) -> str:
-    """The text of ``zen_select.cuh``: ``zen_select::median<K>`` for each
-    K of ``ks`` (default: every odd K up to MAX_TAPS), the largest as
-    ZEN_SELECT_MAX_TAPS, and ZEN_SELECT_FOR_EACH_K(X), which expands X(K)
-    for each, for the launchers' switch over K."""
-    ks = tuple(range(1, MAX_TAPS + 1, 2) if ks is None else ks)
-    for k in ks:
-        _check_k(k)
+def _odd_ks(limit: int) -> tuple:
+    return tuple(range(1, limit + 1, 2))
+
+
+def emit_header() -> str:
+    """The text of ``zen_select.cuh``: ``zen_select::median<K>`` for every
+    odd K up to MAX_TAPS; each kernel's cap, ZEN_SELECT_TIME_MAX_TAPS and
+    ZEN_SELECT_FREQ_MAX_TAPS; and ZEN_SELECT_FOR_EACH_TIME_K(X) /
+    ZEN_SELECT_FOR_EACH_FREQ_K(X), which expand X(K) for each K of that
+    kernel, for its launcher's switch over K."""
     parts = [
         "// Generated by zen_tpu_torch/ops/select_network.py (emit_header); not edited by hand.",
         "// zen_select::median<K>(v): sorted(v)[(K - 1) / 2] of K floats by a pruned",
@@ -139,8 +146,12 @@ def emit_header(ks=None) -> str:
         "// (-0.0 against +0.0 aside; NaN does not arise: the kernels take magnitudes).",
         "#pragma once",
         "",
-        f"#define ZEN_SELECT_MAX_TAPS {max(ks)}",
-        "#define ZEN_SELECT_FOR_EACH_K(X) " + " ".join(f"X({k})" for k in ks),
+        f"#define ZEN_SELECT_TIME_MAX_TAPS {TIME_MAX_TAPS}",
+        f"#define ZEN_SELECT_FREQ_MAX_TAPS {FREQ_MAX_TAPS}",
+        "#define ZEN_SELECT_FOR_EACH_TIME_K(X) "
+        + " ".join(f"X({k})" for k in _odd_ks(TIME_MAX_TAPS)),
+        "#define ZEN_SELECT_FOR_EACH_FREQ_K(X) "
+        + " ".join(f"X({k})" for k in _odd_ks(FREQ_MAX_TAPS)),
         "",
         "namespace zen_select {",
         "",
@@ -148,6 +159,6 @@ def emit_header(ks=None) -> str:
         "__device__ __forceinline__ float median(const float (&v)[K]);",
         "",
     ]
-    parts += [_emit_median(k) + "\n" for k in ks]
+    parts += [_emit_median(k) + "\n" for k in _odd_ks(MAX_TAPS)]
     parts += ["}  // namespace zen_select", ""]
     return "\n".join(parts)

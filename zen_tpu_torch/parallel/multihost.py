@@ -58,6 +58,17 @@ def allgather_objects(obj) -> list:
     return out
 
 
+def leave() -> None:
+    """End this process's part in the group once every process is done: a
+    barrier, then ``destroy_process_group``. Without it a process that
+    exits while a peer (process 0 serves the rendezvous store) still
+    talks to it can abort in the group's threads ("terminate called
+    without an active exception"). A no-op without a group."""
+    if _group_ready():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def agree(value: int, what: str) -> int:
     """``value``, once every process holds the same; a ZenError naming
     each process's value otherwise, on every process at once (so that

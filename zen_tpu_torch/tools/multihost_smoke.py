@@ -175,6 +175,7 @@ def worker(args) -> int:
     machine's width each would oversubscribe it."""
     import torch
 
+    from ..parallel import multihost
     from ..parallel.mesh import distributed_init
 
     if not args.device.startswith("cuda"):
@@ -184,6 +185,7 @@ def worker(args) -> int:
                      timeout=datetime.timedelta(seconds=args.timeout))
     print(json.dumps(separate(args.corpus_dir, args.out_dir, args.device, args.dp, args.sp,
                               args.long_cut, args.hold_last, args.timeout)), flush=True)
+    multihost.leave()
     return 0
 
 
