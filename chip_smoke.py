@@ -8,10 +8,12 @@ holds each route of each kernel bitwise against its plain PyTorch twin
 at every shape its paths give it, beside one torch.kthvalue call over
 the same windows (the library yardstick, which the port never calls)
 and the least time the card could take (phase 3; at a 4-minute track's
-offline shapes the kernels run without their twin). Phase 3 also holds
+offline shapes the kernels run without their twin; rows whose keys pass
+one block's shared memory run the rank routes' key store, K2 up to its
+tap limit). Phase 3 also holds
 the comparator-network routes (K1 register up to 63 taps, K2 network up
 to 31) bitwise at every odd K they take, tie-heavy and bf16; sweeps K2's
-three routes over K at
+two routes over K at
 two row shapes: the crossover FREQ_RANK_MIN_TAPS (ops/median_cuda.py)
 comes from it; times K1's network kernel at each run length and K2's
 rank route at each tile at the paths' K, beside the wrappers' choices;
@@ -28,6 +30,9 @@ entry points at full width:
   phase 10b hop 64 at 44.1 kHz, K = 47 over 91 history rows (K1's
            network): HPRRealtime, 64 blocks of 32 hops then 64 single
            hops, and MultiStreamHPR, 64 streams, 16 blocks of 32 hops;
+  phase 10c HPRRealtime at 384 kHz, hop 1, whose time median is K =
+           25,601 over 51,199 history rows (K1's rank route on the key
+           store): 64 blocks of 32 hops, then 64 single hops;
   phase 5  MultiStreamHPR, 64 streams at 44.1 kHz, hop 256, 32-hop
            blocks, plus a percussive-only fleet for the compact rows;
   phase 7  HPRIOffline(44100, 4096, 256, 2.5, 2.5) (BASELINE.json
@@ -128,7 +133,8 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route (phase 6 and phases 7-30; the
+are counted per path and per kernel route, and the rank routes' launches
+by where their keys live (phase 6 and phases 7-30; the
 SSE paths must launch none; phases 18-22 and 24-30 require each run's
 count to equal the count from its shapes and, for the instruments, the
 calls they report; phase 23's random configs are read, not counted).
@@ -182,7 +188,9 @@ SWEEP_SHAPES = ((32, 2049), (2048, 513))
 TILE_CASES = ((13, (8192, 513)), (13, (2048, 513)), (47, (32, 2049)), (187, (41, 8193)),
               (187, (TRACK_FRAMES_H, 8193)), (257, (32, 2049)))
 ROUTES = {"tap_median_time": ("register", "rank"),
-          "sliding_median_boundary": ("network", "rank", "count")}
+          "sliding_median_boundary": ("network", "rank")}
+SCRATCH = "rank@scratch"  # the rank launches whose keys live in the key store
+SLOW_US = 100_000.0  # a phase-3 call past this is timed 3 times, not TIMED_RUNS
 T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))  # hop 256's causal wrap taps, K = 11
 RUN_LENGTHS = (1, 2, 4, 8, 16)  # K1's network kernel: output rows per thread
 PROBES = ("rows_copy", "segment_copy")  # ops/probe_cuda.py, one route each: "copy"
@@ -264,6 +272,14 @@ def median_us(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) * 1e3)
     return float(np.median(times))
+
+
+def row_us(fn) -> tuple:
+    """(µs, runs): median_us over TIMED_RUNS calls, or over 3 where one
+    warm call took more than SLOW_US (the widest rows' twins and kthvalue)."""
+    if median_us(fn, runs=1, warmup=1) > SLOW_US:
+        return median_us(fn, runs=3, warmup=0), 3
+    return median_us(fn), TIMED_RUNS
 
 
 def wall_us_per_call(fn, runs: int) -> float:
@@ -430,15 +446,35 @@ def freq_library(x, k, mode):
     return "unfold view", lambda: torch.kthvalue(windows, k // 2 + 1, dim=-1)
 
 
+def time_label(a, b, offsets, start) -> str:
+    """K1's route for a call, SCRATCH where its keys take the key store."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    route = mc.time_route(offsets)
+    if route == "rank" and mc.time_rank_plan(offsets, start, a.shape[-2] + b.shape[-2])[2] == \
+            "scratch":
+        return SCRATCH
+    return route
+
+
+def freq_label(k: int) -> str:
+    """K2's route at width k, SCRATCH where its keys take the key store."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    route = mc.freq_route(k)
+    return SCRATCH if route == "rank" and mc.freq_rank_store(k) == "scratch" else route
+
+
 def kernel_cases():
     """(kernel, route, TPU kernel #, label, kernel call, plain call,
     library yardstick's factory, bound) at every main-path shape (hop-1024
     streaming first), the offline passes', the hop-32 and hop-64 streams'
     and 48 kHz hop 64's shapes, K1's network up to its cap of 63 taps,
     tap spans far past the rows a call has, tie-heavy and bf16 inputs at
-    large K, and the other boundary modes at a ragged row count; then the
-    two copy-only mirrors, #9 and #10 (library yardstick: the same copy
-    as one PyTorch call)."""
+    large K, the other boundary modes at a ragged row count, and the rows
+    whose keys pass one block's shared memory (the key store: route
+    SCRATCH), K2 up to MAX_FREQ_TAPS; then the two copy-only mirrors, #9
+    and #10 (library yardstick: the same copy as one PyTorch call)."""
     from zen_tpu_torch import HPRConfig
     from zen_tpu_torch.ops import median_cuda as mc
     from zen_tpu_torch.ops import probe_cuda as pc
@@ -460,6 +496,7 @@ def kernel_cases():
     t_k47 = HPRConfig(44100.0, 64, causal=True).time_offsets  # hop 64, causal wrap
     t_k51 = HPRConfig(48000.0, 64, causal=True).time_offsets
     t_k63 = tuple(range(-31, 32))
+    hop1 = {fs: HPRConfig(fs, 1, causal=True) for fs in (192000.0, 384000.0)}
     cases = []
     for tpu, label, a, b, offs, start in (
         ("#1", "pair C=1 H=5 B=32 F=2049 K=3", mag(1, 5, 2049), mag(1, 32, 2049), t1024, 5),
@@ -538,9 +575,23 @@ def kernel_cases():
          mag(16, 32, 513), T256, 21),
         ("#4", "dp=4 shard pair C=128 H=21 B=16 F=513 K=11", mag(128, 21, 513),
          mag(128, 16, 513), T256, 21),
+        # hop 1 at 192 and 384 kHz: 12,801 taps (a run of 32 in shared
+        # memory) and 25,601 (one row's keys pass it: the key store); a
+        # contiguous 20,001 on a whole clip's rows, 180,900 store units
+        ("#1", "pair C=1 H=25599 B=32 F=3 K=12801 (192 kHz hop 1)",
+         mag(1, hop1[192000.0].time_history, 3), mag(1, 32, 3),
+         hop1[192000.0].time_offsets, hop1[192000.0].time_history),
+        ("#1", "pair C=1 H=51199 B=32 F=3 K=25601 (384 kHz hop 1)",
+         mag(1, hop1[384000.0].time_history, 3), mag(1, 32, 3),
+         hop1[384000.0].time_offsets, hop1[384000.0].time_history),
+        ("#1", "pair C=1 H=51199 B=1 F=3 K=25601 (384 kHz hop 1)",
+         mag(1, hop1[384000.0].time_history, 3), mag(1, 1, 3),
+         hop1[384000.0].time_offsets, hop1[384000.0].time_history),
+        ("#3", "single T=20100 F=9 K=20001", mag(1, 20_100, 9), mag(1, 0, 9),
+         tuple(range(-20_000, 1)), 0),
     ):
         cases.append((
-            "tap_median_time", mc.time_route(offs), tpu, label,
+            "tap_median_time", time_label(a, b, offs, start), tpu, label,
             lambda a=a, b=b, o=offs, s=start: mc.tap_median_time(a, b, o, s),
             lambda a=a, b=b, o=offs, s=start: mc.tap_median_time_plain(a, b, o, s),
             lambda a=a, b=b, o=offs, s=start: time_library(a, b, o, s),
@@ -582,24 +633,21 @@ def kernel_cases():
         ("#5", "tp=2 shard pass 1 R=41 F=8378 K=187 valid", mag(41, 8192 + 186), 187, "valid"),
         ("#5", "tp=2 shard pass 2 R=643 F=524 K=13 valid", mag(643, 512 + 12), 13, "valid"),
         ("#7", "dp=4 shard R=512 F=513 K=13 reflect", mag(512, 513), 13, "reflect"),
+        # past one block's shared memory (K2's key store): the K its first
+        # kernel's counting took, that kernel's widest, past it, and the limit
+        ("#7", "R=4 F=8193 K=16385 reflect", mag(4, 8193), 16_385, "reflect"),
+        ("#7", "R=4 F=8193 K=16385 reflect bf16", bf16(4, 8193), 16_385, "reflect"),
+        ("#5", "R=1 F=58112 K=57857 valid", mag(1, 58_112), 57_857, "valid"),
+        ("#5", "R=2 F=65792 K=65537 valid", mag(2, 65_792), 65_537, "valid"),
+        ("#7", f"R=2 F=64 K={mc.MAX_FREQ_TAPS} wrap", mag(2, 64), mc.MAX_FREQ_TAPS, "wrap"),
     ):
         cases.append((
-            "sliding_median_boundary", mc.freq_route(k), tpu, label,
+            "sliding_median_boundary", freq_label(k), tpu, label,
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary(x, k, m),
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary_plain(x, k, m),
             lambda x=x, k=k, m=mode: freq_library(x, k, m),
             freq_bound(x, k, mode),
         ))
-    # the first K2 kernel, kept for K whose keys do not fit a block: called by
-    # route here (the wrapper takes it from K ~ 16,000 on; no path does)
-    x9 = mag(2048, 513)
-    cases.append((
-        "sliding_median_boundary", "count", "#7", "R=2048 F=513 K=9 reflect (called by route)",
-        lambda: mc._freq_launch(x9, 9, "reflect", "count"),
-        lambda: mc.sliding_median_boundary_plain(x9, 9, "reflect"),
-        lambda: freq_library(x9, 9, "reflect"),
-        freq_bound(x9, 9, "reflect"),
-    ))
     # the copy-only mirrors at hbm_pattern's 512-stream shapes (phase 11)
     for tpu, label, x, start, t_out in (
         ("#9", "C=512 T=53 start=21 t_out=32 F=513 f32", mag(512, 53, 513), 21, 32),
@@ -646,14 +694,16 @@ def phase_kernels() -> dict:
         require(got.shape == want.shape, f"{name} {label}: shape {got.shape}")
         err = float((got.float() - want.float()).abs().max())
         require(torch.equal(got, want), f"{name} {label}: max |diff| {err}")
-        k_us, p_us = median_us(run_kernel), median_us(run_plain)
+        del got, want
+        (k_us, k_n), (p_us, p_n) = row_us(run_kernel), row_us(run_plain)
         kind, lib_call = library()
-        l_us = median_us(lib_call)
+        l_us, l_n = row_us(lib_call)
+        del lib_call
         lib = "library" if name in PROBES else "kthvalue"
         print(
             f"phase 3 {name}/{route} ({tpu}) {label}: bitwise equal, kernel {k_us:.2f} us, "
             f"plain {p_us:.2f} us, {lib} {l_us:.2f} us ({kind}), bound {b_us:.2f} us "
-            f"({b_by}) (medians of {TIMED_RUNS})"
+            f"({b_by}) (medians of {k_n}, {p_n}, {l_n})"
         )
         st = stats.setdefault((name, route), {"max_abs_err": 0.0, "shapes": []})
         st["max_abs_err"] = max(st["max_abs_err"], err)
@@ -765,7 +815,7 @@ def phase_runs() -> None:
 
 def phase_sweep() -> None:
     """K2's routes over SWEEP_K at SWEEP_SHAPES (reflect): every route
-    that takes a K (network up to FREQ_NETWORK_MAX_TAPS, rank, count) held
+    that takes a K (network up to FREQ_NETWORK_MAX_TAPS, rank) held
     bitwise against the twin, timed beside kthvalue; prints the measured
     crossover (the smallest K from which the rank route is the fastest at
     every larger K of the sweep, on both shapes) beside the constant."""
@@ -777,7 +827,7 @@ def phase_sweep() -> None:
         x = _mags(rng, *shape)
         for k in SWEEP_K:
             want = mc.sliding_median_boundary_plain(x, k, "reflect")
-            routes = (("network",) if k <= mc.FREQ_NETWORK_MAX_TAPS else ()) + ("rank", "count")
+            routes = (("network",) if k <= mc.FREQ_NETWORK_MAX_TAPS else ()) + ("rank",)
             us = {}
             for route in routes:
                 run = lambda r=route: mc._freq_launch(x, k, "reflect", r)  # noqa: E731
@@ -838,6 +888,8 @@ def phase_split() -> None:
         ("K=93 [1, 183+1, 65]", _mags(rng, 1, 183, 65), _mags(rng, 1, 1, 65), t93, 183),
         ("K=401 [1, 900, 17]", _mags(rng, 1, 900, 17), _mags(rng, 1, 0, 17),
          tuple(range(-200, 201)), 0),
+        ("K=25601 [1, 51199+32, 3] (key store)", _mags(rng, 1, 51199, 3),
+         _mags(rng, 1, 32, 3), tuple(range(-51199, -38399)) + tuple(range(-12800, 1)), 51199),
     ):
         cases.append((f"tap_median_time/rank {label}",
                       lambda cut, a=a, b=b, o=offs, s=start:
@@ -847,6 +899,7 @@ def phase_split() -> None:
         ("K=187 [41, 8193]", _mags(rng, 41, 8193), 187),
         ("K=47 [32, 2049]", _mags(rng, 32, 2049), 47),
         ("K=13 [8192, 513]", _mags(rng, 8192, 513), 13),
+        ("K=16385 [4, 8193] (key store)", _mags(rng, 4, 8193), 16_385),
     ):
         cases.append((f"sliding_median_boundary/rank {label} reflect",
                       lambda cut, x=x, k=k: mc._freq_launch(x, k, "reflect", "rank", cut=cut)))
@@ -925,16 +978,21 @@ def reset_launches() -> None:
         wrapper = getattr(mc, name)
         wrapper.launches = 0
         wrapper.routes.update(dict.fromkeys(wrapper.routes, 0))
+        wrapper.stores.update(dict.fromkeys(wrapper.stores, 0))
     for name in PROBES:
         getattr(pc, name).launches = 0
 
 
 def read_launches() -> dict:
-    """Median launches since the last reset by kernel route, 'kernel/route'."""
+    """Median launches since the last reset by kernel route, 'kernel/route',
+    and of those on the rank route, the ones whose keys took the key store,
+    'kernel/rank@scratch'."""
     from zen_tpu_torch.ops import median_cuda as mc
 
-    return {f"{name}/{route}": getattr(mc, name).routes[route]
-            for name, routes in ROUTES.items() for route in routes}
+    counts = {f"{name}/{route}": getattr(mc, name).routes[route]
+              for name, routes in ROUTES.items() for route in routes}
+    counts.update({f"{name}/{SCRATCH}": getattr(mc, name).stores["scratch"] for name in ROUTES})
+    return counts
 
 
 def read_probe_launches() -> dict:
@@ -1376,6 +1434,46 @@ def phase_hop64(smi: str) -> dict:
         f"|diff|/scale {rm['rel_err']:.3g}; {tm['step_us']:.1f} us/step = "
         f"{tm['step_us'] / 32:.1f} us/hop for 64 streams against {hop_us:.0f} us = "
         f"{tm['msps']:.2f} Msamples/s; one step: {tm['prof_b']}; launches {launches} [{smi}]"
+    )
+    return launches
+
+
+def phase_hop1(smi: str) -> dict:
+    """HPRRealtime(384000, hop=1), a hop of 2.6 us: its time median is K =
+    25,601 taps over 51,199 history rows, and one output row's keys pass a
+    block's shared memory, so K1's rank route runs on the key store. 64
+    blocks of B=32, then 64 single hops, held against the CPU port under
+    phase 4's flip rule and stem tolerance; then the device and wall time
+    per hop of a B=32 step and of a single hop."""
+    from zen_tpu_torch import HPRRealtime
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    fs = 384000.0
+    reset_launches()
+    cfg, got, audio, sizes, t = run_stream(fs=fs, hop=1)
+    launches = read_launches()
+    k = len(cfg.time_offsets)
+    require(k == 25_601 and mc.time_route(cfg.time_offsets) == "rank"
+            and mc.time_rank_plan(cfg.time_offsets, cfg.time_history, cfg.time_history + 1)[2]
+            == "scratch", f"384 kHz hop 1 time median K={k} does not take the key store")
+    require(launches[f"tap_median_time/{SCRATCH}"] == launches["tap_median_time/rank"] > 0
+            and all(per_kernel(launches).values()), f"hop-1 stream launches {launches}")
+    require(bool(np.isfinite(got).all()), "non-finite hop-1 stem samples")
+    r = compare_stream(cfg, audio, sizes, got, reference_stream(audio, sizes, hop=1, fs=fs),
+                       ("harmonic", "percussive", "residual"))
+    rt = HPRRealtime(fs, hop=1, device=DEVICE)
+    steps = torch.from_numpy(audio[0, :32]).to(DEVICE).reshape(32, 1)
+    rt.warmup((32, 1))
+    dev_b, dev_1 = step_device_us(rt, steps) / 32, step_device_us(rt, steps[:1])
+    hop_us = cfg.hop / cfg.fs * 1e6
+    print(
+        f"phase 10c HPRRealtime fs 384000 hop 1 (time K={k} over H={cfg.time_history} on the "
+        f"key store, frequency K={cfg.freq_filter_len}), 64 x B=32 + 64 x B=1: mask flips "
+        f"{r['flips']} ({r['share']:.3g} of bins), excluded hops {r['excluded']}/{r['hops']}, "
+        f"max |diff|/scale {r['rel_err']:.3g} (limit {STEM_ATOL}); a hop is {hop_us:.2f} us of "
+        f"audio: B=32 step {dev_b:.2f} us device and {t['step_us'] / 32:.2f} us wall a hop; "
+        f"B=1 {dev_1:.2f} us device and {t['hop_us']:.2f} us wall a hop; one B=32 step: "
+        f"{t['prof_b']}; one B=1 step: {t['prof_1']}; launches {launches} [{smi}]"
     )
     return launches
 
@@ -3289,10 +3387,12 @@ def phase_multihost(smi: str) -> dict:
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
-    own run; the copy mirrors run on phase 11's path), and the routes no
-    path launched (K2's counting kernel, kept for K whose keys do not fit
-    a block), checked in phase 3 only. ``by_route_launches`` are phase
-    24's launches by route name, outside ``launches``."""
+    own run; the copy mirrors run on phase 11's path; a rank route's row
+    counts both stores, its SCRATCH row the key store's share), and the
+    routes no path launched (K2's rank route on the key store: no HPRConfig
+    comes near 16,355 frequency taps), checked in phase 3 only.
+    ``by_route_launches`` are phase 24's launches by route name, outside
+    ``launches``."""
     rows, off_path = [], []
     for (name, route), st in kstats.items():
         key = f"{name}/{route}"
@@ -3372,7 +3472,7 @@ def main() -> None:
     by_path = {"streaming": launches}
     for name, phase in (("offline_clip", phase_offline_clip), ("offline_track", phase_offline_track),
                         ("zen_stream_512", phase_zen_stream), ("streaming_hop32", phase_hop32),
-                        ("streaming_hop64", phase_hop64),
+                        ("streaming_hop64", phase_hop64), ("streaming_hop1_384k", phase_hop1),
                         ("hbm_pattern", phase_hbm_pattern), ("serving_bound", phase_serving_bound),
                         ("sse", phase_sse), ("box", phase_box), ("dft", phase_dft),
                         ("quality_ladder", phase_quality), ("files_cli", phase_files_cli),
@@ -3391,8 +3491,8 @@ def main() -> None:
     rows, off_path = kernel_rows(kstats, by_path)
     # every route the paths' tap counts select ran on a path (frequency K:
     # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32),
-    # and both copy mirrors
-    wanted = {"tap_median_time/register", "tap_median_time/rank",
+    # K1's rank route on the key store (384 kHz hop 1), and both copy mirrors
+    wanted = {"tap_median_time/register", "tap_median_time/rank", f"tap_median_time/{SCRATCH}",
               *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),
               *(f"{name}/copy" for name in PROBES)}
     launched = {row["name"] for row in rows}

@@ -312,12 +312,81 @@ def test_freq_network_every_k_matches_twin(cuda_device, k, mode, dtype):
         assert mc.sliding_median_boundary.routes["network"] == before + 1
 
 
-@pytest.mark.parametrize("k", [3, 9, 13, 31])
-def test_freq_count_kernel_by_route_matches_twin(cuda_device, k):
-    """The first kernel, kept for K whose keys do not fit a block."""
-    x = _ties(np.random.default_rng(k), 5, 600, device=cuda_device)
-    got = mc._freq_launch(x, k, "wrap", "count")
-    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, "wrap"))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "rows,f_in,k,mode",
+    [(4, 8193, 16_385, "reflect"),  # the first kernel's counting took these
+     (1, 58_112, 57_857, "valid"),  # its widest
+     (2, 65_792, 65_537, "valid")],  # past its cap
+)
+def test_freq_rank_store_matches_twin(cuda_device, rows, f_in, k, mode, dtype):
+    """K2's rank route past shared memory, tie-heavy: the wrapper sends
+    these K to the key store (the counting kernel that took them is gone)
+    and counts the launch there."""
+    assert mc.freq_route(k) == "rank" and mc.freq_rank_store(k) == "scratch"
+    x = _ties(np.random.default_rng(k), rows, f_in, device=cuda_device).to(dtype)
+    before = mc.sliding_median_boundary.stores["scratch"]
+    got = mc.sliding_median_boundary(x, k, mode)
+    torch.cuda.synchronize()
+    assert mc.sliding_median_boundary.stores["scratch"] == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_time_rank_store_matches_twin(cuda_device, causal, dtype):
+    """K1 at HPRConfig(384000, hop=1)'s 25,601 taps, tie-heavy: one output
+    row's keys pass shared memory, so the wrapper takes the key store.
+    Causal: the step's pair form (history 51,199 rows, 32 fresh, 3 bins);
+    centered: the one-input form from row 13,100 of 26,000 (fill inf),
+    where every tap of a row is distinct (no tap reads only fill)."""
+    cfg = HPRConfig(fs=384000.0, hop=1, causal=causal)
+    rng = np.random.default_rng(25_601)
+    if causal:
+        a = _ties(rng, 1, cfg.time_history, 3, device=cuda_device).to(dtype)
+        b, start, fill = _ties(rng, 1, 32, 3, device=cuda_device).to(dtype), cfg.time_history, 0.0
+    else:
+        a = _ties(rng, 1, 26_000, 2, device=cuda_device).to(dtype)
+        b, start, fill = a[:, :0], 13_100, float("inf")
+    offsets = cfg.time_offsets
+    assert mc.time_rank_plan(offsets, start, a.shape[1] + b.shape[1])[2] == "scratch"
+    before = mc.tap_median_time.stores["scratch"]
+    got = mc.tap_median_time(a, b, offsets, start, fill)
+    torch.cuda.synchronize()
+    assert mc.tap_median_time.stores["scratch"] == before + 1
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 1024])
+@pytest.mark.parametrize("mode", ["reflect", "valid"])
+@pytest.mark.parametrize("k", [13, 187, 401])
+def test_freq_rank_store_small_chunk_matches_twin(cuda_device, k, mode, chunk):
+    """The key store at small K with a small chunk of shared memory, so
+    that most of its stages run as passes over device memory: units of
+    1024 outputs on rows of 2100 (the last ragged)."""
+    f_in = 2100 + (k - 1 if mode == "valid" else 0)
+    x = _ties(np.random.default_rng(k + chunk), 5, f_in, device=cuda_device)
+    got = mc._freq_launch(x, k, mode, "rank", chunk=chunk)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("chunk", [32, 256, 16_384])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill",
+    [((2, 183, 65), (2, 40, 65), K93, 183, 0.0),
+     ((1, 900, 17), (1, 0, 17), tuple(range(-200, 201)), 0, float("inf")),
+     ((1, 70, 6), (1, 3, 6), tuple(range(-69, 0)) + (0,) * 60, 3, 0.0)],
+)
+def test_time_rank_store_small_chunk_matches_twin(cuda_device, a_shape, b_shape, offsets,
+                                                  start, fill, chunk):
+    """K1's rank route on the key store at its shared-memory run (32 rows),
+    with a small chunk: the merge passes over device memory run."""
+    rng = np.random.default_rng(chunk)
+    a = _ties(rng, *a_shape, device=cuda_device)
+    b = _ties(rng, *b_shape, device=cuda_device)
+    got = mc._time_launch(a, b, offsets, start, fill, "rank", chunk=chunk)
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
 
 
 @pytest.mark.parametrize("tile", mc.FREQ_RANK_TILES)

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from zen_tpu.engine.oracle import _np_taps  # noqa: E402
 from zen_tpu.ops import median_pallas as mp  # noqa: E402
 from zen_tpu.ops.median import sliding_median as jax_sliding_median  # noqa: E402
 from zen_tpu_torch import ZenError  # noqa: E402
@@ -310,21 +311,167 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 def test_every_config_fits_both_kernels():
-    """Every (fs, hop, causal) of the test_torch_config.py sweep gives
-    tap counts both kernels take on the card: up to 401 time taps (48 kHz
-    hop 8) and 257 frequency taps (fs 8000 hop 1024), past the 64 and 255
-    the first kernels stopped at."""
+    """Every (fs, hop, causal) of the test_torch_config.py sweep, and hop
+    1 at 96 to 384 kHz, gives tap counts both kernels take on the card:
+    up to 401 time taps at 44.1/48 kHz (hop 8), 25,601 at 384 kHz hop 1
+    (K1's rank route on the key store; 12,801 at 192 kHz, past the 12,287
+    the port took before), and 257 frequency taps (fs 8000 hop 1024),
+    past the 64 and 255 the first kernels stopped at."""
     from zen_tpu_torch import HPRConfig
 
-    k_time, k_freq = [], []
-    for fs in (1000.0, 8000.0, 22050.0, 44100.0, 48000.0):
-        for hop in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
-            for causal in (False, True):
-                try:
-                    cfg = HPRConfig(fs=fs, hop=hop, causal=causal)
-                except ZenError:
-                    continue
-                k_time.append(len(cfg.time_offsets))
-                k_freq.append(cfg.freq_filter_len)
-    assert max(k_time) == 401 and max(k_freq) == 257
-    assert max(k_time) <= mc.MAX_TIME_TAPS and max(k_freq) <= mc.MAX_FREQ_TAPS
+    k_time, k_freq = {}, []
+    grid = [(fs, hop) for fs in (1000.0, 8000.0, 22050.0, 44100.0, 48000.0)
+            for hop in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)]
+    grid += [(fs, 1) for fs in (96000.0, 176400.0, 184320.0, 192000.0, 384000.0)]
+    for fs, hop in grid:
+        for causal in (False, True):
+            try:
+                cfg = HPRConfig(fs=fs, hop=hop, causal=causal)
+            except ZenError:
+                continue
+            k_time[fs, hop] = max(k_time.get((fs, hop), 0), len(cfg.time_offsets))
+            k_freq.append(cfg.freq_filter_len)
+    assert max(k for (fs, _), k in k_time.items() if fs <= 48000.0) == 401
+    assert [k_time[fs, 1] for fs in (96000.0, 176400.0, 184320.0, 192000.0, 384000.0)] == [
+        6401, 11761, 12289, 12801, 25601]
+    assert max(k_freq) == 257
+    assert max(k_time.values()) <= mc.MAX_TIME_TAPS and max(k_freq) <= mc.MAX_FREQ_TAPS
+
+
+# ---------------- every tap count: the wide K against numpy ----------------
+#
+# zen_tpu's median at these K is held through its numpy oracle's tap rule
+# (zen_tpu.engine.oracle._np_taps: wrap takes p % n, clamp clips, zero
+# clips and zeroes the taps outside) with np.median: jax's sliding_median
+# traces one static slice a tap, and XLA compiling 12,801 of them is too
+# slow for tier-1. _np_taps itself stacks every position's taps (K x n
+# floats: 1.3 GB at 192 kHz's history), so _np_median applies the same
+# rule at the output positions only; test_np_median_is_the_oracle_rule
+# holds the two equal where _np_taps fits.
+
+# HPRConfig(fs, hop=1)'s time taps: causal (the wrap border's two runs) and centered
+HOP1_TAPS = {
+    (192000.0, True): tuple(range(-25599, -19199)) + tuple(range(-6400, 1)),
+    (192000.0, False): tuple(range(-6400, 6401)),
+    (384000.0, True): tuple(range(-51199, -38399)) + tuple(range(-12800, 1)),
+    (384000.0, False): tuple(range(-12800, 12801)),
+}
+
+
+def _np_median(x: np.ndarray, offsets, axis: int, boundary: str, positions,
+               fill: float = 0.0) -> np.ndarray:
+    """np.median over ``offsets`` at output ``positions`` along ``axis``,
+    the taps taken by _np_taps' rule ('zero' taps outside read ``fill``)."""
+    n = x.shape[axis]
+    idx = np.asarray(positions)[:, None] + np.asarray(offsets)[None, :]
+    take = idx % n if boundary == "wrap" else np.clip(idx, 0, n - 1)
+    taps = np.moveaxis(x, axis, -1)[..., take]  # [..., positions, K]
+    if boundary == "zero":
+        taps = np.where((idx >= 0) & (idx < n), taps, np.float32(fill))
+    return np.moveaxis(np.median(taps, axis=-1), -1, axis)
+
+
+@pytest.mark.parametrize("boundary", ["zero", "wrap", "clamp"])
+def test_np_median_is_the_oracle_rule(boundary):
+    rng = np.random.default_rng(40)
+    x = _mags(rng, 3, 300, 2)
+    offsets = tuple(range(-120, -70)) + tuple(range(-50, 1))
+    want = np.median(_np_taps(x, offsets, 1, boundary), axis=0)
+    np.testing.assert_array_equal(_np_median(x, offsets, 1, boundary, range(300)), want)
+    np.testing.assert_array_equal(_np_median(x, offsets, 1, boundary, range(200, 300)),
+                                  want[:, 200:])
+
+
+@pytest.mark.parametrize("fs,causal", list(HOP1_TAPS))
+def test_time_hop1_taps_match_numpy(fs, causal):
+    """tap_median_time at HPRConfig(fs, hop=1)'s offsets, which it refused
+    before: causal, the pair form over the whole history and 4 fresh rows;
+    centered, the one-input form's last 8 rows of 13,000 (taps past V's
+    end read fill)."""
+    from zen_tpu_torch import HPRConfig
+
+    cfg = HPRConfig(fs=fs, hop=1, causal=causal)
+    offsets = HOP1_TAPS[fs, causal]
+    assert cfg.time_offsets == offsets
+    rng = np.random.default_rng(len(offsets))
+    if causal:
+        a, b, start = _mags(rng, 1, cfg.time_history, 3), _mags(rng, 1, 4, 3), cfg.time_history
+    else:
+        a, start = _mags(rng, 1, 13_000, 2), 12_992
+        b = a[:, :0]
+    v = np.concatenate([a, b], axis=1)
+    got = mc.tap_median_time(_t(a), _t(b), offsets, start).numpy()
+    np.testing.assert_array_equal(got, _np_median(v, offsets, 1, "zero", range(start, v.shape[1])))
+
+
+def test_time_takes_every_k_to_its_limit():
+    """MAX_TIME_TAPS taps in one run (accepted on the CPU as on the card,
+    whose key store holds one row's 2^21 keys); two more are refused."""
+    rng = np.random.default_rng(41)
+    a, b = _mags(rng, 1, 40, 2), _mags(rng, 1, 2, 2)
+    offsets = tuple(range(-(mc.MAX_TIME_TAPS - 1), 1))
+    v = np.concatenate([a, b], axis=1)
+    got = mc.tap_median_time(_t(a), _t(b), offsets, 40, float("inf")).numpy()
+    np.testing.assert_array_equal(got, _np_median(v, offsets, 1, "zero", range(40, 42),
+                                                  float("inf")))
+    with pytest.raises(ZenError, match="odd K"):
+        mc.tap_median_time(_t(a), _t(b), offsets + (0, 0), 40)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,f_out", [(57_859, 5), (65_537, 3)])
+def test_freq_valid_wide_k_matches_numpy(k, f_out, dtype):
+    """K2 'valid' past 57,857 (its old cap), a few outputs of a pre-padded
+    row: the twin computes only those."""
+    rng = np.random.default_rng(k)
+    x = _mags(rng, 2, f_out + k - 1)
+    xt = _t(x)
+    if dtype == "bfloat16":
+        x, xt = _np32(_bf16(x)[0]), _bf16(x)[1]
+    got = mc.sliding_median_boundary(xt, k, "valid")
+    assert got.dtype == xt.dtype and got.shape == (2, f_out)
+    np.testing.assert_array_equal(_np32(got), _np_median(x, range(k), 1, "zero", range(f_out)))
+
+
+@pytest.mark.parametrize("k,f", [(65_537, 40), (mc.MAX_FREQ_TAPS, 4)])
+def test_freq_wrap_wide_k_matches_numpy(k, f):
+    """'wrap' windows many times a short row's width: past 57,857 taps,
+    and at MAX_FREQ_TAPS itself (two more are refused)."""
+    rng = np.random.default_rng(k)
+    x = _mags(rng, 2 if k < mc.MAX_FREQ_TAPS else 1, f)
+    m = (k - 1) // 2
+    got = mc.sliding_median_boundary(_t(x), k, "wrap").numpy()
+    np.testing.assert_array_equal(got, _np_median(x, range(-m, m + 1), 1, "wrap", range(f)))
+    with pytest.raises(ZenError, match="odd K"):
+        mc.sliding_median_boundary(_t(x), mc.MAX_FREQ_TAPS + 2, "wrap")
+
+
+@pytest.mark.parametrize("fs", [192000.0, 384000.0])
+def test_realtime_hop1_steps_and_its_time_median_matches_numpy(fs, monkeypatch):
+    """HPRRealtime(fs, hop=1) on the CPU, refused before at K1's old cap:
+    a block of 5 hops, then one hop. Each step's time median (captured at
+    tap_median_time, the pair form over the history) equals numpy's median
+    of the step's rows, and every stem sample is finite."""
+    from zen_tpu_torch import HPRRealtime
+
+    calls = []
+    real = mc.tap_median_time
+
+    def spy(a, b, offsets, start, fill=0.0):
+        out = real(a, b, offsets, start, fill)
+        calls.append((a.clone(), b.clone(), offsets, start, fill, out))
+        return out
+
+    monkeypatch.setattr(mc, "tap_median_time", spy)
+    rt = HPRRealtime(fs, hop=1, device="cpu")
+    assert len(rt.cfg.time_offsets) == {192000.0: 12_801, 384000.0: 25_601}[fs]
+    rng = np.random.default_rng(int(fs))
+    audio = torch.from_numpy(rng.standard_normal(6).astype(np.float32))
+    outs = [rt.process_block(audio[:5, None]), rt.process_next_hop(audio[5:])]
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    assert len(calls) == 2
+    for a, b, offsets, start, fill, out in calls:
+        assert tuple(offsets) == rt.cfg.time_offsets and start == a.shape[-2]
+        v = torch.cat([a, b], dim=-2).numpy()
+        want = _np_median(v, offsets, -2, "zero", range(start, v.shape[-2]), fill)
+        np.testing.assert_array_equal(out.numpy(), want)

@@ -216,7 +216,7 @@ def test_segment_copy_keeps_leading_dims():
      ((4, 17), 5, "valid"),  # the copy keeps the width: no valid border
      ((4, 17), 5, "zero"),
      ((4, 5), 11, "reflect"),  # the reflect reach passes the row
-     ((4, 17), pc.MAX_FREQ_TAPS + 2, "wrap")],
+     ((4, 17), pc.SEGMENT_COPY_MAX_TAPS + 2, "wrap")],
 )
 def test_segment_copy_rejects(shape, k, mode):
     with pytest.raises(ZenError):

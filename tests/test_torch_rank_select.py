@@ -6,11 +6,16 @@ same host-side choices the wrappers hand the kernels (K2's tile, K1's
 multiplicity table): the row segment or column tile staged with its
 boundary or fill, sorted by (value, position) as the kernels' 64-bit
 keys order them, and the rank walk that counts window positions (K1: with
-their multiplicities) until the count passes (K-1)/2. The emulation is
-held BITWISE against the plain twins and zen_tpu's median, which pick
-sorted[(K-1)/2]; inputs include tie-heavy ones quantized to 8 levels and
-bf16. The tests of the host side (tile, table, routes, staging limits,
-the library hash) need no card either.
+their multiplicities) until the count passes (K-1)/2. Where a block's
+keys live in the key store past shared memory, the emulation runs the
+store's own sort, pass by pass (``sort_store`` of csrc/rank_select.cuh:
+chunks sorted in the direction the bitonic network gives them, then each
+larger stage's passes over the slice and its strides below a chunk),
+at the real chunk and at tiny ones, so that many merge stages run. The
+emulation is held BITWISE against the plain twins and zen_tpu's median,
+which pick sorted[(K-1)/2]; inputs include tie-heavy ones quantized to 8
+levels and bf16. The tests of the host side (tile, table, routes, stores,
+staging limits, the library hash) need no card either.
 """
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ from zen_tpu_torch.ops import _build  # noqa: E402
 from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
 
 POS_BITS = 24  # staged positions below 2**24 in an emulated key
+PAD_KEY = (1 << 62) - 1  # above every emulated key, as kPadKey is above every staged one
 
 
 def _order_bits(v: torch.Tensor) -> torch.Tensor:
@@ -32,11 +38,76 @@ def _order_bits(v: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 2**31, 0xFFFFFFFF - u, u | 2**31)
 
 
-def _sorted_positions(values: torch.Tensor) -> tuple:
+def _bitonic_stage(keys: torch.Tensor, size: int, stride: int, base: int) -> torch.Tensor:
+    """One compare-swap pass of the kernels' bitonic network over keys
+    [..., n] lying at index ``base`` of the whole sort: pairs (i, i +
+    stride) with bit ``stride`` of i clear, the smaller key to i where bit
+    ``size`` of base + i is clear (merge_down, lane_swap, sort_store)."""
+    i = torch.arange(keys.shape[-1])
+    lo = i[(i & stride) == 0]
+    hi = lo + stride
+    x, y = keys[..., lo], keys[..., hi]
+    swap = (x > y) == (((base + lo) & size) == 0)
+    out = keys.clone()
+    out[..., lo] = torch.where(swap, y, x)
+    out[..., hi] = torch.where(swap, x, y)
+    return out
+
+
+def _merge_down(keys, size, top, base):
+    """rank_select.cuh's merge_down: strides top .. 1 of stage ``size``."""
+    stride = top
+    while stride >= 1:
+        keys = _bitonic_stage(keys, size, stride, base)
+        stride //= 2
+    return keys
+
+
+def _bitonic_sort(keys, base=0):
+    """rank_select.cuh's bitonic_sort of keys [..., n] at index ``base``."""
+    size = 2
+    while size <= keys.shape[-1]:
+        keys = _merge_down(keys, size, size // 2, base)
+        size *= 2
+    return keys
+
+
+def sort_store(keys: torch.Tensor, chunk: int) -> torch.Tensor:
+    """rank_select.cuh's sort_store of keys [..., n] (n a power of two)
+    through ``chunk`` keys of shared memory, pass by pass: each chunk
+    sorted at its index, then each larger stage's strides from a chunk up
+    over the whole slice and those below chunk by chunk."""
+    n = keys.shape[-1]
+    length = min(n, chunk)
+    keys = torch.cat([_bitonic_sort(keys[..., c0 : c0 + length], c0)
+                      for c0 in range(0, n, length)], dim=-1)
+    size = 2 * length
+    while size <= n:
+        stride = size // 2
+        while stride >= length:
+            keys = _bitonic_stage(keys, size, stride, 0)
+            stride //= 2
+        keys = torch.cat([_merge_down(keys[..., c0 : c0 + length], size, length // 2, c0)
+                          for c0 in range(0, n, length)], dim=-1)
+        size *= 2
+    return keys
+
+
+def _sorted_positions(values: torch.Tensor, chunk: int | None = None) -> tuple:
     """Staged values [..., S] sorted by (value, position), as the kernels'
-    bitonic sort of their keys leaves them: (values, positions)."""
-    pos = torch.arange(values.shape[-1]).expand(values.shape)
-    keys, _ = torch.sort((_order_bits(values) << POS_BITS) | pos, dim=-1)
+    sort of their keys leaves them: (values, positions). ``chunk``: the
+    key store's sort, of the keys padded to key_count(S) as the kernels
+    pad them; None: the shared store's (an ascending sort, emulated by
+    torch.sort)."""
+    s = values.shape[-1]
+    pos = torch.arange(s).expand(values.shape)
+    keys = (_order_bits(values) << POS_BITS) | pos
+    if chunk is None:
+        keys, _ = torch.sort(keys, dim=-1)
+    else:
+        pad = torch.full(values.shape[:-1] + (mc._key_count(s) - s,), PAD_KEY)
+        keys = sort_store(torch.cat([keys, pad], dim=-1), chunk)[..., :s]
+        assert torch.equal(keys, torch.sort(keys, dim=-1).values)
     p = keys & ((1 << POS_BITS) - 1)
     return torch.gather(values, -1, p), p
 
@@ -60,10 +131,16 @@ def _boundary_index(p, f, mode):
     return p
 
 
-def emulate_freq_rank(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
+def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = None
+                      ) -> torch.Tensor:
     """K2's rank kernel: a block per (row, tile), each staging the
-    tile + K - 1 samples its outputs reach, the last tile ragged."""
-    tile = mc.freq_rank_tile(k)
+    tile + K - 1 samples its outputs reach, the last tile ragged. On the
+    key store (where ``freq_rank_store`` sends K, or at ``chunk`` keys of
+    shared memory, as ``_freq_launch(chunk=)``) a unit is
+    RANK_STORE_THREADS outputs and its keys take the store's sort."""
+    if chunk is None and mc.freq_rank_store(k) == "scratch":
+        chunk = mc.RANK_STORE_CHUNK
+    tile = mc.freq_rank_tile(k) if chunk is None else mc.RANK_STORE_THREADS
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
     m = (k - 1) // 2
@@ -73,7 +150,7 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
         live = min(tile, f_out - j0)
         base = j0 if mode == "valid" else j0 - m
         seg = rows[:, _boundary_index(torch.arange(live + k - 1) + base, f_in, mode)]
-        values, pos = _sorted_positions(seg)  # [R, S]
+        values, pos = _sorted_positions(seg, chunk)  # [R, S]
         j = torch.arange(live)[:, None]
         in_window = ((pos[:, None, :] - j) >= 0) & ((pos[:, None, :] - j) < k)
         out[:, j0 : j0 + live] = _walk(values[:, None, :].expand(-1, live, -1),
@@ -81,20 +158,23 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + (f_out,)).to(x.dtype)
 
 
-def emulate_time_rank(a, b, offsets, start, fill=0.0) -> torch.Tensor:
-    """K1's rank kernel: the wrapper's plan for the call (taps that read
-    only fill moved next to V, ``time_rank_offsets``), a block per
-    (stream, run of min(``time_rank_run``, t_out) output rows, column)
-    staging the rows the run's taps reach (``time_rank_rows``) of V = a ++
-    b (fill outside, in the inputs' dtype), keyed by (value, relative
-    row), the multiplicity table read at row - lane + 31."""
+def emulate_time_rank(a, b, offsets, start, fill=0.0, chunk=None) -> torch.Tensor:
+    """K1's rank kernel: the wrapper's plan for the call
+    (``time_rank_plan``: taps that read only fill moved next to V, the
+    run of min(``time_rank_run``, t_out) output rows, the store), a block
+    per (stream, run, column) staging the rows the run's taps reach
+    (``time_rank_rows``) of V = a ++ b (fill outside, in the inputs'
+    dtype), keyed by (value, relative row), sorted as its store sorts
+    (``chunk`` forces the key store, as ``_time_launch(chunk=)``), the
+    multiplicity table read at row - lane + 31."""
     v = torch.cat([a, b], dim=-2).float()
     c, t_v, f = v.shape[0], v.shape[1], v.shape[2]
-    offsets = mc.time_rank_offsets(tuple(offsets), start, t_v)
+    offsets, run, store = mc.time_rank_plan(tuple(offsets), start, t_v)
+    if chunk is None and store == "scratch":
+        chunk = mc.RANK_STORE_CHUNK
     lo, span, table = mc.time_rank_table(offsets)
     table = torch.tensor(table)
     t_out = t_v - start
-    run = min(t_out, mc.time_rank_run(offsets))
     rel = torch.tensor(mc.time_rank_rows(offsets, run))
     fill = torch.tensor(fill, dtype=a.dtype).float()
     m = (len(offsets) - 1) // 2
@@ -103,7 +183,7 @@ def emulate_time_rank(a, b, offsets, start, fill=0.0) -> torch.Tensor:
         rows = rel + start + i0 + lo
         inside = (rows >= 0) & (rows < t_v)
         staged = torch.where(inside[None, :, None], v[:, rows.clamp(0, t_v - 1)], fill)
-        values, idx = _sorted_positions(staged.transpose(1, 2))  # [C, F, S]
+        values, idx = _sorted_positions(staged.transpose(1, 2), chunk)  # [C, F, S]
         pos = rel[idx]  # a key's position is its relative row
         lane = torch.arange(run)[:, None]
         counts = table[pos[:, :, None, :] - lane + mc.TIME_RANK_RUN - 1]  # [C, F, run, S]
@@ -218,6 +298,105 @@ def test_time_rank_emulation_bf16():
     assert torch.equal(got, mc.tap_median_time_plain(a, b, K93, 183, 0.3))
 
 
+# ---------------- the key store past shared memory ----------------
+
+# HPRConfig(fs, hop=1)'s causal time taps (the wrap border): two tap runs
+K12801 = tuple(range(-25599, -19199)) + tuple(range(-6400, 1))  # 192 kHz
+K25601 = tuple(range(-51199, -38399)) + tuple(range(-12800, 1))  # 384 kHz
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 1024])
+@pytest.mark.parametrize("n", [32, 256, 4096])
+def test_sort_store_orders_every_slice(n, chunk):
+    """The store's passes sort any keys, pad keys (equal) included, for a
+    slice within one chunk and for one of many chunks."""
+    gen = torch.Generator().manual_seed(n + chunk)
+    keys = torch.randint(0, 1 << 40, (3, n), generator=gen)
+    keys[:, -n // 8 :] = PAD_KEY
+    keys[1] = keys[1] % 7  # ties, as equal keys never arise in a kernel
+    assert torch.equal(sort_store(keys, chunk), torch.sort(keys, dim=-1).values)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k,chunk", [(13, 32), (187, 64), (401, 256)])
+def test_freq_store_emulation_matches_twin(k, chunk, mode, ties):
+    """K2 on the key store at a tiny chunk: units of 1024 outputs (1100 a
+    row: the second ragged), keys of 2048 slots sorted 32 to 256 at a
+    time, so that six to seven stages pass over the slice."""
+    rng = np.random.default_rng(k + chunk)
+    f_in = 1100 + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(rng, (2, f_in), ties), torch.float32)
+    got = emulate_freq_rank(x, k, mode, chunk)
+    assert got.shape == (2, 1100)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("k,mode", [(187, "reflect"), (65, "wrap")])
+def test_freq_store_emulation_matches_jax(k, mode):
+    rng = np.random.default_rng(31)
+    x = _levels(rng, (2, 1100), ties=True)
+    m = (k - 1) // 2
+    want = np.asarray(jax_sliding_median(jnp.asarray(x), range(-m, m + 1), -1, mode))
+    got = emulate_freq_rank(_tensor(x, torch.float32), k, mode, chunk=32).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,f_out", [(16_385, 40), (16_387, 9)])
+def test_freq_store_emulation_at_its_k(k, f_out, dtype):
+    """Past 16,353 taps the wrapper sends K2 to the store on its own
+    (freq_rank_store): a few outputs of a pre-padded row at the real chunk,
+    32,768 keys over two chunks of 16,384."""
+    assert mc.freq_route(k) == "rank" and mc.freq_rank_store(k) == "scratch"
+    rng = np.random.default_rng(k)
+    x = _tensor(_levels(rng, (1, f_out + k - 1), True), dtype)
+    got = emulate_freq_rank(x, k, "valid")
+    assert got.dtype == dtype and got.shape == (1, f_out)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, "valid"))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill,chunk",
+    [((2, 183, 9), (2, 40, 9), K93, 183, 0.0, 32),  # 155 rows a run of 32: 256 slots
+     ((1, 100, 5), (1, 0, 5), tuple(range(-200, 201)), 0, float("inf"), 64),
+     ((1, 70, 6), (1, 3, 6), tuple(range(-69, 0)) + (0,) * 60, 3, 0.0, 32)],
+)
+def test_time_store_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, chunk, ties):
+    """K1's rank route on the key store at a tiny chunk, its run kept."""
+    rng = np.random.default_rng(len(offsets) + chunk)
+    a = _tensor(_levels(rng, a_shape, ties), torch.float32)
+    b = _tensor(_levels(rng, b_shape, ties), torch.float32)
+    got = emulate_time_rank(a, b, offsets, start, fill, chunk)
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+def test_time_store_emulation_matches_jax():
+    rng = np.random.default_rng(23)
+    a, b = _levels(rng, (2, 183, 5), True), _levels(rng, (2, 33, 5), True)
+    want = np.asarray(jax_sliding_median(
+        jnp.concatenate([a, b], axis=-2), K93, -2, "zero")[..., 183:, :])
+    got = emulate_time_rank(_tensor(a, torch.float32), _tensor(b, torch.float32), K93, 183,
+                            chunk=64)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("offsets,h,store", [(K12801, 25_599, "shared"),
+                                             (K25601, 51_199, "scratch")])
+def test_time_store_emulation_at_hop1(offsets, h, store):
+    """HPRConfig(192000 and 384000, hop=1)'s causal taps over their whole
+    history H and 6 fresh rows of 2 bins: 192 kHz's run of 32 still fits
+    shared memory; 384 kHz's one row (25,601 keys) takes the store at the
+    real chunk."""
+    assert mc.time_rank_plan(offsets, h, h + 6)[2] == store
+    rng = np.random.default_rng(len(offsets))
+    a = _tensor(_levels(rng, (1, h, 2), True), torch.float32)
+    b = _tensor(_levels(rng, (1, 6, 2), True), torch.float32)
+    got = emulate_time_rank(a, b, offsets, h)
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, h))
+
+
 # ---------------- the host side ----------------
 
 
@@ -251,10 +430,11 @@ def _launch_rank_bytes(offsets, run):
 
 
 def test_time_routes_and_staging_limit():
-    """The network up to 63 taps, the rank route from 65 at any span:
-    its reckoning of a block's shared memory is launch_rank's, the table
-    leaves shared memory where it no longer fits beside the keys, and the
-    run shrinks, down to one row, where the keys do not fit."""
+    """The network up to 63 taps, the rank route from 65 at any span and
+    every tap count: its reckoning of a block's shared memory is
+    launch_rank's, the table leaves shared memory where it no longer fits
+    beside the keys, the run shrinks, down to one row, where the keys do
+    not fit, and past one row's keys the keys go to the store."""
     assert mc.time_route(tuple(range(-62, 1))) == "register"
     assert mc.time_route(tuple(range(-64, 1))) == "rank"
     assert mc.time_route(tuple(range(-12286, 1))) == "rank"
@@ -280,27 +460,44 @@ def test_time_routes_and_staging_limit():
     assert mc.time_rank_keys(spread, 32) > mc.SMEM_OPTIN
     assert mc.time_rank_run(spread) == 16
     assert _launch_rank_bytes(spread, 16)[0] <= mc.SMEM_OPTIN
-    # K1's widest tap set, scattered: one row a block, its distinct taps
+    assert mc.time_rank_plan(spread, 24000, 24040)[1:] == (16, "shared")
+    # 192 kHz hop 1 (12,801 taps in two runs): a run of 32 stages 12,863
+    # rows, 16,384 keys beside a table in device memory
+    assert mc.time_rank_run(K12801) == 32
+    assert _launch_rank_bytes(K12801, 32) == (131_072, False)
+    assert mc.time_rank_plan(K12801, 25599, 25631)[1:] == (32, "shared")
+    # 384 kHz hop 1 (25,601 taps): one row stages 25,601, 32,768 keys: the store
+    assert mc.time_rank_run(K25601) == 1
+    assert mc.time_rank_plan(K25601, 51199, 51231)[1:] == (1, "scratch")
+    # K1's widest tap set, scattered: one row a block, its distinct taps, a
+    # whole slice of the store
     widest = tuple(range(-3 * (mc.MAX_TIME_TAPS - 1), 1, 3))
     assert len(widest) == mc.MAX_TIME_TAPS and mc.time_rank_run(widest) == 1
-    assert _launch_rank_bytes(widest, 1) == (131_072, False)
+    assert mc.time_rank_keys(widest, 1) == mc.KEY_BYTES * mc.RANK_STORE_MAX_KEYS
+    assert mc.time_rank_plan(widest, 0, 3 * mc.MAX_TIME_TAPS)[1:] == (1, "scratch")
 
 
 def test_freq_route_crossover_and_staging_limit():
     """K2 runs its network up to FREQ_NETWORK_MAX_TAPS below
-    FREQ_RANK_MIN_TAPS and ranks from the crossover on, up to the widest
-    K whose keys fit at the smallest tile; the counting kernel keeps only
-    the K beyond, up to MAX_FREQ_TAPS."""
+    FREQ_RANK_MIN_TAPS and ranks from the crossover on, at every K up to
+    MAX_FREQ_TAPS: in shared memory up to the widest K whose keys fit at
+    the smallest tile, on the key store beyond, where a unit of
+    RANK_STORE_THREADS outputs at MAX_FREQ_TAPS fills a whole slice."""
     k_star = mc.FREQ_RANK_MIN_TAPS
     assert k_star % 2 == 1 and 1 < k_star <= mc.FREQ_NETWORK_MAX_TAPS + 2
     for k in range(1, k_star, 2):
         assert mc.freq_route(k) == "network"
-    assert mc.freq_route(k_star) == "rank"
     widest = mc.SMEM_OPTIN // mc.KEY_BYTES  # keys of one block
     last = max(k for k in range(16001, 16400, 2) if mc.freq_rank_tile(k))
+    assert last == 16_353
     assert mc._pow2_at_least(mc.freq_rank_tile(last) + last - 1) <= widest
-    assert mc.freq_route(last) == "rank" and mc.freq_route(last + 2) == "count"
-    assert mc.freq_route(mc.MAX_FREQ_TAPS) == "count"
+    for k in (k_star, 47, 187, 257, last):
+        assert (mc.freq_route(k), mc.freq_rank_store(k)) == ("rank", "shared")
+    for k in (last + 2, 57_857, 65_537, mc.MAX_FREQ_TAPS):
+        assert (mc.freq_route(k), mc.freq_rank_store(k)) == ("rank", "scratch")
+    assert mc._key_count(mc.RANK_STORE_THREADS + mc.MAX_FREQ_TAPS - 1) == mc.RANK_STORE_MAX_KEYS
+    assert mc.MAX_FREQ_TAPS % 2 == 1 and mc.MAX_TIME_TAPS % 2 == 1
+    assert min(mc.MAX_FREQ_TAPS, mc.MAX_TIME_TAPS) > 1 << 20
 
 
 @pytest.mark.parametrize("k", [3, 13, 47, 187, 257, 401, 4001])

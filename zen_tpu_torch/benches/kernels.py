@@ -186,8 +186,7 @@ def _time_library(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _freq_routes(k: int) -> list:
-    routes = ["network"] if k <= mc.FREQ_NETWORK_MAX_TAPS else []
-    return routes + (["rank"] if mc.freq_rank_tile(k) else [])
+    return (["network"] if k <= mc.FREQ_NETWORK_MAX_TAPS else []) + ["rank"]
 
 
 def _time_routes(offsets: tuple) -> list:

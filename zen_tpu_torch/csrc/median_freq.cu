@@ -31,8 +31,8 @@
 //
 // What bounds it on this card: at small K the min/max operations of the
 // selection (66 an output at K = 13, which run at half the FP32 rate), at
-// large K the block's sort; never the bytes. Three routes, chosen by the
-// wrapper (ops/median_cuda.py, freq_route) from K alone; all pick
+// large K the block's sort; never the bytes. Two routes, chosen by the
+// wrapper (ops/median_cuda.py, freq_route) from K alone; both pick
 // sorted[(K-1)/2], the element jnp.median picks for odd K.
 //
 // `network`, K up to ZEN_SELECT_FREQ_MAX_TAPS (the hop-256 fleet's K = 13).
@@ -53,24 +53,28 @@
 // and the ragged end are masked here, so any row count is valid (the
 // Pallas fused kernel needed R % 128 == 0).
 //
-// `rank`, from FREQ_RANK_MIN_TAPS on: rank once, select many
+// `rank`, from FREQ_RANK_MIN_TAPS on, at every K: rank once, select many
 // (rank_select.cuh). A network grows as ~K log^2 K min/max per output;
 // the rank route stages the segment as 64-bit keys, sorts it once per
 // block by (value, position) with a bitonic sort over the next power of
 // two, and has each output walk the ranks, counting positions p of its
 // window (p - j < K, unsigned), until the count passes (K-1)/2: ~S/2
-// shared reads for S = tile + K - 1, eight ranks a step, where all lanes
-// of a warp read the same rank (a broadcast). The wrapper picks the tile
-// (32 to 256 outputs, one thread each) that minimizes the walk plus the
-// sort per output (on an H100 the fastest tile at the paths' K, timed in
-// chip_smoke.py phase 3).
-//
-// `count`, the first kernel, for K whose keys do not fit the 227 KB a
-// block can opt into (S > 16,384, K > ~16,000 at the smallest tile
-// fitting): a block stages TILE + K - 1 samples in dynamic shared memory
-// (K reaches ~58,000) and each thread ranks its window by counting, up
-// to 2 K^2 compares per output, stopping at the first tap whose rank
-// brackets (K-1)/2. Right, not fast.
+// reads for S = tile + K - 1, eight ranks a step, where all lanes of a
+// warp read the same rank (a broadcast). Where the keys fit the 227 KB a
+// block can opt into (S <= 16,384, K up to 16,353 at the smallest tile)
+// they stay in shared memory: the wrapper picks the tile (32 to 256
+// outputs, one thread each) that minimizes the walk plus the sort per
+// output (on an H100 the fastest tile at the paths' K, timed in
+// chip_smoke.py phase 3). Past that the sort, not the walk, would no
+// longer fit a block: a first version ranked each window by counting
+// there (up to 2 K^2 compares an output, 2.7e8 at K = 16,385). Now the
+// keys live in the block's slice of a device-memory scratch (the key
+// store of rank_select.cuh): a persistent grid of at most one block an
+// SM, kStoreThreads threads a block and as many outputs a unit, sorts
+// them through a 128 KB chunk of shared memory (the same network, its
+// strides from a chunk up as passes over the slice), and walks the slice
+// through the cache. The scratch, sized by the grid, bounds K
+// (median_cuda.MAX_FREQ_TAPS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -82,53 +86,10 @@
 
 namespace {
 
-constexpr int kTile = 256;
-
-using zen_segment::boundary_index;
 using zen_segment::kReflect;
 using zen_segment::kValid;
 using zen_rank::from_float;
 using zen_rank::to_float;
-
-template <typename T>
-__global__ void sliding_median_kernel(const T* __restrict__ x,
-                                      T* __restrict__ out, int f_in,
-                                      int f_out, int k, int mode) {
-  // kTile + k - 1 elements of T (one buffer name for every T: an
-  // `extern __shared__ T seg[]` per instantiation would clash)
-  extern __shared__ __align__(16) unsigned char seg_bytes[];
-  T* seg = reinterpret_cast<T*>(seg_bytes);
-  const long long r = blockIdx.x;
-  const int j0 = blockIdx.y * kTile;
-  const int m = (k - 1) / 2;
-  const T* row = x + static_cast<size_t>(r) * f_in;
-  // first input position of this tile's window, before the boundary rule
-  const int base = mode == kValid ? j0 : j0 - m;
-  const int live = min(kTile, f_out - j0);
-  const int need = live + k - 1;
-  for (int s = threadIdx.x; s < need; s += kTile) {
-    seg[s] = row[boundary_index(base + s, f_in, mode)];
-  }
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) >= live) return;
-  const T* w = seg + threadIdx.x;
-  int pick = 0;
-  for (int q = 0; q < k; ++q) {
-    const float v = to_float(w[q]);
-    int lt = 0;
-    int eq = 0;
-    for (int u = 0; u < k; ++u) {
-      const float t = to_float(w[u]);
-      lt += t < v;
-      eq += t == v;
-    }
-    if (lt <= m && m < lt + eq) {
-      pick = q;
-      break;
-    }
-  }
-  out[static_cast<size_t>(r) * f_out + j0 + threadIdx.x] = w[pick];
-}
 
 // One block per (row, chunk of `chunk` outputs), kNetworkThreads threads
 // striding over the chunk's outputs.
@@ -196,6 +157,50 @@ __global__ void rank_select_median_kernel(const T* __restrict__ x,
   *dst = from_float<T>(zen_rank::value_of(key));
 }
 
+// The rank route on the key store: a persistent grid whose block b walks
+// the units (row, tile of kStoreThreads outputs) b, b + gridDim.x, ...,
+// staging each unit's keys in its own slice of `scratch` (`slice` keys),
+// sorting them through `len` keys of shared memory, one thread an output.
+template <typename T>
+__global__ void __launch_bounds__(zen_rank::kStoreThreads)
+rank_store_median_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         int rows, int f_in, int f_out, int k, int mode,
+                         unsigned long long* __restrict__ scratch, int slice,
+                         int len) {
+  extern __shared__ __align__(16) unsigned long long chunk[];
+  constexpr int tile = zen_rank::kStoreThreads;
+  unsigned long long* keys = scratch + static_cast<size_t>(blockIdx.x) * slice;
+  const int tiles = (f_out + tile - 1) / tile;
+  const long long units = static_cast<long long>(rows) * tiles;
+  const int m = (k - 1) / 2;
+  const int j = threadIdx.x;
+  for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const long long r = unit / tiles;
+    const int j0 = static_cast<int>(unit % tiles) * tile;
+    const T* row = x + static_cast<size_t>(r) * f_in;
+    const int base = mode == kValid ? j0 : j0 - m;
+    const int live = min(tile, f_out - j0);
+    const int n = zen_segment::stage_keys(keys, row, base, live + k - 1, f_in,
+                                          mode, j, tile);
+    __syncthreads();
+    if (ZEN_RANK_CUT != 1) zen_rank::sort_store(keys, n, chunk, len, j, tile);
+    if (j < live) {
+      // as the shared route: positions of window [j, j + k) until m + 1
+      const unsigned long long key =
+          ZEN_RANK_CUT != 0
+              ? keys[j]
+              : zen_rank::walk(keys, m, [&](unsigned long long kv) {
+                  return static_cast<int>(
+                      static_cast<unsigned>(zen_rank::position_of(kv) - j) <
+                      static_cast<unsigned>(k));
+                });
+      out[static_cast<size_t>(r) * f_out + j0 + j] =
+          from_float<T>(zen_rank::value_of(key));
+    }
+    __syncthreads();  // the next unit restages the slice
+  }
+}
+
 int check_args(int rows, int f_in, int f_out, int k, int mode) {
   if (k < 1 || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
       mode < kReflect || mode > kValid) {
@@ -208,24 +213,6 @@ int check_args(int rows, int f_in, int f_out, int k, int mode) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
-}
-
-template <typename T>
-int launch(const T* x, T* out, int rows, int f_in, int f_out, int k, int mode,
-           void* stream) {
-  int err = check_args(rows, f_in, f_out, k, mode);
-  if (err != 0) return err;
-  // the row segment must fit the shared memory a block may opt into
-  const size_t smem = (static_cast<size_t>(kTile) + k - 1) * sizeof(T);
-  err = zen_rank::opt_in(reinterpret_cast<const void*>(sliding_median_kernel<T>),
-                         smem);
-  if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>(rows),
-                  static_cast<unsigned>((f_out + kTile - 1) / kTile));
-  sliding_median_kernel<T><<<grid, kTile, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, out, f_in, f_out, k, mode);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -275,20 +262,37 @@ int launch_rank(const T* x, T* out, int rows, int f_in, int f_out, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `scratch` holds `blocks` slices of `slice` keys (a power of two, at
+// least the keys of a unit of min(kStoreThreads, f_out) outputs: the
+// wrapper's rank_store_args); `len` keys of shared memory a block (a
+// power of two, 32 to kStoreChunk)
+template <typename T>
+int launch_rank_store(const T* x, T* out, int rows, int f_in, int f_out,
+                      int k, int mode, unsigned long long* scratch,
+                      int blocks, int slice, int len, void* stream) {
+  int err = check_args(rows, f_in, f_out, k, mode);
+  if (err != 0) return err;
+  const long long staged =
+      static_cast<long long>(f_out < zen_rank::kStoreThreads ? f_out
+                                                             : zen_rank::kStoreThreads) +
+      k - 1;
+  if (scratch == nullptr || blocks < 1 || staged > (1 << 30) ||
+      slice < zen_rank::key_count(static_cast<int>(staged)) ||
+      (slice & (slice - 1)) != 0 || len < 32 || len > zen_rank::kStoreChunk ||
+      (len & (len - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(len) * sizeof(unsigned long long);
+  err = zen_rank::opt_in(
+      reinterpret_cast<const void*>(rank_store_median_kernel<T>), smem);
+  if (err != 0) return err;
+  rank_store_median_kernel<T><<<blocks, zen_rank::kStoreThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      x, out, rows, f_in, f_out, k, mode, scratch, slice, len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
-
-extern "C" int zen_sliding_median_boundary(const float* x, float* out,
-                                           int rows, int f_in, int f_out,
-                                           int k, int mode, void* stream) {
-  return launch(x, out, rows, f_in, f_out, k, mode, stream);
-}
-
-extern "C" int zen_sliding_median_boundary_bf16(const __nv_bfloat16* x,
-                                                __nv_bfloat16* out, int rows,
-                                                int f_in, int f_out, int k,
-                                                int mode, void* stream) {
-  return launch(x, out, rows, f_in, f_out, k, mode, stream);
-}
 
 extern "C" int zen_sliding_median_network(const float* x, float* out,
                                           int rows, int f_in, int f_out,
@@ -314,4 +318,19 @@ extern "C" int zen_sliding_median_rank_bf16(const __nv_bfloat16* x,
                                             int f_in, int f_out, int k,
                                             int mode, int tile, void* stream) {
   return launch_rank(x, out, rows, f_in, f_out, k, mode, tile, stream);
+}
+
+extern "C" int zen_sliding_median_rank_store(
+    const float* x, float* out, int rows, int f_in, int f_out, int k, int mode,
+    unsigned long long* scratch, int blocks, int slice, int len, void* stream) {
+  return launch_rank_store(x, out, rows, f_in, f_out, k, mode, scratch, blocks,
+                           slice, len, stream);
+}
+
+extern "C" int zen_sliding_median_rank_store_bf16(
+    const __nv_bfloat16* x, __nv_bfloat16* out, int rows, int f_in, int f_out,
+    int k, int mode, unsigned long long* scratch, int blocks, int slice,
+    int len, void* stream) {
+  return launch_rank_store(x, out, rows, f_in, f_out, k, mode, scratch, blocks,
+                           slice, len, stream);
 }

@@ -68,40 +68,52 @@
 // * The two input pointers remove the concat copy the JAX step pays
 //   without the pair kernel.
 //
-// `rank`, K from 65 (K = 93 at 44.1 kHz hop 32, 401 at 48 kHz hop 8, and
-// tap sets of any span up to 12,287 taps). A register array no longer
-// fits, and counting would cost up to K^2 tap reads an output (8,649 at
-// K = 93). What bounds it on this card: the block's sort of its staged
-// keys, not the bytes. The design, rank once and select many
-// (rank_select.cuh): each block takes one column and a run of up to 32
-// output rows; its 128 threads stage the rows the run's taps reach
-// (time_rank_rows: 155 for a run of 32 under hop 32's two tap runs, not
-// the 215 between their extremes) as (value, row) keys in shared memory
-// and bitonic-sort them once; then each lane of the first warp, one output
-// row, walks the ranks adding the multiplicity of each row in its tap set
-// until the sum passes (K-1)/2. The multiplicities come from a table over
-// [min(o), max(o)] (duplicated taps count more than once), built by the
-// wrapper and uploaded once per offsets tuple, padded with 31 zeros on
-// each side so that a lane reads table[row - lane + 31] without a branch:
-// all lanes read one rank (a broadcast) and consecutive table words. The
-// shapes of the hop-32 step have few outputs, so the kernel is built for
-// latency: the four warps keep the staging loads of a unit in flight
-// together and share its sort, and the walk reads eight ranks a step. One
-// unit per block spreads the work over the SMs: 65 blocks at K = 93
-// [1, 183 + 32, 65], 493 at K = 401 [1, 900, 17].
+// `rank`, K from 65 (K = 93 at 44.1 kHz hop 32, 401 at 48 kHz hop 8,
+// 12,801 at 192 kHz hop 1, 25,601 at 384 kHz hop 1, and tap sets of any
+// span). A register array no longer fits, and counting would cost up to
+// K^2 tap reads an output (8,649 at K = 93). What bounds it on this card:
+// the block's sort of its staged keys, not the bytes. The design, rank
+// once and select many (rank_select.cuh): each block takes one column
+// and a run of up to 32 output rows; its 128 threads stage the rows the
+// run's taps reach (time_rank_rows: 155 for a run of 32 under hop 32's
+// two tap runs, not the 215 between their extremes) as (value, row) keys
+// in shared memory and bitonic-sort them once; then each lane of the
+// first warp, one output row, walks the ranks adding the multiplicity of
+// each row in its tap set until the sum passes (K-1)/2. The
+// multiplicities come from a table over [min(o), max(o)] (duplicated taps
+// count more than once), built by the wrapper and uploaded once per
+// offsets tuple, padded with 31 zeros on each side so that a lane reads
+// table[row - lane + 31] without a branch: all lanes read one rank (a
+// broadcast) and consecutive table words. The shapes of the hop-32 step
+// have few outputs, so the kernel is built for latency: the four warps
+// keep the staging loads of a unit in flight together and share its
+// sort, and the walk reads eight ranks a step. One unit per block spreads
+// the work over the SMs: 65 blocks at K = 93 [1, 183 + 32, 65], 493 at
+// K = 401 [1, 900, 17].
 // Every span fits: the keys a block stages depend on the rows its taps
 // reach, not on the span between them, and the wrapper halves the run
-// (time_rank_run) while they pass 227 KB; one output row stages its
-// distinct taps, at most 16,384 keys (128 KB). A tap that reads fill for
-// every output row of a call moves next to V (time_rank_offsets), so the
-// table spans at most 2 t_v + 1 rows however far the offsets reach. The
-// table goes into shared memory beside the keys where both fit (spans up
-// to about 57,000 rows); past that the walk reads it from the plan in
-// device memory through the read-only cache, where the few words a
-// block's rows touch stay cached. Both variants stay: on an H100 the walk
-// over the shared table took 10.14 us at hop 32's K = 93 (B = 32), 8.13
-// at B = 1 and 9.92 at a span of 16,354 rows, against 10.59, 8.59 and
-// 10.82 reading device memory (benches/rank_table.py).
+// (time_rank_run) while they pass 227 KB, down to one output row, which
+// stages its distinct taps. A tap that reads fill for every output row of
+// a call moves next to V (time_rank_offsets), so the table spans at most
+// 2 t_v + 1 rows however far the offsets reach. The table goes into
+// shared memory beside the keys where both fit (spans up to about 57,000
+// rows); past that the walk reads it from the plan in device memory
+// through the read-only cache, where the few words a block's rows touch
+// stay cached. Both variants stay: on an H100 the walk over the shared
+// table took 10.14 us at hop 32's K = 93 (B = 32), 8.13 at B = 1 and 9.92
+// at a span of 16,354 rows, against 10.59, 8.59 and 10.82 reading device
+// memory (benches/rank_table.py).
+// Every tap count fits too: where one row's distinct taps pass 16,384
+// keys (the 25,601 of 384 kHz hop 1), the keys live in the block's slice
+// of a device-memory scratch (the key store of rank_select.cuh): a
+// persistent grid of at most one block an SM, kStoreThreads threads a
+// block, sorts them through a 128 KB chunk of shared memory, and the
+// whole block walks the slice for the unit's one output row
+// (zen_rank::walk_block: kBlockWalkRanks ranks a thread a step, a scan of
+// the block's counts), the table read from device memory: a walk by one
+// lane, as in the shared route, would wait a cache round trip for each
+// eight of ~K/2 ranks. The scratch, sized by the grid, bounds K
+// (median_cuda.MAX_TIME_TAPS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -271,6 +283,72 @@ __global__ void tap_median_time_rank_kernel(
   *dst = from_float<T>(zen_rank::value_of(key));
 }
 
+// The rank route on the key store: a persistent grid whose block b walks
+// the units b, b + gridDim.x, ... of the shared route's kernel (one
+// column, a run of output rows), staging each unit's keys in its own
+// slice of `scratch` (`slice` keys) and sorting them through `len` keys
+// of shared memory; the walk reads the table from `plan`.
+template <typename T>
+__global__ void __launch_bounds__(zen_rank::kStoreThreads)
+tap_median_time_rank_store_kernel(
+    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+    int ta, int tb, int f, int start, int t_out, int run,
+    const int* __restrict__ plan, int min_o, int span, int staged, int k,
+    float fill, long long units, unsigned long long* __restrict__ scratch,
+    int slice, int len) {
+  extern __shared__ __align__(16) unsigned long long chunk[];
+  __shared__ int scan[zen_rank::kStoreThreads / 32];
+  __shared__ unsigned long long found;
+  unsigned long long* keys = scratch + static_cast<size_t>(blockIdx.x) * slice;
+  const int n = zen_rank::key_count(staged);
+  const int table_len = span + 2 * (kRun - 1);
+  const int* rows = plan + table_len;
+  const int tid = threadIdx.x;
+  const int n_runs = (t_out + run - 1) / run;
+  for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int col = static_cast<int>(unit % f);
+    const long long rest = unit / f;
+    const int i0 = static_cast<int>(rest % n_runs) * run;
+    const long long c = rest / n_runs;
+    const int row0 = start + i0 + min_o;  // the V row of relative row 0
+#pragma unroll 4
+    for (int s = tid; s < n; s += zen_rank::kStoreThreads) {
+      unsigned long long key = zen_rank::kPadKey;
+      if (s < staged) {
+        const int d = rows[s];
+        key = zen_rank::make_key(tap_at(a, b, c, ta, tb, f, col, row0 + d, fill), d);
+      }
+      keys[s] = key;
+    }
+    __syncthreads();
+    if (ZEN_RANK_CUT != 1) {
+      zen_rank::sort_store(keys, n, chunk, len, tid, zen_rank::kStoreThreads);
+    }
+    // the block walks each output row of the run in turn (one, where the
+    // wrapper sends a call to the store), the table read through the
+    // read-only cache as in the shared route
+    for (int lane = 0; lane < run && i0 + lane < t_out; ++lane) {
+      const unsigned int mult_at = kRun - 1 - lane;
+      const unsigned long long key =
+          ZEN_RANK_CUT != 0
+              ? keys[lane]
+              : zen_rank::walk_block(
+                    keys, n, (k - 1) / 2,
+                    [&](unsigned long long kv) {
+                      const unsigned int q = zen_rank::position_of(kv) + mult_at;
+                      if (q >= static_cast<unsigned int>(table_len)) return 0;
+                      return __ldg(plan + q);
+                    },
+                    scan, &found);
+      if (tid == 0) {
+        out[(static_cast<size_t>(c) * t_out + i0 + lane) * f + col] =
+            from_float<T>(zen_rank::value_of(key));
+      }
+    }
+    __syncthreads();  // the next unit restages the slice
+  }
+}
+
 // K <= ZEN_SELECT_TIME_MAX_TAPS: `rows` (staged ints) and `slots` (run * k
 // ints below staged) are host arrays, the wrapper's time_network_plan
 template <typename T>
@@ -354,6 +432,36 @@ int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch_rank's plan and checks, with the keys in `scratch`: `blocks`
+// slices of `slice` keys (a power of two, at least key_count(staged): the
+// wrapper's rank_store_args); `len` keys of shared memory a block (a
+// power of two, 32 to kStoreChunk)
+template <typename T>
+int launch_rank_store(const T* a, const T* b, T* out, int c, int ta, int tb,
+                      int f, int start, int t_out, const int* plan, int min_o,
+                      int span, int staged, int run, int k, float fill,
+                      unsigned long long* scratch, int blocks, int slice,
+                      int len, void* stream) {
+  if (k < 1 || k % 2 == 0 || c <= 0 || f <= 0 || t_out <= 0 || span < 1 ||
+      run < 1 || run > kRun || staged < 1 || staged > kRun - 1 + span ||
+      staged > (1 << 30) || scratch == nullptr || blocks < 1 ||
+      slice < zen_rank::key_count(staged) || (slice & (slice - 1)) != 0 ||
+      len < 32 || len > zen_rank::kStoreChunk || (len & (len - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(len) * sizeof(unsigned long long);
+  int err = zen_rank::opt_in(
+      reinterpret_cast<const void*>(tap_median_time_rank_store_kernel<T>), smem);
+  if (err != 0) return err;
+  const int n_runs = (t_out + run - 1) / run;
+  const long long units = static_cast<long long>(c) * n_runs * f;
+  tap_median_time_rank_store_kernel<T><<<blocks, zen_rank::kStoreThreads, smem,
+                                         static_cast<cudaStream_t>(stream)>>>(
+      a, b, out, ta, tb, f, start, t_out, run, plan, min_o, span, staged, k,
+      fill, units, scratch, slice, len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int zen_tap_median_time_network(
@@ -388,6 +496,27 @@ extern "C" int zen_tap_median_time_rank_bf16(
     int span, int staged, int run, int k, float fill, void* stream) {
   return launch_rank(a, b, out, c, ta, tb, f, start, t_out, plan, min_o, span,
                      staged, run, k, fill, stream);
+}
+
+extern "C" int zen_tap_median_time_rank_store(
+    const float* a, const float* b, float* out, int c, int ta, int tb, int f,
+    int start, int t_out, const int* plan, int min_o, int span, int staged,
+    int run, int k, float fill, unsigned long long* scratch, int blocks,
+    int slice, int len, void* stream) {
+  return launch_rank_store(a, b, out, c, ta, tb, f, start, t_out, plan, min_o,
+                           span, staged, run, k, fill, scratch, blocks, slice,
+                           len, stream);
+}
+
+extern "C" int zen_tap_median_time_rank_store_bf16(
+    const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* out, int c,
+    int ta, int tb, int f, int start, int t_out, const int* plan, int min_o,
+    int span, int staged, int run, int k, float fill,
+    unsigned long long* scratch, int blocks, int slice, int len,
+    void* stream) {
+  return launch_rank_store(a, b, out, c, ta, tb, f, start, t_out, plan, min_o,
+                           span, staged, run, k, fill, scratch, blocks, slice,
+                           len, stream);
 }
 
 extern "C" const char* zen_cuda_error_string(int err) {

@@ -3,14 +3,26 @@
 //
 // A block stages the samples its outputs' windows reach, once, as 64-bit
 // keys: the value's order bits above, its staged position below. One
-// bitonic sort of the keys in shared memory orders the staged samples by
-// (value, position). Each output then walks the ranks upward, counting
-// the positions that fall in its own window (with their multiplicity,
-// where taps repeat), until the count passes (K - 1) / 2: the value at
-// that rank is sorted(window)[(K - 1) / 2], the element rank-by-counting
-// and torch.kthvalue pick. Per output that is ~S/2 shared reads for S
-// staged samples, plus the sort's O(log^2 S) compare-swaps per sample,
-// against up to K^2 compares for ranking each window by counting.
+// bitonic sort of the keys orders the staged samples by (value,
+// position). Each output then walks the ranks upward, counting the
+// positions that fall in its own window (with their multiplicity, where
+// taps repeat), until the count passes (K - 1) / 2: the value at that
+// rank is sorted(window)[(K - 1) / 2], the element rank-by-counting and
+// torch.kthvalue pick. Per output that is ~S/2 reads for S staged
+// samples, plus the sort's O(log^2 S) compare-swaps per sample, against
+// up to K^2 compares for ranking each window by counting.
+//
+// Two stores for the keys. The shared store sorts them in shared memory
+// (bitonic_sort), up to the 227 KB a block can opt into: 16,384 keys of
+// 8 bytes, as a power of two. Past that the keys live in the block's
+// slice of a device-memory scratch that the wrapper allocates, sized by
+// the grid (a persistent grid of at most one block an SM walks the
+// units), and sort_store sorts them: each chunk of kStoreChunk keys in
+// shared memory, the stages' strides from a chunk up as passes over the
+// slice, the strides below a chunk in shared memory again. It is the same
+// bitonic network, so the keys end in the same order; the walk then reads
+// the slice through the cache (walk_block: the whole block on one output,
+// where a unit has one).
 //
 // Exactness: the key order is the float order, except that -0.0 sorts
 // below +0.0 and NaN does not arise (both kernels take magnitudes, from
@@ -18,7 +30,7 @@
 // picks; between -0.0 and +0.0 the two could differ in the sign bit.
 //
 // ZEN_RANK_CUT splits a rank block's time (chip_smoke.py phase 3 builds
-// the library twice more with it): 1 ends both rank kernels after
+// the library twice more with it): 1 ends the rank kernels after
 // staging, 2 after the sort, each storing a staged key per output so the
 // work before stays; the cut kernels' outputs are not medians. 0, the
 // default, builds the full kernels.
@@ -123,47 +135,127 @@ __device__ __forceinline__ unsigned long long lane_swap(unsigned long long x,
   return keep_min == (x < y) ? x : y;
 }
 
-// Ascending bitonic sort of keys[0, n), n a power of two >= 32, by the
-// `count` threads of a block (a multiple of 32, ids `tid`). Strides below
-// 32 run in registers, a warp taking 32 consecutive keys and exchanging
-// them with shuffles; the strides from 32 up run in shared memory, a
-// compare-swap per thread per stage. So a block syncs 2 log2(n / 32) + 1
-// times, not log2(n) (log2(n) + 1) / 2 (10 against 36 at n = 256). The
-// caller syncs before (the staging); the last sync ends the sort.
-__device__ __forceinline__ void bitonic_sort(unsigned long long* keys, int n,
-                                             int tid, int count) {
+// The strides `top` .. 1 (top >= 16) of stage `size` of a bitonic sort
+// over keys[0, n) in shared memory (n a power of two >= 32), by the
+// `count` threads of a block (a multiple of 32, ids `tid`). `base` is the
+// index of keys[0] in the whole sort: a pair ascends where bit `size` of
+// its index is clear. Strides from 32 up run in shared memory, a
+// compare-swap per thread per stage; those below 32 in registers, a warp
+// taking 32 consecutive keys and exchanging them with shuffles. Ends
+// synced.
+__device__ __forceinline__ void merge_down(unsigned long long* keys, int n,
+                                           int size, int top, int base,
+                                           int tid, int count) {
   const int lane = tid & 31;
-  // sizes 2 .. 32: every 32-key group in registers
+  for (int stride = top; stride >= 32; stride >>= 1) {
+    for (int t = tid; t < n / 2; t += count) {
+      const int lo = 2 * t - (t & (stride - 1));  // bit `stride` clear
+      const int hi = lo + stride;
+      const unsigned long long x = keys[lo];
+      const unsigned long long y = keys[hi];
+      if ((x > y) == (((base + lo) & size) == 0)) {
+        keys[lo] = y;
+        keys[hi] = x;
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < n; e += count) {
+    unsigned long long x = keys[e];
+    for (int stride = 16; stride > 0; stride >>= 1) {
+      x = lane_swap(x, lane, stride, ((base + e) & size) == 0);
+    }
+    keys[e] = x;
+  }
+  __syncthreads();
+}
+
+// Bitonic sort of keys[0, n) in shared memory, n a power of two >= 32, by
+// the `count` threads of a block: ascending for base = 0; for keys[0, n)
+// at index `base` of a larger sort, the direction that sort gives them.
+// Sizes 2 .. 32 run in registers, then merge_down each larger size, so a
+// block syncs 2 log2(n / 32) + 1 times, not log2(n) (log2(n) + 1) / 2 (10
+// against 36 at n = 256). The caller syncs before (the staging); the last
+// sync ends the sort.
+__device__ __forceinline__ void bitonic_sort(unsigned long long* keys, int n,
+                                             int tid, int count,
+                                             int base = 0) {
+  const int lane = tid & 31;
   for (int e = tid; e < n; e += count) {
     unsigned long long x = keys[e];
     for (int size = 2; size <= 32; size <<= 1) {
       for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        x = lane_swap(x, lane, stride, (e & size) == 0);
+        x = lane_swap(x, lane, stride, ((base + e) & size) == 0);
       }
     }
     keys[e] = x;
   }
   __syncthreads();
   for (int size = 64; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride >= 32; stride >>= 1) {
-      for (int t = tid; t < n / 2; t += count) {
-        const int lo = 2 * t - (t & (stride - 1));  // bit `stride` clear
-        const int hi = lo + stride;
-        const unsigned long long x = keys[lo];
-        const unsigned long long y = keys[hi];
-        if ((x > y) == ((lo & size) == 0)) {
-          keys[lo] = y;
-          keys[hi] = x;
+    merge_down(keys, n, size, size >> 1, base, tid, count);
+  }
+}
+
+// The key store past shared memory: a block of kStoreThreads threads
+// sorts at most kStoreChunk keys (128 KB) in shared memory at once, so
+// one block runs an SM. A pass over device memory keeps kPassPairs
+// compare-swaps a thread in flight: one block alone moves the slice, and
+// with one pair a thread it would wait a round trip for each 16 KB.
+constexpr int kStoreThreads = 1024;
+constexpr int kStoreChunk = 16384;
+constexpr int kPassPairs = 4;
+
+// Ascending sort of keys[0, n) in device memory (n a power of two >= 32)
+// by the `count` threads of a block, through `chunk`, shared memory for
+// `len` keys (a power of two from 32 to kStoreChunk): the same bitonic
+// network as bitonic_sort. Each run of len keys is sorted in shared
+// memory in the direction the network gives it; then each larger stage
+// runs its strides from len up as passes over device memory, a
+// compare-swap per thread per pass (consecutive threads on consecutive
+// pairs), and its strides below len in shared memory, run by run. A
+// thread moves the same entries between `chunk` and `keys` both ways, so
+// those moves need no sync of their own. The caller syncs before; the
+// last sync ends the sort.
+__device__ __forceinline__ void sort_store(unsigned long long* keys, int n,
+                                           unsigned long long* chunk,
+                                           int len, int tid, int count) {
+  len = n < len ? n : len;
+  for (int c0 = 0; c0 < n; c0 += len) {
+    for (int e = tid; e < len; e += count) chunk[e] = keys[c0 + e];
+    bitonic_sort(chunk, len, tid, count, c0);
+    for (int e = tid; e < len; e += count) keys[c0 + e] = chunk[e];
+  }
+  __syncthreads();
+  for (int size = 2 * len; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride >= len; stride >>= 1) {
+      for (int t0 = tid; t0 < n / 2; t0 += kPassPairs * count) {
+        unsigned long long x[kPassPairs], y[kPassPairs];
+#pragma unroll
+        for (int u = 0; u < kPassPairs; ++u) {
+          const int t = t0 + u * count;
+          if (t < n / 2) {
+            const int lo = 2 * t - (t & (stride - 1));
+            x[u] = keys[lo];
+            y[u] = keys[lo + stride];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kPassPairs; ++u) {
+          const int t = t0 + u * count;
+          const int lo = 2 * t - (t & (stride - 1));
+          if (t < n / 2 && (x[u] > y[u]) == ((lo & size) == 0)) {
+            keys[lo] = y[u];
+            keys[lo + stride] = x[u];
+          }
         }
       }
       __syncthreads();
     }
-    for (int e = tid; e < n; e += count) {
-      unsigned long long x = keys[e];
-      for (int stride = 16; stride > 0; stride >>= 1) {
-        x = lane_swap(x, lane, stride, (e & size) == 0);
-      }
-      keys[e] = x;
+    for (int c0 = 0; c0 < n; c0 += len) {
+      for (int e = tid; e < len; e += count) chunk[e] = keys[c0 + e];
+      __syncthreads();
+      merge_down(chunk, len, size, len >> 1, c0, tid, count);
+      for (int e = tid; e < len; e += count) keys[c0 + e] = chunk[e];
     }
     __syncthreads();
   }
@@ -209,6 +301,75 @@ __device__ __forceinline__ unsigned long long walk(
     seen += count(keys[rank]);
     if (seen > m) return keys[rank];
   }
+}
+
+// The rank walk of one output by the whole block (kStoreThreads threads,
+// each thread calling it): the key at the first rank of keys[0, n) where
+// the running sum of count(key) passes m. Where a unit has one output, a
+// walk by one thread waits a cache round trip a step for ~S/16 steps; here
+// every thread counts kBlockWalkRanks consecutive ranks a step, a scan of
+// the block's counts finds the step that passes m, and the thread whose
+// ranks hold the crossing finds the rank. `scan` is shared memory for
+// kStoreThreads / 32 ints and `found` for one key; every thread returns
+// the key. Ends synced.
+constexpr int kBlockWalkRanks = 4;
+
+template <typename Count>
+__device__ __forceinline__ unsigned long long walk_block(
+    const unsigned long long* keys, int n, int m, Count count, int* scan,
+    unsigned long long* found) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int seen = 0;
+  for (int base = 0; base < n; base += kStoreThreads * kBlockWalkRanks) {
+    const int r0 = base + tid * kBlockWalkRanks;
+    int c[kBlockWalkRanks];
+    int mine = 0;
+#pragma unroll
+    for (int u = 0; u < kBlockWalkRanks; ++u) {
+      c[u] = r0 + u < n ? count(keys[r0 + u]) : 0;
+      mine += c[u];
+    }
+    int upto = mine;  // inclusive scan over the warp, then over the warps
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, upto, d);
+      if (lane >= d) upto += y;
+    }
+    if (lane == 31) scan[warp] = upto;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < kStoreThreads / 32 ? scan[lane] : 0;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, d);
+        if (lane >= d) w += y;
+      }
+      if (lane < kStoreThreads / 32) scan[lane] = w;
+    }
+    __syncthreads();
+    const int before = seen + (warp ? scan[warp - 1] : 0) + upto - mine;
+    const int total = scan[kStoreThreads / 32 - 1];
+    if (seen + total > m) {
+      if (before <= m && m < before + mine) {
+        int sum = before;
+#pragma unroll
+        for (int u = 0; u < kBlockWalkRanks; ++u) {
+          sum += c[u];
+          if (sum > m) {
+            *found = keys[r0 + u];
+            break;
+          }
+        }
+      }
+      __syncthreads();
+      const unsigned long long key = *found;
+      __syncthreads();  // the next walk may write `found`
+      return key;
+    }
+    seen += total;
+    __syncthreads();  // the next step rewrites `scan`
+  }
+  return kPadKey;  // not reached: the answer lies below the padding
 }
 
 }  // namespace zen_rank

@@ -19,9 +19,10 @@ a CPU tensor to its ``_plain`` twin (built from
 checking contiguity; it raises on anything the kernel does not take,
 and never falls back. ``launches`` on each
 wrapper counts its kernel launches, so a run can show that it went
-through the kernel, and ``routes`` splits that count by route. Kernels
-launch on the current stream, never synchronize and allocate nothing:
-the wrapper allocates the output.
+through the kernel, ``routes`` splits that count by route, and ``stores``
+splits the rank route's launches by where the keys live. Kernels launch
+on the current stream, never synchronize and allocate nothing: the
+wrapper allocates the output and the rank routes' key scratch.
 
 Small K is a comparator network on registers (``ops/select_network.py``,
 emitted as ``zen_select.cuh`` at build time): K1's ``register`` route up
@@ -29,16 +30,18 @@ to REGISTER_TAPS (63) taps and K2's ``network`` route up to
 FREQ_NETWORK_MAX_TAPS (31). Large K is "rank once, select many"
 (``csrc/rank_select.cuh``): K1's ``rank`` route for every tap set past
 REGISTER_TAPS, at any span (``time_route``), and K2's from
-FREQ_RANK_MIN_TAPS while its keys fit a block (``freq_route``; its first
-``count`` kernel keeps the K beyond). The wrappers choose from K alone.
-The host side of the routes is here, in Python the CPU tests reach: the
-rows a run of K1's network kernel stages and where each tap lies in them
-(``time_network_plan``, ``time_network_run``; ``time_fill_run``, the
-run of the thread mapping alone), K1's rank plan (the
-multiplicity table ``time_rank_table``, the staged rows
-``time_rank_rows``, the run ``time_rank_run`` and its keys' bytes
-``time_rank_keys``), K2's tile (``freq_rank_tile``) and the shared-memory
-check that sends a K whose keys do not fit to K2's counting kernel.
+FREQ_RANK_MIN_TAPS on (``freq_route``), both up to the one bound of
+their key store (MAX_TIME_TAPS, MAX_FREQ_TAPS). The wrappers choose the
+route from K alone. The host side of the routes is here, in Python the
+CPU tests reach: the rows a run of K1's network kernel stages and where
+each tap lies in them (``time_network_plan``, ``time_network_run``;
+``time_fill_run``, the run of the thread mapping alone), K1's rank plan
+(the multiplicity table ``time_rank_table``, the staged rows
+``time_rank_rows``, the run ``time_rank_run``, its keys' bytes
+``time_rank_keys`` and the call's plan ``time_rank_plan``), K2's tile
+(``freq_rank_tile``), where a rank block's keys live (``shared`` in its
+shared memory where they fit, else ``scratch``: ``time_rank_plan``,
+``freq_rank_store``) and the scratch's geometry (``rank_store_args``).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ import functools
 import math
 import threading
 
+import numpy as np
 import torch
 
 from ..errors import ZenError
@@ -57,11 +61,25 @@ from .select_network import TIME_MAX_TAPS as REGISTER_TAPS
 
 # Shared memory a block can opt into on Hopper (227 KB).
 SMEM_OPTIN = 232_448
-# K1 takes up to MAX_TIME_TAPS taps: its network up to REGISTER_TAPS, its
-# rank route above at any span. One output row of the rank route stages
-# its distinct taps, so up to 16,384 of them would fit a block's keys;
-# the cap stays at the 12,287 the port has always taken.
-MAX_TIME_TAPS = 12_287
+KEY_BYTES = 8  # a (value, position) key of the rank routes
+# The rank routes' key store past shared memory (csrc/rank_select.cuh): a
+# block whose keys do not fit SMEM_OPTIN sorts them in its slice of a
+# device-memory scratch, RANK_STORE_CHUNK keys (128 KB) at a time in shared
+# memory, so one block runs an SM; a persistent grid of at most one block
+# an SM walks the units, so the scratch is one slice a block. A slice
+# holds at most RANK_STORE_MAX_KEYS keys (16 MiB; the scratch at most 2.2
+# GB on an H100's 132 SMs). That scratch budget is the one bound on both
+# kernels' tap counts, on the card and on the CPU alike: K1's rank route
+# stages at most its K taps for the one output row it takes where keys
+# pass shared memory (time_rank_run), so K1 takes up to MAX_TIME_TAPS;
+# K2's stages RANK_STORE_THREADS + K - 1 samples for a unit of outputs,
+# so K2 takes up to MAX_FREQ_TAPS. Both are past 2^20, and a key's 32-bit
+# position holds any staged sample.
+RANK_STORE_MAX_KEYS = 1 << 21
+RANK_STORE_CHUNK = 16_384
+RANK_STORE_THREADS = 1024  # threads of a store block, and K2's outputs a unit
+MAX_TIME_TAPS = RANK_STORE_MAX_KEYS - 1
+MAX_FREQ_TAPS = RANK_STORE_MAX_KEYS - RANK_STORE_THREADS + 1
 # K1's network kernel (K <= REGISTER_TAPS): a thread takes one column and
 # a run of TIME_NETWORK_RUN consecutive output rows, fewer while the
 # launch would have under TIME_NETWORK_MIN_BLOCKS blocks (four for each
@@ -81,9 +99,6 @@ assert TIME_NETWORK_MAX_STAGED * TIME_NETWORK_THREADS * 4 <= SMEM_OPTIN
 # K1's rank route: most output rows per block, one per lane of its first
 # warp; its table pads each side with TIME_RANK_RUN - 1 zeros.
 TIME_RANK_RUN = 32
-# K2's counting kernel stages a row segment of 256 + K - 1 floats in
-# shared memory, which must fit SMEM_OPTIN.
-MAX_FREQ_TAPS = SMEM_OPTIN // 4 - 256 + 1
 # K2 selects with its network below this many taps and sorts its segment
 # once per block from here on: the crossover of chip_smoke.py's phase-3
 # sweep on an H100 (the network was faster at every K it takes, on both
@@ -93,7 +108,6 @@ FREQ_RANK_TILES = (32, 64, 128, 256)
 FREQ_NETWORK_CHUNK = 1024  # most outputs of a block of K2's network route
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
 _PLAIN_BOUNDARY = {"reflect": "reflect", "wrap": "wrap", "edge": "clamp"}
-KEY_BYTES = 8  # a (value, position) key of the rank routes
 
 
 def _pow2_at_least(n: int) -> int:
@@ -140,12 +154,32 @@ def _entry(lib, name: str, dtype: torch.dtype):
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper, route: str) -> None:
-    """One launch on ``wrapper``'s counters, under a lock: ``+= 1`` on
-    an attribute is a read-modify-write that two threads can interleave."""
+def _count(wrapper, route: str, store: str | None = None) -> None:
+    """One launch on ``wrapper``'s counters (``store``: where a rank
+    route's keys live, counted in ``wrapper.stores``), under a lock: ``+=
+    1`` on an attribute is a read-modify-write that two threads can
+    interleave."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.routes[route] += 1
+        if store:
+            wrapper.stores[store] += 1
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rank_store_args(units: int, staged: int, device: torch.device) -> tuple:
+    """(scratch, blocks, slice) of a rank kernel on the key store for
+    ``units`` units of at most ``staged`` keys each: ``blocks``, one an SM
+    at most and no more than the units, each with a slice of ``slice``
+    keys (``_key_count(staged)``) of the int64 ``scratch`` it allocates on
+    ``device``."""
+    keys = _key_count(staged)
+    blocks = max(1, min(units, _sm_count(device)))
+    return torch.empty(blocks * keys, dtype=torch.int64, device=device), blocks, keys
 
 
 def _launch(x: torch.Tensor, entry, *args) -> int:
@@ -163,10 +197,17 @@ def tap_median_time_plain(
     a: torch.Tensor, b: torch.Tensor, offsets, start: int, fill: float = 0.0
 ) -> torch.Tensor:
     """Plain twin of ``tap_median_time``: materialize the concat and take
-    the 'zero'-boundary sliding median of its rows from ``start`` on
-    (``fill`` rounds to the inputs' dtype, as in the kernel)."""
+    the 'zero'-boundary sliding median of its rows from ``start`` on, and
+    only those (``fill`` rounds to the inputs' dtype, as in the kernel)."""
     v = torch.cat([a, b], dim=-2)
-    return sliding_median(v, offsets, -2, "zero", fill)[..., start:, :]
+    return sliding_median(v, offsets, -2, "zero", fill, start=start)
+
+
+@functools.lru_cache(maxsize=64)
+def _int_offsets(offsets: tuple) -> tuple:
+    """``offsets`` as Python ints, once per tuple: at 25,601 taps the
+    conversion alone takes milliseconds of a step's host time."""
+    return tuple(int(o) for o in offsets)
 
 
 @functools.lru_cache(maxsize=64)
@@ -190,10 +231,8 @@ def time_rank_table(offsets: tuple) -> tuple:
     lo = min(offsets)
     span = max(offsets) - lo + 1
     pad = TIME_RANK_RUN - 1
-    table = [0] * (span + 2 * pad)
-    for o in offsets:
-        table[pad + o - lo] += 1
-    return lo, span, tuple(table)
+    counts = np.bincount(np.asarray(offsets, np.int64) - lo, minlength=span)
+    return lo, span, (0,) * pad + tuple(counts.tolist()) + (0,) * pad
 
 
 @functools.lru_cache(maxsize=64)
@@ -203,25 +242,36 @@ def time_rank_rows(offsets: tuple, run: int) -> tuple:
     first row's min(offsets) tap. A run of 32 rows under the two tap runs
     of a causal wrap (K = 93) stages 155 rows, not the 215 between its
     extremes; one row stages exactly its distinct taps."""
-    lo = min(offsets)
-    return tuple(sorted({o - lo + i for o in set(offsets) for i in range(run)}))
+    taps = _distinct_taps(offsets)
+    return tuple(np.unique((taps[:, None] + np.arange(run)).ravel()).tolist())
+
+
+@functools.lru_cache(maxsize=64)
+def _distinct_taps(offsets: tuple) -> np.ndarray:
+    """The distinct offsets relative to min(offsets), ascending."""
+    taps = np.unique(np.asarray(offsets, np.int64))
+    return taps - taps[0]
 
 
 @functools.lru_cache(maxsize=64)
 def time_rank_keys(offsets: tuple, run: int) -> int:
     """Bytes of the keys a block of K1's rank route sorts over ``run``
     output rows, as launch_rank (csrc/median_time.cu) reckons them: the
-    rows it stages (``time_rank_rows``), to ``_key_count``. launch_rank
-    puts the table beside them where both fit the device's opt-in limit."""
-    return KEY_BYTES * _key_count(len(time_rank_rows(offsets, run)))
+    rows it stages (``time_rank_rows``: each distinct tap's ``run`` rows,
+    less the overlap with the next tap's), to ``_key_count``. launch_rank
+    puts the table beside them where both fit the device's opt-in
+    limit."""
+    staged = run + int(np.minimum(np.diff(_distinct_taps(offsets)), run).sum())
+    return KEY_BYTES * _key_count(staged)
 
 
 @functools.lru_cache(maxsize=32)
 def time_rank_run(offsets: tuple) -> int:
     """Output rows a block of K1's rank route takes: TIME_RANK_RUN, halved
     while the keys of the rows the run stages do not fit SMEM_OPTIN. One
-    row stages its distinct taps, at most MAX_TIME_TAPS keys, so a run
-    always fits (16,384 keys of 8 bytes at most)."""
+    row stages its distinct taps; where even those do not fit (past
+    16,384 keys), the block keeps the one row and its keys go to the key
+    store (``time_rank_plan``)."""
     run = TIME_RANK_RUN
     while run > 1 and time_rank_keys(offsets, run) > SMEM_OPTIN:
         run //= 2
@@ -276,6 +326,18 @@ def _network_args(offsets: tuple, run: int) -> tuple:
             (ctypes.c_int * len(slots))(*slots), run)
 
 
+def time_rank_plan(offsets: tuple, start: int, t_v: int, run: int | None = None) -> tuple:
+    """(offsets, run, store) of K1's rank route for a call on V's ``t_v``
+    rows from output row ``start``: the offsets as it plans them
+    (``time_rank_offsets``), the run (``run`` or ``time_rank_run``, at
+    most the call's output rows) and where a block's keys live: 'shared'
+    where they fit SMEM_OPTIN, else 'scratch' (the key store)."""
+    offsets = time_rank_offsets(offsets, start, t_v)
+    run = max(1, min(t_v - start, run or time_rank_run(offsets)))
+    store = "shared" if time_rank_keys(offsets, run) <= SMEM_OPTIN else "scratch"
+    return offsets, run, store
+
+
 def time_route(offsets: tuple) -> str:
     """K1's kernel for ``offsets``: the 'register' network up to
     REGISTER_TAPS taps, the 'rank' route above."""
@@ -294,9 +356,9 @@ def tap_median_time(
     float32 or bfloat16, which the output takes; ``fill`` is rounded to
     it. Offsets: odd count up to MAX_TIME_TAPS, duplicates allowed.
     """
-    offsets = tuple(int(o) for o in offsets)
+    offsets = _int_offsets(offsets if isinstance(offsets, tuple) else tuple(offsets))
     k = len(offsets)
-    _check_k(k, MAX_TIME_TAPS, "K1's tap cap")
+    _check_k(k, MAX_TIME_TAPS, "one output row's taps fill a slice of the rank key store")
     _check_dtype(a, b)
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-1]:
         raise ZenError(f"tap_median_time: shapes {a.shape} and {b.shape}")
@@ -309,20 +371,27 @@ def tap_median_time(
     route = time_route(offsets)
     out = _time_launch(a, b, offsets, start, fill, route)
     if out.numel():
-        _count(tap_median_time, route)
+        store = _rank_args(offsets, start, ta + tb, None, a.device)[-1] if route == "rank" else None
+        _count(tap_median_time, route, store)
     return out
 
 
 tap_median_time.launches = 0
 tap_median_time.routes = dict.fromkeys(("register", "rank"), 0)
+tap_median_time.stores = dict.fromkeys(("shared", "scratch"), 0)
 
 
 def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0,
-                 run: int | None = None):
+                 run: int | None = None, chunk: int | None = None):
     """K1's ``route`` kernel on checked CUDA operands; counts nothing
     (chip_smoke also calls it to time the network kernel at each ``run``
     and the rank route of a ``cut`` build, ``_build.library``). ``run``
-    defaults to the wrapper's (``time_network_run``, ``time_rank_run``)."""
+    defaults to the wrapper's (``time_network_run``, ``time_rank_run``).
+    ``chunk`` runs the rank route on the key store with that many keys
+    sorted in shared memory at once, whatever the keys (the card tests
+    drive its passes over device memory at small K so); by default the
+    store takes the keys ``time_rank_plan`` sends it, RANK_STORE_CHUNK at
+    once."""
     ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
     lead = a.shape[:-2]
     t_out = ta + tb - start
@@ -331,17 +400,20 @@ def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut:
         return out
     lib = _build.library(cut)
     k = len(offsets)
+    tail = ()
     if route == "register":
         entry = _entry(lib, "zen_tap_median_time_network", a.dtype)
         taps = _network_args(
             offsets, run or time_network_run(t_out, math.prod(lead), f, offsets))
     elif route == "rank":
+        plan, lo, span, staged, run, store = _rank_args(offsets, start, ta + tb, run, a.device)
+        taps = (plan.data_ptr(), lo, span, staged, run)
         entry = _entry(lib, "zen_tap_median_time_rank", a.dtype)
-        offsets = time_rank_offsets(offsets, start, ta + tb)
-        lo, span, _ = time_rank_table(offsets)
-        run = min(t_out, run or time_rank_run(offsets))
-        plan = _device_plan(offsets, run, a.device)
-        taps = (plan.data_ptr(), lo, span, len(time_rank_rows(offsets, run)), run)
+        if chunk or store == "scratch":
+            entry = _entry(lib, "zen_tap_median_time_rank_store", a.dtype)
+            units = math.prod(lead) * -(-t_out // run) * f
+            scratch, blocks, keys = rank_store_args(units, staged, a.device)
+            tail = (scratch.data_ptr(), blocks, keys, chunk or RANK_STORE_CHUNK)
     else:
         raise ZenError(f"tap_median_time has no route {route!r}")
     err = _launch(
@@ -359,6 +431,7 @@ def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut:
         *taps,
         k,
         _in_dtype(fill, a.dtype),
+        *tail,
     )
     _build.check(err, f"tap_median_time ({route})")
     return out
@@ -373,12 +446,19 @@ def _in_dtype(v: float, dtype: torch.dtype) -> float:
 
 
 @functools.lru_cache(maxsize=32)
-def _device_plan(offsets: tuple, run: int, device: torch.device) -> torch.Tensor:
-    """K1's rank-route table (``time_rank_table``) and staged rows
-    (``time_rank_rows``) as one int32 buffer on ``device``, uploaded once
-    per (offsets, run, device)."""
-    plan = time_rank_table(offsets)[2] + time_rank_rows(offsets, run)
-    return torch.tensor(plan, dtype=torch.int32, device=device)
+def _rank_args(offsets: tuple, start: int, t_v: int, run: int | None,
+               device: torch.device) -> tuple:
+    """(plan, min offset, span, staged rows, run, store) of K1's rank route
+    for a call (``time_rank_plan``), once per call shape: ``plan`` is the
+    table (``time_rank_table``) and the staged rows (``time_rank_rows``)
+    as one int32 buffer on ``device``. A wide tap set costs a hash of its
+    offsets a lookup, not a rebuilt plan."""
+    offsets, run, store = time_rank_plan(offsets, start, t_v, run)
+    lo, span, table = time_rank_table(offsets)
+    rows = time_rank_rows(offsets, run)
+    # the table and the staged rows as one int32 buffer, uploaded once
+    plan = torch.tensor(table + rows, dtype=torch.int32, device=device)
+    return plan, lo, span, len(rows), run, store
 
 
 # ---------------- K2: frequency sliding median ----------------
@@ -387,9 +467,10 @@ def _device_plan(offsets: tuple, run: int, device: torch.device) -> torch.Tensor
 def sliding_median_boundary_plain(
     x: torch.Tensor, k: int, mode: str
 ) -> torch.Tensor:
-    """Plain twin of ``sliding_median_boundary``."""
+    """Plain twin of ``sliding_median_boundary``: in 'valid' mode only the
+    F - k + 1 outputs returned are computed."""
     if mode == "valid":
-        return sliding_median(x, range(k), -1, "zero")[..., : x.shape[-1] - k + 1]
+        return sliding_median(x, range(k), -1, "zero", stop=x.shape[-1] - k + 1)
     m = (k - 1) // 2
     return sliding_median(x, range(-m, m + 1), -1, _PLAIN_BOUNDARY[mode])
 
@@ -426,12 +507,16 @@ def freq_network_chunk(f_out: int) -> int:
 
 
 def freq_route(k: int) -> str:
-    """K2's kernel for width ``k``: 'rank' from FREQ_RANK_MIN_TAPS on
-    where its keys fit, 'network' below it up to FREQ_NETWORK_MAX_TAPS,
-    else 'count'."""
-    if k >= FREQ_RANK_MIN_TAPS and freq_rank_tile(k):
-        return "rank"
-    return "network" if k <= FREQ_NETWORK_MAX_TAPS else "count"
+    """K2's kernel for width ``k``: 'network' up to FREQ_NETWORK_MAX_TAPS,
+    'rank' from FREQ_RANK_MIN_TAPS on, at every K."""
+    return "rank" if k >= FREQ_RANK_MIN_TAPS else "network"
+
+
+def freq_rank_store(k: int) -> str:
+    """Where a block of K2's rank route keeps its keys at width ``k``:
+    'shared' where a tile's fit SMEM_OPTIN (``freq_rank_tile``), else
+    'scratch' (the key store; K past 16,353)."""
+    return "shared" if freq_rank_tile(k) else "scratch"
 
 
 def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
@@ -445,7 +530,7 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     """
     if mode not in FREQ_MODES:
         raise ZenError(f"unknown boundary mode: {mode}")
-    _check_k(k, MAX_FREQ_TAPS, "its 256 + K - 1 row segment fills 227 KB of shared memory")
+    _check_k(k, MAX_FREQ_TAPS, "a unit's segment fills a slice of the rank key store")
     _check_dtype(x)
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
@@ -457,37 +542,51 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     route = freq_route(k)
     out = _freq_launch(x, k, mode, route)
     if out.numel():
-        _count(sliding_median_boundary, route)
+        _count(sliding_median_boundary, route, freq_rank_store(k) if route == "rank" else None)
     return out
 
 
 sliding_median_boundary.launches = 0
-sliding_median_boundary.routes = dict.fromkeys(("network", "rank", "count"), 0)
+sliding_median_boundary.routes = dict.fromkeys(("network", "rank"), 0)
+sliding_median_boundary.stores = dict.fromkeys(("shared", "scratch"), 0)
 
 
 def _freq_launch(
-    x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0
+    x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """K2's ``route`` kernel on a checked CUDA operand; counts nothing
     (chip_smoke's sweeps also call it, for every route that takes ``k``
     and each rank ``tile``, and the rank route of a ``cut`` build,
-    ``_build.library``)."""
+    ``_build.library``). ``chunk`` runs the rank route on the key store
+    with that many keys sorted in shared memory at once, whatever K (the
+    card tests drive its passes over device memory at small K so); by
+    default the store takes the K ``freq_rank_store`` sends it,
+    RANK_STORE_CHUNK at once."""
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
     out = torch.empty(x.shape[:-1] + (f_out,), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    name, extra = "zen_sliding_median_boundary", ()
-    if route == "rank":
+    rows = math.prod(x.shape[:-1])
+    if route == "rank" and (chunk or not (tile or freq_rank_tile(k))):
+        units = rows * -(-f_out // RANK_STORE_THREADS)
+        scratch, blocks, keys = rank_store_args(units, min(RANK_STORE_THREADS, f_out) + k - 1,
+                                                x.device)
+        name = "zen_sliding_median_rank_store"
+        extra = (scratch.data_ptr(), blocks, keys, chunk or RANK_STORE_CHUNK)
+    elif route == "rank":
         name, extra = "zen_sliding_median_rank", (tile or freq_rank_tile(k),)
     elif route == "network":
-        name = "zen_sliding_median_network"
+        name, extra = "zen_sliding_median_network", ()
+    else:
+        raise ZenError(f"sliding_median_boundary has no route {route!r}")
     err = _launch(
         x,
         _entry(_build.library(cut), name, x.dtype),
         x.data_ptr(),
         out.data_ptr(),
-        math.prod(x.shape[:-1]),
+        rows,
         f_in,
         f_out,
         k,

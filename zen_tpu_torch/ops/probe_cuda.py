@@ -11,9 +11,11 @@ hunt times each median kernel beside a copy with the same access pattern
   K1's network kernel (``csrc/time_runs.cuh``, shared with K1);
 * ``segment_copy`` (#10): x [..., F] itself, read through the row-segment
   staging of the route K2 takes at width ``k`` (``freq_route``: the
-  network route's own-type values or the rank route's keys) and a
-  ``reflect``, ``wrap`` or ``edge`` border (``csrc/row_segment.cuh``,
-  shared with K2).
+  network route's own-type values or the rank route's keys in shared
+  memory) and a ``reflect``, ``wrap`` or ``edge`` border
+  (``csrc/row_segment.cuh``, shared with K2). It mirrors K2's shared
+  staging only: a width whose keys pass shared memory (K2's key store,
+  ``freq_rank_store``) is refused.
 
 The conventions are ``median_cuda.py``'s: float32 or bfloat16, the
 input's dtype out; a CPU tensor takes the ``_plain`` twin, a CUDA tensor
@@ -30,18 +32,22 @@ from ..errors import ZenError
 from . import _build
 from .median_cuda import (
     FREQ_MODES,
-    MAX_FREQ_TAPS,
     _check_cuda_operands,
     _check_dtype,
     _check_k,
     _entry,
     _launch,
+    freq_rank_store,
     freq_rank_tile,
     freq_route,
     time_fill_run,
 )
 
 SEGMENT_MODES = ("reflect", "wrap", "edge")
+# segment_copy's widths: the cap K2 had while its counting kernel staged a
+# 256 + K - 1 float segment in 227 KB of shared memory; past 16,353 taps
+# the mirror refuses anyway (K2's keys leave shared memory there)
+SEGMENT_COPY_MAX_TAPS = 57_857
 
 
 # ---------------- #9: rows_copy ----------------
@@ -94,15 +100,16 @@ def _check_segment(x: torch.Tensor, k: int, mode: str):
     network route."""
     if mode not in SEGMENT_MODES:
         raise ZenError(f"segment_copy takes a border of {SEGMENT_MODES}, got {mode!r}")
-    _check_k(k, MAX_FREQ_TAPS, "its 256 + K - 1 row segment fills 227 KB of shared memory")
+    _check_k(k, SEGMENT_COPY_MAX_TAPS, "segment_copy's own cap")
     _check_dtype(x)
     f = x.shape[-1] if x.dim() else 0
     if f < 1 or (mode == "reflect" and (k - 1) // 2 > f - 1):
         raise ZenError(f"median width {k} does not fit {f} samples ({mode})")
-    route = freq_route(k)
-    if route == "count":
+    if freq_route(k) == "network":
+        return None
+    if freq_rank_store(k) == "scratch":
         raise ZenError(f"segment_copy: the keys of width {k} do not fit a block's shared memory")
-    return freq_rank_tile(k) if route == "rank" else None
+    return freq_rank_tile(k)
 
 
 def segment_copy_plain(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:

@@ -30,8 +30,8 @@ the CPU the corpus of zen_tpu's smoke (fs 8000, hops 256 / 64, tracks of
 2.0 / 256 / 2.0), four tracks of 30-90 s and one of 150 s.
 
 Each worker has a timeout and prints one JSON line: its results, its
-median launches by route (all 0 on the CPU, where the wrappers run their
-plain twins), its wall and the wall of its cross-process gathers. The
+median launches by route and on the rank routes' key store (all 0 on the
+CPU, where the wrappers run their plain twins), its wall and the wall of its cross-process gathers. The
 CLI leg's processes are the command itself, whose launches nobody reads.
 Processes that share one card run by time slicing: the walls say nothing
 about scaling. The last line is a JSON report of every leg.
@@ -111,11 +111,16 @@ def make_corpus(corpus_dir: str, corpus: Corpus) -> list:
 
 
 def read_launches() -> dict:
-    """The median kernels' launches in this process by route, 'kernel/route'."""
+    """The median kernels' launches in this process by route, 'kernel/route',
+    and of the rank route's, those on its key store, 'kernel/rank@scratch'."""
     from ..ops import median_cuda as mc
 
-    return {f"{name}/{route}": n for name in ("tap_median_time", "sliding_median_boundary")
-            for route, n in getattr(mc, name).routes.items()}
+    counts = {}
+    for name in ("tap_median_time", "sliding_median_boundary"):
+        wrapper = getattr(mc, name)
+        counts.update({f"{name}/{route}": n for route, n in wrapper.routes.items()})
+        counts[f"{name}/rank@scratch"] = wrapper.stores["scratch"]
+    return counts
 
 
 def separate(corpus_dir: str, out_dir: str, device: str, dp: int, sp: int, long_cut: bool,
