@@ -117,12 +117,16 @@ entry points at full width:
   phase 28 tools/feed_wav_realtime on 2.5 s at wall-clock rate;
   phase 29 tools/ab_reference against the port's own strict-ref stems
            (passes) and with a corrupted stem (fails);
-  phase 30 the multi-process corpus on this card (tools/multihost_smoke.py):
-           2 and 3 processes sharing the card over the global mesh dp = N
-           x sp = 2 (five tracks, the last routed long), every stem
-           byte-equal to one process on the same mesh, a SIGKILL before the
+  phase 30 the multi-process paths on this card (tools/multihost_smoke.py):
+           2 and 3 processes sharing the card, every process byte-equal to
+           one process on the same global mesh: the corpus over dp = N x
+           sp = 2 (five tracks, the last routed long), a SIGKILL before the
            last track and a resume, `python -m zen_tpu_torch corpus --nprocs
-           2`, and the pipelined cascade given the card twice;
+           2`; `zen-torch corpus --mesh sp=N --nprocs N` (one sp ring cut
+           across the processes, its halos over gloo) killed and resumed;
+           tp_hpri_offline at tp 2 and 4 over 2 processes (configs[0]);
+           MultiStreamHPR 64 x hop 256 over dp = 2; and the pipelined
+           cascade given the card twice;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -681,9 +685,10 @@ def kernel_cases():
 
 def phase_kernels() -> dict:
     """Each route against its plain twin, bitwise, with its device time,
-    the twin's, the library call's and the bound; then the kernels alone
-    at a 4-minute track's offline shapes, where the twin would not fit the
-    card (15.8 GB for pass 1)."""
+    the twin's, the library call's and the bound; then the kernels at a
+    4-minute track's offline shapes, against their twins (which gather in
+    chunks of 2^24 taps, so pass 1's 15.8 GB of taps never lie on the card
+    at once), timed over fewer runs."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     stats = {}
@@ -714,26 +719,33 @@ def phase_kernels() -> dict:
     feats2 = _mags(rng, 1, TRACK_FRAMES_P, 513)
     feats1 = _mags(rng, TRACK_FRAMES_H, 8193)
     centered = tuple(range(-5, 6))
-    for name, tpu, label, fn, library, (b_us, b_by), route in (
+    for name, tpu, label, fn, plain, library, (b_us, b_by), route in (
         ("tap_median_time", "#3", f"track pass 2 T={TRACK_FRAMES_P} F=513 K=11",
          lambda: mc.tap_median_time(feats2, feats2[:, :0], centered, 0),
+         lambda: mc.tap_median_time_plain(feats2, feats2[:, :0], centered, 0),
          lambda: time_library(feats2, feats2[:, :0], centered, 0),
          time_bound(feats2, feats2[:, :0], centered, 0), mc.time_route(centered)),
         ("sliding_median_boundary", "#6", f"track pass 1 R={TRACK_FRAMES_H} F=8193 K=187",
          lambda: mc.sliding_median_boundary(feats1, 187, "reflect"),
+         lambda: mc.sliding_median_boundary_plain(feats1, 187, "reflect"),
          lambda: freq_library(feats1, 187, "reflect"),
          freq_bound(feats1, 187, "reflect"), mc.freq_route(187)),
     ):
+        got, want = fn(), plain()
+        err = float((got - want).abs().max())
+        require(torch.equal(got, want), f"{name} {label}: max |diff| {err}")
+        del got, want
         us = median_us(fn, runs=5, warmup=1)
+        p_us = median_us(plain, runs=3, warmup=0)
         kind, build = library()
         l_us = median_us(build, runs=3, warmup=1)
         del build
         torch.cuda.empty_cache()
-        print(f"phase 3 {name}/{route} ({tpu}) {label}: kernel {us:.2f} us (median of 5; "
-              f"no twin), kthvalue {l_us:.2f} us ({kind}, median of 3), bound {b_us:.2f} us "
-              f"({b_by})")
+        print(f"phase 3 {name}/{route} ({tpu}) {label}: bitwise equal, kernel {us:.2f} us "
+              f"(median of 5), plain {p_us:.2f} us (median of 3), kthvalue {l_us:.2f} us "
+              f"({kind}, median of 3), bound {b_us:.2f} us ({b_by})")
         stats[(name, route)]["shapes"].append({
-            "tpu_kernel": tpu, "shape": label, "ms": us / 1e3, "plain_ms": None,
+            "tpu_kernel": tpu, "shape": label, "ms": us / 1e3, "plain_ms": p_us / 1e3,
             "library_ms": l_us / 1e3, "library": kind, "bound_ms": b_us / 1e3,
             "bound_by": b_by})
     return stats
@@ -2678,11 +2690,11 @@ def tp_pass(audio, cfg, mesh) -> tuple:
     from zen_tpu_torch.drivers.offline import _n_frames
     from zen_tpu_torch.parallel import sharded as tsh
 
-    devs = [mesh.device(tp=t) for t in range(mesh.size("tp"))]
+    shards = tsh._ring(mesh, "tp", wrap=True)
     n_frames = _n_frames(audio.shape[-1], cfg)
     with tsh._tf32_off():
-        spectra, masks, inverse = tsh._tp_masks(audio, cfg, devs, n_frames)
-        out = tsh._tp_stems(spectra, masks, inverse, cfg, devs, n_frames)
+        spectra, masks, inverse = tsh._tp_masks(audio, cfg, shards, n_frames)
+        out = tsh._tp_stems(spectra, masks, inverse, cfg, shards, n_frames)
     stems = {name: out[i, : audio.shape[-1]] for i, name in enumerate(tsh.STEMS)}
     return stems, tuple(torch.cat([m[i] for m in masks], dim=-1) for i in (0, 1))
 
@@ -3262,48 +3274,95 @@ def phase_live_tools(smi: str) -> dict:
 # ---------------- the multi-process corpus ----------------
 
 
-def mesh_corpus_launches(items, dp: int, sp: int, procs: int, long_cut: int | None) -> dict:
-    """The median launches, summed over ``procs`` processes, of
+def mesh_corpus_launches(items, dp: int, sp: int, procs: int, long_cut: int | None,
+                         long_passes: int = 2) -> list:
+    """The median launches of each of ``procs`` processes running
     separate_corpus over ``items`` on the global mesh dp x sp, the long
-    threshold ``long_cut`` x sp (None: the default): each batch is one
-    sharded_hpri_offline, whose dp x sp shards (each process its own) run
-    one K1 and one K2 a pass; a long track at sp > 1 is each process's
-    sharded blocked scan (every block of its ring, and the block before
-    each span but the first), at sp = 1 process 0's process_blocked."""
+    threshold ``long_cut`` x sp (None: the default), counted from the
+    shapes: each batch is one sharded_hpri_offline, whose dp x sp shards
+    (each process its own) run one K1 and one K2 a pass; a long track at
+    sp > 1 is the sharded blocked scan, each process scanning the ring
+    positions it owns (make_mesh's block: process p's at unravel_index(p,
+    (gcd(procs, dp), procs / gcd))), every block of each and the block
+    before each span but the first; at sp = 1 process 0's process_blocked.
+    ``long_passes`` 1: a long track's pass 1 resumed whole from its
+    checkpoint (one segment), pass 2 run."""
     from zen_tpu_torch.drivers.offline import _Blocking
     from zen_tpu_torch.parallel import sharded as tsh
 
-    counts = dict.fromkeys(read_launches(), 0)
+    per = [dict.fromkeys(read_launches(), 0) for _ in range(procs)]
+    dcn_dp = math.gcd(procs, dp)
+    dcn_sp = procs // dcn_dp
     batches, long_tracks = corpus_plan(items, dp, None if long_cut is None else long_cut * sp)
     for batch in batches:
         sep = corpus_separator(batch[0][1])
         for cfg in (sep.cfg_h, sep.cfg_p):
-            add_pass(counts, cfg, dp * sp)
+            for counts in per:
+                add_pass(counts, cfg, dp * sp // procs)
     for _, fs, n in long_tracks:
         sep = corpus_separator(fs)
-        for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192)):
+        for cfg, bf in ((sep.cfg_h, 512), (sep.cfg_p, 8192))[2 - long_passes:]:
             if sp > 1:
                 _, nbl = tsh._sharded_blocking(n, cfg, bf, sp)
-                add_pass(counts, cfg, procs * (sp * nbl + sp - 1))
+                span = sp // dcn_sp
+                for p, counts in enumerate(per):
+                    own = range(p % dcn_sp * span, (p % dcn_sp + 1) * span)
+                    add_pass(counts, cfg, sum(nbl + (d > 0) for d in own))
             else:
-                add_pass(counts, cfg, _Blocking.of(n, cfg, bf).n_blocks)
-    return counts
+                add_pass(per[0], cfg, _Blocking.of(n, cfg, bf).n_blocks)
+    return per
+
+
+def tp_leg_launches(procs: int) -> list:
+    """Each process's median launches in the tp leg: tp_hpri_offline at tp
+    2 and 4 over ``procs`` processes, one K1 and one K2 a pass on each
+    shard a process owns."""
+    from zen_tpu_torch import HPRIOffline
+    from zen_tpu_torch.tools import multihost_smoke as mh
+
+    r = mh.rings_of(DEVICE)
+    sep = HPRIOffline(r.fs, r.hop_h, r.hop_p, r.beta, r.beta, fast_rfft=False, device="cpu")
+    per = [no_launches() for _ in range(procs)]
+    for counts in per:
+        for cfg in (sep.cfg_h, sep.cfg_p):
+            add_pass(counts, cfg, (2 + 4) // procs)
+    return per
+
+
+def fleet_leg_launches(procs: int, n_dp: int) -> list:
+    """Each process's median launches in the fleet leg: MultiStreamHPR over
+    {"dp": n_dp}, one K1 and one K2 a step on each of its shards."""
+    from zen_tpu_torch import MultiStreamHPR
+    from zen_tpu_torch.tools import multihost_smoke as mh
+
+    r = mh.rings_of(DEVICE)
+    cfg = MultiStreamHPR(r.streams, r.fleet_fs, r.hop, device="cpu").cfg
+    return [add_pass(no_launches(), cfg, n_dp // procs * r.steps) for _ in range(procs)]
 
 
 def phase_multihost(smi: str) -> dict:
-    """The multi-process corpus on this one card (tools/multihost_smoke.py
+    """The multi-process paths on this one card (tools/multihost_smoke.py
     --device cuda, in-process as its orchestrator; the workers are
     processes sharing the card by time slicing, so their walls say nothing
     about scaling): the corpus command's defaults (44.1 kHz,
-    4096/2.0/256/2.0), four tracks of 30-90 s and one of 150 s routed long
-    by the workers' lowered LONG_TRACK_SAMPLES (60 s x sp), over the
-    global mesh dp = N x sp = 2, N = 2 and 3. Every leg's stems byte-equal
-    to the golden single-process run's (this process on the same mesh of
-    the card repeated); at N = 2 the fleet SIGKILLed before the last track
-    and resumed, and `python -m zen_tpu_torch corpus --nprocs 2` against
-    the golden dp = 2 x 1 run. Launches summed over each leg's processes
-    equal the count from the shapes (the killed run's and the CLI's
-    processes report none). Then `zen-torch corpus --pp` and
+    4096/2.0/256/2.0), four tracks of 10-30 s and one of 50 s routed long
+    by the workers' lowered LONG_TRACK_SAMPLES. N = 2: the corpus over
+    dp = N x sp = 2 (each ring inside a process), killed before the last
+    track and resumed, `python -m zen_tpu_torch corpus --nprocs 2` against
+    the golden dp = 2 x 1 run; the sp leg (`zen-torch corpus --mesh sp=N
+    --nprocs N`: one ring cut across the processes, the long track's
+    blocked scan too), then killed before the long track's pass 2 and
+    resumed (sp_resume);
+    the tp leg (tp_hpri_offline at BASELINE.json configs[0] on the
+    161,571-sample clip, tp 2 and 4 over 2 processes); the fleet leg
+    (MultiStreamHPR 64 streams x hop 256, B=32, over dp = 2). N = 3: the
+    dp x sp corpus and the sp leg. Every process's stems and rows
+    byte-equal to the golden single-process run's (this process on the
+    same global mesh of the card repeated); every process's launches
+    equal its count from the shapes (the CLI leg's processes report
+    none). Each leg's wall, each process's exchanges (bytes sent and
+    seconds waited: halos, ordered sums, gathers, agreements) and
+    launches by kernel are printed. Then `zen-torch corpus --pp` and
     separate_corpus(pp=True) on a dp = 2 mesh of the card (the pipeline
     given the card twice) on the short tracks: byte-equal stems."""
     import shutil
@@ -3314,8 +3373,8 @@ def phase_multihost(smi: str) -> dict:
     from zen_tpu_torch.tools import multihost_smoke as mh
 
     total, counted = launch_ledger()
-    cut = mh.corpus_of(DEVICE).long_cut
-    for n, legs in ((2, "run,resume,cli"), (3, "run")):
+    corpus = mh.corpus_of(DEVICE)
+    for n, legs in ((2, "run,resume,cli,sp,sp_resume,tp,fleet"), (3, "run,sp")):
         args = mh.parse(["--device", DEVICE, "--nprocs", str(n), "--legs", legs,
                          "--timeout", "300"])
         (ROOT / "build").mkdir(exist_ok=True)
@@ -3329,27 +3388,38 @@ def phase_multihost(smi: str) -> dict:
                 fs, audio = read_audio_mono(p)
                 items.append((p, fs, len(audio)))
             done = report["legs"].get("resume", {}).get("done_before", 0)
-            want = {"golden": mesh_corpus_launches(items, n, 2, 1, cut),
-                    "run": mesh_corpus_launches(items, n, 2, n, cut),
-                    "resume": mesh_corpus_launches(items[done:], n, 2, n, cut),
-                    "cli_golden": mesh_corpus_launches(items, n, 1, 1, None)}
+            sp_done = report["legs"].get("sp_resume", {}).get("done_before", 0)
+            cut2, cut_n = mh.long_cut(corpus, 2), mh.long_cut(corpus, n)
+            want = {"golden": mesh_corpus_launches(items, n, 2, 1, cut2),
+                    "run": mesh_corpus_launches(items, n, 2, n, cut2),
+                    "resume": mesh_corpus_launches(items[done:], n, 2, n, cut2),
+                    "cli_golden": mesh_corpus_launches(items, n, 1, 1, None),
+                    "sp_golden": mesh_corpus_launches(items, 1, n, 1, cut_n),
+                    "sp": mesh_corpus_launches(items, 1, n, n, cut_n),
+                    "sp_resume": mesh_corpus_launches(items[sp_done:], 1, n, n, cut_n, 1),
+                    "tp_golden": tp_leg_launches(1), "tp": tp_leg_launches(2),
+                    "fleet_golden": fleet_leg_launches(1, n), "fleet": fleet_leg_launches(n, n)}
             for name, leg in report["legs"].items():
                 if name == "cli":
                     continue  # the command's processes: launches nobody reads
-                require(leg["launches"] == want[name],
-                        f"multihost N={n} {name}: launches {nonzero(leg['launches'])}, counted "
-                        f"from the shapes {nonzero(want[name])}")
-                for k in total:
-                    total[k] += leg["launches"][k]
-                walls = ", ".join(f"{w['wall_s']:.2f}" for w in leg["workers"])
-                gathers = ", ".join(f"{w['gather_s']:.3f}" for w in leg["workers"])
+                for w in leg["workers"]:
+                    got, counts = w["launches"], want[name][w["worker"]]
+                    require(got == counts, f"multihost N={n} {name} process {w['worker']}: "
+                            f"launches {nonzero(got)}, counted from the shapes {nonzero(counts)}")
+                    for k in total:
+                        total[k] += got[k]
+                per = "; ".join(f"process {w['worker']}: {w['wall_s']:.2f} s, exchanges "
+                                f"[{mh.traffic_line(w['traffic']) or 'none'}], launches "
+                                f"{per_kernel(w['launches'])}" for w in leg["workers"])
                 print(f"phase 30 multihost N={n} {name}: {leg['wall_s']:.2f} s "
-                      f"({'this process' if 'golden' in name else f'{n} processes'}; separate_corpus "
-                      f"walls [{walls}] s, their gathers [{gathers}] s); "
-                      f"launches {nonzero(leg['launches'])}, as counted from the shapes [{smi}]")
+                      f"({'this process' if 'golden' in name else 'the processes'}); {per}; "
+                      f"as counted from the shapes [{smi}]")
             run = report["legs"]["run"]
             require(all(w["owners"] == [[i] for i in range(n)] for w in run["workers"]),
                     f"an sp ring spans processes: {[w['owners'] for w in run['workers']]}")
+            lines = report["legs"]["sp"]["mesh_lines"]
+            require(all(f"mesh {{'sp': {n}, 'dp': 1}}" in line for line in lines) and
+                    len(lines) == n, f"sp leg's mesh lines {lines}")
             extra = ""
             if "resume" in report["legs"]:
                 extra = (f"; killed after {done} journaled tracks (before the last), resumed: "
@@ -3357,20 +3427,26 @@ def phase_multihost(smi: str) -> dict:
                          f"`python -m zen_tpu_torch corpus --nprocs {n}`: "
                          f"{report['legs']['cli']['wall_s']:.2f} s, byte-equal to the dp={n} x 1 "
                          "golden run")
+            if "tp" in report["legs"]:
+                extra += ("; tp 2 and tp 4 over 2 processes and the dp=2 fleet (a reset "
+                          "across the split): every process byte-equal")
+            if "sp_resume" in report["legs"]:
+                extra += (f"; `--mesh sp={n}` killed after {sp_done} journaled tracks and "
+                          "resumed, byte-equal")
             print(f"phase 30 multihost N={n}: {report['tracks']} tracks, every stem byte-equal to "
-                  f"the golden run's; no sp ring across processes{extra} [{smi}]")
+                  f"the golden run's; no sp ring across processes in the run legs; `--mesh "
+                  f"sp={n}` over {n} processes byte-equal{extra} [{smi}]")
             if n == 2:
                 short = paths[:4]
                 short_items = items[:4]
                 out_pp, out_pp2 = Path(work) / "pp", Path(work) / "pp2"
-                hops = mh.corpus_of(DEVICE)  # the corpus command's defaults on the card
                 _, wall_pp = counted(
                     lambda: zen_cli(["corpus", "-i", *short, "-o", out_pp, "--pp", "--hps",
-                                     hops.hop_h, 2.0, hops.hop_p, 2.0, "--device", DEVICE]),
+                                     corpus.hop_h, 2.0, corpus.hop_p, 2.0, "--device", DEVICE]),
                     corpus_launches(short_items), "corpus --pp")
                 res, wall_pp2 = counted(
                     lambda: separate_corpus(short, str(out_pp2), card_mesh({"dp": 2}), pp=True,
-                                            hop_h=hops.hop_h, hop_p=hops.hop_p),
+                                            hop_h=corpus.hop_h, hop_p=corpus.hop_p),
                     corpus_launches(short_items), "separate_corpus(pp, devices=[card, card])")
                 require(res == {"done": 0, "processed": 4}, f"pp on dp=2: {res}")
                 require(mh.stems(out_pp) == mh.stems(out_pp2),

@@ -1117,3 +1117,29 @@ def test_corpus_in_two_processes_on_the_card(cuda_device):
     workers = report["legs"]["run"]["workers"]
     assert [w["results"] for w in workers] == [{"done": 0, "processed": 5}] * 2
     assert all(sum(w["launches"].values()) > 0 for w in workers)
+
+
+def test_rings_across_two_processes_on_the_card(cuda_device):
+    """tools/multihost_smoke.py --device cuda --size cpu, two processes
+    sharing the card: one sp ring cut across them (`zen-torch corpus --mesh
+    sp=2 --nprocs 2`, the long track's blocked scan too, then killed before
+    its pass 2 and resumed) and the tp rings of tp_hpri_offline at tp 2 and
+    4, their halos and ordered sums over gloo: every process's stems
+    byte-equal to one process's run of the same global mesh (the smoke
+    raises otherwise), with the kernels launched on every process."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-m", "zen_tpu_torch.tools.multihost_smoke",
+                           "--device", "cuda", "--size", "cpu", "--nprocs", "2", "--legs",
+                           "sp,sp_resume,tp", "--timeout", "600"],
+                          cwd=root, capture_output=True, text=True, timeout=1200)
+    assert proc.returncode == 0, f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}"
+    legs = json.loads(proc.stdout.splitlines()[-1])["legs"]
+    for name, kind in (("sp", "halo"), ("sp_resume", "halo"), ("tp", "halo"), ("tp", "sum")):
+        for w in legs[name]["workers"]:
+            assert w["traffic"][kind]["bytes"] > 0, (name, kind, w["worker"])
+            assert sum(w["launches"].values()) > 0, (name, w["worker"])

@@ -1,21 +1,24 @@
-"""The port's multi-process corpus (zen_tpu_torch/parallel/mesh.py,
-multihost.py, the multi-process branches of sharded.py and corpus.py, and
-``zen-torch corpus --nprocs``) in real processes on the CPU, against
-zen_tpu.
+"""The port's multi-process paths (zen_tpu_torch/parallel/mesh.py,
+multihost.py, the multi-process branches of sharded.py, corpus.py and
+``MultiStreamHPR(mesh=)``, and ``zen-torch corpus --nprocs``) in real
+processes on the CPU, against zen_tpu.
 
 Each fleet is N python processes in one ``torch.distributed`` gloo group on
 localhost (a port from a socket bound to port 0), each with a timeout.
 Classes, each with its reason:
-* ``_split_dcn``, the meshes' owners, the refusals, journal lines and
-  result counts: equal to zen_tpu's (or to what its create_hybrid_device_mesh
-  guarantees: no sp ring across processes);
-* the N-process corpus (``tools/multihost_smoke.py --device cpu``) against
-  the port's single-process run of the same global mesh: byte for byte,
-  one arithmetic on each dp row;
-* that run against zen_tpu's ``separate_corpus`` in one process on its
-  forced-device CPU mesh of the same global shape (dp = N x sp = 2, the
-  long track included): 5e-5 x max(1, max|ref|) per stem on the raw stems
-  (tests/test_torch_corpus.py's class: only the FFTs round differently);
+* ``_split_dcn``, the meshes' owners, default_mesh, the refusals, journal
+  lines, mesh lines and result counts: equal to zen_tpu's (or to what its
+  create_hybrid_device_mesh lays out);
+* every N-process run (the corpus of ``tools/multihost_smoke.py --device
+  cpu``, the sp rings cut across processes, tp rings cut across them, the
+  fleet) against the port's single-process run of the same global mesh:
+  byte for byte, the halos and sums carrying the very bits one process
+  moves between its shards;
+* those runs against zen_tpu in one process on its forced-device CPU mesh
+  of the same global shape: 5e-5 x max(1, max|ref|) per stem for dp x sp,
+  the blocked scan, the corpus and the fleet (tests/test_torch_corpus.py's
+  class: only the FFTs round differently); 2e-4 x scale for tp
+  (tests/test_parallel.py's: partial-DFT matmuls against an FFT);
 * the checkpointed blocked scan resumed across processes, and the
   pipelined cascade given the CPU twice: bitwise to one process.
 """
@@ -35,10 +38,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import zen_tpu as J  # noqa: E402
 import zen_tpu.io.audio as jaudio  # noqa: E402
 from zen_tpu.drivers import corpus as jcorpus  # noqa: E402
 from zen_tpu.drivers import offline as joff  # noqa: E402
 from zen_tpu.parallel import mesh as jmesh  # noqa: E402
+from zen_tpu.parallel import sharded as jsh  # noqa: E402
 import zen_tpu_torch as T  # noqa: E402
 import zen_tpu_torch.io.audio as taudio  # noqa: E402
 from zen_tpu_torch.cli import main  # noqa: E402
@@ -55,6 +60,8 @@ pytestmark = pytest.mark.multihost
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 5e-5
+TP_RTOL = 2e-4
+STEMS = ("harmonic", "percussive", "residual")
 FLEET_TIMEOUT = 180  # seconds a fleet of this file may take
 CPU = smoke.CORPORA["cpu"]
 
@@ -130,12 +137,13 @@ MESHES = PRELUDE + """
 out = {"count": multihost.process_count(), "index": multihost.process_index()}
 mesh = m.make_mesh({"dp": n, "sp": 2}, device="cpu")
 out["owners"] = mesh.processes.tolist()
-out["local"] = [[mesh.is_local(dp=i, sp=j) for j in range(2)] for i in range(n)]
+out["local"] = [[mesh.owner(dp=i, sp=j) == rank for j in range(2)] for i in range(n)]
 out["first"] = m.make_mesh({"dp": n, "sp": 2}, devices=["cpu", "meta"]).first.type
 out["wide"] = m.make_mesh({"dp": 2 * n, "sp": 3}, device="cpu").processes.tolist()
 out["default"] = [m.default_mesh(hint, device="cpu").shape for hint in (0, 1, n, 5 * n)]
-out["refused"] = [refusal(lambda: m.make_mesh(axes, device="cpu"))
-                  for axes in ({"dp": 1, "sp": 2 * n}, {"sp": n}, {"tp": n}, {"dp": n + 1})]
+out["cut"] = [m.make_mesh(axes, device="cpu").processes.tolist()
+              for axes in ({"dp": 1, "sp": 2 * n}, {"sp": n}, {"tp": n})]
+out["refused"] = refusal(lambda: m.make_mesh({"dp": n + 1}, device="cpu"))
 out["count_refused"] = refusal(lambda: m.make_mesh({"dp": n, "sp": 2}, devices=["cpu"]))
 out["gathered"] = multihost.allgather(torch.full((1, 2), float(rank))).tolist()
 out["agreed"] = multihost.agree(7, "seven")
@@ -143,8 +151,10 @@ out["disagreed"] = refusal(lambda: multihost.agree(rank, "the rank"))
 cfg = T.HPRIOffline(1000, 16, 8, device="cpu").cfg_h
 tp = m.make_mesh({"dp": n, "tp": 2}, device="cpu")
 from zen_tpu_torch.parallel.sharded import tp_separate
-out["tp_refused"] = refusal(lambda: tp_separate(np.zeros(256, np.float32), cfg, tp))
-out["fleet_refused"] = refusal(lambda: T.MultiStreamHPR(2 * n, 1000, 16, device="cpu", mesh=tp))
+stems = tp_separate(np.zeros(256, np.float32), cfg, tp)
+out["tp_ran"] = {k: list(v.shape) for k, v in stems.items()}
+fleet = T.MultiStreamHPR(2 * n, 1000, 16, device="cpu", mesh=tp)
+out["fleet_slots"] = [fleet.slots.start, fleet.slots.stop, len(fleet.shards)]
 import os
 from zen_tpu_torch.drivers import offline
 from zen_tpu_torch.drivers.corpus import separate_corpus
@@ -155,21 +165,43 @@ offline.LONG_TRACK_SAMPLES = int(sys.argv[6])
 tracks = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
 sp1 = m.make_mesh({"dp": n, "sp": 1}, device="cpu")
 out["corpus"] = separate_corpus(tracks, out_dir, sp1, hop_h=256, hop_p=64)
+# the corpus command on one track without --mesh: default_mesh(1), one sp
+# ring across the processes; the command leaves the group at its end
+import contextlib, io
+from zen_tpu_torch.cli import main
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    out["cli_rc"] = main(["corpus", "-i", tracks[0], "-o", out_dir + "_cli", "--hps", "256", "2.0",
+                          "64", "2.0", "--device", "cpu", "--nprocs", str(n), "--coordinator",
+                          f"127.0.0.1:{port}", "--proc-id", str(rank)])
+out["cli_lines"] = printed.getvalue().splitlines()
 print(json.dumps(out))
 """
+
+
+def _zen_tpu_default_shapes(n, hints, monkeypatch) -> list:
+    """zen_tpu's default_mesh shapes over n devices (a run of n processes
+    of one device each sees n)."""
+    devices = jmesh.jax.devices()[:n]
+    with monkeypatch.context() as mp:
+        mp.setattr(jmesh.jax, "devices", lambda: devices)
+        return [dict(zip(jm.axis_names, jm.devices.shape))
+                for jm in (jmesh.default_mesh(h) for h in hints)]
 
 
 @pytest.mark.parametrize("n", [2, 3])
 def test_meshes_over_processes(n, tmp_path, monkeypatch):
     """make_mesh and default_mesh in an n-process gloo group on the CPU:
-    dp takes the process split in rank order (each process's block
-    contiguous, as create_hybrid_device_mesh lays it), every sp ring inside
-    one process; a split that would cut sp or tp refuses; the exchanges
-    gather in rank order and refuse a disagreement on every process;
-    tp, MultiStreamHPR and the corpus's pp refuse a mesh across processes.
-    At sp = 1 the lowered threshold routes both tracks of a two-track
-    corpus long: process 0 computes each, the others count it, and the
-    stems byte-match one process's run of the dp = n x 1 mesh."""
+    the leading axes take the process split in rank order (each process's
+    block contiguous, as create_hybrid_device_mesh lays it): dp where it
+    can, else sp or tp, whose rings then cross processes; default_mesh is
+    zen_tpu's over n devices; the exchanges gather in rank order and
+    refuse a disagreement on every process; tp and MultiStreamHPR run on
+    a dp x tp mesh whose split dp takes (each process its own row), and
+    the corpus's pp refuses a mesh across processes. At sp = 1 the
+    lowered threshold routes both tracks of a two-track corpus long:
+    process 0 computes each, the others count it, and the stems
+    byte-match one process's run of the dp = n x 1 mesh."""
     paths = smoke.make_corpus(str(tmp_path / "corpus"),
                               dataclasses.replace(CPU, seconds=CPU.seconds[:2]))
     outs = _fleet(MESHES, n, tmp_path / "corpus", tmp_path / "out", CPU.long_cut)
@@ -187,20 +219,25 @@ def test_meshes_over_processes(n, tmp_path, monkeypatch):
         assert out["owners"] == owners and out["wide"] == wide
         assert out["local"] == [[i == rank] * 2 for i in range(n)]
         assert out["first"] == "cpu"  # this process's own first entry
-        assert out["default"] == [{"dp": n, "sp": 1}] * 4
-        assert all(r and "across processes" in r for r in out["refused"][:3]), out["refused"]
-        assert out["refused"][3] == f"process count {n} does not factor into mesh axes ({n + 1},)"
+        assert out["default"] == _zen_tpu_default_shapes(n, (0, 1, n, 5 * n), monkeypatch)
+        assert out["default"] == [{"dp": 1, "sp": n}] * 2 + [{"dp": n, "sp": 1}] * 2
+        assert out["cut"] == [[[i // 2 for i in range(2 * n)]], list(range(n)), list(range(n))]
+        assert out["refused"] == f"process count {n} does not factor into mesh axes ({n + 1},)"
         assert out["count_refused"] == (f"mesh axes {{'dp': {n}, 'sp': 2}} need 2 devices in "
                                         f"each of {n} processes, got 1")
         assert out["gathered"] == [[float(r)] * 2 for r in range(n)]
         assert out["agreed"] == 7
         assert out["disagreed"] == ("the rank: disagreement across processes (per process: "
                                     f"{list(range(n))})")
-        assert out["tp_refused"] == "tp_separate: the mesh spans processes; tp runs in one process"
-        assert out["fleet_refused"] == ("MultiStreamHPR: the mesh spans processes; a fleet runs "
-                                        "in one process")
+        assert out["tp_ran"] == {k: [256] for k in STEMS}
+        assert out["fleet_slots"] == [2 * rank, 2 * rank + 2, 1]
         assert out["pp_refused"] == "corpus pp mode is single-host; pods should use dp/sp meshes"
         assert out["corpus"] == {"done": 0, "processed": 2}
+        assert out["cli_rc"] == 0
+        assert out["cli_lines"] == [
+            f"corpus: 1 tracks, mesh {_zen_tpu_default_shapes(n, (1,), monkeypatch)[0]}, "
+            f"out={tmp_path / 'out'}_cli",
+            json.dumps({"metric": "corpus_tracks", "done": 0, "processed": 1})]
 
 
 CHECKPOINTS = PRELUDE + """
@@ -268,6 +305,198 @@ def test_checkpointed_scan_over_processes(tmp_path):
     assert not os.path.exists(empty / "t.stems.f32")  # only process 0 writes
 
 
+# ---------------- rings and fleets across processes ----------------
+
+RINGS = PRELUDE + """
+from zen_tpu_torch.parallel import sharded as sh
+data = np.load(sys.argv[4])
+ckpt = sys.argv[5]
+audio, mono, lengths = data["audio"], data["mono"], data["lengths"].tolist()
+sep = T.HPRIOffline(1000, 16, 8, device="cpu")
+STEMS = ("harmonic", "percussive", "residual")
+
+def hexed(xs):
+    return [x.numpy().tobytes().hex() for x in xs]
+
+multihost.reset_traffic()
+mesh = m.make_mesh({"dp": 1, "sp": n}, device="cpu")
+out = {"owners": mesh.processes.tolist()}
+out["separate"] = hexed(sh.sharded_separate(audio, sep.cfg_h, mesh).values())
+out["hpri"] = hexed(sh.sharded_hpri_offline(audio, sep.cfg_h, sep.cfg_p, mesh, lengths=lengths))
+stems, masks = sh.sharded_pass_masks(audio, sep.cfg_h, mesh)
+out["masks"] = hexed([*stems.values(), *masks])
+out["blocked"] = hexed(sh.sharded_hpri_blocked(mono, sep.cfg_h, sep.cfg_p, mesh, block_frames_h=16,
+                                               block_frames_p=32))
+segments = []
+res = sh.sharded_separate_blocked_checkpointed(mono, sep.cfg_h, mesh, block_frames=16,
+                                               ckpt_dir=ckpt, tag="t", ckpt_every_blocks=1,
+                                               on_segment=lambda b, nbl: segments.append(b))
+out["resumed"] = {"segments": segments, "stems": hexed(res[k] for k in STEMS)}
+out["traffic"] = {k: dict(v) for k, v in multihost.traffic.items()}
+fleet = T.MultiStreamHPR(6, 1000, 8, device="cpu", mesh=m.make_mesh({"dp": n}, device="cpu"))
+per = 6 // n
+rows = [fleet.process_block(data["blocks"][0])]
+fleet.reset_streams([per - 1, per])  # across the split
+rows.append(fleet.process_block(data["blocks"][1]))
+out["fleet"] = {"slots": list(fleet.slots), "rows": hexed(rows)}
+if n == 2:
+    tsep = T.HPRIOffline(8000.0, 64, 16, fast_rfft=False, device="cpu")
+    out["tp"] = [hexed(sh.tp_hpri_offline(data["tp_audio"], tsep.cfg_h, tsep.cfg_p,
+                                          m.make_mesh(axes, device="cpu")))
+                 for axes in ({"tp": 2}, {"tp": 4}, {"dp": 2, "tp": 2})]
+print(json.dumps(out))
+"""
+TP_MESHES = ({"tp": 2}, {"tp": 4}, {"dp": 2, "tp": 2})
+_RINGS: dict = {}
+
+
+def _unhex(hexed: list, like: list) -> list:
+    return [np.frombuffer(bytes.fromhex(h), np.float32).reshape(tuple(x.shape))
+            for h, x in zip(hexed, like)]
+
+
+def _rings_data(seed: int = 11) -> dict:
+    rng = np.random.default_rng(seed)
+    audio = (rng.standard_normal((2, 600)) * 0.5).astype(np.float32)
+    audio[1, 410:] = 0.0
+    return {"audio": audio, "lengths": np.array([600, 410]),
+            "mono": (rng.standard_normal(3000) * 0.5).astype(np.float32),
+            "blocks": (rng.standard_normal((2, 6, 5, 8)) * 0.5).astype(np.float32),
+            "tp_audio": (rng.standard_normal(4000) * 0.5).astype(np.float32)}
+
+
+def _rings(n: int, tmp_path_factory) -> tuple:
+    """(the inputs, each process's report) of the RINGS fleet of n
+    processes, run once per n: its checkpointed scan resumes from a
+    checkpoint one process left after the first segment."""
+    if n not in _RINGS:
+        work = tmp_path_factory.mktemp(f"rings{n}")
+        data = _rings_data()
+        np.savez(work / "data.npz", **data)
+        cfg = T.HPRIOffline(1000, 16, 8, device="cpu").cfg_h
+
+        class Killed(Exception):
+            pass
+
+        def kill(b, nbl):
+            raise Killed
+
+        with pytest.raises(Killed):
+            tsh.sharded_separate_blocked_checkpointed(
+                data["mono"], cfg, tmesh.make_mesh({"dp": 1, "sp": n}, device="cpu"),
+                block_frames=16, ckpt_dir=str(work / "ckpt"), tag="t", ckpt_every_blocks=1,
+                on_segment=kill)
+        _RINGS[n] = data, _fleet(RINGS, n, work / "data.npz", work / "ckpt")
+    return _RINGS[n]
+
+
+def _scaled_close(got, want, what):
+    """Within 5e-5 x max(1, max|want|)."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=ATOL, err_msg=what)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_sp_rings_over_processes_match_one_process_and_zen_tpu(n, tmp_path_factory):
+    """{"dp": 1, "sp": n} over n processes, one sp shard each, so every
+    halo of every pass crosses a process: sharded_separate,
+    sharded_hpri_offline(lengths=), sharded_pass_masks, the two-pass
+    blocked scan and the checkpointed scan resumed after its first durable
+    segment, each bitwise to one process's run of the same global mesh on
+    every process, and within 5e-5 x max(1, max|ref|) of zen_tpu's sharded
+    drivers on its forced-device CPU mesh of the same shape."""
+    data, outs = _rings(n, tmp_path_factory)
+    audio, mono, lengths = data["audio"], data["mono"], data["lengths"].tolist()
+    sep = T.HPRIOffline(1000, 16, 8, device="cpu")
+    jsep = J.HPRIOffline(1000, 16, 8, 2.0, 2.0, median_impl="xla", fft_impl="xla")
+    mesh = tmesh.make_mesh({"dp": 1, "sp": n}, device="cpu")
+    jm = jmesh.make_mesh({"dp": 1, "sp": n})
+    stems, masks = tsh.sharded_pass_masks(audio, sep.cfg_h, mesh)
+    want = {
+        "separate": list(tsh.sharded_separate(audio, sep.cfg_h, mesh).values()),
+        "hpri": list(tsh.sharded_hpri_offline(audio, sep.cfg_h, sep.cfg_p, mesh,
+                                              lengths=lengths)),
+        "masks": [*stems.values(), *masks],
+        "blocked": list(tsh.sharded_hpri_blocked(mono, sep.cfg_h, sep.cfg_p, mesh,
+                                                 block_frames_h=16, block_frames_p=32)),
+    }
+    blocked1 = tsh.sharded_separate_blocked(mono, sep.cfg_h, mesh, block_frames=16)
+    want["resumed"] = [blocked1[k] for k in STEMS]
+    ref = {
+        "separate": [jsh.sharded_separate(audio, jsep.cfg_h, jm)[k] for k in STEMS],
+        "hpri": jsh.sharded_hpri_offline(audio, jsep.cfg_h, jsep.cfg_p, jm, lengths=lengths),
+        "blocked": jsh.sharded_hpri_blocked(mono, jsep.cfg_h, jsep.cfg_p, jm,
+                                            block_frames_h=16, block_frames_p=32),
+    }
+    ref["resumed"] = [jsh.sharded_separate_blocked(mono, jsep.cfg_h, jm, block_frames=16)[k]
+                      for k in STEMS]
+    _, nbl = tsh._sharded_blocking(len(mono), sep.cfg_h, 16, n)
+    for rank, out in enumerate(outs):
+        assert out["owners"] == [list(range(n))]
+        assert out["resumed"]["segments"] == list(range(2, nbl + 1))
+        assert out["traffic"]["halo"]["bytes"] > 0 and out["traffic"]["gather"]["bytes"] > 0
+        for key, tensors in want.items():
+            got = out[key]["stems"] if key == "resumed" else out[key]
+            for i, (g, w) in enumerate(zip(_unhex(got, tensors), tensors)):
+                assert g.tobytes() == w.numpy().tobytes(), (rank, key, i)
+                if key in ref:
+                    _scaled_close(g, np.asarray(ref[key][i]), f"{key} {i} vs zen_tpu")
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_fleet_over_processes_matches_one_process_and_zen_tpu(n, tmp_path_factory):
+    """MultiStreamHPR(6 streams, mesh={"dp": n}) over n processes: each
+    process steps its own rows (``slots``), bitwise to those rows of one
+    process's fleet over the same global mesh, before and after a
+    reset_streams whose slots straddle two processes; and within 5e-5 x
+    scale of zen_tpu's fleet sharded over make_mesh({"dp": n})."""
+    data, outs = _rings(n, tmp_path_factory)
+    one = T.MultiStreamHPR(6, 1000, 8, mesh=tmesh.make_mesh({"dp": n}, device="cpu"))
+    jms = J.MultiStreamHPR(6, 1000, 8, mesh=jmesh.make_mesh({"dp": n}), median_impl="xla",
+                           fft_impl="xla")
+    per = 6 // n
+    want, ref = [], []
+    for i, blk in enumerate(data["blocks"]):
+        if i == 1:
+            one.reset_streams([per - 1, per])
+            jms.reset_streams([per - 1, per])
+        want.append(one.process_block(blk))
+        ref.append(np.asarray(jms.process_block(blk)))
+    for rank, out in enumerate(outs):
+        slots = list(range(rank * per, (rank + 1) * per))
+        assert out["fleet"]["slots"] == slots
+        rows = [w[slots[0] : slots[-1] + 1] for w in want]
+        for step, (g, w, r) in enumerate(zip(_unhex(out["fleet"]["rows"], rows), rows, ref)):
+            assert g.tobytes() == w.numpy().tobytes(), (rank, step)
+            _scaled_close(g, r[slots[0] : slots[-1] + 1], f"process {rank} step {step}")
+
+
+def test_tp_rings_over_processes_match_one_process_and_zen_tpu(tmp_path_factory):
+    """tp_hpri_offline over 2 processes at {"tp": 2} (a shard each: both
+    ring edges cut), {"tp": 4} (two shards each, two cut edges) and
+    {"dp": 2, "tp": 2} (each process its own row's ring, no exchange):
+    on every process bitwise to one process's run of the same global
+    mesh (the halos and the ordered sum of the partial inverses), and
+    within 2e-4 x scale of zen_tpu's tp_hpri_offline
+    (tests/test_parallel.py's class)."""
+    data, outs = _rings(2, tmp_path_factory)
+    tsep = T.HPRIOffline(8000.0, 64, 16, fast_rfft=False, device="cpu")
+    jsep = J.HPRIOffline(8000.0, 64, 16, 2.0, 2.0, median_impl="xla", fft_impl="xla")
+    jcfgs = [dataclasses.replace(c, fast_rfft=False) for c in (jsep.cfg_h, jsep.cfg_p)]
+    for j, axes in enumerate(TP_MESHES):
+        want = tsh.tp_hpri_offline(data["tp_audio"], tsep.cfg_h, tsep.cfg_p,
+                                   tmesh.make_mesh(axes, device="cpu"))
+        ref = jsh.tp_hpri_offline(data["tp_audio"], *jcfgs, jmesh.make_mesh(axes))
+        for rank, out in enumerate(outs):
+            for i, (g, w, r) in enumerate(zip(_unhex(out["tp"][j], want), want, ref)):
+                assert g.tobytes() == w.numpy().tobytes(), (axes, rank, i)
+                r = np.asarray(r)
+                scale = max(np.abs(r).max(), 1e-3)
+                np.testing.assert_allclose(g, r, rtol=TP_RTOL, atol=TP_RTOL * scale,
+                                           err_msg=f"{axes} stem {i} vs zen_tpu")
+
+
 # ---------------- the corpus: tools/multihost_smoke.py ----------------
 
 
@@ -280,11 +509,11 @@ def _smoke(work: Path, n: int, legs: str) -> dict:
     return json.loads(proc.stdout.splitlines()[-1])
 
 
-def _port_corpus(paths, out_dir, n, monkeypatch) -> tuple:
+def _port_corpus(paths, out_dir, n, monkeypatch, sp=2) -> tuple:
     """The port's corpus in this process over the CPU mesh dp = n x sp, the
     long track routed as the smoke's workers route it: (results, {stem file
     name: raw stem}); the stems also written as the default writer would."""
-    monkeypatch.setattr(toff, "LONG_TRACK_SAMPLES", CPU.long_cut)
+    monkeypatch.setattr(toff, "LONG_TRACK_SAMPLES", smoke.long_cut(CPU, sp))
     monkeypatch.setattr(taudio, "peak_normalize", lambda x: x)
     raw = {}
 
@@ -292,19 +521,19 @@ def _port_corpus(paths, out_dir, n, monkeypatch) -> tuple:
         raw[os.path.basename(path)] = np.array(a, np.float32)
         write_audio_pcm16(path, fs, peak_normalize(np.asarray(a)))
 
-    res = tcorpus.separate_corpus(paths, str(out_dir), tmesh.make_mesh({"dp": n, "sp": 2},
+    res = tcorpus.separate_corpus(paths, str(out_dir), tmesh.make_mesh({"dp": n, "sp": sp},
                                                                        device="cpu"),
                                   hop_h=CPU.hop_h, hop_p=CPU.hop_p, writer=writer)
     monkeypatch.undo()
     return res, raw
 
 
-def _zen_tpu_corpus(paths, out_dir, n, monkeypatch) -> tuple:
-    monkeypatch.setattr(joff, "LONG_TRACK_SAMPLES", CPU.long_cut)
+def _zen_tpu_corpus(paths, out_dir, n, monkeypatch, sp=2) -> tuple:
+    monkeypatch.setattr(joff, "LONG_TRACK_SAMPLES", smoke.long_cut(CPU, sp))
     monkeypatch.setattr(jaudio, "peak_normalize", lambda x: x)
     raw = {}
     res = jcorpus.separate_corpus(
-        paths, str(out_dir), jmesh.make_mesh({"dp": n, "sp": 2}), hop_h=CPU.hop_h,
+        paths, str(out_dir), jmesh.make_mesh({"dp": n, "sp": sp}), hop_h=CPU.hop_h,
         hop_p=CPU.hop_p, writer=lambda p, fs, a: raw.__setitem__(os.path.basename(p),
                                                                   np.array(a, np.float32)))
     monkeypatch.undo()
@@ -331,11 +560,7 @@ def test_corpus_over_processes_matches_one_process_and_zen_tpu(tmp_path, monkeyp
     assert smoke.stems(tmp_path / "here") == smoke.stems(tmp_path / "golden")
     res_j, raw_j = _zen_tpu_corpus(paths, tmp_path / "jax", n, monkeypatch)
     assert res_t == res_j == {"done": 0, "processed": 5}
-    assert raw_t.keys() == raw_j.keys() and len(raw_t) == 15
-    for name, want in raw_j.items():
-        scale = max(1.0, float(np.abs(want).max()))
-        np.testing.assert_allclose(raw_t[name] / scale, want / scale, rtol=0, atol=ATOL,
-                                   err_msg=name)
+    _raw_close(raw_t, raw_j)
     journal = _journal(tmp_path / "jax")
     legs_run = report["legs"]
     assert legs_run["run"]["journal"] == journal
@@ -348,6 +573,41 @@ def test_corpus_over_processes_matches_one_process_and_zen_tpu(tmp_path, monkeyp
         assert resume["journal"] == journal
     if "cli" in legs:
         assert len(legs_run["cli"]["journal"]) == 5  # process 0 alone wrote it
+
+
+def _raw_close(got: dict, want: dict) -> None:
+    """Every raw stem of a corpus run within the class of zen_tpu's."""
+    assert got.keys() == want.keys() and len(got) == 15
+    for name, w in want.items():
+        _scaled_close(got[name], w, name)
+
+
+def test_corpus_sp_ring_over_processes_matches_one_process_and_zen_tpu(tmp_path, monkeypatch):
+    """The smoke's sp leg: `zen-torch corpus --nprocs 2 --mesh sp=2` (one sp
+    ring, a shard in each process; the last track routed long, so the
+    blocked scan's ring is cut too), then killed before the long track's
+    pass 2 and resumed from its pass-1 checkpoint, each byte for byte
+    against the golden single-process run of the same global mesh; that
+    run against the port's in this process (byte for byte) and zen_tpu's
+    corpus on {"dp": 1, "sp": 2} (the class); the printed mesh line,
+    journal lines and counts equal zen_tpu's."""
+    report = _smoke(tmp_path, 2, "sp,sp_resume")
+    paths = sorted(str(p) for p in (tmp_path / "corpus").glob("*.wav"))
+    _, raw_t = _port_corpus(paths, tmp_path / "here", 1, monkeypatch, sp=2)
+    assert smoke.stems(tmp_path / "here") == smoke.stems(tmp_path / "sp_golden")
+    res_j, raw_j = _zen_tpu_corpus(paths, tmp_path / "jax", 1, monkeypatch, sp=2)
+    assert res_j == {"done": 0, "processed": 5}
+    _raw_close(raw_t, raw_j)
+    legs = report["legs"]
+    jm = jmesh.make_mesh({"sp": 2, "dp": 1})  # the CLI's --mesh sp=2
+    line = (f"corpus: 5 tracks, mesh {dict(zip(jm.axis_names, jm.devices.shape))}, "
+            f"out={tmp_path / 'sp'}")
+    assert legs["sp"]["mesh_lines"] == [line] * 2
+    journal = _journal(tmp_path / "jax")
+    assert legs["sp"]["journal"] == legs["sp_resume"]["journal"] == journal
+    assert legs["sp_resume"]["done_before"] == 3
+    for name in ("sp", "sp_resume"):
+        assert all(w["traffic"]["halo"]["bytes"] > 0 for w in legs[name]["workers"]), name
 
 
 # ---------------- the CLI ----------------

@@ -8,11 +8,13 @@ file lies in), so that one call on the card can time another checkout's
 package beside this one's, in turns (parent, change, change, parent),
 each in its own process. Times, on the card, the steps chip_smoke.py's
 streaming phases drive: ``HPRRealtime`` at 44.1 kHz hop 1024 and hop 32
-(B=32 and B=1), ``MultiStreamHPR`` with 64 streams at hop 256 (B=32) and
-the 512-stream percussive fleet at hop 256 (B=16) in f32 and bf16 stream
-state: the mean host wall of ``--runs`` synchronized steps after 5 warm
-ones (3 × ``--runs`` at B=1), and for each step of B > 1 hops its device
-µs (``runtime.profiling.device_ms``, the median of 3 windows of 10).
+(B=32 and B=1), ``MultiStreamHPR`` with 64 streams at hop 256 (B=32),
+unsharded and over a dp=4 mesh of the card (chip_smoke phase 20's
+fleet, its wall alone), and the 512-stream percussive fleet at hop 256
+(B=16) in f32 and bf16 stream state: the mean host wall of ``--runs``
+synchronized steps after 5 warm ones (3 × ``--runs`` at B=1), and for
+each other step of B > 1 hops its device µs
+(``runtime.profiling.device_ms``, the median of 3 windows of 10).
 Last, the pipe: ``zen-torch stream --streams 512`` run in-process on 16
 blocks per stream, as its own ``stream_serving`` line counts it, in
 Msamples/s. ``--fft-impl`` sets every step's and the pipe's transform.
@@ -40,6 +42,7 @@ def main(argv=None) -> dict:
     import torch
     import zen_tpu_torch
     from zen_tpu_torch import OUTPUT_PERCUSSIVE, HPRRealtime, MultiStreamHPR
+    from zen_tpu_torch.parallel.mesh import make_mesh
     from zen_tpu_torch.runtime.profiling import device_ms
 
     if not zen_tpu_torch.__file__.startswith(tree):
@@ -68,8 +71,12 @@ def main(argv=None) -> dict:
         timed(f"hop{hop} B=32", rt.process_block, blk)
         out[f"hop{hop} B=1"] = wall(lambda: rt.process_next_hop(blk[0]), 3 * args.runs)
     ms = MultiStreamHPR(64, 44100.0, 256, **kw)
-    timed("64 x hop256 B=32", ms.process_block,
-          torch.randn(64, 32, 256, generator=gen, device="cuda"))
+    fleet = torch.randn(64, 32, 256, generator=gen, device="cuda")
+    timed("64 x hop256 B=32", ms.process_block, fleet)
+    # its host wall only: a device_ms window of 10 steps of 4 shards
+    # passes the card's ~1024-entry launch queue
+    ms = MultiStreamHPR(64, 44100.0, 256, mesh=make_mesh({"dp": 4}, devices=["cuda"] * 4), **kw)
+    out["64 x hop256 B=32 dp=4"] = wall(lambda: ms.process_block(fleet), args.runs)
     for state in ("f32", "bf16"):
         ms = MultiStreamHPR(512, 44100.0, 256, outputs=OUTPUT_PERCUSSIVE, stream_state=state, **kw)
         timed(f"512 x hop256 B=16 {state}", ms.process_block,

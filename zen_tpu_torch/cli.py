@@ -46,8 +46,10 @@ the JAX command:
   too few chips. corpus without ``--mesh`` takes ``default_mesh``.
   corpus's ``--nprocs N --coordinator HOST:PORT --proc-id I`` runs one of N
   processes of a multi-process corpus (``torch.distributed`` over gloo;
-  the mesh is global, dp takes the process split, and only process 0
-  writes), with zen_tpu's checks, stderr lines and exit codes.
+  the mesh is global, its leading axes take the process split as
+  zen_tpu's do, so ``--mesh sp=N`` puts one ring across the processes,
+  and only process 0 writes), with zen_tpu's checks, stderr lines and
+  exit codes.
 - The lines that name the compute name the device, where zen_tpu's say
   "TPU-native"; the substrings parsers read ("Running zen-offline",
   "HPR-I-Offline took", "Running zen-fakert", "PRealtime") stay.

@@ -19,11 +19,15 @@ with crash-safe resume through a ``ProgressJournal``
 Over several processes (a mesh from ``make_mesh`` under a process group,
 ``zen-torch corpus --nprocs``) every process reads the same tracks and
 builds the same batches, so that all enter the same exchanges in the
-same order; each computes its own dp rows and gets every row's stems,
-but only process 0 writes stems and journal lines (the others read the
-journal once, at the start, and count what they would have written).
-A long track at sp = 1 is computed by process 0 alone. ``pp`` refuses
-several processes, as zen_tpu's does. Stem names, journal keys
+same order; each computes the shards it owns and gets every row's
+stems, but only process 0 writes stems and journal lines (the others
+read the journal once, at the start, and count what they would have
+written). Any dp x sp mesh ``make_mesh`` takes will do: where dp does
+not take the whole process split (``--mesh sp=N``, or the default mesh
+of a short corpus), sp rings cross processes and their halos go over
+gloo, and a long track at sp > 1 is the checkpointed blocked scan over
+the cut ring. A long track at sp = 1 is computed by process 0 alone.
+``pp`` refuses several processes, as zen_tpu's does. Stem names, journal keys
 (``_jkey``) and journal lines are zen_tpu's, so a journal either package
 wrote resumes in the other.
 """

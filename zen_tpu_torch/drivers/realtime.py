@@ -315,9 +315,12 @@ class MultiStreamHPR:
     (``parallel/mesh.py``) the streams are split over its ``dp_axis``
     instead: each shard holds the state of its C/dp streams on its own
     device and runs ``block_step`` on its slice of every block, with no
-    communication; ``device`` is then the mesh's first device, where
-    ``process_block`` gathers the rows. Further keywords (border,
-    stream_state, ...) go to HPRConfig."""
+    communication; ``device`` is then the first shard's device, where
+    ``process_block`` gathers the rows. Over several processes each holds
+    and steps the shards of the dp rows it owns entries of, with no
+    collective, as zen_tpu's dp-sharded state; ``slots`` names the global
+    stream slots of its rows. Further keywords (border, stream_state,
+    ...) go to HPRConfig."""
 
     def __init__(
         self,
@@ -341,19 +344,17 @@ class MultiStreamHPR:
         )
         self.n_streams = n_streams
         if mesh is None:
-            devices = [resolve_device(device)]
-        elif mesh.spans_processes:
-            # zen_tpu offers several processes on the corpus alone
-            raise ZenError("MultiStreamHPR: the mesh spans processes; a fleet runs in one process")
+            n_dp, rows = 1, [(0, resolve_device(device))]
         else:
-            devices = [mesh.device(**{dp_axis: i}) for i in range(mesh.size(dp_axis))]
-        if n_streams % len(devices):
-            raise ZenError(f"streams ({n_streams}) not divisible by dp ({len(devices)})")
-        self.device = devices[0]
-        per = n_streams // len(devices)
-        # (first stream, device, state) of each shard
-        self.shards = [(i * per, dev, init_state(self.cfg, per, dev))
-                       for i, dev in enumerate(devices)]
+            n_dp, rows = mesh.size(dp_axis), mesh.own(dp_axis)
+        if n_streams % n_dp:
+            raise ZenError(f"streams ({n_streams}) not divisible by dp ({n_dp})")
+        per = n_streams // n_dp
+        # (first stream, device, state) of each shard this process holds
+        self.shards = [(i * per, dev, init_state(self.cfg, per, dev)) for i, dev in rows]
+        self.device = self.shards[0][1]
+        # the global stream slots of process_block's rows, in order
+        self.slots = range(self.shards[0][0], self.shards[-1][0] + per)
 
     @property
     def state(self) -> StreamState:
@@ -390,15 +391,16 @@ class MultiStreamHPR:
         }
 
     def process_block(self, blocks) -> torch.Tensor:
-        """blocks: [C, B, hop] -> outs [C, E, B*hop] on ``device``, one
-        row per ENABLED stem (row order per ``stem_rows``), in stream
-        order."""
+        """blocks: [C, B, hop] (every stream, as on every process) -> outs
+        [C', E, B*hop] on ``device``, one row per ENABLED stem (row order
+        per ``stem_rows``), for the streams of ``slots`` in order (C' = C
+        in one process)."""
         blocks = torch.as_tensor(blocks, dtype=torch.float32)
         if blocks.ndim != 3 or blocks.shape[0] != self.n_streams:
             raise ZenError(
                 f"blocks must be [{self.n_streams}, B, hop], got {tuple(blocks.shape)}"
             )
-        if len(self.shards) == 1:
+        if len(self.slots) == self.n_streams and len(self.shards) == 1:
             return block_step(self.cfg, self.shards[0][2], blocks.to(self.device))
         # every shard's step is enqueued before any result is gathered
         outs = [block_step(self.cfg, state, blocks[lo : lo + state.ring.shape[0]]
@@ -407,8 +409,9 @@ class MultiStreamHPR:
         return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     def reset_streams(self, indices):
-        """Reset the given stream slots to pristine state in place,
-        leaving all other slots untouched — the serving move when a slot
+        """Reset the given (global) stream slots to pristine state in
+        place, those of ``slots`` on this process, leaving all other slots
+        untouched — the serving move when a slot
         is recycled for a new client mid-flight. A reset slot reproduces
         a fresh stream bit-exactly. The slots are filled run by run
         through slices, so nothing is copied from the host and the call

@@ -22,10 +22,11 @@ Several processes (zen_tpu's multi-host run) join one ``torch.distributed``
 group through ``distributed_init``; ``make_mesh`` then lays out the global
 mesh, each process contributing its own entries, and records the process
 that owns each. zen_tpu's ``_split_dcn`` puts the process split on the
-leading axes, so dp takes it and every sp or tp ring stays inside one
-process: the port has no cross-process halo, and a mesh whose split would
-cut a ring raises (zen_tpu falls back to enumeration order there). What
-crosses processes is ``parallel/multihost.py``'s.
+leading axes that take it: dp where it can, and otherwise sp or tp, whose
+rings then cross processes (``{"dp": 1, "sp": 2}`` over two processes is
+one ring, a shard in each). The sharded drivers issue the shards their
+process owns and send what crosses a cut edge of a ring through
+``parallel/multihost.py``.
 """
 from __future__ import annotations
 
@@ -85,10 +86,23 @@ class Mesh:
         used; an axis the mesh does not have (``size`` 1) is ignored."""
         return self.devices[self._index(coords)]
 
-    def is_local(self, **coords) -> bool:
-        """Whether this process owns the shard at ``coords`` (``device``'s
-        reading of them)."""
-        return int(self.processes[self._index(coords)]) == self.process_index
+    def owner(self, **coords) -> int:
+        """The rank of the process that owns the shard at ``coords``
+        (``device``'s reading of them)."""
+        return int(self.processes[self._index(coords)])
+
+    def own(self, axis: str) -> list:
+        """[(index, device)] for each index along ``axis`` at which this
+        process owns an entry, with the device of its first such entry:
+        the dp rows a process issues (all of them, at the other axes'
+        index 0, in one process)."""
+        if axis not in self.axis_names:
+            return [(0, self.first)]
+        ax = self.axis_names.index(axis)
+        devs = np.moveaxis(self.devices, ax, 0).reshape(self.devices.shape[ax], -1)
+        procs = np.moveaxis(self.processes, ax, 0).reshape(devs.shape)
+        return [(i, devs[i][np.flatnonzero(procs[i] == self.process_index)[0]])
+                for i in range(devs.shape[0]) if (procs[i] == self.process_index).any()]
 
     @property
     def spans_processes(self) -> bool:
@@ -179,9 +193,9 @@ def make_mesh(axes: dict, devices=None, device="cuda") -> Mesh:
     the default) is this process's n / N entries. ``_split_dcn`` lays the
     processes' blocks out over the leading axes, process p's at
     ``unravel_index(p, dcn)`` as zen_tpu's ``create_hybrid_device_mesh``
-    puts them; a split that would cut an axis other than dp (an sp or tp
-    ring, whose halos the port exchanges only inside a process) raises a
-    ZenError.
+    puts them; where dp cannot take the whole split, sp or tp rings cross
+    processes. A process count that does not factor into the axes raises
+    ``_split_dcn``'s ZenError, and too few entries in a process raise.
     """
     names = tuple(axes.keys())
     sizes = tuple(int(s) for s in axes.values())
@@ -193,14 +207,6 @@ def make_mesh(axes: dict, devices=None, device="cuda") -> Mesh:
             raise ZenError(f"mesh axes {axes} need {n} devices, got {len(devices)}")
         return Mesh(_object_grid(devices, sizes), names)
     dcn, per_host = _split_dcn(sizes, n_proc)
-    cut = [name for name, f in zip(names, dcn) if f > 1 and name != "dp"]
-    if cut:
-        raise ZenError(
-            f"mesh axes {axes} over {n_proc} processes would split {', '.join(cut)} across "
-            "processes (the split by process is "
-            f"{dict(zip(names, dcn))}); the port exchanges halos only inside a process: "
-            "give dp a multiple of the process count"
-        )
     n_local = n // n_proc
     devices = _local_devices(n_local, devices, device)
     if len(devices) != n_local:
@@ -229,15 +235,14 @@ def visible_devices(device="cuda") -> int:
 
 
 def default_mesh(n_channels_hint: int = 0, device="cuda") -> Mesh:
-    """zen_tpu's default over every visible device: the channels over dp
-    when the workload has at least as many channels, else everything on
-    sp. Over several processes dp is a multiple of their count, so that no
-    sp ring crosses one (``make_mesh``)."""
-    n, n_proc = visible_devices(device), multihost.process_count()
+    """zen_tpu's default over every visible device (summed over the
+    processes of a group): the channels over dp when the workload has at
+    least as many channels, else dp the largest divisor of the device
+    count no greater than the hint (1 without one) and the rest on sp."""
+    n = visible_devices(device)
     if n_channels_hint >= n:
         return make_mesh({"dp": n, "sp": 1}, device=device)
-    dp = n_proc
+    dp = 1
     if n_channels_hint:
-        dp = max([d for d in range(n_proc, n + 1, n_proc)
-                  if n % d == 0 and d <= n_channels_hint] or [n_proc])
+        dp = max(d for d in range(1, n + 1) if n % d == 0 and d <= n_channels_hint)
     return make_mesh({"dp": dp, "sp": n // dp}, device=device)

@@ -31,12 +31,18 @@ K2 on CUDA tensors, their plain twins on CPU tensors), at the shard's
 own shapes.
 
 Over several processes (a mesh from ``make_mesh`` under a process group)
-each process issues only the shards it owns: its dp rows, whose sp rings
-never cross processes, so every halo stays inside a process. The dp x sp
-drivers join the rows' stems on every process at the end
-(``multihost.allgather``); the blocked scan runs each process's own ring,
-and its checkpointed form writes from process 0 alone. tp refuses a
-mesh that spans processes.
+each process issues only the shards it owns. A ring (a dp row's sp
+blocks, or the tp bins) either lies inside one process, where dp takes
+the process split, or is cut across processes, where it does not
+(``{"dp": 1, "sp": 2}`` over two). At a cut edge a halo goes over gloo
+(``multihost.ring_shift``) and a tp sum gathers its partials in shard
+order (``multihost.ordered_sum``), so every process computes the bits
+one process would. The dp x sp drivers join every shard's stems on
+every process at the end (``multihost.allgather``), and the cascade
+gathers pass 1's stems before pass 2 where a ring is cut; the blocked
+scan runs each process's own shards, gathers their stems after, and its
+checkpointed form writes from process 0 alone. tp runs the ring through
+each process's first entry.
 """
 from __future__ import annotations
 
@@ -87,18 +93,69 @@ def _moved(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.to(device, non_blocking=True)
 
 
-def _from_left(xs: list, devs: list, n_sp: int, fill: float = 0.0) -> list:
-    """Shard k receives shard k-1's x within its row of n_sp shards; the
-    first shard of a row gets ``fill``."""
-    return [torch.full_like(x, fill) if k % n_sp == 0 else _moved(xs[k - 1], devs[k])
-            for k, x in enumerate(xs)]
+@dataclasses.dataclass(frozen=True)
+class _Shards:
+    """The shards of a mesh's rings that this process issues: ``ks``
+    their numbers (ring r, position j: k = r * n + j; for dp x sp the
+    ring is the dp row, k = i * n_sp + j), ``devs`` their devices,
+    ``owners`` [n_rings, n] the rank owning each shard of every ring;
+    ``wrap`` closes the rings (tp's circular bins). In one process it
+    holds every shard, and a halo is a move between devices."""
+
+    ks: list
+    devs: list
+    owners: np.ndarray
+    wrap: bool = False
+
+    @property
+    def n(self) -> int:
+        return self.owners.shape[1]
+
+    @property
+    def cut(self) -> bool:
+        """Whether some ring has shards of several processes (the same on
+        every process: make_mesh's blocks are all one shape)."""
+        return bool((self.owners != self.owners[:, :1]).any())
+
+    def from_left(self, xs: list, fill: float = 0.0) -> list:
+        """Shard k receives its left neighbour's x; an open ring's first
+        shard gets ``fill``."""
+        return multihost.ring_shift(xs, self.ks, self.devs, self.owners, 1, fill, self.wrap)
+
+    def from_right(self, xs: list, fill: float = 0.0) -> list:
+        """Shard k receives its right neighbour's x; an open ring's last
+        shard gets ``fill``."""
+        return multihost.ring_shift(xs, self.ks, self.devs, self.owners, -1, fill, self.wrap)
+
+    def everywhere(self, xs: list, device: torch.device) -> list:
+        """Every shard's x (equal shapes), in shard order on ``device``:
+        this process's own, and where it does not own them all, every
+        other process's, gathered from every process (``allgather``;
+        each process owns as many; one whose shards lie on another ring,
+        a replica of this one, sends its own all the same, unread)."""
+        xs = [_moved(x, device) for x in xs]
+        if len(xs) == self.owners.size:
+            return xs
+        flat = self.owners.ravel()
+        gathered = multihost.allgather(torch.stack(xs)).split(len(xs))
+        by_k = {}
+        for p, parts in enumerate(gathered):
+            ks = np.flatnonzero(flat == p).tolist()
+            if ks and len(ks) != len(xs):
+                raise ZenError(f"every process must own as many shards: {self.owners.tolist()}")
+            by_k.update(zip(ks, parts))
+        return [by_k[k] for k in range(flat.size)]
 
 
-def _from_right(xs: list, devs: list, n_sp: int, fill: float = 0.0) -> list:
-    """Shard k receives shard k+1's x within its row; the last shard of a
-    row gets ``fill``."""
-    return [torch.full_like(x, fill) if k % n_sp == n_sp - 1 else _moved(xs[k + 1], devs[k])
-            for k, x in enumerate(xs)]
+def _ring(mesh: Mesh, axis: str, wrap: bool = False) -> _Shards:
+    """The ring along ``axis`` through this process's first entry (the
+    other axes' replicas compute the same; zen_tpu's ``P()``): the
+    positions this process owns, as one ring (r = 0)."""
+    at = mesh.local_coords()
+    coords = [{**at, axis: j} for j in range(mesh.size(axis))]
+    owners = np.array([[mesh.owner(**c) for c in coords]])
+    ks = [j for j in range(len(coords)) if owners[0, j] == mesh.process_index]
+    return _Shards(ks, [mesh.device(**coords[j]) for j in ks], owners, wrap)
 
 
 def _masks_by_stem(h, p, cfg: HPRConfig) -> tuple:
@@ -113,13 +170,13 @@ def _enabled(cfg: HPRConfig, name: str, mask) -> bool:
 # ---------------- dp x sp: the batched pass ----------------
 
 
-def _sp_masks(local: list, devs: list, n_sp: int, cfg: HPRConfig) -> tuple:
-    """The masks half of one pass over every shard (zen_tpu's
-    ``_sp_shard_fn`` up to its masks): local[k] [rows, tl*hop] on
-    devs[k], shards k = i*n_sp + j (dp row i, sp block j) -> (spectra
-    [rows, tl, bins] per shard, (harmonic, percussive, residual) masks
-    per shard). Split from the synthesis half so that a flip count can
-    read the very masks the stems come from."""
+def _sp_masks(local: list, sh: _Shards, cfg: HPRConfig) -> tuple:
+    """The masks half of one pass over this process's shards (zen_tpu's
+    ``_sp_shard_fn`` up to its masks): local[i] [rows, tl*hop], shard
+    sh.ks[i] on sh.devs[i] -> (spectra [rows, tl, bins] per shard,
+    (harmonic, percussive, residual) masks per shard). Split from the
+    synthesis half so that a flip count can read the very masks the stems
+    come from."""
     hop = cfg.hop
     tl = local[0].shape[-1] // hop
     back = cfg.time_history
@@ -128,7 +185,7 @@ def _sp_masks(local: list, devs: list, n_sp: int, cfg: HPRConfig) -> tuple:
         raise ZenError("time shards smaller than the median halo; use fewer sp shards")
 
     # (1) framing halo: the left neighbour's last hop of samples
-    lead = _from_left([x[..., -hop:] for x in local], devs, n_sp)
+    lead = sh.from_left([x[..., -hop:] for x in local])
     spectra, feats = [], []
     for x, t in zip(local, lead):
         blocks = torch.cat([t, x], dim=-1).view(x.shape[:-1] + (tl + 1, hop))
@@ -139,8 +196,8 @@ def _sp_masks(local: list, devs: list, n_sp: int, cfg: HPRConfig) -> tuple:
     # (2) feature halos for the time median's taps; the global edges read
     # the prefill feature (+inf under SSE), as the unsharded pass does
     fill = prefill_value(cfg)
-    left = _from_left([f[..., f.shape[-2] - back :, :] for f in feats], devs, n_sp, fill)
-    right = _from_right([f[..., :fwd, :] for f in feats], devs, n_sp, fill)
+    left = sh.from_left([f[..., f.shape[-2] - back :, :] for f in feats], fill)
+    right = sh.from_right([f[..., :fwd, :] for f in feats], fill)
     masks = []
     for f, lh, rh in zip(feats, left, right):
         ext = torch.cat([lh, f, rh], dim=-2) if back or fwd else f
@@ -151,8 +208,7 @@ def _sp_masks(local: list, devs: list, n_sp: int, cfg: HPRConfig) -> tuple:
     return spectra, masks
 
 
-def _sp_stems(spectra: list, masks: list, local: list, devs: list, n_sp: int,
-              cfg: HPRConfig) -> list:
+def _sp_stems(spectra: list, masks: list, local: list, sh: _Shards, cfg: HPRConfig) -> list:
     """The synthesis half: stems [3, rows, tl*hop] per shard, with (3)
     the overlap-add seam, the right neighbour's first synthesized row."""
     outs = [[] for _ in local]
@@ -162,72 +218,68 @@ def _sp_stems(spectra: list, masks: list, local: list, devs: list, n_sp: int,
                 o.append(torch.zeros_like(x))
             continue
         ys = [synthesize(s, m[i], cfg) for s, m in zip(spectra, masks)]
-        nxt = _from_right([y[..., :1, :] for y in ys], devs, n_sp)
+        nxt = sh.from_right([y[..., :1, :] for y in ys])
         for o, y, n in zip(outs, ys, nxt):
             o.append(overlap_add_stream(torch.cat([y, n], dim=-2), cfg.hop, advance=1))
     return [torch.stack(o) for o in outs]
 
 
-def _own_block(audio, mesh: Mesh, dp_axis: str, sp_axis: str) -> tuple:
-    """(this process's rows of [C, L] (or [L]) audio, the devices of the
-    shards it issues, n_sp, the audio's [C, L] shape, its first channel):
-    its dp rows' channels and those rows' shards, k = i*n_sp + j over its
-    rows i in order (all of them in one process; a dp row's sp ring never
-    crosses processes, ``make_mesh``)."""
+def _dp_sp(audio, mesh: Mesh, dp_axis: str, sp_axis: str) -> tuple:
+    """([C, L] audio, the dp x sp shards this process issues, channels a
+    dp row): over several processes the shards it owns, whose rings may
+    cross into other processes' (their halos then go over gloo)."""
     audio = _as_audio(audio)
     if audio.ndim == 1:
         audio = audio[None]
-    n_ch = audio.shape[0]
     n_dp, n_sp = mesh.size(dp_axis), mesh.size(sp_axis)
-    if n_ch % n_dp:
-        raise ZenError(f"channels ({n_ch}) not divisible by dp ({n_dp})")
-    rows = [i for i in range(n_dp) if mesh.is_local(**{dp_axis: i})]
-    devs = [mesh.device(**{dp_axis: i, sp_axis: j}) for i in rows for j in range(n_sp)]
-    per = n_ch // n_dp
-    lo = rows[0] * per
-    return audio[lo : (rows[-1] + 1) * per], devs, n_sp, tuple(audio.shape), lo
+    if audio.shape[0] % n_dp:
+        raise ZenError(f"channels ({audio.shape[0]}) not divisible by dp ({n_dp})")
+    coords = [{dp_axis: k // n_sp, sp_axis: k % n_sp} for k in range(n_dp * n_sp)]
+    owners = np.array([mesh.owner(**c) for c in coords]).reshape(n_dp, n_sp)
+    ks = [k for k in range(n_dp * n_sp) if owners.flat[k] == mesh.process_index]
+    sh = _Shards(ks, [mesh.device(**coords[k]) for k in ks], owners)
+    return audio, sh, audio.shape[0] // n_dp
 
 
-def _sp_local(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_sp: int) -> list:
-    """Each shard's samples on its device for a dp x sp pass over [C, L]
-    audio, C split over len(devs) / n_sp dp rows. The frame count is
-    rounded up to a multiple of the sp width (the extra frames are zero
-    audio, whose feature is the prefill the unsharded taps read)."""
-    n_ch, length = audio.shape
-    hop = cfg.hop
-    n_frames = -(-_n_frames(length, cfg) // n_sp) * n_sp
-    padded = torch.nn.functional.pad(audio, (0, n_frames * hop - length))
-    rows, span = n_ch // (len(devs) // n_sp), n_frames // n_sp * hop
-    return [_moved(padded[k // n_sp * rows : (k // n_sp + 1) * rows,
+def _sp_local(audio: torch.Tensor, row0: int, rows: int, cfg: HPRConfig, sh: _Shards) -> list:
+    """Each of this process's shards' samples on its device for a dp x sp
+    pass over [C', L] audio whose first row is dp row ``row0``'s, ``rows``
+    channels a dp row. The frame count is rounded up to a multiple of the
+    sp width (the extra frames are zero audio, whose feature is the
+    prefill the unsharded taps read)."""
+    n_sp = sh.n
+    n_frames = -(-_n_frames(audio.shape[-1], cfg) // n_sp) * n_sp
+    padded = torch.nn.functional.pad(audio, (0, n_frames * cfg.hop - audio.shape[-1]))
+    span = n_frames // n_sp * cfg.hop
+    return [_moved(padded[(k // n_sp - row0) * rows : (k // n_sp - row0 + 1) * rows,
                           k % n_sp * span : (k % n_sp + 1) * span], dev)
-            for k, dev in enumerate(devs)]
+            for k, dev in zip(sh.ks, sh.devs)]
 
 
 def _sp_gather(parts: list, n_sp: int, time_dim: int, row_dim: int,
                device: torch.device) -> torch.Tensor:
-    """The shards' pieces as one tensor on ``device``: each dp row's sp
+    """Whole rings' pieces as one tensor on ``device``: each dp row's sp
     blocks joined along ``time_dim``, the rows along ``row_dim``."""
     rows = [torch.cat([_moved(p, device) for p in parts[i : i + n_sp]], dim=time_dim)
             for i in range(0, len(parts), n_sp)]
     return torch.cat(rows, dim=row_dim)
 
 
-def _own_pass(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_sp: int) -> tuple:
-    """One dp x sp pass over this process's rows [C_own, L]: (stems [3,
-    C_own, L] on its first shard's device, each shard's masks)."""
-    local = _sp_local(audio, cfg, devs, n_sp)
-    spectra, masks = _sp_masks(local, devs, n_sp, cfg)
-    out = _sp_gather(_sp_stems(spectra, masks, local, devs, n_sp, cfg), n_sp, -1, 1, devs[0])
-    return out[..., : audio.shape[-1]], masks
+def _own_pass(audio: torch.Tensor, row0: int, rows: int, cfg: HPRConfig, sh: _Shards) -> tuple:
+    """One dp x sp pass over this process's shards: (stems [3, rows,
+    span] per shard, each shard's masks)."""
+    local = _sp_local(audio, row0, rows, cfg, sh)
+    spectra, masks = _sp_masks(local, sh, cfg)
+    return _sp_stems(spectra, masks, local, sh, cfg), masks
 
 
-def _across(mesh: Mesh, parts) -> list:
-    """Each of this process's row blocks joined with every other process's
-    along dim 0 (zen_tpu's ``process_allgather(tiled=True)``): the whole
-    [C, ...] on every process, on the device it was on."""
-    if not mesh.spans_processes:
-        return list(parts)
-    return [multihost.allgather(x) for x in parts]
+def _joined(pieces: list, sh: _Shards, length: int, time_dim: int = -1,
+            row_dim: int = 1) -> torch.Tensor:
+    """Every shard's piece joined into [..., C, L] on this process's first
+    device (zen_tpu's ``process_allgather(tiled=True)`` over several
+    processes); ``length`` None keeps the padded frames."""
+    out = _sp_gather(sh.everywhere(pieces, sh.devs[0]), sh.n, time_dim, row_dim, sh.devs[0])
+    return out if length is None else out[..., :length]
 
 
 def sharded_separate(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
@@ -236,10 +288,10 @@ def sharded_separate(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
     ``dp_axis`` and time blocks over ``sp_axis``: dict of [C, L] stems on
     this process's first device, equal to ``hpr_separate`` per channel up
     to the transforms' batch rounding. Over several processes each issues
-    its own dp rows' shards, and every process gets every row."""
-    own, devs, n_sp, _, _ = _own_block(audio, mesh, dp_axis, sp_axis)
-    out, _ = _own_pass(own, cfg, devs, n_sp)
-    return dict(zip(STEMS, _across(mesh, out)))
+    the shards it owns, and every process gets every row."""
+    audio, sh, rows = _dp_sp(audio, mesh, dp_axis, sp_axis)
+    pieces, _ = _own_pass(audio, 0, rows, cfg, sh)
+    return dict(zip(STEMS, _joined(pieces, sh, audio.shape[-1])))
 
 
 def sharded_pass_masks(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
@@ -247,10 +299,10 @@ def sharded_pass_masks(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
     """``sharded_separate``'s stems and the (harmonic, percussive) masks
     [C, frames, bins] they came from, both on this process's first
     device: what a flip count between two runs of a pass reads."""
-    own, devs, n_sp, _, _ = _own_block(audio, mesh, dp_axis, sp_axis)
-    out, masks = _own_pass(own, cfg, devs, n_sp)
-    own_masks = [_sp_gather([m[i] for m in masks], n_sp, -2, 0, devs[0]) for i in (0, 1)]
-    return dict(zip(STEMS, _across(mesh, out))), tuple(_across(mesh, own_masks))
+    audio, sh, rows = _dp_sp(audio, mesh, dp_axis, sp_axis)
+    pieces, masks = _own_pass(audio, 0, rows, cfg, sh)
+    stems = dict(zip(STEMS, _joined(pieces, sh, audio.shape[-1])))
+    return stems, tuple(_joined([m[i] for m in masks], sh, None, -2, 0) for i in (0, 1))
 
 
 def sharded_hpri_offline(audio, cfg_h: HPRConfig, cfg_p: HPRConfig, mesh: Mesh,
@@ -261,19 +313,29 @@ def sharded_hpri_offline(audio, cfg_h: HPRConfig, cfg_p: HPRConfig, mesh: Mesh,
     tracks zero-padded to one batch length. Pass 1's spill past a track
     is zeroed before pass 2, as the reference truncates between passes
     (hps.cu:171-178) and ``HPRIOffline.process(lengths=)`` does, so a
-    track's stems do not depend on the tracks that share its batch. Pass
-    2 reads the process's own pass-1 rows, so only the stems cross
-    processes, at the end."""
-    own, devs, n_sp, shape, lo = _own_block(audio, mesh, dp_axis, sp_axis)
-    if lengths is not None and len(lengths) != shape[0]:
-        raise ZenError(f"lengths {list(lengths)} for audio of shape {shape}")
-    pass1, _ = _own_pass(own, cfg_h, devs, n_sp)
+    track's stems do not depend on the tracks that share its batch. Where
+    every ring lies inside one process, pass 2 reads the process's own
+    pass-1 rows and only the stems cross processes, at the end; where a
+    ring is cut, pass 2's shards span other times than pass 1's (another
+    hop), so pass 1's stems are gathered before it."""
+    audio, sh, rows = _dp_sp(audio, mesh, dp_axis, sp_axis)
+    length = audio.shape[-1]
+    if lengths is not None and len(lengths) != audio.shape[0]:
+        raise ZenError(f"lengths {list(lengths)} for audio of shape {tuple(audio.shape)}")
+    pieces1, _ = _own_pass(audio, 0, rows, cfg_h, sh)
+    if sh.cut:
+        row0, pass1 = 0, _joined(pieces1, sh, length)
+    else:
+        row0 = sh.ks[0] // sh.n
+        pass1 = _sp_gather(pieces1, sh.n, -1, 1, sh.devs[0])[..., :length]
     inter = pass1[1] + pass1[2]
     if lengths is not None:
-        for row, n in zip(inter, lengths[lo : lo + inter.shape[0]]):
+        for row, n in zip(inter, lengths[row0 * rows : row0 * rows + inter.shape[0]]):
             row[int(n):] = 0.0
-    pass2, _ = _own_pass(inter, cfg_p, devs, n_sp)
-    return tuple(_across(mesh, (pass1[0], pass2[1], pass2[2])))
+    pieces2, _ = _own_pass(inter, row0, rows, cfg_p, sh)
+    harmonic = pass1[0] if sh.cut else _joined([p[0] for p in pieces1], sh, length, row_dim=0)
+    pass2 = _joined([p[1:] for p in pieces2], sh, length)
+    return harmonic, pass2[0], pass2[1]
 
 
 # ---------------- sp: the blocked overlap-save scan ----------------
@@ -288,19 +350,19 @@ def _sharded_blocking(length: int, cfg: HPRConfig, block_frames: int, n_sp: int)
     return _Blocking(bf, nbl * n_sp, cfg.time_history, max(max(cfg.time_offsets), 0)), nbl
 
 
-def _windows(audio: torch.Tensor, cfg: HPRConfig, blk: _Blocking, nbl: int, devs: list) -> list:
-    """Each shard's samples [((nbl + 1) * bf + back + fwd + 1) * hop] on
-    its device: the block before its span, then its nbl blocks, each with
-    its halo context, cut from a stream padded by one block more than the
-    unsharded scan's; consecutive windows overlap by one block and
-    back + fwd + 1 hops."""
+def _windows(audio: torch.Tensor, cfg: HPRConfig, blk: _Blocking, nbl: int, sh: _Shards) -> list:
+    """Each of this process's shards' samples [((nbl + 1) * bf + back +
+    fwd + 1) * hop] on its device: the block before its span, then its
+    nbl blocks, each with its halo context, cut from a stream padded by
+    one block more than the unsharded scan's; consecutive windows overlap
+    by one block and back + fwd + 1 hops."""
     hop = cfg.hop
     guard_lo = (blk.bf + blk.back + 1) * hop
     guard_hi = (blk.n_blocks * blk.bf + blk.fwd) * hop - audio.shape[-1]
     padded = torch.nn.functional.pad(audio, (guard_lo, max(guard_hi, 0)))
     w = ((nbl + 1) * blk.bf + blk.back + blk.fwd + 1) * hop
     step = nbl * blk.bf * hop
-    return [_moved(padded[d * step : d * step + w], dev) for d, dev in enumerate(devs)]
+    return [_moved(padded[d * step : d * step + w], dev) for d, dev in zip(sh.ks, sh.devs)]
 
 
 def _block_window(window: torch.Tensor, cfg: HPRConfig, blk: _Blocking, b: int) -> torch.Tensor:
@@ -336,13 +398,6 @@ def _scan(windows: list, tails: list, cfg: HPRConfig, blk: _Blocking, b0: int, b
     return [torch.cat(o, dim=1) for o in outs], tails
 
 
-def _sp_devices(mesh: Mesh, sp_axis: str) -> list:
-    """The sp ring of this process's first dp row (zen_tpu's ``P(sp)``
-    leaves dp replicated: every row's ring computes the same)."""
-    at = mesh.local_coords()
-    return [mesh.device(**{**at, sp_axis: d}) for d in range(mesh.size(sp_axis))]
-
-
 def sharded_separate_blocked(audio, cfg: HPRConfig, mesh: Mesh, block_frames: int = 2048,
                              sp_axis: str = "sp") -> dict:
     """``hpr_separate_blocked`` on [L] audio with its blocks split over
@@ -351,16 +406,18 @@ def sharded_separate_blocked(audio, cfg: HPRConfig, mesh: Mesh, block_frames: in
     at all.
     Bitwise equal to ``hpr_separate_blocked`` at the same block size on
     the same device type. The mesh's other axes are not used (their
-    replicas would compute the same): over several processes each scans
-    the ring of its own dp row, with no exchange. Stems on this process's
-    first device."""
+    replicas would compute the same): each process scans the shards it
+    owns of the ring through its first entry (its dp row's whole ring
+    where dp takes the process split), and where the ring is cut the
+    shards' stems are gathered after. Stems on this process's first
+    device."""
     audio = _blocked_audio(audio, "sharded_separate_blocked")
-    devs = _sp_devices(mesh, sp_axis)
-    blk, nbl = _sharded_blocking(audio.shape[-1], cfg, block_frames, len(devs))
-    windows = _windows(audio, cfg, blk, nbl, devs)
-    tails = [_prime(w, d, cfg, blk) for d, w in enumerate(windows)]
+    sh = _ring(mesh, sp_axis)
+    blk, nbl = _sharded_blocking(audio.shape[-1], cfg, block_frames, sh.n)
+    windows = _windows(audio, cfg, blk, nbl, sh)
+    tails = [_prime(w, d, cfg, blk) for d, w in zip(sh.ks, windows)]
     outs, _ = _scan(windows, tails, cfg, blk, 0, nbl)
-    full = torch.cat([_moved(o, devs[0]) for o in outs], dim=1)
+    full = torch.cat(sh.everywhere(outs, sh.devs[0]), dim=1)
     return _stems(full, cfg.hop, audio.shape[-1])
 
 
@@ -389,21 +446,23 @@ def sharded_separate_blocked_checkpointed(
     ``sharded_separate_blocked``.
 
     Over several processes (``ckpt_dir`` on a filesystem they share) each
-    scans its own ring; process 0 alone writes the stems file and the
-    checkpoint, and the others keep the stems in memory, reading the
-    resumed segments from the file. Before any segment the processes
-    agree on the block to resume from, and all refuse together if they
-    disagree or one cannot read the file: a process that ran a segment
-    the others skip would leave them waiting, and stems it failed to
-    read are never taken for zeros."""
+    scans the shards it owns; where the ring is cut, each segment's stems
+    and tails are gathered on every process after it. Process 0 alone
+    writes the stems file and the checkpoint, and the others keep the
+    stems in memory, reading the resumed segments from the file; a resumed
+    scan takes every shard's tails from the checkpoint on every process.
+    Before any segment the processes agree on the block to resume from,
+    and all refuse together if they disagree or one cannot read the file:
+    a process that ran a segment the others skip would leave them
+    waiting, and stems it failed to read are never taken for zeros."""
     if ckpt_dir is None:
         return sharded_separate_blocked(audio, cfg, mesh, block_frames, sp_axis)
     audio = _blocked_audio(audio, "sharded_separate_blocked_checkpointed")
     hop, length = cfg.hop, audio.shape[-1]
-    devs = _sp_devices(mesh, sp_axis)
-    n_sp = len(devs)
+    sh = _ring(mesh, sp_axis)
+    n_sp = sh.n
     blk, nbl = _sharded_blocking(length, cfg, block_frames, n_sp)
-    windows = _windows(audio, cfg, blk, nbl, devs)
+    windows = _windows(audio, cfg, blk, nbl, sh)
     total = blk.n_blocks * blk.bf * hop
     os.makedirs(ckpt_dir, exist_ok=True)
     stems_path = os.path.join(ckpt_dir, f"{tag}.stems.f32")
@@ -439,9 +498,9 @@ def sharded_separate_blocked_checkpointed(
             # that claims its segments first
             os.remove(ckpt_path)
             _fsync_file(ckpt_dir)
-        tails = [_prime(w, d, cfg, blk) for d, w in enumerate(windows)]
+        tails = [_prime(w, d, cfg, blk) for d, w in zip(sh.ks, windows)]
     else:
-        tails = [_moved(t, dev) for t, dev in zip(state, devs)]
+        tails = [_moved(state[d], dev) for d, dev in zip(sh.ks, sh.devs)]
     if writes:
         acc = np.memmap(stems_path, np.float32, mode="r+" if b > 0 else "w+",
                         shape=(len(STEMS), total))
@@ -451,18 +510,23 @@ def sharded_separate_blocked_checkpointed(
     while b < nbl:
         ng = min(ckpt_every_blocks, nbl - b)
         outs, tails = _scan(windows, tails, cfg, blk, b, b + ng)
-        for d, out in enumerate(outs):
+        # one exchange a segment where the ring is cut: each shard's
+        # stems with its tails after them
+        both = sh.everywhere([torch.cat([o, t], dim=1) for o, t in zip(outs, tails)],
+                             sh.devs[0])
+        span = ng * blk.bf * hop
+        for d, x in enumerate(both):
             lo = d * shard_span + b * blk.bf * hop
-            acc[:, lo : lo + ng * blk.bf * hop] = out.cpu().numpy()
+            acc[:, lo : lo + span] = x[:, :span].cpu().numpy()
         b += ng
         if writes:
             acc.flush()
             _fsync_file(stems_path)  # the stems are durable before a checkpoint claims them
-            save_stream_state_durable(ckpt_path, torch.stack([t.cpu() for t in tails]),
+            save_stream_state_durable(ckpt_path, torch.stack([x[:, span:].cpu() for x in both]),
                                       {**meta_want, "next_block": b})
         if on_segment is not None:
             on_segment(b, nbl)
-    full = torch.from_numpy(np.array(acc[:, : hop + length])).to(devs[0])
+    full = torch.from_numpy(np.array(acc[:, : hop + length])).to(sh.devs[0])
     del acc
     return _stems(full, hop, length)
 
@@ -499,13 +563,6 @@ def sharded_hpri_blocked(
 # ---------------- frequency tensor parallelism ----------------
 
 
-def _ring(xs: list, devs: list, shift: int) -> list:
-    """Shard k receives shard (k - shift) mod n's x: shift 1 from the
-    left, -1 from the right, around the ring (the wrap border)."""
-    n = len(xs)
-    return [_moved(xs[(k - shift) % n], devs[k]) for k in range(n)]
-
-
 def _partial_dft(cfg: HPRConfig, start: int, fb: int, device: torch.device) -> tuple:
     """cos and sin [nwin, fb] of the angles 2 pi k n / nfft for the
     shard's bins k = start .. start+fb-1, reduced as int32 (k n) mod nfft
@@ -516,12 +573,12 @@ def _partial_dft(cfg: HPRConfig, start: int, fb: int, device: torch.device) -> t
     return torch.cos(ang), torch.sin(ang)
 
 
-def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_frames: int) -> tuple:
+def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, sh: _Shards, n_frames: int) -> tuple:
     """The masks half of one frequency-sharded pass (zen_tpu's
     ``_tp_shard_fn`` up to its masks): (spectra [..., T, fb], (harmonic,
     percussive, residual) masks, the inverse DFT matrices), one entry per
-    shard."""
-    hop, nfft, n_tp = cfg.hop, cfg.nfft, len(devs)
+    shard this process issues."""
+    hop, nfft, n_tp = cfg.hop, cfg.nfft, sh.n
     fb = nfft // n_tp
     fm = cfg.freq_filter_len // 2
     if fm > fb:
@@ -532,7 +589,7 @@ def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_frames: int) ->
     # and its inverse: the transposed matrices times the synthesis scale
     scale = float(np.float32(cfg.synth_scale / nfft))
     spectra, feats, hs, inverse = [], [], [], []
-    for t, dev in enumerate(devs):
+    for t, dev in zip(sh.ks, sh.devs):
         xw = _windowed(frame_signal(_moved(audio, dev), hop, n_frames), cfg)
         cos, sin = _partial_dft(cfg, t * fb, fb, dev)
         s = torch.complex(xw @ cos, -(xw @ sin))
@@ -542,12 +599,13 @@ def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_frames: int) ->
         feats.append(feature_transform(s.abs(), cfg))
         hs.append(time_filtered(feats[-1], cfg))  # per bin: local
 
-    # the frequency median over fm-bin halos from both ring neighbours:
-    # zen_tpu's zero-border median over [lh, own, rh] cropped to the own
-    # bins, which is K2's 'valid' route on the extended bins
+    # the frequency median over fm-bin halos from both ring neighbours
+    # (around the ring): zen_tpu's zero-border median over [lh, own, rh]
+    # cropped to the own bins, which is K2's 'valid' route on the
+    # extended bins
     if fm:
-        left = _ring([f[..., fb - fm :] for f in feats], devs, 1)
-        right = _ring([f[..., :fm] for f in feats], devs, -1)
+        left = sh.from_left([f[..., fb - fm :] for f in feats])
+        right = sh.from_right([f[..., :fm] for f in feats])
         exts = [torch.cat([lh, f, rh], dim=-1) for f, lh, rh in zip(feats, left, right)]
     else:  # feats[..., -0:] would be the whole block
         exts = feats
@@ -562,25 +620,24 @@ def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, devs: list, n_frames: int) ->
     return spectra, masks, inverse
 
 
-def _tp_stems(spectra: list, masks: list, inverse: list, cfg: HPRConfig, devs: list,
+def _tp_stems(spectra: list, masks: list, inverse: list, cfg: HPRConfig, sh: _Shards,
               n_frames: int) -> torch.Tensor:
-    """The synthesis half: stems [3, ..., (n_frames-1)*hop] on the first
-    shard's device. Each shard's partial inverse DFT covers its own bins;
-    by linearity the stem's frame is their sum (zen_tpu's psum)."""
+    """The synthesis half: stems [3, ..., (n_frames-1)*hop] on this
+    process's first shard's device. Each shard's partial inverse DFT
+    covers its own bins; by linearity the stem's frame is their sum
+    (zen_tpu's psum), taken in shard order on every process."""
     hop = cfg.hop
     lead = spectra[0].shape[:-2]
     outs = []
     for i, name in enumerate(STEMS):
         if not _enabled(cfg, name, masks[0][i]):
-            outs.append(torch.zeros(lead + ((n_frames - 1) * hop,), device=devs[0]))
+            outs.append(torch.zeros(lead + ((n_frames - 1) * hop,), device=sh.devs[0]))
             continue
         ys = []
         for s, m, (inv_c, inv_s) in zip(spectra, masks, inverse):
             masked = s * m[i]
             ys.append(masked.real @ inv_c - masked.imag @ inv_s)
-        y = ys[0]
-        for other in ys[1:]:
-            y = y + _moved(other, devs[0])
+        y = multihost.ordered_sum(ys, sh.ks, sh.owners, sh.devs[0])
         outs.append(overlap_add_stream(y, hop, advance=1))
     return torch.stack(outs)
 
@@ -591,29 +648,32 @@ def tp_separate(audio, cfg: HPRConfig, mesh: Mesh, tp_axis: str = "tp") -> dict:
     through partial-DFT matmuls at float32 (TF32 off, zen_tpu's
     Precision.HIGHEST). Needs the exact C2C spectrum (``fast_rfft`` is
     forced off) and the wrap border (the frequency halo ring is
-    circular); n_tp must divide nfft. Stems on the mesh's first device,
+    circular); n_tp must divide nfft. Stems on this process's first device,
     equal to ``hpr_separate`` with ``fast_rfft`` off up to the
-    transforms' rounding."""
-    if mesh.spans_processes:
-        # zen_tpu offers several processes on the corpus alone; the port
-        # exchanges frequency halos and sums only inside a process
-        raise ZenError("tp_separate: the mesh spans processes; tp runs in one process")
+    transforms' rounding.
+
+    Over several processes each runs the ring through its first entry (a
+    dp x tp mesh whose split dp takes: its own dp row's whole ring, with
+    no exchange, zen_tpu's ``P()`` replicas); where the ring is cut, the
+    frequency halos at its cut edges and the partial inverses cross
+    processes (``multihost.ring_shift``, ``ordered_sum``), and every
+    process gets the stems."""
     if cfg.border != WRAP:
         raise ZenError("tp_separate supports the wrap border only")
-    devs = [mesh.device(**{tp_axis: t}) for t in range(mesh.size(tp_axis))]
-    if cfg.nfft % len(devs):
+    sh = _ring(mesh, tp_axis, wrap=True)
+    if cfg.nfft % sh.n:
         raise ZenError(
-            f"tp width {len(devs)} must divide nfft {cfg.nfft} (a remainder "
+            f"tp width {sh.n} must divide nfft {cfg.nfft} (a remainder "
             "would silently drop the top bins from every shard)"
         )
     if cfg.fast_rfft:
         cfg = dataclasses.replace(cfg, fast_rfft=False)
     audio = _as_audio(audio)
     length = audio.shape[-1]
-    on_card = any(d.type == "cuda" for d in devs)
+    on_card = any(d.type == "cuda" for d in sh.devs)
     n_frames = _n_frames(length, cfg)
     with _tf32_off() if on_card else contextlib.nullcontext():
-        out = _tp_stems(*_tp_masks(audio, cfg, devs, n_frames), cfg, devs, n_frames)
+        out = _tp_stems(*_tp_masks(audio, cfg, sh, n_frames), cfg, sh, n_frames)
     return {name: out[i, ..., :length] for i, name in enumerate(STEMS)}
 
 

@@ -1,46 +1,72 @@
-"""Multi-process corpus smoke (counterpart of ``scripts/multihost_smoke.py``):
-run ``separate_corpus`` as real processes on localhost and hold their stems
-byte for byte against one process running the same global mesh.
+"""Multi-process smoke (counterpart of ``scripts/multihost_smoke.py``): run
+the port's sharded paths as real processes on localhost and hold what
+each process ends with byte for byte against one process running the
+same global mesh.
 
     python -m zen_tpu_torch.tools.multihost_smoke [--device cuda|cpu]
-        [--nprocs 2] [--legs run,resume,cli] [--keep DIR]
+        [--nprocs 2] [--legs run,resume,cli,sp,sp_resume,tp,fleet] [--keep DIR]
 
 The N worker processes join one ``torch.distributed`` group (gloo, a
-port taken from a socket bound to port 0) and run ``separate_corpus`` on
-the global mesh dp = N x sp = 2, each process holding the entries of its dp
-row (the card repeated, or the CPU). The golden run is this process
-alone on a mesh of the same global shape. The legs:
+port taken from a socket bound to port 0) and run on a global mesh, each
+process holding its own entries (the card repeated, or the CPU). The
+golden run is this process alone on a mesh of the same global shape (the
+card given N times). The legs:
 
-  run     the N-process run; every stem byte-equal to the golden run's,
-          and in every worker each sp ring inside one process;
-  resume  the fleet SIGKILLed once the journal holds the first batch
+  run     ``separate_corpus`` on dp = N x sp = 2, each process holding
+          the entries of its dp row; every stem byte-equal to the golden
+          run's, and in every worker each sp ring inside one process;
+  resume  that fleet SIGKILLed once the journal holds the first batch
           (the workers' reader holds the last track until the kill, so
           the kill lands before it), then run again: the journaled
           tracks are skipped and the stems still byte-match;
   cli     `python -m zen_tpu_torch corpus --mesh dp=N --nprocs N
           --coordinator 127.0.0.1:P --proc-id I` in N processes, against
-          the golden run of the dp = N x sp = 1 mesh.
+          the golden run of the dp = N x sp = 1 mesh;
+  sp      `zen-torch corpus --mesh sp=N --nprocs N ...` (the CLI's own
+          code, in each worker) over one sp ring with a shard in each
+          process, the last track routed long, so that every halo and
+          the blocked scan's ring cross processes; stems byte-equal to
+          the golden dp = 1 x sp = N run's, the mesh lines printed;
+  sp_resume  that fleet SIGKILLed once the long track's pass 1 is
+          checkpointed (the workers hold before its pass 2; the open
+          batch, the track read before it, is not yet separated) and run
+          again, resuming pass 1 from the checkpoint on every process;
+          stems byte-equal to the golden run's;
+  tp      ``tp_hpri_offline`` at ``{"tp": 2}`` and ``{"tp": 4}`` over 2
+          processes (whatever --nprocs says): the halos at the cut edges
+          and the ordered sums of the partial inverses cross processes;
+          each process's stems byte-equal to the golden run's;
+  fleet   ``MultiStreamHPR`` over ``{"dp": N}``: each process steps its
+          own streams; its rows byte-equal to those slots of the golden
+          fleet's, before and after a reset_streams across the split.
 
-As zen_tpu's smoke does, the library legs' workers lower
+As zen_tpu's smoke does, the corpus legs' workers lower
 ``LONG_TRACK_SAMPLES`` so that the last track takes the long route
 (``sharded_hpri_blocked`` at sp > 1, process 0's ``process_blocked`` at sp
-= 1). The CLI leg keeps the default, so every track is batched. Sizes: on
+= 1). The cli leg keeps the default, so every track is batched. Sizes: on
 the CPU the corpus of zen_tpu's smoke (fs 8000, hops 256 / 64, tracks of
-1.1-2.2 s); on the card the corpus command's defaults (44.1 kHz, 4096 /
-2.0 / 256 / 2.0), four tracks of 30-90 s and one of 150 s.
+1.1-2.2 s), tp at 8 kHz hops 64 / 16 on 0.5 s, a fleet of 12 streams at
+hop 64; on the card the corpus command's defaults (44.1 kHz, 4096 / 2.0
+/ 256 / 2.0) on four tracks of 10-30 s and one of 50 s, tp at
+BASELINE.json configs[0] (44.1 kHz, 4096 / 2.5 / 256 / 2.5) on the
+161,571-sample clip, and the configs[3] fleet: 64 streams at hop 256,
+blocks of 32 hops. ``--size cpu`` takes the CPU sizes on the card.
 
 Each worker has a timeout and prints one JSON line: its results, its
 median launches by route and on the rank routes' key store (all 0 on the
-CPU, where the wrappers run their plain twins), its wall and the wall of its cross-process gathers. The
-CLI leg's processes are the command itself, whose launches nobody reads.
-Processes that share one card run by time slicing: the walls say nothing
-about scaling. The last line is a JSON report of every leg.
+CPU, where the wrappers run their plain twins), its wall, and its
+exchanges (``multihost.traffic``: bytes sent and seconds waited, by
+kind: halos, ordered sums, gathers, agreements). The cli leg's processes
+are the command itself, whose launches nobody reads. Processes that share
+one card run by time slicing: the walls say nothing about scaling. The
+last line is a JSON report of every leg.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import datetime
+import hashlib
 import json
 import os
 import shutil
@@ -68,12 +94,71 @@ class Corpus:
 
 CORPORA = {
     "cpu": Corpus(8000, 256, 64, (1.3, 1.7, 1.1, 1.5, 2.2), 8000),
-    "cuda": Corpus(44100, 4096, 256, (30.0, 45.0, 60.0, 90.0, 150.0), 60 * 44100),
+    "cuda": Corpus(44100, 4096, 256, (10.0, 15.0, 20.0, 30.0, 50.0), 20 * 44100),
 }
 
 
-def corpus_of(device: str) -> Corpus:
-    return CORPORA["cuda" if device.startswith("cuda") else "cpu"]
+@dataclasses.dataclass(frozen=True)
+class Rings:
+    fs: float
+    hop_h: int  # the tp cascade: hop_h / beta_h / hop_p / beta_p
+    hop_p: int
+    beta: float
+    samples: int  # the tp clip
+    streams: int  # the fleet: streams x hop, blocks of ``block`` hops
+    fleet_fs: float
+    hop: int
+    block: int
+    steps: int
+
+
+RINGS = {
+    "cpu": Rings(8000.0, 64, 16, 2.0, 4000, 12, 8000.0, 64, 8, 3),
+    "cuda": Rings(44100.0, 4096, 256, 2.5, 161_571, 64, 44100.0, 256, 32, 4),
+}
+
+
+def _size(device: str, size: str = "") -> str:
+    return size or ("cuda" if device.startswith("cuda") else "cpu")
+
+
+def corpus_of(device: str, size: str = "") -> Corpus:
+    return CORPORA[_size(device, size)]
+
+
+def rings_of(device: str, size: str = "") -> Rings:
+    return RINGS[_size(device, size)]
+
+
+def long_cut(corpus: Corpus, sp: int) -> int:
+    """The lowered LONG_TRACK_SAMPLES at sp: the corpus routes a track
+    long past this x sp, the same threshold (long_cut x 2) at every sp, so
+    that the last track alone goes long."""
+    return corpus.long_cut * 2 // sp
+
+
+def tp_clip(rings: Rings) -> np.ndarray:
+    """The tp leg's clip: a sine chord under noise bursts and a 0.01 noise
+    floor, from seed 5."""
+    rng = np.random.default_rng(5)
+    t = np.arange(rings.samples) / rings.fs
+    x = 0.4 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 330 * t)
+    x += 0.01 * rng.standard_normal(rings.samples)
+    for j in range(0, rings.samples, rings.samples // 7):
+        span = min(rings.samples - j, int(rings.fs) // 100)
+        x[j : j + span] += rng.standard_normal(span) * np.exp(-np.arange(span) / (span / 6))
+    return x.astype(np.float32)
+
+
+def fleet_blocks(rings: Rings) -> np.ndarray:
+    """The fleet leg's blocks [steps, streams, block, hop], from seed 9."""
+    rng = np.random.default_rng(9)
+    shape = (rings.steps, rings.streams, rings.block, rings.hop)
+    return (0.3 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def digest(x) -> str:
+    return hashlib.sha256(np.ascontiguousarray(x.detach().cpu().numpy()).tobytes()).hexdigest()
 
 
 def free_port() -> int:
@@ -123,22 +208,48 @@ def read_launches() -> dict:
     return counts
 
 
-def separate(corpus_dir: str, out_dir: str, device: str, dp: int, sp: int, long_cut: bool,
-             hold_last: bool = False, hold_s: float = 0.0) -> dict:
+def _measured(fn, device: str) -> tuple:
+    """(fn(), {its launches, its exchanges, its wall}) in this process."""
+    import torch
+
+    from ..parallel import multihost
+
+    before = read_launches()
+    multihost.reset_traffic()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {"launches": {k: v - before[k] for k, v in read_launches().items()},
+                 "traffic": {k: dict(v) for k, v in multihost.traffic.items()}, "wall_s": wall}
+
+
+def _report(**kw) -> dict:
+    from ..parallel import multihost
+
+    return {"worker": multihost.process_index(), "nprocs": multihost.process_count(), **kw}
+
+
+def separate(corpus_dir: str, out_dir: str, device: str, dp: int, sp: int, cut: bool,
+             hold_last: bool = False, hold_s: float = 0.0, size: str = "",
+             whole_rings: bool = True) -> dict:
     """This process's share of the corpus over the global mesh dp x sp
-    (one process: the golden run; in a process group: its dp rows): its
-    report, with the launches and cross-process gathers it made."""
+    (one process: the golden run; in a process group: its shards), the
+    long threshold lowered when ``cut``: its report, with the launches and
+    exchanges it made. ``whole_rings`` requires every sp ring inside one
+    process (the run and resume legs)."""
     from ..drivers import offline
     from ..drivers.corpus import separate_corpus
     from ..io.audio import read_audio_mono
     from ..parallel import multihost
     from ..parallel.mesh import make_mesh
 
-    corpus = corpus_of(device)
+    corpus = corpus_of(device, size)
     n_local = dp * sp // multihost.process_count()
     mesh = make_mesh({"dp": dp, "sp": sp}, devices=[device] * n_local)
     rings = [sorted(set(row.tolist())) for row in mesh.processes]
-    if any(len(r) != 1 for r in rings):
+    if whole_rings and any(len(r) != 1 for r in rings):
         raise AssertionError(f"an sp ring spans processes: owners by dp row {rings}")
     tracks = sorted(os.path.join(corpus_dir, f) for f in os.listdir(corpus_dir)
                     if f.endswith(".wav"))
@@ -148,36 +259,103 @@ def separate(corpus_dir: str, out_dir: str, device: str, dp: int, sp: int, long_
             time.sleep(hold_s)  # until the orchestrator's SIGKILL
         return read_audio_mono(path)
 
-    gather = [0.0]
-    allgather, long_samples = multihost.allgather, offline.LONG_TRACK_SAMPLES
-
-    def timed_allgather(x):
-        t = time.perf_counter()
-        out = allgather(x)
-        gather[0] += time.perf_counter() - t
-        return out
-
-    before = read_launches()
-    multihost.allgather = timed_allgather
-    if long_cut:
-        offline.LONG_TRACK_SAMPLES = corpus.long_cut
+    long_samples = offline.LONG_TRACK_SAMPLES
+    if cut:
+        offline.LONG_TRACK_SAMPLES = long_cut(corpus, sp)
     try:
-        t0 = time.perf_counter()
-        res = separate_corpus(tracks, out_dir, mesh, hop_h=corpus.hop_h, hop_p=corpus.hop_p,
-                              reader=reader)
-        wall = time.perf_counter() - t0
+        res, measured = _measured(
+            lambda: separate_corpus(tracks, out_dir, mesh, hop_h=corpus.hop_h,
+                                    hop_p=corpus.hop_p, reader=reader), device)
     finally:
-        multihost.allgather, offline.LONG_TRACK_SAMPLES = allgather, long_samples
-    launches = {k: v - before[k] for k, v in read_launches().items()}
-    return {"worker": multihost.process_index(), "nprocs": multihost.process_count(),
-            "results": res, "launches": launches, "wall_s": wall, "gather_s": gather[0],
-            "mesh": mesh.shape, "owners": rings}
+        offline.LONG_TRACK_SAMPLES = long_samples
+    return _report(results=res, mesh=mesh.shape, owners=rings, **measured)
+
+
+def run_tp(device: str, size: str = "") -> dict:
+    """``tp_hpri_offline`` at {"tp": 2} and {"tp": 4} over this process's
+    group (or this process alone): each mesh's stems' digests, launches,
+    exchanges and wall; launches, exchanges and walls summed over both."""
+    from ..drivers.offline import HPRIOffline
+    from ..parallel import multihost
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded import tp_hpri_offline
+
+    rings = rings_of(device, size)
+    sep = HPRIOffline(rings.fs, rings.hop_h, rings.hop_p, rings.beta, rings.beta,
+                      fast_rfft=False, device=device)
+    audio = tp_clip(rings)
+    out = {}
+    for tp in (2, 4):
+        mesh = make_mesh({"tp": tp}, devices=[device] * (tp // multihost.process_count()))
+        stems, measured = _measured(lambda: tp_hpri_offline(audio, sep.cfg_h, sep.cfg_p, mesh),
+                                    device)
+        out[f"tp{tp}"] = {"digests": [digest(x) for x in stems], **measured}
+    traffic = {kind: _summed([out[k]["traffic"][kind] for k in out])
+               for kind in out["tp2"]["traffic"]}
+    return _report(**out, launches=_summed([out[k]["launches"] for k in out]), traffic=traffic,
+                   wall_s=sum(out[k]["wall_s"] for k in out))
+
+
+def run_fleet(device: str, n_dp: int, split: int, size: str = "") -> dict:
+    """``MultiStreamHPR`` over {"dp": n_dp} in this process's group (or
+    this process alone): for each step its rows' digests, in ``split``
+    equal runs of slots (one in a process of the group: its own), a
+    reset_streams across the first split after step 0; its slots,
+    launches, exchanges and wall."""
+    from ..drivers.realtime import MultiStreamHPR
+    from ..parallel import multihost
+    from ..parallel.mesh import make_mesh
+
+    rings = rings_of(device, size)
+    mesh = make_mesh({"dp": n_dp}, devices=[device] * (n_dp // multihost.process_count()))
+    fleet = MultiStreamHPR(rings.streams, rings.fleet_fs, rings.hop, device=device, mesh=mesh)
+    per = rings.streams // n_dp
+
+    def steps():
+        digests = []
+        for i, blk in enumerate(fleet_blocks(rings)):
+            if i == 1:
+                fleet.reset_streams([per - 1, per])
+            rows = fleet.process_block(blk)
+            digests.append([digest(r) for r in rows.chunk(split)])
+        return digests
+
+    digests, measured = _measured(steps, device)
+    return _report(digests=digests, slots=[fleet.slots.start, fleet.slots.stop], **measured)
+
+
+def run_cli(argv: list, device: str, rank: int, nprocs: int, hold_p2: bool, hold_s: float,
+            size: str = "") -> dict:
+    """``zen-torch corpus --mesh sp=nprocs`` (``cli.main``) in this
+    process, the long threshold lowered to ``long_cut`` at that sp; with
+    ``hold_p2`` each long
+    track waits ``hold_s`` before its pass 2 (until the orchestrator's
+    SIGKILL). The command joins and leaves the group itself."""
+    from .. import cli
+    from ..drivers import offline
+    from ..parallel import sharded
+
+    offline.LONG_TRACK_SAMPLES = long_cut(corpus_of(device, size), nprocs)
+    if hold_p2:
+        scan = sharded.sharded_separate_blocked_checkpointed
+
+        def held(*a, tag="track", **kw):
+            if tag.endswith(".p2"):
+                time.sleep(hold_s)
+            return scan(*a, tag=tag, **kw)
+
+        sharded.sharded_separate_blocked_checkpointed = held
+    rc, measured = _measured(lambda: cli.main(argv), device)
+    if rc:
+        raise RuntimeError(f"zen-torch corpus exited {rc}")
+    return {"worker": rank, "nprocs": nprocs, **measured}
 
 
 def worker(args) -> int:
-    """One process of a fleet: join the group, separate, print the report.
-    On the CPU a worker computes on one thread: N processes of the
-    machine's width each would oversubscribe it."""
+    """One process of a fleet: join the group (the sp leg's command joins
+    it itself), run its leg, print the report. On the CPU a worker
+    computes on one thread: N processes of the machine's width each would
+    oversubscribe it."""
     import torch
 
     from ..parallel import multihost
@@ -185,11 +363,21 @@ def worker(args) -> int:
 
     if not args.device.startswith("cuda"):
         torch.set_num_threads(1)
-
+    if args.leg == "sp":
+        report = run_cli(args.cli_argv, args.device, args.proc_id, args.nprocs, args.hold,
+                         args.timeout, args.size)
+        print(json.dumps(report), flush=True)
+        return 0
     distributed_init(f"127.0.0.1:{args.port}", args.nprocs, args.proc_id,
                      timeout=datetime.timedelta(seconds=args.timeout))
-    print(json.dumps(separate(args.corpus_dir, args.out_dir, args.device, args.dp, args.sp,
-                              args.long_cut, args.hold_last, args.timeout)), flush=True)
+    if args.leg == "tp":
+        report = run_tp(args.device, args.size)
+    elif args.leg == "fleet":
+        report = run_fleet(args.device, args.nprocs, 1, args.size)
+    else:
+        report = separate(args.corpus_dir, args.out_dir, args.device, args.dp, args.sp,
+                          args.long_cut, args.hold, args.timeout, args.size)
+    print(json.dumps(report), flush=True)
     multihost.leave()
     return 0
 
@@ -200,22 +388,37 @@ def _env() -> dict:
     return env
 
 
+def _base_cmd(args, leg: str, rank: int, nprocs: int, port: int) -> list:
+    return [sys.executable, "-m", MODULE, "--worker", "--leg", leg, "--device", args.device,
+            "--size", args.size, "--proc-id", str(rank), "--nprocs", str(nprocs),
+            "--port", str(port), "--timeout", str(args.timeout)]
+
+
 def _worker_cmd(args, rank: int, port: int, out_dir: str, hold_last: bool = False) -> list:
-    """A worker of the library legs: dp = N x sp = 2, the long cut."""
-    cmd = [sys.executable, "-m", MODULE, "--worker", "--device", args.device,
-           "--proc-id", str(rank), "--nprocs", str(args.nprocs), "--dp", str(args.nprocs),
-           "--sp", "2", "--port", str(port), "--corpus-dir", args.corpus_dir,
-           "--out-dir", out_dir, "--timeout", str(args.timeout), "--long-cut"]
-    return cmd + ["--hold-last"] * hold_last
+    """A worker of the run and resume legs: dp = N x sp = 2, the long cut."""
+    cmd = _base_cmd(args, "corpus", rank, args.nprocs, port) + [
+        "--dp", str(args.nprocs), "--sp", "2", "--corpus-dir", args.corpus_dir,
+        "--out-dir", out_dir, "--long-cut"]
+    return cmd + ["--hold"] * hold_last
+
+
+def _corpus_argv(args, rank: int, port: int, out_dir: str, mesh: str) -> list:
+    corpus = corpus_of(args.device, args.size)
+    return ["corpus", "-i", os.path.join(args.corpus_dir, "*.wav"), "-o", out_dir, "--hps",
+            str(corpus.hop_h), "2.0", str(corpus.hop_p), "2.0", "--mesh", mesh,
+            "--device", args.device, "--nprocs", str(args.nprocs),
+            "--coordinator", f"127.0.0.1:{port}", "--proc-id", str(rank)]
 
 
 def _cli_cmd(args, rank: int, port: int, out_dir: str) -> list:
-    corpus = corpus_of(args.device)
-    return [sys.executable, "-m", "zen_tpu_torch", "corpus", "-i",
-            os.path.join(args.corpus_dir, "*.wav"), "-o", out_dir, "--hps", str(corpus.hop_h),
-            "2.0", str(corpus.hop_p), "2.0", "--mesh", f"dp={args.nprocs}",
-            "--device", args.device, "--nprocs", str(args.nprocs),
-            "--coordinator", f"127.0.0.1:{port}", "--proc-id", str(rank)]
+    return [sys.executable, "-m", "zen_tpu_torch",
+            *_corpus_argv(args, rank, port, out_dir, f"dp={args.nprocs}")]
+
+
+def _sp_cmd(args, rank: int, port: int, out_dir: str, hold: bool = False) -> list:
+    """A worker of the sp leg: the corpus command over sp = N, in-process."""
+    cmd = _base_cmd(args, "sp", rank, args.nprocs, port) + ["--hold"] * hold
+    return cmd + ["--", *_corpus_argv(args, rank, port, out_dir, f"sp={args.nprocs}")]
 
 
 def _spawn(cmds: list) -> list:
@@ -284,26 +487,50 @@ def _same(got: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: stems differ from the golden run's: {diff}")
 
 
-def _golden(args, name: str, sp: int, long_cut: bool) -> dict:
-    """The golden run: this process alone over the global mesh."""
+def _golden(args, name: str, dp: int, sp: int, cut: bool) -> dict:
+    """The golden corpus run: this process alone over the global mesh."""
     out = os.path.join(args.work, name)
     t0 = time.perf_counter()
-    report = separate(args.corpus_dir, out, args.device, args.nprocs, sp, long_cut)
+    report = separate(args.corpus_dir, out, args.device, dp, sp, cut, size=args.size,
+                      whole_rings=False)
     return {"wall_s": time.perf_counter() - t0, "workers": [report],
             "launches": report["launches"], "dir": out, "outputs": []}
 
 
-def run_legs(args) -> dict:
-    """Run the legs named in ``args.legs``; raise on the first failure.
-    The report: each leg's wall, summed launches, workers' reports and
-    journal lines."""
-    n, total = args.nprocs, len(corpus_of(args.device).seconds)
-    paths = make_corpus(args.corpus_dir, corpus_of(args.device))
-    report = {"nprocs": n, "device": args.device, "tracks": len(paths), "legs": {}}
-    legs = report["legs"]
+def _kill_when(procs: list, ready, timeout: float, what: str) -> None:
+    """SIGKILL the fleet once ``ready()`` holds; raise if it ends or
+    stalls first."""
+    deadline = time.monotonic() + timeout
+    stalled = False
+    while not ready():
+        if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
+            stalled = True
+            break
+        time.sleep(0.05)
+    for p in procs:
+        if p.poll() is None:
+            os.kill(p.pid, signal.SIGKILL)
+    outs = [p.communicate()[0] for p in procs]
+    if stalled:
+        raise RuntimeError(f"{what}: the fleet ended or stalled before the kill point:"
+                           + "".join(f"\n--- process {i} ---\n{o}" for i, o in enumerate(outs)))
+
+
+def _journal_len(out_dir: str) -> int:
+    path = os.path.join(out_dir, "progress.jsonl")
+    return len(_journal(out_dir)) if os.path.exists(path) else 0
+
+
+def _tracks_lines(leg: dict) -> list:
+    return [json.loads(line) for o in leg["outputs"] for line in o.splitlines()
+            if '"metric": "corpus_tracks"' in line]
+
+
+def _run_corpus_legs(args, legs: dict, total: int) -> None:
+    n = args.nprocs
     want = {"done": 0, "processed": total}
     if {"run", "resume"} & set(args.legs):
-        legs["golden"] = _golden(args, "golden", 2, True)
+        legs["golden"] = _golden(args, "golden", n, 2, True)
         golden = stems(legs["golden"]["dir"])
         if len(golden) != 3 * total:
             raise AssertionError(f"golden run wrote {sorted(golden)}")
@@ -319,25 +546,11 @@ def run_legs(args) -> dict:
     if "resume" in args.legs:
         out = os.path.join(args.work, "resume")
         port = free_port()
-        procs = _spawn([_worker_cmd(args, i, port, out, hold_last=True)
-                        for i in range(n)])
-        journal = os.path.join(out, "progress.jsonl")
-        deadline = time.monotonic() + args.timeout
-        try:
-            # the first batch is n tracks; the fleet holds the last track,
-            # so it cannot journal past the batch before the kill
-            while len(_journal(out) if os.path.exists(journal) else []) < n:
-                if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
-                    raise RuntimeError("resume: the fleet ended or stalled before its first "
-                                       "batch was journaled")
-                time.sleep(0.05)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    os.kill(p.pid, signal.SIGKILL)
-            for p in procs:
-                p.communicate()
-        done = len(_journal(out))
+        # the first batch is n tracks; the fleet holds the last track, so
+        # it cannot journal past the batch before the kill
+        _kill_when(_spawn([_worker_cmd(args, i, port, out, hold_last=True) for i in range(n)]),
+                   lambda: _journal_len(out) >= n, args.timeout, "resume")
+        done = _journal_len(out)
         if done != n:
             raise AssertionError(f"resume: the kill landed after {done} journaled tracks, not {n}")
         port = free_port()
@@ -350,16 +563,111 @@ def run_legs(args) -> dict:
         _same(stems(out), golden, "resume")
         leg["journal"] = _journal(out)
     if "cli" in args.legs:
-        legs["cli_golden"] = _golden(args, "cli_golden", 1, False)
+        legs["cli_golden"] = _golden(args, "cli_golden", n, 1, False)
         out = os.path.join(args.work, "cli")
         port = free_port()
         leg = legs["cli"] = _fleet(args, [_cli_cmd(args, i, port, out) for i in range(n)], "cli")
-        lines = [json.loads(line) for o in leg["outputs"] for line in o.splitlines()
-                 if '"metric": "corpus_tracks"' in line]
-        if lines != [{"metric": "corpus_tracks", **want}] * n:
-            raise AssertionError(f"cli: last lines {lines}")
+        if _tracks_lines(leg) != [{"metric": "corpus_tracks", **want}] * n:
+            raise AssertionError(f"cli: last lines {_tracks_lines(leg)}")
         _same(stems(out), stems(legs["cli_golden"]["dir"]), "cli")
         leg["journal"] = _journal(out)
+
+
+def _run_sp_leg(args, legs: dict, total: int) -> None:
+    """The corpus command over sp = N (the sp leg), then killed before its
+    long track's pass 2 and resumed (sp_resume), each against the golden
+    dp = 1 x sp = N run."""
+    n = args.nprocs
+    legs["sp_golden"] = _golden(args, "sp_golden", 1, n, True)
+    golden = stems(legs["sp_golden"]["dir"])
+    if "sp" in args.legs:
+        out = os.path.join(args.work, "sp")
+        port = free_port()
+        leg = legs["sp"] = _fleet(args, [_sp_cmd(args, i, port, out) for i in range(n)], "sp")
+        if _tracks_lines(leg) != [{"metric": "corpus_tracks", "done": 0, "processed": total}] * n:
+            raise AssertionError(f"sp: last lines {_tracks_lines(leg)}")
+        leg["mesh_lines"] = [line for o in leg["outputs"] for line in o.splitlines()
+                             if line.startswith("corpus: ")]
+        _same(stems(out), golden, "sp")
+        leg["journal"] = _journal(out)
+    if "sp_resume" not in args.legs:
+        return
+    out = os.path.join(args.work, "sp_resume")
+    tracks = sorted(f for f in os.listdir(args.corpus_dir) if f.endswith(".wav"))
+    p1 = os.path.join(out, ".ckpt", f"{os.path.splitext(tracks[-1])[0]}.p1.ckpt.npz")
+    # at dp = 1 each short track is a batch of its own, and a long track
+    # is separated as it is read, before the open batch: the kill lands
+    # with every track but the last two journaled
+    port = free_port()
+    _kill_when(_spawn([_sp_cmd(args, i, port, out, hold=True) for i in range(n)]),
+               lambda: _journal_len(out) >= total - 2 and os.path.exists(p1), args.timeout,
+               "sp resume")
+    done = _journal_len(out)
+    if done != total - 2:
+        raise AssertionError(f"sp resume: the kill landed after {done} journaled tracks")
+    port = free_port()
+    leg = legs["sp_resume"] = _fleet(args, [_sp_cmd(args, i, port, out) for i in range(n)],
+                                     "sp resume")
+    leg["done_before"] = done
+    want = {"metric": "corpus_tracks", "done": done, "processed": total - done}
+    if _tracks_lines(leg) != [want] * n:
+        raise AssertionError(f"sp resume: last lines {_tracks_lines(leg)}")
+    _same(stems(out), golden, "sp resume")
+    leg["journal"] = _journal(out)
+
+
+def _run_tp_leg(args, legs: dict) -> None:
+    """tp_hpri_offline at tp 2 and 4 over 2 processes against this
+    process's run of the same meshes."""
+    t0 = time.perf_counter()
+    golden = run_tp(args.device, args.size)
+    legs["tp_golden"] = {"wall_s": time.perf_counter() - t0, "workers": [golden],
+                         "launches": golden["launches"], "outputs": []}
+    port = free_port()
+    leg = legs["tp"] = _fleet(args, [_base_cmd(args, "tp", i, 2, port) for i in range(2)], "tp")
+    for w in leg["workers"]:
+        for key in ("tp2", "tp4"):
+            if w[key]["digests"] != golden[key]["digests"]:
+                raise AssertionError(f"tp: process {w['worker']}'s {key} stems differ from "
+                                     "the golden run's")
+
+
+def _run_fleet_leg(args, legs: dict) -> None:
+    """MultiStreamHPR over {"dp": N} in N processes against this
+    process's fleet on the same mesh, row run by row run."""
+    n = args.nprocs
+    t0 = time.perf_counter()
+    golden = run_fleet(args.device, n, n, args.size)
+    legs["fleet_golden"] = {"wall_s": time.perf_counter() - t0, "workers": [golden],
+                            "launches": golden["launches"], "outputs": []}
+    port = free_port()
+    leg = legs["fleet"] = _fleet(args, [_base_cmd(args, "fleet", i, n, port) for i in range(n)],
+                                 "fleet")
+    per = rings_of(args.device, args.size).streams // n
+    for w in leg["workers"]:
+        r = w["worker"]
+        if w["slots"] != [r * per, (r + 1) * per]:
+            raise AssertionError(f"fleet: process {r}'s slots {w['slots']}")
+        if w["digests"] != [[step[r]] for step in golden["digests"]]:
+            raise AssertionError(f"fleet: process {r}'s rows differ from the golden run's")
+
+
+def run_legs(args) -> dict:
+    """Run the legs named in ``args.legs``; raise on the first failure.
+    The report: each leg's wall, summed launches, workers' reports (and a
+    corpus leg's journal lines)."""
+    report = {"nprocs": args.nprocs, "device": args.device, "legs": {}}
+    legs = report["legs"]
+    if {"run", "resume", "cli", "sp", "sp_resume"} & set(args.legs):
+        paths = make_corpus(args.corpus_dir, corpus_of(args.device, args.size))
+        report["tracks"] = len(paths)
+        _run_corpus_legs(args, legs, len(paths))
+        if {"sp", "sp_resume"} & set(args.legs):
+            _run_sp_leg(args, legs, len(paths))
+    if "tp" in args.legs:
+        _run_tp_leg(args, legs)
+    if "fleet" in args.legs:
+        _run_fleet_leg(args, legs)
     for leg in legs.values():
         del leg["outputs"]
     return report
@@ -370,13 +678,17 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--nprocs", type=int, default=2)
     ap.add_argument("--legs", default="run,resume,cli",
-                    help="comma-separated: run, resume, cli")
+                    help="comma-separated: run, resume, cli, sp, sp_resume, tp, fleet")
+    ap.add_argument("--size", default="", choices=("", "cpu", "cuda"),
+                    help="the sizes of the corpus, the tp clip and the fleet (default: the "
+                    "device's)")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds a leg (and a collective) may take")
     ap.add_argument("--keep", default="", metavar="DIR",
                     help="work under DIR and keep it (default: a temporary directory)")
     # a worker's own arguments (set by the orchestrator)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--leg", default="corpus", help=argparse.SUPPRESS)
     ap.add_argument("--proc-id", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--dp", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--sp", type=int, default=2, help=argparse.SUPPRESS)
@@ -384,12 +696,21 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--corpus-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--out-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--long-cut", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--hold-last", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--hold", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("cli_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.nprocs < 2:
         ap.error("--nprocs must be 2 or more")
     args.legs = [leg for leg in args.legs.split(",") if leg]
+    if args.cli_argv[:1] == ["--"]:
+        args.cli_argv = args.cli_argv[1:]
     return args
+
+
+def traffic_line(traffic: dict) -> str:
+    """A worker's exchanges: bytes sent and seconds waited, by kind."""
+    return ", ".join(f"{k} {v['bytes']} B / {v['seconds']:.3f} s" for k, v in traffic.items()
+                     if v["calls"])
 
 
 def main(argv=None) -> int:
@@ -406,9 +727,10 @@ def main(argv=None) -> int:
             shutil.rmtree(args.work, ignore_errors=True)
     for name, leg in report["legs"].items():
         walls = ", ".join(f"{w['wall_s']:.2f}" for w in leg["workers"])
-        gathers = ", ".join(f"{w['gather_s']:.3f}" for w in leg["workers"])
+        sent = "; ".join(f"[{traffic_line(w['traffic'])}]" for w in leg["workers"]
+                         if "traffic" in w)
         print(f"multihost_smoke {name}: {leg['wall_s']:.2f} s in all; workers' walls [{walls}] "
-              f"s, their gathers [{gathers}] s; launches {leg['launches']}")
+              f"s, their exchanges {sent or 'none'}; launches {leg['launches']}")
     print(json.dumps(report))
     return 0
 
