@@ -127,6 +127,16 @@ entry points at full width:
            tp_hpri_offline at tp 2 and 4 over 2 processes (configs[0]);
            MultiStreamHPR 64 x hop 256 over dp = 2; and the pipelined
            cascade given the card twice;
+  phase 31 median2d, the reference's whole-matrix filter
+           (zen_tpu_torch/ops/median.py), every direction x border at the
+           4-minute track's offline widths ([2585, 8193] frequency fl 187,
+           K2 rank; time fl 17, K1 network; [41355, 513] time fl 11, K1
+           network; frequency fl 13, K2 network; time fl 93, K1 rank), bf16,
+           the marked matrix, +inf rows, fl past both dims and a
+           transposed view: bitwise to its mapping over the kernels' twins
+           (and to median2d_plain on the CPU for the small ones), launches
+           exactly as predicted, its device time and its glue's beside the
+           twins, kthvalue and the bound, and what NaN gives on each route;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -3460,6 +3470,179 @@ def phase_multihost(smi: str) -> dict:
     return total
 
 
+def median2d_cases() -> list:
+    """(label, x, filter_len, direction, border) of phase 31: every
+    direction x border at the offline cascade's full spectrogram widths
+    (HPRIOffline(44100, 4096, 256, 2.5, 2.5) on the 4-minute track: pass
+    1's [2585, 8193] at its frequency fl 187, K2's rank route, and time fl
+    17, K1's network; pass 2's [41355, 513] at its time fl 11, K1's
+    network, and frequency fl 13, K2's network), K1's rank route (time fl
+    93), bf16, tests/test_ops.py's marked matrix, +inf rows and a column,
+    a matrix both filters outreach (fl 13 on [9, 9]: wrap goes round more
+    than once, 'valid' launches nothing) and a transposed view with
+    leading dims."""
+    from zen_tpu_torch.ops.median import (BORDERS, DIRECTIONS, FREQUENCY, REPLICATE,
+                                          TIME_ANTICAUSAL, TIME_CAUSAL, VALID, WRAP)
+
+    rng = np.random.default_rng(31)
+    pass1 = _mags(rng, TRACK_FRAMES_H, 8193)
+    pass2 = _mags(rng, TRACK_FRAMES_P, 513)
+    marked = torch.zeros(64, 17, device=DEVICE)
+    marked[32, :] = 5
+    marked[:, 8] = 8
+    infs = _mags(rng, 64, 513)
+    infs[20:23, :] = float("inf")
+    infs[:, 100] = float("inf")
+    times = (TIME_CAUSAL, TIME_ANTICAUSAL)
+    cases = []
+    for label, x, fl, directions, borders in (
+        (f"pass 1 [{TRACK_FRAMES_H}, 8193]", pass1, 187, (FREQUENCY,), BORDERS),
+        (f"pass 1 [{TRACK_FRAMES_H}, 8193]", pass1, 17, times, BORDERS),
+        (f"pass 2 [{TRACK_FRAMES_P}, 513]", pass2, 11, times, BORDERS),
+        (f"pass 2 [{TRACK_FRAMES_P}, 513]", pass2, 13, (FREQUENCY,), BORDERS),
+        (f"pass 2 [{TRACK_FRAMES_P}, 513]", pass2, 93, times, (WRAP, VALID)),
+        (f"pass 1 [{TRACK_FRAMES_H}, 8193] bf16", pass1.to(torch.bfloat16), 187, (FREQUENCY,),
+         (WRAP,)),
+        (f"pass 2 [{TRACK_FRAMES_P}, 513] bf16", pass2.to(torch.bfloat16), 11, (TIME_ANTICAUSAL,),
+         (REPLICATE,)),
+        ("marked [64, 17]", marked, 5, DIRECTIONS, BORDERS),
+        ("[64, 513] +inf rows and a column", infs, 11, DIRECTIONS, BORDERS),
+        ("[9, 9] past both dims", _mags(rng, 9, 9), 13, DIRECTIONS, BORDERS),
+        ("[3, 40, 65] transposed view", _mags(rng, 3, 65, 40).transpose(-1, -2), 7,
+         DIRECTIONS, (WRAP, VALID)),
+    ):
+        cases += [(label, x, fl, d, b) for d in directions for b in borders]
+    return cases
+
+
+def median2d_launch(x, fl: int, direction: str, border: str):
+    """The read_launches() key of the one launch median2d makes for a
+    call (zen_tpu_torch/ops/median.py: K2 at fl taps for frequency, K1 at
+    fl taps for time, over x or over its T + fl - 1 gathered rows), None
+    where 'valid' writes no output."""
+    from zen_tpu_torch.ops import median as om
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    fl = om.odd_filter_len(fl)
+    n = x.shape[-1 if direction == om.FREQUENCY else -2]
+    if border == om.VALID and n - fl < 1:
+        return None
+    if direction == om.FREQUENCY:
+        return f"sliding_median_boundary/{freq_label(fl)}"
+    offsets = tuple(range(-fl + 1, 1))  # fl contiguous taps, as every time case has
+    start, t_v = (0, n) if border == om.VALID else (fl - 1, n + fl - 1)
+    route = mc.time_route(offsets)
+    if route == "rank" and mc.time_rank_plan(offsets, start, t_v)[2] == "scratch":
+        route = SCRATCH
+    return f"tap_median_time/{route}"
+
+
+def median2d_library(x, fl: int, direction: str, border: str):
+    """One torch.kthvalue over the windows of the medians median2d
+    writes, as a callable (None where it writes none): an unfold view of
+    x ('valid') or of its rows or columns gathered under the border,
+    built here."""
+    from zen_tpu_torch.ops import median as om
+
+    fl = om.odd_filter_len(fl)
+    dim = -1 if direction == om.FREQUENCY else -2
+    n = x.shape[dim]
+    if border == om.VALID:
+        if n - fl < 1:
+            return None
+        src = x.narrow(dim, 0, n - 1)
+    else:
+        p = torch.arange(-(fl // 2), n + fl // 2, device=x.device)
+        src = x.index_select(dim, torch.remainder(p, n) if border == om.WRAP else p.clamp(0, n - 1))
+    windows = src.unfold(dim, fl, 1)
+    return lambda: torch.kthvalue(windows, fl // 2 + 1, dim=-1)
+
+
+def glue_only(x, fl: int, direction: str, border: str):
+    """median2d's mapping over stand-ins for the two kernels that launch
+    nothing (an empty output of the kernel's shape), as a callable: the
+    gathers, fills and pads median2d adds to its one kernel launch."""
+    from zen_tpu_torch.ops import median as om
+
+    def time_stub(a, b, offsets, start, fill=0.0):
+        return a.new_empty(a.shape[:-2] + (a.shape[-2] + b.shape[-2] - start, a.shape[-1]))
+
+    def freq_stub(v, k, mode):
+        return v.new_empty(v.shape[:-1] + (v.shape[-1] - (k - 1 if mode == "valid" else 0),))
+
+    return lambda: om.median2d_over(x, fl, direction, border, time_stub, freq_stub)
+
+
+def phase_median2d(smi: str) -> dict:
+    """median2d, the reference's whole-matrix filter, through its entry
+    point on every case of median2d_cases(): one counted run (each call's
+    launch exactly as median2d_launch predicts), then each output held
+    bitwise against median2d's mapping over the kernels' plain twins on
+    the card (median2d_over) and, for the small matrices, against
+    median2d_plain on the CPU; median2d's device time and its glue's
+    (glue_only), the twins' time, torch.kthvalue over the same windows
+    and the bound (x read once, the output written once). Last, a NaN
+    probe: what each route gives for a window holding NaN, beside its
+    twin (the kernels take magnitudes; recorded, not held)."""
+    from zen_tpu_torch.ops import median as om
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    cases = median2d_cases()
+    reset_launches()
+    want = read_launches()
+    outs = []
+    for _, x, fl, direction, border in cases:
+        outs.append(om.median2d(x, fl, direction, border))
+        key = median2d_launch(x, fl, direction, border)
+        if key:
+            want[key] += 1
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(launches == want, f"median2d launches {launches}, from the shapes {want}")
+    for (label, x, fl, direction, border), got in zip(cases, outs):
+        what = f"median2d {label} {direction}/{border} fl={fl}"
+        plain = lambda x=x, f=fl, d=direction, b=border: om.median2d_over(  # noqa: E731
+            x, f, d, b, mc.tap_median_time_plain, mc.sliding_median_boundary_plain)
+        twin = plain()
+        require(got.shape == x.shape and got.dtype == x.dtype, f"{what}: {got.shape} {got.dtype}")
+        require(bool(torch.isfinite(got).all()) or "+inf" in label, f"{what}: non-finite output")
+        require(torch.equal(got, twin), f"{what}: max |diff| to the twins "
+                f"{float((got.float() - twin.float()).abs().max())}")
+        held = "bitwise equal to the twins on the card"
+        if x.numel() < 1 << 16:
+            on_cpu = om.median2d_plain(x.cpu(), fl, direction, border)
+            require(torch.equal(got.cpu(), on_cpu), f"{what}: differs from median2d_plain")
+            held += " and to median2d_plain on the CPU"
+        del twin
+        p_us = median_us(plain, runs=3, warmup=0)
+        call = lambda x=x, f=fl, d=direction, b=border: om.median2d(x, f, d, b)  # noqa: E731
+        us, n = row_us(call)
+        g_us = median_us(glue_only(x, fl, direction, border))
+        library = median2d_library(x, fl, direction, border)
+        lib = f"{median_us(library, runs=3, warmup=1):.2f} us" if library else "none (no output)"
+        b_us, b_by = bound(x.numel(), x.numel(), x.element_size(), om.odd_filter_len(fl))
+        key = median2d_launch(x, fl, direction, border)
+        print(f"phase 31 {what} -> {key or 'no launch'}: {held}; {us:.2f} us device (median of "
+              f"{n}), of which glue (gathers, fills, pads) {g_us:.2f} us; the twins {p_us:.2f} us "
+              f"(median of 3); "
+              f"kthvalue {lib} (unfold view); bound "
+              f"{b_us:.2f} us ({b_by}); {1 if key else 0} launch per call [{smi}]")
+    del outs
+    rng = np.random.default_rng(32)
+    for what, x, fl, direction in (("K2 network", _mags(rng, 4, 300), 13, om.FREQUENCY),
+                                   ("K2 rank", _mags(rng, 4, 300), 65, om.FREQUENCY),
+                                   ("K1 network", _mags(rng, 300, 4), 11, om.TIME_ANTICAUSAL),
+                                   ("K1 rank", _mags(rng, 300, 4), 93, om.TIME_ANTICAUSAL)):
+        x[2, 2] = float("nan")
+        got = om.median2d(x, fl, direction, om.WRAP)
+        twin = om.median2d_over(x, fl, direction, om.WRAP, mc.tap_median_time_plain,
+                                mc.sliding_median_boundary_plain)
+        print(f"phase 31 NaN probe {what} fl={fl} wrap: the kernel gives {int(got.isnan().sum())} "
+              f"NaN outputs, its twin {int(twin.isnan().sum())}; they differ at "
+              f"{int((got != twin).sum() - (got.isnan() & twin.isnan()).sum())} of {got.numel()}")
+    return launches
+
+
 def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
@@ -3557,7 +3740,8 @@ def main() -> None:
                         ("entry", phase_entry), ("fuzz", phase_fuzz),
                         ("kernels_sweep", phase_kernels_sweep), ("soak", phase_soak),
                         ("scaling", phase_scaling), ("io_codec", phase_io_codec),
-                        ("live_tools", phase_live_tools), ("multihost", phase_multihost)):
+                        ("live_tools", phase_live_tools), ("multihost", phase_multihost),
+                        ("median2d", phase_median2d)):
         t0 = time.perf_counter()
         counts = phase(smi)
         if counts is not None:

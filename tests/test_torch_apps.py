@@ -166,6 +166,17 @@ def test_tables_are_zen_tpu_s():
     np.testing.assert_array_equal(tb._odf_window(), jb._hanning_symmetric(512))
 
 
+def test_odf_window_is_read_only_and_not_shared():
+    """The cached window every ODF shares refuses writes, and the CPU
+    tensor odf_batch multiplies by is a copy of it, not a view."""
+    win = tb._odf_window()
+    with pytest.raises(ValueError, match="read-only"):
+        win[0] = 1.0
+    dev = tb._device_window(torch.device("cpu"))
+    assert dev.data_ptr() != win.ctypes.data
+    np.testing.assert_array_equal(dev.numpy(), jb._hanning_symmetric(512))
+
+
 @pytest.mark.parametrize("signal", ["noise", "click_track", "one_frame"])
 def test_odf_batch_matches_zen_tpu(signal):
     if signal == "noise":

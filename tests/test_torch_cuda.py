@@ -1143,3 +1143,54 @@ def test_rings_across_two_processes_on_the_card(cuda_device):
         for w in legs[name]["workers"]:
             assert w["traffic"][kind]["bytes"] > 0, (name, kind, w["worker"])
             assert sum(w["launches"].values()) > 0, (name, w["worker"])
+
+
+MEDIAN2D_DIRECTIONS = ("time_causal", "time_anticausal", "frequency")
+
+
+@pytest.mark.parametrize("border", ["wrap", "valid", "replicate"])
+@pytest.mark.parametrize("direction", MEDIAN2D_DIRECTIONS)
+@pytest.mark.parametrize("shape,fl", [((41, 513), 11), ((29, 2049), 187), ((300, 65), 93),
+                                      ((2, 30, 40), 5), ((9, 9), 13), ((1, 6), 4)])
+def test_median2d_on_card_matches_plain(cuda_device, shape, fl, direction, border):
+    """median2d on CUDA tensors: bitwise to median2d_plain on the CPU
+    (held against zen_tpu in tests/test_torch_median2d.py) at every
+    direction and border, at the networks' and the rank routes' K and
+    past both dims (fl 13 on [9, 9], fl 5 on T = 1); each call launches
+    K1 (time) or K2 (frequency) once, and nothing where 'valid' writes
+    no output, so no plain path ran on the card."""
+    from zen_tpu_torch.ops.median import median2d, median2d_plain, odd_filter_len
+
+    x = _mags(np.random.default_rng(fl), *shape, device=cuda_device)
+    wrapper = mc.sliding_median_boundary if direction == "frequency" else mc.tap_median_time
+    other = mc.tap_median_time if direction == "frequency" else mc.sliding_median_boundary
+    before, before_other = wrapper.launches, other.launches
+    got = median2d(x, fl, direction, border)
+    torch.cuda.synchronize()
+    n = shape[-1] if direction == "frequency" else shape[-2]
+    launched = border != "valid" or n - odd_filter_len(fl) >= 1
+    assert wrapper.launches == before + launched and other.launches == before_other
+    assert got.device == x.device and got.dtype == x.dtype
+    assert torch.equal(got.cpu(), median2d_plain(x.cpu(), fl, direction, border))
+
+
+@pytest.mark.parametrize("border", ["wrap", "valid", "replicate"])
+@pytest.mark.parametrize("direction", MEDIAN2D_DIRECTIONS)
+def test_median2d_on_card_keeps_infs(cuda_device, direction, border):
+    """+inf rows and a column: the card bitwise to median2d_plain, which
+    tests/test_torch_median2d.py holds against zen_tpu's jnp.median."""
+    from zen_tpu_torch.ops.median import median2d, median2d_plain
+
+    x = _mags(np.random.default_rng(3), 40, 129, device=cuda_device)
+    x[10:12, :] = float("inf")
+    x[:, 60] = float("inf")
+    got = median2d(x, 7, direction, border)
+    assert torch.isinf(got).any()
+    assert torch.equal(got.cpu(), median2d_plain(x.cpu(), 7, direction, border))
+
+
+def test_median2d_plain_refuses_cuda_tensors(cuda_device):
+    from zen_tpu_torch.ops.median import median2d_plain
+
+    with pytest.raises(ZenError, match="CPU tensors"):
+        median2d_plain(torch.ones(4, 5, device=cuda_device), 3, "frequency", "wrap")

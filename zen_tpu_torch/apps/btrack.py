@@ -76,14 +76,17 @@ def _hanning_symmetric(n: int) -> np.ndarray:
 def _odf_window() -> np.ndarray:
     """The 512-point demo window, computed once (the streaming ODF runs at
     ~172 Hz per stream; recomputing the constant per hop is host waste).
-    Callers only read it."""
-    return _hanning_symmetric(FRAME_SIZE)
+    Read-only: every caller shares this one array, so a write raises."""
+    window = _hanning_symmetric(FRAME_SIZE)
+    window.setflags(write=False)
+    return window
 
 
 @functools.lru_cache(maxsize=4)
 def _device_window(device: torch.device) -> torch.Tensor:
-    # one host-to-device copy per device, not one per call
-    return torch.from_numpy(_odf_window()).to(device)
+    # one copy per device, not one per call; a copy on the CPU too, so the
+    # tensor never shares the numpy window's storage
+    return torch.tensor(_odf_window(), device=device)
 
 
 def odf_batch(frames: torch.Tensor) -> torch.Tensor:

@@ -24,11 +24,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from .config import EPS, REPLICATE, VALID, WRAP, HPRConfig, odd_filter_len
-
-TIME_CAUSAL = "time_causal"
-TIME_ANTICAUSAL = "time_anticausal"
-FREQUENCY = "frequency"
+from ..ops.median import (
+    FREQUENCY,
+    REPLICATE,
+    TIME_ANTICAUSAL,
+    TIME_CAUSAL,
+    VALID,
+    WRAP,
+    odd_filter_len,
+)
+from .config import EPS, HPRConfig
 
 
 def _np_taps(x: np.ndarray, offsets, axis: int, boundary: str) -> np.ndarray:
@@ -83,7 +88,9 @@ def np_filter2d(
         out[fm : t - fm - 1, :] = med[fm : t - fm - 1, :]
     else:
         med = reduce(_np_taps(x, range(0, fl), axis, "zero"), axis=0)
-        out[:, : f - fl] = med[:, : f - fl]
+        # no column is written where fl >= f (zen_tpu's copy slices to
+        # f - fl < 0 there, which counts from the end and writes columns)
+        out[:, : max(0, f - fl)] = med[:, : max(0, f - fl)]
     return out
 
 

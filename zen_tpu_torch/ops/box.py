@@ -26,10 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import ZenError
-
-FREQUENCY = "frequency"
-WRAP = "wrap"
-REPLICATE = "replicate"
+from .median import FREQUENCY, REPLICATE, WRAP
 
 
 def _const(x: torch.Tensor, n: int, dim: int, fill: float) -> torch.Tensor:
