@@ -8,9 +8,11 @@ holds each route of each kernel bitwise against its plain PyTorch twin
 at every shape its paths give it, beside one torch.kthvalue call over
 the same windows (the library yardstick, which the port never calls)
 and the least time the card could take (phase 3; at a 4-minute track's
-offline shapes the kernels run without their twin; rows whose keys pass
-one block's shared memory run the rank routes' key store, K2 up to its
-tap limit). Phase 3 also holds
+offline shapes the kernels run without their twin; rows of few outputs
+and huge K run the select route, K1 and K2 up to their tap limits, and
+K2's sort past one block's shared memory its key store). Phase 3 also
+times the rank and select routes side by side on the wide rows, with the
+cost rule's pick beside the faster one measured, and holds
 the comparator-network routes (K1 register up to 63 taps, K2 network up
 to 31) bitwise at every odd K they take, tie-heavy and bf16; sweeps K2's
 two routes over K at
@@ -31,8 +33,8 @@ entry points at full width:
            network): HPRRealtime, 64 blocks of 32 hops then 64 single
            hops, and MultiStreamHPR, 64 streams, 16 blocks of 32 hops;
   phase 10c HPRRealtime at 384 kHz, hop 1, whose time median is K =
-           25,601 over 51,199 history rows (K1's rank route on the key
-           store): 64 blocks of 32 hops, then 64 single hops;
+           25,601 over 51,199 history rows (K1's select route): 64
+           blocks of 32 hops, then 64 single hops;
   phase 5  MultiStreamHPR, 64 streams at 44.1 kHz, hop 256, 32-hop
            blocks, plus a percussive-only fleet for the compact rows;
   phase 7  HPRIOffline(44100, 4096, 256, 2.5, 2.5) (BASELINE.json
@@ -147,8 +149,8 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route, and the rank routes' launches
-by where their keys live (phase 6 and phases 7-30; the
+are counted per path and per kernel route, and K2's rank launches by
+where their keys live (phase 6 and phases 7-30; the
 SSE paths must launch none; phases 18-22 and 24-30 require each run's
 count to equal the count from its shapes and, for the instruments, the
 calls they report; phase 23's random configs are read, not counted).
@@ -201,10 +203,14 @@ SWEEP_SHAPES = ((32, 2049), (2048, 513))
 # step, the 64-stream step, hop 1024, the offline clip and track, fs 8000)
 TILE_CASES = ((13, (8192, 513)), (13, (2048, 513)), (47, (32, 2049)), (187, (41, 8193)),
               (187, (TRACK_FRAMES_H, 8193)), (257, (32, 2049)))
-ROUTES = {"tap_median_time": ("register", "rank"),
-          "sliding_median_boundary": ("network", "rank")}
-SCRATCH = "rank@scratch"  # the rank launches whose keys live in the key store
+ROUTES = {"tap_median_time": ("register", "rank", "select"),
+          "sliding_median_boundary": ("network", "rank", "select")}
+SCRATCH = "rank@scratch"  # K2's rank launches whose keys live in the key store
 SLOW_US = 100_000.0  # a phase-3 call past this is timed 3 times, not TIMED_RUNS
+# phase 3's select lines force a route through _time_launch, whose plan
+# lookups hash a wide tap set's offsets on the host (~0.5 ms at 25,601
+# taps, where the wrapper memoizes the call): a ~6 ms spin covers them
+SELECT_SPIN = 10_000_000
 T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))  # hop 256's causal wrap taps, K = 11
 RUN_LENGTHS = (1, 2, 4, 8, 16)  # K1's network kernel: output rows per thread
 PROBES = ("rows_copy", "segment_copy")  # ops/probe_cuda.py, one route each: "copy"
@@ -268,18 +274,18 @@ def synthetic_mix(n: int, fs: float, seed: int, f0: float = 220.0) -> np.ndarray
 # ---------------- timing ----------------
 
 
-def median_us(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
+def median_us(fn, runs: int = TIMED_RUNS, warmup: int = 3, spin: int = 2_000_000) -> float:
     """Median over ``runs`` of one call's device time, from CUDA events.
-    A ~1 ms spin kernel ahead of each start event keeps the card busy
-    while the host enqueues the call, so the events bracket device work
-    and not the host's launch overhead."""
+    A spin kernel of ``spin`` cycles (~1 ms) ahead of each start event
+    keeps the card busy while the host enqueues the call, so the events
+    bracket device work and not the host's launch overhead."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         stop.record()
@@ -288,12 +294,12 @@ def median_us(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def row_us(fn) -> tuple:
+def row_us(fn, spin: int = 2_000_000) -> tuple:
     """(µs, runs): median_us over TIMED_RUNS calls, or over 3 where one
     warm call took more than SLOW_US (the widest rows' twins and kthvalue)."""
-    if median_us(fn, runs=1, warmup=1) > SLOW_US:
-        return median_us(fn, runs=3, warmup=0), 3
-    return median_us(fn), TIMED_RUNS
+    if median_us(fn, runs=1, warmup=1, spin=spin) > SLOW_US:
+        return median_us(fn, runs=3, warmup=0, spin=spin), 3
+    return median_us(fn, spin=spin), TIMED_RUNS
 
 
 def wall_us_per_call(fn, runs: int) -> float:
@@ -461,21 +467,20 @@ def freq_library(x, k, mode):
 
 
 def time_label(a, b, offsets, start) -> str:
-    """K1's route for a call, SCRATCH where its keys take the key store."""
+    """The route tap_median_time launches for a call (time_call_route)."""
     from zen_tpu_torch.ops import median_cuda as mc
 
-    route = mc.time_route(offsets)
-    if route == "rank" and mc.time_rank_plan(offsets, start, a.shape[-2] + b.shape[-2])[2] == \
-            "scratch":
-        return SCRATCH
-    return route
+    return mc.time_call_route(tuple(offsets), start, a.shape[-2] + b.shape[-2],
+                              math.prod(a.shape[:-2]), a.shape[-1], mc._sm_count(a.device))
 
 
-def freq_label(k: int) -> str:
-    """K2's route at width k, SCRATCH where its keys take the key store."""
+def freq_label(x, k: int, mode: str) -> str:
+    """The route sliding_median_boundary launches for a call
+    (freq_call_route), SCRATCH where its sort's keys take the key store."""
     from zen_tpu_torch.ops import median_cuda as mc
 
-    route = mc.freq_route(k)
+    route = mc.freq_call_route(k, x.numel() // x.shape[-1], x.shape[-1], mode,
+                               mc._sm_count(x.device))
     return SCRATCH if route == "rank" and mc.freq_rank_store(k) == "scratch" else route
 
 
@@ -486,9 +491,10 @@ def kernel_cases():
     and 48 kHz hop 64's shapes, K1's network up to its cap of 63 taps,
     tap spans far past the rows a call has, tie-heavy and bf16 inputs at
     large K, the other boundary modes at a ragged row count, and the rows
-    whose keys pass one block's shared memory (the key store: route
-    SCRATCH), K2 up to MAX_FREQ_TAPS; then the two copy-only mirrors, #9
-    and #10 (library yardstick: the same copy as one PyTorch call)."""
+    whose keys pass one block's shared memory (the select route, and K2's
+    key store where a row's many outputs share its sort: route SCRATCH),
+    K2 up to MAX_FREQ_TAPS; then the two copy-only mirrors, #9 and #10
+    (library yardstick: the same copy as one PyTorch call)."""
     from zen_tpu_torch import HPRConfig
     from zen_tpu_torch.ops import median_cuda as mc
     from zen_tpu_torch.ops import probe_cuda as pc
@@ -589,9 +595,10 @@ def kernel_cases():
          mag(16, 32, 513), T256, 21),
         ("#4", "dp=4 shard pair C=128 H=21 B=16 F=513 K=11", mag(128, 21, 513),
          mag(128, 16, 513), T256, 21),
-        # hop 1 at 192 and 384 kHz: 12,801 taps (a run of 32 in shared
-        # memory) and 25,601 (one row's keys pass it: the key store); a
-        # contiguous 20,001 on a whole clip's rows, 180,900 store units
+        # hop 1 at 192 and 384 kHz: 12,801 taps and 25,601 (one row's
+        # keys pass shared memory), 96 and 3 outputs: the select route, a
+        # block an output; a contiguous 20,001 on a whole clip's rows,
+        # 180,900 outputs in runs of 32
         ("#1", "pair C=1 H=25599 B=32 F=3 K=12801 (192 kHz hop 1)",
          mag(1, hop1[192000.0].time_history, 3), mag(1, 32, 3),
          hop1[192000.0].time_offsets, hop1[192000.0].time_history),
@@ -647,8 +654,9 @@ def kernel_cases():
         ("#5", "tp=2 shard pass 1 R=41 F=8378 K=187 valid", mag(41, 8192 + 186), 187, "valid"),
         ("#5", "tp=2 shard pass 2 R=643 F=524 K=13 valid", mag(643, 512 + 12), 13, "valid"),
         ("#7", "dp=4 shard R=512 F=513 K=13 reflect", mag(512, 513), 13, "reflect"),
-        # past one block's shared memory (K2's key store): the K its first
-        # kernel's counting took, that kernel's widest, past it, and the limit
+        # past one block's shared memory: the K K2's first kernel's counting
+        # took (the key store: 8193 outputs a row), that kernel's widest and
+        # past it (256 outputs: select), and the limit (64 outputs: select)
         ("#7", "R=4 F=8193 K=16385 reflect", mag(4, 8193), 16_385, "reflect"),
         ("#7", "R=4 F=8193 K=16385 reflect bf16", bf16(4, 8193), 16_385, "reflect"),
         ("#5", "R=1 F=58112 K=57857 valid", mag(1, 58_112), 57_857, "valid"),
@@ -656,7 +664,7 @@ def kernel_cases():
         ("#7", f"R=2 F=64 K={mc.MAX_FREQ_TAPS} wrap", mag(2, 64), mc.MAX_FREQ_TAPS, "wrap"),
     ):
         cases.append((
-            "sliding_median_boundary", freq_label(k), tpu, label,
+            "sliding_median_boundary", freq_label(x, k, mode), tpu, label,
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary(x, k, m),
             lambda x=x, k=k, m=mode: mc.sliding_median_boundary_plain(x, k, m),
             lambda x=x, k=k, m=mode: freq_library(x, k, m),
@@ -734,12 +742,13 @@ def phase_kernels() -> dict:
          lambda: mc.tap_median_time(feats2, feats2[:, :0], centered, 0),
          lambda: mc.tap_median_time_plain(feats2, feats2[:, :0], centered, 0),
          lambda: time_library(feats2, feats2[:, :0], centered, 0),
-         time_bound(feats2, feats2[:, :0], centered, 0), mc.time_route(centered)),
+         time_bound(feats2, feats2[:, :0], centered, 0),
+         time_label(feats2, feats2[:, :0], centered, 0)),
         ("sliding_median_boundary", "#6", f"track pass 1 R={TRACK_FRAMES_H} F=8193 K=187",
          lambda: mc.sliding_median_boundary(feats1, 187, "reflect"),
          lambda: mc.sliding_median_boundary_plain(feats1, 187, "reflect"),
          lambda: freq_library(feats1, 187, "reflect"),
-         freq_bound(feats1, 187, "reflect"), mc.freq_route(187)),
+         freq_bound(feats1, 187, "reflect"), freq_label(feats1, 187, "reflect")),
     ):
         got, want = fn(), plain()
         err = float((got - want).abs().max())
@@ -895,6 +904,87 @@ def phase_tiles() -> None:
         torch.cuda.empty_cache()
 
 
+def phase_select() -> dict:
+    """K1's and K2's two wide routes side by side on benches/rank_store.py's
+    rows: the seven that lost to torch.kthvalue on the key store or the
+    shared sort, K2's store row of many outputs, and the paths' rank rows.
+    Each forced through the select route and, where it takes the call, the
+    rank route (_time_launch, _freq_launch): select bitwise to the rank
+    route's output (to the twin where the rank route cannot take it), each
+    timed beside the twin, one torch.kthvalue call and the bound, the cost
+    rule's prices and pick (time_route_costs, freq_route_costs) beside
+    the faster route measured. Returns {label: {route: µs}}."""
+    from zen_tpu_torch import ZenError
+    from zen_tpu_torch.benches import rank_store
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    sms = mc._sm_count(torch.device(DEVICE))
+    out, agree = {}, 0
+    for label, kind, args in rank_store.rows(torch, DEVICE):
+        if kind == "time":
+            a, b, offs, start = args
+            t_v, streams, f = a.shape[-2] + b.shape[-2], math.prod(a.shape[:-2]), a.shape[-1]
+            run = {r: functools.partial(mc._time_launch, a, b, offs, start, 0.0, r)
+                   for r in ("rank", "select")}
+            _, _, staged, threads = mc.time_select_plan(offs, start, t_v, streams, f, sms)
+            bins = mc.select_shared_bins(threads)
+            other = functools.partial(mc._time_launch, a, b, offs, start, 0.0, "select",
+                                      shared_bins=not bins)
+            plain = functools.partial(mc.tap_median_time_plain, a, b, offs, start)
+            costs = mc.time_route_costs(offs, start, t_v, streams, f, sms)
+            pick = mc.time_call_route(offs, start, t_v, streams, f, sms)
+            library, (b_us, b_by) = time_library(a, b, offs, start), time_bound(a, b, offs, start)
+        else:
+            x, k, mode = args
+            run = {r: functools.partial(mc._freq_launch, x, k, mode, r) for r in ("rank", "select")}
+            _, staged, threads = mc.freq_select_plan(k, x.numel() // x.shape[-1], x.shape[-1],
+                                                     mode, sms)
+            bins = mc.select_shared_bins(threads)
+            other = functools.partial(mc._freq_launch, x, k, mode, "select", shared_bins=not bins)
+            plain = functools.partial(mc.sliding_median_boundary_plain, x, k, mode)
+            costs = mc.freq_route_costs(k, x.numel() // x.shape[-1], x.shape[-1], mode, sms)
+            pick = freq_label(x, k, mode).split("@")[0]
+            library, (b_us, b_by) = freq_library(x, k, mode), freq_bound(x, k, mode)
+        got = run["select"]()
+        try:
+            want, held = run["rank"](), "the rank route"
+        except ZenError:
+            want, held = plain(), "the twin"
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"select {label}: differs from {held}")
+        del got, want
+        us = {}
+        for route, fn in run.items():
+            try:
+                us[route] = row_us(fn, spin=SELECT_SPIN)[0]
+            except ZenError:
+                pass
+        alt = ""
+        bins = mc.select_layout(staged, threads, bins)[1]  # where they fit
+        if mc.select_layout(staged, threads)[:2] == (True, True):  # both places fit
+            require(torch.equal(other(), run["select"]()), f"select {label}: bins differ")
+            alt = (f", select with its bins {'in registers' if bins else 'in shared memory'} "
+                   f"{row_us(other, spin=SELECT_SPIN)[0]:.2f} us")
+        p_us = row_us(plain)[0]
+        kind_l, lib_call = library
+        l_us = row_us(lib_call)[0]
+        del lib_call
+        fastest = min(us, key=us.get)
+        agree += fastest == pick
+        out[label] = us
+        rank_text = f"rank {us['rank']:.2f} us" if "rank" in us else "rank n/a (keys pass a block)"
+        cost_text = "n/a" if costs[0] is None else f"{costs[0]:.1f}"
+        print(f"phase 3 select {label}: select bitwise equal to {held}; select "
+              f"{us['select']:.2f} us ({threads} threads, {staged} staged, bins "
+              f"{'in shared memory' if bins else 'in registers'}){alt}, {rank_text}, plain "
+              f"{p_us:.2f} us, kthvalue {l_us:.2f} "
+              f"us ({kind_l}), bound {b_us:.2f} us ({b_by}); cost rule rank {cost_text}, "
+              f"select {costs[1]:.1f}: picks {pick}, fastest measured {fastest}")
+        torch.cuda.empty_cache()
+    print(f"phase 3 select: the cost rule picked the faster route on {agree} of {len(out)} rows")
+    return out
+
+
 def phase_split() -> None:
     """Where a rank block's time goes: each rank kernel whole and from the
     two split builds (ZEN_RANK_CUT, csrc/rank_select.cuh), which end after
@@ -910,8 +1000,6 @@ def phase_split() -> None:
         ("K=93 [1, 183+1, 65]", _mags(rng, 1, 183, 65), _mags(rng, 1, 1, 65), t93, 183),
         ("K=401 [1, 900, 17]", _mags(rng, 1, 900, 17), _mags(rng, 1, 0, 17),
          tuple(range(-200, 201)), 0),
-        ("K=25601 [1, 51199+32, 3] (key store)", _mags(rng, 1, 51199, 3),
-         _mags(rng, 1, 32, 3), tuple(range(-51199, -38399)) + tuple(range(-12800, 1)), 51199),
     ):
         cases.append((f"tap_median_time/rank {label}",
                       lambda cut, a=a, b=b, o=offs, s=start:
@@ -1000,20 +1088,20 @@ def reset_launches() -> None:
         wrapper = getattr(mc, name)
         wrapper.launches = 0
         wrapper.routes.update(dict.fromkeys(wrapper.routes, 0))
-        wrapper.stores.update(dict.fromkeys(wrapper.stores, 0))
+    mc.sliding_median_boundary.stores.update(dict.fromkeys(mc.sliding_median_boundary.stores, 0))
     for name in PROBES:
         getattr(pc, name).launches = 0
 
 
 def read_launches() -> dict:
     """Median launches since the last reset by kernel route, 'kernel/route',
-    and of those on the rank route, the ones whose keys took the key store,
-    'kernel/rank@scratch'."""
+    and of K2's on the rank route, the ones whose keys took the key store,
+    'sliding_median_boundary/rank@scratch'."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     counts = {f"{name}/{route}": getattr(mc, name).routes[route]
               for name, routes in ROUTES.items() for route in routes}
-    counts.update({f"{name}/{SCRATCH}": getattr(mc, name).stores["scratch"] for name in ROUTES})
+    counts[f"sliding_median_boundary/{SCRATCH}"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 
 
@@ -1463,23 +1551,21 @@ def phase_hop64(smi: str) -> dict:
 def phase_hop1(smi: str) -> dict:
     """HPRRealtime(384000, hop=1), a hop of 2.6 us: its time median is K =
     25,601 taps over 51,199 history rows, and one output row's keys pass a
-    block's shared memory, so K1's rank route runs on the key store. 64
-    blocks of B=32, then 64 single hops, held against the CPU port under
-    phase 4's flip rule and stem tolerance; then the device and wall time
-    per hop of a B=32 step and of a single hop."""
+    block's shared memory, so K1 takes the select route (a block an output
+    row: 3 at B=1, 96 at B=32). 64 blocks of B=32, then 64 single hops,
+    held against the CPU port under phase 4's flip rule and stem
+    tolerance; then the device and wall time per hop of a B=32 step and
+    of a single hop."""
     from zen_tpu_torch import HPRRealtime
-    from zen_tpu_torch.ops import median_cuda as mc
 
     fs = 384000.0
     reset_launches()
     cfg, got, audio, sizes, t = run_stream(fs=fs, hop=1)
     launches = read_launches()
     k = len(cfg.time_offsets)
-    require(k == 25_601 and mc.time_route(cfg.time_offsets) == "rank"
-            and mc.time_rank_plan(cfg.time_offsets, cfg.time_history, cfg.time_history + 1)[2]
-            == "scratch", f"384 kHz hop 1 time median K={k} does not take the key store")
-    require(launches[f"tap_median_time/{SCRATCH}"] == launches["tap_median_time/rank"] > 0
-            and all(per_kernel(launches).values()), f"hop-1 stream launches {launches}")
+    require(k == 25_601 and launches["tap_median_time/select"] > 0
+            and launches["tap_median_time/rank"] == 0 and all(per_kernel(launches).values()),
+            f"384 kHz hop 1 time median K={k} not on the select route: launches {launches}")
     require(bool(np.isfinite(got).all()), "non-finite hop-1 stem samples")
     r = compare_stream(cfg, audio, sizes, got, reference_stream(audio, sizes, hop=1, fs=fs),
                        ("harmonic", "percussive", "residual"))
@@ -1490,7 +1576,7 @@ def phase_hop1(smi: str) -> dict:
     hop_us = cfg.hop / cfg.fs * 1e6
     print(
         f"phase 10c HPRRealtime fs 384000 hop 1 (time K={k} over H={cfg.time_history} on the "
-        f"key store, frequency K={cfg.freq_filter_len}), 64 x B=32 + 64 x B=1: mask flips "
+        f"select route, frequency K={cfg.freq_filter_len}), 64 x B=32 + 64 x B=1: mask flips "
         f"{r['flips']} ({r['share']:.3g} of bins), excluded hops {r['excluded']}/{r['hops']}, "
         f"max |diff|/scale {r['rel_err']:.3g} (limit {STEM_ATOL}); a hop is {hop_us:.2f} us of "
         f"audio: B=32 step {dev_b:.2f} us device and {t['step_us'] / 32:.2f} us wall a hop; "
@@ -3114,10 +3200,12 @@ def phase_kernels_sweep(smi: str) -> dict:
             kind, shape = name.split("/")
             if kind.startswith("hpr_block_step"):
                 add_pass(want, kernels.stream_config(44100.0, int(shape[3:].split("x")[0])), n)
-            else:
-                k = int(shape[1:].split("_")[0])
-                key = (f"sliding_median_boundary/{mc.freq_route(k)}" if "freq" in kind else
-                       f"tap_median_time/{mc.time_route(tuple(range(-(k // 2), k // 2 + 1)))}")
+            else:  # a _MEM median on [t, f] (shape K{k}_{t}x{f}), through its wrapper
+                k, t, f = map(int, shape[1:].replace("_", "x").split("x"))
+                sms = mc._sm_count(torch.device(DEVICE))
+                key = (f"sliding_median_boundary/{mc.freq_call_route(k, t, f, 'reflect', sms)}"
+                       if "freq" in kind else "tap_median_time/" + mc.time_call_route(
+                           tuple(range(-(k // 2), k // 2 + 1)), 0, t, 1, f, sms))
                 want[key] += n
         return want
 
@@ -3527,14 +3615,17 @@ def median2d_launch(x, fl: int, direction: str, border: str):
     n = x.shape[-1 if direction == om.FREQUENCY else -2]
     if border == om.VALID and n - fl < 1:
         return None
+    sms = mc._sm_count(x.device)
+    lead = math.prod(x.shape[:-2])
     if direction == om.FREQUENCY:
-        return f"sliding_median_boundary/{freq_label(fl)}"
+        mode = {om.WRAP: "wrap", om.REPLICATE: "edge", om.VALID: "valid"}[border]
+        route = mc.freq_call_route(fl, lead * x.shape[-2], n, mode, sms)
+        if route == "rank" and mc.freq_rank_store(fl) == "scratch":
+            route = SCRATCH
+        return f"sliding_median_boundary/{route}"
     offsets = tuple(range(-fl + 1, 1))  # fl contiguous taps, as every time case has
     start, t_v = (0, n) if border == om.VALID else (fl - 1, n + fl - 1)
-    route = mc.time_route(offsets)
-    if route == "rank" and mc.time_rank_plan(offsets, start, t_v)[2] == "scratch":
-        route = SCRATCH
-    return f"tap_median_time/{route}"
+    return f"tap_median_time/{mc.time_call_route(offsets, start, t_v, lead, x.shape[-1], sms)}"
 
 
 def median2d_library(x, fl: int, direction: str, border: str):
@@ -3640,6 +3731,21 @@ def phase_median2d(smi: str) -> dict:
         print(f"phase 31 NaN probe {what} fl={fl} wrap: the kernel gives {int(got.isnan().sum())} "
               f"NaN outputs, its twin {int(twin.isnan().sum())}; they differ at "
               f"{int((got != twin).sum() - (got.isnan() & twin.isnan()).sum())} of {got.numel()}")
+    # the select route (no median2d shape takes it) on the same NaN, beside
+    # -0.0 and +inf: it orders them as the rank routes' keys do
+    x = _mags(rng, 4, 300)
+    x[2, 2], x[1, 7:9], x[3, 40] = float("nan"), -0.0, float("inf")
+    xt, centered = x.T.contiguous(), tuple(range(-46, 47))
+    for what, got, twin in (
+            ("K2 select", mc._freq_launch(x, 65, "wrap", "select"),
+             mc.sliding_median_boundary_plain(x, 65, "wrap")),
+            ("K1 select", mc._time_launch(xt, xt[:0], centered, 0, 0.0, "select"),
+             mc.tap_median_time_plain(xt, xt[:0], centered, 0))):
+        differ = int((got != twin).sum() - (got.isnan() & twin.isnan()).sum())
+        print(f"phase 31 NaN probe {what} K={65 if what[1] == '2' else 93} (-0.0, +inf beside the "
+              f"NaN): the kernel gives {int(got.isnan().sum())} NaN outputs, its twin "
+              f"{int(twin.isnan().sum())}; they differ at {differ} of {got.numel()}")
+        require(differ == 0, f"{what} orders NaN, -0.0 or +inf unlike its twin")
     return launches
 
 
@@ -3648,8 +3754,9 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     (launches summed over the paths, each path's counts read around its
     own run; the copy mirrors run on phase 11's path; a rank route's row
     counts both stores, its SCRATCH row the key store's share), and the
-    routes no path launched (K2's rank route on the key store: no HPRConfig
-    comes near 16,355 frequency taps), checked in phase 3 only.
+    routes no path launched (K2's rank route on the key store and its
+    select route: no HPRConfig comes near 16,355 frequency taps, nor has a
+    frequency median of so few outputs), checked in phase 3 only.
     ``by_route_launches`` are phase 24's launches by route name, outside
     ``launches``."""
     rows, off_path = [], []
@@ -3690,6 +3797,7 @@ def main() -> None:
     phase_runs()
     phase_sweep()
     phase_tiles()
+    phase_select()
     phase_split()
 
     # the main path: launch counters cover exactly these runs
@@ -3751,8 +3859,8 @@ def main() -> None:
     rows, off_path = kernel_rows(kstats, by_path)
     # every route the paths' tap counts select ran on a path (frequency K:
     # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32),
-    # K1's rank route on the key store (384 kHz hop 1), and both copy mirrors
-    wanted = {"tap_median_time/register", "tap_median_time/rank", f"tap_median_time/{SCRATCH}",
+    # K1's select route (384 kHz hop 1), and both copy mirrors
+    wanted = {"tap_median_time/register", "tap_median_time/rank", "tap_median_time/select",
               *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),
               *(f"{name}/copy" for name in PROBES)}
     launched = {row["name"] for row in rows}

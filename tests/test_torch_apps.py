@@ -190,7 +190,31 @@ def test_odf_batch_matches_zen_tpu(signal):
     want = np.asarray(jb.odf_batch(frames))
     got = tb.odf_batch(torch.from_numpy(frames)).numpy()
     assert got.shape == want.shape == (len(audio) // 256,) and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
+    try:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
+    except AssertionError as err:
+        raise AssertionError(f"{err}\n{_odf_evidence(frames, got)}") from None
+
+
+def _odf_evidence(frames: np.ndarray, got: np.ndarray) -> str:
+    """What the process carries when the port's ODF misses zen_tpu's
+    (ROADMAP Queue 3 item 8): the xdist worker, torch's thread counts, the
+    calling thread's rounding mode (fegetround: 0 to nearest, 0x400
+    down, 0x800 up, 0xc00 toward zero), and whether two more calls on the
+    same frames give the first call's bits (a transient) or not (state
+    the process holds, such as a plan cached under another mode)."""
+    import ctypes
+    import ctypes.util
+
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    again = [tb.odf_batch(torch.from_numpy(frames)).numpy() for _ in range(2)]
+    same = [bool(np.array_equal(a.view(np.uint32), got.view(np.uint32))) for a in again]
+    moved = [np.nonzero(a != got)[0].tolist() for a in again]
+    return (f"evidence: xdist worker {os.environ.get('PYTEST_XDIST_WORKER', 'none')}, "
+            f"torch threads {torch.get_num_threads()} (interop "
+            f"{torch.get_num_interop_threads()}), rounding mode {libm.fegetround():#x}, "
+            f"calls 2 and 3 bit-equal to call 1: {same} (frames that moved: {moved}); "
+            f"call 1 {got.tolist()}")
 
 
 def test_odf_of_steady_partials_within_the_derived_bound():

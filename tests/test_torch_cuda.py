@@ -320,42 +320,20 @@ def test_freq_network_every_k_matches_twin(cuda_device, k, mode, dtype):
      (2, 65_792, 65_537, "valid")],  # past its cap
 )
 def test_freq_rank_store_matches_twin(cuda_device, rows, f_in, k, mode, dtype):
-    """K2's rank route past shared memory, tie-heavy: the wrapper sends
-    these K to the key store (the counting kernel that took them is gone)
-    and counts the launch there."""
+    """K2's rank route past shared memory, tie-heavy: at these K its sort
+    takes the key store (the counting kernel that took them is gone); the
+    wrapper keeps the store for the R=4 row of 8193 outputs a row and
+    counts the launch there (the two pre-padded rows of 256 outputs take
+    the select route: test_freq_select_matches_twin)."""
     assert mc.freq_route(k) == "rank" and mc.freq_rank_store(k) == "scratch"
     x = _ties(np.random.default_rng(k), rows, f_in, device=cuda_device).to(dtype)
-    before = mc.sliding_median_boundary.stores["scratch"]
-    got = mc.sliding_median_boundary(x, k, mode)
-    torch.cuda.synchronize()
-    assert mc.sliding_median_boundary.stores["scratch"] == before + 1
+    got = mc._freq_launch(x, k, mode, "rank")
     assert got.dtype == dtype
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-def test_time_rank_store_matches_twin(cuda_device, causal, dtype):
-    """K1 at HPRConfig(384000, hop=1)'s 25,601 taps, tie-heavy: one output
-    row's keys pass shared memory, so the wrapper takes the key store.
-    Causal: the step's pair form (history 51,199 rows, 32 fresh, 3 bins);
-    centered: the one-input form from row 13,100 of 26,000 (fill inf),
-    where every tap of a row is distinct (no tap reads only fill)."""
-    cfg = HPRConfig(fs=384000.0, hop=1, causal=causal)
-    rng = np.random.default_rng(25_601)
-    if causal:
-        a = _ties(rng, 1, cfg.time_history, 3, device=cuda_device).to(dtype)
-        b, start, fill = _ties(rng, 1, 32, 3, device=cuda_device).to(dtype), cfg.time_history, 0.0
-    else:
-        a = _ties(rng, 1, 26_000, 2, device=cuda_device).to(dtype)
-        b, start, fill = a[:, :0], 13_100, float("inf")
-    offsets = cfg.time_offsets
-    assert mc.time_rank_plan(offsets, start, a.shape[1] + b.shape[1])[2] == "scratch"
-    before = mc.tap_median_time.stores["scratch"]
-    got = mc.tap_median_time(a, b, offsets, start, fill)
-    torch.cuda.synchronize()
-    assert mc.tap_median_time.stores["scratch"] == before + 1
-    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+    if mc.freq_call_route(k, rows, f_in, mode, mc._sm_count(x.device)) == "rank":
+        before = mc.sliding_median_boundary.stores["scratch"]
+        assert torch.equal(mc.sliding_median_boundary(x, k, mode), got)
+        assert mc.sliding_median_boundary.stores["scratch"] == before + 1
 
 
 @pytest.mark.parametrize("chunk", [32, 64, 1024])
@@ -371,22 +349,122 @@ def test_freq_rank_store_small_chunk_matches_twin(cuda_device, k, mode, chunk):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
-@pytest.mark.parametrize("chunk", [32, 256, 16_384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_time_select_matches_twin(cuda_device, causal, dtype):
+    """K1 at HPRConfig(384000, hop=1)'s 25,601 taps, tie-heavy: one output
+    row's keys pass shared memory, so the wrapper takes the select route
+    (the K1 key store that took it is gone) and counts it there. Causal:
+    the step's pair form (history 51,199 rows, 32 fresh, 3 bins);
+    centered: the one-input form from row 13,100 of 26,000 (fill inf),
+    where every tap of a row is distinct (no tap reads only fill)."""
+    cfg = HPRConfig(fs=384000.0, hop=1, causal=causal)
+    rng = np.random.default_rng(25_601)
+    if causal:
+        a = _ties(rng, 1, cfg.time_history, 3, device=cuda_device).to(dtype)
+        b, start, fill = _ties(rng, 1, 32, 3, device=cuda_device).to(dtype), cfg.time_history, 0.0
+    else:
+        a = _ties(rng, 1, 26_000, 2, device=cuda_device).to(dtype)
+        b, start, fill = a[:, :0], 13_100, float("inf")
+    offsets = cfg.time_offsets
+    t_v = a.shape[1] + b.shape[1]
+    assert not mc.time_rank_plan(offsets, start, t_v)[2]
+    assert mc.time_call_route(offsets, start, t_v, 1, a.shape[2],
+                              mc._sm_count(a.device)) == "select"
+    before = mc.tap_median_time.routes["select"]
+    got = mc.tap_median_time(a, b, offsets, start, fill)
+    torch.cuda.synchronize()
+    assert mc.tap_median_time.routes["select"] == before + 1
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+@pytest.mark.parametrize("run", [1, 8, 32])
 @pytest.mark.parametrize(
     "a_shape,b_shape,offsets,start,fill",
     [((2, 183, 65), (2, 40, 65), K93, 183, 0.0),
      ((1, 900, 17), (1, 0, 17), tuple(range(-200, 201)), 0, float("inf")),
      ((1, 70, 6), (1, 3, 6), tuple(range(-69, 0)) + (0,) * 60, 3, 0.0)],
 )
-def test_time_rank_store_small_chunk_matches_twin(cuda_device, a_shape, b_shape, offsets,
-                                                  start, fill, chunk):
-    """K1's rank route on the key store at its shared-memory run (32 rows),
-    with a small chunk: the merge passes over device memory run."""
-    rng = np.random.default_rng(chunk)
+def test_time_select_runs_match_twin(cuda_device, a_shape, b_shape, offsets, start, fill, run):
+    """K1's select route at runs of 1 to 32 output rows a block, on the
+    shapes the key store's small-chunk test took: duplicated taps (the
+    replicate border's offset 0, 61 times) counted by the table."""
+    rng = np.random.default_rng(run)
     a = _ties(rng, *a_shape, device=cuda_device)
     b = _ties(rng, *b_shape, device=cuda_device)
-    got = mc._time_launch(a, b, offsets, start, fill, "rank", chunk=chunk)
+    got = mc._time_launch(a, b, offsets, start, fill, "select", run=run)
     assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_time_select_past_shared_memory_matches_twin(cuda_device, dtype):
+    """K1's select route where a row's 70,001 taps' order bits pass shared
+    memory: each pass reads them from V through L2 (100 output rows of 2
+    columns, a block each, every tap inside V)."""
+    rng = np.random.default_rng(70_001)
+    a = _ties(rng, 1, 70_100, 2, device=cuda_device).to(dtype)
+    offsets = tuple(range(-70_000, 1))
+    _, run, staged, threads = mc.time_select_plan(offsets, 70_000, 70_100, 1, 2,
+                                                  mc._sm_count(a.device))
+    assert run == 1 and not mc.select_layout(staged, threads)[0]
+    before = mc.tap_median_time.routes["select"]
+    got = mc.tap_median_time(a, a[:, :0], offsets, 70_000)
+    torch.cuda.synchronize()
+    assert mc.tap_median_time.routes["select"] == before + 1
+    assert torch.equal(got, mc.tap_median_time_plain(a, a[:, :0], offsets, 70_000))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "rows,f_in,k,mode",
+    [(1, 58_112, 57_857, "valid"),  # shared memory holds the row's order bits
+     (2, 65_792, 65_537, "valid"),  # they pass it: read through L2
+     (2, 64, mc.MAX_FREQ_TAPS, "wrap"),  # 64 samples, each counted ~32,752 times
+     (3, 100, 1001, "edge"),
+     (1, 200, 399, "reflect")],  # K = 2F - 1: the row's samples, counted twice
+)
+def test_freq_select_matches_twin(cuda_device, rows, f_in, k, mode, dtype):
+    """K2's rows of few outputs, tie-heavy: the wrapper takes the select
+    route and counts it there."""
+    x = _ties(np.random.default_rng(k), rows, f_in, device=cuda_device).to(dtype)
+    assert mc.freq_call_route(k, rows, f_in, mode, mc._sm_count(x.device)) == "select"
+    before = mc.sliding_median_boundary.routes["select"]
+    got = mc.sliding_median_boundary(x, k, mode)
+    torch.cuda.synchronize()
+    assert mc.sliding_median_boundary.routes["select"] == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+def test_select_orders_nan_and_signed_zeros_as_the_rank_routes(cuda_device):
+    """-0.0, +0.0, +-1, +inf and NaN in equal shares: the select route's
+    outputs are the rank routes' bit for bit (-0.0 below +0.0, NaN above
+    +inf), K1 and K2."""
+    levels = torch.tensor([-0.0, 0.0, 1.0, -1.0, float("inf"), float("nan")], device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = levels[torch.randint(0, 6, (3, 400), device=cuda_device, generator=gen)]
+    for k, mode in ((65, "wrap"), (187, "reflect"), (33, "valid")):
+        got = mc._freq_launch(x, k, mode, "select")
+        assert torch.equal(got.view(torch.int32), mc._freq_launch(x, k, mode, "rank").view(
+            torch.int32))
+    a, b = x[:, :300, None].expand(3, 300, 2).contiguous(), x[:, 300:, None].expand(
+        3, 100, 2).contiguous()
+    got = mc._time_launch(a, b, K93, 183, 0.0, "select", run=8)
+    assert torch.equal(got.view(torch.int32),
+                       mc._time_launch(a, b, K93, 183, 0.0, "rank").view(torch.int32))
+
+
+@pytest.mark.parametrize("tile", [1, 7, 64, 256])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k", [33, 187, 401])
+def test_freq_select_tiles_match_twin(cuda_device, k, mode, tile):
+    """K2's select route at 1 to 256 outputs a block, every border, on
+    rows of 300 outputs (K = 401 under wrap and edge: the row's samples,
+    weighted)."""
+    f_in = 300 + (k - 1 if mode == "valid" else 0)
+    x = _ties(np.random.default_rng(k + tile), 5, f_in, device=cuda_device)
+    got = mc._freq_launch(x, k, mode, "select", tile=tile)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
 @pytest.mark.parametrize("tile", mc.FREQ_RANK_TILES)

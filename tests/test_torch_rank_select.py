@@ -12,10 +12,17 @@ store's own sort, pass by pass (``sort_store`` of csrc/rank_select.cuh:
 chunks sorted in the direction the bitonic network gives them, then each
 larger stage's passes over the slice and its strides below a chunk),
 at the real chunk and at tiny ones, so that many merge stages run. The
-emulation is held BITWISE against the plain twins and zen_tpu's median,
-which pick sorted[(K-1)/2]; inputs include tie-heavy ones quantized to 8
-levels and bf16. The tests of the host side (tile, table, routes, stores,
-staging limits, the library hash) need no card either.
+select route (csrc/radix_select.cuh) is emulated step for step too, from
+the wrappers' own geometry (``time_select_plan``, ``freq_select_plan``):
+each pass's digits of the staged samples' order bits, the counts weighted
+by each output's multiplicities (K1's table, K2's window positions or,
+where K passes F, the border's repeat count of each sample), the bin that
+holds the remaining rank and the prefix it extends. Every emulation is
+held BITWISE against the plain twins and zen_tpu's median, which pick
+sorted[(K-1)/2]; inputs include tie-heavy ones quantized to 8 levels,
+bf16, and (for the select route, against the sort's order) -0.0, +0.0,
++inf and NaN. The tests of the host side (tile, table, routes, the cost
+rule, stores, staging limits, the library hash) need no card either.
 """
 import numpy as np
 import pytest
@@ -36,6 +43,12 @@ def _order_bits(v: torch.Tensor) -> torch.Tensor:
     """rank_select.cuh's order_bits as int64: unsigned order == float order."""
     u = v.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     return torch.where(u >= 2**31, 0xFFFFFFFF - u, u | 2**31)
+
+
+def _value_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """rank_select.cuh's value_of_bits: float32 values of int64 order bits."""
+    u = torch.where(bits >= 2**31, bits & 0x7FFFFFFF, 0xFFFFFFFF - bits)
+    return torch.from_numpy(u.numpy().astype(np.uint32).view(np.float32))
 
 
 def _bitonic_stage(keys: torch.Tensor, size: int, stride: int, base: int) -> torch.Tensor:
@@ -158,20 +171,18 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = No
     return out.reshape(x.shape[:-1] + (f_out,)).to(x.dtype)
 
 
-def emulate_time_rank(a, b, offsets, start, fill=0.0, chunk=None) -> torch.Tensor:
+def emulate_time_rank(a, b, offsets, start, fill=0.0) -> torch.Tensor:
     """K1's rank kernel: the wrapper's plan for the call
     (``time_rank_plan``: taps that read only fill moved next to V, the
-    run of min(``time_rank_run``, t_out) output rows, the store), a block
-    per (stream, run, column) staging the rows the run's taps reach
-    (``time_rank_rows``) of V = a ++ b (fill outside, in the inputs'
-    dtype), keyed by (value, relative row), sorted as its store sorts
-    (``chunk`` forces the key store, as ``_time_launch(chunk=)``), the
-    multiplicity table read at row - lane + 31."""
+    run of min(``time_rank_run``, t_out) output rows, keys that fit a
+    block), a block per (stream, run, column) staging the rows the run's
+    taps reach (``time_rank_rows``) of V = a ++ b (fill outside, in the
+    inputs' dtype), keyed by (value, relative row), sorted in shared
+    memory, the multiplicity table read at row - lane + 31."""
     v = torch.cat([a, b], dim=-2).float()
     c, t_v, f = v.shape[0], v.shape[1], v.shape[2]
-    offsets, run, store = mc.time_rank_plan(tuple(offsets), start, t_v)
-    if chunk is None and store == "scratch":
-        chunk = mc.RANK_STORE_CHUNK
+    offsets, run, fits = mc.time_rank_plan(tuple(offsets), start, t_v)
+    assert fits
     lo, span, table = mc.time_rank_table(offsets)
     table = torch.tensor(table)
     t_out = t_v - start
@@ -183,7 +194,7 @@ def emulate_time_rank(a, b, offsets, start, fill=0.0, chunk=None) -> torch.Tenso
         rows = rel + start + i0 + lo
         inside = (rows >= 0) & (rows < t_v)
         staged = torch.where(inside[None, :, None], v[:, rows.clamp(0, t_v - 1)], fill)
-        values, idx = _sorted_positions(staged.transpose(1, 2), chunk)  # [C, F, S]
+        values, idx = _sorted_positions(staged.transpose(1, 2))  # [C, F, S]
         pos = rel[idx]  # a key's position is its relative row
         lane = torch.arange(run)[:, None]
         counts = table[pos[:, :, None, :] - lane + mc.TIME_RANK_RUN - 1]  # [C, F, run, S]
@@ -191,6 +202,128 @@ def emulate_time_rank(a, b, offsets, start, fill=0.0, chunk=None) -> torch.Tenso
         live = min(run, t_out - i0)
         out[:, i0 : i0 + live] = med[:, :, :live].transpose(1, 2)
     return out.to(a.dtype)
+
+
+DIGIT_BITS, BINS = 4, 16  # radix_select.cuh's kDigitBits, kBins
+
+
+def emulate_select(bits: torch.Tensor, weights: torch.Tensor, m: int) -> torch.Tensor:
+    """zen_pick::select for each output: bits [..., S] (int64 order bits
+    of a block's staged samples), weights [..., outputs, S] (each sample's
+    multiplicity in each output's window). The digits the block's least
+    and largest staged sample share are taken as they are; then pass by
+    pass, most significant digit first: the samples whose higher digits
+    match the output's prefix, their next digit's counts weighted, the
+    first bin whose running count passes the remaining rank, which extends
+    the prefix and drops the counts below it. Returns the order bits
+    [..., outputs]."""
+    assert mc.SELECT_PASSES * DIGIT_BITS == 32
+    lo, hi = bits.min(-1).values, bits.max(-1).values
+    same = 32 - torch.floor(torch.log2((lo ^ hi).double().clamp(min=1))).long() - 1
+    same = torch.where(lo == hi, 32, same)  # leading bits every sample shares
+    first = (same // DIGIT_BITS)[..., None]  # [..., 1]: the first pass a block counts
+    keep = (0xFFFFFFFF << (32 - DIGIT_BITS * first)) & 0xFFFFFFFF
+    prefix = torch.where(first > 0, lo[..., None] & keep, 0).expand(weights.shape[:-1]).clone()
+    rank = torch.full(weights.shape[:-1], m, dtype=torch.int64)
+    b = bits[..., None, :]
+    for p in range(mc.SELECT_PASSES):
+        shift = 32 - DIGIT_BITS * (p + 1)
+        above = 0 if p == 0 else (0xFFFFFFFF << (shift + DIGIT_BITS)) & 0xFFFFFFFF
+        match = ((b ^ prefix[..., None]) & above) == 0
+        digit = (b >> shift) & (BINS - 1)
+        counts = torch.stack([((digit == q) & match).long().mul(weights).sum(-1)
+                              for q in range(BINS)], dim=-1)
+        upto = counts.cumsum(-1)
+        q = (upto > rank[..., None]).to(torch.int8).argmax(-1)
+        assert bool((upto[..., -1] > rank).all())  # the rank lies in some bin
+        counted = p >= first  # [..., 1]
+        if not counted.all():  # a skipped digit: every sample's, the rank unmoved
+            assert bool(((q == ((lo[..., None] >> shift) & (BINS - 1))) | counted).all())
+        below = torch.gather(upto - counts, -1, q[..., None])[..., 0]
+        rank = torch.where(counted, rank - below, rank)
+        prefix = torch.where(counted, prefix | (q << shift), prefix)
+    return prefix
+
+
+def emulate_time_select(a, b, offsets, start, fill=0.0, run=None) -> torch.Tensor:
+    """K1's select kernel: the wrapper's geometry for the call
+    (``time_select_plan`` on an H100's SMs: the planned offsets, the run,
+    or ``run`` as ``_time_launch(run=)`` forces it), a block per (stream,
+    run, column) staging the rows the run's taps reach (fill outside V,
+    in the inputs' dtype) as order bits, each output row lane selected with
+    relative row d counted table[d - lane + 31] times."""
+    v = torch.cat([a, b], dim=-2).float()
+    c, t_v, f = v.shape
+    planned, srun, staged, _ = mc.time_select_plan(tuple(offsets), start, t_v, c, f)
+    run = run or srun
+    lo, _, table = mc.time_rank_table(planned)
+    table = torch.tensor(table)
+    rel = torch.tensor(mc.time_rank_rows(planned, run))
+    assert run != srun or len(rel) == staged
+    fill = torch.tensor(fill, dtype=a.dtype).float()
+    t_out = t_v - start
+    out = torch.empty(c, t_out, f)
+    weights = table[rel[None, :] - torch.arange(run)[:, None] + mc.TIME_RANK_RUN - 1]
+    for i0 in range(0, t_out, run):
+        rows = rel + start + i0 + lo
+        inside = (rows >= 0) & (rows < t_v)
+        vals = torch.where(inside[None, :, None], v[:, rows.clamp(0, t_v - 1)], fill)
+        bits = _order_bits(vals.transpose(1, 2))  # [C, F, S]
+        med = _value_of_bits(emulate_select(bits, weights.expand(c, f, -1, -1),
+                                            (len(offsets) - 1) // 2))  # [C, F, run]
+        live = min(run, t_out - i0)
+        out[:, i0 : i0 + live] = med[:, :, :live].transpose(1, 2)
+    return out.to(a.dtype)
+
+
+def _row_count(s, lo, hi, f: int, mode: str) -> torch.Tensor:
+    """median_freq.cu's row_count: how many positions of [lo, hi] the
+    border maps to sample s of a row of f."""
+    def inside(p):
+        return ((lo <= p) & (p <= hi)).long()
+
+    if mode == "wrap":
+        return (torch.div(hi - s, f, rounding_mode="floor")
+                - torch.div(lo - 1 - s, f, rounding_mode="floor"))
+    if mode == "edge":
+        if f == 1:
+            return (hi - lo + 1).expand(-1, s.shape[-1])
+        first = (torch.minimum(hi, torch.zeros_like(hi)) - lo + 1).clamp(min=0)
+        last = (hi - torch.maximum(lo, torch.full_like(lo, f - 1)) + 1).clamp(min=0)
+        return torch.where(s == 0, first, torch.where(s == f - 1, last, inside(s)))
+    assert mode == "reflect"
+    return inside(s) + (s > 0) * inside(-s) + (s < f - 1) * inside(2 * (f - 1) - s)
+
+
+def emulate_freq_select(x: torch.Tensor, k: int, mode: str, tile: int | None = None
+                        ) -> torch.Tensor:
+    """K2's select kernel: the wrapper's tile (``freq_select_plan`` on an
+    H100's SMs, or ``tile``), a block per (row, tile) staging the
+    positions its windows reach (boundary applied), each counted once in
+    the windows it lies in, or, where those positions outnumber the row's
+    samples (`whole`), the row's samples counted by ``_row_count``."""
+    f_in = x.shape[-1]
+    rows = x.reshape(-1, f_in).float()
+    f_out = f_in - k + 1 if mode == "valid" else f_in
+    tile = tile or mc.freq_select_plan(k, rows.shape[0], f_in, mode)[0]
+    m = (k - 1) // 2
+    out = torch.empty(rows.shape[0], f_out)
+    for j0 in range(0, f_out, tile):
+        live = min(tile, f_out - j0)
+        j = j0 + torch.arange(live)[:, None]
+        if live + k - 1 > f_in:
+            samples = rows
+            e = torch.arange(f_in)[None, :]
+            weights = _row_count(e, j - m, j + m, f_in, mode)
+        else:
+            base = j0 if mode == "valid" else j0 - m
+            samples = rows[:, _boundary_index(torch.arange(live + k - 1) + base, f_in, mode)]
+            e = torch.arange(live + k - 1)[None, :]
+            weights = ((e - (j - j0) >= 0) & (e - (j - j0) < k)).long()
+        assert bool((weights.sum(-1) == k).all())
+        med = emulate_select(_order_bits(samples), weights.expand(rows.shape[0], -1, -1), m)
+        out[:, j0 : j0 + live] = _value_of_bits(med)
+    return out.reshape(x.shape[:-1] + (f_out,)).to(x.dtype)
 
 
 def _levels(rng, shape, ties: bool) -> np.ndarray:
@@ -356,45 +489,187 @@ def test_freq_store_emulation_at_its_k(k, f_out, dtype):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, "valid"))
 
 
+# ---------------- the select route: a radix select an output ----------------
+
+WRAP_LIMIT = mc.MAX_FREQ_TAPS  # K2's widest K
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n,outputs", [(1, 1), (7, 3), (93, 5), (600, 2)])
+def test_select_emulation_is_the_weighted_order_statistic(n, outputs, ties):
+    """Any order bits, any weights (zeros, repeats): the emulated passes
+    end on the weighted multiset's element at rank m, as a sort of the
+    samples repeated by their weights gives it."""
+    gen = torch.Generator().manual_seed(n + outputs)
+    bits = torch.randint(0, 2**32, (n,), generator=gen, dtype=torch.int64)
+    if ties:
+        bits = bits % 5 + (2**32 - 5)  # five values at the top, many repeats
+    weights = torch.randint(0, 4, (outputs, n), generator=gen)
+    weights[:, 0] += 1
+    for o in range(outputs):
+        pool = torch.repeat_interleave(bits, weights[o])
+        m = (len(pool) - 1) // 2
+        got = emulate_select(bits, weights[o : o + 1], m)
+        assert int(got[0]) == int(torch.sort(pool).values[m])
+
+
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize(
-    "a_shape,b_shape,offsets,start,fill,chunk",
-    [((2, 183, 9), (2, 40, 9), K93, 183, 0.0, 32),  # 155 rows a run of 32: 256 slots
-     ((1, 100, 5), (1, 0, 5), tuple(range(-200, 201)), 0, float("inf"), 64),
-     ((1, 70, 6), (1, 3, 6), tuple(range(-69, 0)) + (0,) * 60, 3, 0.0, 32)],
+    "a_shape,b_shape,offsets,start,fill,run",
+    [  # the shapes the K1 key store took (runs forced small so blocks take
+       # several output rows), now the select route's
+     ((2, 183, 9), (2, 40, 9), K93, 183, 0.0, 32),
+     ((1, 100, 5), (1, 0, 5), tuple(range(-200, 201)), 0, float("inf"), None),
+     ((1, 70, 6), (1, 3, 6), tuple(range(-69, 0)) + (0,) * 60, 3, 0.0, 2),
+     # the rank route's shapes: valid frames, duplicates (multiplicity 33),
+     # the hop-32 step at B = 1 and 5, spans past 16,352 rows at both ends
+     ((2, 67, 7), (2, 5, 7), tuple(range(-67, 0)), 67, float("inf"), None),
+     ((1, 90, 4), (1, 0, 4), (0,) * 33 + tuple(range(-33, 1)), 0, float("inf"), 4),
+     ((2, 183, 9), (2, 1, 9), K93, 183, 0.0, None),
+     ((1, 183, 6), (1, 5, 6), K93, 183, 0.0, None),
+     ((1, 300, 3), (1, 0, 3), (-16353,) + tuple(range(-65, 1)), 0, 0.0, 8),
+     ((1, 40, 3), (1, 9, 3), (-70000,) + tuple(range(-32, 33)) + (70000,), 20,
+      float("inf"), None)],
 )
-def test_time_store_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, chunk, ties):
-    """K1's rank route on the key store at a tiny chunk, its run kept."""
-    rng = np.random.default_rng(len(offsets) + chunk)
+def test_time_select_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, run, ties):
+    rng = np.random.default_rng(len(offsets) + (run or 0))
     a = _tensor(_levels(rng, a_shape, ties), torch.float32)
     b = _tensor(_levels(rng, b_shape, ties), torch.float32)
-    got = emulate_time_rank(a, b, offsets, start, fill, chunk)
+    got = emulate_time_select(a, b, offsets, start, fill, run)
     assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
 
 
-def test_time_store_emulation_matches_jax():
+def test_time_select_emulation_matches_jax():
     rng = np.random.default_rng(23)
     a, b = _levels(rng, (2, 183, 5), True), _levels(rng, (2, 33, 5), True)
     want = np.asarray(jax_sliding_median(
         jnp.concatenate([a, b], axis=-2), K93, -2, "zero")[..., 183:, :])
-    got = emulate_time_rank(_tensor(a, torch.float32), _tensor(b, torch.float32), K93, 183,
-                            chunk=64)
+    got = emulate_time_select(_tensor(a, torch.float32), _tensor(b, torch.float32), K93, 183,
+                              run=16)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("offsets,h,store", [(K12801, 25_599, "shared"),
-                                             (K25601, 51_199, "scratch")])
-def test_time_store_emulation_at_hop1(offsets, h, store):
+@pytest.mark.parametrize("offsets,h", [(K12801, 25_599), (K25601, 51_199)])
+def test_time_select_emulation_at_hop1(offsets, h):
     """HPRConfig(192000 and 384000, hop=1)'s causal taps over their whole
-    history H and 6 fresh rows of 2 bins: 192 kHz's run of 32 still fits
-    shared memory; 384 kHz's one row (25,601 keys) takes the store at the
-    real chunk."""
-    assert mc.time_rank_plan(offsets, h, h + 6)[2] == store
+    history H and 6 fresh rows of 2 bins: both take the select route on
+    the card, a block an output row (12 blocks); 384 kHz's one row
+    (25,601 keys) passes shared memory for the sort."""
+    assert mc.time_rank_plan(offsets, h, h + 6)[2] == (offsets == K12801)
+    assert mc.time_rank_pick(offsets, h, h + 6, 1, 2) == "select"
+    assert mc.time_select_plan(offsets, h, h + 6, 1, 2)[1] == 1
     rng = np.random.default_rng(len(offsets))
     a = _tensor(_levels(rng, (1, h, 2), True), torch.float32)
     b = _tensor(_levels(rng, (1, 6, 2), True), torch.float32)
-    got = emulate_time_rank(a, b, offsets, h)
+    got = emulate_time_select(a, b, offsets, h)
     assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, h))
+
+
+def test_time_select_emulation_bf16():
+    rng = np.random.default_rng(22)
+    a = _tensor(_levels(rng, (1, 183, 6), False), torch.bfloat16)
+    b = _tensor(_levels(rng, (1, 32, 6), False), torch.bfloat16)
+    got = emulate_time_select(a, b, K93, 183, 0.3, run=8)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, K93, 183, 0.3))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k,tile", [(13, None), (47, 5), (187, 64), (401, 256)])
+def test_freq_select_emulation_matches_twin(k, tile, mode, ties):
+    """Every boundary mode, ragged last tiles (517 outputs a row), the
+    wrapper's tile and forced ones."""
+    rng = np.random.default_rng(k + (tile or 0))
+    f_in = 517 + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(rng, (3, f_in), ties), torch.float32)
+    got = emulate_freq_select(x, k, mode, tile)
+    assert got.shape == (3, 517)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("mode", ["wrap", "edge", "reflect"])
+@pytest.mark.parametrize("k,f", [(33, 5), (65, 7), (127, 64), (1001, 64), (WRAP_LIMIT, 64)])
+def test_freq_select_emulation_stages_the_row_past_f(k, f, mode):
+    """K past F (wrap and edge; reflect up to 2F - 1, its reach): a block
+    stages the row's F samples, each counted as often as the border
+    repeats it in the window (_row_count), up to K2's limit, where a
+    window would otherwise stage 2,096,129 positions of 64 samples."""
+    if mode == "reflect":
+        k = min(k, 2 * f - 1)
+    rng = np.random.default_rng(k + f)
+    x = _tensor(_levels(rng, (2, f), ties=True), torch.float32)
+    tile = mc.freq_select_plan(k, 2, f, mode)[0]
+    assert tile + k - 1 > f  # the whole row, weighted
+    got = emulate_freq_select(x, k, mode)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("k,mode", [(65, "wrap"), (187, "reflect"), (241, "edge"), (187, "wrap")])
+def test_freq_select_emulation_matches_jax(k, mode):
+    """Against zen_tpu's median, K past the row (120) under wrap and edge."""
+    rng = np.random.default_rng(3 * k)
+    x = _levels(rng, (2, 120), ties=True)
+    m = (k - 1) // 2
+    boundary = {"edge": "clamp"}.get(mode, mode)
+    want = np.asarray(jax_sliding_median(jnp.asarray(x), range(-m, m + 1), -1, boundary))
+    got = emulate_freq_select(_tensor(x, torch.float32), k, mode).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k,mode", [(13, "valid"), (187, "reflect"), (129, "wrap")])
+def test_freq_select_emulation_bf16(k, mode):
+    rng = np.random.default_rng(6)
+    f_in = 100 + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(rng, (2, f_in), ties=False), torch.bfloat16)
+    got = emulate_freq_select(x, k, mode)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+def _signed(rng, shape, dtype) -> torch.Tensor:
+    """-0.0, +0.0, +-1, +inf and a positive NaN in equal shares, in
+    ``dtype`` (bf16 from the float32 bits' upper half: torch's float32 to
+    bf16 conversion turns NaN into a negative NaN, which the kernels'
+    order puts below -inf and torch.kthvalue above +inf)."""
+    levels = np.array([-0.0, 0.0, 1.0, -1.0, np.inf, np.nan], np.float32)
+    x = rng.choice(levels, size=shape)
+    if dtype == torch.float32:
+        return torch.from_numpy(x)
+    return torch.from_numpy((x.view(np.uint32) >> 16).astype(np.uint16).view(np.int16)).view(
+        torch.bfloat16)
+
+
+def _same_but_zero_sign(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Bitwise where the twin's value is not a zero; equal (a zero of
+    either sign) where it is: the kernels order -0.0 below +0.0, the
+    twins' torch.kthvalue does not tell them apart."""
+    g, w = got.float(), want.float()
+    assert torch.equal(g.isnan(), w.isnan())
+    assert bool(((g == w) | g.isnan()).all())
+    bitwise = w != 0
+    assert torch.equal(g[bitwise], w[bitwise])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_orders_signed_zeros_inf_and_nan_as_the_sort(dtype):
+    """-0.0 < +0.0 < +inf < NaN (and -inf, -NaN below), as the rank
+    routes' keys order them: the select emulation equals the rank
+    emulation bitwise on K1 and K2, and the twins but for a zero's sign."""
+    rng = np.random.default_rng(31)
+    a, b = _signed(rng, (2, 183, 5), dtype), _signed(rng, (2, 9, 5), dtype)
+    got = emulate_time_select(a, b, K93, 183, run=4)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       emulate_time_rank(a, b, K93, 183).view(
+                           torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    _same_but_zero_sign(got, mc.tap_median_time_plain(a, b, K93, 183))
+    x = _signed(rng, (3, 301), dtype)
+    for k, mode in ((47, "reflect"), (401, "wrap"), (33, "valid")):
+        got = emulate_freq_select(x, k, mode)
+        want = emulate_freq_rank(x, k, mode)
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(ints), want.view(ints))
+        _same_but_zero_sign(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
 # ---------------- the host side ----------------
@@ -434,7 +709,8 @@ def test_time_routes_and_staging_limit():
     every tap count: its reckoning of a block's shared memory is
     launch_rank's, the table leaves shared memory where it no longer fits
     beside the keys, the run shrinks, down to one row, where the keys do
-    not fit, and past one row's keys the keys go to the store."""
+    not fit, and past one row's keys the sort cannot take the call (the
+    select route does)."""
     assert mc.time_route(tuple(range(-62, 1))) == "register"
     assert mc.time_route(tuple(range(-64, 1))) == "rank"
     assert mc.time_route(tuple(range(-12286, 1))) == "rank"
@@ -460,21 +736,26 @@ def test_time_routes_and_staging_limit():
     assert mc.time_rank_keys(spread, 32) > mc.SMEM_OPTIN
     assert mc.time_rank_run(spread) == 16
     assert _launch_rank_bytes(spread, 16)[0] <= mc.SMEM_OPTIN
-    assert mc.time_rank_plan(spread, 24000, 24040)[1:] == (16, "shared")
+    assert mc.time_rank_plan(spread, 24000, 24040)[1:] == (16, True)
     # 192 kHz hop 1 (12,801 taps in two runs): a run of 32 stages 12,863
     # rows, 16,384 keys beside a table in device memory
     assert mc.time_rank_run(K12801) == 32
     assert _launch_rank_bytes(K12801, 32) == (131_072, False)
-    assert mc.time_rank_plan(K12801, 25599, 25631)[1:] == (32, "shared")
-    # 384 kHz hop 1 (25,601 taps): one row stages 25,601, 32,768 keys: the store
+    assert mc.time_rank_plan(K12801, 25599, 25631)[1:] == (32, True)
+    # 384 kHz hop 1 (25,601 taps): one row stages 25,601, 32,768 keys: only
+    # the select route takes it
     assert mc.time_rank_run(K25601) == 1
-    assert mc.time_rank_plan(K25601, 51199, 51231)[1:] == (1, "scratch")
-    # K1's widest tap set, scattered: one row a block, its distinct taps, a
-    # whole slice of the store
+    assert mc.time_rank_plan(K25601, 51199, 51231)[1:] == (1, False)
+    assert mc.time_call_route(K25601, 51199, 51231, 1, 3) == "select"
+    # K1's widest tap set, scattered: one row a block, its distinct taps,
+    # 2^21 keys for a sort; the select route reads its order bits through L2
     widest = tuple(range(-3 * (mc.MAX_TIME_TAPS - 1), 1, 3))
     assert len(widest) == mc.MAX_TIME_TAPS and mc.time_rank_run(widest) == 1
     assert mc.time_rank_keys(widest, 1) == mc.KEY_BYTES * mc.RANK_STORE_MAX_KEYS
-    assert mc.time_rank_plan(widest, 0, 3 * mc.MAX_TIME_TAPS)[1:] == (1, "scratch")
+    assert mc.time_rank_plan(widest, 0, 3 * mc.MAX_TIME_TAPS)[1:] == (1, False)
+    assert mc.time_select_plan(widest, 0, 3 * mc.MAX_TIME_TAPS, 1, 1)[1:] == (
+        1, mc.MAX_TIME_TAPS, mc.SELECT_MAX_THREADS)
+    assert 4 * mc.MAX_TIME_TAPS > mc.SELECT_SHARED_BYTES
 
 
 def test_freq_route_crossover_and_staging_limit():
@@ -498,6 +779,83 @@ def test_freq_route_crossover_and_staging_limit():
     assert mc._key_count(mc.RANK_STORE_THREADS + mc.MAX_FREQ_TAPS - 1) == mc.RANK_STORE_MAX_KEYS
     assert mc.MAX_FREQ_TAPS % 2 == 1 and mc.MAX_TIME_TAPS % 2 == 1
     assert min(mc.MAX_FREQ_TAPS, mc.MAX_TIME_TAPS) > 1 << 20
+
+
+# the rows whose outputs are too few to share a sort (they lost to
+# torch.kthvalue on the key store or the shared sort) and the paths' rank
+# rows, as benches/rank_store.py times them: K1 (offsets, start, t_v,
+# streams, f), K2 (k, rows, f_in, mode)
+SELECT_ROWS = [
+    ("time", (K12801, 25_599, 25_631, 1, 3)),  # 192 kHz hop 1, B=32
+    ("freq", (mc.MAX_FREQ_TAPS, 2, 64, "wrap")),
+    ("time", (tuple(range(-20_000, 1)), 0, 20_100, 1, 9)),
+    ("time", (K25601, 51_199, 51_200, 1, 3)),  # 384 kHz hop 1, B=1
+    ("freq", (57_857, 1, 58_112, "valid")),
+    ("time", (K25601, 51_199, 51_231, 1, 3)),  # B=32
+    ("freq", (65_537, 2, 65_792, "valid")),
+]
+SORT_ROWS = [
+    ("freq", (47, 32, 2049, "reflect")),  # hop 1024
+    ("freq", (187, 8, 8193, "reflect")),  # pitch-track
+    ("time", (K93, 183, 215, 1, 65)),  # hop 32, B=32
+    ("time", (K93, 183, 184, 1, 65)),  # hop 32, B=1
+    ("freq", (187, 41, 8193, "reflect")),  # offline pass 1
+    ("freq", (187, 2585, 8193, "reflect")),  # the 4-minute track's pass 1
+    ("time", (tuple(range(-92, 1)), 92, 41_355 + 92, 1, 513)),  # median2d fl 93
+    ("freq", (187, 2585, 8193, "wrap")),  # median2d fl 187
+    ("freq", (16_385, 4, 8193, "reflect")),  # K2's store: 8193 outputs a row
+    ("freq", (257, 32, 2049, "reflect")),  # fs 8000 hop 1024
+]
+
+
+def _pick(kind, args):
+    return (mc.time_call_route if kind == "time" else mc.freq_call_route)(*args)
+
+
+@pytest.mark.parametrize("kind,args", SELECT_ROWS)
+def test_cost_rule_takes_few_output_rows_to_select(kind, args):
+    """The seven rows take the select route on an H100's 132 SMs (on the
+    card each ran 1.7-1500x under its torch.kthvalue: PERF.md), their
+    blocks an output, or a run of 32 where 180,900 outputs fill the card."""
+    assert _pick(kind, args) == "select"
+    if kind == "time":
+        _, run, staged, threads = mc.time_select_plan(*args)
+        t_out, f = args[2] - args[1], args[4]
+        assert run == (32 if t_out * f > 32 * mc.H100_SMS else 1)
+    else:
+        tile, staged, threads = mc.freq_select_plan(*args)
+        assert tile == 1 and staged == min(args[0], args[2])
+    assert threads == mc.select_threads(staged)
+
+
+@pytest.mark.parametrize("kind,args", SORT_ROWS)
+def test_cost_rule_keeps_shared_sorts(kind, args):
+    """The paths' rank rows and K2's store row keep the sort, which the
+    card measured 4-80x faster than select on each (chip_smoke phase 3)."""
+    assert _pick(kind, args) == "rank"
+    sort, pick = (mc.time_route_costs if kind == "time" else mc.freq_route_costs)(*args)
+    assert sort < pick
+
+
+def test_select_geometry_and_layout():
+    """A select block: power-of-two threads, about 16 staged samples each,
+    64 to 1024; its order bits and bins in shared memory where both fit
+    (the bins only at 1024 threads), else the bits, else the bins."""
+    assert [mc.select_threads(s) for s in (1, 64, 93, 1000, 12_801, 70_001)] == [
+        64, 64, 64, 64, 1024, 1024]
+    assert mc.select_shared_bins(1024) and not mc.select_shared_bins(64)
+    assert mc.select_layout(25_601, 1024) == (True, True, 4 * 25_601 + 64 * 1024)
+    assert mc.select_layout(57_857, 1024) == (True, False, 4 * 57_857)
+    assert mc.select_layout(65_537, 1024) == (False, True, 64 * 1024)
+    assert mc.select_layout(442, 64, False) == (True, False, 4 * 442)
+    # K1's runs halve until the call fills the SMs; K2's tiles too, and
+    # the grid's second dimension caps them from below
+    assert mc.time_select_plan(K93, 183, 215, 1, 65)[1] == 8
+    assert mc.freq_select_plan(47, 1, 2049, "reflect")[0] == 8  # 257 blocks; 16: 129
+    assert mc.freq_select_plan(13, 1, 10_000_000, "reflect")[0] == 256
+    # a run of one over distinct taps counts each staged row once
+    assert mc.time_select_unit(K25601, 1) and not mc.time_select_unit(K25601, 2)
+    assert not mc.time_select_unit((0, 0, -1), 1)
 
 
 @pytest.mark.parametrize("k", [3, 13, 47, 187, 257, 401, 4001])

@@ -7,17 +7,21 @@ file lies in), as ``step_walls.py`` does, so that one call on the card
 can time another checkout's kernels beside this one's, in turns
 (parent, change, change, parent), each in its own process. Times,
 through the wrappers (``tap_median_time``, ``sliding_median_boundary``),
-the rows whose keys pass one block's shared memory (the rank routes'
-key store), K1's 12,801 taps of 192 kHz hop 1 (shared memory, past
-K1's old cap), and the paths' rank rows (K2 at K = 47, 187 and 257, K1
-at K = 93), which take shared memory in both trees. Each time is the
-card's µs for one call: CUDA events behind a spin, the median of
-``--runs`` calls after one warm call, or of 3 where that call took over
-100 ms. Beside it, the SHA-256 of the output's bytes: two trees'
-outputs compare without a twin (whose gather may not hold a tree's
-widest rows). A row the tree refuses prints ``refused`` and the
-ZenError. Prints the card's name and power limit, one line a row, then
-one JSON object.
+whichever route each tree's wrapper picks: the rows whose outputs are
+too few to share a sort (``SEVEN``: hop 1 at 192 and 384 kHz, a whole
+clip's 20,001 contiguous taps, K2's pre-padded rows past 57,000 taps and
+its widest K under wrap, which the key store took and torch.kthvalue
+beat), K2's store row of many outputs (R=4, K = 16,385), and the paths'
+rank rows (``PATH``: hop 1024, pitch-track, hop 32 at B=32 and B=1,
+offline pass 1 on the clip and the 4-minute track, median2d's fl 93 and
+187 at the track's widths). Each time is the card's µs for one call:
+CUDA events behind a spin, the median of ``--runs`` calls after one warm
+call, or of 3 where that call took over 100 ms. Beside it, the SHA-256 of
+the output's bytes: two trees' outputs compare without a twin (whose
+gather may not hold a tree's widest rows). A row the tree refuses prints
+``refused`` and the ZenError. Prints the card's name and power limit,
+one line a row, then one JSON object. chip_smoke.py's phase 3 times the
+same rows' routes side by side (``rows``).
 """
 from __future__ import annotations
 
@@ -34,12 +38,37 @@ SLOW_US = 100_000.0  # a call past this is timed 3 times
 K12801 = tuple(range(-25599, -19199)) + tuple(range(-6400, 1))  # 192 kHz, H = 25,599
 K25601 = tuple(range(-51199, -38399)) + tuple(range(-12800, 1))  # 384 kHz, H = 51,199
 K93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # 44.1 kHz hop 32
-WRAP_LIMIT = (1 << 21) - 1024 + 1  # K2's tap limit on the key store
+WRAP_LIMIT = (1 << 21) - 1024 + 1  # K2's tap limit (median_cuda.MAX_FREQ_TAPS)
+TRACK_H, TRACK_P = 2585, 41355  # the 4-minute track's pass-1 and pass-2 frames
+# the rows that lost to torch.kthvalue on the key store or the shared sort,
+# and the paths' rank rows: labels of rows()
+SEVEN = (
+    "K1 pair C=1 H=25599 B=32 F=3 K=12801 (192 kHz hop 1)",
+    f"K2 R=2 F=64 K={WRAP_LIMIT} wrap",
+    "K1 single T=20100 F=9 K=20001",
+    "K1 pair C=1 H=51199 B=1 F=3 K=25601 (384 kHz hop 1)",
+    "K2 R=1 F_in=58112 K=57857 valid",
+    "K1 pair C=1 H=51199 B=32 F=3 K=25601 (384 kHz hop 1)",
+    "K2 R=2 F_in=65792 K=65537 valid",
+)
+PATH = (
+    "K2 R=32 F=2049 K=47 reflect (hop 1024)",
+    "K2 R=8 F=8193 K=187 reflect (pitch-track)",
+    "K1 pair C=1 H=183 B=32 F=65 K=93 (hop 32)",
+    "K1 pair C=1 H=183 B=1 F=65 K=93 (hop 32)",
+    "K2 R=41 F=8193 K=187 reflect (offline pass 1)",
+    f"K2 R={TRACK_H} F=8193 K=187 reflect (4-minute pass 1)",
+    f"K1 single T={TRACK_P}+92 F=513 K=93 (median2d fl 93)",
+    f"K2 R={TRACK_H} F=8193 K=187 wrap (median2d fl 187)",
+)
 
 
 def rows(torch, device) -> list:
     """(label, kind, args): kind 'time' takes (a, b, offsets, start),
-    'freq' (x, k, mode); inputs from one numpy seed, made on the card."""
+    'freq' (x, k, mode); inputs from one numpy seed, made on the card:
+    PATH and K2 at K = 257 (fs 8000 hop 1024) first, so that no tree's
+    wide rows (a parent's key store ran some for seconds) load the card
+    before them, then SEVEN, K2's store row and its bf16 twin."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -49,22 +78,25 @@ def rows(torch, device) -> list:
         return torch.from_numpy(x).to(device).to(dtype)
 
     return [
-        ("K2 R=32 F=2049 K=47 reflect", "freq", (mag(32, 2049), 47, "reflect")),
-        ("K2 R=41 F=8193 K=187 reflect", "freq", (mag(41, 8193), 187, "reflect")),
-        ("K2 R=32 F=2049 K=257 reflect", "freq", (mag(32, 2049), 257, "reflect")),
-        ("K1 pair C=1 H=183 B=32 F=65 K=93", "time", (mag(1, 183, 65), mag(1, 32, 65), K93, 183)),
+        (PATH[0], "freq", (mag(32, 2049), 47, "reflect")),
+        (PATH[1], "freq", (mag(8, 8193), 187, "reflect")),
+        (PATH[2], "time", (mag(1, 183, 65), mag(1, 32, 65), K93, 183)),
+        (PATH[3], "time", (mag(1, 183, 65), mag(1, 1, 65), K93, 183)),
+        (PATH[4], "freq", (mag(41, 8193), 187, "reflect")),
+        (PATH[5], "freq", (mag(TRACK_H, 8193), 187, "reflect")),
+        (PATH[6], "time", (mag(TRACK_P + 92, 513), mag(0, 513), tuple(range(-92, 1)), 92)),
+        (PATH[7], "freq", (mag(TRACK_H, 8193), 187, "wrap")),
+        ("K2 R=32 F=2049 K=257 reflect (fs 8000 hop 1024)", "freq", (mag(32, 2049), 257, "reflect")),
+        (SEVEN[0], "time", (mag(1, 25_599, 3), mag(1, 32, 3), K12801, 25_599)),
+        (SEVEN[1], "freq", (mag(2, 64), WRAP_LIMIT, "wrap")),
+        (SEVEN[2], "time", (mag(1, 20_100, 9), mag(1, 0, 9), tuple(range(-20_000, 1)), 0)),
+        (SEVEN[3], "time", (mag(1, 51_199, 3), mag(1, 1, 3), K25601, 51_199)),
+        (SEVEN[4], "freq", (mag(1, 58_112), 57_857, "valid")),
+        (SEVEN[5], "time", (mag(1, 51_199, 3), mag(1, 32, 3), K25601, 51_199)),
+        (SEVEN[6], "freq", (mag(2, 65_792), 65_537, "valid")),
         ("K2 R=4 F=8193 K=16385 reflect", "freq", (mag(4, 8193), 16_385, "reflect")),
         ("K2 R=4 F=8193 K=16385 reflect bf16", "freq",
          (mag(4, 8193, dtype=torch.bfloat16), 16_385, "reflect")),
-        ("K2 R=1 F_in=58112 K=57857 valid", "freq", (mag(1, 58_112), 57_857, "valid")),
-        ("K2 R=2 F_in=65792 K=65537 valid", "freq", (mag(2, 65_792), 65_537, "valid")),
-        (f"K2 R=2 F=64 K={WRAP_LIMIT} wrap", "freq", (mag(2, 64), WRAP_LIMIT, "wrap")),
-        ("K1 pair C=1 H=25599 B=32 F=3 K=12801 (192 kHz hop 1)", "time",
-         (mag(1, 25_599, 3), mag(1, 32, 3), K12801, 25_599)),
-        ("K1 pair C=1 H=51199 B=32 F=3 K=25601 (384 kHz hop 1)", "time",
-         (mag(1, 51_199, 3), mag(1, 32, 3), K25601, 51_199)),
-        ("K1 single T=20100 F=9 K=20001", "time",
-         (mag(1, 20_100, 9), mag(1, 0, 9), tuple(range(-20_000, 1)), 0)),
     ]
 
 

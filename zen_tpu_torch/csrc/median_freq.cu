@@ -74,12 +74,28 @@
 // them through a 128 KB chunk of shared memory (the same network, its
 // strides from a chunk up as passes over the slice), and walks the slice
 // through the cache. The scratch, sized by the grid, bounds K
-// (median_cuda.MAX_FREQ_TAPS).
+// (median_cuda.MAX_FREQ_TAPS). The store stays for calls whose units of
+// 1024 outputs share a sort (R=4 rows of 8193 at K = 16,385).
+//
+// `select`, where the call's outputs are too few to share a sort
+// (median_cuda.freq_rank_pick weighs the two on the call's geometry: a
+// pre-padded row of 58,112 samples at K = 57,857 has 256 outputs, a
+// 64-sample row under wrap at K = 2,096,129 has 64): a block takes a row
+// and a tile of outputs (one, where the call has few), stages the
+// positions its windows reach as 4-byte order bits (in shared memory
+// where they fit, else read through L2 on each pass) and selects each
+// output alone by its digits (radix_select.cuh), a position counted
+// once where it lies in the output's window. Where the tile's positions
+// outnumber the row's samples (K past F under wrap or edge, or near 2F
+// under reflect) it stages the row's F samples instead, each counted as
+// often as the border repeats it in the output's window (row_count): a
+// window never stages 2 M positions of 64 samples.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "radix_select.cuh"
 #include "rank_select.cuh"
 #include "row_segment.cuh"
 #include "zen_select.cuh"
@@ -201,6 +217,90 @@ rank_store_median_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// floor(a / b) for b > 0
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// How many positions p in [lo, hi] the border maps to sample s of a row
+// of f (boundary_index's preimages; reflect's lie in [-(f - 1), 2(f -
+// 1)], the window's reach when (K - 1) / 2 <= f - 1)
+__device__ __forceinline__ int row_count(int s, int lo, int hi, int f, int mode) {
+  const auto in = [&](long long p) { return lo <= p && p <= hi ? 1 : 0; };
+  if (mode == zen_segment::kWrap) {
+    return static_cast<int>(floor_div(static_cast<long long>(hi) - s, f) -
+                            floor_div(static_cast<long long>(lo) - 1 - s, f));
+  }
+  if (mode == zen_segment::kEdge) {
+    if (f == 1) return hi - lo + 1;
+    if (s == 0) return max(0, min(hi, 0) - lo + 1);
+    if (s == f - 1) return max(0, hi - max(lo, f - 1) + 1);
+    return in(s);
+  }
+  // reflect: s, -s and 2 (f - 1) - s, each once
+  return in(s) + (s > 0 ? in(-s) : 0) + (s < f - 1 ? in(2LL * (f - 1) - s) : 0);
+}
+
+// The select route: one block per (row, tile of `tile` outputs), output
+// j of the tile selected by zen_pick::select over the staged samples.
+// Positions base .. base + live + k - 2, each counted by the windows it
+// lies in, or (`whole`: they outnumber the row's f_in samples) the row's
+// samples, each counted row_count times. kShared: the staged order bits
+// in shared memory (room for `stage_len`, the most a block stages),
+// otherwise each pass reads the row through L2; kHist: the threads' bins
+// in shared memory after them (zen_pick::layout).
+template <typename T, bool kShared, bool kHist>
+__global__ void __launch_bounds__(zen_pick::kMaxThreads)
+select_median_kernel(const T* __restrict__ x, T* __restrict__ out, int f_in,
+                     int f_out, int k, int mode, int tile, int stage_len) {
+  extern __shared__ __align__(16) unsigned int bits[];
+  __shared__ zen_pick::Shared sh;
+  int* hist = kHist ? reinterpret_cast<int*>(bits + (kShared ? stage_len : 0)) : nullptr;
+  const long long r = blockIdx.x;
+  const int j0 = blockIdx.y * tile;
+  const int m = (k - 1) / 2;
+  const T* row = x + static_cast<size_t>(r) * f_in;
+  const int live = min(tile, f_out - j0);
+  const long long need = static_cast<long long>(live) + k - 1;
+  const bool whole = need > f_in;
+  const int n = whole ? f_in : static_cast<int>(need);
+  const int base = mode == kValid ? j0 : j0 - m;
+  const auto load = [&](int e) {
+    const int p = whole ? e : zen_segment::boundary_index(base + e, f_in, mode);
+    return zen_rank::order_bits(to_float(row[p]));
+  };
+  zen_pick::begin(&sh, hist);
+  __syncthreads();
+  if (kShared) {
+    unsigned int lo = ~0u, hi = 0u;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const unsigned int o = load(e);
+      bits[e] = o;
+      lo = min(lo, o);
+      hi = max(hi, o);
+    }
+    zen_pick::stage_range(&sh, lo, hi);
+  }
+  __syncthreads();
+  int tick = 0;
+  for (int jl = 0; jl < live; ++jl) {
+    const int j = j0 + jl;
+    const unsigned int key = zen_pick::select<kHist>(
+        n, m, [&](int e) { return kShared ? bits[e] : load(e); },
+        [&](int e) {
+          return whole ? row_count(e, j - m, j + m, f_in, mode)
+                       : static_cast<int>(static_cast<unsigned>(e - jl) <
+                                          static_cast<unsigned>(k));
+        },
+        &sh, hist, tick);
+    if (threadIdx.x == 0) {
+      out[static_cast<size_t>(r) * f_out + j] =
+          from_float<T>(zen_rank::value_of_bits(key));
+    }
+  }
+}
+
 int check_args(int rows, int f_in, int f_out, int k, int mode) {
   if (k < 1 || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
       mode < kReflect || mode > kValid) {
@@ -292,6 +392,41 @@ int launch_rank_store(const T* x, T* out, int rows, int f_in, int f_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `tile` outputs a block (1 to 256, the grid's second dimension at most
+// 65535) and `threads` a block (a power of two, 64 to
+// zen_pick::kMaxThreads): the wrapper's freq_select_plan. The staged
+// order bits and the threads' bins go to shared memory as
+// zen_pick::layout fits them, the bins only where `shared_bins` (the
+// wrapper's select_shared_bins).
+template <typename T>
+int launch_select(const T* x, T* out, int rows, int f_in, int f_out, int k,
+                  int mode, int tile, int threads, int shared_bins, void* stream) {
+  int err = check_args(rows, f_in, f_out, k, mode);
+  if (err != 0) return err;
+  if (tile < 1 || tile > 256 || threads < 64 || threads > zen_pick::kMaxThreads ||
+      (threads & (threads - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long tiles = (static_cast<long long>(f_out) + tile - 1) / tile;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  int optin = 0;
+  err = zen_rank::optin_bytes(&optin);
+  if (err != 0) return err;
+  const long long need = static_cast<long long>(min(tile, f_out)) + k - 1;
+  const int stage_len = static_cast<int>(need < f_in ? need : f_in);
+  const zen_pick::Layout at = zen_pick::layout(stage_len, threads, optin, shared_bins != 0);
+  const auto kernel = at.shared ? (at.hist ? select_median_kernel<T, true, true>
+                                           : select_median_kernel<T, true, false>)
+                                : select_median_kernel<T, false, true>;
+  err = zen_rank::opt_in(reinterpret_cast<const void*>(kernel), at.bytes,
+                         optin - static_cast<int>(sizeof(zen_pick::Shared)));
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(tiles));
+  kernel<<<grid, threads, at.bytes, static_cast<cudaStream_t>(stream)>>>(
+      x, out, f_in, f_out, k, mode, tile, stage_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int zen_sliding_median_network(const float* x, float* out,
@@ -333,4 +468,21 @@ extern "C" int zen_sliding_median_rank_store_bf16(
     int len, void* stream) {
   return launch_rank_store(x, out, rows, f_in, f_out, k, mode, scratch, blocks,
                            slice, len, stream);
+}
+
+extern "C" int zen_sliding_median_select(const float* x, float* out, int rows,
+                                         int f_in, int f_out, int k, int mode,
+                                         int tile, int threads, int shared_bins,
+                                         void* stream) {
+  return launch_select(x, out, rows, f_in, f_out, k, mode, tile, threads, shared_bins,
+                       stream);
+}
+
+extern "C" int zen_sliding_median_select_bf16(const __nv_bfloat16* x,
+                                              __nv_bfloat16* out, int rows,
+                                              int f_in, int f_out, int k,
+                                              int mode, int tile, int threads,
+                                              int shared_bins, void* stream) {
+  return launch_select(x, out, rows, f_in, f_out, k, mode, tile, threads, shared_bins,
+                       stream);
 }

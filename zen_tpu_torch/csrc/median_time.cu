@@ -103,22 +103,27 @@
 // table took 10.14 us at hop 32's K = 93 (B = 32), 8.13 at B = 1 and 9.92
 // at a span of 16,354 rows, against 10.59, 8.59 and 10.82 reading device
 // memory (benches/rank_table.py).
-// Every tap count fits too: where one row's distinct taps pass 16,384
-// keys (the 25,601 of 384 kHz hop 1), the keys live in the block's slice
-// of a device-memory scratch (the key store of rank_select.cuh): a
-// persistent grid of at most one block an SM, kStoreThreads threads a
-// block, sorts them through a 128 KB chunk of shared memory, and the
-// whole block walks the slice for the unit's one output row
-// (zen_rank::walk_block: kBlockWalkRanks ranks a thread a step, a scan of
-// the block's counts), the table read from device memory: a walk by one
-// lane, as in the shared route, would wait a cache round trip for each
-// eight of ~K/2 ranks. The scratch, sized by the grid, bounds K
-// (median_cuda.MAX_TIME_TAPS).
+// Every tap count fits too, through the `select` route
+// (radix_select.cuh), which the wrapper takes wherever it beats the sort
+// on the call's geometry (median_cuda.time_rank_pick) and wherever one
+// row's distinct taps pass 16,384 keys (the 25,601 of 384 kHz hop 1): a
+// block takes one column and a run of output rows (one, where the call
+// has few: 192 and 384 kHz hop 1 at B = 32 are 96 outputs, one block
+// each), stages the rows the run's taps reach once as 4-byte order bits
+// (in shared memory where they fit, else read through L2 on each pass),
+// and selects each output row alone: kPasses passes of a digit histogram
+// over the staged rows, each row counted table[row - lane + 31] times, as
+// in the walk. Nothing is sorted, so a call of a few outputs spreads over
+// as many blocks and no block orders tens of thousands of keys alone (a
+// sort of one output's keys on one SM lost to torch.kthvalue there). The
+// selection's bound on this card is its kPasses reads of the staged rows
+// an output and each pass's barrier, not the bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "radix_select.cuh"
 #include "rank_select.cuh"
 #include "time_runs.cuh"
 #include "zen_select.cuh"
@@ -213,7 +218,22 @@ __device__ __forceinline__ float tap_at(const T* __restrict__ a,
   return fill;
 }
 
+// the same, branch-free (the row clamped where it reads fill), so that a
+// thread's loads of a batch are in flight together
+template <typename T>
+__device__ __forceinline__ float tap_pred(const T* __restrict__ a,
+                                          const T* __restrict__ b,
+                                          long long c, int ta, int tb, int f,
+                                          int col, int r, float fill) {
+  const bool in_a = r >= 0 && r < ta;
+  const bool in_b = r >= ta && r < ta + tb;
+  const T* src = in_a ? a + (static_cast<size_t>(c) * ta + r) * f + col
+                      : b + (static_cast<size_t>(c) * tb + (in_b ? r - ta : 0)) * f + col;
+  return in_a || in_b ? load_ro(src) : fill;
+}
+
 constexpr int kRun = 32;           // most output rows of a rank-kernel block
+constexpr int kStageBatch = 8;     // staging loads a select thread keeps in flight
 constexpr int kRankThreads = 128;  // threads that stage and sort them
 
 // One block per unit: column `col` of stream `c`, output rows i0 + lane
@@ -283,69 +303,79 @@ __global__ void tap_median_time_rank_kernel(
   *dst = from_float<T>(zen_rank::value_of(key));
 }
 
-// The rank route on the key store: a persistent grid whose block b walks
-// the units b, b + gridDim.x, ... of the shared route's kernel (one
-// column, a run of output rows), staging each unit's keys in its own
-// slice of `scratch` (`slice` keys) and sorting them through `len` keys
-// of shared memory; the walk reads the table from `plan`.
-template <typename T>
-__global__ void __launch_bounds__(zen_rank::kStoreThreads)
-tap_median_time_rank_store_kernel(
+// The select route: one block per unit, as the rank kernel's (one
+// column, a run of output rows), `plan` the same table and staged rows.
+// kShared: the staged rows' order bits in shared memory, otherwise each
+// pass reads them from V through L2; kHist: the threads' bins in shared
+// memory after them (zen_pick::layout). Each output row of the run in
+// turn: zen_pick::select over the staged rows, row d counted table[d -
+// lane + 31] times, or once where `unit` (a run of one whose taps are
+// distinct: every staged row is one tap, and the table is not read).
+template <typename T, bool kShared, bool kHist>
+__global__ void __launch_bounds__(zen_pick::kMaxThreads)
+tap_median_time_select_kernel(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
     int ta, int tb, int f, int start, int t_out, int run,
-    const int* __restrict__ plan, int min_o, int span, int staged, int k,
-    float fill, long long units, unsigned long long* __restrict__ scratch,
-    int slice, int len) {
-  extern __shared__ __align__(16) unsigned long long chunk[];
-  __shared__ int scan[zen_rank::kStoreThreads / 32];
-  __shared__ unsigned long long found;
-  unsigned long long* keys = scratch + static_cast<size_t>(blockIdx.x) * slice;
-  const int n = zen_rank::key_count(staged);
-  const int table_len = span + 2 * (kRun - 1);
-  const int* rows = plan + table_len;
-  const int tid = threadIdx.x;
+    const int* __restrict__ plan, int span, int staged, int k, int min_o,
+    float fill, int unit) {
+  extern __shared__ __align__(16) unsigned int bits[];
+  __shared__ zen_pick::Shared sh;
+  int* hist = kHist ? reinterpret_cast<int*>(bits + (kShared ? staged : 0)) : nullptr;
+  const int len = span + 2 * (kRun - 1);
+  const int* rows = plan + len;
   const int n_runs = (t_out + run - 1) / run;
-  for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
-    const int col = static_cast<int>(unit % f);
-    const long long rest = unit / f;
-    const int i0 = static_cast<int>(rest % n_runs) * run;
-    const long long c = rest / n_runs;
-    const int row0 = start + i0 + min_o;  // the V row of relative row 0
-#pragma unroll 4
-    for (int s = tid; s < n; s += zen_rank::kStoreThreads) {
-      unsigned long long key = zen_rank::kPadKey;
-      if (s < staged) {
-        const int d = rows[s];
-        key = zen_rank::make_key(tap_at(a, b, c, ta, tb, f, col, row0 + d, fill), d);
+  const long long unit_id = blockIdx.x;
+  const int col = static_cast<int>(unit_id % f);
+  const long long rest = unit_id / f;
+  const int i0 = static_cast<int>(rest % n_runs) * run;
+  const long long c = rest / n_runs;
+  const int row0 = start + i0 + min_o;  // the V row of relative row 0
+  const auto load = [&](int e) {
+    return zen_rank::order_bits(
+        tap_pred(a, b, c, ta, tb, f, col, row0 + __ldg(rows + e), fill));
+  };
+  zen_pick::begin(&sh, hist);
+  __syncthreads();
+  if (kShared) {
+    // kStageBatch rows a step: their row numbers, then their taps, in flight
+    unsigned int lo = ~0u, hi = 0u;
+    for (int e0 = threadIdx.x; e0 < staged; e0 += kStageBatch * blockDim.x) {
+      int d[kStageBatch];
+      float v[kStageBatch];
+#pragma unroll
+      for (int u = 0; u < kStageBatch; ++u) {
+        const int e = e0 + u * blockDim.x;
+        d[u] = e < staged ? __ldg(rows + e) : 0;
       }
-      keys[s] = key;
-    }
-    __syncthreads();
-    if (ZEN_RANK_CUT != 1) {
-      zen_rank::sort_store(keys, n, chunk, len, tid, zen_rank::kStoreThreads);
-    }
-    // the block walks each output row of the run in turn (one, where the
-    // wrapper sends a call to the store), the table read through the
-    // read-only cache as in the shared route
-    for (int lane = 0; lane < run && i0 + lane < t_out; ++lane) {
-      const unsigned int mult_at = kRun - 1 - lane;
-      const unsigned long long key =
-          ZEN_RANK_CUT != 0
-              ? keys[lane]
-              : zen_rank::walk_block(
-                    keys, n, (k - 1) / 2,
-                    [&](unsigned long long kv) {
-                      const unsigned int q = zen_rank::position_of(kv) + mult_at;
-                      if (q >= static_cast<unsigned int>(table_len)) return 0;
-                      return __ldg(plan + q);
-                    },
-                    scan, &found);
-      if (tid == 0) {
-        out[(static_cast<size_t>(c) * t_out + i0 + lane) * f + col] =
-            from_float<T>(zen_rank::value_of(key));
+#pragma unroll
+      for (int u = 0; u < kStageBatch; ++u) {
+        v[u] = tap_pred(a, b, c, ta, tb, f, col, row0 + d[u], fill);
+      }
+#pragma unroll
+      for (int u = 0; u < kStageBatch; ++u) {
+        const int e = e0 + u * blockDim.x;
+        if (e < staged) {
+          const unsigned int o = zen_rank::order_bits(v[u]);
+          bits[e] = o;
+          lo = min(lo, o);
+          hi = max(hi, o);
+        }
       }
     }
-    __syncthreads();  // the next unit restages the slice
+    zen_pick::stage_range(&sh, lo, hi);
+  }
+  __syncthreads();
+  int tick = 0;
+  for (int lane = 0; lane < run && i0 + lane < t_out; ++lane) {
+    const int* mult = plan + (kRun - 1 - lane);  // mult[d]: row d's taps
+    const unsigned int key = zen_pick::select<kHist>(
+        staged, (k - 1) / 2,
+        [&](int e) { return kShared ? bits[e] : load(e); },
+        [&](int e) { return unit ? 1 : __ldg(mult + __ldg(rows + e)); }, &sh, hist, tick);
+    if (threadIdx.x == 0) {
+      out[(static_cast<size_t>(c) * t_out + i0 + lane) * f + col] =
+          from_float<T>(zen_rank::value_of_bits(key));
+    }
   }
 }
 
@@ -432,33 +462,39 @@ int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch_rank's plan and checks, with the keys in `scratch`: `blocks`
-// slices of `slice` keys (a power of two, at least key_count(staged): the
-// wrapper's rank_store_args); `len` keys of shared memory a block (a
-// power of two, 32 to kStoreChunk)
+// The select route on launch_rank's plan and checks, `threads` a block
+// (a power of two, 64 to zen_pick::kMaxThreads: the wrapper's
+// select_threads, time_select_plan), `unit` where every staged row counts
+// once (the wrapper's time_select_unit); the staged rows' order bits and
+// the threads' bins go to shared memory as zen_pick::layout fits them,
+// the bins only where `shared_bins` (the wrapper's select_shared_bins).
 template <typename T>
-int launch_rank_store(const T* a, const T* b, T* out, int c, int ta, int tb,
-                      int f, int start, int t_out, const int* plan, int min_o,
-                      int span, int staged, int run, int k, float fill,
-                      unsigned long long* scratch, int blocks, int slice,
-                      int len, void* stream) {
+int launch_select(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
+                  int start, int t_out, const int* plan, int min_o, int span,
+                  int staged, int run, int k, float fill, int threads, int unit,
+                  int shared_bins, void* stream) {
   if (k < 1 || k % 2 == 0 || c <= 0 || f <= 0 || t_out <= 0 || span < 1 ||
       run < 1 || run > kRun || staged < 1 || staged > kRun - 1 + span ||
-      staged > (1 << 30) || scratch == nullptr || blocks < 1 ||
-      slice < zen_rank::key_count(staged) || (slice & (slice - 1)) != 0 ||
-      len < 32 || len > zen_rank::kStoreChunk || (len & (len - 1)) != 0) {
+      threads < 64 || threads > zen_pick::kMaxThreads || (threads & (threads - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(len) * sizeof(unsigned long long);
-  int err = zen_rank::opt_in(
-      reinterpret_cast<const void*>(tap_median_time_rank_store_kernel<T>), smem);
+  int optin = 0;
+  int err = zen_rank::optin_bytes(&optin);
+  if (err != 0) return err;
+  const zen_pick::Layout at = zen_pick::layout(staged, threads, optin, shared_bins != 0);
+  const auto kernel = at.shared ? (at.hist ? tap_median_time_select_kernel<T, true, true>
+                                           : tap_median_time_select_kernel<T, true, false>)
+                                : tap_median_time_select_kernel<T, false, true>;
+  err = zen_rank::opt_in(reinterpret_cast<const void*>(kernel), at.bytes,
+                         optin - static_cast<int>(sizeof(zen_pick::Shared)));
   if (err != 0) return err;
   const int n_runs = (t_out + run - 1) / run;
   const long long units = static_cast<long long>(c) * n_runs * f;
-  tap_median_time_rank_store_kernel<T><<<blocks, zen_rank::kStoreThreads, smem,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, ta, tb, f, start, t_out, run, plan, min_o, span, staged, k,
-      fill, units, scratch, slice, len);
+  if (units > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(units), threads, at.bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      a, b, out, ta, tb, f, start, t_out, run, plan, span, staged, k, min_o,
+      fill, unit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -498,25 +534,21 @@ extern "C" int zen_tap_median_time_rank_bf16(
                      staged, run, k, fill, stream);
 }
 
-extern "C" int zen_tap_median_time_rank_store(
+extern "C" int zen_tap_median_time_select(
     const float* a, const float* b, float* out, int c, int ta, int tb, int f,
     int start, int t_out, const int* plan, int min_o, int span, int staged,
-    int run, int k, float fill, unsigned long long* scratch, int blocks,
-    int slice, int len, void* stream) {
-  return launch_rank_store(a, b, out, c, ta, tb, f, start, t_out, plan, min_o,
-                           span, staged, run, k, fill, scratch, blocks, slice,
-                           len, stream);
+    int run, int k, float fill, int threads, int unit, int shared_bins, void* stream) {
+  return launch_select(a, b, out, c, ta, tb, f, start, t_out, plan, min_o,
+                       span, staged, run, k, fill, threads, unit, shared_bins, stream);
 }
 
-extern "C" int zen_tap_median_time_rank_store_bf16(
+extern "C" int zen_tap_median_time_select_bf16(
     const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* out, int c,
     int ta, int tb, int f, int start, int t_out, const int* plan, int min_o,
-    int span, int staged, int run, int k, float fill,
-    unsigned long long* scratch, int blocks, int slice, int len,
-    void* stream) {
-  return launch_rank_store(a, b, out, c, ta, tb, f, start, t_out, plan, min_o,
-                           span, staged, run, k, fill, scratch, blocks, slice,
-                           len, stream);
+    int span, int staged, int run, int k, float fill, int threads, int unit,
+    int shared_bins, void* stream) {
+  return launch_select(a, b, out, c, ta, tb, f, start, t_out, plan, min_o,
+                       span, staged, run, k, fill, threads, unit, shared_bins, stream);
 }
 
 extern "C" const char* zen_cuda_error_string(int err) {

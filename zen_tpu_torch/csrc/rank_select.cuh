@@ -14,15 +14,17 @@
 //
 // Two stores for the keys. The shared store sorts them in shared memory
 // (bitonic_sort), up to the 227 KB a block can opt into: 16,384 keys of
-// 8 bytes, as a power of two. Past that the keys live in the block's
+// 8 bytes, as a power of two. Past that K2's keys live in the block's
 // slice of a device-memory scratch that the wrapper allocates, sized by
 // the grid (a persistent grid of at most one block an SM walks the
 // units), and sort_store sorts them: each chunk of kStoreChunk keys in
 // shared memory, the stages' strides from a chunk up as passes over the
 // slice, the strides below a chunk in shared memory again. It is the same
 // bitonic network, so the keys end in the same order; the walk then reads
-// the slice through the cache (walk_block: the whole block on one output,
-// where a unit has one).
+// the slice through the cache. K2 takes the store only where a unit's
+// 1024 outputs share its sort; calls with few outputs, and every K1 call
+// whose keys pass shared memory, take the select route instead
+// (radix_select.cuh), which sorts nothing.
 //
 // Exactness: the key order is the float order, except that -0.0 sorts
 // below +0.0 and NaN does not arise (both kernels take magnitudes, from
@@ -110,9 +112,13 @@ __device__ __forceinline__ unsigned int order_bits(float x) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ float value_of(unsigned long long key) {
-  const unsigned int k = static_cast<unsigned int>(key >> 32);
+// the value whose order_bits are k
+__device__ __forceinline__ float value_of_bits(unsigned int k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ float value_of(unsigned long long key) {
+  return value_of_bits(static_cast<unsigned int>(key >> 32));
 }
 
 __device__ __forceinline__ unsigned long long make_key(float v, int pos) {
@@ -301,75 +307,6 @@ __device__ __forceinline__ unsigned long long walk(
     seen += count(keys[rank]);
     if (seen > m) return keys[rank];
   }
-}
-
-// The rank walk of one output by the whole block (kStoreThreads threads,
-// each thread calling it): the key at the first rank of keys[0, n) where
-// the running sum of count(key) passes m. Where a unit has one output, a
-// walk by one thread waits a cache round trip a step for ~S/16 steps; here
-// every thread counts kBlockWalkRanks consecutive ranks a step, a scan of
-// the block's counts finds the step that passes m, and the thread whose
-// ranks hold the crossing finds the rank. `scan` is shared memory for
-// kStoreThreads / 32 ints and `found` for one key; every thread returns
-// the key. Ends synced.
-constexpr int kBlockWalkRanks = 4;
-
-template <typename Count>
-__device__ __forceinline__ unsigned long long walk_block(
-    const unsigned long long* keys, int n, int m, Count count, int* scan,
-    unsigned long long* found) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  int seen = 0;
-  for (int base = 0; base < n; base += kStoreThreads * kBlockWalkRanks) {
-    const int r0 = base + tid * kBlockWalkRanks;
-    int c[kBlockWalkRanks];
-    int mine = 0;
-#pragma unroll
-    for (int u = 0; u < kBlockWalkRanks; ++u) {
-      c[u] = r0 + u < n ? count(keys[r0 + u]) : 0;
-      mine += c[u];
-    }
-    int upto = mine;  // inclusive scan over the warp, then over the warps
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, upto, d);
-      if (lane >= d) upto += y;
-    }
-    if (lane == 31) scan[warp] = upto;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < kStoreThreads / 32 ? scan[lane] : 0;
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, d);
-        if (lane >= d) w += y;
-      }
-      if (lane < kStoreThreads / 32) scan[lane] = w;
-    }
-    __syncthreads();
-    const int before = seen + (warp ? scan[warp - 1] : 0) + upto - mine;
-    const int total = scan[kStoreThreads / 32 - 1];
-    if (seen + total > m) {
-      if (before <= m && m < before + mine) {
-        int sum = before;
-#pragma unroll
-        for (int u = 0; u < kBlockWalkRanks; ++u) {
-          sum += c[u];
-          if (sum > m) {
-            *found = keys[r0 + u];
-            break;
-          }
-        }
-      }
-      __syncthreads();
-      const unsigned long long key = *found;
-      __syncthreads();  // the next walk may write `found`
-      return key;
-    }
-    seen += total;
-    __syncthreads();  // the next step rewrites `scan`
-  }
-  return kPadKey;  // not reached: the answer lies below the padding
 }
 
 }  // namespace zen_rank

@@ -51,15 +51,16 @@ _I = ctypes.c_int
 # fill, stream
 _TIME_RANK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
                ctypes.c_float, _P], _I)
-# the same, with the key store before the stream: scratch (device), blocks, slice
-# (rank_store_args), len (keys of shared memory a block)
-_TIME_RANK_STORE = (_TIME_RANK[0][:-1] + [_P, _I, _I, _I, _P], _I)
+# the same, with the select block's threads, `unit` and `shared_bins` before the stream
+_TIME_SELECT = (_TIME_RANK[0][:-1] + [_I, _I, _I, _P], _I)
 # x, out, rows, f_in, f_out, k, mode, stream
 _FREQ = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
 # the same, with the tile before the stream
 _FREQ_RANK = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
 # the same, with the key store in place of the tile
 _FREQ_RANK_STORE = ([_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P], _I)
+# the same, with the select route's tile, threads and shared_bins in place of the tile
+_FREQ_SELECT = ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)
 # a, b, out, c, ta, tb, f, start, t_out, rows (host), staged, slots (host), run, k,
 # fill, stream
 _TIME_NETWORK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
@@ -83,12 +84,14 @@ _SIGNATURES = {
     "zen_sliding_median_network_bf16": _FREQ,
     "zen_tap_median_time_rank": _TIME_RANK,
     "zen_tap_median_time_rank_bf16": _TIME_RANK,
-    "zen_tap_median_time_rank_store": _TIME_RANK_STORE,
-    "zen_tap_median_time_rank_store_bf16": _TIME_RANK_STORE,
+    "zen_tap_median_time_select": _TIME_SELECT,
+    "zen_tap_median_time_select_bf16": _TIME_SELECT,
     "zen_sliding_median_rank": _FREQ_RANK,
     "zen_sliding_median_rank_bf16": _FREQ_RANK,
     "zen_sliding_median_rank_store": _FREQ_RANK_STORE,
     "zen_sliding_median_rank_store_bf16": _FREQ_RANK_STORE,
+    "zen_sliding_median_select": _FREQ_SELECT,
+    "zen_sliding_median_select_bf16": _FREQ_SELECT,
     "zen_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

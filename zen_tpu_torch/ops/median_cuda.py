@@ -19,29 +19,35 @@ a CPU tensor to its ``_plain`` twin (built from
 checking contiguity; it raises on anything the kernel does not take,
 and never falls back. ``launches`` on each
 wrapper counts its kernel launches, so a run can show that it went
-through the kernel, ``routes`` splits that count by route, and ``stores``
-splits the rank route's launches by where the keys live. Kernels launch
-on the current stream, never synchronize and allocate nothing: the
-wrapper allocates the output and the rank routes' key scratch.
+through the kernel, ``routes`` splits that count by route, and K2's
+``stores`` splits its sort route's launches by where the keys live.
+Kernels launch on the current stream, never synchronize and allocate
+nothing: the wrapper allocates the output and K2's key scratch.
 
 Small K is a comparator network on registers (``ops/select_network.py``,
 emitted as ``zen_select.cuh`` at build time): K1's ``register`` route up
 to REGISTER_TAPS (63) taps and K2's ``network`` route up to
-FREQ_NETWORK_MAX_TAPS (31). Large K is "rank once, select many"
-(``csrc/rank_select.cuh``): K1's ``rank`` route for every tap set past
-REGISTER_TAPS, at any span (``time_route``), and K2's from
-FREQ_RANK_MIN_TAPS on (``freq_route``), both up to the one bound of
-their key store (MAX_TIME_TAPS, MAX_FREQ_TAPS). The wrappers choose the
-route from K alone. The host side of the routes is here, in Python the
-CPU tests reach: the rows a run of K1's network kernel stages and where
-each tap lies in them (``time_network_plan``, ``time_network_run``;
+FREQ_NETWORK_MAX_TAPS (31). Large K takes one of two routes, weighed on
+the call's geometry (``time_rank_pick``, ``freq_rank_pick``): ``rank``,
+"rank once, select many" (``csrc/rank_select.cuh``: a block sorts its
+staged samples once and each output walks the ranks), where a block's
+outputs share the sort; ``select`` (``csrc/radix_select.cuh``: a radix
+select an output, nothing sorted), where the outputs are too few to share
+one, and for K1 wherever one row's keys pass shared memory. K1's routes
+take every tap set past REGISTER_TAPS at any span (``time_route``), K2's
+from FREQ_RANK_MIN_TAPS on (``freq_route``), up to MAX_TIME_TAPS and
+MAX_FREQ_TAPS. The host side of the routes is here, in Python the CPU
+tests reach: the rows a run of K1's network kernel stages and where each
+tap lies in them (``time_network_plan``, ``time_network_run``;
 ``time_fill_run``, the run of the thread mapping alone), K1's rank plan
 (the multiplicity table ``time_rank_table``, the staged rows
 ``time_rank_rows``, the run ``time_rank_run``, its keys' bytes
-``time_rank_keys`` and the call's plan ``time_rank_plan``), K2's tile
-(``freq_rank_tile``), where a rank block's keys live (``shared`` in its
-shared memory where they fit, else ``scratch``: ``time_rank_plan``,
-``freq_rank_store``) and the scratch's geometry (``rank_store_args``).
+``time_rank_keys`` and the call's plan ``time_rank_plan``), the select
+route's geometry (``time_select_plan``, ``freq_select_plan``), the cost
+rule between the two (``time_rank_pick``, ``freq_rank_pick``), K2's tile
+(``freq_rank_tile``), where its sort's keys live (``shared`` in its
+shared memory where they fit, else ``scratch``: ``freq_rank_store``) and
+the scratch's geometry (``rank_store_args``).
 """
 from __future__ import annotations
 
@@ -62,24 +68,69 @@ from .select_network import TIME_MAX_TAPS as REGISTER_TAPS
 # Shared memory a block can opt into on Hopper (227 KB).
 SMEM_OPTIN = 232_448
 KEY_BYTES = 8  # a (value, position) key of the rank routes
-# The rank routes' key store past shared memory (csrc/rank_select.cuh): a
-# block whose keys do not fit SMEM_OPTIN sorts them in its slice of a
-# device-memory scratch, RANK_STORE_CHUNK keys (128 KB) at a time in shared
-# memory, so one block runs an SM; a persistent grid of at most one block
-# an SM walks the units, so the scratch is one slice a block. A slice
-# holds at most RANK_STORE_MAX_KEYS keys (16 MiB; the scratch at most 2.2
-# GB on an H100's 132 SMs). That scratch budget is the one bound on both
-# kernels' tap counts, on the card and on the CPU alike: K1's rank route
-# stages at most its K taps for the one output row it takes where keys
-# pass shared memory (time_rank_run), so K1 takes up to MAX_TIME_TAPS;
-# K2's stages RANK_STORE_THREADS + K - 1 samples for a unit of outputs,
-# so K2 takes up to MAX_FREQ_TAPS. Both are past 2^20, and a key's 32-bit
-# position holds any staged sample.
+# K2's key store past shared memory (csrc/rank_select.cuh): a block whose
+# keys do not fit SMEM_OPTIN sorts them in its slice of a device-memory
+# scratch, RANK_STORE_CHUNK keys (128 KB) at a time in shared memory, so
+# one block runs an SM; a persistent grid of at most one block an SM walks
+# the units, so the scratch is one slice a block. A slice holds at most
+# RANK_STORE_MAX_KEYS keys (16 MiB; the scratch at most 2.2 GB on an
+# H100's 132 SMs). K2 stages RANK_STORE_THREADS + K - 1 samples for a
+# unit of outputs, so the store takes K2 up to MAX_FREQ_TAPS. K1 has no
+# store: past shared memory it takes the select route, which needs no
+# scratch; MAX_TIME_TAPS keeps the bound the store gave it. Both limits
+# hold on the card and on the CPU alike; both are past 2^20, and a key's
+# 32-bit position holds any staged sample.
 RANK_STORE_MAX_KEYS = 1 << 21
 RANK_STORE_CHUNK = 16_384
 RANK_STORE_THREADS = 1024  # threads of a store block, and K2's outputs a unit
 MAX_TIME_TAPS = RANK_STORE_MAX_KEYS - 1
 MAX_FREQ_TAPS = RANK_STORE_MAX_KEYS - RANK_STORE_THREADS + 1
+# The select route (csrc/radix_select.cuh): a block keeps its samples'
+# 4-byte order bits and its threads' own bins (SELECT_BINS words a
+# thread) in shared memory beside zen_pick::Shared (16 bins and two
+# words) where both fit, else the bits alone (the bins in registers), else
+# the bins alone (the bits read through L2 on each of SELECT_PASSES
+# passes: zen_pick::layout); it takes SELECT_MIN_THREADS to
+# SELECT_MAX_THREADS threads (about SELECT_SAMPLES_A_THREAD staged samples
+# a thread), and K2's block at most SELECT_MAX_TILE outputs (K1's at most
+# TIME_RANK_RUN).
+SELECT_PASSES = 8
+SELECT_BINS = 16
+SELECT_SHARED_BYTES = SMEM_OPTIN - 72
+SELECT_MIN_THREADS = 64
+SELECT_MAX_THREADS = 1024
+SELECT_SAMPLES_A_THREAD = 16
+SELECT_MAX_TILE = 256
+# Where a select block's bins go: on an H100 (chip_smoke.py phase 3's
+# select lines) shared memory was as fast or faster at 1024 threads on
+# every row (30.94 against 35.18 µs at 192 kHz hop 1), registers at 64
+# (1454.27 against 2215.36 at hop 1024's shape)
+SELECT_SHARED_BINS_THREADS = 1024
+# The cost rule between the sort and the select routes (time_rank_pick,
+# freq_rank_pick): each route's µs for a call from its geometry alone,
+# LAUNCH_US plus waves of blocks over the SMs (H100_SMS on the CPU, the
+# device's count on the card) times a block's time. A select block:
+# SELECT_STAGE_US a staged sample a thread, then for each of its outputs
+# SELECT_PASSES passes of SELECT_PASS_US (plus SELECT_PASS_THREAD_US a
+# thread: the bins' sums and the barrier) and SELECT_SAMPLE_US a staged
+# sample a thread. A sort block: SORT_SWAP_US a compare-swap a thread (n/2
+# log2 n (log2 n + 1)/2 over its n keys) and SORT_WALK_US a rank of the
+# walk (S/2 of S staged), in shared memory; STORE_SWAP_US and
+# STORE_WALK_US on K2's store. Fitted to chip_smoke.py phase 3's select
+# lines on an H100 (PERF.md): the one-wave rows' times, where a
+# block runs alone on its SM; many-wave rows share an SM's issue, which
+# the rule does not price (there the sort's shared work wins by 10-100x).
+H100_SMS = 132
+SM_SHARED_BYTES = 233_472  # an SM's shared memory; a block reserves 1 KB more
+LAUNCH_US = 5.0
+SELECT_STAGE_US = 0.1
+SELECT_PASS_US = 0.7
+SELECT_PASS_THREAD_US = 8e-4
+SELECT_SAMPLE_US = 0.12
+SORT_SWAP_US = 0.03
+SORT_WALK_US = 0.025
+STORE_SWAP_US = 0.19
+STORE_WALK_US = 0.02
 # K1's network kernel (K <= REGISTER_TAPS): a thread takes one column and
 # a run of TIME_NETWORK_RUN consecutive output rows, fewer while the
 # launch would have under TIME_NETWORK_MIN_BLOCKS blocks (four for each
@@ -99,6 +150,7 @@ assert TIME_NETWORK_MAX_STAGED * TIME_NETWORK_THREADS * 4 <= SMEM_OPTIN
 # K1's rank route: most output rows per block, one per lane of its first
 # warp; its table pads each side with TIME_RANK_RUN - 1 zeros.
 TIME_RANK_RUN = 32
+TIME_RANK_THREADS = 128  # threads of a rank block (kRankThreads)
 # K2 selects with its network below this many taps and sorts its segment
 # once per block from here on: the crossover of chip_smoke.py's phase-3
 # sweep on an H100 (the network was faster at every K it takes, on both
@@ -254,15 +306,21 @@ def _distinct_taps(offsets: tuple) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def time_rank_staged(offsets: tuple, run: int) -> int:
+    """How many rows K1's rank and select routes stage for ``run`` output
+    rows (``len(time_rank_rows(offsets, run))``, without building them):
+    each distinct tap's ``run`` rows, less the overlap with the next
+    tap's."""
+    return run + int(np.minimum(np.diff(_distinct_taps(offsets)), run).sum())
+
+
 def time_rank_keys(offsets: tuple, run: int) -> int:
     """Bytes of the keys a block of K1's rank route sorts over ``run``
     output rows, as launch_rank (csrc/median_time.cu) reckons them: the
-    rows it stages (``time_rank_rows``: each distinct tap's ``run`` rows,
-    less the overlap with the next tap's), to ``_key_count``. launch_rank
+    rows it stages (``time_rank_staged``), to ``_key_count``. launch_rank
     puts the table beside them where both fit the device's opt-in
     limit."""
-    staged = run + int(np.minimum(np.diff(_distinct_taps(offsets)), run).sum())
-    return KEY_BYTES * _key_count(staged)
+    return KEY_BYTES * _key_count(time_rank_staged(offsets, run))
 
 
 @functools.lru_cache(maxsize=32)
@@ -270,8 +328,8 @@ def time_rank_run(offsets: tuple) -> int:
     """Output rows a block of K1's rank route takes: TIME_RANK_RUN, halved
     while the keys of the rows the run stages do not fit SMEM_OPTIN. One
     row stages its distinct taps; where even those do not fit (past
-    16,384 keys), the block keeps the one row and its keys go to the key
-    store (``time_rank_plan``)."""
+    16,384 keys), the sort cannot take the call (``time_rank_plan``) and
+    the select route does."""
     run = TIME_RANK_RUN
     while run > 1 and time_rank_keys(offsets, run) > SMEM_OPTIN:
         run //= 2
@@ -327,21 +385,146 @@ def _network_args(offsets: tuple, run: int) -> tuple:
 
 
 def time_rank_plan(offsets: tuple, start: int, t_v: int, run: int | None = None) -> tuple:
-    """(offsets, run, store) of K1's rank route for a call on V's ``t_v``
+    """(offsets, run, fits) of K1's rank route for a call on V's ``t_v``
     rows from output row ``start``: the offsets as it plans them
     (``time_rank_offsets``), the run (``run`` or ``time_rank_run``, at
-    most the call's output rows) and where a block's keys live: 'shared'
-    where they fit SMEM_OPTIN, else 'scratch' (the key store)."""
+    most the call's output rows) and whether a block's keys fit
+    SMEM_OPTIN (where they do not, only the select route takes the
+    call)."""
     offsets = time_rank_offsets(offsets, start, t_v)
     run = max(1, min(t_v - start, run or time_rank_run(offsets)))
-    store = "shared" if time_rank_keys(offsets, run) <= SMEM_OPTIN else "scratch"
-    return offsets, run, store
+    return offsets, run, time_rank_keys(offsets, run) <= SMEM_OPTIN
+
+
+def select_shared_bins(threads: int) -> bool:
+    """Whether a select block of ``threads`` keeps its threads' bins in
+    shared memory (where they fit: ``select_layout``) rather than in
+    registers: at SELECT_SHARED_BINS_THREADS threads, where the cheaper
+    count (three instructions a sample, not sixteen) outweighs summing 16
+    words a thread each pass."""
+    return threads >= SELECT_SHARED_BINS_THREADS
+
+
+def select_layout(staged: int, threads: int, shared_bins: bool = True) -> tuple:
+    """(bits in shared memory, bins in shared memory, bytes) of a select
+    block, as zen_pick::layout fits them within SELECT_SHARED_BYTES."""
+    bits, bins = 4 * staged, 4 * SELECT_BINS * threads
+    if shared_bins and bits + bins <= SELECT_SHARED_BYTES:
+        return True, True, bits + bins
+    if bits <= SELECT_SHARED_BYTES:
+        return True, False, bits
+    return False, True, bins
+
+
+def select_threads(staged: int) -> int:
+    """Threads of a select block over ``staged`` samples: about
+    SELECT_SAMPLES_A_THREAD a thread, a power of two from
+    SELECT_MIN_THREADS to SELECT_MAX_THREADS."""
+    want = _pow2_at_least(-(-staged // SELECT_SAMPLES_A_THREAD))
+    return min(SELECT_MAX_THREADS, max(SELECT_MIN_THREADS, want))
+
+
+@functools.lru_cache(maxsize=64)
+def time_select_plan(offsets: tuple, start: int, t_v: int, streams: int, f: int,
+                     sms: int = H100_SMS) -> tuple:
+    """(offsets, run, staged, threads) of K1's select route for a call of
+    ``streams`` x ``f`` columns on V's ``t_v`` rows from output row
+    ``start``: the offsets as the rank route plans them, the run
+    TIME_RANK_RUN (at most the call's output rows) halved while the call
+    has fewer blocks than ``sms`` or the run's staged rows' order bits pass
+    SELECT_SHARED_BYTES (a run of one that still passes it reads them
+    through L2), the rows it stages and the block's threads."""
+    offsets = time_rank_offsets(offsets, start, t_v)
+    t_out = t_v - start
+    run = max(1, min(t_out, TIME_RANK_RUN))
+    while run > 1 and (streams * -(-t_out // run) * f < sms
+                       or 4 * time_rank_staged(offsets, run) > SELECT_SHARED_BYTES):
+        run //= 2
+    staged = time_rank_staged(offsets, run)
+    return offsets, run, staged, select_threads(staged)
+
+
+@functools.lru_cache(maxsize=64)
+def time_select_unit(offsets: tuple, run: int) -> bool:
+    """Whether K1's select blocks may count every staged row once (the
+    kernel's `unit`): a run of one output row over distinct planned
+    offsets, whose staged rows are its taps, each once."""
+    return run == 1 and max(time_rank_table(offsets)[2]) == 1
+
+
+def _waves(units: int, sms: int, per_sm: int) -> int:
+    return -(-units // (sms * max(1, per_sm)))
+
+
+def select_us(units: int, outputs: int, staged: int, threads: int, sms: int) -> float:
+    """The cost rule's µs for a select launch of ``units`` blocks, each
+    staging ``staged`` samples and selecting ``outputs`` (H100_SMS's
+    constants); blocks share an SM as far as its threads, registers (64
+    a thread under the kernel's launch bound) and shared memory allow."""
+    smem = select_layout(staged, threads, select_shared_bins(threads))[2]
+    per_sm = min(2048 // threads, SM_SHARED_BYTES // (smem + 1024))
+    steps = -(-staged // threads)
+    block = SELECT_STAGE_US * steps + outputs * SELECT_PASSES * (
+        SELECT_PASS_US + SELECT_PASS_THREAD_US * threads + SELECT_SAMPLE_US * steps)
+    return LAUNCH_US + _waves(units, sms, per_sm) * block
+
+
+def sort_us(units: int, staged: int, threads: int, smem: int, sms: int,
+            store: bool = False) -> float:
+    """The cost rule's µs for a rank-route launch of ``units`` blocks of
+    ``threads``, each sorting the keys of ``staged`` samples (``smem``
+    bytes of shared memory) once and walking ~staged/2 ranks an output,
+    in parallel; ``store``: K2's key store, one block of
+    RANK_STORE_THREADS an SM."""
+    n = _key_count(staged)
+    lg = n.bit_length() - 1
+    swaps = n // 2 * lg * (lg + 1) // 2
+    if store:
+        block = STORE_SWAP_US * swaps / RANK_STORE_THREADS + STORE_WALK_US * staged / 2
+        return LAUNCH_US + _waves(units, sms, 1) * block
+    per_sm = min(2048 // threads, SM_SHARED_BYTES // (smem + 1024))
+    block = SORT_SWAP_US * swaps / threads + SORT_WALK_US * staged / 2
+    return LAUNCH_US + _waves(units, sms, per_sm) * block
+
+
+@functools.lru_cache(maxsize=64)
+def time_route_costs(offsets: tuple, start: int, t_v: int, streams: int, f: int,
+                     sms: int = H100_SMS) -> tuple:
+    """(rank µs or None, select µs): the cost rule's prices (``sort_us``,
+    ``select_us``) of K1's two wide routes for a call (``time_select_plan``'s
+    arguments); None where a rank block's keys do not fit."""
+    planned, run, fits = time_rank_plan(offsets, start, t_v)
+    t_out = t_v - start
+    sort = sort_us(streams * -(-t_out // run) * f, time_rank_staged(planned, run),
+                   TIME_RANK_THREADS, time_rank_keys(planned, run), sms) if fits else None
+    _, srun, staged, threads = time_select_plan(offsets, start, t_v, streams, f, sms)
+    return sort, select_us(streams * -(-t_out // srun) * f, srun, staged, threads, sms)
+
+
+def time_rank_pick(offsets: tuple, start: int, t_v: int, streams: int, f: int,
+                   sms: int = H100_SMS) -> str:
+    """K1's route past REGISTER_TAPS for a call (``time_select_plan``'s
+    arguments): 'select' where a rank block's keys do not fit
+    (``time_rank_plan``), else whichever of 'rank' and 'select' the cost
+    rule prices lower (``time_route_costs``)."""
+    sort, pick = time_route_costs(offsets, start, t_v, streams, f, sms)
+    return "select" if sort is None or pick < sort else "rank"
 
 
 def time_route(offsets: tuple) -> str:
-    """K1's kernel for ``offsets``: the 'register' network up to
-    REGISTER_TAPS taps, the 'rank' route above."""
+    """K1's kernel family for ``offsets``: the 'register' network up to
+    REGISTER_TAPS taps, 'rank' (the rank or select route,
+    ``time_call_route``) above."""
     return "register" if len(offsets) <= REGISTER_TAPS else "rank"
+
+
+def time_call_route(offsets: tuple, start: int, t_v: int, streams: int, f: int,
+                    sms: int = H100_SMS) -> str:
+    """The route ``tap_median_time`` launches for a call: 'register' up to
+    REGISTER_TAPS taps, else ``time_rank_pick``'s 'rank' or 'select'."""
+    if time_route(offsets) == "register":
+        return "register"
+    return time_rank_pick(offsets, start, t_v, streams, f, sms)
 
 
 def tap_median_time(
@@ -356,9 +539,8 @@ def tap_median_time(
     float32 or bfloat16, which the output takes; ``fill`` is rounded to
     it. Offsets: odd count up to MAX_TIME_TAPS, duplicates allowed.
     """
-    offsets = _int_offsets(offsets if isinstance(offsets, tuple) else tuple(offsets))
     k = len(offsets)
-    _check_k(k, MAX_TIME_TAPS, "one output row's taps fill a slice of the rank key store")
+    _check_k(k, MAX_TIME_TAPS, "zen_tpu's tap limit")
     _check_dtype(a, b)
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-1]:
         raise ZenError(f"tap_median_time: shapes {a.shape} and {b.shape}")
@@ -366,59 +548,101 @@ def tap_median_time(
     if not 0 <= start <= ta + tb:
         raise ZenError(f"tap_median_time: start {start} outside [0, {ta + tb}]")
     if not a.is_cuda:
-        return tap_median_time_plain(a, b, offsets, start, fill)
+        return tap_median_time_plain(a, b, _int_offsets(tuple(offsets)), start, fill)
     _check_cuda_operands(a, b)
-    route = time_route(offsets)
-    out = _time_launch(a, b, offsets, start, fill, route)
+    route, args = _time_call(offsets, start, ta, tb, math.prod(a.shape[:-2]), f, a.device)
+    out = _time_run(a, b, start, fill, route, args, k)
     if out.numel():
-        store = _rank_args(offsets, start, ta + tb, None, a.device)[-1] if route == "rank" else None
-        _count(tap_median_time, route, store)
+        _count(tap_median_time, route)
     return out
 
 
+# The wrapper's plan of a call, by the identity of its offsets object (the
+# drivers pass their config's tuple every step): a wide tap set's plan
+# then costs a dict lookup, not hashes of its 25,601 offsets (~90 µs a
+# hash on the host). Each entry holds the object, so its id stays its own.
+_TIME_CALLS: dict = {}
+_TIME_CALLS_MAX = 64
+
+
+def _time_call(offsets, start: int, ta: int, tb: int, streams: int, f: int,
+               device: torch.device) -> tuple:
+    """(route, launch arguments) of ``tap_median_time`` for a call:
+    ``time_call_route`` and ``_time_args``, memoized by ``id(offsets)``."""
+    key = (id(offsets), start, ta, tb, streams, f, device)
+    hit = _TIME_CALLS.get(key)
+    if hit is not None and hit[0] is offsets:
+        return hit[1]
+    ints = _int_offsets(offsets if isinstance(offsets, tuple) else tuple(offsets))
+    route = time_call_route(ints, start, ta + tb, streams, f, _sm_count(device))
+    plan = (route, _time_args(ints, start, ta, tb, streams, f, route, device))
+    if len(_TIME_CALLS) >= _TIME_CALLS_MAX:
+        _TIME_CALLS.clear()
+    _TIME_CALLS[key] = (offsets, plan)
+    return plan
+
+
 tap_median_time.launches = 0
-tap_median_time.routes = dict.fromkeys(("register", "rank"), 0)
-tap_median_time.stores = dict.fromkeys(("shared", "scratch"), 0)
+tap_median_time.routes = dict.fromkeys(("register", "rank", "select"), 0)
 
 
 def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0,
-                 run: int | None = None, chunk: int | None = None):
+                 run: int | None = None, shared_bins: bool | None = None):
     """K1's ``route`` kernel on checked CUDA operands; counts nothing
-    (chip_smoke also calls it to time the network kernel at each ``run``
-    and the rank route of a ``cut`` build, ``_build.library``). ``run``
-    defaults to the wrapper's (``time_network_run``, ``time_rank_run``).
-    ``chunk`` runs the rank route on the key store with that many keys
-    sorted in shared memory at once, whatever the keys (the card tests
-    drive its passes over device memory at small K so); by default the
-    store takes the keys ``time_rank_plan`` sends it, RANK_STORE_CHUNK at
-    once."""
+    (chip_smoke also calls it to time the network kernel at each ``run``,
+    the rank and select routes side by side, and the rank route of a
+    ``cut`` build, ``_build.library``). ``run`` defaults to the wrapper's
+    (``time_network_run``, ``time_rank_run``, ``time_select_plan``), and
+    ``shared_bins`` the select route's ``select_shared_bins``. The rank
+    route raises where a block's keys do not fit shared memory."""
+    offsets = _int_offsets(tuple(offsets))
+    args = _time_args(offsets, start, a.shape[-2], b.shape[-2], math.prod(a.shape[:-2]),
+                      a.shape[-1], route, a.device, run, shared_bins)
+    return _time_run(a, b, start, fill, route, args, len(offsets), cut)
+
+
+def _time_args(offsets: tuple, start: int, ta: int, tb: int, streams: int, f: int,
+               route: str, device: torch.device, run: int | None = None,
+               shared_bins: bool | None = None) -> tuple:
+    """(C entry name, the taps' arguments, the trailing arguments) of K1's
+    ``route`` for a call (``_time_launch``'s ``run`` and ``shared_bins``);
+    a plan buffer stays a tensor, so that a memoized call keeps it alive."""
+    t_out = ta + tb - start
+    if route == "register":
+        return ("zen_tap_median_time_network",
+                _network_args(offsets, run or time_network_run(t_out, streams, f, offsets)), ())
+    if route == "rank":
+        planned, run, fits = time_rank_plan(offsets, start, ta + tb, run)
+        if not fits:
+            raise ZenError(f"tap_median_time: K={len(offsets)}'s rank keys pass a block's "
+                           "shared memory (the select route takes this call)")
+        plan, lo, span, staged = _rank_args(planned, run, device)
+        return "zen_tap_median_time_rank", (plan, lo, span, staged, run), ()
+    if route == "select":
+        planned, srun, staged, threads = time_select_plan(
+            offsets, start, ta + tb, streams, f, _sm_count(device))
+        if run:
+            srun, threads = run, select_threads(time_rank_staged(planned, run))
+        plan, lo, span, staged = _rank_args(planned, srun, device)
+        if shared_bins is None:
+            shared_bins = select_shared_bins(threads)
+        return ("zen_tap_median_time_select", (plan, lo, span, staged, srun),
+                (threads, int(time_select_unit(planned, srun)), int(shared_bins)))
+    raise ZenError(f"tap_median_time has no route {route!r}")
+
+
+def _time_run(a, b, start: int, fill: float, route: str, args: tuple, k: int, cut: int = 0):
+    """Launch K1 with ``_time_args``' ``args`` into a new output."""
     ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
     lead = a.shape[:-2]
     t_out = ta + tb - start
     out = torch.empty(lead + (t_out, f), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    lib = _build.library(cut)
-    k = len(offsets)
-    tail = ()
-    if route == "register":
-        entry = _entry(lib, "zen_tap_median_time_network", a.dtype)
-        taps = _network_args(
-            offsets, run or time_network_run(t_out, math.prod(lead), f, offsets))
-    elif route == "rank":
-        plan, lo, span, staged, run, store = _rank_args(offsets, start, ta + tb, run, a.device)
-        taps = (plan.data_ptr(), lo, span, staged, run)
-        entry = _entry(lib, "zen_tap_median_time_rank", a.dtype)
-        if chunk or store == "scratch":
-            entry = _entry(lib, "zen_tap_median_time_rank_store", a.dtype)
-            units = math.prod(lead) * -(-t_out // run) * f
-            scratch, blocks, keys = rank_store_args(units, staged, a.device)
-            tail = (scratch.data_ptr(), blocks, keys, chunk or RANK_STORE_CHUNK)
-    else:
-        raise ZenError(f"tap_median_time has no route {route!r}")
+    name, taps, tail = args
     err = _launch(
         a,
-        entry,
+        _entry(_build.library(cut), name, a.dtype),
         a.data_ptr(),
         b.data_ptr() if tb else a.data_ptr(),
         out.data_ptr(),
@@ -428,7 +652,7 @@ def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut:
         f,
         start,
         t_out,
-        *taps,
+        *(t.data_ptr() if isinstance(t, torch.Tensor) else t for t in taps),
         k,
         _in_dtype(fill, a.dtype),
         *tail,
@@ -446,19 +670,17 @@ def _in_dtype(v: float, dtype: torch.dtype) -> float:
 
 
 @functools.lru_cache(maxsize=32)
-def _rank_args(offsets: tuple, start: int, t_v: int, run: int | None,
-               device: torch.device) -> tuple:
-    """(plan, min offset, span, staged rows, run, store) of K1's rank route
-    for a call (``time_rank_plan``), once per call shape: ``plan`` is the
-    table (``time_rank_table``) and the staged rows (``time_rank_rows``)
-    as one int32 buffer on ``device``. A wide tap set costs a hash of its
-    offsets a lookup, not a rebuilt plan."""
-    offsets, run, store = time_rank_plan(offsets, start, t_v, run)
+def _rank_args(offsets: tuple, run: int, device: torch.device) -> tuple:
+    """(plan, min offset, span, staged rows) of K1's rank or select route
+    for planned offsets (``time_rank_offsets``) and a run, once per call
+    shape: ``plan`` is the table (``time_rank_table``) and the staged rows
+    (``time_rank_rows``) as one int32 buffer on ``device``. A wide tap set
+    costs a hash of its offsets a lookup, not a rebuilt plan."""
     lo, span, table = time_rank_table(offsets)
     rows = time_rank_rows(offsets, run)
     # the table and the staged rows as one int32 buffer, uploaded once
     plan = torch.tensor(table + rows, dtype=torch.int32, device=device)
-    return plan, lo, span, len(rows), run, store
+    return plan, lo, span, len(rows)
 
 
 # ---------------- K2: frequency sliding median ----------------
@@ -507,8 +729,9 @@ def freq_network_chunk(f_out: int) -> int:
 
 
 def freq_route(k: int) -> str:
-    """K2's kernel for width ``k``: 'network' up to FREQ_NETWORK_MAX_TAPS,
-    'rank' from FREQ_RANK_MIN_TAPS on, at every K."""
+    """K2's kernel family for width ``k``: 'network' up to
+    FREQ_NETWORK_MAX_TAPS, 'rank' (the rank or select route,
+    ``freq_call_route``) from FREQ_RANK_MIN_TAPS on, at every K."""
     return "rank" if k >= FREQ_RANK_MIN_TAPS else "network"
 
 
@@ -517,6 +740,72 @@ def freq_rank_store(k: int) -> str:
     'shared' where a tile's fit SMEM_OPTIN (``freq_rank_tile``), else
     'scratch' (the key store; K past 16,353)."""
     return "shared" if freq_rank_tile(k) else "scratch"
+
+
+def _freq_out(k: int, f_in: int, mode: str) -> int:
+    return f_in - k + 1 if mode == "valid" else f_in
+
+
+@functools.lru_cache(maxsize=64)
+def freq_select_plan(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS) -> tuple:
+    """(tile, staged, threads) of K2's select route for ``rows`` rows of
+    ``f_in`` samples: outputs a block, SELECT_MAX_TILE (at most the row's
+    outputs) halved while the call has fewer blocks than ``sms`` or the
+    tile's staged order bits pass SELECT_SHARED_BYTES, then doubled while
+    a row has more than 65,535 tiles (the grid's second dimension); the
+    samples a block stages (tile + k - 1 positions, or the row's f_in
+    samples where those are fewer: ``select_median_kernel``'s `whole`) and
+    its threads."""
+    f_out = _freq_out(k, f_in, mode)
+
+    def staged(tile):
+        return min(tile + k - 1, f_in)
+
+    tile = min(SELECT_MAX_TILE, f_out)
+    while tile > 1 and (rows * -(-f_out // tile) < sms
+                        or 4 * staged(tile) > SELECT_SHARED_BYTES):
+        tile //= 2
+    while -(-f_out // tile) > 65_535 and tile < SELECT_MAX_TILE:
+        tile = min(SELECT_MAX_TILE, 2 * tile)
+    return tile, staged(tile), select_threads(staged(tile))
+
+
+@functools.lru_cache(maxsize=64)
+def freq_route_costs(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS) -> tuple:
+    """(rank µs, select µs): the cost rule's prices (``sort_us``,
+    ``select_us``) of K2's two wide routes for ``rows`` rows of ``f_in``
+    samples, the rank route's on the key store past shared memory."""
+    f_out = _freq_out(k, f_in, mode)
+    tile, staged, threads = freq_select_plan(k, rows, f_in, mode, sms)
+    pick = select_us(rows * -(-f_out // tile), min(tile, f_out), staged, threads, sms)
+    sort_tile = freq_rank_tile(k)
+    if sort_tile:
+        seg = sort_tile + k - 1
+        sort = sort_us(rows * -(-f_out // sort_tile), seg, sort_tile,
+                       KEY_BYTES * _key_count(seg), sms)
+    else:
+        sort = sort_us(rows * -(-f_out // RANK_STORE_THREADS),
+                       min(RANK_STORE_THREADS, f_out) + k - 1, RANK_STORE_THREADS,
+                       KEY_BYTES * RANK_STORE_CHUNK, sms, store=True)
+    return sort, pick
+
+
+def freq_rank_pick(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS) -> str:
+    """K2's route from FREQ_RANK_MIN_TAPS for ``rows`` rows of ``f_in``
+    samples: whichever of 'rank' (a tile's sort in shared memory, or the
+    key store past it: ``freq_rank_store``) and 'select' the cost rule
+    prices lower (``freq_route_costs``)."""
+    sort, pick = freq_route_costs(k, rows, f_in, mode, sms)
+    return "select" if pick < sort else "rank"
+
+
+def freq_call_route(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS) -> str:
+    """The route ``sliding_median_boundary`` launches for a call:
+    'network' below FREQ_RANK_MIN_TAPS, else ``freq_rank_pick``'s 'rank'
+    or 'select'."""
+    if freq_route(k) == "network":
+        return "network"
+    return freq_rank_pick(k, rows, f_in, mode, sms)
 
 
 def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
@@ -530,7 +819,7 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     """
     if mode not in FREQ_MODES:
         raise ZenError(f"unknown boundary mode: {mode}")
-    _check_k(k, MAX_FREQ_TAPS, "a unit's segment fills a slice of the rank key store")
+    _check_k(k, MAX_FREQ_TAPS, "a unit's segment fills a slice of K2's key store")
     _check_dtype(x)
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
@@ -539,7 +828,7 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     if not x.is_cuda:
         return sliding_median_boundary_plain(x, k, mode)
     _check_cuda_operands(x)
-    route = freq_route(k)
+    route = freq_call_route(k, math.prod(x.shape[:-1]), f_in, mode, _sm_count(x.device))
     out = _freq_launch(x, k, mode, route)
     if out.numel():
         _count(sliding_median_boundary, route, freq_rank_store(k) if route == "rank" else None)
@@ -547,17 +836,19 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
 
 
 sliding_median_boundary.launches = 0
-sliding_median_boundary.routes = dict.fromkeys(("network", "rank"), 0)
+sliding_median_boundary.routes = dict.fromkeys(("network", "rank", "select"), 0)
 sliding_median_boundary.stores = dict.fromkeys(("shared", "scratch"), 0)
 
 
 def _freq_launch(
     x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0,
-    chunk: int | None = None,
+    chunk: int | None = None, shared_bins: bool | None = None,
 ) -> torch.Tensor:
     """K2's ``route`` kernel on a checked CUDA operand; counts nothing
-    (chip_smoke's sweeps also call it, for every route that takes ``k``
-    and each rank ``tile``, and the rank route of a ``cut`` build,
+    (chip_smoke's sweeps also call it, for every route that takes ``k``,
+    each rank ``tile``, the select route's outputs a block (``tile``;
+    default ``freq_select_plan``'s) and bins (``shared_bins``; default
+    ``select_shared_bins``), and the rank route of a ``cut`` build,
     ``_build.library``). ``chunk`` runs the rank route on the key store
     with that many keys sorted in shared memory at once, whatever K (the
     card tests drive its passes over device memory at small K so); by
@@ -577,6 +868,14 @@ def _freq_launch(
         extra = (scratch.data_ptr(), blocks, keys, chunk or RANK_STORE_CHUNK)
     elif route == "rank":
         name, extra = "zen_sliding_median_rank", (tile or freq_rank_tile(k),)
+    elif route == "select":
+        pick, staged, threads = freq_select_plan(k, rows, f_in, mode, _sm_count(x.device))
+        if tile:
+            pick, staged = tile, min(tile + k - 1, f_in)
+            threads = select_threads(staged)
+        if shared_bins is None:
+            shared_bins = select_shared_bins(threads)
+        name, extra = "zen_sliding_median_select", (pick, threads, int(shared_bins))
     elif route == "network":
         name, extra = "zen_sliding_median_network", ()
     else:

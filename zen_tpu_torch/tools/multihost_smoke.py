@@ -197,14 +197,15 @@ def make_corpus(corpus_dir: str, corpus: Corpus) -> list:
 
 def read_launches() -> dict:
     """The median kernels' launches in this process by route, 'kernel/route',
-    and of the rank route's, those on its key store, 'kernel/rank@scratch'."""
+    and of K2's rank route's, those on its key store,
+    'sliding_median_boundary/rank@scratch'."""
     from ..ops import median_cuda as mc
 
     counts = {}
     for name in ("tap_median_time", "sliding_median_boundary"):
         wrapper = getattr(mc, name)
         counts.update({f"{name}/{route}": n for route, n in wrapper.routes.items()})
-        counts[f"{name}/rank@scratch"] = wrapper.stores["scratch"]
+    counts["sliding_median_boundary/rank@scratch"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 
 
