@@ -17,9 +17,12 @@ the comparator-network routes (K1 register up to 63 taps, K2 network up
 to 31) bitwise at every odd K they take, tie-heavy and bf16; sweeps K2's
 two routes over K at
 two row shapes: the crossover FREQ_RANK_MIN_TAPS (ops/median_cuda.py)
-comes from it; times K1's network kernel at each run length and K2's
-rank route at each tile at the paths' K, beside the wrappers' choices;
-and splits each rank block's time into staging, sort and walk, from two
+comes from it; times K1's network kernel at each run length and both
+rank routes at every geometry the cost rule weighs (K2's tile and run of
+outputs a thread, K1's run of rows, lane run and columns: the walk from
+rank 0 or the steps from the neighbour's median) at the paths' rows, beside the
+wrappers' choices; and splits each rank block's time into staging, sort
+and walk, median2d's rows included, from two
 more builds of the library that end the rank kernels early (phase 2
 builds all three at once). Then it drives the paths through their user
 entry points at full width:
@@ -199,10 +202,6 @@ F32_OPS_PER_S = 67e12
 # K2's crossover sweep: every K the network route takes and the first past it, then wider
 SWEEP_K = tuple(range(3, 35, 2)) + (47, 65, 95, 127, 187, 257)
 SWEEP_SHAPES = ((32, 2049), (2048, 513))
-# K2's rank tiles timed at the paths' K and row shapes (the 512-stream
-# step, the 64-stream step, hop 1024, the offline clip and track, fs 8000)
-TILE_CASES = ((13, (8192, 513)), (13, (2048, 513)), (47, (32, 2049)), (187, (41, 8193)),
-              (187, (TRACK_FRAMES_H, 8193)), (257, (32, 2049)))
 ROUTES = {"tap_median_time": ("register", "rank", "select"),
           "sliding_median_boundary": ("network", "rank", "select")}
 SCRATCH = "rank@scratch"  # K2's rank launches whose keys live in the key store
@@ -870,7 +869,8 @@ def phase_sweep() -> None:
             rank_wins.setdefault(k, []).append(min(us, key=us.get) == "rank")
             print(f"phase 3 sweep R={shape[0]} F={shape[1]} K={k} reflect: bitwise equal; "
                   + ", ".join(f"{r} {v:.2f} us" for r, v in us.items())
-                  + f" (rank tile {mc.freq_rank_tile(k)}), kthvalue {l_us:.2f} us ({kind}), bound "
+                  + f" (rank tile, run, threads {mc.freq_rank_plan(k, *shape, 'reflect', mc._sm_count(x.device))}), "
+                  f"kthvalue {l_us:.2f} us ({kind}), bound "
                   f"{b_us:.2f} us ({b_by}) (medians of 10)")
     wins = [k for i, k in enumerate(SWEEP_K) if all(all(rank_wins[j]) for j in SWEEP_K[i:])]
     print(f"phase 3 sweep: rank the fastest route on both shapes from K="
@@ -878,30 +878,17 @@ def phase_sweep() -> None:
 
 
 def phase_tiles() -> None:
-    """K2's rank route at each of FREQ_RANK_TILES over TILE_CASES
-    (reflect): every tile's output equal to the wrapper's (and that to
-    the twin where it fits the card), their times, and the fastest tile
-    beside freq_rank_tile's."""
+    """The rank routes at every geometry the cost rule weighs
+    (benches/rank_geometry.py's rows but the 4-minute track's: K2's tile,
+    run of outputs a thread and threads, K1's run of output rows, lane run
+    and columns),
+    each held bitwise against the twin, timed beside the rule's price,
+    and the fastest beside the rule's pick."""
+    from zen_tpu_torch.benches import rank_geometry, rank_store
     from zen_tpu_torch.ops import median_cuda as mc
 
-    rng = np.random.default_rng(3)
-    for k, shape in TILE_CASES:
-        x = _mags(rng, *shape)
-        want = mc._freq_launch(x, k, "reflect", "rank")
-        if shape[0] != TRACK_FRAMES_H:
-            require(torch.equal(want, mc.sliding_median_boundary_plain(x, k, "reflect")),
-                    f"tiles R={shape[0]} K={k} differ from the twin")
-        us = {}
-        for tile in mc.FREQ_RANK_TILES:
-            run = lambda t=tile: mc._freq_launch(x, k, "reflect", "rank", tile=t)  # noqa: E731
-            require(torch.equal(run(), want), f"tiles R={shape[0]} K={k} tile {tile} differs")
-            us[tile] = median_us(run, runs=10)
-        best = min(us, key=us.get)
-        print(f"phase 3 tiles R={shape[0]} F={shape[1]} K={k} reflect: bitwise equal; "
-              + ", ".join(f"tile {t} {v:.2f} us" for t, v in us.items())
-              + f" (medians of 10); fastest {best}, freq_rank_tile {mc.freq_rank_tile(k)}")
-        del x, want
-        torch.cuda.empty_cache()
+    rank_geometry.run_rows(torch, mc, rank_store.device_us, 10, fast=True, device=DEVICE,
+                           emit=lambda line: print(f"phase 3 {line}"))
 
 
 def phase_select() -> dict:
@@ -988,36 +975,16 @@ def phase_select() -> dict:
 def phase_split() -> None:
     """Where a rank block's time goes: each rank kernel whole and from the
     two split builds (ZEN_RANK_CUT, csrc/rank_select.cuh), which end after
-    staging and after the sort, at the paths' shapes. The differences
-    read as staging (with the launch), sort and walk."""
+    staging and after the sort, at the paths' shapes and median2d's
+    (benches/rank_split.py's rows). The differences read as staging (with
+    the launch), sort and walk."""
+    from zen_tpu_torch.benches import rank_split, rank_store
     from zen_tpu_torch.ops import median_cuda as mc
 
-    rng = np.random.default_rng(4)
-    t93 = tuple(range(-183, -137)) + tuple(range(-46, 1))
-    cases = []
-    for label, a, b, offs, start in (
-        ("K=93 [1, 183+32, 65]", _mags(rng, 1, 183, 65), _mags(rng, 1, 32, 65), t93, 183),
-        ("K=93 [1, 183+1, 65]", _mags(rng, 1, 183, 65), _mags(rng, 1, 1, 65), t93, 183),
-        ("K=401 [1, 900, 17]", _mags(rng, 1, 900, 17), _mags(rng, 1, 0, 17),
-         tuple(range(-200, 201)), 0),
-    ):
-        cases.append((f"tap_median_time/rank {label}",
-                      lambda cut, a=a, b=b, o=offs, s=start:
-                      mc._time_launch(a, b, o, s, 0.0, "rank", cut=cut)))
-    for label, x, k in (
-        (f"K=187 [{TRACK_FRAMES_H}, 8193]", _mags(rng, TRACK_FRAMES_H, 8193), 187),
-        ("K=187 [41, 8193]", _mags(rng, 41, 8193), 187),
-        ("K=47 [32, 2049]", _mags(rng, 32, 2049), 47),
-        ("K=13 [8192, 513]", _mags(rng, 8192, 513), 13),
-        ("K=16385 [4, 8193] (key store)", _mags(rng, 4, 8193), 16_385),
-    ):
-        cases.append((f"sliding_median_boundary/rank {label} reflect",
-                      lambda cut, x=x, k=k: mc._freq_launch(x, k, "reflect", "rank", cut=cut)))
-    for label, run in cases:
-        full, stage, sort = (median_us(functools.partial(run, cut)) for cut in (0, 1, 2))
-        print(f"phase 3 split {label}: whole {full:.2f} us; ending after staging {stage:.2f} "
-              f"us, after the sort {sort:.2f} us: staging and launch {stage:.2f}, sort "
-              f"{sort - stage:.2f}, walk {full - sort:.2f} us (medians of {TIMED_RUNS})")
+    for label, whole, stage, sort, walk in rank_split.split(torch, mc, rank_store.device_us,
+                                                            TIMED_RUNS, DEVICE):
+        print(f"phase 3 split {label}: whole {whole:.2f} us; staging and launch {stage:.2f}, "
+              f"sort {sort:.2f}, walk {walk:.2f} us (medians of {TIMED_RUNS})")
 
 
 def stream_masks(cfg, audio: np.ndarray, sizes, device, keep=None) -> torch.Tensor:

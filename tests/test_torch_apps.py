@@ -200,11 +200,14 @@ def _odf_evidence(frames: np.ndarray, got: np.ndarray) -> str:
     """What the process carries when the port's ODF misses zen_tpu's
     (ROADMAP Queue 3 item 8): the xdist worker, torch's thread counts, the
     calling thread's rounding mode (fegetround: 0 to nearest, 0x400
-    down, 0x800 up, 0xc00 toward zero), and whether two more calls on the
-    same frames give the first call's bits (a transient) or not (state
-    the process holds, such as a plan cached under another mode)."""
+    down, 0x800 up, 0xc00 toward zero), the live Python threads (a worker
+    thread that outlived an earlier test, a loader's or a pipelined
+    cascade's), and whether two more calls on the same frames give the
+    first call's bits (a transient) or not (state the process holds, such
+    as a plan cached under another mode)."""
     import ctypes
     import ctypes.util
+    import threading
 
     libm = ctypes.CDLL(ctypes.util.find_library("m"))
     again = [tb.odf_batch(torch.from_numpy(frames)).numpy() for _ in range(2)]
@@ -213,6 +216,7 @@ def _odf_evidence(frames: np.ndarray, got: np.ndarray) -> str:
     return (f"evidence: xdist worker {os.environ.get('PYTEST_XDIST_WORKER', 'none')}, "
             f"torch threads {torch.get_num_threads()} (interop "
             f"{torch.get_num_interop_threads()}), rounding mode {libm.fegetround():#x}, "
+            f"live threads {[t.name for t in threading.enumerate()]}, "
             f"calls 2 and 3 bit-equal to call 1: {same} (frames that moved: {moved}); "
             f"call 1 {got.tolist()}")
 

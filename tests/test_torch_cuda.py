@@ -180,6 +180,50 @@ def test_time_rank_route_matches_twin(cuda_device, dtype, ties, a_shape, b_shape
     assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
 
 
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill,run,lane_run,cols",
+    [((2, 183, 65), (2, 40, 65), K93, 183, 0.0, 32, 3, 1),  # hop 32's two tap runs
+     ((1, 183, 9), (1, 200, 9), K93, 183, 0.0, 96, 5, 1),  # the last run ends short
+     ((2, 70, 9), (2, 7, 9), tuple(range(-128, 0)) + (0,) * 129, 7, 0.0, 77, 7, 2),  # replicate
+     ((1, 392, 17), (1, 0, 17), tuple(range(-92, 1)), 92, 0.0, 352, 11, 1),  # median2d fl 93
+     ((1, 392, 19), (1, 0, 19), tuple(range(-92, 1)), 92, 0.0, 160, 5, 4),  # 19 = 4 * 4 + 3
+     ((2, 392, 13), (2, 0, 13), tuple(range(-92, 1)), 92, 0.0, 112, 7, 8),  # 2 merge runs
+     ((1, 300, 17), (1, 0, 17), tuple(range(-93, 94)), 0, float("inf"), 160, 5, 2),  # fill
+     ((1, 90, 33), (1, 0, 33), (0,) * 33 + tuple(range(-33, 1)), 0, float("inf"), 64, 3, 1)],
+)
+def test_time_rank_steps_match_twin(cuda_device, dtype, ties, a_shape, b_shape, offsets,
+                                    start, fill, run, lane_run, cols):
+    """K1's rank route with steps (``_time_launch(run=, lane_run=,
+    cols=)``): hop 32's two tap runs, a replicate set with a repeated 0,
+    median2d's valid fl 93 over 1, 4 and 8 adjacent columns a block (the
+    last block's columns partly past F), centered taps past both ends,
+    duplicates, a call whose last run ends at its last row, tie-heavy and
+    bf16."""
+    rng = np.random.default_rng(len(offsets) + run)
+    make = _ties if ties else _mags
+    a = make(rng, *a_shape, device=cuda_device).to(dtype)
+    b = make(rng, *b_shape, device=cuda_device).to(dtype)
+    got = mc._time_launch(a, b, offsets, start, fill, "rank", run=run, lane_run=lane_run,
+                          cols=cols)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+def test_time_rank_route_takes_steps_where_planned(cuda_device):
+    """The wrapper's plan for median2d's [41355, 513] fl 93 takes the
+    steps; through tap_median_time at that plan on 2000 rows."""
+    offsets = tuple(range(-92, 1))
+    run, lane_run, cols = mc.time_rank_geometry(offsets, 92, 41_355 + 92, 1, 513,
+                                                mc._sm_count(cuda_device))
+    assert lane_run > 1
+    a = _mags(np.random.default_rng(93), 2092, 513, device=cuda_device)
+    got = mc._time_launch(a, a[:0], offsets, 92, 0.0, "rank", run=run, lane_run=lane_run,
+                          cols=cols)
+    assert torch.equal(got, mc.tap_median_time_plain(a, a[:0], offsets, 92))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "t,offsets,start,shared_table",
@@ -467,15 +511,36 @@ def test_freq_select_tiles_match_twin(cuda_device, k, mode, tile):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
-@pytest.mark.parametrize("tile", mc.FREQ_RANK_TILES)
+@pytest.mark.parametrize("tile,run", [(t, 1) for t in mc.FREQ_RANK_TILES]
+                         + [(96, 3), (160, 5), (288, 9), (832, 13)])
 @pytest.mark.parametrize("k", [13, 47, 187, 257])
-def test_freq_rank_every_tile_matches_twin(cuda_device, k, tile):
-    """K2's rank route at each tile, whichever the wrapper picks for K
-    (ragged last tiles, tie-heavy rows)."""
+def test_freq_rank_every_tile_matches_twin(cuda_device, k, tile, run):
+    """K2's rank route at each tile and run of outputs a thread (the walk
+    from rank 0 at run 1, the steps past it), whichever the wrapper picks
+    for K: ragged last tiles whose last threads' runs end short, tie-heavy
+    rows."""
     rng = np.random.default_rng(k + tile)
     x = _ties(rng, 5, 1000, device=cuda_device)
-    got = mc._freq_launch(x, k, "reflect", "rank", tile=tile)
+    got = mc._freq_launch(x, k, "reflect", "rank", tile=tile, run=run)
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, "reflect"))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k", [65, 187])
+def test_freq_rank_steps_route_matches_twin(cuda_device, k, mode, dtype, ties):
+    """K2's rank route where the wrapper's plan takes the steps (400 rows
+    of 2000 outputs), every border, f32 and bf16, tie-heavy."""
+    rng = np.random.default_rng(k + 1)
+    f_in = 2000 + (k - 1 if mode == "valid" else 0)
+    x = (_ties if ties else _mags)(rng, 400, f_in, device=cuda_device).to(dtype)
+    assert mc.freq_rank_plan(k, 400, f_in, mode, mc._sm_count(x.device))[1] > 1
+    before = mc.sliding_median_boundary.routes["rank"]
+    got = mc.sliding_median_boundary(x, k, mode)
+    torch.cuda.synchronize()
+    assert mc.sliding_median_boundary.routes["rank"] == before + 1
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
 def test_wrappers_refuse_float16_and_mixed_dtypes(cuda_device):

@@ -106,6 +106,57 @@ def sort_store(keys: torch.Tensor, chunk: int) -> torch.Tensor:
     return keys
 
 
+BATCHER_8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7), (1, 2), (5, 6),
+             (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5), (1, 2), (3, 4), (5, 6))
+
+
+def merge_sort(keys: list, count: int) -> list:
+    """rank_select.cuh's merge_sort of n keys (a power of two >= 32) by
+    ``count`` threads, pass by pass: runs of MERGE_RUN keys n / MERGE_RUN
+    apart sorted by Batcher's network (sort_run), then each pass's
+    MERGE_RUN outputs a thread from the binary search of their merge path
+    on (merge_at, a run's end read as the pad key, the first run first on
+    ties); where a thread takes more than one run (merge_spare) it loops
+    over them. Returns the sorted keys (in plain order: merge_index's
+    padding is only a layout)."""
+    n, r = len(keys), mc.MERGE_RUN
+    runs = n // r
+    assert mc._merge_rooms(n, count) == (2 if count * r < n else 1)
+    src = [None] * n
+    for v0 in range(runs):
+        v = [keys[v0 + u * runs] for u in range(r)]
+        for p, q in BATCHER_8:
+            if v[q] < v[p]:
+                v[p], v[q] = v[q], v[p]
+        src[v0 * r : v0 * r + r] = v
+    length = r
+    while length < n:
+        dst = [None] * n
+        for e0 in range(0, n, r):
+            base = e0 & ~(2 * length - 1)
+            d = e0 - base
+            a_run, b_run = src[base : base + length], src[base + length : base + 2 * length]
+            lo, hi = max(0, d - length), min(d, length)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if a_run[mid] <= b_run[d - 1 - mid]:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            i, j = lo, d - lo
+            a = a_run[i] if i < length else PAD_KEY
+            b = b_run[j] if j < length else PAD_KEY
+            for u in range(r):
+                take_a = a <= b
+                dst[e0 + u] = a if take_a else b
+                i, j = (i + 1, j) if take_a else (i, j + 1)
+                nxt = i if take_a else j
+                loaded = (a_run if take_a else b_run)[nxt] if nxt < length else PAD_KEY
+                a, b = (loaded, b) if take_a else (a, loaded)
+        src, length = dst, 2 * length
+    return src
+
+
 def _sorted_positions(values: torch.Tensor, chunk: int | None = None) -> tuple:
     """Staged values [..., S] sorted by (value, position), as the kernels'
     sort of their keys leaves them: (values, positions). ``chunk``: the
@@ -132,6 +183,80 @@ def _walk(sorted_values, counts, m):
     return torch.gather(sorted_values, -1, rank[..., None])[..., 0]
 
 
+WALK_CHUNK = 8  # rank_select.cuh's kWalkChunk
+PAD_POSITION = 0xFFFFFFFF  # a padding key's position: past every window
+
+
+def _walk_from_zero(positions: list, weight, m: int) -> tuple:
+    """rank_select.cuh's walk_from_zero over one block's sorted positions
+    (padded to the key count): WALK_CHUNK ranks a step while their counts
+    do not pass m, then rank by rank. (rank, count below it)."""
+    rank = seen = 0
+    while True:
+        step = sum(weight(p) for p in positions[rank : rank + WALK_CHUNK])
+        if seen + step > m:
+            break
+        seen, rank = seen + step, rank + WALK_CHUNK
+    while seen + weight(positions[rank]) <= m:
+        seen, rank = seen + weight(positions[rank]), rank + 1
+    return rank, seen
+
+
+def _seek(positions: list, weight, m: int, at: int, below: int) -> tuple:
+    """rank_select.cuh's seek: from rank ``at`` with ``below`` counted
+    before it, down WALK_CHUNK ranks a step while the count below the
+    chunk still passes m, then rank by rank while it does; then up a chunk
+    a step while the chunk leaves the answer beyond it (and ends by the
+    key count), then rank by rank. (rank, count below it)."""
+    n = len(positions)
+    while below > m and at >= WALK_CHUNK:
+        chunk = sum(weight(p) for p in positions[at - WALK_CHUNK : at])
+        if below - chunk <= m:
+            break
+        below, at = below - chunk, at - WALK_CHUNK
+    while below > m:
+        at -= 1
+        below -= weight(positions[at])
+    while at + WALK_CHUNK <= n:
+        chunk = sum(weight(p) for p in positions[at : at + WALK_CHUNK])
+        if below + chunk > m:
+            break
+        below, at = below + chunk, at + WALK_CHUNK
+    while below + weight(positions[at]) <= m:
+        below, at = below + weight(positions[at]), at + 1
+    return at, below
+
+
+def _prefix_below(ranks: list, pivot: int) -> list:
+    """rank_select.cuh's prefix_below: for each p, how many of ranks[:p]
+    lie below ``pivot`` (a rank of None, a row no tap reaches, never)."""
+    out = [0]
+    for r in ranks:
+        out.append(out[-1] + (r is not None and r < pivot))
+    return out
+
+
+def _step(positions: list, weight, m: int, at: int, below: int) -> tuple:
+    """rank_select.cuh's step: down while the count below passes m, then
+    up to the rank at which it does. (rank, count below it)."""
+    while below > m:
+        at -= 1
+        below -= weight(positions[at])
+    while below + weight(positions[at]) <= m:
+        below, at = below + weight(positions[at]), at + 1
+    return at, below
+
+
+def _sorted_block(keys_pos: torch.Tensor, n: int) -> tuple:
+    """(positions by rank, padded to n keys with PAD_POSITION; inv: the
+    rank of each staged position) of one block's sorted positions."""
+    positions = keys_pos.tolist()
+    inv = [0] * len(positions)
+    for rank, p in enumerate(positions):  # the scatter
+        inv[p] = rank
+    return positions + [PAD_POSITION] * (n - len(positions)), inv
+
+
 def _boundary_index(p, f, mode):
     """median_freq.cu's boundary_index (jnp.pad semantics)."""
     if mode == "reflect":
@@ -144,26 +269,37 @@ def _boundary_index(p, f, mode):
     return p
 
 
-def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = None
-                      ) -> torch.Tensor:
+def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = None,
+                      tile: int | None = None, run: int | None = None) -> torch.Tensor:
     """K2's rank kernel: a block per (row, tile), each staging the
-    tile + K - 1 samples its outputs reach, the last tile ragged. On the
-    key store (where ``freq_rank_store`` sends K, or at ``chunk`` keys of
-    shared memory, as ``_freq_launch(chunk=)``) a unit is
-    RANK_STORE_THREADS outputs and its keys take the store's sort."""
+    tile + K - 1 samples its outputs reach, the last tile ragged; the
+    wrapper's ``freq_rank_plan`` for the call on an H100's SMs, or
+    ``tile`` and ``run`` as ``_freq_launch`` forces them. Run 1: every
+    output walks from rank 0 (``_walk``); a longer run: the steps
+    (``emulate_freq_steps``). On the key store (where ``freq_rank_store``
+    sends K, or at ``chunk`` keys of shared memory, as
+    ``_freq_launch(chunk=)``) a unit is RANK_STORE_THREADS outputs and its
+    keys take the store's sort."""
     if chunk is None and mc.freq_rank_store(k) == "scratch":
         chunk = mc.RANK_STORE_CHUNK
-    tile = mc.freq_rank_tile(k) if chunk is None else mc.RANK_STORE_THREADS
     f_in = x.shape[-1]
+    rows = x.reshape(-1, f_in).float()
+    if chunk is not None:
+        tile, run = mc.RANK_STORE_THREADS, 1
+    elif tile is None:
+        tile, run, _ = mc.freq_rank_plan(k, rows.shape[0], f_in, mode)
+    run = run or 1
     f_out = f_in - k + 1 if mode == "valid" else f_in
     m = (k - 1) // 2
-    rows = x.reshape(-1, f_in).float()
     out = torch.empty(rows.shape[0], f_out)
     for j0 in range(0, f_out, tile):
         live = min(tile, f_out - j0)
         base = j0 if mode == "valid" else j0 - m
         seg = rows[:, _boundary_index(torch.arange(live + k - 1) + base, f_in, mode)]
         values, pos = _sorted_positions(seg, chunk)  # [R, S]
+        if run > 1:
+            out[:, j0 : j0 + live] = emulate_freq_steps(values, pos, k, live, run)
+            continue
         j = torch.arange(live)[:, None]
         in_window = ((pos[:, None, :] - j) >= 0) & ((pos[:, None, :] - j) < k)
         out[:, j0 : j0 + live] = _walk(values[:, None, :].expand(-1, live, -1),
@@ -171,21 +307,63 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = No
     return out.reshape(x.shape[:-1] + (f_out,)).to(x.dtype)
 
 
-def emulate_time_rank(a, b, offsets, start, fill=0.0) -> torch.Tensor:
+def emulate_freq_steps(values: torch.Tensor, pos: torch.Tensor, k: int, live: int, run: int
+                       ) -> torch.Tensor:
+    """rank_steps_median_kernel's walk over each block's sorted segment,
+    values and positions [R, S]: the inverse ranks from one scatter, the
+    count of positions ranked below the middle rank S // 2 before each
+    position (one scan), then thread t's outputs t * run .. t * run + run
+    - 1 (the live ones): the first sought from the middle rank, its count
+    below off the scan, each next stepped from the previous rank after
+    moving the count below it by the position that left (j - 1) and the
+    one that entered (j + k - 1). Medians [R, live]."""
+    m = (k - 1) // 2
+    n = mc._key_count(pos.shape[-1])
+    pivot = pos.shape[-1] // 2
+    out = torch.empty(values.shape[0], live)
+    for r in range(values.shape[0]):
+        positions, inv = _sorted_block(pos[r], n)
+        prefix = _prefix_below(inv, pivot)
+        for first in range(0, live, run):
+            j = first
+
+            def in_window(p):
+                return int(0 <= p - j < k)
+
+            at, below = _seek(positions, in_window, m, pivot, prefix[j + k] - prefix[j])
+            out[r, j] = values[r, at]
+            for j in range(first + 1, min(first + run, live)):
+                below += int(inv[j + k - 1] < at) - int(inv[j - 1] < at)
+                at, below = _step(positions, in_window, m, at, below)
+                out[r, j] = values[r, at]
+    return out
+
+
+def emulate_time_rank(a, b, offsets, start, fill=0.0, run=None, lane_run=None
+                      ) -> torch.Tensor:
     """K1's rank kernel: the wrapper's plan for the call
-    (``time_rank_plan``: taps that read only fill moved next to V, the
-    run of min(``time_rank_run``, t_out) output rows, keys that fit a
-    block), a block per (stream, run, column) staging the rows the run's
-    taps reach (``time_rank_rows``) of V = a ++ b (fill outside, in the
-    inputs' dtype), keyed by (value, relative row), sorted in shared
-    memory, the multiplicity table read at row - lane + 31."""
+    (``time_rank_plan``: taps that read only fill moved next to V, keys
+    that fit a block; ``time_rank_geometry`` on an H100's SMs: the run of
+    output rows a block and the lane run a thread, or ``run`` and
+    ``lane_run`` as ``_time_launch`` forces them), a block per (stream,
+    run, column) staging the rows the run's taps reach
+    (``time_rank_rows``) of V = a ++ b (fill outside, in the inputs'
+    dtype), keyed by (value, relative row), sorted in shared memory, the
+    multiplicity table read at row - lane + 31 (0 outside it). Lane run
+    1: every output row walks from rank 0; longer: the steps
+    (``emulate_time_steps``)."""
     v = torch.cat([a, b], dim=-2).float()
     c, t_v, f = v.shape[0], v.shape[1], v.shape[2]
-    offsets, run, fits = mc.time_rank_plan(tuple(offsets), start, t_v)
+    offsets_in = tuple(offsets)
+    offsets, run1, fits = mc.time_rank_plan(offsets_in, start, t_v)
     assert fits
+    if run is None:
+        run, lane_run, _ = mc.time_rank_geometry(offsets_in, start, t_v, c, f)
+    lane_run = lane_run or 1
     lo, span, table = mc.time_rank_table(offsets)
-    table = torch.tensor(table)
+    table = torch.tensor(table + (0,) * (run + span))  # 0 past the table's end
     t_out = t_v - start
+    run = max(1, min(run, t_out))
     rel = torch.tensor(mc.time_rank_rows(offsets, run))
     fill = torch.tensor(fill, dtype=a.dtype).float()
     m = (len(offsets) - 1) // 2
@@ -196,12 +374,59 @@ def emulate_time_rank(a, b, offsets, start, fill=0.0) -> torch.Tensor:
         staged = torch.where(inside[None, :, None], v[:, rows.clamp(0, t_v - 1)], fill)
         values, idx = _sorted_positions(staged.transpose(1, 2))  # [C, F, S]
         pos = rel[idx]  # a key's position is its relative row
-        lane = torch.arange(run)[:, None]
-        counts = table[pos[:, :, None, :] - lane + mc.TIME_RANK_RUN - 1]  # [C, F, run, S]
-        med = _walk(values[:, :, None, :].expand(-1, -1, run, -1), counts, m)
         live = min(run, t_out - i0)
+        if lane_run > 1:
+            med = emulate_time_steps(values.reshape(c * f, -1), pos.reshape(c * f, -1),
+                                     offsets, live, lane_run).reshape(c, f, live)
+            out[:, i0 : i0 + live] = med.transpose(1, 2)
+            continue
+        lane = torch.arange(run)[:, None]
+        q = pos[:, :, None, :] - lane + mc.TIME_RANK_RUN - 1
+        counts = torch.where(q >= 0, table[q.clamp(min=0)], 0)  # [C, F, run, S]
+        med = _walk(values[:, :, None, :].expand(-1, -1, run, -1), counts, m)
         out[:, i0 : i0 + live] = med[:, :, :live].transpose(1, 2)
     return out.to(a.dtype)
+
+
+def emulate_time_steps(values: torch.Tensor, pos: torch.Tensor, offsets: tuple, live: int,
+                       lane_run: int) -> torch.Tensor:
+    """tap_median_time_steps_kernel's walk over each block's sorted keys,
+    values and relative rows [U, S]: the rank of each relative row from
+    one scatter, then thread t's output rows t * lane_run .. (the live
+    ones): the first walked from rank 0, each next i stepped from the
+    previous rank after moving the count below it at the tap set's change
+    points (``time_rank_changes``: row q + (i - 1) - 31 by table[q - 1] -
+    table[q]). Medians [U, live]."""
+    _, span, table = mc.time_rank_table(offsets)
+    changes = mc.time_rank_changes(offsets)
+    pairs = list(zip(changes[::2], changes[1::2]))
+    m = (len(offsets) - 1) // 2
+    n = mc._key_count(pos.shape[-1])
+    out = torch.empty(values.shape[0], live)
+    for u in range(values.shape[0]):
+        rel = pos[u].tolist()
+        inv = [None] * (max(rel) + 1)  # span + run - 1 in the kernel
+        for rank, d in enumerate(rel):  # the scatter over relative rows
+            inv[d] = rank
+        positions = rel + [PAD_POSITION] * (n - len(rel))
+        for first in range(0, live, lane_run):
+            i = first
+
+            def count(d):
+                q = d + mc.TIME_RANK_RUN - 1 - i
+                return table[q] if 0 <= q < len(table) else 0
+
+            at, below = _walk_from_zero(positions, count, m)
+            out[u, i] = values[u, at]
+            for i in range(first + 1, min(first + lane_run, live)):
+                for q, delta in pairs:
+                    d = q + i - mc.TIME_RANK_RUN
+                    assert inv[d] is not None  # a change point's row is staged
+                    if inv[d] < at:
+                        below += delta
+                at, below = _step(positions, count, m, at, below)
+                out[u, i] = values[u, at]
+    return out
 
 
 DIGIT_BITS, BINS = 4, 16  # radix_select.cuh's kDigitBits, kBins
@@ -431,6 +656,112 @@ def test_time_rank_emulation_bf16():
     assert torch.equal(got, mc.tap_median_time_plain(a, b, K93, 183, 0.3))
 
 
+# ---------------- the steps: each output from its neighbour's median ----------------
+
+# K2's (tile, run) as the wrapper plans the 4-minute track's pass 1 and
+# median2d fl 187 (2585 rows of 8193 at K = 187), forced on small rows,
+# and tiny geometries that put many run edges and tile edges in a call
+FREQ_STEPS = [mc.freq_rank_plan(187, 2585, 8193, "reflect")[:2], (96, 3), (160, 5), (64, 1)]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k", [47, 187])
+@pytest.mark.parametrize("tile,run", FREQ_STEPS)
+def test_freq_steps_emulation_matches_twin(tile, run, k, mode, ties):
+    """K2's walk with steps, every border, ragged last tiles and runs
+    (517 outputs a row: the last thread's run ends short)."""
+    rng = np.random.default_rng(k + tile + run)
+    f_in = 517 + (k - 1 if mode == "valid" else 0)
+    x = _tensor(_levels(rng, (2, f_in), ties), torch.float32)
+    got = emulate_freq_rank(x, k, mode, tile=tile, run=run)
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+@pytest.mark.parametrize("k,mode,tile,run", [(187, "reflect", 96, 3), (65, "wrap", 160, 5),
+                                             (47, "edge", 288, 9)])
+def test_freq_steps_emulation_matches_jax(k, mode, tile, run):
+    rng = np.random.default_rng(5 * k)
+    x = _levels(rng, (2, 600), ties=True)
+    m = (k - 1) // 2
+    boundary = {"edge": "clamp"}.get(mode, mode)
+    want = np.asarray(jax_sliding_median(jnp.asarray(x), range(-m, m + 1), -1, boundary))
+    got = emulate_freq_rank(_tensor(x, torch.float32), k, mode, tile=tile, run=run).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["reflect", "valid"])
+@pytest.mark.parametrize("tile,run", [(96, 3), (288, 9)])
+def test_freq_steps_emulation_bf16(tile, run, mode):
+    rng = np.random.default_rng(tile)
+    f_in = 300 + (186 if mode == "valid" else 0)
+    x = _tensor(_levels(rng, (2, f_in), ties=False), torch.bfloat16)
+    got = emulate_freq_rank(x, 187, mode, tile=tile, run=run)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, 187, mode))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill,run,lane_run",
+    [  # hop 32's two tap runs (four change points): a run of 32 in lane runs
+       # of 3, one of 96 in lane runs of 5, t_out 40 (the last block short)
+     ((2, 183, 5), (2, 40, 5), K93, 183, 0.0, 32, 3),
+     ((1, 183, 4), (1, 40, 4), K93, 183, 0.0, 96, 5),
+     # replicate: offset 0 repeated (a change of 60 at its row)
+     ((1, 70, 3), (1, 3, 3), tuple(range(-69, 0)) + (0,) * 60, 3, 0.0, 32, 3),
+     # median2d's valid fl 93, the wrapper's geometry for the track's
+     # [41355, 513], on 300 rows: its last block's run ends at the call's
+     # last row
+     ((1, 392, 3), (1, 0, 3), tuple(range(-92, 1)), 92, 0.0,
+      *mc.time_rank_geometry(tuple(range(-92, 1)), 92, 41_355 + 92, 1, 513)[:2]),
+     # duplicates inside the span, fill inf; centered K = 401 past both ends
+     ((1, 90, 4), (1, 0, 4), (0,) * 33 + tuple(range(-33, 1)), 0, float("inf"), 64, 7),
+     ((1, 100, 2), (1, 0, 2), tuple(range(-200, 201)), 0, 0.0, 96, 3)],
+)
+def test_time_steps_emulation_matches_twin(a_shape, b_shape, offsets, start, fill, run,
+                                           lane_run, ties):
+    rng = np.random.default_rng(len(offsets) + run)
+    a = _tensor(_levels(rng, a_shape, ties), torch.float32)
+    b = _tensor(_levels(rng, b_shape, ties), torch.float32)
+    assert lane_run > 1
+    got = emulate_time_rank(a, b, offsets, start, fill, run, lane_run)
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
+def test_time_steps_emulation_matches_jax():
+    rng = np.random.default_rng(24)
+    a, b = _levels(rng, (2, 183, 3), True), _levels(rng, (2, 33, 3), True)
+    want = np.asarray(jax_sliding_median(
+        jnp.concatenate([a, b], axis=-2), K93, -2, "zero")[..., 183:, :])
+    got = emulate_time_rank(_tensor(a, torch.float32), _tensor(b, torch.float32), K93, 183,
+                            run=33, lane_run=3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_time_steps_emulation_bf16():
+    rng = np.random.default_rng(25)
+    a = _tensor(_levels(rng, (1, 183, 4), False), torch.bfloat16)
+    b = _tensor(_levels(rng, (1, 32, 4), False), torch.bfloat16)
+    got = emulate_time_rank(a, b, K93, 183, 0.3, run=32, lane_run=5)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, K93, 183, 0.3))
+
+
+def test_time_rank_changes_are_the_table_edges():
+    """Two change points a run of taps, the repeated tap's own, and each
+    change point's row staged for every lane move of a run."""
+    assert mc.time_rank_changes(tuple(range(-4, 1))) == (31, -1, 36, 1)
+    assert len(mc.time_rank_changes(K93)) // 2 == 4
+    rep = tuple(range(-5, 0)) + (0,) * 6
+    assert mc.time_rank_changes(rep) == (31, -1, 36, -5, 37, 6)
+    for offsets, run in ((K93, 32), (rep, 40), ((0,) * 33 + tuple(range(-33, 1)), 64)):
+        staged = set(mc.time_rank_rows(offsets, run))
+        changes = mc.time_rank_changes(offsets)
+        for i in range(1, run):
+            assert {q + i - mc.TIME_RANK_RUN for q in changes[::2]} <= staged
+
+
 # ---------------- the key store past shared memory ----------------
 
 # HPRConfig(fs, hop=1)'s causal time taps (the wrap border): two tap runs
@@ -448,6 +779,21 @@ def test_sort_store_orders_every_slice(n, chunk):
     keys[:, -n // 8 :] = PAD_KEY
     keys[1] = keys[1] % 7  # ties, as equal keys never arise in a kernel
     assert torch.equal(sort_store(keys, chunk), torch.sort(keys, dim=-1).values)
+
+
+@pytest.mark.parametrize("count", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [32, 256, 512, 1024])
+def test_merge_sort_orders_every_block(n, count):
+    """The steps' merge_sort orders any keys, pad keys (equal) and ties
+    included, with one run a thread (its passes in registers) and with
+    several (a second buffer)."""
+    gen = torch.Generator().manual_seed(n + count)
+    keys = torch.randint(0, 1 << 40, (3, n), generator=gen)
+    keys[0, -n // 8 :] = PAD_KEY
+    keys[1] = keys[1] % 7
+    keys[2, ::3] = PAD_KEY
+    for row in keys.tolist():
+        assert merge_sort(row, count) == sorted(row)
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -756,6 +1102,30 @@ def test_time_routes_and_staging_limit():
     assert mc.time_select_plan(widest, 0, 3 * mc.MAX_TIME_TAPS, 1, 1)[1:] == (
         1, mc.MAX_TIME_TAPS, mc.SELECT_MAX_THREADS)
     assert 4 * mc.MAX_TIME_TAPS > mc.SELECT_SHARED_BYTES
+    # the steps keep merge_sort's layout (a key's room after every 8) and
+    # the rank of each relative row (span + run - 1 ints): median2d's fl 93
+    # at a run of 352 stages 444 rows (512 keys, 4,608 in merge_sort's room)
+    fl93 = tuple(range(-92, 1))
+    assert mc.time_rank_bytes(fl93, 352, 1) == 8 * 512
+    # 128 threads merge 512 keys a run each: one buffer; 16 threads a
+    # column (8 columns) merge 256 keys two runs each: a second buffer
+    assert mc.time_rank_bytes(fl93, 352, 11) == 9 * 512 + 4 * (93 + 351) + 4 * 352
+    # four adjacent columns: each its own keys and ranks, the medians of all
+    assert mc.time_rank_bytes(fl93, 160, 5, 4) == 4 * (9 * 256 + 4 * (93 + 159)) + 4 * 640
+    assert mc.time_rank_bytes(fl93, 160, 9, 8) == 8 * (2 * 9 * 256 + 4 * (93 + 159)) + 4 * 1280
+    # a span of 70,001 rows: no inverse fits beside the keys, so the call
+    # keeps the walk from rank 0 at every lane run
+    assert mc.time_rank_bytes(far, 96, 3) > mc.SMEM_OPTIN
+    assert mc.time_rank_geometry(far, 70_000, 70_300, 1, 9)[1] == 1
+    for offsets, start, t_v, streams, f in ((K93, 183, 215, 1, 65), (fl93, 92, 41_447, 1, 513),
+                                            (spread, 24_000, 24_040, 1, 2)):
+        run, lane_run, cols = mc.time_rank_geometry(offsets, start, t_v, streams, f)
+        assert lane_run in mc.RANK_LANE_RUNS and run <= t_v - start
+        assert cols in mc.TIME_RANK_COLUMNS and (cols == 1 or lane_run > 1)
+        assert run <= (mc.TIME_RANK_RUN if lane_run == 1 else
+                       mc.TIME_RANK_THREADS // cols * lane_run)
+        planned = mc.time_rank_offsets(offsets, start, t_v)
+        assert mc.time_rank_bytes(planned, run, lane_run, cols) <= mc.SMEM_OPTIN
 
 
 def test_freq_route_crossover_and_staging_limit():
@@ -860,6 +1230,12 @@ def test_select_geometry_and_layout():
 
 @pytest.mark.parametrize("k", [3, 13, 47, 187, 257, 401, 4001])
 def test_freq_rank_tile_minimizes_walk_plus_sort(k):
+    """freq_rank_tile (the copy mirror's tile, and whether a tile's keys
+    fit at all) minimizes the walk from rank 0 plus the sort per output;
+    freq_rank_plan, a call's geometry, minimizes sort_us over every tile
+    and run that fits a block: at run 1 that tile, past
+    it runs of RANK_LANE_RUNS outputs, as many walking threads as a key
+    count's freq_steps_threads and its staged outputs allow."""
     tile = mc.freq_rank_tile(k)
     assert tile in mc.FREQ_RANK_TILES
 
@@ -869,6 +1245,19 @@ def test_freq_rank_tile_minimizes_walk_plus_sort(k):
         return (t + k - 1) / 2 + (n // 2) * lg * (lg + 1) / t
 
     assert cost(tile) == min(cost(t) for t in mc.FREQ_RANK_TILES)
+    for rows, f_in in ((8, 8193), (32, 2049), (2585, 8193)):
+        plans = mc._freq_rank_plans(k, rows, f_in, "reflect", mc.H100_SMS)
+        assert mc.freq_rank_plan(k, rows, f_in, "reflect") == min(plans)[1:]
+        for us, t, run, threads in plans:
+            assert t % run == 0 and t // run <= threads
+            assert (threads == t == tile if run == 1 else
+                    threads == mc.freq_steps_threads(mc._key_count(t + k - 1)))
+            assert t + k - 1 <= mc._key_count(t + k - 1)
+            assert run in mc.RANK_LANE_RUNS and mc.freq_rank_bytes(k, t, run) <= mc.SMEM_OPTIN
+            seg = min(t, f_in) + k - 1
+            assert us == mc.sort_us(rows * -(-f_in // t), seg, threads,
+                                    mc.freq_rank_bytes(k, t, run), mc.H100_SMS, run=run,
+                                    step=seg / k + 1)
 
 
 def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):

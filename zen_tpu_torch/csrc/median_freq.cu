@@ -56,26 +56,41 @@
 // `rank`, from FREQ_RANK_MIN_TAPS on, at every K: rank once, select many
 // (rank_select.cuh). A network grows as ~K log^2 K min/max per output;
 // the rank route stages the segment as 64-bit keys, sorts it once per
-// block by (value, position) with a bitonic sort over the next power of
-// two, and has each output walk the ranks, counting positions p of its
-// window (p - j < K, unsigned), until the count passes (K-1)/2: ~S/2
-// reads for S = tile + K - 1, eight ranks a step, where all lanes of a
-// warp read the same rank (a broadcast). Where the keys fit the 227 KB a
-// block can opt into (S <= 16,384, K up to 16,353 at the smallest tile)
-// they stay in shared memory: the wrapper picks the tile (32 to 256
-// outputs, one thread each) that minimizes the walk plus the sort per
-// output (on an H100 the fastest tile at the paths' K, timed in
-// chip_smoke.py phase 3). Past that the sort, not the walk, would no
-// longer fit a block: a first version ranked each window by counting
-// there (up to 2 K^2 compares an output, 2.7e8 at K = 16,385). Now the
-// keys live in the block's slice of a device-memory scratch (the key
-// store of rank_select.cuh): a persistent grid of at most one block an
-// SM, kStoreThreads threads a block and as many outputs a unit, sorts
-// them through a 128 KB chunk of shared memory (the same network, its
-// strides from a chunk up as passes over the slice), and walks the slice
-// through the cache. The scratch, sized by the grid, bounds K
-// (median_cuda.MAX_FREQ_TAPS). The store stays for calls whose units of
-// 1024 outputs share a sort (R=4 rows of 8193 at K = 16,385).
+// block by (value, position), and finds each output's rank in the sorted
+// keys, counting positions p of its window (p - j < K, unsigned) until the
+// count passes (K-1)/2. Where the keys fit the 227 KB a block can opt
+// into (S <= 16,384, K up to 16,353 at the smallest tile) they stay in
+// shared memory, and the wrapper weighs two kernels on the call's
+// geometry (median_cuda.freq_rank_plan, priced by sort_us, fitted to
+// benches/rank_geometry.py's times on an H100):
+// * rank_select_median_kernel, the walk (the first design): a thread an
+//   output, 32 to 256 a block, each walking from rank 0, ~S/2 ranks for S
+//   = tile + K - 1, eight a step, all lanes of a warp on one rank (a
+//   broadcast); the bitonic sort. The few blocks of a single stream's step (hop 1024's
+//   32 rows at K = 47, pitch-track's 8 at K = 187) finish soonest so.
+// * rank_steps_median_kernel, the steps: a thread a run of consecutive
+//   outputs, the first sought from the middle rank (its count below off
+//   one scan of the inverse ranks), each next stepped from the
+//   previous output's rank, its count moved by the sample that left and
+//   the one that entered the window (read at their ranks in an inverse
+//   array, one scatter after the sort): ~S/K ranks an output, so a tile
+//   grows to the key count the sort is paid for (320 outputs at K = 187:
+//   64 threads of 5, 506 keys of 512), and the sort is merge_sort. The
+//   medians go through shared memory so that the writes stay coalesced.
+//   On the 4-minute track's pass 1 (2585 rows of 8193 at K = 187) the
+//   walk took 1724 us and the steps 806 on an H100
+//   (benches/rank_store.py in turns).
+// Past 16,384 keys the sort would no longer fit a block: a first version
+// ranked each window by counting there (up to 2 K^2 compares an output,
+// 2.7e8 at K = 16,385). Now the keys live in the block's slice of a
+// device-memory scratch (the key store of rank_select.cuh): a persistent
+// grid of at most one block an SM, kStoreThreads threads a block and as
+// many outputs a unit, sorts them through a 128 KB chunk of shared memory
+// (the bitonic network, its strides from a chunk up as passes over the
+// slice), and walks the slice through the cache. The scratch, sized by
+// the grid, bounds K (median_cuda.MAX_FREQ_TAPS). The store stays for
+// calls whose units of 1024 outputs share a sort (R=4 rows of 8193 at K =
+// 16,385).
 //
 // `select`, where the call's outputs are too few to share a sort
 // (median_cuda.freq_rank_pick weighs the two on the call's geometry: a
@@ -171,6 +186,84 @@ __global__ void rank_select_median_kernel(const T* __restrict__ x,
             static_cast<unsigned>(k));
       });
   *dst = from_float<T>(zen_rank::value_of(key));
+}
+
+// One block per (row, tile of `tile` outputs), a run of `run` consecutive
+// outputs a thread (tile / run threads walk, of blockDim.x, which all
+// stage and sort): the first sought from the middle rank (seek, its count
+// below from prefix_below), each next stepped from the previous one's
+// rank. Shared memory: merge_room(n) keys (the keys as staged, then
+// merge_sort's), as many again where merge_spare, then the rank of each
+// staged position (inv, tile + k - 1 ints), the tile's medians (res, as
+// floats, written out together at the end), the count below the middle
+// rank before each position (tile + k ints) and the scan's warp sums (32).
+template <typename T>
+__global__ void rank_steps_median_kernel(const T* __restrict__ x,
+                                         T* __restrict__ out, int f_in,
+                                         int f_out, int k, int mode, int tile,
+                                         int run) {
+  extern __shared__ __align__(16) unsigned long long keys[];
+  const int threads = blockDim.x;
+  const int tid = threadIdx.x;
+  const long long r = blockIdx.x;
+  const int j0 = blockIdx.y * tile;
+  const int m = (k - 1) / 2;
+  const T* row = x + static_cast<size_t>(r) * f_in;
+  const int base = mode == kValid ? j0 : j0 - m;
+  const int live = min(tile, f_out - j0);
+  const int staged = live + k - 1;
+  const int n = zen_segment::stage_keys(keys, row, base, staged, f_in, mode,
+                                        tid, threads);
+  // merge_sort's buffers: the keys' and, where merge_spare, a second
+  const int most = zen_rank::key_count(tile + k - 1);
+  const int room = zen_rank::merge_room(most);
+  unsigned long long* spare = keys + room;
+  int* inv = reinterpret_cast<int*>(keys + room * (zen_rank::merge_spare(most, threads) ? 2 : 1));
+  float* res = reinterpret_cast<float*>(inv + tile + k - 1);
+  int* prefix = reinterpret_cast<int*>(res + tile);
+  int* warp_sums = prefix + tile + k;
+  __syncthreads();
+  T* dst = out + static_cast<size_t>(r) * f_out + j0;
+  if (ZEN_RANK_CUT == 1) {
+    for (int j = tid; j < live; j += threads) {
+      dst[j] = from_float<T>(zen_rank::value_of(keys[j]));
+    }
+    return;
+  }
+  const unsigned long long* sorted = zen_rank::merge_sort(keys, spare, n, tid, threads);
+  const auto key = [&](int rank) { return sorted[zen_rank::merge_index(rank)]; };
+  if (ZEN_RANK_CUT == 2) {
+    for (int j = tid; j < live; j += threads) {
+      dst[j] = from_float<T>(zen_rank::value_of(key(j)));
+    }
+    return;
+  }
+  // one scatter: the rank of each staged position
+  for (int q = tid; q < staged; q += threads) {
+    inv[zen_rank::position_of(key(q))] = q;
+  }
+  __syncthreads();
+  const int pivot = staged / 2;
+  zen_rank::prefix_below(prefix, inv, staged, pivot, tid, threads, warp_sums);
+  const int first = tid * run;
+  const int last = min(first + run, live);
+  int j = first;
+  // positions of window [j, j + k) (a padding key's is past every window)
+  const auto in_window = [&](unsigned long long kv) {
+    return static_cast<int>(static_cast<unsigned>(zen_rank::position_of(kv) - j) <
+                            static_cast<unsigned>(k));
+  };
+  if (j < last) {
+    int at = pivot, below = prefix[j + k] - prefix[j];
+    res[j] = zen_rank::value_of(zen_rank::seek(key, m, in_window, &at, &below, n));
+    for (++j; j < last; ++j) {
+      // position j - 1 left the window, j + k - 1 entered it
+      below += static_cast<int>(inv[j + k - 1] < at) - static_cast<int>(inv[j - 1] < at);
+      res[j] = zen_rank::value_of(zen_rank::step(key, m, in_window, &at, &below));
+    }
+  }
+  __syncthreads();
+  for (int q = tid; q < live; q += threads) dst[q] = from_float<T>(res[q]);
 }
 
 // The rank route on the key store: a persistent grid whose block b walks
@@ -340,25 +433,44 @@ int launch_network(const T* x, T* out, int rows, int f_in, int f_out, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `tile` in {32, 64, 128, 256}: the wrapper's choice for this k
+// `tile` outputs a block, `run` outputs a walking thread and `threads` a
+// block: the wrapper's choice for the call (freq_rank_plan). run 1: the
+// walk from rank 0 for every output, `tile` threads in {32, 64, 128, 256};
+// run > 1: the steps, tile / run walking threads of `threads`, a multiple
+// of 32 up to 1024.
 template <typename T>
 int launch_rank(const T* x, T* out, int rows, int f_in, int f_out, int k,
-                int mode, int tile, void* stream) {
+                int mode, int tile, int run, int threads, void* stream) {
   int err = check_args(rows, f_in, f_out, k, mode);
   if (err != 0) return err;
-  if (tile != 32 && tile != 64 && tile != 128 && tile != 256) {
+  if (run < 1 || tile < run || tile % run != 0 ||
+      (run == 1 ? (threads != tile || (tile != 32 && tile != 64 && tile != 128 && tile != 256))
+                : (threads % 32 != 0 || threads > 1024 || tile / run > threads))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(zen_rank::key_count(tile + k - 1)) *
-                      sizeof(unsigned long long);
-  err = zen_rank::opt_in(
-      reinterpret_cast<const void*>(rank_select_median_kernel<T>), smem);
+  const long long tiles = (static_cast<long long>(f_out) + tile - 1) / tile;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = zen_rank::key_count(tile + k - 1);
+  // run > 1: merge_sort's buffers, the inverse ranks, the tile's medians,
+  // the counts below the middle rank and the scan's warp sums
+  const size_t smem =
+      run == 1 ? static_cast<size_t>(n) * sizeof(unsigned long long)
+               : (zen_rank::merge_spare(n, threads) ? 2 : 1) *
+                         static_cast<size_t>(zen_rank::merge_room(n)) *
+                         sizeof(unsigned long long) +
+                     (2 * (static_cast<size_t>(tile) + k) - 1 + tile + 32) * 4;
+  err = zen_rank::opt_in(run == 1 ? reinterpret_cast<const void*>(rank_select_median_kernel<T>)
+                                  : reinterpret_cast<const void*>(rank_steps_median_kernel<T>),
+                         smem);
   if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>(rows),
-                  static_cast<unsigned>((f_out + tile - 1) / tile));
-  rank_select_median_kernel<T><<<grid, tile, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      x, out, f_in, f_out, k, mode);
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(tiles));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (run == 1) {
+    rank_select_median_kernel<T><<<grid, tile, smem, s>>>(x, out, f_in, f_out, k, mode);
+  } else {
+    rank_steps_median_kernel<T><<<grid, threads, smem, s>>>(x, out, f_in, f_out, k, mode,
+                                                            tile, run);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -444,15 +556,17 @@ extern "C" int zen_sliding_median_network_bf16(const __nv_bfloat16* x,
 
 extern "C" int zen_sliding_median_rank(const float* x, float* out, int rows,
                                        int f_in, int f_out, int k, int mode,
-                                       int tile, void* stream) {
-  return launch_rank(x, out, rows, f_in, f_out, k, mode, tile, stream);
+                                       int tile, int run, int threads,
+                                       void* stream) {
+  return launch_rank(x, out, rows, f_in, f_out, k, mode, tile, run, threads, stream);
 }
 
 extern "C" int zen_sliding_median_rank_bf16(const __nv_bfloat16* x,
                                             __nv_bfloat16* out, int rows,
                                             int f_in, int f_out, int k,
-                                            int mode, int tile, void* stream) {
-  return launch_rank(x, out, rows, f_in, f_out, k, mode, tile, stream);
+                                            int mode, int tile, int run,
+                                            int threads, void* stream) {
+  return launch_rank(x, out, rows, f_in, f_out, k, mode, tile, run, threads, stream);
 }
 
 extern "C" int zen_sliding_median_rank_store(

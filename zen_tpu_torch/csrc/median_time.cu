@@ -90,6 +90,24 @@
 // sort, and the walk reads eight ranks a step. One unit per block spreads
 // the work over the SMs: 65 blocks at K = 93 [1, 183 + 32, 65], 493 at
 // K = 401 [1, 900, 17].
+// Calls of many output rows take the steps instead
+// (tap_median_time_steps_kernel; the wrapper weighs both on the call's
+// geometry, median_cuda.time_rank_geometry): a block takes 1 to 8
+// adjacent columns and a longer run of output rows, each column's
+// threads merge_sort its keys, and a thread takes a lane run of
+// consecutive output rows, the first walked from rank 0, each next
+// stepped from the previous row's rank after moving its count at the tap
+// set's change points (two a run of taps: hop 32's four, median2d's
+// contiguous K = 93 two), read at their ranks in an inverse array. Where
+// the walk from rank 0 read ~S/2 ranks an output, a step reads ~S/K; and
+// adjacent columns turn a staged row's loads and an output row's stores
+// into one stretch of 4 * cols bytes, where a column a block touched 4
+// bytes of each 32-byte sector (median2d's [41355, 513] at fl 93 on an
+// H100: the walk took 2136 us, of which 942 staging and its stores; 160
+// rows of 4 columns, 5 rows a thread, 866-873, benches/rank_store.py and
+// benches/rank_split.py). A single
+// stream's step keeps the walk: its 32 rows a column are too few to pay
+// for the inverse and a second walk.
 // Every span fits: the keys a block stages depend on the rows its taps
 // reach, not on the span between them, and the wrapper halves the run
 // (time_rank_run) while they pass 227 KB, down to one output row, which
@@ -233,7 +251,7 @@ __device__ __forceinline__ float tap_pred(const T* __restrict__ a,
 }
 
 constexpr int kRun = 32;           // most output rows of a rank-kernel block
-constexpr int kStageBatch = 8;     // staging loads a select thread keeps in flight
+constexpr int kStageBatch = 8;     // staging loads a select or steps thread keeps in flight
 constexpr int kRankThreads = 128;  // threads that stage and sort them
 
 // One block per unit: column `col` of stream `c`, output rows i0 + lane
@@ -301,6 +319,145 @@ __global__ void tap_median_time_rank_kernel(
         return kSharedTable ? table[q] : __ldg(plan + q);
       });
   *dst = from_float<T>(zen_rank::value_of(key));
+}
+
+// The rank route with steps: a unit is `cols` adjacent columns (1, 2, 4
+// or 8) of a stream and `run` output rows; each column's group of
+// kRankThreads / cols threads sorts its column's keys, and its thread t
+// takes output rows t * lane_run .. t * lane_run + lane_run - 1 of it
+// (run up to kRankThreads / cols * lane_run): the first walked from rank
+// 0, each next stepped from the previous one's rank. Moving from output
+// row i to i + 1 changes the count of relative row d by table[q - 1] -
+// table[q], q = d - i + 31, only at the tap set's change points, the
+// `n_changes` (q, table[q - 1] - table[q]) pairs after the staged rows in
+// `plan` (two a run of taps; a repeated tap is a change of its own).
+// Adjacent columns make a staged row's loads and an output row's stores
+// one stretch of 4 * cols bytes (one column a block touches 4 bytes of
+// each 32-byte sector it reads or writes). Shared memory, for each
+// column: merge_room(n) keys (the keys as staged, then merge_sort's), as
+// many again where merge_spare, and the rank of each relative row (inv, span + run - 1
+// ints, written for the staged rows; a change point's row is always
+// staged, as a tap of row i or of row i + 1); then the unit's medians
+// (res, run * cols floats), written out together at the end, and the
+// table where kSharedTable.
+template <typename T, bool kSharedTable>
+__global__ void __launch_bounds__(kRankThreads, 8) tap_median_time_steps_kernel(
+    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+    int ta, int tb, int f, int start, int t_out, int run,
+    const int* __restrict__ plan, int min_o, int span, int staged, int k,
+    float fill, int lane_run, int n_changes, int cols) {
+  extern __shared__ __align__(16) unsigned long long stage[];
+  const int n = zen_rank::key_count(staged);
+  const int room = zen_rank::merge_room(n);
+  const int len = span + 2 * (kRun - 1);
+  const int reach = span + run - 1;  // relative rows
+  const int* rows = plan + len;
+  const int* changes = rows + staged;
+  const int tid = threadIdx.x;
+  const int shift = __ffs(cols) - 1;  // cols is a power of two
+  const int group = kRankThreads >> shift;
+  const int g = (tid << shift) / kRankThreads;  // this thread's column of the unit
+  const int gid = tid - g * group;
+  // each column's merge_sort buffers: its keys' and, where merge_spare, a second
+  const int rooms = zen_rank::merge_spare(n, group) ? 2 : 1;
+  unsigned long long* keys = stage + rooms * room * g;
+  int* inv = reinterpret_cast<int*>(stage + rooms * room * cols) + reach * g;
+  float* res = reinterpret_cast<float*>(stage + rooms * room * cols) + reach * cols;
+  int* table = reinterpret_cast<int*>(res + run * cols);
+  const int n_runs = (t_out + run - 1) / run;
+  const int col_units = (f + cols - 1) / cols;
+  const long long unit = blockIdx.x;
+  const int col0 = static_cast<int>(unit % col_units) * cols;
+  const long long rest = unit / col_units;
+  const int i0 = static_cast<int>(rest % n_runs) * run;
+  const long long c = rest / n_runs;
+  const int width = min(cols, f - col0);  // the unit's columns inside V
+  if (kSharedTable) {
+    for (int q = tid; q < len; q += kRankThreads) table[q] = plan[q];
+  }
+  const int row0 = start + i0 + min_o;  // the V row of relative row 0
+  // kStageBatch (row, column) pairs a step, columns fastest: their row
+  // numbers, then their taps, in flight
+  for (int e0 = tid; e0 < n * cols; e0 += kStageBatch * kRankThreads) {
+    int d[kStageBatch];
+    float v[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int s = (e0 + u * kRankThreads) >> shift;
+      d[u] = s < staged ? __ldg(rows + s) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kRankThreads;
+      v[u] = tap_pred(a, b, c, ta, tb, f, col0 + min(e & (cols - 1), width - 1), row0 + d[u],
+                      fill);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kRankThreads;
+      const int s = e >> shift;
+      if (s < n) {
+        stage[rooms * room * (e & (cols - 1)) + s] =
+            s < staged ? zen_rank::make_key(v[u], d[u]) : zen_rank::kPadKey;
+      }
+    }
+  }
+  __syncthreads();
+  const int live = min(run, t_out - i0);
+  T* dst = out + (static_cast<size_t>(c) * t_out + i0) * f + col0;
+  // the unit's medians, an output row's columns together
+  const auto write_out = [&]() {
+    for (int e = tid; e < live * cols; e += kRankThreads) {
+      if ((e & (cols - 1)) < width) {
+        dst[static_cast<size_t>(e >> shift) * f + (e & (cols - 1))] = from_float<T>(res[e]);
+      }
+    }
+  };
+  if (ZEN_RANK_CUT == 1) {
+    for (int i = gid; i < live; i += group) res[i * cols + g] = zen_rank::value_of(keys[i]);
+    __syncthreads();
+    write_out();
+    return;
+  }
+  const unsigned long long* sorted =
+      zen_rank::merge_sort(keys, keys + room, n, gid, group);
+  const auto key = [&](int rank) { return sorted[zen_rank::merge_index(rank)]; };
+  if (ZEN_RANK_CUT == 2) {
+    for (int i = gid; i < live; i += group) res[i * cols + g] = zen_rank::value_of(key(i));
+    __syncthreads();
+    write_out();
+    return;
+  }
+  // one scatter: the rank of each staged row
+  for (int s = gid; s < staged; s += group) {
+    inv[zen_rank::position_of(key(s))] = s;
+  }
+  __syncthreads();
+  const int first = gid * lane_run;
+  const int last = min(first + lane_run, live);
+  if (first < last && g < width) {
+    int i = first;
+    // relative row d is tap d - i of output row i, counted table[d - i + 31]
+    // times (0 outside the table)
+    const auto count = [&](unsigned long long kv) {
+      const unsigned int q = zen_rank::position_of(kv) + (kRun - 1) - i;
+      if (q >= static_cast<unsigned int>(len)) return 0;
+      return kSharedTable ? table[q] : __ldg(plan + q);
+    };
+    const int m = (k - 1) / 2;
+    int at = 0, below = 0;
+    res[i * cols + g] =
+        zen_rank::value_of(zen_rank::walk_from_zero(key, m, count, &at, &below));
+    for (++i; i < last; ++i) {
+      for (int e = 0; e < n_changes; ++e) {
+        const int d = __ldg(changes + 2 * e) + i - kRun;  // q + (i - 1) - 31
+        if (inv[d] < at) below += __ldg(changes + 2 * e + 1);
+      }
+      res[i * cols + g] = zen_rank::value_of(zen_rank::step(key, m, count, &at, &below));
+    }
+  }
+  __syncthreads();
+  write_out();
 }
 
 // The select route: one block per unit, as the rank kernel's (one
@@ -432,33 +589,60 @@ int launch_network(const T* a, const T* b, T* out, int c, int ta, int tb,
 // block takes the keys (the wrapper's time_rank_keys reckons the same
 // bytes and picks the run they fit), and the table too where both fit
 // what a block may opt into.
+// lane_run 1: the walk from rank 0 for every output row, run up to kRun,
+// one column a block; lane_run > 1: the steps over `cols` columns a block
+// (1, 2, 4 or 8), run up to kRankThreads / cols * lane_run, each column's
+// key buffers and inverse ranks (span + run - 1 ints), the unit's
+// medians, and `plan` followed by the tap set's n_changes change points
+// (the wrapper's time_rank_changes).
 template <typename T>
 int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
                 int start, int t_out, const int* plan, int min_o, int span,
-                int staged, int run, int k, float fill, void* stream) {
+                int staged, int run, int k, float fill, int lane_run,
+                int n_changes, int cols, void* stream) {
   if (k < 1 || k % 2 == 0 || c <= 0 || f <= 0 || t_out <= 0 || span < 1 ||
-      run < 1 || run > kRun || staged < 1 || staged > kRun - 1 + span) {
+      run < 1 || lane_run < 1 || staged < 1 || staged > run - 1 + span ||
+      (lane_run == 1 ? run > kRun || cols != 1
+                     : (cols != 1 && cols != 2 && cols != 4 && cols != 8) ||
+                           run > kRankThreads / cols * lane_run || n_changes < 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int optin = 0;
   int err = zen_rank::optin_bytes(&optin);
   if (err != 0) return err;
+  // lane_run > 1: for each column merge_sort's buffers and the inverse
+  // ranks, then the unit's medians
+  const int n = zen_rank::key_count(staged);
   const size_t keys =
-      static_cast<size_t>(zen_rank::key_count(staged)) * sizeof(unsigned long long);
+      lane_run == 1
+          ? static_cast<size_t>(n) * sizeof(unsigned long long)
+          : cols * ((zen_rank::merge_spare(n, kRankThreads / cols) ? 2 : 1) *
+                        static_cast<size_t>(zen_rank::merge_room(n)) * sizeof(unsigned long long) +
+                    (static_cast<size_t>(span) + run - 1) * sizeof(int)) +
+                static_cast<size_t>(run) * cols * sizeof(float);
   const size_t table = (static_cast<size_t>(span) + 2 * (kRun - 1)) * sizeof(int);
   const bool shared_table = keys + table <= static_cast<size_t>(optin);
   const size_t smem = keys + (shared_table ? table : 0);
-  const auto kernel = shared_table ? tap_median_time_rank_kernel<T, true>
-                                   : tap_median_time_rank_kernel<T, false>;
-  err = zen_rank::opt_in(reinterpret_cast<const void*>(kernel), smem, optin);
+  const auto walk = shared_table ? tap_median_time_rank_kernel<T, true>
+                                 : tap_median_time_rank_kernel<T, false>;
+  const auto steps = shared_table ? tap_median_time_steps_kernel<T, true>
+                                  : tap_median_time_steps_kernel<T, false>;
+  err = zen_rank::opt_in(lane_run == 1 ? reinterpret_cast<const void*>(walk)
+                                       : reinterpret_cast<const void*>(steps),
+                         smem, optin);
   if (err != 0) return err;
   const int n_runs = (t_out + run - 1) / run;
-  const long long units = static_cast<long long>(c) * n_runs * f;
+  const long long units = static_cast<long long>(c) * n_runs * ((f + cols - 1) / cols);
   if (units > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(units), kRankThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, ta, tb, f, start, t_out, run, plan, min_o, span, staged, k,
-      fill);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lane_run == 1) {
+    walk<<<static_cast<unsigned>(units), kRankThreads, smem, s>>>(
+        a, b, out, ta, tb, f, start, t_out, run, plan, min_o, span, staged, k, fill);
+  } else {
+    steps<<<static_cast<unsigned>(units), kRankThreads, smem, s>>>(
+        a, b, out, ta, tb, f, start, t_out, run, plan, min_o, span, staged, k, fill,
+        lane_run, n_changes, cols);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,17 +705,19 @@ extern "C" int zen_tap_median_time_rank(const float* a, const float* b,
                                         int f, int start, int t_out,
                                         const int* plan, int min_o, int span,
                                         int staged, int run, int k, float fill,
+                                        int lane_run, int n_changes, int cols,
                                         void* stream) {
   return launch_rank(a, b, out, c, ta, tb, f, start, t_out, plan, min_o, span,
-                     staged, run, k, fill, stream);
+                     staged, run, k, fill, lane_run, n_changes, cols, stream);
 }
 
 extern "C" int zen_tap_median_time_rank_bf16(
     const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* out, int c,
     int ta, int tb, int f, int start, int t_out, const int* plan, int min_o,
-    int span, int staged, int run, int k, float fill, void* stream) {
+    int span, int staged, int run, int k, float fill, int lane_run,
+    int n_changes, int cols, void* stream) {
   return launch_rank(a, b, out, c, ta, tb, f, start, t_out, plan, min_o, span,
-                     staged, run, k, fill, stream);
+                     staged, run, k, fill, lane_run, n_changes, cols, stream);
 }
 
 extern "C" int zen_tap_median_time_select(

@@ -2,20 +2,45 @@
 // routes share (csrc/median_time.cu, csrc/median_freq.cu).
 //
 // A block stages the samples its outputs' windows reach, once, as 64-bit
-// keys: the value's order bits above, its staged position below. One
-// bitonic sort of the keys orders the staged samples by (value,
-// position). Each output then walks the ranks upward, counting the
-// positions that fall in its own window (with their multiplicity, where
-// taps repeat), until the count passes (K - 1) / 2: the value at that
-// rank is sorted(window)[(K - 1) / 2], the element rank-by-counting and
-// torch.kthvalue pick. Per output that is ~S/2 reads for S staged
-// samples, plus the sort's O(log^2 S) compare-swaps per sample, against
-// up to K^2 compares for ranking each window by counting.
+// keys: the value's order bits above, its staged position below. One sort
+// of the keys orders the staged samples by (value, position). An output's
+// median is the key at the first rank where the count of positions in
+// its own window (with their multiplicity, where taps repeat) passes
+// (K - 1) / 2: sorted(window)[(K - 1) / 2], the element rank-by-counting
+// and torch.kthvalue pick. Two ways to that rank:
+// * walk (the first design): every output walks the ranks upward
+//   from rank 0, ~S/2 reads for S staged samples, all lanes of a warp on
+//   one rank (a broadcast). The sort is bitonic_sort. A block then has
+//   as many outputs as threads (K2: 32 to 256), since the walk grows with
+//   S: its sort is shared by few outputs.
+// * steps: a thread takes a run of consecutive outputs. The first walks
+//   from rank 0 (K1: walk_from_zero) or, in K2, starts from the middle
+//   rank, its count below read off one scan of the inverse ranks
+//   (prefix_below), and seeks its median (seek): about as many ranks as
+//   its window's median lies from the block's, not S/2; each next starts
+//   from the previous
+//   output's rank, moves the count below it by the samples that left and
+//   entered the window, found at their ranks in an inverse array (one
+//   scatter after the sort), and steps down or up to the rank that holds
+//   its median (step): about S/K ranks, as neighbouring windows differ by
+//   a sample each way. So a block's tile can grow until the sort is paid
+//   by hundreds of outputs, and the sort is merge_sort: runs of 8 sorted
+//   in registers, then passes that merge pairs of runs along their merge
+//   path, in a layout that keeps a warp's lanes on distinct banks.
+// The wrappers' cost rule picks the way and the geometry for each call
+// (ops/median_cuda.py, sort_us): calls of few outputs a block (a single
+// stream's hop-32 and hop-1024 steps) keep the walk, whose blocks finish
+// sooner; calls of many (offline passes, median2d) take the steps.
+// Per output the bitonic sort costs O(log^2 S) compare-swaps a staged
+// sample, merge_sort O(log S) moves; both stay far below the up to K^2
+// compares of ranking each window by counting.
 //
-// Two stores for the keys. The shared store sorts them in shared memory
-// (bitonic_sort), up to the 227 KB a block can opt into: 16,384 keys of
-// 8 bytes, as a power of two. Past that K2's keys live in the block's
-// slice of a device-memory scratch that the wrapper allocates, sized by
+// Two stores for the keys. The shared store sorts them in shared memory,
+// up to the 227 KB a block can opt into: 16,384 keys of 8 bytes, as a
+// power of two (the steps take the inverse and, where a thread merges
+// more than one run, a second buffer, so they stop sooner). Past that
+// K2's keys live in the block's slice of a device-memory scratch that
+// the wrapper allocates, sized by
 // the grid (a persistent grid of at most one block an SM walks the
 // units), and sort_store sorts them: each chunk of kStoreChunk keys in
 // shared memory, the stages' strides from a chunk up as passes over the
@@ -267,6 +292,144 @@ __device__ __forceinline__ void sort_store(unsigned long long* keys, int n,
   }
 }
 
+// keys a thread sorts in registers, then merges a pass, in merge_sort
+constexpr int kMergeRun = 8;
+
+// where merge_sort keeps key r: a key's room of padding after every
+// kMergeRun keys, so that the 32 lanes of a warp, kMergeRun keys apart,
+// reach 32 different banks (a plain stride of 64 bytes reaches 2)
+__host__ __device__ __forceinline__ int merge_index(int r) { return r + r / kMergeRun; }
+
+// the room merge_sort's layout takes for n keys
+__host__ __device__ __forceinline__ int merge_room(int n) { return merge_index(n); }
+
+__device__ __forceinline__ void compare_swap(unsigned long long& a, unsigned long long& b) {
+  const unsigned long long lo = a < b ? a : b;
+  b = a < b ? b : a;
+  a = lo;
+}
+
+// The kMergeRun outputs from e0 on of merging the sorted runs src[base,
+// base + len) and src[base + len, base + 2 len) (base: e0 rounded down to
+// 2 len; src in merge_index's layout), into out: from where the merge path
+// of output e0 crosses the two runs (a binary search) on, one load an
+// output. Equal keys (the padding) come from the first run first; a run's
+// end reads as kPadKey, and where both heads are kPadKey the rest of both
+// runs is padding, equal, so either side gives the same outputs.
+__device__ __forceinline__ void merge_at(const unsigned long long* src, int e0, int len,
+                                         unsigned long long* out) {
+  const int base = e0 & ~(2 * len - 1);
+  const int d = e0 - base;
+  const auto at_a = [&](int i) { return src[merge_index(base + i)]; };
+  const auto at_b = [&](int j) { return src[merge_index(base + len + j)]; };
+  // how many of the pair's first d outputs come from the first run
+  int lo = d > len ? d - len : 0;
+  int hi = d < len ? d : len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (at_a(mid) <= at_b(d - 1 - mid)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int i = lo;
+  int j = d - lo;
+  unsigned long long a = i < len ? at_a(i) : kPadKey;
+  unsigned long long b = j < len ? at_b(j) : kPadKey;
+#pragma unroll
+  for (int u = 0; u < kMergeRun; ++u) {
+    const bool take_a = a <= b;
+    out[u] = take_a ? a : b;
+    i += take_a ? 1 : 0;
+    j += take_a ? 0 : 1;
+    const int next = take_a ? i : j;
+    const unsigned long long loaded =
+        next < len ? src[merge_index(base + (take_a ? 0 : len) + next)] : kPadKey;
+    a = take_a ? loaded : a;
+    b = take_a ? b : loaded;
+  }
+}
+
+// Batcher's odd-even merge network on kMergeRun keys (19 compare-swaps)
+__device__ __forceinline__ void sort_run(unsigned long long* v) {
+#define ZEN_CS(p, q) compare_swap(v[p], v[q])
+  ZEN_CS(0, 1); ZEN_CS(2, 3); ZEN_CS(4, 5); ZEN_CS(6, 7);
+  ZEN_CS(0, 2); ZEN_CS(1, 3); ZEN_CS(4, 6); ZEN_CS(5, 7);
+  ZEN_CS(1, 2); ZEN_CS(5, 6);
+  ZEN_CS(0, 4); ZEN_CS(1, 5); ZEN_CS(2, 6); ZEN_CS(3, 7);
+  ZEN_CS(2, 4); ZEN_CS(3, 5);
+  ZEN_CS(1, 2); ZEN_CS(3, 4); ZEN_CS(5, 6);
+#undef ZEN_CS
+}
+
+// Whether merge_sort needs its second buffer: where the `count` threads
+// take more than one run of kMergeRun keys each, a pass's outputs do not
+// fit their registers
+__host__ __device__ __forceinline__ bool merge_spare(int n, int count) {
+  return count * kMergeRun < n;
+}
+
+// Ascending sort of the n keys staged plainly in keys[0, n) (n a power of
+// two >= 32) by the `count` threads of a block, into merge_sort's layout
+// (merge_index) in a buffer of merge_room(n) keys. A thread takes kMergeRun
+// keys n / kMergeRun apart (consecutive threads read consecutive keys),
+// sorts them in registers (sort_run) and writes them as one run; then
+// log2(n / kMergeRun) passes merge pairs of sorted runs, a thread
+// kMergeRun outputs a pass (merge_at). Where each thread takes at most one
+// run (merge_spare false) its outputs wait in registers for the pass's
+// reads to end and go back to `keys` (two syncs a pass, no second
+// buffer); otherwise a pass writes `spare`, merge_room(n) keys more, and
+// the two buffers swap. The caller syncs before; the last sync ends the
+// sort. Returns the buffer that holds the sorted keys: keys or spare.
+__device__ __forceinline__ unsigned long long* merge_sort(unsigned long long* keys,
+                                                          unsigned long long* spare, int n,
+                                                          int tid, int count) {
+  const int runs = n / kMergeRun;
+  unsigned long long v[kMergeRun];
+  if (!merge_spare(n, count)) {
+    const bool mine = tid < runs;
+    if (mine) {
+#pragma unroll
+      for (int u = 0; u < kMergeRun; ++u) v[u] = keys[tid + u * runs];
+      sort_run(v);
+    }
+    __syncthreads();
+    for (int len = kMergeRun;; len <<= 1) {
+      if (mine) {
+#pragma unroll
+        for (int u = 0; u < kMergeRun; ++u) keys[merge_index(tid * kMergeRun + u)] = v[u];
+      }
+      __syncthreads();
+      if (len >= n) return keys;
+      if (mine) merge_at(keys, tid * kMergeRun, len, v);
+      __syncthreads();
+    }
+  }
+  for (int v0 = tid; v0 < runs; v0 += count) {
+#pragma unroll
+    for (int u = 0; u < kMergeRun; ++u) v[u] = keys[v0 + u * runs];
+    sort_run(v);
+#pragma unroll
+    for (int u = 0; u < kMergeRun; ++u) spare[merge_index(v0 * kMergeRun + u)] = v[u];
+  }
+  __syncthreads();
+  unsigned long long* src = spare;
+  unsigned long long* dst = keys;
+  for (int len = kMergeRun; len < n; len <<= 1) {
+    for (int e0 = tid * kMergeRun; e0 < n; e0 += count * kMergeRun) {
+      merge_at(src, e0, len, v);
+#pragma unroll
+      for (int u = 0; u < kMergeRun; ++u) dst[merge_index(e0 + u)] = v[u];
+    }
+    __syncthreads();
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
 __host__ __device__ __forceinline__ int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p <<= 1;
@@ -307,6 +470,150 @@ __device__ __forceinline__ unsigned long long walk(
     seen += count(keys[rank]);
     if (seen > m) return keys[rank];
   }
+}
+
+// walk() over the sorted keys key(rank) that also leaves where it ended
+// for step(): the rank of the key it returns in *at, and the count of the
+// ranks below it in *below
+template <typename Key, typename Count>
+__device__ __forceinline__ unsigned long long walk_from_zero(Key key, int m, Count count,
+                                                             int* at, int* below) {
+  int rank = 0;
+  int seen = 0;
+  for (;;) {
+    int step = 0;
+#pragma unroll
+    for (int u = 0; u < kWalkChunk; ++u) step += count(key(rank + u));
+    if (seen + step > m) break;
+    seen += step;
+    rank += kWalkChunk;
+  }
+  for (;; ++rank) {
+    const int c = count(key(rank));
+    if (seen + c > m) break;
+    seen += c;
+  }
+  *at = rank;
+  *below = seen;
+  return key(rank);
+}
+
+// The count of staged positions whose rank lies below `pivot`, before each
+// position: prefix[p] for p in 0 .. staged (prefix[staged] the total),
+// from `rank_of` (the inverse ranks) by the `count` threads of a block (a
+// multiple of 32, at most 1024; each takes a stretch of consecutive
+// positions) through `warp_sums` (count / 32 ints). One scan gives every
+// window [j, j + w) its count below the pivot: prefix[j + w] - prefix[j].
+// The caller syncs before; ends synced.
+__device__ __forceinline__ void prefix_below(int* prefix, const int* rank_of, int staged,
+                                             int pivot, int tid, int count, int* warp_sums) {
+  const int per = (staged + count - 1) / count;
+  const int lo = min(tid * per, staged);
+  const int hi = min(lo + per, staged);
+  int mine = 0;
+  for (int p = lo; p < hi; ++p) mine += rank_of[p] < pivot ? 1 : 0;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int x = mine;  // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < count / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < count / 32) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int before = x - mine + (warp > 0 ? warp_sums[warp - 1] : 0);
+  for (int p = lo; p < hi; ++p) {
+    prefix[p] = before;
+    before += rank_of[p] < pivot ? 1 : 0;
+  }
+  if (tid == 0) prefix[staged] = warp_sums[count / 32 - 1];
+  __syncthreads();
+}
+
+// The rank at which the running count of count(key(rank)) passes m, from
+// rank *at with *below counted before it (this output's window): down
+// while the count below passes m, then up; kWalkChunk ranks a step where
+// a whole chunk leaves the answer beyond it, one rank at a time after,
+// so that the reads of a chunk do not wait on each other. Leaves the rank
+// in *at and the count below it in *below (step()'s start), returns the
+// key. An output's first walk starts from the middle rank, its count
+// below from prefix_below: the answer lies about as far from it as the
+// window's median from the block's, not S/2 ranks from rank 0. The
+// answer lies below the padding; a chunk is read only where it ends by
+// the key count n.
+template <typename Key, typename Count>
+__device__ __forceinline__ unsigned long long seek(Key key, int m, Count count, int* at,
+                                                   int* below, int n) {
+  int rank = *at;
+  int seen = *below;
+  while (seen > m && rank >= kWalkChunk) {
+    int chunk = 0;
+#pragma unroll
+    for (int u = 1; u <= kWalkChunk; ++u) chunk += count(key(rank - u));
+    if (seen - chunk <= m) break;
+    seen -= chunk;
+    rank -= kWalkChunk;
+  }
+  while (seen > m) {
+    --rank;
+    seen -= count(key(rank));
+  }
+  while (rank + kWalkChunk <= n) {
+    int chunk = 0;
+#pragma unroll
+    for (int u = 0; u < kWalkChunk; ++u) chunk += count(key(rank + u));
+    if (seen + chunk > m) break;
+    seen += chunk;
+    rank += kWalkChunk;
+  }
+  for (;; ++rank) {
+    const int c = count(key(rank));
+    if (seen + c > m) break;
+    seen += c;
+  }
+  *at = rank;
+  *below = seen;
+  return key(rank);
+}
+
+// The incremental walk: the same key as walk() for the next output of a
+// run, from where the previous output's walk ended. *below holds the
+// count, under this output's window, of the ranks below *at (the caller
+// has moved the previous output's count by the samples that left and
+// entered the window, read at their ranks in the inverse array). Where it
+// passes m the answer lies below: step down until it does not; then step
+// up to the first rank at which it passes m. Neighbouring windows differ
+// by a sample each way, so the answer lies about S/K ranks away for S
+// staged samples, not S/2. Both ends stay inside the staged ranks: the
+// count below rank 0 is 0, and the answer lies below the padding.
+template <typename Key, typename Count>
+__device__ __forceinline__ unsigned long long step(Key key, int m, Count count, int* at,
+                                                   int* below) {
+  int rank = *at;
+  int seen = *below;
+  while (seen > m) {
+    --rank;
+    seen -= count(key(rank));
+  }
+  for (;; ++rank) {
+    const int c = count(key(rank));
+    if (seen + c > m) break;
+    seen += c;
+  }
+  *at = rank;
+  *below = seen;
+  return key(rank);
 }
 
 }  // namespace zen_rank

@@ -48,15 +48,17 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # a, b, out, c, ta, tb, f, start, t_out, plan (device), min_o, span, staged, run, k,
-# fill, stream
-_TIME_RANK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
-               ctypes.c_float, _P], _I)
-# the same, with the select block's threads, `unit` and `shared_bins` before the stream
-_TIME_SELECT = (_TIME_RANK[0][:-1] + [_I, _I, _I, _P], _I)
+# fill: the arguments K1's rank and select routes share
+_TIME_PLAN = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, ctypes.c_float]
+# the rank route: the lane run, the tap set's change points and the columns a
+# block before the stream
+_TIME_RANK = (_TIME_PLAN + [_I, _I, _I, _P], _I)
+# the select route: the block's threads, `unit` and `shared_bins` before the stream
+_TIME_SELECT = (_TIME_PLAN + [_I, _I, _I, _P], _I)
 # x, out, rows, f_in, f_out, k, mode, stream
 _FREQ = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
-# the same, with the tile before the stream
-_FREQ_RANK = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
+# the same, with the tile, the run and the threads before the stream
+_FREQ_RANK = ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)
 # the same, with the key store in place of the tile
 _FREQ_RANK_STORE = ([_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P], _I)
 # the same, with the select route's tile, threads and shared_bins in place of the tile

@@ -30,8 +30,9 @@ to REGISTER_TAPS (63) taps and K2's ``network`` route up to
 FREQ_NETWORK_MAX_TAPS (31). Large K takes one of two routes, weighed on
 the call's geometry (``time_rank_pick``, ``freq_rank_pick``): ``rank``,
 "rank once, select many" (``csrc/rank_select.cuh``: a block sorts its
-staged samples once and each output walks the ranks), where a block's
-outputs share the sort; ``select`` (``csrc/radix_select.cuh``: a radix
+staged samples once, and each output walks the ranks from rank 0 or, a
+thread taking a run of outputs, steps from the previous output's rank),
+where a block's outputs share the sort; ``select`` (``csrc/radix_select.cuh``: a radix
 select an output, nothing sorted), where the outputs are too few to share
 one, and for K1 wherever one row's keys pass shared memory. K1's routes
 take every tap set past REGISTER_TAPS at any span (``time_route``), K2's
@@ -42,12 +43,16 @@ tap lies in them (``time_network_plan``, ``time_network_run``;
 ``time_fill_run``, the run of the thread mapping alone), K1's rank plan
 (the multiplicity table ``time_rank_table``, the staged rows
 ``time_rank_rows``, the run ``time_rank_run``, its keys' bytes
-``time_rank_keys`` and the call's plan ``time_rank_plan``), the select
-route's geometry (``time_select_plan``, ``freq_select_plan``), the cost
-rule between the two (``time_rank_pick``, ``freq_rank_pick``), K2's tile
-(``freq_rank_tile``), where its sort's keys live (``shared`` in its
-shared memory where they fit, else ``scratch``: ``freq_rank_store``) and
-the scratch's geometry (``rank_store_args``).
+``time_rank_keys``, the call's plan ``time_rank_plan``, the change
+points of the steps ``time_rank_changes`` and the geometry
+``time_rank_geometry``: rows, lane run and adjacent columns a block),
+the select route's geometry (``time_select_plan``, ``freq_select_plan``),
+the cost rule between the two (``time_rank_pick``, ``freq_rank_pick``,
+pricing each rank geometry by ``sort_us``), K2's rank geometry
+(``freq_rank_plan``: tile, run and threads; ``freq_rank_tile``, the
+walk's own tile, which the copy mirror stages), where its sort's keys
+live (``shared`` in its shared memory where they fit, else ``scratch``:
+``freq_rank_store``) and the scratch's geometry (``rank_store_args``).
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ from .select_network import TIME_MAX_TAPS as REGISTER_TAPS
 # Shared memory a block can opt into on Hopper (227 KB).
 SMEM_OPTIN = 232_448
 KEY_BYTES = 8  # a (value, position) key of the rank routes
+MERGE_RUN = 8  # keys a thread sorts in registers in the steps' merge sort (kMergeRun)
 # K2's key store past shared memory (csrc/rank_select.cuh): a block whose
 # keys do not fit SMEM_OPTIN sorts them in its slice of a device-memory
 # scratch, RANK_STORE_CHUNK keys (128 KB) at a time in shared memory, so
@@ -114,12 +120,17 @@ SELECT_SHARED_BINS_THREADS = 1024
 # SELECT_PASSES passes of SELECT_PASS_US (plus SELECT_PASS_THREAD_US a
 # thread: the bins' sums and the barrier) and SELECT_SAMPLE_US a staged
 # sample a thread. A sort block: SORT_SWAP_US a compare-swap a thread (n/2
-# log2 n (log2 n + 1)/2 over its n keys) and SORT_WALK_US a rank of the
-# walk (S/2 of S staged), in shared memory; STORE_SWAP_US and
-# STORE_WALK_US on K2's store. Fitted to chip_smoke.py phase 3's select
-# lines on an H100 (PERF.md): the one-wave rows' times, where a
-# block runs alone on its SM; many-wave rows share an SM's issue, which
-# the rule does not price (there the sort's shared work wins by 10-100x).
+# log2 n (log2 n + 1)/2 over its n keys) where each output walks from rank
+# 0, SORT_MERGE_US a key a merge pass a thread where the steps merge-sort,
+# SORT_WALK_US a rank of the walk (S/2 of S staged) and SORT_STEP_US a
+# step of each next output of a run, in shared memory; STORE_SWAP_US and
+# STORE_WALK_US on K2's store. Blocks share an SM up to SM_BLOCKS and its
+# threads and shared memory, and past SM_FULL_RATE_THREADS threads at once
+# they share its issue. The select constants are fitted to chip_smoke.py
+# phase 3's select lines on an H100 (PERF.md: the one-wave rows' times,
+# where a block runs alone on its SM), the sort's to
+# benches/rank_geometry.py's sweeps of every rank geometry of the paths'
+# rows (least squares on the log times).
 H100_SMS = 132
 SM_SHARED_BYTES = 233_472  # an SM's shared memory; a block reserves 1 KB more
 LAUNCH_US = 5.0
@@ -127,8 +138,12 @@ SELECT_STAGE_US = 0.1
 SELECT_PASS_US = 0.7
 SELECT_PASS_THREAD_US = 8e-4
 SELECT_SAMPLE_US = 0.12
-SORT_SWAP_US = 0.03
-SORT_WALK_US = 0.025
+SORT_SWAP_US = 0.05
+SORT_WALK_US = 0.036
+SORT_STEP_US = 0.2
+SORT_MERGE_US = 0.13
+SM_FULL_RATE_THREADS = 768
+SM_BLOCKS = 32
 STORE_SWAP_US = 0.19
 STORE_WALK_US = 0.02
 # K1's network kernel (K <= REGISTER_TAPS): a thread takes one column and
@@ -147,16 +162,22 @@ TIME_NETWORK_THREADS = 128
 TIME_NETWORK_MIN_BLOCKS = 4 * 132
 assert REGISTER_TAPS <= TIME_NETWORK_MAX_STAGED  # a run of one row always fits
 assert TIME_NETWORK_MAX_STAGED * TIME_NETWORK_THREADS * 4 <= SMEM_OPTIN
-# K1's rank route: most output rows per block, one per lane of its first
-# warp; its table pads each side with TIME_RANK_RUN - 1 zeros.
+# K1's rank route: most output rows per block where each walks from rank
+# 0, one per lane of its first warp; its table pads each side with
+# TIME_RANK_RUN - 1 zeros. With steps a block takes TIME_RANK_COLUMNS
+# adjacent columns, and in each column up to TIME_RANK_WALKERS threads a
+# lane run of consecutive output rows (RANK_LANE_RUNS).
 TIME_RANK_RUN = 32
 TIME_RANK_THREADS = 128  # threads of a rank block (kRankThreads)
+TIME_RANK_WALKERS = (16, 32, 64, 128)
+TIME_RANK_COLUMNS = (1, 2, 4, 8)  # adjacent columns a block with steps
+RANK_LANE_RUNS = (1,) + tuple(range(3, 32, 2))  # odd: a run's inverse reads miss no bank
 # K2 selects with its network below this many taps and sorts its segment
 # once per block from here on: the crossover of chip_smoke.py's phase-3
 # sweep on an H100 (the network was faster at every K it takes, on both
 # row shapes of the sweep, so the rank route starts right above it).
 FREQ_RANK_MIN_TAPS = FREQ_NETWORK_MAX_TAPS + 2
-FREQ_RANK_TILES = (32, 64, 128, 256)
+FREQ_RANK_TILES = (32, 64, 128, 256)  # outputs (and threads) a block where each walks from 0
 FREQ_NETWORK_CHUNK = 1024  # most outputs of a block of K2's network route
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
 _PLAIN_BOUNDARY = {"reflect": "reflect", "wrap": "wrap", "edge": "clamp"}
@@ -170,6 +191,18 @@ def _key_count(staged: int) -> int:
     """rank_select.cuh's key_count: the keys a rank block sorts for
     ``staged`` samples, a power of two of at least one warp's 32."""
     return max(32, _pow2_at_least(staged))
+
+
+def _merge_room(key_bytes: int) -> int:
+    """rank_select.cuh's merge_room in bytes: a key's room of padding
+    after every MERGE_RUN keys."""
+    return key_bytes + key_bytes // MERGE_RUN
+
+
+def _merge_rooms(n: int, threads: int) -> int:
+    """merge_sort's buffers for ``n`` keys and ``threads`` threads: one,
+    and a second where a thread merges more than one run (merge_spare)."""
+    return 2 if threads * MERGE_RUN < n else 1
 
 
 def _check_k(k: int, limit: int, bound: str) -> None:
@@ -396,6 +429,70 @@ def time_rank_plan(offsets: tuple, start: int, t_v: int, run: int | None = None)
     return offsets, run, time_rank_keys(offsets, run) <= SMEM_OPTIN
 
 
+@functools.lru_cache(maxsize=32)
+def time_rank_changes(offsets: tuple) -> tuple:
+    """The change points of K1's table (``time_rank_table``) for the
+    rank route's steps, flattened (q, table[q - 1] - table[q]) pairs for
+    each q where the two differ: moving from output row i to i + 1 moves
+    the count of relative row q + i - 31 by that much and no other. Two a
+    run of taps (hop 32's two runs: four); a repeated tap adds its own."""
+    table = time_rank_table(offsets)[2]
+    return tuple(v for q in range(1, len(table)) if table[q] != table[q - 1]
+                 for v in (q, table[q - 1] - table[q]))
+
+
+def time_rank_bytes(offsets: tuple, run: int, lane_run: int, cols: int = 1) -> int:
+    """Shared memory a block of K1's rank route needs for ``run`` output
+    rows, as launch_rank reckons it: the keys (``time_rank_keys``) or,
+    with steps (``lane_run`` > 1) over ``cols`` columns, for each column
+    merge_sort's buffers (``_merge_room``, ``_merge_rooms``) and the rank
+    of each relative row (span + run - 1 ints), then the unit's run x
+    cols medians; the table goes beside them where it also fits."""
+    keys = time_rank_keys(offsets, run)
+    if lane_run == 1:
+        return keys
+    rooms = _merge_rooms(keys // KEY_BYTES, TIME_RANK_THREADS // cols)
+    column = rooms * _merge_room(keys) + 4 * (time_rank_table(offsets)[1] + run - 1)
+    return cols * column + 4 * run * cols
+
+
+@functools.lru_cache(maxsize=64)
+def time_rank_geometry(offsets: tuple, start: int, t_v: int, streams: int, f: int,
+                       sms: int = H100_SMS) -> tuple:
+    """(run, lane_run, cols) of K1's rank route for a call
+    (``time_select_plan``'s arguments): of the walk from rank 0 for every
+    output row (``time_rank_plan``'s run, lane run 1, one column a block)
+    and the steps (TIME_RANK_COLUMNS adjacent columns a block, each with
+    TIME_RANK_THREADS / cols threads, of which up to TIME_RANK_WALKERS
+    take a lane run of RANK_LANE_RUNS rows, at most the call's output
+    rows, where ``time_rank_bytes`` fits SMEM_OPTIN), the one ``sort_us``
+    prices lowest."""
+    planned, run, fits = time_rank_plan(offsets, start, t_v)
+    return min(_time_rank_geometries(planned, t_v - start, run, streams, f, sms))[1:]
+
+
+def _time_rank_geometries(planned: tuple, t_out: int, run1: int, streams: int, f: int,
+                          sms: int) -> list:
+    """[(µs, run, lane_run, cols)] of K1's rank geometries for a call
+    (``time_rank_geometry``)."""
+    k = len(planned)
+    changes = len(time_rank_changes(planned)) // 2
+    shapes = {(run1, 1, 1)} | {
+        (min(t_out, walkers * lane_run), lane_run, cols)
+        for cols in TIME_RANK_COLUMNS for walkers in TIME_RANK_WALKERS
+        for lane_run in RANK_LANE_RUNS[1:] if walkers * cols <= TIME_RANK_THREADS}
+    out = []
+    for run, lane_run, cols in sorted(shapes):
+        smem = time_rank_bytes(planned, run, lane_run, cols)
+        if lane_run > 1 and (lane_run >= run or cols > f or smem > SMEM_OPTIN):
+            continue
+        staged = time_rank_staged(planned, run)
+        out.append((sort_us(streams * -(-t_out // run) * -(-f // cols), staged,
+                            TIME_RANK_THREADS // cols, smem, sms, run=lane_run,
+                            step=staged / k + 1 + changes, width=cols), run, lane_run, cols))
+    return out
+
+
 def select_shared_bins(threads: int) -> bool:
     """Whether a select block of ``threads`` keeps its threads' bins in
     shared memory (where they fit: ``select_layout``) rather than in
@@ -470,21 +567,32 @@ def select_us(units: int, outputs: int, staged: int, threads: int, sms: int) -> 
 
 
 def sort_us(units: int, staged: int, threads: int, smem: int, sms: int,
-            store: bool = False) -> float:
+            store: bool = False, run: int = 1, step: float = 0.0, width: int = 1) -> float:
     """The cost rule's µs for a rank-route launch of ``units`` blocks of
     ``threads``, each sorting the keys of ``staged`` samples (``smem``
-    bytes of shared memory) once and walking ~staged/2 ranks an output,
-    in parallel; ``store``: K2's key store, one block of
-    RANK_STORE_THREADS an SM."""
+    bytes of shared memory) once and walking ~staged/2 ranks from rank 0,
+    then, where a thread takes a ``run`` of outputs, ``step`` steps for
+    each next one (``width`` such sorts a block, side by side: K1's
+    adjacent columns, ``threads`` each); ``store``: K2's key store, one block of
+    RANK_STORE_THREADS an SM. Blocks share an SM as far as its threads,
+    SM_BLOCKS and shared memory allow, and past SM_FULL_RATE_THREADS threads
+    running at once they share its issue."""
     n = _key_count(staged)
     lg = n.bit_length() - 1
     swaps = n // 2 * lg * (lg + 1) // 2
     if store:
         block = STORE_SWAP_US * swaps / RANK_STORE_THREADS + STORE_WALK_US * staged / 2
         return LAUNCH_US + _waves(units, sms, 1) * block
-    per_sm = min(2048 // threads, SM_SHARED_BYTES // (smem + 1024))
-    block = SORT_SWAP_US * swaps / threads + SORT_WALK_US * staged / 2
-    return LAUNCH_US + _waves(units, sms, per_sm) * block
+    threads *= width
+    per_sm = min(2048 // threads, SM_BLOCKS, SM_SHARED_BYTES // (smem + 1024))
+    # the steps sort by merging (merge_sort): a pass over the keys for each
+    # doubling from MERGE_RUN, and one for the runs sorted in registers
+    sort = (SORT_MERGE_US * n * (lg - MERGE_RUN.bit_length() + 2) if run > 1
+            else SORT_SWAP_US * swaps)
+    block = sort * width / threads + SORT_WALK_US * staged / 2 + SORT_STEP_US * (run - 1) * step
+    together = min(per_sm, -(-units // sms))
+    return LAUNCH_US + _waves(units, sms, per_sm) * block * max(
+        1.0, together * threads / SM_FULL_RATE_THREADS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -495,8 +603,7 @@ def time_route_costs(offsets: tuple, start: int, t_v: int, streams: int, f: int,
     arguments); None where a rank block's keys do not fit."""
     planned, run, fits = time_rank_plan(offsets, start, t_v)
     t_out = t_v - start
-    sort = sort_us(streams * -(-t_out // run) * f, time_rank_staged(planned, run),
-                   TIME_RANK_THREADS, time_rank_keys(planned, run), sms) if fits else None
+    sort = min(_time_rank_geometries(planned, t_out, run, streams, f, sms))[0] if fits else None
     _, srun, staged, threads = time_select_plan(offsets, start, t_v, streams, f, sms)
     return sort, select_us(streams * -(-t_out // srun) * f, srun, staged, threads, sms)
 
@@ -587,37 +694,50 @@ tap_median_time.routes = dict.fromkeys(("register", "rank", "select"), 0)
 
 
 def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0,
-                 run: int | None = None, shared_bins: bool | None = None):
+                 run: int | None = None, shared_bins: bool | None = None,
+                 lane_run: int | None = None, cols: int | None = None):
     """K1's ``route`` kernel on checked CUDA operands; counts nothing
     (chip_smoke also calls it to time the network kernel at each ``run``,
-    the rank and select routes side by side, and the rank route of a
-    ``cut`` build, ``_build.library``). ``run`` defaults to the wrapper's
-    (``time_network_run``, ``time_rank_run``, ``time_select_plan``), and
+    the rank and select routes side by side, the rank route at each
+    geometry, and the rank route of a ``cut`` build, ``_build.library``).
+    ``run`` defaults to the wrapper's (``time_network_run``,
+    ``time_rank_geometry``, ``time_select_plan``), the rank route's
+    ``lane_run`` and ``cols`` to 1 where ``run`` is given, and
     ``shared_bins`` the select route's ``select_shared_bins``. The rank
     route raises where a block's keys do not fit shared memory."""
     offsets = _int_offsets(tuple(offsets))
     args = _time_args(offsets, start, a.shape[-2], b.shape[-2], math.prod(a.shape[:-2]),
-                      a.shape[-1], route, a.device, run, shared_bins)
+                      a.shape[-1], route, a.device, run, shared_bins, lane_run, cols)
     return _time_run(a, b, start, fill, route, args, len(offsets), cut)
 
 
 def _time_args(offsets: tuple, start: int, ta: int, tb: int, streams: int, f: int,
                route: str, device: torch.device, run: int | None = None,
-               shared_bins: bool | None = None) -> tuple:
+               shared_bins: bool | None = None, lane_run: int | None = None,
+               cols: int | None = None) -> tuple:
     """(C entry name, the taps' arguments, the trailing arguments) of K1's
-    ``route`` for a call (``_time_launch``'s ``run`` and ``shared_bins``);
-    a plan buffer stays a tensor, so that a memoized call keeps it alive."""
+    ``route`` for a call (``_time_launch``'s ``run``, ``lane_run``,
+    ``cols`` and ``shared_bins``); a plan buffer stays a tensor, so that a
+    memoized call keeps it alive."""
     t_out = ta + tb - start
     if route == "register":
         return ("zen_tap_median_time_network",
                 _network_args(offsets, run or time_network_run(t_out, streams, f, offsets)), ())
     if route == "rank":
-        planned, run, fits = time_rank_plan(offsets, start, ta + tb, run)
+        planned, run1, fits = time_rank_plan(offsets, start, ta + tb)
         if not fits:
             raise ZenError(f"tap_median_time: K={len(offsets)}'s rank keys pass a block's "
                            "shared memory (the select route takes this call)")
+        if run is None:
+            run, lane_run, cols = time_rank_geometry(offsets, start, ta + tb, streams, f,
+                                                     _sm_count(device))
+        lane_run, cols = lane_run or 1, cols or 1
+        run = max(1, min(t_out, run))
+        if time_rank_bytes(planned, run, lane_run, cols) > SMEM_OPTIN:
+            raise ZenError(f"tap_median_time: a rank block of {run} rows passes shared memory")
         plan, lo, span, staged = _rank_args(planned, run, device)
-        return "zen_tap_median_time_rank", (plan, lo, span, staged, run), ()
+        return ("zen_tap_median_time_rank", (plan, lo, span, staged, run),
+                (lane_run, len(time_rank_changes(planned)) // 2, cols))
     if route == "select":
         planned, srun, staged, threads = time_select_plan(
             offsets, start, ta + tb, streams, f, _sm_count(device))
@@ -673,13 +793,16 @@ def _in_dtype(v: float, dtype: torch.dtype) -> float:
 def _rank_args(offsets: tuple, run: int, device: torch.device) -> tuple:
     """(plan, min offset, span, staged rows) of K1's rank or select route
     for planned offsets (``time_rank_offsets``) and a run, once per call
-    shape: ``plan`` is the table (``time_rank_table``) and the staged rows
-    (``time_rank_rows``) as one int32 buffer on ``device``. A wide tap set
+    shape: ``plan`` is the table (``time_rank_table``), the staged rows
+    (``time_rank_rows``) and the change points (``time_rank_changes``) as
+    one int32 buffer on ``device``. A wide tap set
     costs a hash of its offsets a lookup, not a rebuilt plan."""
     lo, span, table = time_rank_table(offsets)
     rows = time_rank_rows(offsets, run)
-    # the table and the staged rows as one int32 buffer, uploaded once
-    plan = torch.tensor(table + rows, dtype=torch.int32, device=device)
+    # the table, the staged rows and the change points as one int32
+    # buffer, uploaded once
+    plan = torch.tensor(table + rows + time_rank_changes(offsets), dtype=torch.int32,
+                        device=device)
     return plan, lo, span, len(rows)
 
 
@@ -699,14 +822,15 @@ def sliding_median_boundary_plain(
 
 @functools.lru_cache(maxsize=64)
 def freq_rank_tile(k: int):
-    """K2's rank-route tile for width ``k``: of FREQ_RANK_TILES, the one
-    whose cost per output is least, the walk (~S/2 ranks, S = tile + k -
-    1 staged samples) plus the bitonic sort over the next power of two
-    n (n/2 compare-swaps in each of log2(n)(log2(n)+1)/2 stages, shared
-    by the tile's outputs, each weighed as two walk steps), among the
-    tiles whose n keys fit SMEM_OPTIN; None when none fits. chip_smoke's
-    phase 3 times every tile at the paths' K (13, 47, 187, 257): on an
-    H100 the model's tile was the fastest there, or tied with it."""
+    """The walk's tile for width ``k`` (the rank route's first design): of
+    FREQ_RANK_TILES, the one whose cost per output is least, the walk
+    (~S/2 ranks, S = tile + k - 1 staged samples) plus the bitonic sort
+    over the next power of two n (n/2 compare-swaps in each of
+    log2(n)(log2(n)+1)/2 stages, shared by the tile's outputs, each
+    weighed as two walk steps), among the tiles whose n keys fit
+    SMEM_OPTIN; None when none fits, which sends K to the key store
+    (``freq_rank_store``). The copy mirror segment_copy stages at this
+    tile; a call's own geometry is ``freq_rank_plan``'s."""
     best = None
     for tile in FREQ_RANK_TILES:
         seg = tile + k - 1
@@ -718,6 +842,76 @@ def freq_rank_tile(k: int):
         if best is None or cost < best[0]:
             best = (cost, tile)
     return None if best is None else best[1]
+
+
+def freq_rank_bytes(k: int, tile: int, run: int) -> int:
+    """Shared memory a block of K2's rank route takes for ``tile`` outputs
+    of width ``k``, as launch_rank reckons it: the keys or, with steps
+    (``run`` > 1), merge_sort's buffers (``_merge_room``, ``_merge_rooms``),
+    the rank of each staged position, the tile's medians, the count below
+    the middle rank before each position and the scan's 32 warp sums, 4
+    bytes each."""
+    seg = tile + k - 1
+    n = _key_count(seg)
+    if run == 1:
+        return KEY_BYTES * n
+    return (_merge_rooms(n, freq_steps_threads(n)) * _merge_room(KEY_BYTES * n)
+            + 4 * (seg + tile + seg + 1 + 32))
+
+
+def freq_steps_threads(n: int) -> int:
+    """Threads of a K2 block with steps over ``n`` keys: one for each
+    MERGE_RUN keys (merge_sort's runs), from 32 to 256."""
+    return min(256, max(32, n // MERGE_RUN))
+
+
+@functools.lru_cache(maxsize=64)
+def freq_rank_plan(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS):
+    """(tile, run, threads) of K2's rank route in shared memory for
+    ``rows`` rows of ``f_in`` samples: of the walk from rank 0 for every
+    output (run 1, a thread an output, ``freq_rank_tile``'s tile) and the
+    steps (for each key count n, ``freq_steps_threads(n)`` threads stage
+    and sort, and up to as many walk a run of RANK_LANE_RUNS outputs each,
+    as many as n - k + 1 staged outputs allow), among those whose
+    ``freq_rank_bytes`` fit SMEM_OPTIN and whose tiles number at most
+    65,535 a row, the one ``sort_us`` prices lowest; None where none fits
+    (the key store's K)."""
+    best = _freq_rank_plans(k, rows, f_in, mode, sms)
+    return min(best)[1:] if best else None
+
+
+def _freq_rank_geometries(k: int) -> list:
+    """[(tile, run, threads)] of K2's rank route at width ``k`` whose
+    ``freq_rank_bytes`` fit SMEM_OPTIN (``freq_rank_plan``)."""
+    walk = freq_rank_tile(k)
+    out = [(walk, 1, walk)] if walk else []
+    n = _pow2_at_least(k + 31)
+    while n - k + 1 >= 32:
+        threads = freq_steps_threads(n)
+        for run in RANK_LANE_RUNS[1:]:
+            tile = min(threads, (n - k + 1) // run) * run
+            if (tile and _key_count(tile + k - 1) == n
+                    and freq_rank_bytes(k, tile, run) <= SMEM_OPTIN):
+                out.append((tile, run, threads))
+        n *= 2
+        if KEY_BYTES * n > SMEM_OPTIN:
+            break
+    return out
+
+
+def _freq_rank_plans(k: int, rows: int, f_in: int, mode: str, sms: int) -> list:
+    """[(µs, tile, run, threads)] of K2's rank geometries for a call
+    (``freq_rank_plan``)."""
+    f_out = _freq_out(k, f_in, mode)
+    out = []
+    for tile, run, threads in _freq_rank_geometries(k):
+        if -(-f_out // tile) > 65_535:
+            continue
+        seg = min(tile, f_out) + k - 1
+        out.append((sort_us(rows * -(-f_out // tile), seg, threads,
+                            freq_rank_bytes(k, tile, run), sms, run=run,
+                            step=seg / k + 1), tile, run, threads))
+    return out
 
 
 def freq_network_chunk(f_out: int) -> int:
@@ -778,11 +972,9 @@ def freq_route_costs(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SM
     f_out = _freq_out(k, f_in, mode)
     tile, staged, threads = freq_select_plan(k, rows, f_in, mode, sms)
     pick = select_us(rows * -(-f_out // tile), min(tile, f_out), staged, threads, sms)
-    sort_tile = freq_rank_tile(k)
-    if sort_tile:
-        seg = sort_tile + k - 1
-        sort = sort_us(rows * -(-f_out // sort_tile), seg, sort_tile,
-                       KEY_BYTES * _key_count(seg), sms)
+    plans = _freq_rank_plans(k, rows, f_in, mode, sms)
+    if plans:
+        sort = min(plans)[0]
     else:
         sort = sort_us(rows * -(-f_out // RANK_STORE_THREADS),
                        min(RANK_STORE_THREADS, f_out) + k - 1, RANK_STORE_THREADS,
@@ -842,14 +1034,18 @@ sliding_median_boundary.stores = dict.fromkeys(("shared", "scratch"), 0)
 
 def _freq_launch(
     x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0,
-    chunk: int | None = None, shared_bins: bool | None = None,
+    chunk: int | None = None, shared_bins: bool | None = None, run: int | None = None,
+    threads: int | None = None,
 ) -> torch.Tensor:
     """K2's ``route`` kernel on a checked CUDA operand; counts nothing
     (chip_smoke's sweeps also call it, for every route that takes ``k``,
-    each rank ``tile``, the select route's outputs a block (``tile``;
-    default ``freq_select_plan``'s) and bins (``shared_bins``; default
-    ``select_shared_bins``), and the rank route of a ``cut`` build,
-    ``_build.library``). ``chunk`` runs the rank route on the key store
+    each rank ``tile``, ``run`` and ``threads`` (outputs a block and a
+    walking thread, threads a block; default ``freq_rank_plan``'s, run 1
+    where only ``tile`` is given, ``freq_steps_threads`` where ``threads``
+    is not), the select
+    route's outputs a block (``tile``; default ``freq_select_plan``'s) and
+    bins (``shared_bins``; default ``select_shared_bins``), and the rank
+    route of a ``cut`` build, ``_build.library``). ``chunk`` runs the rank route on the key store
     with that many keys sorted in shared memory at once, whatever K (the
     card tests drive its passes over device memory at small K so); by
     default the store takes the K ``freq_rank_store`` sends it,
@@ -860,14 +1056,21 @@ def _freq_launch(
     if out.numel() == 0:
         return out
     rows = math.prod(x.shape[:-1])
-    if route == "rank" and (chunk or not (tile or freq_rank_tile(k))):
+    threads = None
+    if route == "rank" and not (chunk or tile):
+        plan = freq_rank_plan(k, rows, f_in, mode, _sm_count(x.device))
+        tile, run, threads = plan if plan else (None, None, None)
+    if route == "rank" and (chunk or not tile):
         units = rows * -(-f_out // RANK_STORE_THREADS)
         scratch, blocks, keys = rank_store_args(units, min(RANK_STORE_THREADS, f_out) + k - 1,
                                                 x.device)
         name = "zen_sliding_median_rank_store"
         extra = (scratch.data_ptr(), blocks, keys, chunk or RANK_STORE_CHUNK)
     elif route == "rank":
-        name, extra = "zen_sliding_median_rank", (tile or freq_rank_tile(k),)
+        run = run or 1
+        if threads is None:
+            threads = tile if run == 1 else freq_steps_threads(_key_count(tile + k - 1))
+        name, extra = "zen_sliding_median_rank", (tile, run, threads)
     elif route == "select":
         pick, staged, threads = freq_select_plan(k, rows, f_in, mode, _sm_count(x.device))
         if tile:
