@@ -205,6 +205,7 @@ SWEEP_SHAPES = ((32, 2049), (2048, 513))
 ROUTES = {"tap_median_time": ("register", "rank", "select"),
           "sliding_median_boundary": ("network", "rank", "select")}
 SCRATCH = "rank@scratch"  # K2's rank launches whose keys live in the key store
+STEPS = "rank@steps"  # rank launches that took the steps kernel (a thread a run of outputs)
 SLOW_US = 100_000.0  # a phase-3 call past this is timed 3 times, not TIMED_RUNS
 # phase 3's select lines force a route through _time_launch, whose plan
 # lookups hash a wide tap set's offsets on the host (~0.5 ms at 25,601
@@ -465,22 +466,60 @@ def freq_library(x, k, mode):
     return "unfold view", lambda: torch.kthvalue(windows, k // 2 + 1, dim=-1)
 
 
-def time_label(a, b, offsets, start) -> str:
-    """The route tap_median_time launches for a call (time_call_route)."""
+def time_call_label(offsets, start: int, t_v: int, streams: int, f: int, sms: int) -> str:
+    """The route tap_median_time launches for a call (time_call_route),
+    STEPS where its rank route takes the steps kernel."""
     from zen_tpu_torch.ops import median_cuda as mc
 
-    return mc.time_call_route(tuple(offsets), start, a.shape[-2] + b.shape[-2],
-                              math.prod(a.shape[:-2]), a.shape[-1], mc._sm_count(a.device))
+    offsets = tuple(offsets)
+    route = mc.time_call_route(offsets, start, t_v, streams, f, sms)
+    if route == "rank" and mc.time_rank_geometry(offsets, start, t_v, streams, f, sms)[1] > 1:
+        return STEPS
+    return route
+
+
+def time_label(a, b, offsets, start) -> str:
+    """time_call_label of a call on a and b."""
+    return time_call_label(offsets, start, a.shape[-2] + b.shape[-2], math.prod(a.shape[:-2]),
+                           a.shape[-1], sm_count(a.device))
+
+
+def freq_call_label(k: int, rows: int, f_in: int, mode: str, sms: int) -> str:
+    """The route sliding_median_boundary launches for a call
+    (freq_call_route), SCRATCH where its sort's keys take the key store,
+    STEPS where it takes the steps kernel."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    route = mc.freq_call_route(k, rows, f_in, mode, sms)
+    if route != "rank":
+        return route
+    plan = mc.freq_rank_plan(k, rows, f_in, mode, sms)
+    return SCRATCH if plan is None else STEPS if plan[1] > 1 else route
 
 
 def freq_label(x, k: int, mode: str) -> str:
-    """The route sliding_median_boundary launches for a call
-    (freq_call_route), SCRATCH where its sort's keys take the key store."""
+    """freq_call_label of a call on x."""
+    return freq_call_label(k, x.numel() // x.shape[-1], x.shape[-1], mode, sm_count(x.device))
+
+
+def sm_count(device) -> int:
     from zen_tpu_torch.ops import median_cuda as mc
 
-    route = mc.freq_call_route(k, x.numel() // x.shape[-1], x.shape[-1], mode,
-                               mc._sm_count(x.device))
-    return SCRATCH if route == "rank" and mc.freq_rank_store(k) == "scratch" else route
+    return mc._sm_count(device)
+
+
+def by_route(counts: dict) -> dict:
+    """``counts`` without the STEPS keys: what a count from the configs
+    and shapes alone holds (which rank calls take the steps kernel
+    depends on each call's rows; phases 3, 7, 8 and 31 check those)."""
+    return {k: v for k, v in counts.items() if not k.endswith(STEPS)}
+
+
+def launch_keys(key: str) -> tuple:
+    """The read_launches() keys one launch labelled ``key`` adds to: a
+    SCRATCH or STEPS launch counts on its kernel's rank route too."""
+    name, route = key.split("/")
+    return (key, f"{name}/rank") if "@" in route else (key,)
 
 
 def kernel_cases():
@@ -736,6 +775,8 @@ def phase_kernels() -> dict:
     feats2 = _mags(rng, 1, TRACK_FRAMES_P, 513)
     feats1 = _mags(rng, TRACK_FRAMES_H, 8193)
     centered = tuple(range(-5, 6))
+    # median2d's time filter at fl 93 on the pass-2 frames (phase 31), 'valid'
+    feats93, causal93 = _mags(rng, 1, TRACK_FRAMES_P + 92, 513), tuple(range(-92, 1))
     for name, tpu, label, fn, plain, library, (b_us, b_by), route in (
         ("tap_median_time", "#3", f"track pass 2 T={TRACK_FRAMES_P} F=513 K=11",
          lambda: mc.tap_median_time(feats2, feats2[:, :0], centered, 0),
@@ -748,6 +789,12 @@ def phase_kernels() -> dict:
          lambda: mc.sliding_median_boundary_plain(feats1, 187, "reflect"),
          lambda: freq_library(feats1, 187, "reflect"),
          freq_bound(feats1, 187, "reflect"), freq_label(feats1, 187, "reflect")),
+        ("tap_median_time", "#2", f"median2d time fl 93 T={TRACK_FRAMES_P}+92 F=513 K=93",
+         lambda: mc.tap_median_time(feats93, feats93[:, :0], causal93, 92),
+         lambda: mc.tap_median_time_plain(feats93, feats93[:, :0], causal93, 92),
+         lambda: time_library(feats93, feats93[:, :0], causal93, 92),
+         time_bound(feats93, feats93[:, :0], causal93, 92),
+         time_label(feats93, feats93[:, :0], causal93, 92)),
     ):
         got, want = fn(), plain()
         err = float((got - want).abs().max())
@@ -762,7 +809,7 @@ def phase_kernels() -> dict:
         print(f"phase 3 {name}/{route} ({tpu}) {label}: bitwise equal, kernel {us:.2f} us "
               f"(median of 5), plain {p_us:.2f} us (median of 3), kthvalue {l_us:.2f} us "
               f"({kind}, median of 3), bound {b_us:.2f} us ({b_by})")
-        stats[(name, route)]["shapes"].append({
+        stats.setdefault((name, route), {"max_abs_err": 0.0, "shapes": []})["shapes"].append({
             "tpu_kernel": tpu, "shape": label, "ms": us / 1e3, "plain_ms": p_us / 1e3,
             "library_ms": l_us / 1e3, "library": kind, "bound_ms": b_us / 1e3,
             "bound_by": b_by})
@@ -869,7 +916,7 @@ def phase_sweep() -> None:
             rank_wins.setdefault(k, []).append(min(us, key=us.get) == "rank")
             print(f"phase 3 sweep R={shape[0]} F={shape[1]} K={k} reflect: bitwise equal; "
                   + ", ".join(f"{r} {v:.2f} us" for r, v in us.items())
-                  + f" (rank tile, run, threads {mc.freq_rank_plan(k, *shape, 'reflect', mc._sm_count(x.device))}), "
+                  + f" (rank tile, run {mc.freq_rank_plan(k, *shape, 'reflect', mc._sm_count(x.device))}), "
                   f"kthvalue {l_us:.2f} us ({kind}), bound "
                   f"{b_us:.2f} us ({b_by}) (medians of 10)")
     wins = [k for i, k in enumerate(SWEEP_K) if all(all(rank_wins[j]) for j in SWEEP_K[i:])]
@@ -879,11 +926,10 @@ def phase_sweep() -> None:
 
 def phase_tiles() -> None:
     """The rank routes at every geometry the cost rule weighs
-    (benches/rank_geometry.py's rows but the 4-minute track's: K2's tile,
-    run of outputs a thread and threads, K1's run of output rows, lane run
-    and columns),
-    each held bitwise against the twin, timed beside the rule's price,
-    and the fastest beside the rule's pick."""
+    (benches/rank_geometry.py's rows but the 4-minute track's: K2's tile
+    and run of outputs a thread, K1's run of output rows, lane run and
+    columns), each held bitwise against the twin, timed beside the rule's
+    price, and the fastest beside the rule's pick."""
     from zen_tpu_torch.benches import rank_geometry, rank_store
     from zen_tpu_torch.ops import median_cuda as mc
 
@@ -1053,7 +1099,7 @@ def reset_launches() -> None:
 
     for name in ROUTES:
         wrapper = getattr(mc, name)
-        wrapper.launches = 0
+        wrapper.launches = wrapper.steps = 0
         wrapper.routes.update(dict.fromkeys(wrapper.routes, 0))
     mc.sliding_median_boundary.stores.update(dict.fromkeys(mc.sliding_median_boundary.stores, 0))
     for name in PROBES:
@@ -1061,13 +1107,15 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Median launches since the last reset by kernel route, 'kernel/route',
-    and of K2's on the rank route, the ones whose keys took the key store,
-    'sliding_median_boundary/rank@scratch'."""
+    """Median launches since the last reset by kernel route, 'kernel/route';
+    of each kernel's on the rank route, the ones that took its steps
+    kernel, 'kernel/rank@steps' (STEPS); and of K2's, the ones whose keys
+    took the key store, 'sliding_median_boundary/rank@scratch'."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     counts = {f"{name}/{route}": getattr(mc, name).routes[route]
               for name, routes in ROUTES.items() for route in routes}
+    counts.update({f"{name}/{STEPS}": getattr(mc, name).steps for name in ROUTES})
     counts[f"sliding_median_boundary/{SCRATCH}"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 
@@ -1240,7 +1288,9 @@ def phase_offline_clip(smi: str) -> dict:
         f"of audio per s; the reference took {CLIP_REF_MS:.0f} ms on an RTX 2070 SUPER "
         f"(BASELINE.md, an outside point); launches {launches} [{smi}]"
     )
-    require(all(v > 0 for v in totals.values()), f"offline clip launches {launches}")
+    require(all(v > 0 for v in totals.values())
+            and launches[f"sliding_median_boundary/{STEPS}"] > 0,
+            f"offline clip launches {launches} (pass 1's K2 takes the steps)")
     return launches
 
 
@@ -1258,8 +1308,9 @@ def phase_offline_track(smi: str) -> dict:
     blocked = sep.process_blocked(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    require(all(v > 0 for v in per_kernel(launches).values()),
-            f"offline track launches {launches}")
+    require(all(v > 0 for v in per_kernel(launches).values())
+            and launches[f"sliding_median_boundary/{STEPS}"] > 0,
+            f"offline track launches {launches} (pass 1's K2 takes the steps)")
     for outs in (whole, blocked):
         require(all(bool(torch.isfinite(o).all()) for o in outs), "non-finite track stems")
     if all(torch.equal(a, b) for a, b in zip(whole, blocked)):
@@ -1454,8 +1505,9 @@ def phase_hop32(smi: str) -> dict:
     reset_launches()
     cfg, got, audio, sizes, t = run_stream(hop=32)
     launches = read_launches()
-    require(launches["tap_median_time/rank"] > 0 and all(per_kernel(launches).values()),
-            f"hop-32 stream launches {launches}")
+    require(launches["tap_median_time/rank"] > 0 and launches[f"tap_median_time/{STEPS}"] == 0
+            and all(per_kernel(launches).values()),
+            f"hop-32 stream launches {launches} (K1's rank calls walk from rank 0)")
     require(bool(np.isfinite(got).all()), "non-finite hop-32 stem samples")
     r = compare_stream(cfg, audio, sizes, got, reference_stream(audio, sizes, hop=32),
                        ("harmonic", "percussive", "residual"))
@@ -2134,6 +2186,7 @@ def phase_files_cli(smi: str) -> dict:
         line, counts, wall = cli_offline(wav, tmp / "cli")
         add(counts)
         launched = routes_launched(counts, ("tap_median_time/register", "sliding_median_boundary/rank",
+                                            f"sliding_median_boundary/{STEPS}",
                                             "sliding_median_boundary/network"), "offline clip")
         x = torch.from_numpy(x_clip).to(DEVICE)
         write_stems(tmp / "ref", "wav", sep.process(x), fs)
@@ -2363,8 +2416,8 @@ def launch_ledger():
         counts = read_launches()
         if callable(want):
             want = want(out)
-        require(counts == want, f"{what}: launches {nonzero(counts)}, counted from the "
-                f"shapes {nonzero(want)}")
+        require(by_route(counts) == by_route(want), f"{what}: launches {nonzero(counts)}, "
+                f"counted from the shapes {nonzero(want)}")
         for k in total:
             total[k] += counts[k]
         return out, wall
@@ -3469,8 +3522,9 @@ def phase_multihost(smi: str) -> dict:
                     continue  # the command's processes: launches nobody reads
                 for w in leg["workers"]:
                     got, counts = w["launches"], want[name][w["worker"]]
-                    require(got == counts, f"multihost N={n} {name} process {w['worker']}: "
-                            f"launches {nonzero(got)}, counted from the shapes {nonzero(counts)}")
+                    require(by_route(got) == by_route(counts),
+                            f"multihost N={n} {name} process {w['worker']}: launches "
+                            f"{nonzero(got)}, counted from the shapes {nonzero(counts)}")
                     for k in total:
                         total[k] += got[k]
                 per = "; ".join(f"process {w['worker']}: {w['wall_s']:.2f} s, exchanges "
@@ -3571,10 +3625,10 @@ def median2d_cases() -> list:
 
 
 def median2d_launch(x, fl: int, direction: str, border: str):
-    """The read_launches() key of the one launch median2d makes for a
-    call (zen_tpu_torch/ops/median.py: K2 at fl taps for frequency, K1 at
-    fl taps for time, over x or over its T + fl - 1 gathered rows), None
-    where 'valid' writes no output."""
+    """The label ('kernel/route', launch_keys) of the one launch median2d
+    makes for a call (zen_tpu_torch/ops/median.py: K2 at fl taps for
+    frequency, K1 at fl taps for time, over x or over its T + fl - 1
+    gathered rows), None where 'valid' writes no output."""
     from zen_tpu_torch.ops import median as om
     from zen_tpu_torch.ops import median_cuda as mc
 
@@ -3586,13 +3640,10 @@ def median2d_launch(x, fl: int, direction: str, border: str):
     lead = math.prod(x.shape[:-2])
     if direction == om.FREQUENCY:
         mode = {om.WRAP: "wrap", om.REPLICATE: "edge", om.VALID: "valid"}[border]
-        route = mc.freq_call_route(fl, lead * x.shape[-2], n, mode, sms)
-        if route == "rank" and mc.freq_rank_store(fl) == "scratch":
-            route = SCRATCH
-        return f"sliding_median_boundary/{route}"
+        return f"sliding_median_boundary/{freq_call_label(fl, lead * x.shape[-2], n, mode, sms)}"
     offsets = tuple(range(-fl + 1, 1))  # fl contiguous taps, as every time case has
     start, t_v = (0, n) if border == om.VALID else (fl - 1, n + fl - 1)
-    return f"tap_median_time/{mc.time_call_route(offsets, start, t_v, lead, x.shape[-1], sms)}"
+    return f"tap_median_time/{time_call_label(offsets, start, t_v, lead, x.shape[-1], sms)}"
 
 
 def median2d_library(x, fl: int, direction: str, border: str):
@@ -3652,11 +3703,13 @@ def phase_median2d(smi: str) -> dict:
     for _, x, fl, direction, border in cases:
         outs.append(om.median2d(x, fl, direction, border))
         key = median2d_launch(x, fl, direction, border)
-        if key:
-            want[key] += 1
+        for k in launch_keys(key) if key else ():
+            want[k] += 1
     torch.cuda.synchronize()
     launches = read_launches()
     require(launches == want, f"median2d launches {launches}, from the shapes {want}")
+    require(all(want[f"{name}/{STEPS}"] > 0 for name in ROUTES),
+            f"median2d: no case takes a rank route's steps kernel ({want})")
     for (label, x, fl, direction, border), got in zip(cases, outs):
         what = f"median2d {label} {direction}/{border} fl={fl}"
         plain = lambda x=x, f=fl, d=direction, b=border: om.median2d_over(  # noqa: E731
@@ -3720,7 +3773,9 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     """The `kernels` line: one row per kernel route a path launched
     (launches summed over the paths, each path's counts read around its
     own run; the copy mirrors run on phase 11's path; a rank route's row
-    counts both stores, its SCRATCH row the key store's share), and the
+    counts all its launches, its STEPS row the steps kernel's share and
+    K2's SCRATCH row the key store's, each with the times of its own
+    shapes), and the
     routes no path launched (K2's rank route on the key store and its
     select route: no HPRConfig comes near 16,355 frequency taps, nor has a
     frequency median of so few outputs), checked in phase 3 only.
@@ -3800,7 +3855,9 @@ def main() -> None:
         f"one step: {tm['prof_b']} [{smi}]"
     )
 
-    require(all(v > 0 for v in per_kernel(launches).values()), f"kernel launches {launches}")
+    require(all(v > 0 for v in per_kernel(launches).values())
+            and not any(launches[f"{name}/{STEPS}"] for name in ROUTES),
+            f"kernel launches {launches} (the streams' rank calls walk from rank 0)")
     print(f"phase 6 streaming kernel launches: {launches}")
 
     by_path = {"streaming": launches}
@@ -3826,8 +3883,10 @@ def main() -> None:
     rows, off_path = kernel_rows(kstats, by_path)
     # every route the paths' tap counts select ran on a path (frequency K:
     # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32),
-    # K1's select route (384 kHz hop 1), and both copy mirrors
+    # K1's select route (384 kHz hop 1), both rank routes' steps kernels
+    # (the offline pass 1, median2d's fl 93), and both copy mirrors
     wanted = {"tap_median_time/register", "tap_median_time/rank", "tap_median_time/select",
+              *(f"{name}/{STEPS}" for name in ROUTES),
               *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),
               *(f"{name}/copy" for name in PROBES)}
     launched = {row["name"] for row in rows}

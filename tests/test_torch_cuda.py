@@ -212,16 +212,27 @@ def test_time_rank_steps_match_twin(cuda_device, dtype, ties, a_shape, b_shape, 
 
 
 def test_time_rank_route_takes_steps_where_planned(cuda_device):
-    """The wrapper's plan for median2d's [41355, 513] fl 93 takes the
-    steps; through tap_median_time at that plan on 2000 rows."""
+    """The wrapper's plan for median2d's valid fl 93 on 2000 rows of 513
+    takes the steps (as at the 4-minute track's 41,355); tap_median_time
+    launches them, counted in ``steps``, and the hop-32 step it plans to
+    walk from rank 0 does not."""
     offsets = tuple(range(-92, 1))
-    run, lane_run, cols = mc.time_rank_geometry(offsets, 92, 41_355 + 92, 1, 513,
-                                                mc._sm_count(cuda_device))
-    assert lane_run > 1
-    a = _mags(np.random.default_rng(93), 2092, 513, device=cuda_device)
-    got = mc._time_launch(a, a[:0], offsets, 92, 0.0, "rank", run=run, lane_run=lane_run,
-                          cols=cols)
+    sms = mc._sm_count(cuda_device)
+    assert mc.time_rank_geometry(offsets, 92, 41_355 + 92, 1, 513, sms)[1] > 1
+    assert mc.time_rank_geometry(offsets, 92, 2092, 1, 513, sms)[1] > 1
+    rng = np.random.default_rng(93)
+    a = _mags(rng, 2092, 513, device=cuda_device)
+    rank, steps = mc.tap_median_time.routes["rank"], mc.tap_median_time.steps
+    got = mc.tap_median_time(a, a[:0], offsets, 92)
+    torch.cuda.synchronize()
+    assert (mc.tap_median_time.routes["rank"], mc.tap_median_time.steps) == (rank + 1, steps + 1)
     assert torch.equal(got, mc.tap_median_time_plain(a, a[:0], offsets, 92))
+    assert mc.time_rank_geometry(K93, 183, 183 + 32, 1, 65, sms)[1] == 1
+    h, b = _mags(rng, 1, 183, 65, device=cuda_device), _mags(rng, 1, 32, 65, device=cuda_device)
+    got = mc.tap_median_time(h, b, K93, 183)
+    torch.cuda.synchronize()
+    assert (mc.tap_median_time.routes["rank"], mc.tap_median_time.steps) == (rank + 2, steps + 1)
+    assert torch.equal(got, mc.tap_median_time_plain(h, b, K93, 183))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -536,10 +547,11 @@ def test_freq_rank_steps_route_matches_twin(cuda_device, k, mode, dtype, ties):
     f_in = 2000 + (k - 1 if mode == "valid" else 0)
     x = (_ties if ties else _mags)(rng, 400, f_in, device=cuda_device).to(dtype)
     assert mc.freq_rank_plan(k, 400, f_in, mode, mc._sm_count(x.device))[1] > 1
-    before = mc.sliding_median_boundary.routes["rank"]
-    got = mc.sliding_median_boundary(x, k, mode)
+    wrapper = mc.sliding_median_boundary
+    before = wrapper.routes["rank"], wrapper.steps
+    got = wrapper(x, k, mode)
     torch.cuda.synchronize()
-    assert mc.sliding_median_boundary.routes["rank"] == before + 1
+    assert (wrapper.routes["rank"], wrapper.steps) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 

@@ -117,8 +117,8 @@ def merge_sort(keys: list, count: int) -> list:
     MERGE_RUN outputs a thread from the binary search of their merge path
     on (merge_at, a run's end read as the pad key, the first run first on
     ties); where a thread takes more than one run (merge_spare) it loops
-    over them. Returns the sorted keys (in plain order: merge_index's
-    padding is only a layout)."""
+    over them. Returns the sorted keys in plain order, as the last pass
+    writes them (the passes' merge_index padding is only a layout)."""
     n, r = len(keys), mc.MERGE_RUN
     runs = n // r
     assert mc._merge_rooms(n, count) == (2 if count * r < n else 1)
@@ -287,7 +287,7 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = No
     if chunk is not None:
         tile, run = mc.RANK_STORE_THREADS, 1
     elif tile is None:
-        tile, run, _ = mc.freq_rank_plan(k, rows.shape[0], f_in, mode)
+        tile, run = mc.freq_rank_plan(k, rows.shape[0], f_in, mode)
     run = run or 1
     f_out = f_in - k + 1 if mode == "valid" else f_in
     m = (k - 1) // 2
@@ -661,7 +661,7 @@ def test_time_rank_emulation_bf16():
 # K2's (tile, run) as the wrapper plans the 4-minute track's pass 1 and
 # median2d fl 187 (2585 rows of 8193 at K = 187), forced on small rows,
 # and tiny geometries that put many run edges and tile edges in a call
-FREQ_STEPS = [mc.freq_rank_plan(187, 2585, 8193, "reflect")[:2], (96, 3), (160, 5), (64, 1)]
+FREQ_STEPS = [mc.freq_rank_plan(187, 2585, 8193, "reflect"), (96, 3), (160, 5), (64, 1)]
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -1235,7 +1235,8 @@ def test_freq_rank_tile_minimizes_walk_plus_sort(k):
     freq_rank_plan, a call's geometry, minimizes sort_us over every tile
     and run that fits a block: at run 1 that tile, past
     it runs of RANK_LANE_RUNS outputs, as many walking threads as a key
-    count's freq_steps_threads and its staged outputs allow."""
+    count's freq_steps_threads and its staged outputs allow, the block's
+    threads freq_rank_threads'."""
     tile = mc.freq_rank_tile(k)
     assert tile in mc.FREQ_RANK_TILES
 
@@ -1248,7 +1249,8 @@ def test_freq_rank_tile_minimizes_walk_plus_sort(k):
     for rows, f_in in ((8, 8193), (32, 2049), (2585, 8193)):
         plans = mc._freq_rank_plans(k, rows, f_in, "reflect", mc.H100_SMS)
         assert mc.freq_rank_plan(k, rows, f_in, "reflect") == min(plans)[1:]
-        for us, t, run, threads in plans:
+        for us, t, run in plans:
+            threads = mc.freq_rank_threads(k, t, run)
             assert t % run == 0 and t // run <= threads
             assert (threads == t == tile if run == 1 else
                     threads == mc.freq_steps_threads(mc._key_count(t + k - 1)))
@@ -1279,3 +1281,36 @@ def test_split_builds_are_libraries_of_their_own():
     assert len(paths) == 3 and _build.library_path() == _build.library_path(0)
     with pytest.raises(ValueError, match="ZEN_RANK_CUT"):
         _build.library(3)
+
+
+def test_smoke_labels_the_steps_kernel():
+    """chip_smoke.py's launch labels: the many-output rank calls (the
+    offline passes 1, median2d's fl 93) take the steps kernel (STEPS), the
+    streams' latency rows walk from rank 0; a STEPS or SCRATCH launch
+    counts on its kernel's rank route too; ``by_route`` drops the STEPS
+    keys, which a count from the configs alone does not hold."""
+    import chip_smoke as cs
+
+    sms = mc.H100_SMS
+    assert cs.freq_call_label(187, 2585, 8193, "reflect", sms) == cs.STEPS
+    assert cs.freq_call_label(187, 41, 8193, "reflect", sms) == cs.STEPS
+    assert cs.freq_call_label(187, 2585, 8193, "wrap", sms) == cs.STEPS
+    for rows in (1, 32):  # hop 1024's K2, B=1 and B=32
+        assert cs.freq_call_label(47, rows, 2049, "reflect", sms) == "rank"
+    assert cs.freq_call_label(187, 8, 8193, "reflect", sms) == "rank"  # pitch-track
+    assert cs.freq_call_label(16_385, 4, 8193, "reflect", sms) == cs.SCRATCH
+    assert cs.freq_call_label(13, 2048, 513, "reflect", sms) == "network"
+    k93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # hop 32, B=32 and B=1
+    assert cs.time_call_label(k93, 183, 183 + 32, 1, 65, sms) == "rank"
+    assert cs.time_call_label(k93, 183, 183 + 1, 1, 65, sms) == "rank"
+    assert cs.time_call_label(tuple(range(-92, 1)), 92, 41_355 + 92, 1, 513, sms) == cs.STEPS
+    assert cs.time_call_label(tuple(range(-5, 6)), 0, 643, 1, 513, sms) == "register"
+    assert cs.launch_keys(f"tap_median_time/{cs.STEPS}") == (
+        f"tap_median_time/{cs.STEPS}", "tap_median_time/rank")
+    assert cs.launch_keys(f"sliding_median_boundary/{cs.SCRATCH}")[1] == (
+        "sliding_median_boundary/rank")
+    assert cs.launch_keys("sliding_median_boundary/network") == ("sliding_median_boundary/network",)
+    counts = {"tap_median_time/rank": 2, f"tap_median_time/{cs.STEPS}": 1,
+              f"sliding_median_boundary/{cs.SCRATCH}": 3}
+    assert cs.by_route(counts) == {"tap_median_time/rank": 2,
+                                   f"sliding_median_boundary/{cs.SCRATCH}": 3}

@@ -4,8 +4,8 @@
 
 For each of ``rank_store.PATH``'s rows (and K2 at K = 257, fs 8000 hop
 1024, and K1 at K = 401): every geometry of the rank route that fits a
-block (K2: ``freq_rank_plan``'s candidates, a tile, a run of outputs a
-thread and the block's threads; K1: ``time_rank_geometry``'s, a run of
+block (K2: ``freq_rank_plan``'s candidates, a tile and a run of outputs
+a thread; K1: ``time_rank_geometry``'s, a run of
 output rows a block, a lane run a thread and the adjacent columns a
 block), run through ``_freq_launch`` / ``_time_launch``, its
 output held bitwise against the plain twin, its device µs (CUDA events
@@ -14,7 +14,7 @@ price (``sort_us``). Then the fastest measured beside the rule's pick.
 ``--rows fast`` leaves out the two 4-minute-track rows and median2d's.
 Prints the card's name and power limit, one line a geometry, one line a
 row's verdict, then one JSON object. chip_smoke.py's phase 3 runs the
-same (``geometry_lines``).
+same (``run_rows``).
 """
 from __future__ import annotations
 
@@ -29,16 +29,15 @@ TRACK = ("4-minute", "median2d")  # rows left out by --rows fast
 
 
 def geometries(mc, kind, args, sms: int) -> list:
-    """[(geometry, model µs, call)] of one row: K2's (tile, run, threads),
+    """[(geometry, model µs, call)] of one row: K2's (tile, run),
     K1's (run, lane_run, cols)."""
     if kind == "freq":
         x, k, mode = args
         rows = x.numel() // x.shape[-1]
-        return [((tile, run, threads), us,
-                 lambda x=x, k=k, mode=mode, t=tile, r=run, n=threads: mc._freq_launch(
-                     x, k, mode, "rank", tile=t, run=r, threads=n))
-                for us, tile, run, threads in mc._freq_rank_plans(k, rows, x.shape[-1], mode,
-                                                                   sms)]
+        return [((tile, run), us,
+                 lambda x=x, k=k, mode=mode, t=tile, r=run: mc._freq_launch(
+                     x, k, mode, "rank", tile=t, run=r))
+                for us, tile, run in mc._freq_rank_plans(k, rows, x.shape[-1], mode, sms)]
     a, b, offs, start = args
     t_v, streams, f = a.shape[-2] + b.shape[-2], math.prod(a.shape[:-2]), a.shape[-1]
     planned, run1, fits = mc.time_rank_plan(offs, start, t_v)

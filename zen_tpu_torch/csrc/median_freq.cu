@@ -78,8 +78,8 @@
 //   64 threads of 5, 506 keys of 512), and the sort is merge_sort. The
 //   medians go through shared memory so that the writes stay coalesced.
 //   On the 4-minute track's pass 1 (2585 rows of 8193 at K = 187) the
-//   walk took 1724 us and the steps 806 on an H100
-//   (benches/rank_store.py in turns).
+//   walk took 1724 us (benches/rank_store.py) and the steps 729
+//   (benches/rank_split.py) on an H100.
 // Past 16,384 keys the sort would no longer fit a block: a first version
 // ranked each window by counting there (up to 2 K^2 compares an output,
 // 2.7e8 at K = 16,385). Now the keys live in the block's slice of a
@@ -231,7 +231,7 @@ __global__ void rank_steps_median_kernel(const T* __restrict__ x,
     return;
   }
   const unsigned long long* sorted = zen_rank::merge_sort(keys, spare, n, tid, threads);
-  const auto key = [&](int rank) { return sorted[zen_rank::merge_index(rank)]; };
+  const auto key = [&](int rank) { return sorted[rank]; };
   if (ZEN_RANK_CUT == 2) {
     for (int j = tid; j < live; j += threads) {
       dst[j] = from_float<T>(zen_rank::value_of(key(j)));

@@ -421,7 +421,7 @@ __global__ void __launch_bounds__(kRankThreads, 8) tap_median_time_steps_kernel(
   }
   const unsigned long long* sorted =
       zen_rank::merge_sort(keys, keys + room, n, gid, group);
-  const auto key = [&](int rank) { return sorted[zen_rank::merge_index(rank)]; };
+  const auto key = [&](int rank) { return sorted[rank]; };
   if (ZEN_RANK_CUT == 2) {
     for (int i = gid; i < live; i += group) res[i * cols + g] = zen_rank::value_of(key(i));
     __syncthreads();

@@ -26,14 +26,21 @@
 //   a sample each way. So a block's tile can grow until the sort is paid
 //   by hundreds of outputs, and the sort is merge_sort: runs of 8 sorted
 //   in registers, then passes that merge pairs of runs along their merge
-//   path, in a layout that keeps a warp's lanes on distinct banks.
+//   path, in a layout that keeps a warp's lanes on distinct banks (the
+//   last pass writes the keys plainly).
 // The wrappers' cost rule picks the way and the geometry for each call
 // (ops/median_cuda.py, sort_us): calls of few outputs a block (a single
 // stream's hop-32 and hop-1024 steps) keep the walk, whose blocks finish
 // sooner; calls of many (offline passes, median2d) take the steps.
 // Per output the bitonic sort costs O(log^2 S) compare-swaps a staged
 // sample, merge_sort O(log S) moves; both stay far below the up to K^2
-// compares of ranking each window by counting.
+// compares of ranking each window by counting. Each kernel keeps the sort
+// that ran faster in it (benches/rank_split.py, the same kernels built
+// with the other sort, on an H100): in the steps merge_sort (805 against
+// 839 us on the 4-minute pass 1, 868 against 923 on median2d's fl 93,
+// both while its last pass still wrote merge_index's layout), in
+// the walk bitonic_sort (10.2 against 14.0 us on hop 32's K1 step, 9.3
+// against 13.6 on hop 1024's K2 step, where a block sorts 128-256 keys).
 //
 // Two stores for the keys. The shared store sorts them in shared memory,
 // up to the 227 KB a block can opt into: 16,384 keys of 8 bytes, as a
@@ -295,7 +302,7 @@ __device__ __forceinline__ void sort_store(unsigned long long* keys, int n,
 // keys a thread sorts in registers, then merges a pass, in merge_sort
 constexpr int kMergeRun = 8;
 
-// where merge_sort keeps key r: a key's room of padding after every
+// where merge_sort's passes keep key r: a key's room of padding after every
 // kMergeRun keys, so that the 32 lanes of a warp, kMergeRun keys apart,
 // reach 32 different banks (a plain stride of 64 bytes reaches 2)
 __host__ __device__ __forceinline__ int merge_index(int r) { return r + r / kMergeRun; }
@@ -371,10 +378,15 @@ __host__ __device__ __forceinline__ bool merge_spare(int n, int count) {
 }
 
 // Ascending sort of the n keys staged plainly in keys[0, n) (n a power of
-// two >= 32) by the `count` threads of a block, into merge_sort's layout
-// (merge_index) in a buffer of merge_room(n) keys. A thread takes kMergeRun
-// keys n / kMergeRun apart (consecutive threads read consecutive keys),
-// sorts them in registers (sort_run) and writes them as one run; then
+// two >= 32) by the `count` threads of a block, in buffers of
+// merge_room(n) keys: the passes keep merge_index's layout, the last one
+// writes the sorted keys plainly, key r at [r] (its stores conflict on
+// banks, but the walk's chunks of consecutive ranks then read as one
+// stretch: 729 against 804 us on the 4-minute pass 1 in K2, 882 against
+// 868 on median2d's fl 93 in K1, benches/rank_split.py on an H100).
+// A thread takes kMergeRun keys n / kMergeRun apart (consecutive threads
+// read consecutive keys), sorts them in registers (sort_run) and writes
+// them as one run; then
 // log2(n / kMergeRun) passes merge pairs of sorted runs, a thread
 // kMergeRun outputs a pass (merge_at). Where each thread takes at most one
 // run (merge_spare false) its outputs wait in registers for the pass's
@@ -398,7 +410,10 @@ __device__ __forceinline__ unsigned long long* merge_sort(unsigned long long* ke
     for (int len = kMergeRun;; len <<= 1) {
       if (mine) {
 #pragma unroll
-        for (int u = 0; u < kMergeRun; ++u) keys[merge_index(tid * kMergeRun + u)] = v[u];
+        for (int u = 0; u < kMergeRun; ++u) {
+          const int e = tid * kMergeRun + u;
+          keys[len >= n ? e : merge_index(e)] = v[u];
+        }
       }
       __syncthreads();
       if (len >= n) return keys;
@@ -420,7 +435,7 @@ __device__ __forceinline__ unsigned long long* merge_sort(unsigned long long* ke
     for (int e0 = tid * kMergeRun; e0 < n; e0 += count * kMergeRun) {
       merge_at(src, e0, len, v);
 #pragma unroll
-      for (int u = 0; u < kMergeRun; ++u) dst[merge_index(e0 + u)] = v[u];
+      for (int u = 0; u < kMergeRun; ++u) dst[2 * len >= n ? e0 + u : merge_index(e0 + u)] = v[u];
     }
     __syncthreads();
     unsigned long long* t = src;

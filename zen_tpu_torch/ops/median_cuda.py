@@ -19,8 +19,11 @@ a CPU tensor to its ``_plain`` twin (built from
 checking contiguity; it raises on anything the kernel does not take,
 and never falls back. ``launches`` on each
 wrapper counts its kernel launches, so a run can show that it went
-through the kernel, ``routes`` splits that count by route, and K2's
-``stores`` splits its sort route's launches by where the keys live.
+through the kernel, ``routes`` splits that count by route, ``steps``
+counts the rank route's launches that took its steps kernel (a thread a
+run of outputs; the others walk from rank 0 or, in K2, take the key
+store), and K2's ``stores`` splits its rank route's launches by where
+the keys live.
 Kernels launch on the current stream, never synchronize and allocate
 nothing: the wrapper allocates the output and K2's key scratch.
 
@@ -49,7 +52,7 @@ points of the steps ``time_rank_changes`` and the geometry
 the select route's geometry (``time_select_plan``, ``freq_select_plan``),
 the cost rule between the two (``time_rank_pick``, ``freq_rank_pick``,
 pricing each rank geometry by ``sort_us``), K2's rank geometry
-(``freq_rank_plan``: tile, run and threads; ``freq_rank_tile``, the
+(``freq_rank_plan``: tile and run, ``freq_rank_threads``; ``freq_rank_tile``, the
 walk's own tile, which the copy mirror stages), where its sort's keys
 live (``shared`` in its shared memory where they fit, else ``scratch``:
 ``freq_rank_store``) and the scratch's geometry (``rank_store_args``).
@@ -239,16 +242,19 @@ def _entry(lib, name: str, dtype: torch.dtype):
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper, route: str, store: str | None = None) -> None:
+def _count(wrapper, route: str, store: str | None = None, steps: bool = False) -> None:
     """One launch on ``wrapper``'s counters (``store``: where a rank
-    route's keys live, counted in ``wrapper.stores``), under a lock: ``+=
-    1`` on an attribute is a read-modify-write that two threads can
-    interleave."""
+    route's keys live, counted in ``wrapper.stores``; ``steps``: the rank
+    route took its steps kernel, counted in ``wrapper.steps``), under a
+    lock: ``+= 1`` on an attribute is a read-modify-write that two
+    threads can interleave."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.routes[route] += 1
         if store:
             wrapper.stores[store] += 1
+        if steps:
+            wrapper.steps += 1
 
 
 @functools.lru_cache(maxsize=16)
@@ -660,7 +666,8 @@ def tap_median_time(
     route, args = _time_call(offsets, start, ta, tb, math.prod(a.shape[:-2]), f, a.device)
     out = _time_run(a, b, start, fill, route, args, k)
     if out.numel():
-        _count(tap_median_time, route)
+        # the rank route's trailing arguments lead with the lane run
+        _count(tap_median_time, route, steps=route == "rank" and args[2][0] > 1)
     return out
 
 
@@ -691,6 +698,7 @@ def _time_call(offsets, start: int, ta: int, tb: int, streams: int, f: int,
 
 tap_median_time.launches = 0
 tap_median_time.routes = dict.fromkeys(("register", "rank", "select"), 0)
+tap_median_time.steps = 0
 
 
 def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0,
@@ -855,7 +863,7 @@ def freq_rank_bytes(k: int, tile: int, run: int) -> int:
     n = _key_count(seg)
     if run == 1:
         return KEY_BYTES * n
-    return (_merge_rooms(n, freq_steps_threads(n)) * _merge_room(KEY_BYTES * n)
+    return (_merge_rooms(n, freq_rank_threads(k, tile, run)) * _merge_room(KEY_BYTES * n)
             + 4 * (seg + tile + seg + 1 + 32))
 
 
@@ -865,9 +873,17 @@ def freq_steps_threads(n: int) -> int:
     return min(256, max(32, n // MERGE_RUN))
 
 
+def freq_rank_threads(k: int, tile: int, run: int) -> int:
+    """Threads of a block of K2's rank route at width ``k``, ``tile``
+    outputs and ``run`` outputs a walking thread: one an output where
+    each walks from rank 0 (``run`` 1), else ``freq_steps_threads`` of its
+    key count."""
+    return tile if run == 1 else freq_steps_threads(_key_count(tile + k - 1))
+
+
 @functools.lru_cache(maxsize=64)
 def freq_rank_plan(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS):
-    """(tile, run, threads) of K2's rank route in shared memory for
+    """(tile, run) of K2's rank route in shared memory for
     ``rows`` rows of ``f_in`` samples: of the walk from rank 0 for every
     output (run 1, a thread an output, ``freq_rank_tile``'s tile) and the
     steps (for each key count n, ``freq_steps_threads(n)`` threads stage
@@ -881,18 +897,18 @@ def freq_rank_plan(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS)
 
 
 def _freq_rank_geometries(k: int) -> list:
-    """[(tile, run, threads)] of K2's rank route at width ``k`` whose
+    """[(tile, run)] of K2's rank route at width ``k`` whose
     ``freq_rank_bytes`` fit SMEM_OPTIN (``freq_rank_plan``)."""
     walk = freq_rank_tile(k)
-    out = [(walk, 1, walk)] if walk else []
+    out = [(walk, 1)] if walk else []
     n = _pow2_at_least(k + 31)
     while n - k + 1 >= 32:
-        threads = freq_steps_threads(n)
+        walkers = freq_steps_threads(n)
         for run in RANK_LANE_RUNS[1:]:
-            tile = min(threads, (n - k + 1) // run) * run
+            tile = min(walkers, (n - k + 1) // run) * run
             if (tile and _key_count(tile + k - 1) == n
                     and freq_rank_bytes(k, tile, run) <= SMEM_OPTIN):
-                out.append((tile, run, threads))
+                out.append((tile, run))
         n *= 2
         if KEY_BYTES * n > SMEM_OPTIN:
             break
@@ -900,17 +916,17 @@ def _freq_rank_geometries(k: int) -> list:
 
 
 def _freq_rank_plans(k: int, rows: int, f_in: int, mode: str, sms: int) -> list:
-    """[(µs, tile, run, threads)] of K2's rank geometries for a call
+    """[(µs, tile, run)] of K2's rank geometries for a call
     (``freq_rank_plan``)."""
     f_out = _freq_out(k, f_in, mode)
     out = []
-    for tile, run, threads in _freq_rank_geometries(k):
+    for tile, run in _freq_rank_geometries(k):
         if -(-f_out // tile) > 65_535:
             continue
         seg = min(tile, f_out) + k - 1
-        out.append((sort_us(rows * -(-f_out // tile), seg, threads,
+        out.append((sort_us(rows * -(-f_out // tile), seg, freq_rank_threads(k, tile, run),
                             freq_rank_bytes(k, tile, run), sms, run=run,
-                            step=seg / k + 1), tile, run, threads))
+                            step=seg / k + 1), tile, run))
     return out
 
 
@@ -1020,29 +1036,31 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     if not x.is_cuda:
         return sliding_median_boundary_plain(x, k, mode)
     _check_cuda_operands(x)
-    route = freq_call_route(k, math.prod(x.shape[:-1]), f_in, mode, _sm_count(x.device))
+    rows, sms = math.prod(x.shape[:-1]), _sm_count(x.device)
+    route = freq_call_route(k, rows, f_in, mode, sms)
     out = _freq_launch(x, k, mode, route)
     if out.numel():
-        _count(sliding_median_boundary, route, freq_rank_store(k) if route == "rank" else None)
+        plan = freq_rank_plan(k, rows, f_in, mode, sms) if route == "rank" else None
+        _count(sliding_median_boundary, route, freq_rank_store(k) if route == "rank" else None,
+               steps=bool(plan) and plan[1] > 1)
     return out
 
 
 sliding_median_boundary.launches = 0
 sliding_median_boundary.routes = dict.fromkeys(("network", "rank", "select"), 0)
 sliding_median_boundary.stores = dict.fromkeys(("shared", "scratch"), 0)
+sliding_median_boundary.steps = 0
 
 
 def _freq_launch(
     x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0,
     chunk: int | None = None, shared_bins: bool | None = None, run: int | None = None,
-    threads: int | None = None,
 ) -> torch.Tensor:
     """K2's ``route`` kernel on a checked CUDA operand; counts nothing
     (chip_smoke's sweeps also call it, for every route that takes ``k``,
-    each rank ``tile``, ``run`` and ``threads`` (outputs a block and a
-    walking thread, threads a block; default ``freq_rank_plan``'s, run 1
-    where only ``tile`` is given, ``freq_steps_threads`` where ``threads``
-    is not), the select
+    each rank ``tile`` and ``run`` (outputs a block and a walking thread;
+    default ``freq_rank_plan``'s, run 1 where only ``tile`` is given; the
+    block's threads are ``freq_rank_threads``'), the select
     route's outputs a block (``tile``; default ``freq_select_plan``'s) and
     bins (``shared_bins``; default ``select_shared_bins``), and the rank
     route of a ``cut`` build, ``_build.library``). ``chunk`` runs the rank route on the key store
@@ -1056,10 +1074,9 @@ def _freq_launch(
     if out.numel() == 0:
         return out
     rows = math.prod(x.shape[:-1])
-    threads = None
     if route == "rank" and not (chunk or tile):
         plan = freq_rank_plan(k, rows, f_in, mode, _sm_count(x.device))
-        tile, run, threads = plan if plan else (None, None, None)
+        tile, run = plan if plan else (None, None)
     if route == "rank" and (chunk or not tile):
         units = rows * -(-f_out // RANK_STORE_THREADS)
         scratch, blocks, keys = rank_store_args(units, min(RANK_STORE_THREADS, f_out) + k - 1,
@@ -1068,9 +1085,7 @@ def _freq_launch(
         extra = (scratch.data_ptr(), blocks, keys, chunk or RANK_STORE_CHUNK)
     elif route == "rank":
         run = run or 1
-        if threads is None:
-            threads = tile if run == 1 else freq_steps_threads(_key_count(tile + k - 1))
-        name, extra = "zen_sliding_median_rank", (tile, run, threads)
+        name, extra = "zen_sliding_median_rank", (tile, run, freq_rank_threads(k, tile, run))
     elif route == "select":
         pick, staged, threads = freq_select_plan(k, rows, f_in, mode, _sm_count(x.device))
         if tile:

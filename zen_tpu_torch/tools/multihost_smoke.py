@@ -197,7 +197,8 @@ def make_corpus(corpus_dir: str, corpus: Corpus) -> list:
 
 def read_launches() -> dict:
     """The median kernels' launches in this process by route, 'kernel/route',
-    and of K2's rank route's, those on its key store,
+    of each rank route's, those that took its steps kernel,
+    'kernel/rank@steps', and of K2's, those on its key store,
     'sliding_median_boundary/rank@scratch'."""
     from ..ops import median_cuda as mc
 
@@ -205,6 +206,7 @@ def read_launches() -> dict:
     for name in ("tap_median_time", "sliding_median_boundary"):
         wrapper = getattr(mc, name)
         counts.update({f"{name}/{route}": n for route, n in wrapper.routes.items()})
+        counts[f"{name}/rank@steps"] = wrapper.steps
     counts["sliding_median_boundary/rank@scratch"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 
