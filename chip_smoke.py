@@ -14,10 +14,13 @@ K2's sort past one block's shared memory its key store). Phase 3 also
 times the rank and select routes side by side on the wide rows, with the
 cost rule's pick beside the faster one measured, and holds
 the comparator-network routes (K1 register up to 63 taps, K2 network up
-to 31) bitwise at every odd K they take, tie-heavy and bf16; sweeps K2's
+to 31) bitwise at every odd K they take, tie-heavy and bf16, K1's in both
+of its forms (the per-output network and the shared core at each R it is
+built for, on one tap run and on the causal wrap's two); sweeps K2's
 two routes over K at
 two row shapes: the crossover FREQ_RANK_MIN_TAPS (ops/median_cuda.py)
-comes from it; times K1's network kernel at each run length and both
+comes from it; times K1's network kernel at each run length and its
+shared core at each R, beside the form the wrapper picks, and both
 rank routes at every geometry the cost rule weighs (K2's tile and run of
 outputs a thread, K1's run of rows, lane run and columns: the walk from
 rank 0 or the steps from the neighbour's median) at the paths' rows, beside the
@@ -141,7 +144,9 @@ entry points at full width:
            transposed view: bitwise to its mapping over the kernels' twins
            (and to median2d_plain on the CPU for the small ones), launches
            exactly as predicted, its device time and its glue's beside the
-           twins, kthvalue and the bound, and what NaN gives on each route;
+           twins, kthvalue and the bound, every K1 register case in both
+           forms (per-output network, shared core), and what NaN gives on
+           each route;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -152,7 +157,8 @@ must stay below 1e-5 of all mask bins, and the 5e-5 x scale stem
 tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
-are counted per path and per kernel route, and K2's rank launches by
+are counted per path and per kernel route, K1's register launches that took the
+shared core apart (CORE), and K2's rank launches by
 where their keys live (phase 6 and phases 7-30; the
 SSE paths must launch none; phases 18-22 and 24-30 require each run's
 count to equal the count from its shapes and, for the instruments, the
@@ -206,6 +212,7 @@ ROUTES = {"tap_median_time": ("register", "rank", "select"),
           "sliding_median_boundary": ("network", "rank", "select")}
 SCRATCH = "rank@scratch"  # K2's rank launches whose keys live in the key store
 STEPS = "rank@steps"  # rank launches that took the steps kernel (a thread a run of outputs)
+CORE = "register@core"  # K1's register launches that took the shared core (runs of outputs)
 SLOW_US = 100_000.0  # a phase-3 call past this is timed 3 times, not TIMED_RUNS
 # phase 3's select lines force a route through _time_launch, whose plan
 # lookups hash a wide tap set's offsets on the host (~0.5 ms at 25,601
@@ -221,6 +228,7 @@ TPU_KERNELS = {  # PERF.md's table numbers -> file:line of the TPU kernel
     "#9": "benches/hbm_pattern.py:181", "#10": "benches/hbm_pattern.py:240",
 }
 SOURCES = {"tap_median_time": "zen_tpu_torch/csrc/median_time.cu",
+           f"tap_median_time/{CORE}": "zen_tpu_torch/csrc/median_time_core.cu",
            "sliding_median_boundary": "zen_tpu_torch/csrc/median_freq.cu",
            "rows_copy": "zen_tpu_torch/csrc/probe_copy.cu",
            "segment_copy": "zen_tpu_torch/csrc/probe_copy.cu"}
@@ -468,13 +476,16 @@ def freq_library(x, k, mode):
 
 def time_call_label(offsets, start: int, t_v: int, streams: int, f: int, sms: int) -> str:
     """The route tap_median_time launches for a call (time_call_route),
-    STEPS where its rank route takes the steps kernel."""
+    STEPS where its rank route takes the steps kernel, CORE where its
+    register route takes the shared core (time_network_form)."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     offsets = tuple(offsets)
     route = mc.time_call_route(offsets, start, t_v, streams, f, sms)
     if route == "rank" and mc.time_rank_geometry(offsets, start, t_v, streams, f, sms)[1] > 1:
         return STEPS
+    if route == "register" and mc.time_network_form(offsets, t_v - start, streams, f)[0] == "core":
+        return CORE
     return route
 
 
@@ -509,17 +520,19 @@ def sm_count(device) -> int:
 
 
 def by_route(counts: dict) -> dict:
-    """``counts`` without the STEPS keys: what a count from the configs
-    and shapes alone holds (which rank calls take the steps kernel
-    depends on each call's rows; phases 3, 7, 8 and 31 check those)."""
-    return {k: v for k, v in counts.items() if not k.endswith(STEPS)}
+    """``counts`` without the STEPS and CORE keys: what a count from the
+    configs and shapes alone holds (which rank calls take the steps
+    kernel, and which register calls the shared core, depends on each
+    call's rows; phases 3, 7, 8 and 31 check those)."""
+    return {k: v for k, v in counts.items() if not k.endswith((STEPS, CORE))}
 
 
 def launch_keys(key: str) -> tuple:
     """The read_launches() keys one launch labelled ``key`` adds to: a
-    SCRATCH or STEPS launch counts on its kernel's rank route too."""
+    SCRATCH or STEPS launch counts on its kernel's rank route too, a CORE
+    launch on its register route."""
     name, route = key.split("/")
-    return (key, f"{name}/rank") if "@" in route else (key,)
+    return (key, f"{name}/{route.split('@')[0]}") if "@" in route else (key,)
 
 
 def kernel_cases():
@@ -818,28 +831,51 @@ def phase_kernels() -> dict:
 
 def phase_network() -> None:
     """The comparator-network routes at every odd K they take, each held
-    bitwise against its twin: K1 register (K 1..63) on a centered
-    one-input case with fill = inf (tie-heavy f32) and a causal pair with
-    a duplicated offset 0 (bf16); K2 network (K 1..31) on tie-heavy
-    reflect rows (f32) and wrap rows (bf16). Times the f32 cases."""
+    bitwise against its twin: K1 register (K 1..63) in both of its forms,
+    the per-output network at the wrapper's run and the shared core at
+    each R it is built for (select_network.core_shapes), on a centered
+    one-input case with fill = inf (one tap run, tie-heavy f32) and a
+    causal-wrap pair of two tap runs (fm, fm + 1) (bf16), and the network
+    on a causal pair with a duplicated offset 0 (bf16; no core shape); K2
+    network (K 1..31) on tie-heavy reflect rows (f32) and wrap rows
+    (bf16). Times the f32 cases, each K1 form, and prints the form and R
+    the wrapper's rule picks (time_network_form)."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(5)
     a32, a16 = _ties(rng, 64, 37, 513), _mags(rng, 64, 21, 513).to(torch.bfloat16)
     b16 = _mags(rng, 64, 16, 513).to(torch.bfloat16)
+    w16 = _mags(rng, 16, 2 * mc.REGISTER_TAPS + 16, 129).to(torch.bfloat16)
     x32, x16 = _ties(rng, 2048, 513), _mags(rng, 512, 513).to(torch.bfloat16)
     inf = float("inf")
     for k in range(1, mc.REGISTER_TAPS + 1, 2):
         m = (k - 1) // 2
         centered = tuple(range(-m, m + 1))
         causal = tuple(range(-(k - 3), 1)) + (0, 0) if k > 1 else (0,)
+        two = tuple(range(-2 * k, -2 * k + m)) + tuple(range(-m, 1))  # the causal wrap's runs
         require(mc.time_route(centered) == "register", f"K={k} leaves K1's network")
-        run1 = lambda: mc._time_launch(a32, a32[:, :0], centered, 0, inf, "register")  # noqa: E731
-        require(torch.equal(run1(), mc.tap_median_time_plain(a32, a32[:, :0], centered, 0, inf)),
-                f"K1 network K={k} centered fill=inf ties differs")
+        want = mc.tap_median_time_plain(a32, a32[:, :0], centered, 0, inf)
+        run = mc.time_network_run(37, 64, 513, centered)
+        forms = {f"network run {run}": lambda: mc._time_launch(  # noqa: E731
+            a32, a32[:, :0], centered, 0, inf, "register", run=run)}
+        forms.update({f"core R={r}": lambda r=r: mc._time_launch(  # noqa: E731
+            a32, a32[:, :0], centered, 0, inf, "register", core=r)
+            for r in mc.time_core_runs(centered)})
+        for name, fn in forms.items():
+            require(torch.equal(fn(), want), f"K1 {name} K={k} centered fill=inf ties differs")
+        hist, fresh = w16[:, -2 * k:].contiguous(), w16[:, :16].contiguous()
+        want16 = mc.tap_median_time_plain(hist, fresh, two, 2 * k)
+        for r in (None, *mc.time_core_runs(two)):
+            got = mc._time_launch(hist, fresh, two, 2 * k, 0.0, "register", core=r,
+                                  run=None if r else mc.time_network_run(16, 16, 129, two))
+            require(torch.equal(got, want16),
+                    f"K1 {'core R=%d' % r if r else 'network'} K={k} two tap runs bf16 differs")
         require(torch.equal(mc._time_launch(a16, b16, causal, 21, 0.0, "register"),
                             mc.tap_median_time_plain(a16, b16, causal, 21)),
                 f"K1 network K={k} causal duplicated-0 bf16 differs")
+        form, size = mc.time_network_form(centered, 37, 64, 513)
+        k1 = (", ".join(f"{name} {median_us(fn, runs=10):.2f}" for name, fn in forms.items())
+              + f" us, picked {'core R=%d' % size if form == 'core' else 'network run %d' % size}")
         k2 = "K2 n/a (its network stops at 31)"
         if k <= mc.FREQ_NETWORK_MAX_TAPS:
             require(mc.freq_route(k) == "network", f"K={k} leaves K2's network")
@@ -850,15 +886,18 @@ def phase_network() -> None:
                                 mc.sliding_median_boundary_plain(x16, k, "wrap")),
                     f"K2 network K={k} wrap bf16 differs")
             k2 = f"K2 [2048, 513] {median_us(run2, runs=10):.2f} us"
-        print(f"phase 3 network K={k}: bitwise equal (K1 f32 ties fill=inf and bf16 duplicated "
-              f"taps{', K2 f32 ties reflect and bf16 wrap' if k <= mc.FREQ_NETWORK_MAX_TAPS else ''}"
-              f"); K1 [64, 37, 513] {median_us(run1, runs=10):.2f} us, {k2} (medians of 10)")
+        print(f"phase 3 network K={k}: bitwise equal (K1 both forms: f32 ties fill=inf one tap "
+              f"run, bf16 two tap runs at every built R; K1 network bf16 duplicated taps"
+              f"{', K2 f32 ties reflect and bf16 wrap' if k <= mc.FREQ_NETWORK_MAX_TAPS else ''}"
+              f"); K1 [64, 37, 513] {k1}, {k2} (medians of 10)")
 
 
 def phase_runs() -> None:
-    """K1's network kernel at each of RUN_LENGTHS (output rows per
-    thread) at the paths' shapes: every run length's output equal to the
-    wrapper's, their times, and the fastest beside time_network_run's."""
+    """K1's register route in both forms at the paths' shapes: the
+    per-output network at each of RUN_LENGTHS (output rows per thread)
+    and the shared core at each R it is built for, every output equal to
+    the twin's; their times, the fastest, and the form and R the
+    wrapper's rule picks (time_network_form) beside it."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(6)
@@ -875,19 +914,26 @@ def phase_runs() -> None:
          (-5, -1, 0), 5),
         ("K=47 C=64 H=91 B=32 F=129 (hop 64)", _mags(rng, 64, 91, 129),
          _mags(rng, 64, 32, 129), tuple(range(-91, -68)) + tuple(range(-23, 1)), 91),
+        ("K=47 C=1 H=91 B=32 F=129 (one hop-64 stream)", _mags(rng, 1, 91, 129),
+         _mags(rng, 1, 32, 129), tuple(range(-91, -68)) + tuple(range(-23, 1)), 91),
     ):
-        want = mc._time_launch(a, b, offs, start, 0.0, "register")
+        want = mc.tap_median_time_plain(a, b, offs, start)
         us = {}
         for run in RUN_LENGTHS:
             fn = lambda r=run: mc._time_launch(a, b, offs, start, 0.0, "register", run=r)  # noqa: E731
             require(torch.equal(fn(), want), f"runs {label} run {run} differs")
-            us[run] = median_us(fn, runs=10)
-        chosen = mc.time_network_run(a.shape[1] + b.shape[1] - start, a.shape[0], a.shape[2],
-                                     offs)
-        print(f"phase 3 runs K1 network {label}: bitwise equal; "
-              + ", ".join(f"run {r} {v:.2f} us ({len(mc.time_network_plan(offs, r)[0])} staged)"
-                          for r, v in us.items())
-              + f" (medians of 10); fastest {min(us, key=us.get)}, time_network_run {chosen}")
+            us[f"run {run} ({len(mc.time_network_plan(offs, run)[0])} staged)"] = median_us(
+                fn, runs=10)
+        for r in mc.time_core_runs(offs):
+            fn = lambda r=r: mc._time_launch(a, b, offs, start, 0.0, "register", core=r)  # noqa: E731
+            require(torch.equal(fn(), want), f"runs {label} core R={r} differs")
+            us[f"core R={r}"] = median_us(fn, runs=10)
+        form, size = mc.time_network_form(offs, a.shape[1] + b.shape[1] - start, a.shape[0],
+                                           a.shape[2])
+        print(f"phase 3 runs K1 register {label}: bitwise equal; network "
+              + ", ".join(f"{name} {v:.2f} us" for name, v in us.items())
+              + f" (medians of 10); fastest {min(us, key=us.get)}, picked "
+              + (f"core R={size}" if form == "core" else f"network run {size}"))
 
 
 def phase_sweep() -> None:
@@ -1101,6 +1147,7 @@ def reset_launches() -> None:
         wrapper = getattr(mc, name)
         wrapper.launches = wrapper.steps = 0
         wrapper.routes.update(dict.fromkeys(wrapper.routes, 0))
+    mc.tap_median_time.cores = 0
     mc.sliding_median_boundary.stores.update(dict.fromkeys(mc.sliding_median_boundary.stores, 0))
     for name in PROBES:
         getattr(pc, name).launches = 0
@@ -1109,13 +1156,16 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     """Median launches since the last reset by kernel route, 'kernel/route';
     of each kernel's on the rank route, the ones that took its steps
-    kernel, 'kernel/rank@steps' (STEPS); and of K2's, the ones whose keys
-    took the key store, 'sliding_median_boundary/rank@scratch'."""
+    kernel, 'kernel/rank@steps' (STEPS); of K1's on the register route,
+    the ones that took the shared core, 'tap_median_time/register@core'
+    (CORE); and of K2's, the ones whose keys took the key store,
+    'sliding_median_boundary/rank@scratch'."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     counts = {f"{name}/{route}": getattr(mc, name).routes[route]
               for name, routes in ROUTES.items() for route in routes}
     counts.update({f"{name}/{STEPS}": getattr(mc, name).steps for name in ROUTES})
+    counts[f"tap_median_time/{CORE}"] = mc.tap_median_time.cores
     counts[f"sliding_median_boundary/{SCRATCH}"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 
@@ -3682,6 +3732,23 @@ def glue_only(x, fl: int, direction: str, border: str):
     return lambda: om.median2d_over(x, fl, direction, border, time_stub, freq_stub)
 
 
+def register_form(form):
+    """tap_median_time's stand-in that forces K1's register route into one
+    form: 'network' (the per-output network at the wrapper's run) or an R
+    (the shared core at runs of R outputs); counts nothing."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    def time_median(a, b, offsets, start, fill=0.0):
+        offsets = tuple(offsets)
+        if form != "network":
+            return mc._time_launch(a, b, offsets, start, fill, "register", core=form)
+        run = mc.time_network_run(a.shape[-2] + b.shape[-2] - start, math.prod(a.shape[:-2]),
+                                  a.shape[-1], offsets)
+        return mc._time_launch(a, b, offsets, start, fill, "register", run=run)
+
+    return time_median
+
+
 def phase_median2d(smi: str) -> dict:
     """median2d, the reference's whole-matrix filter, through its entry
     point on every case of median2d_cases(): one counted run (each call's
@@ -3690,7 +3757,10 @@ def phase_median2d(smi: str) -> dict:
     the card (median2d_over) and, for the small matrices, against
     median2d_plain on the CPU; median2d's device time and its glue's
     (glue_only), the twins' time, torch.kthvalue over the same windows
-    and the bound (x read once, the output written once). Last, a NaN
+    and the bound (x read once, the output written once). Every case K1's
+    register route takes runs again in both of its forms (the per-output
+    network, the shared core at each built R), held bitwise against the
+    twins and timed, beside the form the wrapper takes. Last, a NaN
     probe: what each route gives for a window holding NaN, beside its
     twin (the kernels take magnitudes; recorded, not held)."""
     from zen_tpu_torch.ops import median as om
@@ -3739,6 +3809,25 @@ def phase_median2d(smi: str) -> dict:
               f"kthvalue {lib} (unfold view); bound "
               f"{b_us:.2f} us ({b_by}); {1 if key else 0} launch per call [{smi}]")
     del outs
+    # K1's register route in both forms on median2d's own operands
+    for label, x, fl, direction, border in cases:
+        key = median2d_launch(x, fl, direction, border)
+        if key not in ("tap_median_time/register", f"tap_median_time/{CORE}"):
+            continue
+        what = f"median2d {label} {direction}/{border} fl={fl}"
+        twin = om.median2d_over(x, fl, direction, border, mc.tap_median_time_plain,
+                                mc.sliding_median_boundary_plain)
+        us = {}
+        for form in ("network", *mc.time_core_runs(tuple(range(-om.odd_filter_len(fl) + 1, 1)))):
+            fn = lambda f=form, x=x, fl=fl, d=direction, b=border: om.median2d_over(  # noqa: E731
+                x, fl, d, b, register_form(f), mc.sliding_median_boundary)
+            name = "network" if form == "network" else f"core R={form}"
+            require(torch.equal(fn(), twin), f"{what}: K1 {name} differs from the twins")
+            us[name] = median_us(fn, runs=10)
+        del twin
+        print(f"phase 31 {what} both K1 register forms: bitwise equal to the twins; "
+              + ", ".join(f"{name} {v:.2f} us" for name, v in us.items())
+              + f" (medians of 10, glue included); the wrapper takes {key} [{smi}]")
     rng = np.random.default_rng(32)
     for what, x, fl, direction in (("K2 network", _mags(rng, 4, 300), 13, om.FREQUENCY),
                                    ("K2 rank", _mags(rng, 4, 300), 65, om.FREQUENCY),
@@ -3787,7 +3876,8 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
         first = st["shapes"][0]
         tpus = list(dict.fromkeys(TPU_KERNELS[sh["tpu_kernel"]] for sh in st["shapes"]))
         row = {
-            "name": key, "route": "cuda", "source": SOURCES[name], "replaces": tpus[0],
+            "name": key, "route": "cuda", "source": SOURCES.get(key, SOURCES[name]),
+            "replaces": tpus[0],
             "also_replaces": tpus[1:],
             "launches": sum(counts.get(key, 0) for counts in by_path.values()),
             "launches_by_path": {path: counts.get(key, 0) for path, counts in by_path.items()},
@@ -3886,7 +3976,7 @@ def main() -> None:
     # K1's select route (384 kHz hop 1), both rank routes' steps kernels
     # (the offline pass 1, median2d's fl 93), and both copy mirrors
     wanted = {"tap_median_time/register", "tap_median_time/rank", "tap_median_time/select",
-              *(f"{name}/{STEPS}" for name in ROUTES),
+              f"tap_median_time/{CORE}", *(f"{name}/{STEPS}" for name in ROUTES),
               *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),
               *(f"{name}/copy" for name in PROBES)}
     launched = {row["name"] for row in rows}

@@ -178,7 +178,7 @@ def test_odf_window_is_read_only_and_not_shared():
 
 
 @pytest.mark.parametrize("signal", ["noise", "click_track", "one_frame"])
-def test_odf_batch_matches_zen_tpu(signal):
+def test_odf_batch_matches_zen_tpu(signal, monkeypatch):
     if signal == "noise":
         audio = np.random.default_rng(1).standard_normal(256 * 24).astype(np.float32) * 0.2
     elif signal == "click_track":
@@ -188,36 +188,57 @@ def test_odf_batch_matches_zen_tpu(signal):
     frames = jb.frames_from_hops(audio)
     np.testing.assert_array_equal(tb.frames_from_hops(audio), frames)
     want = np.asarray(jb.odf_batch(frames))
+    # keep the spectra odf_batch computes, for the evidence on a failure
+    spectra, from_spectrum = [], tb.odf_from_spectrum
+    monkeypatch.setattr(tb, "odf_from_spectrum",
+                        lambda spec: spectra.append(spec) or from_spectrum(spec))
     got = tb.odf_batch(torch.from_numpy(frames)).numpy()
+    monkeypatch.undo()
     assert got.shape == want.shape == (len(audio) // 256,) and got.dtype == np.float32
     try:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
     except AssertionError as err:
-        raise AssertionError(f"{err}\n{_odf_evidence(frames, got)}") from None
+        raise AssertionError(f"{err}\n{_odf_evidence(frames, got, spectra[0])}") from None
 
 
-def _odf_evidence(frames: np.ndarray, got: np.ndarray) -> str:
+def _odf_evidence(frames: np.ndarray, got: np.ndarray, spec: torch.Tensor) -> str:
     """What the process carries when the port's ODF misses zen_tpu's
-    (ROADMAP Queue 3 item 8): the xdist worker, torch's thread counts, the
-    calling thread's rounding mode (fegetround: 0 to nearest, 0x400
-    down, 0x800 up, 0xc00 toward zero), the live Python threads (a worker
-    thread that outlived an earlier test, a loader's or a pipelined
-    cascade's), and whether two more calls on the same frames give the
-    first call's bits (a transient) or not (state the process holds, such
-    as a plan cached under another mode)."""
+    (ROADMAP Queue 3 item 8): the xdist worker, torch's thread counts and
+    MKL's, the calling thread's rounding mode (fegetround, which reads the
+    x87 control word alone: 0 to nearest, 0x400 down, 0x800 up, 0xc00
+    toward zero), MXCSR (the SSE/AVX state the FFT's vector code obeys:
+    0x1f80 is round to nearest with no FTZ/DAZ; its low 6 bits are
+    exception flags) on the calling thread and on every thread of torch's
+    OpenMP pool, the live Python threads, whether two more calls on the
+    same frames give the first call's bits (a transient) or not (state
+    the process holds), and which rows of the first call's spectrum
+    differ from the later calls', each row's error against a float64 FFT
+    of the same rows beside the later calls'."""
     import ctypes
     import ctypes.util
     import threading
 
+    from zen_tpu_torch.tools import odf_fp_probe as probe
+
     libm = ctypes.CDLL(ctypes.util.find_library("m"))
-    again = [tb.odf_batch(torch.from_numpy(frames)).numpy() for _ in range(2)]
+    fp = probe.fp_state(probe.helper())
+    x = torch.from_numpy(frames)
+    again = [tb.odf_batch(x).numpy() for _ in range(2)]
     same = [bool(np.array_equal(a.view(np.uint32), got.view(np.uint32))) for a in again]
     moved = [np.nonzero(a != got)[0].tolist() for a in again]
+    later = tb.odf_spectrum(x).numpy()
+    first = spec.numpy()
+    rows = np.nonzero((first != later).any(-1))[0].tolist()
+    exact = np.fft.fft(probe._spectrum_input(x), axis=-1)
+    err, err_later = probe._row_errors(first, exact), probe._row_errors(later, exact)
     return (f"evidence: xdist worker {os.environ.get('PYTEST_XDIST_WORKER', 'none')}, "
             f"torch threads {torch.get_num_threads()} (interop "
-            f"{torch.get_num_interop_threads()}), rounding mode {libm.fegetround():#x}, "
-            f"live threads {[t.name for t in threading.enumerate()]}, "
-            f"calls 2 and 3 bit-equal to call 1: {same} (frames that moved: {moved}); "
+            f"{torch.get_num_interop_threads()}, MKL {probe.mkl_threads()}), rounding mode "
+            f"{libm.fegetround():#x}, x87 control word {fp['x87_cw']}, MXCSR {fp['mxcsr']} "
+            f"(pool {fp['pool_mxcsr']}), live threads {[t.name for t in threading.enumerate()]}, "
+            f"calls 2 and 3 bit-equal to call 1: {same} (frames that moved: {moved}); spectrum "
+            f"rows of call 1 that differ from call 4's: {rows}, their error against float64 "
+            f"{[err[r] for r in rows]} (call 4: {[err_later[r] for r in rows]}); "
             f"call 1 {got.tolist()}")
 
 

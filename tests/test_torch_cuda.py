@@ -71,6 +71,59 @@ def test_time_kernel_matches_twin(cuda_device, a_shape, b_shape, offsets, start,
     assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "a_shape,b_shape,offsets,start,fill",
+    [((64, 21, 513), (64, 32, 513), T256, 21, 0.0),  # the 64-stream fleet
+     ((32, 21, 513), (32, 16, 513), T256, 21, 0.0),  # a 512-stream block's shard
+     ((1, 643, 513), (1, 0, 513), tuple(range(-5, 6)), 0, 0.0),  # the clip's pass 2
+     ((3, 40, 130), (3, 0, 130), tuple(range(-8, 9)), 5, float("inf")),  # fill past both ends
+     ((8, 11, 1024), (8, 16, 1024), tuple(range(-11, 0)), 11, 0.0),  # the valid border
+     ((4, 91, 129), (4, 32, 129), tuple(range(-91, -68)) + tuple(range(-23, 1)), 91, 0.0),
+     ((4, 62, 129), (4, 37, 129), tuple(range(-31, 32)), 62, float("inf"))],
+)
+def test_time_core_matches_twin(cuda_device, a_shape, b_shape, offsets, start, fill, dtype):
+    """K1's shared core at each R it is built for, at the paths' tap sets
+    (one run, the causal wrap's two), bitwise to the twin."""
+    rng = np.random.default_rng(len(offsets) + a_shape[1])
+    a = _mags(rng, *a_shape, device=cuda_device).to(dtype)
+    b = _mags(rng, *b_shape, device=cuda_device).to(dtype)
+    want = mc.tap_median_time_plain(a, b, offsets, start, fill)
+    runs = mc.time_core_runs(offsets)
+    assert runs
+    for r in runs:
+        got = mc._time_launch(a, b, offsets, start, fill, "register", core=r)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), r
+
+
+def test_register_route_takes_the_core_where_planned(cuda_device):
+    """tap_median_time counts a shared-core launch in ``cores`` (and on
+    the register route) where time_network_form picks it, and takes the
+    per-output network at hop 1024's K = 3 and the replicate border's
+    majority tap; a shape the core is not built for raises."""
+    rng = np.random.default_rng(11)
+    hist, fresh = (_mags(rng, 64, 21, 513, device=cuda_device),
+                   _mags(rng, 64, 32, 513, device=cuda_device))
+    register, cores = mc.tap_median_time.routes["register"], mc.tap_median_time.cores
+    got = mc.tap_median_time(hist, fresh, T256, 21)
+    torch.cuda.synchronize()
+    assert (mc.tap_median_time.routes["register"], mc.tap_median_time.cores) == (
+        register + 1, cores + 1)
+    assert torch.equal(got, mc.tap_median_time_plain(hist, fresh, T256, 21))
+    replicate = tuple(range(-5, 0)) + (0,) * 6
+    h5, f5 = _mags(rng, 8, 5, 1024, device=cuda_device), _mags(rng, 8, 16, 1024, device=cuda_device)
+    for a, b, offsets, start in ((hist[:1, :5], fresh[:1], T1024, 5), (h5, f5, replicate, 5)):
+        a, b = a.contiguous(), b.contiguous()
+        got = mc.tap_median_time(a, b, offsets, start)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start))
+    assert (mc.tap_median_time.routes["register"], mc.tap_median_time.cores) == (
+        register + 3, cores + 1)
+    with pytest.raises(ZenError, match="no shared core"):
+        mc._time_launch(hist, fresh, T256, 21, 0.0, "register", core=4)
+
+
 @pytest.mark.parametrize(
     "rows,f,k,mode",
     [(32, 2049, 47, "reflect"), (2048, 513, 13, "reflect"),

@@ -157,6 +157,22 @@ def test_time_pair_matches_pallas(c, h, b, f, offsets):
 
 
 @pytest.mark.parametrize(
+    "c,h,b,f,offsets,r",
+    [(3, 21, 16, 130, T256, 2), (3, 21, 16, 130, T256, 3), (2, 21, 32, 64, T256, 3),
+     (2, 11, 16, 130, tuple(range(-11, 0)), 4)],
+)
+def test_time_core_plain_matches_pallas_pair(c, h, b, f, offsets, r):
+    """K1's shared core, run by its plain version at the R values it is
+    built for at the fleets' taps (hop 256's two tap runs under wrap, one
+    run under the valid border), against zen_tpu's pair kernel."""
+    rng = np.random.default_rng(r)
+    hist, fresh = _mags(rng, c, h, f), _mags(rng, c, b, f)
+    want = np.asarray(mp.tap_median_time_pair_pallas(hist, fresh, offsets))
+    got = mc.tap_median_time_core_plain(_t(hist), _t(fresh), offsets, h, 0.0, r).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
     "offsets,start,fill",
     [((-3, -2, -1, 0, 0, 0, 0), 0, 0.0), (T1024, 5, 0.0),
      (tuple(range(-3, 4)), 2, float("inf"))],

@@ -402,3 +402,273 @@ def test_freq_network_emulation_matches_twin(k, f_out, mode):
         out[:, j0 : j0 + live] = sn.select_median_plain(taps)
     assert mc.freq_route(k) == "network"
     assert torch.equal(out, mc.sliding_median_boundary_plain(x, k, mode))
+
+
+# ---------------- K1's shared core (runs of outputs share their taps) ----------------
+
+CORE_RS = (1, 2, 4, 8, 16)
+CORE_KS = list(range(1, sn.FREQ_MAX_TAPS + 1, 2))  # every odd K up to 31
+
+
+def _core_taps(k: int, kind: str) -> tuple:
+    """Taps of K = k: 'one' run centered; 'two' runs (fm, fm + 1) as the
+    causal wrap lays them out (hop 256's at K = 11); 'duplicated' a run
+    ending at 0 plus two more 0s, as the replicate border repeats it."""
+    fm = k // 2
+    if kind == "one":
+        return tuple(range(-fm, fm + 1))
+    if kind == "two":
+        return tuple(range(-4 * k, -4 * k + fm)) + tuple(range(-fm, 1))
+    return tuple(range(-(k - 3), 1)) + (0, 0) if k >= 3 else (0,)
+
+
+@pytest.mark.parametrize("kind", ["one", "two", "duplicated"])
+@pytest.mark.parametrize("k", CORE_KS)
+def test_core_schedule_matches_the_twin_and_zen_tpu(k, kind):
+    """The shared core's plain version (``tap_median_time_core_plain``:
+    each run of R outputs loads the rows its taps reach and runs
+    ``core_program``'s schedule) is bitwise ``tap_median_time_plain`` and
+    zen_tpu's Pallas time median (interpret mode) at every R of
+    CORE_RS, on tie-heavy inputs, with fill +inf or -inf past both ends
+    of V; the schedule exists exactly where the R outputs share a tap."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from zen_tpu.ops import median_pallas as mp
+
+    offsets = _core_taps(k, kind)
+    assert len(offsets) == k
+    fill = float("inf") if k % 4 == 1 else float("-inf")
+    rng = np.random.default_rng(100 * k + len(kind))
+    h = -min(offsets)
+    x = _levels(rng, (2, h + 23, 9), ties=True)
+    a, b = torch.from_numpy(x[:, :h]), torch.from_numpy(x[:, h:])
+    start = max(0, h - 3)  # the first outputs' taps reach past row 0
+    want = mc.tap_median_time_plain(a, b, offsets, start, fill)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(mp.tap_median_time_pallas(x, offsets, fill=fill, start=start))
+    np.testing.assert_array_equal(want.numpy(), pallas)
+    lengths = tuple(n for _, n in sn.tap_runs(offsets))
+    for r in CORE_RS:
+        if sn.core_program(lengths, r) is None:
+            assert all(n < r for n in lengths), (lengths, r)
+            continue
+        got = mc.tap_median_time_core_plain(a, b, offsets, start, fill, r)
+        assert torch.equal(got, want), (offsets, r)
+
+
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_core_plain_bf16_matches_the_twin(r):
+    """bf16 taps go through float and back (the kernel's to_float and
+    from_float) and select the twin's bits: hop 256's two runs, the
+    512-stream block's B = 16 outputs in runs of r (the last ragged)."""
+    rng = np.random.default_rng(r)
+    a = _tensor(_levels(rng, (3, 21, 17), ties=True), torch.bfloat16)
+    b = _tensor(_levels(rng, (3, 16, 17), ties=True), torch.bfloat16)
+    got = mc.tap_median_time_core_plain(a, b, T256, 21, 0.0, r)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mc.tap_median_time_plain(a, b, T256, 21))
+
+
+def test_core_schedule_passes_the_zero_one_principle():
+    """Every built shape (``core_shapes``) gives each of its R outputs the
+    median of its K taps on every 0-1 input of the rows a thread loads,
+    at K up to 9 (2^(K + 2(R - 1)) inputs), and on 4096 random 0-1
+    inputs beyond."""
+    rng = np.random.default_rng(0)
+    for lengths, r in sn.core_shapes():
+        loads, _, _, _ = sn.core_program(lengths, r)
+        s = len(loads)
+        if s <= 14:
+            bits = (np.arange(1 << s)[:, None] >> np.arange(s)) & 1
+        else:
+            bits = rng.integers(0, 2, (4096, s))
+        staged = torch.from_numpy(bits.T.astype(np.float32))
+        got = sn.core_medians_plain(staged, lengths, r).numpy()
+        pos = {jp: q for q, jp in enumerate(loads)}
+        for i in range(r):
+            taps = np.stack([bits[:, pos[(j, i + p)]] for j, n in enumerate(lengths)
+                             for p in range(n)])
+            want = np.sort(taps, axis=0)[(taps.shape[0] - 1) // 2]
+            np.testing.assert_array_equal(got[i], want, err_msg=f"{lengths} R={r} output {i}")
+
+
+def test_core_saves_min_max_over_the_network():
+    """The shared core's min/max an output against median<K>'s at the
+    paths' shapes (upper bounds counted over Batcher's full network were
+    ~29, ~43 and ~150)."""
+    assert sn.minmax_count(11) == 54 and sn.minmax_count(17) == 124
+    assert sn.core_minmax_per_output((11,), 4) == 20.5
+    assert sn.core_minmax_per_output((5, 6), 3) == 28.0
+    assert sn.core_minmax_per_output((17,), 4) == 32.5
+    assert sn.core_minmax_per_output((23, 24), 6) < 170 and sn.minmax_count(47) == 570
+    # R = 1 is the per-output network itself
+    for k in (3, 11, 17, 31):
+        assert sn.core_minmax_per_output((k,), 1) == sn.minmax_count(k)
+
+
+def test_tap_runs_split_the_multiset():
+    assert sn.tap_runs(T256) == ((-21, 5), (-5, 6))
+    assert sn.tap_runs(CENTERED11) == ((-5, 11),)
+    assert sn.tap_runs(T1024) == ((-5, 1), (-1, 2))
+    assert sn.tap_runs(tuple(range(-5, 0)) + (0,) * 6) == ((-5, 6),) + ((0, 1),) * 5
+    assert sn.tap_runs((3, 1, 2, 2)) == ((1, 3), (2, 1))
+
+
+def test_core_shapes_are_the_built_kernels():
+    """One tap run of each odd length 5..63 and the causal wrap's (fm,
+    fm + 1) for fm 2..31, each at its CORE_KEEP best R of CORE_RUNS; ids
+    in order, split over CORE_PARTS sources (csrc/median_time_core_p*.cu,
+    one per part)."""
+    shapes = sn.core_shapes()
+    assert len(shapes) == 115 and len(set(shapes)) == len(shapes)
+    lengths = list(dict.fromkeys(s for s, _ in shapes))
+    assert lengths == [(n,) for n in range(5, 64, 2)] + [(fm, fm + 1) for fm in range(4, 32)]
+    assert all(sum(1 for s, _ in shapes if s == ln) <= sn.CORE_KEEP for ln in lengths)
+    assert [r for s, r in shapes if s == (11,)] == [3, 4]
+    assert [r for s, r in shapes if s == (5, 6)] == [2, 3]
+    assert [r for s, r in shapes if s == (17,)] == [3, 4]
+    assert [r for s, r in shapes if s == (23, 24)] == [4, 6]
+    for lengths_r in shapes:
+        assert len(sn.core_program(*lengths_r)[0]) <= sn.CORE_MAX_STAGED
+    parts = sorted(p.name for p in _build.CSRC.glob("median_time_core_p*.cu"))
+    assert parts == [f"median_time_core_p{q}.cu" for q in range(sn.CORE_PARTS)]
+    assert {sn.core_part(q) for q in range(len(shapes))} == set(range(sn.CORE_PARTS))
+
+
+def test_core_header_holds_each_shape():
+    """zen_core.cuh: a Shape<id> a built shape, its loads by tap run and
+    position, its program straight-line, and each part's list of ids."""
+    text = sn.emit_core_header()
+    assert f"#define ZEN_CORE_PARTS {sn.CORE_PARTS}\n" in text
+    listed = []
+    for q in range(sn.CORE_PARTS):
+        ids = re.search(rf"#define ZEN_CORE_FOR_EACH_SHAPE_OF_PART_{q}\(X\) (.*)", text).group(1)
+        listed += [int(x[2:-1]) for x in ids.split()]
+    assert sorted(listed) == list(range(len(sn.core_shapes())))
+    heads = re.findall(r"struct Shape<(\d+)> \{\n  static constexpr int kK = (\d+), kR = (\d+), "
+                       r"kStaged = (\d+), kTapRuns = (\d+);", text)
+    assert len(heads) == len(sn.core_shapes())
+    for (sid, k, r, staged, runs), (lengths, rr) in zip(heads, sn.core_shapes()):
+        assert (int(k), int(r), int(runs)) == (sum(lengths), rr, len(lengths))
+        assert int(staged) == len(sn.core_program(lengths, rr)[0])
+    assert "for" not in re.sub(r"//.*|ZEN_CORE_FOR_EACH_\w+", "", text).split()
+
+
+@pytest.mark.parametrize("shape_id", [0, 5, 12, 40, 63, 90, 114])
+def test_core_header_shape_computes_the_medians(shape_id):
+    """A Shape<id>'s emitted stage and medians, read as Python, give each
+    of its R outputs the median of its taps."""
+    lengths, r = sn.core_shapes()[shape_id]
+    body = re.search(rf"struct Shape<{shape_id}> \{{\n(.*?)\n\}};", sn.emit_core_header(),
+                     flags=re.S).group(1)
+    loads = [tuple(map(int, m)) for m in re.findall(r"v\[\d+\] = load\((\d+), (\d+)\);", body)]
+    assert loads == list(sn.core_program(lengths, r)[0])
+    x = _levels(np.random.default_rng(shape_id), (len(loads), 300), ties=True)
+    env = {"v": list(torch.from_numpy(x)), "fminf": torch.minimum, "fmaxf": torch.maximum,
+           "m": [None] * r}
+    medians = body[body.index("static void medians"):]
+    for line in medians.splitlines()[1:]:
+        line = line.strip()
+        if line.startswith("const float"):
+            name, expr = re.fullmatch(r"const float (\w+) = (.*);", line).groups()
+            env[name] = eval(expr, {}, env)  # noqa: S307 (the repo's own generated text)
+        elif line.startswith("m["):
+            i, expr = re.fullmatch(r"m\[(\d+)\] = (\w+);", line).groups()
+            env["m"][int(i)] = env[expr]
+    pos = {jp: q for q, jp in enumerate(loads)}
+    for i in range(r):
+        taps = np.stack([x[pos[(j, i + p)]] for j, n in enumerate(lengths) for p in range(n)])
+        np.testing.assert_array_equal(env["m"][i].numpy(), np.sort(taps, axis=0)[sum(lengths) // 2])
+
+
+def test_library_hash_covers_the_core_header(monkeypatch):
+    """An edited shared-core schedule names another library."""
+    before = _build.library_path()
+    shapes = sn.core_shapes()
+    monkeypatch.setattr(sn, "core_shapes", lambda: shapes[:-1])
+    assert _build.library_path() != before
+
+
+def test_split_builds_leave_the_core_out():
+    """The cut builds (chip_smoke's split of a rank block) compile no
+    shared-core source; the library compiles each of them."""
+    full = {p.name for p in _build._sources(0)}
+    cut = {p.name for p in _build._sources(1)}
+    core = {p.name for p in _build.CSRC.glob("median_time_core*.cu")}
+    assert core and core <= full and not core & cut and full - cut == core
+
+
+def test_register_form_per_geometry():
+    """``time_network_form``'s pick at each path's geometry: the shared
+    core wherever its shape is built and the call has more than one output
+    row, at the largest R whose grid keeps TIME_CORE_MIN_BLOCKS blocks (the
+    smallest R on a single stream's few blocks); the per-output network
+    elsewhere; a majority tap planned as K = 1 first."""
+    form = mc.time_network_form
+    assert form(T256, 32, 64, 513) == ("core", 3)  # the 64-stream fleet, B = 32
+    assert form(T256, 16, 512, 513) == ("core", 3)  # the 512-stream block, B = 16
+    assert form(T256, 1, 512, 513) == ("network", 1)  # B = 1: one row shares nothing
+    assert form(CENTERED11, 41355, 1, 513) == ("core", 4)  # the track's pass 2
+    assert form(CENTERED11, 643, 1, 513) == ("core", 4)  # the clip's pass 2
+    assert form(tuple(range(-16, 1)), 2585, 1, 8193) == ("core", 4)  # median2d fl 17
+    assert form(tuple(range(-11, 0)), 16, 512, 1024) == ("core", 4)  # the valid border
+    assert form(T256, 64, 1, 513) == ("core", 2)  # beat-track: 160 blocks at R = 2
+    assert form(T64, 32, 1, 129) == ("core", 4)  # one hop-64 stream, B = 32
+    assert form(T64, 1, 1, 129) == ("network", 1)  # and B = 1
+    assert form(T64, 32, 64, 129) == ("core", 6)  # the hop-64 fleet
+    assert form(CENTERED63, 32, 64, 129) == ("core", 8)
+    assert form(tuple(range(-32, 1)), 32, 64, 513) == ("core", 8)
+    assert form(T1024, 32, 1, 2049) == ("network", 1)  # runs (1, 2): no shape
+    assert form((0,), 8, 1, 8193) == ("network", 1)  # pitch-track's K = 1
+    replicate = tuple(range(-5, 0)) + (0,) * 6
+    assert mc.time_majority_tap(replicate) == 0 and mc.time_majority_tap(T256) is None
+    assert form(replicate, 16, 512, 1024) == ("network", 8)
+    assert mc.time_majority_tap(T64_REPLICATE) == 0
+    assert mc._time_blocks(32, 64, 129, 8) == 512 >= mc.TIME_CORE_MIN_BLOCKS
+
+
+def test_register_route_arguments():
+    """What the wrapper hands each register kernel: the shared core's
+    shape id and each tap run's first offset (and K); the replicate
+    border's majority tap alone at K = 1 on the network; a shape the
+    kernel is not built for raises, never falls back."""
+    cpu = torch.device("cpu")
+    shape, firsts = mc.time_core_plan(T256, 3)
+    assert sn.core_shapes()[shape] == ((5, 6), 3) and firsts == (-21, -5)
+    name, (fs, runs, sid), tail, k = mc._time_args(T256, 21, 21, 16, 512, 513, "register", cpu)
+    assert (name, list(fs), runs, sid, tail, k) == (
+        "zen_tap_median_time_core", [-21, -5], 2, shape, (), 11)
+    replicate = tuple(range(-5, 0)) + (0,) * 6
+    name, (rows, staged, slots, run), _, k = mc._time_args(replicate, 5, 5, 16, 512, 1024,
+                                                           "register", cpu)
+    assert (name, k, run, list(rows)) == ("zen_tap_median_time_network", 1, 8, list(range(8)))
+    # forced forms (chip_smoke's sweeps): the network at a run, the core at an R
+    assert mc._time_args(T256, 21, 21, 16, 512, 513, "register", cpu, run=2)[0] == (
+        "zen_tap_median_time_network")
+    assert mc._time_args(T256, 21, 21, 16, 512, 513, "register", cpu, core=2)[1][2] == (
+        mc.time_core_plan(T256, 2)[0])
+    assert mc.time_core_plan(T1024, 2) is None and mc.time_core_plan(T256, 4) is None
+    with pytest.raises(mc.ZenError, match="no shared core"):
+        mc._time_args(T256, 21, 21, 16, 512, 513, "register", cpu, core=4)
+
+
+def test_smoke_labels_the_shared_core():
+    """chip_smoke.py's launch labels: a register call that takes the
+    shared core is CORE ('register@core'), counted on the register route
+    too; one that takes the per-output network stays 'register'; by_route
+    drops the CORE keys, which a count from the configs alone does not
+    hold; the kernels line names the core's own source."""
+    import chip_smoke as cs
+
+    sms = mc.H100_SMS
+    assert cs.time_call_label(T256, 21, 21 + 32, 64, 513, sms) == cs.CORE  # the 64-stream fleet
+    assert cs.time_call_label(CENTERED11, 0, 41_355, 1, 513, sms) == cs.CORE  # the track's pass 2
+    assert cs.time_call_label(T1024, 5, 5 + 32, 1, 2049, sms) == "register"  # hop 1024
+    assert cs.time_call_label((0,), 0, 8, 1, 8193, sms) == "register"  # pitch-track
+    assert cs.time_call_label(T256, 21, 22, 512, 513, sms) == "register"  # B = 1
+    assert cs.launch_keys(f"tap_median_time/{cs.CORE}") == (
+        f"tap_median_time/{cs.CORE}", "tap_median_time/register")
+    counts = {"tap_median_time/register": 3, f"tap_median_time/{cs.CORE}": 2}
+    assert cs.by_route(counts) == {"tap_median_time/register": 3}
+    assert cs.SOURCES[f"tap_median_time/{cs.CORE}"] == "zen_tpu_torch/csrc/median_time_core.cu"
+    assert (_build.CSRC.parents[1] / cs.SOURCES[f"tap_median_time/{cs.CORE}"]).exists()

@@ -92,7 +92,7 @@ def _device_window(device: torch.device) -> torch.Tensor:
 def odf_batch(frames: torch.Tensor) -> torch.Tensor:
     """Complex-spectral-difference-HWR onset detection function [T] for a
     batch of frames [T, 512] (each frame = 2 consecutive 256 hops), on
-    the frames' device.
+    the frames' device: ``odf_from_spectrum(odf_spectrum(frames))``.
 
     Mirrors OnsetDetection.cpp:70-131 in zen_tpu's order of operations:
     window, swap halves (zero-phase trick, OnsetDetection.cpp:74-78),
@@ -101,9 +101,20 @@ def odf_batch(frames: torch.Tensor) -> torch.Tensor:
     summed over bins where the magnitude increased. Frames n-1, n-2 are
     zeros for the first frames (the reference's zeroed state).
     """
+    return odf_from_spectrum(odf_spectrum(frames))
+
+
+def odf_spectrum(frames: torch.Tensor) -> torch.Tensor:
+    """The complex spectra [T, 512] the ODF reads: each frame windowed,
+    its halves swapped, transformed."""
     xw = frames.to(torch.float32) * _device_window(frames.device)
     fft_in = torch.cat([xw[:, HOP_SIZE:], xw[:, :HOP_SIZE]], dim=-1)
-    spec = torch.fft.fft(fft_in, dim=-1)
+    return torch.fft.fft(fft_in, dim=-1)
+
+
+def odf_from_spectrum(spec: torch.Tensor) -> torch.Tensor:
+    """The ODF [T] of ``odf_spectrum``'s spectra: frame n reads spectrum
+    rows n, n-1 and n-2."""
     mag = spec.abs()
     # + 0.0 turns -0.0 into +0.0: the phase of a zero (an all-zero frame,
     # the DC and Nyquist bins' imaginary part) is atan2 of signed zeros,

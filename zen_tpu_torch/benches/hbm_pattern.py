@@ -105,10 +105,12 @@ def measure(args: argparse.Namespace, log=print) -> dict:
     run("ceiling_big", lambda x: x * C_MUL, big, 2 * big.numel() * 4,
         f"x * c over {args.big_mb} MB flat")
     del big
-    t_route, t_run = mc.time_route(offs), None
+    t_route, t_form = mc.time_route(offs), (None, None)
     if t_route == "register":
-        t_run = mc.time_network_run(B, S, bins, offs)
-        t_note = f"network, runs of {t_run} rows, {len(mc.time_network_plan(offs, t_run)[0])} staged"
+        t_form = mc.time_network_form(offs, B, S, bins)
+        t_note = (f"shared core, runs of {t_form[1]} rows" if t_form[0] == "core" else
+                  f"network, runs of {t_form[1]} rows, "
+                  f"{len(mc.time_network_plan(offs, t_form[1])[0])} staged")
     else:
         t_note = t_route
     run("time_real", lambda x: keep(mc.tap_median_time(x, x[:, :0], offs, H), x), slab,
@@ -116,7 +118,7 @@ def measure(args: argparse.Namespace, log=print) -> dict:
     run("time_dma", lambda x: keep(pc.rows_copy(x, H, B), x), slab, 2 * out_bytes,
         f"#9 rows_copy rows {H}..{H + B} (K1's thread mapping, runs of "
         f"{mc.time_fill_run(B, S, bins)} rows: the run that fills the card, before "
-        "the network's staging limit)")
+        "the network's staging limit; the shared core takes its own R)")
     f_route = mc.freq_route(kf)
     # the outputs a block takes: the network route's share of a row, or the rank route's tile
     tile = mc.freq_network_chunk(bins) if f_route == "network" else mc.freq_rank_tile(kf)
@@ -160,7 +162,8 @@ def measure(args: argparse.Namespace, log=print) -> dict:
         "config": {
             "streams": S, "hop": hop, "block_hops": B, "fs": args.fs, "bins": bins,
             "history_rows": H, "time_taps": len(offs), "freq_taps": kf,
-            "time_route": t_route, "time_network_run": t_run,
+            "time_route": t_route, "time_network_form": t_form[0],
+            "time_network_run": t_form[1],
             "freq_route": f_route, "freq_block_outputs": tile,
             "freq_rank_tile": mc.freq_rank_tile(kf) if f_route == "rank" else None,
         },

@@ -20,6 +20,10 @@
 // from K alone: the `register` route's comparator network up to
 // ZEN_SELECT_TIME_MAX_TAPS (63) taps, the `rank` route above, at any span
 // of the offsets. Both pick sorted[(K-1)/2], the element jnp.median picks.
+// The register route has a second kernel for runs of outputs whose tap
+// set is one or two runs of consecutive offsets, the shared core
+// (median_time_core.cu); the wrapper picks it per call
+// (median_cuda.time_network_form).
 //
 //   out[c, i, f] = median over o in offsets of V[c, start + i + o, f]
 //   V = rows of a [C, Ta, F] followed by rows of b [C, Tb, F]

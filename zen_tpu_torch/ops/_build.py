@@ -5,17 +5,20 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
 library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/zen_tpu_torch/`` at the repository root,
 named by a hash of the sources, the headers they share (``*.cuh``), the
-generated header and the flags, so an edited source, header, schedule or
+generated headers and the flags, so an edited source, header, schedule or
 flag rebuilds and an unchanged tree reuses the library. The generated
-header is ``zen_select.cuh``, the median networks of the small-K routes
-(``select_network.emit_header``): its text is written to
+headers are ``zen_select.cuh``, the median networks of the small-K routes
+(``select_network.emit_header``), and ``zen_core.cuh``, K1's shared-core
+networks (``select_network.emit_core_header``): their text is written to
 ``build/zen_tpu_torch/gen_<hash of the text>/`` before a build, and that
 directory goes on ``nvcc``'s include path. ``nvcc``'s register
 and shared-memory report (``-Xptxas -v``) is kept beside it as
 ``<name>.log``. ``library(cut)`` builds the same sources with
 ``-DZEN_RANK_CUT=cut`` (1 or 2: the rank kernels end after staging or
 after the sort, ``csrc/rank_select.cuh``), a library of its own that
-only chip_smoke.py's split of a rank block's time loads.
+only chip_smoke.py's split of a rank block's time loads; it leaves out
+``CORE_SOURCES`` (K1's shared core, which has no rank kernel to cut) and
+their entries.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
 wrappers in ``median_cuda.py`` and ``probe_cuda.py`` raise on a nonzero
@@ -40,6 +43,8 @@ from . import select_network
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zen_tpu_torch"
 GENERATED_HEADER = "zen_select.cuh"
+GENERATED_CORE_HEADER = "zen_core.cuh"
+CORE_SOURCES = "median_time_core*.cu"  # K1's shared core: the full library only
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -67,6 +72,9 @@ _FREQ_SELECT = ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)
 # fill, stream
 _TIME_NETWORK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
                   ctypes.POINTER(_I), _I, _I, ctypes.c_float, _P], _I)
+# a, b, out, c, ta, tb, f, start, t_out, firsts (host), tap runs, shape, k, fill, stream
+_TIME_CORE = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
+               ctypes.c_float, _P], _I)
 # x, out, c, t, f, start, t_out, run, stream
 _ROWS_COPY = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
 # x, out, rows, f, k, mode, tile, stream
@@ -96,6 +104,10 @@ _SIGNATURES = {
     "zen_sliding_median_select_bf16": _FREQ_SELECT,
     "zen_cuda_error_string": ([_I], ctypes.c_char_p),
 }
+_CORE_SIGNATURES = {
+    "zen_tap_median_time_core": _TIME_CORE,
+    "zen_tap_median_time_core_bf16": _TIME_CORE,
+}
 
 
 def _nvcc() -> str:
@@ -113,32 +125,50 @@ def _flags(cut: int) -> tuple:
     return NVCC_FLAGS + ((f"-DZEN_RANK_CUT={cut}",) if cut else ())
 
 
+def _sources(cut: int) -> list:
+    """The library's ``.cu`` sources: all of them, less CORE_SOURCES in a
+    split build."""
+    core = set(CSRC.glob(CORE_SOURCES))
+    return [src for src in sorted(CSRC.glob("*.cu")) if not cut or src not in core]
+
+
+def generated_headers() -> tuple:
+    """((name, text), ...) of the generated headers."""
+    return ((GENERATED_HEADER, select_network.emit_header()),
+            (GENERATED_CORE_HEADER, select_network.emit_core_header()))
+
+
 def library_path(cut: int = 0) -> Path:
     """Where the library for the current sources, headers (the generated
-    one included) and flags lives."""
+    ones included) and flags lives."""
     sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     h = hashlib.sha256(" ".join(_flags(cut)).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(GENERATED_HEADER.encode())
-    h.update(select_network.emit_header().encode())
+    for name, text in generated_headers():
+        h.update(name.encode())
+        h.update(text.encode())
     return BUILD_DIR / f"libzen_median_{h.hexdigest()[:16]}.so"
 
 
 def generated_include_dir() -> Path:
-    """Write ``zen_select.cuh`` (if its text is not there yet) and return
-    the directory that holds it, named by the text's hash: builds that
-    run at once write the same bytes, and an edited schedule gets a
-    directory of its own."""
-    text = select_network.emit_header()
-    out = BUILD_DIR / f"gen_{hashlib.sha256(text.encode()).hexdigest()[:16]}"
-    header = out / GENERATED_HEADER
-    if not header.exists():
-        out.mkdir(parents=True, exist_ok=True)
-        tmp = header.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        tmp.write_text(text)
-        os.replace(tmp, header)
+    """Write the generated headers (where their text is not there yet) and
+    return the directory that holds them, named by the texts' hash:
+    builds that run at once write the same bytes, and an edited schedule
+    gets a directory of its own."""
+    h = hashlib.sha256()
+    for name, text in generated_headers():
+        h.update(name.encode())
+        h.update(text.encode())
+    out = BUILD_DIR / f"gen_{h.hexdigest()[:16]}"
+    for name, text in generated_headers():
+        header = out / name
+        if not header.exists():
+            out.mkdir(parents=True, exist_ok=True)
+            tmp = header.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, header)
     return out
 
 
@@ -158,9 +188,9 @@ def library(cut: int = 0) -> ctypes.CDLL:
         with open(out.with_suffix(".lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if not out.exists():
-                _build(out, _flags(cut))
+                _build(out, cut)
     lib = ctypes.CDLL(str(out))
-    for name, (argtypes, restype) in _SIGNATURES.items():
+    for name, (argtypes, restype) in {**_SIGNATURES, **({} if cut else _CORE_SIGNATURES)}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
@@ -179,11 +209,11 @@ def _run(procs: list, log: list) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _build(out: Path, flags: tuple) -> None:
+def _build(out: Path, cut: int) -> None:
     """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    sources = sorted(CSRC.glob("*.cu"))
+    flags, sources = _flags(cut), _sources(cut)
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     nvcc, log = _nvcc(), []
     include = f"-I{generated_include_dir()}"

@@ -22,15 +22,22 @@ wrapper counts its kernel launches, so a run can show that it went
 through the kernel, ``routes`` splits that count by route, ``steps``
 counts the rank route's launches that took its steps kernel (a thread a
 run of outputs; the others walk from rank 0 or, in K2, take the key
-store), and K2's ``stores`` splits its rank route's launches by where
-the keys live.
+store), K1's ``cores`` its register route's launches that took the
+shared core, and K2's ``stores`` splits its rank route's launches by
+where the keys live.
 Kernels launch on the current stream, never synchronize and allocate
 nothing: the wrapper allocates the output and K2's key scratch.
 
 Small K is a comparator network on registers (``ops/select_network.py``,
-emitted as ``zen_select.cuh`` at build time): K1's ``register`` route up
-to REGISTER_TAPS (63) taps and K2's ``network`` route up to
-FREQ_NETWORK_MAX_TAPS (31). Large K takes one of two routes, weighed on
+emitted as ``zen_select.cuh`` and ``zen_core.cuh`` at build time): K1's
+``register`` route up to REGISTER_TAPS (63) taps and K2's ``network``
+route up to FREQ_NETWORK_MAX_TAPS (31). K1's register route takes one of
+two kernels a call (``time_network_form``): the per-output network, or,
+where the tap set is one or two runs of consecutive offsets and the call
+has more than one output row, the shared core (``csrc/
+median_time_core.cu``: a thread sorts the taps its run of R outputs
+share once, then merges each output's own taps in), counted apart in
+``tap_median_time.cores``. Large K takes one of two routes, weighed on
 the call's geometry (``time_rank_pick``, ``freq_rank_pick``): ``rank``,
 "rank once, select many" (``csrc/rank_select.cuh``: a block sorts its
 staged samples once, and each output walks the ranks from rank 0 or, a
@@ -72,6 +79,7 @@ from . import _build
 from .median import sliding_median
 from .select_network import FREQ_MAX_TAPS as FREQ_NETWORK_MAX_TAPS
 from .select_network import TIME_MAX_TAPS as REGISTER_TAPS
+from .select_network import core_medians_plain, core_program, core_shape_id, core_shapes, tap_runs
 
 # Shared memory a block can opt into on Hopper (227 KB).
 SMEM_OPTIN = 232_448
@@ -163,6 +171,10 @@ TIME_NETWORK_MAX_RUN = 16
 TIME_NETWORK_MAX_STAGED = 256
 TIME_NETWORK_THREADS = 128
 TIME_NETWORK_MIN_BLOCKS = 4 * 132
+# K1's shared core (time_network_form) takes the largest R whose grid has
+# this many blocks, two an H100 SM: fitted on the card, where K = 63 on
+# 64 hop-64 streams ran 14.45 us at R = 8 (512 blocks), 15.98 at R = 6
+TIME_CORE_MIN_BLOCKS = 2 * H100_SMS
 assert REGISTER_TAPS <= TIME_NETWORK_MAX_STAGED  # a run of one row always fits
 assert TIME_NETWORK_MAX_STAGED * TIME_NETWORK_THREADS * 4 <= SMEM_OPTIN
 # K1's rank route: most output rows per block where each walks from rank
@@ -242,12 +254,14 @@ def _entry(lib, name: str, dtype: torch.dtype):
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper, route: str, store: str | None = None, steps: bool = False) -> None:
+def _count(wrapper, route: str, store: str | None = None, steps: bool = False,
+           core: bool = False) -> None:
     """One launch on ``wrapper``'s counters (``store``: where a rank
     route's keys live, counted in ``wrapper.stores``; ``steps``: the rank
-    route took its steps kernel, counted in ``wrapper.steps``), under a
-    lock: ``+= 1`` on an attribute is a read-modify-write that two
-    threads can interleave."""
+    route took its steps kernel, counted in ``wrapper.steps``; ``core``:
+    K1's register route took its shared core, counted in
+    ``wrapper.cores``), under a lock: ``+= 1`` on an attribute is a
+    read-modify-write that two threads can interleave."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.routes[route] += 1
@@ -255,6 +269,8 @@ def _count(wrapper, route: str, store: str | None = None, steps: bool = False) -
             wrapper.stores[store] += 1
         if steps:
             wrapper.steps += 1
+        if core:
+            wrapper.cores += 1
 
 
 @functools.lru_cache(maxsize=16)
@@ -401,6 +417,65 @@ def time_fill_run(t_out: int, streams: int, f: int) -> int:
     return run
 
 
+def time_majority_tap(offsets: tuple) -> int | None:
+    """The offset that holds more than half of ``offsets``' taps, or None.
+    Such a tap is the median of every window: the replicate border's
+    fm + 1 copies of offset 0 among 2 fm + 1 taps (hop 256: six of
+    eleven). The register route takes it alone, as K = 1."""
+    top, count = max(((o, offsets.count(o)) for o in set(offsets)), key=lambda oc: oc[1])
+    return top if 2 * count > len(offsets) else None
+
+
+@functools.lru_cache(maxsize=64)
+def time_core_plan(offsets: tuple, r: int) -> tuple | None:
+    """(shape id, firsts) of K1's shared core for runs of ``r`` output
+    rows under ``offsets``: the kernel's id of the tap set's run lengths
+    and ``r`` (``select_network.core_shapes``) and each tap run's first
+    offset; None where that shape is not built."""
+    runs = tap_runs(offsets)
+    shape = core_shape_id(tuple(n for _, n in runs), r)
+    return None if shape is None else (shape, tuple(first for first, _ in runs))
+
+
+def time_core_runs(offsets: tuple) -> tuple:
+    """The R values K1's shared core is built for under ``offsets``'
+    tap-run shape (none for a shape it is not built for)."""
+    lengths = tuple(n for _, n in tap_runs(offsets))
+    return tuple(r for shape, r in core_shapes() if shape == lengths)
+
+
+def _time_blocks(t_out: int, streams: int, f: int, run: int) -> int:
+    """Blocks of K1's thread mapping (csrc/time_runs.cuh) at runs of ``run``
+    output rows."""
+    return streams * -(-f // TIME_NETWORK_THREADS) * -(-t_out // run)
+
+
+@functools.lru_cache(maxsize=64)
+def time_network_form(offsets: tuple, t_out: int, streams: int, f: int) -> tuple:
+    """How K1's register route takes a call of ``streams`` x ``t_out`` x
+    ``f`` outputs under ``offsets``: ('core', R), the shared core, wherever
+    it is built for the tap set's run shape (``time_core_runs``) at an R
+    up to ``t_out``, at the largest R whose grid still has
+    TIME_CORE_MIN_BLOCKS blocks, or the smallest R where none has; else
+    ('network', run), the per-output network at ``time_network_run`` (a
+    single output row shares nothing). A tap that holds more than half of
+    the taps (``time_majority_tap``) is planned as K = 1 first. Fitted on
+    an H100 (benches/core_rows.py --forms): the shared core beat the
+    per-output network at every row it takes, the fleets' and offline
+    passes' grids at their largest filling R (the track's pass 2: 106.66
+    us at R = 4, 126.46 at R = 3, 194.69 for the network), a single
+    stream's few blocks at the smallest (one hop-64 stream at K = 47: 8.02
+    us at R = 4, 8.66 at R = 6, 8.35 for the network)."""
+    majority = time_majority_tap(offsets)
+    if majority is not None:
+        offsets = (majority,)
+    runs = [r for r in time_core_runs(offsets) if r <= t_out]
+    if runs:
+        filling = [r for r in runs if _time_blocks(t_out, streams, f, r) >= TIME_CORE_MIN_BLOCKS]
+        return "core", max(filling) if filling else min(runs)
+    return "network", time_network_run(t_out, streams, f, offsets)
+
+
 def time_network_run(t_out: int, streams: int, f: int, offsets: tuple) -> int:
     """Output rows a thread of K1's network kernel takes under
     ``offsets``: ``time_fill_run``, halved while the rows the run stages
@@ -421,6 +496,45 @@ def _network_args(offsets: tuple, run: int) -> tuple:
     rows, slots = time_network_plan(offsets, run)
     return ((ctypes.c_int * len(rows))(*rows), len(rows),
             (ctypes.c_int * len(slots))(*slots), run)
+
+
+@functools.lru_cache(maxsize=64)
+def _core_args(offsets: tuple, r: int) -> tuple:
+    """time_core_plan as the C entry's arguments (firsts, tap runs,
+    shape), built once per (offsets, r); raises where the shape is not
+    built."""
+    plan = time_core_plan(offsets, r)
+    if plan is None:
+        raise ZenError(f"tap_median_time: no shared core for tap runs "
+                       f"{[n for _, n in tap_runs(offsets)]} at R={r}")
+    shape, firsts = plan
+    return (ctypes.c_int * len(firsts))(*firsts), len(firsts), shape
+
+
+def tap_median_time_core_plain(a: torch.Tensor, b: torch.Tensor, offsets, start: int,
+                               fill: float = 0.0, r: int = 4) -> torch.Tensor:
+    """The shared core's kernel in PyTorch, for the tests: each run of
+    ``r`` output rows (the last one ragged) loads the rows its taps reach
+    as the kernel does (V = a ++ b, ``fill`` outside, in the inputs'
+    dtype) and runs ``core_medians_plain`` on them as float. Bitwise
+    ``tap_median_time_plain`` wherever ``time_core_plan`` has a shape."""
+    offsets = _int_offsets(tuple(offsets))
+    runs = tap_runs(offsets)
+    lengths = tuple(n for _, n in runs)
+    loads = core_program(lengths, r)[0]
+    v = torch.cat([a, b], dim=-2)
+    t_v, t_out = v.shape[-2], v.shape[-2] - start
+    rel = torch.tensor([runs[j][0] + p for j, p in loads])
+    fill_t = torch.tensor(fill, dtype=a.dtype)
+    out = torch.empty(v.shape[:-2] + (t_out, v.shape[-1]), dtype=a.dtype)
+    for i0 in range(0, t_out, r):
+        rows = rel + start + i0
+        inside = ((rows >= 0) & (rows < t_v))[:, None]
+        staged = torch.where(inside, v[..., rows.clamp(0, t_v - 1), :], fill_t).float()
+        medians = core_medians_plain(staged.movedim(-2, 0), lengths, r).to(a.dtype)
+        n = min(r, t_out - i0)
+        out[..., i0 : i0 + n, :] = medians[:n].movedim(0, -2)
+    return out
 
 
 def time_rank_plan(offsets: tuple, start: int, t_v: int, run: int | None = None) -> tuple:
@@ -664,10 +778,11 @@ def tap_median_time(
         return tap_median_time_plain(a, b, _int_offsets(tuple(offsets)), start, fill)
     _check_cuda_operands(a, b)
     route, args = _time_call(offsets, start, ta, tb, math.prod(a.shape[:-2]), f, a.device)
-    out = _time_run(a, b, start, fill, route, args, k)
+    out = _time_run(a, b, start, fill, route, args)
     if out.numel():
         # the rank route's trailing arguments lead with the lane run
-        _count(tap_median_time, route, steps=route == "rank" and args[2][0] > 1)
+        _count(tap_median_time, route, steps=route == "rank" and args[2][0] > 1,
+               core=args[0] == "zen_tap_median_time_core")
     return out
 
 
@@ -699,38 +814,51 @@ def _time_call(offsets, start: int, ta: int, tb: int, streams: int, f: int,
 tap_median_time.launches = 0
 tap_median_time.routes = dict.fromkeys(("register", "rank", "select"), 0)
 tap_median_time.steps = 0
+tap_median_time.cores = 0
 
 
 def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut: int = 0,
                  run: int | None = None, shared_bins: bool | None = None,
-                 lane_run: int | None = None, cols: int | None = None):
+                 lane_run: int | None = None, cols: int | None = None,
+                 core: int | None = None):
     """K1's ``route`` kernel on checked CUDA operands; counts nothing
-    (chip_smoke also calls it to time the network kernel at each ``run``,
-    the rank and select routes side by side, the rank route at each
-    geometry, and the rank route of a ``cut`` build, ``_build.library``).
-    ``run`` defaults to the wrapper's (``time_network_run``,
-    ``time_rank_geometry``, ``time_select_plan``), the rank route's
+    (chip_smoke also calls it to time the network kernel at each ``run``
+    and the shared core at each R (``core``), the rank and select routes
+    side by side, the rank route at each geometry, and the rank route of
+    a ``cut`` build, ``_build.library``). The register route takes
+    ``time_network_form``'s kernel unless ``run`` (the per-output network
+    at that run) or ``core`` (the shared core at that R, which raises
+    where it is not built) is given. ``run`` defaults to the wrapper's
+    (``time_rank_geometry``, ``time_select_plan``), the rank route's
     ``lane_run`` and ``cols`` to 1 where ``run`` is given, and
     ``shared_bins`` the select route's ``select_shared_bins``. The rank
     route raises where a block's keys do not fit shared memory."""
     offsets = _int_offsets(tuple(offsets))
     args = _time_args(offsets, start, a.shape[-2], b.shape[-2], math.prod(a.shape[:-2]),
-                      a.shape[-1], route, a.device, run, shared_bins, lane_run, cols)
-    return _time_run(a, b, start, fill, route, args, len(offsets), cut)
+                      a.shape[-1], route, a.device, run, shared_bins, lane_run, cols, core)
+    return _time_run(a, b, start, fill, route, args, cut)
 
 
 def _time_args(offsets: tuple, start: int, ta: int, tb: int, streams: int, f: int,
                route: str, device: torch.device, run: int | None = None,
                shared_bins: bool | None = None, lane_run: int | None = None,
-               cols: int | None = None) -> tuple:
-    """(C entry name, the taps' arguments, the trailing arguments) of K1's
-    ``route`` for a call (``_time_launch``'s ``run``, ``lane_run``,
-    ``cols`` and ``shared_bins``); a plan buffer stays a tensor, so that a
-    memoized call keeps it alive."""
+               cols: int | None = None, core: int | None = None) -> tuple:
+    """(C entry name, the taps' arguments, the trailing arguments, K) of
+    K1's ``route`` for a call (``_time_launch``'s ``run``, ``lane_run``,
+    ``cols``, ``shared_bins`` and ``core``); a plan buffer stays a
+    tensor, so that a memoized call keeps it alive."""
     t_out = ta + tb - start
+    k = len(offsets)
     if route == "register":
-        return ("zen_tap_median_time_network",
-                _network_args(offsets, run or time_network_run(t_out, streams, f, offsets)), ())
+        majority = time_majority_tap(offsets)
+        if majority is not None:
+            offsets, k = (majority,), 1
+        if core is None and run is None:
+            form, size = time_network_form(offsets, t_out, streams, f)
+            core, run = (size, None) if form == "core" else (None, size)
+        if core is not None:
+            return "zen_tap_median_time_core", _core_args(offsets, core), (), k
+        return "zen_tap_median_time_network", _network_args(offsets, run), (), k
     if route == "rank":
         planned, run1, fits = time_rank_plan(offsets, start, ta + tb)
         if not fits:
@@ -745,7 +873,7 @@ def _time_args(offsets: tuple, start: int, ta: int, tb: int, streams: int, f: in
             raise ZenError(f"tap_median_time: a rank block of {run} rows passes shared memory")
         plan, lo, span, staged = _rank_args(planned, run, device)
         return ("zen_tap_median_time_rank", (plan, lo, span, staged, run),
-                (lane_run, len(time_rank_changes(planned)) // 2, cols))
+                (lane_run, len(time_rank_changes(planned)) // 2, cols), k)
     if route == "select":
         planned, srun, staged, threads = time_select_plan(
             offsets, start, ta + tb, streams, f, _sm_count(device))
@@ -755,11 +883,11 @@ def _time_args(offsets: tuple, start: int, ta: int, tb: int, streams: int, f: in
         if shared_bins is None:
             shared_bins = select_shared_bins(threads)
         return ("zen_tap_median_time_select", (plan, lo, span, staged, srun),
-                (threads, int(time_select_unit(planned, srun)), int(shared_bins)))
+                (threads, int(time_select_unit(planned, srun)), int(shared_bins)), k)
     raise ZenError(f"tap_median_time has no route {route!r}")
 
 
-def _time_run(a, b, start: int, fill: float, route: str, args: tuple, k: int, cut: int = 0):
+def _time_run(a, b, start: int, fill: float, route: str, args: tuple, cut: int = 0):
     """Launch K1 with ``_time_args``' ``args`` into a new output."""
     ta, tb, f = a.shape[-2], b.shape[-2], a.shape[-1]
     lead = a.shape[:-2]
@@ -767,7 +895,7 @@ def _time_run(a, b, start: int, fill: float, route: str, args: tuple, k: int, cu
     out = torch.empty(lead + (t_out, f), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    name, taps, tail = args
+    name, taps, tail, k = args
     err = _launch(
         a,
         _entry(_build.library(cut), name, a.dtype),

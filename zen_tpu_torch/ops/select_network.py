@@ -162,3 +162,230 @@ def emit_header() -> str:
     parts += [_emit_median(k) + "\n" for k in _odd_ks(MAX_TAPS)]
     parts += ["}  // namespace zen_select", ""]
     return "\n".join(parts)
+
+
+# ---------------- the shared core: K1's network for runs of outputs ----------------
+#
+# A thread of K1's register route takes one column and a run of R
+# consecutive output rows. Where the tap set is a few runs of
+# consecutive offsets, neighbouring outputs share most of their taps: a
+# run of L offsets gives the R outputs L - R + 1 taps in common (its
+# core part) and each output R - 1 of its own. With C core taps and m =
+# K - C own taps an output, the median (rank h = (K - 1) / 2) of an
+# output's taps is the rank-(h - lo) element of the core's sorted ranks
+# lo = max(0, h - m) .. hi = min(C - 1, h) joined with its m own taps:
+# every core element below rank lo lies at or below the median and every
+# one above rank hi at or above it, and as many go from each side. So the
+# core is sorted once for the R outputs, by Batcher's network pruned to
+# the ranks lo .. hi, and each output sorts its own taps (the same,
+# pruned to the ranks it reads) and picks its rank by the merge-select
+# of two sorted lists: the k-th smallest of A and B is the least, over
+# the splits i + j = k + 1, of max(A[i - 1], B[j - 1]). It is all min and
+# max on registers, so each median is one of the inputs, bitwise the
+# element the per-output network and the plain twin pick.
+
+CORE_RUNS = (2, 3, 4, 6, 8)  # the outputs a thread may take (R)
+CORE_MAX_TAP_RUNS = 2  # tap runs of a shape the kernel is built for
+CORE_MAX_STAGED = 80  # taps' rows a thread holds in registers
+CORE_KEEP = 2  # R values built per shape: those with the fewest min/max an output
+CORE_GAIN = 0.6  # and only where that is at most this share of median<K>'s
+CORE_PARTS = 4  # sources the shapes are compiled in, at once (csrc/median_time_core_p*.cu)
+
+
+def tap_runs(offsets) -> tuple:
+    """The tap multiset as runs of consecutive offsets: ((first, length),
+    ...), ascending by first offset; a repeated offset starts a run of its
+    own (the replicate border's six 0s: one run ending at 0 and five of
+    length 1)."""
+    runs = []
+    for o in sorted(offsets):
+        for q, (first, n) in enumerate(runs):
+            if first + n == o:
+                runs[q] = (first, n + 1)
+                break
+        else:
+            runs.append((o, 1))
+    return tuple(runs)
+
+
+@functools.lru_cache(maxsize=None)
+def _sorting_pairs(n: int) -> tuple:
+    """Batcher's odd-even merge sort on n wires (comparators on wires >= n
+    dropped, as in median_schedule)."""
+    return tuple((i, j) for i, j in _odd_even_merge_sort(1 << max(0, n - 1).bit_length())
+                 if j < n)
+
+
+@functools.lru_cache(maxsize=None)
+def core_program(lengths: tuple, r: int):
+    """The shared-core schedule for tap runs of ``lengths`` and runs of
+    ``r`` outputs, or None where the outputs share no tap: (staged,
+    ops, outs, core) with ``staged`` the (tap run, position) of each
+    register a thread loads (run j's rows first_j + p for p in [0, L_j +
+    r - 1), relative to the run of outputs' first row), ``ops`` the
+    min/max (dst, 'min' | 'max', a, b) over values numbered from
+    len(staged) (0 .. len(staged) - 1 are the loads), in order, every one
+    some output needs, ``outs`` the value that is each output's median
+    and ``core`` the number of shared taps."""
+    k, h = sum(lengths), (sum(lengths) - 1) // 2
+    staged, core, own = [], [], [[] for _ in range(r)]
+    for j, n in enumerate(lengths):
+        for p in range(n + r - 1):
+            s = len(staged)
+            staged.append((j, p))
+            if r - 1 <= p < n:
+                core.append(s)
+            for i in range(r):
+                if i <= p < i + n and not r - 1 <= p < n:
+                    own[i].append(s)
+    if not core:
+        return None
+    ops = []
+
+    def emit(op, a, b):
+        ops.append((len(staged) + len(ops), op, a, b))
+        return ops[-1][0]
+
+    def sort(wires):
+        wires = list(wires)
+        for i, j in _sorting_pairs(len(wires)):
+            wires[i], wires[j] = emit("min", wires[i], wires[j]), emit("max", wires[i], wires[j])
+        return wires
+
+    m = k - len(core)
+    ranks = sort(core)
+    lo, hi = max(0, h - m), min(len(core) - 1, h)
+    window, rank = ranks[lo : hi + 1], h - lo
+    outs = []
+    for i in range(r):
+        mine = sort(own[i])
+        terms = []
+        for a in range(max(0, rank + 1 - m), min(len(window), rank + 1) + 1):
+            b = rank + 1 - a
+            terms.append(window[a - 1] if b == 0 else mine[b - 1] if a == 0
+                         else emit("max", window[a - 1], mine[b - 1]))
+        best = terms[0]
+        for t in terms[1:]:
+            best = emit("min", best, t)
+        outs.append(best)
+    needed, kept = set(outs), []
+    for op in reversed(ops):
+        if op[0] in needed:
+            kept.append(op)
+            needed.update(op[2:])
+    # number the kept values densely, in order
+    name = {s: s for s in range(len(staged))}
+    for q, (dst, op, a, b) in enumerate(reversed(kept)):
+        name[dst] = len(staged) + q
+    program = tuple((name[d], op, name[a], name[b]) for d, op, a, b in reversed(kept))
+    return tuple(staged), program, tuple(name[o] for o in outs), len(core)
+
+
+def core_minmax_per_output(lengths: tuple, r: int) -> float:
+    """fminf/fmaxf an output of the shared core (``core_program``)."""
+    return len(core_program(lengths, r)[1]) / r
+
+
+@functools.lru_cache(maxsize=None)
+def core_shapes() -> tuple:
+    """Every (lengths, R) the kernel is built for, in the order of its
+    shape ids: one tap run of each odd length 3..TIME_MAX_TAPS (centered
+    and valid tap sets, median2d's time filter) and the causal wrap's two
+    runs (fm, fm + 1) for K = 2 fm + 1 up to TIME_MAX_TAPS (hop 256's
+    (-21..-17) and (-5..0)); for each, the CORE_KEEP values of R in
+    CORE_RUNS with the fewest min/max an output, where that is at most
+    CORE_GAIN of median<K>'s and the staged rows fit CORE_MAX_STAGED."""
+    shapes = []
+    for lengths in ([(n,) for n in range(3, TIME_MAX_TAPS + 1, 2)]
+                    + [(fm, fm + 1) for fm in range(2, (TIME_MAX_TAPS - 1) // 2 + 1)]):
+        k = sum(lengths)
+        fits = [r for r in CORE_RUNS
+                if core_program(lengths, r) is not None
+                and len(core_program(lengths, r)[0]) <= CORE_MAX_STAGED
+                and core_minmax_per_output(lengths, r) <= CORE_GAIN * minmax_count(k)]
+        fits.sort(key=lambda r: core_minmax_per_output(lengths, r))
+        shapes += [(lengths, r) for r in sorted(fits[:CORE_KEEP])]
+    return tuple(shapes)
+
+
+def core_shape_id(lengths: tuple, r: int) -> int | None:
+    """The kernel's id of (lengths, r), or None where it is not built."""
+    try:
+        return core_shapes().index((tuple(lengths), r))
+    except ValueError:
+        return None
+
+
+def core_medians_plain(staged: torch.Tensor, lengths: tuple, r: int) -> torch.Tensor:
+    """The shared core's schedule in PyTorch: ``staged`` [len(staged),
+    ...], the registers a thread loads (``core_program``), to the medians
+    [r, ...] of its r outputs, with torch.minimum / torch.maximum."""
+    loads, program, outs, _ = core_program(tuple(lengths), r)
+    values = list(staged.unbind(0))
+    assert len(values) == len(loads)
+    for _, op, a, b in program:
+        values.append((torch.minimum if op == "min" else torch.maximum)(values[a], values[b]))
+    return torch.stack([values[o] for o in outs])
+
+
+def _emit_core_shape(shape_id: int, lengths: tuple, r: int) -> str:
+    """``zen_core::Shape<shape_id>``: its constants, ``stage`` (each
+    register's load, by tap run and position) and ``medians`` (the
+    program, straight-line, every intermediate a named register)."""
+    loads, program, outs, core = core_program(lengths, r)
+    s = len(loads)
+
+    def name(v):
+        return f"v[{v}]" if v < s else f"t{v}"
+
+    lines = [f"// tap runs {lengths}, {r} outputs: {core} shared taps, {len(program)} min/max",
+             "template <>", f"struct Shape<{shape_id}> {{",
+             f"  static constexpr int kK = {sum(lengths)}, kR = {r}, kStaged = {s}, "
+             f"kTapRuns = {len(lengths)};",
+             "  template <typename Load>",
+             f"  __device__ __forceinline__ static void stage(float (&v)[{s}], Load load) {{"]
+    lines += [f"    v[{q}] = load({j}, {p});" for q, (j, p) in enumerate(loads)]
+    lines += ["  }",
+              f"  __device__ __forceinline__ static void medians(const float (&v)[{s}], "
+              f"float (&m)[{r}]) {{"]
+    lines += [f"    const float t{d} = {'fminf' if op == 'min' else 'fmaxf'}({name(a)}, {name(b)});"
+              for d, op, a, b in program]
+    lines += [f"    m[{i}] = {name(o)};" for i, o in enumerate(outs)]
+    lines += ["  }", "};"]
+    return "\n".join(lines)
+
+
+def core_part(shape_id: int) -> int:
+    """Which of the CORE_PARTS sources compiles shape ``shape_id``."""
+    return shape_id % CORE_PARTS
+
+
+def emit_core_header() -> str:
+    """The text of ``zen_core.cuh``: ``zen_core::Shape<id>`` for every
+    (lengths, R) of ``core_shapes``, in id order; ZEN_CORE_PARTS, and
+    ZEN_CORE_FOR_EACH_SHAPE_OF_PART_<q>(X), which expands X(id) for each
+    shape part q compiles (``core_part``), for that part's switch."""
+    shapes = core_shapes()
+    parts = [
+        "// Generated by zen_tpu_torch/ops/select_network.py (emit_core_header); not edited by hand.",
+        "// zen_core::Shape<ID>: K1's shared-core network for one tap-run shape and a run of",
+        "// kR outputs (core_program): stage(v, load) loads the kStaged registers a thread",
+        "// holds, load(j, p) the row first_j + p of tap run j; medians(v, m) writes the kR",
+        "// outputs' medians, straight-line min/max, each one of the inputs.",
+        "#pragma once",
+        "",
+        f"#define ZEN_CORE_MAX_TAP_RUNS {CORE_MAX_TAP_RUNS}",
+        f"#define ZEN_CORE_PARTS {CORE_PARTS}",
+        *(f"#define ZEN_CORE_FOR_EACH_SHAPE_OF_PART_{part}(X) "
+          + " ".join(f"X({q})" for q in range(len(shapes)) if core_part(q) == part)
+          for part in range(CORE_PARTS)),
+        "",
+        "namespace zen_core {",
+        "",
+        "template <int ID>",
+        "struct Shape;",
+        "",
+    ]
+    parts += [_emit_core_shape(q, lengths, r) + "\n" for q, (lengths, r) in enumerate(shapes)]
+    parts += ["}  // namespace zen_core", ""]
+    return "\n".join(parts)

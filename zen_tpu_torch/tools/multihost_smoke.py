@@ -198,8 +198,9 @@ def make_corpus(corpus_dir: str, corpus: Corpus) -> list:
 def read_launches() -> dict:
     """The median kernels' launches in this process by route, 'kernel/route',
     of each rank route's, those that took its steps kernel,
-    'kernel/rank@steps', and of K2's, those on its key store,
-    'sliding_median_boundary/rank@scratch'."""
+    'kernel/rank@steps', of K1's register route's, those that took the
+    shared core, 'tap_median_time/register@core', and of K2's, those on
+    its key store, 'sliding_median_boundary/rank@scratch'."""
     from ..ops import median_cuda as mc
 
     counts = {}
@@ -207,6 +208,7 @@ def read_launches() -> dict:
         wrapper = getattr(mc, name)
         counts.update({f"{name}/{route}": n for route, n in wrapper.routes.items()})
         counts[f"{name}/rank@steps"] = wrapper.steps
+    counts["tap_median_time/register@core"] = mc.tap_median_time.cores
     counts["sliding_median_boundary/rank@scratch"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 
