@@ -14,9 +14,10 @@ K2's sort past one block's shared memory its key store). Phase 3 also
 times the rank and select routes side by side on the wide rows, with the
 cost rule's pick beside the faster one measured, and holds
 the comparator-network routes (K1 register up to 63 taps, K2 network up
-to 31) bitwise at every odd K they take, tie-heavy and bf16, K1's in both
+to 31) bitwise at every odd K they take, tie-heavy and bf16, each in both
 of its forms (the per-output network and the shared core at each R it is
-built for, on one tap run and on the causal wrap's two); sweeps K2's
+built for; K1's on one tap run and on the causal wrap's two, K2's under
+each of the four borders); sweeps K2's
 two routes over K at
 two row shapes: the crossover FREQ_RANK_MIN_TAPS (ops/median_cuda.py)
 comes from it; times K1's network kernel at each run length and its
@@ -158,7 +159,9 @@ tolerance applies to every output sample no flipped frame feeds (phase
 9 holds every 32nd of its 512 streams so, at unit gain, and the bf16
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
 are counted per path and per kernel route, K1's register launches that took the
-shared core apart (CORE), and K2's rank launches by
+shared core apart (CORE), K2's network launches that took its shared core
+apart (FREQ_CORE: required on phases 6, 7, 8, 9 and 31, refused on
+the latency rows of phases 10 and 19), and K2's rank launches by
 where their keys live (phase 6 and phases 7-30; the
 SSE paths must launch none; phases 18-22 and 24-30 require each run's
 count to equal the count from its shapes and, for the instruments, the
@@ -213,6 +216,7 @@ ROUTES = {"tap_median_time": ("register", "rank", "select"),
 SCRATCH = "rank@scratch"  # K2's rank launches whose keys live in the key store
 STEPS = "rank@steps"  # rank launches that took the steps kernel (a thread a run of outputs)
 CORE = "register@core"  # K1's register launches that took the shared core (runs of outputs)
+FREQ_CORE = "network@core"  # K2's network launches that took its shared core
 SLOW_US = 100_000.0  # a phase-3 call past this is timed 3 times, not TIMED_RUNS
 # phase 3's select lines force a route through _time_launch, whose plan
 # lookups hash a wide tap set's offsets on the host (~0.5 ms at 25,601
@@ -229,6 +233,7 @@ TPU_KERNELS = {  # PERF.md's table numbers -> file:line of the TPU kernel
 }
 SOURCES = {"tap_median_time": "zen_tpu_torch/csrc/median_time.cu",
            f"tap_median_time/{CORE}": "zen_tpu_torch/csrc/median_time_core.cu",
+           f"sliding_median_boundary/{FREQ_CORE}": "zen_tpu_torch/csrc/median_freq_core.cu",
            "sliding_median_boundary": "zen_tpu_torch/csrc/median_freq.cu",
            "rows_copy": "zen_tpu_torch/csrc/probe_copy.cu",
            "segment_copy": "zen_tpu_torch/csrc/probe_copy.cu"}
@@ -498,10 +503,13 @@ def time_label(a, b, offsets, start) -> str:
 def freq_call_label(k: int, rows: int, f_in: int, mode: str, sms: int) -> str:
     """The route sliding_median_boundary launches for a call
     (freq_call_route), SCRATCH where its sort's keys take the key store,
-    STEPS where it takes the steps kernel."""
+    STEPS where it takes the steps kernel, FREQ_CORE where its network
+    route takes the shared core (freq_network_form)."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     route = mc.freq_call_route(k, rows, f_in, mode, sms)
+    if route == "network" and mc.freq_network_form(k, rows, f_in, mode)[0] == "core":
+        return FREQ_CORE
     if route != "rank":
         return route
     plan = mc.freq_rank_plan(k, rows, f_in, mode, sms)
@@ -520,17 +528,18 @@ def sm_count(device) -> int:
 
 
 def by_route(counts: dict) -> dict:
-    """``counts`` without the STEPS and CORE keys: what a count from the
-    configs and shapes alone holds (which rank calls take the steps
-    kernel, and which register calls the shared core, depends on each
-    call's rows; phases 3, 7, 8 and 31 check those)."""
-    return {k: v for k, v in counts.items() if not k.endswith((STEPS, CORE))}
+    """``counts`` without the STEPS, CORE and FREQ_CORE keys: what a count
+    from the configs and shapes alone holds (which rank calls take the
+    steps kernel, and which register or network calls a shared core,
+    depends on each call's rows; phases 3, 7, 8, 9 and 31 check those)."""
+    return {k: v for k, v in counts.items() if not k.endswith((STEPS, CORE, FREQ_CORE))}
 
 
 def launch_keys(key: str) -> tuple:
     """The read_launches() keys one launch labelled ``key`` adds to: a
     SCRATCH or STEPS launch counts on its kernel's rank route too, a CORE
-    launch on its register route."""
+    launch on its register route, a FREQ_CORE launch on its network
+    route."""
     name, route = key.split("/")
     return (key, f"{name}/{route.split('@')[0]}") if "@" in route else (key,)
 
@@ -797,6 +806,11 @@ def phase_kernels() -> dict:
          lambda: time_library(feats2, feats2[:, :0], centered, 0),
          time_bound(feats2, feats2[:, :0], centered, 0),
          time_label(feats2, feats2[:, :0], centered, 0)),
+        ("sliding_median_boundary", "#8", f"track pass 2 R={TRACK_FRAMES_P} F=513 K=13",
+         lambda: mc.sliding_median_boundary(feats2[0], 13, "reflect"),
+         lambda: mc.sliding_median_boundary_plain(feats2[0], 13, "reflect"),
+         lambda: freq_library(feats2[0], 13, "reflect"),
+         freq_bound(feats2[0], 13, "reflect"), freq_label(feats2[0], 13, "reflect")),
         ("sliding_median_boundary", "#6", f"track pass 1 R={TRACK_FRAMES_H} F=8193 K=187",
          lambda: mc.sliding_median_boundary(feats1, 187, "reflect"),
          lambda: mc.sliding_median_boundary_plain(feats1, 187, "reflect"),
@@ -837,16 +851,24 @@ def phase_network() -> None:
     one-input case with fill = inf (one tap run, tie-heavy f32) and a
     causal-wrap pair of two tap runs (fm, fm + 1) (bf16), and the network
     on a causal pair with a duplicated offset 0 (bf16; no core shape); K2
-    network (K 1..31) on tie-heavy reflect rows (f32) and wrap rows
-    (bf16). Times the f32 cases, each K1 form, and prints the form and R
-    the wrapper's rule picks (time_network_form)."""
+    network (K 1..31) in both of its forms, the per-output network and the
+    shared core at each R it is built for (freq_core_runs), under each of
+    the four borders on tie-heavy f32 rows with +inf and -inf samples and
+    on bf16 rows. Times the f32 cases, each form of both kernels (K2 on
+    [2048, 513] reflect), and prints the form and R each wrapper's rule
+    picks (time_network_form, freq_network_form)."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(5)
     a32, a16 = _ties(rng, 64, 37, 513), _mags(rng, 64, 21, 513).to(torch.bfloat16)
     b16 = _mags(rng, 64, 16, 513).to(torch.bfloat16)
     w16 = _mags(rng, 16, 2 * mc.REGISTER_TAPS + 16, 129).to(torch.bfloat16)
-    x32, x16 = _ties(rng, 2048, 513), _mags(rng, 512, 513).to(torch.bfloat16)
+    # K2: rows of 513 bins; 'valid' reads 543 (544 - K outputs)
+    x32 = _ties(rng, 2048, 513 + mc.FREQ_NETWORK_MAX_TAPS - 1)
+    x32[torch.rand(x32.shape, device=DEVICE) < 0.02] = float("inf")
+    x32[torch.rand(x32.shape, device=DEVICE) < 0.02] = float("-inf")
+    x16 = _mags(rng, 512, 513 + mc.FREQ_NETWORK_MAX_TAPS - 1).to(torch.bfloat16)
+    rows2 = {"valid": (x32, x16), "bins": (x32[:, :513].contiguous(), x16[:, :513].contiguous())}
     inf = float("inf")
     for k in range(1, mc.REGISTER_TAPS + 1, 2):
         m = (k - 1) // 2
@@ -879,16 +901,26 @@ def phase_network() -> None:
         k2 = "K2 n/a (its network stops at 31)"
         if k <= mc.FREQ_NETWORK_MAX_TAPS:
             require(mc.freq_route(k) == "network", f"K={k} leaves K2's network")
-            run2 = lambda: mc._freq_launch(x32, k, "reflect", "network")  # noqa: E731
-            require(torch.equal(run2(), mc.sliding_median_boundary_plain(x32, k, "reflect")),
-                    f"K2 network K={k} reflect ties differs")
-            require(torch.equal(mc._freq_launch(x16, k, "wrap", "network"),
-                                mc.sliding_median_boundary_plain(x16, k, "wrap")),
-                    f"K2 network K={k} wrap bf16 differs")
-            k2 = f"K2 [2048, 513] {median_us(run2, runs=10):.2f} us"
+            timed2 = {}
+            for mode in mc.FREQ_MODES:
+                for x in rows2["valid" if mode == "valid" else "bins"]:
+                    want = mc.sliding_median_boundary_plain(x, k, mode)
+                    for core in (1, *mc.freq_core_runs(k)):
+                        fn = lambda x=x, m=mode, c=core: mc._freq_launch(  # noqa: E731
+                            x, k, m, "network", core=c)
+                        name = "network" if core == 1 else f"core R={core}"
+                        require(torch.equal(fn(), want),
+                                f"K2 {name} K={k} {mode} {x.dtype} differs")
+                        if mode == "reflect" and x.dtype == torch.float32:
+                            timed2[name] = fn
+            form, size = mc.freq_network_form(k, 2048, 513, "reflect")
+            k2 = ("K2 [2048, 513] " + ", ".join(f"{name} {median_us(fn, runs=10):.2f}"
+                                                for name, fn in timed2.items())
+                  + f" us, picked {'core R=%d' % size if form == 'core' else 'network'}")
+        held2 = ("; K2 both forms at every built R, each border, f32 ties +-inf and bf16"
+                 if k <= mc.FREQ_NETWORK_MAX_TAPS else "")
         print(f"phase 3 network K={k}: bitwise equal (K1 both forms: f32 ties fill=inf one tap "
-              f"run, bf16 two tap runs at every built R; K1 network bf16 duplicated taps"
-              f"{', K2 f32 ties reflect and bf16 wrap' if k <= mc.FREQ_NETWORK_MAX_TAPS else ''}"
+              f"run, bf16 two tap runs at every built R; K1 network bf16 duplicated taps{held2}"
               f"); K1 [64, 37, 513] {k1}, {k2} (medians of 10)")
 
 
@@ -1145,9 +1177,8 @@ def reset_launches() -> None:
 
     for name in ROUTES:
         wrapper = getattr(mc, name)
-        wrapper.launches = wrapper.steps = 0
+        wrapper.launches = wrapper.steps = wrapper.cores = 0
         wrapper.routes.update(dict.fromkeys(wrapper.routes, 0))
-    mc.tap_median_time.cores = 0
     mc.sliding_median_boundary.stores.update(dict.fromkeys(mc.sliding_median_boundary.stores, 0))
     for name in PROBES:
         getattr(pc, name).launches = 0
@@ -1158,7 +1189,9 @@ def read_launches() -> dict:
     of each kernel's on the rank route, the ones that took its steps
     kernel, 'kernel/rank@steps' (STEPS); of K1's on the register route,
     the ones that took the shared core, 'tap_median_time/register@core'
-    (CORE); and of K2's, the ones whose keys took the key store,
+    (CORE); of K2's on the network route, the ones that took its shared
+    core, 'sliding_median_boundary/network@core' (FREQ_CORE); and of K2's
+    on the rank route, the ones whose keys took the key store,
     'sliding_median_boundary/rank@scratch'."""
     from zen_tpu_torch.ops import median_cuda as mc
 
@@ -1166,6 +1199,7 @@ def read_launches() -> dict:
               for name, routes in ROUTES.items() for route in routes}
     counts.update({f"{name}/{STEPS}": getattr(mc, name).steps for name in ROUTES})
     counts[f"tap_median_time/{CORE}"] = mc.tap_median_time.cores
+    counts[f"sliding_median_boundary/{FREQ_CORE}"] = mc.sliding_median_boundary.cores
     counts[f"sliding_median_boundary/{SCRATCH}"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 
@@ -1339,8 +1373,10 @@ def phase_offline_clip(smi: str) -> dict:
         f"(BASELINE.md, an outside point); launches {launches} [{smi}]"
     )
     require(all(v > 0 for v in totals.values())
-            and launches[f"sliding_median_boundary/{STEPS}"] > 0,
-            f"offline clip launches {launches} (pass 1's K2 takes the steps)")
+            and launches[f"sliding_median_boundary/{STEPS}"] > 0
+            and launches[f"sliding_median_boundary/{FREQ_CORE}"] > 0,
+            f"offline clip launches {launches} (pass 1's K2 takes the steps, pass 2's its "
+            "shared core)")
     return launches
 
 
@@ -1359,8 +1395,10 @@ def phase_offline_track(smi: str) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     require(all(v > 0 for v in per_kernel(launches).values())
-            and launches[f"sliding_median_boundary/{STEPS}"] > 0,
-            f"offline track launches {launches} (pass 1's K2 takes the steps)")
+            and launches[f"sliding_median_boundary/{STEPS}"] > 0
+            and launches[f"sliding_median_boundary/{FREQ_CORE}"] > 0,
+            f"offline track launches {launches} (pass 1's K2 takes the steps, pass 2's its "
+            "shared core)")
     for outs in (whole, blocked):
         require(all(bool(torch.isfinite(o).all()) for o in outs), "non-finite track stems")
     if all(torch.equal(a, b) for a, b in zip(whole, blocked)):
@@ -1485,8 +1523,11 @@ def phase_zen_stream(smi: str) -> dict:
         reset_launches()
         out, err = zen_stream(fleet_argv(*flags), raw)
         counts = read_launches()
-        require(all(v > 0 for v in per_kernel(counts).values()),
-                f"zen stream {name} launches {counts}")
+        require(all(v > 0 for v in per_kernel(counts).values())
+                and counts[f"sliding_median_boundary/{FREQ_CORE}"]
+                == counts["sliding_median_boundary/network"],
+                f"zen stream {name} launches {counts} (every K2 call of the 512-stream block "
+                "takes its shared core)")
         require(len(out) == len(raw), f"zen stream {name}: {len(out)} bytes out of {len(raw)}")
         line = json.loads(err[-1])
         require(line["metric"] == "stream_serving" and err[0].startswith("zen stream ready"),
@@ -1556,8 +1597,10 @@ def phase_hop32(smi: str) -> dict:
     cfg, got, audio, sizes, t = run_stream(hop=32)
     launches = read_launches()
     require(launches["tap_median_time/rank"] > 0 and launches[f"tap_median_time/{STEPS}"] == 0
+            and launches[f"sliding_median_boundary/{FREQ_CORE}"] == 0
             and all(per_kernel(launches).values()),
-            f"hop-32 stream launches {launches} (K1's rank calls walk from rank 0)")
+            f"hop-32 stream launches {launches} (K1's rank calls walk from rank 0, K2's K = 1 "
+            "takes the per-output network)")
     require(bool(np.isfinite(got).all()), "non-finite hop-32 stem samples")
     r = compare_stream(cfg, audio, sizes, got, reference_stream(audio, sizes, hop=32),
                        ("harmonic", "percussive", "residual"))
@@ -2824,6 +2867,9 @@ def phase_apps(smi: str) -> dict:
           f"max|odf|), {odf_us:.1f} us on the card; autocorrelation, "
           f"{len(chunks)} chunks of 4096 at n 8192: {acf_err:.3g} of max|acf| per chunk (limit "
           f"{ACF_RTOL}), {acf_us:.1f} us (device medians of {TIMED_RUNS}) [{smi}]")
+    require(total[f"sliding_median_boundary/{FREQ_CORE}"] == 0 and total[
+        "sliding_median_boundary/network"] > 0, f"the demos' launches {nonzero(total)} "
+            "(beat-track's 64-row K2 keeps the per-output network)")
     return total
 
 
@@ -3732,6 +3778,15 @@ def glue_only(x, fl: int, direction: str, border: str):
     return lambda: om.median2d_over(x, fl, direction, border, time_stub, freq_stub)
 
 
+def network_form(core: int):
+    """sliding_median_boundary's stand-in that forces K2's network route
+    into one form: ``core`` 1 the per-output network, R > 1 the shared
+    core at runs of R outputs; counts nothing."""
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    return lambda v, k, mode: mc._freq_launch(v, k, mode, "network", core=core)
+
+
 def register_form(form):
     """tap_median_time's stand-in that forces K1's register route into one
     form: 'network' (the per-output network at the wrapper's run) or an R
@@ -3778,8 +3833,9 @@ def phase_median2d(smi: str) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     require(launches == want, f"median2d launches {launches}, from the shapes {want}")
-    require(all(want[f"{name}/{STEPS}"] > 0 for name in ROUTES),
-            f"median2d: no case takes a rank route's steps kernel ({want})")
+    require(all(want[f"{name}/{STEPS}"] > 0 for name in ROUTES)
+            and want[f"sliding_median_boundary/{FREQ_CORE}"] > 0,
+            f"median2d: no case takes a rank route's steps kernel or K2's shared core ({want})")
     for (label, x, fl, direction, border), got in zip(cases, outs):
         what = f"median2d {label} {direction}/{border} fl={fl}"
         plain = lambda x=x, f=fl, d=direction, b=border: om.median2d_over(  # noqa: E731
@@ -3826,6 +3882,26 @@ def phase_median2d(smi: str) -> dict:
             us[name] = median_us(fn, runs=10)
         del twin
         print(f"phase 31 {what} both K1 register forms: bitwise equal to the twins; "
+              + ", ".join(f"{name} {v:.2f} us" for name, v in us.items())
+              + f" (medians of 10, glue included); the wrapper takes {key} [{smi}]")
+    # K2's network route in both forms on median2d's own operands
+    for label, x, fl, direction, border in cases:
+        key = median2d_launch(x, fl, direction, border)
+        if key not in ("sliding_median_boundary/network",
+                       f"sliding_median_boundary/{FREQ_CORE}"):
+            continue
+        what = f"median2d {label} {direction}/{border} fl={fl}"
+        twin = om.median2d_over(x, fl, direction, border, mc.tap_median_time_plain,
+                                mc.sliding_median_boundary_plain)
+        us = {}
+        for core in (1, *mc.freq_core_runs(om.odd_filter_len(fl))):
+            fn = lambda c=core, x=x, fl=fl, d=direction, b=border: om.median2d_over(  # noqa: E731
+                x, fl, d, b, mc.tap_median_time, network_form(c))
+            name = "network" if core == 1 else f"core R={core}"
+            require(torch.equal(fn(), twin), f"{what}: K2 {name} differs from the twins")
+            us[name] = median_us(fn, runs=10)
+        del twin
+        print(f"phase 31 {what} both K2 network forms: bitwise equal to the twins; "
               + ", ".join(f"{name} {v:.2f} us" for name, v in us.items())
               + f" (medians of 10, glue included); the wrapper takes {key} [{smi}]")
     rng = np.random.default_rng(32)
@@ -3946,8 +4022,10 @@ def main() -> None:
     )
 
     require(all(v > 0 for v in per_kernel(launches).values())
-            and not any(launches[f"{name}/{STEPS}"] for name in ROUTES),
-            f"kernel launches {launches} (the streams' rank calls walk from rank 0)")
+            and not any(launches[f"{name}/{STEPS}"] for name in ROUTES)
+            and launches[f"sliding_median_boundary/{FREQ_CORE}"] > 0,
+            f"kernel launches {launches} (the streams' rank calls walk from rank 0; the "
+            "64-stream fleet's K2 takes its shared core)")
     print(f"phase 6 streaming kernel launches: {launches}")
 
     by_path = {"streaming": launches}
@@ -3976,7 +4054,8 @@ def main() -> None:
     # K1's select route (384 kHz hop 1), both rank routes' steps kernels
     # (the offline pass 1, median2d's fl 93), and both copy mirrors
     wanted = {"tap_median_time/register", "tap_median_time/rank", "tap_median_time/select",
-              f"tap_median_time/{CORE}", *(f"{name}/{STEPS}" for name in ROUTES),
+              f"tap_median_time/{CORE}", f"sliding_median_boundary/{FREQ_CORE}",
+              *(f"{name}/{STEPS}" for name in ROUTES),
               *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),
               *(f"{name}/copy" for name in PROBES)}
     launched = {row["name"] for row in rows}

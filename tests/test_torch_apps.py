@@ -27,6 +27,7 @@ Inputs are tests/test_apps.py's. Tolerances, each with its reason:
   normalization and PCM16 rounding).
 """
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -187,9 +188,15 @@ def test_odf_batch_matches_zen_tpu(signal, monkeypatch):
         audio = np.random.default_rng(4).standard_normal(256).astype(np.float32)
     frames = jb.frames_from_hops(audio)
     np.testing.assert_array_equal(tb.frames_from_hops(audio), frames)
+    sha_before = hashlib.sha256(frames.tobytes()).hexdigest()
     want = np.asarray(jb.odf_batch(frames))
-    # keep the spectra odf_batch computes, for the evidence on a failure
-    spectra, from_spectrum = [], tb.odf_from_spectrum
+    # keep the FFT's input (a copy made before the FFT, and the buffer the
+    # FFT read) and the spectra odf_batch computes, for the evidence on a
+    # failure
+    inputs, spectra = [], []
+    fft_input, from_spectrum = tb.odf_fft_input, tb.odf_from_spectrum
+    monkeypatch.setattr(tb, "odf_fft_input",
+                        lambda x: (inputs.append((y := fft_input(x), y.clone())), y)[1])
     monkeypatch.setattr(tb, "odf_from_spectrum",
                         lambda spec: spectra.append(spec) or from_spectrum(spec))
     got = tb.odf_batch(torch.from_numpy(frames)).numpy()
@@ -198,40 +205,69 @@ def test_odf_batch_matches_zen_tpu(signal, monkeypatch):
     try:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
     except AssertionError as err:
-        raise AssertionError(f"{err}\n{_odf_evidence(frames, got, spectra[0])}") from None
+        evidence = _odf_evidence(frames, got, spectra[0], *inputs[0], sha_before)
+        raise AssertionError(f"{err}\n{evidence}") from None
 
 
-def _odf_evidence(frames: np.ndarray, got: np.ndarray, spec: torch.Tensor) -> str:
+def _odf_evidence(frames: np.ndarray, got: np.ndarray, spec: torch.Tensor,
+                  fft_in: torch.Tensor, fft_in_copy: torch.Tensor, sha_before: str) -> str:
     """What the process carries when the port's ODF misses zen_tpu's
-    (ROADMAP Queue 3 item 8): the xdist worker, torch's thread counts and
-    MKL's, the calling thread's rounding mode (fegetround, which reads the
-    x87 control word alone: 0 to nearest, 0x400 down, 0x800 up, 0xc00
-    toward zero), MXCSR (the SSE/AVX state the FFT's vector code obeys:
-    0x1f80 is round to nearest with no FTZ/DAZ; its low 6 bits are
-    exception flags) on the calling thread and on every thread of torch's
-    OpenMP pool, the live Python threads, whether two more calls on the
-    same frames give the first call's bits (a transient) or not (state
-    the process holds), and which rows of the first call's spectrum
-    differ from the later calls', each row's error against a float64 FFT
-    of the same rows beside the later calls'."""
+    (ROADMAP Queue 3 item 8): the xdist worker and the test modules it has
+    imported (what it ran before), torch's thread counts and MKL's, the
+    calling thread's rounding mode (fegetround, which reads the x87
+    control word alone: 0 to nearest, 0x400 down, 0x800 up, 0xc00 toward
+    zero), MXCSR (the SSE/AVX state the FFT's vector code obeys: 0x1f80 is
+    round to nearest with no FTZ/DAZ; its low 6 bits are exception flags)
+    on the calling thread and on every thread of torch's OpenMP pool, the
+    live Python threads, whether two more calls on the same frames give
+    the first call's bits (a transient) or not (state the process holds),
+    which rows of the first call's spectrum differ from the later calls',
+    each row's error against a float64 FFT of the same rows beside the
+    later calls', which rows of the first call's FFT input (``fft_in``,
+    the buffer the FFT read; ``fft_in_copy``, a copy made before the FFT)
+    differ from a later call's or moved during the FFT, the SHA-256 of
+    ``frames`` before the zen_tpu call and now, and whether JAX takes
+    ``frames`` zero-copy (its buffer the numpy array's memory), as the
+    zen_tpu call did where it does."""
     import ctypes
     import ctypes.util
     import threading
+
+    import jax.numpy as jnp
 
     from zen_tpu_torch.tools import odf_fp_probe as probe
 
     libm = ctypes.CDLL(ctypes.util.find_library("m"))
     fp = probe.fp_state(probe.helper())
+    tests_dir = os.path.dirname(os.path.abspath(__file__))
+    modules = sorted(name for name, m in list(sys.modules.items())
+                     if (getattr(m, "__file__", None) or "").startswith(tests_dir + os.sep))
     x = torch.from_numpy(frames)
     again = [tb.odf_batch(x).numpy() for _ in range(2)]
     same = [bool(np.array_equal(a.view(np.uint32), got.view(np.uint32))) for a in again]
     moved = [np.nonzero(a != got)[0].tolist() for a in again]
-    later = tb.odf_spectrum(x).numpy()
+    later_in = tb.odf_fft_input(x)
+    later = torch.fft.fft(later_in, dim=-1).numpy()
     first = spec.numpy()
     rows = np.nonzero((first != later).any(-1))[0].tolist()
-    exact = np.fft.fft(probe._spectrum_input(x), axis=-1)
+
+    def differ(a, b):
+        return np.nonzero((a.numpy() != b.numpy()).any(-1))[0].tolist()
+
+    in_rows, in_moved = differ(fft_in_copy, later_in), differ(fft_in_copy, fft_in)
+    exact = np.fft.fft(later_in.double().numpy(), axis=-1)
+    exact_first = np.fft.fft(fft_in_copy.double().numpy(), axis=-1)
     err, err_later = probe._row_errors(first, exact), probe._row_errors(later, exact)
+    err_own = probe._row_errors(first, exact_first)
+    alias = int(jnp.asarray(frames).unsafe_buffer_pointer()) == frames.ctypes.data
     return (f"evidence: xdist worker {os.environ.get('PYTEST_XDIST_WORKER', 'none')}, "
+            f"test modules imported {modules}, "
+            f"frames SHA-256 before the zen_tpu call {sha_before}, now "
+            f"{hashlib.sha256(frames.tobytes()).hexdigest()}, JAX takes frames zero-copy: "
+            f"{alias} (frames at {frames.ctypes.data:#x}, {frames.ctypes.data % 64} past 64 "
+            f"bytes), FFT input rows of call 1 that differ from call 4's: {in_rows}, that "
+            f"moved during call 1's FFT: {in_moved}, call 1's spectrum error against a float64 "
+            f"FFT of its own input on those rows {[err_own[r] for r in rows]}, "
             f"torch threads {torch.get_num_threads()} (interop "
             f"{torch.get_num_interop_threads()}, MKL {probe.mkl_threads()}), rounding mode "
             f"{libm.fegetround():#x}, x87 control word {fp['x87_cw']}, MXCSR {fp['mxcsr']} "

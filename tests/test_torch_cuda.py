@@ -421,6 +421,50 @@ def test_freq_network_every_k_matches_twin(cuda_device, k, mode, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k", [k for k in NETWORK_KS if mc.freq_core_runs(k)])
+def test_freq_core_every_shape_matches_twin(cuda_device, k, mode, dtype):
+    """K2's shared core at every R it is built for at each K (5..31), on
+    tie-heavy rows with +inf and -inf samples: 37 rows of 131 outputs (one
+    block a row, a ragged last run) and 3 of 2049 (three blocks of 683)."""
+    rng = np.random.default_rng(200 + k)
+    for rows, f_out in ((37, 131), (3, 2049)):
+        f_in = f_out + (k - 1 if mode == "valid" else 0)
+        x = _ties(rng, rows, f_in, device=cuda_device)
+        x[torch.rand(x.shape, device=cuda_device) < 0.03] = float("inf")
+        x[torch.rand(x.shape, device=cuda_device) < 0.03] = float("-inf")
+        x = x.to(dtype)
+        want = mc.sliding_median_boundary_plain(x, k, mode)
+        for r in mc.freq_core_runs(k):
+            got = mc._freq_launch(x, k, mode, "network", core=r)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            assert torch.equal(got, want), (rows, f_out, r)
+
+
+def test_freq_network_takes_the_core_where_planned(cuda_device):
+    """sliding_median_boundary counts a shared-core launch in ``cores``
+    (and on the network route) where freq_network_form picks it (the
+    clip's pass 2: 643 rows at K = 13), and takes the per-output network
+    on beat-track's 64 rows and at hop 32's K = 1; a shape the core is not
+    built for raises."""
+    rng = np.random.default_rng(12)
+    network, cores = (mc.sliding_median_boundary.routes["network"],
+                      mc.sliding_median_boundary.cores)
+    for x, k, took in ((_mags(rng, 643, 513, device=cuda_device), 13, 1),
+                       (_mags(rng, 64, 513, device=cuda_device), 13, 0),
+                       (_mags(rng, 32, 65, device=cuda_device), 1, 0)):
+        got = mc.sliding_median_boundary(x, k, "reflect")
+        torch.cuda.synchronize()
+        assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, "reflect"))
+        network, cores = network + 1, cores + took
+        assert (mc.sliding_median_boundary.routes["network"],
+                mc.sliding_median_boundary.cores) == (network, cores)
+    with pytest.raises(ZenError, match="no shared core"):
+        mc._freq_launch(x, 13, "reflect", "network", core=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "rows,f_in,k,mode",
     [(4, 8193, 16_385, "reflect"),  # the first kernel's counting took these

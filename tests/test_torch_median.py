@@ -290,6 +290,30 @@ def test_freq_valid_matches_padded_pallas():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape,k,mode",
+    [((4, 32, 513), 13, "reflect"),  # 128 folded rows: the fused kernel #7
+     ((4, 32, 513), 13, "edge"),
+     ((130, 513), 13, "reflect"),  # >= 128 rows that do not tile: the sublane route #8
+     ((8, 130 + 12), 13, "valid"),  # a pre-padded row: the padded kernel #5
+     ((2, 64, 129), 31, "wrap")],
+)
+def test_freq_core_plain_matches_pallas(shape, k, mode, dtype):
+    """K2's shared core, run by its plain version at each R it is built
+    for at K (13: 3 and 4; 31: 6 and 8), against the Pallas frequency
+    kernels the paths' shapes take, f32 and bf16."""
+    rng = np.random.default_rng(k + len(mode))
+    x = _mags(rng, *shape)
+    xj, xt = _bf16(x) if dtype == "bfloat16" else (jnp.asarray(x), _t(x))
+    want = (mp.sliding_median_last_axis_pallas(xj, k) if mode == "valid"
+            else mp.sliding_median_boundary_pallas(xj, k, mode))
+    for r in mc.freq_core_runs(k):
+        got = mc.sliding_median_boundary_core_plain(xt, k, mode, r)
+        assert got.dtype == xt.dtype
+        np.testing.assert_array_equal(_np32(got), _np32(want))
+
+
 # ---------------- wrapper contract (no card needed) ----------------
 
 
@@ -301,6 +325,18 @@ def test_cpu_tensors_take_the_plain_twin_and_count_nothing():
     mc.sliding_median_boundary(x, 5, "reflect")
     assert mc.tap_median_time.launches == n_time
     assert mc.sliding_median_boundary.launches == n_freq
+
+
+def test_cpu_rows_of_the_core_s_geometry_take_the_plain_twin():
+    """A CPU tensor of a geometry whose CUDA call takes K2's shared core
+    (643 rows of 513 bins at K = 13, the clip's pass 2) goes to the plain
+    twin and counts no launch and no core."""
+    assert mc.freq_network_form(13, 643, 513, "reflect") == ("core", 3)
+    x = _t(_mags(np.random.default_rng(18), 643, 513))
+    n, cores = mc.sliding_median_boundary.launches, mc.sliding_median_boundary.cores
+    got = mc.sliding_median_boundary(x, 13, "reflect")
+    assert torch.equal(got, mc.sliding_median_boundary_plain(x, 13, "reflect"))
+    assert (mc.sliding_median_boundary.launches, mc.sliding_median_boundary.cores) == (n, cores)
 
 
 @pytest.mark.parametrize(

@@ -1299,7 +1299,10 @@ def test_smoke_labels_the_steps_kernel():
         assert cs.freq_call_label(47, rows, 2049, "reflect", sms) == "rank"
     assert cs.freq_call_label(187, 8, 8193, "reflect", sms) == "rank"  # pitch-track
     assert cs.freq_call_label(16_385, 4, 8193, "reflect", sms) == cs.SCRATCH
-    assert cs.freq_call_label(13, 2048, 513, "reflect", sms) == "network"
+    # K2's network route: the 64-stream fleet's 2048 rows take its shared
+    # core (FREQ_CORE), beat-track's 64 the per-output network
+    assert cs.freq_call_label(13, 2048, 513, "reflect", sms) == cs.FREQ_CORE
+    assert cs.freq_call_label(13, 64, 513, "reflect", sms) == "network"
     k93 = tuple(range(-183, -137)) + tuple(range(-46, 1))  # hop 32, B=32 and B=1
     assert cs.time_call_label(k93, 183, 183 + 32, 1, 65, sms) == "rank"
     assert cs.time_call_label(k93, 183, 183 + 1, 1, 65, sms) == "rank"

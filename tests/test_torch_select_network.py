@@ -591,10 +591,11 @@ def test_library_hash_covers_the_core_header(monkeypatch):
 
 def test_split_builds_leave_the_core_out():
     """The cut builds (chip_smoke's split of a rank block) compile no
-    shared-core source; the library compiles each of them."""
+    shared-core source, K1's or K2's; the library compiles each of them."""
     full = {p.name for p in _build._sources(0)}
     cut = {p.name for p in _build._sources(1)}
-    core = {p.name for p in _build.CSRC.glob("median_time_core*.cu")}
+    core = {p.name for p in (*_build.CSRC.glob("median_time_core*.cu"),
+                             _build.CSRC / "median_freq_core.cu")}
     assert core and core <= full and not core & cut and full - cut == core
 
 
@@ -672,3 +673,214 @@ def test_smoke_labels_the_shared_core():
     assert cs.by_route(counts) == {"tap_median_time/register": 3}
     assert cs.SOURCES[f"tap_median_time/{cs.CORE}"] == "zen_tpu_torch/csrc/median_time_core.cu"
     assert (_build.CSRC.parents[1] / cs.SOURCES[f"tap_median_time/{cs.CORE}"]).exists()
+
+
+# ---------------- K2's shared core (runs of outputs share their window) ----------------
+
+FREQ_MODES = ["reflect", "wrap", "edge", "valid"]
+
+
+def _csrc_const(source: str, name: str) -> int:
+    """A ``constexpr int`` of a kernel source: kSlack of median_freq_core.cu
+    (samples past a chunk's segment, and past its outputs, that a run's
+    words may reach), kNetworkThreads of row_segment.cuh."""
+    text = (_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _word_samples(r: int, itemsize: int) -> int:
+    """word_samples of csrc/median_freq_core.cu: the largest power of two
+    that divides R, at most 16 bytes."""
+    a = 1
+    while r % (2 * a) == 0 and 2 * a * itemsize <= 16:
+        a *= 2
+    return a
+
+
+def emulate_freq_core(x: torch.Tensor, k: int, mode: str, r: int, grid: int = 3) -> torch.Tensor:
+    """K2's shared-core kernel step for step: a persistent grid of
+    ``grid`` blocks a chunk, block (b, c) taking chunk c of the rows b, b
+    + grid, ...; for each row its threads stage chunk + K - 1 samples into
+    a segment whose slack is stale (NaN here), the interior positions
+    loaded directly and the at most K - 1 halo positions by the first
+    threads under the border; thread t takes the runs t, t + 128, ... of
+    R outputs, reads K + R - 1 samples from sample t R on in words of A,
+    runs the shape's program and writes its R medians to the block's
+    result buffer (stale past the chunk too), which the block writes out
+    to the chunk's live outputs."""
+    f_in = x.shape[-1]
+    f_out = f_in - k + 1 if mode == "valid" else f_in
+    loads, _, _, _ = sn.core_program((k,), r)
+    n, a = len(loads), _word_samples(r, x.element_size())
+    slack, threads = _csrc_const("median_freq_core.cu", "kSlack"), _csrc_const(
+        "row_segment.cuh", "kNetworkThreads")
+    assert n == k + r - 1 and r + a - 2 <= slack
+    chunk = mc.freq_network_chunk(f_out)
+    rows = x.reshape(-1, f_in)
+    out = torch.empty((rows.shape[0], f_out), dtype=x.dtype)
+    done = []
+    for j0 in range(0, f_out, chunk):
+        live = min(chunk, f_out - j0)
+        need = live + k - 1
+        base = j0 if mode == "valid" else j0 - (k - 1) // 2
+        hl, hr = max(0, -base), max(0, base + need - f_in)  # split_of
+        assert hl + hr <= min(k - 1, threads)
+        inside = torch.arange(need) + base
+        inside = (inside >= 0) & (inside < f_in)
+        halo = [t if t < hl else f_in - base + t - hl for t in range(hl + hr)]
+        assert not inside[halo].any() and int(inside.sum()) + len(halo) == need
+        for block in range(min(grid, rows.shape[0])):
+            for ri in range(block, rows.shape[0], grid):
+                row = rows[ri]
+                seg = torch.full((chunk + k - 1 + slack,), float("nan"), dtype=x.dtype)
+                seg[:need][inside] = row[torch.arange(need)[inside] + base]
+                seg[halo] = row[_boundary_index(torch.tensor(halo, dtype=torch.long) + base,
+                                                f_in, mode)]
+                res = torch.full((chunk + slack,), float("nan"), dtype=x.dtype)
+                taken = []
+                for tid in range(threads):
+                    for i0 in range(tid * r, live, threads * r):
+                        words = -(-n // a)
+                        assert i0 % a == 0 and i0 + words * a <= seg.shape[-1]
+                        staged = seg[i0 : i0 + words * a].float()
+                        medians = sn.core_medians_plain(staged[:n, None], (k,), r)[:, 0]
+                        assert i0 + r <= res.shape[-1]
+                        res[i0 : i0 + r] = medians.to(x.dtype)
+                        taken.append(i0)
+                assert sorted(taken) == list(range(0, live, r))
+                out[ri, j0 : j0 + live] = res[:live]
+                done.append((ri, j0))
+    assert sorted(done) == sorted((ri, j0) for ri in range(rows.shape[0])
+                                  for j0 in range(0, f_out, chunk))
+    return out.reshape(x.shape[:-1] + (f_out,))
+
+
+def _freq_core_input(rng, rows: int, f_in: int) -> np.ndarray:
+    """Tie-heavy rows (8 levels) with +inf and -inf samples among them."""
+    x = _levels(rng, (rows, f_in), ties=True)
+    x[rng.random((rows, f_in)) < 0.05] = np.inf
+    x[rng.random((rows, f_in)) < 0.05] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("mode", FREQ_MODES)
+@pytest.mark.parametrize("k", FREQ_KS)
+def test_freq_core_matches_the_twin_and_zen_tpu(k, mode):
+    """K2's shared core, its plain version (``sliding_median_boundary_
+    core_plain``) and the kernel's thread mapping emulated step for step,
+    at every R it is built for at this K, bitwise ``sliding_median_
+    boundary_plain`` and zen_tpu's Pallas frequency median in interpret
+    mode (``sliding_median_boundary_pallas``; 'valid' the padded
+    ``sliding_median_last_axis_pallas``), on tie-heavy rows with +-inf
+    samples and 37 outputs a row (a multiple of no R); K = 1 and 3 have
+    no shape (the per-output network takes them)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from zen_tpu.ops import median_pallas as mp
+
+    f_out = 37
+    f_in = f_out + (k - 1 if mode == "valid" else 0)
+    x = _freq_core_input(np.random.default_rng(10 * k + FREQ_MODES.index(mode)), 3, f_in)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(mp.sliding_median_last_axis_pallas(x, k) if mode == "valid"
+                            else mp.sliding_median_boundary_pallas(x, k, mode))
+    xt = torch.from_numpy(x)
+    want = mc.sliding_median_boundary_plain(xt, k, mode)
+    np.testing.assert_array_equal(want.numpy(), pallas)
+    runs = mc.freq_core_runs(k)
+    assert (runs == ()) == (k < 5)
+    assert all(f_out % r for r in runs)
+    for r in runs:
+        assert torch.equal(mc.sliding_median_boundary_core_plain(xt, k, mode, r), want), r
+        assert torch.equal(emulate_freq_core(xt, k, mode, r), want), r
+
+
+@pytest.mark.parametrize("mode", FREQ_MODES)
+def test_freq_core_bf16_and_chunks(mode):
+    """bf16 samples go through float and back and select the twin's bits,
+    at K = 13 (R = 3 and 4) and K = 31 (R = 6 and 8), on rows of one block
+    (a ragged last run) and of three blocks (2049 outputs: chunks of 683,
+    each with a ragged last run)."""
+    rng = np.random.default_rng(20 + FREQ_MODES.index(mode))
+    for k, f_out in ((13, 131), (31, 2049)):
+        f_in = f_out + (k - 1 if mode == "valid" else 0)
+        x = _tensor(_freq_core_input(rng, 2, f_in), torch.bfloat16)
+        want = mc.sliding_median_boundary_plain(x, k, mode)
+        for r in mc.freq_core_runs(k):
+            got = mc.sliding_median_boundary_core_plain(x, k, mode, r)
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got, want), (k, r)
+            assert torch.equal(emulate_freq_core(x, k, mode, r), want), (k, r)
+
+
+def test_freq_core_shapes_are_the_one_run_shapes():
+    """K2's core takes every one-run shape of core_shapes up to 31 taps
+    (its window is one run of K samples), listed for its launcher's switch
+    in zen_core.cuh; K1's shapes and ids stay as they were."""
+    ids = sn.freq_core_shape_ids()
+    shapes = sn.core_shapes()
+    assert [shapes[q] for q in ids] == [
+        ((k,), r) for k in range(5, sn.FREQ_MAX_TAPS + 1, 2) for r in mc.freq_core_runs(k)]
+    assert len(ids) == 27 and mc.freq_core_runs(13) == (3, 4) and mc.freq_core_runs(31) == (6, 8)
+    listed = re.search(r"#define ZEN_CORE_FOR_EACH_FREQ_SHAPE\(X\) (.*)",
+                       sn.emit_core_header()).group(1)
+    assert [int(v[2:-1]) for v in listed.split()] == list(ids)
+    assert sn.core_minmax_per_output((13,), 3) == 26.0 and sn.minmax_count(13) == 66
+
+
+def test_freq_network_form_per_geometry():
+    """``freq_network_form``'s pick at each path's geometry: the shared
+    core wherever (K,) is built and the grid (a block a row chunk) has
+    FREQ_CORE_MIN_BLOCKS blocks, at the R whose block issues the fewest
+    min/max; the per-output network on the latency rows (beat-track's 64
+    rows, hop 32's K = 1), where no shape is built (K = 3) and below
+    FREQ_CORE_MIN_TAPS (K = 5, where the card ran the network faster)."""
+    form = mc.freq_network_form
+    assert form(13, 8192, 513, "reflect") == ("core", 3)  # the 512-stream block
+    assert form(13, 8192, 1024, "edge") == ("core", 4)  # its replicate border
+    assert form(13, 8192, 1036, "valid") == ("core", 4)  # its valid border
+    assert form(13, 2048, 513, "reflect") == ("core", 3)  # the 64-stream fleet
+    assert form(13, 643, 513, "reflect") == ("core", 3)  # the clip's pass 2
+    assert form(13, 41_355, 513, "wrap") == ("core", 3)  # the track's pass 2, median2d fl 13
+    assert form(13, 322, 513, "reflect") == ("core", 3)  # an sp=4 shard's pass 2
+    assert form(13, 64, 513, "reflect") == ("network", 1)  # beat-track
+    assert form(1, 32, 65, "reflect") == ("network", 1)  # hop 32
+    assert form(3, 8192, 513, "reflect") == ("network", 1)  # no shape at K = 3
+    assert mc.freq_core_runs(5) == (2,) and form(5, 8192, 513, "reflect") == ("network", 1)
+    assert form(7, 8192, 513, "reflect") == ("core", 3) and mc.FREQ_CORE_MIN_TAPS == 7
+    assert form(13, 263, 513, "reflect") == ("network", 1) and mc.FREQ_CORE_MIN_BLOCKS == 264
+    # the issue counts behind the R: 513 bins in 171 runs of 3 (6 warp
+    # passes of 78 min/max) or 129 of 4 (5 of 100); 1024 in 342 or 256
+    assert mc.freq_core_issue(13, 513, 3) == 6 * 78 < mc.freq_core_issue(13, 513, 4) == 5 * 100
+    assert mc.freq_core_issue(13, 1024, 4) == 8 * 100 < mc.freq_core_issue(13, 1024, 3) == 11 * 78
+    assert mc.freq_core_issue(13, 513, 1) == 17 * sn.minmax_count(13)
+
+
+def test_freq_core_refuses_unbuilt_shapes():
+    """A shape the kernel is not built for raises, never falls back."""
+    assert mc._freq_core_shape(13, 3) == sn.core_shape_id((13,), 3)
+    for k, r in ((13, 2), (3, 2), (33, 4)):
+        with pytest.raises(mc.ZenError, match="no shared core"):
+            mc._freq_core_shape(k, r)
+
+
+def test_smoke_labels_k2_shared_core():
+    """chip_smoke.py's launch labels: a K2 network call that takes the
+    shared core is FREQ_CORE ('network@core'), counted on the network
+    route too; one that takes the per-output network stays 'network';
+    by_route drops the FREQ_CORE key; the kernels line names the core's
+    own source."""
+    import chip_smoke as cs
+
+    sms = mc.H100_SMS
+    assert cs.freq_call_label(13, 8192, 513, "reflect", sms) == cs.FREQ_CORE
+    assert cs.freq_call_label(13, 643, 513, "reflect", sms) == cs.FREQ_CORE
+    assert cs.freq_call_label(13, 64, 513, "reflect", sms) == "network"  # beat-track
+    assert cs.freq_call_label(1, 32, 65, "reflect", sms) == "network"  # hop 32
+    assert cs.freq_call_label(47, 32, 2049, "reflect", sms) == "rank"  # hop 1024
+    key = f"sliding_median_boundary/{cs.FREQ_CORE}"
+    assert cs.launch_keys(key) == (key, "sliding_median_boundary/network")
+    assert cs.by_route({"sliding_median_boundary/network": 3, key: 2}) == {
+        "sliding_median_boundary/network": 3}
+    assert cs.SOURCES[key] == "zen_tpu_torch/csrc/median_freq_core.cu"
+    assert (_build.CSRC.parents[1] / cs.SOURCES[key]).exists()

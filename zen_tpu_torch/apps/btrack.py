@@ -104,12 +104,17 @@ def odf_batch(frames: torch.Tensor) -> torch.Tensor:
     return odf_from_spectrum(odf_spectrum(frames))
 
 
-def odf_spectrum(frames: torch.Tensor) -> torch.Tensor:
-    """The complex spectra [T, 512] the ODF reads: each frame windowed,
-    its halves swapped, transformed."""
+def odf_fft_input(frames: torch.Tensor) -> torch.Tensor:
+    """The rows [T, 512] ``odf_spectrum`` transforms: each frame windowed,
+    its halves swapped."""
     xw = frames.to(torch.float32) * _device_window(frames.device)
-    fft_in = torch.cat([xw[:, HOP_SIZE:], xw[:, :HOP_SIZE]], dim=-1)
-    return torch.fft.fft(fft_in, dim=-1)
+    return torch.cat([xw[:, HOP_SIZE:], xw[:, :HOP_SIZE]], dim=-1)
+
+
+def odf_spectrum(frames: torch.Tensor) -> torch.Tensor:
+    """The complex spectra [T, 512] the ODF reads: ``odf_fft_input``'s
+    rows, transformed."""
+    return torch.fft.fft(odf_fft_input(frames), dim=-1)
 
 
 def odf_from_spectrum(spec: torch.Tensor) -> torch.Tensor:

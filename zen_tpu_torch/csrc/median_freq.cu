@@ -51,7 +51,10 @@
 // Device memory is read once and written once; the padded copy, the
 // transposes and the un-pad slice of the JAX routes never exist. Rows
 // and the ragged end are masked here, so any row count is valid (the
-// Pallas fused kernel needed R % 128 == 0).
+// Pallas fused kernel needed R % 128 == 0). The route's second kernel,
+// the shared core for runs of outputs whose windows overlap, is in
+// median_freq_core.cu; the wrapper picks one of the two a call
+// (median_cuda.freq_network_form).
 //
 // `rank`, from FREQ_RANK_MIN_TAPS on, at every K: rank once, select many
 // (rank_select.cuh). A network grows as ~K log^2 K min/max per output;
@@ -117,6 +120,7 @@
 
 namespace {
 
+using zen_segment::check_args;
 using zen_segment::kReflect;
 using zen_segment::kValid;
 using zen_rank::from_float;
@@ -392,20 +396,6 @@ select_median_kernel(const T* __restrict__ x, T* __restrict__ out, int f_in,
           from_float<T>(zen_rank::value_of_bits(key));
     }
   }
-}
-
-int check_args(int rows, int f_in, int f_out, int k, int mode) {
-  if (k < 1 || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
-      mode < kReflect || mode > kValid) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (mode == kValid ? f_out != f_in - k + 1 : f_out != f_in) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (mode == kReflect && (k - 1) / 2 > f_in - 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
 }
 
 template <typename T>

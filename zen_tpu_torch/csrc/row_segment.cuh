@@ -1,6 +1,7 @@
-// K2's row-segment staging, shared by K2 (csrc/median_freq.cu) and its
-// copy-only mirror segment_copy (csrc/probe_copy.cu), so that the
-// mirror's access pattern is K2's by construction.
+// K2's row-segment staging, shared by K2 (csrc/median_freq.cu,
+// csrc/median_freq_core.cu) and its copy-only mirror segment_copy
+// (csrc/probe_copy.cu), so that the mirror's access pattern is K2's by
+// construction.
 //
 // A block of `count` threads stages the `need` samples its outputs'
 // windows reach, row positions base .. base + need - 1 with the boundary
@@ -11,7 +12,9 @@
 // * stage_keys (the rank route): as 64-bit (value order bits, position)
 //   keys, padded with kPadKey up to key_count(need) keys.
 // network_chunk is the network route's split of a row into blocks, which
-// K2's launcher and the mirror's both call.
+// K2's launchers (the network's and its shared core's, csrc/
+// median_freq_core.cu) and the mirror's call; check_args the launchers'
+// check of a call's geometry.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,6 +41,24 @@ __device__ __forceinline__ int boundary_index(int p, int f, int mode) {
   }
   if (mode == kEdge) return p < 0 ? 0 : (p > f - 1 ? f - 1 : p);
   return p;  // valid: always inside the padded row
+}
+
+// The launchers' check of a call's geometry: 0, or cudaErrorInvalidValue
+// where K is not odd and positive, a count is not positive, the mode is
+// unknown, f_out is not the mode's width (valid: f_in - k + 1, else
+// f_in) or reflect's window passes the row's far edge
+inline int check_args(int rows, int f_in, int f_out, int k, int mode) {
+  if (k < 1 || k % 2 == 0 || rows <= 0 || f_out <= 0 ||
+      mode < kReflect || mode > kValid) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode == kValid ? f_out != f_in - k + 1 : f_out != f_in) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode == kReflect && (k - 1) / 2 > f_in - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 // Outputs per block of the network route: a row of f_out outputs splits

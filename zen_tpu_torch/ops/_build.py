@@ -8,17 +8,17 @@ named by a hash of the sources, the headers they share (``*.cuh``), the
 generated headers and the flags, so an edited source, header, schedule or
 flag rebuilds and an unchanged tree reuses the library. The generated
 headers are ``zen_select.cuh``, the median networks of the small-K routes
-(``select_network.emit_header``), and ``zen_core.cuh``, K1's shared-core
-networks (``select_network.emit_core_header``): their text is written to
-``build/zen_tpu_torch/gen_<hash of the text>/`` before a build, and that
+(``select_network.emit_header``), and ``zen_core.cuh``, the shared-core
+networks of K1 and K2 (``select_network.emit_core_header``): their text is
+written to ``build/zen_tpu_torch/gen_<hash of the text>/`` before a build, and that
 directory goes on ``nvcc``'s include path. ``nvcc``'s register
 and shared-memory report (``-Xptxas -v``) is kept beside it as
 ``<name>.log``. ``library(cut)`` builds the same sources with
 ``-DZEN_RANK_CUT=cut`` (1 or 2: the rank kernels end after staging or
 after the sort, ``csrc/rank_select.cuh``), a library of its own that
 only chip_smoke.py's split of a rank block's time loads; it leaves out
-``CORE_SOURCES`` (K1's shared core, which has no rank kernel to cut) and
-their entries.
+``CORE_SOURCES`` (K1's and K2's shared cores, which have no rank kernel
+to cut) and their entries.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
 wrappers in ``median_cuda.py`` and ``probe_cuda.py`` raise on a nonzero
@@ -44,7 +44,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zen_tpu_torch"
 GENERATED_HEADER = "zen_select.cuh"
 GENERATED_CORE_HEADER = "zen_core.cuh"
-CORE_SOURCES = "median_time_core*.cu"  # K1's shared core: the full library only
+# the shared cores, K1's and K2's: the full library only
+CORE_SOURCES = ("median_time_core*.cu", "median_freq_core.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -104,9 +105,13 @@ _SIGNATURES = {
     "zen_sliding_median_select_bf16": _FREQ_SELECT,
     "zen_cuda_error_string": ([_I], ctypes.c_char_p),
 }
+# x, out, rows, f_in, f_out, k, mode, shape, stream
+_FREQ_CORE = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
 _CORE_SIGNATURES = {
     "zen_tap_median_time_core": _TIME_CORE,
     "zen_tap_median_time_core_bf16": _TIME_CORE,
+    "zen_sliding_median_core": _FREQ_CORE,
+    "zen_sliding_median_core_bf16": _FREQ_CORE,
 }
 
 
@@ -128,7 +133,7 @@ def _flags(cut: int) -> tuple:
 def _sources(cut: int) -> list:
     """The library's ``.cu`` sources: all of them, less CORE_SOURCES in a
     split build."""
-    core = set(CSRC.glob(CORE_SOURCES))
+    core = {src for pattern in CORE_SOURCES for src in CSRC.glob(pattern)}
     return [src for src in sorted(CSRC.glob("*.cu")) if not cut or src not in core]
 
 

@@ -22,9 +22,9 @@ wrapper counts its kernel launches, so a run can show that it went
 through the kernel, ``routes`` splits that count by route, ``steps``
 counts the rank route's launches that took its steps kernel (a thread a
 run of outputs; the others walk from rank 0 or, in K2, take the key
-store), K1's ``cores`` its register route's launches that took the
-shared core, and K2's ``stores`` splits its rank route's launches by
-where the keys live.
+store), ``cores`` the launches that took a network's shared core (K1's
+register route, K2's network route), and K2's ``stores`` splits its rank
+route's launches by where the keys live.
 Kernels launch on the current stream, never synchronize and allocate
 nothing: the wrapper allocates the output and K2's key scratch.
 
@@ -37,7 +37,13 @@ where the tap set is one or two runs of consecutive offsets and the call
 has more than one output row, the shared core (``csrc/
 median_time_core.cu``: a thread sorts the taps its run of R outputs
 share once, then merges each output's own taps in), counted apart in
-``tap_median_time.cores``. Large K takes one of two routes, weighed on
+``tap_median_time.cores``. K2's network route likewise
+(``freq_network_form``): the per-output network, or, from
+FREQ_CORE_MIN_TAPS taps on calls of FREQ_CORE_MIN_BLOCKS row chunks, its
+shared core (``csrc/
+median_freq_core.cu``: a thread takes R consecutive outputs, whose
+windows share K - R + 1 samples), counted apart in
+``sliding_median_boundary.cores``. Large K takes one of two routes, weighed on
 the call's geometry (``time_rank_pick``, ``freq_rank_pick``): ``rank``,
 "rank once, select many" (``csrc/rank_select.cuh``: a block sorts its
 staged samples once, and each output walks the ranks from rank 0 or, a
@@ -194,6 +200,17 @@ RANK_LANE_RUNS = (1,) + tuple(range(3, 32, 2))  # odd: a run's inverse reads mis
 FREQ_RANK_MIN_TAPS = FREQ_NETWORK_MAX_TAPS + 2
 FREQ_RANK_TILES = (32, 64, 128, 256)  # outputs (and threads) a block where each walks from 0
 FREQ_NETWORK_CHUNK = 1024  # most outputs of a block of K2's network route
+# K2's shared core (freq_network_form) takes a call of this many row
+# chunks (the network's blocks; its persistent grid takes them whatever
+# R), two an H100 SM (TIME_CORE_MIN_BLOCKS's reasoning): a single stream's
+# few rows (beat-track's 64) keep the per-output network
+FREQ_CORE_MIN_BLOCKS = 2 * H100_SMS
+# and from this K on: on an H100 (chip_smoke.py phase 3, [2048, 513]) the
+# core lost to the network at K = 5 (8.14 against 7.82 us), tied at 7
+# (8.21 against 8.24) and won from 9 on (8.59 against 9.52 up to 12.66
+# against 26.34 at 31)
+FREQ_CORE_MIN_TAPS = 7
+FREQ_CORE_WARP = 32  # runs of R outputs a warp of K2's core takes a pass
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
 _PLAIN_BOUNDARY = {"reflect": "reflect", "wrap": "wrap", "edge": "clamp"}
 
@@ -259,8 +276,8 @@ def _count(wrapper, route: str, store: str | None = None, steps: bool = False,
     """One launch on ``wrapper``'s counters (``store``: where a rank
     route's keys live, counted in ``wrapper.stores``; ``steps``: the rank
     route took its steps kernel, counted in ``wrapper.steps``; ``core``:
-    K1's register route took its shared core, counted in
-    ``wrapper.cores``), under a lock: ``+= 1`` on an attribute is a
+    K1's register route or K2's network route took its shared core,
+    counted in ``wrapper.cores``), under a lock: ``+= 1`` on an attribute is a
     read-modify-write that two threads can interleave."""
     with _COUNT_LOCK:
         wrapper.launches += 1
@@ -956,6 +973,74 @@ def sliding_median_boundary_plain(
     return sliding_median(x, range(-m, m + 1), -1, _PLAIN_BOUNDARY[mode])
 
 
+def freq_core_runs(k: int) -> tuple:
+    """The R values K2's shared core is built for at width ``k``: those of
+    the one-run shape (k,) (``select_network.core_shapes``; none past
+    FREQ_NETWORK_MAX_TAPS, nor at K = 1 or 3)."""
+    if k > FREQ_NETWORK_MAX_TAPS:
+        return ()
+    return tuple(r for lengths, r in core_shapes() if lengths == (k,))
+
+
+def _freq_core_shape(k: int, r: int) -> int:
+    """The kernel's id of (k,) at ``r``; raises where it is not built."""
+    if r not in freq_core_runs(k):
+        raise ZenError(f"sliding_median_boundary: no shared core for K={k} at R={r}")
+    return core_shape_id((k,), r)
+
+
+def freq_core_issue(k: int, f_out: int, r: int) -> int:
+    """min/max a block of K2's shared core issues at runs of ``r``, in
+    warp instructions: its chunk (``freq_network_chunk``) in runs of r
+    outputs, FREQ_CORE_WARP runs a warp a pass, each pass the whole
+    program (``core_program``); R = 1 is the per-output network."""
+    runs = -(-freq_network_chunk(f_out) // r)
+    return -(-runs // FREQ_CORE_WARP) * len(core_program((k,), r)[1])
+
+
+@functools.lru_cache(maxsize=64)
+def freq_network_form(k: int, rows: int, f_in: int, mode: str) -> tuple:
+    """How K2's network route takes a call of ``rows`` rows of ``f_in``
+    samples at width ``k``: ('core', R), the shared core, where (k,) is
+    built (``freq_core_runs``) from FREQ_CORE_MIN_TAPS on and the call has
+    FREQ_CORE_MIN_BLOCKS row chunks (the network's blocks; the core's
+    persistent grid takes them whatever R), at the built R whose block
+    issues the fewest min/max (``freq_core_issue``: a run a thread, so R
+    sets how full a row's last warp pass is; the larger R on a tie); else
+    ('network', 1), the per-output network, a thread an output at a time."""
+    f_out = _freq_out(k, f_in, mode)
+    runs = freq_core_runs(k)
+    blocks = rows * -(-f_out // freq_network_chunk(f_out))
+    if runs and k >= FREQ_CORE_MIN_TAPS and blocks >= FREQ_CORE_MIN_BLOCKS:
+        return "core", min(runs, key=lambda r: (freq_core_issue(k, f_out, r), -r))
+    return "network", 1
+
+
+def sliding_median_boundary_core_plain(x: torch.Tensor, k: int, mode: str,
+                                       r: int) -> torch.Tensor:
+    """The shared core's kernel in PyTorch, for the tests: each run of
+    ``r`` outputs (the last one ragged) loads the k + r - 1 samples its
+    windows reach, the border applied as the kernel's staging applies it,
+    and runs ``core_medians_plain`` on them as float. Bitwise
+    ``sliding_median_boundary_plain`` wherever (k,) is built at ``r``."""
+    f_in = x.shape[-1]
+    f_out = _freq_out(k, f_in, mode)
+    loads = core_program((k,), r)[0]
+    n_runs = -(-f_out // r)
+    base = 0 if mode == "valid" else -((k - 1) // 2)
+    p = base + r * torch.arange(n_runs)[:, None] + torch.tensor([q for _, q in loads])
+    if mode == "reflect":
+        p = torch.minimum(p.abs(), 2 * (f_in - 1) - p.abs())
+    elif mode == "wrap":
+        p = torch.remainder(p, f_in)
+    # edge clamps; the clamp also keeps a ragged run's positions past the
+    # row inside it (the kernel reads stale samples there; neither is kept)
+    staged = x[..., p.clamp(0, f_in - 1)].float()
+    medians = core_medians_plain(staged.movedim(-1, 0), (k,), r)
+    out = medians.movedim(0, -1).reshape(*x.shape[:-1], n_runs * r)[..., :f_out]
+    return out.to(x.dtype)
+
+
 @functools.lru_cache(maxsize=64)
 def freq_rank_tile(k: int):
     """The walk's tile for width ``k`` (the rank route's first design): of
@@ -1166,11 +1251,12 @@ def sliding_median_boundary(x: torch.Tensor, k: int, mode: str) -> torch.Tensor:
     _check_cuda_operands(x)
     rows, sms = math.prod(x.shape[:-1]), _sm_count(x.device)
     route = freq_call_route(k, rows, f_in, mode, sms)
-    out = _freq_launch(x, k, mode, route)
+    core = freq_network_form(k, rows, f_in, mode)[1] if route == "network" else None
+    out = _freq_launch(x, k, mode, route, core=core)
     if out.numel():
         plan = freq_rank_plan(k, rows, f_in, mode, sms) if route == "rank" else None
         _count(sliding_median_boundary, route, freq_rank_store(k) if route == "rank" else None,
-               steps=bool(plan) and plan[1] > 1)
+               steps=bool(plan) and plan[1] > 1, core=bool(core and core > 1))
     return out
 
 
@@ -1178,11 +1264,13 @@ sliding_median_boundary.launches = 0
 sliding_median_boundary.routes = dict.fromkeys(("network", "rank", "select"), 0)
 sliding_median_boundary.stores = dict.fromkeys(("shared", "scratch"), 0)
 sliding_median_boundary.steps = 0
+sliding_median_boundary.cores = 0
 
 
 def _freq_launch(
     x: torch.Tensor, k: int, mode: str, route: str, tile: int | None = None, cut: int = 0,
     chunk: int | None = None, shared_bins: bool | None = None, run: int | None = None,
+    core: int | None = None,
 ) -> torch.Tensor:
     """K2's ``route`` kernel on a checked CUDA operand; counts nothing
     (chip_smoke's sweeps also call it, for every route that takes ``k``,
@@ -1195,7 +1283,10 @@ def _freq_launch(
     with that many keys sorted in shared memory at once, whatever K (the
     card tests drive its passes over device memory at small K so); by
     default the store takes the K ``freq_rank_store`` sends it,
-    RANK_STORE_CHUNK at once."""
+    RANK_STORE_CHUNK at once. The network route takes ``freq_network_form``'s
+    kernel unless ``core`` is given: 1 the per-output network (a run of one
+    output), R > 1 the shared core at runs of R (which raises where it is
+    not built)."""
     f_in = x.shape[-1]
     f_out = f_in - k + 1 if mode == "valid" else f_in
     out = torch.empty(x.shape[:-1] + (f_out,), dtype=x.dtype, device=x.device)
@@ -1223,7 +1314,10 @@ def _freq_launch(
             shared_bins = select_shared_bins(threads)
         name, extra = "zen_sliding_median_select", (pick, threads, int(shared_bins))
     elif route == "network":
-        name, extra = "zen_sliding_median_network", ()
+        if core is None:
+            core = freq_network_form(k, rows, f_in, mode)[1]
+        name, extra = (("zen_sliding_median_core", (_freq_core_shape(k, core),)) if core > 1
+                       else ("zen_sliding_median_network", ()))
     else:
         raise ZenError(f"sliding_median_boundary has no route {route!r}")
     err = _launch(

@@ -360,18 +360,27 @@ def core_part(shape_id: int) -> int:
     return shape_id % CORE_PARTS
 
 
+def freq_core_shape_ids() -> tuple:
+    """The ids of the shapes K2's shared core is built for: one tap run of
+    K up to FREQ_MAX_TAPS (K2's window is one run of K samples)."""
+    return tuple(q for q, (lengths, _) in enumerate(core_shapes())
+                 if len(lengths) == 1 and lengths[0] <= FREQ_MAX_TAPS)
+
+
 def emit_core_header() -> str:
     """The text of ``zen_core.cuh``: ``zen_core::Shape<id>`` for every
-    (lengths, R) of ``core_shapes``, in id order; ZEN_CORE_PARTS, and
+    (lengths, R) of ``core_shapes``, in id order; ZEN_CORE_PARTS,
     ZEN_CORE_FOR_EACH_SHAPE_OF_PART_<q>(X), which expands X(id) for each
-    shape part q compiles (``core_part``), for that part's switch."""
+    shape part q of K1's core compiles (``core_part``), for that part's
+    switch, and ZEN_CORE_FOR_EACH_FREQ_SHAPE(X), which expands X(id) for
+    each shape K2's core takes (``freq_core_shape_ids``)."""
     shapes = core_shapes()
     parts = [
         "// Generated by zen_tpu_torch/ops/select_network.py (emit_core_header); not edited by hand.",
-        "// zen_core::Shape<ID>: K1's shared-core network for one tap-run shape and a run of",
+        "// zen_core::Shape<ID>: the shared-core network for one tap-run shape and a run of",
         "// kR outputs (core_program): stage(v, load) loads the kStaged registers a thread",
-        "// holds, load(j, p) the row first_j + p of tap run j; medians(v, m) writes the kR",
-        "// outputs' medians, straight-line min/max, each one of the inputs.",
+        "// holds, load(j, p) the row (K1) or sample (K2) first_j + p of tap run j; medians(v,",
+        "// m) writes the kR outputs' medians, straight-line min/max, each one of the inputs.",
         "#pragma once",
         "",
         f"#define ZEN_CORE_MAX_TAP_RUNS {CORE_MAX_TAP_RUNS}",
@@ -379,6 +388,8 @@ def emit_core_header() -> str:
         *(f"#define ZEN_CORE_FOR_EACH_SHAPE_OF_PART_{part}(X) "
           + " ".join(f"X({q})" for q in range(len(shapes)) if core_part(q) == part)
           for part in range(CORE_PARTS)),
+        "#define ZEN_CORE_FOR_EACH_FREQ_SHAPE(X) "
+        + " ".join(f"X({q})" for q in freq_core_shape_ids()),
         "",
         "namespace zen_core {",
         "",

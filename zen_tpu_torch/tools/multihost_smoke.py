@@ -198,9 +198,11 @@ def make_corpus(corpus_dir: str, corpus: Corpus) -> list:
 def read_launches() -> dict:
     """The median kernels' launches in this process by route, 'kernel/route',
     of each rank route's, those that took its steps kernel,
-    'kernel/rank@steps', of K1's register route's, those that took the
-    shared core, 'tap_median_time/register@core', and of K2's, those on
-    its key store, 'sliding_median_boundary/rank@scratch'."""
+    'kernel/rank@steps', of K1's register route's and K2's network
+    route's, those that took their shared core,
+    'tap_median_time/register@core' and 'sliding_median_boundary/
+    network@core', and of K2's rank route's, those on its key store,
+    'sliding_median_boundary/rank@scratch'."""
     from ..ops import median_cuda as mc
 
     counts = {}
@@ -209,6 +211,7 @@ def read_launches() -> dict:
         counts.update({f"{name}/{route}": n for route, n in wrapper.routes.items()})
         counts[f"{name}/rank@steps"] = wrapper.steps
     counts["tap_median_time/register@core"] = mc.tap_median_time.cores
+    counts["sliding_median_boundary/network@core"] = mc.sliding_median_boundary.cores
     counts["sliding_median_boundary/rank@scratch"] = mc.sliding_median_boundary.stores["scratch"]
     return counts
 

@@ -3,7 +3,8 @@ and whether the ODF stays bitwise the same under load.
 
     python -m zen_tpu_torch.tools.odf_fp_probe [--threads 3]
     python -m zen_tpu_torch.tools.odf_fp_probe --stress 6 [--threads 8]
-        [--seconds 120] [--codec] [--fresh-plans]
+        [--seconds 120] [--codec] [--fresh-plans] [--malloc-perturb 165]
+        [--hook tests/odf_jax_lead.py:hold_alias]
 
 A diagnostic for ROADMAP Queue 3 item 8 (``odf_batch`` on the CPU once
 moved a block of 8 of 24 frames). Builds a small C helper with ``gcc
@@ -32,7 +33,16 @@ codec round trips (FLAC, WavPack and PCM16 WAV, written and read back
 through ``runtime/native.py``, as ``tests/test_torch_audio.py`` does) in
 the same process before each ODF call; ``--fresh-plans`` precedes each
 call with an FFT of another batch size, so that MKL commits a new
-descriptor between calls. CPU only; prints one JSON object last.
+descriptor between calls. ``--malloc-perturb B`` sets glibc's
+``MALLOC_PERTURB_`` to B in the worker processes alone, so that memory
+malloc hands out reads as B's complement and freed memory as B: a read
+of freed or unwritten memory then shows as garbage, not as near-right
+values. ``--hook FILE:FUNC`` gives each call fresh frames (a new numpy
+array, as the test builds them) and calls FUNC(frames) from FILE first,
+holding what it returns until the port's call has ended (the test's
+order: ``tests/odf_jax_lead.py:hold_alias`` runs zen_tpu's ODF on the
+frames and keeps JAX's zero-copy view of them alive). CPU only; prints
+one JSON object last.
 """
 from __future__ import annotations
 
@@ -162,13 +172,6 @@ def first_use(mode: int, threads: int) -> None:
     print(json.dumps(tb.odf_batch(frames()).numpy().tolist()))
 
 
-def _spectrum_input(x: torch.Tensor) -> np.ndarray:
-    """The FFT's input rows of ``odf_spectrum`` (windowed, halves swapped)
-    in float64, for the float64 reference spectrum."""
-    xw = x.to(torch.float32) * tb._device_window(x.device)
-    return torch.cat([xw[:, tb.HOP_SIZE:], xw[:, :tb.HOP_SIZE]], dim=-1).double().numpy()
-
-
 def _row_errors(spec: np.ndarray, exact: np.ndarray) -> list:
     """Each row's max |spec - exact| over the row's max |exact|."""
     return (np.abs(spec - exact).max(-1) / np.abs(exact).max(-1)).tolist()
@@ -188,13 +191,26 @@ def _codec_round_trip(workdir: Path, rng: np.random.Generator) -> None:
     audio.read_audio_mono(str(workdir / "c.wav"))
 
 
-def stress_worker(threads: int, seconds: float, codec: bool, fresh_plans: bool) -> dict:
+def _load_hook(spec: str):
+    """FUNC of ``FILE:FUNC`` (FILE relative to the repository root)."""
+    import importlib.util
+
+    path, _, name = spec.rpartition(":")
+    module_spec = importlib.util.spec_from_file_location("odf_probe_hook", ROOT / path)
+    module = importlib.util.module_from_spec(module_spec)
+    module_spec.loader.exec_module(module)
+    return getattr(module, name)
+
+
+def stress_worker(threads: int, seconds: float, codec: bool, fresh_plans: bool,
+                  hook: str | None = None) -> dict:
     """One process of the stress mode (module note); prints one JSON line
     per mismatch and returns the summary."""
     torch.set_num_threads(threads)
     lib = helper()
     x = frames()
-    exact = np.fft.fft(_spectrum_input(x), axis=-1)
+    hold = _load_hook(hook) if hook else None
+    exact = np.fft.fft(tb.odf_fft_input(x).double().numpy(), axis=-1)
     calls = [tb.odf_spectrum(x) for _ in range(3)]
     if not all(torch.equal(c, calls[0]) for c in calls[1:]):
         print(json.dumps({"pid": os.getpid(), "reference": "the first three calls differ"}),
@@ -212,10 +228,16 @@ def stress_worker(threads: int, seconds: float, codec: bool, fresh_plans: bool) 
                 _codec_round_trip(Path(tmp), rng)
             if fresh_plans:
                 torch.fft.fft(torch.ones(25 + n % 64, 512), dim=-1)
+            held = None
+            if hold:
+                fresh = tb.frames_from_hops(x[:, tb.HOP_SIZE:].numpy().reshape(-1))
+                held = hold(fresh)
+                x = torch.from_numpy(fresh)
             before = fp_state(lib)
             spec = tb.odf_spectrum(x)
             odf = tb.odf_from_spectrum(spec).numpy()
             after = fp_state(lib)
+            del held
             seen |= unusual(before) | unusual(after)
             if torch.equal(spec, ref_spec) and np.array_equal(odf.view(np.uint32),
                                                               ref.view(np.uint32)):
@@ -233,17 +255,24 @@ def stress_worker(threads: int, seconds: float, codec: bool, fresh_plans: bool) 
             mismatches.append(hit)
             print(json.dumps(hit), flush=True)
     return {"pid": os.getpid(), "calls": n, "mismatches": len(mismatches),
+            "malloc_perturb": os.environ.get("MALLOC_PERTURB_"), "hook": hook,
+            "hook_stats": getattr(hold, "stats", None),
             "unusual_mxcsr": sorted(seen), "torch_threads": torch.get_num_threads(),
             "mkl_threads": mkl_threads(), "mkl": torch.backends.mkl.is_available(),
             "reference_max_row_error": max(ref_err)}
 
 
-def stress(n: int, threads: int, seconds: float, codec: bool, fresh_plans: bool) -> dict:
+def stress(n: int, threads: int, seconds: float, codec: bool, fresh_plans: bool,
+           malloc_perturb: int | None = None, hook: str | None = None) -> dict:
     """The stress mode: ``n`` worker processes at once (module note)."""
     argv = [sys.executable, "-m", "zen_tpu_torch.tools.odf_fp_probe", "--stress-worker",
             "--threads", str(threads), "--seconds", str(seconds)]
     argv += ["--codec"] * codec + ["--fresh-plans"] * fresh_plans
-    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE, text=True, cwd=ROOT)
+    argv += ["--hook", hook] if hook else []
+    env = dict(os.environ)
+    if malloc_perturb is not None:
+        env["MALLOC_PERTURB_"] = str(malloc_perturb)
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE, text=True, cwd=ROOT, env=env)
              for _ in range(n)]
     workers, hits = [], []
     try:
@@ -260,12 +289,14 @@ def stress(n: int, threads: int, seconds: float, codec: bool, fresh_plans: bool)
                 p.kill()
                 p.communicate()
     report = {"stress": n, "threads": threads, "seconds": seconds, "codec": codec,
-              "fresh_plans": fresh_plans, "calls": sum(w["calls"] for w in workers),
+              "fresh_plans": fresh_plans, "malloc_perturb": malloc_perturb, "hook": hook,
+              "calls": sum(w["calls"] for w in workers),
               "mismatches": hits,
               "unusual_mxcsr": sorted({v for w in workers for v in w["unusual_mxcsr"]}),
               "workers": workers}
     print(f"stress: {n} processes x {threads} threads, {seconds:g} s, codec {codec}, fresh "
-          f"plans {fresh_plans}: {report['calls']} calls, {len(hits)} mismatches, MXCSR other "
+          f"plans {fresh_plans}, MALLOC_PERTURB_ {malloc_perturb}, hook {hook}: "
+          f"{report['calls']} calls, {len(hits)} mismatches, MXCSR other "
           f"than {MXCSR_DEFAULT:#06x} (flags aside): {report['unusual_mxcsr'] or 'none'}")
     return report
 
@@ -277,6 +308,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--seconds", type=float, default=120.0)
     ap.add_argument("--codec", action="store_true")
     ap.add_argument("--fresh-plans", action="store_true")
+    ap.add_argument("--malloc-perturb", type=int, default=None)
+    ap.add_argument("--hook", default=None)
     ap.add_argument("--stress-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--first-use", type=lambda v: int(v, 0), default=None,
                     help=argparse.SUPPRESS)
@@ -285,11 +318,13 @@ def main(argv=None) -> dict:
         first_use(args.first_use, args.threads)
         return {}
     if args.stress_worker:
-        summary = stress_worker(args.threads, args.seconds, args.codec, args.fresh_plans)
+        summary = stress_worker(args.threads, args.seconds, args.codec, args.fresh_plans,
+                                args.hook)
         print(json.dumps(summary))
         return summary
     if args.stress:
-        report = stress(args.stress, args.threads, args.seconds, args.codec, args.fresh_plans)
+        report = stress(args.stress, args.threads, args.seconds, args.codec, args.fresh_plans,
+                        args.malloc_perturb, args.hook)
         print(json.dumps(report))
         return report
     torch.set_num_threads(args.threads)
