@@ -11,16 +11,16 @@ and the least time the card could take (phase 3; at a 4-minute track's
 offline shapes the kernels run without their twin; rows of few outputs
 and huge K run the select route, K1 and K2 up to their tap limits, and
 K2's sort past one block's shared memory its key store). Phase 3 also
-times the rank and select routes side by side on the wide rows, with the
-cost rule's pick beside the faster one measured, and holds
-the comparator-network routes (K1 register up to 63 taps, K2 network up
-to 31) bitwise at every odd K they take, tie-heavy and bf16, each in both
+times the rank, warp (K1), network (K2) and select routes side by side on
+the wide rows, with the cost rule's pick beside the fastest one measured,
+and holds the comparator-network routes (K1 register and K2 network, up
+to 63 taps) bitwise at every odd K they take, tie-heavy and bf16, each in both
 of its forms (the per-output network and the shared core at each R it is
 built for; K1's on one tap run and on the causal wrap's two, K2's under
 each of the four borders); sweeps K2's
 two routes over K at
-two row shapes: the crossover FREQ_RANK_MIN_TAPS (ops/median_cuda.py)
-comes from it; times K1's network kernel at each run length and its
+three row shapes, the network in both of its forms: the crossover
+FREQ_RANK_MIN_TAPS (ops/median_cuda.py) comes from it; times K1's network kernel at each run length and its
 shared core at each R, beside the form the wrapper picks, and both
 rank routes at every geometry the cost rule weighs (K2's tile and run of
 outputs a thread, K1's run of rows, lane run and columns: the walk from
@@ -32,10 +32,12 @@ builds all three at once). Then it drives the paths through their user
 entry points at full width:
 
   phase 4  HPRRealtime at 44.1 kHz, hop 1024: 64 blocks of 32 hops,
-           then 64 single hops;
+           then 64 single hops (its frequency median, K = 47, on K2's
+           network route in its shared-core form, no K2 rank launch);
   phase 10 HPRRealtime at 44.1 kHz, hop 32, the low-latency stream whose
-           time median is K = 93 over 183 history rows (K1's rank
-           route): 64 blocks of 32 hops, then 64 single hops;
+           time median is K = 93 over 183 history rows (K1's warp
+           route, a warp an output): 64 blocks of 32 hops, then 64 single
+           hops;
   phase 10b hop 64 at 44.1 kHz, K = 47 over 91 history rows (K1's
            network): HPRRealtime, 64 blocks of 32 hops then 64 single
            hops, and MultiStreamHPR, 64 streams, 16 blocks of 32 hops;
@@ -160,7 +162,7 @@ tolerance applies to every output sample no flipped frame feeds (phase
 run's percussive stem against the f32 run's by SI-SNR). Kernel launches
 are counted per path and per kernel route, K1's register launches that took the
 shared core apart (CORE), K2's network launches that took its shared core
-apart (FREQ_CORE: required on phases 6, 7, 8, 9 and 31, refused on
+apart (FREQ_CORE: required on phases 4, 6, 7, 8, 9 and 31, refused on
 the latency rows of phases 10 and 19), and K2's rank launches by
 where their keys live (phase 6 and phases 7-30; the
 SSE paths must launch none; phases 18-22 and 24-30 require each run's
@@ -208,10 +210,11 @@ FLEET_STREAMS = 512  # zen stream --streams 512, the #4 route's fleet
 # the medians compare in float32, bf16 taps included
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# K2's crossover sweep: every K the network route takes and the first past it, then wider
-SWEEP_K = tuple(range(3, 35, 2)) + (47, 65, 95, 127, 187, 257)
-SWEEP_SHAPES = ((32, 2049), (2048, 513))
-ROUTES = {"tap_median_time": ("register", "rank", "select"),
+# K2's crossover sweep: every K the network route takes and the first past it, then wider,
+# on the hop-1024 step's rows (B = 32 and its single hop's B = 1) and the 64-stream fleet's
+SWEEP_K = tuple(range(3, 67, 2)) + (95, 127, 187, 257)
+SWEEP_SHAPES = ((32, 2049), (2048, 513), (1, 2049))
+ROUTES = {"tap_median_time": ("register", "rank", "select", "warp"),
           "sliding_median_boundary": ("network", "rank", "select")}
 SCRATCH = "rank@scratch"  # K2's rank launches whose keys live in the key store
 STEPS = "rank@steps"  # rank launches that took the steps kernel (a thread a run of outputs)
@@ -598,6 +601,13 @@ def kernel_cases():
          t_k93, 183),
         ("#1", "pair C=1 H=183 B=32 F=65 K=93 bf16", bf16(1, 183, 65), bf16(1, 32, 65),
          t_k93, 183),
+        ("#1", "pair C=1 H=183 B=1 F=65 K=93 ties bf16", ties(1, 183, 65).to(torch.bfloat16),
+         ties(1, 1, 65).to(torch.bfloat16), t_k93, 183),
+        # the warp route at eight taps a lane: K = 187 and 255
+        ("#3", "single T=300 F=17 K=187 centered", mag(1, 300, 17), mag(1, 0, 17),
+         tuple(range(-93, 94)), 0),
+        ("#1", "pair C=1 H=254 B=8 F=33 K=255 ties", ties(1, 254, 33), ties(1, 8, 33),
+         tuple(range(-254, 1)), 254),
         ("#3", "single T=900 F=17 K=401 centered", mag(1, 900, 17), mag(1, 0, 17), t_k401, 0),
         ("#3", "single T=900 F=17 K=401 centered ties bf16",
          ties(1, 900, 17).to(torch.bfloat16), mag(1, 0, 17).to(torch.bfloat16), t_k401, 0),
@@ -680,6 +690,10 @@ def kernel_cases():
         ))
     for tpu, label, x, k, mode in (
         ("#5", "R=32 F=2049 K=47 reflect", mag(32, 2049), 47, "reflect"),
+        ("#5", "R=1 F=2049 K=47 reflect (hop 1024, B=1)", mag(1, 2049), 47, "reflect"),
+        ("#5", "R=32 F=2049 K=47 reflect ties", ties(32, 2049), 47, "reflect"),
+        ("#5", "R=32 F=2049 K=47 reflect bf16", bf16(32, 2049), 47, "reflect"),
+        ("#5", "R=32 F=2049 K=63 reflect", mag(32, 2049), 63, "reflect"),
         ("#7", "R=2048 F=513 K=13 reflect", mag(2048, 513), 13, "reflect"),
         ("#7", "R=37 F=4096 K=47 wrap", mag(37, 4096), 47, "wrap"),
         ("#7", "R=37 F=513 K=13 edge", mag(37, 513), 13, "edge"),
@@ -851,7 +865,7 @@ def phase_network() -> None:
     one-input case with fill = inf (one tap run, tie-heavy f32) and a
     causal-wrap pair of two tap runs (fm, fm + 1) (bf16), and the network
     on a causal pair with a duplicated offset 0 (bf16; no core shape); K2
-    network (K 1..31) in both of its forms, the per-output network and the
+    network (K 1..63) in both of its forms, the per-output network and the
     shared core at each R it is built for (freq_core_runs), under each of
     the four borders on tie-heavy f32 rows with +inf and -inf samples and
     on bf16 rows. Times the f32 cases, each form of both kernels (K2 on
@@ -898,30 +912,26 @@ def phase_network() -> None:
         form, size = mc.time_network_form(centered, 37, 64, 513)
         k1 = (", ".join(f"{name} {median_us(fn, runs=10):.2f}" for name, fn in forms.items())
               + f" us, picked {'core R=%d' % size if form == 'core' else 'network run %d' % size}")
-        k2 = "K2 n/a (its network stops at 31)"
-        if k <= mc.FREQ_NETWORK_MAX_TAPS:
-            require(mc.freq_route(k) == "network", f"K={k} leaves K2's network")
-            timed2 = {}
-            for mode in mc.FREQ_MODES:
-                for x in rows2["valid" if mode == "valid" else "bins"]:
-                    want = mc.sliding_median_boundary_plain(x, k, mode)
-                    for core in (1, *mc.freq_core_runs(k)):
-                        fn = lambda x=x, m=mode, c=core: mc._freq_launch(  # noqa: E731
-                            x, k, m, "network", core=c)
-                        name = "network" if core == 1 else f"core R={core}"
-                        require(torch.equal(fn(), want),
-                                f"K2 {name} K={k} {mode} {x.dtype} differs")
-                        if mode == "reflect" and x.dtype == torch.float32:
-                            timed2[name] = fn
-            form, size = mc.freq_network_form(k, 2048, 513, "reflect")
-            k2 = ("K2 [2048, 513] " + ", ".join(f"{name} {median_us(fn, runs=10):.2f}"
-                                                for name, fn in timed2.items())
-                  + f" us, picked {'core R=%d' % size if form == 'core' else 'network'}")
-        held2 = ("; K2 both forms at every built R, each border, f32 ties +-inf and bf16"
-                 if k <= mc.FREQ_NETWORK_MAX_TAPS else "")
+        require(mc.freq_route(k) == "network", f"K={k} leaves K2's network")
+        timed2 = {}
+        for mode in mc.FREQ_MODES:
+            for x in rows2["valid" if mode == "valid" else "bins"]:
+                want = mc.sliding_median_boundary_plain(x, k, mode)
+                for core in (1, *mc.freq_core_runs(k)):
+                    fn = lambda x=x, m=mode, c=core: mc._freq_launch(  # noqa: E731
+                        x, k, m, "network", core=c)
+                    name = "network" if core == 1 else f"core R={core}"
+                    require(torch.equal(fn(), want), f"K2 {name} K={k} {mode} {x.dtype} differs")
+                    if mode == "reflect" and x.dtype == torch.float32:
+                        timed2[name] = fn
+        form, size = mc.freq_network_form(k, 2048, 513, "reflect")
+        k2 = ("K2 [2048, 513] " + ", ".join(f"{name} {median_us(fn, runs=10):.2f}"
+                                            for name, fn in timed2.items())
+              + f" us, picked {'core R=%d' % size if form == 'core' else 'network'}")
         print(f"phase 3 network K={k}: bitwise equal (K1 both forms: f32 ties fill=inf one tap "
-              f"run, bf16 two tap runs at every built R; K1 network bf16 duplicated taps{held2}"
-              f"); K1 [64, 37, 513] {k1}, {k2} (medians of 10)")
+              f"run, bf16 two tap runs at every built R; K1 network bf16 duplicated taps; K2 both "
+              f"forms at every built R, each border, f32 ties +-inf and bf16); K1 [64, 37, 513] "
+              f"{k1}, {k2} (medians of 10)")
 
 
 def phase_runs() -> None:
@@ -970,10 +980,13 @@ def phase_runs() -> None:
 
 def phase_sweep() -> None:
     """K2's routes over SWEEP_K at SWEEP_SHAPES (reflect): every route
-    that takes a K (network up to FREQ_NETWORK_MAX_TAPS, rank) held
-    bitwise against the twin, timed beside kthvalue; prints the measured
-    crossover (the smallest K from which the rank route is the fastest at
-    every larger K of the sweep, on both shapes) beside the constant."""
+    that takes a K (network up to FREQ_NETWORK_MAX_TAPS in both of its
+    forms, the per-output network and the shared core at each built R;
+    rank) held bitwise against the twin, timed beside kthvalue and beside
+    the form the rule picks (freq_network_form); prints the
+    measured crossover (the smallest K from which the rank route is the
+    fastest at every larger K of the sweep, on every shape) beside the
+    constant."""
     from zen_tpu_torch.ops import median_cuda as mc
 
     rng = np.random.default_rng(2)
@@ -982,23 +995,34 @@ def phase_sweep() -> None:
         x = _mags(rng, *shape)
         for k in SWEEP_K:
             want = mc.sliding_median_boundary_plain(x, k, "reflect")
-            routes = (("network",) if k <= mc.FREQ_NETWORK_MAX_TAPS else ()) + ("rank",)
+            runs = {}
+            if k <= mc.FREQ_NETWORK_MAX_TAPS:
+                runs["network"] = functools.partial(mc._freq_launch, x, k, "reflect", "network",
+                                                    core=1)
+                for r in mc.freq_core_runs(k):
+                    runs[f"core R={r}"] = functools.partial(mc._freq_launch, x, k, "reflect",
+                                                            "network", core=r)
+            runs["rank"] = functools.partial(mc._freq_launch, x, k, "reflect", "rank")
             us = {}
-            for route in routes:
-                run = lambda r=route: mc._freq_launch(x, k, "reflect", r)  # noqa: E731
-                require(torch.equal(run(), want), f"sweep {shape} K={k} {route} differs")
-                us[route] = median_us(run, runs=10)
+            for name, run in runs.items():
+                require(torch.equal(run(), want), f"sweep {shape} K={k} {name} differs")
+                us[name] = median_us(run, runs=10)
             kind, lib = freq_library(x, k, "reflect")
             l_us = median_us(lib, runs=10)
             b_us, b_by = freq_bound(x, k, "reflect")
             rank_wins.setdefault(k, []).append(min(us, key=us.get) == "rank")
+            picked = ""
+            if k <= mc.FREQ_NETWORK_MAX_TAPS:
+                form, r = mc.freq_network_form(k, *shape, "reflect")
+                picked = ("; picked " + (f"core R={r}" if form == "core" else "network")
+                          + f", fastest {min(us, key=us.get)}")
             print(f"phase 3 sweep R={shape[0]} F={shape[1]} K={k} reflect: bitwise equal; "
                   + ", ".join(f"{r} {v:.2f} us" for r, v in us.items())
                   + f" (rank tile, run {mc.freq_rank_plan(k, *shape, 'reflect', mc._sm_count(x.device))}), "
                   f"kthvalue {l_us:.2f} us ({kind}), bound "
-                  f"{b_us:.2f} us ({b_by}) (medians of 10)")
+                  f"{b_us:.2f} us ({b_by}) (medians of 10){picked}")
     wins = [k for i, k in enumerate(SWEEP_K) if all(all(rank_wins[j]) for j in SWEEP_K[i:])]
-    print(f"phase 3 sweep: rank the fastest route on both shapes from K="
+    print(f"phase 3 sweep: rank the fastest route on every shape from K="
           f"{wins[0] if wins else None} on; FREQ_RANK_MIN_TAPS = {mc.FREQ_RANK_MIN_TAPS}")
 
 
@@ -1015,16 +1039,29 @@ def phase_tiles() -> None:
                            emit=lambda line: print(f"phase 3 {line}"))
 
 
+def phase_warp() -> None:
+    """K1's warp route beside its rank and select routes at
+    benches/warp_rows.py's rows (hop 32's K = 93 from one stream at B = 1
+    to 64 streams, K = 127 to 255), each bitwise to the twin, beside the
+    cost rule's prices and pick."""
+    from zen_tpu_torch.benches import warp_rows
+    from zen_tpu_torch.ops import median_cuda as mc
+
+    warp_rows.run_rows(torch, mc, 10, DEVICE, emit=lambda line: print(f"phase 3 {line}"))
+
+
 def phase_select() -> dict:
-    """K1's and K2's two wide routes side by side on benches/rank_store.py's
+    """K1's and K2's wide routes side by side on benches/rank_store.py's
     rows: the seven that lost to torch.kthvalue on the key store or the
-    shared sort, K2's store row of many outputs, and the paths' rank rows.
-    Each forced through the select route and, where it takes the call, the
-    rank route (_time_launch, _freq_launch): select bitwise to the rank
-    route's output (to the twin where the rank route cannot take it), each
-    timed beside the twin, one torch.kthvalue call and the bound, the cost
-    rule's prices and pick (time_route_costs, freq_route_costs) beside
-    the faster route measured. Returns {label: {route: µs}}."""
+    shared sort, K2's store row of many outputs, and the paths' rank rows
+    (hop 32's K1, which the warp route takes now, and hop 1024's K2, which
+    the network takes). Each forced through the select route and, where
+    they take the call, the rank route, K1's warp route and K2's network
+    (_time_launch, _freq_launch): each bitwise to the rank route's output
+    (to the twin where the rank route cannot take it), each timed beside
+    the twin, one torch.kthvalue call and the bound, the cost rule's prices
+    and pick (time_route_costs, freq_route_costs) beside the fastest route
+    measured. Returns {label: {route: µs}}."""
     from zen_tpu_torch import ZenError
     from zen_tpu_torch.benches import rank_store
     from zen_tpu_torch.ops import median_cuda as mc
@@ -1036,7 +1073,8 @@ def phase_select() -> dict:
             a, b, offs, start = args
             t_v, streams, f = a.shape[-2] + b.shape[-2], math.prod(a.shape[:-2]), a.shape[-1]
             run = {r: functools.partial(mc._time_launch, a, b, offs, start, 0.0, r)
-                   for r in ("rank", "select")}
+                   for r in ("rank", "select")
+                   + (("warp",) if mc.time_warp_slots(len(offs)) else ())}
             _, _, staged, threads = mc.time_select_plan(offs, start, t_v, streams, f, sms)
             bins = mc.select_shared_bins(threads)
             other = functools.partial(mc._time_launch, a, b, offs, start, 0.0, "select",
@@ -1047,7 +1085,8 @@ def phase_select() -> dict:
             library, (b_us, b_by) = time_library(a, b, offs, start), time_bound(a, b, offs, start)
         else:
             x, k, mode = args
-            run = {r: functools.partial(mc._freq_launch, x, k, mode, r) for r in ("rank", "select")}
+            run = {r: functools.partial(mc._freq_launch, x, k, mode, r) for r in ("rank", "select")
+                   + (("network",) if k <= mc.FREQ_NETWORK_MAX_TAPS else ())}
             _, staged, threads = mc.freq_select_plan(k, x.numel() // x.shape[-1], x.shape[-1],
                                                      mode, sms)
             bins = mc.select_shared_bins(threads)
@@ -1063,6 +1102,8 @@ def phase_select() -> dict:
             want, held = plain(), "the twin"
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"select {label}: differs from {held}")
+        for route in set(run) - {"rank", "select"}:
+            require(torch.equal(run[route](), want), f"{route} {label}: differs from {held}")
         del got, want
         us = {}
         for route, fn in run.items():
@@ -1084,7 +1125,11 @@ def phase_select() -> dict:
         agree += fastest == pick
         out[label] = us
         rank_text = f"rank {us['rank']:.2f} us" if "rank" in us else "rank n/a (keys pass a block)"
+        rank_text += "".join(f", {route} {us[route]:.2f} us" for route in ("warp", "network")
+                             if route in us)
         cost_text = "n/a" if costs[0] is None else f"{costs[0]:.1f}"
+        if len(costs) > 2 and costs[2] is not None:
+            cost_text += f", warp {costs[2]:.1f}"
         print(f"phase 3 select {label}: select bitwise equal to {held}; select "
               f"{us['select']:.2f} us ({threads} threads, {staged} staged, bins "
               f"{'in shared memory' if bins else 'in registers'}){alt}, {rank_text}, plain "
@@ -1092,7 +1137,7 @@ def phase_select() -> dict:
               f"us ({kind_l}), bound {b_us:.2f} us ({b_by}); cost rule rank {cost_text}, "
               f"select {costs[1]:.1f}: picks {pick}, fastest measured {fastest}")
         torch.cuda.empty_cache()
-    print(f"phase 3 select: the cost rule picked the faster route on {agree} of {len(out)} rows")
+    print(f"phase 3 select: the cost rule picked the fastest route on {agree} of {len(out)} rows")
     return out
 
 
@@ -1590,17 +1635,19 @@ def phase_zen_stream(smi: str) -> dict:
 
 def phase_hop32(smi: str) -> dict:
     """HPRRealtime(44100, hop=32), the low-latency stream (0.73 ms per
-    hop): K1's rank route carries its time median (K = 93 over 183
-    history rows). 64 blocks of B=32, then 64 single hops, held against
-    the CPU port under phase 4's flip rule and stem tolerance."""
+    hop): K1's warp route carries its time median (K = 93 over 183
+    history rows; a warp an output). 64 blocks of B=32, then 64 single
+    hops, held against the CPU port under phase 4's flip rule and stem
+    tolerance."""
     reset_launches()
     cfg, got, audio, sizes, t = run_stream(hop=32)
     launches = read_launches()
-    require(launches["tap_median_time/rank"] > 0 and launches[f"tap_median_time/{STEPS}"] == 0
+    require(launches["tap_median_time/warp"] > 0 and launches["tap_median_time/rank"] == 0
+            and launches["tap_median_time/select"] == 0
             and launches[f"sliding_median_boundary/{FREQ_CORE}"] == 0
             and all(per_kernel(launches).values()),
-            f"hop-32 stream launches {launches} (K1's rank calls walk from rank 0, K2's K = 1 "
-            "takes the per-output network)")
+            f"hop-32 stream launches {launches} (K1's K = 93 takes the warp route at B = 32 and "
+            "B = 1, K2's K = 1 the per-output network)")
     require(bool(np.isfinite(got).all()), "non-finite hop-32 stem samples")
     r = compare_stream(cfg, audio, sizes, got, reference_stream(audio, sizes, hop=32),
                        ("harmonic", "percussive", "residual"))
@@ -2351,7 +2398,8 @@ def phase_files_cli(smi: str) -> dict:
 
         # zen-torch fakert --block-hops 32 at hop 256 and 1024
         for hop, want_routes in ((256, ("tap_median_time/register", "sliding_median_boundary/network")),
-                                 (1024, ("tap_median_time/register", "sliding_median_boundary/rank"))):
+                                 (1024, ("tap_median_time/register",
+                                         f"sliding_median_boundary/{FREQ_CORE}"))):
             out = tmp / f"fakert_{hop}.wav"
             reset_launches()
             lines = zen_cli(["fakert", "-i", wav, "--hps", hop, "2.0", "-o", out,
@@ -3985,14 +4033,22 @@ def main() -> None:
     phase_runs()
     phase_sweep()
     phase_tiles()
+    phase_warp()
     phase_select()
     phase_split()
 
     # the main path: launch counters cover exactly these runs
     reset_launches()
     cfg1, got1, audio1, sizes1, t1 = run_stream()
+    launches1 = read_launches()
     cfgm, gotm, audiom, sizesm, tm = run_fleet()
     launches = read_launches()
+    # hop 1024's frequency median is K = 47: K2's network route, in its
+    # shared-core form, at B = 32 and B = 1; no K2 rank launch
+    require(cfg1.freq_filter_len == 47 and launches1["sliding_median_boundary/rank"] == 0
+            and launches1[f"sliding_median_boundary/{FREQ_CORE}"]
+            == launches1["sliding_median_boundary/network"] > 0,
+            f"hop-1024 stream launches {launches1} (K2's K = 47 takes the network's shared core)")
 
     stems = ("harmonic", "percussive", "residual")
     want1 = reference_stream(audio1, sizes1)
@@ -4007,7 +4063,7 @@ def main() -> None:
         f"{r1['rel_err']:.3g} (limit {STEM_ATOL}); "
         f"{t1['step_us']:.1f} us/step at B=32 = {us_10ms:.2f} us per 10 ms; "
         f"{t1['hop_us']:.1f} us/hop at B=1; one B=32 step: {t1['prof_b']}; "
-        f"one B=1 step: {t1['prof_1']} [{smi}]"
+        f"one B=1 step: {t1['prof_1']}; launches {nonzero(launches1)} [{smi}]"
     )
 
     wantm = reference_fleet(audiom, sizesm)
@@ -4051,9 +4107,11 @@ def main() -> None:
     rows, off_path = kernel_rows(kstats, by_path)
     # every route the paths' tap counts select ran on a path (frequency K:
     # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32),
-    # K1's select route (384 kHz hop 1), both rank routes' steps kernels
-    # (the offline pass 1, median2d's fl 93), and both copy mirrors
+    # K1's warp route (hop 32) and select route (384 kHz hop 1), both rank
+    # routes' steps kernels (the offline pass 1, median2d's fl 93), and both
+    # copy mirrors
     wanted = {"tap_median_time/register", "tap_median_time/rank", "tap_median_time/select",
+              "tap_median_time/warp",
               f"tap_median_time/{CORE}", f"sliding_median_boundary/{FREQ_CORE}",
               *(f"{name}/{STEPS}" for name in ROUTES),
               *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),

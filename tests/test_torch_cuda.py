@@ -220,17 +220,23 @@ K93 = tuple(range(-183, -137)) + tuple(range(-46, 1))
 def test_time_rank_route_matches_twin(cuda_device, dtype, ties, a_shape, b_shape, offsets,
                                       start, fill):
     """K1's rank route (65 to 401 taps, ragged runs of 32 rows, wrap,
-    valid, replicate and centered tap sets), tie-heavy and bf16."""
+    valid, replicate and centered tap sets), tie-heavy and bf16, forced;
+    and the wrapper, which counts the wide route its cost rule picks (the
+    warp route on the few-output rows)."""
     rng = np.random.default_rng(len(offsets))
     make = _ties if ties else _mags
     a = make(rng, *a_shape, device=cuda_device).to(dtype)
     b = make(rng, *b_shape, device=cuda_device).to(dtype)
     assert mc.time_route(offsets) == "rank"
-    before = mc.tap_median_time.routes["rank"]
+    want = mc.tap_median_time_plain(a, b, offsets, start, fill)
+    assert torch.equal(mc._time_launch(a, b, offsets, start, fill, "rank"), want)
+    route = mc.time_call_route(mc._int_offsets(offsets), start, a_shape[1] + b_shape[1],
+                               a_shape[0], a_shape[2], mc._sm_count(cuda_device))
+    before = mc.tap_median_time.routes[route]
     got = mc.tap_median_time(a, b, offsets, start, fill)
     torch.cuda.synchronize()
-    assert mc.tap_median_time.routes["rank"] == before + 1
-    assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+    assert mc.tap_median_time.routes[route] == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -267,8 +273,8 @@ def test_time_rank_steps_match_twin(cuda_device, dtype, ties, a_shape, b_shape, 
 def test_time_rank_route_takes_steps_where_planned(cuda_device):
     """The wrapper's plan for median2d's valid fl 93 on 2000 rows of 513
     takes the steps (as at the 4-minute track's 41,355); tap_median_time
-    launches them, counted in ``steps``, and the hop-32 step it plans to
-    walk from rank 0 does not."""
+    launches them, counted in ``steps``; the hop-32 step, whose walk from
+    rank 0 the rank route would take, goes to the warp route."""
     offsets = tuple(range(-92, 1))
     sms = mc._sm_count(cuda_device)
     assert mc.time_rank_geometry(offsets, 92, 41_355 + 92, 1, 513, sms)[1] > 1
@@ -281,10 +287,13 @@ def test_time_rank_route_takes_steps_where_planned(cuda_device):
     assert (mc.tap_median_time.routes["rank"], mc.tap_median_time.steps) == (rank + 1, steps + 1)
     assert torch.equal(got, mc.tap_median_time_plain(a, a[:0], offsets, 92))
     assert mc.time_rank_geometry(K93, 183, 183 + 32, 1, 65, sms)[1] == 1
+    assert mc.time_call_route(K93, 183, 183 + 32, 1, 65, sms) == "warp"
     h, b = _mags(rng, 1, 183, 65, device=cuda_device), _mags(rng, 1, 32, 65, device=cuda_device)
+    warp = mc.tap_median_time.routes["warp"]
     got = mc.tap_median_time(h, b, K93, 183)
     torch.cuda.synchronize()
-    assert (mc.tap_median_time.routes["rank"], mc.tap_median_time.steps) == (rank + 2, steps + 1)
+    assert (mc.tap_median_time.routes["rank"], mc.tap_median_time.steps) == (rank + 1, steps + 1)
+    assert mc.tap_median_time.routes["warp"] == warp + 1
     assert torch.equal(got, mc.tap_median_time_plain(h, b, K93, 183))
 
 
@@ -306,11 +315,58 @@ def test_time_rank_route_any_span_matches_twin(cuda_device, t, offsets, start, s
     near = mc.time_rank_offsets(offsets, start, t)
     keys = mc.time_rank_keys(near, mc.time_rank_run(near))
     assert (keys + 4 * len(mc.time_rank_table(near)[2]) <= mc.SMEM_OPTIN) == shared_table
-    before = mc.tap_median_time.routes["rank"]
+    want = mc.tap_median_time_plain(a, a[:, :0], offsets, start, float("inf"))
+    assert torch.equal(mc._time_launch(a, a[:, :0], offsets, start, float("inf"), "rank"), want)
+    route = mc.time_call_route(offsets, start, t, 1, 9, mc._sm_count(cuda_device))
+    before = mc.tap_median_time.routes[route]
     got = mc.tap_median_time(a, a[:, :0], offsets, start, float("inf"))
     torch.cuda.synchronize()
-    assert mc.tap_median_time.routes["rank"] == before + 1
-    assert torch.equal(got, mc.tap_median_time_plain(a, a[:, :0], offsets, start, float("inf")))
+    assert mc.tap_median_time.routes[route] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", list(range(mc.REGISTER_TAPS + 2, 32 * mc.WARP_SLOTS[-1], 2)))
+def test_time_warp_route_every_k_matches_twin(cuda_device, k, dtype):
+    """K1's warp route at every K it takes (65..255: four taps a lane up to
+    128, eight above), forced, tie-heavy, under each border's tap set (the
+    causal wrap's two runs in the pair form, the valid border's previous K
+    frames, the replicate border's repeated 0, centered) with fill 0, +inf
+    and -inf; a call of 3 streams x 9 output rows x 37 columns (108
+    warps, a ragged last block of four)."""
+    rng = np.random.default_rng(300 + k)
+    m = k // 2
+    h = 2 * k
+    a = _ties(rng, 3, h, 37, device=cuda_device).to(dtype)
+    b = _ties(rng, 3, 9, 37, device=cuda_device).to(dtype)
+    wrap = tuple(range(-h + 1, -h + 1 + m)) + tuple(range(-m, 1))
+    valid = tuple(range(-k, 0))
+    replicate = tuple(range(-m, 0)) + (0,) * (m + 1)
+    centered = tuple(range(-m, m + 1))
+    for offsets, fill in ((wrap, 0.0), (valid, float("inf")), (replicate, 0.0),
+                          (centered, float("-inf")), (centered, float("inf"))):
+        assert len(offsets) == k and mc.time_route(offsets) == "rank"
+        got = mc._time_launch(a, b, offsets, h, fill, "warp")
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, h, fill)), (offsets, fill)
+
+
+def test_time_warp_route_is_the_hop32_step(cuda_device):
+    """The hop-32 step's K = 93 takes the warp route through the wrapper
+    at B = 32 and B = 1, counted in ``routes['warp']``; a tap count past
+    256 raises on it, never falls back."""
+    rng = np.random.default_rng(32)
+    h = _mags(rng, 1, 183, 65, device=cuda_device)
+    warp = mc.tap_median_time.routes["warp"]
+    for t in (32, 1):
+        fresh = _mags(rng, 1, t, 65, device=cuda_device)
+        got = mc.tap_median_time(h, fresh, K93, 183)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mc.tap_median_time_plain(h, fresh, K93, 183))
+    assert mc.tap_median_time.routes["warp"] == warp + 2
+    with pytest.raises(ZenError, match="warp route"):
+        mc._time_launch(h, h[:, :0], tuple(range(-256, 1)), 183, 0.0, "warp")
 
 
 def _around_k_star():
@@ -340,14 +396,15 @@ def test_freq_rank_route_matches_twin(cuda_device, k, mode, dtype, ties):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
-NETWORK_KS = list(range(1, mc.FREQ_NETWORK_MAX_TAPS + 1, 2))  # both networks
-WIDE_NETWORK_KS = list(range(mc.FREQ_NETWORK_MAX_TAPS + 2, mc.REGISTER_TAPS + 1, 2))  # K1's
+NETWORK_KS = list(range(1, 32, 2))  # K1's network to 31 taps
+WIDE_NETWORK_KS = list(range(33, mc.REGISTER_TAPS + 1, 2))  # and on to 63
+FREQ_NETWORK_KS = list(range(1, mc.FREQ_NETWORK_MAX_TAPS + 1, 2))  # K2's network, 1..63
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", NETWORK_KS)
 def test_time_network_every_k_matches_twin(cuda_device, k, dtype):
-    """K1's network kernel at every K K2's network takes too, tie-heavy
+    """K1's network kernel at every K up to 31, tie-heavy
     (test_time_network_33_to_63_matches_twin has 33..63): a causal pair
     with a duplicated offset 0 (ragged last run: 13 rows), and a centered
     one-input case whose taps read fill = inf on both ends."""
@@ -403,10 +460,11 @@ def test_time_network_33_to_63_matches_twin(cuda_device, k, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
-@pytest.mark.parametrize("k", NETWORK_KS)
+@pytest.mark.parametrize("k", FREQ_NETWORK_KS)
 def test_freq_network_every_k_matches_twin(cuda_device, k, mode, dtype):
-    """K2's network route at every K it takes, tie-heavy, on rows of 513
-    outputs (one block a row) and 2049 (three blocks of 683)."""
+    """K2's network route at every K it takes (1..63), in the form its
+    rule picks, tie-heavy, on rows of 513 outputs (one block a row) and
+    2049 (three blocks of 683, or the core's finer chunks)."""
     rng = np.random.default_rng(100 + k)
     before = mc.sliding_median_boundary.routes["network"]
     for rows, f_out in ((37, 513), (3, 2049)):
@@ -422,13 +480,14 @@ def test_freq_network_every_k_matches_twin(cuda_device, k, mode, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
-@pytest.mark.parametrize("k", [k for k in NETWORK_KS if mc.freq_core_runs(k)])
+@pytest.mark.parametrize("k", [k for k in FREQ_NETWORK_KS if mc.freq_core_runs(k)])
 def test_freq_core_every_shape_matches_twin(cuda_device, k, mode, dtype):
-    """K2's shared core at every R it is built for at each K (5..31), on
+    """K2's shared core at every R it is built for at each K (5..63), on
     tie-heavy rows with +inf and -inf samples: 37 rows of 131 outputs (one
-    block a row, a ragged last run) and 3 of 2049 (three blocks of 683)."""
+    block a row, a ragged last run), 3 of 2049 and 1 of 2049 (three blocks
+    of 683, the hop-1024 step's B = 32 and B = 1 geometry)."""
     rng = np.random.default_rng(200 + k)
-    for rows, f_out in ((37, 131), (3, 2049)):
+    for rows, f_out in ((37, 131), (3, 2049), (1, 2049)):
         f_in = f_out + (k - 1 if mode == "valid" else 0)
         x = _ties(rng, rows, f_in, device=cuda_device)
         x[torch.rand(x.shape, device=cuda_device) < 0.03] = float("inf")
@@ -445,13 +504,15 @@ def test_freq_core_every_shape_matches_twin(cuda_device, k, mode, dtype):
 def test_freq_network_takes_the_core_where_planned(cuda_device):
     """sliding_median_boundary counts a shared-core launch in ``cores``
     (and on the network route) where freq_network_form picks it (the
-    clip's pass 2: 643 rows at K = 13), and takes the per-output network
-    on beat-track's 64 rows and at hop 32's K = 1; a shape the core is not
-    built for raises."""
+    clip's pass 2: 643 rows at K = 13; the hop-1024 step's K = 47 at B =
+    32 and B = 1), and takes the per-output network on beat-track's 64
+    rows and at hop 32's K = 1; a shape the core is not built for raises."""
     rng = np.random.default_rng(12)
     network, cores = (mc.sliding_median_boundary.routes["network"],
                       mc.sliding_median_boundary.cores)
     for x, k, took in ((_mags(rng, 643, 513, device=cuda_device), 13, 1),
+                       (_mags(rng, 32, 2049, device=cuda_device), 47, 1),
+                       (_mags(rng, 1, 2049, device=cuda_device), 47, 1),
                        (_mags(rng, 64, 513, device=cuda_device), 13, 0),
                        (_mags(rng, 32, 65, device=cuda_device), 1, 0)):
         got = mc.sliding_median_boundary(x, k, "reflect")

@@ -27,9 +27,10 @@ from zen_tpu.ops.median_pallas import _median_network, _pruned_schedule  # noqa:
 from zen_tpu_torch.ops import _build  # noqa: E402
 from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
 from zen_tpu_torch.ops import select_network as sn  # noqa: E402
+from rank_emulation import one_torch_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 NETWORK_KS = list(range(1, sn.MAX_TAPS + 1, 2))  # K1's, 1..63
-FREQ_KS = list(range(1, sn.FREQ_MAX_TAPS + 1, 2))  # K2's, 1..31
+FREQ_KS = list(range(1, sn.FREQ_MAX_TAPS + 1, 2))  # K2's, 1..63
 T1024 = (-5, -1, 0)
 T256 = tuple(range(-21, -16)) + tuple(range(-5, 1))
 CENTERED11 = tuple(range(-5, 6))
@@ -186,9 +187,9 @@ def test_select_plain_matches_freq_twin(mode, dtype):
 
 def test_header_holds_one_straight_line_function_per_k():
     """median<K> for every K up to K1's cap, and each kernel's cap and
-    K list apart: K1's 1..63, K2's 1..31."""
+    K list apart: K1's 1..63, K2's 1..63."""
     text = sn.emit_header()
-    assert sn.MAX_TAPS == sn.TIME_MAX_TAPS == 63 and sn.FREQ_MAX_TAPS == 31
+    assert sn.MAX_TAPS == sn.TIME_MAX_TAPS == 63 and sn.FREQ_MAX_TAPS == 63
     assert f"#define ZEN_SELECT_TIME_MAX_TAPS {sn.TIME_MAX_TAPS}\n" in text
     assert f"#define ZEN_SELECT_FREQ_MAX_TAPS {sn.FREQ_MAX_TAPS}\n" in text
     assert "ZEN_SELECT_MAX_TAPS" not in text
@@ -369,7 +370,7 @@ def test_host_constants_match_the_sources():
     assert const("median_time.cu", "kNetMaxRun") == mc.TIME_NETWORK_MAX_RUN
     assert const("median_time.cu", "kNetMaxStaged") == mc.TIME_NETWORK_MAX_STAGED == 256
     assert const("row_segment.cuh", "kNetworkChunk") == mc.FREQ_NETWORK_CHUNK
-    assert mc.FREQ_NETWORK_MAX_TAPS == sn.FREQ_MAX_TAPS < mc.REGISTER_TAPS == sn.TIME_MAX_TAPS
+    assert mc.FREQ_NETWORK_MAX_TAPS == sn.FREQ_MAX_TAPS == mc.REGISTER_TAPS == sn.TIME_MAX_TAPS
 
 
 # ---------------- K2's network route: a row's split into blocks ----------------
@@ -384,7 +385,8 @@ def test_freq_network_chunk_splits_rows_evenly(f_out, chunk, blocks):
 
 
 @pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
-@pytest.mark.parametrize("k,f_out", [(13, 513), (31, 1100), (1, 65), (5, 2049)])
+@pytest.mark.parametrize("k,f_out", [(13, 513), (31, 1100), (1, 65), (5, 2049), (47, 2049),
+                                     (63, 300)])
 def test_freq_network_emulation_matches_twin(k, f_out, mode):
     """K2's network kernel: a block per (row, chunk) stages chunk + K - 1
     samples with the border on the load; each output runs the network on
@@ -407,7 +409,7 @@ def test_freq_network_emulation_matches_twin(k, f_out, mode):
 # ---------------- K1's shared core (runs of outputs share their taps) ----------------
 
 CORE_RS = (1, 2, 4, 8, 16)
-CORE_KS = list(range(1, sn.FREQ_MAX_TAPS + 1, 2))  # every odd K up to 31
+CORE_KS = list(range(1, 32, 2))  # every odd K up to 31
 
 
 def _core_taps(k: int, kind: str) -> tuple:
@@ -595,7 +597,7 @@ def test_split_builds_leave_the_core_out():
     full = {p.name for p in _build._sources(0)}
     cut = {p.name for p in _build._sources(1)}
     core = {p.name for p in (*_build.CSRC.glob("median_time_core*.cu"),
-                             _build.CSRC / "median_freq_core.cu")}
+                             *_build.CSRC.glob("median_freq_core*.cu"))}
     assert core and core <= full and not core & cut and full - cut == core
 
 
@@ -681,7 +683,7 @@ FREQ_MODES = ["reflect", "wrap", "edge", "valid"]
 
 
 def _csrc_const(source: str, name: str) -> int:
-    """A ``constexpr int`` of a kernel source: kSlack of median_freq_core.cu
+    """A ``constexpr int`` of a kernel source: kSlack of freq_core.cuh
     (samples past a chunk's segment, and past its outputs, that a run's
     words may reach), kNetworkThreads of row_segment.cuh."""
     text = (_build.CSRC / source).read_text()
@@ -689,7 +691,7 @@ def _csrc_const(source: str, name: str) -> int:
 
 
 def _word_samples(r: int, itemsize: int) -> int:
-    """word_samples of csrc/median_freq_core.cu: the largest power of two
+    """word_samples of csrc/freq_core.cuh: the largest power of two
     that divides R, at most 16 bytes."""
     a = 1
     while r % (2 * a) == 0 and 2 * a * itemsize <= 16:
@@ -712,7 +714,7 @@ def emulate_freq_core(x: torch.Tensor, k: int, mode: str, r: int, grid: int = 3)
     f_out = f_in - k + 1 if mode == "valid" else f_in
     loads, _, _, _ = sn.core_program((k,), r)
     n, a = len(loads), _word_samples(r, x.element_size())
-    slack, threads = _csrc_const("median_freq_core.cu", "kSlack"), _csrc_const(
+    slack, threads = _csrc_const("freq_core.cuh", "kSlack"), _csrc_const(
         "row_segment.cuh", "kNetworkThreads")
     assert n == k + r - 1 and r + a - 2 <= slack
     chunk = mc.freq_network_chunk(f_out)
@@ -764,8 +766,14 @@ def _freq_core_input(rng, rows: int, f_in: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("mode", FREQ_MODES)
-@pytest.mark.parametrize("k", FREQ_KS)
+@pytest.mark.parametrize("k", [k for k in FREQ_KS if k <= 31])
 def test_freq_core_matches_the_twin_and_zen_tpu(k, mode):
+    """K2's shared core up to 31 taps (33 to 63: test_torch_freq_core_
+    wide.py), ``check_freq_core``."""
+    check_freq_core(k, mode)
+
+
+def check_freq_core(k: int, mode: str) -> None:
     """K2's shared core, its plain version (``sliding_median_boundary_
     core_plain``) and the kernel's thread mapping emulated step for step,
     at every R it is built for at this K, bitwise ``sliding_median_
@@ -800,9 +808,10 @@ def test_freq_core_bf16_and_chunks(mode):
     """bf16 samples go through float and back and select the twin's bits,
     at K = 13 (R = 3 and 4) and K = 31 (R = 6 and 8), on rows of one block
     (a ragged last run) and of three blocks (2049 outputs: chunks of 683,
-    each with a ragged last run)."""
+    each with a ragged last run), and at K = 47 (R = 6 and 8, the hop-1024
+    step's width) on those three blocks."""
     rng = np.random.default_rng(20 + FREQ_MODES.index(mode))
-    for k, f_out in ((13, 131), (31, 2049)):
+    for k, f_out in ((13, 131), (31, 2049), (47, 2049)):
         f_in = f_out + (k - 1 if mode == "valid" else 0)
         x = _tensor(_freq_core_input(rng, 2, f_in), torch.bfloat16)
         want = mc.sliding_median_boundary_plain(x, k, mode)
@@ -814,17 +823,30 @@ def test_freq_core_bf16_and_chunks(mode):
 
 
 def test_freq_core_shapes_are_the_one_run_shapes():
-    """K2's core takes every one-run shape of core_shapes up to 31 taps
+    """K2's core takes every one-run shape of core_shapes up to 63 taps
     (its window is one run of K samples), listed for its launcher's switch
-    in zen_core.cuh; K1's shapes and ids stay as they were."""
+    in zen_core.cuh and split over FREQ_CORE_PARTS sources (csrc/
+    median_freq_core_p*.cu, one a part); K1's shapes and ids stay as they
+    were."""
     ids = sn.freq_core_shape_ids()
     shapes = sn.core_shapes()
     assert [shapes[q] for q in ids] == [
         ((k,), r) for k in range(5, sn.FREQ_MAX_TAPS + 1, 2) for r in mc.freq_core_runs(k)]
-    assert len(ids) == 27 and mc.freq_core_runs(13) == (3, 4) and mc.freq_core_runs(31) == (6, 8)
-    listed = re.search(r"#define ZEN_CORE_FOR_EACH_FREQ_SHAPE\(X\) (.*)",
-                       sn.emit_core_header()).group(1)
+    assert len(ids) == 59 and mc.freq_core_runs(13) == (3, 4) and mc.freq_core_runs(31) == (6, 8)
+    assert mc.freq_core_runs(47) == mc.freq_core_runs(63) == (6, 8) and not mc.freq_core_runs(65)
+    text = sn.emit_core_header()
+    listed = re.search(r"#define ZEN_CORE_FOR_EACH_FREQ_SHAPE\(X\) (.*)", text).group(1)
     assert [int(v[2:-1]) for v in listed.split()] == list(ids)
+    assert f"#define ZEN_CORE_FREQ_PARTS {sn.FREQ_CORE_PARTS}\n" in text
+    by_part = []
+    for q in range(sn.FREQ_CORE_PARTS):
+        part = re.search(rf"#define ZEN_CORE_FOR_EACH_FREQ_SHAPE_OF_PART_{q}\(X\) (.*)",
+                         text).group(1)
+        by_part += [int(v[2:-1]) for v in part.split()]
+        assert all(sn.freq_core_part(int(v[2:-1])) == q for v in part.split())
+    assert sorted(by_part) == list(ids)
+    sources = sorted(p.name for p in _build.CSRC.glob("median_freq_core_p*.cu"))
+    assert sources == [f"median_freq_core_p{q}.cu" for q in range(sn.FREQ_CORE_PARTS)]
     assert sn.core_minmax_per_output((13,), 3) == 26.0 and sn.minmax_count(13) == 66
 
 
@@ -832,8 +854,9 @@ def test_freq_network_form_per_geometry():
     """``freq_network_form``'s pick at each path's geometry: the shared
     core wherever (K,) is built and the grid (a block a row chunk) has
     FREQ_CORE_MIN_BLOCKS blocks, at the R whose block issues the fewest
-    min/max; the per-output network on the latency rows (beat-track's 64
-    rows, hop 32's K = 1), where no shape is built (K = 3) and below
+    min/max, and from FREQ_CORE_WIDE_TAPS on at any row count; the
+    per-output network on the latency rows below it (beat-track's 64 rows,
+    hop 32's K = 1), where no shape is built (K = 3) and below
     FREQ_CORE_MIN_TAPS (K = 5, where the card ran the network faster)."""
     form = mc.freq_network_form
     assert form(13, 8192, 513, "reflect") == ("core", 3)  # the 512-stream block
@@ -849,6 +872,14 @@ def test_freq_network_form_per_geometry():
     assert mc.freq_core_runs(5) == (2,) and form(5, 8192, 513, "reflect") == ("network", 1)
     assert form(7, 8192, 513, "reflect") == ("core", 3) and mc.FREQ_CORE_MIN_TAPS == 7
     assert form(13, 263, 513, "reflect") == ("network", 1) and mc.FREQ_CORE_MIN_BLOCKS == 264
+    # from FREQ_CORE_WIDE_TAPS on the core takes any row count, at its
+    # smaller R (6), which the card ran fastest on the few rows and the many
+    assert mc.FREQ_CORE_WIDE_TAPS == 33
+    for k, rows, f_in, mode in ((47, 32, 2049, "reflect"),  # the hop-1024 step, B = 32
+                                (47, 1, 2049, "reflect"),  # and B = 1
+                                (33, 64, 513, "reflect"),  # beat-track's rows
+                                (47, 2048, 513, "reflect"), (63, 37, 4096, "wrap")):
+        assert form(k, rows, f_in, mode) == ("core", 6) == ("core", min(mc.freq_core_runs(k)))
     # the issue counts behind the R: 513 bins in 171 runs of 3 (6 warp
     # passes of 78 min/max) or 129 of 4 (5 of 100); 1024 in 342 or 256
     assert mc.freq_core_issue(13, 513, 3) == 6 * 78 < mc.freq_core_issue(13, 513, 4) == 5 * 100
@@ -877,7 +908,8 @@ def test_smoke_labels_k2_shared_core():
     assert cs.freq_call_label(13, 643, 513, "reflect", sms) == cs.FREQ_CORE
     assert cs.freq_call_label(13, 64, 513, "reflect", sms) == "network"  # beat-track
     assert cs.freq_call_label(1, 32, 65, "reflect", sms) == "network"  # hop 32
-    assert cs.freq_call_label(47, 32, 2049, "reflect", sms) == "rank"  # hop 1024
+    assert cs.freq_call_label(47, 32, 2049, "reflect", sms) == cs.FREQ_CORE  # hop 1024
+    assert cs.freq_call_label(47, 1, 2049, "reflect", sms) == cs.FREQ_CORE  # and its B = 1
     key = f"sliding_median_boundary/{cs.FREQ_CORE}"
     assert cs.launch_keys(key) == (key, "sliding_median_boundary/network")
     assert cs.by_route({"sliding_median_boundary/network": 3, key: 2}) == {

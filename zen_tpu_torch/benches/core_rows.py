@@ -25,7 +25,8 @@ at F = 1024 and the valid border's padded 1036), the 64-stream fleet's
 2048 rows, the clip's and the 4-minute track's pass 2 (643 and 41355
 rows), ``median2d`` frequency fl 13 on [41355, 513] (wrap, replicate,
 valid), and the latency rows (beat-track's 64 rows, hop 32's K = 1, and
-hop 1024's K = 47, which takes the rank route). Each time is the card's
+hop 1024's K = 47 at B = 32 and B = 1, which a tree whose network stops
+at 31 taps takes through its rank route). Each time is the card's
 µs for one call: CUDA events behind a spin,
 the median of ``--runs`` calls after one warm call. Beside it, the
 SHA-256 of the output's bytes, so that two trees' outputs compare
@@ -38,7 +39,7 @@ output held bitwise against the plain twin on the card, and prints which
 form and R the wrapper's rule (``time_network_form``,
 ``freq_network_form``) picks beside the fastest. ``--check`` first holds
 the shared core at every shape it is built for
-(``select_network.core_shapes``; K2: every one-run shape up to 31 taps
+(``select_network.core_shapes``; K2: every one-run shape up to 63 taps
 under each of the four borders), f32 and bf16, on tie-heavy inputs
 (K1: fill = +inf; K2: +inf and -inf samples, a ragged row count and
 rows of one and of three blocks), against the twin. Prints the card's name and
@@ -151,6 +152,7 @@ def freq_rows(torch, device) -> list:
         ("K2 beat-track R=64 F=513 K=13 reflect", "freq", (mag(64, 513), 13, "reflect")),
         ("K2 hop 32 R=32 F=65 K=1 reflect", "freq", (mag(32, 65), 1, "reflect")),
         ("K2 hop 1024 R=32 F=2049 K=47 reflect", "freq", (mag(32, 2049), 47, "reflect")),
+        ("K2 hop 1024 B=1 R=1 F=2049 K=47 reflect", "freq", (mag(1, 2049), 47, "reflect")),
     ]
 
 

@@ -190,7 +190,8 @@ def _freq_routes(k: int) -> list:
 
 
 def _time_routes(offsets: tuple) -> list:
-    return (["register"] if len(offsets) <= mc.REGISTER_TAPS else []) + ["rank"]
+    return (["register"] if len(offsets) <= mc.REGISTER_TAPS
+            else ["warp"] if mc.time_warp_slots(len(offsets)) else []) + ["rank"]
 
 
 def _mem_point(ps: list) -> int:

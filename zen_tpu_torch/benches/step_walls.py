@@ -13,7 +13,7 @@ unsharded and over a dp=4 mesh of the card (chip_smoke phase 20's
 fleet, its wall alone), and the 512-stream percussive fleet at hop 256
 (B=16) in f32 and bf16 stream state: the mean host wall of ``--runs``
 synchronized steps after 5 warm ones (3 × ``--runs`` at B=1), and for
-each other step of B > 1 hops its device µs
+each step its device µs
 (``runtime.profiling.device_ms``, the median of 3 windows of 10).
 Last, the pipe: ``zen-torch stream --streams 512`` run in-process on 16
 blocks per stream, as its own ``stream_serving`` line counts it, in
@@ -70,6 +70,8 @@ def main(argv=None) -> dict:
         blk = torch.randn(32, hop, generator=gen, device="cuda")
         timed(f"hop{hop} B=32", rt.process_block, blk)
         out[f"hop{hop} B=1"] = wall(lambda: rt.process_next_hop(blk[0]), 3 * args.runs)
+        out[f"hop{hop} B=1 device"] = device_ms(lambda _: rt.process_next_hop(blk[0]), blk[0],
+                                                iters=10, repeats=3) * 1e3
     ms = MultiStreamHPR(64, 44100.0, 256, **kw)
     fleet = torch.randn(64, 32, 256, generator=gen, device="cuda")
     timed("64 x hop256 B=32", ms.process_block, fleet)

@@ -15,11 +15,12 @@
 //                           512-stream hop-256 step at B < H, f32 or bf16,
 //                           and its padded constant-fill branch).
 // All four collapse into this file: b may have zero rows, and the TPU's
-// row chunking and per-stream blocks are the grid here. Two kernels take
-// every tap count, chosen by the wrapper (ops/median_cuda.py, time_route)
-// from K alone: the `register` route's comparator network up to
-// ZEN_SELECT_TIME_MAX_TAPS (63) taps, the `rank` route above, at any span
-// of the offsets. Both pick sorted[(K-1)/2], the element jnp.median picks.
+// row chunking and per-stream blocks are the grid here. Every tap count
+// has a kernel, chosen by the wrapper (ops/median_cuda.py, time_route,
+// time_call_route): the `register` route's comparator network up to
+// ZEN_SELECT_TIME_MAX_TAPS (63) taps, and above it the `rank`, `warp` and
+// `select` routes, weighed on the call's geometry, at any span of the
+// offsets. Both pick sorted[(K-1)/2], the element jnp.median picks.
 // The register route has a second kernel for runs of outputs whose tap
 // set is one or two runs of consecutive offsets, the shared core
 // (median_time_core.cu); the wrapper picks it per call
@@ -125,6 +126,24 @@
 // table took 10.14 us at hop 32's K = 93 (B = 32), 8.13 at B = 1 and 9.92
 // at a span of 16,354 rows, against 10.59, 8.59 and 10.82 reading device
 // memory (benches/rank_table.py).
+// `warp`, K from 65 to 256, for calls of few outputs (the hop-32 step's
+// K = 93: 2080 outputs at B = 32, 65 at B = 1). The rank walk above spends
+// its time in the block's barriers and its lanes' serial walks: 65 blocks
+// on 132 SMs, each staging about 155 keys and bitonic-sorting 256 over 128
+// threads with a __syncthreads a stage, then one lane an output walking
+// ~75 ranks (on an H100 80GB HBM3 at 700 W, 10.11 us at B = 32 and 8.13
+// at B = 1, against about 5 for an empty launch; the warp route 7.84 and
+// 6.46, benches/rank_store.py). A register network does not fit: median<93>
+// would be 1580 serial min/max in one thread. So the parallelism goes
+// inside the output: a warp takes one output, its lanes hold the taps as
+// order bits (S = 4 a lane up to 128 taps, 8 up to 256), read from the
+// two inputs through the planned offsets with fill, all in flight at once,
+// and zen_rank::warp_sort orders them with __shfl_xor_sync and integer
+// min/max (28 stages at S = 4, 15 of them across lanes): no shared
+// memory, no barrier, a chain of a few hundred instructions. The wrapper
+// weighs it against the walk, the steps and select (median_cuda.
+// time_route_costs); many-output calls (median2d's fl 93: 21 M outputs)
+// keep the steps, whose sort the outputs share.
 // Every tap count fits too, through the `select` route
 // (radix_select.cuh), which the wrapper takes wherever it beats the sort
 // on the call's geometry (median_cuda.time_rank_pick) and wherever one
@@ -257,6 +276,8 @@ __device__ __forceinline__ float tap_pred(const T* __restrict__ a,
 constexpr int kRun = 32;           // most output rows of a rank-kernel block
 constexpr int kStageBatch = 8;     // staging loads a select or steps thread keeps in flight
 constexpr int kRankThreads = 128;  // threads that stage and sort them
+constexpr int kWarpThreads = 128;  // threads of a warp-route block: four outputs
+constexpr int kWarpMaxSlots = 8;   // taps a lane of the warp route holds, at most
 
 // One block per unit: column `col` of stream `c`, output rows i0 + lane
 // for lane < run. `plan` holds the multiplicity table (span + 62 ints),
@@ -540,6 +561,53 @@ tap_median_time_select_kernel(
   }
 }
 
+// The warp route: a warp an output row's column, kWarpThreads / 32
+// consecutive outputs (adjacent columns of one output row, mostly) a
+// block. Lane l holds taps l, l + 32, ..., l + 32 (S - 1) of the output
+// (`offs`, the planned offsets, K of them, on the device) as order bits,
+// ~0u past K, all loads in flight at once; zen_rank::warp_sort orders the
+// 32 S values across the warp and lane 0 writes element (K - 1) / 2.
+template <typename T, int S>
+__global__ void __launch_bounds__(kWarpThreads)
+tap_median_time_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                            T* __restrict__ out, int ta, int tb, int f, int start,
+                            int t_out, long long outputs, const int* __restrict__ offs,
+                            int k, float fill) {
+  const int lane = threadIdx.x & 31;
+  const long long unit =
+      static_cast<long long>(blockIdx.x) * (kWarpThreads / 32) + (threadIdx.x >> 5);
+  if (unit >= outputs) return;  // the whole warp: one output
+  const int col = static_cast<int>(unit % f);
+  const long long rest = unit / f;
+  const int i = static_cast<int>(rest % t_out);
+  const long long c = rest / t_out;
+  const int row0 = start + i;
+  int o[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) o[j] = j * 32 + lane < k ? __ldg(offs + j * 32 + lane) : 0;
+  float x[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    x[j] = j * 32 + lane < k ? tap_pred(a, b, c, ta, tb, f, col, row0 + o[j], fill) : 0.0f;
+  }
+  unsigned int v[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) v[j] = j * 32 + lane < k ? zen_rank::order_bits(x[j]) : ~0u;
+  zen_rank::warp_sort<S>(v, lane);
+  // element h = (K - 1) / 2 lies in lane h / S, slot h % S
+  const int h = (k - 1) / 2;
+  unsigned int mine = v[0];
+#pragma unroll
+  for (int j = 1; j < S; ++j) {
+    if (j == h % S) mine = v[j];
+  }
+  const unsigned int med = __shfl_sync(0xffffffffu, mine, h / S);
+  if (lane == 0) {
+    out[(static_cast<size_t>(c) * t_out + i) * f + col] =
+        from_float<T>(zen_rank::value_of_bits(med));
+  }
+}
+
 // K <= ZEN_SELECT_TIME_MAX_TAPS: `rows` (staged ints) and `slots` (run * k
 // ints below staged) are host arrays, the wrapper's time_network_plan
 template <typename T>
@@ -686,6 +754,31 @@ int launch_select(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The warp route: `offs` a device buffer of the k planned offsets
+// (the wrapper's time_rank_offsets), `slots` taps a lane (4 or 8: up to
+// 128 or 256 taps, the wrapper's time_warp_slots)
+template <typename T>
+int launch_warp(const T* a, const T* b, T* out, int c, int ta, int tb, int f, int start,
+                int t_out, const int* offs, int k, float fill, int slots, void* stream) {
+  if (k < 1 || k % 2 == 0 || c <= 0 || f <= 0 || t_out <= 0 ||
+      (slots != 4 && slots != kWarpMaxSlots) || k > 32 * slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long outputs = static_cast<long long>(c) * t_out * f;
+  const long long blocks = (outputs + kWarpThreads / 32 - 1) / (kWarpThreads / 32);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slots == 4) {
+    tap_median_time_warp_kernel<T, 4><<<static_cast<unsigned>(blocks), kWarpThreads, 0, s>>>(
+        a, b, out, ta, tb, f, start, t_out, outputs, offs, k, fill);
+  } else {
+    tap_median_time_warp_kernel<T, kWarpMaxSlots>
+        <<<static_cast<unsigned>(blocks), kWarpThreads, 0, s>>>(
+            a, b, out, ta, tb, f, start, t_out, outputs, offs, k, fill);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int zen_tap_median_time_network(
@@ -739,6 +832,20 @@ extern "C" int zen_tap_median_time_select_bf16(
     int shared_bins, void* stream) {
   return launch_select(a, b, out, c, ta, tb, f, start, t_out, plan, min_o,
                        span, staged, run, k, fill, threads, unit, shared_bins, stream);
+}
+
+extern "C" int zen_tap_median_time_warp(const float* a, const float* b, float* out, int c,
+                                        int ta, int tb, int f, int start, int t_out,
+                                        const int* offs, int k, float fill, int slots,
+                                        void* stream) {
+  return launch_warp(a, b, out, c, ta, tb, f, start, t_out, offs, k, fill, slots, stream);
+}
+
+extern "C" int zen_tap_median_time_warp_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                             __nv_bfloat16* out, int c, int ta, int tb, int f,
+                                             int start, int t_out, const int* offs, int k,
+                                             float fill, int slots, void* stream) {
+  return launch_warp(a, b, out, c, ta, tb, f, start, t_out, offs, k, fill, slots, stream);
 }
 
 extern "C" const char* zen_cuda_error_string(int err) {

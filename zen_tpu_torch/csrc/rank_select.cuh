@@ -631,4 +631,67 @@ __device__ __forceinline__ unsigned long long step(Key key, int m, Count count, 
   return key(rank);
 }
 
+// The warp route's selection (K1's tap_median_time_warp_kernel): a warp
+// holds one output's taps as order bits, S a lane (32 S of them, padded
+// with ~0u above every tap), element e = lane * S + j in lane e / S's
+// slot e % S, and sorts them ascending by a bitonic network: at each
+// stage (size, stride) element e meets e ^ stride and keeps the smaller
+// where bit `stride` of e and bit `size` of e are both clear or both set.
+// A stride below S pairs two slots of one lane (in registers); from S up
+// the partner is lane ^ (stride / S), slot for slot, through one
+// __shfl_xor_sync a slot. No shared memory, no block barrier. Every
+// exchange keeps one of its two operands: a compare and a select where
+// the direction depends on the lane (one instruction fewer than a min, a
+// max and a select), a min and a max where it is known at compile time.
+// So the warp ends with the multiset it began with, sorted as the rank
+// routes' keys order it (-0.0 below +0.0; equal bits are one value), and
+// element (K - 1) / 2 is bitwise the rank route's median.
+template <int S, int Size, int Stride>
+__device__ __forceinline__ void warp_stage(unsigned int (&v)[S], int lane) {
+  if constexpr (Stride >= S) {
+    constexpr int kLanes = Stride / S;
+    const bool up = (lane & (Size / S)) == 0;  // bit `Size` of e, Size >= 2 S
+    const bool keep_min = ((lane & kLanes) == 0) == up;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const unsigned int o = __shfl_xor_sync(0xffffffffu, v[j], kLanes);
+      v[j] = (o < v[j]) == keep_min ? o : v[j];
+    }
+  } else if constexpr (Size < S) {
+    // the direction is bit `Size` of the slot
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if ((j & Stride) == 0) {
+        const unsigned int lo = min(v[j], v[j | Stride]);
+        const unsigned int hi = max(v[j], v[j | Stride]);
+        const bool up = (j & Size) == 0;
+        v[j] = up ? lo : hi;
+        v[j | Stride] = up ? hi : lo;
+      }
+    }
+  } else {
+    // the direction is bit `Size` / S of the lane
+    const bool up = (lane & (Size / S)) == 0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if ((j & Stride) == 0) {
+        const unsigned int lo = v[j], hi = v[j | Stride];
+        const bool swap = (hi < lo) == up;
+        v[j] = swap ? hi : lo;
+        v[j | Stride] = swap ? lo : hi;
+      }
+    }
+  }
+}
+
+template <int S, int Size = 2, int Stride = 1>
+__device__ __forceinline__ void warp_sort(unsigned int (&v)[S], int lane) {
+  warp_stage<S, Size, Stride>(v, lane);
+  if constexpr (Stride > 1) {
+    warp_sort<S, Size, Stride / 2>(v, lane);
+  } else if constexpr (Size < 32 * S) {
+    warp_sort<S, Size * 2, Size>(v, lane);
+  }
+}
+
 }  // namespace zen_rank

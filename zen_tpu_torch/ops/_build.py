@@ -45,7 +45,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zen_tpu_torch"
 GENERATED_HEADER = "zen_select.cuh"
 GENERATED_CORE_HEADER = "zen_core.cuh"
 # the shared cores, K1's and K2's: the full library only
-CORE_SOURCES = ("median_time_core*.cu", "median_freq_core.cu")
+CORE_SOURCES = ("median_time_core*.cu", "median_freq_core*.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -69,6 +69,8 @@ _FREQ_RANK = ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)
 _FREQ_RANK_STORE = ([_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P], _I)
 # the same, with the select route's tile, threads and shared_bins in place of the tile
 _FREQ_SELECT = ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)
+# a, b, out, c, ta, tb, f, start, t_out, offsets (device), k, fill, slots a lane, stream
+_TIME_WARP = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, ctypes.c_float, _I, _P], _I)
 # a, b, out, c, ta, tb, f, start, t_out, rows (host), staged, slots (host), run, k,
 # fill, stream
 _TIME_NETWORK = ([_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
@@ -95,6 +97,8 @@ _SIGNATURES = {
     "zen_sliding_median_network_bf16": _FREQ,
     "zen_tap_median_time_rank": _TIME_RANK,
     "zen_tap_median_time_rank_bf16": _TIME_RANK,
+    "zen_tap_median_time_warp": _TIME_WARP,
+    "zen_tap_median_time_warp_bf16": _TIME_WARP,
     "zen_tap_median_time_select": _TIME_SELECT,
     "zen_tap_median_time_select_bf16": _TIME_SELECT,
     "zen_sliding_median_rank": _FREQ_RANK,

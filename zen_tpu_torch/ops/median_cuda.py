@@ -19,7 +19,9 @@ a CPU tensor to its ``_plain`` twin (built from
 checking contiguity; it raises on anything the kernel does not take,
 and never falls back. ``launches`` on each
 wrapper counts its kernel launches, so a run can show that it went
-through the kernel, ``routes`` splits that count by route, ``steps``
+through the kernel, ``routes`` splits that count by route (K1's
+``register``, ``rank``, ``select`` and ``warp``; K2's ``network``,
+``rank`` and ``select``), ``steps``
 counts the rank route's launches that took its steps kernel (a thread a
 run of outputs; the others walk from rank 0 or, in K2, take the key
 store), ``cores`` the launches that took a network's shared core (K1's
@@ -31,7 +33,7 @@ nothing: the wrapper allocates the output and K2's key scratch.
 Small K is a comparator network on registers (``ops/select_network.py``,
 emitted as ``zen_select.cuh`` and ``zen_core.cuh`` at build time): K1's
 ``register`` route up to REGISTER_TAPS (63) taps and K2's ``network``
-route up to FREQ_NETWORK_MAX_TAPS (31). K1's register route takes one of
+route up to FREQ_NETWORK_MAX_TAPS (63). K1's register route takes one of
 two kernels a call (``time_network_form``): the per-output network, or,
 where the tap set is one or two runs of consecutive offsets and the call
 has more than one output row, the shared core (``csrc/
@@ -39,13 +41,15 @@ median_time_core.cu``: a thread sorts the taps its run of R outputs
 share once, then merges each output's own taps in), counted apart in
 ``tap_median_time.cores``. K2's network route likewise
 (``freq_network_form``): the per-output network, or, from
-FREQ_CORE_MIN_TAPS taps on calls of FREQ_CORE_MIN_BLOCKS row chunks, its
-shared core (``csrc/
+FREQ_CORE_MIN_TAPS taps on calls of FREQ_CORE_MIN_BLOCKS row chunks and
+from FREQ_CORE_WIDE_TAPS on at any row count, its shared core (``csrc/
 median_freq_core.cu``: a thread takes R consecutive outputs, whose
 windows share K - R + 1 samples), counted apart in
-``sliding_median_boundary.cores``. Large K takes one of two routes, weighed on
-the call's geometry (``time_rank_pick``, ``freq_rank_pick``): ``rank``,
-"rank once, select many" (``csrc/rank_select.cuh``: a block sorts its
+``sliding_median_boundary.cores``. Large K takes one of the wide routes,
+weighed on the call's geometry (``time_rank_pick``, ``freq_rank_pick``):
+K1's ``warp`` (65 to 256 taps; a warp an output, its taps in the
+lanes' registers, sorted by shuffles: the few-output calls, hop 32's K =
+93), ``rank``, "rank once, select many" (``csrc/rank_select.cuh``: a block sorts its
 staged samples once, and each output walks the ranks from rank 0 or, a
 thread taking a run of outputs, steps from the previous output's rank),
 where a block's outputs share the sort; ``select`` (``csrc/radix_select.cuh``: a radix
@@ -63,8 +67,9 @@ tap lies in them (``time_network_plan``, ``time_network_run``;
 points of the steps ``time_rank_changes`` and the geometry
 ``time_rank_geometry``: rows, lane run and adjacent columns a block),
 the select route's geometry (``time_select_plan``, ``freq_select_plan``),
-the cost rule between the two (``time_rank_pick``, ``freq_rank_pick``,
-pricing each rank geometry by ``sort_us``), K2's rank geometry
+the cost rule among them (``time_rank_pick``, ``freq_rank_pick``,
+pricing each rank geometry by ``sort_us`` and the warp route by
+``warp_us``, its slots a lane ``time_warp_slots``), K2's rank geometry
 (``freq_rank_plan``: tile and run, ``freq_rank_threads``; ``freq_rank_tile``, the
 walk's own tile, which the copy mirror stages), where its sort's keys
 live (``shared`` in its shared memory where they fit, else ``scratch``:
@@ -163,6 +168,17 @@ SM_FULL_RATE_THREADS = 768
 SM_BLOCKS = 32
 STORE_SWAP_US = 0.19
 STORE_WALK_US = 0.02
+# K1's warp route (a warp an output, csrc/median_time.cu) takes up to 32 x
+# WARP_SLOTS[-1] taps, from REGISTER_TAPS + 2 on, at WARP_SLOTS taps a
+# lane: WARP_BASE_US for a warp's loads and its sort's chain of shuffles,
+# then WARP_OUTPUT_US (one a slot count) an output an SM, the instructions
+# its schedulers issue; fitted to benches/warp_rows.py's times on an H100
+# 80GB HBM3 at 700 W (K = 93 from 65 outputs to 133,120: 6.46 to 106.06
+# us; K = 187 and 255 at 2080 outputs, eight taps a lane: 10.37 and 10.35
+# us, beside the rank route's 10.30 and 13.50)
+WARP_SLOTS = (4, 8)
+WARP_BASE_US = 1.5
+WARP_OUTPUT_US = (0.10, 0.28)
 # K1's network kernel (K <= REGISTER_TAPS): a thread takes one column and
 # a run of TIME_NETWORK_RUN consecutive output rows, fewer while the
 # launch would have under TIME_NETWORK_MIN_BLOCKS blocks (four for each
@@ -195,8 +211,9 @@ TIME_RANK_COLUMNS = (1, 2, 4, 8)  # adjacent columns a block with steps
 RANK_LANE_RUNS = (1,) + tuple(range(3, 32, 2))  # odd: a run's inverse reads miss no bank
 # K2 selects with its network below this many taps and sorts its segment
 # once per block from here on: the crossover of chip_smoke.py's phase-3
-# sweep on an H100 (the network was faster at every K it takes, on both
-# row shapes of the sweep, so the rank route starts right above it).
+# sweep on an H100 80GB HBM3 at 700 W (the network, in the form its rule
+# picks, was faster at every K it takes, on each of the sweep's row
+# shapes, so the rank route starts right above it).
 FREQ_RANK_MIN_TAPS = FREQ_NETWORK_MAX_TAPS + 2
 FREQ_RANK_TILES = (32, 64, 128, 256)  # outputs (and threads) a block where each walks from 0
 FREQ_NETWORK_CHUNK = 1024  # most outputs of a block of K2's network route
@@ -210,6 +227,16 @@ FREQ_CORE_MIN_BLOCKS = 2 * H100_SMS
 # (8.21 against 8.24) and won from 9 on (8.59 against 9.52 up to 12.66
 # against 26.34 at 31)
 FREQ_CORE_MIN_TAPS = 7
+# From this K on the core takes a call of any row count, at its smaller R:
+# median<K> costs 364 min/max an output at K = 33 and 570 at 47, the core
+# 70-155, so a few rows' blocks finish sooner on it too. On an H100 80GB
+# HBM3 at 700 W (chip_smoke.py phase 3's sweep, K = 33..63 on [32, 2049], [1, 2049] and
+# [2048, 513]) R = 6 ran fastest on 46 of the 48 rows (the hop-1024 step's
+# K = 47: 6.46 us against 6.67 at R = 8 and 9.22 for the network; 17.22
+# against 20.86 and 46.40 on 2048 rows), and cutting a few rows into more
+# chunks, so that the grid filled the SMs, did not pay (7.09 us at R = 6 on
+# 32 rows cut into 9 chunks a row)
+FREQ_CORE_WIDE_TAPS = 33
 FREQ_CORE_WARP = 32  # runs of R outputs a warp of K2's core takes a pass
 FREQ_MODES = {"reflect": 0, "wrap": 1, "edge": 2, "valid": 3}
 _PLAIN_BOUNDARY = {"reflect": "reflect", "wrap": "wrap", "edge": "clamp"}
@@ -732,32 +759,57 @@ def sort_us(units: int, staged: int, threads: int, smem: int, sms: int,
         1.0, together * threads / SM_FULL_RATE_THREADS)
 
 
+def time_warp_slots(k: int) -> int | None:
+    """Taps a lane of K1's warp route holds for ``k`` taps: the fewest of
+    WARP_SLOTS whose 32 lanes hold them, or None past 32 x
+    WARP_SLOTS[-1] (the route does not take ``k``)."""
+    return next((slots for slots in WARP_SLOTS if 32 * slots >= k), None)
+
+
+def warp_us(outputs: int, k: int, sms: int) -> float | None:
+    """The cost rule's µs for a launch of K1's warp route on ``outputs``
+    outputs of ``k`` taps (H100_SMS's constants: WARP_BASE_US, then
+    WARP_OUTPUT_US an output an SM at the slots a lane ``time_warp_slots``
+    gives); None where the route does not take ``k``."""
+    slots = time_warp_slots(k)
+    if slots is None:
+        return None
+    return (LAUNCH_US + WARP_BASE_US
+            + WARP_OUTPUT_US[WARP_SLOTS.index(slots)] * -(-outputs // sms))
+
+
 @functools.lru_cache(maxsize=64)
 def time_route_costs(offsets: tuple, start: int, t_v: int, streams: int, f: int,
                      sms: int = H100_SMS) -> tuple:
-    """(rank µs or None, select µs): the cost rule's prices (``sort_us``,
-    ``select_us``) of K1's two wide routes for a call (``time_select_plan``'s
-    arguments); None where a rank block's keys do not fit."""
+    """(rank µs or None, select µs, warp µs or None): the cost rule's
+    prices (``sort_us``, ``select_us``, ``warp_us``) of K1's three wide
+    routes for a call (``time_select_plan``'s arguments); None where a
+    rank block's keys do not fit, or where the warp route does not take
+    the tap count."""
     planned, run, fits = time_rank_plan(offsets, start, t_v)
     t_out = t_v - start
     sort = min(_time_rank_geometries(planned, t_out, run, streams, f, sms))[0] if fits else None
     _, srun, staged, threads = time_select_plan(offsets, start, t_v, streams, f, sms)
-    return sort, select_us(streams * -(-t_out // srun) * f, srun, staged, threads, sms)
+    return (sort, select_us(streams * -(-t_out // srun) * f, srun, staged, threads, sms),
+            warp_us(streams * t_out * f, len(offsets), sms))
 
 
 def time_rank_pick(offsets: tuple, start: int, t_v: int, streams: int, f: int,
                    sms: int = H100_SMS) -> str:
     """K1's route past REGISTER_TAPS for a call (``time_select_plan``'s
-    arguments): 'select' where a rank block's keys do not fit
-    (``time_rank_plan``), else whichever of 'rank' and 'select' the cost
-    rule prices lower (``time_route_costs``)."""
-    sort, pick = time_route_costs(offsets, start, t_v, streams, f, sms)
-    return "select" if sort is None or pick < sort else "rank"
+    arguments): of 'rank' (where a block's keys fit, ``time_rank_plan``),
+    'warp' (where it takes the tap count, ``time_warp_slots``) and
+    'select', the one the cost rule prices lowest (``time_route_costs``;
+    on a tie the earlier in that order)."""
+    sort, pick, warp = time_route_costs(offsets, start, t_v, streams, f, sms)
+    prices = {route: us for route, us in (("rank", sort), ("warp", warp), ("select", pick))
+              if us is not None}
+    return min(prices, key=prices.get)
 
 
 def time_route(offsets: tuple) -> str:
     """K1's kernel family for ``offsets``: the 'register' network up to
-    REGISTER_TAPS taps, 'rank' (the rank or select route,
+    REGISTER_TAPS taps, 'rank' (the wide routes: rank, warp or select,
     ``time_call_route``) above."""
     return "register" if len(offsets) <= REGISTER_TAPS else "rank"
 
@@ -765,7 +817,8 @@ def time_route(offsets: tuple) -> str:
 def time_call_route(offsets: tuple, start: int, t_v: int, streams: int, f: int,
                     sms: int = H100_SMS) -> str:
     """The route ``tap_median_time`` launches for a call: 'register' up to
-    REGISTER_TAPS taps, else ``time_rank_pick``'s 'rank' or 'select'."""
+    REGISTER_TAPS taps, else ``time_rank_pick``'s 'rank', 'warp' or
+    'select'."""
     if time_route(offsets) == "register":
         return "register"
     return time_rank_pick(offsets, start, t_v, streams, f, sms)
@@ -829,7 +882,7 @@ def _time_call(offsets, start: int, ta: int, tb: int, streams: int, f: int,
 
 
 tap_median_time.launches = 0
-tap_median_time.routes = dict.fromkeys(("register", "rank", "select"), 0)
+tap_median_time.routes = dict.fromkeys(("register", "rank", "select", "warp"), 0)
 tap_median_time.steps = 0
 tap_median_time.cores = 0
 
@@ -840,8 +893,8 @@ def _time_launch(a, b, offsets: tuple, start: int, fill: float, route: str, cut:
                  core: int | None = None):
     """K1's ``route`` kernel on checked CUDA operands; counts nothing
     (chip_smoke also calls it to time the network kernel at each ``run``
-    and the shared core at each R (``core``), the rank and select routes
-    side by side, the rank route at each geometry, and the rank route of
+    and the shared core at each R (``core``), the rank, warp and select
+    routes side by side, the rank route at each geometry, and the rank route of
     a ``cut`` build, ``_build.library``). The register route takes
     ``time_network_form``'s kernel unless ``run`` (the per-output network
     at that run) or ``core`` (the shared core at that R, which raises
@@ -891,6 +944,13 @@ def _time_args(offsets: tuple, start: int, ta: int, tb: int, streams: int, f: in
         plan, lo, span, staged = _rank_args(planned, run, device)
         return ("zen_tap_median_time_rank", (plan, lo, span, staged, run),
                 (lane_run, len(time_rank_changes(planned)) // 2, cols), k)
+    if route == "warp":
+        slots = time_warp_slots(k)
+        if slots is None:
+            raise ZenError(f"tap_median_time: the warp route takes at most "
+                           f"{32 * WARP_SLOTS[-1]} taps, got {k}")
+        return ("zen_tap_median_time_warp",
+                (_warp_args(time_rank_offsets(offsets, start, ta + tb), device),), (slots,), k)
     if route == "select":
         planned, srun, staged, threads = time_select_plan(
             offsets, start, ta + tb, streams, f, _sm_count(device))
@@ -943,6 +1003,14 @@ def _in_dtype(v: float, dtype: torch.dtype) -> float:
 
 
 @functools.lru_cache(maxsize=32)
+def _warp_args(planned: tuple, device: torch.device) -> torch.Tensor:
+    """The warp route's offsets (``time_rank_offsets``: far taps moved next
+    to V, so that a row index stays within 32 bits) as an int32 buffer on
+    ``device``, uploaded once per planned tuple."""
+    return torch.tensor(planned, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=32)
 def _rank_args(offsets: tuple, run: int, device: torch.device) -> tuple:
     """(plan, min offset, span, staged rows) of K1's rank or select route
     for planned offsets (``time_rank_offsets``) and a run, once per call
@@ -976,7 +1044,7 @@ def sliding_median_boundary_plain(
 def freq_core_runs(k: int) -> tuple:
     """The R values K2's shared core is built for at width ``k``: those of
     the one-run shape (k,) (``select_network.core_shapes``; none past
-    FREQ_NETWORK_MAX_TAPS, nor at K = 1 or 3)."""
+    FREQ_NETWORK_MAX_TAPS (63), nor at K = 1 or 3)."""
     if k > FREQ_NETWORK_MAX_TAPS:
         return ()
     return tuple(r for lengths, r in core_shapes() if lengths == (k,))
@@ -1002,14 +1070,18 @@ def freq_core_issue(k: int, f_out: int, r: int) -> int:
 def freq_network_form(k: int, rows: int, f_in: int, mode: str) -> tuple:
     """How K2's network route takes a call of ``rows`` rows of ``f_in``
     samples at width ``k``: ('core', R), the shared core, where (k,) is
-    built (``freq_core_runs``) from FREQ_CORE_MIN_TAPS on and the call has
-    FREQ_CORE_MIN_BLOCKS row chunks (the network's blocks; the core's
-    persistent grid takes them whatever R), at the built R whose block
-    issues the fewest min/max (``freq_core_issue``: a run a thread, so R
-    sets how full a row's last warp pass is; the larger R on a tie); else
-    ('network', 1), the per-output network, a thread an output at a time."""
+    built (``freq_core_runs``) and either K is FREQ_CORE_WIDE_TAPS or more,
+    at the smaller built R (fewer min/max a thread), or K is
+    FREQ_CORE_MIN_TAPS or more and the call has FREQ_CORE_MIN_BLOCKS row
+    chunks (the network's blocks; the core's persistent grid takes them
+    whatever R), at the built R whose block issues the fewest min/max
+    (``freq_core_issue``: a run a thread, so R sets how full a row's last
+    warp pass is; the larger R on a tie); else ('network', 1), the
+    per-output network, a thread an output at a time."""
     f_out = _freq_out(k, f_in, mode)
     runs = freq_core_runs(k)
+    if runs and k >= FREQ_CORE_WIDE_TAPS:
+        return "core", min(runs)
     blocks = rows * -(-f_out // freq_network_chunk(f_out))
     if runs and k >= FREQ_CORE_MIN_TAPS and blocks >= FREQ_CORE_MIN_BLOCKS:
         return "core", min(runs, key=lambda r: (freq_core_issue(k, f_out, r), -r))

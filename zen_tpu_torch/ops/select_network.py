@@ -35,11 +35,11 @@ import functools
 
 import torch
 
-# K1 takes its network for every odd K up to TIME_MAX_TAPS and its rank
-# route above; K2 takes its network up to FREQ_MAX_TAPS, below its rank
+# K1 takes its network for every odd K up to TIME_MAX_TAPS and its wide
+# routes above; K2 takes its network up to FREQ_MAX_TAPS, below its rank
 # route's crossover (ops/median_cuda.py, FREQ_RANK_MIN_TAPS).
 TIME_MAX_TAPS = 63
-FREQ_MAX_TAPS = 31
+FREQ_MAX_TAPS = 63
 MAX_TAPS = max(TIME_MAX_TAPS, FREQ_MAX_TAPS)  # the widest network emitted
 
 
@@ -190,6 +190,7 @@ CORE_MAX_STAGED = 80  # taps' rows a thread holds in registers
 CORE_KEEP = 2  # R values built per shape: those with the fewest min/max an output
 CORE_GAIN = 0.6  # and only where that is at most this share of median<K>'s
 CORE_PARTS = 4  # sources the shapes are compiled in, at once (csrc/median_time_core_p*.cu)
+FREQ_CORE_PARTS = 4  # the same for K2's shapes (csrc/median_freq_core_p*.cu)
 
 
 def tap_runs(offsets) -> tuple:
@@ -360,11 +361,18 @@ def core_part(shape_id: int) -> int:
     return shape_id % CORE_PARTS
 
 
+@functools.lru_cache(maxsize=None)
 def freq_core_shape_ids() -> tuple:
     """The ids of the shapes K2's shared core is built for: one tap run of
     K up to FREQ_MAX_TAPS (K2's window is one run of K samples)."""
     return tuple(q for q, (lengths, _) in enumerate(core_shapes())
                  if len(lengths) == 1 and lengths[0] <= FREQ_MAX_TAPS)
+
+
+def freq_core_part(shape_id: int) -> int:
+    """Which of the FREQ_CORE_PARTS sources compiles K2's shape
+    ``shape_id``: its place among ``freq_core_shape_ids``, round robin."""
+    return freq_core_shape_ids().index(shape_id) % FREQ_CORE_PARTS
 
 
 def emit_core_header() -> str:
@@ -373,8 +381,11 @@ def emit_core_header() -> str:
     ZEN_CORE_FOR_EACH_SHAPE_OF_PART_<q>(X), which expands X(id) for each
     shape part q of K1's core compiles (``core_part``), for that part's
     switch, and ZEN_CORE_FOR_EACH_FREQ_SHAPE(X), which expands X(id) for
-    each shape K2's core takes (``freq_core_shape_ids``)."""
+    each shape K2's core takes (``freq_core_shape_ids``), with
+    ZEN_CORE_FREQ_PARTS and ZEN_CORE_FOR_EACH_FREQ_SHAPE_OF_PART_<q>(X),
+    the shapes part q of K2's core compiles (``freq_core_part``)."""
     shapes = core_shapes()
+    freq_ids = freq_core_shape_ids()
     parts = [
         "// Generated by zen_tpu_torch/ops/select_network.py (emit_core_header); not edited by hand.",
         "// zen_core::Shape<ID>: the shared-core network for one tap-run shape and a run of",
@@ -388,8 +399,11 @@ def emit_core_header() -> str:
         *(f"#define ZEN_CORE_FOR_EACH_SHAPE_OF_PART_{part}(X) "
           + " ".join(f"X({q})" for q in range(len(shapes)) if core_part(q) == part)
           for part in range(CORE_PARTS)),
-        "#define ZEN_CORE_FOR_EACH_FREQ_SHAPE(X) "
-        + " ".join(f"X({q})" for q in freq_core_shape_ids()),
+        "#define ZEN_CORE_FOR_EACH_FREQ_SHAPE(X) " + " ".join(f"X({q})" for q in freq_ids),
+        f"#define ZEN_CORE_FREQ_PARTS {FREQ_CORE_PARTS}",
+        *(f"#define ZEN_CORE_FOR_EACH_FREQ_SHAPE_OF_PART_{part}(X) "
+          + " ".join(f"X({q})" for q in freq_ids if freq_core_part(q) == part)
+          for part in range(FREQ_CORE_PARTS)),
         "",
         "namespace zen_core {",
         "",
