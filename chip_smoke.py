@@ -218,6 +218,7 @@ ROUTES = {"tap_median_time": ("register", "rank", "select", "warp"),
           "sliding_median_boundary": ("network", "rank", "select")}
 SCRATCH = "rank@scratch"  # K2's rank launches whose keys live in the key store
 STEPS = "rank@steps"  # rank launches that took the steps kernel (a thread a run of outputs)
+SORT_SOURCE = "zen_rank::warp_merge_sort, zen_tpu_torch/csrc/rank_select.cuh"  # the steps' sort
 CORE = "register@core"  # K1's register launches that took the shared core (runs of outputs)
 FREQ_CORE = "network@core"  # K2's network launches that took its shared core
 SLOW_US = 100_000.0  # a phase-3 call past this is timed 3 times, not TIMED_RUNS
@@ -1145,15 +1146,36 @@ def phase_split() -> None:
     """Where a rank block's time goes: each rank kernel whole and from the
     two split builds (ZEN_RANK_CUT, csrc/rank_select.cuh), which end after
     staging and after the sort, at the paths' shapes and median2d's
-    (benches/rank_split.py's rows). The differences read as staging (with
-    the launch), sort and walk."""
+    (benches/rank_split.py's rows: the 4-minute track's pass 1, median2d's
+    fl 93 and fl 187, the clip's pass 1, pitch-track's K2). The
+    differences read as staging (with the launch), sort and walk; beside
+    them the route the wrapper takes, the twin, one torch.kthvalue call
+    and the bound."""
     from zen_tpu_torch.benches import rank_split, rank_store
     from zen_tpu_torch.ops import median_cuda as mc
 
-    for label, whole, stage, sort, walk in rank_split.split(torch, mc, rank_store.device_us,
-                                                            TIMED_RUNS, DEVICE):
+    splits = rank_split.split(torch, mc, rank_store.device_us, TIMED_RUNS, DEVICE)
+    for (label, kind, args), (_, whole, stage, sort, walk) in zip(rank_split.rows(torch, DEVICE),
+                                                                  splits):
+        if kind == "time":
+            a, b, offs, start = args
+            plain = functools.partial(mc.tap_median_time_plain, a, b, offs, start)
+            library, (b_us, b_by) = time_library(a, b, offs, start), time_bound(a, b, offs, start)
+            picked = time_label(a, b, offs, start)
+        else:
+            x, k, mode = args
+            plain = functools.partial(mc.sliding_median_boundary_plain, x, k, mode)
+            library, (b_us, b_by) = freq_library(x, k, mode), freq_bound(x, k, mode)
+            picked = freq_label(x, k, mode)
+        p_us = median_us(plain, runs=3, warmup=1)
+        kind_l, lib_call = library
+        l_us = median_us(lib_call, runs=3, warmup=1)
+        del args, plain, library, lib_call
+        torch.cuda.empty_cache()
         print(f"phase 3 split {label}: whole {whole:.2f} us; staging and launch {stage:.2f}, "
-              f"sort {sort:.2f}, walk {walk:.2f} us (medians of {TIMED_RUNS})")
+              f"sort {sort:.2f}, walk {walk:.2f} us (medians of {TIMED_RUNS}); the wrapper takes "
+              f"{picked}; plain {p_us:.2f} us, kthvalue {l_us:.2f} us ({kind_l}), bound "
+              f"{b_us:.2f} us ({b_by}) (medians of 3)")
 
 
 def stream_masks(cfg, audio: np.ndarray, sizes, device, keep=None) -> torch.Tensor:
@@ -4010,6 +4032,8 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shapes": [{**sh, "replaces": TPU_KERNELS[sh["tpu_kernel"]]} for sh in st["shapes"]],
         }
+        if route == STEPS:
+            row["sort"] = SORT_SOURCE
         (rows if row["launches"] else off_path).append(row)
     return rows, off_path
 

@@ -132,30 +132,17 @@ def sort_store(keys: torch.Tensor, chunk: int) -> torch.Tensor:
     return keys
 
 
-BATCHER_8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7), (1, 2), (5, 6),
-             (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5), (1, 2), (3, 4), (5, 6))
+K_PAD = 2**64 - 1  # the kernels' kPadKey
+SORT_POSITIONS = 1 << 19  # rank_select.cuh's kSortPositions
 
 
-def merge_sort(keys: list, count: int) -> list:
-    """rank_select.cuh's merge_sort of n keys (a power of two >= 32) by
-    ``count`` threads, pass by pass: runs of MERGE_RUN keys n / MERGE_RUN
-    apart sorted by Batcher's network (sort_run), then each pass's
-    MERGE_RUN outputs a thread from the binary search of their merge path
-    on (merge_at, a run's end read as the pad key, the first run first on
-    ties); where a thread takes more than one run (merge_spare) it loops
-    over them. Returns the sorted keys in plain order, as the last pass
-    writes them (the passes' merge_index padding is only a layout)."""
-    n, r = len(keys), mc.MERGE_RUN
-    runs = n // r
-    assert mc._merge_rooms(n, count) == (2 if count * r < n else 1)
-    src = [None] * n
-    for v0 in range(runs):
-        v = [keys[v0 + u * runs] for u in range(r)]
-        for p, q in BATCHER_8:
-            if v[q] < v[p]:
-                v[p], v[q] = v[q], v[p]
-        src[v0 * r : v0 * r + r] = v
-    length = r
+def merge_passes(src: list, length: int) -> list:
+    """rank_select.cuh's merge_passes: sorted runs of ``length`` keys in
+    ``src`` merged pairwise, pass by pass, MERGE_RUN outputs a thread from
+    the binary search of their merge path on (merge_at; a run's end reads
+    as kPadKey, the first run first on ties), to one sorted run, in plain
+    order (merge_index's padding is only a layout)."""
+    n, r = len(src), mc.MERGE_RUN
     while length < n:
         dst = [None] * n
         for e0 in range(0, n, r):
@@ -170,26 +157,154 @@ def merge_sort(keys: list, count: int) -> list:
                 else:
                     hi = mid
             i, j = lo, d - lo
-            a = a_run[i] if i < length else PAD_KEY
-            b = b_run[j] if j < length else PAD_KEY
+            a = a_run[i] if i < length else K_PAD
+            b = b_run[j] if j < length else K_PAD
             for u in range(r):
                 take_a = a <= b
                 dst[e0 + u] = a if take_a else b
                 i, j = (i + 1, j) if take_a else (i, j + 1)
                 nxt = i if take_a else j
-                loaded = (a_run if take_a else b_run)[nxt] if nxt < length else PAD_KEY
+                loaded = (a_run if take_a else b_run)[nxt] if nxt < length else K_PAD
                 a, b = (loaded, b) if take_a else (a, loaded)
         src, length = dst, 2 * length
     return src
 
 
-def _sorted_positions(values: torch.Tensor, chunk: int | None = None) -> tuple:
+def kernel_keys(values: torch.Tensor) -> np.ndarray:
+    """The kernels' 64-bit keys (make_key) of staged values [..., S] at
+    positions 0 .. S - 1, as uint64."""
+    bits = _order_bits(values).numpy().astype(np.uint64)
+    return (bits << np.uint64(32)) | np.arange(values.shape[-1], dtype=np.uint64)
+
+
+def sort_form(keys: np.ndarray) -> np.ndarray:
+    """rank_select.cuh's sort_form: uint64 keys as the float64 values
+    whose bits are exponent 1 over the key's order bits and its position's
+    low 20 bits (numpy reads the bit patterns as doubles, as the kernel's
+    __hiloint2double does)."""
+    keys = keys.astype(np.uint64)
+    order = keys >> np.uint64(32)
+    bits = (np.uint64(1) << np.uint64(52)) | (order << np.uint64(20)) | (keys & np.uint64(0xFFFFF))
+    return bits.view(np.float64)
+
+
+def key_form(doubles: np.ndarray) -> np.ndarray:
+    """rank_select.cuh's key_form: the keys back from sort_form's doubles,
+    the 20 position bits sign-extended (the padding's 2^20 - 1 to all
+    ones)."""
+    bits = np.ascontiguousarray(doubles).view(np.uint64)
+    order = (bits >> np.uint64(20)) & np.uint64(0xFFFFFFFF)
+    pos = bits & np.uint64(0xFFFFF)
+    pos = np.where(pos >= np.uint64(SORT_POSITIONS), pos | np.uint64(0xFFFFFFFFFFF00000), pos)
+    return (order << np.uint64(32)) | (pos & np.uint64(0xFFFFFFFF))
+
+
+def warp_bitonic(v: np.ndarray) -> np.ndarray:
+    """rank_select.cuh's key_bitonic on [..., 32, R] doubles, lane by
+    lane and slot by slot, element e = lane * R + j in slot j of its lane:
+    for each size 2 .. 32 R the flip (e meets e ^ (size - 1)), then the
+    half-cleaners (e meets e ^ stride), the lower element keeping the min
+    (np.minimum and np.maximum, DMNMX's min and max of normal doubles);
+    across lanes from stride R up, the partner's slot (mirrored in the
+    flip) as __shfl_xor_sync hands it over."""
+    r = v.shape[-1]
+    lane = np.arange(32)[:, None]
+    size = 2
+    while size <= 32 * r:
+        stride = size // 2
+        while stride >= 1:
+            flip = stride == size // 2
+            if stride >= r:
+                partner = v[..., lane[:, 0] ^ (((size - 1) if flip else stride) // r), :]
+                if flip:
+                    partner = partner[..., ::-1]
+                low = (lane & (stride // r)) == 0
+                v = np.where(low, np.minimum(v, partner), np.maximum(v, partner))
+            else:
+                v = v.copy()
+                for j in range(r):
+                    p = j ^ (size - 1) if flip else j ^ stride
+                    if j < p:
+                        lo, hi = np.minimum(v[..., j], v[..., p]), np.maximum(v[..., j], v[..., p])
+                        v[..., j], v[..., p] = lo, hi
+            stride //= 2
+        size *= 2
+    return v
+
+
+def parked(q: np.ndarray, j) -> np.ndarray:
+    """rank_select.cuh's parked: where element j of lane q's run waits."""
+    r = mc.WARP_LANE_KEYS
+    return q * r + (j ^ ((q >> 1) & (r - 1)))
+
+
+def warp_sort_slice(keys: np.ndarray) -> np.ndarray:
+    """warp_load_sort, then warp_store_plain, on each buffer of n uint64
+    keys [..., n] (n a power of two, 32 to WARP_SORT_KEYS): key e = j * 32
+    + lane into slot j of WARP_LANE_KEYS (kPadKey past n); the bitonic
+    network on sort_form's doubles; each lane's run parked, read back as
+    keys j * 32 + lane and written plainly, through one buffer as the
+    kernel does in place."""
+    n = keys.shape[-1]
+    r = mc.WARP_LANE_KEYS
+    lanes = np.full(keys.shape[:-1] + (32, r), K_PAD, dtype=np.uint64)
+    e = np.arange(r)[None, :] * 32 + np.arange(32)[:, None]  # [lane, slot]
+    lanes[..., e < n] = keys[..., e[e < n]]
+    v = key_form(warp_bitonic(sort_form(lanes)))
+    buf = np.zeros_like(keys)
+    q = np.arange(32)[:, None]
+    real = np.broadcast_to(q * r < n, (32, r))  # a lane's run all below n or all padding
+    buf[..., parked(q, np.arange(r)[None, :])[real]] = v[..., real]
+    e = np.arange(n)
+    return buf[..., parked(e // r, e % r)]
+
+
+def warp_merge_sort(keys: np.ndarray, count: int) -> np.ndarray:
+    """rank_select.cuh's warp_merge_sort of one block's n uint64 keys (n a
+    power of two >= 32) by ``count`` threads (a K2 block's, or a K1
+    column's group of 16 to 128): up to WARP_SORT_KEYS keys one
+    slice (warp_sort_slice); past it each slice of WARP_SORT_KEYS sorted
+    in registers, then merged pass by pass from runs of WARP_SORT_KEYS
+    (merge_at, a run's end read as kPadKey: in registers where each thread
+    takes one merge run, else through the second buffer, merge_passes; the
+    same merges either way)."""
+    n = keys.shape[-1]
+    assert mc._sort_rooms(n, count) == (
+        2 if n > mc.WARP_SORT_KEYS and count * mc.MERGE_RUN < n else 1)
+    if n <= mc.WARP_SORT_KEYS:
+        return warp_sort_slice(keys)
+    slices = keys.reshape(n // mc.WARP_SORT_KEYS, mc.WARP_LANE_KEYS, 32).transpose(0, 2, 1)
+    # slice s: key e = j * 32 + lane of the slice in slot j of lane `lane`
+    runs = key_form(warp_bitonic(sort_form(slices))).reshape(-1)
+    return np.array(merge_passes([int(k) for k in runs], mc.WARP_SORT_KEYS), dtype=np.uint64)
+
+
+def steps_sort(keys: np.ndarray, count: int) -> np.ndarray:
+    """The rank steps' sort (warp_merge_sort) of blocks of the kernels'
+    uint64 keys [B, n], n a power of two >= 32, by ``count`` threads a
+    block, as the kernel runs it (one vectorized slice up to
+    WARP_SORT_KEYS)."""
+    if keys.shape[-1] <= mc.WARP_SORT_KEYS:
+        return warp_sort_slice(keys)
+    return np.stack([warp_merge_sort(row, count) for row in keys])
+
+
+def _sorted_positions(values: torch.Tensor, chunk: int | None = None, steps: bool = False,
+                      count: int = 32) -> tuple:
     """Staged values [..., S] sorted by (value, position), as the kernels'
     sort of their keys leaves them: (values, positions). ``chunk``: the
     key store's sort, of the keys padded to key_count(S) as the kernels
-    pad them; None: the shared store's (an ascending sort, emulated by
-    torch.sort)."""
+    pad them; ``steps``: the rank steps' sort by ``count`` threads a block
+    (``steps_sort``), on the kernels' own keys padded so; neither: the
+    shared store's (an ascending sort, emulated by torch.sort)."""
     s = values.shape[-1]
+    if steps:
+        n = mc._key_count(s)
+        keys = kernel_keys(values.reshape(-1, s).float())
+        keys = np.concatenate([keys, np.full((keys.shape[0], n - s), K_PAD, np.uint64)], -1)
+        ranked = steps_sort(keys, count)[:, :s] & np.uint64(0xFFFFFFFF)
+        p = torch.from_numpy(ranked.astype(np.int64)).reshape(values.shape)
+        return torch.gather(values, -1, p), p
     pos = torch.arange(s).expand(values.shape)
     keys = (_order_bits(values) << POS_BITS) | pos
     if chunk is None:
@@ -298,7 +413,8 @@ def _boundary_index(p, f, mode):
 
 
 def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = None,
-                      tile: int | None = None, run: int | None = None) -> torch.Tensor:
+                      tile: int | None = None, run: int | None = None,
+                      warp_sort: bool = False) -> torch.Tensor:
     """K2's rank kernel: a block per (row, tile), each staging the
     tile + K - 1 samples its outputs reach, the last tile ragged; the
     wrapper's ``freq_rank_plan`` for the call on an H100's SMs, or
@@ -307,7 +423,9 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = No
     (``emulate_freq_steps``). On the key store (where ``freq_rank_store``
     sends K, or at ``chunk`` keys of shared memory, as
     ``_freq_launch(chunk=)``) a unit is RANK_STORE_THREADS outputs and its
-    keys take the store's sort."""
+    keys take the store's sort. ``warp_sort``: the steps' keys go through
+    their sort's emulation (``steps_sort``) by the block's threads
+    (``freq_rank_threads``), not torch.sort."""
     if chunk is None and mc.freq_rank_store(k) == "scratch":
         chunk = mc.RANK_STORE_CHUNK
     f_in = x.shape[-1]
@@ -324,7 +442,8 @@ def emulate_freq_rank(x: torch.Tensor, k: int, mode: str, chunk: int | None = No
         live = min(tile, f_out - j0)
         base = j0 if mode == "valid" else j0 - m
         seg = rows[:, _boundary_index(torch.arange(live + k - 1) + base, f_in, mode)]
-        values, pos = _sorted_positions(seg, chunk)  # [R, S]
+        values, pos = _sorted_positions(seg, chunk, warp_sort and run > 1,
+                                        mc.freq_rank_threads(k, tile, run))  # [R, S]
         if run > 1:
             out[:, j0 : j0 + live] = emulate_freq_steps(values, pos, k, live, run)
             continue
@@ -367,8 +486,8 @@ def emulate_freq_steps(values: torch.Tensor, pos: torch.Tensor, k: int, live: in
     return out
 
 
-def emulate_time_rank(a, b, offsets, start, fill=0.0, run=None, lane_run=None
-                      ) -> torch.Tensor:
+def emulate_time_rank(a, b, offsets, start, fill=0.0, run=None, lane_run=None,
+                      warp_sort: bool = False, cols: int = 1) -> torch.Tensor:
     """K1's rank kernel: the wrapper's plan for the call
     (``time_rank_plan``: taps that read only fill moved next to V, keys
     that fit a block; ``time_rank_geometry`` on an H100's SMs: the run of
@@ -379,7 +498,9 @@ def emulate_time_rank(a, b, offsets, start, fill=0.0, run=None, lane_run=None
     dtype), keyed by (value, relative row), sorted in shared memory, the
     multiplicity table read at row - lane + 31 (0 outside it). Lane run
     1: every output row walks from rank 0; longer: the steps
-    (``emulate_time_steps``)."""
+    (``emulate_time_steps``), whose keys go through their sort's emulation
+    (``steps_sort``) by a column's threads of ``cols`` a block where
+    ``warp_sort``, not torch.sort."""
     v = torch.cat([a, b], dim=-2).float()
     c, t_v, f = v.shape[0], v.shape[1], v.shape[2]
     offsets_in = tuple(offsets)
@@ -400,7 +521,8 @@ def emulate_time_rank(a, b, offsets, start, fill=0.0, run=None, lane_run=None
         rows = rel + start + i0 + lo
         inside = (rows >= 0) & (rows < t_v)
         staged = torch.where(inside[None, :, None], v[:, rows.clamp(0, t_v - 1)], fill)
-        values, idx = _sorted_positions(staged.transpose(1, 2))  # [C, F, S]
+        values, idx = _sorted_positions(staged.transpose(1, 2), None, warp_sort and lane_run > 1,
+                                        mc.TIME_RANK_THREADS // cols)  # [C, F, S]
         pos = rel[idx]  # a key's position is its relative row
         live = min(run, t_out - i0)
         if lane_run > 1:

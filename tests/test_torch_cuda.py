@@ -713,6 +713,102 @@ def test_freq_rank_steps_route_matches_twin(cuda_device, k, mode, dtype, ties):
     assert torch.equal(got, mc.sliding_median_boundary_plain(x, k, mode))
 
 
+# K2's steps at each key count a block may sort, n = key_count(tile + k - 1):
+# (k, tile, run) from one warp's 32 keys to 8192 (warp_merge_sort's slices of
+# 256 and its merge passes past them; the track's pass 1 at 512)
+FREQ_SORT_GEOMETRIES = [(13, 18, 3), (13, 48, 3), (47, 80, 5), (187, 69, 3), (187, 320, 5),
+                        (187, 224, 7), (187, 832, 13), (257, 1785, 7), (3001, 4250, 17)]
+
+
+def _signed_ties(rng, *shape, device, dtype):
+    """Tie-heavy values of both signs with -0.0, +0.0, -inf and +inf."""
+    x = (np.floor(rng.random(shape, dtype=np.float32) * 8) - 4) / 4
+    special = np.array([-0.0, 0.0, -np.inf, np.inf], dtype=np.float32)
+    pick = rng.random(shape) < 0.1
+    x = np.where(pick, special[rng.integers(0, 4, shape)], x).astype(np.float32)
+    return torch.from_numpy(x).to(device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "wrap", "edge", "valid"])
+@pytest.mark.parametrize("k,tile,run", FREQ_SORT_GEOMETRIES)
+def test_freq_rank_steps_sort_matches_twin(cuda_device, k, tile, run, mode, dtype):
+    """K2's steps with their warp sort at every key count from 32 to 8192,
+    every border, f32 and bf16, tie-heavy values of both signs with signed
+    zeros and infinities: equal to the twin (whose kthvalue does not tell
+    -0.0 from +0.0; test_steps_sort_orders_each_block holds the sort's
+    order bitwise)."""
+    rng = np.random.default_rng(k + tile)
+    f_in = 2 * tile + 37 + (k - 1 if mode == "valid" else 0)
+    x = _signed_ties(rng, 3, f_in, device=cuda_device, dtype=dtype)
+    want = mc.sliding_median_boundary_plain(x, k, mode)
+    got = mc._freq_launch(x, k, mode, "rank", tile=tile, run=run)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _order_sorted(v: np.ndarray) -> np.ndarray:
+    """float32 values sorted as the rank keys order them (-0.0 below +0.0)."""
+    u = v.astype(np.float32).view(np.uint32)
+    bits = np.where(u >> 31 == 1, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+    bits = np.sort(bits, axis=-1)
+    return np.where(bits >> 31 == 1, bits & np.uint32(0x7FFFFFFF), ~bits).astype(
+        np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("k,tile,run", FREQ_SORT_GEOMETRIES)
+def test_steps_sort_orders_each_block(cuda_device, k, tile, run):
+    """The sort alone: the split build that ends K2's steps after the sort
+    (ZEN_RANK_CUT = 2) writes each block's sorted staged values at ranks
+    0 .. tile - 1 in place of its medians; they equal the block's staged
+    row segment sorted on the host, bitwise (-0.0 below +0.0)."""
+    rng = np.random.default_rng(tile)
+    f_in = 2 * tile + 37 + k - 1
+    x = _signed_ties(rng, 2, f_in, device=cuda_device, dtype=torch.float32)
+    host = x.cpu().numpy()
+    f_out = f_in - k + 1
+    want = np.empty((2, f_out), np.float32)
+    for j0 in range(0, f_out, tile):
+        live = min(tile, f_out - j0)
+        want[:, j0:j0 + live] = _order_sorted(host[:, j0:j0 + live + k - 1])[:, :live]
+    got = mc._freq_launch(x, k, "valid", "rank", tile=tile, run=run, cut=2)
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), want.view(np.uint32))
+
+
+# K1's steps at each key count a column may sort (staged rows rounded up to a
+# power of two) over 1, 2, 4 and 8 adjacent columns a block:
+# (offsets, start, run, lane_run, cols)
+TIME_SORT_GEOMETRIES = [
+    (tuple(range(-7, 8)), 7, 40, 5, 8),  # 54 rows: 64 keys
+    ((0,) * 33 + tuple(range(-33, 1)), 33, 64, 3, 2),  # duplicates: 128 keys
+    (tuple(range(-92, 1)), 92, 160, 5, 4),  # median2d's fl 93: 256 keys a column
+    (tuple(range(-92, 1)), 92, 144, 9, 8),  # 16 threads a column
+    (tuple(range(-92, 1)), 92, 352, 11, 1),  # 512 keys
+    (tuple(range(-92, 1)), 92, 420, 7, 2),
+    (tuple(range(-200, 201)), 0, 384, 3, 1),  # centered K = 401: 1024 keys
+    (tuple(range(-1000, 1)), 1000, 300, 3, 1),  # 2048 keys
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets,start,run,lane_run,cols", TIME_SORT_GEOMETRIES)
+def test_time_rank_steps_sort_matches_twin(cuda_device, offsets, start, run, lane_run, cols,
+                                           dtype):
+    """K1's steps with their warp sort at every key count from 64 to 2048
+    a column, 1 to 8 columns a block (the last block's columns partly past
+    F), fill -inf and +inf, f32 and bf16, tie-heavy values of both signs
+    with signed zeros and infinities: equal to the twin."""
+    rng = np.random.default_rng(len(offsets) + run)
+    a = _signed_ties(rng, 1, 2 * run + start + 11, 13, device=cuda_device, dtype=dtype)
+    b = _signed_ties(rng, 1, 5, 13, device=cuda_device, dtype=dtype)
+    for fill in (float("-inf"), float("inf")):
+        got = mc._time_launch(a, b, offsets, start, fill, "rank", run=run, lane_run=lane_run,
+                              cols=cols)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mc.tap_median_time_plain(a, b, offsets, start, fill))
+
+
 def test_wrappers_refuse_float16_and_mixed_dtypes(cuda_device):
     x = torch.ones((2, 9, 33), device=cuda_device)
     n_time, n_freq = mc.tap_median_time.launches, mc.sliding_median_boundary.launches

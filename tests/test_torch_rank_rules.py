@@ -105,11 +105,14 @@ def test_time_routes_and_staging_limit():
     fl93 = tuple(range(-92, 1))
     assert mc.time_rank_bytes(fl93, 352, 1) == 8 * 512
     # 128 threads merge 512 keys a run each: one buffer; 16 threads a
-    # column (8 columns) merge 256 keys two runs each: a second buffer
+    # column (8 columns) would merge 256 keys two runs each, but a warp
+    # sorts the column's 256 in registers: one buffer too
     assert mc.time_rank_bytes(fl93, 352, 11) == 9 * 512 + 4 * (93 + 351) + 4 * 352
     # four adjacent columns: each its own keys and ranks, the medians of all
     assert mc.time_rank_bytes(fl93, 160, 5, 4) == 4 * (9 * 256 + 4 * (93 + 159)) + 4 * 640
-    assert mc.time_rank_bytes(fl93, 160, 9, 8) == 8 * (2 * 9 * 256 + 4 * (93 + 159)) + 4 * 1280
+    assert mc.time_rank_bytes(fl93, 160, 9, 8) == 8 * (9 * 256 + 4 * (93 + 159)) + 4 * 1280
+    # past one warp's 256 keys, 16 threads a column merging 512 keys take a second buffer
+    assert mc.time_rank_bytes(fl93, 352, 11, 8) == 8 * (2 * 9 * 512 + 4 * (93 + 351)) + 4 * 2816
     # a span of 70,001 rows: no inverse fits beside the keys, so the call
     # keeps the walk from rank 0 at every lane run
     assert mc.time_rank_bytes(far, 96, 3) > mc.SMEM_OPTIN
@@ -247,8 +250,9 @@ def test_freq_rank_tile_minimizes_walk_plus_sort(k):
     freq_rank_plan, a call's geometry, minimizes sort_us over every tile
     and run that fits a block: at run 1 that tile, past
     it runs of RANK_LANE_RUNS outputs, as many walking threads as a key
-    count's freq_steps_threads and its staged outputs allow, the block's
-    threads freq_rank_threads'."""
+    count's staged outputs allow up to WARP_STEPS_THREADS, the block's
+    threads freq_rank_threads': whole warps for the walkers, at least
+    freq_steps_threads."""
     tile = mc.freq_rank_tile(k)
     assert tile in mc.FREQ_RANK_TILES
 
@@ -263,10 +267,12 @@ def test_freq_rank_tile_minimizes_walk_plus_sort(k):
         assert mc.freq_rank_plan(k, rows, f_in, "reflect") == min(plans)[1:]
         for us, t, run in plans:
             threads = mc.freq_rank_threads(k, t, run)
+            n = mc._key_count(t + k - 1)
             assert t % run == 0 and t // run <= threads
             assert (threads == t == tile if run == 1 else
-                    threads == mc.freq_steps_threads(mc._key_count(t + k - 1)))
-            assert t + k - 1 <= mc._key_count(t + k - 1)
+                    threads == max(32 * -(-(t // run) // 32), mc.freq_steps_threads(n)))
+            assert threads <= mc.WARP_STEPS_THREADS
+            assert t + k - 1 <= n
             assert run in mc.RANK_LANE_RUNS and mc.freq_rank_bytes(k, t, run) <= mc.SMEM_OPTIN
             seg = min(t, f_in) + k - 1
             assert us == mc.sort_us(rows * -(-f_in // t), seg, threads,

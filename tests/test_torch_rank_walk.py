@@ -2,7 +2,7 @@
 neighbour's median, emulated on the CPU (``rank_emulation``: K2's segment
 and K1's column tile sorted once per block, each output's rank walked or
 stepped), held bitwise against the plain twins and zen_tpu's median,
-tie-heavy and bf16; the merge sort and K1's change points of the steps.
+tie-heavy and bf16; the steps' sort and K1's change points of the steps.
 """
 import numpy as np
 import pytest
@@ -16,12 +16,12 @@ from zen_tpu_torch.ops import median_cuda as mc  # noqa: E402
 from rank_emulation import (  # noqa: E402
     one_torch_thread,  # noqa: F401 (autouse)
     K93,
-    PAD_KEY,
+    K_PAD,
     _levels,
     _tensor,
     emulate_freq_rank,
     emulate_time_rank,
-    merge_sort,
+    warp_merge_sort,
 )
 
 
@@ -219,13 +219,16 @@ def test_time_rank_changes_are_the_table_edges():
 @pytest.mark.parametrize("count", [16, 32, 64, 128])
 @pytest.mark.parametrize("n", [32, 256, 512, 1024])
 def test_merge_sort_orders_every_block(n, count):
-    """The steps' merge_sort orders any keys, pad keys (equal) and ties
-    included, with one run a thread (its passes in registers) and with
-    several (a second buffer)."""
-    gen = torch.Generator().manual_seed(n + count)
-    keys = torch.randint(0, 1 << 40, (3, n), generator=gen)
-    keys[0, -n // 8 :] = PAD_KEY
-    keys[1] = keys[1] % 7
-    keys[2, ::3] = PAD_KEY
-    for row in keys.tolist():
-        assert merge_sort(row, count) == sorted(row)
+    """The steps' sort (warp_merge_sort: warp slices, then merge passes
+    past one) orders a block's keys, pad keys (equal) and ties of value
+    included, by ``count`` threads (a K1 column's group of 16 up to a K2
+    block's), with one merge run a thread (its passes in registers) and
+    with several (a second buffer)."""
+    rng = np.random.default_rng(n + count)
+    order = rng.integers(0, 1 << 32, (3, n), dtype=np.uint64)
+    order[1] %= np.uint64(7)
+    keys = (order << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    keys[0, -n // 8 :] = K_PAD
+    keys[2, ::3] = K_PAD
+    for row in keys:
+        assert np.array_equal(warp_merge_sort(row, count), np.sort(row))

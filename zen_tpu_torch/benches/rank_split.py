@@ -34,8 +34,8 @@ def rows(torch, device) -> list:
     'freq' (x, k, mode); inputs from one numpy seed, made on the card:
     hop 32 (B=32, B=1), K=401 centered, median2d time fl 93 at the
     track's [41355, 513] (valid), K2's 4-minute pass 1, the clip's, hop
-    1024, K=13 at the 512-stream shape, the key store row, and median2d
-    frequency fl 187 at [2585, 8193] (wrap)."""
+    1024, K=13 at the 512-stream shape, the key store row, median2d
+    frequency fl 187 at [2585, 8193] (wrap) and pitch-track's K2."""
     import numpy as np
 
     rng = np.random.default_rng(4)
@@ -60,6 +60,7 @@ def rows(torch, device) -> list:
         ("K2 K=16385 [4, 8193] reflect (key store)", "freq", (mag(4, 8193), 16_385, "reflect")),
         (f"K2 K=187 [{TRACK_H}, 8193] wrap (median2d fl 187)", "freq",
          (mag(TRACK_H, 8193), 187, "wrap")),
+        ("K2 K=187 [8, 8193] reflect (pitch-track)", "freq", (mag(8, 8193), 187, "reflect")),
     ]
 
 

@@ -14,11 +14,13 @@ its widest K under wrap, which the key store took and torch.kthvalue
 beat), K2's store row of many outputs (R=4, K = 16,385), and the paths'
 rank rows (``PATH``: hop 1024, pitch-track, hop 32 at B=32 and B=1,
 offline pass 1 on the clip and the 4-minute track, median2d's fl 93 and
-187 at the track's widths). Each time is the card's µs for one call:
-CUDA events behind a spin, the median of ``--runs`` calls after one warm
-call, or of 3 where that call took over 100 ms. Beside it, the SHA-256 of
-the output's bytes: two trees' outputs compare without a twin (whose
-gather may not hold a tree's widest rows). A row the tree refuses prints
+187 at the track's widths, fl 93 under both geometries and fl 187 under
+each of its three borders and in bf16). Each
+time is the card's µs for one call: CUDA events behind a spin, the
+median of ``--runs`` calls after one warm call, or of 3 where that call
+took over 100 ms. Beside it, the SHA-256 of the output's bytes: two
+trees' outputs compare without a twin (whose gather may not hold a
+tree's widest rows). A row the tree refuses prints
 ``refused`` and the ZenError. Prints the card's name and power limit,
 one line a row, then one JSON object. chip_smoke.py's phase 3 times the
 same rows' routes side by side (``rows``).
@@ -68,7 +70,10 @@ def rows(torch, device) -> list:
     'freq' (x, k, mode); inputs from one numpy seed, made on the card:
     PATH and K2 at K = 257 (fs 8000 hop 1024) first, so that no tree's
     wide rows (a parent's key store ran some for seconds) load the card
-    before them, then SEVEN, K2's store row and its bf16 twin."""
+    before them, then SEVEN, K2's store row and its bf16 twin, median2d fl
+    187's other two borders (valid on the padded rows, replicate) and its
+    bf16 wrap, and fl 93's causal valid taps (PATH's fl 93 row is the
+    geometry of its wrap and replicate borders, on the gathered rows)."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -97,6 +102,14 @@ def rows(torch, device) -> list:
         ("K2 R=4 F=8193 K=16385 reflect", "freq", (mag(4, 8193), 16_385, "reflect")),
         ("K2 R=4 F=8193 K=16385 reflect bf16", "freq",
          (mag(4, 8193, dtype=torch.bfloat16), 16_385, "reflect")),
+        (f"K2 R={TRACK_H} F=8193+186 K=187 valid (median2d fl 187)", "freq",
+         (mag(TRACK_H, 8193 + 186), 187, "valid")),
+        (f"K2 R={TRACK_H} F=8193 K=187 edge (median2d fl 187 replicate)", "freq",
+         (mag(TRACK_H, 8193), 187, "edge")),
+        (f"K2 R={TRACK_H} F=8193 K=187 wrap bf16 (median2d fl 187 bf16)", "freq",
+         (mag(TRACK_H, 8193, dtype=torch.bfloat16), 187, "wrap")),
+        (f"K1 single T={TRACK_P} F=513 K=93 causal (median2d fl 93 valid)", "time",
+         (mag(TRACK_P, 513), mag(0, 513), tuple(range(-93, 0)), 0)),
     ]
 
 

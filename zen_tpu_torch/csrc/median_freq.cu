@@ -78,11 +78,15 @@
 //   the one that entered the window (read at their ranks in an inverse
 //   array, one scatter after the sort): ~S/K ranks an output, so a tile
 //   grows to the key count the sort is paid for (320 outputs at K = 187:
-//   64 threads of 5, 506 keys of 512), and the sort is merge_sort. The
-//   medians go through shared memory so that the writes stay coalesced.
-//   On the 4-minute track's pass 1 (2585 rows of 8193 at K = 187) the
-//   walk took 1724 us (benches/rank_store.py) and the steps 729
-//   (benches/rank_split.py) on an H100.
+//   64 threads of 5, 506 keys of 512). The medians go through shared
+//   memory so that the writes stay coalesced. On the 4-minute track's
+//   pass 1 (2585 rows of 8193 at K = 187) the walk took 1724 us
+//   (benches/rank_store.py) and the steps 729 with merge_sort
+//   (benches/rank_split.py) on an H100. The steps now sort with
+//   warp_merge_sort (rank_select.cuh), whose warps sort slices of 256
+//   keys in registers, so a block's threads need not follow its merge
+//   runs: its warps serve its walkers, at least a thread a merge run of
+//   8 keys (687-692 us on that pass, H100 80GB HBM3 at 700 W).
 // Past 16,384 keys the sort would no longer fit a block: a first version
 // ranked each window by counting there (up to 2 K^2 compares an output,
 // 2.7e8 at K = 16,385). Now the keys live in the block's slice of a
@@ -196,16 +200,19 @@ __global__ void rank_select_median_kernel(const T* __restrict__ x,
 // outputs a thread (tile / run threads walk, of blockDim.x, which all
 // stage and sort): the first sought from the middle rank (seek, its count
 // below from prefix_below), each next stepped from the previous one's
-// rank. Shared memory: merge_room(n) keys (the keys as staged, then
-// merge_sort's), as many again where merge_spare, then the rank of each
+// rank; the keys sorted by warp_merge_sort, the registers capped at 64 a
+// thread (launch bounds, at most kWarpStepsThreads threads a block).
+// Shared memory: merge_room(n) keys (the keys as staged, then the
+// sort's), as many again where sort_spare, then the rank of each
 // staged position (inv, tile + k - 1 ints), the tile's medians (res, as
 // floats, written out together at the end), the count below the middle
 // rank before each position (tile + k ints) and the scan's warp sums (32).
+constexpr int kWarpStepsThreads = 256;
+
 template <typename T>
-__global__ void rank_steps_median_kernel(const T* __restrict__ x,
-                                         T* __restrict__ out, int f_in,
-                                         int f_out, int k, int mode, int tile,
-                                         int run) {
+__global__ void __launch_bounds__(kWarpStepsThreads, 4)
+rank_steps_median_kernel(const T* __restrict__ x, T* __restrict__ out, int f_in, int f_out,
+                         int k, int mode, int tile, int run) {
   extern __shared__ __align__(16) unsigned long long keys[];
   const int threads = blockDim.x;
   const int tid = threadIdx.x;
@@ -218,11 +225,11 @@ __global__ void rank_steps_median_kernel(const T* __restrict__ x,
   const int staged = live + k - 1;
   const int n = zen_segment::stage_keys(keys, row, base, staged, f_in, mode,
                                         tid, threads);
-  // merge_sort's buffers: the keys' and, where merge_spare, a second
+  // the sort's buffers: the keys' and, where sort_spare, a second
   const int most = zen_rank::key_count(tile + k - 1);
   const int room = zen_rank::merge_room(most);
-  unsigned long long* spare = keys + room;
-  int* inv = reinterpret_cast<int*>(keys + room * (zen_rank::merge_spare(most, threads) ? 2 : 1));
+  int* inv = reinterpret_cast<int*>(
+      keys + room * (zen_rank::sort_spare(most, threads) ? 2 : 1));
   float* res = reinterpret_cast<float*>(inv + tile + k - 1);
   int* prefix = reinterpret_cast<int*>(res + tile);
   int* warp_sums = prefix + tile + k;
@@ -234,7 +241,7 @@ __global__ void rank_steps_median_kernel(const T* __restrict__ x,
     }
     return;
   }
-  const unsigned long long* sorted = zen_rank::merge_sort(keys, spare, n, tid, threads);
+  const unsigned long long* sorted = zen_rank::warp_merge_sort(keys, 0, room, 1, n, tid, threads);
   const auto key = [&](int rank) { return sorted[rank]; };
   if (ZEN_RANK_CUT == 2) {
     for (int j = tid; j < live; j += threads) {
@@ -427,7 +434,7 @@ int launch_network(const T* x, T* out, int rows, int f_in, int f_out, int k,
 // block: the wrapper's choice for the call (freq_rank_plan). run 1: the
 // walk from rank 0 for every output, `tile` threads in {32, 64, 128, 256};
 // run > 1: the steps, tile / run walking threads of `threads`, a multiple
-// of 32 up to 1024.
+// of 32 up to kWarpStepsThreads.
 template <typename T>
 int launch_rank(const T* x, T* out, int rows, int f_in, int f_out, int k,
                 int mode, int tile, int run, int threads, void* stream) {
@@ -435,17 +442,17 @@ int launch_rank(const T* x, T* out, int rows, int f_in, int f_out, int k,
   if (err != 0) return err;
   if (run < 1 || tile < run || tile % run != 0 ||
       (run == 1 ? (threads != tile || (tile != 32 && tile != 64 && tile != 128 && tile != 256))
-                : (threads % 32 != 0 || threads > 1024 || tile / run > threads))) {
+                : (threads % 32 != 0 || threads > kWarpStepsThreads || tile / run > threads))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tiles = (static_cast<long long>(f_out) + tile - 1) / tile;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int n = zen_rank::key_count(tile + k - 1);
-  // run > 1: merge_sort's buffers, the inverse ranks, the tile's medians,
+  // run > 1: the sort's buffers, the inverse ranks, the tile's medians,
   // the counts below the middle rank and the scan's warp sums
   const size_t smem =
       run == 1 ? static_cast<size_t>(n) * sizeof(unsigned long long)
-               : (zen_rank::merge_spare(n, threads) ? 2 : 1) *
+               : (zen_rank::sort_spare(n, threads) ? 2 : 1) *
                          static_cast<size_t>(zen_rank::merge_room(n)) *
                          sizeof(unsigned long long) +
                      (2 * (static_cast<size_t>(tile) + k) - 1 + tile + 32) * 4;

@@ -98,8 +98,9 @@
 // Calls of many output rows take the steps instead
 // (tap_median_time_steps_kernel; the wrapper weighs both on the call's
 // geometry, median_cuda.time_rank_geometry): a block takes 1 to 8
-// adjacent columns and a longer run of output rows, each column's
-// threads merge_sort its keys, and a thread takes a lane run of
+// adjacent columns and a longer run of output rows, its columns' keys
+// sorted by warp_merge_sort (rank_select.cuh: a warp a column's 256 keys
+// in registers), and a thread takes a lane run of
 // consecutive output rows, the first walked from rank 0, each next
 // stepped from the previous row's rank after moving its count at the tap
 // set's change points (two a run of taps: hop 32's four, median2d's
@@ -358,13 +359,16 @@ __global__ void tap_median_time_rank_kernel(
 // `plan` (two a run of taps; a repeated tap is a change of its own).
 // Adjacent columns make a staged row's loads and an output row's stores
 // one stretch of 4 * cols bytes (one column a block touches 4 bytes of
-// each 32-byte sector it reads or writes). Shared memory, for each
-// column: merge_room(n) keys (the keys as staged, then merge_sort's), as
-// many again where merge_spare, and the rank of each relative row (inv, span + run - 1
-// ints, written for the staged rows; a change point's row is always
-// staged, as a tap of row i or of row i + 1); then the unit's medians
-// (res, run * cols floats), written out together at the end, and the
-// table where kSharedTable.
+// each 32-byte sector it reads or writes). The sort is warp_merge_sort,
+// whose warp slices take the block's four warps over all columns (a warp
+// a column where its keys are one slice: no block barrier inside the
+// sort) and whose merge passes, past one slice, each column's group.
+// Shared memory, for each column: merge_room(n) keys (the keys as staged,
+// then the sort's), as many again where sort_spare, and the rank of each
+// relative row (inv, span + run - 1 ints, written for the staged rows; a
+// change point's row is always staged, as a tap of row i or of row i +
+// 1); then the unit's medians (res, run * cols floats), written out
+// together at the end, and the table where kSharedTable.
 template <typename T, bool kSharedTable>
 __global__ void __launch_bounds__(kRankThreads, 8) tap_median_time_steps_kernel(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
@@ -383,8 +387,8 @@ __global__ void __launch_bounds__(kRankThreads, 8) tap_median_time_steps_kernel(
   const int group = kRankThreads >> shift;
   const int g = (tid << shift) / kRankThreads;  // this thread's column of the unit
   const int gid = tid - g * group;
-  // each column's merge_sort buffers: its keys' and, where merge_spare, a second
-  const int rooms = zen_rank::merge_spare(n, group) ? 2 : 1;
+  // each column's sort buffers: its keys' and, where sort_spare, a second
+  const int rooms = zen_rank::sort_spare(n, group) ? 2 : 1;
   unsigned long long* keys = stage + rooms * room * g;
   int* inv = reinterpret_cast<int*>(stage + rooms * room * cols) + reach * g;
   float* res = reinterpret_cast<float*>(stage + rooms * room * cols) + reach * cols;
@@ -445,7 +449,7 @@ __global__ void __launch_bounds__(kRankThreads, 8) tap_median_time_steps_kernel(
     return;
   }
   const unsigned long long* sorted =
-      zen_rank::merge_sort(keys, keys + room, n, gid, group);
+      zen_rank::warp_merge_sort(stage, rooms * room, room, cols, n, tid, kRankThreads);
   const auto key = [&](int rank) { return sorted[rank]; };
   if (ZEN_RANK_CUT == 2) {
     for (int i = gid; i < live; i += group) res[i * cols + g] = zen_rank::value_of(key(i));
@@ -682,13 +686,13 @@ int launch_rank(const T* a, const T* b, T* out, int c, int ta, int tb, int f,
   int optin = 0;
   int err = zen_rank::optin_bytes(&optin);
   if (err != 0) return err;
-  // lane_run > 1: for each column merge_sort's buffers and the inverse
+  // lane_run > 1: for each column the sort's buffers and the inverse
   // ranks, then the unit's medians
   const int n = zen_rank::key_count(staged);
   const size_t keys =
       lane_run == 1
           ? static_cast<size_t>(n) * sizeof(unsigned long long)
-          : cols * ((zen_rank::merge_spare(n, kRankThreads / cols) ? 2 : 1) *
+          : cols * ((zen_rank::sort_spare(n, kRankThreads / cols) ? 2 : 1) *
                         static_cast<size_t>(zen_rank::merge_room(n)) * sizeof(unsigned long long) +
                     (static_cast<size_t>(span) + run - 1) * sizeof(int)) +
                 static_cast<size_t>(run) * cols * sizeof(float);

@@ -24,23 +24,40 @@
 //   scatter after the sort), and steps down or up to the rank that holds
 //   its median (step): about S/K ranks, as neighbouring windows differ by
 //   a sample each way. So a block's tile can grow until the sort is paid
-//   by hundreds of outputs, and the sort is merge_sort: runs of 8 sorted
-//   in registers, then passes that merge pairs of runs along their merge
-//   path, in a layout that keeps a warp's lanes on distinct banks (the
-//   last pass writes the keys plainly).
+//   by hundreds of outputs.
 // The wrappers' cost rule picks the way and the geometry for each call
 // (ops/median_cuda.py, sort_us): calls of few outputs a block (a single
 // stream's hop-32 and hop-1024 steps) keep the walk, whose blocks finish
 // sooner; calls of many (offline passes, median2d) take the steps.
 // Per output the bitonic sort costs O(log^2 S) compare-swaps a staged
-// sample, merge_sort O(log S) moves; both stay far below the up to K^2
-// compares of ranking each window by counting. Each kernel keeps the sort
-// that ran faster in it (benches/rank_split.py, the same kernels built
-// with the other sort, on an H100): in the steps merge_sort (805 against
-// 839 us on the 4-minute pass 1, 868 against 923 on median2d's fl 93,
-// both while its last pass still wrote merge_index's layout), in
-// the walk bitonic_sort (10.2 against 14.0 us on hop 32's K1 step, 9.3
-// against 13.6 on hop 1024's K2 step, where a block sorts 128-256 keys).
+// sample, a merge pass O(log S) moves; both stay far below the up to K^2
+// compares of ranking each window by counting. The walk keeps bitonic_sort
+// in shared memory (10.2 against 14.0 us for a merge sort on hop 32's K1
+// step, 9.3 against 13.6 on hop 1024's K2 step, where a block sorts
+// 128-256 keys, benches/rank_split.py on an H100). The steps sort with
+// warp_merge_sort: a warp sorts a slice of 256 keys in registers, 8 a
+// lane as doubles whose order is the keys' (sort_form: one DSETP a
+// compare, on the FP64 pipe, where a 64-bit integer compare takes two
+// ALU instructions), by a bitonic network in its flip form (no stage has
+// a direction of its own): 21 stages of compares and selects inside a
+// lane and 15 across lanes, one __shfl_xor_sync of a double a key; no
+// shared memory and no barrier. A slice goes back plainly through a
+// parked layout free of bank conflicts; past 256 keys the slices merge in
+// passes along their merge path (merge_passes: one at the 4-minute
+// track's 512 keys). Its K2 kernel caps its registers at 64 a thread
+// (launch bounds). It replaced merge_sort, the first design (runs of 8
+// sorted in registers, then log2(n / 8) merge passes, each a binary
+// search and 8 dependent shared loads a thread between two block
+// barriers: six at 512 keys). On an H100 80GB HBM3 at 700 W
+// (benches/rank_split.py on this tree and on the one before, in turns)
+// the track's pass 1 sorted in 316.86-319.38 against 424.75-428.10 us
+// (the kernel 686.78-691.90 against 728.91-734.40; its walk 286-288
+// against 223-225, at fewer blocks an SM) and median2d's fl 93 in
+// 294.72-297.38 against 353.33-357.22 (8 columns a block against 4; the
+// kernel 803.31-809.60 against 881.86-888.56). Tries that lost: min and
+// max as fmin and fmax, each with a compare of its own (842 us to sort
+// the track), 16 keys a lane (195 registers a thread), and 64-bit integer
+// compares (368.53 us).
 //
 // Two stores for the keys. The shared store sorts them in shared memory,
 // up to the 227 KB a block can opt into: 16,384 keys of 8 bytes, as a
@@ -299,22 +316,16 @@ __device__ __forceinline__ void sort_store(unsigned long long* keys, int n,
   }
 }
 
-// keys a thread sorts in registers, then merges a pass, in merge_sort
+// keys a thread merges a pass, in merge_passes
 constexpr int kMergeRun = 8;
 
-// where merge_sort's passes keep key r: a key's room of padding after every
+// where the merge passes keep key r: a key's room of padding after every
 // kMergeRun keys, so that the 32 lanes of a warp, kMergeRun keys apart,
 // reach 32 different banks (a plain stride of 64 bytes reaches 2)
 __host__ __device__ __forceinline__ int merge_index(int r) { return r + r / kMergeRun; }
 
-// the room merge_sort's layout takes for n keys
+// the room merge_index's layout takes for n keys
 __host__ __device__ __forceinline__ int merge_room(int n) { return merge_index(n); }
-
-__device__ __forceinline__ void compare_swap(unsigned long long& a, unsigned long long& b) {
-  const unsigned long long lo = a < b ? a : b;
-  b = a < b ? b : a;
-  a = lo;
-}
 
 // The kMergeRun outputs from e0 on of merging the sorted runs src[base,
 // base + len) and src[base + len, base + 2 len) (base: e0 rounded down to
@@ -358,80 +369,17 @@ __device__ __forceinline__ void merge_at(const unsigned long long* src, int e0, 
   }
 }
 
-// Batcher's odd-even merge network on kMergeRun keys (19 compare-swaps)
-__device__ __forceinline__ void sort_run(unsigned long long* v) {
-#define ZEN_CS(p, q) compare_swap(v[p], v[q])
-  ZEN_CS(0, 1); ZEN_CS(2, 3); ZEN_CS(4, 5); ZEN_CS(6, 7);
-  ZEN_CS(0, 2); ZEN_CS(1, 3); ZEN_CS(4, 6); ZEN_CS(5, 7);
-  ZEN_CS(1, 2); ZEN_CS(5, 6);
-  ZEN_CS(0, 4); ZEN_CS(1, 5); ZEN_CS(2, 6); ZEN_CS(3, 7);
-  ZEN_CS(2, 4); ZEN_CS(3, 5);
-  ZEN_CS(1, 2); ZEN_CS(3, 4); ZEN_CS(5, 6);
-#undef ZEN_CS
-}
-
-// Whether merge_sort needs its second buffer: where the `count` threads
-// take more than one run of kMergeRun keys each, a pass's outputs do not
-// fit their registers
-__host__ __device__ __forceinline__ bool merge_spare(int n, int count) {
-  return count * kMergeRun < n;
-}
-
-// Ascending sort of the n keys staged plainly in keys[0, n) (n a power of
-// two >= 32) by the `count` threads of a block, in buffers of
-// merge_room(n) keys: the passes keep merge_index's layout, the last one
-// writes the sorted keys plainly, key r at [r] (its stores conflict on
-// banks, but the walk's chunks of consecutive ranks then read as one
-// stretch: 729 against 804 us on the 4-minute pass 1 in K2, 882 against
-// 868 on median2d's fl 93 in K1, benches/rank_split.py on an H100).
-// A thread takes kMergeRun keys n / kMergeRun apart (consecutive threads
-// read consecutive keys), sorts them in registers (sort_run) and writes
-// them as one run; then
-// log2(n / kMergeRun) passes merge pairs of sorted runs, a thread
-// kMergeRun outputs a pass (merge_at). Where each thread takes at most one
-// run (merge_spare false) its outputs wait in registers for the pass's
-// reads to end and go back to `keys` (two syncs a pass, no second
-// buffer); otherwise a pass writes `spare`, merge_room(n) keys more, and
-// the two buffers swap. The caller syncs before; the last sync ends the
-// sort. Returns the buffer that holds the sorted keys: keys or spare.
-__device__ __forceinline__ unsigned long long* merge_sort(unsigned long long* keys,
-                                                          unsigned long long* spare, int n,
-                                                          int tid, int count) {
-  const int runs = n / kMergeRun;
+// The merge passes from sorted runs of `len` keys in src
+// (merge_index's layout) to one run of n, by the `count` threads of a
+// block, kMergeRun outputs a thread a pass (merge_at), src and dst
+// swapping each pass; the last pass writes plainly. The caller syncs
+// before; the last sync ends the sort. Returns the buffer that holds the
+// sorted keys.
+__device__ __forceinline__ unsigned long long* merge_passes(unsigned long long* src,
+                                                            unsigned long long* dst, int n,
+                                                            int len, int tid, int count) {
   unsigned long long v[kMergeRun];
-  if (!merge_spare(n, count)) {
-    const bool mine = tid < runs;
-    if (mine) {
-#pragma unroll
-      for (int u = 0; u < kMergeRun; ++u) v[u] = keys[tid + u * runs];
-      sort_run(v);
-    }
-    __syncthreads();
-    for (int len = kMergeRun;; len <<= 1) {
-      if (mine) {
-#pragma unroll
-        for (int u = 0; u < kMergeRun; ++u) {
-          const int e = tid * kMergeRun + u;
-          keys[len >= n ? e : merge_index(e)] = v[u];
-        }
-      }
-      __syncthreads();
-      if (len >= n) return keys;
-      if (mine) merge_at(keys, tid * kMergeRun, len, v);
-      __syncthreads();
-    }
-  }
-  for (int v0 = tid; v0 < runs; v0 += count) {
-#pragma unroll
-    for (int u = 0; u < kMergeRun; ++u) v[u] = keys[v0 + u * runs];
-    sort_run(v);
-#pragma unroll
-    for (int u = 0; u < kMergeRun; ++u) spare[merge_index(v0 * kMergeRun + u)] = v[u];
-  }
-  __syncthreads();
-  unsigned long long* src = spare;
-  unsigned long long* dst = keys;
-  for (int len = kMergeRun; len < n; len <<= 1) {
+  for (; len < n; len <<= 1) {
     for (int e0 = tid * kMergeRun; e0 < n; e0 += count * kMergeRun) {
       merge_at(src, e0, len, v);
 #pragma unroll
@@ -443,6 +391,217 @@ __device__ __forceinline__ unsigned long long* merge_sort(unsigned long long* ke
     dst = t;
   }
   return src;
+}
+
+// keys a lane of warp_merge_sort holds, and a warp's slice of keys
+constexpr int kLaneKeys = 8;
+constexpr int kWarpKeys = 32 * kLaneKeys;
+// staged positions below this bound ride in sort_form's 20 position bits:
+// every steps block's do, as its keys (8 bytes each) or its inverse ranks
+// (4 bytes a position) fit the 227 KB of shared memory a block may take
+constexpr int kSortPositions = 1 << 19;
+
+// A key as the double whose order is the key's: exponent 1 above a
+// mantissa of the key's 32 order bits and 20 position bits. It is a
+// normal double (no NaN, no subnormal), so a double compare (DSETP, the
+// FP64 pipe) orders two keys where the integer compare takes two ALU
+// instructions. Positions below kSortPositions keep their bits; the
+// padding's (all ones) becomes 2^20 - 1, above every staged position.
+__device__ __forceinline__ double sort_form(unsigned long long key) {
+  const unsigned int hi = static_cast<unsigned int>(key >> 32);
+  const unsigned int lo = static_cast<unsigned int>(key);
+  return __hiloint2double(static_cast<int>(0x00100000u | (hi >> 12)),
+                          static_cast<int>((hi << 20) | (lo & 0xFFFFFu)));
+}
+
+// the key of sort_form's double: 2^20 - 1 sign-extends back to the
+// padding's position, so kPadKey comes back whole
+__device__ __forceinline__ unsigned long long key_form(double d) {
+  const unsigned int hi = static_cast<unsigned int>(__double2hiint(d));
+  const unsigned int lo = static_cast<unsigned int>(__double2loint(d));
+  const unsigned int order = (hi << 12) | (lo >> 20);
+  const int pos = static_cast<int>(lo << 12) >> 12;
+  return (static_cast<unsigned long long>(order) << 32) | static_cast<unsigned int>(pos);
+}
+
+// One stage of the ascending bitonic sort of a warp's 32 R keys in the
+// flip form: element e = lane * R + j sits in slot j of `lane`; the
+// stride Size / 2 is the flip (e meets e ^ (Size - 1), the run's mirror
+// image), a smaller stride the half-cleaner (e meets e ^ Stride), and the
+// lower of the two keeps the smaller, so no stage has a direction of its
+// own. A partner inside the lane (Stride < R) is one compare and four
+// selects on two registers; from R up it is lane ^ (Size - 1) / R (flip,
+// mirrored slot R - 1 - j) or lane ^ Stride / R (same slot), one
+// __shfl_xor_sync of a double a slot, one compare and two selects: the
+// lower lane keeps the partner's key where it is the smaller.
+template <int R, int Size, int Stride>
+__device__ __forceinline__ void key_stage(double (&v)[R], int lane) {
+  constexpr bool kFlip = Stride == Size / 2;
+  if constexpr (Stride >= R) {
+    constexpr int kLanes = (kFlip ? Size - 1 : Stride) / R;
+    const bool low = (lane & (Stride / R)) == 0;
+#pragma unroll
+    for (int j = 0; j < (kFlip ? R / 2 : R); ++j) {
+      const double a = __shfl_xor_sync(0xffffffffu, v[kFlip ? R - 1 - j : j], kLanes);
+      if constexpr (kFlip) {
+        const double b = __shfl_xor_sync(0xffffffffu, v[j], kLanes);
+        v[R - 1 - j] = (b < v[R - 1 - j]) == low ? b : v[R - 1 - j];
+      }
+      v[j] = (a < v[j]) == low ? a : v[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int p = kFlip ? (j ^ (Size - 1)) : (j ^ Stride);
+      if (j < p) {
+        const bool swap = v[p] < v[j];
+        const double lo = swap ? v[p] : v[j];
+        v[p] = swap ? v[j] : v[p];
+        v[j] = lo;
+      }
+    }
+  }
+}
+
+template <int R, int Size = 2, int Stride = 1>
+__device__ __forceinline__ void key_bitonic(double (&v)[R], int lane) {
+  key_stage<R, Size, Stride>(v, lane);
+  if constexpr (Stride > 1) {
+    key_bitonic<R, Size, Stride / 2>(v, lane);
+  } else if constexpr (Size < 32 * R) {
+    key_bitonic<R, Size * 2, Size>(v, lane);
+  }
+}
+
+// One warp loads keys[0, n) (n a power of two, 32 <= n <= kWarpKeys), key
+// e = j * 32 + lane into slot j (consecutive lanes on consecutive keys: no
+// bank conflict; slots past n read kPadKey), and sorts them in registers:
+// lane `lane` ends with sorted elements lane * kLaneKeys .. + kLaneKeys - 1.
+__device__ __forceinline__ void warp_load_sort(const unsigned long long* keys, int n, int lane,
+                                               double (&v)[kLaneKeys]) {
+#pragma unroll
+  for (int j = 0; j < kLaneKeys; ++j) {
+    const int e = j * 32 + lane;
+    v[j] = sort_form(e < n ? keys[e] : kPadKey);
+  }
+  key_bitonic<kLaneKeys>(v, lane);
+}
+
+// where warp_store_plain parks element j of lane q's run: its slot turned
+// by bits 1-3 of q, so that 16 lanes writing their slot j, and 16 lanes
+// reading 16 consecutive elements, each reach 16 distinct 8-byte bank pairs
+__device__ __forceinline__ int parked(int q, int j) {
+  return q * kLaneKeys + (j ^ ((q >> 1) & (kLaneKeys - 1)));
+}
+
+// The sorted registers of warp_load_sort back into keys[0, n), key r at
+// [r], in place: each lane parks its run (parked), then reads the keys
+// j * 32 + lane and writes them plainly, so no access conflicts on banks
+// (a lane writing its 8 consecutive keys would: 16 lanes 64 bytes apart
+// reach two bank pairs). A lane's run is all padding or all below n (n is
+// a multiple of kLaneKeys).
+__device__ __forceinline__ void warp_store_plain(unsigned long long* keys, int n, int lane,
+                                                 const double (&v)[kLaneKeys]) {
+  __syncwarp();
+  if (lane * kLaneKeys < n) {
+#pragma unroll
+    for (int j = 0; j < kLaneKeys; ++j) keys[parked(lane, j)] = key_form(v[j]);
+  }
+  __syncwarp();
+  unsigned long long w[kLaneKeys];
+#pragma unroll
+  for (int j = 0; j < kLaneKeys; ++j) {
+    const int e = j * 32 + lane;
+    if (e < n) w[j] = keys[parked(e / kLaneKeys, e % kLaneKeys)];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kLaneKeys; ++j) {
+    const int e = j * 32 + lane;
+    if (e < n) keys[e] = w[j];
+  }
+}
+
+// Whether a steps block sorting n keys by `count` threads needs a second
+// buffer of merge_room(n) keys: past one warp's kWarpKeys, where a
+// thread merges more than one run of kMergeRun keys, a pass's outputs do
+// not fit its registers
+__host__ __device__ __forceinline__ bool sort_spare(int n, int count) {
+  return n > kWarpKeys && count * kMergeRun < n;
+}
+
+// Ascending sort of `cols` buffers of n keys each (buffer g at keys + g *
+// stride, its second buffer at + room; n a power of two >= 32), staged
+// plainly, by a block's `threads` threads (a multiple of 32), the buffer
+// g's `threads` / cols of them taking buffer g (tid = g * group + gid):
+// the same arrays any ascending sort leaves (keys are distinct but for
+// the padding). Slices of kWarpKeys keys are sorted in registers, a warp a
+// slice (warp_load_sort): up to kWarpKeys a buffer is one slice, stored
+// back plainly in place by a warp of the block; past it, where the
+// buffer's threads take one merge run each (no sort_spare), its warps
+// sort its slices in place in merge_index's layout and merge them in
+// registers, else the block's warps sort every slice into the buffers'
+// second buffers for merge_passes. No shared memory and
+// no barrier inside a slice's sort. The caller syncs before; the last
+// sync ends the sort. Returns where buffer g's sorted keys are.
+__device__ __forceinline__ unsigned long long* warp_merge_sort(unsigned long long* keys,
+                                                               int stride, int room, int cols,
+                                                               int n, int tid, int threads) {
+  const int lane = tid & 31;
+  const int warps = threads >> 5;
+  const int group = threads / cols;
+  const int g = tid / group;
+  const int gid = tid - g * group;
+  unsigned long long* buf = keys + g * stride;
+  double v[kLaneKeys];
+  if (n <= kWarpKeys) {
+    for (int q = tid >> 5; q < cols; q += warps) {
+      warp_load_sort(keys + q * stride, n, lane, v);
+      warp_store_plain(keys + q * stride, n, lane, v);
+    }
+    __syncthreads();
+    return buf;
+  }
+  const int per = n / kWarpKeys;
+  if (!sort_spare(n, group)) {
+    // group >= n / kMergeRun: whole warps, at least one a slice
+    const int s = gid >> 5;
+    if (s < per) warp_load_sort(buf + s * kWarpKeys, kWarpKeys, lane, v);
+    __syncthreads();
+    if (s < per) {
+#pragma unroll
+      for (int j = 0; j < kLaneKeys; ++j) {
+        buf[merge_index(s * kWarpKeys + lane * kLaneKeys + j)] = key_form(v[j]);
+      }
+    }
+    __syncthreads();
+    const bool mine = gid < n / kMergeRun;
+    unsigned long long out[kMergeRun];
+    for (int len = kWarpKeys; len < n; len <<= 1) {
+      if (mine) merge_at(buf, gid * kMergeRun, len, out);
+      __syncthreads();
+      if (mine) {
+#pragma unroll
+        for (int u = 0; u < kMergeRun; ++u) {
+          const int e = gid * kMergeRun + u;
+          buf[2 * len >= n ? e : merge_index(e)] = out[u];
+        }
+      }
+      __syncthreads();
+    }
+    return buf;
+  }
+  for (int q = tid >> 5; q < cols * per; q += warps) {
+    unsigned long long* b = keys + (q / per) * stride;
+    const int base = (q % per) * kWarpKeys;
+    warp_load_sort(b + base, kWarpKeys, lane, v);
+#pragma unroll
+    for (int j = 0; j < kLaneKeys; ++j) {
+      b[room + merge_index(base + lane * kLaneKeys + j)] = key_form(v[j]);
+    }
+  }
+  __syncthreads();
+  return merge_passes(buf + room, buf, n, kWarpKeys, gid, group);
 }
 
 __host__ __device__ __forceinline__ int pow2_at_least(int n) {

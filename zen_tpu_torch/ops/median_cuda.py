@@ -95,7 +95,14 @@ from .select_network import core_medians_plain, core_program, core_shape_id, cor
 # Shared memory a block can opt into on Hopper (227 KB).
 SMEM_OPTIN = 232_448
 KEY_BYTES = 8  # a (value, position) key of the rank routes
-MERGE_RUN = 8  # keys a thread sorts in registers in the steps' merge sort (kMergeRun)
+MERGE_RUN = 8  # keys a thread merges a pass in the steps' merge passes (kMergeRun)
+# The rank steps' sort (csrc/rank_select.cuh, warp_merge_sort): each warp
+# sorts a slice of up to WARP_SORT_KEYS keys in registers and shuffles
+# (WARP_LANE_KEYS a lane), merge passes joining the slices past it; its K2
+# kernel takes at most WARP_STEPS_THREADS threads.
+WARP_LANE_KEYS = 8
+WARP_SORT_KEYS = 32 * WARP_LANE_KEYS
+WARP_STEPS_THREADS = 256
 # K2's key store past shared memory (csrc/rank_select.cuh): a block whose
 # keys do not fit SMEM_OPTIN sorts them in its slice of a device-memory
 # scratch, RANK_STORE_CHUNK keys (128 KB) at a time in shared memory, so
@@ -143,16 +150,22 @@ SELECT_SHARED_BINS_THREADS = 1024
 # thread: the bins' sums and the barrier) and SELECT_SAMPLE_US a staged
 # sample a thread. A sort block: SORT_SWAP_US a compare-swap a thread (n/2
 # log2 n (log2 n + 1)/2 over its n keys) where each output walks from rank
-# 0, SORT_MERGE_US a key a merge pass a thread where the steps merge-sort,
-# SORT_WALK_US a rank of the walk (S/2 of S staged) and SORT_STEP_US a
-# step of each next output of a run, in shared memory; STORE_SWAP_US and
+# 0; where the steps sort, SORT_WARP_US a key a lane holds a stage of a
+# warp's slice and SORT_MERGE_US a key a merge pass a thread past a slice;
+# SORT_WALK_US a rank of the walk (S/2 of S staged), SORT_STEP_US a
+# step of each next output of a run and, with steps, SORT_STAGE_US a
+# staged sample a thread, in shared memory; STORE_SWAP_US and
 # STORE_WALK_US on K2's store. Blocks share an SM up to SM_BLOCKS and its
 # threads and shared memory, and past SM_FULL_RATE_THREADS threads at once
 # they share its issue. The select constants are fitted to chip_smoke.py
 # phase 3's select lines on an H100 (PERF.md: the one-wave rows' times,
 # where a block runs alone on its SM), the sort's to
 # benches/rank_geometry.py's sweeps of every rank geometry of the paths'
-# rows (least squares on the log times).
+# rows (least squares on the log times; SORT_WARP_US, SORT_STAGE_US and
+# SM_FULL_RATE_THREADS refit to its 1,828 geometries on an H100 80GB HBM3
+# at 700 W, so that the rule picks the fastest measured on the 4-minute
+# track's pass 1, the clip's, pitch-track's K2, median2d's fl 93 and fl
+# 187 and the streams' latency rows).
 H100_SMS = 132
 SM_SHARED_BYTES = 233_472  # an SM's shared memory; a block reserves 1 KB more
 LAUNCH_US = 5.0
@@ -164,7 +177,9 @@ SORT_SWAP_US = 0.05
 SORT_WALK_US = 0.036
 SORT_STEP_US = 0.2
 SORT_MERGE_US = 0.13
-SM_FULL_RATE_THREADS = 768
+SORT_STAGE_US = 0.2
+SORT_WARP_US = 0.004
+SM_FULL_RATE_THREADS = 896
 SM_BLOCKS = 32
 STORE_SWAP_US = 0.19
 STORE_WALK_US = 0.02
@@ -258,10 +273,11 @@ def _merge_room(key_bytes: int) -> int:
     return key_bytes + key_bytes // MERGE_RUN
 
 
-def _merge_rooms(n: int, threads: int) -> int:
-    """merge_sort's buffers for ``n`` keys and ``threads`` threads: one,
-    and a second where a thread merges more than one run (merge_spare)."""
-    return 2 if threads * MERGE_RUN < n else 1
+def _sort_rooms(n: int, threads: int) -> int:
+    """The steps sort's buffers for ``n`` keys and ``threads`` threads
+    (sort_spare): one, and a second past one warp's slice where a thread
+    merges more than one run."""
+    return 2 if n > WARP_SORT_KEYS and threads * MERGE_RUN < n else 1
 
 
 def _check_k(k: int, limit: int, bound: str) -> None:
@@ -609,13 +625,13 @@ def time_rank_bytes(offsets: tuple, run: int, lane_run: int, cols: int = 1) -> i
     """Shared memory a block of K1's rank route needs for ``run`` output
     rows, as launch_rank reckons it: the keys (``time_rank_keys``) or,
     with steps (``lane_run`` > 1) over ``cols`` columns, for each column
-    merge_sort's buffers (``_merge_room``, ``_merge_rooms``) and the rank
+    the sort's buffers (``_merge_room``, ``_sort_rooms``) and the rank
     of each relative row (span + run - 1 ints), then the unit's run x
     cols medians; the table goes beside them where it also fits."""
     keys = time_rank_keys(offsets, run)
     if lane_run == 1:
         return keys
-    rooms = _merge_rooms(keys // KEY_BYTES, TIME_RANK_THREADS // cols)
+    rooms = _sort_rooms(keys // KEY_BYTES, TIME_RANK_THREADS // cols)
     column = rooms * _merge_room(keys) + 4 * (time_rank_table(offsets)[1] + run - 1)
     return cols * column + 4 * run * cols
 
@@ -730,6 +746,17 @@ def select_us(units: int, outputs: int, staged: int, threads: int, sms: int) -> 
     return LAUNCH_US + _waves(units, sms, per_sm) * block
 
 
+def _warp_sort_us(n: int, buffers: int, warps: int) -> float:
+    """The cost rule's µs for warp_merge_sort's slices of ``buffers``
+    buffers of ``n`` keys by a block's ``warps`` warps: each slice's
+    bitonic stages over its lanes' WARP_LANE_KEYS keys (a slice of
+    WARP_SORT_KEYS, padding included), SORT_WARP_US a key a lane a stage,
+    the slices spread over the warps."""
+    lg = WARP_SORT_KEYS.bit_length() - 1
+    slices = buffers * max(1, n // WARP_SORT_KEYS)
+    return -(-slices // warps) * SORT_WARP_US * WARP_LANE_KEYS * (lg * (lg + 1) // 2)
+
+
 def sort_us(units: int, staged: int, threads: int, smem: int, sms: int,
             store: bool = False, run: int = 1, step: float = 0.0, width: int = 1) -> float:
     """The cost rule's µs for a rank-route launch of ``units`` blocks of
@@ -749,11 +776,16 @@ def sort_us(units: int, staged: int, threads: int, smem: int, sms: int,
         return LAUNCH_US + _waves(units, sms, 1) * block
     threads *= width
     per_sm = min(2048 // threads, SM_BLOCKS, SM_SHARED_BYTES // (smem + 1024))
-    # the steps sort by merging (merge_sort): a pass over the keys for each
-    # doubling from MERGE_RUN, and one for the runs sorted in registers
-    sort = (SORT_MERGE_US * n * (lg - MERGE_RUN.bit_length() + 2) if run > 1
-            else SORT_SWAP_US * swaps)
-    block = sort * width / threads + SORT_WALK_US * staged / 2 + SORT_STEP_US * (run - 1) * step
+    if run == 1:
+        sort_block = SORT_SWAP_US * swaps * width / threads
+    else:
+        # warp_merge_sort: the slices, then a merge pass for each doubling past one
+        passes = max(0, lg - WARP_SORT_KEYS.bit_length() + 1)
+        sort_block = (_warp_sort_us(n, width, threads // 32)
+                      + SORT_MERGE_US * n * passes * width / threads)
+    block = sort_block + SORT_WALK_US * staged / 2 + SORT_STEP_US * (run - 1) * step
+    if run > 1:
+        block += SORT_STAGE_US * staged / threads
     together = min(per_sm, -(-units // sms))
     return LAUNCH_US + _waves(units, sms, per_sm) * block * max(
         1.0, together * threads / SM_FULL_RATE_THREADS)
@@ -1140,7 +1172,7 @@ def freq_rank_tile(k: int):
 def freq_rank_bytes(k: int, tile: int, run: int) -> int:
     """Shared memory a block of K2's rank route takes for ``tile`` outputs
     of width ``k``, as launch_rank reckons it: the keys or, with steps
-    (``run`` > 1), merge_sort's buffers (``_merge_room``, ``_merge_rooms``),
+    (``run`` > 1), the sort's buffers (``_merge_room``, ``_sort_rooms``),
     the rank of each staged position, the tile's medians, the count below
     the middle rank before each position and the scan's 32 warp sums, 4
     bytes each."""
@@ -1148,22 +1180,25 @@ def freq_rank_bytes(k: int, tile: int, run: int) -> int:
     n = _key_count(seg)
     if run == 1:
         return KEY_BYTES * n
-    return (_merge_rooms(n, freq_rank_threads(k, tile, run)) * _merge_room(KEY_BYTES * n)
+    return (_sort_rooms(n, freq_rank_threads(k, tile, run)) * _merge_room(KEY_BYTES * n)
             + 4 * (seg + tile + seg + 1 + 32))
 
 
 def freq_steps_threads(n: int) -> int:
-    """Threads of a K2 block with steps over ``n`` keys: one for each
-    MERGE_RUN keys (merge_sort's runs), from 32 to 256."""
+    """The fewest threads of a K2 block with steps over ``n`` keys: one
+    for each MERGE_RUN keys (a merge pass's run, and so a warp for each of
+    warp_merge_sort's slices), from 32 to 256."""
     return min(256, max(32, n // MERGE_RUN))
 
 
 def freq_rank_threads(k: int, tile: int, run: int) -> int:
     """Threads of a block of K2's rank route at width ``k``, ``tile``
     outputs and ``run`` outputs a walking thread: one an output where
-    each walks from rank 0 (``run`` 1), else ``freq_steps_threads`` of its
-    key count."""
-    return tile if run == 1 else freq_steps_threads(_key_count(tile + k - 1))
+    each walks from rank 0 (``run`` 1), else whole warps for the tile /
+    run walkers, and at least ``freq_steps_threads`` of its key count."""
+    if run == 1:
+        return tile
+    return max(32 * -(-(tile // run) // 32), freq_steps_threads(_key_count(tile + k - 1)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -1171,29 +1206,32 @@ def freq_rank_plan(k: int, rows: int, f_in: int, mode: str, sms: int = H100_SMS)
     """(tile, run) of K2's rank route in shared memory for
     ``rows`` rows of ``f_in`` samples: of the walk from rank 0 for every
     output (run 1, a thread an output, ``freq_rank_tile``'s tile) and the
-    steps (for each key count n, ``freq_steps_threads(n)`` threads stage
-    and sort, and up to as many walk a run of RANK_LANE_RUNS outputs each,
-    as many as n - k + 1 staged outputs allow), among those whose
-    ``freq_rank_bytes`` fit SMEM_OPTIN and whose tiles number at most
-    65,535 a row, the one ``sort_us`` prices lowest; None where none fits
-    (the key store's K)."""
+    steps (for each key count n and run of RANK_LANE_RUNS outputs a
+    walking thread, the walkers ``_freq_rank_geometries`` allows), among
+    those whose ``freq_rank_bytes`` fit SMEM_OPTIN and whose tiles number
+    at most 65,535 a row, the one ``sort_us`` prices lowest; None where
+    none fits (the key store's K)."""
     best = _freq_rank_plans(k, rows, f_in, mode, sms)
     return min(best)[1:] if best else None
 
 
 def _freq_rank_geometries(k: int) -> list:
     """[(tile, run)] of K2's rank route at width ``k`` whose
-    ``freq_rank_bytes`` fit SMEM_OPTIN (``freq_rank_plan``)."""
+    ``freq_rank_bytes`` fit SMEM_OPTIN (``freq_rank_plan``): for each key
+    count n and run, as many walking threads as n - k + 1 staged outputs
+    allow up to WARP_STEPS_THREADS, and that many rounded down to whole
+    warps."""
     walk = freq_rank_tile(k)
     out = [(walk, 1)] if walk else []
     n = _pow2_at_least(k + 31)
     while n - k + 1 >= 32:
-        walkers = freq_steps_threads(n)
         for run in RANK_LANE_RUNS[1:]:
-            tile = min(walkers, (n - k + 1) // run) * run
-            if (tile and _key_count(tile + k - 1) == n
-                    and freq_rank_bytes(k, tile, run) <= SMEM_OPTIN):
-                out.append((tile, run))
+            walkers = min(WARP_STEPS_THREADS, (n - k + 1) // run)
+            for count in sorted({walkers, walkers // 32 * 32 or walkers}):
+                tile = count * run
+                if (tile and _key_count(tile + k - 1) == n
+                        and freq_rank_bytes(k, tile, run) <= SMEM_OPTIN):
+                    out.append((tile, run))
         n *= 2
         if KEY_BYTES * n > SMEM_OPTIN:
             break
