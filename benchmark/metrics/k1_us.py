@@ -1,0 +1,6 @@
+"""µs a unit between the CUDA events that bound the program's span ``zen.k1``
+(the time-direction median), from the traced slice (``benchmark/spans.py``);
+a track's two passes together."""
+from benchmark.spans import span_us
+
+read = span_us("zen.k1")

@@ -1603,3 +1603,105 @@ def test_median2d_plain_refuses_cuda_tensors(cuda_device):
 
     with pytest.raises(ZenError, match="CPU tensors"):
         median2d_plain(torch.ones(4, 5, device=cuda_device), 3, "frequency", "wrap")
+
+
+def test_step_spans_cover_the_profiler_busy_time(cuda_device):
+    """The event times a profiler other than ``profiling.trace()`` gets,
+    where they read the device's time: an 8192-stream, 16-hop fleet step,
+    four steps enqueued behind a spin under torch.profiler. Every phase
+    span has a device time, and the leaves' event times sum to within 3%
+    of the union of the device operations the profiler saw for the same
+    calls (the spin aside) and of their extent. An event interval holds
+    every wait of the card on the host and every gap between two kernels,
+    so it reads the device time only where the host stays ahead of a card
+    that runs long kernels, as the spin and this size make it. At 64
+    streams, kernels of a few µs with gaps between them, the events read
+    far above the busy time: there the kernel records of
+    ``test_traced_step_spans_hold_the_busy_time_at_64_streams`` hold."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zen_tpu_torch.engine.config import OUTPUT_PERCUSSIVE
+    from zen_tpu_torch.runtime import profiling
+
+    steps, spin_ms, streams = 4, 200.0, 8192
+    ms = MultiStreamHPR(streams, 44100.0, 256, outputs=OUTPUT_PERCUSSIVE, device=cuda_device)
+    ms.warmup((16,))
+    blocks = torch.randn(streams, 16, 256, generator=torch.Generator().manual_seed(5))
+    blocks = blocks.to(cuda_device)
+    cycles = int(spin_ms * profiling._spin_cycles_per_ms(cuda_device))
+    torch.cuda.synchronize()
+    profiling.drain_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(cycles)
+        spin_end = torch.cuda.Event()
+        spin_end.record()
+        for _ in range(steps):
+            ms.process_block(blocks)
+        covered = not spin_end.query()
+        torch.cuda.synchronize()
+    assert covered, "the spin ended before the steps were enqueued"
+    totals = profiling.drain_spans()
+    leaves = ("zen.frame", "zen.analyze", "zen.k1", "zen.k2", "zen.mask", "zen.synth",
+              "zen.ola", "zen.advance")
+    assert set(totals) == {"zen.step", *leaves}
+    assert all(t["calls"] == steps and t["device_s"] > 0 for t in totals.values())
+    ops = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation and "sleep" not in e.name.lower()
+                 and "spin" not in e.name.lower())
+    busy, hi = 0.0, float("-inf")
+    for a, b in ops:  # the union of the intervals, in µs
+        if b > hi:
+            busy += b - max(a, hi)
+            hi = b
+    extent = ops[-1][1] - ops[0][0]
+    leaf_us = sum(totals[n]["device_s"] for n in leaves) * 1e6
+    step_us = totals["zen.step"]["device_s"] * 1e6
+    detail = {n: round(totals[n]["device_s"] * 1e6 / steps, 2) for n in totals}
+    assert abs(leaf_us / busy - 1) < 0.03, (leaf_us, busy, extent, step_us, detail)
+    assert abs(leaf_us / extent - 1) < 0.03, (leaf_us, busy, extent, step_us, detail)
+    assert leaf_us <= step_us * 1.001, (leaf_us, step_us)
+
+
+def test_traced_step_spans_hold_the_busy_time_at_64_streams(cuda_device, tmp_path):
+    """A 64-stream, 16-hop fleet step, four steps under
+    ``profiling.trace()``: the leaves' device µs in ``spans.json``, the
+    profiler's kernel records grouped by the span that launched them, sum
+    to within 3% of the union of the device operations the profiler saw
+    for the same calls, and the step holds its leaves. At this size the
+    card waits on the host between kernels; those waits are not counted."""
+    import json
+
+    from zen_tpu_torch.drivers.realtime import block_step, init_state
+    from zen_tpu_torch.engine.config import OUTPUT_PERCUSSIVE
+    from zen_tpu_torch.runtime import profiling
+
+    steps, streams = 4, 64
+    cfg = MultiStreamHPR(streams, 44100.0, 256, outputs=OUTPUT_PERCUSSIVE,
+                         device=cuda_device).cfg
+    state = init_state(cfg, streams, cuda_device)
+    blocks = torch.randn(streams, 16, 256, generator=torch.Generator().manual_seed(5))
+    blocks = blocks.to(cuda_device)
+    block_step(cfg, state, blocks)  # builds the kernels and the FFT plans
+    torch.cuda.synchronize()
+    with profiling.trace(tmp_path) as prof:
+        for _ in range(steps):
+            block_step(cfg, state, blocks)
+    spans = json.loads((tmp_path / "spans.json").read_text())
+    leaves = ("zen.frame", "zen.analyze", "zen.k1", "zen.k2", "zen.mask", "zen.synth",
+              "zen.ola", "zen.advance")
+    assert set(spans) == {"zen.step", *leaves}
+    assert all(t["calls"] == steps and t["device_us"] > 0 for t in spans.values()), spans
+    ops = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation)
+    busy, hi = 0.0, float("-inf")
+    for a, b in ops:  # the union of the intervals, in µs
+        if b > hi:
+            busy += b - max(a, hi)
+            hi = b
+    leaf_us = sum(spans[n]["device_us"] for n in leaves)
+    step_us = spans["zen.step"]["device_us"]
+    detail = {n: round(spans[n]["device_us"] / steps, 2) for n in spans}
+    assert abs(leaf_us / busy - 1) < 0.03, (leaf_us, busy, step_us, detail)
+    assert leaf_us <= step_us * 1.001, (leaf_us, step_us)

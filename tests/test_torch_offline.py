@@ -95,11 +95,14 @@ def test_filter_features_and_masks_bitwise(fs, hop):
     rng = np.random.default_rng(3)
     mag = rng.random((2, 23, tsp.num_bins(tc)), dtype=np.float32)
     jh, jp = jsp.filter_features(jnp.asarray(mag), jc)
-    th, tp = tsp.filter_features(torch.from_numpy(mag), tc)
+    # the steps frame_masks composes
+    feats = tsp.feature_transform(torch.from_numpy(mag), tc)
+    h, p = tsp.time_filtered(feats, tc), tsp.freq_filtered(feats, tc)
+    th, tp = tsp.finalize_features(h, p, tc)
     np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     want = jsp.compute_masks(jh, jp, jc)
-    got = tsp.compute_masks(th, tp, tc)
+    got = tsp.feature_masks(h, p, tc)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 

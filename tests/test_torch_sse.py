@@ -156,10 +156,13 @@ def test_filter_features_and_masks_bitwise():
         mag = np.random.default_rng(3).random((2, 23, tsp.num_bins(tc)), dtype=np.float32)
         mag[0, 4, :5] = 0.0
         jh, jp = jsp.filter_features(jnp.asarray(mag), jc)
-        th, tp = tsp.filter_features(torch.from_numpy(mag), tc)
+        # the steps frame_masks composes
+        feats = tsp.feature_transform(torch.from_numpy(mag), tc)
+        h, p = tsp.time_filtered(feats, tc), tsp.freq_filtered(feats, tc)
+        th, tp = tsp.finalize_features(h, p, tc)
         np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
         np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
-        for g, w in zip(tsp.compute_masks(th, tp, tc), jsp.compute_masks(jh, jp, jc)):
+        for g, w in zip(tsp.feature_masks(h, p, tc), jsp.compute_masks(jh, jp, jc)):
             if w is None:
                 assert g is None
             else:

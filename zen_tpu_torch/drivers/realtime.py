@@ -14,7 +14,8 @@ carried explicitly, with a leading stream dim C:
 ``block_step`` processes B hops of C streams per call and updates the
 state tensors IN PLACE, where the JAX step donates its state buffers:
 the state is allocated once (``init_state``) and never reallocated.
-B = 1 gives exact per-hop streaming.
+B = 1 gives exact per-hop streaming. A step opens the span ``zen.step``
+over its phases (``runtime/profiling.py``).
 """
 from __future__ import annotations
 
@@ -28,10 +29,8 @@ import torch
 from ..engine.config import OUTPUT_ALL, HPRConfig
 from ..engine.spectral import (
     STEMS,
-    analyze,
-    compute_masks,
-    feature_transform,
-    finalize_features,
+    analyze_features,
+    feature_masks,
     freq_filtered,
     num_bins,
     prefill_value,
@@ -40,6 +39,7 @@ from ..engine.spectral import (
 )
 from ..device import resolve_device
 from ..errors import ZenError
+from ..runtime.profiling import span
 
 
 class StreamState(NamedTuple):
@@ -110,36 +110,36 @@ def step_masks(
     if not cfg.causal:
         raise ZenError("streaming drivers are causal-only")
     c, b, hop = blocks.shape
-    # frames i = samples[(i+1)*hop : (i+3)*hop] over ring ++ block
-    samples = torch.cat([state.ring, blocks.reshape(c, b * hop)], dim=1)
-    hops = samples.view(c, b + 2, hop)
-    frames = torch.cat([hops[:, 1 : b + 1], hops[:, 2:]], dim=-1)
+    with span("zen.frame", blocks):
+        # frames i = samples[(i+1)*hop : (i+3)*hop] over ring ++ block
+        samples = torch.cat([state.ring, blocks.reshape(c, b * hop)], dim=1)
+        hops = samples.view(c, b + 2, hop)
+        frames = torch.cat([hops[:, 1 : b + 1], hops[:, 2:]], dim=-1)
 
-    s = analyze(frames, cfg)  # [C, B, bins]
-    # stream_state='bf16' carries the history in half precision; the
-    # fresh features are quantized to match, so every tap of both
-    # filters sees one precision. The medians run on that dtype and
-    # return float32 (time) or are cast to it (frequency); the SSE means
-    # sum float32 taps (zen_tpu/drivers/realtime.py:153). Masks and
-    # synthesis are float32 either way.
-    feat = feature_transform(s.abs(), cfg).to(state.feat_hist.dtype)
+    # spectra [C, B, bins]. stream_state='bf16' carries the history in
+    # half precision; the fresh features are quantized to match, so every
+    # tap of both filters sees one precision. The medians run on that
+    # dtype and return float32; the SSE means sum float32 taps
+    # (zen_tpu/drivers/realtime.py:153). Masks and synthesis are float32
+    # either way.
+    s, feat = analyze_features(frames, cfg, state.feat_hist.dtype)
     h_rows = time_filtered_tail_pair(state.feat_hist, feat, cfg)
-    p_rows = freq_filtered(feat.float() if cfg.use_sse else feat, cfg).float()
-    h_rows, p_rows = finalize_features(h_rows, p_rows, cfg)
-    pm, hm, rm = compute_masks(h_rows, p_rows, cfg)
+    p_rows = freq_filtered(feat, cfg)
+    pm, hm, rm = feature_masks(h_rows, p_rows, cfg)
     return StepSpectra(samples, s, feat, (hm, pm, rm))
 
 
 def advance_state(cfg: HPRConfig, state: StreamState, step: StepSpectra) -> None:
     """Move the input ring and the feature history past the step's
     block, in place. The next history is the fresh rows' tail when
-    B >= H and concat(hist, fresh)[-H:] when B < H."""
+    B >= H and concat(hist, fresh)[-H:] when B < H. Span ``zen.advance``."""
     b, h_len = step.feat.shape[1], cfg.time_history
-    if b >= h_len:
-        state.feat_hist.copy_(step.feat[:, b - h_len :])
-    else:
-        state.feat_hist.copy_(torch.cat([state.feat_hist[:, b:], step.feat], dim=1))
-    state.ring.copy_(step.samples[:, -cfg.nwin :])
+    with span("zen.advance", state.ring):
+        if b >= h_len:
+            state.feat_hist.copy_(step.feat[:, b - h_len :])
+        else:
+            state.feat_hist.copy_(torch.cat([state.feat_hist[:, b:], step.feat], dim=1))
+        state.ring.copy_(step.samples[:, -cfg.nwin :])
 
 
 def block_step(
@@ -158,30 +158,34 @@ def block_step(
     (``step_masks``); ``advance_state`` carries both history updates.
     """
     c, b, hop = blocks.shape
-    step = step_masks(cfg, state, blocks)
+    with span("zen.step", blocks):
+        step = step_masks(cfg, state, blocks)
 
-    # only enabled stems are synthesized and emitted (compact rows); the
-    # enabled stems with a mask go through one batched inverse
-    masks = step.masks
-    en = enabled_stems(cfg)
-    live = [i for i in en if masks[i] is not None]
-    if live:
-        live_masks = torch.stack([masks[i] for i in live], dim=1)
-        y = synthesize(step.spectra.unsqueeze(1), live_masks, cfg)  # [C, L, B, nwin]
-        tails = _rows(tuple(live), blocks.device)
-        prev_tails = torch.cat(
-            [state.ola_tail[:, tails, None], y[:, :, :-1, hop:]], dim=2
-        )
-        chunk = (y[..., :hop] + prev_tails).reshape(c, len(live), b * hop)
-        state.ola_tail[:, tails] = y[:, :, -1, hop:]
-    if live and len(live) == len(en):
-        outs = chunk
-    else:  # enabled residual under soft or SSE masks: a zero row
-        outs = torch.zeros((c, len(en), b * hop), device=blocks.device)
+        # only enabled stems are synthesized and emitted (compact rows);
+        # the enabled stems with a mask go through one batched inverse
+        masks = step.masks
+        en = enabled_stems(cfg)
+        live = [i for i in en if masks[i] is not None]
         if live:
-            outs[:, _rows(tuple(en.index(i) for i in live), blocks.device)] = chunk
+            with span("zen.synth", blocks):
+                live_masks = torch.stack([masks[i] for i in live], dim=1)
+                y = synthesize(step.spectra.unsqueeze(1), live_masks, cfg)  # [C, L, B, nwin]
+        with span("zen.ola", blocks):
+            if live:
+                tails = _rows(tuple(live), blocks.device)
+                prev_tails = torch.cat(
+                    [state.ola_tail[:, tails, None], y[:, :, :-1, hop:]], dim=2
+                )
+                chunk = (y[..., :hop] + prev_tails).reshape(c, len(live), b * hop)
+                state.ola_tail[:, tails] = y[:, :, -1, hop:]
+            if live and len(live) == len(en):
+                outs = chunk
+            else:  # enabled residual under soft or SSE masks: a zero row
+                outs = torch.zeros((c, len(en), b * hop), device=blocks.device)
+                if live:
+                    outs[:, _rows(tuple(en.index(i) for i in live), blocks.device)] = chunk
 
-    advance_state(cfg, state, step)
+        advance_state(cfg, state, step)
     return outs
 
 
