@@ -150,6 +150,13 @@ entry points at full width:
            twins, kthvalue and the bound, every K1 register case in both
            forms (per-output network, shared core), and what NaN gives on
            each route;
+  phase 32 the mask-and-apply kernel (zen_tpu_torch/ops/mask_cuda.py)
+           at the fleet's step (81,920 streams x 16 hops x 513 bins, the
+           percussive stem) and the 4-minute track's two passes ([2585,
+           8193], three stems; [41355, 513], percussive and residual):
+           bitwise to the ATen chain the engine ran before (compute_masks,
+           the stack, S x mask), the kernel's device time beside that
+           chain's and the bound, one launch a step or a pass;
 
 and holds the outputs against the same port run on the CPU (plain
 twins, CPU FFT), offline pass by pass, and the blocked offline driver
@@ -221,6 +228,8 @@ STEPS = "rank@steps"  # rank launches that took the steps kernel (a thread a run
 SORT_SOURCE = "zen_rank::warp_merge_sort, zen_tpu_torch/csrc/rank_select.cuh"  # the steps' sort
 CORE = "register@core"  # K1's register launches that took the shared core (runs of outputs)
 FREQ_CORE = "network@core"  # K2's network launches that took its shared core
+MASK = "mask_apply/kernel"  # the mask-and-apply kernel (ops/mask_cuda.py): one a step or a pass
+MASK_STATS: dict = {}  # phase 32's rows of the kernel at the cells' shapes, for `kernels`
 SLOW_US = 100_000.0  # a phase-3 call past this is timed 3 times, not TIMED_RUNS
 # phase 3's select lines force a route through _time_launch, whose plan
 # lookups hash a wide tap set's offsets on the host (~0.5 ms at 25,601
@@ -239,6 +248,7 @@ SOURCES = {"tap_median_time": "zen_tpu_torch/csrc/median_time.cu",
            f"tap_median_time/{CORE}": "zen_tpu_torch/csrc/median_time_core.cu",
            f"sliding_median_boundary/{FREQ_CORE}": "zen_tpu_torch/csrc/median_freq_core.cu",
            "sliding_median_boundary": "zen_tpu_torch/csrc/median_freq.cu",
+           MASK: "zen_tpu_torch/csrc/mask_apply.cu",
            "rows_copy": "zen_tpu_torch/csrc/probe_copy.cu",
            "segment_copy": "zen_tpu_torch/csrc/probe_copy.cu"}
 FLEET_HOP, FLEET_BLOCK = 256, 16  # zen stream's defaults
@@ -532,11 +542,14 @@ def sm_count(device) -> int:
 
 
 def by_route(counts: dict) -> dict:
-    """``counts`` without the STEPS, CORE and FREQ_CORE keys: what a count
-    from the configs and shapes alone holds (which rank calls take the
-    steps kernel, and which register or network calls a shared core,
-    depends on each call's rows; phases 3, 7, 8, 9 and 31 check those)."""
-    return {k: v for k, v in counts.items() if not k.endswith((STEPS, CORE, FREQ_CORE))}
+    """``counts`` without the STEPS, CORE and FREQ_CORE keys and MASK:
+    what a count of the medians from the configs and shapes alone holds
+    (which rank calls take the steps kernel, and which register or network
+    calls a shared core, depends on each call's rows; phases 3, 7, 8, 9
+    and 31 check those; the mask-and-apply kernel's launches are checked
+    around the main path's own runs, phases 4-6 and 8, and in phase 32)."""
+    return {k: v for k, v in counts.items()
+            if k != MASK and not k.endswith((STEPS, CORE, FREQ_CORE))}
 
 
 def launch_keys(key: str) -> tuple:
@@ -1239,6 +1252,7 @@ def hold_masks(m_a, m_b, hop, got, want, stems, atol=STEM_ATOL, flip_share=FLIP_
 
 
 def reset_launches() -> None:
+    from zen_tpu_torch.ops import mask_cuda as mk
     from zen_tpu_torch.ops import median_cuda as mc
     from zen_tpu_torch.ops import probe_cuda as pc
 
@@ -1249,6 +1263,8 @@ def reset_launches() -> None:
     mc.sliding_median_boundary.stores.update(dict.fromkeys(mc.sliding_median_boundary.stores, 0))
     for name in PROBES:
         getattr(pc, name).launches = 0
+    mk.mask_apply.launches = 0
+    mk.mask_apply.routes.update(dict.fromkeys(mk.mask_apply.routes, 0))
 
 
 def read_launches() -> dict:
@@ -1257,9 +1273,11 @@ def read_launches() -> dict:
     kernel, 'kernel/rank@steps' (STEPS); of K1's on the register route,
     the ones that took the shared core, 'tap_median_time/register@core'
     (CORE); of K2's on the network route, the ones that took its shared
-    core, 'sliding_median_boundary/network@core' (FREQ_CORE); and of K2's
+    core, 'sliding_median_boundary/network@core' (FREQ_CORE); of K2's
     on the rank route, the ones whose keys took the key store,
-    'sliding_median_boundary/rank@scratch'."""
+    'sliding_median_boundary/rank@scratch'; and the mask-and-apply
+    kernel's, MASK ('mask_apply/kernel')."""
+    from zen_tpu_torch.ops import mask_cuda as mk
     from zen_tpu_torch.ops import median_cuda as mc
 
     counts = {f"{name}/{route}": getattr(mc, name).routes[route]
@@ -1268,7 +1286,15 @@ def read_launches() -> dict:
     counts[f"tap_median_time/{CORE}"] = mc.tap_median_time.cores
     counts[f"sliding_median_boundary/{FREQ_CORE}"] = mc.sliding_median_boundary.cores
     counts[f"sliding_median_boundary/{SCRATCH}"] = mc.sliding_median_boundary.stores["scratch"]
+    counts[MASK] = mk.mask_apply.routes["kernel"]
     return counts
+
+
+def mask_launches() -> int:
+    """The mask-and-apply kernel's launches since the last reset."""
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    return mk.mask_apply.routes["kernel"]
 
 
 def read_probe_launches() -> dict:
@@ -1293,8 +1319,14 @@ def run_stream(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64, **cfg_kw):
     hops = torch.from_numpy(audio).to(DEVICE).reshape(-1, hop)
     rt = HPRRealtime(fs, hop=hop, device=DEVICE, **cfg_kw)
     rt.warmup((b, 1))
+    n0 = mask_launches()
     outs = [rt.process_block(hops[j * b : (j + 1) * b]) for j in range(n_blocks)]
     outs += [rt.process_next_hop(hops[n_blocks * b + t]) for t in range(n_single)]
+    masked = mask_launches() - n0
+    per_step = int(not (rt.cfg.use_sse or rt.cfg.soft_mask))  # soft and SSE masks: none
+    require(masked == per_step * (n_blocks + n_single),
+            f"mask_apply launched {masked} times in {n_blocks + n_single} steps "
+            f"({per_step} a step)")
     got = torch.cat(outs, dim=1).cpu().numpy()[None]
     step = hops[:b]
     timing = {
@@ -1302,6 +1334,7 @@ def run_stream(fs=44100.0, hop=1024, b=32, n_blocks=64, n_single=64, **cfg_kw):
         "hop_us": wall_us_per_call(lambda: rt.process_next_hop(step[0]), 200),
         "prof_b": device_profile(lambda: rt.process_block(step)),
         "prof_1": device_profile(lambda: rt.process_next_hop(step[0])),
+        "mask_steps": (masked, n_blocks + n_single),
     }
     sizes = [b] * n_blocks + [1] * n_single
     return rt.cfg, got, audio[None], sizes, timing
@@ -1332,9 +1365,11 @@ def run_fleet(fs=44100.0, hop=256, c=64, b=32, n_blocks=16, **cfg_kw):
     blocks = torch.from_numpy(audio).to(DEVICE).reshape(c, n_blocks, b, hop)
     ms = MultiStreamHPR(c, fs, hop=hop, device=DEVICE, **cfg_kw)
     ms.warmup((b,))
+    n0 = mask_launches()
     got = torch.cat(
         [ms.process_block(blocks[:, j]) for j in range(n_blocks)], dim=2
     ).cpu().numpy()
+    masked = mask_launches() - n0
     # percussive-only fleet: compact rows, one per enabled stem
     perc = MultiStreamHPR(c, fs, hop=hop, outputs=OUTPUT_PERCUSSIVE, device=DEVICE, **cfg_kw)
     rows = perc.stem_rows
@@ -1342,9 +1377,15 @@ def run_fleet(fs=44100.0, hop=256, c=64, b=32, n_blocks=16, **cfg_kw):
         rows == {"harmonic": None, "percussive": 0, "residual": None},
         f"stem_rows of a percussive-only fleet: {rows}",
     )
+    n0 = mask_launches()
     part = torch.cat(
         [perc.process_block(blocks[:, j]) for j in range(4)], dim=2
     ).cpu().numpy()
+    masked_p = mask_launches() - n0
+    per_step = int(not (ms.cfg.use_sse or ms.cfg.soft_mask))  # soft and SSE masks: none
+    require(masked == per_step * n_blocks and masked_p == per_step * 4,
+            f"mask_apply launched {masked} times in {n_blocks} fleet steps and {masked_p} in "
+            f"4 percussive-only steps ({per_step} a step)")
     require(part.shape == (c, 1, 4 * b * hop), f"compact rows shape {part.shape}")
     full_p = got[:, ms.stem_rows["percussive"], : 4 * b * hop]
     scale = max(1.0, float(np.abs(full_p).max()))
@@ -1358,6 +1399,7 @@ def run_fleet(fs=44100.0, hop=256, c=64, b=32, n_blocks=16, **cfg_kw):
         "step_us": step_us,
         "msps": c * b * hop / step_us,
         "prof_b": device_profile(lambda: ms.process_block(step)),
+        "mask_steps": (masked + masked_p, n_blocks + 4),
     }
     return ms.cfg, got, audio, [b] * n_blocks, timing
 
@@ -1458,6 +1500,8 @@ def phase_offline_track(smi: str) -> dict:
     x = torch.from_numpy(synthetic_mix(TRACK_SAMPLES, OFFLINE_FS, seed=8)).to(DEVICE)
     reset_launches()
     whole = sep.process(x)
+    masked = mask_launches()
+    require(masked == 2, f"mask_apply launched {masked} times in one track (one a pass)")
     blocked = sep.process_blocked(x)
     torch.cuda.synchronize()
     launches = read_launches()
@@ -1492,7 +1536,8 @@ def phase_offline_track(smi: str) -> dict:
         f"phase 8 offline track {TRACK_SAMPLES} samples ({seconds:.0f} s): "
         f"process_blocked vs process {held}; process {t_whole:.3f} s wall (mean of 3) = {seconds / t_whole:.1f} s of "
         f"audio per s, peak {peak:.2f} GiB; process_blocked {t_blocked:.3f} s = "
-        f"{seconds / t_blocked:.1f} s of audio per s; launches {launches}; "
+        f"{seconds / t_blocked:.1f} s of audio per s; mask_apply {masked} launches in "
+        f"process() (one a pass); launches {launches}; "
         f"one process(): {prof} [{smi}]"
     )
     return launches
@@ -2970,13 +3015,15 @@ def tp_pass(audio, cfg, mesh) -> tuple:
     """tp_separate's two halves on ``audio`` [L]: (its stems {name: [L]},
     its (harmonic, percussive) masks [frames, nfft])."""
     from zen_tpu_torch.drivers.offline import _n_frames
+    from zen_tpu_torch.engine.spectral import stem_masks
     from zen_tpu_torch.parallel import sharded as tsh
 
     shards = tsh._ring(mesh, "tp", wrap=True)
     n_frames = _n_frames(audio.shape[-1], cfg)
     with tsh._tf32_off():
-        spectra, masks, inverse = tsh._tp_masks(audio, cfg, shards, n_frames)
-        out = tsh._tp_stems(spectra, masks, inverse, cfg, shards, n_frames)
+        spectra, features, inverse = tsh._tp_masks(audio, cfg, shards, n_frames)
+        out = tsh._tp_stems(spectra, features, inverse, cfg, shards, n_frames)
+        masks = [stem_masks(h, p, cfg) for h, p in features]
     stems = {name: out[i, : audio.shape[-1]] for i, name in enumerate(tsh.STEMS)}
     return stems, tuple(torch.cat([m[i] for m in masks], dim=-1) for i in (0, 1))
 
@@ -3691,8 +3738,8 @@ def phase_multihost(smi: str) -> dict:
                     require(by_route(got) == by_route(counts),
                             f"multihost N={n} {name} process {w['worker']}: launches "
                             f"{nonzero(got)}, counted from the shapes {nonzero(counts)}")
-                    for k in total:
-                        total[k] += got[k]
+                    for k in total:  # a worker's counters are the medians' alone
+                        total[k] += got.get(k, 0)
                 per = "; ".join(f"process {w['worker']}: {w['wall_s']:.2f} s, exchanges "
                                 f"[{mh.traffic_line(w['traffic']) or 'none'}], launches "
                                 f"{per_kernel(w['launches'])}" for w in leg["workers"])
@@ -4010,7 +4057,8 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
     own run; the copy mirrors run on phase 11's path; a rank route's row
     counts all its launches, its STEPS row the steps kernel's share and
     K2's SCRATCH row the key store's, each with the times of its own
-    shapes), and the
+    shapes; the mask-and-apply kernel's row, MASK, with phase 32's times
+    at the cells' shapes, MASK_STATS), and the
     routes no path launched (K2's rank route on the key store and its
     select route: no HPRConfig comes near 16,355 frequency taps, nor has a
     frequency median of so few outputs), checked in phase 3 only.
@@ -4035,7 +4083,106 @@ def kernel_rows(kstats: dict, by_path: dict) -> tuple:
         if route == STEPS:
             row["sort"] = SORT_SOURCE
         (rows if row["launches"] else off_path).append(row)
+    if MASK_STATS:  # it replaces no TPU kernel: XLA fuses the JAX engine's masks
+        first = MASK_STATS["shapes"][0]
+        row = {
+            "name": MASK, "route": "cuda", "source": SOURCES[MASK], "replaces": None,
+            "also_replaces": [],
+            "launches": sum(counts.get(MASK, 0) for counts in by_path.values()),
+            "launches_by_path": {path: counts.get(MASK, 0) for path, counts in by_path.items()},
+            "by_route_launches": 0, "max_abs_err": 0.0, "tolerance": "bitwise",
+            "shape": first["shape"],
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shapes": MASK_STATS["shapes"],
+        }
+        (rows if row["launches"] else off_path).append(row)
     return rows, off_path
+
+
+def mask_cases() -> list:
+    """(label, shape, stem axis, outputs, beta, per) of phase 32: the
+    fleet's step and the 4-minute track's two passes."""
+    return [("fleet step", (81920, 16, 513), 1, 2, 2.0, "step"),
+            ("track pass 1", (2585, 8193), 0, 7, 2.5, "pass"),
+            ("track pass 2", (41355, 513), 0, 2 | 4, 2.5, "pass")]
+
+
+def mask_operands(shape: tuple, beta: float, seed: int) -> tuple:
+    """(s, h, p) on the card, made there: features in [0, 3) with ties at
+    beta (p = beta * (h + eps)) and at beta - eps (h), h = p = 0, and
+    spectra of normal parts."""
+    from zen_tpu_torch.engine.config import EPS
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    h = torch.rand(shape, device=DEVICE, generator=g) * 3.0
+    p = torch.rand(shape, device=DEVICE, generator=g) * 3.0
+    s = torch.randn(shape, dtype=torch.complex64, device=DEVICE, generator=g)
+    eps, b = torch.tensor(np.float32(EPS)), torch.tensor(np.float32(beta))
+    hf, pf = h.view(-1), p.view(-1)
+    pf[3::11] = (hf[3::11] + eps) * b
+    hf[5::13] = (pf[5::13] + eps) * (b - eps)
+    hf[::17] = 0.0
+    pf[::17] = 0.0
+    return s, h, p
+
+
+def phase_mask_apply(smi: str) -> None:
+    """The mask-and-apply kernel at the cells' shapes, held bitwise (int32
+    views) against the ATen chain the engine ran before: compute_masks (all
+    three masks), then the step's stack and S[:, None] x the stack, or a
+    pass's S x mask a stem. Its device time (median of TIMED_RUNS) beside
+    the chain's ('library'), the plain twin's and the bound: h, p and S
+    read once, each stem written once, at 3.35 TB/s. The times go to
+    MASK_STATS, the kernel's row of the `kernels` line."""
+    from zen_tpu_torch.engine import spectral as sp
+    from zen_tpu_torch.engine.config import EPS, HPRConfig
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    for label, shape, dim, outputs, beta, per in mask_cases():
+        cfg = HPRConfig(fs=44100.0, hop=256, beta=beta, outputs=outputs)
+        live = sp.live_stems(cfg)
+        s, h, p = mask_operands(shape, beta, seed=32)
+
+        def kernel(s=s, h=h, p=p, cfg=cfg, live=live, dim=dim):
+            return mk.mask_apply(s, h, p, cfg.beta, EPS, live, cfg.output_harmonic,
+                                 cfg.output_percussive, dim)
+
+        def chain(s=s, h=h, p=p, cfg=cfg, live=live, dim=dim):
+            masks = sp.stem_masks(h, p, cfg)
+            if dim:
+                return s.unsqueeze(dim) * torch.stack([masks[i] for i in live], dim=dim)
+            return [s * masks[i] for i in live]
+
+        n = mk.mask_apply.launches
+        got, want = kernel(), chain()
+        torch.cuda.synchronize()
+        require(mk.mask_apply.launches == n + 1, f"phase 32 {label}: launches")
+        for row in range(len(live)):
+            w = want.select(dim, row) if dim else want[row]
+            require(torch.equal(torch.view_as_real(got.select(dim, row).contiguous()).view(
+                torch.int32), torch.view_as_real(w.contiguous()).view(torch.int32)),
+                f"phase 32 {label}: stem {sp.STEMS[live[row]]} differs from the ATen chain")
+        del got, want
+        us, runs = median_us(kernel), TIMED_RUNS
+        lib = median_us(chain)
+        plain = median_us(lambda: mk.mask_apply_plain(s, h, p, cfg.beta, EPS, live,
+                                                      cfg.output_harmonic,
+                                                      cfg.output_percussive, dim))
+        elems = math.prod(shape)
+        moved = elems * (4 + 4 + 8) + elems * 8 * len(live)
+        b_us = moved / HBM_BYTES_PER_S * 1e6
+        MASK_STATS.setdefault("shapes", []).append({
+            "label": label, "shape": list(shape), "stems": len(live), "ms": us / 1e3,
+            "plain_ms": plain / 1e3, "bound_ms": b_us / 1e3, "bound_by": "bytes",
+            "library_ms": lib / 1e3, "launches_per": per})
+        print(f"phase 32 mask_apply {label} {list(shape)} L={len(live)} "
+              f"({', '.join(sp.STEMS[i] for i in live)}): bitwise to the ATen chain; kernel "
+              f"{us:.2f} us (median of {runs}), ATen chain (library) {lib:.2f} us, its plain "
+              f"twin {plain:.2f} us; bound "
+              f"{b_us:.2f} us ({moved} B at 3.35 TB/s), the kernel at {100 * b_us / us:.1f}% of its roofline; "
+              f"1 launch per {per} [{smi}]")
+        del s, h, p
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -4106,7 +4253,10 @@ def main() -> None:
             and launches[f"sliding_median_boundary/{FREQ_CORE}"] > 0,
             f"kernel launches {launches} (the streams' rank calls walk from rank 0; the "
             "64-stream fleet's K2 takes its shared core)")
-    print(f"phase 6 streaming kernel launches: {launches}")
+    require(launches[MASK] > 0, f"kernel launches {launches}: no mask_apply launch")
+    print(f"phase 6 streaming kernel launches: {launches}; mask_apply one a step: "
+          f"{t1['mask_steps'][0]} in the stream's {t1['mask_steps'][1]} steps, "
+          f"{tm['mask_steps'][0]} in the fleets' {tm['mask_steps'][1]}")
 
     by_path = {"streaming": launches}
     for name, phase in (("offline_clip", phase_offline_clip), ("offline_track", phase_offline_track),
@@ -4121,7 +4271,7 @@ def main() -> None:
                         ("kernels_sweep", phase_kernels_sweep), ("soak", phase_soak),
                         ("scaling", phase_scaling), ("io_codec", phase_io_codec),
                         ("live_tools", phase_live_tools), ("multihost", phase_multihost),
-                        ("median2d", phase_median2d)):
+                        ("median2d", phase_median2d), ("mask_apply", phase_mask_apply)):
         t0 = time.perf_counter()
         counts = phase(smi)
         if counts is not None:
@@ -4132,14 +4282,14 @@ def main() -> None:
     # every route the paths' tap counts select ran on a path (frequency K:
     # 47 at hop 1024, 13 at hop 256, 187 offline at hop 4096, 1 at hop 32),
     # K1's warp route (hop 32) and select route (384 kHz hop 1), both rank
-    # routes' steps kernels (the offline pass 1, median2d's fl 93), and both
-    # copy mirrors
+    # routes' steps kernels (the offline pass 1, median2d's fl 93), both
+    # copy mirrors and the mask-and-apply kernel
     wanted = {"tap_median_time/register", "tap_median_time/rank", "tap_median_time/select",
               "tap_median_time/warp",
               f"tap_median_time/{CORE}", f"sliding_median_boundary/{FREQ_CORE}",
               *(f"{name}/{STEPS}" for name in ROUTES),
               *(f"sliding_median_boundary/{mc.freq_route(k)}" for k in (47, 13, 187, 1)),
-              *(f"{name}/copy" for name in PROBES)}
+              *(f"{name}/copy" for name in PROBES), MASK}
     launched = {row["name"] for row in rows}
     require(wanted <= launched, f"routes no path launched: {sorted(wanted - launched)}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")

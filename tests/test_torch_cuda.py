@@ -1705,3 +1705,147 @@ def test_traced_step_spans_hold_the_busy_time_at_64_streams(cuda_device, tmp_pat
     detail = {n: round(spans[n]["device_us"] / steps, 2) for n in spans}
     assert abs(leaf_us / busy - 1) < 0.03, (leaf_us, busy, step_us, detail)
     assert leaf_us <= step_us * 1.001, (leaf_us, step_us)
+
+
+# ---------------- the mask-and-apply kernel (ops/mask_cuda.py) ----------------
+
+MASK_CONFIGS = [
+    {}, {"outputs": 2}, {"outputs": 2 | 4}, {"outputs": 1 | 4}, {"beta": 1.3}, {"beta": 0.5},
+]
+
+
+def _mask_bits(x):
+    return torch.view_as_real(x.contiguous()).view(torch.int32)
+
+
+def _mask_subsets(cfg):
+    import itertools
+
+    live = sp.live_stems(cfg)
+    return [c for r in range(1, len(live) + 1) for c in itertools.combinations(live, r)]
+
+
+@pytest.mark.parametrize("kw", MASK_CONFIGS, ids=["all", "p", "p-r", "h-r", "beta1.3", "beta0.5"])
+@pytest.mark.parametrize(
+    "shape,dim",
+    [((64, 16, 513), 1),  # the step's [C, L, B, bins]
+     ((2585, 8193), 0), ((41355, 513), 0),  # the 4-minute track's passes: [L, T, bins]
+     ((7, 8193), 0),  # an odd element count: the vector route's scalar tail
+     ((1, 3, 11), 1),  # one o, 33 elements
+     ((5, 3, 7), 1),  # 21 elements an o: L > 1 takes the scalar route
+     ((3, 5), 0)],
+)
+def test_mask_kernel_bitwise_to_the_tensor_expression(cuda_device, kw, shape, dim):
+    """Every live-stem subset, both layouts, L = 1, 2, 3: the kernel's
+    output bit for bit (int32 views) the tensor path's expression
+    (``parent_masked``) on the same CUDA tensors, ties at beta and beta -
+    eps, h = p = 0 and signed zeros included."""
+    from test_torch_mask import mask_inputs, parent_masked
+    from zen_tpu_torch.engine.config import EPS
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    cfg = HPRConfig(fs=8000.0, hop=64, causal=True, **kw)
+    s, h, p = mask_inputs(np.random.default_rng(21), shape, cfg.beta, cuda_device)
+    for stems in _mask_subsets(cfg):
+        args = (s, h, p, cfg.beta, EPS, stems, cfg.output_harmonic, cfg.output_percussive, dim)
+        n = mk.mask_apply.launches
+        got = mk.mask_apply(*args)
+        want = parent_masked(s, h, p, cfg.beta, stems, cfg.output_harmonic,
+                             cfg.output_percussive, dim)
+        torch.cuda.synchronize()
+        assert mk.mask_apply.launches == n + 1
+        for row in range(len(stems)):
+            assert torch.equal(_mask_bits(got.select(dim, row)),
+                               _mask_bits(want.select(dim, row))), (stems, row)
+
+
+def test_mask_kernel_takes_unaligned_views(cuda_device):
+    """Operands that start off a 16-byte boundary (the blocked pass's
+    core rows) take the scalar route, bit for bit the tensor path's."""
+    from test_torch_mask import mask_inputs, parent_masked
+    from zen_tpu_torch.engine.config import EPS
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    s, h, p = mask_inputs(np.random.default_rng(22), (21, 513), 2.0, cuda_device)
+    s, h, p = s[1:], h[1:], p[1:]  # 513 elements in: 2052 and 4104 bytes
+    for stems in [(1,), (0, 1, 2)]:
+        got = mk.mask_apply(s, h, p, 2.0, EPS, stems)
+        want = parent_masked(s, h, p, 2.0, stems)
+        assert torch.equal(_mask_bits(got), _mask_bits(want))
+
+
+def test_mask_kernel_refuses_what_it_does_not_take(cuda_device):
+    from zen_tpu_torch.engine.config import EPS
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    s = torch.zeros((4, 6), dtype=torch.complex64, device=cuda_device)
+    h = torch.zeros((4, 6), device=cuda_device)
+    n = mk.mask_apply.launches
+    with pytest.raises(ZenError, match="contiguous"):
+        mk.mask_apply(s.t(), h.t(), h.t(), 2.0, EPS, (1,))
+    with pytest.raises(ZenError, match="devices"):
+        mk.mask_apply(s, h.cpu(), h, 2.0, EPS, (1,))
+    assert mk.mask_apply.launches == n
+
+
+def _step_twice(cfg, state, blocks):
+    from zen_tpu_torch.drivers import realtime as rt
+
+    return [rt.block_step(cfg, state, blocks[:, j]) for j in range(blocks.shape[1])]
+
+
+@pytest.mark.parametrize("kw", [{"outputs": 2}, {}, {"stream_state": "bf16"}],
+                         ids=["percussive", "all", "bf16"])
+def test_block_step_stems_bitwise_to_the_tensor_path(cuda_device, kw, monkeypatch):
+    """A 64-stream hop-256 step: stems and state bit for bit those of the
+    tensor path (the seam's twin on the same CUDA tensors), one kernel
+    launch a step."""
+    from zen_tpu_torch.drivers.realtime import StreamState, init_state
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    cfg = HPRConfig(fs=44100.0, hop=256, causal=True, **kw)
+    rng = np.random.default_rng(23)
+    state = init_state(cfg, 64, cuda_device)
+    state.ring.copy_(torch.from_numpy(rng.standard_normal(state.ring.shape).astype(np.float32)))
+    other = StreamState(*(t.clone() for t in state))
+    blocks = torch.from_numpy(rng.standard_normal((64, 2, 16, 256)).astype(np.float32)).to(
+        cuda_device)
+    n = mk.mask_apply.launches
+    got = _step_twice(cfg, state, blocks)
+    torch.cuda.synchronize()
+    assert mk.mask_apply.launches == n + 2
+    monkeypatch.setattr(mk, "mask_apply", mk.mask_apply_plain)
+    want = _step_twice(cfg, other, blocks)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, b in zip(state, other):
+        assert torch.equal(a, b)
+
+
+def test_two_pass_track_stems_bitwise_to_the_tensor_path(cuda_device, monkeypatch):
+    """HPRIOffline at BASELINE.json configs[0] on a 10-s track: stems bit
+    for bit the tensor path's, one kernel launch a pass."""
+    import chip_smoke as cs
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    sep = HPRIOffline(44100.0, 4096, 256, 2.5, 2.5, device=cuda_device)
+    x = torch.from_numpy(cs.synthetic_mix(441000, 44100.0, seed=24)).to(cuda_device)
+    n = mk.mask_apply.launches
+    got = sep.process(x)
+    torch.cuda.synchronize()
+    assert mk.mask_apply.launches == n + 2
+    monkeypatch.setattr(mk, "mask_apply", mk.mask_apply_plain)
+    for g, w in zip(got, sep.process(x)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kw", [{"soft_mask": True}, {"use_sse": True}], ids=["soft", "sse"])
+def test_soft_and_sse_masks_launch_no_mask_kernel(cuda_device, kw):
+    from zen_tpu_torch.ops import mask_cuda as mk
+
+    n = mk.mask_apply.launches
+    MultiStreamHPR(8, 8000.0, 64, device=cuda_device, **kw).process_block(torch.randn(8, 4, 64))
+    HPRIOffline(8000.0, 256, 64, device=cuda_device, **kw).process(np.random.default_rng(
+        25).standard_normal(8000).astype(np.float32))
+    torch.cuda.synchronize()
+    assert mk.mask_apply.launches == n

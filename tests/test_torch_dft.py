@@ -103,7 +103,8 @@ def test_matmuls_match_their_rounding_emulated(mode, nwin):
 @pytest.mark.parametrize("mode", MODES)
 def test_complex_spectrum_is_the_packed_matmul(mode):
     """analyze() is the forward matmul's re | im halves as complex, and
-    synthesize() the inverse matmul of the masked spectrum's halves."""
+    synthesize_spectrum() the inverse matmul of the masked spectrum's
+    halves."""
     cfg = T.HPRConfig(fs=8000.0, hop=64, causal=True, fft_impl=mode)
     assert tsp.dft_mode(cfg) == mode
     frames = torch.from_numpy(np.random.default_rng(1).standard_normal((3, 5, 128))
@@ -114,7 +115,7 @@ def test_complex_spectrum_is_the_packed_matmul(mode):
     mask = torch.rand(3, 5, 129, generator=torch.Generator().manual_seed(0))
     masked = s * mask
     y = tfft.dft_matmul(torch.cat([masked.real, masked.imag], -1), 128, 256, True, mode)
-    np.testing.assert_array_equal(tsp.synthesize(s, mask, cfg).numpy(),
+    np.testing.assert_array_equal(tsp.synthesize_spectrum(masked, cfg).numpy(),
                                   (y * tsp._f32(cfg.synth_scale)).numpy())
 
 

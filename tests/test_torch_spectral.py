@@ -1,7 +1,7 @@
 """zen_tpu_torch.engine.spectral against zen_tpu.engine.spectral.
 
 Tolerances, each with its reason:
-* transforms (analyze, synthesize): rel <= 1e-5 of the reference's max
+* transforms (analyze, synthesize_spectrum): rel <= 1e-5 of the reference's max
   magnitude — torch.fft and the XLA CPU FFT round differently (~2e-7
   relative at these sizes), nothing else differs;
 * medians and masks: bitwise — selection and float32 elementwise math
@@ -60,7 +60,7 @@ def test_synthesize_matches_jax(fast):
         s = np.fft.fft(np.fft.ifft(s).real).astype(np.complex64)
     mask = (rng.random((3, 6, bins)) > 0.4).astype(np.float32)
     want = _np(jsp.synthesize(jnp.asarray(s), jnp.asarray(mask), jc))
-    got = tsp.synthesize(torch.from_numpy(s), torch.from_numpy(mask), tc).numpy()
+    got = tsp.synthesize_spectrum(torch.from_numpy(s) * torch.from_numpy(mask), tc).numpy()
     assert got.shape == want.shape == (3, 6, jc.nwin)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=REL_FFT)

@@ -8,7 +8,7 @@ percussive only: the configuration of the JAX instrument) into legs, at
 each stream count S:
 
   full       drivers/realtime.block_step on init_state(cfg, S)
-  transform  analyze + synthesize(s, 0.5) on [S, B, nwin] frames (a
+  transform  analyze + synthesize_spectrum(s * 0.5) on [S, B, nwin] frames (a
              scalar mask, so no mask bytes)
   median     time_filtered_tail from row H on the [S, H + B, bins]
              features, freq_filtered on the fresh rows, and the cat roll,
@@ -36,7 +36,13 @@ from . import device_kind, platform, write_artifact
 from ..device import resolve_device
 from ..drivers.realtime import block_step, hist_dtype, init_state
 from ..engine.config import OUTPUT_PERCUSSIVE, HPRConfig
-from ..engine.spectral import analyze, freq_filtered, num_bins, synthesize, time_filtered_tail
+from ..engine.spectral import (
+    analyze,
+    freq_filtered,
+    num_bins,
+    synthesize_spectrum,
+    time_filtered_tail,
+)
 from ..runtime.profiling import device_ms, steady_state_ms
 
 LEGS = ("full", "transform", "median", "rest")
@@ -89,7 +95,7 @@ def legs(cfg: HPRConfig, n_streams: int, block_hops: int, device, seed: int = 0)
 
     return {
         "full": (lambda _: block_step(cfg, state, blocks), blocks),
-        "transform": (lambda _: synthesize(analyze(frames, cfg), 0.5, cfg), frames),
+        "transform": (lambda _: synthesize_spectrum(analyze(frames, cfg) * 0.5, cfg), frames),
         "median": (median, (feats, fresh)),
     }
 

@@ -37,7 +37,6 @@ from ..engine.spectral import (
     STEMS,
     FrameMasks,
     analyze_features,
-    feature_masks,
     frame_masks,
     freq_filtered,
     synthesize_masked,
@@ -82,8 +81,9 @@ def _n_frames(length: int, cfg: HPRConfig) -> int:
 
 def pass_masks(audio: torch.Tensor, cfg: HPRConfig) -> FrameMasks:
     """The masks half of one offline pass over audio [..., L]: the
-    padded frames' spectra and masks [..., frames, bins]. Frame t feeds
-    output chunks t - 1 and t."""
+    padded frames' spectra and filtered features [..., frames, bins]
+    (``FrameMasks``; its ``masks`` on demand). Frame t feeds output
+    chunks t - 1 and t."""
     return frame_masks(frame_signal(audio, cfg.hop, _n_frames(audio.shape[-1], cfg)), cfg)
 
 
@@ -91,7 +91,7 @@ def pass_stems(fm: FrameMasks, cfg: HPRConfig, audio: torch.Tensor) -> dict:
     """The synthesis half of one offline pass over audio [..., L]: dict
     of [..., L] stems from the pass's masks (zeros for a disabled stem)."""
     length = audio.shape[-1]
-    ys = synthesize_masked(fm, cfg)
+    ys = synthesize_masked(fm)
     with span("zen.ola", audio):
         return {
             name: torch.zeros_like(audio) if y is None
@@ -156,8 +156,8 @@ def _blocks(audio: torch.Tensor, cfg: HPRConfig, blk: _Blocking):
 
 
 def _block_masks(cfg: HPRConfig, blk: _Blocking, samples: torch.Tensor) -> FrameMasks:
-    """The masks half of one block: spectra and masks of its bf core
-    frames. Halo rows are tap context only: the time median runs on rows
+    """The masks half of one block: spectra and filtered features of its
+    bf core frames. Halo rows are tap context only: the time median runs on rows
     from ``back`` on, and the kept rows' forward taps stay inside the
     extended block."""
     with span("zen.frame", samples):
@@ -166,9 +166,7 @@ def _block_masks(cfg: HPRConfig, blk: _Blocking, samples: torch.Tensor) -> Frame
     s, feat = analyze_features(frames, cfg)
     core = slice(blk.back, blk.back + blk.bf)
     h = time_filtered_tail(feat, cfg, blk.back)[: blk.bf]
-    p = freq_filtered(feat[core], cfg)
-    pm, hm, rm = feature_masks(h, p, cfg)
-    return FrameMasks(s[core], (hm, pm, rm))
+    return FrameMasks(s[core], h, freq_filtered(feat[core], cfg), cfg)
 
 
 def blocked_pass_masks(audio: torch.Tensor, cfg: HPRConfig, block_frames: int = 2048):
@@ -186,7 +184,7 @@ def _block_step(cfg: HPRConfig, blk: _Blocking, samples: torch.Tensor, tails: to
     """One block of the overlap-save pass: (stems [3, bf * hop], the OLA
     tails [3, hop] it carries into the next block)."""
     hop = cfg.hop
-    ys = synthesize_masked(_block_masks(cfg, blk, samples), cfg)
+    ys = synthesize_masked(_block_masks(cfg, blk, samples))
     rows, new_tails = [], []
     with span("zen.ola", samples):
         for tail, y in zip(tails, ys.values()):

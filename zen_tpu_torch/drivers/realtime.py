@@ -30,11 +30,13 @@ from ..engine.config import OUTPUT_ALL, HPRConfig
 from ..engine.spectral import (
     STEMS,
     analyze_features,
-    feature_masks,
     freq_filtered,
+    live_stems,
+    masked_spectra,
     num_bins,
     prefill_value,
-    synthesize,
+    stem_masks,
+    synthesize_spectrum,
     time_filtered_tail_pair,
 )
 from ..device import resolve_device
@@ -97,16 +99,24 @@ class StepSpectra(NamedTuple):
     samples: torch.Tensor  # [C, nwin + B*hop] ring ++ block
     spectra: torch.Tensor  # [C, B, bins] complex
     feat: torch.Tensor  # [C, B, bins] filter input, in the history's dtype
-    masks: tuple  # (harmonic, percussive, residual) [C, B, bins]; the
-    # residual is None under soft and SSE masks
+    h: torch.Tensor  # [C, B, bins] time-filtered features, float32
+    p: torch.Tensor  # [C, B, bins] frequency-filtered features, float32
+    cfg: HPRConfig
+
+    @property
+    def masks(self) -> tuple:
+        """(harmonic, percussive, residual) masks [C, B, bins], the
+        residual None under soft and SSE masks: formed on demand, for the
+        instruments; ``block_step`` never forms them."""
+        return stem_masks(self.h, self.p, self.cfg)
 
 
 def step_masks(
     cfg: HPRConfig, state: StreamState, blocks: torch.Tensor
 ) -> StepSpectra:
     """The analysis half of ``block_step``: framing over ring ++ block,
-    window + FFT, both median filters and the masks of B hops of C
-    streams. Reads ``state`` and leaves it as it is."""
+    window + FFT and both median filters of B hops of C streams, whose
+    masks the step applies. Reads ``state`` and leaves it as it is."""
     if not cfg.causal:
         raise ZenError("streaming drivers are causal-only")
     c, b, hop = blocks.shape
@@ -124,9 +134,7 @@ def step_masks(
     # either way.
     s, feat = analyze_features(frames, cfg, state.feat_hist.dtype)
     h_rows = time_filtered_tail_pair(state.feat_hist, feat, cfg)
-    p_rows = freq_filtered(feat, cfg)
-    pm, hm, rm = feature_masks(h_rows, p_rows, cfg)
-    return StepSpectra(samples, s, feat, (hm, pm, rm))
+    return StepSpectra(samples, s, feat, h_rows, freq_filtered(feat, cfg), cfg)
 
 
 def advance_state(cfg: HPRConfig, state: StreamState, step: StepSpectra) -> None:
@@ -162,17 +170,16 @@ def block_step(
         step = step_masks(cfg, state, blocks)
 
         # only enabled stems are synthesized and emitted (compact rows);
-        # the enabled stems with a mask go through one batched inverse
-        masks = step.masks
-        en = enabled_stems(cfg)
-        live = [i for i in en if masks[i] is not None]
+        # the masked spectra of the enabled stems with a mask [C, L, B,
+        # bins] go through one batched inverse
+        en, live = enabled_stems(cfg), live_stems(cfg)
         if live:
+            masked = masked_spectra(step.spectra, step.h, step.p, cfg, live, 1)
             with span("zen.synth", blocks):
-                live_masks = torch.stack([masks[i] for i in live], dim=1)
-                y = synthesize(step.spectra.unsqueeze(1), live_masks, cfg)  # [C, L, B, nwin]
+                y = synthesize_spectrum(masked, cfg)  # [C, L, B, nwin]
         with span("zen.ola", blocks):
             if live:
-                tails = _rows(tuple(live), blocks.device)
+                tails = _rows(live, blocks.device)
                 prev_tails = torch.cat(
                     [state.ola_tail[:, tails, None], y[:, :, :-1, hop:]], dim=2
                 )

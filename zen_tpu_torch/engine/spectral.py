@@ -11,12 +11,16 @@ caller expects, and a mismatch raises, so no median on CUDA tensors
 ever runs the plain twin. The SSE variant (``use_sse``) replaces both
 medians by box means of 1/|S|^2 (``ops/box.py``) and runs no median.
 The transform is ``torch.fft`` (cuFFT on the card), or the DFT matmuls
-of ``ops/fft.py`` under ``fft_impl='dft*'``; masks and synthesis are
-float32 tensor math, written to round as the JAX engine does.
+of ``ops/fft.py`` under ``fft_impl='dft*'``. The masks meet the spectrum
+in one seam, ``masked_spectra``: hard masks go through the mask-and-apply
+kernel of ``ops/mask_cuda.py`` (its plain twin on CPU tensors), which
+writes S * mask of each live stem straight into the inverse's input and
+stores no mask; soft and SSE masks are float32 tensor math. Both round
+as the JAX engine does.
 Each phase of a pass opens its span (``runtime/profiling.span``):
 ``zen.analyze`` (``analyze_features``), ``zen.k1`` (``time_filtered_tail``
 and its pair form), ``zen.k2`` (``freq_filtered``), ``zen.mask``
-(``feature_masks``) and ``zen.synth`` (``synthesize_masked``).
+(``masked_spectra``) and ``zen.synth`` (``synthesize_masked``).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 from ..errors import ZenError
 from ..ops import box
 from ..ops import fft as zfft
-from ..ops import median_cuda, windows
+from ..ops import mask_cuda, median_cuda, windows
 from ..runtime.profiling import span
 from .config import EPS, VALID, HPRConfig
 
@@ -221,12 +225,13 @@ def _integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
 def compute_masks(h: torch.Tensor, p: torch.Tensor, cfg: HPRConfig):
     """(pm, hm, rm) percussive / harmonic / residual masks, float32.
 
-    Hard mask (hps.h:100-113): (x / (y + eps)) >= beta, the harmonic
-    mask against beta - eps so ties go percussive (hps.cu:540); residual
-    1 - (hm + pm) with a disabled stem's mask taken as 0 (hps.cu:562-567).
-    Soft/Wiener mask (hps.h:116-129): x^n / (x^n + y^n + eps) with
-    n = int(beta); SSE mask (hps.h:132-140): x^2 / (x^2 + y^2 + eps);
-    neither has a residual (None). Constants are float32 scalars.
+    Hard mask (hps.h:100-113): ``mask_cuda.hard_masks``, (x / (y + eps))
+    >= beta, the harmonic mask against beta - eps so ties go percussive
+    (hps.cu:540); residual 1 - (hm + pm) with a disabled stem's mask taken
+    as 0 (hps.cu:562-567). Soft/Wiener mask (hps.h:116-129): x^n / (x^n +
+    y^n + eps) with n = int(beta); SSE mask (hps.h:132-140): x^2 / (x^2 +
+    y^2 + eps); neither has a residual (None). Constants are float32
+    scalars.
     """
     eps = _f32(EPS)
     if cfg.use_sse:
@@ -236,29 +241,53 @@ def compute_masks(h: torch.Tensor, p: torch.Tensor, cfg: HPRConfig):
         n = cfg.soft_power
         hp, pp = _integer_pow(h, n), _integer_pow(p, n)
         return pp / (pp + hp + eps), hp / (hp + pp + eps), None
-    beta = _f32(cfg.beta)
-    pm = (p / (h + eps) >= beta).to(torch.float32)
-    hm = (h / (p + eps) >= beta - eps).to(torch.float32)
-    hm_eff = hm if cfg.output_harmonic else torch.zeros_like(hm)
-    pm_eff = pm if cfg.output_percussive else torch.zeros_like(pm)
-    return pm, hm, 1.0 - (hm_eff + pm_eff)
+    return mask_cuda.hard_masks(h, p, cfg.beta, EPS, cfg.output_harmonic,
+                                cfg.output_percussive)
 
 
 def feature_masks(h: torch.Tensor, p: torch.Tensor, cfg: HPRConfig):
     """``compute_masks`` of the filtered features h and p as the masks
     read them (``finalize_features``): (pm, hm, rm)."""
-    with span("zen.mask", h):
-        return compute_masks(*finalize_features(h, p, cfg), cfg)
+    return compute_masks(*finalize_features(h, p, cfg), cfg)
 
 
-def synthesize(s: torch.Tensor, mask: torch.Tensor, cfg: HPRConfig) -> torch.Tensor:
-    """Masked inverse FFT, scaled, truncated to nwin: [..., T, nwin].
+def stem_masks(h: torch.Tensor, p: torch.Tensor, cfg: HPRConfig) -> tuple:
+    """``feature_masks`` in STEMS order: (harmonic, percussive, residual)."""
+    pm, hm, rm = feature_masks(h, p, cfg)
+    return hm, pm, rm
 
-    y = Re(IFFT(S * mask)) * nfft * COLA — the unnormalized backward
+
+def live_stems(cfg: HPRConfig) -> tuple:
+    """Indices into STEMS of the enabled stems that have a mask (the
+    residual has none under soft and SSE masks)."""
+    return tuple(i for i, name in enumerate(STEMS) if getattr(cfg, f"output_{name}")
+                 and not (name == "residual" and (cfg.use_sse or cfg.soft_mask)))
+
+
+def masked_spectra(s: torch.Tensor, h: torch.Tensor, p: torch.Tensor, cfg: HPRConfig,
+                   live: tuple, dim: int) -> torch.Tensor:
+    """S * mask of each stem of ``live`` (indices into STEMS, each with a
+    mask) under the masks of the filtered features h and p, stacked along
+    a new axis at ``dim`` of s [..., T, bins]; each stem's slice is
+    contiguous. Hard masks take ``mask_cuda.mask_apply`` (the kernel on
+    CUDA tensors, which stores no mask; its twin on CPU tensors), soft and
+    SSE masks the tensor path. Span ``zen.mask``."""
+    with span("zen.mask", s):
+        if not (cfg.use_sse or cfg.soft_mask):
+            return mask_cuda.mask_apply(s, h, p, cfg.beta, EPS, live, cfg.output_harmonic,
+                                        cfg.output_percussive, dim)
+        masks = stem_masks(h, p, cfg)
+        return torch.stack([s * masks[i] for i in live], dim=dim)
+
+
+def synthesize_spectrum(masked: torch.Tensor, cfg: HPRConfig) -> torch.Tensor:
+    """Inverse FFT of a masked spectrum, scaled, truncated to nwin:
+    [..., T, nwin].
+
+    y = Re(IFFT(masked)) * nfft * COLA — the unnormalized backward
     transform (fftw.h:40-43) folded with the OLA COLA factor
     (hps.h:68-80) into one float32 scale.
     """
-    masked = s * mask
     mode = dft_mode(cfg)
     if mode is not None:
         return zfft.irfft_head_dft(masked, cfg.nfft, cfg.nwin, mode) * _f32(cfg.synth_scale)
@@ -270,28 +299,42 @@ def synthesize(s: torch.Tensor, mask: torch.Tensor, cfg: HPRConfig) -> torch.Ten
 
 
 class FrameMasks(NamedTuple):
+    """The masks half of a pass: the spectra and the filtered features
+    whose masks the synthesis half applies."""
+
     spectra: torch.Tensor  # [..., T, bins] complex
-    masks: tuple  # (harmonic, percussive, residual) [..., T, bins]; the
-    # residual is None under soft and SSE masks
+    h: torch.Tensor  # [..., T, bins] time-filtered features, float32
+    p: torch.Tensor  # [..., T, bins] frequency-filtered features, float32
+    cfg: HPRConfig
+
+    @property
+    def masks(self) -> tuple:
+        """(harmonic, percussive, residual) masks [..., T, bins], the
+        residual None under soft and SSE masks: formed on demand, for the
+        instruments; the synthesis half never forms them."""
+        return stem_masks(self.h, self.p, self.cfg)
 
 
 def frame_masks(frames: torch.Tensor, cfg: HPRConfig) -> FrameMasks:
     """The masks half of zen_tpu's ``separate_frames``: window + FFT,
-    |S|, both medians and the masks of frames [..., T, nwin]. Split from
-    the synthesis half so that a flip recount runs the very masks the
-    stems come from."""
+    |S| and both medians of frames [..., T, nwin]. Split from the
+    synthesis half so that a flip recount runs the very masks the stems
+    come from."""
     s, feats = analyze_features(frames, cfg)
-    pm, hm, rm = feature_masks(time_filtered(feats, cfg), freq_filtered(feats, cfg), cfg)
-    return FrameMasks(s, (hm, pm, rm))
+    return FrameMasks(s, time_filtered(feats, cfg), freq_filtered(feats, cfg), cfg)
 
 
-def synthesize_masked(fm: FrameMasks, cfg: HPRConfig) -> dict:
+def synthesize_masked(fm: FrameMasks) -> dict:
     """The synthesis half of zen_tpu's ``separate_frames``: per-frame
     scaled iFFTs [..., T, nwin] of each enabled stem with a mask, None
-    otherwise."""
-    out = {}
+    otherwise. The masked spectra of the live stems are formed at once
+    (``masked_spectra``, [L, ..., T, bins]); each stem's inverse runs on
+    its own slice, as a batch's rows change cuFFT's bits."""
+    cfg, out = fm.cfg, dict.fromkeys(STEMS)
+    live = live_stems(cfg)
+    if live:
+        masked = masked_spectra(fm.spectra, fm.h, fm.p, cfg, live, 0)
     with span("zen.synth", fm.spectra):
-        for name, mask in zip(STEMS, fm.masks):
-            enabled = getattr(cfg, f"output_{name}") and mask is not None
-            out[name] = synthesize(fm.spectra, mask, cfg) if enabled else None
+        for row, i in enumerate(live):
+            out[STEMS[i]] = synthesize_spectrum(masked[row], cfg)
     return out

@@ -21,9 +21,8 @@ only chip_smoke.py's split of a rank block's time loads; it leaves out
 to cut) and their entries.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
-wrappers in ``median_cuda.py`` and ``probe_cuda.py`` raise on a nonzero
-code through
-``check``. Nothing here is imported or built on a machine without CUDA
+wrappers in ``median_cuda.py``, ``probe_cuda.py`` and ``mask_cuda.py``
+raise on a nonzero code through ``check``. Nothing here is imported or built on a machine without CUDA
 unless a CUDA tensor reaches a wrapper.
 """
 from __future__ import annotations
@@ -53,6 +52,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # a, b, out, c, ta, tb, f, start, t_out, plan (device), min_o, span, staged, run, k,
 # fill: the arguments K1's rank and select routes share
 _TIME_PLAN = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, ctypes.c_float]
@@ -84,7 +84,12 @@ _ROWS_COPY = ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I)
 _SEGMENT_COPY = ([_P, _P, _I, _I, _I, _I, _I, _P], _I)
 # the same, without the tile
 _SEGMENT_COPY_VALUES = ([_P, _P, _I, _I, _I, _I, _P], _I)
+# h, p, s, out, n, inner, stride, stems (count, codes), need_h, need_p, output_harmonic,
+# output_percussive, eps, beta, beta - eps, pairs, SMs, stream
+_MASK_APPLY = ([_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                ctypes.c_float, ctypes.c_float, _I, _I, _P], _I)
 _SIGNATURES = {
+    "zen_mask_apply": _MASK_APPLY,
     "zen_rows_copy": _ROWS_COPY,
     "zen_rows_copy_bf16": _ROWS_COPY,
     "zen_segment_copy": _SEGMENT_COPY,

@@ -71,12 +71,13 @@ from ..engine.spectral import (
     _check_median_route,
     _windowed,
     analyze,
-    compute_masks,
     feature_transform,
-    finalize_features,
     freq_filtered,
+    live_stems,
+    masked_spectra,
     prefill_value,
-    synthesize,
+    stem_masks,
+    synthesize_spectrum,
     time_filtered,
     time_filtered_tail,
 )
@@ -158,25 +159,16 @@ def _ring(mesh: Mesh, axis: str, wrap: bool = False) -> _Shards:
     return _Shards(ks, [mesh.device(**coords[j]) for j in ks], owners, wrap)
 
 
-def _masks_by_stem(h, p, cfg: HPRConfig) -> tuple:
-    pm, hm, rm = compute_masks(h, p, cfg)
-    return hm, pm, rm
-
-
-def _enabled(cfg: HPRConfig, name: str, mask) -> bool:
-    return getattr(cfg, f"output_{name}") and mask is not None
-
-
 # ---------------- dp x sp: the batched pass ----------------
 
 
 def _sp_masks(local: list, sh: _Shards, cfg: HPRConfig) -> tuple:
     """The masks half of one pass over this process's shards (zen_tpu's
     ``_sp_shard_fn`` up to its masks): local[i] [rows, tl*hop], shard
-    sh.ks[i] on sh.devs[i] -> (spectra [rows, tl, bins] per shard,
-    (harmonic, percussive, residual) masks per shard). Split from the
-    synthesis half so that a flip count can read the very masks the stems
-    come from."""
+    sh.ks[i] on sh.devs[i] -> (spectra [rows, tl, bins] per shard, the
+    filtered features (h, p) [rows, tl, bins] per shard, whose masks the
+    synthesis half applies). Split from the synthesis half so that a flip
+    count can read the very masks the stems come from (``stem_masks``)."""
     hop = cfg.hop
     tl = local[0].shape[-1] // hop
     back = cfg.time_history
@@ -198,26 +190,37 @@ def _sp_masks(local: list, sh: _Shards, cfg: HPRConfig) -> tuple:
     fill = prefill_value(cfg)
     left = sh.from_left([f[..., f.shape[-2] - back :, :] for f in feats], fill)
     right = sh.from_right([f[..., :fwd, :] for f in feats], fill)
-    masks = []
+    features = []
     for f, lh, rh in zip(feats, left, right):
         ext = torch.cat([lh, f, rh], dim=-2) if back or fwd else f
         # the kept rows only: the back halo is tap context, and the kept
-        # rows' forward taps stay inside ext
-        h = time_filtered_tail(ext, cfg, back)[..., :tl, :]
-        masks.append(_masks_by_stem(*finalize_features(h, freq_filtered(f, cfg), cfg), cfg))
-    return spectra, masks
+        # rows' forward taps stay inside ext (the mask kernel takes them
+        # contiguous)
+        h = time_filtered_tail(ext, cfg, back)[..., :tl, :].contiguous()
+        features.append((h, freq_filtered(f, cfg)))
+    return spectra, features
 
 
-def _sp_stems(spectra: list, masks: list, local: list, sh: _Shards, cfg: HPRConfig) -> list:
+def _masked_by_shard(spectra: list, features: list, cfg: HPRConfig) -> tuple:
+    """(the live stems, each shard's masked spectra of them [L, ...]):
+    ``masked_spectra`` of each shard's spectra and filtered features."""
+    live = live_stems(cfg)
+    if not live:
+        return live, []
+    return live, [masked_spectra(s, h, p, cfg, live, 0) for s, (h, p) in zip(spectra, features)]
+
+
+def _sp_stems(spectra: list, features: list, local: list, sh: _Shards, cfg: HPRConfig) -> list:
     """The synthesis half: stems [3, rows, tl*hop] per shard, with (3)
     the overlap-add seam, the right neighbour's first synthesized row."""
     outs = [[] for _ in local]
-    for i, name in enumerate(STEMS):
-        if not _enabled(cfg, name, masks[0][i]):
+    live, masked = _masked_by_shard(spectra, features, cfg)
+    for i in range(len(STEMS)):
+        if i not in live:
             for o, x in zip(outs, local):
                 o.append(torch.zeros_like(x))
             continue
-        ys = [synthesize(s, m[i], cfg) for s, m in zip(spectra, masks)]
+        ys = [synthesize_spectrum(m[live.index(i)], cfg) for m in masked]
         nxt = sh.from_right([y[..., :1, :] for y in ys])
         for o, y, n in zip(outs, ys, nxt):
             o.append(overlap_add_stream(torch.cat([y, n], dim=-2), cfg.hop, advance=1))
@@ -267,10 +270,10 @@ def _sp_gather(parts: list, n_sp: int, time_dim: int, row_dim: int,
 
 def _own_pass(audio: torch.Tensor, row0: int, rows: int, cfg: HPRConfig, sh: _Shards) -> tuple:
     """One dp x sp pass over this process's shards: (stems [3, rows,
-    span] per shard, each shard's masks)."""
+    span] per shard, each shard's filtered features (h, p))."""
     local = _sp_local(audio, row0, rows, cfg, sh)
-    spectra, masks = _sp_masks(local, sh, cfg)
-    return _sp_stems(spectra, masks, local, sh, cfg), masks
+    spectra, features = _sp_masks(local, sh, cfg)
+    return _sp_stems(spectra, features, local, sh, cfg), features
 
 
 def _joined(pieces: list, sh: _Shards, length: int, time_dim: int = -1,
@@ -300,8 +303,9 @@ def sharded_pass_masks(audio, cfg: HPRConfig, mesh: Mesh, dp_axis: str = "dp",
     [C, frames, bins] they came from, both on this process's first
     device: what a flip count between two runs of a pass reads."""
     audio, sh, rows = _dp_sp(audio, mesh, dp_axis, sp_axis)
-    pieces, masks = _own_pass(audio, 0, rows, cfg, sh)
+    pieces, features = _own_pass(audio, 0, rows, cfg, sh)
     stems = dict(zip(STEMS, _joined(pieces, sh, audio.shape[-1])))
+    masks = [stem_masks(h, p, cfg) for h, p in features]
     return stems, tuple(_joined([m[i] for m in masks], sh, None, -2, 0) for i in (0, 1))
 
 
@@ -575,9 +579,10 @@ def _partial_dft(cfg: HPRConfig, start: int, fb: int, device: torch.device) -> t
 
 def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, sh: _Shards, n_frames: int) -> tuple:
     """The masks half of one frequency-sharded pass (zen_tpu's
-    ``_tp_shard_fn`` up to its masks): (spectra [..., T, fb], (harmonic,
-    percussive, residual) masks, the inverse DFT matrices), one entry per
-    shard this process issues."""
+    ``_tp_shard_fn`` up to its masks): (spectra [..., T, fb], the
+    filtered features (h, p) [..., T, fb] whose masks the synthesis half
+    applies, the inverse DFT matrices), one entry per shard this process
+    issues."""
     hop, nfft, n_tp = cfg.hop, cfg.nfft, sh.n
     fb = nfft // n_tp
     fm = cfg.freq_filter_len // 2
@@ -609,18 +614,18 @@ def _tp_masks(audio: torch.Tensor, cfg: HPRConfig, sh: _Shards, n_frames: int) -
         exts = [torch.cat([lh, f, rh], dim=-1) for f, lh, rh in zip(feats, left, right)]
     else:  # feats[..., -0:] would be the whole block
         exts = feats
-    masks = []
+    features = []
     for h, ext in zip(hs, exts):
         if cfg.use_sse:
             p = box.sliding_mean(ext, cfg.freq_offsets, -1, "zero")[..., fm : fm + fb]
         else:
             _check_median_route(cfg, ext)
             p = median_cuda.sliding_median_boundary(ext, 2 * fm + 1, "valid")
-        masks.append(_masks_by_stem(*finalize_features(h, p, cfg), cfg))
-    return spectra, masks, inverse
+        features.append((h, p))
+    return spectra, features, inverse
 
 
-def _tp_stems(spectra: list, masks: list, inverse: list, cfg: HPRConfig, sh: _Shards,
+def _tp_stems(spectra: list, features: list, inverse: list, cfg: HPRConfig, sh: _Shards,
               n_frames: int) -> torch.Tensor:
     """The synthesis half: stems [3, ..., (n_frames-1)*hop] on this
     process's first shard's device. Each shard's partial inverse DFT
@@ -629,14 +634,15 @@ def _tp_stems(spectra: list, masks: list, inverse: list, cfg: HPRConfig, sh: _Sh
     hop = cfg.hop
     lead = spectra[0].shape[:-2]
     outs = []
-    for i, name in enumerate(STEMS):
-        if not _enabled(cfg, name, masks[0][i]):
+    live, masked = _masked_by_shard(spectra, features, cfg)
+    for i in range(len(STEMS)):
+        if i not in live:
             outs.append(torch.zeros(lead + ((n_frames - 1) * hop,), device=sh.devs[0]))
             continue
         ys = []
-        for s, m, (inv_c, inv_s) in zip(spectra, masks, inverse):
-            masked = s * m[i]
-            ys.append(masked.real @ inv_c - masked.imag @ inv_s)
+        for m, (inv_c, inv_s) in zip(masked, inverse):
+            m = m[live.index(i)]
+            ys.append(m.real @ inv_c - m.imag @ inv_s)
         y = multihost.ordered_sum(ys, sh.ks, sh.owners, sh.devs[0])
         outs.append(overlap_add_stream(y, hop, advance=1))
     return torch.stack(outs)
